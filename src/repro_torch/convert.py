@@ -1,0 +1,37 @@
+"""Carry the reference's data into the port.
+
+Callers turn a JAX ``CSRGraph`` or ``RRBatch`` into numpy arrays
+(``np.asarray``) and hand them here; this module imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import RRBatch
+from repro_torch.device import resolve_device
+from repro_torch.graph.csr import CSRGraph, _from_numpy
+
+
+def graph_from_arrays(offsets, indices, weights, device="cuda") -> CSRGraph:
+    """A port CSR graph with the given (offsets, indices, weights)."""
+    offsets = np.asarray(offsets)
+    indices = np.asarray(indices)
+    if offsets.ndim != 1 or indices.ndim != 1 or \
+            np.shape(weights) != indices.shape or \
+            int(offsets[-1]) != indices.shape[0]:
+        raise ValueError("inconsistent CSR arrays")
+    return _from_numpy(offsets, indices, weights, device)
+
+
+def batch_from_arrays(nodes, lengths, overflowed, steps, roots=None,
+                      device="cuda") -> RRBatch:
+    """A port RRBatch from the arrays of a reference ``RRBatch``."""
+    dev = resolve_device(device)
+
+    def put(a, dtype):
+        return torch.tensor(np.asarray(a, dtype), device=dev)
+
+    return RRBatch(nodes=put(nodes, np.int32), lengths=put(lengths, np.int32),
+                   overflowed=put(overflowed, np.bool_), steps=int(steps),
+                   roots=None if roots is None else put(roots, np.int32))

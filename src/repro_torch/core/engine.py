@@ -1,0 +1,126 @@
+"""Sampler-engine protocol and registry: the canonical :class:`RRBatch` and
+the ``queue`` engine (the reference's ``repro.core.engine``).
+
+An engine is configured by a ``Config`` dataclass, registered under a short
+name and returns one :class:`RRBatch` from ``sample(seed32)``, where
+``seed32`` is the 32-bit seed of the sampling round (the port draws from
+the counter hash, not from a key).  The other engines of the reference
+(dense, refill, lt, mrim) wait for ROADMAP Queue 1 item 7.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.graph.csr import CSRGraph, coalesce_ic
+from repro_torch.core import rrset as rr_queue
+
+
+class RRBatch(NamedTuple):
+    """One batch of RR sets on a device.
+
+    Invariants (:meth:`validate` checks them): one row per RR set, padded to
+    the batch's longest set; ``lengths[i]`` counts row i's nodes, which lie
+    in ``[0, item_space)``, are distinct and start with the row's root;
+    entries past ``lengths[i]`` are undefined.  A row of length 0 is padding
+    (no RR set) and the store drops it without a row id.  ``overflowed`` is
+    per lane; ``steps`` counts the lockstep micro-steps of the batch.
+    """
+    nodes: torch.Tensor       # (R, W) int32
+    lengths: torch.Tensor     # (R,) int32
+    overflowed: torch.Tensor  # (L,) bool
+    steps: int
+    roots: Optional[torch.Tensor] = None  # (R,) int32
+
+    @property
+    def n_sets(self) -> int:
+        return int(self.lengths.shape[0])
+
+    def validate(self, item_space: int) -> None:
+        """Raise ``ValueError`` if the batch breaks an invariant (host check,
+        for tests and for batches that come from outside the port)."""
+        nodes = self.nodes.cpu().numpy()
+        lens = self.lengths.cpu().numpy()
+        if nodes.ndim != 2 or lens.shape != (nodes.shape[0],):
+            raise ValueError("RRBatch wants (R, W) nodes and (R,) lengths")
+        if (lens < 0).any() or (lens > nodes.shape[1]).any():
+            raise ValueError("RRBatch lengths outside [0, W]")
+        roots = None if self.roots is None else self.roots.cpu().numpy()
+        for i, ln in enumerate(lens.tolist()):
+            row = nodes[i, :ln]
+            if ln == 0:
+                continue
+            if row.min() < 0 or row.max() >= item_space:
+                raise ValueError(f"RRBatch row {i} leaves [0, {item_space})")
+            if len(set(row.tolist())) != ln:
+                raise ValueError(f"RRBatch row {i} repeats a node")
+            if roots is not None and row[0] != roots[i]:
+                raise ValueError(f"RRBatch row {i} does not start at its root")
+
+
+_ENGINES: dict[str, type] = {}
+
+
+def register_engine(name: str):
+    """Class decorator: register ``cls`` under ``name`` (sets ``cls.name``)."""
+    def deco(cls):
+        cls.name = name
+        _ENGINES[name] = cls
+        return cls
+    return deco
+
+
+def get_engine(name: str) -> type:
+    try:
+        return _ENGINES[name]
+    except KeyError:
+        raise KeyError(f"unknown engine {name!r}; registered: "
+                       f"{sorted(_ENGINES)}") from None
+
+
+def list_engines() -> list[str]:
+    return sorted(_ENGINES)
+
+
+def make_engine(name: str, g_rev: CSRGraph, **opts):
+    """Instantiate a registered engine on the reverse graph (on its device).
+    ``opts`` may hold keys the engine's ``Config`` lacks and ``None``
+    values; both are dropped."""
+    cls = get_engine(name)
+    fields = {f.name for f in dataclasses.fields(cls.Config)}
+    cfg = cls.Config(**{k: v for k, v in opts.items()
+                        if k in fields and v is not None})
+    return cls(g_rev, cfg)
+
+
+@register_engine("queue")
+class QueueEngine:
+    """gIM's work-efficient sampler (paper Alg. 3/6; :mod:`.rrset`)."""
+
+    @dataclass(frozen=True)
+    class Config:
+        batch: int = 256
+        qcap: Optional[int] = None   # default: n_nodes
+        ec: int = rr_queue.EC_DEFAULT
+
+    def __init__(self, g_rev: CSRGraph, config: Optional[Config] = None):
+        # IC equivalence: parallel edges merge to p' = 1-∏(1-p), so rows
+        # are simple and the sampler needs no in-chunk dedup
+        self.g_rev = coalesce_ic(g_rev)
+        self.config = config if config is not None else self.Config()
+        self.qcap = (self.config.qcap if self.config.qcap is not None
+                     else self.g_rev.n_nodes)
+
+    @property
+    def item_space(self) -> int:
+        return self.g_rev.n_nodes
+
+    def sample(self, seed32: int) -> RRBatch:
+        s = rr_queue.sample_rrsets_queue(self.g_rev, self.config.batch,
+                                         seed32, qcap=self.qcap,
+                                         ec=self.config.ec, dedup="none")
+        return RRBatch(s.nodes, s.lengths, s.overflowed, s.steps,
+                       roots=s.roots)

@@ -1,0 +1,185 @@
+"""IMM solver (paper Alg. 2 + θ sampling + seed selection) for plain IC
+problems, on one device.
+
+    IMMSolver(g, device="cuda").solve(IMProblem(k=10, eps=0.3))
+
+The host runs rounds of RR batches against the engine (gIM's kernel
+relaunches, Alg. 6): round t samples with the 32-bit seed
+``round_seed(seed, t)``, so a solve is a pure function of (graph, options,
+seed) and holds no global RNG state.  Every round is
+``engine.sample`` → ``store.append_batch``; the loop condition reads the
+store's exact host row count.  θ comes from the reference's maths
+(:func:`repro_torch.core.oracle.imm_theta_params`), so both packages walk
+the same θ schedule for the same spread estimates.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.graph.csr import CSRGraph, reverse
+from repro_torch.core import coverage as cov
+from repro_torch.core.engine import make_engine
+from repro_torch.core.oracle import imm_theta_params
+from repro_torch.core.problem import IMProblem, IMResult
+from repro_torch.core.rrset import round_seed
+from repro_torch.device import resolve_device
+
+
+@dataclass
+class IMMStats:
+    theta: int = 0
+    n_rr_sampled: int = 0
+    lb: float = 1.0
+    lb_iters: int = 0
+    rounds: int = 0
+    overflow_fraction: float = 0.0
+    frac_covered: float = 0.0
+    sampling_steps: int = 0
+    selection: str = "auto"
+    history: list = field(default_factory=list)
+
+
+# user-facing selection knob -> DeviceRRStore.select method
+_SELECTION_METHODS = {"auto": "auto", "fused": "flat", "flat": "flat",
+                      "bitset": "bitset"}
+
+
+class IMMSolver:
+    """Stateful solver: owns the RR pool, so Alg. 2 reuses earlier samples
+    and repeated solves on one solver keep growing one pool.
+
+    ``engine`` names a registered engine; ``batch``/``qcap``/``ec`` go to
+    its config.  ``selection`` is ``auto``, ``fused`` (= ``flat``) or
+    ``bitset``.  The graph moves to ``device`` (default ``"cuda"``, which
+    raises when there is no card).
+    """
+
+    def __init__(self, g: CSRGraph, *, engine: str = "queue",
+                 batch: Optional[int] = None, qcap: Optional[int] = None,
+                 ec: Optional[int] = None, model: Optional[str] = None,
+                 selection: str = "auto", seed: int = 0, device="cuda"):
+        if model == "lt":
+            raise NotImplementedError(
+                "model='lt' is not ported yet: ROADMAP Queue 1 item 7")
+        if model not in (None, "ic"):
+            raise ValueError(f"unknown diffusion model {model!r}")
+        if selection not in _SELECTION_METHODS:
+            raise ValueError(f"unknown selection {selection!r}; one of "
+                             f"{sorted(_SELECTION_METHODS)}")
+        self.device = resolve_device(device)
+        self.g = g.to(self.device)
+        self.n = self.g.n_nodes
+        self.selection = selection
+        self._sel_method = _SELECTION_METHODS[selection]
+        self.seed = int(seed)
+        self.engine = make_engine(engine, reverse(self.g), batch=batch,
+                                  qcap=qcap, ec=ec)
+        self.store = cov.DeviceRRStore(self.engine.item_space,
+                                       device=self.device)
+        self._stats = IMMStats(selection=selection)
+        self._ovf = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._ovf_lanes = 0
+
+    # -- sampling ----------------------------------------------------------
+    def _round(self):
+        batch = self.engine.sample(round_seed(self.seed, self._stats.rounds))
+        self.store.append_batch(batch)
+        self._ovf += batch.overflowed.sum()
+        self._ovf_lanes += int(batch.overflowed.numel())
+        self._stats.sampling_steps += batch.steps
+        self._stats.rounds += 1
+
+    def sample_until(self, theta: int):
+        while self.store.n_rr < theta:
+            self._round()
+
+    @property
+    def stats(self) -> IMMStats:
+        st = self._stats
+        st.n_rr_sampled = self.store.n_rr
+        st.overflow_fraction = (int(self._ovf) / self._ovf_lanes
+                                if self._ovf_lanes else 0.0)
+        return st
+
+    # -- full IMM ----------------------------------------------------------
+    def solve(self, problem: IMProblem) -> IMResult:
+        """Solve a plain :class:`IMProblem` -> :class:`IMResult`."""
+        if not isinstance(problem, IMProblem):
+            raise TypeError("IMMSolver.solve() takes one IMProblem")
+        r = problem.resolve(self.n)
+        p = problem
+        st = self._stats
+
+        def select():
+            return self.store.select(r.k_steps, method=self._sel_method)
+
+        if p.theta is not None:
+            # fixed-θ mode: sample to θ, one selection, no LB loop
+            st.theta, st.lb = p.theta, 1.0
+            self.sample_until(p.theta)
+            res = select()
+        else:
+            lam_p, lam_star, eps_p, _ = imm_theta_params(
+                self.n, p.k, p.eps, p.ell)
+            lb = 1.0
+            for i in range(1, max(int(math.log2(self.n)), 2)):  # Alg. 2
+                x = r.scale / (2.0 ** i)
+                theta_i = int(math.ceil(lam_p / x))
+                if p.max_theta:
+                    theta_i = min(theta_i, p.max_theta)
+                self.sample_until(theta_i)
+                res = select()
+                est = r.scale * float(res.frac)
+                st.lb_iters = i
+                st.history.append(("lb_iter", i, theta_i, est))
+                if est >= (1.0 + eps_p) * x:                    # Alg. 2 L7
+                    lb = est / (1.0 + eps_p)                    # Alg. 2 L8
+                    break
+            theta = int(math.ceil(lam_star / lb))
+            if p.max_theta:
+                theta = min(theta, p.max_theta)
+            st.theta, st.lb = theta, lb
+            self.sample_until(theta)
+            res = select()
+        seeds = res.seeds.cpu().numpy()
+        gains = res.gains.cpu().numpy()
+        frac = float(res.frac)
+        st.frac_covered = frac
+        return IMResult(seeds=seeds, spread=r.scale * frac, gains=gains,
+                        frac=frac, stats=self.stats, problem=p,
+                        n_nodes=self.n)
+
+
+_SOLVER_KEYS = frozenset(("engine", "batch", "qcap", "ec", "model", "seed",
+                          "selection", "device"))
+_PROBLEM_KEYS = frozenset(("model", "ell", "max_theta", "node_weights",
+                           "costs", "budget", "candidates", "t_rounds",
+                           "theta", "early_exit", "mode"))
+
+
+def imm(g: CSRGraph, k: Optional[int] = None, eps: Optional[float] = None,
+        **kw):
+    """One-shot wrapper; returns (seeds, spread_estimate, stats).
+
+    Keywords split between the solver (engine/batch/selection/seed/device/
+    ...) and the problem (ell/max_theta/theta/...); anything else raises
+    ``TypeError``.
+    """
+    unknown = set(kw) - _SOLVER_KEYS - _PROBLEM_KEYS
+    if unknown:
+        raise TypeError("imm() got unexpected keyword argument(s): "
+                        + ", ".join(sorted(unknown)))
+    solver_kw = {k_: v for k_, v in kw.items() if k_ in _SOLVER_KEYS}
+    pkw = {k_: v for k_, v in kw.items()
+           if k_ in _PROBLEM_KEYS and v is not None}
+    if k is not None:
+        pkw["k"] = k
+    if eps is not None:
+        pkw["eps"] = eps
+    res = IMMSolver(g, **solver_kw).solve(IMProblem(**pkw))
+    return res.seeds, res.spread, res.stats

@@ -1,0 +1,55 @@
+"""Plain PyTorch versions of the kernels: the CPU path of every wrapper and
+the yardstick the CUDA kernels are held to on the card.
+
+Packed bit words are int32 tensors (bit b of word w is node ``w*32 + b``);
+bit 31 makes a word negative.  ``>>`` on int32 sign-extends, but
+``(x >> b) & 1`` still reads bit b for every b in [0, 32), so the bit
+reads below need no widening.  The SWAR popcount and the hash run in
+int64 with ``& 0xFFFFFFFF``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.bernoulli import counter_uniform_u32, mul_u32
+
+# rows per block of the Occur histograms: a (block, W, 32) bit tensor stays
+# near 2^28 elements whatever the matrix size
+_OCCUR_ELEMS = 1 << 28
+
+
+def counter_uniform_u32_ref(seed, counter):
+    return counter_uniform_u32(seed, counter)
+
+
+def popcount_words_ref(words: torch.Tensor) -> torch.Tensor:
+    """SWAR popcount per int32 word -> int32."""
+    v = words.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (mul_u32(v, 0x01010101) >> 24).to(torch.int32)
+
+
+def occur_from_bitset_ref(words: torch.Tensor) -> torch.Tensor:
+    """Occur[w*32 + b] = number of rows with bit b of word w set.
+
+    (B, W) int32 -> (W*32,) int32.  Rows are summed block by block, the
+    plain twin of the reference Pallas grid's accumulation.
+    """
+    b, w = words.shape
+    shift = torch.arange(32, dtype=torch.int32, device=words.device)
+    acc = torch.zeros(w, 32, dtype=torch.int64, device=words.device)
+    step = max(1, _OCCUR_ELEMS // max(w * 32, 1))
+    for r0 in range(0, b, step):
+        blk = words[r0:r0 + step]
+        acc += ((blk[:, :, None] >> shift) & 1).sum(dim=0)
+    return acc.reshape(w * 32).to(torch.int32)
+
+
+def occur_from_bitset_masked_ref(words: torch.Tensor,
+                                 rowmask: torch.Tensor) -> torch.Tensor:
+    """Occur over the rows with ``rowmask[r] != 0`` only (B,) int32/bool."""
+    keep = (rowmask != 0)[:, None]
+    return occur_from_bitset_ref(torch.where(keep, words,
+                                             torch.zeros_like(words)))
