@@ -7,26 +7,46 @@ Phases, each of which raises on failure (non-zero exit):
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit;
-2. build: compiles ``csrc/occur.cu`` with nvcc for sm_90a and prints the
+2. build: compiles ``csrc/occur.cu`` and ``csrc/sketch.cu`` with nvcc for
+   sm_90a, one nvcc per source, started together, and prints each
    ``-Xptxas -v`` report;
 3. kernels: both Occur kernels against their plain versions on random
    int32 words of shape (131072, 2372) (bit 31 set in half the words, a
-   ~50% row mask), exact equality, then timed with CUDA events;
-4. solve: the main path, ``IMMSolver(g, engine="queue", batch=512,
-   selection="bitset", seed=0).solve(IMProblem(k=50, eps=0.5))`` on the
+   ~50% row mask); the union popcount at (75880, 512) and (75880, 4) and
+   the scatter-OR of 2^24 pairs (~10% of rows out of range, duplicates)
+   into (75880, 512); exact equality, then timed with CUDA events;
+4. approximate solve (the second slice's path): ``IMMSolver(g,
+   engine="queue", batch=512, seed=0).solve(IMProblem(k=50, eps=0.5,
+   mode="approximate", max_theta=8192))`` with the auto sketch size on the
    epinions-like stand-in (``barabasi_albert(75879, 4, seed=0)`` with WC
-   weights), with wall time per stage, peak memory and the kernels' launch
-   counts, which must be > 0; then the solve's first sampling round again,
-   bare and under torch.profiler, for the device's idle share;
-5. parity: ``flat`` selection on the final pool equals the ``bitset``
-   result (seeds, gains, frac), and both kernels equal their plain
+   weights): stage times, θ, sketch size and bytes, peak memory and the
+   sketch kernels' launch counts, which must be > 0; no pool buffer; the
+   forward-MC spread of its seeds must lie in ``[0.9 lo, 1.1 hi]`` of its
+   ``spread_bounds``.  ``max_theta`` keeps the run finite: at this size the
+   auto sketch (128 buckets) saturates, and the Alg. 2 loop, reading the
+   saturated estimate, would otherwise sample towards λ* (PERF.md §4);
+5. exact solve (the first slice's path), ``IMMSolver(g, engine="queue",
+   batch=512, selection="bitset", seed=0).solve(IMProblem(k=50,
+   eps=0.5))``, with wall time per stage, peak memory and the Occur
+   kernels' launch counts, which must be > 0; then the solve's first
+   sampling round again, bare and under torch.profiler, for the device's
+   idle share;
+6. parity: ``flat`` selection on the final pool equals the ``bitset``
+   result (seeds, gains, frac), and both Occur kernels equal their plain
    versions on the final bit matrix;
-6. forward MC: the RIS spread estimate is within 10% of a 256-simulation
-   forward Monte-Carlo spread of the seeds.
+7. forward MC: the RIS spread estimate is within 10% of a 256-simulation
+   forward Monte-Carlo spread of the seeds;
+8. exact-regime identity: the phase-5 pool folded into a sketch store with
+   ``sketch_k = row_capacity()`` (``sketch_packed_from_flat`` +
+   ``SketchRRStore.from_state``, no second sampling); ``select_seeds_sketch``
+   must give the ``bitset`` seeds, gains and frac exactly.  The same pool
+   folded at smaller sketch sizes must keep the certified lower bound
+   ``lo_rows`` at or below the rows its seeds truly cover.
 
-The last lines are the ``{"kernels": [...]}`` record (times at the main
-path's final bit matrix), the ``nvidia-smi`` line and
-``{"ok": true, "device": {...}}``.
+The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
+the exact path's final bit matrix, the sketch kernels at the approximate
+path's sketch; launches from each path's solve), the ``nvidia-smi`` line
+and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -35,6 +55,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -42,7 +63,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
+from repro_torch.core import coverage as cov  # noqa: E402
 from repro_torch.core import forward  # noqa: E402
+from repro_torch.core import sketch as sketch_mod  # noqa: E402
 from repro_torch.core.engine import make_engine  # noqa: E402
 from repro_torch.core.imm import IMMSolver  # noqa: E402
 from repro_torch.core.packing import to_int32_bits  # noqa: E402
@@ -58,10 +81,23 @@ INT32_OPS_S = 67e12
 SYNTH_SHAPE = (131072, 2372)
 N_NODES, BA_R, K, EPS, BATCH = 75879, 4, 50, 0.5, 512
 MC_SIMS, MC_TOL = 256, 0.10
-LIBRARY_NOTE = "no single PyTorch call computes a bit-column histogram"
+APPROX_MAX_THETA = 8192
+SKETCH_ROWS, SKETCH_WORDS, SCATTER_PAIRS = N_NODES + 1, 512, 1 << 24
+PROBE_SKETCH_K = (128, 1024, 4096)
+SOURCES = ("occur", "sketch")
+LIBRARY_NOTE = {
+    "occur_from_bitset": "no single PyTorch call computes a bit-column "
+                         "histogram",
+    "occur_from_bitset_masked": "no single PyTorch call computes a "
+                                "bit-column histogram",
+    "sketch_scatter_or": "torch has no scatter with an OR reduction",
+    "sketch_union_popcount": "torch has no popcount op",
+}
 KERNELS = {
     "occur_from_bitset": "src/repro/kernels/bitset.py:167",
     "occur_from_bitset_masked": "src/repro/kernels/bitset.py:133",
+    "sketch_scatter_or": "src/repro/kernels/sketch.py:101",
+    "sketch_union_popcount": "src/repro/kernels/sketch.py:53",
 }
 
 
@@ -90,13 +126,33 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _bound(nbytes: float, nops: float):
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = nops / INT32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def bound_ms(rows_read: int, rows: int, cols: int, masked: bool):
     """Least time for the histogram: read the selected rows once (plus the
     mask), write W*32 int32; one add per bit read.  Returns (ms, by)."""
     nbytes = rows_read * cols * 4 + cols * 32 * 4 + (rows * 4 if masked else 0)
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = rows_read * cols * 32 / INT32_OPS_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(nbytes, rows_read * cols * 32)
+
+
+def union_bound_ms(rows: int, cols: int):
+    """Read (R, W) words and cov once, write R int32; one OR, one popcount
+    and one add per word."""
+    return _bound(rows * cols * 4 + cols * 4 + rows * 4, 3 * rows * cols)
+
+
+def scatter_bound_ms(words, v, b):
+    """Read 8 bytes per pair; read and write one 32-byte sector per distinct
+    sector of words that this run's in-range pairs touch; one OR per pair."""
+    r, w = words.shape
+    keep = (v >= 0) & (v < r)
+    word = v[keep].to(torch.int64) * w + (b[keep].to(torch.int64) >> 5)
+    sectors = int(torch.unique(word >> 3).numel())
+    return _bound(8 * v.numel() + 2 * 32 * sectors, v.numel())
 
 
 def kernel_records(words, mask, launches=None, iters=20, plain_iters=3):
@@ -127,17 +183,85 @@ def kernel_records(words, mask, launches=None, iters=20, plain_iters=3):
     for (name, (kern, plain, rows_read, masked)), err in zip(calls.items(),
                                                              errs):
         b_ms, b_by = bound_ms(rows_read, rows, cols, masked)
-        out.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/occur.cu",
+        out.append(record(name, "occur", launches, err, cuda_ms(kern, iters),
+                          cuda_ms(plain, plain_iters), b_ms, b_by,
+                          shape=[rows, cols],
+                          mask_rows=n_sel if masked else None))
+    return out
+
+
+def record(name, source, launches, err, ms, plain_ms, b_ms, b_by, **extra):
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}.cu",
             "replaces": KERNELS[name],
             "launches": None if launches is None else launches[name],
-            "max_abs_err": err, "ms": cuda_ms(kern, iters),
-            "plain_ms": cuda_ms(plain, plain_iters),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": [rows, cols], "mask_rows": n_sel if masked else None,
-        })
-    return out
+            "library_null_because": LIBRARY_NOTE[name], **extra}
+
+
+def max_abs_err(got, want) -> float:
+    return float((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+        if got.numel() else 0.0
+
+
+def sketch_records(words, cov_words, v, b, launches=None, iters=20,
+                   plain_iters=3):
+    """Check both sketch kernels against the plain versions exactly (the
+    scatter-OR on copies of ``words``, since it works in place), then time
+    kernel and plain version."""
+    got = ops.sketch_scatter_or(words.clone(), v, b)
+    want = ref.sketch_scatter_or_ref(words.clone(), v, b)
+    pop = ops.sketch_union_popcount(words, cov_words)
+    pop_want = ref.sketch_union_popcount_ref(words, cov_words)
+    torch.cuda.synchronize()
+    errs = {"sketch_scatter_or": max_abs_err(got, want),
+            "sketch_union_popcount": max_abs_err(pop, pop_want)}
+    if any(errs.values()) or not (torch.equal(got, want)
+                                  and torch.equal(pop, pop_want)):
+        raise AssertionError(f"sketch kernel != plain version at "
+                             f"{tuple(words.shape)}, E={v.numel()}: {errs}")
+    rows, cols = words.shape
+    scratch = words.clone()     # OR is idempotent: repeated folds time alike
+    s_ms, s_by = scatter_bound_ms(words, v, b)
+    u_ms, u_by = union_bound_ms(rows, cols)
+    return [
+        record("sketch_scatter_or", "sketch", launches,
+               errs["sketch_scatter_or"],
+               cuda_ms(lambda: ops.sketch_scatter_or(scratch, v, b), iters),
+               cuda_ms(lambda: ref.sketch_scatter_or_ref(scratch, v, b),
+                       plain_iters), s_ms, s_by, shape=[rows, cols],
+               pairs=v.numel()),
+        record("sketch_union_popcount", "sketch", launches,
+               errs["sketch_union_popcount"],
+               cuda_ms(lambda: ops.sketch_union_popcount(words, cov_words),
+                       iters),
+               cuda_ms(lambda: ref.sketch_union_popcount_ref(words,
+                                                             cov_words),
+                       plain_iters), u_ms, u_by, shape=[rows, cols]),
+    ]
+
+
+def random_words(shape, gen) -> torch.Tensor:
+    """Random int32 words; bit 31 is set in about half of them."""
+    words = to_int32_bits(torch.randint(0, 1 << 32, shape, dtype=torch.int64,
+                                        device=gen.device, generator=gen))
+    if not bool((words < 0).any()):
+        raise AssertionError("random words lack bit 31")
+    return words
+
+
+def random_pairs(rows: int, cols: int, pairs: int, gen):
+    """(v, bucket) int32 pairs: ~10% of v out of range (half below 0, half
+    past R), a quarter of the pairs duplicates of others."""
+    dev = gen.device
+    v = torch.randint(0, rows, (pairs,), device=dev, generator=gen)
+    b = torch.randint(0, cols * 32, (pairs,), device=dev, generator=gen)
+    u = torch.rand(pairs, device=dev, generator=gen)
+    v = torch.where(u < 0.05, -1 - v, torch.where(u < 0.10, rows + v, v))
+    dup = torch.randint(0, pairs, (pairs // 4,), device=dev, generator=gen)
+    v[-dup.numel():], b[-dup.numel():] = v[dup], b[dup]
+    return v.to(torch.int32), b.to(torch.int32)
 
 
 def profile_round(engine, seed32: int) -> dict:
@@ -189,6 +313,124 @@ class StageClock:
         setattr(obj, method, timed)
 
 
+def approximate_phase(g):
+    """The approximate solve with the auto sketch size: stage times, launch
+    counts, certificate and its forward-MC check; returns the sketch
+    kernels' records at this path's shapes."""
+    dev = g.device
+    problem = IMProblem(k=K, eps=EPS, mode="approximate",
+                        max_theta=APPROX_MAX_THETA)
+    solver = IMMSolver(g, engine="queue", batch=BATCH, seed=0, device=dev)
+    solver.prepare(problem)
+    store = solver.store
+    clock = StageClock()
+    clock.wrap(solver.engine, "sample", "sampling")
+    clock.wrap(store, "append_batch", "fold")
+    clock.wrap(store, "select", "selection")
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solver.solve(problem)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = res.stats
+    info = dict(solver._sketch_info)
+    t0 = time.perf_counter()
+    mc = forward.ic_spread(g, res.seeds, n_sims=MC_SIMS, seed=1)
+    mc_s = time.perf_counter() - t0
+    lo, hi = res.spread_bounds
+    say("approximate_solve", {
+        "n": g.n_nodes, "k": K, "eps": EPS, "batch": BATCH,
+        "max_theta": APPROX_MAX_THETA, "theta": st.theta, "lb": st.lb,
+        "lb_iters": st.lb_iters, "rounds": st.rounds, "n_rr": store.n_rr,
+        "elements": store.n_elems, "sketch_k": store.sketch_k,
+        "sketch_words_shape": list(store.words.shape),
+        "sketch_bytes": store.sketch_bytes(),
+        "per_device_pool_bytes": store.per_device_pool_bytes(),
+        "solve_s": solve_s, "stage_s": clock.seconds,
+        "stage_calls": clock.calls,
+        "max_memory_allocated": peak,
+        "memory_before_solve": base_mem, "launches": launches,
+        "spread": res.spread, "spread_bounds": [lo, hi], "frac": res.frac,
+        "certificate": info, "seeds": res.seeds.tolist()[:10],
+        "n_seeds": len(res.seeds), "mc_spread": mc, "mc_sims": MC_SIMS,
+        "mc_s": mc_s, "history": st.history,
+    })
+    for name in ("sketch_scatter_or", "sketch_union_popcount"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was not launched on the "
+                                 "approximate path")
+    if store.per_device_pool_bytes() != 0 or hasattr(store, "flat"):
+        raise AssertionError("the approximate path allocated a pool")
+    if len(set(res.seeds.tolist())) != K or not math.isfinite(res.spread) \
+            or not lo <= res.spread <= hi:
+        raise AssertionError(f"bad approximate result: seeds {res.seeds}, "
+                             f"spread {res.spread}, bounds {(lo, hi)}")
+    if not 0.9 * lo <= mc <= 1.1 * hi:
+        raise AssertionError(f"forward MC {mc} outside [0.9 lo, 1.1 hi] = "
+                             f"[{0.9 * lo}, {1.1 * hi}]")
+    # the sketch kernels at this path's shapes: the final sketch, the
+    # seeds' union, and the pairs of the solve's first round
+    words = store.words
+    cov_words = torch.zeros(words.shape[1], dtype=torch.int32, device=dev)
+    for u in res.seeds.tolist():
+        cov_words = sketch_mod.union_row(cov_words, words, u)
+    batch = solver.engine.sample(round_seed(0, 0))
+    v, b = sketch_mod.frontier_pairs(
+        batch.nodes, batch.lengths,
+        sketch_mod.canonical_row_ids(batch.lengths, 0),
+        n_rows=words.shape[0], k=store.sketch_k, mode=store.sketch_mode)
+    return sketch_records(words, cov_words, v, b, launches=launches)
+
+
+def exact_regime_phase(store, bit) -> None:
+    """Fold the exact pool into sketches; at sketch_k = row_capacity the
+    sketch greedy must equal the bitset greedy, and at every size the
+    certified lower bound must not exceed the rows the seeds cover."""
+    n, t = store.n_nodes, store.n_elems
+    flat, ids, valid = store.flat[:t], store.ids[:t], store.valid[:t]
+    m = store.bitset_matrix()
+    probes = {}
+    for sketch_k in dict.fromkeys((store.row_capacity(),) + PROBE_SKETCH_K):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        words = sketch_mod.sketch_packed_from_flat(
+            flat, ids, valid, n_rows=n + 1, k=sketch_k, mode="mod")
+        sk_store = cov.SketchRRStore.from_state(
+            {"sk_words": words, "t_loc": [t], "nrr_loc": [store.n_rr]},
+            {"n_nodes": n, "sketch_k": sketch_k, "sketch_mode": "mod"},
+            device=words.device)
+        info = {}
+        res = cov.select_seeds_sketch(sk_store, K, info_out=info)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        seeds = res.seeds.to(torch.int64)
+        hit = ((m[:, seeds >> 5] >> (seeds & 31)) & 1).any(dim=1)
+        true_rows = int(hit.sum())
+        probes[sketch_k] = dict(info, true_rows=true_rows, seconds=secs,
+                                hi_covers_true=info["hi_rows"] >= true_rows,
+                                words_shape=list(words.shape))
+        if info["lo_rows"] > true_rows:
+            raise AssertionError(f"sketch_k={sketch_k}: certified lower bound "
+                                 f"{info['lo_rows']} > true {true_rows}")
+        if sketch_k == store.row_capacity():
+            same = (torch.equal(res.seeds, bit.seeds)
+                    and torch.equal(res.gains, bit.gains)
+                    and res.frac.cpu().numpy().tobytes()
+                    == bit.frac.cpu().numpy().tobytes())
+            probes[sketch_k]["equals_bitset"] = same
+            if not (same and info["exact_regime"]):
+                say("exact_regime", probes)
+                raise AssertionError("exact-regime sketch selection differs "
+                                     "from the bitset selection")
+        del words, sk_store
+    say("exact_regime", probes)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -203,31 +445,43 @@ def main() -> int:
                   "device": torch.cuda.get_device_name(0),
                   "count": torch.cuda.device_count()})
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    lib = _build.build("occur")
-    say("build", {"library": str(lib.relative_to(ROOT)),
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        libs = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+    say("build", {"libraries": {k: str(v.relative_to(ROOT))
+                                for k, v in libs.items()},
                   "seconds": time.perf_counter() - t0})
-    print(_build.PTXAS_REPORT.get("occur", "(cached build: no ptxas report)"),
-          flush=True)
+    for name in SOURCES:
+        print(_build.PTXAS_REPORT.get(name, f"({name}: cached build, no "
+                                            "ptxas report)"), flush=True)
 
-    # 3. kernels against their plain versions at (131072, 2372)
+    # 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
-    words = to_int32_bits(torch.randint(0, 1 << 32, SYNTH_SHAPE,
-                                        dtype=torch.int64, device=dev,
-                                        generator=gen))
-    if not bool((words < 0).any()):
-        raise AssertionError("synthetic words lack bit 31")
+    words = random_words(SYNTH_SHAPE, gen)
     mask = (torch.rand(SYNTH_SHAPE[0], device=dev, generator=gen)
             < 0.5).to(torch.int32)
     say("kernels", kernel_records(words, mask))
     del words, mask
+    at_scale = []
+    for cols in (SKETCH_WORDS, 4):
+        words = random_words((SKETCH_ROWS, cols), gen)
+        cov_words = random_words((64, cols), gen)[0]
+        v, b = random_pairs(SKETCH_ROWS, cols,
+                            SCATTER_PAIRS if cols == SKETCH_WORDS else 1 << 16,
+                            gen)
+        at_scale += sketch_records(words, cov_words, v, b)
+    say("sketch_kernels_at_scale", at_scale)
+    del words, cov_words, v, b
     torch.cuda.empty_cache()
 
-    # 4. the main path: one plain IC solve with the bitset selection
-    t0 = time.perf_counter()
+    # 4. the approximate (pool-free) solve: the second slice's path
     src, dst = generators.barabasi_albert(N_NODES, BA_R, seed=0)
     g = weights.wc_weights(csr.from_edges(src, dst, N_NODES, device=dev))
+    approx_records = approximate_phase(g)
+
+    # 5. the exact path: one plain IC solve with the bitset selection
+    t0 = time.perf_counter()
     solver = IMMSolver(g, engine="queue", batch=BATCH, selection="bitset",
                        seed=0, device=dev)
     setup_s = time.perf_counter() - t0
@@ -268,16 +522,16 @@ def main() -> int:
         "launches": launches, "spread": res.spread, "frac": res.frac,
         "history": st.history,
     })
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+    for name in ("occur_from_bitset", "occur_from_bitset_masked"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was not launched on the exact path")
     say("sampler_round", profile_round(
         make_engine("queue", csr.reverse(g), batch=BATCH), round_seed(0, 0)))
     seeds = res.seeds
     if len(set(seeds.tolist())) != K or not math.isfinite(res.spread):
         raise AssertionError(f"bad result: seeds {seeds}, spread {res.spread}")
 
-    # 5. parity: flat selection == bitset selection on the final pool, and
+    # 6. parity: flat selection == bitset selection on the final pool, and
     # both kernels == plain versions on the final bit matrix
     bit = store.select(K, method="bitset")
     flat = store.select(K, method="flat")
@@ -294,7 +548,7 @@ def main() -> int:
     first_newly = ((m[:, u0 >> 5] >> (u0 & 31)) & 1).to(torch.int32)
     records = kernel_records(m, first_newly, launches=launches)
 
-    # 6. forward Monte-Carlo check of the RIS estimate
+    # 7. forward Monte-Carlo check of the RIS estimate
     t0 = time.perf_counter()
     mc = forward.ic_spread(g, seeds, n_sims=MC_SIMS, seed=0)
     rel = abs(res.spread - mc) / mc
@@ -305,9 +559,11 @@ def main() -> int:
         raise AssertionError(f"RIS {res.spread} vs MC {mc}: {rel:.3f} >= "
                              f"{MC_TOL}")
 
-    say("library_ms", {"null_because": LIBRARY_NOTE})
+    # 8. exact-regime identity on the phase-5 pool, no second sampling
+    exact_regime_phase(store, bit)
+
     say("total", {"seconds": time.perf_counter() - t_start})
-    print(json.dumps({"kernels": records}), flush=True)
+    print(json.dumps({"kernels": records + approx_records}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

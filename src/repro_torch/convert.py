@@ -35,3 +35,15 @@ def batch_from_arrays(nodes, lengths, overflowed, steps, roots=None,
     return RRBatch(nodes=put(nodes, np.int32), lengths=put(lengths, np.int32),
                    overflowed=put(overflowed, np.bool_), steps=int(steps),
                    roots=None if roots is None else put(roots, np.int32))
+
+
+def sketch_words_from_arrays(words, device="cuda") -> torch.Tensor:
+    """The port's int32 sketch words with the bits of the reference's
+    (R, W) uint32 sketch words (a bit-for-bit view, bit 31 negative)."""
+    words = np.asarray(words)
+    if words.ndim != 2 or words.dtype not in (np.uint32, np.int32):
+        raise ValueError(f"sketch words must be 2-D uint32, got "
+                         f"{words.shape} {words.dtype}")
+    return torch.from_numpy(
+        np.ascontiguousarray(words).view(np.int32).copy()).to(
+            resolve_device(device))

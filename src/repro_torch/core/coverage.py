@@ -25,6 +25,12 @@ Both scans take ties to the lowest node id (``torch.argmax`` returns the
 first maximum; the bit matrix's padding ids past n have Occur 0) and give
 seeds, gains and ``frac`` identical to each other and to the reference's
 ``fused`` scan on the same pool.
+
+:class:`SketchRRStore` is the pool-free store of the approximate mode (the
+reference's ``SketchRRStore`` on one device): each batch folds straight
+into packed per-node occupancy sketches and no pool buffer exists.
+:func:`select_seeds_sketch` is its greedy on sketch estimates, with a
+certified error bound instead of exact marginals.
 """
 from __future__ import annotations
 
@@ -32,6 +38,9 @@ from typing import NamedTuple
 
 import torch
 
+import numpy as np
+
+from repro_torch.core import sketch as sketch_mod
 from repro_torch.core.packing import bit_values, rank_positions, to_int32_bits
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
@@ -256,3 +265,169 @@ def select_seeds_device(store: DeviceRRStore, k: int,
     if method == "bitset":
         return _select_bitset(store, k)
     raise ValueError(f"unknown selection method {method!r}")
+
+
+class SketchRRStore:
+    """Pool-free RR "store" of ``mode="approximate"`` on one device.
+
+    ``words`` is the (n + 1, sketch_k/32) int32 occupancy matrix (row n is
+    the sentinel that padding entries point at).  Each batch folds into it
+    in place (:func:`~repro_torch.core.sketch.fold_frontier_packed`, the
+    scatter-OR kernel on the card) under canonical batch-order row ids, as
+    the reference's fold at mesh size 1 numbers them.  The flat pool, ids
+    and valid buffers of :class:`DeviceRRStore` are never allocated: memory
+    is O(n · sketch_k / 8) whatever θ is.  The host keeps exact row and
+    element counts (one device read per append), which drive θ.
+    """
+
+    pool_free = True
+
+    def __init__(self, n_nodes: int, sketch_k: int, sketch_mode: str = "mod",
+                 *, device="cuda"):
+        if n_nodes >= 2 ** 31 - 1:
+            raise ValueError("item space must fit int32")
+        if sketch_mode not in ("mod", "mix"):
+            raise ValueError(f"unknown sketch hash mode {sketch_mode!r}")
+        self.n_nodes = n_nodes
+        self.device = resolve_device(device)
+        self.sketch_mode = sketch_mode
+        self.sketch_k = sketch_mod.resolve_sketch_k(sketch_k)
+        self.sketch_rows = n_nodes + 1
+        self.words = torch.zeros((self.sketch_rows, self.sketch_k // 32),
+                                 dtype=torch.int32, device=self.device)
+        self._nrr = 0      # the θ row counter (host mirror, exact)
+        self._t = 0        # element count (stats only)
+
+    @property
+    def n_rr(self) -> int:
+        return self._nrr
+
+    @property
+    def n_elems(self) -> int:
+        return self._t
+
+    def per_device_pool_bytes(self) -> int:
+        """No pool buffers exist: the point of the mode."""
+        return 0
+
+    def sketch_bytes(self) -> int:
+        return self.sketch_rows * (self.sketch_k // 32) * 4
+
+    def append_batch(self, batch) -> None:
+        """Fold one padded batch (an ``RRBatch`` or ``(nodes, lengths)``)
+        into the sketch words: the whole append."""
+        nodes, lens = ((batch.nodes, batch.lengths)
+                       if hasattr(batch, "nodes") else batch)
+        nodes = torch.as_tensor(nodes, device=self.device)
+        lens = torch.as_tensor(lens, device=self.device)
+        if nodes.dim() != 2 or lens.shape != (nodes.shape[0],):
+            raise ValueError("append_batch wants padded (R, W) nodes + (R,) "
+                             "lengths")
+        clamped = lens.to(torch.int64).clamp(0, nodes.shape[1])
+        elems, rows = (int(x) for x in torch.stack(
+            [clamped.sum(), (clamped > 0).sum()]).cpu())
+        sketch_mod.fold_frontier_packed(self.words, nodes, lens, self._nrr,
+                                        k=self.sketch_k,
+                                        mode=self.sketch_mode)
+        self._t += elems
+        self._nrr += rows
+
+    def config(self) -> dict:
+        return {"kind": "sketch", "n_nodes": int(self.n_nodes),
+                "n_shards": 1, "sketch_k": self.sketch_k,
+                "sketch_mode": self.sketch_mode, "row_weighted": False}
+
+    @classmethod
+    def from_state(cls, state: dict, config: dict, *, device="cuda"):
+        """A store holding ``state``, as the reference's classmethod reads
+        it: ``sk_words`` an (n + 1, sketch_k/32) int32 tensor
+        (``convert.sketch_words_from_arrays`` carries the reference's
+        uint32 words over), ``t_loc``/``nrr_loc`` the element and row counts
+        of its one shard; ``config`` as :meth:`config` gives it."""
+        if int(config.get("n_shards", 1)) != 1:
+            raise ValueError(
+                f"sketch state was saved on {config['n_shards']} shards; the "
+                "port's store has one")
+        store = cls(config["n_nodes"], sketch_k=config["sketch_k"],
+                    sketch_mode=config["sketch_mode"], device=device)
+        words = torch.as_tensor(state["sk_words"])
+        if words.dtype != torch.int32 or words.shape != store.words.shape:
+            raise ValueError(f"sk_words must be {tuple(store.words.shape)} "
+                             f"int32, got {tuple(words.shape)} {words.dtype}")
+        store.words = words.to(store.device).contiguous()
+        store._t = int(np.sum(state["t_loc"]))
+        store._nrr = int(np.sum(state["nrr_loc"]))
+        return store
+
+    def select(self, k: int, info_out: dict | None = None) -> CoverageResult:
+        """Greedy on sketch estimates (:func:`select_seeds_sketch`)."""
+        return select_seeds_sketch(self, k, info_out=info_out)
+
+
+def select_seeds_sketch(store, k: int, *,
+                        info_out: dict | None = None) -> CoverageResult:
+    """Greedy selection on sketch estimates alone (the approximate mode).
+
+    Per seed: one Δocc sweep over every node (the union-popcount kernel on
+    the card), the first maximum among nodes not yet picked (``torch.argmax``
+    returns the lowest id on ties, as the reference's host argmax does), and
+    an OR of the seed's sketch row into the union ``cov``.  The loop stops
+    when no candidate is left; seeds are padded to k with the sentinel n.
+
+    The certificate (``info_out``), as the reference's:
+
+    * ``lo_rows`` — the summed Δocc, a deterministic lower bound on the rows
+      the seeds cover;
+    * ``hi_rows`` — the linear-counting estimate widened by its z-sigma
+      relative error, or all ``n_rr`` rows when the union row is saturated;
+    * exact regime (``"mod"`` bucketing, ``n_rr <= sketch_k``): Δocc is the
+      exact marginal, the estimate is ``occ_union`` and the error 0.
+
+    ``frac`` is ``est_rows / n_rr`` rounded to float32, as the reference's
+    ``np.float32(frac)``: the LB loop's Alg. 2 L7 test reads it, and a
+    float64 value could flip that test at a boundary and change θ.
+    """
+    n = store.n_nodes
+    sk = store.words
+    sk_k = int(sk.shape[1]) * 32
+    dev = sk.device
+    cov = torch.zeros(sk.shape[1], dtype=torch.int32, device=dev)
+    picked = torch.zeros(n, dtype=torch.bool, device=dev)
+    n_rr = store.n_rr
+    seeds, gains = [], []
+    for _ in range(k):
+        deltas = sketch_mod.union_gains(sk, cov)[:n]
+        score = torch.where(picked, -1, deltas)
+        u = torch.argmax(score)
+        u_host, best = (int(x) for x in torch.stack([u, score[u]]).cpu())
+        if best < 0:                     # no candidate left
+            break
+        seeds.append(u_host)
+        gains.append(best)
+        picked[u] = True
+        cov = sketch_mod.union_row(cov, sk, u)
+    occ_union = int(sum(gains))
+    exact_regime = store.sketch_mode == "mod" and n_rr <= sk_k
+    if exact_regime:
+        est_rows, lo_rows, hi_rows = float(occ_union), occ_union, occ_union
+        saturated, rel_err = False, 0.0
+    else:
+        est_arr, sat_arr = sketch_mod.linear_count_saturated([occ_union], sk_k)
+        saturated = bool(sat_arr[0])
+        est_rows = min(float(est_arr[0]), float(n_rr))
+        rel_err = float(np.asarray(
+            sketch_mod.linear_count_rel_error(est_arr, sk_k))[0])
+        lo_rows = min(occ_union, n_rr)
+        hi_rows = (n_rr if saturated
+                   else min(float(n_rr), est_rows * (1.0 + rel_err)))
+    if info_out is not None:
+        info_out.update(occ_union=occ_union, est_rows=est_rows,
+                        lo_rows=lo_rows, hi_rows=hi_rows,
+                        saturated=saturated, rel_error=rel_err,
+                        exact_regime=exact_regime, sketch_k=sk_k, n_rr=n_rr)
+    pad = k - len(seeds)
+    frac = np.float32(est_rows / max(n_rr, 1))
+    return CoverageResult(
+        seeds=torch.tensor(seeds + [n] * pad, dtype=torch.int32, device=dev),
+        gains=torch.tensor(gains + [0] * pad, dtype=torch.int32, device=dev),
+        frac=torch.tensor(frac, dtype=torch.float32, device=dev))

@@ -6,6 +6,8 @@ name and returns one :class:`RRBatch` from ``sample(seed32)``, where
 ``seed32`` is the 32-bit seed of the sampling round (the port draws from
 the counter hash, not from a key).  The other engines of the reference
 (dense, refill, lt, mrim) wait for ROADMAP Queue 1 item 7.
+:class:`FusedSketchEngine` marks an engine as feeding the pool-free store of
+the approximate mode.
 """
 from __future__ import annotations
 
@@ -124,3 +126,23 @@ class QueueEngine:
                                          ec=self.config.ec, dedup="none")
         return RRBatch(s.nodes, s.lengths, s.overflowed, s.steps,
                        roots=s.roots)
+
+
+class FusedSketchEngine:
+    """Adapter that names an engine as the pool-free sample→sketch path
+    (``IMProblem(mode="approximate")``).
+
+    Sampling is untouched: every batch the inner engine emits is the batch
+    the exact path would append, so an approximate solve walks the same
+    round-seed stream as an exact one.  Only the destination changes: the
+    solver pairs this adapter with a ``SketchRRStore``.  Every attribute
+    other than ``name`` passes through to the inner engine.
+    """
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.name = f"fused-sketch[{inner.name}]"
+
+    def __getattr__(self, attr):
+        # consulted only for attributes not set on the adapter itself
+        return getattr(self._inner, attr)

@@ -2,6 +2,7 @@
 problems, on one device.
 
     IMMSolver(g, device="cuda").solve(IMProblem(k=10, eps=0.3))
+    IMMSolver(g).solve(IMProblem(k=10, eps=0.3, mode="approximate"))
 
 The host runs rounds of RR batches against the engine (gIM's kernel
 relaunches, Alg. 6): round t samples with the 32-bit seed
@@ -11,6 +12,12 @@ seed) and holds no global RNG state.  Every round is
 store's exact host row count.  θ comes from the reference's maths
 (:func:`repro_torch.core.oracle.imm_theta_params`), so both packages walk
 the same θ schedule for the same spread estimates.
+
+The store follows the problem's mode (:meth:`IMMSolver.prepare`): an exact
+problem samples into a :class:`~repro_torch.core.coverage.DeviceRRStore`, an
+approximate one into a :class:`~repro_torch.core.coverage.SketchRRStore`
+through a :class:`~repro_torch.core.engine.FusedSketchEngine`, selects with
+``select_seeds_sketch`` and returns certified ``spread_bounds``.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ import torch
 
 from repro_torch.graph.csr import CSRGraph, reverse
 from repro_torch.core import coverage as cov
-from repro_torch.core.engine import make_engine
+from repro_torch.core import sketch as sketch_mod
+from repro_torch.core.engine import FusedSketchEngine, make_engine
 from repro_torch.core.oracle import imm_theta_params
 from repro_torch.core.problem import IMProblem, IMResult
 from repro_torch.core.rrset import round_seed
@@ -55,14 +63,17 @@ class IMMSolver:
 
     ``engine`` names a registered engine; ``batch``/``qcap``/``ec`` go to
     its config.  ``selection`` is ``auto``, ``fused`` (= ``flat``) or
-    ``bitset``.  The graph moves to ``device`` (default ``"cuda"``, which
-    raises when there is no card).
+    ``bitset`` (exact problems).  ``sketch_k`` sizes the sketch of
+    approximate problems (default ``auto_sketch_k(eps, n)``).  The graph
+    moves to ``device`` (default ``"cuda"``, which raises when there is no
+    card).
     """
 
     def __init__(self, g: CSRGraph, *, engine: str = "queue",
                  batch: Optional[int] = None, qcap: Optional[int] = None,
                  ec: Optional[int] = None, model: Optional[str] = None,
-                 selection: str = "auto", seed: int = 0, device="cuda"):
+                 selection: str = "auto", seed: int = 0,
+                 sketch_k: Optional[int] = None, device="cuda"):
         if model == "lt":
             raise NotImplementedError(
                 "model='lt' is not ported yet: ROADMAP Queue 1 item 7")
@@ -77,13 +88,43 @@ class IMMSolver:
         self.selection = selection
         self._sel_method = _SELECTION_METHODS[selection]
         self.seed = int(seed)
-        self.engine = make_engine(engine, reverse(self.g), batch=batch,
-                                  qcap=qcap, ec=ec)
-        self.store = cov.DeviceRRStore(self.engine.item_space,
-                                       device=self.device)
-        self._stats = IMMStats(selection=selection)
+        self._sketch_k_arg = sketch_k
+        self._engine = make_engine(engine, reverse(self.g), batch=batch,
+                                   qcap=qcap, ec=ec)
+        self._sketch_info = None
+        self._build(("exact", None))
+
+    # -- engine + store per problem signature ------------------------------
+    def _build(self, sig) -> None:
+        """Fresh engine, store and stats for the signature (mode,
+        sketch_k): the round-seed stream restarts at round 0."""
+        mode, sketch_k = sig
+        if mode == "approximate":
+            self.engine = FusedSketchEngine(self._engine)
+            self.store = cov.SketchRRStore(self._engine.item_space,
+                                           sketch_k=sketch_k,
+                                           device=self.device)
+        else:
+            self.engine = self._engine
+            self.store = cov.DeviceRRStore(self._engine.item_space,
+                                           device=self.device)
+        self._sig = sig
+        self._stats = IMMStats(selection=self.selection)
         self._ovf = torch.zeros((), dtype=torch.int64, device=self.device)
         self._ovf_lanes = 0
+
+    def prepare(self, problem: IMProblem) -> None:
+        """Build the engine and store ``problem`` needs, unless the current
+        ones already serve its (mode, sketch_k).  ``solve`` calls it; call
+        it first to reach ``self.engine``/``self.store`` before a solve."""
+        sketch_k = None
+        if problem.mode == "approximate":
+            sketch_k = sketch_mod.resolve_sketch_k(
+                self._sketch_k_arg if self._sketch_k_arg is not None
+                else sketch_mod.auto_sketch_k(problem.eps, self.n))
+        sig = (problem.mode, sketch_k)
+        if sig != self._sig:
+            self._build(sig)
 
     # -- sampling ----------------------------------------------------------
     def _round(self):
@@ -111,11 +152,20 @@ class IMMSolver:
         """Solve a plain :class:`IMProblem` -> :class:`IMResult`."""
         if not isinstance(problem, IMProblem):
             raise TypeError("IMMSolver.solve() takes one IMProblem")
+        self.prepare(problem)
         r = problem.resolve(self.n)
         p = problem
         st = self._stats
+        approx = p.mode == "approximate"
+        self._sketch_info = None
 
         def select():
+            if approx:
+                # no pool to verify against: the sketch greedy leaves its
+                # error certificate for the final spread_bounds
+                self._sketch_info = {}
+                return self.store.select(r.k_steps,
+                                         info_out=self._sketch_info)
             return self.store.select(r.k_steps, method=self._sel_method)
 
         if p.theta is not None:
@@ -148,15 +198,27 @@ class IMMSolver:
             res = select()
         seeds = res.seeds.cpu().numpy()
         gains = res.gains.cpu().numpy()
+        live = seeds < self.n             # the sketch greedy pads with n
+        seeds, gains = seeds[live], gains[live]
         frac = float(res.frac)
         st.frac_covered = frac
+        bounds = (self._approx_bounds(r, self._sketch_info) if approx
+                  else None)
         return IMResult(seeds=seeds, spread=r.scale * frac, gains=gains,
                         frac=frac, stats=self.stats, problem=p,
-                        n_nodes=self.n)
+                        n_nodes=self.n, spread_bounds=bounds)
+
+    @staticmethod
+    def _approx_bounds(r, info: dict) -> tuple:
+        """(lo, hi) spread from a sketch-selection certificate: lower from
+        the summed Δocc, upper from the widened linear-counting estimate."""
+        n_rr = max(int(info.get("n_rr", 0)), 1)
+        return (r.scale * float(info["lo_rows"]) / n_rr,
+                r.scale * float(info["hi_rows"]) / n_rr)
 
 
 _SOLVER_KEYS = frozenset(("engine", "batch", "qcap", "ec", "model", "seed",
-                          "selection", "device"))
+                          "selection", "sketch_k", "device"))
 _PROBLEM_KEYS = frozenset(("model", "ell", "max_theta", "node_weights",
                            "costs", "budget", "candidates", "t_rounds",
                            "theta", "early_exit", "mode"))
@@ -166,9 +228,9 @@ def imm(g: CSRGraph, k: Optional[int] = None, eps: Optional[float] = None,
         **kw):
     """One-shot wrapper; returns (seeds, spread_estimate, stats).
 
-    Keywords split between the solver (engine/batch/selection/seed/device/
-    ...) and the problem (ell/max_theta/theta/...); anything else raises
-    ``TypeError``.
+    Keywords split between the solver (engine/batch/selection/seed/
+    sketch_k/device/...) and the problem (ell/max_theta/theta/mode/...);
+    anything else raises ``TypeError``.
     """
     unknown = set(kw) - _SOLVER_KEYS - _PROBLEM_KEYS
     if unknown:

@@ -1,9 +1,11 @@
-"""IM problem spec for the port: plain problems only.
+"""IM problem spec for the port: plain problems, exact or approximate.
 
 :class:`IMProblem` keeps the reference's fields (``repro.core.problem``), so
-a problem reads the same in both packages.  The variant fields are not
-ported yet: setting one raises ``NotImplementedError`` naming the ROADMAP
-item that brings it.  Host-side spec and validation only.
+a problem reads the same in both packages.  ``mode`` is ``"exact"`` (the RR
+pool) or ``"approximate"`` (the pool-free sketch store).  The variant fields
+are not ported yet: setting one raises ``NotImplementedError`` naming the
+ROADMAP item that brings it, in either mode.  Host-side spec and validation
+only.
 """
 from __future__ import annotations
 
@@ -19,9 +21,9 @@ _NOT_PORTED = {
     "budget": (None, "Queue 1 item 7 (budgeted greedy)"),
     "candidates": (None, "Queue 1 item 7 (candidates)"),
     "t_rounds": (None, "Queue 1 item 7 (MRIM)"),
-    "early_exit": (False, "Queue 1 item 8 (sketches)"),
-    "mode": ("exact", "Queue 1 item 8 (approximate mode)"),
+    "early_exit": (False, "Queue 1 item 8 (CELF early exit)"),
 }
+MODES = ("exact", "approximate")
 
 
 @dataclass(frozen=True)
@@ -31,7 +33,8 @@ class IMProblem:
     ``theta=`` pins the RR-pool size (no Alg. 2 LB loop); ``max_theta``
     caps it; ``ell`` is IMM's failure-probability exponent.  ``model`` may
     be ``None`` (inherit) or ``"ic"``; ``"lt"`` waits for ROADMAP Queue 1
-    item 7.
+    item 7.  ``mode="approximate"`` samples into per-node coverage sketches
+    instead of a pool and returns certified ``spread_bounds``.
     """
     k: Optional[int] = None
     eps: float = 0.5
@@ -48,6 +51,9 @@ class IMProblem:
     mode: str = "exact"
 
     def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"unknown mode {self.mode!r}; expected 'exact' "
+                             "or 'approximate'")
         for name, (plain, item) in _NOT_PORTED.items():
             v = getattr(self, name)
             if (v is not None) if plain is None else (v != plain):
@@ -87,7 +93,9 @@ class ResolvedProblem:
 class IMResult:
     """Typed result of ``IMMSolver.solve(problem)``: ``seeds`` (int32),
     per-seed marginal coverage ``gains`` (int32 rows), the covered fraction
-    ``frac`` of the pool and the Eq. 3 ``spread`` estimate ``n * frac``."""
+    ``frac`` of the pool and the Eq. 3 ``spread`` estimate ``n * frac``.
+    An approximate solve also returns ``spread_bounds = (lo, hi)``, the
+    certified bracket of the spread (``None`` for exact solves)."""
     seeds: np.ndarray
     spread: float
     gains: np.ndarray
@@ -95,3 +103,4 @@ class IMResult:
     stats: Any
     problem: IMProblem
     n_nodes: int
+    spread_bounds: Optional[tuple] = None

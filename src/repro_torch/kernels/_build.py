@@ -1,4 +1,4 @@
-"""Build and load the CUDA kernels of the port (``csrc/*.cu``).
+"""Build, load and bind the CUDA kernels of the port (``csrc/*.cu``).
 
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``; nothing includes PyTorch's headers, so
@@ -6,6 +6,9 @@ a build takes seconds.  Libraries go to ``build/kernels/`` at the root of
 the checkout, named by a hash of the source and the flags, and are built at
 first use (never at import).  Concurrent builders write to a temporary name
 and rename, so the last one wins with an identical file.
+
+The wrapper modules (``bitset.py``, ``sketch.py``) share the input check of
+packed words and the launch-error check below.
 """
 from __future__ import annotations
 
@@ -68,3 +71,22 @@ def build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``."""
     return ctypes.CDLL(str(build(name)))
+
+
+def check_words(words, name: str = "words") -> None:
+    """Raise unless ``words`` is a contiguous 2-D int32 tensor on a card."""
+    import torch
+    if words.device.type != "cuda":
+        raise ValueError(f"CUDA kernel given a tensor on {words.device}")
+    if words.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32 packed bits, got {words.dtype}")
+    if words.dim() != 2:
+        raise ValueError(f"{name} must be 2-D, got {tuple(words.shape)}")
+    if not words.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on(err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error code other than 0."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")

@@ -37,17 +37,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_words(words: torch.Tensor) -> None:
-    if words.device.type != "cuda":
-        raise ValueError(f"CUDA kernel given a tensor on {words.device}")
-    if words.dtype != torch.int32:
-        raise TypeError(f"words must be int32 packed bits, got {words.dtype}")
-    if words.dim() != 2:
-        raise ValueError(f"words must be 2-D (B, W), got {tuple(words.shape)}")
-    if not words.is_contiguous():
-        raise ValueError("words must be contiguous")
-
-
 def rows_per_chunk(rows: int, cols: int) -> int:
     """Rows each thread walks: enough chunks to fill the card, and never
     more than the grid's y limit."""
@@ -57,21 +46,16 @@ def rows_per_chunk(rows: int, cols: int) -> int:
     return max(per, -(-rows // _MAX_GRID_Y), 1)
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-
-
 def occur_from_bitset(words: torch.Tensor) -> torch.Tensor:
     """(B, W) int32 words on the card -> (W*32,) int32 Occur."""
-    _check_words(words)
+    _build.check_words(words)
     b, w = words.shape
     occur = torch.zeros(w * 32, dtype=torch.int32, device=words.device)
     with torch.cuda.device(words.device):
         err = _lib().occur_from_bitset(
             words.data_ptr(), b, w, rows_per_chunk(b, w), occur.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "occur_from_bitset")
+    _build.raise_on(err, "occur_from_bitset")
     LAUNCHES["occur_from_bitset"] += 1
     return occur
 
@@ -80,7 +64,7 @@ def occur_from_bitset_masked(words: torch.Tensor,
                              rowmask: torch.Tensor) -> torch.Tensor:
     """Occur over the rows with ``rowmask[r] != 0``; rowmask is (B,) int32
     or bool on the same card."""
-    _check_words(words)
+    _build.check_words(words)
     b, w = words.shape
     if rowmask.device != words.device:
         raise ValueError("rowmask must lie on the words' device")
@@ -95,6 +79,6 @@ def occur_from_bitset_masked(words: torch.Tensor,
         err = _lib().occur_from_bitset_masked(
             words.data_ptr(), rowmask.data_ptr(), b, w, rows_per_chunk(b, w),
             occur.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "occur_from_bitset_masked")
+    _build.raise_on(err, "occur_from_bitset_masked")
     LAUNCHES["occur_from_bitset_masked"] += 1
     return occur

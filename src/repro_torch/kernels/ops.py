@@ -12,18 +12,20 @@ import torch
 
 from repro_torch.kernels import bitset as _bitset
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import sketch as _sketch
 
-LAUNCHES = _bitset.LAUNCHES
+_COUNTERS = (_bitset.LAUNCHES, _sketch.LAUNCHES)
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
-    return dict(LAUNCHES)
+    return {name: n for counts in _COUNTERS for name, n in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in _COUNTERS:
+        for name in counts:
+            counts[name] = 0
 
 
 def _route(t: torch.Tensor) -> str:
@@ -43,3 +45,18 @@ def occur_from_bitset_masked(words: torch.Tensor,
     if _route(words) == "cuda":
         return _bitset.occur_from_bitset_masked(words, rowmask)
     return _ref.occur_from_bitset_masked_ref(words, rowmask)
+
+
+def sketch_scatter_or(words: torch.Tensor, v: torch.Tensor,
+                      bucket: torch.Tensor) -> torch.Tensor:
+    """Scatter-OR of (row, bucket) pairs into ``words``, in place."""
+    if _route(words) == "cuda":
+        return _sketch.sketch_scatter_or(words, v, bucket)
+    return _ref.sketch_scatter_or_ref(words, v, bucket)
+
+
+def sketch_union_popcount(words: torch.Tensor,
+                          cov: torch.Tensor) -> torch.Tensor:
+    if _route(words) == "cuda":
+        return _sketch.sketch_union_popcount(words, cov)
+    return _ref.sketch_union_popcount_ref(words, cov)

@@ -4,14 +4,15 @@ the yardstick the CUDA kernels are held to on the card.
 Packed bit words are int32 tensors (bit b of word w is node ``w*32 + b``);
 bit 31 makes a word negative.  ``>>`` on int32 sign-extends, but
 ``(x >> b) & 1`` still reads bit b for every b in [0, 32), so the bit
-reads below need no widening.  The SWAR popcount and the hash run in
-int64 with ``& 0xFFFFFFFF``.
+reads below need no widening.  The SWAR popcount, the hash and the
+scatter-OR's commit run in int64 with ``& 0xFFFFFFFF``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.bernoulli import counter_uniform_u32, mul_u32
+from repro_torch.core.packing import to_int32_bits
+from repro_torch.kernels.bernoulli import MASK32, counter_uniform_u32, mul_u32
 
 # rows per block of the Occur histograms: a (block, W, 32) bit tensor stays
 # near 2^28 elements whatever the matrix size
@@ -53,3 +54,51 @@ def occur_from_bitset_masked_ref(words: torch.Tensor,
     keep = (rowmask != 0)[:, None]
     return occur_from_bitset_ref(torch.where(keep, words,
                                              torch.zeros_like(words)))
+
+
+def _check_buckets(bucket: torch.Tensor, n_words: int) -> None:
+    """Raise unless every bucket lies in ``[0, 32 * n_words)`` (one host
+    read; the CUDA wrapper raises on the same condition)."""
+    if bucket.numel() and bool(((bucket < 0) | (bucket >= 32 * n_words)).any()):
+        raise ValueError(f"bucket outside [0, {32 * n_words})")
+
+
+def sketch_scatter_or_ref(words: torch.Tensor, v: torch.Tensor,
+                          bucket: torch.Tensor) -> torch.Tensor:
+    """``words[v[e], bucket[e] >> 5] |= 1 << (bucket[e] & 31)``, in place.
+
+    ``words`` is a contiguous (R, W) int32 matrix, ``v``/``bucket`` are (E,)
+    integer tensors.  Pairs with ``v`` outside ``[0, R)`` are dropped and
+    duplicates are harmless; a bucket outside ``[0, 32W)`` raises.  torch
+    has no scatter with an OR reduction, so, as the reference's
+    ``scatter_or_bits``: the (cell, bit) keys are deduplicated, bits already
+    set are masked off, and the rest (distinct bits of each word) commit
+    with one add per word, which then equals OR.  The add runs in int64 on
+    the unsigned value and wraps back to int32 bits.  Returns ``words``.
+    """
+    r, w = words.shape
+    _check_buckets(bucket, w)
+    v = v.to(torch.int64)
+    b = bucket.to(torch.int64)
+    keep = (v >= 0) & (v < r)
+    key = torch.unique((v * (w * 32) + b)[keep])      # sorted (cell, bit)
+    if key.numel() == 0:
+        return words
+    cell = key >> 5                                   # = v*W + (b >> 5)
+    flat = words.view(-1)
+    val = torch.ones_like(key) << (key & 31)
+    cur = flat[cell].to(torch.int64) & MASK32
+    new = torch.where((cur & val) == 0, val, 0)
+    ucell, inv = torch.unique_consecutive(cell, return_inverse=True)
+    add = torch.zeros(ucell.numel(), dtype=torch.int64,
+                      device=words.device).index_add_(0, inv, new)
+    flat[ucell] = to_int32_bits((flat[ucell].to(torch.int64) & MASK32) + add)
+    return words
+
+
+def sketch_union_popcount_ref(words: torch.Tensor,
+                              cov: torch.Tensor) -> torch.Tensor:
+    """``out[r] = sum_w popcount(words[r, w] | cov[w])``: (R, W) and (W,)
+    int32 -> (R,) int32."""
+    return popcount_words_ref(words | cov[None, :]).sum(dim=1,
+                                                        dtype=torch.int32)

@@ -6,6 +6,14 @@ solve (same pool, same seeds, gains and frac).  The two packages sample
 with different generators, so seed quality is held statistically: the
 forward Monte-Carlo spread of the port's seeds must reach the reference's
 seeds' spread minus 5 sigma of the difference of the two MC means.
+
+The approximate (pool-free) mode is held as the reference's own suite holds
+it (``tests/test_approximate_mode.py``): in the exact regime (θ <= sketch_k)
+it equals the port's fused solve seed for seed, with lo == spread == hi
+(relative 1e-6); in the estimate regime its certified bounds bracket the
+spread, and the forward-MC spread of its seeds clears
+``(1 - 1/e - eps - eps_cert) * best * 0.9`` and lies in
+``[0.7 lo, 1.3 hi]``.
 """
 import math
 
@@ -17,7 +25,7 @@ from repro.core import oracle as joracle
 from repro.core.imm import IMMSolver as JSolver
 from repro.core.problem import IMProblem as JProblem
 from repro.graph import csr as jcsr, generators as jgen, weights as jw
-from repro_torch.core import forward, oracle as toracle
+from repro_torch.core import coverage as tcov, forward, oracle as toracle
 from repro_torch.core.imm import IMMSolver, imm
 from repro_torch.core.problem import IMProblem
 from repro_torch.graph import csr as tcsr, weights as tw
@@ -114,8 +122,21 @@ def test_imm_wrapper_and_determinism(graphs):
     ("model", "lt", "item 7"), ("early_exit", True, "item 8"),
     ("mode", "approximate", "item 8")])
 def test_variant_fields_not_ported(field, value, item):
+    if field == "mode":
+        # ported by Queue 1 item 8: accepted; an unknown mode raises
+        assert IMProblem(k=1, **{field: value}).mode == value
+        with pytest.raises(ValueError, match="unknown mode"):
+            IMProblem(k=1, mode="bogus")
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         IMProblem(k=1, **{field: value})
+
+
+def test_candidates_with_approximate_mode_not_ported():
+    """The reference's approximate mode accepts candidates; the port's
+    waits for the candidate mask (Queue 1 item 7)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        IMProblem(k=2, mode="approximate", candidates=[0, 1])
 
 
 def test_problem_validation():
@@ -138,3 +159,110 @@ def test_solver_defaults_to_the_card(graphs):
             IMMSolver(tg)
     with pytest.raises(ValueError, match="selection"):
         IMMSolver(tg, selection="celf", device=CPU)
+
+
+# ------------------------------------------------------- approximate mode
+
+def _er_graphs(n=60, m=300, seed=6):
+    """The reference suite's graph (tests/test_approximate_mode.py)."""
+    src, dst = jgen.erdos_renyi(n, m, seed=seed)
+    return (tw.wc_weights(tcsr.from_edges(src, dst, n, device=CPU)),
+            jw.wc_weights(jcsr.from_edges(src, dst, n)))
+
+
+@pytest.fixture(scope="module")
+def er_graphs():
+    return _er_graphs()
+
+
+def test_approximate_exact_regime_equals_fused(er_graphs):
+    """θ <= sketch_k under "mod": the approximate solve walks the fused
+    solve's round-seed stream and its selection is injective, so seeds,
+    gains and spread are the fused solve's."""
+    tg, _ = er_graphs
+    fused = IMMSolver(tg, batch=64, seed=3, selection="fused",
+                      device=CPU).solve(IMProblem(k=4, theta=192))
+    solver = IMMSolver(tg, batch=64, seed=3, sketch_k=256, device=CPU)
+    res = solver.solve(IMProblem(k=4, theta=192, mode="approximate"))
+    np.testing.assert_array_equal(res.seeds, fused.seeds)
+    np.testing.assert_array_equal(res.gains, fused.gains)
+    assert res.spread == pytest.approx(fused.spread, rel=1e-6)
+    lo, hi = res.spread_bounds
+    assert lo == pytest.approx(res.spread, rel=1e-6)
+    assert hi == pytest.approx(res.spread, rel=1e-6)
+    assert fused.spread_bounds is None
+    assert isinstance(solver.store, tcov.SketchRRStore)
+    assert solver.store.per_device_pool_bytes() == 0
+    assert solver.engine.name == "fused-sketch[queue]"
+    assert solver._sketch_info["exact_regime"]
+
+
+def test_approximate_estimate_regime_quality(er_graphs):
+    """n_rr > sketch_k, unsaturated: bounds bracket the spread and the MC
+    spread of the seeds clears the certified approximation bound."""
+    tg, jg = er_graphs
+    n, k, eps = tg.n_nodes, 4, 0.3
+    solver = IMMSolver(tg, batch=64, seed=3, sketch_k=1024, device=CPU)
+    res = solver.solve(IMProblem(k=k, eps=eps, max_theta=4096,
+                                 mode="approximate"))
+    info = solver._sketch_info
+    assert solver.store.n_rr > 1024 and not info["exact_regime"]
+    assert not info["saturated"]
+    lo, hi = res.spread_bounds
+    assert lo <= res.spread <= hi
+    got = forward.ic_spread(tg, res.seeds, n_sims=2048, seed=7)
+    rev = jcsr.reverse(jg)
+    o_seeds, _, _ = joracle.imm_oracle(
+        np.asarray(rev.offsets), np.asarray(rev.indices),
+        np.asarray(rev.weights), n, k, eps, seed=11, max_theta=4096)
+    best = forward.ic_spread(tg, list(o_seeds), n_sims=2048, seed=8)
+    eps_cert = (res.spread - lo) / max(res.spread, 1e-9)
+    bound = (1.0 - 1.0 / np.e - eps - eps_cert) * best
+    assert got >= bound * 0.9, (got, bound, best, eps_cert)
+    assert lo * 0.7 <= got <= hi * 1.3, (lo, got, hi)
+
+
+def test_approximate_against_reference_solve(er_graphs):
+    """Same problem in both packages (different RR sets): the port's
+    seeds are as good under MC as the reference's, and its spread lies in
+    the reference's certified bracket with the reference suite's slack."""
+    tg, jg = er_graphs
+    prob = dict(k=4, eps=0.3, max_theta=4096, mode="approximate")
+    tres = IMMSolver(tg, batch=64, seed=5, sketch_k=1024,
+                     device=CPU).solve(IMProblem(**prob))
+    jres = JSolver(jg, engine="queue", batch=64, seed=5,
+                   sketch_k=1024).solve(JProblem(**prob))
+    _mc_gap_ok(tg, tres.seeds, np.asarray(jres.seeds))
+    jlo, jhi = jres.spread_bounds
+    assert jlo * 0.7 <= tres.spread <= jhi * 1.3, (jlo, tres.spread, jhi)
+
+
+def test_store_follows_the_problem_mode(er_graphs):
+    """A solve whose (mode, sketch_k) differs from the current store's
+    starts a fresh store and stats on the same round-seed stream."""
+    tg, _ = er_graphs
+    solver = IMMSolver(tg, batch=64, seed=4, sketch_k=256, device=CPU)
+    exact = solver.solve(IMProblem(k=3, theta=128))
+    assert isinstance(solver.store, tcov.DeviceRRStore)
+    approx = solver.solve(IMProblem(k=3, theta=128, mode="approximate"))
+    assert isinstance(solver.store, tcov.SketchRRStore)
+    assert approx.stats.rounds == exact.stats.rounds == 2
+    np.testing.assert_array_equal(approx.seeds, exact.seeds)
+    again = solver.solve(IMProblem(k=3, theta=128))
+    assert isinstance(solver.store, tcov.DeviceRRStore)
+    np.testing.assert_array_equal(again.seeds, exact.seeds)
+    assert again.spread == exact.spread and again.spread_bounds is None
+    # the auto sketch size: eps=0.5 on 60 nodes -> max(64, min(104, 60))
+    solver2 = IMMSolver(tg, batch=64, seed=4, device=CPU)
+    solver2.prepare(IMProblem(k=3, eps=0.5, mode="approximate"))
+    assert solver2.store.sketch_k == 64
+
+
+def test_imm_wrapper_approximate(er_graphs):
+    tg, _ = er_graphs
+    seeds, spread, stats = imm(tg, k=3, theta=192, mode="approximate",
+                               sketch_k=256, batch=64, seed=3, device=CPU)
+    s2, sp2, _ = imm(tg, k=3, theta=192, batch=64, seed=3,
+                     selection="fused", device=CPU)
+    np.testing.assert_array_equal(seeds, s2)
+    assert spread == pytest.approx(sp2, rel=1e-6) and stats.theta == 192

@@ -122,7 +122,9 @@ def test_ops_dispatch_cpu_and_unknown_device():
         tops.occur_from_bitset_masked(_t(x), m).numpy(),
         tref.occur_from_bitset_ref(_t(x)).numpy())
     assert tops.launch_counts() == {"occur_from_bitset": 0,
-                                    "occur_from_bitset_masked": 0}
+                                    "occur_from_bitset_masked": 0,
+                                    "sketch_scatter_or": 0,
+                                    "sketch_union_popcount": 0}
     with pytest.raises(ValueError, match="no kernel"):
         tops.occur_from_bitset(torch.zeros(4, 1, dtype=torch.int32,
                                            device="meta"))
