@@ -6,15 +6,22 @@
 Phases, each of which raises on failure (non-zero exit):
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
-   power limit;
-2. build: compiles ``csrc/occur.cu`` and ``csrc/sketch.cu`` with nvcc for
-   sm_90a, one nvcc per source, started together, and prints each
-   ``-Xptxas -v`` report;
+   power limit, and the card's instruction rate per class (SMs x the
+   class's results per clock per SM x the maximum SM clock that
+   ``nvidia-smi`` reports) that the kernels' bounds use;
+2. build: compiles ``csrc/occur.cu``, ``sketch.cu``, ``bitops.cu`` and
+   ``bernoulli.cu`` with nvcc for sm_90a, one nvcc per source, started
+   together, and prints each ``-Xptxas -v`` report;
 3. kernels: both Occur kernels against their plain versions on random
    int32 words of shape (131072, 2372) (bit 31 set in half the words, a
    ~50% row mask); the union popcount at (75880, 512) and (75880, 4) and
    the scatter-OR of 2^24 pairs (~10% of rows out of range, duplicates)
-   into (75880, 512); exact equality, then timed with CUDA events;
+   into (75880, 512); exact equality, then timed with CUDA events.  The
+   dense path's kernels on random data at its shapes (``pack_bits`` at
+   (512, 75904), ``bitset_or``/``bitset_andnot``/``popcount_words`` at
+   (512, 2372), ``bernoulli_edges`` at 512 seeds x 607,012 edges) and at
+   ragged ones (W odd and off the 16-byte alignment, E not a multiple of
+   the block), exact;
 4. approximate solve (the second slice's path): ``IMMSolver(g,
    engine="queue", batch=512, seed=0).solve(IMProblem(k=50, eps=0.5,
    mode="approximate", max_theta=8192))`` with the auto sketch size on the
@@ -41,17 +48,35 @@ Phases, each of which raises on failure (non-zero exit):
    ``SketchRRStore.from_state``, no second sampling); ``select_seeds_sketch``
    must give the ``bitset`` seeds, gains and frac exactly.  The same pool
    folded at smaller sketch sizes must keep the certified lower bound
-   ``lo_rows`` at or below the rows its seeds truly cover.
+   ``lo_rows`` at or below the rows its seeds truly cover;
+9. dense solve (the third slice's path): ``IMMSolver(g, engine="dense",
+   batch=512, selection="bitset", seed=0).solve(IMProblem(k=50, eps=0.5))``
+   with stage times, levels per round, peak memory and launch counts
+   (``bernoulli_edges`` and both Occur kernels > 0).  The dense engine
+   keeps the queue sampler's per-row contract, so its result must equal
+   phase 5's exactly: θ, LB, rounds, RR sets, pool elements, seeds, gains
+   and the float32 bytes of frac.  Then one round under torch.profiler;
+10. packed sampler: ``sample_rrsets_dense_packed(reverse(g), batch=512,
+   seed32=round_seed(0, 0), base_seed=0)`` with levels, mean RR size,
+   wall time, peak memory and launch counts (the five dense kernels and
+   ``occur_from_bitset`` > 0); its Occur and sizes must equal the plain
+   versions on its words, and its first 16 lanes must equal a CPU run of
+   ``_sample_dense_packed`` from the same 16 roots, bit for bit.  The five
+   dense kernels are then held against their plain versions and timed on
+   this run's inputs.
 
 The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
 the exact path's final bit matrix, the sketch kernels at the approximate
-path's sketch; launches from each path's solve), the ``nvidia-smi`` line
-and ``{"ok": true, "device": {...}}``.
+path's sketch, the dense kernels at the packed sampler's inputs; launches
+from each path's run), the ``nvidia-smi`` line and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -61,9 +86,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.core import coverage as cov  # noqa: E402
+from repro_torch.core import dense  # noqa: E402
 from repro_torch.core import forward  # noqa: E402
 from repro_torch.core import sketch as sketch_mod  # noqa: E402
 from repro_torch.core.engine import make_engine  # noqa: E402
@@ -74,17 +101,34 @@ from repro_torch.core.rrset import round_seed  # noqa: E402
 from repro_torch.graph import csr, generators, weights  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 
-# H100 SXM peaks: HBM bytes/s, and the 67 TFLOP/s non-tensor float32 rate,
-# the nearest published peak for 32-bit integer ops
+# H100 SXM HBM rate (NVIDIA's data sheet), and the results per clock per
+# SM of each class of instruction on Hopper (compute capability 9.0), from
+# the arithmetic-instruction throughput table of the CUDA C++ Programming
+# Guide: the integer ALU (logic, shifts, adds, compares, selects), integer
+# multiply-add on the FMA pipe, float32 arithmetic and compares, and the
+# conversions and popcount.  "dispatch" is the four warp schedulers' 4 x 32
+# instructions of any class.  (The 67 TFLOP/s float32 figure counts an FMA
+# as two operations on 128 lanes; it is no integer rate.)
 HBM_BYTES_S = 3.35e12
-INT32_OPS_S = 67e12
+PER_SM_CLOCK = {"alu": 64, "imad": 64, "fp32": 128, "xu": 16, "dispatch": 128}
+SASS_CLASS = {
+    **dict.fromkeys(("LOP3", "LOP", "SHF", "SHL", "SHR", "IADD3", "ISETP",
+                     "SEL", "LEA", "IMNMX", "PRMT", "MOV", "IABS"), "alu"),
+    **dict.fromkeys(("IMAD", "IMUL"), "imad"),
+    **dict.fromkeys(("FMUL", "FADD", "FFMA", "FSETP", "FMNMX", "FSEL"),
+                    "fp32"),
+    **dict.fromkeys(("I2F", "I2FP", "F2I", "F2F", "POPC", "FLO", "BREV"),
+                    "xu"),
+}
+SASS_LOADS = ("LDG", "LDC", "LD", "LDS", "LDL", "ULDC", "S2R", "S2UR")
 SYNTH_SHAPE = (131072, 2372)
 N_NODES, BA_R, K, EPS, BATCH = 75879, 4, 50, 0.5, 512
 MC_SIMS, MC_TOL = 256, 0.10
 APPROX_MAX_THETA = 8192
 SKETCH_ROWS, SKETCH_WORDS, SCATTER_PAIRS = N_NODES + 1, 512, 1 << 24
 PROBE_SKETCH_K = (128, 1024, 4096)
-SOURCES = ("occur", "sketch")
+SOURCES = ("occur", "sketch", "bitops", "bernoulli")
+CPU_LANES = 16
 LIBRARY_NOTE = {
     "occur_from_bitset": "no single PyTorch call computes a bit-column "
                          "histogram",
@@ -92,12 +136,26 @@ LIBRARY_NOTE = {
                                 "bit-column histogram",
     "sketch_scatter_or": "torch has no scatter with an OR reduction",
     "sketch_union_popcount": "torch has no popcount op",
+    "pack_bits": "torch has no bit pack",
+    "bitset_andnot": "a & ~b is two PyTorch calls",
+    "popcount_words": "torch has no popcount op",
+    "bernoulli_edges": "the counter hash is many PyTorch calls",
 }
+SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
+             "sketch_scatter_or": "sketch", "sketch_union_popcount": "sketch",
+             "pack_bits": "bitops", "bitset_or": "bitops",
+             "bitset_andnot": "bitops", "popcount_words": "bitops",
+             "bernoulli_edges": "bernoulli"}
 KERNELS = {
     "occur_from_bitset": "src/repro/kernels/bitset.py:167",
     "occur_from_bitset_masked": "src/repro/kernels/bitset.py:133",
     "sketch_scatter_or": "src/repro/kernels/sketch.py:101",
     "sketch_union_popcount": "src/repro/kernels/sketch.py:53",
+    "pack_bits": "src/repro/kernels/bitset.py:37",
+    "bitset_or": "src/repro/kernels/bitset.py:77",
+    "bitset_andnot": "src/repro/kernels/bitset.py:82",
+    "popcount_words": "src/repro/kernels/bitset.py:102",
+    "bernoulli_edges": "src/repro/kernels/bernoulli.py:53",
 }
 
 
@@ -105,11 +163,85 @@ def say(tag: str, obj) -> None:
     print(f"{tag}: {json.dumps(obj)}", flush=True)
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+def nvidia_smi(query: str = "name,power.limit", units: bool = True) -> str:
+    fmt = "csv,noheader" + ("" if units else ",nounits")
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          f"--format={fmt}"], capture_output=True, text=True,
+                         check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+@functools.cache
+def card_rates() -> dict:
+    """The card's peak rates, read once: HBM bytes/s, and instructions/s of
+    each class = SMs x PER_SM_CLOCK x the maximum SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(nvidia_smi("clocks.max.sm", units=False))
+    return {"sms": sms, "clocks_max_sm_mhz": mhz, "hbm_bytes_s": HBM_BYTES_S,
+            "per_sm_clock": PER_SM_CLOCK,
+            "ops_s": {k: sms * v * mhz * 1e6 for k, v in PER_SM_CLOCK.items()}}
+
+
+def _sass_regs(text: str, pair: bool = False) -> set:
+    """Registers and predicates named in one SASS operand; ``R4.64`` (or
+    ``pair``) names R4 and R5."""
+    regs = set()
+    for kind, num, wide in re.findall(r"\b(UR|R|UP|P)(\d+)(\.64)?\b", text):
+        regs.add(f"{kind}{num}")
+        if (wide or pair) and kind in ("R", "UR"):
+            regs.add(f"{kind}{int(num) + 1}")
+    return regs
+
+
+def sass_ops_per_store(sass: str, kernel: str) -> dict:
+    """Instructions by class per one-byte store in the loop of ``kernel``,
+    read from ``cuobjdump -sass`` output: the backward slice of each stored
+    value through the loop body, cut at loads (the inputs), so address and
+    loop arithmetic are not counted.  Raises on an instruction in the slice
+    that SASS_CLASS does not class."""
+    fn = next(f for f in sass.split("Function : ")[1:]
+              if kernel in f.splitlines()[0])
+    code = [(int(a, 16), g, op, [x.strip() for x in args.split(",")])
+            for a, g, op, args in re.findall(
+                r"/\*([0-9a-f]+)\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+                r"\s*([^;]*);", fn)]
+    loops = [(int(args[0], 16), at) for at, _, op, args in code
+             if op.startswith("BRA") and args[0].startswith("0x")
+             and int(args[0], 16) < at]
+    bodies = [[c for c in code if lo <= c[0] <= hi] for lo, hi in loops]
+    body = max(bodies, key=lambda b: sum(c[2].startswith("STG.E.U8")
+                                         for c in b))
+    need, counts, stores = set(), dict.fromkeys(PER_SM_CLOCK, 0), 0
+    for _, guard, op, args in reversed(body):
+        base = op.split(".")[0]
+        if op.startswith("STG.E.U8"):
+            stores += 1
+            need |= _sass_regs(args[-1])
+            continue
+        defs = _sass_regs(args[0], pair=".WIDE" in op or ".64" in op)
+        srcs = args[1:]
+        if srcs and re.fullmatch(r"U?P\d", srcs[0]):     # a carry out
+            defs.add(srcs.pop(0))
+        if base in ("STG", "BRA", "EXIT") or not defs & need:
+            continue
+        need -= defs
+        if base in SASS_LOADS:
+            continue
+        if base not in SASS_CLASS:
+            raise ValueError(f"SASS instruction {op} has no class")
+        counts[SASS_CLASS[base]] += 1
+        need |= _sass_regs(guard or "")
+        for arg in srcs:
+            need |= _sass_regs(arg, pair=".WIDE" in op and arg is srcs[-1])
+    if not stores:
+        raise ValueError(f"no one-byte store in a loop of {kernel}")
+    return {k: v / stores for k, v in counts.items() if v}
+
+
+def cuobjdump_sass(lib: Path) -> str:
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -126,23 +258,36 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(nbytes: float, nops: float):
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = nops / INT32_OPS_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _bound(nbytes: float, ops: dict) -> dict:
+    """The least time for the work: the larger of its bytes over the HBM
+    rate and its operations, ``ops`` counted by class, each class at its own
+    rate and all of them at the dispatch rate; both sides are kept."""
+    rates = card_rates()["ops_s"]
+    per = {k: n / rates[k] * 1e3 for k, n in ops.items()}
+    per["dispatch"] = sum(ops.values()) / rates["dispatch"] * 1e3
+    pipe = max(per, key=per.get)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, per[pipe]
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+            "bound_ops_class": pipe}
 
 
 def bound_ms(rows_read: int, rows: int, cols: int, masked: bool):
     """Least time for the histogram: read the selected rows once (plus the
-    mask), write W*32 int32; one add per bit read.  Returns (ms, by)."""
+    mask), write W*32 int32.  Operations: a bit-sliced positional popcount,
+    one full adder (two LOP3s over 32 columns) per word read into bit-plane
+    counters, then 32 counts x log2(rows) planes read out per word column."""
     nbytes = rows_read * cols * 4 + cols * 32 * 4 + (rows * 4 if masked else 0)
-    return _bound(nbytes, rows_read * cols * 32)
+    return _bound(nbytes, {"alu": 2 * rows_read * cols
+                           + 32 * cols * max(rows_read, 1).bit_length()})
 
 
 def union_bound_ms(rows: int, cols: int):
-    """Read (R, W) words and cov once, write R int32; one OR, one popcount
-    and one add per word."""
-    return _bound(rows * cols * 4 + cols * 4 + rows * 4, 3 * rows * cols)
+    """Read (R, W) words and cov once, write R int32; per word an OR and an
+    add on the ALU and a popcount."""
+    return _bound(rows * cols * 4 + cols * 4 + rows * 4,
+                  {"alu": 2 * rows * cols, "xu": rows * cols})
 
 
 def scatter_bound_ms(words, v, b):
@@ -152,7 +297,7 @@ def scatter_bound_ms(words, v, b):
     keep = (v >= 0) & (v < r)
     word = v[keep].to(torch.int64) * w + (b[keep].to(torch.int64) >> 5)
     sectors = int(torch.unique(word >> 3).numel())
-    return _bound(8 * v.numel() + 2 * 32 * sectors, v.numel())
+    return _bound(8 * v.numel() + 2 * 32 * sectors, {"alu": v.numel()})
 
 
 def kernel_records(words, mask, launches=None, iters=20, plain_iters=3):
@@ -182,22 +327,25 @@ def kernel_records(words, mask, launches=None, iters=20, plain_iters=3):
     out = []
     for (name, (kern, plain, rows_read, masked)), err in zip(calls.items(),
                                                              errs):
-        b_ms, b_by = bound_ms(rows_read, rows, cols, masked)
-        out.append(record(name, "occur", launches, err, cuda_ms(kern, iters),
-                          cuda_ms(plain, plain_iters), b_ms, b_by,
+        out.append(record(name, launches, err, cuda_ms(kern, iters),
+                          cuda_ms(plain, plain_iters),
+                          bound_ms(rows_read, rows, cols, masked),
                           shape=[rows, cols],
                           mask_rows=n_sel if masked else None))
     return out
 
 
-def record(name, source, launches, err, ms, plain_ms, b_ms, b_by, **extra):
-    return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{source}.cu",
-            "replaces": KERNELS[name],
-            "launches": None if launches is None else launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "library_null_because": LIBRARY_NOTE[name], **extra}
+def record(name, launches, err, ms, plain_ms, bound, library_ms=None,
+           **extra):
+    rec = {"name": name, "route": "cuda",
+           "source": f"src/repro_torch/kernels/csrc/{SOURCE_OF[name]}.cu",
+           "replaces": KERNELS[name],
+           "launches": None if launches is None else launches[name],
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
+           "library_ms": library_ms}
+    if library_ms is None:
+        rec["library_null_because"] = LIBRARY_NOTE[name]
+    return dict(rec, **extra)
 
 
 def max_abs_err(got, want) -> float:
@@ -223,23 +371,104 @@ def sketch_records(words, cov_words, v, b, launches=None, iters=20,
                              f"{tuple(words.shape)}, E={v.numel()}: {errs}")
     rows, cols = words.shape
     scratch = words.clone()     # OR is idempotent: repeated folds time alike
-    s_ms, s_by = scatter_bound_ms(words, v, b)
-    u_ms, u_by = union_bound_ms(rows, cols)
     return [
-        record("sketch_scatter_or", "sketch", launches,
-               errs["sketch_scatter_or"],
+        record("sketch_scatter_or", launches, errs["sketch_scatter_or"],
                cuda_ms(lambda: ops.sketch_scatter_or(scratch, v, b), iters),
                cuda_ms(lambda: ref.sketch_scatter_or_ref(scratch, v, b),
-                       plain_iters), s_ms, s_by, shape=[rows, cols],
-               pairs=v.numel()),
-        record("sketch_union_popcount", "sketch", launches,
+                       plain_iters), scatter_bound_ms(words, v, b),
+               shape=[rows, cols], pairs=v.numel()),
+        record("sketch_union_popcount", launches,
                errs["sketch_union_popcount"],
                cuda_ms(lambda: ops.sketch_union_popcount(words, cov_words),
                        iters),
                cuda_ms(lambda: ref.sketch_union_popcount_ref(words,
                                                              cov_words),
-                       plain_iters), u_ms, u_by, shape=[rows, cols]),
+                       plain_iters), union_bound_ms(rows, cols),
+               shape=[rows, cols]),
     ]
+
+
+def dense_calls(bits, a, b, w, seeds) -> dict:
+    """name -> (kernel call, plain call) of the five dense-path kernels."""
+    return {
+        "pack_bits": (lambda: ops.pack_bits(bits),
+                      lambda: ref.pack_bits_ref(bits)),
+        "bitset_or": (lambda: ops.bitset_or(a, b),
+                      lambda: ref.bitset_or_ref(a, b)),
+        "bitset_andnot": (lambda: ops.bitset_andnot(a, b),
+                          lambda: ref.bitset_andnot_ref(a, b)),
+        "popcount_words": (lambda: ops.popcount_words(a),
+                           lambda: ref.popcount_words_ref(a)),
+        "bernoulli_edges": (lambda: ops.bernoulli_edges(w, seeds),
+                            lambda: ref.bernoulli_edges_ref(w, seeds)),
+    }
+
+
+def check_dense_kernels(bits, a, b, w, seeds) -> dict:
+    """Each dense-path kernel against its plain version on the same
+    inputs; raises unless every one is exact.  Returns max abs errors."""
+    errs = {}
+    for name, (kern, plain) in dense_calls(bits, a, b, w, seeds).items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        errs[name] = max_abs_err(got, want)
+        if errs[name] != 0 or not torch.equal(got, want):
+            raise AssertionError(f"{name} != plain version at "
+                                 f"{tuple(bits.shape)}, {tuple(a.shape)}, "
+                                 f"{tuple(seeds.shape)} x {w.numel()}: "
+                                 f"max abs err {errs[name]}")
+    return errs
+
+
+def dense_bounds(bits, a, w, seeds, trial_ops: dict) -> dict:
+    """Least times: pack_bits reads B*n bytes and writes B*n/8 (one ALU
+    operation per byte read); the pair ops read two words and write one
+    (one LOP3 each); popcount reads and writes one word (one POPC); the
+    trials read the weights and seeds once and write one byte per trial,
+    ``trial_ops`` instructions by class each (counted from the SASS)."""
+    nb, nw = bits.numel(), a.numel()
+    trials = seeds.numel() * w.numel()
+    return {"pack_bits": _bound(nb + nb // 8, {"alu": nb}),
+            "bitset_or": _bound(12 * nw, {"alu": nw}),
+            "bitset_andnot": _bound(12 * nw, {"alu": nw}),
+            "popcount_words": _bound(8 * nw, {"xu": nw}),
+            "bernoulli_edges": _bound(
+                4 * w.numel() + 8 * seeds.numel() + trials,
+                {k: v * trials for k, v in trial_ops.items()})}
+
+
+def dense_records(bits, a, b, w, seeds, launches, iters=20, plain_iters=3):
+    """Check the five dense-path kernels exactly, then time kernel, plain
+    version and, for bitset_or, the one PyTorch call (torch.bitwise_or)."""
+    errs = check_dense_kernels(bits, a, b, w, seeds)
+    trial_ops = sass_ops_per_store(
+        cuobjdump_sass(_build.build("bernoulli")), "bernoulli_kernel")
+    say("bernoulli_sass_ops_per_trial", trial_ops)
+    bounds = dense_bounds(bits, a, w, seeds, trial_ops)
+    shapes = {"pack_bits": list(bits.shape), "bitset_or": list(a.shape),
+              "bitset_andnot": list(a.shape), "popcount_words": list(a.shape),
+              "bernoulli_edges": [seeds.numel(), w.numel()]}
+    out = []
+    for name, (kern, plain) in dense_calls(bits, a, b, w, seeds).items():
+        lib = (cuda_ms(lambda: torch.bitwise_or(a, b), iters)
+               if name == "bitset_or" else None)
+        out.append(record(name, launches, errs[name], cuda_ms(kern, iters),
+                          cuda_ms(plain, plain_iters), bounds[name],
+                          library_ms=lib, shape=shapes[name]))
+    return out
+
+
+def ragged_dense_checks(gen) -> dict:
+    """The dense kernels at ragged shapes: W odd (flat words not a multiple
+    of 4) and a word slice off the 16-byte alignment, bits starting one
+    byte past it, E not a multiple of the block, exact."""
+    dev = gen.device
+    a, b = random_words((8, 2373), gen), random_words((8, 2373), gen)
+    raw = torch.rand(7 * 2373 * 32 + 1, device=dev, generator=gen) < 0.5
+    bits = raw[1:].view(7, 2373 * 32)
+    w = torch.rand(1000003, device=dev, generator=gen)
+    seeds = torch.randint(0, 1 << 32, (3,), device=dev, generator=gen)
+    return check_dense_kernels(bits, a[1:], b[1:], w, seeds)
 
 
 def random_words(shape, gen) -> torch.Tensor:
@@ -431,6 +660,128 @@ def exact_regime_phase(store, bit) -> None:
     say("exact_regime", probes)
 
 
+def dense_solve_phase(g, queue_res, queue_store) -> None:
+    """The exact solve with engine="dense": stage times, levels per round,
+    peak memory and launches; it must equal the queue solve exactly."""
+    dev = g.device
+    solver = IMMSolver(g, engine="dense", batch=BATCH, selection="bitset",
+                       seed=0, device=dev)
+    clock = StageClock()
+    clock.wrap(solver.engine, "sample", "sampling")
+    clock.wrap(solver.store, "append_batch", "append")
+    clock.wrap(solver.store, "bitset_matrix", "bitset_build")
+    clock.wrap(solver.store, "select", "select_total")
+    levels = []
+    timed_sample = solver.engine.sample
+
+    def sample(seed32):
+        batch = timed_sample(seed32)
+        levels.append(batch.steps)
+        return batch
+
+    solver.engine.sample = sample
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solver.solve(IMProblem(k=K, eps=EPS))
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st, qst, store = res.stats, queue_res.stats, solver.store
+    sec = dict(clock.seconds)
+    sec["selection"] = sec.pop("select_total") - sec["bitset_build"]
+    same = {
+        "theta": st.theta == qst.theta, "lb": st.lb == qst.lb,
+        "lb_iters": st.lb_iters == qst.lb_iters,
+        "rounds": st.rounds == qst.rounds,
+        "n_rr": store.n_rr == queue_store.n_rr,
+        "pool_elements": store.n_elems == queue_store.n_elems,
+        "seeds": bool(np.array_equal(res.seeds, queue_res.seeds)),
+        "gains": bool(np.array_equal(res.gains, queue_res.gains)),
+        "frac_f32_bytes": np.float32(res.frac).tobytes()
+        == np.float32(queue_res.frac).tobytes(),
+    }
+    say("dense_solve", {
+        "theta": st.theta, "lb": st.lb, "lb_iters": st.lb_iters,
+        "rounds": st.rounds, "n_rr": store.n_rr,
+        "pool_elements": store.n_elems, "levels_per_round": levels,
+        "sampling_levels": st.sampling_steps, "solve_s": solve_s,
+        "stage_s": sec, "stage_calls": dict(clock.calls),
+        "sampler_share": sec["sampling"] / solve_s,
+        "max_memory_allocated": peak, "memory_before_solve": base_mem,
+        "launches": launches, "spread": res.spread, "frac": res.frac,
+        "equals_queue_solve": same, "seeds": res.seeds.tolist()[:10],
+    })
+    for name in ("bernoulli_edges", "occur_from_bitset",
+                 "occur_from_bitset_masked"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was not launched on the dense path")
+    if not all(same.values()):
+        raise AssertionError(f"dense solve differs from the queue solve: "
+                             f"{same}")
+    say("dense_round", profile_round(
+        make_engine("dense", csr.reverse(g), batch=BATCH), round_seed(0, 0)))
+
+
+def packed_phase(g) -> list:
+    """The packed sampler at full width: launches, Occur and sizes against
+    the plain versions, the first lanes against a CPU run from the same
+    roots; returns the five dense kernels' records on this run's inputs."""
+    dev = g.device
+    g_rev = csr.reverse(g)                  # uncoalesced, as the reference
+    seed32 = round_seed(0, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ps = dense.sample_rrsets_dense_packed(g_rev, BATCH, seed32, base_seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    occur_ok = torch.equal(ps.occur, ref.occur_from_bitset_ref(ps.words))
+    sizes_ok = torch.equal(ps.sizes, ref.popcount_words_ref(ps.words).sum(
+        dim=1, dtype=torch.int32))
+    t0 = time.perf_counter()
+    cpu = dense._sample_dense_packed(g_rev.to("cpu"), ps.roots[:CPU_LANES].cpu(),
+                                     0)
+    cpu_s = time.perf_counter() - t0
+    lanes_ok = (torch.equal(ps.words[:CPU_LANES].cpu(), cpu.words)
+                and torch.equal(ps.sizes[:CPU_LANES].cpu(), cpu.sizes)
+                and torch.equal(ref.occur_from_bitset_ref(
+                    ps.words[:CPU_LANES]).cpu(), cpu.occur))
+    say("packed_sampler", {
+        "batch": BATCH, "n": g_rev.n_nodes, "m": g_rev.n_edges,
+        "words_shape": list(ps.words.shape), "levels": ps.levels,
+        "mean_rr_size": float(ps.sizes.double().mean()),
+        "max_rr_size": int(ps.sizes.max()), "wall_s": wall,
+        "max_memory_allocated": peak, "launches": launches,
+        "occur_equals_plain": occur_ok, "sizes_equal_plain": sizes_ok,
+        "cpu_lanes": CPU_LANES, "cpu_levels": cpu.levels, "cpu_s": cpu_s,
+        "cpu_lanes_equal": lanes_ok,
+    })
+    for name in ("pack_bits", "bitset_or", "bitset_andnot", "popcount_words",
+                 "bernoulli_edges", "occur_from_bitset"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was not launched by the packed "
+                                 "sampler")
+    if not (occur_ok and sizes_ok and lanes_ok):
+        raise AssertionError("packed sampler disagrees with its plain "
+                             "versions or with the CPU run")
+    # the kernels on this run's inputs: the visited membership as bits, the
+    # visited words against the roots' words, the level-0 trial seeds
+    lane = torch.arange(BATCH, dtype=torch.int64, device=dev)
+    root_bits = torch.zeros(BATCH, ps.words.shape[1] * 32, dtype=torch.bool,
+                            device=dev)
+    root_bits[lane, ps.roots.to(torch.int64)] = True
+    return dense_records(dense._unpack_bits(ps.words), ps.words,
+                         ref.pack_bits_ref(root_bits), g_rev.weights,
+                         lane * dense._LANE_MUL, launches)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -444,6 +795,7 @@ def main() -> int:
     say("torch", {"torch": torch.__version__, "cuda": torch.version.cuda,
                   "device": torch.cuda.get_device_name(0),
                   "count": torch.cuda.device_count()})
+    say("card_rates", card_rates())
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -473,11 +825,20 @@ def main() -> int:
         at_scale += sketch_records(words, cov_words, v, b)
     say("sketch_kernels_at_scale", at_scale)
     del words, cov_words, v, b
+    # the dense path's kernels at its shapes (random data), and ragged
+    src, dst = generators.barabasi_albert(N_NODES, BA_R, seed=0)
+    g = weights.wc_weights(csr.from_edges(src, dst, N_NODES, device=dev))
+    n_pad = ((N_NODES + 31) // 32) * 32
+    say("dense_kernels_at_path_shapes", check_dense_kernels(
+        torch.rand(BATCH, n_pad, device=dev, generator=gen) < 0.5,
+        random_words((BATCH, n_pad // 32), gen),
+        random_words((BATCH, n_pad // 32), gen),
+        torch.rand(g.n_edges, device=dev, generator=gen),
+        torch.randint(0, 1 << 32, (BATCH,), device=dev, generator=gen)))
+    say("dense_kernels_ragged", ragged_dense_checks(gen))
     torch.cuda.empty_cache()
 
     # 4. the approximate (pool-free) solve: the second slice's path
-    src, dst = generators.barabasi_albert(N_NODES, BA_R, seed=0)
-    g = weights.wc_weights(csr.from_edges(src, dst, N_NODES, device=dev))
     approx_records = approximate_phase(g)
 
     # 5. the exact path: one plain IC solve with the bitset selection
@@ -562,8 +923,15 @@ def main() -> int:
     # 8. exact-regime identity on the phase-5 pool, no second sampling
     exact_regime_phase(store, bit)
 
+    # 9. the dense engine's solve: must equal the phase-5 queue solve
+    dense_solve_phase(g, res, store)
+
+    # 10. the bit-packed sampler at full width, and its kernels' records
+    dense_recs = packed_phase(g)
+
     say("total", {"seconds": time.perf_counter() - t_start})
-    print(json.dumps({"kernels": records + approx_records}), flush=True)
+    print(json.dumps({"kernels": records + approx_records + dense_recs}),
+          flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
 """Sampler-engine protocol and registry: the canonical :class:`RRBatch` and
-the ``queue`` engine (the reference's ``repro.core.engine``).
+the ``queue`` and ``dense`` engines (the reference's ``repro.core.engine``).
 
 An engine is configured by a ``Config`` dataclass, registered under a short
 name and returns one :class:`RRBatch` from ``sample(seed32)``, where
 ``seed32`` is the 32-bit seed of the sampling round (the port draws from
-the counter hash, not from a key).  The other engines of the reference
-(dense, refill, lt, mrim) wait for ROADMAP Queue 1 item 7.
+the counter hash, not from a key).  Both engines keep the per-row contract
+of :mod:`.rrset`, so for one ``seed32`` they give the same RR sets, row for
+row.  The other engines of the reference (refill, lt, mrim) wait for
+ROADMAP Queue 1 item 7.
 :class:`FusedSketchEngine` marks an engine as feeding the pool-free store of
 the approximate mode.
 """
@@ -18,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.graph.csr import CSRGraph, coalesce_ic
+from repro_torch.core import dense as rr_dense
 from repro_torch.core import rrset as rr_queue
 
 
@@ -26,10 +29,12 @@ class RRBatch(NamedTuple):
 
     Invariants (:meth:`validate` checks them): one row per RR set, padded to
     the batch's longest set; ``lengths[i]`` counts row i's nodes, which lie
-    in ``[0, item_space)``, are distinct and start with the row's root;
-    entries past ``lengths[i]`` are undefined.  A row of length 0 is padding
-    (no RR set) and the store drops it without a row id.  ``overflowed`` is
-    per lane; ``steps`` counts the lockstep micro-steps of the batch.
+    in ``[0, item_space)``, are distinct and hold the row's root (queue rows
+    start with it, dense rows are ascending); entries past ``lengths[i]``
+    are undefined.  A row of length 0 is padding (no RR set) and the store
+    drops it without a row id.  ``overflowed`` is per lane; ``steps``
+    counts the lockstep micro-steps (queue) or BFS levels (dense) of the
+    batch.
     """
     nodes: torch.Tensor       # (R, W) int32
     lengths: torch.Tensor     # (R,) int32
@@ -59,8 +64,8 @@ class RRBatch(NamedTuple):
                 raise ValueError(f"RRBatch row {i} leaves [0, {item_space})")
             if len(set(row.tolist())) != ln:
                 raise ValueError(f"RRBatch row {i} repeats a node")
-            if roots is not None and row[0] != roots[i]:
-                raise ValueError(f"RRBatch row {i} does not start at its root")
+            if roots is not None and roots[i] not in row:
+                raise ValueError(f"RRBatch row {i} does not hold its root")
 
 
 _ENGINES: dict[str, type] = {}
@@ -126,6 +131,32 @@ class QueueEngine:
                                          ec=self.config.ec, dedup="none")
         return RRBatch(s.nodes, s.lengths, s.overflowed, s.steps,
                        roots=s.roots)
+
+
+@register_engine("dense")
+class DenseEngine:
+    """Dense-frontier sampler (:mod:`.dense`): one (B, m) edge-trial launch
+    per round, then a BFS over every edge at every level; rows come out in
+    ascending node order, trimmed to the longest set.  ``edge_src`` is built
+    once here, not per round; ``steps`` of a batch is its level count."""
+
+    @dataclass(frozen=True)
+    class Config:
+        batch: int = 256
+
+    def __init__(self, g_rev: CSRGraph, config: Optional[Config] = None):
+        self.g_rev = coalesce_ic(g_rev)      # exact for IC, fewer edges
+        self.config = config if config is not None else self.Config()
+        self._edge_src = rr_dense._edge_src(self.g_rev)
+
+    @property
+    def item_space(self) -> int:
+        return self.g_rev.n_nodes
+
+    def sample(self, seed32: int) -> RRBatch:
+        nodes, lens, roots, overflow, levels = rr_dense._dense_round(
+            self.g_rev, self._edge_src, seed32, self.config.batch)
+        return RRBatch(nodes, lens, overflow, levels, roots=roots)
 
 
 class FusedSketchEngine:

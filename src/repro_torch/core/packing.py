@@ -1,9 +1,51 @@
-"""Packing helpers: the rank-to-position search of the pool's append and
-the int32 bit words of visited sets and bit matrices."""
+"""Packing helpers: padded-row packing of masks (``pack_rows`` on the
+host, ``pack_rows_device`` on a tensor's device), the rank-to-position
+search of the pool's append and the int32 bit words of visited sets and
+bit matrices."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def pack_rows(values, mask):
+    """Left-compact the masked elements of each row into a padded matrix
+    (host numpy, as ``repro.core.packing.pack_rows``).
+
+    values, mask: (B, C).  Returns (rows (B, W), lengths (B,) int64) where W
+    is the largest row count (at least 1); column order is kept and the
+    tail is zero.
+    """
+    mask = np.asarray(mask, bool)
+    values = np.asarray(values)
+    lens = mask.sum(axis=1).astype(np.int64)
+    width = max(int(lens.max()) if lens.size else 0, 1)
+    out = np.zeros((mask.shape[0], width), values.dtype)
+    rank = mask.cumsum(axis=1) - 1
+    r, c = np.nonzero(mask)
+    out[r, rank[r, c]] = values[r, c]
+    return out, lens
+
+
+def pack_rows_device(values: torch.Tensor, mask: torch.Tensor,
+                     width: int | None = None):
+    """Tensor twin of :func:`pack_rows` on the mask's device, as
+    ``repro.core.packing.pack_rows_device``.
+
+    The output width is ``width`` (default: the mask's column count, the
+    reference's static width); rows are left-compacted in column order and
+    the tail is zero.  A row with more than ``width`` elements keeps its
+    first ``width``.  Returns (rows (B, width), lengths (B,) int32).
+    """
+    b, c = mask.shape
+    width = c if width is None else int(width)
+    m32 = mask.to(torch.int32)
+    lens = m32.sum(dim=1, dtype=torch.int32)
+    rank = m32.cumsum(dim=1, dtype=torch.int32) - 1
+    dest = torch.where(mask & (rank < width), rank, width).to(torch.int64)
+    out = torch.zeros(b, width + 1, dtype=values.dtype, device=mask.device)
+    out.scatter_(1, dest, values.expand(b, c))       # column width: dropped
+    return out[:, :width], lens
 
 
 def rank_positions(csum: torch.Tensor, width: int, size: int) -> torch.Tensor:

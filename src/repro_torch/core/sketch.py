@@ -113,6 +113,15 @@ def sketch_packed_from_flat(flat: torch.Tensor, ids: torch.Tensor,
     return kops.sketch_scatter_or(words, v, bucket_of(ids, k, mode))
 
 
+def pack_sketch(occ: torch.Tensor, *, words: int) -> torch.Tensor:
+    """(R, k) bool occupancy -> (R, k/32) int32 packed words through the
+    ``pack_bits`` kernel (LSB first, the layout of every packed word here).
+    """
+    if occ.shape[1] != words * 32:
+        raise ValueError("occupancy width must be words * 32")
+    return kops.pack_bits(occ)
+
+
 def union_row(cov_words: torch.Tensor, sk_words: torch.Tensor,
               u) -> torch.Tensor:
     """``cov | sketch[u]``: fold one selected seed into the union sketch."""

@@ -7,8 +7,8 @@ the checkout, named by a hash of the source and the flags, and are built at
 first use (never at import).  Concurrent builders write to a temporary name
 and rename, so the last one wins with an identical file.
 
-The wrapper modules (``bitset.py``, ``sketch.py``) share the input check of
-packed words and the launch-error check below.
+The wrapper modules (``bitset.py``, ``sketch.py``, ``bernoulli.py``) share
+the input check of packed words and the launch-error check below.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Counter-based uniform stream: the murmur3 fmix32 hash of
-``repro.kernels.bernoulli`` (``hash_mix``, ``counter_uniform_u32``).
+``repro.kernels.bernoulli`` (``hash_mix``, ``counter_uniform_u32``), and
+the CUDA wrapper of its edge-trial kernel (``csrc/bernoulli.cu``).
 
 Bit-exact wherever it runs, so the plain sampler in torch and a CUDA
 sampler give the same random numbers.  torch on the CPU lacks uint32
@@ -7,10 +8,24 @@ shifts and arithmetic, and ``>>`` on int32 sign-extends, so every value
 here is an int64 tensor holding an unsigned 32-bit quantity, masked with
 ``& 0xFFFFFFFF`` after each step.  The 32x32-bit multiply is split into
 16-bit halves so that no int64 product overflows.
+
+:func:`bernoulli_edges` replaces the Pallas kernel of the same name (vmapped
+over seeds, as the reference's dense sampler calls it).  It takes CUDA
+tensors only; ``kernels/ops.py`` routes CPU tensors to
+``ref.bernoulli_edges_ref``.  Its library is built and loaded at the first
+launch, so importing the hash loads nothing.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
+
+from repro_torch.kernels import _build
+
+# launches since the last reset (see ops.reset_launch_counts)
+LAUNCHES = {"bernoulli_edges": 0}
 
 MASK32 = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9
@@ -48,3 +63,47 @@ def counter_uniform_u32(seed, counter) -> torch.Tensor:
     seed = torch.as_tensor(seed, device=dev).to(torch.int64) & MASK32
     x = (mul_u32(counter, GOLDEN) + seed) & MASK32
     return hash_mix(hash_mix(x) ^ GOLDEN)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("bernoulli")
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.bernoulli_edges.argtypes = [vp, vp, i64, i64, vp, vp]
+    lib.bernoulli_edges.restype = ctypes.c_int
+    return lib
+
+
+def bernoulli_edges(weights: torch.Tensor, seeds) -> torch.Tensor:
+    """One trial per (seed, edge) on the card:
+    ``keep[b, e] = float32(counter_uniform_u32(seeds[b], e)) * 2^-32 <
+    weights[e]``.
+
+    ``weights`` is a contiguous (E,) float32 tensor on the card; ``seeds``
+    an int or a 0-D tensor (-> (E,) bool) or a (B,) integer tensor (->
+    (B, E) bool), taken mod 2^32.  One launch covers every seed.
+    """
+    if weights.device.type != "cuda":
+        raise ValueError(f"CUDA kernel given a tensor on {weights.device}")
+    if weights.dtype != torch.float32:
+        raise TypeError(f"weights must be float32, got {weights.dtype}")
+    if weights.dim() != 1 or not weights.is_contiguous():
+        raise ValueError(f"weights must be a contiguous 1-D tensor, got "
+                         f"{tuple(weights.shape)}")
+    e = weights.shape[0]
+    if e > MASK32:
+        raise ValueError("the counter hash needs at most 2^32 edges")
+    one = not isinstance(seeds, torch.Tensor) or seeds.dim() == 0
+    s = torch.as_tensor(seeds, device=weights.device)
+    if s.is_floating_point() or s.dtype == torch.bool or s.dim() > 1:
+        raise TypeError(f"seeds must be an int or a 1-D integer tensor, got "
+                        f"{s.dtype} of shape {tuple(s.shape)}")
+    s = s.reshape(-1).to(torch.int64).contiguous()
+    keep = torch.empty(s.shape[0], e, dtype=torch.bool, device=weights.device)
+    with torch.cuda.device(weights.device):
+        err = _lib().bernoulli_edges(
+            weights.data_ptr(), s.data_ptr(), s.shape[0], e, keep.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.raise_on(err, "bernoulli_edges")
+    LAUNCHES["bernoulli_edges"] += 1
+    return keep[0] if one else keep

@@ -10,11 +10,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import bernoulli as _bernoulli
 from repro_torch.kernels import bitset as _bitset
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sketch as _sketch
 
-_COUNTERS = (_bitset.LAUNCHES, _sketch.LAUNCHES)
+_COUNTERS = (_bitset.LAUNCHES, _sketch.LAUNCHES, _bernoulli.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -60,3 +61,37 @@ def sketch_union_popcount(words: torch.Tensor,
     if _route(words) == "cuda":
         return _sketch.sketch_union_popcount(words, cov)
     return _ref.sketch_union_popcount_ref(words, cov)
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(B, n) bool, n % 32 == 0 -> (B, n/32) int32 words, LSB first."""
+    if _route(bits) == "cuda":
+        return _bitset.pack_bits(bits)
+    return _ref.pack_bits_ref(bits)
+
+
+def bitset_or(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if _route(a) == "cuda":
+        return _bitset.bitset_or(a, b)
+    return _ref.bitset_or_ref(a, b)
+
+
+def bitset_andnot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a & ~b``."""
+    if _route(a) == "cuda":
+        return _bitset.bitset_andnot(a, b)
+    return _ref.bitset_andnot_ref(a, b)
+
+
+def popcount_words(words: torch.Tensor) -> torch.Tensor:
+    if _route(words) == "cuda":
+        return _bitset.popcount_words(words)
+    return _ref.popcount_words_ref(words)
+
+
+def bernoulli_edges(weights: torch.Tensor, seeds) -> torch.Tensor:
+    """Edge trials for one seed (-> (E,) bool) or a (B,) seed vector (->
+    (B, E) bool)."""
+    if _route(weights) == "cuda":
+        return _bernoulli.bernoulli_edges(weights, seeds)
+    return _ref.bernoulli_edges_ref(weights, seeds)

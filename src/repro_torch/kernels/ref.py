@@ -17,10 +17,59 @@ from repro_torch.kernels.bernoulli import MASK32, counter_uniform_u32, mul_u32
 # rows per block of the Occur histograms: a (block, W, 32) bit tensor stays
 # near 2^28 elements whatever the matrix size
 _OCCUR_ELEMS = 1 << 28
+# seeds per block of the edge trials: each int64 temporary of the hash
+# stays near 2^25 elements
+_TRIAL_ELEMS = 1 << 25
+_U01 = 2.0 ** -32
 
 
 def counter_uniform_u32_ref(seed, counter):
     return counter_uniform_u32(seed, counter)
+
+
+def bernoulli_edges_ref(weights: torch.Tensor, seeds) -> torch.Tensor:
+    """One Bernoulli(``weights[e]``) trial per edge and seed:
+    ``keep[b, e] = float32(counter_uniform_u32(seeds[b], e)) * 2^-32 <
+    weights[e]``.
+
+    ``weights`` is (E,) float32; ``seeds`` an int (-> (E,) bool) or a (B,)
+    integer tensor (-> (B, E) bool, what ``jax.vmap(bernoulli_edges)``
+    computes), taken mod 2^32.
+    """
+    w = weights.to(torch.float32)
+    e = torch.arange(w.shape[0], dtype=torch.int64, device=w.device)
+    if not isinstance(seeds, torch.Tensor) or seeds.dim() == 0:
+        return counter_uniform_u32(seeds, e).to(torch.float32) * _U01 < w
+    seeds = seeds.to(device=w.device, dtype=torch.int64)
+    out = torch.empty(seeds.shape[0], w.shape[0], dtype=torch.bool,
+                      device=w.device)
+    step = max(1, _TRIAL_ELEMS // max(w.shape[0], 1))
+    for b0 in range(0, seeds.shape[0], step):
+        bits = counter_uniform_u32(seeds[b0:b0 + step, None], e[None, :])
+        out[b0:b0 + step] = bits.to(torch.float32) * _U01 < w
+    return out
+
+
+def pack_bits_ref(bits: torch.Tensor) -> torch.Tensor:
+    """(B, n) bool -> (B, n/32) int32 words, LSB first: bit j of word w is
+    ``bits[:, w*32 + j]``; bit 31 makes a word negative.  ``n`` must be a
+    multiple of 32."""
+    b, n = bits.shape
+    if n % 32:
+        raise ValueError("n must be a multiple of 32 (pad first)")
+    shift = torch.arange(32, dtype=torch.int64, device=bits.device)
+    b3 = bits.reshape(b, n // 32, 32).to(torch.int64)
+    return to_int32_bits((b3 << shift).sum(dim=2))
+
+
+def bitset_or_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a | b`` on (B, W) int32 words."""
+    return a | b
+
+
+def bitset_andnot_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a & ~b`` on (B, W) int32 words."""
+    return a & ~b
 
 
 def popcount_words_ref(words: torch.Tensor) -> torch.Tensor:

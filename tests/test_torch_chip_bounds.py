@@ -1,0 +1,136 @@
+"""The least-time bounds that ``chip_smoke.py`` writes beside each kernel.
+
+No card is needed: the SASS below is the loop of ``bernoulli_kernel`` as
+``cuobjdump -sass`` prints it for ``csrc/bernoulli.cu`` built for sm_90a
+(CUDA 12.8), and the card's rates are replaced by an H100's (132 SMs at
+1,980 MHz).  Every check is exact arithmetic or an exact count.
+"""
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location("chip_smoke",
+                                               ROOT / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
+BERNOULLI_SASS = """\
+        code for sm_90a
+        Function : _ZN45_GLOBAL__N__7f25ec60_12_bernoulli_cu_5affc2d216bernoulli_kernelEPKfPKlllPh
+/*0150*/ LDG.E.CONSTANT R0, desc[UR6][R12.64] ;
+/*0160*/ IMAD.MOV.U32 R10, RZ, RZ, RZ ;
+/*0170*/ IMAD.U32 R9, RZ, RZ, UR4 ;
+/*0180*/ ULDC.64 UR4, c[0x0][0x230] ;
+/*0190*/ LEA R12, P0, R9, R6, 0x3 ;
+/*01a0*/ LEA.HI.X R13, R9, R7, R10, 0x3, P0 ;
+/*01b0*/ LDG.E.CONSTANT R13, desc[UR6][R12.64] ;
+/*01c0*/ IMAD R11, R2, -0x61c88647, R13 ;
+/*01d0*/ SHF.R.U32.HI R14, RZ, 0x10, R11 ;
+/*01e0*/ LOP3.LUT R14, R14, R11, RZ, 0x3c, !PT ;
+/*01f0*/ IMAD R14, R14, -0x7a143595, RZ ;
+/*0200*/ SHF.R.U32.HI R11, RZ, 0xd, R14 ;
+/*0210*/ LOP3.LUT R11, R11, R14, RZ, 0x3c, !PT ;
+/*0220*/ IMAD R11, R11, -0x3d4d51cb, RZ ;
+/*0230*/ SHF.R.U32.HI R14, RZ, 0x10, R11.reuse ;
+/*0240*/ LOP3.LUT R15, R11, 0x9e3779b9, RZ, 0x3c, !PT ;
+/*0250*/ LOP3.LUT R14, R14, 0x9e3779b9, R11, 0x96, !PT ;
+/*0260*/ SHF.R.U32.HI R15, RZ, 0x10, R15 ;
+/*0270*/ LOP3.LUT R14, R15, R14, RZ, 0x3c, !PT ;
+/*0280*/ IMAD R14, R14, -0x7a143595, RZ ;
+/*0290*/ SHF.R.U32.HI R11, RZ, 0xd, R14 ;
+/*02a0*/ LOP3.LUT R11, R11, R14, RZ, 0x3c, !PT ;
+/*02b0*/ IMAD R14, R10, UR8, RZ ;
+/*02c0*/ IMAD R11, R11, -0x3d4d51cb, RZ ;
+/*02d0*/ IMAD R15, R9, UR9, R14 ;
+/*02e0*/ SHF.R.U32.HI R12, RZ, 0x10, R11 ;
+/*02f0*/ LOP3.LUT R12, R12, R11, RZ, 0x3c, !PT ;
+/*0300*/ I2FP.F32.U32 R11, R12 ;
+/*0310*/ IMAD.WIDE.U32 R12, R9, UR8, R2 ;
+/*0320*/ FMUL R11, R11, 2.3283064365386962891e-10 ;
+/*0330*/ IADD3 R12, P1, R12, UR4, RZ ;
+/*0340*/ FSETP.GEU.AND P0, PT, R11, R0, PT ;
+/*0350*/ IADD3.X R13, R13, UR5, R15, P1, !PT ;
+/*0360*/ SEL R11, RZ, 0x1, P0 ;
+/*0370*/ IADD3 R9, P0, R8, R9, RZ ;
+/*0380*/ STG.E.U8 desc[UR6][R12.64], R11 ;
+/*0390*/ IMAD.X R10, RZ, RZ, R10, P0 ;
+/*03a0*/ ISETP.GE.U32.AND P0, PT, R9, R4, PT ;
+/*03b0*/ ISETP.GE.AND.EX P0, PT, R10, R5, PT, P0 ;
+/*03c0*/ @!P0 BRA 0x190 ;
+/*03d0*/ EXIT ;
+/*03e0*/ BRA 0x3e0;
+"""
+
+H100_MHZ, H100_SMS = 1980.0, 132
+
+
+@pytest.fixture
+def h100(monkeypatch):
+    monkeypatch.setattr(smoke, "card_rates", lambda: {
+        "ops_s": {k: H100_SMS * v * H100_MHZ * 1e6
+                  for k, v in smoke.PER_SM_CLOCK.items()}})
+
+
+def test_sass_slice_counts_the_trial_not_its_addressing():
+    # the hash: 6 shifts, 7 LOP3s and the select on the ALU; the counter
+    # multiply-add and 4 hash multiplies as IMADs; the scale and the compare
+    # in float32; the conversion.  The LEA/IADD3/IMAD.WIDE address and loop
+    # arithmetic and the seed load are left out.
+    assert smoke.sass_ops_per_store(BERNOULLI_SASS, "bernoulli_kernel") == {
+        "alu": 14.0, "imad": 5.0, "fp32": 2.0, "xu": 1.0}
+
+
+def test_sass_slice_per_store_in_an_unrolled_loop():
+    sass = """Function : kern
+/*0000*/ LDG.E R2, desc[UR4][R6.64] ;
+/*0010*/ LOP3.LUT R3, R2, 0x1, RZ, 0xc0, !PT ;
+/*0020*/ SHF.R.U32.HI R4, RZ, 0x1, R2 ;
+/*0030*/ STG.E.U8 desc[UR4][R8.64], R3 ;
+/*0040*/ LOP3.LUT R4, R4, 0x1, RZ, 0xc0, !PT ;
+/*0050*/ IADD3 R6, P0, R6, 0x4, RZ ;
+/*0060*/ STG.E.U8 desc[UR4][R8.64+0x1], R4 ;
+/*0070*/ @P1 BRA 0x0 ;
+"""
+    # three ALU instructions feed two stores; the pointer bump feeds none
+    assert smoke.sass_ops_per_store(sass, "kern") == {"alu": 1.5}
+
+
+def test_sass_slice_raises_on_an_unclassed_instruction():
+    sass = """Function : kern
+/*0000*/ LDG.E R2, desc[UR4][R6.64] ;
+/*0010*/ HMUL2 R3, R2, R2 ;
+/*0020*/ STG.E.U8 desc[UR4][R8.64], R3 ;
+/*0030*/ @P1 BRA 0x0 ;
+"""
+    with pytest.raises(ValueError, match="HMUL2"):
+        smoke.sass_ops_per_store(sass, "kern")
+
+
+def test_occur_bound_is_the_bytes_at_the_exact_path(h100):
+    # (16,384 x 2,372) words: reading them is 0.0465 ms at 3.35 TB/s; a
+    # positional popcount's two LOP3s a word take a tenth of that
+    b = smoke.bound_ms(16384, 16384, 2372, masked=False)
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == b["bound_bytes_ms"] == pytest.approx(
+        (16384 * 2372 * 4 + 2372 * 128) / 3.35e9)
+    assert b["bound_ops_ms"] < b["bound_bytes_ms"] / 5
+    m = smoke.bound_ms(2469, 16384, 2372, masked=True)
+    assert m["bound_by"] == "bytes"
+    assert m["bound_ms"] == pytest.approx(
+        (2469 * 2372 * 4 + 2372 * 128 + 16384 * 4) / 3.35e9)
+
+
+def test_trial_bound_is_the_alu_at_each_class_rate(h100):
+    ops = {"alu": 14.0, "imad": 5.0, "fp32": 2.0, "xu": 1.0}
+    trials = 512 * 607012
+    b = smoke._bound(4 * 607012 + 8 * 512 + trials,
+                     {k: v * trials for k, v in ops.items()})
+    alu_s = H100_SMS * 64 * H100_MHZ * 1e6
+    assert (b["bound_by"], b["bound_ops_class"]) == ("operations", "alu")
+    assert b["bound_ms"] == pytest.approx(14 * trials / alu_s * 1e3)
+    # every class alone, and all at the dispatch rate, would take less
+    dispatch_ms = 22 * trials / (2 * alu_s) * 1e3
+    assert dispatch_ms < b["bound_ms"]
+    assert b["bound_bytes_ms"] < b["bound_ms"]

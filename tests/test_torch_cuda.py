@@ -13,11 +13,13 @@ import pytest
 import torch
 
 from repro_torch.core import coverage as cov
+from repro_torch.core import dense
 from repro_torch.core.imm import IMMSolver
 from repro_torch.core.problem import IMProblem
 from repro_torch.core.rrset import sample_rrsets_queue, to_lists
 from repro_torch.graph import csr, generators, weights
-from repro_torch.kernels import bitset as tbitset, ops, ref
+from repro_torch.kernels import bernoulli as tbern, bitset as tbitset
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sketch as tsketch
 
 RNG = np.random.default_rng(0)
@@ -204,3 +206,113 @@ def test_approximate_exact_regime_on_card_equals_bitset(card):
     assert approx.frac == bit.frac
     lo, hi = approx.spread_bounds
     assert lo == hi == pytest.approx(approx.spread, rel=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,w", [(1, 1), (33, 5), (7, 2373), (512, 2372)])
+def test_bit_kernels_equal_plain(card, b, w):
+    """pack_bits, bitset_or/andnot and popcount_words, exact; W odd makes
+    the flat word count ragged against the 16-byte loads, and the word
+    slice ``[1:]`` of an odd W starts off their alignment."""
+    bits = torch.tensor(RNG.integers(0, 2, (b + 1, 32 * w)).astype(bool))
+    bits[:, 31::32] = True                        # bit 31 of every word
+    x, y = _words(b + 1, w), _words(b + 1, w)
+    before = ops.launch_counts()
+    for lo in (0, 1):
+        bb, xx, yy = (t[lo:].to(card) for t in (bits, x, y))
+        got = ops.pack_bits(bb)
+        assert torch.equal(got, ref.pack_bits_ref(bb))
+        assert torch.equal(got.cpu(), ref.pack_bits_ref(bb.cpu()))
+        assert torch.equal(ops.bitset_or(xx, yy), ref.bitset_or_ref(xx, yy))
+        assert torch.equal(ops.bitset_andnot(xx, yy),
+                           ref.bitset_andnot_ref(xx, yy))
+        assert torch.equal(ops.popcount_words(xx).cpu(),
+                           ref.popcount_words_ref(xx.cpu()))
+    # bits that start one byte past a 16-byte boundary take the scalar form
+    odd = torch.empty(bits.numel() + 1, dtype=torch.bool, device=card)[1:]
+    odd = odd.view(bits.shape).copy_(bits.to(card))
+    assert torch.equal(ops.pack_bits(odd).cpu(), ref.pack_bits_ref(bits))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for name in ("pack_bits", "bitset_or", "bitset_andnot", "popcount_words"):
+        assert after[name] == before[name] + 2 + (name == "pack_bits")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,e", [(1, 1), (3, 1000003), (512, 60001)])
+def test_bernoulli_kernel_equals_plain(card, b, e):
+    """Exact, with weights of exactly 0 and 1, E ragged against the block,
+    seeds holding bit 31, and the one-seed form."""
+    w = RNG.uniform(size=e).astype(np.float32)
+    w[::17], w[5::19] = 0.0, 1.0
+    w = torch.tensor(w, device=card)
+    seeds = torch.tensor(RNG.integers(0, 1 << 32, b), device=card)
+    before = ops.launch_counts()["bernoulli_edges"]
+    got = ops.bernoulli_edges(w, seeds)
+    assert got.dtype == torch.bool and got.shape == (b, e)
+    assert torch.equal(got, ref.bernoulli_edges_ref(w, seeds))
+    one = ops.bernoulli_edges(w, int(seeds[0]))
+    assert one.shape == (e,) and torch.equal(one, got[0])
+    assert torch.equal(one.cpu(), ref.bernoulli_edges_ref(w.cpu(),
+                                                          int(seeds[0])))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bernoulli_edges"] == before + 2
+
+
+@pytest.mark.cuda
+def test_dense_kernel_wrappers_check_inputs(card):
+    x = torch.zeros(8, 4, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tbitset.pack_bits(torch.zeros(2, 64, dtype=torch.bool))
+    with pytest.raises(TypeError):
+        tbitset.pack_bits(torch.zeros(2, 64, dtype=torch.uint8, device=card))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tbitset.pack_bits(torch.zeros(2, 33, dtype=torch.bool, device=card))
+    with pytest.raises(TypeError):
+        tbitset.bitset_or(x, x.to(torch.int64))
+    with pytest.raises(ValueError):
+        tbitset.bitset_andnot(x, x[:4])
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tbitset.popcount_words(x.cpu())
+    with pytest.raises(TypeError):
+        tbitset.popcount_words(x.float())
+    w = torch.ones(16, device=card)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tbern.bernoulli_edges(w.cpu(), 1)
+    with pytest.raises(TypeError):
+        tbern.bernoulli_edges(w.double(), 1)
+    with pytest.raises(TypeError):
+        tbern.bernoulli_edges(w, torch.ones(3, device=card))
+
+
+@pytest.mark.cuda
+def test_packed_sampler_on_card_equals_cpu(card):
+    g_rev = {d: csr.reverse(_graph(d)) for d in ("cpu", card)}
+    ops.reset_launch_counts()
+    got = dense.sample_rrsets_dense_packed(g_rev[card], 128, 21, base_seed=5)
+    counts = ops.launch_counts()
+    for name in ("pack_bits", "bitset_or", "bitset_andnot", "popcount_words",
+                 "bernoulli_edges", "occur_from_bitset"):
+        assert counts[name] > 0, name
+    want = dense.sample_rrsets_dense_packed(g_rev["cpu"], 128, 21,
+                                            base_seed=5)
+    for a, b in zip(got[:4], want[:4]):
+        assert torch.equal(a.cpu(), b)
+    assert got.levels == want.levels
+
+
+@pytest.mark.cuda
+def test_dense_solve_on_card_equals_queue_solve(card):
+    g = _graph(card)
+    q = IMMSolver(g, engine="queue", batch=256, selection="bitset", seed=8,
+                  device=card).solve(IMProblem(k=10, eps=0.4))
+    ops.reset_launch_counts()
+    d = IMMSolver(g, engine="dense", batch=256, selection="bitset", seed=8,
+                  device=card).solve(IMProblem(k=10, eps=0.4))
+    counts = ops.launch_counts()
+    assert counts["bernoulli_edges"] == d.stats.rounds > 0
+    assert counts["occur_from_bitset"] > 0
+    np.testing.assert_array_equal(d.seeds, q.seeds)
+    np.testing.assert_array_equal(d.gains, q.gains)
+    assert d.frac == q.frac and d.stats.theta == q.stats.theta
+    assert d.stats.n_rr_sampled == q.stats.n_rr_sampled

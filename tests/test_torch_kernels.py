@@ -123,8 +123,11 @@ def test_ops_dispatch_cpu_and_unknown_device():
         tref.occur_from_bitset_ref(_t(x)).numpy())
     assert tops.launch_counts() == {"occur_from_bitset": 0,
                                     "occur_from_bitset_masked": 0,
+                                    "pack_bits": 0, "bitset_or": 0,
+                                    "bitset_andnot": 0, "popcount_words": 0,
                                     "sketch_scatter_or": 0,
-                                    "sketch_union_popcount": 0}
+                                    "sketch_union_popcount": 0,
+                                    "bernoulli_edges": 0}
     with pytest.raises(ValueError, match="no kernel"):
         tops.occur_from_bitset(torch.zeros(4, 1, dtype=torch.int32,
                                            device="meta"))
@@ -136,6 +139,41 @@ def test_cuda_wrapper_rejects_cpu_tensors_before_building():
         tbitset.occur_from_bitset(x)
     with pytest.raises(ValueError, match="CUDA kernel"):
         tbitset.occur_from_bitset_masked(x, torch.ones(4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: tbitset.pack_bits(torch.zeros(4, 64, dtype=torch.bool)),
+    lambda x: tbitset.bitset_or(x, x),
+    lambda x: tbitset.bitset_andnot(x, x),
+    lambda x: tbitset.popcount_words(x),
+    lambda x: tbern.bernoulli_edges(torch.ones(8), 3)],
+    ids=["pack_bits", "bitset_or", "bitset_andnot", "popcount_words",
+         "bernoulli_edges"])
+def test_dense_kernel_wrappers_reject_cpu_tensors(call):
+    """The new wrappers raise on a CPU tensor before building anything;
+    ``ops`` sends such tensors to the plain versions instead."""
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        call(_t(_u32_words((4, 2))))
+
+
+def test_ops_dispatch_of_dense_kernels_on_cpu_and_unknown_device():
+    x = _t(_u32_words((16, 3)))
+    bits = torch.tensor(RNG.integers(0, 2, (16, 96)).astype(bool))
+    w = torch.tensor(RNG.uniform(size=50).astype(np.float32))
+    tops.reset_launch_counts()
+    assert torch.equal(tops.pack_bits(bits), tref.pack_bits_ref(bits))
+    assert torch.equal(tops.bitset_or(x, x.flip(0)), x | x.flip(0))
+    assert torch.equal(tops.bitset_andnot(x, x.flip(0)), x & ~x.flip(0))
+    assert torch.equal(tops.popcount_words(x), tref.popcount_words_ref(x))
+    assert torch.equal(tops.bernoulli_edges(w, 5),
+                       tref.bernoulli_edges_ref(w, 5))
+    assert not any(tops.launch_counts().values())
+    meta = torch.zeros(4, 1, dtype=torch.int32, device="meta")
+    for call in (lambda: tops.bitset_or(meta, meta),
+                 lambda: tops.popcount_words(meta),
+                 lambda: tops.bernoulli_edges(meta.float()[:, 0], 1)):
+        with pytest.raises(ValueError, match="no kernel"):
+            call()
 
 
 def test_rows_per_chunk_respects_grid_limits():
