@@ -9,9 +9,10 @@ Phases, each of which raises on failure (non-zero exit):
    power limit, and the card's instruction rate per class (SMs x the
    class's results per clock per SM x the maximum SM clock that
    ``nvidia-smi`` reports) that the kernels' bounds use;
-2. build: compiles ``csrc/occur.cu``, ``sketch.cu``, ``bitops.cu`` and
-   ``bernoulli.cu`` with nvcc for sm_90a, one nvcc per source, started
-   together, and prints each ``-Xptxas -v`` report;
+2. build: compiles ``csrc/occur.cu``, ``sketch.cu``, ``bitops.cu``,
+   ``bernoulli.cu``, ``membership.cu`` and ``flashattn.cu`` with nvcc for
+   sm_90a, one nvcc per source, started together, and prints each
+   ``-Xptxas -v`` report;
 3. kernels: both Occur kernels against their plain versions on random
    int32 words of shape (131072, 2372) (bit 31 set in half the words, a
    ~50% row mask); the union popcount at (75880, 512) and (75880, 4) and
@@ -63,12 +64,28 @@ Phases, each of which raises on failure (non-zero exit):
    versions on its words, and its first 16 lanes must equal a CPU run of
    ``_sample_dense_packed`` from the same 16 roots, bit for bit.  The five
    dense kernels are then held against their plain versions and timed on
-   this run's inputs.
+   this run's inputs;
+11. padded selection: the phase-5 pool as RR lists, ``build_padded_store``
+   and ``select_seeds_padded(store, 50)`` on the card, which must give the
+   phase-6 ``bitset`` seeds, gains and float32 bytes of frac, with 50
+   ``membership_rows`` launches.  The kernel is then held against its
+   plain version (exactly) and timed at the path's shape and at (131,072 x
+   512), rows drawn from the pool (its size law, u a seed), and at ragged
+   shapes (lengths 0 and L, L off 128, u = n);
+12. flash attention at full width of three of the repo's LM configs
+   (``src/repro/configs/lm.py``): olmo-1b (B=2, S=2048, H=16, D=128,
+   bfloat16, causal), qwen2-0.5b (B=1, S=4096, its 2 KV heads repeated to
+   H=14, D=64, float32, not causal) and gemma3-12b (B=1, S=1024, H=16,
+   D=256, bfloat16, causal), each one ``ops.flash_attention`` call, held
+   against ``flash_attention_ref`` on the card (atol 2e-5, rtol 1e-4 in
+   float32; 2e-2 in bfloat16) and timed beside
+   ``scaled_dot_product_attention`` on the same tensors.
 
 The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
 the exact path's final bit matrix, the sketch kernels at the approximate
-path's sketch, the dense kernels at the packed sampler's inputs; launches
-from each path's run), the ``nvidia-smi`` line and
+path's sketch, the dense kernels at the packed sampler's inputs, the
+membership scan at the padded store, flash attention at olmo-1b's shape;
+launches from each path's run), the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -108,9 +125,14 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 # multiply-add on the FMA pipe, float32 arithmetic and compares, and the
 # conversions and popcount.  "dispatch" is the four warp schedulers' 4 x 32
 # instructions of any class.  (The 67 TFLOP/s float32 figure counts an FMA
-# as two operations on 128 lanes; it is no integer rate.)
+# as two operations on 128 lanes; it is no integer rate.)  "tensor16" is
+# the dense bfloat16/float16 tensor-core rate in flops (989 TFLOP/s = 132
+# SMs x 4,096 x 1,830 MHz); its few warpgroup instructions are not counted
+# against the dispatch rate.
 HBM_BYTES_S = 3.35e12
-PER_SM_CLOCK = {"alu": 64, "imad": 64, "fp32": 128, "xu": 16, "dispatch": 128}
+PER_SM_CLOCK = {"alu": 64, "imad": 64, "fp32": 128, "xu": 16, "dispatch": 128,
+                "tensor16": 4096}
+NOT_DISPATCHED = ("tensor16",)
 SASS_CLASS = {
     **dict.fromkeys(("LOP3", "LOP", "SHF", "SHL", "SHR", "IADD3", "ISETP",
                      "SEL", "LEA", "IMNMX", "PRMT", "MOV", "IABS"), "alu"),
@@ -127,7 +149,8 @@ MC_SIMS, MC_TOL = 256, 0.10
 APPROX_MAX_THETA = 8192
 SKETCH_ROWS, SKETCH_WORDS, SCATTER_PAIRS = N_NODES + 1, 512, 1 << 24
 PROBE_SKETCH_K = (128, 1024, 4096)
-SOURCES = ("occur", "sketch", "bitops", "bernoulli")
+SOURCES = ("occur", "sketch", "bitops", "bernoulli", "membership",
+           "flashattn")
 CPU_LANES = 16
 LIBRARY_NOTE = {
     "occur_from_bitset": "no single PyTorch call computes a bit-column "
@@ -140,12 +163,14 @@ LIBRARY_NOTE = {
     "bitset_andnot": "a & ~b is two PyTorch calls",
     "popcount_words": "torch has no popcount op",
     "bernoulli_edges": "the counter hash is many PyTorch calls",
+    "membership_rows": "eq, mask and any are three PyTorch calls",
 }
 SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "sketch_scatter_or": "sketch", "sketch_union_popcount": "sketch",
              "pack_bits": "bitops", "bitset_or": "bitops",
              "bitset_andnot": "bitops", "popcount_words": "bitops",
-             "bernoulli_edges": "bernoulli"}
+             "bernoulli_edges": "bernoulli", "membership_rows": "membership",
+             "flash_attention": "flashattn"}
 KERNELS = {
     "occur_from_bitset": "src/repro/kernels/bitset.py:167",
     "occur_from_bitset_masked": "src/repro/kernels/bitset.py:133",
@@ -156,7 +181,19 @@ KERNELS = {
     "bitset_andnot": "src/repro/kernels/bitset.py:82",
     "popcount_words": "src/repro/kernels/bitset.py:102",
     "bernoulli_edges": "src/repro/kernels/bernoulli.py:53",
+    "membership_rows": "src/repro/kernels/membership.py:36",
+    "flash_attention": "src/repro/kernels/flashattn.py:62",
 }
+# phase 11: the membership scan at a larger shape
+BIG_MEMBERSHIP = (131072, 512)
+# phase 12: (config at src/repro/configs/lm.py:line, B, S, H, D, dtype,
+# causal); the first is the kernel's record in the final line
+FLASH_SHAPES = (
+    ("olmo-1b (lm.py:22)", 2, 2048, 16, 128, torch.bfloat16, True),
+    ("qwen2-0.5b (lm.py:14)", 1, 4096, 14, 64, torch.float32, False),
+    ("gemma3-12b (lm.py:30)", 1, 1024, 16, 256, torch.bfloat16, True),
+)
+FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 
 
 def say(tag: str, obj) -> None:
@@ -264,7 +301,8 @@ def _bound(nbytes: float, ops: dict) -> dict:
     rate and all of them at the dispatch rate; both sides are kept."""
     rates = card_rates()["ops_s"]
     per = {k: n / rates[k] * 1e3 for k, n in ops.items()}
-    per["dispatch"] = sum(ops.values()) / rates["dispatch"] * 1e3
+    per["dispatch"] = sum(n for k, n in ops.items()
+                          if k not in NOT_DISPATCHED) / rates["dispatch"] * 1e3
     pipe = max(per, key=per.get)
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, per[pipe]
     return {"bound_ms": max(t_bytes, t_ops),
@@ -298,6 +336,41 @@ def scatter_bound_ms(words, v, b):
     word = v[keep].to(torch.int64) * w + (b[keep].to(torch.int64) >> 5)
     sectors = int(torch.unique(word >> 3).numel())
     return _bound(8 * v.numel() + 2 * 32 * sectors, {"alu": v.numel()})
+
+
+def membership_bound_ms(lengths, row_len: int):
+    """Read the 32-byte sectors that hold each row's valid prefix (row r
+    starts at byte 4*r*L), the lengths and u, write R bools; one compare
+    per valid element."""
+    lens = lengths.to(torch.int64).clamp(0, row_len)
+    start = torch.arange(lens.numel(), dtype=torch.int64,
+                         device=lens.device) * (4 * row_len)
+    first, last = start // 32, (start + 4 * lens - 1) // 32
+    sectors = int(torch.where(lens > 0, last - first + 1, 0).sum())
+    return _bound(32 * sectors + 4 * lens.numel() + 4 + lens.numel(),
+                  {"alu": int(lens.sum())})
+
+
+def flash_work(b: int, s: int, h: int, d: int, causal: bool) -> dict:
+    """Flops (4*B*H*D*P: QK^T and P.V, two each per multiply-add) and
+    exponentials (B*H*P) of attention over P = S*S query-key pairs, or
+    S*(S+1)/2 when causal."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return {"pairs": pairs, "flops": 4 * b * h * d * pairs,
+            "exps": b * h * pairs}
+
+
+def flash_bound_ms(b, s, h, d, dtype, causal):
+    """Read q, k, v and write the output once (4*B*S*H*D*itemsize bytes);
+    the flops at the bfloat16/float16 tensor-core rate (what a Hopper
+    kernel within the tolerance uses) or, in float32, as FMAs at the
+    float32 rate (TF32 would miss 2e-5); the exponentials at the
+    conversion unit's 16 a clock."""
+    work = flash_work(b, s, h, d, causal)
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    arith = ({"fp32": work["flops"] // 2} if dtype == torch.float32
+             else {"tensor16": work["flops"]})
+    return _bound(4 * b * s * h * d * itemsize, {**arith, "xu": work["exps"]})
 
 
 def kernel_records(words, mask, launches=None, iters=20, plain_iters=3):
@@ -782,6 +855,165 @@ def packed_phase(g) -> list:
                          lane * dense._LANE_MUL, launches)
 
 
+def membership_record(rows, lengths, u, launches=None, iters=50,
+                      plain_iters=10):
+    """The membership kernel against its plain version on the same inputs
+    (u as the card tensor the greedy passes, and as an int), exactly; then
+    timed beside the plain version."""
+    want = ref.membership_rows_ref(rows, lengths, u)
+    for arg in (u, int(u)):
+        got = ops.membership_rows(rows, lengths, arg)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err != 0 or not torch.equal(got, want):
+            raise AssertionError(f"membership_rows != plain version at "
+                                 f"{tuple(rows.shape)}, u={int(u)}: max abs "
+                                 f"err {err}")
+    r, l = rows.shape
+    return record(
+        "membership_rows", launches, err,
+        cuda_ms(lambda: ops.membership_rows(rows, lengths, u), iters),
+        cuda_ms(lambda: ref.membership_rows_ref(rows, lengths, u),
+                plain_iters),
+        membership_bound_ms(lengths, l), shape=[r, l],
+        valid_elements=int(lengths.to(torch.int64).clamp(0, l).sum()),
+        padded_bytes=r * l * 4, hits=int(want.sum()))
+
+
+def ragged_membership_checks(gen, n: int) -> dict:
+    """The membership kernel at ragged shapes: R off every block, L off
+    128, lengths 0, L and past L, u = n (the padding value), exact."""
+    dev = gen.device
+    out = {}
+    for r, l in ((1, 1), (7, 3), (257, 130)):
+        rows = torch.randint(0, 8, (r, l), device=dev, generator=gen,
+                             dtype=torch.int32)
+        lens = torch.randint(0, l + 1, (r,), device=dev, generator=gen,
+                             dtype=torch.int32)
+        lens[0] = l
+        if r > 2:
+            lens[1], lens[2] = 0, l + 5
+        lane = torch.arange(l, device=dev)[None, :]
+        rows = torch.where(lane < lens[:, None], rows, n)
+        for u in (0, 7, n):
+            got = ops.membership_rows(rows, lens, u)
+            want = ref.membership_rows_ref(rows, lens, u)
+            if not torch.equal(got, want):
+                raise AssertionError(f"membership_rows != plain version at "
+                                     f"({r}, {l}), u={u}")
+        out[f"{r}x{l}"] = 0
+    return out
+
+
+def padded_phase(store, bit) -> list:
+    """The phase-5 pool as a padded store; its greedy must give the bitset
+    selection exactly with K membership launches.  Returns the kernel's
+    record at the path's shape."""
+    dev = store.flat.device
+    n, t = store.n_nodes, store.n_elems
+    flat = store.flat[:t].cpu().numpy()
+    ids = store.ids[:t].cpu().numpy()
+    if np.any(np.diff(ids) < 0):
+        raise AssertionError("pool elements are not in row order")
+    counts = np.bincount(ids, minlength=store.n_rr)
+    lists = [a.tolist() for a in np.split(flat, np.cumsum(counts)[:-1])]
+    t0 = time.perf_counter()
+    padded = cov.build_padded_store(lists, n, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cov.select_seeds_padded(padded, K)
+    torch.cuda.synchronize()
+    select_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    rows, lengths = padded.rows, padded.lengths
+    r, l = rows.shape
+    same = {"seeds": torch.equal(res.seeds, bit.seeds),
+            "gains": torch.equal(res.gains, bit.gains),
+            "frac_f32_bytes": res.frac.cpu().numpy().tobytes()
+            == bit.frac.cpu().numpy().tobytes()}
+    say("padded_selection", {
+        "rows": r, "row_len": l, "n_rr": store.n_rr,
+        "padded_bytes": r * l * 4, "valid_elements": int(lengths.sum()),
+        "max_rr_size": int(counts.max()), "build_s": build_s,
+        "select_s": select_s, "launches": launches,
+        "equals_bitset": same, "seeds": res.seeds.tolist()[:10]})
+    if launches["membership_rows"] != K:
+        raise AssertionError(f"membership_rows launched "
+                             f"{launches['membership_rows']} times, not {K}")
+    if not all(same.values()):
+        raise AssertionError(f"padded selection differs from the bitset "
+                             f"selection: {same}")
+    u = bit.seeds[:1]
+    path = membership_record(rows, lengths, u, launches)
+    # a larger store: rows drawn from this pool (its size law), u a seed
+    gen = torch.Generator(device=dev).manual_seed(3)
+    big_r, big_l = BIG_MEMBERSHIP
+    fits = torch.nonzero((lengths > 0) & (lengths <= big_l))[:, 0]
+    pick = fits[torch.randint(0, fits.numel(), (big_r,), device=dev,
+                              generator=gen)]
+    big = torch.full((big_r, big_l), n, dtype=torch.int32, device=dev)
+    w = min(l, big_l)
+    big[:, :w] = rows[pick, :w]
+    say("membership_at_scale", membership_record(big, lengths[pick], u))
+    say("membership_ragged", ragged_membership_checks(gen, n))
+    return [path]
+
+
+def flash_phase(dev) -> list:
+    """Flash attention at full width: one entry-point call per shape (the
+    counts must show one launch each), each held against the plain
+    version, then timed beside it and beside SDPA.  Returns the record at
+    the first shape."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version's
+    torch.backends.cudnn.allow_tf32 = False         # products in float32
+    gen = torch.Generator(device=dev).manual_seed(4)
+    inputs = [tuple(torch.randn(b, s, h, d, device=dev, generator=gen).to(dt)
+                    for _ in range(3))
+              for _, b, s, h, d, dt, _ in FLASH_SHAPES]
+    ops.reset_launch_counts()
+    outs = [ops.flash_attention(q, k, v, causal=shape[-1])
+            for shape, (q, k, v) in zip(FLASH_SHAPES, inputs)]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if launches["flash_attention"] != len(FLASH_SHAPES):
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times, not "
+                             f"{len(FLASH_SHAPES)}")
+    per_call = {"flash_attention": launches["flash_attention"]
+                // len(FLASH_SHAPES)}
+    recs = []
+    for shape, (q, k, v), got in zip(FLASH_SHAPES, inputs, outs):
+        name, b, s, h, d, dtype, causal = shape
+        want = ref.flash_attention_ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        atol, rtol = FLASH_TOL[dtype]
+        if not (got.dtype == dtype and got.shape == q.shape
+                and bool(torch.isfinite(got).all())
+                and torch.allclose(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)):
+            raise AssertionError(f"flash_attention != plain version at "
+                                 f"{name}: max abs err {err}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = functools.partial(
+            torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
+            is_causal=causal)
+        recs.append(record(
+            "flash_attention", per_call, err,
+            cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal), 10),
+            cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal), 3),
+            flash_bound_ms(b, s, h, d, dtype, causal),
+            library_ms=cuda_ms(sdpa, 10), config=name,
+            shape=[b, s, h, d], dtype=str(dtype).removeprefix("torch."),
+            causal=causal, atol=atol, rtol=rtol,
+            **flash_work(b, s, h, d, causal)))
+        del want
+    say("flash_attention", recs)
+    return recs[:1]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -929,9 +1161,15 @@ def main() -> int:
     # 10. the bit-packed sampler at full width, and its kernels' records
     dense_recs = packed_phase(g)
 
+    # 11. the padded-store greedy on the phase-5 pool
+    padded_recs = padded_phase(store, bit)
+
+    # 12. flash attention at full width of three LM configs
+    flash_recs = flash_phase(dev)
+
     say("total", {"seconds": time.perf_counter() - t_start})
-    print(json.dumps({"kernels": records + approx_records + dense_recs}),
-          flush=True)
+    print(json.dumps({"kernels": records + approx_records + dense_recs
+                      + padded_recs + flash_recs}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,15 @@
 """Carry the reference's data into the port.
 
-Callers turn a JAX ``CSRGraph`` or ``RRBatch`` into numpy arrays
-(``np.asarray``) and hand them here; this module imports nothing of JAX.
+Callers turn a JAX ``CSRGraph``, ``RRBatch`` or ``PaddedStore`` into numpy
+arrays (``np.asarray``) and hand them here; this module imports nothing of
+JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.coverage import PaddedStore
 from repro_torch.core.engine import RRBatch
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import CSRGraph, _from_numpy
@@ -47,3 +49,24 @@ def sketch_words_from_arrays(words, device="cuda") -> torch.Tensor:
     return torch.from_numpy(
         np.ascontiguousarray(words).view(np.int32).copy()).to(
             resolve_device(device))
+
+
+def padded_store_from_arrays(rows, lengths, n: int,
+                             device="cuda") -> PaddedStore:
+    """A port PaddedStore from the arrays of a reference ``PaddedStore``:
+    (R, L) rows holding node ids in [0, n] (n is the padding) and (R,)
+    lengths in [0, L]."""
+    rows = np.asarray(rows)
+    lengths = np.asarray(lengths)
+    if rows.ndim != 2 or lengths.shape != (rows.shape[0],):
+        raise ValueError(f"padded store wants (R, L) rows and (R,) lengths, "
+                         f"got {rows.shape} and {lengths.shape}")
+    if rows.size and (rows.min() < 0 or rows.max() > n):
+        raise ValueError(f"rows must hold node ids in [0, {n}]")
+    if lengths.size and (lengths.min() < 0 or lengths.max() > rows.shape[1]):
+        raise ValueError(f"lengths must lie in [0, {rows.shape[1]}]")
+    dev = resolve_device(device)
+    return PaddedStore(rows=torch.tensor(rows.astype(np.int32), device=dev),
+                       lengths=torch.tensor(lengths.astype(np.int32),
+                                            device=dev),
+                       n_nodes=int(n))

@@ -21,7 +21,13 @@ Selection (:func:`select_seeds_device`):
 * ``auto`` — ``bitset`` iff the bit matrix is no larger than the pool's
   capacity, the reference's rule.
 
-Both scans take ties to the lowest node id (``torch.argmax`` returns the
+A third layout, :class:`PaddedStore` (the pool as an (R, L) matrix padded
+with n, the reference's layout for its TPU membership kernel), has its
+own greedy, :func:`select_seeds_padded`: the per-seed membership scan is
+the ``membership_rows`` CUDA kernel; Occur and its decrements are
+scatter-adds.
+
+All three scans take ties to the lowest node id (``torch.argmax`` returns the
 first maximum; the bit matrix's padding ids past n have Occur 0) and give
 seeds, gains and ``frac`` identical to each other and to the reference's
 ``fused`` scan on the same pool.
@@ -265,6 +271,74 @@ def select_seeds_device(store: DeviceRRStore, k: int,
     if method == "bitset":
         return _select_bitset(store, k)
     raise ValueError(f"unknown selection method {method!r}")
+
+
+class PaddedStore(NamedTuple):
+    """The RR pool as an (R, L) matrix, each row padded with ``n`` past its
+    length: the reference's layout for its TPU membership kernel."""
+    rows: torch.Tensor      # (R, L) int32, padded with n
+    lengths: torch.Tensor   # (R,) int32
+    n_nodes: int
+
+
+def build_padded_store(rr_lists, n: int, row_len: int | None = None,
+                       pad_rows_to: int = 8, device="cuda") -> PaddedStore:
+    """The reference's ``build_padded_store``, array for array: L is
+    ``row_len`` (or the longest list) rounded up to 128, R the list count
+    rounded up to ``pad_rows_to``; rows past the lists have length 0."""
+    lens = np.asarray([len(r) for r in rr_lists], dtype=np.int64)
+    l = row_len if row_len is not None else int(max(lens.max(), 1))
+    l = ((l + 127) // 128) * 128
+    r = ((len(rr_lists) + pad_rows_to - 1) // pad_rows_to) * pad_rows_to
+    rows = np.full((r, l), n, dtype=np.int32)
+    for i, rr in enumerate(rr_lists):
+        if len(rr) > l:
+            raise ValueError("row_len too small")
+        rows[i, :len(rr)] = rr
+    lengths = np.zeros(r, np.int32)
+    lengths[:len(lens)] = lens
+    dev = resolve_device(device)
+    return PaddedStore(rows=torch.from_numpy(rows).to(dev),
+                       lengths=torch.from_numpy(lengths).to(dev), n_nodes=n)
+
+
+def select_seeds_padded(store: PaddedStore, k: int) -> CoverageResult:
+    """Greedy selection on a :class:`PaddedStore`, the membership scan by
+    ``kops.membership_rows`` (the CUDA kernel on the card).
+
+    Occur starts as a scatter-add of the valid lanes into n + 1 slots (slot
+    n, the padding value, is dropped).  Each step takes the first maximum
+    of Occur, finds the rows that hold it, and takes the newly covered
+    rows' valid lanes off Occur by the same scatter-add.  The valid lanes
+    are gathered once, before the steps: the reference adds zeros for
+    every padding lane, and on the card those adds all land on slot n,
+    one atomic after another.  The seed stays on the device between
+    steps, so the k steps make no host sync.
+    """
+    rows, lengths, n = store.rows, store.lengths, store.n_nodes
+    r, l = rows.shape
+    dev = rows.device
+    valid = (torch.arange(l, device=dev)[None, :] < lengths[:, None])
+    elem_row, lane = torch.nonzero(valid, as_tuple=True)
+    elem_node = rows[elem_row, lane].to(torch.int64)
+    occur = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
+        0, elem_node, torch.ones_like(elem_node, dtype=torch.int32))[:n]
+    covered = torch.zeros(r, dtype=torch.bool, device=dev)
+    seeds, gains = [], []
+    for _ in range(k):
+        u = torch.argmax(occur)
+        hit = kops.membership_rows(rows, lengths, u)
+        newly = hit & ~covered
+        dec = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
+            0, elem_node, newly[elem_row].to(torch.int32))
+        occur = occur - dec[:n]
+        covered = covered | hit
+        seeds.append(u)
+        gains.append(newly.sum(dtype=torch.int32))
+    gains = torch.stack(gains).to(torch.int32)
+    n_rr = int((lengths > 0).sum())
+    return CoverageResult(seeds=torch.stack(seeds).to(torch.int32),
+                          gains=gains, frac=_frac(gains, n_rr))
 
 
 class SketchRRStore:

@@ -7,8 +7,9 @@ the checkout, named by a hash of the source and the flags, and are built at
 first use (never at import).  Concurrent builders write to a temporary name
 and rename, so the last one wins with an identical file.
 
-The wrapper modules (``bitset.py``, ``sketch.py``, ``bernoulli.py``) share
-the input check of packed words and the launch-error check below.
+The wrapper modules share the launch-error check below; ``bitset.py``,
+``sketch.py`` and ``membership.py`` also share the input check of a 2-D
+int32 matrix.
 """
 from __future__ import annotations
 
@@ -74,12 +75,13 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check_words(words, name: str = "words") -> None:
-    """Raise unless ``words`` is a contiguous 2-D int32 tensor on a card."""
+    """Raise unless ``words`` (packed bits, or the padded RR rows) is a
+    contiguous 2-D int32 tensor on a card."""
     import torch
     if words.device.type != "cuda":
         raise ValueError(f"CUDA kernel given a tensor on {words.device}")
     if words.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32 packed bits, got {words.dtype}")
+        raise TypeError(f"{name} must be int32, got {words.dtype}")
     if words.dim() != 2:
         raise ValueError(f"{name} must be 2-D, got {tuple(words.shape)}")
     if not words.is_contiguous():

@@ -1,0 +1,89 @@
+"""CUDA wrapper of the flash-attention kernel (``csrc/flashattn.cu``).
+
+``flash_attention`` replaces the Pallas kernel of the same name in
+``repro.kernels.flashattn``.  The wrapper takes CUDA tensors only;
+``kernels/ops.py`` checks the reference's block contract
+(:func:`check_blocks`) and routes CPU tensors to ``ref.py``.  It checks its
+inputs, allocates the output, launches on PyTorch's current stream of the
+tensor's card, raises on a launch error and adds one to its entry in
+:data:`LAUNCHES`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+# launches per kernel since the last reset (see ops.reset_launch_counts)
+LAUNCHES = {"flash_attention": 0}
+
+HEAD_DIMS = (8, 16, 64, 128, 256)     # the kernel's instantiations
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_MAX_GRID_Y = 65535
+
+_vp, _i64 = ctypes.c_void_p, ctypes.c_int64
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flashattn")
+    lib.flash_attention.argtypes = [_vp, _vp, _vp, _vp, _i64, _i64, _i64,
+                                    _i64, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_float, _vp]
+    lib.flash_attention.restype = ctypes.c_int
+    return lib
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k and v must share one (B, S, H, D) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+
+
+def check_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 bq: int, bk: int) -> None:
+    """The reference's contract: q, k, v of one (B, S, H, D) shape (repeat
+    the KV heads beforehand for GQA), and S a multiple of ``min(bq, S)``
+    and ``min(bk, S)``."""
+    _check_shapes(q, k, v)
+    s = q.shape[1]
+    if s % min(bq, s) or s % min(bk, s):
+        raise ValueError("S must be a multiple of the block sizes")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention over (B, S, H, D) q, k, v on the card, computed in float32,
+    returned in q's dtype.  All three contiguous, of one shape and dtype
+    (float32, bfloat16 or float16), with D in :data:`HEAD_DIMS`."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"CUDA kernel given {name} on {t.device}")
+        if t.dtype != q.dtype or t.dtype not in _DTYPE_CODE:
+            raise TypeError(f"{name} must be float32, bfloat16 or float16 "
+                            f"like q, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (B, S, H, D)")
+    _check_shapes(q, k, v)
+    b, s, h, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported; the kernel takes "
+                         f"{HEAD_DIMS}")
+    if b * h > _MAX_GRID_Y:
+        raise ValueError(f"B*H = {b * h} exceeds the grid's {_MAX_GRID_Y}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(q.device):
+        err = _lib().flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
+            d, _DTYPE_CODE[q.dtype], int(bool(causal)), 1.0 / math.sqrt(d),
+            torch.cuda.current_stream().cuda_stream)
+    _build.raise_on(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

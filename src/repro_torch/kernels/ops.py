@@ -12,10 +12,13 @@ import torch
 
 from repro_torch.kernels import bernoulli as _bernoulli
 from repro_torch.kernels import bitset as _bitset
+from repro_torch.kernels import flashattn as _flash
+from repro_torch.kernels import membership as _membership
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sketch as _sketch
 
-_COUNTERS = (_bitset.LAUNCHES, _sketch.LAUNCHES, _bernoulli.LAUNCHES)
+_COUNTERS = (_bitset.LAUNCHES, _sketch.LAUNCHES, _bernoulli.LAUNCHES,
+             _membership.LAUNCHES, _flash.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -95,3 +98,25 @@ def bernoulli_edges(weights: torch.Tensor, seeds) -> torch.Tensor:
     if _route(weights) == "cuda":
         return _bernoulli.bernoulli_edges(weights, seeds)
     return _ref.bernoulli_edges_ref(weights, seeds)
+
+
+def membership_rows(rows: torch.Tensor, lengths: torch.Tensor,
+                    u) -> torch.Tensor:
+    """``hit[r] = any(rows[r, :lengths[r]] == u)``: (R, L) int32 rows,
+    (R,) lengths, ``u`` an int or a one-element tensor -> (R,) bool."""
+    if _route(rows) == "cuda":
+        return _membership.membership_rows(rows, lengths, u)
+    return _ref.membership_rows_ref(rows, lengths, u)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, bq: int = 128,
+                    bk: int = 128) -> torch.Tensor:
+    """Attention over (B, S, H, D) q, k, v (equal H: repeat the KV heads
+    beforehand for GQA), in q's dtype.  ``bq``/``bk`` keep the reference's
+    contract (S a multiple of each, once capped at S); the kernel tiles
+    the work its own way."""
+    _flash.check_blocks(q, k, v, bq, bk)
+    if _route(q) == "cuda":
+        return _flash.flash_attention(q, k, v, causal)
+    return _ref.flash_attention_ref(q, k, v, causal)

@@ -9,6 +9,8 @@ scatter-OR's commit run in int64 with ``& 0xFFFFFFFF``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.packing import to_int32_bits
@@ -151,3 +153,31 @@ def sketch_union_popcount_ref(words: torch.Tensor,
     int32 -> (R,) int32."""
     return popcount_words_ref(words | cov[None, :]).sum(dim=1,
                                                         dtype=torch.int32)
+
+
+def membership_rows_ref(rows: torch.Tensor, lengths: torch.Tensor,
+                        u) -> torch.Tensor:
+    """``hit[r] = any(rows[r, :lengths[r]] == u)``: (R, L) int32 rows padded
+    past each length, (R,) lengths, ``u`` an int or a 0-d/1-element tensor
+    -> (R,) bool.  Padding lanes never match, whatever they hold."""
+    if isinstance(u, torch.Tensor):
+        u = u.reshape(())
+    lane = torch.arange(rows.shape[1], device=rows.device)[None, :]
+    valid = lane < lengths[:, None]
+    return ((rows == u) & valid).any(dim=1)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Attention over (B, S, H, D) q, k, v with the S x S logits
+    materialised in float32 (masked with -1e30 when causal), a softmax,
+    and the output cast back to q's dtype."""
+    s, d = q.shape[1], q.shape[3]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) / math.sqrt(d)
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        logits = logits.masked_fill(pos[:, None] < pos[None, :], -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p,
+                        v.to(torch.float32)).to(q.dtype)

@@ -134,3 +134,63 @@ def test_trial_bound_is_the_alu_at_each_class_rate(h100):
     dispatch_ms = 22 * trials / (2 * alu_s) * 1e3
     assert dispatch_ms < b["bound_ms"]
     assert b["bound_bytes_ms"] < b["bound_ms"]
+
+
+def test_membership_bound_counts_the_sectors_of_valid_prefixes(h100):
+    import torch
+    # rows of 128 int32 (512 bytes, sector-aligned): lengths 0, 1, 8, 9 and
+    # 128 touch 0, 1, 1, 2 and 16 sectors; a length past L counts as L and
+    # a negative one as 0
+    lens = torch.tensor([0, 1, 8, 9, 128, 300, -4])
+    b = smoke.membership_bound_ms(lens, 128)
+    nbytes = 32 * (0 + 1 + 1 + 2 + 16 + 16 + 0) + 4 * 7 + 4 + 7
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == b["bound_bytes_ms"] == pytest.approx(
+        nbytes / 3.35e9)
+    # rows of 3 int32 (12 bytes) straddle sectors: row 2 spans bytes 24-35
+    b = smoke.membership_bound_ms(torch.tensor([3, 3, 3]), 3)
+    assert b["bound_bytes_ms"] == pytest.approx((32 * 4 + 12 + 4 + 3) / 3.35e9)
+
+
+@pytest.mark.parametrize("shape,causal,pairs", [
+    ((2, 2048, 16, 128), True, 2048 * 2049 // 2),
+    ((1, 4096, 14, 64), False, 4096 * 4096),
+    ((1, 1024, 16, 256), True, 1024 * 1025 // 2),
+    ((2, 16, 3, 8), True, 136),
+], ids=["olmo-1b", "qwen2-0.5b", "gemma3-12b", "tiny"])
+def test_flash_work_counts(shape, causal, pairs):
+    b, s, h, d = shape
+    w = smoke.flash_work(b, s, h, d, causal)
+    assert w == {"pairs": pairs, "flops": 4 * b * h * d * pairs,
+                 "exps": b * h * pairs}
+
+
+def test_flash_bound_at_olmo_is_the_tensor_cores(h100):
+    import torch
+    b = smoke.flash_bound_ms(2, 2048, 16, 128, torch.bfloat16, True)
+    flops = 34_376_515_584                  # 4 * 2 * 16 * 128 * 2,098,176
+    assert smoke.flash_work(2, 2048, 16, 128, True)["flops"] == flops
+    assert (b["bound_by"], b["bound_ops_class"]) == ("operations", "tensor16")
+    assert b["bound_ms"] == pytest.approx(
+        flops / (H100_SMS * 4096 * H100_MHZ * 1e6) * 1e3)
+    assert 0.0320 < b["bound_ms"] < 0.0325
+    # 2 * 2048 * 16 * 128 * 2 bytes, four times; the tensor-core flops are
+    # not counted against the dispatch rate
+    assert b["bound_bytes_ms"] == pytest.approx(4 * 2 * 2048 * 16 * 128 * 2
+                                                / 3.35e9)
+    exps = 2 * 16 * 2_098_176
+    assert b["bound_ops_ms"] > exps / (H100_SMS * 16 * H100_MHZ * 1e6) * 1e3
+
+
+def test_flash_bound_in_float32_is_the_fma_pipe(h100):
+    import torch
+    w = smoke.flash_work(1, 4096, 14, 64, False)
+    b = smoke.flash_bound_ms(1, 4096, 14, 64, torch.float32, False)
+    per_s = H100_SMS * 128 * H100_MHZ * 1e6
+    assert b["bound_by"] == "operations"
+    # the FMAs and the exponentials all pass the dispatch rate
+    assert b["bound_ms"] == pytest.approx(
+        (w["flops"] // 2 + w["exps"]) / per_s * 1e3)
+    assert b["bound_ms"] > w["flops"] / 2 / per_s * 1e3
+    assert b["bound_bytes_ms"] == pytest.approx(4 * 4096 * 14 * 64 * 4
+                                                / 3.35e9)

@@ -19,6 +19,8 @@ from repro_torch.core.problem import IMProblem
 from repro_torch.core.rrset import sample_rrsets_queue, to_lists
 from repro_torch.graph import csr, generators, weights
 from repro_torch.kernels import bernoulli as tbern, bitset as tbitset
+from repro_torch.kernels import flashattn as tflash
+from repro_torch.kernels import membership as tmem
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sketch as tsketch
 
@@ -316,3 +318,119 @@ def test_dense_solve_on_card_equals_queue_solve(card):
     np.testing.assert_array_equal(d.gains, q.gains)
     assert d.frac == q.frac and d.stats.theta == q.stats.theta
     assert d.stats.n_rr_sampled == q.stats.n_rr_sampled
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [1, 3, 130])
+@pytest.mark.parametrize("r", [1, 7, 257])
+def test_membership_kernel_equals_plain(card, r, l):
+    """Rows padded with n = 50 past each length; lengths 0 and L; u = n
+    (never found) and ids present or absent, as an int and as a tensor on
+    the card (0-d int64 as an argmax gives it, and 1-element int32)."""
+    n = 50
+    lens = RNG.integers(0, l + 1, r).astype(np.int32)
+    lens[0] = l
+    if r > 1:
+        lens[1] = 0
+    rows = RNG.integers(0, n, (r, l)).astype(np.int32)
+    rows = np.where(np.arange(l)[None, :] < lens[:, None], rows, n)
+    rows_c, lens_c = torch.tensor(rows, device=card), torch.tensor(lens,
+                                                                   device=card)
+    before = ops.launch_counts()["membership_rows"]
+    calls = 0
+    for u in (0, int(rows[0, 0]), 49, n):
+        want = ref.membership_rows_ref(torch.tensor(rows), torch.tensor(lens),
+                                       u)
+        for arg in (u, torch.tensor(u, device=card),
+                    torch.tensor([u], dtype=torch.int32, device=card)):
+            got = ops.membership_rows(rows_c, lens_c, arg)
+            calls += 1
+            assert got.dtype == torch.bool and got.shape == (r,)
+            assert torch.equal(got.cpu(), want)
+        if u == n:
+            assert not want.any()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["membership_rows"] == before + calls
+
+
+@pytest.mark.cuda
+def test_membership_wrapper_checks_inputs(card):
+    rows = torch.zeros(8, 128, dtype=torch.int32, device=card)
+    lens = torch.zeros(8, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        tmem.membership_rows(rows.to(torch.int64), lens, 0)
+    with pytest.raises(ValueError):
+        tmem.membership_rows(rows[:, ::2], lens, 0)
+    with pytest.raises(ValueError):
+        tmem.membership_rows(rows, lens.cpu(), 0)
+    with pytest.raises(ValueError):
+        tmem.membership_rows(rows, lens[:7], 0)
+    with pytest.raises(ValueError, match="device"):
+        tmem.membership_rows(rows, lens, torch.tensor(3))
+    with pytest.raises(ValueError, match="one value"):
+        tmem.membership_rows(rows, lens, torch.tensor([1, 2], device=card))
+    with pytest.raises(TypeError):
+        tmem.membership_rows(rows, lens, torch.tensor(1.0, device=card))
+
+
+@pytest.mark.cuda
+def test_padded_selection_on_card_equals_cpu(card):
+    n, k = 300, 20
+    lists = [RNG.choice(n, size=int(RNG.integers(0, 15)),
+                        replace=False).tolist() for _ in range(1000)]
+    cpu = cov.select_seeds_padded(cov.build_padded_store(lists, n,
+                                                         device="cpu"), k)
+    ops.reset_launch_counts()
+    gpu = cov.select_seeds_padded(cov.build_padded_store(lists, n,
+                                                         device=card), k)
+    assert ops.launch_counts()["membership_rows"] == k
+    assert torch.equal(gpu.seeds.cpu(), cpu.seeds)
+    assert torch.equal(gpu.gains.cpu(), cpu.gains)
+    assert gpu.frac.cpu().numpy().tobytes() == cpu.frac.numpy().tobytes()
+
+
+# float32 as the reference's test; bfloat16 and float16 one rounding of the
+# output (8 and 11 significant bits) on values of magnitude about 1
+FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2),
+             torch.float16: (2e-3, 2e-3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("s", [16, 48, 130])
+@pytest.mark.parametrize("d", [8, 16, 64, 128, 256])
+def test_flash_kernel_equals_plain(card, d, s, dtype):
+    """Against the plain version on the CPU (float32 logits), causal and
+    not; S = 130 is off every tile of the kernel (bq = bk = S)."""
+    q, k, v = (torch.tensor(RNG.standard_normal((2, s, 3, d)),
+                            dtype=torch.float32).to(dtype) for _ in range(3))
+    atol, rtol = FLASH_TOL[dtype]
+    before = ops.launch_counts()["flash_attention"]
+    for causal in (True, False):
+        got = ops.flash_attention(q.to(card), k.to(card), v.to(card),
+                                  causal=causal, bq=s, bk=s)
+        want = ref.flash_attention_ref(q, k, v, causal)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   atol=atol, rtol=rtol)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 2
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_checks_inputs(card):
+    q = torch.zeros(1, 16, 2, 64, device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.flash_attention(*(torch.zeros(1, 16, 2, 32, device=card),) * 3)
+    with pytest.raises(TypeError):
+        tflash.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError):
+        tflash.flash_attention(q, q.half(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash.flash_attention(q, q.transpose(1, 2).contiguous()
+                               .transpose(1, 2), q)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tflash.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError):
+        tflash.flash_attention(q, q[:, :8], q[:, :8])

@@ -1,0 +1,91 @@
+"""Flash attention of the torch port against the JAX reference.
+
+On the CPU ``ops.flash_attention`` runs the plain version (``kernels/ref.py``,
+the logits materialised in float32).  It is held against the reference's
+Pallas kernel in interpret mode and its jnp oracle on the reference's sweep,
+causal and not, with the reference's tolerances: 2e-5 in float32 (the two
+forms sum in other orders) and 2e-2 in bfloat16 (one rounding of the output
+to 8 bits of mantissa).  Inputs come from numpy with a fixed seed and are
+rounded to the dtype the same way (to nearest) in both frameworks.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import ops as jops, ref as jref
+from repro_torch.kernels import flashattn as tflash
+from repro_torch.kernels import ops as tops, ref as tref
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _qkv(shape, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+    jax_in = [jnp.asarray(a).astype(jnp.dtype(dtype)) for a in arrs]
+    torch_in = [torch.tensor(a).to(getattr(torch, dtype)) for a in arrs]
+    return jax_in, torch_in
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,bq,bk", [(16, 8, 8), (32, 8, 16), (64, 64, 32)])
+def test_flash_attention_equals_reference(s, bq, bk, dtype, causal):
+    (jq, jk, jv), (tq, tk, tv) = _qkv((2, s, 3, 16), dtype, seed=s)
+    tops.reset_launch_counts()
+    got = tops.flash_attention(tq, tk, tv, causal=causal, bq=bq, bk=bk)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    assert not any(tops.launch_counts().values())     # plain version on CPU
+    tol = TOL[dtype]
+    for want in (jops.flash_attention(jq, jk, jv, causal=causal, bq=bq,
+                                      bk=bk),
+                 jref.flash_attention_ref(jq, jk, jv, causal=causal)):
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+    np.testing.assert_array_equal(
+        _f32(got), _f32(tref.flash_attention_ref(tq, tk, tv, causal)))
+
+
+def test_flash_attention_noncausal_head_dim_8():
+    """The reference's non-causal case: D = 8, atol 2e-5, rtol 1e-4."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv((1, 32, 2, 8), "float32", seed=3)
+    got = tops.flash_attention(tq, tk, tv, causal=False, bq=8, bk=8)
+    want = jops.flash_attention(jq, jk, jv, causal=False, bq=8, bk=8)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=1e-4)
+
+
+def test_flash_attention_caps_blocks_at_s():
+    """bq, bk default to 128 and are capped at S = 24 (not a power of 2)."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv((1, 24, 2, 16), "float32", seed=4)
+    got = tops.flash_attention(tq, tk, tv)
+    np.testing.assert_allclose(_f32(got),
+                               _f32(jops.flash_attention(jq, jk, jv)),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("shapes,kw,match", [
+    (((1, 24, 2, 16),) * 3, {"bq": 16}, "multiple of the block sizes"),
+    (((1, 24, 2, 16),) * 3, {"bk": 7}, "multiple of the block sizes"),
+    (((1, 16, 4, 16), (1, 16, 2, 16), (1, 16, 2, 16)), {}, "one"),
+    (((1, 16, 2, 16), (1, 16, 2, 16), (1, 8, 2, 16)), {}, "one"),
+    (((16, 2, 16),) * 3, {}, "one"),
+], ids=["bq", "bk", "gqa-heads", "v-length", "3-d"])
+def test_flash_attention_rejects_bad_shapes(shapes, kw, match):
+    q, k, v = (torch.zeros(s) for s in shapes)
+    with pytest.raises(ValueError, match=match):
+        tops.flash_attention(q, k, v, **kw)
+    if len(shapes[0]) == 4 and shapes[0] == shapes[1] == shapes[2]:
+        with pytest.raises(ValueError, match=match):
+            jops.flash_attention(*(jnp.zeros(s) for s in shapes), **kw)
+
+
+def test_flash_wrapper_rejects_cpu_tensors_before_building():
+    q = torch.zeros(1, 16, 2, 16)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tflash.flash_attention(q, q, q)

@@ -127,7 +127,9 @@ def test_ops_dispatch_cpu_and_unknown_device():
                                     "bitset_andnot": 0, "popcount_words": 0,
                                     "sketch_scatter_or": 0,
                                     "sketch_union_popcount": 0,
-                                    "bernoulli_edges": 0}
+                                    "bernoulli_edges": 0,
+                                    "membership_rows": 0,
+                                    "flash_attention": 0}
     with pytest.raises(ValueError, match="no kernel"):
         tops.occur_from_bitset(torch.zeros(4, 1, dtype=torch.int32,
                                            device="meta"))

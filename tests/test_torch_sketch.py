@@ -151,7 +151,8 @@ def test_ops_dispatch_counts_no_cpu_launch_and_wrappers_need_card():
         "occur_from_bitset": 0, "occur_from_bitset_masked": 0,
         "pack_bits": 0, "bitset_or": 0, "bitset_andnot": 0,
         "popcount_words": 0, "sketch_scatter_or": 0,
-        "sketch_union_popcount": 0, "bernoulli_edges": 0}
+        "sketch_union_popcount": 0, "bernoulli_edges": 0,
+        "membership_rows": 0, "flash_attention": 0}
     with pytest.raises(ValueError, match="CUDA kernel"):
         tks.sketch_scatter_or(words, torch.tensor([1]), torch.tensor([3]))
     with pytest.raises(ValueError, match="CUDA kernel"):
