@@ -72,14 +72,21 @@ Phases, each of which raises on failure (non-zero exit):
    plain version (exactly) and timed at the path's shape and at (131,072 x
    512), rows drawn from the pool (its size law, u a seed), and at ragged
    shapes (lengths 0 and L, L off 128, u = n);
-12. flash attention at full width of three of the repo's LM configs
-   (``src/repro/configs/lm.py``): olmo-1b (B=2, S=2048, H=16, D=128,
-   bfloat16, causal), qwen2-0.5b (B=1, S=4096, its 2 KV heads repeated to
-   H=14, D=64, float32, not causal) and gemma3-12b (B=1, S=1024, H=16,
-   D=256, bfloat16, causal), each one ``ops.flash_attention`` call, held
-   against ``flash_attention_ref`` on the card (atol 2e-5, rtol 1e-4 in
-   float32; 2e-2 in bfloat16) and timed beside
-   ``scaled_dot_product_attention`` on the same tensors.
+12. flash attention: first the SASS of the built ``flashattn`` library
+   (``cuobjdump -sass``) and its ``-Xptxas -v`` report: exactly the
+   kernels that ``kernels/flashattn.py::design`` routes to, HGMMA and
+   UTMALDG in every bfloat16/float16 one at D = 64, 128, 256, no spill
+   store in any (``flash_sass_check``; the counts on a ``flash_sass:``
+   line).  Then five shapes at full width of three of the repo's LM
+   configs (``src/repro/configs/lm.py``): olmo-1b (B=2, S=2048, H=16,
+   D=128, bfloat16, causal), qwen2-0.5b (B=1, S=4096, its 2 KV heads
+   repeated to H=14, D=64, float32, not causal), gemma3-12b (B=1, S=1024,
+   H=16, D=256, bfloat16, causal), qwen2-0.5b in its own bfloat16, causal,
+   and olmo-1b in float16, causal; each one ``ops.flash_attention`` call,
+   held against ``flash_attention_ref`` on the card (atol 2e-5, rtol 1e-4
+   in float32; 2e-2 in bfloat16; 2e-3 in float16) and timed beside
+   ``scaled_dot_product_attention`` on the same tensors, with its design,
+   bound, share of the bound and factor against SDPA.
 
 The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
 the exact path's final bit matrix, the sketch kernels at the approximate
@@ -117,6 +124,7 @@ from repro_torch.core.problem import IMProblem  # noqa: E402
 from repro_torch.core.rrset import round_seed  # noqa: E402
 from repro_torch.graph import csr, generators, weights  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flashattn as flash  # noqa: E402
 
 # H100 SXM HBM rate (NVIDIA's data sheet), and the results per clock per
 # SM of each class of instruction on Hopper (compute capability 9.0), from
@@ -192,8 +200,14 @@ FLASH_SHAPES = (
     ("olmo-1b (lm.py:22)", 2, 2048, 16, 128, torch.bfloat16, True),
     ("qwen2-0.5b (lm.py:14)", 1, 4096, 14, 64, torch.float32, False),
     ("gemma3-12b (lm.py:30)", 1, 1024, 16, 256, torch.bfloat16, True),
+    ("qwen2-0.5b (lm.py:14)", 1, 4096, 14, 64, torch.bfloat16, True),
+    ("olmo-1b (lm.py:22)", 2, 2048, 16, 128, torch.float16, True),
 )
-FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2),
+             torch.float16: (2e-3, 2e-3)}
+# a flash kernel's mangled template type -> its dtype (flash_sass_check)
+FLASH_SASS_DTYPE = {"f": torch.float32, "13__nv_bfloat16": torch.bfloat16,
+                    "6__half": torch.float16}
 
 
 def say(tag: str, obj) -> None:
@@ -279,6 +293,59 @@ def cuobjdump_sass(lib: Path) -> str:
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     return subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
+
+
+def _flash_instance(name: str):
+    """(design, dtype, D, causal) of a flash kernel's mangled name, or
+    None for any other function."""
+    m = re.search(r"flash_(wgmma|simt)_kernelI(f|13__nv_bfloat16|6__half)"
+                  r"Li(\d+)ELb([01])E", name)
+    if m is None:
+        return None
+    return (m[1], FLASH_SASS_DTYPE[m[2]], int(m[3]), m[4] == "1")
+
+
+def flash_sass_check(sass: str, ptxas: str) -> dict:
+    """Raise unless ``csrc/flashattn.cu`` built exactly the kernels that
+    ``design`` routes to (three dtypes x five head dims x causal or not),
+    every "wgmma" one holds HGMMA and UTMALDG in its SASS, and ptxas
+    reports no spill store for any of them.  Returns the counts by
+    kernel."""
+    counts = {}
+    for fn in sass.split("Function : ")[1:]:
+        inst = _flash_instance(fn.splitlines()[0])
+        if inst is None:
+            continue
+        kind, dtype, d, causal = inst
+        key = f"{kind}/{str(dtype).removeprefix('torch.')}/{d}/" + \
+            ("causal" if causal else "full")
+        counts[key] = {op: len(re.findall(rf"\b{op}\b", fn))
+                       for op in ("HGMMA", "UTMALDG", "FFMA", "LDS")}
+        if flash.design(dtype, d) != kind:
+            raise AssertionError(f"{key} built, but design() routes "
+                                 f"{dtype} at D = {d} to "
+                                 f"{flash.design(dtype, d)}")
+        if kind == "wgmma" and not (counts[key]["HGMMA"]
+                                    and counts[key]["UTMALDG"]):
+            raise AssertionError(f"{key} has no HGMMA or no UTMALDG: "
+                                 f"{counts[key]}")
+    want = 3 * len(flash.HEAD_DIMS) * 2
+    if len(counts) != want:
+        raise AssertionError(f"{len(counts)} flash kernels in the SASS, "
+                             f"not {want}: {sorted(counts)}")
+    spills = {}
+    for name, stores in re.findall(
+            r"Function properties for (\S+)\s+\d+ bytes stack frame, "
+            r"(\d+) bytes spill stores", ptxas):
+        if _flash_instance(name) is not None:
+            spills[name] = int(stores)
+    if len(spills) != want:
+        raise AssertionError(f"ptxas reports {len(spills)} flash kernels, "
+                             f"not {want}")
+    spilled = {k: v for k, v in spills.items() if v}
+    if spilled:
+        raise AssertionError(f"flash kernels spill: {spilled}")
+    return counts
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -962,10 +1029,14 @@ def padded_phase(store, bit) -> list:
 
 
 def flash_phase(dev) -> list:
-    """Flash attention at full width: one entry-point call per shape (the
+    """Flash attention at full width: the SASS check of the built kernels
+    (:func:`flash_sass_check`), then one entry-point call per shape (the
     counts must show one launch each), each held against the plain
     version, then timed beside it and beside SDPA.  Returns the record at
     the first shape."""
+    say("flash_sass", flash_sass_check(
+        cuobjdump_sass(_build.build("flashattn")),
+        _build.PTXAS_REPORT["flashattn"]))
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain version's
     torch.backends.cudnn.allow_tf32 = False         # products in float32
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1000,15 +1071,17 @@ def flash_phase(dev) -> list:
         sdpa = functools.partial(
             torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
             is_causal=causal)
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal), 10)
+        bound = flash_bound_ms(b, s, h, d, dtype, causal)
+        sdpa_ms = cuda_ms(sdpa, 10)
         recs.append(record(
-            "flash_attention", per_call, err,
-            cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal), 10),
+            "flash_attention", per_call, err, ms,
             cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal), 3),
-            flash_bound_ms(b, s, h, d, dtype, causal),
-            library_ms=cuda_ms(sdpa, 10), config=name,
-            shape=[b, s, h, d], dtype=str(dtype).removeprefix("torch."),
-            causal=causal, atol=atol, rtol=rtol,
-            **flash_work(b, s, h, d, causal)))
+            bound, library_ms=sdpa_ms, config=name,
+            design=flash.design(dtype, d), shape=[b, s, h, d],
+            dtype=str(dtype).removeprefix("torch."), causal=causal,
+            atol=atol, rtol=rtol, share_of_bound=bound["bound_ms"] / ms,
+            sdpa_factor=ms / sdpa_ms, **flash_work(b, s, h, d, causal)))
         del want
     say("flash_attention", recs)
     return recs[:1]

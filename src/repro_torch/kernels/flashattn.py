@@ -22,8 +22,23 @@ from repro_torch.kernels import _build
 LAUNCHES = {"flash_attention": 0}
 
 HEAD_DIMS = (8, 16, 64, 128, 256)     # the kernel's instantiations
+WGMMA_HEAD_DIMS = (64, 128, 256)      # the tensor-core kernel's
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_GRID_Y = 65535
+_TMA_ALIGN = 16                       # bytes, TMA's base alignment
+
+
+def design(dtype: torch.dtype, d: int) -> str:
+    """The kernel that ``flash_attention`` launches for (dtype, D), the same
+    choice as ``csrc/flashattn.cu``: ``"wgmma"`` (tensor cores fed by TMA)
+    for bfloat16 and float16 at D in :data:`WGMMA_HEAD_DIMS`, else
+    ``"simt"`` (float32 FMAs; float32 at every D, 16 bits at D = 8, 16)."""
+    if dtype not in _DTYPE_CODE or d not in HEAD_DIMS:
+        raise ValueError(f"no flash kernel for {dtype} at head dim {d}")
+    if dtype != torch.float32 and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
 
 _vp, _i64 = ctypes.c_void_p, ctypes.c_int64
 
@@ -59,8 +74,9 @@ def check_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Attention over (B, S, H, D) q, k, v on the card, computed in float32,
-    returned in q's dtype.  All three contiguous, of one shape and dtype
-    (float32, bfloat16 or float16), with D in :data:`HEAD_DIMS`."""
+    returned in q's dtype.  All three contiguous, 16-byte aligned, of one
+    shape and dtype (float32, bfloat16 or float16), with D in
+    :data:`HEAD_DIMS`; the kernel is :func:`design`'s."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"CUDA kernel given {name} on {t.device}")
@@ -69,6 +85,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             f"like q, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous (B, S, H, D)")
+        if t.data_ptr() % _TMA_ALIGN:
+            raise ValueError(f"{name} must start on a {_TMA_ALIGN}-byte "
+                             f"boundary")
     _check_shapes(q, k, v)
     b, s, h, d = q.shape
     if d not in HEAD_DIMS:

@@ -157,7 +157,8 @@ def test_membership_bound_counts_the_sectors_of_valid_prefixes(h100):
     ((1, 4096, 14, 64), False, 4096 * 4096),
     ((1, 1024, 16, 256), True, 1024 * 1025 // 2),
     ((2, 16, 3, 8), True, 136),
-], ids=["olmo-1b", "qwen2-0.5b", "gemma3-12b", "tiny"])
+    ((1, 4096, 14, 64), True, 4096 * 4097 // 2),
+], ids=["olmo-1b", "qwen2-0.5b", "gemma3-12b", "tiny", "qwen2-0.5b-causal"])
 def test_flash_work_counts(shape, causal, pairs):
     b, s, h, d = shape
     w = smoke.flash_work(b, s, h, d, causal)
@@ -194,3 +195,101 @@ def test_flash_bound_in_float32_is_the_fma_pipe(h100):
     assert b["bound_ms"] > w["flops"] / 2 / per_s * 1e3
     assert b["bound_bytes_ms"] == pytest.approx(4 * 4096 * 14 * 64 * 4
                                                 / 3.35e9)
+
+
+def test_flash_bound_at_qwen_bf16_causal_ties_tensor_cores_and_exps(h100):
+    """D = 64 is where 4*D = 256 equals the tensor rate over the
+    exponential rate (4,096 / 16 a clock per SM): both sides 0.0281 ms."""
+    import torch
+    w = smoke.flash_work(1, 4096, 14, 64, True)
+    assert w["pairs"] == 8_390_656
+    b = smoke.flash_bound_ms(1, 4096, 14, 64, torch.bfloat16, True)
+    tensor = w["flops"] / (H100_SMS * 4096 * H100_MHZ * 1e6) * 1e3
+    exps = w["exps"] / (H100_SMS * 16 * H100_MHZ * 1e6) * 1e3
+    assert tensor == pytest.approx(exps)
+    assert 0.0280 < tensor < 0.0282
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(tensor)
+    assert b["bound_ops_class"] in ("tensor16", "xu")
+    assert b["bound_bytes_ms"] == pytest.approx(4 * 4096 * 14 * 64 * 2
+                                                / 3.35e9)
+
+
+def test_flash_bound_in_float16_equals_bfloat16(h100):
+    import torch
+    half = smoke.flash_bound_ms(2, 2048, 16, 128, torch.float16, True)
+    assert half == smoke.flash_bound_ms(2, 2048, 16, 128, torch.bfloat16,
+                                        True)
+    assert (half["bound_by"], half["bound_ops_class"]) == ("operations",
+                                                           "tensor16")
+    assert 0.0320 < half["bound_ms"] < 0.0325
+
+
+_MANGLED_TYPE = {"float32": "f", "bfloat16": "13__nv_bfloat16",
+                 "float16": "6__half"}
+
+
+def _flash_name(kind, dtype, d, causal):
+    args = ("14CUtensorMap_stS2_S2_PT_iifi" if kind == "wgmma"
+            else "PKT_S4_S4_PS2_llfl")
+    return (f"_ZN45_GLOBAL__N__2deea39f_12_flashattn_cu_ddac23b6"
+            f"{len(kind) + 13}flash_{kind}_kernelI{_MANGLED_TYPE[dtype]}"
+            f"Li{d}ELb{int(causal)}EEEv{args}")
+
+
+def _flash_build(drop_op=None, spill=None, extra=None, skip=None):
+    """SASS and ptxas text of the 30 kernels that design() routes to."""
+    sass, ptxas = ["        code for sm_90a"], []
+    for dtype in ("float32", "bfloat16", "float16"):
+        for d in (8, 16, 64, 128, 256):
+            for causal in (False, True):
+                kind = ("wgmma" if dtype != "float32" and d >= 64
+                        else "simt")
+                name = _flash_name(kind, dtype, d, causal)
+                if name == skip:
+                    continue
+                body = ["/*0010*/ FFMA R1, R2, R3, R1 ;",
+                        "/*0020*/ LDS.128 R4, [R5] ;"]
+                if kind == "wgmma":
+                    body = ["/*0010*/ UTMALDG.4D [UR8], [UR4] ;",
+                            "/*0020*/ HGMMA.64x128x16.F32.BF16 R24, "
+                            "gdesc[UR8], RZ, !UPT ;",
+                            "/*0030*/ HGMMA.64x128x16.F32.BF16 R24, "
+                            "R120, gdesc[UR12], R24 ;"]
+                    body = [x for x in body if drop_op is None
+                            or not (name == drop_op[0] and drop_op[1] in x)]
+                sass.append(f"        Function : {name}")
+                sass += body
+                stores = spill[1] if spill and spill[0] == name else 0
+                ptxas.append(f"ptxas info    : Function properties for "
+                             f"{name}\n    {8 * stores} bytes stack frame, "
+                             f"{stores} bytes spill stores, {stores} bytes "
+                             f"spill loads")
+    if extra:
+        sass.append(f"        Function : {extra}")
+        sass.append("/*0010*/ FFMA R1, R2, R3, R1 ;")
+    return "\n".join(sass), "\n".join(ptxas)
+
+
+def test_flash_sass_check_counts_every_kernel():
+    counts = smoke.flash_sass_check(*_flash_build())
+    assert len(counts) == 30
+    wg = counts["wgmma/bfloat16/256/causal"]
+    assert (wg["HGMMA"], wg["UTMALDG"]) == (2, 1)
+    assert counts["simt/float32/64/full"] == {"HGMMA": 0, "UTMALDG": 0,
+                                              "FFMA": 1, "LDS": 1}
+    assert "simt/bfloat16/16/causal" in counts
+
+
+@pytest.mark.parametrize("case", ["no-hgmma", "no-utmaldg", "spill",
+                                  "wrong-route", "missing"])
+def test_flash_sass_check_raises(case):
+    name = _flash_name("wgmma", "float16", 128, True)
+    kw = {"no-hgmma": {"drop_op": (name, "HGMMA")},
+          "no-utmaldg": {"drop_op": (name, "UTMALDG")},
+          "spill": {"spill": (_flash_name("simt", "float32", 64, False), 4)},
+          "wrong-route": {"extra": _flash_name("simt", "bfloat16", 64,
+                                               True)},
+          "missing": {"skip": name}}[case]
+    with pytest.raises(AssertionError):
+        smoke.flash_sass_check(*_flash_build(**kw))

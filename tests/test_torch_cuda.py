@@ -398,11 +398,14 @@ FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2),
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16], ids=str)
-@pytest.mark.parametrize("s", [16, 48, 130])
+@pytest.mark.parametrize("s", [16, 48, 130, 320, 1000])
 @pytest.mark.parametrize("d", [8, 16, 64, 128, 256])
 def test_flash_kernel_equals_plain(card, d, s, dtype):
     """Against the plain version on the CPU (float32 logits), causal and
-    not; S = 130 is off every tile of the kernel (bq = bk = S)."""
+    not; S = 130 is off every tile of the kernel (bq = bk = S); at S = 320
+    and 1000 a causal tile meets the diagonal mid-tile, the tensor-core
+    kernel's 2-stage K/V ring wraps several times, and S ends off a
+    KV tile."""
     q, k, v = (torch.tensor(RNG.standard_normal((2, s, 3, d)),
                             dtype=torch.float32).to(dtype) for _ in range(3))
     atol, rtol = FLASH_TOL[dtype]
@@ -416,6 +419,47 @@ def test_flash_kernel_equals_plain(card, d, s, dtype):
                                    atol=atol, rtol=rtol)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_kernel_unequal_batch_and_heads(card, d, dtype):
+    """B = 3, H = 5: a wrong batch or head stride in the tensor maps (or
+    in the SIMT kernel's offsets) reads another slice."""
+    q, k, v = (torch.tensor(RNG.standard_normal((3, 200, 5, d)),
+                            dtype=torch.float32).to(dtype) for _ in range(3))
+    atol, rtol = FLASH_TOL[dtype]
+    for causal in (True, False):
+        got = ops.flash_attention(q.to(card), k.to(card), v.to(card),
+                                  causal=causal, bq=200, bk=200)
+        want = ref.flash_attention_ref(q, k, v, causal)
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_flash_wrapper_rejects_misaligned_tensors(card, dtype):
+    """TMA (and the 128-bit loads) need 16-byte aligned bases: a view one
+    element in raises rather than being copied; 16 bytes in it runs."""
+    n = 1 * 16 * 2 * 64
+    flat = torch.randn(n + 16, device=card).to(dtype)
+    q = flat[:n].view(1, 16, 2, 64)
+    off = flat[1:n + 1].view(1, 16, 2, 64)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.flash_attention(off, q, q)
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.flash_attention(q, q, off)
+    step = 16 // flat.element_size()
+    ok = flat[step:n + step].view(1, 16, 2, 64)
+    torch.testing.assert_close(
+        tflash.flash_attention(ok, q, q).cpu().float(),
+        ref.flash_attention_ref(ok.cpu(), q.cpu(), q.cpu()).float(),
+        atol=FLASH_TOL[dtype][0], rtol=FLASH_TOL[dtype][1])
 
 
 @pytest.mark.cuda

@@ -8,6 +8,8 @@ forms sum in other orders) and 2e-2 in bfloat16 (one rounding of the output
 to 8 bits of mantissa).  Inputs come from numpy with a fixed seed and are
 rounded to the dtype the same way (to nearest) in both frameworks.
 """
+import math
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -89,3 +91,70 @@ def test_flash_wrapper_rejects_cpu_tensors_before_building():
     q = torch.zeros(1, 16, 2, 16)
     with pytest.raises(ValueError, match="CUDA kernel"):
         tflash.flash_attention(q, q, q)
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+@pytest.mark.parametrize("d", tflash.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", list(_DTYPES))
+def test_flash_design_is_a_function_of_dtype_and_head_dim(dtype, d):
+    """The tensor cores take the 16-bit types at D >= 64; float32 (TF32
+    would miss 2e-5) and the 16-bit D = 8, 16 stay on the FMA pipe."""
+    want = ("wgmma" if dtype != "float32" and d in (64, 128, 256)
+            else "simt")
+    assert tflash.design(_DTYPES[dtype], d) == want
+
+
+def test_flash_design_rejects_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="no flash kernel"):
+        tflash.design(torch.float32, 32)
+    with pytest.raises(ValueError, match="no flash kernel"):
+        tflash.design(torch.float64, 64)
+
+
+# the card tests' tolerances (tests/test_torch_cuda.py::FLASH_TOL)
+CARD_TOL = {"bfloat16": (2e-2, 2e-2), "float16": (2e-3, 2e-3)}
+
+
+def _tensor_core_emulation(q, k, v, causal, bk):
+    """The wgmma kernel's arithmetic in float32 on the CPU: KV tiles of
+    ``bk`` keys, an online softmax, P rounded to the input type (to
+    nearest) before P.V, the normaliser summed from the unrounded P, the
+    output rounded into the input type."""
+    b, s, h, d = q.shape
+    qf, kf, vf = (x.to(torch.float32).transpose(1, 2) for x in (q, k, v))
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, d))
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, s, bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        x = (qf @ kt.transpose(-1, -2)) / math.sqrt(d)
+        if causal:
+            x = x.masked_fill(rows < torch.arange(k0, k0 + kt.shape[2]), -1e30)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        p = torch.exp(x - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.to(q.dtype).to(torch.float32) @ vt
+        m = m_new
+    return (acc / l.clamp_min(1e-20)).transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("s", [16, 48, 130, 320, 1000])
+def test_flash_p_in_16_bits_holds_the_card_tolerance(s, dtype, d):
+    """P rounded to 16 bits per KV tile (BK = 128, or 64 at D = 256, as
+    ``csrc/flashattn.cu``) stays within the card tests' unchanged
+    tolerance of the reference's float32 softmax, at their shapes."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv((2, s, 3, d), dtype, seed=s + d)
+    atol, rtol = CARD_TOL[dtype]
+    for causal in (True, False):
+        got = _tensor_core_emulation(tq, tk, tv, causal,
+                                     64 if d == 256 else 128)
+        want = jref.flash_attention_ref(jq, jk, jv, causal=causal)
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=atol,
+                                   rtol=rtol)
