@@ -12,12 +12,14 @@ Phases, each of which raises on failure (non-zero exit):
 2. build: compiles ``csrc/occur.cu``, ``sketch.cu``, ``bitops.cu``,
    ``bernoulli.cu``, ``membership.cu`` and ``flashattn.cu`` with nvcc for
    sm_90a, one nvcc per source, started together, and prints each
-   ``-Xptxas -v`` report;
+   ``-Xptxas -v`` report; the three Occur kernels must not spill;
 3. kernels: both Occur kernels against their plain versions on random
    int32 words of shape (131072, 2372) (bit 31 set in half the words, a
    ~50% row mask); the union popcount at (75880, 512) and (75880, 4) and
    the scatter-OR of 2^24 pairs (~10% of rows out of range, duplicates)
-   into (75880, 512); exact equality, then timed with CUDA events.  The
+   into (75880, 512); exact equality, then timed (:func:`timing`: CUDA
+   events over back-to-back calls, the kernel's own device time from
+   torch.profiler, and the host's enqueue time a call).  The
    dense path's kernels on random data at its shapes (``pack_bits`` at
    (512, 75904), ``bitset_or``/``bitset_andnot``/``popcount_words`` at
    (512, 2372), ``bernoulli_edges`` at 512 seeds x 607,012 edges) and at
@@ -89,11 +91,15 @@ Phases, each of which raises on failure (non-zero exit):
    bound, share of the bound and factor against SDPA.
 
 The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
-the exact path's final bit matrix, the sketch kernels at the approximate
+the exact path's final bit matrix, masked on the first seed's rows as the
+greedy passes them, a bool mask; the sketch kernels at the approximate
 path's sketch, the dense kernels at the packed sampler's inputs, the
 membership scan at the padded store, flash attention at olmo-1b's shape;
-launches from each path's run), the ``nvidia-smi`` line and
-``{"ok": true, "device": {...}}``.
+launches from each path's run; each with ``ms``, ``device_ms``,
+``device_other_ms`` and ``enqueue_us`` from :func:`timing`, and
+``bitset_or``/``bitset_andnot`` with ``torch.bitwise_or``'s times on the
+same words), the ``nvidia-smi`` line and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -123,7 +129,7 @@ from repro_torch.core.packing import to_int32_bits  # noqa: E402
 from repro_torch.core.problem import IMProblem  # noqa: E402
 from repro_torch.core.rrset import round_seed  # noqa: E402
 from repro_torch.graph import csr, generators, weights  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, bitset, ops, ref  # noqa: E402
 from repro_torch.kernels import flashattn as flash  # noqa: E402
 
 # H100 SXM HBM rate (NVIDIA's data sheet), and the results per clock per
@@ -179,6 +185,21 @@ SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "bitset_andnot": "bitops", "popcount_words": "bitops",
              "bernoulli_edges": "bernoulli", "membership_rows": "membership",
              "flash_attention": "flashattn"}
+# each record's kernel as the profiler names it (a regular expression that
+# matches the demangled or the mangled name)
+DEVICE_KERNEL = {
+    "occur_from_bitset": r"occur_kernel",
+    "occur_from_bitset_masked": r"occur_masked_kernel",
+    "sketch_scatter_or": r"scatter_or_kernel",
+    "sketch_union_popcount": r"union_popcount_kernel",
+    "pack_bits": r"pack_bits_kernel",
+    "bitset_or": r"bitset_binary_kernel",
+    "bitset_andnot": r"bitset_binary_kernel",
+    "popcount_words": r"(?<!union_)popcount_kernel",
+    "bernoulli_edges": r"bernoulli_kernel",
+    "membership_rows": r"membership_kernel",
+    "flash_attention": r"flash_(wgmma|simt)_kernel",
+}
 KERNELS = {
     "occur_from_bitset": "src/repro/kernels/bitset.py:167",
     "occur_from_bitset_masked": "src/repro/kernels/bitset.py:133",
@@ -333,12 +354,8 @@ def flash_sass_check(sass: str, ptxas: str) -> dict:
     if len(counts) != want:
         raise AssertionError(f"{len(counts)} flash kernels in the SASS, "
                              f"not {want}: {sorted(counts)}")
-    spills = {}
-    for name, stores in re.findall(
-            r"Function properties for (\S+)\s+\d+ bytes stack frame, "
-            r"(\d+) bytes spill stores", ptxas):
-        if _flash_instance(name) is not None:
-            spills[name] = int(stores)
+    spills = {name: n for name, n in ptxas_spills(ptxas, "flash_").items()
+              if _flash_instance(name) is not None}
     if len(spills) != want:
         raise AssertionError(f"ptxas reports {len(spills)} flash kernels, "
                              f"not {want}")
@@ -360,6 +377,98 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, kernel: str | None = None,
+              attempts: int = 3) -> dict:
+    """Device time of one launch from torch.profiler's ``key_averages()``
+    over ``iters`` calls (after one warm-up), each call one launch of the
+    kernel: ``device_ms`` is the mean duration of the device entries whose
+    name matches the regular expression ``kernel`` (every device entry
+    when None), over the launches that the trace holds
+    (``device_records``: a trace on this card may drop some of them, or
+    all, so an empty trace is taken again, up to ``attempts`` traces);
+    ``device_other_ms`` is the rest a call (memsets, copies).  When no
+    trace holds any, each call is timed alone between two events queued
+    behind a spin kernel, which hides the host's issue time but adds the
+    events' own few microseconds (``device_ms_source``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        own = other = 0.0
+        records, names = 0, []
+        for avg in prof.key_averages():
+            if avg.device_type != DeviceType.CUDA or not avg.device_time_total:
+                continue
+            if kernel is None or re.search(kernel, avg.key):
+                own += avg.device_time_total
+                records += avg.count
+                names.append(avg.key[:120])
+            else:
+                other += avg.device_time_total
+        if records:
+            break
+    out = {"device_other_ms": other / iters / 1e3, "device_records": records,
+           "device_traces": attempt, "device_kernels": names}
+    if not records:
+        return {"device_ms": queued_call_ms(fn, iters),
+                "device_ms_source": "events behind a spin kernel", **out}
+    return {"device_ms": own / records / 1e3, "device_ms_source": "profiler",
+            **out}
+
+
+def queued_call_ms(fn, iters: int) -> float:
+    """Mean milliseconds between two events around one call that waits in
+    the stream behind a spin kernel of about 1 ms, so that the events
+    bracket its device work and not the host's issue time."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def enqueue_us(fn, calls: int) -> float:
+    """Host microseconds per call over ``calls`` calls with no sync inside
+    (after one warm-up and a sync): the host's cost of issuing the call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def timing(name: str, fn, iters: int) -> dict:
+    """A kernel call's times: event-timed ``ms`` over back-to-back calls,
+    the profiler's ``device_ms`` of its own kernel, and ``enqueue_us``."""
+    return {"ms": cuda_ms(fn, iters),
+            **device_ms(fn, iters, DEVICE_KERNEL[name]),
+            "enqueue_us": enqueue_us(fn, iters)}
+
+
+def ptxas_spills(ptxas: str, kernel: str) -> dict:
+    """Spill-store bytes by function, from an ``-Xptxas -v`` report, for
+    the functions whose mangled name holds ``kernel``."""
+    return {name: int(stores) for name, stores in re.findall(
+        r"Function properties for (\S+)\s+\d+ bytes stack frame, "
+        r"(\d+) bytes spill stores", ptxas) if kernel in name}
 
 
 def _bound(nbytes: float, ops: dict) -> dict:
@@ -442,16 +551,20 @@ def flash_bound_ms(b, s, h, d, dtype, causal):
 
 def kernel_records(words, mask, launches=None, iters=20, plain_iters=3):
     """Check both kernels against the plain versions on (words, mask)
-    exactly, then time kernel and plain version."""
+    exactly (the mask also in the other of bool and int32), then time
+    kernel and plain version."""
     rows, cols = words.shape
     got = ops.occur_from_bitset(words)
     want = ref.occur_from_bitset_ref(words)
     gotm = ops.occur_from_bitset_masked(words, mask)
     wantm = ref.occur_from_bitset_masked_ref(words, mask)
+    other = mask.to(torch.int32 if mask.dtype == torch.bool else torch.bool)
+    goto = ops.occur_from_bitset_masked(words, other)
     torch.cuda.synchronize()
     errs = [float((got - want).abs().max()), float((gotm - wantm).abs().max())]
     if errs != [0.0, 0.0] or not (torch.equal(got, want)
-                                  and torch.equal(gotm, wantm)):
+                                  and torch.equal(gotm, wantm)
+                                  and torch.equal(goto, wantm)):
         raise AssertionError(f"kernel != plain version at {tuple(words.shape)}:"
                              f" max abs err {errs}")
     n_sel = int(mask.count_nonzero())
@@ -467,21 +580,25 @@ def kernel_records(words, mask, launches=None, iters=20, plain_iters=3):
     out = []
     for (name, (kern, plain, rows_read, masked)), err in zip(calls.items(),
                                                              errs):
-        out.append(record(name, launches, err, cuda_ms(kern, iters),
+        out.append(record(name, launches, err, timing(name, kern, iters),
                           cuda_ms(plain, plain_iters),
                           bound_ms(rows_read, rows, cols, masked),
                           shape=[rows, cols],
-                          mask_rows=n_sel if masked else None))
+                          mask_rows=n_sel if masked else None,
+                          mask_dtype=str(mask.dtype).removeprefix("torch.")
+                          if masked else None,
+                          nonzero_words=int(words.count_nonzero())))
     return out
 
 
-def record(name, launches, err, ms, plain_ms, bound, library_ms=None,
+def record(name, launches, err, times, plain_ms, bound, library_ms=None,
            **extra):
+    """One kernel's record; ``times`` is :func:`timing`'s."""
     rec = {"name": name, "route": "cuda",
            "source": f"src/repro_torch/kernels/csrc/{SOURCE_OF[name]}.cu",
            "replaces": KERNELS[name],
            "launches": None if launches is None else launches[name],
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
+           "max_abs_err": err, **times, "plain_ms": plain_ms, **bound,
            "library_ms": library_ms}
     if library_ms is None:
         rec["library_null_because"] = LIBRARY_NOTE[name]
@@ -513,14 +630,16 @@ def sketch_records(words, cov_words, v, b, launches=None, iters=20,
     scratch = words.clone()     # OR is idempotent: repeated folds time alike
     return [
         record("sketch_scatter_or", launches, errs["sketch_scatter_or"],
-               cuda_ms(lambda: ops.sketch_scatter_or(scratch, v, b), iters),
+               timing("sketch_scatter_or",
+                      lambda: ops.sketch_scatter_or(scratch, v, b), iters),
                cuda_ms(lambda: ref.sketch_scatter_or_ref(scratch, v, b),
                        plain_iters), scatter_bound_ms(words, v, b),
                shape=[rows, cols], pairs=v.numel()),
         record("sketch_union_popcount", launches,
                errs["sketch_union_popcount"],
-               cuda_ms(lambda: ops.sketch_union_popcount(words, cov_words),
-                       iters),
+               timing("sketch_union_popcount",
+                      lambda: ops.sketch_union_popcount(words, cov_words),
+                      iters),
                cuda_ms(lambda: ref.sketch_union_popcount_ref(words,
                                                              cov_words),
                        plain_iters), union_bound_ms(rows, cols),
@@ -579,7 +698,8 @@ def dense_bounds(bits, a, w, seeds, trial_ops: dict) -> dict:
 
 def dense_records(bits, a, b, w, seeds, launches, iters=20, plain_iters=3):
     """Check the five dense-path kernels exactly, then time kernel, plain
-    version and, for bitset_or, the one PyTorch call (torch.bitwise_or)."""
+    version and, for bitset_or, the one PyTorch call (torch.bitwise_or),
+    whose times also stand beside bitset_andnot as a yardstick."""
     errs = check_dense_kernels(bits, a, b, w, seeds)
     trial_ops = sass_ops_per_store(
         cuobjdump_sass(_build.build("bernoulli")), "bernoulli_kernel")
@@ -588,13 +708,33 @@ def dense_records(bits, a, b, w, seeds, launches, iters=20, plain_iters=3):
     shapes = {"pack_bits": list(bits.shape), "bitset_or": list(a.shape),
               "bitset_andnot": list(a.shape), "popcount_words": list(a.shape),
               "bernoulli_edges": [seeds.numel(), w.numel()]}
+    def torch_or():
+        return torch.bitwise_or(a, b)
+
     out = []
     for name, (kern, plain) in dense_calls(bits, a, b, w, seeds).items():
-        lib = (cuda_ms(lambda: torch.bitwise_or(a, b), iters)
-               if name == "bitset_or" else None)
-        out.append(record(name, launches, errs[name], cuda_ms(kern, iters),
+        extra = {}
+        if name in ("bitset_or", "bitset_andnot"):
+            lib = {"ms": cuda_ms(torch_or, iters),
+                   **device_ms(torch_or, iters),
+                   "enqueue_us": enqueue_us(torch_or, iters)}
+            key = "library" if name == "bitset_or" else "yardstick_bitwise_or"
+            extra = {f"{key}_{k}": v for k, v in lib.items()}
+        if name == "bitset_or":
+            # the host's parts of a call: the output's allocation, and the
+            # entry point alone (ctypes, the launch) on a spare output
+            spare = torch.empty_like(a)
+            dev = a.get_device()
+            extra["host_parts_us"] = {
+                "empty_like": enqueue_us(lambda: torch.empty_like(a), iters),
+                "entry_point": enqueue_us(lambda: bitset._BINARY[name](
+                    a.data_ptr(), b.data_ptr(), a.numel(), spare.data_ptr(),
+                    dev, _build.raw_stream(dev)), iters)}
+        times = timing(name, kern, iters)
+        out.append(record(name, launches, errs[name], times,
                           cuda_ms(plain, plain_iters), bounds[name],
-                          library_ms=lib, shape=shapes[name]))
+                          library_ms=extra.pop("library_ms", None),
+                          shape=shapes[name], **extra))
     return out
 
 
@@ -919,7 +1059,7 @@ def packed_phase(g) -> list:
     root_bits[lane, ps.roots.to(torch.int64)] = True
     return dense_records(dense._unpack_bits(ps.words), ps.words,
                          ref.pack_bits_ref(root_bits), g_rev.weights,
-                         lane * dense._LANE_MUL, launches)
+                         lane * dense._LANE_MUL, launches, iters=200)
 
 
 def membership_record(rows, lengths, u, launches=None, iters=50,
@@ -939,7 +1079,8 @@ def membership_record(rows, lengths, u, launches=None, iters=50,
     r, l = rows.shape
     return record(
         "membership_rows", launches, err,
-        cuda_ms(lambda: ops.membership_rows(rows, lengths, u), iters),
+        timing("membership_rows",
+               lambda: ops.membership_rows(rows, lengths, u), iters),
         cuda_ms(lambda: ref.membership_rows_ref(rows, lengths, u),
                 plain_iters),
         membership_bound_ms(lengths, l), shape=[r, l],
@@ -1057,6 +1198,8 @@ def flash_phase(dev) -> list:
     recs = []
     for shape, (q, k, v), got in zip(FLASH_SHAPES, inputs, outs):
         name, b, s, h, d, dtype, causal = shape
+        times = timing("flash_attention",
+                       lambda: ops.flash_attention(q, k, v, causal=causal), 10)
         want = ref.flash_attention_ref(q, k, v, causal)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
@@ -1071,11 +1214,11 @@ def flash_phase(dev) -> list:
         sdpa = functools.partial(
             torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
             is_causal=causal)
-        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal), 10)
+        ms = times["ms"]
         bound = flash_bound_ms(b, s, h, d, dtype, causal)
         sdpa_ms = cuda_ms(sdpa, 10)
         recs.append(record(
-            "flash_attention", per_call, err, ms,
+            "flash_attention", per_call, err, times,
             cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal), 3),
             bound, library_ms=sdpa_ms, config=name,
             design=flash.design(dtype, d), shape=[b, s, h, d],
@@ -1112,6 +1255,11 @@ def main() -> int:
     for name in SOURCES:
         print(_build.PTXAS_REPORT.get(name, f"({name}: cached build, no "
                                             "ptxas report)"), flush=True)
+    occur_spills = ptxas_spills(_build.PTXAS_REPORT["occur"], "occur_")
+    say("occur_ptxas", occur_spills)
+    if len(occur_spills) != 3 or any(occur_spills.values()):
+        raise AssertionError(f"occur.cu: want 3 kernels without spills, "
+                             f"ptxas reports {occur_spills}")
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1211,7 +1359,7 @@ def main() -> int:
     if not same:
         raise AssertionError("flat and bitset selections differ")
     u0 = int(bit.seeds[0])
-    first_newly = ((m[:, u0 >> 5] >> (u0 & 31)) & 1).to(torch.int32)
+    first_newly = ((m[:, u0 >> 5] >> (u0 & 31)) & 1) != 0   # the path's bool
     records = kernel_records(m, first_newly, launches=launches)
 
     # 7. forward Monte-Carlo check of the RIS estimate

@@ -3,9 +3,18 @@
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``; nothing includes PyTorch's headers, so
 a build takes seconds.  Libraries go to ``build/kernels/`` at the root of
-the checkout, named by a hash of the source and the flags, and are built at
-first use (never at import).  Concurrent builders write to a temporary name
-and rename, so the last one wins with an identical file.
+the checkout, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, and are built at first use (never at
+import).  Concurrent builders write to a temporary name and rename, so the
+last one wins with an identical file.
+
+:class:`Kernel` binds one C entry point: it builds and loads its library
+at the first call, sets the argument types once and keeps the bound
+function, so a later call costs one ctypes call.  :func:`raw_stream` gives
+PyTorch's current stream of a card as the raw handle that the entry points
+take.  The wrappers of ``bitset.py`` launch through both, and pass the
+card's index to entry points that make it current themselves
+(``csrc/device_guard.cuh``).
 
 The wrapper modules share the launch-error check below; ``bitset.py``,
 ``sketch.py`` and ``membership.py`` also share the input check of a 2-D
@@ -14,12 +23,15 @@ int32 matrix.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -44,7 +56,8 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same source and
     flags exists; return the library's path."""
     src = CSRC / f"{name}.cu"
-    text = src.read_bytes()
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{tag}.so"
     report = BUILD_DIR / f"lib{name}_{tag}.ptxas.txt"
@@ -69,15 +82,47 @@ def build(name: str) -> Path:
     return lib
 
 
+@functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``."""
+    """Build (if needed) and load ``csrc/<name>.cu``, once."""
     return ctypes.CDLL(str(build(name)))
+
+
+class Kernel:
+    """The C entry point ``symbol`` of ``csrc/<source>.cu``, returning a
+    cudaError_t as int; built, loaded and bound at its first call."""
+
+    __slots__ = ("source", "symbol", "argtypes", "_fn")
+
+    def __init__(self, source: str, symbol: str, argtypes) -> None:
+        self.source, self.symbol = source, symbol
+        self.argtypes = list(argtypes)
+        self._fn = None
+
+    def _bind(self):
+        fn = getattr(load(self.source), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._fn = fn
+        return fn
+
+    def __call__(self, *args) -> int:
+        fn = self._fn
+        if fn is None:
+            fn = self._bind()
+        return fn(*args)
+
+
+def raw_stream(index: int) -> int:
+    """PyTorch's current stream of card ``index`` as a raw handle: the value
+    of ``torch.cuda.current_stream(index).cuda_stream``, without building a
+    Stream object."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check_words(words, name: str = "words") -> None:
     """Raise unless ``words`` (packed bits, or the padded RR rows) is a
     contiguous 2-D int32 tensor on a card."""
-    import torch
     if words.device.type != "cuda":
         raise ValueError(f"CUDA kernel given a tensor on {words.device}")
     if words.dtype != torch.int32:

@@ -6,9 +6,19 @@
 ``bitset_or``, ``bitset_andnot`` and ``popcount_words`` replace the Pallas
 kernels of the same names in ``repro.kernels.bitset``.  The wrappers take
 CUDA tensors only; ``kernels/ops.py`` routes CPU tensors to ``ref.py``.
-Each wrapper checks its inputs, allocates its output, launches on
-PyTorch's current stream of the tensor's card, raises on a launch error
-and adds one to its entry in :data:`LAUNCHES`.
+
+A wrapper checks all its inputs in one pass over the common case (the
+detailed messages come from a second pass that runs only when the first
+fails), allocates its output with one ``empty``, and calls its C entry
+point through a :class:`_build.Kernel` with the card's index and the raw
+handle of PyTorch's current stream of that card
+(:func:`_build.raw_stream`); the entry point makes the card current only
+when it is not.  The Occur entry points zero their output on that stream
+themselves.  A wrapper raises on a launch error and adds one to its entry
+in :data:`LAUNCHES`.
+
+The Occur histograms split the rows into chunks of :func:`rows_per_chunk`
+rows and count each chunk in :func:`occur_planes` bit planes.
 """
 from __future__ import annotations
 
@@ -24,54 +34,91 @@ LAUNCHES = {"occur_from_bitset": 0, "occur_from_bitset_masked": 0,
             "pack_bits": 0, "bitset_or": 0, "bitset_andnot": 0,
             "popcount_words": 0}
 
-_THREADS = 128          # threads per block (kThreads in occur.cu)
-_TARGET_BLOCKS = 2112   # 16 blocks of 128 threads on each of 132 SMs
+_THREADS = 128          # word columns a block (kThreads in occur.cu)
+_GROUP = 16             # rows a carry-save tree adds (kGroup)
+_MAX_PLANES = 16        # bit planes a thread holds (kMaxPlanes)
+_TARGET_BLOCKS = 4224   # 32 blocks of 128 threads for each of 132 SMs
+#                         (about 3 waves: at 1 wave the last blocks run alone)
+_MIN_CHUNK = 512        # rows: the readout's 32 x L extractions a column
+#                         cost under 2 instructions a word read
+_MAX_CHUNK = (1 << _MAX_PLANES) - _GROUP   # the most rows the planes hold
 _MAX_GRID_Y = 65535
+_MASK_BYTES = {torch.bool: 1, torch.int32: 4}
 
-_vp, _i64 = ctypes.c_void_p, ctypes.c_int64
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("occur")
-    lib.occur_from_bitset.argtypes = [_vp, _i64, _i64, _i64, _vp, _vp]
-    lib.occur_from_bitset.restype = ctypes.c_int
-    lib.occur_from_bitset_masked.argtypes = [_vp, _vp, _i64, _i64, _i64,
-                                             _vp, _vp]
-    lib.occur_from_bitset_masked.restype = ctypes.c_int
-    return lib
-
-
-@functools.cache
-def _bitops() -> ctypes.CDLL:
-    lib = _build.load("bitops")
-    lib.pack_bits.argtypes = [_vp, _i64, _i64, _vp, _vp]
-    for name in ("bitset_or", "bitset_andnot"):
-        getattr(lib, name).argtypes = [_vp, _vp, _i64, _vp, _vp]
-    lib.popcount_words.argtypes = [_vp, _i64, _vp, _vp]
-    for name in ("pack_bits", "bitset_or", "bitset_andnot", "popcount_words"):
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
+_vp, _i64, _int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_OCCUR = _build.Kernel("occur", "occur_from_bitset",
+                       (_vp, _i64, _i64, _i64, _int, _vp, _int, _vp))
+_OCCUR_MASKED = _build.Kernel(
+    "occur", "occur_from_bitset_masked",
+    (_vp, _vp, _int, _i64, _i64, _i64, _int, _vp, _int, _vp))
+_PACK = _build.Kernel("bitops", "pack_bits", (_vp, _i64, _i64, _vp, _int, _vp))
+_BINARY = {name: _build.Kernel("bitops", name,
+                               (_vp, _vp, _i64, _vp, _int, _vp))
+           for name in ("bitset_or", "bitset_andnot")}
+_POPCOUNT = _build.Kernel("bitops", "popcount_words",
+                          (_vp, _i64, _vp, _int, _vp))
 
 
 def rows_per_chunk(rows: int, cols: int) -> int:
-    """Rows each thread walks: enough chunks to fill the card, and never
-    more than the grid's y limit."""
+    """Rows each thread of the Occur kernels walks: enough chunks for about
+    :data:`_TARGET_BLOCKS` blocks, at least :data:`_MIN_CHUNK` rows (or all
+    of them, rounded up to a group) and at most :data:`_MAX_CHUNK` unless
+    the grid's y limit needs more, a multiple of the 16-row group.  Raises
+    when the chunks that the grid allows outgrow the bit planes."""
     blocks_x = -(-cols // _THREADS)
-    chunks = max(1, min(_TARGET_BLOCKS // max(blocks_x, 1), rows))
-    per = -(-rows // chunks)
-    return max(per, -(-rows // _MAX_GRID_Y), 1)
+    chunks = max(1, _TARGET_BLOCKS // max(blocks_x, 1))
+    per = min(max(-(-rows // chunks), _MIN_CHUNK), _MAX_CHUNK)
+    per = max(per, -(-rows // _MAX_GRID_Y))
+    per = min(-(-per // _GROUP), -(-max(rows, 1) // _GROUP)) * _GROUP
+    if occur_planes(per) > _MAX_PLANES:
+        raise ValueError(f"{rows} rows need chunks of {per} rows, more than "
+                         f"{_MAX_PLANES} bit planes hold")
+    return per
+
+
+def occur_planes(rows_per_chunk: int) -> int:
+    """Bit planes L that hold a chunk's counts: the least L with
+    ``2**L > rows_per_chunk``."""
+    return int(rows_per_chunk).bit_length()
+
+
+@functools.lru_cache(maxsize=64)
+def _split(rows: int, cols: int) -> tuple[int, int]:
+    per = rows_per_chunk(rows, cols)
+    return per, occur_planes(per)
+
+
+def _card(words: torch.Tensor, other: torch.Tensor | None = None,
+          op: str = "") -> int:
+    """The index of the card that holds ``words``, a contiguous 2-D int32
+    matrix, and ``other`` (if given), one of the same shape on the same
+    card.  Raises what ``_build.check_words`` and the shape check raise."""
+    if (words.is_cuda and words.dtype == torch.int32 and words.dim() == 2
+            and words.is_contiguous()):
+        dev = words.get_device()
+        if other is None or (other.is_cuda and other.dtype == torch.int32
+                             and other.is_contiguous()
+                             and other.shape == words.shape
+                             and other.get_device() == dev):
+            return dev
+    if other is None:
+        _build.check_words(words)
+        raise AssertionError("unreachable: check_words raised")
+    _build.check_words(words, "a")
+    _build.check_words(other, "b")
+    raise ValueError(f"{op} wants two word matrices of one shape on one "
+                     f"card, got {tuple(words.shape)} on {words.device} and "
+                     f"{tuple(other.shape)} on {other.device}")
 
 
 def occur_from_bitset(words: torch.Tensor) -> torch.Tensor:
     """(B, W) int32 words on the card -> (W*32,) int32 Occur."""
-    _build.check_words(words)
+    dev = _card(words)
     b, w = words.shape
-    occur = torch.zeros(w * 32, dtype=torch.int32, device=words.device)
-    with torch.cuda.device(words.device):
-        err = _lib().occur_from_bitset(
-            words.data_ptr(), b, w, rows_per_chunk(b, w), occur.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    per, planes = _split(b, w)
+    occur = words.new_empty(w * 32)
+    err = _OCCUR(words.data_ptr(), b, w, per, planes, occur.data_ptr(), dev,
+                 _build.raw_stream(dev))
     _build.raise_on(err, "occur_from_bitset")
     LAUNCHES["occur_from_bitset"] += 1
     return occur
@@ -80,22 +127,22 @@ def occur_from_bitset(words: torch.Tensor) -> torch.Tensor:
 def occur_from_bitset_masked(words: torch.Tensor,
                              rowmask: torch.Tensor) -> torch.Tensor:
     """Occur over the rows with ``rowmask[r] != 0``; rowmask is (B,) int32
-    or bool on the same card."""
-    _build.check_words(words)
+    or bool on the same card (a bool mask is read as bytes)."""
+    dev = _card(words)
     b, w = words.shape
-    if rowmask.device != words.device:
-        raise ValueError("rowmask must lie on the words' device")
-    if rowmask.dtype == torch.bool:
-        rowmask = rowmask.to(torch.int32)
-    if rowmask.dtype != torch.int32 or rowmask.shape != (b,):
+    if not (rowmask.is_cuda and rowmask.get_device() == dev
+            and rowmask.dtype in _MASK_BYTES and rowmask.shape == (b,)):
+        if rowmask.device != words.device:
+            raise ValueError("rowmask must lie on the words' device")
         raise TypeError(f"rowmask must be ({b},) int32 or bool, got "
                         f"{tuple(rowmask.shape)} {rowmask.dtype}")
-    rowmask = rowmask.contiguous()
-    occur = torch.zeros(w * 32, dtype=torch.int32, device=words.device)
-    with torch.cuda.device(words.device):
-        err = _lib().occur_from_bitset_masked(
-            words.data_ptr(), rowmask.data_ptr(), b, w, rows_per_chunk(b, w),
-            occur.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if not rowmask.is_contiguous():
+        rowmask = rowmask.contiguous()
+    per, planes = _split(b, w)
+    occur = words.new_empty(w * 32)
+    err = _OCCUR_MASKED(words.data_ptr(), rowmask.data_ptr(),
+                        _MASK_BYTES[rowmask.dtype], b, w, per, planes,
+                        occur.data_ptr(), dev, _build.raw_stream(dev))
     _build.raise_on(err, "occur_from_bitset_masked")
     LAUNCHES["occur_from_bitset_masked"] += 1
     return occur
@@ -104,37 +151,31 @@ def occur_from_bitset_masked(words: torch.Tensor,
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """(B, n) bool on the card, n % 32 == 0 -> (B, n/32) int32 words, LSB
     first (bit j of word w is ``bits[:, w*32 + j]``)."""
-    if bits.device.type != "cuda":
-        raise ValueError(f"CUDA kernel given a tensor on {bits.device}")
-    if bits.dtype != torch.bool:
-        raise TypeError(f"bits must be bool, got {bits.dtype}")
-    if bits.dim() != 2 or not bits.is_contiguous():
+    if not (bits.is_cuda and bits.dtype == torch.bool and bits.dim() == 2
+            and bits.is_contiguous()):
+        if bits.device.type != "cuda":
+            raise ValueError(f"CUDA kernel given a tensor on {bits.device}")
+        if bits.dtype != torch.bool:
+            raise TypeError(f"bits must be bool, got {bits.dtype}")
         raise ValueError(f"bits must be a contiguous 2-D tensor, got "
                          f"{tuple(bits.shape)}")
     b, n = bits.shape
     if n % 32:
         raise ValueError("n must be a multiple of 32 (pad first)")
-    words = torch.empty(b, n // 32, dtype=torch.int32, device=bits.device)
-    with torch.cuda.device(bits.device):
-        err = _bitops().pack_bits(bits.data_ptr(), b, n, words.data_ptr(),
-                                  torch.cuda.current_stream().cuda_stream)
+    dev = bits.get_device()
+    words = bits.new_empty((b, n // 32), dtype=torch.int32)
+    err = _PACK(bits.data_ptr(), b, n, words.data_ptr(), dev,
+                _build.raw_stream(dev))
     _build.raise_on(err, "pack_bits")
     LAUNCHES["pack_bits"] += 1
     return words
 
 
 def _binary(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    _build.check_words(a, "a")
-    _build.check_words(b, "b")
-    if a.shape != b.shape or a.device != b.device:
-        raise ValueError(f"{name} wants two word matrices of one shape on "
-                         f"one card, got {tuple(a.shape)} on {a.device} and "
-                         f"{tuple(b.shape)} on {b.device}")
+    dev = _card(a, b, name)
     out = torch.empty_like(a)
-    with torch.cuda.device(a.device):
-        err = getattr(_bitops(), name)(
-            a.data_ptr(), b.data_ptr(), a.numel(), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    err = _BINARY[name](a.data_ptr(), b.data_ptr(), a.numel(),
+                        out.data_ptr(), dev, _build.raw_stream(dev))
     _build.raise_on(err, name)
     LAUNCHES[name] += 1
     return out
@@ -152,12 +193,10 @@ def bitset_andnot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def popcount_words(words: torch.Tensor) -> torch.Tensor:
     """Per-word popcount: (B, W) int32 words on the card -> (B, W) int32."""
-    _build.check_words(words)
+    dev = _card(words)
     out = torch.empty_like(words)
-    with torch.cuda.device(words.device):
-        err = _bitops().popcount_words(
-            words.data_ptr(), words.numel(), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    err = _POPCOUNT(words.data_ptr(), words.numel(), out.data_ptr(), dev,
+                    _build.raw_stream(dev))
     _build.raise_on(err, "popcount_words")
     LAUNCHES["popcount_words"] += 1
     return out

@@ -35,6 +35,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -138,8 +140,10 @@ inline bool aligned16(const void* p) {
 
 template <typename Op>
 int launch_binary(const void* a, const void* b, int64_t n, void* out,
-                  void* stream) {
+                  int device, void* stream) {
   if (n <= 0) return int(cudaGetLastError());
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return int(guard.err);
   const bool vector = aligned16(a) && aligned16(b) && aligned16(out);
   bitset_binary_kernel<Op><<<blocks_for(vector ? (n + 3) / 4 : n), kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
@@ -150,14 +154,16 @@ int launch_binary(const void* a, const void* b, int64_t n, void* out,
 
 }  // namespace
 
-// Plain C interface for ctypes.  Each function launches on `stream` and
-// returns the cudaError_t of the launch.
+// Plain C interface for ctypes.  Each function launches on `stream` of
+// card `device` and returns the cudaError_t of the launch.
 
 // bits: rows*n bytes, n % 32 == 0; words: rows*(n/32) uint32.
 extern "C" int pack_bits(const void* bits, int64_t rows, int64_t n,
-                         void* words, void* stream) {
+                         void* words, int device, void* stream) {
   const int64_t total = rows * (n / 32);
   if (total <= 0) return int(cudaGetLastError());
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return int(guard.err);
   auto s = static_cast<cudaStream_t>(stream);
   const auto* src = static_cast<const uint8_t*>(bits);
   auto* dst = static_cast<uint32_t*>(words);
@@ -171,19 +177,21 @@ extern "C" int pack_bits(const void* bits, int64_t rows, int64_t n,
 
 // a, b, out: n uint32 words each.
 extern "C" int bitset_or(const void* a, const void* b, int64_t n, void* out,
-                         void* stream) {
-  return launch_binary<OrOp>(a, b, n, out, stream);
+                         int device, void* stream) {
+  return launch_binary<OrOp>(a, b, n, out, device, stream);
 }
 
 extern "C" int bitset_andnot(const void* a, const void* b, int64_t n,
-                             void* out, void* stream) {
-  return launch_binary<AndNotOp>(a, b, n, out, stream);
+                             void* out, int device, void* stream) {
+  return launch_binary<AndNotOp>(a, b, n, out, device, stream);
 }
 
 // words: n uint32; out: n int32.
 extern "C" int popcount_words(const void* words, int64_t n, void* out,
-                              void* stream) {
+                              int device, void* stream) {
   if (n <= 0) return int(cudaGetLastError());
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return int(guard.err);
   const bool vector = aligned16(words) && aligned16(out);
   popcount_kernel<<<blocks_for(vector ? (n + 3) / 4 : n), kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(

@@ -18,9 +18,10 @@
 //   l and acc in VMEM scratch across the KV axis, after the caller has
 //   transposed q, k, v to (B*H, S, D).  Here one thread block owns one
 //   (b*h, q tile), loops over the KV tiles itself and reads (B, S, H, D) in
-//   place.  Causal blocks stop at the last KV tile that meets the
-//   diagonal, and the q tiles are launched last-first, so the longest rows
-//   start first.  The route is a function of (dtype, D) alone, the same as
+//   place (grid.x the q tiles, grid.y the b*h index, launched in slices
+//   of 65,535 b*h when B*H exceeds the grid's y limit).  Causal blocks stop
+//   at the last KV tile that meets the diagonal, and the q tiles are
+//   launched last-first, so the longest rows start first.  The route is a function of (dtype, D) alone, the same as
 //   kernels/flashattn.py::design:
 //
 //   "wgmma": bfloat16 and float16 at D = 64, 128, 256, on the tensor cores.
@@ -145,7 +146,7 @@ template <typename T, int D, bool kCausal>
 __global__ void __launch_bounds__(kSimtThreads, 1)
 flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ out, int seq,
-                  int heads, float scale, int n_q_tiles) {
+                  int heads, float scale, int n_q_tiles, int64_t bh0) {
   using C = SimtShape<D>;
   constexpr int G = C::G, TM = C::TM, TN = C::TN, RG = C::RG;
   constexpr int BQ = C::BQ, BK = C::BK, TD = C::TD;
@@ -164,7 +165,7 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % G, ty = tid / G;
   const int q0 = (n_q_tiles - 1 - int(blockIdx.x)) * BQ;
-  const int64_t bh = blockIdx.y;
+  const int64_t bh = bh0 + blockIdx.y;
   const int64_t stride = int64_t(heads) * D;            // one position
   const int64_t base = ((bh / heads) * seq * heads + bh % heads) * D;
   // a thread stages columns d0 .. d0 + 3 of rows tid / RUNS + STEP*n
@@ -551,7 +552,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v,
                    T* __restrict__ out, int seq, int heads, float scale_log2,
-                   int n_q_tiles) {
+                   int n_q_tiles, int64_t bh0) {
   using C = WgShape<D>;
   constexpr int BK = C::BK, PANELS = C::PANELS;
   constexpr int NS = BK / 2;      // logits a thread (m64nBK accumulator)
@@ -568,7 +569,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   auto v_s = [&](int st) { return k_s(st) + C::KV_BYTES; };
 
   const int q0 = (n_q_tiles - 1 - int(blockIdx.x)) * kBQ;
-  const int b = int(blockIdx.y) / heads, h = int(blockIdx.y) % heads;
+  const int64_t bh = bh0 + blockIdx.y;
+  const int b = int(bh / heads), h = int(bh % heads);
   const int kv_end = kCausal ? min(q0 + kBQ, seq) : seq;
   const int n_kv = (kv_end + BK - 1) / BK;
 
@@ -719,6 +721,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // ---------------------------------------------------------------- host --
 
+// grid.y carries the b*h index, in launches of at most kMaxGridY of them;
+// each launch passes its first index (bh0) to the kernel
+constexpr int64_t kMaxGridY = 65535;
+
+inline int64_t slice_of(int64_t bh_total, int64_t bh0) {
+  return bh_total - bh0 < kMaxGridY ? bh_total - bh0 : kMaxGridY;
+}
+
 template <typename T, int D, bool kCausal>
 cudaError_t launch_simt(const void* q, const void* k, const void* v,
                         void* out, int64_t batch, int64_t seq, int64_t heads,
@@ -732,12 +742,16 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
   }
   const int n_q = int((seq + C::BQ - 1) / C::BQ);
-  const dim3 grid(unsigned(n_q), unsigned(batch * heads));
-  kern<<<grid, kSimtThreads, C::smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), int(seq), int(heads),
-      scale, n_q);
-  return cudaGetLastError();
+  for (int64_t bh0 = 0; bh0 < batch * heads; bh0 += kMaxGridY) {
+    const dim3 grid(unsigned(n_q), unsigned(slice_of(batch * heads, bh0)));
+    kern<<<grid, kSimtThreads, C::smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), int(seq), int(heads),
+        scale, n_q, bh0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -807,11 +821,15 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                              int(C::smem));
   if (err != cudaSuccess) return err;
   const int n_q = int((seq + kBQ - 1) / kBQ);
-  const dim3 grid(unsigned(n_q), unsigned(batch * heads));
-  kern<<<grid, kWgThreads, C::smem, stream>>>(
-      mq, mk, mv, static_cast<T*>(out), int(seq), int(heads),
-      scale * 1.4426950408889634f, n_q);
-  return cudaGetLastError();
+  for (int64_t bh0 = 0; bh0 < batch * heads; bh0 += kMaxGridY) {
+    const dim3 grid(unsigned(n_q), unsigned(slice_of(batch * heads, bh0)));
+    kern<<<grid, kWgThreads, C::smem, stream>>>(
+        mq, mk, mv, static_cast<T*>(out), int(seq), int(heads),
+        scale * 1.4426950408889634f, n_q, bh0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <typename T, int D>
@@ -861,10 +879,12 @@ cudaError_t launch_type(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Plain C interface for ctypes; returns the cudaError_t of the launch (or
+// Plain C interface for ctypes; returns the cudaError_t of the launches (or
 // of the tensor maps' encoding).  dtype: 0 float32, 1 bfloat16, 2 float16.
-// batch * heads must fit the grid's y dimension and the 16-bit tensors
-// must be 16-byte aligned (the wrapper checks both).
+// scale multiplies the logits (1/sqrt(D) of the caller's true head dim
+// when it padded D).  batch * heads may exceed the grid's y limit: the
+// launches take it in slices.  The tensors must be 16-byte aligned (the
+// wrapper checks).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int64_t batch, int64_t seq,
                                int64_t heads, int64_t dim, int dtype,

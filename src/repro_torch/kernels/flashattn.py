@@ -7,6 +7,14 @@
 inputs, allocates the output, launches on PyTorch's current stream of the
 tensor's card, raises on a launch error and adds one to its entry in
 :data:`LAUNCHES`.
+
+The wrapper takes the kernel's layouts only: contiguous, 16-byte aligned
+tensors with D in :data:`HEAD_DIMS`.  ``ops.flash_attention`` takes any
+layout and any D up to :data:`MAX_HEAD_DIM`, as the reference does: it
+copies an input the kernel cannot read (:func:`kernel_layout`) and
+zero-pads D to :func:`padded_head_dim` (zero columns add nothing to
+q . k, and the output's padding columns are sliced off), passing the true
+D's scale.
 """
 from __future__ import annotations
 
@@ -23,8 +31,8 @@ LAUNCHES = {"flash_attention": 0}
 
 HEAD_DIMS = (8, 16, 64, 128, 256)     # the kernel's instantiations
 WGMMA_HEAD_DIMS = (64, 128, 256)      # the tensor-core kernel's
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_MAX_GRID_Y = 65535
 _TMA_ALIGN = 16                       # bytes, TMA's base alignment
 
 
@@ -38,6 +46,24 @@ def design(dtype: torch.dtype, d: int) -> str:
     if dtype != torch.float32 and d in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"
+
+
+def padded_head_dim(d: int) -> int:
+    """The least instantiated head dim (:data:`HEAD_DIMS`) at or above
+    ``d``; raises past :data:`MAX_HEAD_DIM`."""
+    for width in HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"head dim {d} exceeds the flash kernel's limit of "
+                     f"{MAX_HEAD_DIM}")
+
+
+def kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernel can read it (contiguous, 16-byte
+    aligned), else one copy into a fresh allocation."""
+    if t.is_contiguous() and t.data_ptr() % _TMA_ALIGN == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 _vp, _i64 = ctypes.c_void_p, ctypes.c_int64
@@ -72,11 +98,13 @@ def check_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, *,
+                    scale: float | None = None) -> torch.Tensor:
     """Attention over (B, S, H, D) q, k, v on the card, computed in float32,
     returned in q's dtype.  All three contiguous, 16-byte aligned, of one
     shape and dtype (float32, bfloat16 or float16), with D in
-    :data:`HEAD_DIMS`; the kernel is :func:`design`'s."""
+    :data:`HEAD_DIMS`; the kernel is :func:`design`'s.  The logits are
+    scaled by ``scale``, ``1/sqrt(D)`` when None."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"CUDA kernel given {name} on {t.device}")
@@ -93,15 +121,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported; the kernel takes "
                          f"{HEAD_DIMS}")
-    if b * h > _MAX_GRID_Y:
-        raise ValueError(f"B*H = {b * h} exceeds the grid's {_MAX_GRID_Y}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     with torch.cuda.device(q.device):
         err = _lib().flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
-            d, _DTYPE_CODE[q.dtype], int(bool(causal)), 1.0 / math.sqrt(d),
+            d, _DTYPE_CODE[q.dtype], int(bool(causal)), float(scale),
             torch.cuda.current_stream().cuda_stream)
     _build.raise_on(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1

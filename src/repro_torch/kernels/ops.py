@@ -8,6 +8,8 @@ plain version: code that wants the plain version on the card calls
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import bernoulli as _bernoulli
@@ -33,8 +35,10 @@ def reset_launch_counts() -> None:
 
 
 def _route(t: torch.Tensor) -> str:
-    if t.device.type in ("cpu", "cuda"):
-        return t.device.type
+    if t.is_cuda:
+        return "cuda"
+    if t.is_cpu:
+        return "cpu"
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
@@ -113,10 +117,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, bq: int = 128,
                     bk: int = 128) -> torch.Tensor:
     """Attention over (B, S, H, D) q, k, v (equal H: repeat the KV heads
-    beforehand for GQA), in q's dtype.  ``bq``/``bk`` keep the reference's
-    contract (S a multiple of each, once capped at S); the kernel tiles
-    the work its own way."""
+    beforehand for GQA), in q's dtype and shape.  ``bq``/``bk`` keep the
+    reference's contract (S a multiple of each, once capped at S); the
+    kernel tiles the work its own way.  On a card any layout and any D up
+    to ``MAX_HEAD_DIM`` run: an input the kernel cannot read is copied
+    once, and D is zero-padded to the next instantiated width and the
+    output sliced back, with the true D's scale."""
     _flash.check_blocks(q, k, v, bq, bk)
-    if _route(q) == "cuda":
+    if _route(q) == "cpu":
+        return _ref.flash_attention_ref(q, k, v, causal)
+    d = q.shape[-1]
+    width = _flash.padded_head_dim(d)
+    if width == d:
+        q, k, v = (_flash.kernel_layout(t) for t in (q, k, v))
         return _flash.flash_attention(q, k, v, causal)
-    return _ref.flash_attention_ref(q, k, v, causal)
+    q, k, v = (torch.nn.functional.pad(t, (0, width - d)) for t in (q, k, v))
+    out = _flash.flash_attention(q, k, v, causal, scale=1.0 / math.sqrt(d))
+    return out[..., :d].contiguous()

@@ -293,3 +293,52 @@ def test_flash_sass_check_raises(case):
           "missing": {"skip": name}}[case]
     with pytest.raises(AssertionError):
         smoke.flash_sass_check(*_flash_build(**kw))
+
+
+# the Occur kernels as `-Xptxas -v` reports them for csrc/occur.cu
+OCCUR_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__c50b1140_8_occur_cu_beab49e419occur_masked_kernelIiEEvPKjPKT_llliPi' for 'sm_90a'
+ptxas info    : Function properties for _ZN40_GLOBAL__N__c50b1140_8_occur_cu_beab49e419occur_masked_kernelIiEEvPKjPKT_llliPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers, 17920 bytes smem
+ptxas info    : Function properties for _ZN40_GLOBAL__N__c50b1140_8_occur_cu_beab49e419occur_masked_kernelIhEEvPKjPKT_llliPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Function properties for _ZN40_GLOBAL__N__c50b1140_8_occur_cu_beab49e412occur_kernelEPKjllliPi
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+"""
+
+
+def test_ptxas_spills_reads_each_kernel():
+    spills = smoke.ptxas_spills(OCCUR_PTXAS, "occur_")
+    assert len(spills) == 3
+    assert sorted(spills.values()) == [0, 0, 8]
+    assert smoke.ptxas_spills(OCCUR_PTXAS, "flash_") == {}
+
+
+# device kernels as torch.profiler names them on the card
+PROFILER_NAMES = {
+    "occur_from_bitset": "void (anonymous namespace)::occur_kernel(unsigned "
+                         "int const*, long, long, long, int, int*)",
+    "occur_from_bitset_masked": "void (anonymous namespace)::"
+                                "occur_masked_kernel<unsigned char>(unsigned "
+                                "int const*, unsigned char const*, long)",
+    "bitset_or": "void (anonymous namespace)::bitset_binary_kernel<"
+                 "(anonymous namespace)::OrOp>(unsigned int const*)",
+    "popcount_words": "void (anonymous namespace)::popcount_kernel(unsigned "
+                      "int const*, long, bool, int*)",
+    "sketch_union_popcount": "void (anonymous namespace)::"
+                             "union_popcount_kernel(unsigned int const*)",
+    "flash_attention": "void (anonymous namespace)::flash_wgmma_kernel<"
+                       "__nv_bfloat16, 128, true>(CUtensorMap_st)",
+}
+
+
+@pytest.mark.parametrize("name", sorted(PROFILER_NAMES))
+def test_device_kernel_patterns_pick_their_own_kernel(name):
+    """Each record's pattern matches its kernel's profiler name and no
+    other kernel's (popcount_kernel is a suffix of union_popcount_kernel,
+    occur_kernel a substring of neither masked name)."""
+    import re
+    for other, key in PROFILER_NAMES.items():
+        hit = re.search(smoke.DEVICE_KERNEL[name], key) is not None
+        assert hit == (other == name), (name, other)

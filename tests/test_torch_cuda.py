@@ -21,7 +21,7 @@ from repro_torch.graph import csr, generators, weights
 from repro_torch.kernels import bernoulli as tbern, bitset as tbitset
 from repro_torch.kernels import flashattn as tflash
 from repro_torch.kernels import membership as tmem
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import sketch as tsketch
 
 RNG = np.random.default_rng(0)
@@ -478,3 +478,181 @@ def test_flash_wrapper_checks_inputs(card):
         tflash.flash_attention(q, q.cpu(), q)
     with pytest.raises(ValueError):
         tflash.flash_attention(q, q[:, :8], q[:, :8])
+
+
+def _mask_cases(b):
+    """All-false, all-true, sparse (one row in seven) and half masks."""
+    sparse = np.zeros(b, np.int32)
+    sparse[RNG.choice(b, size=max(1, b // 7), replace=False)] = 1
+    return {"none": np.zeros(b, np.int32), "all": np.ones(b, np.int32),
+            "sparse": sparse,
+            "half": RNG.integers(0, 2, size=b).astype(np.int32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ones", [False, True], ids=["random", "ones"])
+@pytest.mark.parametrize("b,w", [(1, 3), (15, 3), (16, 3), (17, 3),
+                                 (300, 130), (1100, 3), (20000, 3),
+                                 (16384, 75)])
+def test_occur_bit_planes_on_card(card, b, w, ones):
+    """The bit-plane kernels, exactly: rows 1, 15, 16, 17 and off the
+    16-row group, all-ones rows (every count of a full chunk is
+    rows_per_chunk and fills the top plane), several chunks a column, and
+    masks all-false, all-true, sparse and half, as bool and int32."""
+    x = (torch.full((b, w), -1, dtype=torch.int32) if ones
+         else _words(b, w)).to(card)
+    assert torch.equal(ops.occur_from_bitset(x), ref.occur_from_bitset_ref(x))
+    for kind, mask in _mask_cases(b).items():
+        for dtype in (torch.int32, torch.bool):
+            m = torch.tensor(mask).to(dtype=dtype, device=card)
+            got = ops.occur_from_bitset_masked(x, m)
+            assert torch.equal(got, ref.occur_from_bitset_masked_ref(x, m)), \
+                (kind, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per", [1, 15, 16, 17, 48, 512, 4096])
+def test_occur_kernels_at_any_chunk_size(card, per):
+    """The C entry points at chunk sizes that rows_per_chunk never picks:
+    a chunk of one row, chunks off the group, the last chunk ragged."""
+    dev = card.index if card.index is not None else torch.cuda.current_device()
+    for ones in (False, True):
+        x = (torch.full((5000, 130), -1, dtype=torch.int32) if ones
+             else _words(5000, 130)).to(card)
+        b, w = x.shape
+        planes = tbitset.occur_planes(per)
+        m = torch.tensor(_mask_cases(b)["half"], device=card).bool()
+        out = torch.full((w * 32,), 7, dtype=torch.int32, device=card)
+        assert tbitset._OCCUR(x.data_ptr(), b, w, per, planes, out.data_ptr(),
+                              dev, _build.raw_stream(dev)) == 0
+        assert torch.equal(out, ref.occur_from_bitset_ref(x))
+        out.fill_(7)
+        assert tbitset._OCCUR_MASKED(
+            x.data_ptr(), m.data_ptr(), 1, b, w, per, planes, out.data_ptr(),
+            dev, _build.raw_stream(dev)) == 0
+        assert torch.equal(out, ref.occur_from_bitset_masked_ref(x, m))
+    # a chunk too large for its planes, or too many chunks, is refused
+    assert tbitset._OCCUR(x.data_ptr(), b, w, 16, 4, out.data_ptr(), dev,
+                          _build.raw_stream(dev)) != 0
+    assert tbitset._OCCUR(x.data_ptr(), 70000, w, 1, 1, out.data_ptr(), dev,
+                          _build.raw_stream(dev)) != 0
+
+
+@pytest.mark.cuda
+def test_raw_stream_is_pytorchs_current_stream(card):
+    idx = torch.cuda.current_device()
+    assert _build.raw_stream(idx) == torch.cuda.current_stream(idx).cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert _build.raw_stream(idx) == side.cuda_stream
+        assert _build.raw_stream(idx) == \
+            torch.cuda.current_stream(idx).cuda_stream
+    assert _build.raw_stream(idx) == torch.cuda.current_stream(idx).cuda_stream
+    assert _build.raw_stream(idx) != side.cuda_stream
+
+
+@pytest.mark.cuda
+def test_bitset_kernels_on_a_side_stream(card):
+    """Launched inside ``torch.cuda.stream(s)``, each kernel runs on s and
+    is ordered after the work s waits for."""
+    a, b = _words(512, 2372).to(card), _words(512, 2372).to(card)
+    x = _words(4096, 75).to(card)
+    m = torch.tensor(_mask_cases(4096)["half"], device=card).bool()
+    bits = torch.tensor(RNG.integers(0, 2, (64, 96)).astype(bool)).to(card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = {"or": ops.bitset_or(a, b), "andnot": ops.bitset_andnot(a, b),
+               "pop": ops.popcount_words(a), "pack": ops.pack_bits(bits),
+               "occur": ops.occur_from_bitset(x),
+               "masked": ops.occur_from_bitset_masked(x, m)}
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(got["or"], ref.bitset_or_ref(a, b))
+    assert torch.equal(got["andnot"], ref.bitset_andnot_ref(a, b))
+    assert torch.equal(got["pop"], ref.popcount_words_ref(a))
+    assert torch.equal(got["pack"], ref.pack_bits_ref(bits))
+    assert torch.equal(got["occur"], ref.occur_from_bitset_ref(x))
+    assert torch.equal(got["masked"], ref.occur_from_bitset_masked_ref(x, m))
+
+
+def _close(got, want, dtype):
+    atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("d", [32, 80])
+def test_ops_flash_pads_head_dims_the_kernel_lacks(card, d, dtype):
+    """D = 32 and 80 run at 64 and 128 with the true D's scale, and come
+    back in q's dtype and shape."""
+    q, k, v = (torch.tensor(RNG.standard_normal((2, 130, 3, d)),
+                            dtype=torch.float32).to(dtype) for _ in range(3))
+    before = ops.launch_counts()["flash_attention"]
+    for causal in (True, False):
+        got = ops.flash_attention(q.to(card), k.to(card), v.to(card),
+                                  causal=causal, bq=130, bk=130)
+        assert got.dtype == dtype and got.shape == q.shape
+        assert got.is_contiguous()
+        _close(got.cpu(), ref.flash_attention_ref(q, k, v, causal), dtype)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("d", [64, 80])
+def test_ops_flash_takes_unbind_views(card, d, dtype):
+    """q, k, v unbound from a packed (B, S, 3, H, D) tensor are strided
+    views; they are copied once and run on the kernel."""
+    qkv = torch.tensor(RNG.standard_normal((2, 256, 3, 4, d)),
+                       dtype=torch.float32).to(dtype).to(card)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    before = ops.launch_counts()["flash_attention"]
+    for causal in (True, False):
+        got = ops.flash_attention(q, k, v, causal=causal)
+        assert got.shape == q.shape and got.dtype == dtype
+        _close(got, ref.flash_attention_ref(q, k, v, causal), dtype)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_ops_flash_takes_misaligned_views(card, dtype):
+    """A contiguous view one element past a 16-byte boundary, which the
+    kernel wrapper refuses, is cloned into a fresh allocation."""
+    n = 1 * 16 * 2 * 64
+    flat = torch.randn(n + 16, device=card).to(dtype)
+    q = flat[:n].view(1, 16, 2, 64)
+    off = flat[1:n + 1].view(1, 16, 2, 64)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    for args in ((off, q, q), (q, off, q), (q, q, off)):
+        _close(ops.flash_attention(*args),
+               ref.flash_attention_ref(*args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_ops_flash_beyond_the_grids_y_limit(card, dtype):
+    """B*H = 4097 * 16 = 65,552 b*h indices: two launches, the second
+    starting at 65,535 (mid-batch, at head 15)."""
+    q, k, v = (torch.randn(4097, 16, 16, 64, device=card).to(dtype)
+               for _ in range(3))
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, True)
+    _close(got, want, dtype)
+    _close(got[4095:], want[4095:], dtype)
+
+
+@pytest.mark.cuda
+def test_ops_flash_refuses_head_dims_past_256(card):
+    q = torch.zeros(1, 16, 2, 320, device=card)
+    with pytest.raises(ValueError, match="limit of 256"):
+        ops.flash_attention(q, q, q)
