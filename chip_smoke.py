@@ -19,12 +19,13 @@ Phases, each of which raises on failure (non-zero exit):
    the scatter-OR of 2^24 pairs (~10% of rows out of range, duplicates)
    into (75880, 512); exact equality, then timed (:func:`timing`: CUDA
    events over back-to-back calls, the kernel's own device time from
-   torch.profiler, and the host's enqueue time a call).  The
+   torch.profiler, and the host's enqueue time a call; the union popcount
+   at (75880, 4) runs the row-per-thread design).  The
    dense path's kernels on random data at its shapes (``pack_bits`` at
    (512, 75904), ``bitset_or``/``bitset_andnot``/``popcount_words`` at
    (512, 2372), ``bernoulli_edges`` at 512 seeds x 607,012 edges) and at
    ragged ones (W odd and off the 16-byte alignment, E not a multiple of
-   the block), exact;
+   the block or of 4: the trials' byte stores), exact;
 4. approximate solve (the second slice's path): ``IMMSolver(g,
    engine="queue", batch=512, seed=0).solve(IMProblem(k=50, eps=0.5,
    mode="approximate", max_theta=8192))`` with the auto sketch size on the
@@ -84,7 +85,10 @@ Phases, each of which raises on failure (non-zero exit):
    D=128, bfloat16, causal), qwen2-0.5b (B=1, S=4096, its 2 KV heads
    repeated to H=14, D=64, float32, not causal), gemma3-12b (B=1, S=1024,
    H=16, D=256, bfloat16, causal), qwen2-0.5b in its own bfloat16, causal,
-   and olmo-1b in float16, causal; each one ``ops.flash_attention`` call,
+   and olmo-1b in float16, causal, and four shapes past the one-pass
+   kernels' D = 256 (B=1, S=1024, H=8, D=320 and 512, float32 not causal
+   and bfloat16 causal: the column-split kernel); each one
+   ``ops.flash_attention`` call,
    held against ``flash_attention_ref`` on the card (atol 2e-5, rtol 1e-4
    in float32; 2e-2 in bfloat16; 2e-3 in float16) and timed beside
    ``scaled_dot_product_attention`` on the same tensors, with its design,
@@ -96,7 +100,10 @@ greedy passes them, a bool mask; the sketch kernels at the approximate
 path's sketch, the dense kernels at the packed sampler's inputs, the
 membership scan at the padded store, flash attention at olmo-1b's shape;
 launches from each path's run; each with ``ms``, ``device_ms``,
-``device_other_ms`` and ``enqueue_us`` from :func:`timing`, and
+``device_other_ms`` and ``enqueue_us`` from :func:`timing`;
+``bernoulli_edges`` with its trial's instructions by class as the built
+loop has them and as the float-compare loop did the work, and the smaller
+of the two bounds (:func:`trial_bound`); and
 ``bitset_or``/``bitset_andnot`` with ``torch.bitwise_or``'s times on the
 same words), the ``nvidia-smi`` line and ``{"ok": true, "device":
 {...}}``.
@@ -157,6 +164,15 @@ SASS_CLASS = {
                     "xu"),
 }
 SASS_LOADS = ("LDG", "LDC", "LD", "LDS", "LDL", "ULDC", "S2R", "S2UR")
+# the edge trial's work as a one-trial-a-thread loop with the float compare
+# compiled it (tests/test_torch_chip_bounds.py::BERNOULLI_SASS): the hash's
+# shifts and xors and the select on the ALU, the counter multiply-add and
+# 4 hash multiplies, the scale and the compare, the conversion.  The
+# record's bound is the smaller of this count's and the built kernel's own
+# (:func:`trial_bound`).
+TRIAL_WORK_OPS = {"alu": 14, "imad": 5, "fp32": 2, "xu": 1}
+# the redesigned trial loop's word-store instantiation (csrc/bernoulli.cu)
+BERNOULLI_LOOP = "bernoulli_kernelILb1E"
 SYNTH_SHAPE = (131072, 2372)
 N_NODES, BA_R, K, EPS, BATCH = 75879, 4, 50, 0.5, 512
 MC_SIMS, MC_TOL = 256, 0.10
@@ -191,14 +207,14 @@ DEVICE_KERNEL = {
     "occur_from_bitset": r"occur_kernel",
     "occur_from_bitset_masked": r"occur_masked_kernel",
     "sketch_scatter_or": r"scatter_or_kernel",
-    "sketch_union_popcount": r"union_popcount_kernel",
+    "sketch_union_popcount": r"union_popcount_(row_)?kernel",
     "pack_bits": r"pack_bits_kernel",
     "bitset_or": r"bitset_binary_kernel",
     "bitset_andnot": r"bitset_binary_kernel",
     "popcount_words": r"(?<!union_)popcount_kernel",
     "bernoulli_edges": r"bernoulli_kernel",
     "membership_rows": r"membership_kernel",
-    "flash_attention": r"flash_(wgmma|simt)_kernel",
+    "flash_attention": r"flash_(wgmma|simt_split|simt)_kernel",
 }
 KERNELS = {
     "occur_from_bitset": "src/repro/kernels/bitset.py:167",
@@ -223,6 +239,10 @@ FLASH_SHAPES = (
     ("gemma3-12b (lm.py:30)", 1, 1024, 16, 256, torch.bfloat16, True),
     ("qwen2-0.5b (lm.py:14)", 1, 4096, 14, 64, torch.bfloat16, True),
     ("olmo-1b (lm.py:22)", 2, 2048, 16, 128, torch.float16, True),
+    ("D = 320 (split)", 1, 1024, 8, 320, torch.float32, False),
+    ("D = 320 (split)", 1, 1024, 8, 320, torch.bfloat16, True),
+    ("D = 512 (split)", 1, 1024, 8, 512, torch.float32, False),
+    ("D = 512 (split)", 1, 1024, 8, 512, torch.bfloat16, True),
 )
 FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2),
              torch.float16: (2e-3, 2e-3)}
@@ -254,23 +274,41 @@ def card_rates() -> dict:
             "ops_s": {k: sms * v * mhz * 1e6 for k, v in PER_SM_CLOCK.items()}}
 
 
-def _sass_regs(text: str, pair: bool = False) -> set:
+def _sass_regs(text: str, pair: bool = False, count: int = 1) -> set:
     """Registers and predicates named in one SASS operand; ``R4.64`` (or
-    ``pair``) names R4 and R5."""
+    ``pair``) names R4 and R5, and ``count`` names that many from each
+    register (a 16-byte store's value R4 names R4 to R7)."""
     regs = set()
     for kind, num, wide in re.findall(r"\b(UR|R|UP|P)(\d+)(\.64)?\b", text):
         regs.add(f"{kind}{num}")
-        if (wide or pair) and kind in ("R", "UR"):
-            regs.add(f"{kind}{int(num) + 1}")
+        extra = max(count, 2 if (wide or pair) else 1)
+        if kind in ("R", "UR"):
+            regs |= {f"{kind}{int(num) + i}" for i in range(1, extra)}
     return regs
 
 
+def store_bytes(op: str) -> int:
+    """Bytes a global store writes (``STG.E.U8`` 1, ``STG.E.U16`` 2,
+    ``STG.E`` 4, ``STG.E.64`` 8, ``STG.E.128`` 16), 0 for any other op."""
+    parts = op.split(".")
+    if parts[0] != "STG":
+        return 0
+    for part, n in (("U8", 1), ("S8", 1), ("U16", 2), ("S16", 2), ("64", 8),
+                    ("128", 16)):
+        if part in parts:
+            return n
+    return 4
+
+
 def sass_ops_per_store(sass: str, kernel: str) -> dict:
-    """Instructions by class per one-byte store in the loop of ``kernel``,
-    read from ``cuobjdump -sass`` output: the backward slice of each stored
-    value through the loop body, cut at loads (the inputs), so address and
-    loop arithmetic are not counted.  Raises on an instruction in the slice
-    that SASS_CLASS does not class."""
+    """Instructions by class per trial in the loop of ``kernel`` (the first
+    function whose name holds it), read from ``cuobjdump -sass`` output: the
+    backward slice of each stored value through the loop body, cut at
+    loads (the inputs), so address and loop arithmetic are not counted.  A
+    trial is one output byte: a store of 1, 4, 8 or 16 bytes stands for
+    that many trials, and the loop is the one that stores the most bytes.
+    Raises on an instruction in the slice that SASS_CLASS does not class,
+    and when no loop stores."""
     fn = next(f for f in sass.split("Function : ")[1:]
               if kernel in f.splitlines()[0])
     code = [(int(a, 16), g, op, [x.strip() for x in args.split(",")])
@@ -281,14 +319,15 @@ def sass_ops_per_store(sass: str, kernel: str) -> dict:
              if op.startswith("BRA") and args[0].startswith("0x")
              and int(args[0], 16) < at]
     bodies = [[c for c in code if lo <= c[0] <= hi] for lo, hi in loops]
-    body = max(bodies, key=lambda b: sum(c[2].startswith("STG.E.U8")
-                                         for c in b))
-    need, counts, stores = set(), dict.fromkeys(PER_SM_CLOCK, 0), 0
+    body = max(bodies, key=lambda b: sum(store_bytes(c[2]) for c in b),
+               default=[])
+    need, counts, trials = set(), dict.fromkeys(PER_SM_CLOCK, 0), 0
     for _, guard, op, args in reversed(body):
         base = op.split(".")[0]
-        if op.startswith("STG.E.U8"):
-            stores += 1
-            need |= _sass_regs(args[-1])
+        nbytes = store_bytes(op)
+        if nbytes:
+            trials += nbytes
+            need |= _sass_regs(args[-1], count=max(1, nbytes // 4))
             continue
         defs = _sass_regs(args[0], pair=".WIDE" in op or ".64" in op)
         srcs = args[1:]
@@ -305,9 +344,9 @@ def sass_ops_per_store(sass: str, kernel: str) -> dict:
         need |= _sass_regs(guard or "")
         for arg in srcs:
             need |= _sass_regs(arg, pair=".WIDE" in op and arg is srcs[-1])
-    if not stores:
-        raise ValueError(f"no one-byte store in a loop of {kernel}")
-    return {k: v / stores for k, v in counts.items() if v}
+    if not trials:
+        raise ValueError(f"no global store in a loop of {kernel}")
+    return {k: v / trials for k, v in counts.items() if v}
 
 
 def cuobjdump_sass(lib: Path) -> str:
@@ -317,10 +356,11 @@ def cuobjdump_sass(lib: Path) -> str:
 
 
 def _flash_instance(name: str):
-    """(design, dtype, D, causal) of a flash kernel's mangled name, or
-    None for any other function."""
-    m = re.search(r"flash_(wgmma|simt)_kernelI(f|13__nv_bfloat16|6__half)"
-                  r"Li(\d+)ELb([01])E", name)
+    """(design, dtype, D, causal) of a flash kernel's mangled name (D is
+    the output columns a block for "simt_split"), or None for any other
+    function."""
+    m = re.search(r"flash_(wgmma|simt_split|simt)_kernelI"
+                  r"(f|13__nv_bfloat16|6__half)Li(\d+)ELb([01])E", name)
     if m is None:
         return None
     return (m[1], FLASH_SASS_DTYPE[m[2]], int(m[3]), m[4] == "1")
@@ -328,10 +368,10 @@ def _flash_instance(name: str):
 
 def flash_sass_check(sass: str, ptxas: str) -> dict:
     """Raise unless ``csrc/flashattn.cu`` built exactly the kernels that
-    ``design`` routes to (three dtypes x five head dims x causal or not),
-    every "wgmma" one holds HGMMA and UTMALDG in its SASS, and ptxas
-    reports no spill store for any of them.  Returns the counts by
-    kernel."""
+    ``design`` routes to (three dtypes x (five head dims and the column
+    split) x causal or not), every "wgmma" one holds HGMMA and UTMALDG in
+    its SASS, and ptxas reports no spill store for any of them.  Returns
+    the counts by kernel."""
     counts = {}
     for fn in sass.split("Function : ")[1:]:
         inst = _flash_instance(fn.splitlines()[0])
@@ -342,15 +382,19 @@ def flash_sass_check(sass: str, ptxas: str) -> dict:
             ("causal" if causal else "full")
         counts[key] = {op: len(re.findall(rf"\b{op}\b", fn))
                        for op in ("HGMMA", "UTMALDG", "FFMA", "LDS")}
-        if flash.design(dtype, d) != kind:
+        # the split kernel's D is its slice width; it runs past D = 256
+        route_d = (flash.MAX_SINGLE_PASS + flash.SPLIT_CHUNK
+                   if kind == "simt_split" else d)
+        if flash.design(dtype, route_d) != kind or (
+                kind == "simt_split" and d != flash.SPLIT_COLUMNS):
             raise AssertionError(f"{key} built, but design() routes "
-                                 f"{dtype} at D = {d} to "
-                                 f"{flash.design(dtype, d)}")
+                                 f"{dtype} at D = {route_d} to "
+                                 f"{flash.design(dtype, route_d)}")
         if kind == "wgmma" and not (counts[key]["HGMMA"]
                                     and counts[key]["UTMALDG"]):
             raise AssertionError(f"{key} has no HGMMA or no UTMALDG: "
                                  f"{counts[key]}")
-    want = 3 * len(flash.HEAD_DIMS) * 2
+    want = 3 * (len(flash.HEAD_DIMS) + 1) * 2
     if len(counts) != want:
         raise AssertionError(f"{len(counts)} flash kernels in the SASS, "
                              f"not {want}: {sorted(counts)}")
@@ -679,21 +723,35 @@ def check_dense_kernels(bits, a, b, w, seeds) -> dict:
     return errs
 
 
+def trial_bound(w, seeds, trial_ops: dict) -> dict:
+    """The edge trials' least time: read the weights and seeds once, write
+    one byte a trial; operations counted per trial twice, by the built
+    kernel's own loop (``trial_ops``, from its SASS) and as the
+    float-compare loop did the work (:data:`TRIAL_WORK_OPS`).  The bound is the smaller, so a
+    leaner loop cannot read above 100% and a loop that adds packing work
+    cannot raise the bound; both are kept."""
+    trials = seeds.numel() * w.numel()
+    nbytes = 4 * w.numel() + 8 * seeds.numel() + trials
+    own = _bound(nbytes, {k: v * trials for k, v in trial_ops.items()})
+    work = _bound(nbytes, {k: v * trials for k, v in TRIAL_WORK_OPS.items()})
+    least = min((own, work), key=lambda b: b["bound_ms"])
+    return {**least, "bound_from": "own" if least is own else "work",
+            "trial_ops_own": trial_ops, "bound_own_ms": own["bound_ms"],
+            "trial_ops_work": TRIAL_WORK_OPS,
+            "bound_work_ms": work["bound_ms"]}
+
+
 def dense_bounds(bits, a, w, seeds, trial_ops: dict) -> dict:
     """Least times: pack_bits reads B*n bytes and writes B*n/8 (one ALU
     operation per byte read); the pair ops read two words and write one
     (one LOP3 each); popcount reads and writes one word (one POPC); the
-    trials read the weights and seeds once and write one byte per trial,
-    ``trial_ops`` instructions by class each (counted from the SASS)."""
+    trials as :func:`trial_bound`."""
     nb, nw = bits.numel(), a.numel()
-    trials = seeds.numel() * w.numel()
     return {"pack_bits": _bound(nb + nb // 8, {"alu": nb}),
             "bitset_or": _bound(12 * nw, {"alu": nw}),
             "bitset_andnot": _bound(12 * nw, {"alu": nw}),
             "popcount_words": _bound(8 * nw, {"xu": nw}),
-            "bernoulli_edges": _bound(
-                4 * w.numel() + 8 * seeds.numel() + trials,
-                {k: v * trials for k, v in trial_ops.items()})}
+            "bernoulli_edges": trial_bound(w, seeds, trial_ops)}
 
 
 def dense_records(bits, a, b, w, seeds, launches, iters=20, plain_iters=3):
@@ -702,8 +760,9 @@ def dense_records(bits, a, b, w, seeds, launches, iters=20, plain_iters=3):
     whose times also stand beside bitset_andnot as a yardstick."""
     errs = check_dense_kernels(bits, a, b, w, seeds)
     trial_ops = sass_ops_per_store(
-        cuobjdump_sass(_build.build("bernoulli")), "bernoulli_kernel")
-    say("bernoulli_sass_ops_per_trial", trial_ops)
+        cuobjdump_sass(_build.build("bernoulli")), BERNOULLI_LOOP)
+    say("bernoulli_sass_ops_per_trial", {"own": trial_ops,
+                                          "work": TRIAL_WORK_OPS})
     bounds = dense_bounds(bits, a, w, seeds, trial_ops)
     shapes = {"pack_bits": list(bits.shape), "bitset_or": list(a.shape),
               "bitset_andnot": list(a.shape), "popcount_words": list(a.shape),
@@ -738,6 +797,23 @@ def dense_records(bits, a, b, w, seeds, launches, iters=20, plain_iters=3):
     return out
 
 
+def plant_edge_weights(w: torch.Tensor) -> torch.Tensor:
+    """``w`` with the edges of the trials' range planted every 97th entry
+    (0, -0.0, 1.0, 1 + ulp, 1 - ulp, 2, +-inf, NaN, the smallest denormal,
+    -1, and u(h) at the rounding boundary of 2^32 - 128): the integer
+    threshold must decide them as the float compare does."""
+    special = torch.tensor(
+        [0.0, -0.0, 1.0, 1.0 + 2 ** -23, 1.0 - 2 ** -24, 2.0, math.inf,
+         -math.inf, math.nan, 2 ** -149, -1.0,
+         float(np.float32(2 ** 32 - 256) * np.float32(2 ** -32))],
+        dtype=torch.float32, device=w.device)
+    w = w.clone()
+    idx = torch.arange(0, w.numel(), 97, device=w.device)
+    w[idx] = special[torch.arange(idx.numel(), device=w.device)
+                     % special.numel()]
+    return w
+
+
 def ragged_dense_checks(gen) -> dict:
     """The dense kernels at ragged shapes: W odd (flat words not a multiple
     of 4) and a word slice off the 16-byte alignment, bits starting one
@@ -746,7 +822,7 @@ def ragged_dense_checks(gen) -> dict:
     a, b = random_words((8, 2373), gen), random_words((8, 2373), gen)
     raw = torch.rand(7 * 2373 * 32 + 1, device=dev, generator=gen) < 0.5
     bits = raw[1:].view(7, 2373 * 32)
-    w = torch.rand(1000003, device=dev, generator=gen)
+    w = plant_edge_weights(torch.rand(1000003, device=dev, generator=gen))
     seeds = torch.randint(0, 1 << 32, (3,), device=dev, generator=gen)
     return check_dense_kernels(bits, a[1:], b[1:], w, seeds)
 
@@ -1286,7 +1362,7 @@ def main() -> int:
         torch.rand(BATCH, n_pad, device=dev, generator=gen) < 0.5,
         random_words((BATCH, n_pad // 32), gen),
         random_words((BATCH, n_pad // 32), gen),
-        torch.rand(g.n_edges, device=dev, generator=gen),
+        plant_edge_weights(torch.rand(g.n_edges, device=dev, generator=gen)),
         torch.randint(0, 1 << 32, (BATCH,), device=dev, generator=gen)))
     say("dense_kernels_ragged", ragged_dense_checks(gen))
     torch.cuda.empty_cache()

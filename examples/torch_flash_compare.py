@@ -10,8 +10,10 @@ its own process, in the order other, this, this, other, so that a drift of
 the card's clocks shows as a difference between the two runs of one tree.
 Each run times ``repro_torch.kernels.ops.flash_attention`` at the shapes
 of ``chip_smoke.py``'s phase 12 (CUDA events, mean of ``--iters`` calls
-after one warm-up, inputs from a fixed seed) and prints one JSON line;
-the last lines are the card's name and power limit and a JSON summary.
+after one warm-up, inputs from a fixed seed) and prints one JSON line (a
+shape that a checkout refuses, such as a head dim past its kernels, has
+``ms`` null); the last lines are the card's name and power limit and a
+JSON summary.
 """
 from __future__ import annotations
 
@@ -34,7 +36,12 @@ def worker(root: str, shapes: list, iters: int) -> None:
     for name, b, s, h, d, dtype, causal in shapes:
         q, k, v = (torch.randn(b, s, h, d, device=dev, generator=gen)
                    .to(getattr(torch, dtype)) for _ in range(3))
-        ops.flash_attention(q, k, v, causal=causal)
+        try:
+            ops.flash_attention(q, k, v, causal=causal)
+        except ValueError as err:       # a head dim this checkout lacks
+            out.append({"config": name, "dtype": dtype, "causal": causal,
+                        "ms": None, "refused": str(err)})
+            continue
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)

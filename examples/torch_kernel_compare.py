@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Time the port's bit-set kernels of two checkouts on one card, in turns.
+"""Time the port's bit-set, trial and sketch kernels of two checkouts on one
+card, in turns.
 
     python3 examples/torch_kernel_compare.py OTHER_ROOT [--iters 20]
     python3 examples/torch_kernel_compare.py --chunks [--iters 20]
 
 OTHER_ROOT is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive`` into a directory that ``.gitignore``
-lists).  Each checkout builds its own ``csrc/occur.cu`` and
-``csrc/bitops.cu`` and is run in its own process, in the order other,
-this, this, other, so that a drift of the card's clocks shows as a
-difference between the two runs of one tree.  Each run calls the entry
+lists).  Each checkout builds its own ``csrc/occur.cu``,
+``csrc/bitops.cu``, ``csrc/bernoulli.cu`` and ``csrc/sketch.cu`` and is
+run in its own process, in the order other, this, this, other, so that a
+drift of the card's clocks shows as a difference between the two runs of
+one tree.  Each run calls the entry
 points of ``repro_torch.kernels.ops`` on the same inputs (made on the card
 from a fixed seed):
 
+* ``bernoulli_edges`` at 512 seeds x 607,012 uniform weights (the dense
+  solve's shape);
+* ``sketch_union_popcount`` on (75880, 4) random words (the approximate
+  solve's sketch) and on (75880, 512);
 * ``bitset_or`` and ``bitset_andnot`` on (512, 2372) random words (the
   packed sampler's shape), beside ``torch.bitwise_or`` on the same words;
 * ``occur_from_bitset`` and ``occur_from_bitset_masked`` (bool mask) on
@@ -63,12 +69,17 @@ def _inputs(torch, dev):
         return acc.to(torch.int32).view(rows, cols)
 
     a, b = words(512, 2372), words(512, 2372)
+    sk4, sk512 = words(75880, 4), words(75880, 512)
+    cov4, cov512 = words(1, 4)[0], words(1, 512)[0]
+    weights = torch.rand(607012, device=dev, generator=gen)
+    seeds = torch.arange(512, device=dev, dtype=torch.int64) * 0x9E3779B1
     big = words(131072, 2372)
     big_mask = torch.rand(131072, device=dev, generator=gen) < 0.5
     path = sparse(16384, 2372, 4)
     path_mask = torch.zeros(16384, dtype=torch.bool, device=dev)
     path_mask[torch.randperm(16384, device=dev, generator=gen)[:2469]] = True
-    return a, b, big, big_mask, path, path_mask
+    return (a, b, big, big_mask, path, path_mask, sk4, sk512, cov4, cov512,
+            weights, seeds)
 
 
 def _device_ms(torch, fn, iters: int) -> float:
@@ -94,7 +105,7 @@ def chunk_sweep(iters: int) -> None:
     import torch
     from repro_torch.kernels import _build, bitset, ref
     dev = torch.device("cuda")
-    _, _, big, big_mask, path, path_mask = _inputs(torch, dev)
+    _, _, big, big_mask, path, path_mask, *_ = _inputs(torch, dev)
     out = {}
     for name, words, mask in (("131072", big, big_mask),
                               ("16384", path, path_mask)):
@@ -127,8 +138,15 @@ def worker(root: str, iters: int) -> None:
     import torch
     from repro_torch.kernels import ops, ref
     dev = torch.device("cuda")
-    a, b, big, big_mask, path, path_mask = _inputs(torch, dev)
+    (a, b, big, big_mask, path, path_mask, sk4, sk512, cov4, cov512,
+     weights, seeds) = _inputs(torch, dev)
     calls = {
+        "bernoulli_edges 512x607012": lambda: ops.bernoulli_edges(weights,
+                                                                  seeds),
+        "sketch_union_popcount 75880x4": lambda:
+            ops.sketch_union_popcount(sk4, cov4),
+        "sketch_union_popcount 75880x512": lambda:
+            ops.sketch_union_popcount(sk512, cov512),
         "bitset_or": lambda: ops.bitset_or(a, b),
         "bitset_andnot": lambda: ops.bitset_andnot(a, b),
         "torch.bitwise_or": lambda: torch.bitwise_or(a, b),
@@ -140,6 +158,11 @@ def worker(root: str, iters: int) -> None:
             ops.occur_from_bitset_masked(path, path_mask),
     }
     checks = {
+        "bernoulli_edges 512x607012": ref.bernoulli_edges_ref(weights, seeds),
+        "sketch_union_popcount 75880x4": ref.sketch_union_popcount_ref(sk4,
+                                                                       cov4),
+        "sketch_union_popcount 75880x512":
+            ref.sketch_union_popcount_ref(sk512, cov512),
         "bitset_or": ref.bitset_or_ref(a, b),
         "bitset_andnot": ref.bitset_andnot_ref(a, b),
         "occur_from_bitset 131072": ref.occur_from_bitset_ref(big),

@@ -13,7 +13,8 @@ Selection (:func:`select_seeds_device`):
 * ``flat`` — the reference's fused scan: Occur by scatter-add over the
   pool, per seed one membership pass that finds the newly covered rows and
   one scatter that takes their elements off Occur.  Covered rows live in a
-  packed int32 bitset; gains are SWAR popcounts of the new words.
+  packed int32 bitset; gains are popcounts of the new words
+  (``kernels.ops.popcount_words``).
 * ``bitset`` — Alg. 7 on the packed (row_capacity, ceil(n/32)) membership
   matrix: the initial Occur and each seed's Occur decrement are the two
   hand-written CUDA kernels (``kernels/ops.py``; the plain versions on the
@@ -50,7 +51,6 @@ from repro_torch.core import sketch as sketch_mod
 from repro_torch.core.packing import bit_values, rank_positions, to_int32_bits
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import popcount_words_ref
 
 _PACK = 1 << 15   # growth headroom of a wide append (the reference's _PACK)
 
@@ -227,7 +227,7 @@ def _select_flat(store: DeviceRRStore, k: int) -> CoverageResult:
         u = torch.argmax(occur)
         newly = _newly_rows(flat, ids, valid, _unpack_covered(cov), u)
         new_words = _pack_covered(newly)
-        gains.append(popcount_words_ref(new_words).sum())
+        gains.append(kops.popcount_words(new_words.view(1, -1)).sum())
         elem_newly = (newly[ids] & valid).to(torch.int32)
         occur = occur - torch.zeros(n + 1, dtype=torch.int32,
                                     device=dev).index_add_(

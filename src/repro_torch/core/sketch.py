@@ -13,7 +13,8 @@ matrix.  A union is a bitwise OR and its occupancy a popcount.
   dedup-and-add version on the CPU.
 * The sweep (:func:`union_gains`) scores every node at once through
   ``kernels.ops.sketch_union_popcount``: ``Δocc(v | S) = popcount(sketch_v
-  | cov) − popcount(cov)``.  New buckets need new rows, so Δocc never
+  | cov) − popcount(cov)``, the second term through
+  ``kernels.ops.popcount_words``.  New buckets need new rows, so Δocc never
   exceeds v's exact marginal coverage.
 * With ``"mod"`` bucketing and at most k rows the bucketing is injective
   and Δocc *is* the exact marginal gain.
@@ -31,7 +32,6 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.bernoulli import MASK32, mul_u32
-from repro_torch.kernels.ref import popcount_words_ref
 
 _KNUTH = 2654435761    # multiplicative hash of the "mix" bucketing
 
@@ -130,7 +130,8 @@ def union_row(cov_words: torch.Tensor, sk_words: torch.Tensor,
 
 def union_gains(sk_words: torch.Tensor, cov_words: torch.Tensor) -> torch.Tensor:
     """Δocc(v | S) for every sketch row, in one kernel sweep: (R,) int32."""
-    base = popcount_words_ref(cov_words).sum(dtype=torch.int32)
+    base = kops.popcount_words(cov_words.reshape(1, -1)).sum(
+        dtype=torch.int32)
     return kops.sketch_union_popcount(sk_words, cov_words) - base
 
 

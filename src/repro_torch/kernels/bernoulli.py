@@ -12,13 +12,16 @@ here is an int64 tensor holding an unsigned 32-bit quantity, masked with
 :func:`bernoulli_edges` replaces the Pallas kernel of the same name (vmapped
 over seeds, as the reference's dense sampler calls it).  It takes CUDA
 tensors only; ``kernels/ops.py`` routes CPU tensors to
-``ref.bernoulli_edges_ref``.  Its library is built and loaded at the first
-launch, so importing the hash loads nothing.
+``ref.bernoulli_edges_ref``.  It launches through a :class:`_build.Kernel`
+(built and loaded at the first launch, so importing the hash loads
+nothing) with the card's index and the raw handle of PyTorch's current
+stream (:func:`_build.raw_stream`), as ``kernels/bitset.py`` does, and
+converts the seeds only when they are not a contiguous int64 vector on
+the weights' card already.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -65,13 +68,9 @@ def counter_uniform_u32(seed, counter) -> torch.Tensor:
     return hash_mix(hash_mix(x) ^ GOLDEN)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("bernoulli")
-    vp, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.bernoulli_edges.argtypes = [vp, vp, i64, i64, vp, vp]
-    lib.bernoulli_edges.restype = ctypes.c_int
-    return lib
+_vp, _i64 = ctypes.c_void_p, ctypes.c_int64
+_TRIALS = _build.Kernel("bernoulli", "bernoulli_edges",
+                        (_vp, _vp, _i64, _i64, _vp, ctypes.c_int, _vp))
 
 
 def bernoulli_edges(weights: torch.Tensor, seeds) -> torch.Tensor:
@@ -94,16 +93,19 @@ def bernoulli_edges(weights: torch.Tensor, seeds) -> torch.Tensor:
     if e > MASK32:
         raise ValueError("the counter hash needs at most 2^32 edges")
     one = not isinstance(seeds, torch.Tensor) or seeds.dim() == 0
-    s = torch.as_tensor(seeds, device=weights.device)
-    if s.is_floating_point() or s.dtype == torch.bool or s.dim() > 1:
-        raise TypeError(f"seeds must be an int or a 1-D integer tensor, got "
-                        f"{s.dtype} of shape {tuple(s.shape)}")
-    s = s.reshape(-1).to(torch.int64).contiguous()
-    keep = torch.empty(s.shape[0], e, dtype=torch.bool, device=weights.device)
-    with torch.cuda.device(weights.device):
-        err = _lib().bernoulli_edges(
-            weights.data_ptr(), s.data_ptr(), s.shape[0], e, keep.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    dev = weights.get_device()
+    s = seeds
+    if not (isinstance(s, torch.Tensor) and s.dtype == torch.int64
+            and s.dim() == 1 and s.is_contiguous() and s.is_cuda
+            and s.get_device() == dev):
+        s = torch.as_tensor(s, device=weights.device)
+        if s.is_floating_point() or s.dtype == torch.bool or s.dim() > 1:
+            raise TypeError(f"seeds must be an int or a 1-D integer tensor, "
+                            f"got {s.dtype} of shape {tuple(s.shape)}")
+        s = s.reshape(-1).to(torch.int64).contiguous()
+    keep = weights.new_empty((s.shape[0], e), dtype=torch.bool)
+    err = _TRIALS(weights.data_ptr(), s.data_ptr(), s.shape[0], e,
+                  keep.data_ptr(), dev, _build.raw_stream(dev))
     _build.raise_on(err, "bernoulli_edges")
     LAUNCHES["bernoulli_edges"] += 1
     return keep[0] if one else keep

@@ -10,8 +10,8 @@
 //   contiguous, in float32, bfloat16 or float16.  Products, the softmax
 //   statistics and the sums are float32; masked logits are -1e30, the
 //   normaliser is floored at 1e-20, and the output is rounded to nearest
-//   into q's type.  Head dims 8, 16, 64, 128 and 256 (the wrapper raises on
-//   any other).
+//   into q's type.  Head dims 8, 16, 64, 128 and 256, and every multiple of
+//   64 above 256 (the wrapper raises on any other).
 //   What bounds it: operations.  4*B*H*D*P flops and B*H*P exponentials,
 //   P = S*S, or S*(S+1)/2 when causal, against 4*B*S*H*D*itemsize bytes.
 //   The Pallas kernel walks a (B*H, S/bq, S/bk) grid in order, carrying m,
@@ -56,6 +56,14 @@
 //   by row instead, which keeps the transposing stores and the 128-bit
 //   reads apart in the banks.  P goes through shared memory, transposed.
 //   expf is the accurate one: the build does not use fast math.
+//
+//   "simt_split": D > 256, every dtype, in float32 on the FMA pipe.  The
+//   simt kernel's registers hold a row's whole output, so past D = 256 the
+//   output columns are split: grid.x also runs over slices of 256 output
+//   columns, and each block recomputes its tile's logits over the whole D
+//   in chunks of 64 columns staged through shared memory (the tiles of the
+//   simt kernel at D = 256), then accumulates P.V over its own slice.  The
+//   logits are computed ceil(D / 256) times; a correct, simple kernel.
 
 #include <cstdint>
 #include <cuda.h>
@@ -140,6 +148,124 @@ __device__ __forceinline__ int swz(int r, int i) {
          (i & 3);
 }
 
+// The steps of a KV tile that the simt and simt_split kernels share.  C is
+// the tile shape (SimtShape); a thread owns rows (r/4*RG + ty)*4 + r%4,
+// keys (c/4*G + tx)*4 + c%4 and output columns (c/4*G + tx)*4 + c%4.
+
+// sc += Q K^T over ROWS staged columns: qt [ROWS][BQ] and kt [ROWS][BK],
+// transposed and swizzled.  Rows d .. d + 3 share their swizzle: one
+// address computation per four steps.
+template <typename C, int ROWS>
+__device__ __forceinline__ void simt_qk(float (&sc)[C::TM][C::TN],
+                                        const float* qt, const float* kt,
+                                        int tx, int ty) {
+  constexpr int G = C::G, TM = C::TM, TN = C::TN, RG = C::RG;
+  constexpr int BQ = C::BQ, BK = C::BK;
+#pragma unroll 1
+  for (int d = 0; d < ROWS; d += 4) {
+    int oa[TM / 4], ob[TN / 4];
+#pragma unroll
+    for (int r = 0; r < TM / 4; ++r) oa[r] = swz<BQ>(d, (r * RG + ty) * 4);
+#pragma unroll
+    for (int c = 0; c < TN / 4; ++c) ob[c] = swz<BK>(d, (c * G + tx) * 4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int r = 0; r < TM / 4; ++r)
+        unpack4(a + 4 * r, qt + oa[r] + e * BQ);
+#pragma unroll
+      for (int c = 0; c < TN / 4; ++c)
+        unpack4(b + 4 * c, kt + ob[c] + e * BK);
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int c = 0; c < TN; ++c) sc[r][c] = fmaf(a[r], b[c], sc[r][c]);
+    }
+  }
+}
+
+// The online softmax of one KV tile's logits, row by row: masks, scales,
+// updates m and l, rescales acc, and stores p transposed to ps[key][row].
+template <typename C, bool kCausal>
+__device__ __forceinline__ void simt_softmax(
+    float (&sc)[C::TM][C::TN], float (&m)[C::TM], float (&l)[C::TM],
+    float (&acc)[C::TM][C::TD], int q0, int k0, int seq, float scale,
+    int tx, int ty, float* ps) {
+  constexpr int G = C::G, TM = C::TM, TN = C::TN, RG = C::RG;
+  constexpr int BQ = C::BQ, TD = C::TD;
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    const int qi = q0 + ((r / 4) * RG + ty) * 4 + r % 4;
+    float mx = kMaskValue;
+    unsigned ok = 0;   // bit c: key c is visible to this row
+#pragma unroll
+    for (int c = 0; c < TN; ++c) {
+      const int kj = k0 + ((c / 4) * G + tx) * 4 + c % 4;
+      if (kj < seq && (!kCausal || qi >= kj)) ok |= 1u << c;
+      sc[r][c] = (ok >> c) & 1u ? sc[r][c] * scale : kMaskValue;
+      mx = fmaxf(mx, sc[r][c]);
+    }
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m[r], mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < TN; ++c) {
+      const float p = (ok >> c) & 1u ? expf(sc[r][c] - m_new) : 0.f;
+      sum += p;
+      sc[r][c] = p;
+    }
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const float corr = expf(m[r] - m_new);
+    l[r] = l[r] * corr + sum;
+    m[r] = m_new;
+#pragma unroll
+    for (int c = 0; c < TD; ++c) acc[r][c] *= corr;
+  }
+#pragma unroll
+  for (int r = 0; r < TM; r += 4)
+#pragma unroll
+    for (int c = 0; c < TN; ++c) {
+      const int j = ((c / 4) * G + tx) * 4 + c % 4;
+      *reinterpret_cast<float4*>(ps + swz<BQ>(j, ((r / 4) * RG + ty) * 4)) =
+          make_float4(sc[r][c], sc[r + 1][c], sc[r + 2][c], sc[r + 3][c]);
+    }
+}
+
+// acc += P . V over the tile's keys: ps [BK][BQ] (transposed, swizzled),
+// vs [BK][W]; four keys per address computation.
+template <typename C, int W>
+__device__ __forceinline__ void simt_pv(float (&acc)[C::TM][C::TD],
+                                        const float* ps, const float* vs,
+                                        int tx, int ty) {
+  constexpr int G = C::G, TM = C::TM, RG = C::RG;
+  constexpr int BQ = C::BQ, BK = C::BK, TD = C::TD;
+#pragma unroll 1
+  for (int j = 0; j < BK; j += 4) {
+    int op[TM / 4];
+#pragma unroll
+    for (int r = 0; r < TM / 4; ++r) op[r] = swz<BQ>(j, (r * RG + ty) * 4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p[TM], w[TD];
+#pragma unroll
+      for (int r = 0; r < TM / 4; ++r)
+        unpack4(p + 4 * r, ps + op[r] + e * BQ);
+#pragma unroll
+      for (int c = 0; c < TD / 4; ++c)
+        unpack4(w + 4 * c, vs + (j + e) * W + (c * G + tx) * 4);
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int c = 0; c < TD; ++c) acc[r][c] = fmaf(p[r], w[c], acc[r][c]);
+    }
+  }
+}
+
 // (one block an SM is enough: without the bound's second argument ptxas
 // spilled a word at D = 8 and 16 to stay at 96 registers)
 template <typename T, int D, bool kCausal>
@@ -171,8 +297,6 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // a thread stages columns d0 .. d0 + 3 of rows tid / RUNS + STEP*n
   const int d0 = 4 * (tid % RUNS), row0 = tid / RUNS;
 
-  // rows (r/4*RG + ty)*4 + r%4, keys (c/4*G + tx)*4 + c%4, output columns
-  // (c/4*G + tx)*4 + c%4
   for (int i = row0; i < BQ; i += STEP) {
     const float4 x = q0 + i < seq
                          ? load4(q + base + (q0 + i) * stride + d0)
@@ -214,95 +338,12 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < TM; ++r)
 #pragma unroll
       for (int c = 0; c < TN; ++c) sc[r][c] = 0.f;
-    // rows d .. d + 3 of Q^T and K^T share their swizzle: one address
-    // computation per four steps
-#pragma unroll 1
-    for (int d = 0; d < D; d += 4) {
-      int oa[TM / 4], ob[TN / 4];
-#pragma unroll
-      for (int r = 0; r < TM / 4; ++r) oa[r] = swz<BQ>(d, (r * RG + ty) * 4);
-#pragma unroll
-      for (int c = 0; c < TN / 4; ++c) ob[c] = swz<BK>(d, (c * G + tx) * 4);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float a[TM], b[TN];
-#pragma unroll
-        for (int r = 0; r < TM / 4; ++r)
-          unpack4(a + 4 * r, qt + oa[r] + e * BQ);
-#pragma unroll
-        for (int c = 0; c < TN / 4; ++c)
-          unpack4(b + 4 * c, kt + ob[c] + e * BK);
-#pragma unroll
-        for (int r = 0; r < TM; ++r)
-#pragma unroll
-          for (int c = 0; c < TN; ++c) sc[r][c] = fmaf(a[r], b[c], sc[r][c]);
-      }
-    }
+    simt_qk<C, D>(sc, qt, kt, tx, ty);
 
-    // online softmax, row by row; p goes to ps[key][row]
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int qi = q0 + ((r / 4) * RG + ty) * 4 + r % 4;
-      float mx = kMaskValue;
-      unsigned ok = 0;   // bit c: key c is visible to this row
-#pragma unroll
-      for (int c = 0; c < TN; ++c) {
-        const int kj = k0 + ((c / 4) * G + tx) * 4 + c % 4;
-        if (kj < seq && (!kCausal || qi >= kj)) ok |= 1u << c;
-        sc[r][c] = (ok >> c) & 1u ? sc[r][c] * scale : kMaskValue;
-        mx = fmaxf(mx, sc[r][c]);
-      }
-#pragma unroll
-      for (int off = G / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[r], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < TN; ++c) {
-        const float p = (ok >> c) & 1u ? expf(sc[r][c] - m_new) : 0.f;
-        sum += p;
-        sc[r][c] = p;
-      }
-#pragma unroll
-      for (int off = G / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < TD; ++c) acc[r][c] *= corr;
-    }
-#pragma unroll
-    for (int r = 0; r < TM; r += 4)
-#pragma unroll
-      for (int c = 0; c < TN; ++c) {
-        const int j = ((c / 4) * G + tx) * 4 + c % 4;
-        *reinterpret_cast<float4*>(ps + swz<BQ>(j, ((r / 4) * RG + ty) * 4)) =
-            make_float4(sc[r][c], sc[r + 1][c], sc[r + 2][c], sc[r + 3][c]);
-      }
+    simt_softmax<C, kCausal>(sc, m, l, acc, q0, k0, seq, scale, tx, ty, ps);
     __syncthreads();
 
-    // acc += P . V over the tile's keys, four keys per address computation
-#pragma unroll 1
-    for (int j = 0; j < BK; j += 4) {
-      int op[TM / 4];
-#pragma unroll
-      for (int r = 0; r < TM / 4; ++r) op[r] = swz<BQ>(j, (r * RG + ty) * 4);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p[TM], w[TD];
-#pragma unroll
-        for (int r = 0; r < TM / 4; ++r)
-          unpack4(p + 4 * r, ps + op[r] + e * BQ);
-#pragma unroll
-        for (int c = 0; c < TD / 4; ++c)
-          unpack4(w + 4 * c, vs + (j + e) * D + (c * G + tx) * 4);
-#pragma unroll
-        for (int r = 0; r < TM; ++r)
-#pragma unroll
-          for (int c = 0; c < TD; ++c) acc[r][c] = fmaf(p[r], w[c], acc[r][c]);
-      }
-    }
+    simt_pv<C, D>(acc, ps, vs, tx, ty);
   }
 
 #pragma unroll
@@ -314,6 +355,135 @@ flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < TD; ++c)
       out[base + qi * stride + ((c / 4) * G + tx) * 4 + c % 4] =
           from_f32<T>(acc[r][c] / denom);
+  }
+}
+
+// ---------------------------------------------------------- simt_split --
+
+// D > 256 (every dtype, float32 arithmetic): the column split.  A block owns
+// one (b*h, q tile, slice of kSplitDV output columns); it builds each KV
+// tile's logits over the whole D in chunks of kSplitDC columns (Q and K
+// chunks staged transposed in shared memory, as the simt kernel stages
+// them whole), runs the simt kernel's online softmax, and accumulates P.V
+// over its own columns only.  The logits are recomputed once per slice.
+// The tiles are the simt kernel's at D = 256 (Simt<256>).  D must be a
+// multiple of kSplitDC (the caller zero-pads); the last slice may be
+// ragged, its columns past D read as zeros and never written.
+constexpr int kSplitDV = 256;
+constexpr int kSplitDC = 64;
+
+template <int DV>
+struct SplitShape {
+  using C = SimtShape<DV>;
+  static constexpr size_t smem =
+      sizeof(float) * (size_t(kSplitDC) * C::BQ + size_t(kSplitDC) * C::BK +
+                       size_t(C::BK) * DV + size_t(C::BK) * C::BQ);
+};
+
+template <typename T, int DV, bool kCausal>
+__global__ void __launch_bounds__(kSimtThreads, 1)
+flash_simt_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ out, int seq,
+                        int heads, int dim, float scale, int n_q_tiles,
+                        int n_slices, int64_t bh0) {
+  using C = SimtShape<DV>;
+  constexpr int G = C::G, TM = C::TM, TN = C::TN, RG = C::RG;
+  constexpr int BQ = C::BQ, BK = C::BK, TD = C::TD;
+  constexpr int DC = kSplitDC;
+  constexpr int CRUNS = DC / 4;                 // runs of 4 in a chunk row
+  constexpr int CSTEP = kSimtThreads / CRUNS;   // rows a chunk staging pass
+  constexpr int VRUNS = DV / 4;                 // runs of 4 in a slice row
+  constexpr int VSTEP = kSimtThreads / VRUNS;   // rows a V staging pass
+  static_assert(TM % 4 == 0 && TN % 4 == 0 && TD % 4 == 0 && G <= 32 &&
+                    (G & (G - 1)) == 0 && kSimtThreads % CRUNS == 0 &&
+                    kSimtThreads % VRUNS == 0,
+                "tile shape");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* qt = smem;              // [DC][BQ], a Q chunk transposed, swizzled
+  float* kt = qt + DC * BQ;      // [DC][BK], a K chunk transposed, swizzled
+  float* vs = kt + DC * BK;      // [BK][DV], the slice's V columns
+  float* ps = vs + BK * DV;      // [BK][BQ], probabilities transposed
+
+  const int tid = threadIdx.x;
+  const int tx = tid % G, ty = tid / G;
+  const int q0 = (n_q_tiles - 1 - int(blockIdx.x) / n_slices) * BQ;
+  const int c0 = (int(blockIdx.x) % n_slices) * DV;   // the slice's columns
+  const int64_t bh = bh0 + blockIdx.y;
+  const int64_t stride = int64_t(heads) * dim;          // one position
+  const int64_t base = ((bh / heads) * seq * heads + bh % heads) * dim;
+  const int d0 = 4 * (tid % CRUNS), row0 = tid / CRUNS;
+  const int v0 = 4 * (tid % VRUNS), vrow0 = tid / VRUNS;
+  const bool v_in = c0 + v0 < dim;   // runs of 4 never straddle D
+
+  float m[TM], l[TM], acc[TM][TD];
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    m[r] = kMaskValue;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < TD; ++c) acc[r][c] = 0.f;
+  }
+
+  const int k_end = kCausal ? min(q0 + BQ, seq) : seq;
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
+    float sc[TM][TN];
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int c = 0; c < TN; ++c) sc[r][c] = 0.f;
+
+#pragma unroll 1
+    for (int dc = 0; dc < dim; dc += DC) {
+      __syncthreads();   // the last chunk's (and tile's) readers are done
+      for (int i = row0; i < BQ; i += CSTEP) {
+        const float4 x = q0 + i < seq
+                             ? load4(q + base + (q0 + i) * stride + dc + d0)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        qt[swz<BQ>(d0, i)] = x.x;
+        qt[swz<BQ>(d0 + 1, i)] = x.y;
+        qt[swz<BQ>(d0 + 2, i)] = x.z;
+        qt[swz<BQ>(d0 + 3, i)] = x.w;
+      }
+      for (int j = row0; j < BK; j += CSTEP) {
+        const float4 x = k0 + j < seq
+                             ? load4(k + base + (k0 + j) * stride + dc + d0)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        kt[swz<BK>(d0, j)] = x.x;
+        kt[swz<BK>(d0 + 1, j)] = x.y;
+        kt[swz<BK>(d0 + 2, j)] = x.z;
+        kt[swz<BK>(d0 + 3, j)] = x.w;
+      }
+      __syncthreads();
+      simt_qk<C, DC>(sc, qt, kt, tx, ty);
+    }
+
+    // the slice's V columns; vs and ps were last read before the chunk
+    // loop's first barrier
+    for (int j = vrow0; j < BK; j += VSTEP) {
+      const float4 x = k0 + j < seq && v_in
+                           ? load4(v + base + (k0 + j) * stride + c0 + v0)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(vs + j * DV + v0) = x;
+    }
+
+    simt_softmax<C, kCausal>(sc, m, l, acc, q0, k0, seq, scale, tx, ty, ps);
+    __syncthreads();
+
+    simt_pv<C, DV>(acc, ps, vs, tx, ty);   // over the slice's columns
+  }
+
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    const int qi = q0 + ((r / 4) * RG + ty) * 4 + r % 4;
+    if (qi >= seq) continue;
+    const float denom = fmaxf(l[r], 1e-20f);
+#pragma unroll
+    for (int c = 0; c < TD; ++c) {
+      const int col = c0 + ((c / 4) * G + tx) * 4 + c % 4;
+      if (col < dim)
+        out[base + qi * stride + col] = from_f32<T>(acc[r][c] / denom);
+    }
   }
 }
 
@@ -754,6 +924,36 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
   return cudaSuccess;
 }
 
+template <typename T, bool kCausal>
+cudaError_t launch_split(const void* q, const void* k, const void* v,
+                         void* out, int64_t batch, int64_t seq,
+                         int64_t heads, int64_t dim, float scale,
+                         cudaStream_t stream) {
+  using C = SimtShape<kSplitDV>;
+  if (dim % kSplitDC != 0 || dim > INT32_MAX - kSplitDV ||
+      seq > INT32_MAX - C::BQ)
+    return cudaErrorInvalidValue;
+  auto kern = flash_simt_split_kernel<T, kSplitDV, kCausal>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(SplitShape<kSplitDV>::smem));
+  if (err != cudaSuccess) return err;
+  const int n_q = int((seq + C::BQ - 1) / C::BQ);
+  const int n_slices = int((dim + kSplitDV - 1) / kSplitDV);
+  if (int64_t(n_q) * n_slices > INT32_MAX) return cudaErrorInvalidValue;
+  for (int64_t bh0 = 0; bh0 < batch * heads; bh0 += kMaxGridY) {
+    const dim3 grid(unsigned(n_q * n_slices),
+                    unsigned(slice_of(batch * heads, bh0)));
+    kern<<<grid, kSimtThreads, SplitShape<kSplitDV>::smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), int(seq), int(heads),
+        int(dim), scale, n_q, n_slices, bh0);
+    const cudaError_t launch = cudaGetLastError();
+    if (launch != cudaSuccess) return launch;
+  }
+  return cudaSuccess;
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
@@ -873,7 +1073,11 @@ cudaError_t launch_type(const void* q, const void* k, const void* v,
       return launch_dim<T, 256>(q, k, v, out, batch, seq, heads, causal,
                                 scale, stream);
     default:
-      return cudaErrorInvalidValue;
+      if (dim <= 256) return cudaErrorInvalidValue;
+      return causal ? launch_split<T, true>(q, k, v, out, batch, seq, heads,
+                                            dim, scale, stream)
+                    : launch_split<T, false>(q, k, v, out, batch, seq, heads,
+                                             dim, scale, stream);
   }
 }
 
@@ -882,7 +1086,8 @@ cudaError_t launch_type(const void* q, const void* k, const void* v,
 // Plain C interface for ctypes; returns the cudaError_t of the launches (or
 // of the tensor maps' encoding).  dtype: 0 float32, 1 bfloat16, 2 float16.
 // scale multiplies the logits (1/sqrt(D) of the caller's true head dim
-// when it padded D).  batch * heads may exceed the grid's y limit: the
+// when it padded D).  dim is 8, 16, 64, 128, 256 or a multiple of 64 above
+// 256 (the split kernel).  batch * heads may exceed the grid's y limit: the
 // launches take it in slices.  The tensors must be 16-byte aligned (the
 // wrapper checks).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,

@@ -9,9 +9,10 @@ tensor's card, raises on a launch error and adds one to its entry in
 :data:`LAUNCHES`.
 
 The wrapper takes the kernel's layouts only: contiguous, 16-byte aligned
-tensors with D in :data:`HEAD_DIMS`.  ``ops.flash_attention`` takes any
-layout and any D up to :data:`MAX_HEAD_DIM`, as the reference does: it
-copies an input the kernel cannot read (:func:`kernel_layout`) and
+tensors with D in :data:`HEAD_DIMS` or a multiple of :data:`SPLIT_CHUNK`
+above :data:`MAX_SINGLE_PASS` (the column-split kernel).
+``ops.flash_attention`` takes any layout and any D, as the reference does:
+it copies an input the kernel cannot read (:func:`kernel_layout`) and
 zero-pads D to :func:`padded_head_dim` (zero columns add nothing to
 q . k, and the output's padding columns are sliced off), passing the true
 D's scale.
@@ -29,33 +30,46 @@ from repro_torch.kernels import _build
 # launches per kernel since the last reset (see ops.reset_launch_counts)
 LAUNCHES = {"flash_attention": 0}
 
-HEAD_DIMS = (8, 16, 64, 128, 256)     # the kernel's instantiations
+HEAD_DIMS = (8, 16, 64, 128, 256)     # the one-pass kernels' instantiations
 WGMMA_HEAD_DIMS = (64, 128, 256)      # the tensor-core kernel's
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+MAX_SINGLE_PASS = HEAD_DIMS[-1]
+SPLIT_CHUNK = 64                      # kSplitDC: D > 256 is a multiple of it
+SPLIT_COLUMNS = 256                   # kSplitDV: output columns a block
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TMA_ALIGN = 16                       # bytes, TMA's base alignment
+
+
+def _takes(d: int) -> bool:
+    return d in HEAD_DIMS or (d > MAX_SINGLE_PASS and d % SPLIT_CHUNK == 0)
 
 
 def design(dtype: torch.dtype, d: int) -> str:
     """The kernel that ``flash_attention`` launches for (dtype, D), the same
     choice as ``csrc/flashattn.cu``: ``"wgmma"`` (tensor cores fed by TMA)
-    for bfloat16 and float16 at D in :data:`WGMMA_HEAD_DIMS`, else
-    ``"simt"`` (float32 FMAs; float32 at every D, 16 bits at D = 8, 16)."""
-    if dtype not in _DTYPE_CODE or d not in HEAD_DIMS:
+    for bfloat16 and float16 at D in :data:`WGMMA_HEAD_DIMS`;
+    ``"simt_split"`` (float32 FMAs, output columns split over blocks) for
+    every dtype at D above :data:`MAX_SINGLE_PASS`, a multiple of
+    :data:`SPLIT_CHUNK`; else ``"simt"`` (float32 FMAs; float32 at D up to
+    256, 16 bits at D = 8, 16)."""
+    if dtype not in _DTYPE_CODE or not _takes(d):
         raise ValueError(f"no flash kernel for {dtype} at head dim {d}")
+    if d > MAX_SINGLE_PASS:
+        return "simt_split"
     if dtype != torch.float32 and d in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"
 
 
 def padded_head_dim(d: int) -> int:
-    """The least instantiated head dim (:data:`HEAD_DIMS`) at or above
-    ``d``; raises past :data:`MAX_HEAD_DIM`."""
+    """The head dim the kernel runs for a true ``d``: the least of
+    :data:`HEAD_DIMS` at or above it, or, past :data:`MAX_SINGLE_PASS`,
+    ``d`` rounded up to a multiple of :data:`SPLIT_CHUNK`."""
+    if d < 1:
+        raise ValueError(f"head dim {d} must be at least 1")
     for width in HEAD_DIMS:
         if d <= width:
             return width
-    raise ValueError(f"head dim {d} exceeds the flash kernel's limit of "
-                     f"{MAX_HEAD_DIM}")
+    return -(-d // SPLIT_CHUNK) * SPLIT_CHUNK
 
 
 def kernel_layout(t: torch.Tensor) -> torch.Tensor:
@@ -103,7 +117,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention over (B, S, H, D) q, k, v on the card, computed in float32,
     returned in q's dtype.  All three contiguous, 16-byte aligned, of one
     shape and dtype (float32, bfloat16 or float16), with D in
-    :data:`HEAD_DIMS`; the kernel is :func:`design`'s.  The logits are
+    :data:`HEAD_DIMS` or a multiple of :data:`SPLIT_CHUNK` above
+    :data:`MAX_SINGLE_PASS`; the kernel is :func:`design`'s.  The logits are
     scaled by ``scale``, ``1/sqrt(D)`` when None."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
@@ -118,9 +133,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"boundary")
     _check_shapes(q, k, v)
     b, s, h, d = q.shape
-    if d not in HEAD_DIMS:
+    if not _takes(d):
         raise ValueError(f"head dim {d} not supported; the kernel takes "
-                         f"{HEAD_DIMS}")
+                         f"{HEAD_DIMS} and multiples of {SPLIT_CHUNK} above "
+                         f"{MAX_SINGLE_PASS}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)

@@ -119,10 +119,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention over (B, S, H, D) q, k, v (equal H: repeat the KV heads
     beforehand for GQA), in q's dtype and shape.  ``bq``/``bk`` keep the
     reference's contract (S a multiple of each, once capped at S); the
-    kernel tiles the work its own way.  On a card any layout and any D up
-    to ``MAX_HEAD_DIM`` run: an input the kernel cannot read is copied
-    once, and D is zero-padded to the next instantiated width and the
-    output sliced back, with the true D's scale."""
+    kernel tiles the work its own way.  On a card any layout and any D
+    run: an input the kernel cannot read is copied once, and D is
+    zero-padded to the width the kernel takes (``padded_head_dim``: the
+    next one-pass width up to 256, a multiple of 64 above, where the
+    column-split kernel runs) and the output sliced back, with the true
+    D's scale."""
     _flash.check_blocks(q, k, v, bq, bk)
     if _route(q) == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal)

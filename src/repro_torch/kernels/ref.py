@@ -52,6 +52,38 @@ def bernoulli_edges_ref(weights: torch.Tensor, seeds) -> torch.Tensor:
     return out
 
 
+def trial_threshold_ref(weights: torch.Tensor) -> torch.Tensor:
+    """The least ``t`` in ``[0, 2^32]`` with ``float32(t) * 2^-32 >=
+    weights[e]``, as int64: trial ``h`` keeps edge ``e`` iff ``h < t``,
+    the same as :func:`bernoulli_edges_ref`'s float compare, since the
+    conversion (round to nearest even) and the exact scale are
+    non-decreasing in ``h``.  The formula of ``csrc/bernoulli.cu``'s
+    ``trial_limit``, which keeps ``t - 1``:
+
+    - ``w <= 0``, ``-0.0`` and NaN keep nothing (``t = 0``); ``w > 1`` and
+      ``+inf`` keep everything (``t = 2^32``);
+    - else ``W = w * 2^32`` is exact (a denormal ``w`` becomes normal);
+      up to ``2^24`` every integer is a float32, so ``t = ceil(W)``;
+    - above, ``t`` is the midpoint between ``W`` and the float32 below it
+      (half its gap, which is half the gap above at a power of two), plus
+      one when ``W``'s mantissa is odd: a tie rounds to the even one.  At
+      ``w = 1.0``, ``t = 2^32 - 128``.
+    """
+    w = weights.to(torch.float32)
+    inside = (w > 0) & (w <= 1)
+    big = torch.where(inside, w, torch.ones_like(w)) * 2.0 ** 32
+    bits = big.view(torch.int32).to(torch.int64) & MASK32
+    exp = (bits >> 23) - 127
+    frac = bits & 0x7FFFFF
+    half_gap = torch.ones_like(bits) << torch.where(
+        frac != 0, exp - 24, exp - 25).clamp(min=0)
+    whole = (frac | 0x800000) << (exp - 23).clamp(min=0)
+    t = torch.where(big <= 2.0 ** 24, torch.ceil(big).to(torch.int64),
+                    whole - half_gap + (frac & 1))
+    t = torch.where(w > 1, 1 << 32, t)
+    return torch.where(w > 0, t, 0)
+
+
 def pack_bits_ref(bits: torch.Tensor) -> torch.Tensor:
     """(B, n) bool -> (B, n/32) int32 words, LSB first: bit j of word w is
     ``bits[:, w*32 + j]``; bit 31 makes a word negative.  ``n`` must be a

@@ -3,9 +3,11 @@
 ``sketch_scatter_or`` and ``sketch_union_popcount`` replace the Pallas
 kernels of the same names in ``repro.kernels.sketch``.  The wrappers take
 CUDA tensors only; ``kernels/ops.py`` routes CPU tensors to ``ref.py``.
-Each wrapper checks its inputs, launches on PyTorch's current stream of the
-tensor's card, raises on a launch error and adds one to its entry in
-:data:`LAUNCHES`.
+Each wrapper checks its inputs, calls its C entry point through a
+:class:`_build.Kernel` with the card's index and the raw handle of
+PyTorch's current stream of that card (:func:`_build.raw_stream`), as
+``kernels/bitset.py`` does, raises on a launch error and adds one to its
+entry in :data:`LAUNCHES`.
 
 ``sketch_scatter_or`` updates ``words`` in place (the store folds every
 batch into its own words; the plain version does the same) and returns it.
@@ -15,7 +17,6 @@ It reads back one int32 flag after the launch, so that a bucket outside
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -24,18 +25,11 @@ from repro_torch.kernels import _build
 # launches per kernel since the last reset (see ops.reset_launch_counts)
 LAUNCHES = {"sketch_scatter_or": 0, "sketch_union_popcount": 0}
 
-_vp, _i64 = ctypes.c_void_p, ctypes.c_int64
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("sketch")
-    lib.sketch_scatter_or.argtypes = [_vp, _vp, _vp, _i64, _i64, _i64, _vp,
-                                      _vp]
-    lib.sketch_scatter_or.restype = ctypes.c_int
-    lib.sketch_union_popcount.argtypes = [_vp, _vp, _i64, _i64, _vp, _vp]
-    lib.sketch_union_popcount.restype = ctypes.c_int
-    return lib
+_vp, _i64, _int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_SCATTER = _build.Kernel("sketch", "sketch_scatter_or",
+                         (_vp, _vp, _vp, _i64, _i64, _i64, _vp, _int, _vp))
+_UNION = _build.Kernel("sketch", "sketch_union_popcount",
+                       (_vp, _vp, _i64, _i64, _vp, _int, _vp))
 
 
 def _int32_vector(x: torch.Tensor, like: torch.Tensor, name: str,
@@ -61,10 +55,10 @@ def sketch_scatter_or(words: torch.Tensor, v: torch.Tensor,
     v = _int32_vector(v, words, "v")
     bucket = _int32_vector(bucket, words, "bucket", v.shape[0])
     bad = torch.zeros(1, dtype=torch.int32, device=words.device)
-    with torch.cuda.device(words.device):
-        err = _lib().sketch_scatter_or(
-            words.data_ptr(), v.data_ptr(), bucket.data_ptr(), v.shape[0], r,
-            w, bad.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    dev = words.get_device()
+    err = _SCATTER(words.data_ptr(), v.data_ptr(), bucket.data_ptr(),
+                   v.shape[0], r, w, bad.data_ptr(), dev,
+                   _build.raw_stream(dev))
     _build.raise_on(err, "sketch_scatter_or")
     LAUNCHES["sketch_scatter_or"] += 1
     if int(bad) != 0:
@@ -76,18 +70,22 @@ def sketch_union_popcount(words: torch.Tensor,
                           cov: torch.Tensor) -> torch.Tensor:
     """``out[r] = sum_w popcount(words[r, w] | cov[w])`` on the card:
     (R, W) int32 words and a (W,) int32 ``cov`` -> (R,) int32."""
-    _build.check_words(words)
+    if not (words.is_cuda and words.dtype == torch.int32 and words.dim() == 2
+            and words.is_contiguous() and cov.is_cuda
+            and cov.dtype == torch.int32 and cov.dim() == 1
+            and cov.shape[0] == words.shape[1]
+            and cov.get_device() == words.get_device()):
+        _build.check_words(words)
+        raise ValueError(f"cov must be ({words.shape[1]},) int32 on the "
+                         f"words' device, got {tuple(cov.shape)} {cov.dtype} "
+                         f"on {cov.device}")
+    if not cov.is_contiguous():
+        cov = cov.contiguous()
     r, w = words.shape
-    if cov.device != words.device or cov.dtype != torch.int32 or \
-            cov.shape != (w,):
-        raise ValueError(f"cov must be ({w},) int32 on the words' device, "
-                         f"got {tuple(cov.shape)} {cov.dtype} on {cov.device}")
-    cov = cov.contiguous()
-    out = torch.empty(r, dtype=torch.int32, device=words.device)
-    with torch.cuda.device(words.device):
-        err = _lib().sketch_union_popcount(
-            words.data_ptr(), cov.data_ptr(), r, w, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    dev = words.get_device()
+    out = words.new_empty(r)
+    err = _UNION(words.data_ptr(), cov.data_ptr(), r, w, out.data_ptr(), dev,
+                 _build.raw_stream(dev))
     _build.raise_on(err, "sketch_union_popcount")
     LAUNCHES["sketch_union_popcount"] += 1
     return out

@@ -108,6 +108,105 @@ def test_sass_slice_raises_on_an_unclassed_instruction():
         smoke.sass_ops_per_store(sass, "kern")
 
 
+# the word-store loop of the redesigned trial kernel, cut to one group of
+# four trials a row: four hashes' last steps, four threshold compares
+# packed into a word, masked by the live edges, one 4-byte store
+WORD_STORE_SASS = """\
+        Function : _ZN45_GLOBAL__N__bernoulli_cu16bernoulli_kernelILb1EEEvPKfPKlllPh
+/*0100*/ LDG.E.64.CONSTANT R2, desc[UR6][R20.64] ;
+/*0110*/ IADD3 R4, R8, R2, RZ ;
+/*0120*/ IADD3 R5, R9, R2, RZ ;
+/*0130*/ IADD3 R6, R10, R2, RZ ;
+/*0140*/ IADD3 R7, R11, R2, RZ ;
+/*0150*/ IMAD R4, R4, -0x7a143595, RZ ;
+/*0160*/ IMAD R5, R5, -0x7a143595, RZ ;
+/*0170*/ IMAD R6, R6, -0x7a143595, RZ ;
+/*0180*/ IMAD R7, R7, -0x7a143595, RZ ;
+/*0190*/ ISETP.GT.U32.AND P0, PT, R4, R12, PT ;
+/*01a0*/ ISETP.GT.U32.AND P1, PT, R5, R13, PT ;
+/*01b0*/ ISETP.GT.U32.AND P2, PT, R6, R14, PT ;
+/*01c0*/ ISETP.GT.U32.AND P3, PT, R7, R15, PT ;
+/*01d0*/ SEL R4, RZ, 0x1, P0 ;
+/*01e0*/ SEL R5, RZ, 0x100, P1 ;
+/*01f0*/ SEL R6, RZ, 0x10000, P2 ;
+/*0200*/ SEL R7, RZ, 0x1000000, P3 ;
+/*0210*/ LOP3.LUT R4, R4, R5, R6, 0xfe, !PT ;
+/*0220*/ LOP3.LUT R4, R4, R7, R16, 0xe0, !PT ;
+/*0230*/ IMAD.WIDE.U32 R20, R17, 0x8, R20 ;
+/*0240*/ @!P4 STG.E desc[UR6][R18.64], R4 ;
+/*0250*/ IADD3 R18, P5, R18, R22, RZ ;
+/*0260*/ ISETP.GE.U32.AND P6, PT, R18, R23, PT ;
+/*0270*/ @!P6 BRA 0x100 ;
+/*0280*/ EXIT ;
+"""
+
+
+def test_sass_slice_counts_per_trial_of_a_word_store():
+    # 4 IADD3 + 4 ISETP + 4 SEL + 2 LOP3 on the ALU and 4 IMADs feed one
+    # 4-byte store: 4 trials.  The seed load, the seed pointer's IMAD.WIDE,
+    # the row pointer and the loop test are not counted.
+    assert smoke.sass_ops_per_store(WORD_STORE_SASS, "kernelILb1E") == {
+        "alu": 14 / 4, "imad": 1.0}
+
+
+def test_sass_slice_counts_the_lanes_of_a_16_byte_store():
+    """STG.E.128 stores R4..R7: all four registers' slices are counted, and
+    the store stands for 16 trials; STG.E.64 for 8 (R8, R9)."""
+    sass = """Function : kern
+/*0000*/ LDG.E R2, desc[UR4][R10.64] ;
+/*0010*/ LOP3.LUT R4, R2, 0x1, RZ, 0xc0, !PT ;
+/*0020*/ LOP3.LUT R5, R2, 0x2, RZ, 0xc0, !PT ;
+/*0030*/ LOP3.LUT R6, R2, 0x4, RZ, 0xc0, !PT ;
+/*0040*/ IMAD R7, R2, 0x3, RZ ;
+/*0050*/ SHF.R.U32.HI R8, RZ, 0x1, R2 ;
+/*0060*/ SHF.R.U32.HI R9, RZ, 0x2, R2 ;
+/*0070*/ STG.E.128 desc[UR4][R12.64], R4 ;
+/*0080*/ STG.E.64 desc[UR4][R12.64+0x10], R8 ;
+/*0090*/ IADD3 R12, P0, R12, 0x18, RZ ;
+/*00a0*/ @P1 BRA 0x0 ;
+"""
+    assert smoke.sass_ops_per_store(sass, "kern") == {"alu": 5 / 24,
+                                                      "imad": 1 / 24}
+    assert [smoke.store_bytes(op) for op in (
+        "STG.E.U8", "STG.E", "STG.E.64", "STG.E.128", "STG.E.U16",
+        "STG.E.STRONG.GPU", "LDG.E.128", "STS.128")] == \
+        [1, 4, 8, 16, 2, 4, 0, 0]
+
+
+def test_sass_slice_raises_without_a_store_in_a_loop():
+    sass = """Function : kern
+/*0000*/ LDG.E R2, desc[UR4][R6.64] ;
+/*0010*/ STG.E desc[UR4][R8.64], R2 ;
+/*0020*/ EXIT ;
+"""
+    with pytest.raises(ValueError, match="no global store"):
+        smoke.sass_ops_per_store(sass, "kern")
+
+
+def test_trial_bound_is_the_smaller_of_the_two_counts(h100):
+    """The record's bound is the lesser of the built loop's own count and
+    the float-compare loop's count of the work: a leaner loop (fewer ALU
+    instructions) sets it, and a loop with more (its packing) does not
+    raise it."""
+    import torch
+    w, seeds = torch.zeros(607012), torch.zeros(512, dtype=torch.int64)
+    trials = 512 * 607012
+    alu_s = H100_SMS * 64 * H100_MHZ * 1e6
+    work_ms = 14 * trials / alu_s * 1e3
+    assert smoke.TRIAL_WORK_OPS == {"alu": 14, "imad": 5, "fp32": 2, "xu": 1}
+    heavier = smoke.trial_bound(w, seeds, {"alu": 16.5, "imad": 5.0})
+    assert heavier["bound_from"] == "work"
+    assert heavier["bound_ms"] == pytest.approx(work_ms)
+    assert 0.2600 < heavier["bound_ms"] < 0.2602
+    assert heavier["bound_own_ms"] == pytest.approx(16.5 / 14 * work_ms)
+    leaner = smoke.trial_bound(w, seeds, {"alu": 12.0, "imad": 11.0})
+    assert leaner["bound_from"] == "own"
+    assert leaner["bound_ms"] == pytest.approx(12 / 14 * work_ms)
+    assert leaner["bound_work_ms"] == pytest.approx(work_ms)
+    assert leaner["trial_ops_own"] == {"alu": 12.0, "imad": 11.0}
+    assert leaner["bound_by"] == "operations"
+
+
 def test_occur_bound_is_the_bytes_at_the_exact_path(h100):
     # (16,384 x 2,372) words: reading them is 0.0465 ms at 3.35 TB/s; a
     # positional popcount's two LOP3s a word take a tenth of that
@@ -238,13 +337,16 @@ def _flash_name(kind, dtype, d, causal):
 
 
 def _flash_build(drop_op=None, spill=None, extra=None, skip=None):
-    """SASS and ptxas text of the 30 kernels that design() routes to."""
+    """SASS and ptxas text of the 36 kernels that design() routes to (the
+    split kernel's D is its 256-column slice)."""
     sass, ptxas = ["        code for sm_90a"], []
     for dtype in ("float32", "bfloat16", "float16"):
-        for d in (8, 16, 64, 128, 256):
+        for width in (8, 16, 64, 128, 256, "split"):
             for causal in (False, True):
-                kind = ("wgmma" if dtype != "float32" and d >= 64
+                kind = ("simt_split" if width == "split" else
+                        "wgmma" if dtype != "float32" and width >= 64
                         else "simt")
+                d = 256 if width == "split" else width
                 name = _flash_name(kind, dtype, d, causal)
                 if name == skip:
                     continue
@@ -273,7 +375,9 @@ def _flash_build(drop_op=None, spill=None, extra=None, skip=None):
 
 def test_flash_sass_check_counts_every_kernel():
     counts = smoke.flash_sass_check(*_flash_build())
-    assert len(counts) == 30
+    assert len(counts) == 36
+    assert counts["simt_split/float32/256/causal"]["FFMA"] == 1
+    assert "simt_split/bfloat16/256/full" in counts
     wg = counts["wgmma/bfloat16/256/causal"]
     assert (wg["HGMMA"], wg["UTMALDG"]) == (2, 1)
     assert counts["simt/float32/64/full"] == {"HGMMA": 0, "UTMALDG": 0,
@@ -282,15 +386,21 @@ def test_flash_sass_check_counts_every_kernel():
 
 
 @pytest.mark.parametrize("case", ["no-hgmma", "no-utmaldg", "spill",
-                                  "wrong-route", "missing"])
+                                  "wrong-route", "missing", "split-spill",
+                                  "split-missing", "split-width"])
 def test_flash_sass_check_raises(case):
     name = _flash_name("wgmma", "float16", 128, True)
+    split = _flash_name("simt_split", "bfloat16", 256, False)
     kw = {"no-hgmma": {"drop_op": (name, "HGMMA")},
           "no-utmaldg": {"drop_op": (name, "UTMALDG")},
           "spill": {"spill": (_flash_name("simt", "float32", 64, False), 4)},
           "wrong-route": {"extra": _flash_name("simt", "bfloat16", 64,
                                                True)},
-          "missing": {"skip": name}}[case]
+          "missing": {"skip": name},
+          "split-spill": {"spill": (split, 8)},
+          "split-missing": {"skip": split},
+          "split-width": {"extra": _flash_name("simt_split", "float32", 128,
+                                               True)}}[case]
     with pytest.raises(AssertionError):
         smoke.flash_sass_check(*_flash_build(**kw))
 
@@ -331,6 +441,34 @@ PROFILER_NAMES = {
     "flash_attention": "void (anonymous namespace)::flash_wgmma_kernel<"
                        "__nv_bfloat16, 128, true>(CUtensorMap_st)",
 }
+# further names of the same records' kernels
+PROFILER_ALSO = {
+    "flash_attention": ["void (anonymous namespace)::flash_simt_split_kernel"
+                        "<float, 256, false>(float const*)",
+                        "void (anonymous namespace)::flash_simt_kernel"
+                        "<float, 64, true>(float const*)"],
+    "sketch_union_popcount": ["void (anonymous namespace)::"
+                              "union_popcount_row_kernel<true>(unsigned int "
+                              "const*)"],
+    "bernoulli_edges": ["void (anonymous namespace)::bernoulli_kernel<true>"
+                        "(float const*, long const*, long, long, unsigned "
+                        "char*)"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(PROFILER_ALSO))
+def test_device_kernel_patterns_take_every_design(name):
+    """A record's pattern matches each kernel its wrapper may launch (the
+    split flash kernel, the row-per-thread union popcount, both trial
+    loops) and no kernel of another record."""
+    import re
+    for key in PROFILER_ALSO[name]:
+        assert re.search(smoke.DEVICE_KERNEL[name], key), key
+        for other in smoke.DEVICE_KERNEL:
+            if other != name and not (
+                    {other, name} == {"bitset_or", "bitset_andnot"}):
+                assert not re.search(smoke.DEVICE_KERNEL[other], key), \
+                    (other, key)
 
 
 @pytest.mark.parametrize("name", sorted(PROFILER_NAMES))

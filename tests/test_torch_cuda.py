@@ -653,6 +653,168 @@ def test_ops_flash_beyond_the_grids_y_limit(card, dtype):
 
 @pytest.mark.cuda
 def test_ops_flash_refuses_head_dims_past_256(card):
-    q = torch.zeros(1, 16, 2, 320, device=card)
-    with pytest.raises(ValueError, match="limit of 256"):
-        ops.flash_attention(q, q, q)
+    """Past 256 the kernel wrapper takes only multiples of the split
+    kernel's 64-column chunk (``ops`` pads to one); D = 320 runs."""
+    q = torch.zeros(1, 16, 2, 300, device=card)
+    with pytest.raises(ValueError, match="multiples of 64 above 256"):
+        tflash.flash_attention(q, q, q)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, q, q)
+    assert got.shape == q.shape and not got.any()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("s", [130, 300])
+@pytest.mark.parametrize("d", [320, 512, 1000])
+def test_flash_split_kernel_equals_plain(card, d, s, dtype):
+    """D = 320 and 512 run the column-split kernel (two slices; at 320 the
+    second is ragged), D = 1000 runs it at 1024 with the true D's scale;
+    S off the 32-row and 64-key tiles; causal and not; within FLASH_TOL of
+    the plain version on the CPU."""
+    q, k, v = (torch.tensor(RNG.standard_normal((2, s, 3, d)),
+                            dtype=torch.float32).to(dtype) for _ in range(3))
+    assert tflash.design(dtype, tflash.padded_head_dim(d)) == "simt_split"
+    before = ops.launch_counts()["flash_attention"]
+    for causal in (True, False):
+        got = ops.flash_attention(q.to(card), k.to(card), v.to(card),
+                                  causal=causal, bq=s, bk=s)
+        assert got.dtype == dtype and got.shape == q.shape
+        _close(got.cpu(), ref.flash_attention_ref(q, k, v, causal), dtype)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 2
+
+
+def _u01(h):
+    """float32(h) * 2^-32 for integer h (round to nearest even)."""
+    return (np.asarray(h, np.uint64).astype(np.float32)
+            * np.float32(2.0 ** -32)).astype(np.float32)
+
+
+def _adversarial_weights(e: int, offset: int) -> torch.Tensor:
+    """``e`` weights drawn in turn from u(h) at every rounding boundary of
+    the conversion and at seeded random h, one ulp above and below each,
+    and 0, -0.0, 1.0, 1 + ulp, 2, +-inf, NaN, the smallest denormal and
+    negatives; ``offset`` rotates the pool."""
+    hs = set()
+    for k in range(33):
+        p = 1 << k
+        gap = max(1, p >> 23)
+        for c in (p, p - gap // 2, p + gap // 2, p + gap):
+            hs.update((c - 1, c, c + 1))
+    rng = np.random.default_rng(offset)
+    rand = rng.integers(0, 1 << 32, 2000, dtype=np.uint64)
+    base = _u01(np.array(sorted(h for h in hs if 0 <= h < 1 << 32) +
+                         rand.tolist(), np.uint64))
+    tiny = np.float32(np.finfo(np.float32).smallest_subnormal)
+    one = np.float32(1.0)
+    pool = np.concatenate([
+        np.array([0.0, -0.0, 1.0, np.nextafter(one, np.float32(2)), 2.0,
+                  np.inf, -np.inf, np.nan, tiny, -tiny, -1.0,
+                  np.nextafter(one, np.float32(0))], np.float32),
+        base, np.nextafter(base, np.float32(2)),
+        np.nextafter(base, np.float32(-1))]).astype(np.float32)
+    idx = (np.arange(e) + offset) % len(pool)
+    return torch.tensor(pool[idx])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3, 512, 65537])
+@pytest.mark.parametrize("e", [1, 3, 15, 16, 17, 607012])
+def test_bernoulli_kernel_exact_on_adversarial_weights(card, e, b):
+    """The integer-threshold kernel equals the float compare exactly on
+    weights at every rounding boundary and the edges of the range; E = 16
+    and 607,012 take the word stores, the others the byte stores; B =
+    65,537 runs past the grid's y extent, so blocks stride over rows.
+    (65,537 x 607,012 bytes would be 40 GB: that pair runs at 64 rows.)"""
+    if e == 607012 and b == 65537:
+        b = 64
+    w = _adversarial_weights(e, offset=e).to(card)
+    seeds = torch.tensor(RNG.integers(0, 1 << 32, b), device=card)
+    seeds[0] = 0xFFFFFFFF
+    before = ops.launch_counts()["bernoulli_edges"]
+    got = ops.bernoulli_edges(w, seeds)
+    assert got.shape == (b, e)
+    want = ref.bernoulli_edges_ref(w, seeds)
+    assert torch.equal(got, want)
+    assert torch.equal(got[-1].cpu(), ref.bernoulli_edges_ref(
+        w.cpu(), int(seeds[-1])))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bernoulli_edges"] == before + 1
+
+
+@pytest.mark.cuda
+def test_bernoulli_kernel_takes_seeds_as_given(card):
+    """A contiguous int64 seed vector on the card is used as it is; int32,
+    strided, CPU and 0-d seeds are converted, with the same result."""
+    w = _adversarial_weights(1000, offset=5).to(card)
+    seeds = torch.tensor(RNG.integers(0, 1 << 31, 8), device=card)
+    want = ref.bernoulli_edges_ref(w, seeds)
+    for arg in (seeds, seeds.to(torch.int32), seeds.cpu(),
+                torch.stack([seeds, seeds], 1)[:, 0]):
+        assert torch.equal(ops.bernoulli_edges(w, arg), want)
+    assert torch.equal(ops.bernoulli_edges(w, seeds[3].clone()), want[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 257, 75881])
+@pytest.mark.parametrize("w", [1, 3, 4, 5, 8, 512])
+def test_union_popcount_kernel_equals_plain(card, w, r):
+    """Every design: one row a thread (W <= 4; 16-byte loads at W = 4), lane
+    groups with 16-byte loads (W = 8, 512) and scalar ones (W = 5); ragged
+    R; words one word off the 16-byte alignment (scalar loads) and a
+    misaligned, a strided and a CPU-made cov."""
+    words = _words(r, w).to(card)
+    flat = torch.empty(r * w + 1, dtype=torch.int32, device=card)
+    shifted = flat[1:].view(r, w)
+    shifted.copy_(words)
+    assert shifted.data_ptr() % 16
+    buf = _words(1, 2 * w + 1)[0].to(card)
+    covs = {"plain": buf[:w].clone(), "misaligned": buf[1:w + 1],
+            "strided": buf[:2 * w:2]}
+    before = ops.launch_counts()["sketch_union_popcount"]
+    calls = 0
+    for name, cov_words in covs.items():
+        want = ref.sketch_union_popcount_ref(words, cov_words)
+        for x in (words, shifted):
+            got = ops.sketch_union_popcount(x, cov_words)
+            calls += 1
+            assert got.dtype == torch.int32 and got.shape == (r,)
+            assert torch.equal(got, want), name
+    assert torch.equal(want[:64].cpu(), ref.sketch_union_popcount_ref(
+        words[:64].cpu(), covs["strided"].cpu()))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["sketch_union_popcount"] == before + calls
+
+
+@pytest.mark.cuda
+def test_greedy_popcounts_run_on_the_card(card):
+    """The flat and the approximate selections on the card launch
+    popcount_words (no plain popcount on a card tensor) and give the CPU's
+    seeds, gains and frac bytes."""
+    g = {d: _graph(d) for d in ("cpu", card)}
+    flat, approx = {}, {}
+    for dev in ("cpu", card):
+        ops.reset_launch_counts()
+        solver = IMMSolver(g[dev], batch=256, selection="fused", seed=9,
+                           device=dev)
+        flat[dev] = solver.solve(IMProblem(k=10, eps=0.4))
+        flat_pops = ops.launch_counts()["popcount_words"]
+        ops.reset_launch_counts()
+        approx[dev] = IMMSolver(g[dev], batch=256, seed=9, sketch_k=256,
+                                device=dev).solve(
+            IMProblem(k=10, theta=2048, mode="approximate"))
+        counts = ops.launch_counts()
+        if dev == "cpu":
+            assert flat_pops == 0 and counts["popcount_words"] == 0
+        else:
+            assert flat_pops >= 10
+            assert counts["popcount_words"] >= 10
+            assert counts["sketch_union_popcount"] >= 10
+    for res in (flat, approx):
+        np.testing.assert_array_equal(res[card].seeds, res["cpu"].seeds)
+        np.testing.assert_array_equal(res[card].gains, res["cpu"].gains)
+        assert np.float32(res[card].frac).tobytes() == \
+            np.float32(res["cpu"].frac).tobytes()

@@ -114,6 +114,85 @@ def test_flash_design_rejects_what_no_kernel_takes():
         tflash.design(torch.float64, 64)
 
 
+@pytest.mark.parametrize("d,width", [(320, 320), (512, 512), (1000, 1024)])
+@pytest.mark.parametrize("dtype", list(_DTYPES))
+def test_flash_design_routes_wide_head_dims_to_the_split_kernel(dtype, d,
+                                                                width):
+    """Past D = 256 every dtype runs the column-split kernel, at D padded
+    to a multiple of its 64-column chunk; the kernel takes no other D."""
+    assert tflash.padded_head_dim(d) == width
+    assert tflash.design(_DTYPES[dtype], width) == "simt_split"
+    if width != d:
+        with pytest.raises(ValueError, match="no flash kernel"):
+            tflash.design(_DTYPES[dtype], d)
+
+
+def _split_emulation(q, k, v, causal, scale, bk=64, dv=256, dc=64):
+    """The column-split kernel's arithmetic in float32 on the CPU: for each
+    slice of ``dv`` output columns, KV tiles of ``bk`` keys whose logits
+    are summed over D in chunks of ``dc`` columns, an online softmax, and
+    P.V over the slice's columns only."""
+    b, s, h, d = q.shape
+    qf, kf, vf = (x.to(torch.float32).transpose(1, 2) for x in (q, k, v))
+    rows = torch.arange(s)[:, None]
+    out = torch.zeros(b, h, s, d)
+    for c0 in range(0, d, dv):
+        m = torch.full((b, h, s, 1), -1e30)
+        l = torch.zeros((b, h, s, 1))
+        acc = torch.zeros((b, h, s, min(dv, d - c0)))
+        for k0 in range(0, s, bk):
+            kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk, c0:c0 + dv]
+            x = sum(qf[..., d0:d0 + dc] @ kt[..., d0:d0 + dc].transpose(-1, -2)
+                    for d0 in range(0, d, dc)) * scale
+            if causal:
+                x = x.masked_fill(rows < torch.arange(k0, k0 + kt.shape[2]),
+                                  -1e30)
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            p = torch.exp(x - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p @ vt
+            m = m_new
+        out[..., c0:c0 + dv] = acc / l.clamp_min(1e-20)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [320, 512])
+def test_flash_attention_wide_head_dims_equal_reference(d, causal):
+    """D = 320 and 512 (beyond the one-pass kernels): ``ops`` on the CPU,
+    and the split kernel's arithmetic at D padded to its chunk, against the
+    reference's Pallas kernel in interpret mode, float32 within the
+    reference's 2e-5."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv((1, 16, 2, d), "float32", seed=d)
+    want = _f32(jops.flash_attention(jq, jk, jv, causal=causal, bq=8, bk=8))
+    got = tops.flash_attention(tq, tk, tv, causal=causal, bq=8, bk=8)
+    np.testing.assert_allclose(_f32(got), want, atol=2e-5, rtol=2e-5)
+    width = tflash.padded_head_dim(d)
+    pad = [torch.nn.functional.pad(t, (0, width - d)) for t in (tq, tk, tv)]
+    emu = _split_emulation(*pad, causal, 1.0 / math.sqrt(d), bk=8)
+    np.testing.assert_allclose(_f32(emu[..., :d]), want, atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("d", [300, 1000])
+def test_flash_split_emulation_pads_to_its_chunk(d):
+    """A D off the 64-column chunk runs zero-padded with the true D's scale
+    (1000 -> 1024: four slices, the last ragged at 232 columns), and gives
+    the plain version at D; S off the 64-key tile."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.tensor(rng.standard_normal((1, 70, 2, d)),
+                            dtype=torch.float32) for _ in range(3))
+    width = tflash.padded_head_dim(d)
+    pad = [torch.nn.functional.pad(t, (0, width - d)) for t in (q, k, v)]
+    for causal in (True, False):
+        got = _split_emulation(*pad, causal, 1.0 / math.sqrt(d))
+        assert not got[..., d:].any()
+        torch.testing.assert_close(got[..., :d],
+                                   tref.flash_attention_ref(q, k, v, causal),
+                                   atol=2e-5, rtol=1e-4)
+
+
 # the card tests' tolerances (tests/test_torch_cuda.py::FLASH_TOL)
 CARD_TOL = {"bfloat16": (2e-2, 2e-2), "float16": (2e-3, 2e-3)}
 

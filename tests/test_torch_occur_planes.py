@@ -256,8 +256,15 @@ def test_padded_head_dim(d, width):
 
 
 def test_padded_head_dim_names_the_limit():
-    with pytest.raises(ValueError, match="limit of 256"):
-        tflash.padded_head_dim(320)
+    """Past the one-pass kernels' limit of 256 (``MAX_SINGLE_PASS``), D
+    rounds up to a multiple of the column-split kernel's 64-column chunk;
+    a D below 1 raises."""
+    assert tflash.MAX_SINGLE_PASS == 256 and tflash.SPLIT_CHUNK == 64
+    assert [tflash.padded_head_dim(d) for d in (256, 257, 320, 321, 512,
+                                                1000)] == \
+        [256, 320, 320, 384, 512, 1024]
+    with pytest.raises(ValueError, match="at least 1"):
+        tflash.padded_head_dim(0)
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
