@@ -10,9 +10,9 @@ Phases, each of which raises on failure (non-zero exit):
    class's results per clock per SM x the maximum SM clock that
    ``nvidia-smi`` reports) that the kernels' bounds use;
 2. build: compiles ``csrc/occur.cu``, ``sketch.cu``, ``bitops.cu``,
-   ``bernoulli.cu``, ``membership.cu`` and ``flashattn.cu`` with nvcc for
-   sm_90a, one nvcc per source, started together, and prints each
-   ``-Xptxas -v`` report; the three Occur kernels must not spill;
+   ``bernoulli.cu``, ``membership.cu``, ``flashattn.cu`` and ``queue.cu``
+   with nvcc for sm_90a, one nvcc per source, started together, and prints
+   each ``-Xptxas -v`` report; the three Occur kernels must not spill;
 3. kernels: both Occur kernels against their plain versions on random
    int32 words of shape (131072, 2372) (bit 31 set in half the words, a
    ~50% row mask); the union popcount at (75880, 512) and (75880, 4) and
@@ -25,23 +25,32 @@ Phases, each of which raises on failure (non-zero exit):
    (512, 75904), ``bitset_or``/``bitset_andnot``/``popcount_words`` at
    (512, 2372), ``bernoulli_edges`` at 512 seeds x 607,012 edges) and at
    ragged ones (W odd and off the 16-byte alignment, E not a multiple of
-   the block or of 4: the trials' byte stores), exact;
+   the block or of 4: the trials' byte stores), exact.  The queue
+   sampler's kernel (``ops.queue_bfs``) against ``ref.queue_bfs_ref`` on
+   the card at the exact path's first round (B = 512, ``round_seed(0,
+   0)``) at qcap = n, 64 and 8, byte for byte in queue rows, lengths,
+   overflow flags and per-lane steps; a lane must overflow iff its RR set
+   at qcap = n is longer (some do at 8);
 4. approximate solve (the second slice's path): ``IMMSolver(g,
    engine="queue", batch=512, seed=0).solve(IMProblem(k=50, eps=0.5,
    mode="approximate", max_theta=8192))`` with the auto sketch size on the
    epinions-like stand-in (``barabasi_albert(75879, 4, seed=0)`` with WC
    weights): stage times, θ, sketch size and bytes, peak memory and the
-   sketch kernels' launch counts, which must be > 0; no pool buffer; the
-   forward-MC spread of its seeds must lie in ``[0.9 lo, 1.1 hi]`` of its
-   ``spread_bounds``.  ``max_theta`` keeps the run finite: at this size the
+   launch counts of the sketch kernels and ``queue_bfs``, which must be >
+   0; no pool buffer; the forward-MC spread of its seeds must lie in
+   ``[0.9 lo, 1.1 hi]`` of its ``spread_bounds``.  ``max_theta`` keeps the run finite: at this size the
    auto sketch (128 buckets) saturates, and the Alg. 2 loop, reading the
    saturated estimate, would otherwise sample towards λ* (PERF.md §4);
 5. exact solve (the first slice's path), ``IMMSolver(g, engine="queue",
    batch=512, selection="bitset", seed=0).solve(IMProblem(k=50,
-   eps=0.5))``, with wall time per stage, peak memory and the Occur
-   kernels' launch counts, which must be > 0; then the solve's first
-   sampling round again, bare and under torch.profiler, for the device's
-   idle share;
+   eps=0.5))``, with wall time per stage, peak memory and the launch
+   counts of the Occur kernels and ``queue_bfs``, which must be > 0; θ,
+   RR sets, pool elements and sampling steps must be :data:`EXACT_POOL`.
+   Then the solve's first sampling round again (:func:`profile_round`):
+   its host syncs (torch.cuda's sync debug mode), bare, and under
+   torch.profiler for its device operations and the device's idle share,
+   with the longest lane's 32-edge passes; and the queue kernel's record
+   at that round (:func:`queue_record`);
 6. parity: ``flat`` selection on the final pool equals the ``bitset``
    result (seeds, gains, frac), and both Occur kernels equal their plain
    versions on the final bit matrix;
@@ -98,8 +107,10 @@ The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
 the exact path's final bit matrix, masked on the first seed's rows as the
 greedy passes them, a bool mask; the sketch kernels at the approximate
 path's sketch, the dense kernels at the packed sampler's inputs, the
-membership scan at the padded store, flash attention at olmo-1b's shape;
-launches from each path's run; each with ``ms``, ``device_ms``,
+membership scan at the padded store, flash attention at olmo-1b's shape,
+the queue sampler at the exact path's first round with the work it
+examined (:func:`queue_bound`); launches from each path's run; each with
+``ms``, ``device_ms``,
 ``device_other_ms`` and ``enqueue_us`` from :func:`timing`;
 ``bernoulli_edges`` with its trial's instructions by class as the built
 loop has them and as the float-compare loop did the work, and the smaller
@@ -117,6 +128,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -134,7 +146,9 @@ from repro_torch.core.engine import make_engine  # noqa: E402
 from repro_torch.core.imm import IMMSolver  # noqa: E402
 from repro_torch.core.packing import to_int32_bits  # noqa: E402
 from repro_torch.core.problem import IMProblem  # noqa: E402
-from repro_torch.core.rrset import round_seed  # noqa: E402
+from repro_torch.core.roots import draw_roots  # noqa: E402
+from repro_torch.core.rrset import (EC_DEFAULT, round_seed,  # noqa: E402
+                                    row_seeds)
 from repro_torch.graph import csr, generators, weights  # noqa: E402
 from repro_torch.kernels import _build, bitset, ops, ref  # noqa: E402
 from repro_torch.kernels import flashattn as flash  # noqa: E402
@@ -180,7 +194,7 @@ APPROX_MAX_THETA = 8192
 SKETCH_ROWS, SKETCH_WORDS, SCATTER_PAIRS = N_NODES + 1, 512, 1 << 24
 PROBE_SKETCH_K = (128, 1024, 4096)
 SOURCES = ("occur", "sketch", "bitops", "bernoulli", "membership",
-           "flashattn")
+           "flashattn", "queue")
 CPU_LANES = 16
 LIBRARY_NOTE = {
     "occur_from_bitset": "no single PyTorch call computes a bit-column "
@@ -194,13 +208,14 @@ LIBRARY_NOTE = {
     "popcount_words": "torch has no popcount op",
     "bernoulli_edges": "the counter hash is many PyTorch calls",
     "membership_rows": "eq, mask and any are three PyTorch calls",
+    "queue_bfs": "no single PyTorch call runs a BFS",
 }
 SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "sketch_scatter_or": "sketch", "sketch_union_popcount": "sketch",
              "pack_bits": "bitops", "bitset_or": "bitops",
              "bitset_andnot": "bitops", "popcount_words": "bitops",
              "bernoulli_edges": "bernoulli", "membership_rows": "membership",
-             "flash_attention": "flashattn"}
+             "flash_attention": "flashattn", "queue_bfs": "queue"}
 # each record's kernel as the profiler names it (a regular expression that
 # matches the demangled or the mangled name)
 DEVICE_KERNEL = {
@@ -215,6 +230,7 @@ DEVICE_KERNEL = {
     "bernoulli_edges": r"bernoulli_kernel",
     "membership_rows": r"membership_kernel",
     "flash_attention": r"flash_(wgmma|simt_split|simt)_kernel",
+    "queue_bfs": r"queue_bfs_kernel",
 }
 KERNELS = {
     "occur_from_bitset": "src/repro/kernels/bitset.py:167",
@@ -228,7 +244,16 @@ KERNELS = {
     "bernoulli_edges": "src/repro/kernels/bernoulli.py:53",
     "membership_rows": "src/repro/kernels/membership.py:36",
     "flash_attention": "src/repro/kernels/flashattn.py:62",
+    # no Pallas kernel: the reference's round is a jitted lax.while_loop
+    "queue_bfs": "src/repro/core/rrset.py:230",
 }
+# phase 3: the queue kernel at the exact path's first round, also at qcap
+# 64 (above its longest RR set, 21) and 8, where lanes overflow
+QUEUE_QCAPS = (64, 8)
+# phase 5's pool and step count, the same in every run on the card (PERF.md
+# §5): the counter hash makes the RR sets a function of the seed alone
+EXACT_POOL = {"theta": 7101, "n_rr": 8704, "pool_elements": 35538,
+              "sampling_steps": 28350}
 # phase 11: the membership scan at a larger shape
 BIG_MEMBERSHIP = (131072, 512)
 # phase 12: (config at src/repro/configs/lm.py:line, B, S, H, D, dtype,
@@ -849,11 +874,46 @@ def random_pairs(rows: int, cols: int, pairs: int, gen):
     return v.to(torch.int32), b.to(torch.int32)
 
 
+def lane_work(g_rev, nodes, lengths) -> dict:
+    """What a queue round's lanes examined: every node of a lane's queue is
+    dequeued once and its reverse row walked.  Per (lane, position): the
+    node and its degree (0 past the lane's length); per lane: the edges
+    examined and the 32-edge passes the kernel's warp makes over them."""
+    lens = lengths.to(torch.int64)
+    width = max(int(lens.max()), 1)
+    nodes = nodes[:, :width].to(torch.int64)
+    valid = torch.arange(width, device=nodes.device)[None, :] < lens[:, None]
+    offs = g_rev.offsets.to(torch.int64)
+    deg = torch.where(valid, offs[nodes + 1] - offs[nodes], 0)
+    return {"nodes": nodes, "valid": valid, "deg": deg,
+            "edges": deg.sum(dim=1), "passes": ((deg + 31) // 32).sum(dim=1)}
+
+
+def count_syncs(fn):
+    """``fn()`` under torch.cuda's sync debug mode, which warns at every
+    call that makes the host wait for the card: (result, the calls'
+    ``file:line`` sites)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
 def profile_round(engine, seed32: int) -> dict:
-    """One sampling round timed bare, then the same round (same seed, same
-    work) under torch.profiler: the device's busy time over the bare
-    round's wall time gives the device's idle share while sampling."""
+    """One sampling round: its host syncs counted (:func:`count_syncs`),
+    then timed bare, then the same round (same seed, same work) under
+    torch.profiler: the device's busy time over the bare round's wall time
+    gives the device's idle share while sampling.  A queue round also
+    reports its longest lane's 32-edge passes, a dense round its figures
+    a level."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    _, sync_sites = count_syncs(lambda: engine.sample(seed32))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     batch = engine.sample(seed32)
@@ -866,12 +926,18 @@ def profile_round(engine, seed32: int) -> dict:
     dev_ops = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in dev_ops) / 1e6
-    return {"steps": batch.steps, "wall_s": wall, "ms_per_step":
-            wall / batch.steps * 1e3, "device_ops": len(dev_ops),
-            "device_ops_per_step": len(dev_ops) / batch.steps,
-            "device_busy_s": busy if dev_ops else "not measured",
-            "device_idle_share": 1 - busy / wall if dev_ops
-            else "not measured"}
+    out = {"steps": batch.steps, "wall_s": wall, "device_ops": len(dev_ops),
+           "host_syncs": len(sync_sites), "host_sync_sites": sync_sites,
+           "device_busy_s": busy if dev_ops else "not measured",
+           "device_idle_share": 1 - busy / wall if dev_ops
+           else "not measured"}
+    if engine.name == "queue":
+        out["longest_lane_passes"] = int(lane_work(
+            engine.g_rev, batch.nodes, batch.lengths)["passes"].max())
+    else:
+        out.update(ms_per_level=wall / batch.steps * 1e3,
+                   device_ops_per_level=len(dev_ops) / batch.steps)
+    return out
 
 
 class StageClock:
@@ -945,7 +1011,7 @@ def approximate_phase(g):
         "n_seeds": len(res.seeds), "mc_spread": mc, "mc_sims": MC_SIMS,
         "mc_s": mc_s, "history": st.history,
     })
-    for name in ("sketch_scatter_or", "sketch_union_popcount"):
+    for name in ("sketch_scatter_or", "sketch_union_popcount", "queue_bfs"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the "
                                  "approximate path")
@@ -1136,6 +1202,100 @@ def packed_phase(g) -> list:
     return dense_records(dense._unpack_bits(ps.words), ps.words,
                          ref.pack_bits_ref(root_bits), g_rev.weights,
                          lane * dense._LANE_MUL, launches, iters=200)
+
+
+def queue_inputs(g_rev, seed32: int):
+    """(row seeds, roots) of a queue round of BATCH lanes."""
+    seeds = row_seeds(seed32, BATCH, g_rev.device)
+    return seeds, draw_roots(seeds, g_rev.n_nodes)
+
+
+def queue_call(fn, g_rev, seeds, roots, qcap: int):
+    return lambda: fn(g_rev.offsets, g_rev.indices, g_rev.weights, seeds,
+                      roots, qcap=qcap, ec=EC_DEFAULT)
+
+
+def check_queue_kernel(g_rev) -> dict:
+    """The queue kernel against its plain version on the card at the
+    exact path's first round (B = 512, ``round_seed(0, 0)``), at qcap = n
+    and at :data:`QUEUE_QCAPS`: byte for byte in the queue rows, lengths,
+    overflow flags and per-lane steps.  A lane must overflow iff its RR set
+    at qcap = n is longer than qcap, and some must at the last qcap."""
+    seeds, roots = queue_inputs(g_rev, round_seed(0, 0))
+    out, full_lengths = {}, None
+    for qcap in (g_rev.n_nodes,) + QUEUE_QCAPS:
+        got = queue_call(ops.queue_bfs, g_rev, seeds, roots, qcap)()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = queue_call(ref.queue_bfs_ref, g_rev, seeds, roots, qcap)()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        errs = [max_abs_err(x, y) for x, y in zip(got, want)]
+        same = all(x.dtype == y.dtype and x.shape == y.shape
+                   and torch.equal(x, y) for x, y in zip(got, want))
+        lanes_over = int(got[2].sum())
+        if full_lengths is None:
+            full_lengths = got[1]
+        out[f"qcap_{qcap}"] = {
+            "max_abs_err": max(errs), "equal": same,
+            "overflowed_lanes": lanes_over, "longest": int(got[1].max()),
+            "steps": int(got[3].max()), "elements": int(got[1].sum()),
+            "plain_s": plain_s}
+        if not same or any(errs):
+            raise AssertionError(f"queue_bfs != plain version at qcap "
+                                 f"{qcap}: max abs errs {errs}")
+        if not torch.equal(got[2], full_lengths > qcap):
+            raise AssertionError(f"{lanes_over} lanes overflowed at qcap "
+                                 f"{qcap}, not those with longer sets")
+    if lanes_over == 0:
+        raise AssertionError(f"no lane overflowed at qcap {qcap}")
+    return out
+
+
+def queue_bound(g_rev, queue, lengths) -> tuple:
+    """The round's least time.  Bytes: each reverse row the round walks is
+    read once however many lanes walk it (lanes re-read shared rows, the
+    hubs' above all, from L2): its destinations and weights (8 bytes an
+    edge) and its two offsets (8); each dequeued node is written to the
+    queue once (4); each lane reads its seed and root and writes its
+    length, flag and steps (25 bytes).  Left out: the visited words (a
+    scratch of the round that stays in L2) and the zero fill of the queue
+    and the scratch (the wrapper's memsets, not this kernel).  Operations:
+    one trial an examined edge, counted as :data:`TRIAL_WORK_OPS`, each
+    class at its own rate.  Also returns the work: edges examined, the
+    distinct rows walked and their edges, nodes dequeued, and the longest
+    lane's edges and 32-edge passes, which bound a warp's chain of
+    dependent passes."""
+    work = lane_work(g_rev, queue, lengths)
+    examined, dequeued = int(work["edges"].sum()), int(lengths.sum())
+    rows = torch.unique(work["nodes"][work["valid"]])
+    offs = g_rev.offsets.to(torch.int64)
+    row_edges = int((offs[rows + 1] - offs[rows]).sum())
+    nbytes = 8 * row_edges + 8 * rows.numel() + 4 * dequeued \
+        + 25 * queue.shape[0]
+    bound = _bound(nbytes, {k: v * examined
+                            for k, v in TRIAL_WORK_OPS.items()})
+    return bound, {"examined_edges": examined,
+                   "distinct_rows": rows.numel(),
+                   "distinct_row_edges": row_edges,
+                   "dequeued_nodes": dequeued,
+                   "longest_lane_edges": int(work["edges"].max()),
+                   "longest_lane_passes": int(work["passes"].max())}
+
+
+def queue_record(g_rev, launches, err, iters=20, plain_iters=1) -> dict:
+    """The queue kernel's record at the exact path's first round (qcap =
+    n): timed beside its plain version, with its bound and work."""
+    seeds, roots = queue_inputs(g_rev, round_seed(0, 0))
+    qcap = g_rev.n_nodes
+    kern = queue_call(ops.queue_bfs, g_rev, seeds, roots, qcap)
+    times = timing("queue_bfs", kern, iters)
+    plain_ms = cuda_ms(queue_call(ref.queue_bfs_ref, g_rev, seeds, roots,
+                                  qcap), plain_iters)
+    queue, lengths = kern()[:2]
+    bound, work = queue_bound(g_rev, queue, lengths)
+    return record("queue_bfs", launches, err, times, plain_ms, bound,
+                  shape=[BATCH, qcap], ec=EC_DEFAULT, **work)
 
 
 def membership_record(rows, lengths, u, launches=None, iters=50,
@@ -1365,6 +1525,10 @@ def main() -> int:
         plant_edge_weights(torch.rand(g.n_edges, device=dev, generator=gen)),
         torch.randint(0, 1 << 32, (BATCH,), device=dev, generator=gen)))
     say("dense_kernels_ragged", ragged_dense_checks(gen))
+    # the queue sampler's kernel at the exact path's first round
+    g_rev = csr.coalesce_ic(csr.reverse(g))
+    queue_check = check_queue_kernel(g_rev)
+    say("queue_kernel", queue_check)
     torch.cuda.empty_cache()
 
     # 4. the approximate (pool-free) solve: the second slice's path
@@ -1412,11 +1576,19 @@ def main() -> int:
         "launches": launches, "spread": res.spread, "frac": res.frac,
         "history": st.history,
     })
-    for name in ("occur_from_bitset", "occur_from_bitset_masked"):
+    for name in ("occur_from_bitset", "occur_from_bitset_masked",
+                 "queue_bfs"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the exact path")
+    pool = {"theta": st.theta, "n_rr": store.n_rr,
+            "pool_elements": store.n_elems,
+            "sampling_steps": st.sampling_steps}
+    if pool != EXACT_POOL:
+        raise AssertionError(f"exact pool {pool}, not {EXACT_POOL}")
     say("sampler_round", profile_round(
         make_engine("queue", csr.reverse(g), batch=BATCH), round_seed(0, 0)))
+    queue_recs = [queue_record(g_rev, launches, max(
+        v["max_abs_err"] for v in queue_check.values()))]
     seeds = res.seeds
     if len(set(seeds.tolist())) != K or not math.isfinite(res.spread):
         raise AssertionError(f"bad result: seeds {seeds}, spread {res.spread}")
@@ -1466,7 +1638,7 @@ def main() -> int:
 
     say("total", {"seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": records + approx_records + dense_recs
-                      + padded_recs + flash_recs}), flush=True)
+                      + padded_recs + flash_recs + queue_recs}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

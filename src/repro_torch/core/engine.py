@@ -105,7 +105,10 @@ def make_engine(name: str, g_rev: CSRGraph, **opts):
 
 @register_engine("queue")
 class QueueEngine:
-    """gIM's work-efficient sampler (paper Alg. 3/6; :mod:`.rrset`)."""
+    """gIM's work-efficient sampler (paper Alg. 3/6; :mod:`.rrset`).  On a
+    card a round is one launch of the CUDA kernel ``csrc/queue.cu``
+    (``kernels/queue.py::queue_bfs``, through ``kernels.ops.queue_bfs``)
+    and one host read; on the CPU the plain version runs."""
 
     @dataclass(frozen=True)
     class Config:

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -58,13 +59,19 @@ def counter_uniform_u32(seed, counter) -> torch.Tensor:
 
     ``seed`` and ``counter`` are ints or integer tensors (broadcast, on the
     device of the tensor among them); both are taken mod 2^32, as the
-    reference's ``astype(uint32)`` does.
+    reference's ``astype(uint32)`` does.  Beside a tensor, an int stays a
+    Python scalar in the arithmetic, so it is never copied to a card (a
+    copy that would make the host wait).
     """
     dev = next((a.device for a in (counter, seed)
                 if isinstance(a, torch.Tensor)), None)
-    counter = torch.as_tensor(counter, device=dev).to(torch.int64) & MASK32
-    seed = torch.as_tensor(seed, device=dev).to(torch.int64) & MASK32
-    x = (mul_u32(counter, GOLDEN) + seed) & MASK32
+
+    def u32(a):
+        if dev is not None and isinstance(a, (int, np.integer)):
+            return int(a) & MASK32
+        return torch.as_tensor(a, device=dev).to(torch.int64) & MASK32
+
+    x = (mul_u32(u32(counter), GOLDEN) + u32(seed)) & MASK32
     return hash_mix(hash_mix(x) ^ GOLDEN)
 
 

@@ -12,10 +12,10 @@
 // int64 -> float32 cast) and the scale by 2^-32 is exact, so u(h) =
 // float32(h) * 2^-32 is non-decreasing in h and the h that keep edge e form
 // a prefix [0, t_e) of [0, 2^32].  The kernel computes t_e once per edge
-// (trial_limit below, the formula of kernels/ref.py::trial_threshold_ref)
-// and each trial ends in one integer compare: no conversion, no float
-// multiply, no float compare.  The file is built without --use_fast_math,
-// so denormal weights are not flushed.
+// (trial_limit in counter_hash.cuh, the formula of
+// kernels/ref.py::trial_threshold_ref) and each trial ends in one integer
+// compare: no conversion, no float multiply, no float compare.  The file is
+// built without --use_fast_math, so denormal weights are not flushed.
 //
 // What bounds it: operations.  A trial moves one output byte (the weights
 // are read once a block and the seeds once a row), and its value takes the
@@ -43,6 +43,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "counter_hash.cuh"
 #include "device_guard.cuh"
 
 namespace {
@@ -52,50 +53,6 @@ constexpr int kGroups = 2;                      // groups of 4 edges a thread
 constexpr int64_t kEdgesPerBlock = int64_t(kThreads) * 4 * kGroups;
 constexpr int64_t kTargetBlocks = 132 * 32;     // about 4 waves at 8 an SM
 constexpr int64_t kMaxGridY = 65535;
-constexpr uint32_t kGolden = 0x9E3779B9u;
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-// Edge e keeps trial h iff h <= *limit and the function returned true:
-// *limit = t - 1 for the least t in [1, 2^32] with u(t) >= w, or the
-// function returns false when t = 0 (w <= 0, -0.0, NaN).  w > 1 (and +inf)
-// keeps every h.  w = 1.0 does not: float32(h) rounds to 2^32 from
-// h = 2^32 - 128 on, so t = 2^32 - 128.  Below 2^24 every integer is a
-// float32, so t = ceil(w * 2^32); above it t is the midpoint between
-// W = w * 2^32 and the float32 below it, plus one when W's mantissa is odd
-// (a tie rounds to the even one).  W is exact: w * 2^32 only moves the
-// exponent, and a denormal w becomes normal.
-__device__ __forceinline__ bool trial_limit(float w, uint32_t* limit) {
-  if (!(w > 0.f)) {
-    *limit = 0;
-    return false;
-  }
-  if (w > 1.f) {
-    *limit = 0xFFFFFFFFu;
-    return true;
-  }
-  const float big = w * 0x1p32f;
-  if (big <= 0x1p24f) {
-    *limit = uint32_t(ceilf(big)) - 1u;
-    return true;
-  }
-  const uint32_t bits = __float_as_uint(big);
-  const int exp = int(bits >> 23) - 127;        // 24 .. 32
-  const uint32_t frac = bits & 0x7FFFFFu;
-  const uint32_t half_gap = frac ? 1u << (exp - 24) : 1u << (exp - 25);
-  // (mantissa << (exp - 23)) is W; at W = 2^32 it wraps to 0, and the
-  // result, t - 1 < 2^32, is right mod 2^32
-  const uint32_t whole = (frac | 0x800000u) << (exp - 23);
-  *limit = whole - half_gap + (frac & 1u) - 1u;
-  return true;
-}
 
 // kWords: E % 4 == 0 and keep 4-byte aligned, one uint32 store a group and
 // row; else one byte store a trial.

@@ -16,11 +16,12 @@ from repro_torch.kernels import bernoulli as _bernoulli
 from repro_torch.kernels import bitset as _bitset
 from repro_torch.kernels import flashattn as _flash
 from repro_torch.kernels import membership as _membership
+from repro_torch.kernels import queue as _queue
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sketch as _sketch
 
 _COUNTERS = (_bitset.LAUNCHES, _sketch.LAUNCHES, _bernoulli.LAUNCHES,
-             _membership.LAUNCHES, _flash.LAUNCHES)
+             _membership.LAUNCHES, _flash.LAUNCHES, _queue.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -102,6 +103,20 @@ def bernoulli_edges(weights: torch.Tensor, seeds) -> torch.Tensor:
     if _route(weights) == "cuda":
         return _bernoulli.bernoulli_edges(weights, seeds)
     return _ref.bernoulli_edges_ref(weights, seeds)
+
+
+def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
+              weights: torch.Tensor, seeds: torch.Tensor,
+              roots: torch.Tensor, *, qcap: int, ec: int):
+    """One sampling round of the queue sampler: every lane's BFS on the
+    reverse CSR to its end -> (queue (B, qcap) int32, lengths (B,) int32,
+    overflowed (B,) bool, steps (B,) int64); the same bytes on either
+    route (``ref.queue_bfs_ref`` says what they hold)."""
+    if _route(roots) == "cuda":
+        return _queue.queue_bfs(offsets, indices, weights, seeds, roots,
+                                qcap=qcap, ec=ec)
+    return _ref.queue_bfs_ref(offsets, indices, weights, seeds, roots,
+                              qcap=qcap, ec=ec)
 
 
 def membership_rows(rows: torch.Tensor, lengths: torch.Tensor,

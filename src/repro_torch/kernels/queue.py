@@ -1,0 +1,86 @@
+"""CUDA wrapper of gIM's queue sampler (``csrc/queue.cu``): one launch
+runs a whole sampling round, every lane's BFS to its end.
+
+:func:`queue_bfs` computes what ``kernels/ref.py::queue_bfs_ref`` computes,
+byte for byte (the kernel's note says how).  It takes CUDA tensors only;
+``kernels/ops.py`` routes CPU tensors to the plain version.  It checks its
+inputs, allocates the outputs and the visited-bit scratch, launches
+through a :class:`_build.Kernel` on PyTorch's current stream of the
+tensors' card (:func:`_build.raw_stream`), raises on a launch error and
+adds one to its entry in :data:`LAUNCHES`.  It reads nothing back: the
+caller makes the round's one host read.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+# launches since the last reset (see ops.reset_launch_counts)
+LAUNCHES = {"queue_bfs": 0}
+
+_vp, _i64 = ctypes.c_void_p, ctypes.c_int64
+_BFS = _build.Kernel("queue", "queue_bfs",
+                     (_vp, _vp, _vp, _vp, _vp, _i64, ctypes.c_int32, _i64,
+                      _i64, _vp, _vp, _vp, _vp, _vp, ctypes.c_int, _vp))
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, dev) -> None:
+    if t.device != dev:
+        raise ValueError(f"{name} must lie on {dev}, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D tensor, got "
+                         f"{tuple(t.shape)}")
+
+
+def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
+              weights: torch.Tensor, seeds: torch.Tensor,
+              roots: torch.Tensor, *, qcap: int, ec: int):
+    """One round of the queue sampler on the card.
+
+    ``offsets`` (n+1,) int32, ``indices`` (m,) int32 and ``weights`` (m,)
+    float32 are a reverse CSR with simple rows; ``seeds`` (B,) int64 row
+    seeds, ``roots`` (B,) int32 in [0, n).  Returns ``(queue (B, qcap)
+    int32, lengths (B,) int32, overflowed (B,) bool, steps (B,) int64)``:
+    lane b's RR set is ``queue[b, :lengths[b]]`` in visit order, zeros
+    after it; ``steps[b]`` is its lock-step count at chunk width ``ec``.
+    """
+    dev = offsets.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel given a tensor on {dev}")
+    for t, name, dtype in ((offsets, "offsets", torch.int32),
+                           (indices, "indices", torch.int32),
+                           (weights, "weights", torch.float32),
+                           (seeds, "seeds", torch.int64),
+                           (roots, "roots", torch.int32)):
+        _check(t, name, dtype, dev)
+    n, m, batch = offsets.shape[0] - 1, indices.shape[0], roots.shape[0]
+    if weights.shape[0] != m or seeds.shape[0] != batch:
+        raise ValueError("weights must match indices and seeds must match "
+                         "roots in length")
+    if m >= 1 << 31:
+        raise ValueError("int32 offsets hold at most 2^31 - 1 edges")
+    qcap, ec = int(qcap), int(ec)
+    if not 1 <= qcap < 1 << 31 or ec < 1:
+        raise ValueError(f"need 1 <= qcap < 2^31 and ec >= 1, got qcap "
+                         f"{qcap}, ec {ec}")
+    n_words = (n + 31) // 32
+    queue = torch.zeros(batch, qcap, dtype=torch.int32, device=dev)
+    visited = torch.zeros(batch, n_words, dtype=torch.int32, device=dev)
+    lengths = torch.empty(batch, dtype=torch.int32, device=dev)
+    overflowed = torch.empty(batch, dtype=torch.bool, device=dev)
+    steps = torch.empty(batch, dtype=torch.int64, device=dev)
+    if batch:
+        index = offsets.get_device()
+        err = _BFS(offsets.data_ptr(), indices.data_ptr(), weights.data_ptr(),
+                   seeds.data_ptr(), roots.data_ptr(), batch, qcap, ec,
+                   n_words, queue.data_ptr(), visited.data_ptr(),
+                   lengths.data_ptr(), overflowed.data_ptr(),
+                   steps.data_ptr(), index, _build.raw_stream(index))
+        _build.raise_on(err, "queue_bfs")
+        LAUNCHES["queue_bfs"] += 1
+    return queue, lengths, overflowed, steps

@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from repro_torch.core.packing import to_int32_bits
+from repro_torch.core.packing import bit_values, to_int32_bits
 from repro_torch.kernels.bernoulli import MASK32, counter_uniform_u32, mul_u32
 
 # rows per block of the Occur histograms: a (block, W, 32) bit tensor stays
@@ -82,6 +82,87 @@ def trial_threshold_ref(weights: torch.Tensor) -> torch.Tensor:
                     whole - half_gap + (frac & 1))
     t = torch.where(w > 1, 1 << 32, t)
     return torch.where(w > 0, t, 0)
+
+
+def queue_bfs_ref(offsets: torch.Tensor, indices: torch.Tensor,
+                  weights: torch.Tensor, seeds: torch.Tensor,
+                  roots: torch.Tensor, *, qcap: int, ec: int):
+    """One round of gIM's queue sampler (paper Alg. 3/6), every lane's BFS
+    to its end, in lock-step micro-steps: the plain version of
+    ``csrc/queue.cu``.
+
+    Lane b keeps one queue row: in BFS the dequeued prefix *is* the RR set.
+    One micro-step handles ``ec`` edges of each lane's current node (the
+    paper's ``for i = tx; i < deg; i += N_th`` loop): lane b's edge e is
+    live iff ``float32(counter_uniform_u32(seeds[b], e)) * 2^-32 <
+    weights[e]``, and a live edge whose destination's visited bit is clear
+    is accepted.  The accepted destinations are appended in edge order
+    (Alg. 3 L21's rank-ordered ``atomic_enqueue``); of them only the first
+    ``qcap - tail`` are taken and get their visited bit, and the lane's
+    ``overflowed`` flag is set when any is not.  The rows must be simple,
+    so the destinations inside one chunk are distinct.  The host reads
+    ``(qhead < qtail).any()`` once a micro-step.
+
+    ``offsets`` (n+1,), ``indices`` (m,) and ``weights`` (m,) are a reverse
+    CSR; ``seeds`` (B,) int64 row seeds, ``roots`` (B,) int32.  Returns
+    ``(queue (B, qcap) int32, lengths (B,) int32, overflowed (B,) bool,
+    steps (B,) int64)``: ``queue[b, :lengths[b]]`` in visit order, zeros
+    after it; ``steps[b]`` the micro-steps lane b was active, i.e. the sum
+    over its dequeued nodes of ``max(1, ceil(deg / ec))``.
+    """
+    dev = roots.device
+    batch = roots.shape[0]
+    n = offsets.shape[0] - 1
+    m = indices.shape[0]
+    n_words = (n + 31) // 32
+    bitval = bit_values(dev)
+    offsets = offsets.to(torch.int64)
+    lane = torch.arange(batch, device=dev)
+    # one spare column absorbs the writes of entries that are not enqueued
+    queue = torch.zeros(batch, qcap + 1, dtype=torch.int32, device=dev)
+    queue[:, 0] = roots
+    r64 = roots.to(torch.int64)
+    visited = torch.zeros(batch, n_words, dtype=torch.int32, device=dev)
+    visited[lane, r64 >> 5] = bitval[r64 & 31]
+    qhead = torch.zeros(batch, dtype=torch.int64, device=dev)
+    qtail = torch.ones(batch, dtype=torch.int64, device=dev)
+    ecur = torch.zeros(batch, dtype=torch.int64, device=dev)
+    overflow = torch.zeros(batch, dtype=torch.bool, device=dev)
+    steps = torch.zeros(batch, dtype=torch.int64, device=dev)
+    arange_ec = torch.arange(ec, dtype=torch.int64, device=dev)
+    seeds = seeds[:, None]
+    while bool((qhead < qtail).any()):
+        active = qhead < qtail
+        u = queue.gather(1, qhead.clamp(max=qcap - 1)[:, None])[:, 0].long()
+        s = offsets[u]
+        deg = offsets[u + 1] - s
+        pos = ecur[:, None] + arange_ec[None, :]                 # (B, EC)
+        valid = (pos < deg[:, None]) & active[:, None]
+        eidx = (s[:, None] + pos).clamp(0, max(m - 1, 0))
+        nbr = indices[eidx]                                      # (B, EC)
+        u01 = counter_uniform_u32(seeds, eidx).to(torch.float32) * _U01
+        keep = (u01 < weights[eidx]) & valid                     # live edge
+        nbr64 = nbr.to(torch.int64)
+        word = nbr64 >> 5
+        seen = (visited.gather(1, word) >> (nbr & 31)) & 1
+        accept = keep & (seen == 0)
+        # atomic_enqueue (Alg. 3 L21): rank-ordered append at the tail
+        rank = accept.cumsum(dim=1) - 1
+        cnt = rank[:, -1] + 1
+        take = torch.minimum(cnt, (qcap - qtail).clamp(min=0))
+        sel = accept & (rank < take[:, None])
+        queue.scatter_(1, torch.where(sel, qtail[:, None] + rank, qcap), nbr)
+        visited.scatter_add_(1, torch.where(sel, word, 0),
+                             torch.where(sel, bitval[nbr64 & 31], 0))
+        overflow |= cnt > take
+        qtail = qtail + take
+        # advance the edge cursor / pop the node (Alg. 3 L12)
+        ecur2 = ecur + ec
+        row_done = ecur2 >= deg
+        qhead = torch.where(active & row_done, qhead + 1, qhead)
+        ecur = torch.where(active & ~row_done, ecur2, 0)
+        steps += active
+    return queue[:, :qcap], qtail.to(torch.int32), overflow, steps
 
 
 def pack_bits_ref(bits: torch.Tensor) -> torch.Tensor:

@@ -16,11 +16,15 @@ from repro_torch.core import coverage as cov
 from repro_torch.core import dense
 from repro_torch.core.imm import IMMSolver
 from repro_torch.core.problem import IMProblem
-from repro_torch.core.rrset import sample_rrsets_queue, to_lists
+from repro_torch.core.engine import QueueEngine
+from repro_torch.core.roots import draw_roots
+from repro_torch.core.rrset import round_seed, sample_rrsets_queue, to_lists
+from repro_torch.core.rrset import row_seeds as sample_row_seeds
 from repro_torch.graph import csr, generators, weights
 from repro_torch.kernels import bernoulli as tbern, bitset as tbitset
 from repro_torch.kernels import flashattn as tflash
 from repro_torch.kernels import membership as tmem
+from repro_torch.kernels import queue as tqueue
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import sketch as tsketch
 
@@ -818,3 +822,138 @@ def test_greedy_popcounts_run_on_the_card(card):
         np.testing.assert_array_equal(res[card].gains, res["cpu"].gains)
         assert np.float32(res[card].frac).tobytes() == \
             np.float32(res["cpu"].frac).tobytes()
+
+
+# the queue sampler's kernel (csrc/queue.cu), at tests/test_torch_queue.py's
+# graphs, qcaps and chunk widths
+QUEUE_HUB = 63
+
+
+def _queue_graph(name, device):
+    """The coalesced reverse CSR of a named graph of
+    tests/test_torch_queue.py (the same edges and weights)."""
+    if name == "hub":
+        rng = np.random.default_rng(31)
+        n = 210
+        bs, bd = generators.barabasi_albert(200, 2, seed=4)
+        others = np.setdiff1d(np.arange(200), [QUEUE_HUB])
+        into = np.union1d(rng.choice(others, 135, replace=False),
+                          [31, 95, 127, 159, 191])[:140]
+        into = np.concatenate([into, np.arange(200, n)])
+        out = rng.choice(others, 100, replace=False)
+        w_in = np.full(into.size, 0.45)
+        w_in[:3], w_in[-3:] = 1.0, 0.0
+        src = np.concatenate([bs, into, np.full(out.size, QUEUE_HUB)])
+        dst = np.concatenate([bd, np.full(into.size, QUEUE_HUB), out])
+        w = np.concatenate([np.full(bs.size, 0.1), w_in,
+                            np.full(out.size, 0.9)])
+        g = csr.from_edges(src, dst, n, weights=w.astype(np.float32),
+                           device=device)
+    elif name == "standin":
+        src, dst = generators.barabasi_albert(75879, 4, seed=0)
+        g = weights.wc_weights(csr.from_edges(src, dst, 75879, device=device))
+    else:
+        n = int(name[2:])
+        src, dst = (generators.erdos_renyi(n, 150, seed=2) if name == "er30"
+                    else generators.barabasi_albert(n, 3 if n < 1000 else 4,
+                                                    seed=n % 97))
+        g = weights.wc_weights(csr.from_edges(src, dst, n, device=device))
+    return csr.coalesce_ic(csr.reverse(g))
+
+
+def _queue_round(g, batch, seed32, qcap, ec, plain=False):
+    seeds = sample_row_seeds(seed32, batch, g.device)
+    roots = draw_roots(seeds, g.n_nodes)
+    fn = ref.queue_bfs_ref if plain else ops.queue_bfs
+    return fn(g.offsets, g.indices, g.weights, seeds, roots,
+              qcap=g.n_nodes if qcap is None else qcap, ec=ec)
+
+
+def _assert_same_round(got, want):
+    for x, y, what in zip(got, want, ("queue", "lengths", "overflowed",
+                                      "steps")):
+        assert x.dtype == y.dtype and x.shape == y.shape, what
+        assert torch.equal(x, y), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ec", [1, 32, 128])
+@pytest.mark.parametrize("qcap", [2, 5, None], ids=["qcap2", "qcap5", "qcapn"])
+@pytest.mark.parametrize("name", ["ba40", "er30", "ba200", "ba1500", "hub"])
+def test_queue_kernel_equals_plain(card, name, qcap, ec):
+    """The kernel against the plain version on the card and on the CPU,
+    byte for byte: queue rows, lengths, overflow flags, per-lane steps."""
+    g = _queue_graph(name, card)
+    batch = 128 if name in ("ba1500", "hub") else 64
+    ops.reset_launch_counts()
+    got = _queue_round(g, batch, 0xC0FFEE, qcap, ec)
+    assert ops.launch_counts()["queue_bfs"] == 1
+    _assert_same_round(got, _queue_round(g, batch, 0xC0FFEE, qcap, ec,
+                                         plain=True))
+    cpu = _queue_round(g.to("cpu"), batch, 0xC0FFEE, qcap, ec)
+    _assert_same_round(tuple(x.cpu() for x in got), cpu)
+    if qcap is not None:
+        assert bool(got[2].any())
+
+
+@pytest.mark.cuda
+def test_queue_kernel_at_the_stand_in(card):
+    """B = 512 on the 75,879-node stand-in at the exact path's first round
+    (hubs of in-degree above 50,000), against the plain version on the
+    card, at qcap = n, 64 and 8: a lane overflows iff its RR set at qcap =
+    n is longer (none at 64, whose longest set is 21)."""
+    g = _queue_graph("standin", card)
+    full = None
+    for qcap in (None, 64, 8):
+        got = _queue_round(g, 512, round_seed(0, 0), qcap, 128)
+        _assert_same_round(got, _queue_round(g, 512, round_seed(0, 0), qcap,
+                                             128, plain=True))
+        full = got if full is None else full
+        assert torch.equal(got[2], full[1] > (qcap or g.n_nodes))
+    assert bool(got[2].any())
+
+
+@pytest.mark.cuda
+def test_queue_engine_round_is_one_launch_and_one_host_read(card):
+    """QueueEngine.sample on a card launches queue_bfs once and makes one
+    synchronizing call (the read of the longest set and the most steps)."""
+    import warnings
+    eng = QueueEngine(_graph(card), QueueEngine.Config(batch=256))
+    eng.sample(1)                                 # builds the kernel
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            batch = eng.sample(2)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    assert len(syncs) == 1, syncs
+    assert ops.launch_counts()["queue_bfs"] == 1
+    cpu = QueueEngine(_graph("cpu"), QueueEngine.Config(batch=256)).sample(2)
+    assert torch.equal(batch.nodes.cpu(), cpu.nodes)
+    assert torch.equal(batch.lengths.cpu(), cpu.lengths)
+    assert batch.steps == cpu.steps
+
+
+@pytest.mark.cuda
+def test_queue_wrapper_checks_inputs(card):
+    g = _queue_graph("ba40", card)
+    seeds = sample_row_seeds(5, 8, card)
+    roots = draw_roots(seeds, g.n_nodes)
+    args = [g.offsets, g.indices, g.weights, seeds, roots]
+    for i, bad in ((0, g.offsets.long()), (2, g.weights.double()),
+                   (3, seeds.to(torch.int32))):
+        with pytest.raises(TypeError):
+            tqueue.queue_bfs(*args[:i], bad, *args[i + 1:], qcap=40, ec=128)
+    with pytest.raises(ValueError):
+        tqueue.queue_bfs(*args[:4], roots.cpu(), qcap=40, ec=128)
+    with pytest.raises(ValueError):
+        tqueue.queue_bfs(*args[:4], torch.stack([roots, roots], 1)[:, 0],
+                         qcap=40, ec=128)
+    for qcap, ec in ((0, 128), (40, 0)):
+        with pytest.raises(ValueError):
+            tqueue.queue_bfs(*args, qcap=qcap, ec=ec)
