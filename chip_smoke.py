@@ -26,11 +26,13 @@ Phases, each of which raises on failure (non-zero exit):
    (512, 2372), ``bernoulli_edges`` at 512 seeds x 607,012 edges) and at
    ragged ones (W odd and off the 16-byte alignment, E not a multiple of
    the block or of 4: the trials' byte stores), exact.  The queue
-   sampler's kernel (``ops.queue_bfs``) against ``ref.queue_bfs_ref`` on
-   the card at the exact path's first round (B = 512, ``round_seed(0,
-   0)``) at qcap = n, 64 and 8, byte for byte in queue rows, lengths,
-   overflow flags and per-lane steps; a lane must overflow iff its RR set
-   at qcap = n is longer (some do at 8);
+   sampler's kernel (``ops.queue_bfs``, which draws the row seeds and
+   roots in the launch) against its plain version ``ref.queue_round_ref``
+   (``row_seeds``, ``draw_roots``, then ``queue_bfs_ref``) on the card at
+   the exact path's first round (B = 512, ``round_seed(0, 0)``) at qcap =
+   n, 64 and 8, byte for byte in queue rows, lengths, overflow flags,
+   per-lane steps and roots; a lane must overflow iff its RR set at qcap =
+   n is longer (some do at 8);
 4. approximate solve (the second slice's path): ``IMMSolver(g,
    engine="queue", batch=512, seed=0).solve(IMProblem(k=50, eps=0.5,
    mode="approximate", max_theta=8192))`` with the auto sketch size on the
@@ -48,9 +50,10 @@ Phases, each of which raises on failure (non-zero exit):
    RR sets, pool elements and sampling steps must be :data:`EXACT_POOL`.
    Then the solve's first sampling round again (:func:`profile_round`):
    its host syncs (torch.cuda's sync debug mode), bare, and under
-   torch.profiler for its device operations and the device's idle share,
-   with the longest lane's 32-edge passes; and the queue kernel's record
-   at that round (:func:`queue_record`);
+   torch.profiler for its device operations, named, and the device's idle
+   share, with the longest lane's edges and block-wide compactions; and
+   the queue kernel's record at that round (:func:`queue_record`), with
+   the card's bound and the longest lane's one-SM bound;
 6. parity: ``flat`` selection on the final pool equals the ``bitset``
    result (seeds, gains, frac), and both Occur kernels equal their plain
    versions on the final bit matrix;
@@ -109,7 +112,8 @@ greedy passes them, a bool mask; the sketch kernels at the approximate
 path's sketch, the dense kernels at the packed sampler's inputs, the
 membership scan at the padded store, flash attention at olmo-1b's shape,
 the queue sampler at the exact path's first round with the work it
-examined (:func:`queue_bound`); launches from each path's run; each with
+examined (:func:`queue_bound`) and its one-SM bound
+(:func:`one_sm_bound`); launches from each path's run; each with
 ``ms``, ``device_ms``,
 ``device_other_ms`` and ``enqueue_us`` from :func:`timing`;
 ``bernoulli_edges`` with its trial's instructions by class as the built
@@ -146,12 +150,11 @@ from repro_torch.core.engine import make_engine  # noqa: E402
 from repro_torch.core.imm import IMMSolver  # noqa: E402
 from repro_torch.core.packing import to_int32_bits  # noqa: E402
 from repro_torch.core.problem import IMProblem  # noqa: E402
-from repro_torch.core.roots import draw_roots  # noqa: E402
-from repro_torch.core.rrset import (EC_DEFAULT, round_seed,  # noqa: E402
-                                    row_seeds)
+from repro_torch.core.rrset import EC_DEFAULT, round_seed  # noqa: E402
 from repro_torch.graph import csr, generators, weights  # noqa: E402
 from repro_torch.kernels import _build, bitset, ops, ref  # noqa: E402
 from repro_torch.kernels import flashattn as flash  # noqa: E402
+from repro_torch.kernels.queue import SEGMENT_EDGES  # noqa: E402
 
 # H100 SXM HBM rate (NVIDIA's data sheet), and the results per clock per
 # SM of each class of instruction on Hopper (compute capability 9.0), from
@@ -878,7 +881,9 @@ def lane_work(g_rev, nodes, lengths) -> dict:
     """What a queue round's lanes examined: every node of a lane's queue is
     dequeued once and its reverse row walked.  Per (lane, position): the
     node and its degree (0 past the lane's length); per lane: the edges
-    examined and the 32-edge passes the kernel's warp makes over them."""
+    examined and the kernel's block-wide compactions, a row's
+    ``max(1, ceil(deg / SEGMENT_EDGES))``, which make the lane's chain of
+    dependent steps."""
     lens = lengths.to(torch.int64)
     width = max(int(lens.max()), 1)
     nodes = nodes[:, :width].to(torch.int64)
@@ -886,7 +891,10 @@ def lane_work(g_rev, nodes, lengths) -> dict:
     offs = g_rev.offsets.to(torch.int64)
     deg = torch.where(valid, offs[nodes + 1] - offs[nodes], 0)
     return {"nodes": nodes, "valid": valid, "deg": deg,
-            "edges": deg.sum(dim=1), "passes": ((deg + 31) // 32).sum(dim=1)}
+            "edges": deg.sum(dim=1),
+            "segments": torch.where(valid, ((deg + SEGMENT_EDGES - 1)
+                                            // SEGMENT_EDGES).clamp(min=1),
+                                    0).sum(dim=1)}
 
 
 def count_syncs(fn):
@@ -908,10 +916,17 @@ def profile_round(engine, seed32: int) -> dict:
     """One sampling round: its host syncs counted (:func:`count_syncs`),
     then timed bare, then the same round (same seed, same work) under
     torch.profiler: the device's busy time over the bare round's wall time
-    gives the device's idle share while sampling.  A queue round also
-    reports its longest lane's 32-edge passes, a dense round its figures
-    a level."""
-    from torch.profiler import ProfilerActivity, profile
+    gives the device's idle share while sampling.  A trace on this card
+    drops the first device records of a session (a queue round's only
+    kernel, when the round comes first), so the profiled round follows a
+    warm-up round in the same trace, and only the device operations that
+    start inside its ``record_function`` span count; a trace that still
+    holds no record of the queue kernel is taken again, up to three.  The
+    device operations are named (``device_op_names``: count by name), so a
+    fill or a copy beside the kernels shows.  A queue round also reports
+    its longest lane's edges and compactions, a dense round its figures a
+    level."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     _, sync_sites = count_syncs(lambda: engine.sample(seed32))
     torch.cuda.synchronize()
@@ -919,21 +934,39 @@ def profile_round(engine, seed32: int) -> dict:
     batch = engine.sample(seed32)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        engine.sample(seed32)
-        torch.cuda.synchronize()
-    dev_ops = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel = DEVICE_KERNEL["queue_bfs"] if engine.name == "queue" else None
+    for traces in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.sample(seed32)
+            torch.cuda.synchronize()
+            with record_function("profiled round"):
+                engine.sample(seed32)
+                torch.cuda.synchronize()
+        events = prof.events()
+        start = min(e.time_range.start for e in events
+                    if e.name == "profiled round")
+        # the span itself also shows on the device's timeline: not an op
+        dev_ops = [e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.start >= start
+                   and e.name != "profiled round"]
+        if kernel is None or any(re.search(kernel, e.name) for e in dev_ops):
+            break
     busy = sum(e.time_range.elapsed_us() for e in dev_ops) / 1e6
+    names: dict[str, int] = {}
+    for e in dev_ops:
+        names[e.name[:80]] = names.get(e.name[:80], 0) + 1
     out = {"steps": batch.steps, "wall_s": wall, "device_ops": len(dev_ops),
+           "device_op_names": names, "traces": traces,
            "host_syncs": len(sync_sites), "host_sync_sites": sync_sites,
            "device_busy_s": busy if dev_ops else "not measured",
            "device_idle_share": 1 - busy / wall if dev_ops
            else "not measured"}
     if engine.name == "queue":
-        out["longest_lane_passes"] = int(lane_work(
-            engine.g_rev, batch.nodes, batch.lengths)["passes"].max())
+        work = lane_work(engine.g_rev, batch.nodes, batch.lengths)
+        out.update(longest_lane_edges=int(work["edges"].max()),
+                   longest_lane_segments=int(work["segments"].max()))
     else:
         out.update(ms_per_level=wall / batch.steps * 1e3,
                    device_ops_per_level=len(dev_ops) / batch.steps)
@@ -1204,35 +1237,31 @@ def packed_phase(g) -> list:
                          lane * dense._LANE_MUL, launches, iters=200)
 
 
-def queue_inputs(g_rev, seed32: int):
-    """(row seeds, roots) of a queue round of BATCH lanes."""
-    seeds = row_seeds(seed32, BATCH, g_rev.device)
-    return seeds, draw_roots(seeds, g_rev.n_nodes)
-
-
-def queue_call(fn, g_rev, seeds, roots, qcap: int):
-    return lambda: fn(g_rev.offsets, g_rev.indices, g_rev.weights, seeds,
-                      roots, qcap=qcap, ec=EC_DEFAULT)
+def queue_call(fn, g_rev, seed32: int, qcap: int):
+    return lambda: fn(g_rev.offsets, g_rev.indices, g_rev.weights, seed32,
+                      BATCH, qcap=qcap, ec=EC_DEFAULT)
 
 
 def check_queue_kernel(g_rev) -> dict:
     """The queue kernel against its plain version on the card at the
     exact path's first round (B = 512, ``round_seed(0, 0)``), at qcap = n
     and at :data:`QUEUE_QCAPS`: byte for byte in the queue rows, lengths,
-    overflow flags and per-lane steps.  A lane must overflow iff its RR set
-    at qcap = n is longer than qcap, and some must at the last qcap."""
-    seeds, roots = queue_inputs(g_rev, round_seed(0, 0))
+    overflow flags, per-lane steps and roots.  A lane must overflow iff its
+    RR set at qcap = n is longer than qcap, and some must at the last
+    qcap."""
+    seed32 = round_seed(0, 0)
     out, full_lengths = {}, None
     for qcap in (g_rev.n_nodes,) + QUEUE_QCAPS:
-        got = queue_call(ops.queue_bfs, g_rev, seeds, roots, qcap)()
+        got = queue_call(ops.queue_bfs, g_rev, seed32, qcap)()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = queue_call(ref.queue_bfs_ref, g_rev, seeds, roots, qcap)()
+        want = queue_call(ref.queue_round_ref, g_rev, seed32, qcap)()
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
         errs = [max_abs_err(x, y) for x, y in zip(got, want)]
-        same = all(x.dtype == y.dtype and x.shape == y.shape
-                   and torch.equal(x, y) for x, y in zip(got, want))
+        same = len(got) == len(want) == 5 and all(
+            x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+            for x, y in zip(got, want))
         lanes_over = int(got[2].sum())
         if full_lengths is None:
             full_lengths = got[1]
@@ -1256,23 +1285,22 @@ def queue_bound(g_rev, queue, lengths) -> tuple:
     """The round's least time.  Bytes: each reverse row the round walks is
     read once however many lanes walk it (lanes re-read shared rows, the
     hubs' above all, from L2): its destinations and weights (8 bytes an
-    edge) and its two offsets (8); each dequeued node is written to the
-    queue once (4); each lane reads its seed and root and writes its
-    length, flag and steps (25 bytes).  Left out: the visited words (a
-    scratch of the round that stays in L2) and the zero fill of the queue
-    and the scratch (the wrapper's memsets, not this kernel).  Operations:
-    one trial an examined edge, counted as :data:`TRIAL_WORK_OPS`, each
-    class at its own rate.  Also returns the work: edges examined, the
-    distinct rows walked and their edges, nodes dequeued, and the longest
-    lane's edges and 32-edge passes, which bound a warp's chain of
-    dependent passes."""
+    edge) and its two offsets (8); the queue rows are written once in
+    full, their zeros included (4 bytes a cell: the kernel writes them);
+    each lane writes its root, length, flag and steps (17 bytes).  Left
+    out: the visited words (the kernel's own scratch, in shared memory or
+    L2).  Operations: one trial an examined edge, counted as
+    :data:`TRIAL_WORK_OPS`, each class at its own rate.  Also returns the
+    work: edges examined, the distinct rows walked and their edges, nodes
+    dequeued, and the longest lane's edges and block-wide compactions,
+    which make its chain of dependent steps."""
     work = lane_work(g_rev, queue, lengths)
     examined, dequeued = int(work["edges"].sum()), int(lengths.sum())
     rows = torch.unique(work["nodes"][work["valid"]])
     offs = g_rev.offsets.to(torch.int64)
     row_edges = int((offs[rows + 1] - offs[rows]).sum())
-    nbytes = 8 * row_edges + 8 * rows.numel() + 4 * dequeued \
-        + 25 * queue.shape[0]
+    nbytes = 8 * row_edges + 8 * rows.numel() + 4 * queue.numel() \
+        + 17 * queue.shape[0]
     bound = _bound(nbytes, {k: v * examined
                             for k, v in TRIAL_WORK_OPS.items()})
     return bound, {"examined_edges": examined,
@@ -1280,21 +1308,36 @@ def queue_bound(g_rev, queue, lengths) -> tuple:
                    "distinct_row_edges": row_edges,
                    "dequeued_nodes": dequeued,
                    "longest_lane_edges": int(work["edges"].max()),
-                   "longest_lane_passes": int(work["passes"].max())}
+                   "longest_lane_segments": int(work["segments"].max())}
+
+
+def one_sm_bound(trials: int) -> dict:
+    """The least time for ``trials`` edge trials on one SM: each class of
+    :data:`TRIAL_WORK_OPS` at one SM's rate (PER_SM_CLOCK at the maximum
+    SM clock), and all of them at its dispatch rate.  A block runs a lane
+    on one SM, so a round takes at least its longest lane's."""
+    mhz = card_rates()["clocks_max_sm_mhz"]
+    per = {k: trials * v / PER_SM_CLOCK[k] / mhz / 1e3
+           for k, v in TRIAL_WORK_OPS.items()}
+    per["dispatch"] = trials * sum(TRIAL_WORK_OPS.values()) \
+        / PER_SM_CLOCK["dispatch"] / mhz / 1e3
+    pipe = max(per, key=per.get)
+    return {"one_sm_bound_ms": per[pipe], "one_sm_bound_class": pipe}
 
 
 def queue_record(g_rev, launches, err, iters=20, plain_iters=1) -> dict:
     """The queue kernel's record at the exact path's first round (qcap =
-    n): timed beside its plain version, with its bound and work."""
-    seeds, roots = queue_inputs(g_rev, round_seed(0, 0))
-    qcap = g_rev.n_nodes
-    kern = queue_call(ops.queue_bfs, g_rev, seeds, roots, qcap)
+    n): timed beside its plain version, with the card's bound, the longest
+    lane's one-SM bound beside it, and the work."""
+    seed32, qcap = round_seed(0, 0), g_rev.n_nodes
+    kern = queue_call(ops.queue_bfs, g_rev, seed32, qcap)
     times = timing("queue_bfs", kern, iters)
-    plain_ms = cuda_ms(queue_call(ref.queue_bfs_ref, g_rev, seeds, roots,
-                                  qcap), plain_iters)
+    plain_ms = cuda_ms(queue_call(ref.queue_round_ref, g_rev, seed32, qcap),
+                       plain_iters)
     queue, lengths = kern()[:2]
     bound, work = queue_bound(g_rev, queue, lengths)
     return record("queue_bfs", launches, err, times, plain_ms, bound,
+                  **one_sm_bound(work["longest_lane_edges"]),
                   shape=[BATCH, qcap], ec=EC_DEFAULT, **work)
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's bit-set, trial and sketch kernels of two checkouts on one
-card, in turns.
+"""Time the port's bit-set, trial, sketch and queue kernels of two checkouts
+on one card, in turns.
 
     python3 examples/torch_kernel_compare.py OTHER_ROOT [--iters 20]
     python3 examples/torch_kernel_compare.py --chunks [--iters 20]
@@ -8,10 +8,10 @@ card, in turns.
 OTHER_ROOT is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive`` into a directory that ``.gitignore``
 lists).  Each checkout builds its own ``csrc/occur.cu``,
-``csrc/bitops.cu``, ``csrc/bernoulli.cu`` and ``csrc/sketch.cu`` and is
-run in its own process, in the order other, this, this, other, so that a
-drift of the card's clocks shows as a difference between the two runs of
-one tree.  Each run calls the entry
+``csrc/bitops.cu``, ``csrc/bernoulli.cu``, ``csrc/sketch.cu`` and
+``csrc/queue.cu`` and is run in its own process, in the order other,
+this, this, other, so that a drift of the card's clocks shows as a
+difference between the two runs of one tree.  Each run calls the entry
 points of ``repro_torch.kernels.ops`` on the same inputs (made on the card
 from a fixed seed):
 
@@ -24,7 +24,15 @@ from a fixed seed):
 * ``occur_from_bitset`` and ``occur_from_bitset_masked`` (bool mask) on
   (131072, 2372) random words with a half mask, and on a (16384, 2372)
   matrix of the exact path's density (4 nodes a row of the 75,904-node
-  stand-in) with a mask of 2,469 rows.
+  stand-in) with a mask of 2,469 rows;
+* ``queue_bfs`` at the exact path's first round on the stand-in
+  (``barabasi_albert(75879, 4, seed=0)``, WC weights, reverse,
+  coalesced; 512 lanes, ``round_seed(0, 0)``, qcap = n, EC 128), called
+  as that checkout's ``ops.queue_bfs`` takes it (a checkout whose kernel
+  takes row seeds and roots gets them drawn beforehand, outside the
+  timed call), and the whole round, ``rrset.sample_rrsets_queue``
+  (draws, launch and the host read).  Both checkouts must give the same
+  bytes (the ``digest`` of queue rows, lengths, overflow flags and steps).
 
 For each it prints, in one JSON line, ``ms`` (CUDA events over ``--iters``
 back-to-back calls after one warm-up), ``device_ms`` (the device time a
@@ -133,6 +141,42 @@ def chunk_sweep(iters: int) -> None:
           flush=True)
 
 
+def _queue_calls(torch, dev):
+    """(kernel call, plain call, round call) of the queue sampler at the
+    exact path's first round, in this checkout's signature."""
+    import inspect
+    from repro_torch.core import rrset
+    from repro_torch.graph import csr, generators, weights
+    from repro_torch.kernels import ops, ref
+    src, dst = generators.barabasi_albert(75879, 4, seed=0)
+    g_rev = csr.coalesce_ic(csr.reverse(weights.wc_weights(
+        csr.from_edges(src, dst, 75879, device=dev))))
+    seed32, n, lanes = rrset.round_seed(0, 0), g_rev.n_nodes, 512
+    csr_args = (g_rev.offsets, g_rev.indices, g_rev.weights)
+    if "seeds" in inspect.signature(ops.queue_bfs).parameters:
+        row_seeds = rrset.row_seeds(seed32, lanes, dev)
+        args = csr_args + (row_seeds, rrset.draw_roots(row_seeds, n))
+
+        def plain():
+            return ref.queue_bfs_ref(*args, qcap=n, ec=128)
+    else:
+        args = csr_args + (seed32, lanes)
+
+        def plain():
+            return ref.queue_round_ref(*args, qcap=n, ec=128)[:4]
+    return (lambda: ops.queue_bfs(*args, qcap=n, ec=128)[:4], plain,
+            lambda: rrset.sample_rrsets_queue(g_rev, lanes, seed32,
+                                              dedup="none"))
+
+
+def _digest(tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def worker(root: str, iters: int) -> None:
     sys.path.insert(0, str(Path(root) / "src"))
     import torch
@@ -140,6 +184,7 @@ def worker(root: str, iters: int) -> None:
     dev = torch.device("cuda")
     (a, b, big, big_mask, path, path_mask, sk4, sk512, cov4, cov512,
      weights, seeds) = _inputs(torch, dev)
+    queue_kernel, queue_plain, queue_round = _queue_calls(torch, dev)
     calls = {
         "bernoulli_edges 512x607012": lambda: ops.bernoulli_edges(weights,
                                                                   seeds),
@@ -156,6 +201,8 @@ def worker(root: str, iters: int) -> None:
         "occur_from_bitset 16384": lambda: ops.occur_from_bitset(path),
         "occur_from_bitset_masked 16384": lambda:
             ops.occur_from_bitset_masked(path, path_mask),
+        "queue_bfs 512 lanes": queue_kernel,
+        "queue round 512 lanes": queue_round,
     }
     checks = {
         "bernoulli_edges 512x607012": ref.bernoulli_edges_ref(weights, seeds),
@@ -171,10 +218,16 @@ def worker(root: str, iters: int) -> None:
         "occur_from_bitset 16384": ref.occur_from_bitset_ref(path),
         "occur_from_bitset_masked 16384":
             ref.occur_from_bitset_masked_ref(path, path_mask),
+        "queue_bfs 512 lanes": queue_plain(),
     }
     out = []
     for name, fn in calls.items():
-        if name in checks and not torch.equal(fn(), checks[name]):
+        got, want = fn(), checks.get(name)
+        if isinstance(want, tuple):
+            same = all(torch.equal(x, y) for x, y in zip(got, want))
+        else:
+            same = want is None or torch.equal(got, want)
+        if not same:
             raise AssertionError(f"{root}: {name} != plain version")
         fn()
         torch.cuda.synchronize()
@@ -195,6 +248,8 @@ def worker(root: str, iters: int) -> None:
         out.append({"call": name, "ms": ms,
                     "device_ms": dev_ms if dev_ms else "not measured",
                     "enqueue_us": host / iters * 1e6})
+        if isinstance(want, tuple):
+            out[-1]["digest"] = _digest(got)
     print(json.dumps({"root": root, "runs": out}), flush=True)
 
 
@@ -243,6 +298,12 @@ def main() -> int:
             for key in ("ms", "device_ms", "enqueue_us")}
     print(json.dumps({"order": "other, this, this, other", "other": other,
                       "calls": summary}), flush=True)
+    digests = {r.get("digest") for run in runs.values() for rr in run
+               for r in rr if "digest" in r}
+    if len(digests) > 1:
+        print(f"the two checkouts' queue rounds differ: {digests}",
+              file=sys.stderr)
+        return 1
     return 0
 
 

@@ -45,8 +45,7 @@ import torch
 
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.core.packing import pack_rows, pack_rows_device
-from repro_torch.core.roots import ROOT_COUNTER, draw_roots
-from repro_torch.core.rrset import row_seeds
+from repro_torch.core.roots import ROOT_COUNTER, draw_roots, row_seeds
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.bernoulli import MASK32
 

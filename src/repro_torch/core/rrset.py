@@ -11,7 +11,8 @@ Random numbers come from the counter hash of
 :mod:`repro_torch.kernels.bernoulli`, not from a generator with state:
 
 * row r of a round with seed ``round_seed`` has the 32-bit row seed
-  ``counter_uniform_u32(round_seed, r)``;
+  ``counter_uniform_u32(round_seed, r)``
+  (:func:`repro_torch.core.roots.row_seeds`);
 * its root is ``(counter_uniform_u32(row_seed, 0xFFFFFFFF) * n) >> 32``
   (:func:`repro_torch.core.roots.draw_roots`);
 * edge e of the coalesced reverse CSR is live for that row iff
@@ -35,10 +36,11 @@ edges need the reference's ``segmented``/``sort`` chunk dedup, which is not
 ported yet (:func:`detect_dedup_mode` tells them apart).
 
 A round is one call of ``kernels.ops.queue_bfs``: on a card one launch of
-the CUDA kernel ``csrc/queue.cu``, which runs every lane to its end; on the
-CPU the plain version, which syncs once a micro-step.  Both return the
-same bytes, and each lane's lock-step count.  The round then makes one
-host read, of the longest RR set and the most steps together.
+the CUDA kernel ``csrc/queue.cu``, which draws every lane's row seed and
+root and runs the lane to its end; on the CPU the plain version, which
+draws them in torch and syncs once a micro-step.  Both return the same
+bytes, the roots and each lane's lock-step count.  The round then makes
+one host read, of the longest RR set and the most steps together.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.graph.csr import CSRGraph, rows_dst_sorted
-from repro_torch.core.roots import ROOT_COUNTER, draw_roots
+from repro_torch.core.roots import ROOT_COUNTER
 from repro_torch.kernels import ops
 from repro_torch.kernels.bernoulli import counter_uniform_u32
 
@@ -59,8 +61,9 @@ class QueueSample(NamedTuple):
     """One round.  ``steps`` is the lock-step count at chunk width EC: the
     most, over the lanes, of the sum over a lane's dequeued nodes of
     ``max(1, ceil(deg / EC))``.  The plain version runs that many
-    micro-steps; the kernel, which walks rows 32 edges a pass, computes the
-    same count, so it is equal on a card and on the CPU."""
+    micro-steps; the kernel, which ranks a row a block-wide tile at a
+    time, computes the same count, so it is equal on a card and on the
+    CPU."""
     nodes: torch.Tensor       # (B, W) int32 — visit-order node ids per lane
     lengths: torch.Tensor     # (B,) int32 — RR-set sizes (W = max length)
     roots: torch.Tensor       # (B,) int32
@@ -71,12 +74,6 @@ class QueueSample(NamedTuple):
 def round_seed(seed: int, t: int) -> int:
     """32-bit seed of sampling round ``t`` of a solver seeded with ``seed``."""
     return int(counter_uniform_u32(seed, t))
-
-
-def row_seeds(seed32: int, batch: int, device) -> torch.Tensor:
-    """(batch,) int64 row seeds of one round."""
-    rows = torch.arange(batch, dtype=torch.int64, device=device)
-    return counter_uniform_u32(seed32, rows)
 
 
 def detect_dedup_mode(g_rev: CSRGraph) -> str:
@@ -121,10 +118,8 @@ def sample_rrsets_queue(g_rev: CSRGraph, batch: int, seed32: int, *,
             f"dedup mode {dedup!r} is not ported (ROADMAP Queue 1 item 3); "
             "coalesce the graph with coalesce_ic first")
     qcap = n if qcap is None else int(qcap)
-    seeds = row_seeds(seed32, batch, g_rev.device)
-    roots = draw_roots(seeds, n)
-    queue, lengths, overflowed, lane_steps = ops.queue_bfs(
-        g_rev.offsets, g_rev.indices, g_rev.weights, seeds, roots,
+    queue, lengths, overflowed, lane_steps, roots = ops.queue_bfs(
+        g_rev.offsets, g_rev.indices, g_rev.weights, seed32, batch,
         qcap=qcap, ec=ec)
     # the round's one host read
     width, steps = torch.stack((lengths.max().to(torch.int64),

@@ -106,17 +106,18 @@ def bernoulli_edges(weights: torch.Tensor, seeds) -> torch.Tensor:
 
 
 def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
-              weights: torch.Tensor, seeds: torch.Tensor,
-              roots: torch.Tensor, *, qcap: int, ec: int):
-    """One sampling round of the queue sampler: every lane's BFS on the
+              weights: torch.Tensor, seed32: int, batch: int, *, qcap: int,
+              ec: int):
+    """One sampling round of the queue sampler with round seed ``seed32``
+    and ``batch`` lanes: every lane's row seed and root, and its BFS on the
     reverse CSR to its end -> (queue (B, qcap) int32, lengths (B,) int32,
-    overflowed (B,) bool, steps (B,) int64); the same bytes on either
-    route (``ref.queue_bfs_ref`` says what they hold)."""
-    if _route(roots) == "cuda":
-        return _queue.queue_bfs(offsets, indices, weights, seeds, roots,
+    overflowed (B,) bool, steps (B,) int64, roots (B,) int32); the same
+    bytes on either route (``ref.queue_round_ref`` says what they hold)."""
+    if _route(offsets) == "cuda":
+        return _queue.queue_bfs(offsets, indices, weights, seed32, batch,
                                 qcap=qcap, ec=ec)
-    return _ref.queue_bfs_ref(offsets, indices, weights, seeds, roots,
-                              qcap=qcap, ec=ec)
+    return _ref.queue_round_ref(offsets, indices, weights, seed32, batch,
+                                qcap=qcap, ec=ec)
 
 
 def membership_rows(rows: torch.Tensor, lengths: torch.Tensor,

@@ -1,14 +1,17 @@
 """CUDA wrapper of gIM's queue sampler (``csrc/queue.cu``): one launch
-runs a whole sampling round, every lane's BFS to its end.
+runs a whole sampling round, the lanes' row seeds and roots and every
+lane's BFS to its end.
 
-:func:`queue_bfs` computes what ``kernels/ref.py::queue_bfs_ref`` computes,
-byte for byte (the kernel's note says how).  It takes CUDA tensors only;
-``kernels/ops.py`` routes CPU tensors to the plain version.  It checks its
-inputs, allocates the outputs and the visited-bit scratch, launches
-through a :class:`_build.Kernel` on PyTorch's current stream of the
-tensors' card (:func:`_build.raw_stream`), raises on a launch error and
-adds one to its entry in :data:`LAUNCHES`.  It reads nothing back: the
-caller makes the round's one host read.
+:func:`queue_bfs` computes what ``kernels/ref.py::queue_round_ref``
+computes, byte for byte (the kernel's note says how).  It takes CUDA
+tensors only; ``kernels/ops.py`` routes CPU tensors to the plain version.
+It checks its inputs, allocates the outputs (the kernel writes every byte
+of them, the zeros of the queue rows included), puts the visited bits in
+shared memory when they fit (:func:`visited_in_shared`) and else allocates
+a global scratch, launches through a :class:`_build.Kernel` on PyTorch's
+current stream of the tensors' card (:func:`_build.raw_stream`), raises on
+a launch error and adds one to its entry in :data:`LAUNCHES`.  It reads
+nothing back: the caller makes the round's one host read.
 """
 from __future__ import annotations
 
@@ -21,10 +24,25 @@ from repro_torch.kernels import _build
 # launches since the last reset (see ops.reset_launch_counts)
 LAUNCHES = {"queue_bfs": 0}
 
+# csrc/queue.cu: a block of WARPS warps runs a lane and ranks a long row
+# SEGMENT_EDGES edges at a time (WARPS warps x 32 tiles x 32 edges)
+WARPS = 16
+SEGMENT_EDGES = WARPS * 32 * 32
+# csrc/queue.cu kMaxSharedVisitedBytes: the 232,448 bytes of shared memory
+# a block can opt in to on sm_90, less 2,048 for the kernel's static arrays
+MAX_SHARED_VISITED_BYTES = 232_448 - 2_048
+
 _vp, _i64 = ctypes.c_void_p, ctypes.c_int64
 _BFS = _build.Kernel("queue", "queue_bfs",
-                     (_vp, _vp, _vp, _vp, _vp, _i64, ctypes.c_int32, _i64,
-                      _i64, _vp, _vp, _vp, _vp, _vp, ctypes.c_int, _vp))
+                     (_vp, _vp, _vp, ctypes.c_uint32, _i64, ctypes.c_int32,
+                      ctypes.c_int32, _i64, _vp, _vp, _vp, _vp, _vp, _vp,
+                      ctypes.c_int, _vp))
+
+
+def visited_in_shared(n: int) -> bool:
+    """Whether a lane's ceil(n / 32) visited words fit in a block's shared
+    memory (n up to 1,843,200); else they go to a global scratch."""
+    return 4 * ((n + 31) // 32) <= MAX_SHARED_VISITED_BYTES
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, dev) -> None:
@@ -38,49 +56,53 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, dev) -> None:
 
 
 def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
-              weights: torch.Tensor, seeds: torch.Tensor,
-              roots: torch.Tensor, *, qcap: int, ec: int):
+              weights: torch.Tensor, seed32: int, batch: int, *, qcap: int,
+              ec: int):
     """One round of the queue sampler on the card.
 
     ``offsets`` (n+1,) int32, ``indices`` (m,) int32 and ``weights`` (m,)
-    float32 are a reverse CSR with simple rows; ``seeds`` (B,) int64 row
-    seeds, ``roots`` (B,) int32 in [0, n).  Returns ``(queue (B, qcap)
-    int32, lengths (B,) int32, overflowed (B,) bool, steps (B,) int64)``:
-    lane b's RR set is ``queue[b, :lengths[b]]`` in visit order, zeros
-    after it; ``steps[b]`` is its lock-step count at chunk width ``ec``.
+    float32 are a reverse CSR with simple rows, n >= 1; ``seed32`` the
+    round's seed (taken mod 2^32), ``batch`` the lanes.  Returns ``(queue
+    (B, qcap) int32, lengths (B,) int32, overflowed (B,) bool, steps (B,)
+    int64, roots (B,) int32)``: lane b's RR set is ``queue[b,
+    :lengths[b]]`` in visit order, zeros after it, from root ``roots[b]``;
+    ``steps[b]`` is its lock-step count at chunk width ``ec``.
     """
     dev = offsets.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel given a tensor on {dev}")
     for t, name, dtype in ((offsets, "offsets", torch.int32),
                            (indices, "indices", torch.int32),
-                           (weights, "weights", torch.float32),
-                           (seeds, "seeds", torch.int64),
-                           (roots, "roots", torch.int32)):
+                           (weights, "weights", torch.float32)):
         _check(t, name, dtype, dev)
-    n, m, batch = offsets.shape[0] - 1, indices.shape[0], roots.shape[0]
-    if weights.shape[0] != m or seeds.shape[0] != batch:
-        raise ValueError("weights must match indices and seeds must match "
-                         "roots in length")
+    n, m = offsets.shape[0] - 1, indices.shape[0]
+    if weights.shape[0] != m:
+        raise ValueError("weights must match indices in length")
     if m >= 1 << 31:
         raise ValueError("int32 offsets hold at most 2^31 - 1 edges")
-    qcap, ec = int(qcap), int(ec)
+    batch, qcap, ec = int(batch), int(qcap), int(ec)
+    if not 1 <= n < 1 << 31 or not 0 <= batch < 1 << 31:
+        raise ValueError(f"need 1 <= n < 2^31 and 0 <= batch < 2^31, got "
+                         f"n {n}, batch {batch}")
     if not 1 <= qcap < 1 << 31 or ec < 1:
         raise ValueError(f"need 1 <= qcap < 2^31 and ec >= 1, got qcap "
                          f"{qcap}, ec {ec}")
-    n_words = (n + 31) // 32
-    queue = torch.zeros(batch, qcap, dtype=torch.int32, device=dev)
-    visited = torch.zeros(batch, n_words, dtype=torch.int32, device=dev)
+    queue = torch.empty(batch, qcap, dtype=torch.int32, device=dev)
+    visited = None if visited_in_shared(n) else torch.empty(
+        batch, (n + 31) // 32, dtype=torch.int32, device=dev)
+    roots = torch.empty(batch, dtype=torch.int32, device=dev)
     lengths = torch.empty(batch, dtype=torch.int32, device=dev)
     overflowed = torch.empty(batch, dtype=torch.bool, device=dev)
     steps = torch.empty(batch, dtype=torch.int64, device=dev)
     if batch:
         index = offsets.get_device()
         err = _BFS(offsets.data_ptr(), indices.data_ptr(), weights.data_ptr(),
-                   seeds.data_ptr(), roots.data_ptr(), batch, qcap, ec,
-                   n_words, queue.data_ptr(), visited.data_ptr(),
-                   lengths.data_ptr(), overflowed.data_ptr(),
-                   steps.data_ptr(), index, _build.raw_stream(index))
+                   int(seed32) & 0xFFFFFFFF, batch, n, qcap, ec,
+                   queue.data_ptr(),
+                   None if visited is None else visited.data_ptr(),
+                   roots.data_ptr(), lengths.data_ptr(),
+                   overflowed.data_ptr(), steps.data_ptr(), index,
+                   _build.raw_stream(index))
         _build.raise_on(err, "queue_bfs")
         LAUNCHES["queue_bfs"] += 1
-    return queue, lengths, overflowed, steps
+    return queue, lengths, overflowed, steps, roots

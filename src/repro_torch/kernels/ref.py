@@ -14,6 +14,7 @@ import math
 import torch
 
 from repro_torch.core.packing import bit_values, to_int32_bits
+from repro_torch.core.roots import draw_roots, row_seeds
 from repro_torch.kernels.bernoulli import MASK32, counter_uniform_u32, mul_u32
 
 # rows per block of the Occur histograms: a (block, W, 32) bit tensor stays
@@ -88,8 +89,8 @@ def queue_bfs_ref(offsets: torch.Tensor, indices: torch.Tensor,
                   weights: torch.Tensor, seeds: torch.Tensor,
                   roots: torch.Tensor, *, qcap: int, ec: int):
     """One round of gIM's queue sampler (paper Alg. 3/6), every lane's BFS
-    to its end, in lock-step micro-steps: the plain version of
-    ``csrc/queue.cu``.
+    to its end, in lock-step micro-steps, from given row seeds and roots
+    (:func:`queue_round_ref` draws them, as ``csrc/queue.cu`` does).
 
     Lane b keeps one queue row: in BFS the dequeued prefix *is* the RR set.
     One micro-step handles ``ec`` edges of each lane's current node (the
@@ -163,6 +164,20 @@ def queue_bfs_ref(offsets: torch.Tensor, indices: torch.Tensor,
         ecur = torch.where(active & ~row_done, ecur2, 0)
         steps += active
     return queue[:, :qcap], qtail.to(torch.int32), overflow, steps
+
+
+def queue_round_ref(offsets: torch.Tensor, indices: torch.Tensor,
+                    weights: torch.Tensor, seed32: int, batch: int, *,
+                    qcap: int, ec: int):
+    """One round of the queue sampler with round seed ``seed32``: the plain
+    version of ``csrc/queue.cu``.  The ``batch`` row seeds
+    (``core/roots.py::row_seeds``) and roots (``draw_roots``), then
+    :func:`queue_bfs_ref` on them.  Returns ``queue_bfs_ref``'s four
+    tensors and the (B,) int32 roots."""
+    seeds = row_seeds(seed32, batch, offsets.device)
+    roots = draw_roots(seeds, offsets.shape[0] - 1)
+    return (*queue_bfs_ref(offsets, indices, weights, seeds, roots,
+                           qcap=qcap, ec=ec), roots)
 
 
 def pack_bits_ref(bits: torch.Tensor) -> torch.Tensor:

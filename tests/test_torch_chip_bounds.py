@@ -69,6 +69,7 @@ H100_MHZ, H100_SMS = 1980.0, 132
 @pytest.fixture
 def h100(monkeypatch):
     monkeypatch.setattr(smoke, "card_rates", lambda: {
+        "clocks_max_sm_mhz": H100_MHZ,
         "ops_s": {k: H100_SMS * v * H100_MHZ * 1e6
                   for k, v in smoke.PER_SM_CLOCK.items()}})
 
@@ -454,9 +455,8 @@ PROFILER_ALSO = {
                         "(float const*, long const*, long, long, unsigned "
                         "char*)"],
     "queue_bfs": ["void (anonymous namespace)::queue_bfs_kernel(int const*, "
-                  "int const*, float const*, long const*, int const*, long, "
-                  "int, long, long, int*, unsigned int*, int*, bool*, "
-                  "long*)"],
+                  "int const*, float const*, unsigned int, int, int, long, "
+                  "long, int*, unsigned int*, int*, int*, bool*, long*)"],
 }
 
 
@@ -488,58 +488,58 @@ def test_device_kernel_patterns_pick_their_own_kernel(name):
 
 def _queue_round():
     """A queue round of 64 lanes on a coalesced reverse BA(300, 3) graph
-    with WC weights, on the CPU: (g_rev, seeds, queue, lengths)."""
-    from repro_torch.core import rrset
+    with WC weights, on the CPU: (g_rev, queue, lengths)."""
     from repro_torch.graph import csr, generators, weights
     from repro_torch.kernels import ops
     src, dst = generators.barabasi_albert(300, 3, seed=5)
     g_rev = csr.coalesce_ic(csr.reverse(weights.wc_weights(
         csr.from_edges(src, dst, 300, device="cpu"))))
-    seeds = rrset.row_seeds(0xC0FFEE, 64, "cpu")
-    roots = rrset.draw_roots(seeds, 300)
     queue, lengths = ops.queue_bfs(g_rev.offsets, g_rev.indices,
-                                   g_rev.weights, seeds, roots, qcap=300,
+                                   g_rev.weights, 0xC0FFEE, 64, qcap=300,
                                    ec=128)[:2]
-    return g_rev, seeds, queue, lengths
+    return g_rev, queue, lengths
 
 
 def test_lane_work_walks_each_lanes_queue():
     import torch
     from repro_torch.graph import csr
-    # rows of degree 0, 33, 1 and 64 (nodes 0..3)
-    deg = [0, 33, 1, 64]
+    # rows of degree 0, two segments and one edge (three of the kernel's
+    # segments), 1 and 64 (nodes 0..3)
+    seg = smoke.SEGMENT_EDGES
+    deg = [0, 2 * seg + 1, 1, 64]
     offs = torch.tensor([0] + list(torch.tensor(deg).cumsum(0)),
                         dtype=torch.int32)
-    g = csr.CSRGraph(offs, torch.zeros(98, dtype=torch.int32),
-                     torch.zeros(98))
+    g = csr.CSRGraph(offs, torch.zeros(sum(deg), dtype=torch.int32),
+                     torch.zeros(sum(deg)))
     nodes = torch.tensor([[3, 1, 0], [2, 3, 3], [0, 0, 0]],
                          dtype=torch.int32)
     w = smoke.lane_work(g, nodes, torch.tensor([3, 1, 1], dtype=torch.int32))
-    assert w["deg"].tolist() == [[64, 33, 0], [1, 0, 0], [0, 0, 0]]
-    assert w["edges"].tolist() == [97, 1, 0]
-    assert w["passes"].tolist() == [4, 1, 0]
+    assert w["deg"].tolist() == [[64, 2 * seg + 1, 0], [1, 0, 0], [0, 0, 0]]
+    assert w["edges"].tolist() == [2 * seg + 65, 1, 0]
+    # a row is one compaction, a long one one a segment; none past a length
+    assert w["segments"].tolist() == [5, 1, 1]
 
 
 def test_queue_bound_counts_the_rounds_work(h100):
     """Edges examined = the degrees of every queued node, lane by lane;
-    bytes = each distinct row walked once (8 an edge, 8 a row), each
-    dequeued node written once, 25 a lane; operations = one trial an
+    bytes = each distinct row walked once (8 an edge, 8 a row), the queue
+    rows written in full (4 a cell), 17 a lane; operations = one trial an
     examined edge, as the docstring of ``queue_bound`` counts them."""
     import numpy as np
-    g_rev, _, queue, lengths = _queue_round()
+    g_rev, queue, lengths = _queue_round()
     offs = g_rev.numpy()[0]
     examined, rows = 0, set()
-    lane_edges, lane_passes = [], []
+    lane_edges, lane_segments = [], []
     for b in range(64):
-        edges_b = passes_b = 0
+        edges_b = segments_b = 0
         for u in queue[b, :lengths[b]].tolist():
             deg = int(offs[u + 1] - offs[u])
             edges_b += deg
-            passes_b += -(-deg // 32)
+            segments_b += max(1, -(-deg // smoke.SEGMENT_EDGES))
             rows.add(u)
         examined += edges_b
         lane_edges.append(edges_b)
-        lane_passes.append(passes_b)
+        lane_segments.append(segments_b)
     row_edges = int(sum(offs[u + 1] - offs[u] for u in rows))
     bound, work = smoke.queue_bound(g_rev, queue, lengths)
     dequeued = int(lengths.sum())
@@ -547,11 +547,12 @@ def test_queue_bound_counts_the_rounds_work(h100):
                     "distinct_row_edges": row_edges,
                     "dequeued_nodes": dequeued,
                     "longest_lane_edges": max(lane_edges),
-                    "longest_lane_passes": max(lane_passes)}
+                    "longest_lane_segments": max(lane_segments)}
     # lanes share rows: the bytes count each once, the trials each walk
     assert dequeued > len(rows) and examined > row_edges > 0
     assert row_edges <= np.int64(offs[-1])
-    nbytes = 8 * row_edges + 8 * len(rows) + 4 * dequeued + 25 * 64
+    assert queue.shape == (64, 300)
+    nbytes = 8 * row_edges + 8 * len(rows) + 4 * 64 * 300 + 17 * 64
     assert bound["bound_bytes_ms"] == pytest.approx(nbytes / 3.35e9)
     alu_s = H100_SMS * 64 * H100_MHZ * 1e6
     assert bound["bound_ops_ms"] == pytest.approx(
@@ -560,8 +561,8 @@ def test_queue_bound_counts_the_rounds_work(h100):
 
 def test_queue_bound_counts_a_shared_row_once(h100):
     """Two lanes that walk the same 64-edge row: 128 edges examined (two
-    trials each, four passes) but 64 edges' bytes; the queue's zeros past
-    each lane's length are not walked."""
+    trials each) but 64 edges' bytes; the queue's zeros past each lane's
+    length are not walked, but written."""
     import torch
     from repro_torch.graph import csr
     offs = torch.tensor([0, 64, 64, 65], dtype=torch.int32)
@@ -573,6 +574,18 @@ def test_queue_bound_counts_a_shared_row_once(h100):
     bound, work = smoke.queue_bound(g, queue, lengths)
     assert work == {"examined_edges": 129, "distinct_rows": 3,
                     "distinct_row_edges": 65, "dequeued_nodes": 4,
-                    "longest_lane_edges": 64, "longest_lane_passes": 2}
-    nbytes = 8 * 65 + 8 * 3 + 4 * 4 + 25 * 3
+                    "longest_lane_edges": 64, "longest_lane_segments": 2}
+    nbytes = 8 * 65 + 8 * 3 + 4 * 9 + 17 * 3
     assert bound["bound_bytes_ms"] == pytest.approx(nbytes / 3.35e9)
+
+
+def test_one_sm_bound_is_the_longest_lanes_trials_on_one_sm(h100):
+    """The stand-in's longest lane (211,322 trials) on one SM: the ALU's
+    14 operations a trial at 64 a clock bind, 46,227 clocks at 1,980 MHz;
+    every other class, and all at the dispatch rate, would take less."""
+    b = smoke.one_sm_bound(211_322)
+    assert b["one_sm_bound_class"] == "alu"
+    assert b["one_sm_bound_ms"] == pytest.approx(211_322 * 14 / 64
+                                                 / H100_MHZ / 1e3)
+    assert 0.02334 < b["one_sm_bound_ms"] < 0.02335
+    assert smoke.one_sm_bound(0)["one_sm_bound_ms"] == 0

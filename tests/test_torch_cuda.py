@@ -17,9 +17,7 @@ from repro_torch.core import dense
 from repro_torch.core.imm import IMMSolver
 from repro_torch.core.problem import IMProblem
 from repro_torch.core.engine import QueueEngine
-from repro_torch.core.roots import draw_roots
 from repro_torch.core.rrset import round_seed, sample_rrsets_queue, to_lists
-from repro_torch.core.rrset import row_seeds as sample_row_seeds
 from repro_torch.graph import csr, generators, weights
 from repro_torch.kernels import bernoulli as tbern, bitset as tbitset
 from repro_torch.kernels import flashattn as tflash
@@ -825,14 +823,39 @@ def test_greedy_popcounts_run_on_the_card(card):
 
 
 # the queue sampler's kernel (csrc/queue.cu), at tests/test_torch_queue.py's
-# graphs, qcaps and chunk widths
+# graphs, qcaps and chunk widths, at the stand-in, and at n past the
+# shared-memory size of the visited bits (and at its edge)
 QUEUE_HUB = 63
+SHARED_VISITED_NODES = 1_843_200      # kernels/queue.py::visited_in_shared
 
 
 def _queue_graph(name, device):
     """The coalesced reverse CSR of a named graph of
-    tests/test_torch_queue.py (the same edges and weights)."""
-    if name == "hub":
+    tests/test_torch_queue.py (the same edges and weights), the stand-in,
+    or ``wide<n>``: 3n random edges over n nodes with WC weights."""
+    if name == "longrow":
+        rng = np.random.default_rng(57)
+        n = 33_200
+        bs, bd = generators.barabasi_albert(200, 2, seed=4)
+        leaves = np.arange(200, n)
+        others = np.setdiff1d(np.arange(200), [QUEUE_HUB])
+        into = np.union1d(rng.choice(others, 35, replace=False),
+                          [31, 95, 127, 159, 191])
+        out = np.concatenate([rng.choice(others, 100, replace=False),
+                              leaves[:32_000]])
+        src = np.concatenate([bs, into, leaves, np.full(out.size, QUEUE_HUB)])
+        dst = np.concatenate([bd, np.full(into.size + leaves.size, QUEUE_HUB),
+                              out])
+        w = np.concatenate([np.full(bs.size, 0.1), np.full(into.size, 0.45),
+                            np.full(leaves.size, 0.01),
+                            np.full(out.size, 0.9)])
+        g = csr.from_edges(src, dst, n, weights=w.astype(np.float32),
+                           device=device)
+    elif name.startswith("wide"):
+        n = int(name[4:])
+        src, dst = np.random.default_rng(n).integers(0, n, (2, 3 * n))
+        g = weights.wc_weights(csr.from_edges(src, dst, n, device=device))
+    elif name == "hub":
         rng = np.random.default_rng(31)
         n = 210
         bs, bd = generators.barabasi_albert(200, 2, seed=4)
@@ -862,16 +885,15 @@ def _queue_graph(name, device):
 
 
 def _queue_round(g, batch, seed32, qcap, ec, plain=False):
-    seeds = sample_row_seeds(seed32, batch, g.device)
-    roots = draw_roots(seeds, g.n_nodes)
-    fn = ref.queue_bfs_ref if plain else ops.queue_bfs
-    return fn(g.offsets, g.indices, g.weights, seeds, roots,
+    fn = ref.queue_round_ref if plain else ops.queue_bfs
+    return fn(g.offsets, g.indices, g.weights, seed32, batch,
               qcap=g.n_nodes if qcap is None else qcap, ec=ec)
 
 
 def _assert_same_round(got, want):
+    assert len(got) == len(want) == 5
     for x, y, what in zip(got, want, ("queue", "lengths", "overflowed",
-                                      "steps")):
+                                      "steps", "roots")):
         assert x.dtype == y.dtype and x.shape == y.shape, what
         assert torch.equal(x, y), what
 
@@ -882,7 +904,8 @@ def _assert_same_round(got, want):
 @pytest.mark.parametrize("name", ["ba40", "er30", "ba200", "ba1500", "hub"])
 def test_queue_kernel_equals_plain(card, name, qcap, ec):
     """The kernel against the plain version on the card and on the CPU,
-    byte for byte: queue rows, lengths, overflow flags, per-lane steps."""
+    byte for byte: queue rows, lengths, overflow flags, per-lane steps,
+    roots."""
     g = _queue_graph(name, card)
     batch = 128 if name in ("ba1500", "hub") else 64
     ops.reset_launch_counts()
@@ -897,11 +920,47 @@ def test_queue_kernel_equals_plain(card, name, qcap, ec):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ec", [32, 128])
+@pytest.mark.parametrize("qcap", [2, 5, None], ids=["qcap2", "qcap5", "qcapn"])
+def test_queue_kernel_on_a_long_row(card, qcap, ec):
+    """A hub row of 33,040 edges, three of the kernel's segments (1,033
+    32-edge tiles), walked by most lanes: the kernel against the plain
+    version on the card and on the CPU."""
+    g = _queue_graph("longrow", card)
+    assert int(g.offsets.diff().max()) > 2 * tqueue.SEGMENT_EDGES
+    got = _queue_round(g, 64, 0xC0FFEE, qcap, ec)
+    _assert_same_round(got, _queue_round(g, 64, 0xC0FFEE, qcap, ec,
+                                         plain=True))
+    _assert_same_round(tuple(x.cpu() for x in got),
+                       _queue_round(g.to("cpu"), 64, 0xC0FFEE, qcap, ec))
+    assert int(got[1].max()) > 300 if qcap is None else bool(got[2].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qcap", [5, None], ids=["qcap5", "qcapn"])
+@pytest.mark.parametrize("n", [SHARED_VISITED_NODES, SHARED_VISITED_NODES + 1,
+                               1_900_000])
+def test_queue_kernel_visited_in_shared_and_global_memory(card, n, qcap):
+    """At the largest n whose visited bits fit in shared memory (230,400
+    bytes a block) and past it (a global scratch), on random graphs whose
+    RR sets reach across the whole range: the kernel against the plain
+    version on the card."""
+    assert tqueue.visited_in_shared(n) == (n == SHARED_VISITED_NODES)
+    g = _queue_graph(f"wide{n}", card)
+    got = _queue_round(g, 64, round_seed(3, 1), qcap, 128)
+    _assert_same_round(got, _queue_round(g, 64, round_seed(3, 1), qcap, 128,
+                                         plain=True))
+    assert int(got[4].max()) > n // 2
+    assert int(got[1].max()) > 5 if qcap is None else bool(got[2].any())
+
+
+@pytest.mark.cuda
 def test_queue_kernel_at_the_stand_in(card):
     """B = 512 on the 75,879-node stand-in at the exact path's first round
-    (hubs of in-degree above 50,000), against the plain version on the
-    card, at qcap = n, 64 and 8: a lane overflows iff its RR set at qcap =
-    n is longer (none at 64, whose longest set is 21)."""
+    (hubs of in-degree above 50,000, seven segments of the kernel), against
+    the plain version on the card, at qcap = n, 64 and 8: a lane overflows
+    iff its RR set at qcap = n is longer (none at 64, whose longest set is
+    21)."""
     g = _queue_graph("standin", card)
     full = None
     for qcap in (None, 64, 8):
@@ -942,18 +1001,27 @@ def test_queue_engine_round_is_one_launch_and_one_host_read(card):
 @pytest.mark.cuda
 def test_queue_wrapper_checks_inputs(card):
     g = _queue_graph("ba40", card)
-    seeds = sample_row_seeds(5, 8, card)
-    roots = draw_roots(seeds, g.n_nodes)
-    args = [g.offsets, g.indices, g.weights, seeds, roots]
-    for i, bad in ((0, g.offsets.long()), (2, g.weights.double()),
-                   (3, seeds.to(torch.int32))):
+    args = [g.offsets, g.indices, g.weights]
+    for i, bad in ((0, g.offsets.long()), (1, g.indices.long()),
+                   (2, g.weights.double())):
         with pytest.raises(TypeError):
-            tqueue.queue_bfs(*args[:i], bad, *args[i + 1:], qcap=40, ec=128)
+            tqueue.queue_bfs(*args[:i], bad, *args[i + 1:], 5, 8, qcap=40,
+                             ec=128)
     with pytest.raises(ValueError):
-        tqueue.queue_bfs(*args[:4], roots.cpu(), qcap=40, ec=128)
+        tqueue.queue_bfs(args[0], args[1].cpu(), args[2], 5, 8, qcap=40,
+                         ec=128)
     with pytest.raises(ValueError):
-        tqueue.queue_bfs(*args[:4], torch.stack([roots, roots], 1)[:, 0],
+        tqueue.queue_bfs(args[0], torch.stack([args[1], args[1]], 1)[:, 0],
+                         args[2], 5, 8, qcap=40, ec=128)
+    with pytest.raises(ValueError):
+        tqueue.queue_bfs(args[0], args[1], args[2][:-1], 5, 8, qcap=40,
+                         ec=128)
+    with pytest.raises(ValueError):
+        tqueue.queue_bfs(args[0][:1], args[1][:0], args[2][:0], 5, 8,
                          qcap=40, ec=128)
-    for qcap, ec in ((0, 128), (40, 0)):
+    for batch, qcap, ec in ((-1, 40, 128), (8, 0, 128), (8, 40, 0)):
         with pytest.raises(ValueError):
-            tqueue.queue_bfs(*args, qcap=qcap, ec=ec)
+            tqueue.queue_bfs(*args, 5, batch, qcap=qcap, ec=ec)
+    empty = tqueue.queue_bfs(*args, 5, 0, qcap=40, ec=128)
+    assert [tuple(x.shape) for x in empty] == [(0, 40), (0,), (0,), (0,),
+                                               (0,)]
