@@ -10,9 +10,10 @@ Phases, each of which raises on failure (non-zero exit):
    class's results per clock per SM x the maximum SM clock that
    ``nvidia-smi`` reports) that the kernels' bounds use;
 2. build: compiles ``csrc/occur.cu``, ``sketch.cu``, ``bitops.cu``,
-   ``bernoulli.cu``, ``membership.cu``, ``flashattn.cu`` and ``queue.cu``
-   with nvcc for sm_90a, one nvcc per source, started together, and prints
-   each ``-Xptxas -v`` report; the three Occur kernels must not spill;
+   ``bernoulli.cu``, ``membership.cu``, ``flashattn.cu``, ``queue.cu`` and
+   ``greedy.cu`` with nvcc for sm_90a, one nvcc per source, started
+   together, and prints each ``-Xptxas -v`` report; the three Occur
+   kernels and the two of ``greedy.cu`` must not spill;
 3. kernels: both Occur kernels against their plain versions on random
    int32 words of shape (131072, 2372) (bit 31 set in half the words, a
    ~50% row mask); the union popcount at (75880, 512) and (75880, 4) and
@@ -55,8 +56,9 @@ Phases, each of which raises on failure (non-zero exit):
    the queue kernel's record at that round (:func:`queue_record`), with
    the card's bound and the longest lane's one-SM bound;
 6. parity: ``flat`` selection on the final pool equals the ``bitset``
-   result (seeds, gains, frac), and both Occur kernels equal their plain
-   versions on the final bit matrix;
+   result (seeds, gains, frac), ``greedy_flat`` equals its plain version
+   ``ref.greedy_flat_ref`` on that pool byte for byte, and both Occur
+   kernels equal their plain versions on the final bit matrix;
 7. forward MC: the RIS spread estimate is within 10% of a 256-simulation
    forward Monte-Carlo spread of the seeds;
 8. exact-regime identity: the phase-5 pool folded into a sketch store with
@@ -104,7 +106,20 @@ Phases, each of which raises on failure (non-zero exit):
    held against ``flash_attention_ref`` on the card (atol 2e-5, rtol 1e-4
    in float32; 2e-2 in bfloat16; 2e-3 in float16) and timed beside
    ``scaled_dot_product_attention`` on the same tensors, with its design,
-   bound, share of the bound and factor against SDPA.
+   bound, share of the bound and factor against SDPA;
+13. default-options exact solve (the main path): ``IMMSolver(g,
+   engine="queue", batch=512, seed=0).solve(IMProblem(k=50, eps=0.5))``,
+   whose ``selection="auto"`` takes ``flat`` on this pool, with wall time
+   per stage, peak memory and launch counts: ``greedy_flat`` once a greedy
+   (3), no ``popcount_words`` and no Occur kernel.  It must equal phase 5
+   exactly (θ, LB, rounds, RR sets, pool elements, seeds, gains, the
+   float32 bytes of frac), and one ``store.select(50, method="flat")`` on
+   its final pool must make no host sync (:func:`count_syncs`).  Then
+   ``greedy_flat``'s record at that pool and, on a ``greedy_flat_eps_low:``
+   line, at the pool of an eps = 0.25 solve (:func:`greedy_record`: byte
+   for byte against the plain version, timed beside it, with the bound,
+   the working set, the index build's time and the barrier floor, the
+   same grid running its 2k grid barriers alone).
 
 The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
 the exact path's final bit matrix, masked on the first seed's rows as the
@@ -113,7 +128,9 @@ path's sketch, the dense kernels at the packed sampler's inputs, the
 membership scan at the padded store, flash attention at olmo-1b's shape,
 the queue sampler at the exact path's first round with the work it
 examined (:func:`queue_bound`) and its one-SM bound
-(:func:`one_sm_bound`); launches from each path's run; each with
+(:func:`one_sm_bound`), the greedy at the default solve's final pool
+with its barrier floor (:func:`greedy_record`); launches from each
+path's run; each with
 ``ms``, ``device_ms``,
 ``device_other_ms`` and ``enqueue_us`` from :func:`timing`;
 ``bernoulli_edges`` with its trial's instructions by class as the built
@@ -154,6 +171,7 @@ from repro_torch.core.rrset import EC_DEFAULT, round_seed  # noqa: E402
 from repro_torch.graph import csr, generators, weights  # noqa: E402
 from repro_torch.kernels import _build, bitset, ops, ref  # noqa: E402
 from repro_torch.kernels import flashattn as flash  # noqa: E402
+from repro_torch.kernels import greedy  # noqa: E402
 from repro_torch.kernels.queue import SEGMENT_EDGES  # noqa: E402
 
 # H100 SXM HBM rate (NVIDIA's data sheet), and the results per clock per
@@ -197,7 +215,10 @@ APPROX_MAX_THETA = 8192
 SKETCH_ROWS, SKETCH_WORDS, SCATTER_PAIRS = N_NODES + 1, 512, 1 << 24
 PROBE_SKETCH_K = (128, 1024, 4096)
 SOURCES = ("occur", "sketch", "bitops", "bernoulli", "membership",
-           "flashattn", "queue")
+           "flashattn", "queue", "greedy")
+# phase 13: the default-options exact solve's greedy also at the pool of an
+# eps = 0.25 solve, the bottom of benchmarks/fig6_eps_sweep.py:22
+EPS_LOW = 0.25
 CPU_LANES = 16
 LIBRARY_NOTE = {
     "occur_from_bitset": "no single PyTorch call computes a bit-column "
@@ -212,13 +233,15 @@ LIBRARY_NOTE = {
     "bernoulli_edges": "the counter hash is many PyTorch calls",
     "membership_rows": "eq, mask and any are three PyTorch calls",
     "queue_bfs": "no single PyTorch call runs a BFS",
+    "greedy_flat": "no single PyTorch call runs a greedy",
 }
 SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "sketch_scatter_or": "sketch", "sketch_union_popcount": "sketch",
              "pack_bits": "bitops", "bitset_or": "bitops",
              "bitset_andnot": "bitops", "popcount_words": "bitops",
              "bernoulli_edges": "bernoulli", "membership_rows": "membership",
-             "flash_attention": "flashattn", "queue_bfs": "queue"}
+             "flash_attention": "flashattn", "queue_bfs": "queue",
+             "greedy_flat": "greedy"}
 # each record's kernel as the profiler names it (a regular expression that
 # matches the demangled or the mangled name)
 DEVICE_KERNEL = {
@@ -234,6 +257,7 @@ DEVICE_KERNEL = {
     "membership_rows": r"membership_kernel",
     "flash_attention": r"flash_(wgmma|simt_split|simt)_kernel",
     "queue_bfs": r"queue_bfs_kernel",
+    "greedy_flat": r"greedy_flat_kernel",
 }
 KERNELS = {
     "occur_from_bitset": "src/repro/kernels/bitset.py:167",
@@ -249,6 +273,8 @@ KERNELS = {
     "flash_attention": "src/repro/kernels/flashattn.py:62",
     # no Pallas kernel: the reference's round is a jitted lax.while_loop
     "queue_bfs": "src/repro/core/rrset.py:230",
+    # no Pallas kernel: the reference's fused scan is a jitted lax.scan
+    "greedy_flat": "src/repro/core/coverage.py:1359",
 }
 # phase 3: the queue kernel at the exact path's first round, also at qcap
 # 64 (above its longest RR set, 21) and 8, where lanes overflow
@@ -1392,6 +1418,148 @@ def ragged_membership_checks(gen, n: int) -> dict:
     return out
 
 
+def pool_args(store) -> tuple:
+    """The store's live pool and greedy_flat's keywords at k = K."""
+    t = store.n_elems
+    return (store.flat[:t], store.ids[:t], store.valid[:t]), dict(
+        n=store.n_nodes, num_rows=store.row_capacity(), k=K)
+
+
+def greedy_bound(flat, ids, valid, seeds, *, n, num_rows, k) -> dict:
+    """The greedy's least time.  Bytes: the pool read once (flat and ids 4
+    bytes an element, valid 1) and the seeds and gains written once.
+    Operations: one compare an Occur entry a step (the argmax) and one
+    decrement a valid element of each row the seeds cover, on the ALU.
+    Also the working set, what the kernel's design moves through L2 and
+    memory (``working_bytes_ms``): Occur read k times (4 bytes a node),
+    each step's seed's rows (the node-major entry, the two row starts and
+    the flag: 13 bytes a row) and the elements of the rows it newly covers
+    (4 bytes each), and the four indices once; and the work's counts."""
+    t = flat.shape[0]
+    f = flat.to(torch.int64)
+    hit_elems = torch.isin(f, seeds.to(torch.int64)) & valid
+    rows_hit = torch.zeros(num_rows, dtype=torch.bool, device=flat.device)
+    rows_hit[ids[hit_elems].to(torch.int64)] = True
+    covered_elems = int((rows_hit[ids.to(torch.int64)] & valid).sum())
+    occur0 = torch.zeros(n + 1, dtype=torch.int64,
+                         device=flat.device).index_add_(
+        0, f, valid.to(torch.int64))[:n]
+    seed_rows = int(occur0[seeds.to(torch.int64)].sum())
+    bound = _bound(9 * t + 8 * k, {"alu": k * n + covered_elems})
+    working = 4 * n * k + 13 * seed_rows + 4 * covered_elems \
+        + 8 * t + 4 * (num_rows + 1) + 4 * (n + 1)
+    return dict(bound, working_bytes=working,
+                working_bytes_ms=working / HBM_BYTES_S * 1e3,
+                seed_rows=seed_rows, decremented_elements=covered_elems)
+
+
+def greedy_record(store, launches, iters=20, plain_iters=3) -> dict:
+    """greedy_flat on the store's pool against its plain version on the
+    card (seeds and gains byte for byte), then timed beside it, with the
+    bound, the working set, the grid, the index build's time and the
+    barrier floor: the same grid running its 2k barriers alone."""
+    args, kw = pool_args(store)
+    got = ops.greedy_flat(*args, **kw)
+    want = ref.greedy_flat_ref(*args, **kw)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(x, y) for x, y in zip(got, want))
+    if err or not all(x.dtype == y.dtype and torch.equal(x, y)
+                      for x, y in zip(got, want)):
+        raise AssertionError(f"greedy_flat != plain version at {store.n_rr} "
+                             f"rows: max abs err {err}")
+    dev = store.flat.device
+    times = timing("greedy_flat", lambda: ops.greedy_flat(*args, **kw), iters)
+    plain_ms = cuda_ms(lambda: ref.greedy_flat_ref(*args, **kw), plain_iters)
+    index_ms = cuda_ms(lambda: greedy.flat_index(
+        *args, n=kw["n"], num_rows=kw["num_rows"]), iters)
+    floor_ms = cuda_ms(lambda: greedy.grid_barriers(2 * K, dev), iters)
+    return record("greedy_flat", launches, err, times, plain_ms,
+                  greedy_bound(*args, got[0], **kw),
+                  barrier_floor_ms=floor_ms, grid_barriers=2 * K,
+                  index_ms=index_ms, grid_blocks=greedy.grid_blocks(dev),
+                  threads=greedy.THREADS, n=kw["n"], k=K,
+                  n_rr=store.n_rr, pool_elements=store.n_elems,
+                  num_rows=kw["num_rows"], gains_sum=int(got[1].sum()))
+
+
+def default_solve_phase(g, queue_res, queue_store) -> list:
+    """The exact solve with the default options (``selection="auto"``,
+    which takes ``flat`` on this pool): stage times, peak memory and
+    launches (greedy_flat once a greedy, no popcount_words, no Occur
+    kernel); it must equal the phase-5 ``bitset`` solve exactly.  One
+    ``flat`` selection on its final pool must make no host sync.  Returns
+    greedy_flat's record at this pool, and prints it at the pool of an
+    eps = EPS_LOW solve."""
+    dev = g.device
+    solver = IMMSolver(g, engine="queue", batch=BATCH, seed=0, device=dev)
+    clock = StageClock()
+    clock.wrap(solver.engine, "sample", "sampling")
+    clock.wrap(solver.store, "append_batch", "append")
+    clock.wrap(solver.store, "bitset_matrix", "bitset_build")
+    clock.wrap(solver.store, "select", "selection")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solver.solve(IMProblem(k=K, eps=EPS))
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st, qst, store = res.stats, queue_res.stats, solver.store
+    n_words = (store.n_nodes + 31) // 32
+    same = {
+        "theta": st.theta == qst.theta, "lb": st.lb == qst.lb,
+        "lb_iters": st.lb_iters == qst.lb_iters,
+        "rounds": st.rounds == qst.rounds,
+        "n_rr": store.n_rr == queue_store.n_rr,
+        "pool_elements": store.n_elems == queue_store.n_elems,
+        "seeds": bool(np.array_equal(res.seeds, queue_res.seeds)),
+        "gains": bool(np.array_equal(res.gains, queue_res.gains)),
+        "frac_f32_bytes": np.float32(res.frac).tobytes()
+        == np.float32(queue_res.frac).tobytes(),
+    }
+    calls, greedies = dict(clock.calls), clock.calls["selection"]
+    store.select(K, method="flat")
+    torch.cuda.synchronize()
+    _, sync_sites = count_syncs(lambda: store.select(K, method="flat"))
+    torch.cuda.synchronize()
+    say("default_solve", {
+        "selection": st.selection, "auto_takes": "bitset"
+        if store.row_capacity() * n_words <= store.capacity else "flat",
+        "theta": st.theta, "lb": st.lb, "lb_iters": st.lb_iters,
+        "rounds": st.rounds, "n_rr": store.n_rr,
+        "pool_elements": store.n_elems, "pool_capacity": store.capacity,
+        "solve_s": solve_s, "stage_s": dict(clock.seconds),
+        "stage_calls": calls, "max_memory_allocated": peak,
+        "launches": launches, "spread": res.spread, "frac": res.frac,
+        "equals_bitset_solve": same, "select_host_syncs": len(sync_sites),
+        "select_host_sync_sites": sync_sites,
+        "seeds": res.seeds.tolist()[:10]})
+    if not all(same.values()):
+        raise AssertionError(f"default solve differs from the bitset "
+                             f"solve: {same}")
+    if launches["greedy_flat"] != greedies or greedies != 3 \
+            or launches["popcount_words"] or launches["occur_from_bitset"] \
+            or launches["queue_bfs"] == 0 or calls["bitset_build"]:
+        raise AssertionError(f"default solve: {greedies} greedies, launches "
+                             f"{launches}, {calls['bitset_build']} bit-matrix "
+                             f"builds")
+    if sync_sites:
+        raise AssertionError(f"a flat selection synced the host: "
+                             f"{sync_sites}")
+    rec = greedy_record(store, launches)
+    # the same greedy at the pool of the sweep's smallest eps
+    low = IMMSolver(g, engine="queue", batch=BATCH, seed=0, device=dev)
+    t0 = time.perf_counter()
+    low_res = low.solve(IMProblem(k=K, eps=EPS_LOW))
+    torch.cuda.synchronize()
+    say("greedy_flat_eps_low", dict(
+        greedy_record(low.store, None), eps=EPS_LOW,
+        theta=low_res.stats.theta, solve_s=time.perf_counter() - t0))
+    return [rec]
+
+
 def padded_phase(store, bit) -> list:
     """The phase-5 pool as a padded store; its greedy must give the bitset
     selection exactly with K membership launches.  Returns the kernel's
@@ -1539,6 +1707,11 @@ def main() -> int:
     if len(occur_spills) != 3 or any(occur_spills.values()):
         raise AssertionError(f"occur.cu: want 3 kernels without spills, "
                              f"ptxas reports {occur_spills}")
+    greedy_spills = ptxas_spills(_build.PTXAS_REPORT["greedy"], "greedy_cu")
+    say("greedy_ptxas", greedy_spills)
+    if len(greedy_spills) != 2 or any(greedy_spills.values()):
+        raise AssertionError(f"greedy.cu: want 2 kernels without spills, "
+                             f"ptxas reports {greedy_spills}")
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1649,6 +1822,10 @@ def main() -> int:
                    "seeds": seeds.tolist()[:10], "frac": float(flat.frac)})
     if not same:
         raise AssertionError("flat and bitset selections differ")
+    args, kw = pool_args(store)
+    got, want = ops.greedy_flat(*args, **kw), ref.greedy_flat_ref(*args, **kw)
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError("greedy_flat != plain version on the final pool")
     u0 = int(bit.seeds[0])
     first_newly = ((m[:, u0 >> 5] >> (u0 & 31)) & 1) != 0   # the path's bool
     records = kernel_records(m, first_newly, launches=launches)
@@ -1679,9 +1856,13 @@ def main() -> int:
     # 12. flash attention at full width of three LM configs
     flash_recs = flash_phase(dev)
 
+    # 13. the default-options exact solve: its greedy is greedy_flat
+    greedy_recs = default_solve_phase(g, res, store)
+
     say("total", {"seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": records + approx_records + dense_recs
-                      + padded_recs + flash_recs + queue_recs}), flush=True)
+                      + padded_recs + flash_recs + queue_recs
+                      + greedy_recs}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,11 +10,12 @@ append, gIM's ``N_RR`` readback).
 
 Selection (:func:`select_seeds_device`):
 
-* ``flat`` — the reference's fused scan: Occur by scatter-add over the
-  pool, per seed one membership pass that finds the newly covered rows and
-  one scatter that takes their elements off Occur.  Covered rows live in a
-  packed int32 bitset; gains are popcounts of the new words
-  (``kernels.ops.popcount_words``).
+* ``flat`` — the reference's fused scan, all k steps in one launch of
+  the ``greedy_flat`` CUDA kernel (``kernels.ops.greedy_flat``; the plain
+  version, the reference's loop of scatter-adds over the pool and a packed
+  Covered bitset, on the CPU).  The pool's row-major and node-major
+  indices are built on the card, so a step touches only its seed's rows
+  and their elements, and the selection makes no host sync.
 * ``bitset`` — Alg. 7 on the packed (row_capacity, ceil(n/32)) membership
   matrix: the initial Occur and each seed's Occur decrement are the two
   hand-written CUDA kernels (``kernels/ops.py``; the plain versions on the
@@ -48,7 +49,7 @@ import torch
 import numpy as np
 
 from repro_torch.core import sketch as sketch_mod
-from repro_torch.core.packing import bit_values, rank_positions, to_int32_bits
+from repro_torch.core.packing import bit_values, rank_positions
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 
@@ -184,59 +185,20 @@ def bitset_from_flat(flat, ids, valid, *, num_rows: int,
     return m.view(num_rows, n_words)
 
 
-def _unpack_covered(cov_words: torch.Tensor) -> torch.Tensor:
-    """(nw,) int32 packed Covered bitset -> (nw*32,) bool rows."""
-    shifts = torch.arange(32, dtype=torch.int32, device=cov_words.device)
-    return (((cov_words[:, None] >> shifts) & 1) != 0).reshape(-1)
-
-
-def _pack_covered(rows: torch.Tensor) -> torch.Tensor:
-    """(nw*32,) bool rows -> (nw,) int32 packed words."""
-    shifts = torch.arange(32, dtype=torch.int64, device=rows.device)
-    words = (rows.reshape(-1, 32).to(torch.int64) << shifts).sum(dim=1)
-    return to_int32_bits(words)
-
-
-def _newly_rows(flat, ids, valid, covered, u):
-    """Rows containing ``u`` that are not covered yet — the membership
-    pass of the fused scan."""
-    match = ((flat == u) & valid).to(torch.int32)
-    row_has = torch.zeros(covered.shape[0], dtype=torch.int32,
-                          device=flat.device).index_add_(0, ids, match) > 0
-    return row_has & ~covered
-
-
 def _frac(gains: torch.Tensor, n_rr: int) -> torch.Tensor:
-    return (gains.sum().to(torch.float32)
-            / torch.tensor(max(n_rr, 1), dtype=torch.float32,
-                           device=gains.device))
+    """float32(sum of gains) / float32(n_rr), divided on the device (a
+    fill, not a copy from the host, so no sync)."""
+    return gains.sum().to(torch.float32) / torch.full(
+        (), max(n_rr, 1), dtype=torch.float32, device=gains.device)
 
 
 def _select_flat(store: DeviceRRStore, k: int) -> CoverageResult:
-    n, t = store.n_nodes, store.n_elems
-    num_rows = store.row_capacity()
-    flat = store.flat[:t].to(torch.int64)
-    ids = store.ids[:t].to(torch.int64)
-    valid = store.valid[:t]
-    dev = flat.device
-    occur = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
-        0, flat, valid.to(torch.int32))[:n]
-    cov = torch.zeros(num_rows // 32, dtype=torch.int32, device=dev)
-    seeds, gains = [], []
-    for _ in range(k):
-        u = torch.argmax(occur)
-        newly = _newly_rows(flat, ids, valid, _unpack_covered(cov), u)
-        new_words = _pack_covered(newly)
-        gains.append(kops.popcount_words(new_words.view(1, -1)).sum())
-        elem_newly = (newly[ids] & valid).to(torch.int32)
-        occur = occur - torch.zeros(n + 1, dtype=torch.int32,
-                                    device=dev).index_add_(
-            0, flat, elem_newly)[:n]
-        cov = cov | new_words
-        seeds.append(u)
-    gains = torch.stack(gains).to(torch.int32)
-    return CoverageResult(seeds=torch.stack(seeds).to(torch.int32),
-                          gains=gains, frac=_frac(gains, store.n_rr))
+    t = store.n_elems
+    seeds, gains = kops.greedy_flat(
+        store.flat[:t], store.ids[:t], store.valid[:t], n=store.n_nodes,
+        num_rows=store.row_capacity(), k=k)
+    return CoverageResult(seeds=seeds, gains=gains,
+                          frac=_frac(gains, store.n_rr))
 
 
 def _select_bitset(store: DeviceRRStore, k: int) -> CoverageResult:

@@ -1,0 +1,149 @@
+"""CUDA wrapper of the fused greedy max-coverage (``csrc/greedy.cu``): one
+cooperative launch runs all k seed steps of the ``flat`` selection (paper
+Alg. 7) on the exact pool.
+
+:func:`greedy_flat` computes what ``kernels/ref.py::greedy_flat_ref``
+computes, seeds and gains byte for byte (the kernel's note says how).  It
+takes CUDA tensors only; ``kernels/ops.py`` routes CPU tensors to the
+plain version.  It builds the pool's two indices with torch operations on
+the card (:func:`flat_index`, which also runs on the CPU), allocates the
+outputs and one scratch buffer (the kernel writes every byte it reads of
+them), launches through a :class:`_build.Kernel` on PyTorch's current
+stream of the tensors' card (:func:`_build.raw_stream`), raises on a
+launch error and adds one to its entry in :data:`LAUNCHES`.  It reads
+nothing back, so a selection makes no host sync.
+
+:func:`grid_barriers` launches the same grid with nothing but the grid
+barriers in it: the floor of the kernel's time.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+# launches since the last reset (see ops.reset_launch_counts)
+LAUNCHES = {"greedy_flat": 0}
+
+# csrc/greedy.cu: threads a block; the grid is BLOCKS_PER_SM blocks on
+# every SM (more blocks make slower grid barriers, as
+# examples/torch_greedy_variants.py measures)
+THREADS = 512
+BLOCKS_PER_SM = 1
+
+_vp, _i32, _i64, _int = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
+                         ctypes.c_int)
+_GREEDY = _build.Kernel("greedy", "greedy_flat",
+                        (_vp, _vp, _vp, _vp, _i32, _i64, _i32, _vp, _vp,
+                         _int, _int, _vp))
+_BARRIERS = _build.Kernel("greedy", "greedy_grid_barriers",
+                          (_i32, _int, _int, _vp))
+_GRID = _build.Kernel("greedy", "greedy_grid_blocks",
+                      (_int, _int, ctypes.POINTER(_int)))
+
+
+class FlatIndex(NamedTuple):
+    """The pool's two CSR indices.  Row-major: row r's elements are
+    ``nodes[row_start[r]:row_start[r + 1]]``, with invalid elements as
+    ``n``.  Node-major: the rows that hold node v are
+    ``inv_rows[inv_start[v]:inv_start[v + 1]]``, in row order, so Occur's
+    start is ``inv_start[v + 1] - inv_start[v]``."""
+    nodes: torch.Tensor       # (t,) int32
+    row_start: torch.Tensor   # (num_rows + 1,) int32
+    inv_start: torch.Tensor   # (n + 1,) int32
+    inv_rows: torch.Tensor    # (t,) int32
+
+
+def flat_index(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+               *, n: int, num_rows: int) -> FlatIndex:
+    """:class:`FlatIndex` of a pool whose rows are contiguous and in row
+    order (``ids`` non-decreasing, as ``DeviceRRStore.append_batch`` writes
+    them), by torch operations on the pool's device and no host read: a
+    stable sort of the valid elements by node (invalid ones sort last, as
+    node n) and two binary searches."""
+    dev = flat.device
+    nodes = torch.where(valid, flat.to(torch.int32), n)
+    key, perm = torch.sort(nodes, stable=True)
+    ids = ids.to(torch.int32)
+    inv_start = torch.searchsorted(
+        key, torch.arange(n + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    row_start = torch.searchsorted(
+        ids, torch.arange(num_rows + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    return FlatIndex(nodes=nodes, row_start=row_start, inv_start=inv_start,
+                     inv_rows=ids.index_select(0, perm))
+
+
+def _check(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor, *,
+           n: int, num_rows: int, k: int) -> None:
+    dev = flat.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel given a tensor on {dev}")
+    for t, name, dtype in ((flat, "flat", torch.int32),
+                           (ids, "ids", torch.int32),
+                           (valid, "valid", torch.bool)):
+        if t.device != dev:
+            raise ValueError(f"{name} must lie on {dev}, got {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.dim() != 1 or t.shape != flat.shape:
+            raise ValueError(f"{name} must be 1-D of flat's length "
+                             f"{flat.shape[0]}, got {tuple(t.shape)}")
+    if not 1 <= n < (1 << 31) - 1 or k < 1:
+        raise ValueError(f"need 1 <= n < 2^31 - 1 and k >= 1, got n {n}, "
+                         f"k {k}")
+    if not 1 <= num_rows < 1 << 31 or flat.shape[0] >= 1 << 31:
+        raise ValueError(f"need 1 <= num_rows < 2^31 and fewer than 2^31 "
+                         f"elements, got {num_rows}, {flat.shape[0]}")
+
+
+def greedy_flat(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+                *, n: int, num_rows: int, k: int):
+    """``k`` greedy steps on the card: (t,) int32 ``flat`` and ``ids`` (rows
+    contiguous and in row order, row ids below ``num_rows``) and bool
+    ``valid`` -> ``(seeds (k,) int32, gains (k,) int32)``, as
+    ``ref.greedy_flat_ref``."""
+    n, num_rows, k = int(n), int(num_rows), int(k)
+    _check(flat, ids, valid, n=n, num_rows=num_rows, k=k)
+    idx = flat_index(flat, ids, valid, n=n, num_rows=num_rows)
+    dev = flat.device
+    out = torch.empty(2, k, dtype=torch.int32, device=dev)
+    # keys (k uint64), Occur (n int32), Covered (num_rows bytes)
+    scratch = torch.empty(8 * k + 4 * n + num_rows, dtype=torch.uint8,
+                          device=dev)
+    index = flat.get_device()
+    err = _GREEDY(idx.nodes.data_ptr(), idx.row_start.data_ptr(),
+                  idx.inv_start.data_ptr(), idx.inv_rows.data_ptr(), n,
+                  num_rows, k, scratch.data_ptr(), out.data_ptr(),
+                  BLOCKS_PER_SM, index, _build.raw_stream(index))
+    _build.raise_on(err, "greedy_flat")
+    LAUNCHES["greedy_flat"] += 1
+    return out[0], out[1]
+
+
+def _index(device) -> int:
+    device = torch.device(device)
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
+def grid_blocks(device) -> int:
+    """The blocks of :func:`greedy_flat`'s grid on card ``device``."""
+    blocks = _int(0)
+    _build.raise_on(_GRID(BLOCKS_PER_SM, _index(device), ctypes.byref(blocks)),
+                    "greedy_grid_blocks")
+    return blocks.value
+
+
+def grid_barriers(count: int, device) -> None:
+    """One cooperative launch of :func:`greedy_flat`'s grid on card
+    ``device`` that runs ``count`` grid barriers and nothing else (not
+    counted in :data:`LAUNCHES`)."""
+    index = _index(device)
+    _build.raise_on(_BARRIERS(int(count), BLOCKS_PER_SM, index,
+                              _build.raw_stream(index)),
+                    "greedy_grid_barriers")

@@ -15,13 +15,15 @@ import torch
 from repro_torch.kernels import bernoulli as _bernoulli
 from repro_torch.kernels import bitset as _bitset
 from repro_torch.kernels import flashattn as _flash
+from repro_torch.kernels import greedy as _greedy
 from repro_torch.kernels import membership as _membership
 from repro_torch.kernels import queue as _queue
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sketch as _sketch
 
 _COUNTERS = (_bitset.LAUNCHES, _sketch.LAUNCHES, _bernoulli.LAUNCHES,
-             _membership.LAUNCHES, _flash.LAUNCHES, _queue.LAUNCHES)
+             _membership.LAUNCHES, _flash.LAUNCHES, _queue.LAUNCHES,
+             _greedy.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -118,6 +120,20 @@ def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
                                 qcap=qcap, ec=ec)
     return _ref.queue_round_ref(offsets, indices, weights, seed32, batch,
                                 qcap=qcap, ec=ec)
+
+
+def greedy_flat(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+                *, n: int, num_rows: int, k: int):
+    """``k`` steps of greedy max-coverage on a flat pool: (t,) int32 node ids
+    ``flat`` and row ids ``ids`` (rows contiguous and in row order, below
+    ``num_rows``), (t,) bool ``valid`` -> (seeds (k,) int32, gains (k,)
+    int32); the same bytes on either route (``ref.greedy_flat_ref`` says
+    what they hold)."""
+    if _route(flat) == "cuda":
+        return _greedy.greedy_flat(flat, ids, valid, n=n, num_rows=num_rows,
+                                   k=k)
+    return _ref.greedy_flat_ref(flat, ids, valid, n=n, num_rows=num_rows,
+                                k=k)
 
 
 def membership_rows(rows: torch.Tensor, lengths: torch.Tensor,

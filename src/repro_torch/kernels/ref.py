@@ -211,6 +211,65 @@ def popcount_words_ref(words: torch.Tensor) -> torch.Tensor:
     return (mul_u32(v, 0x01010101) >> 24).to(torch.int32)
 
 
+def _unpack_covered(cov_words: torch.Tensor) -> torch.Tensor:
+    """(nw,) int32 packed Covered bitset -> (nw*32,) bool rows."""
+    shifts = torch.arange(32, dtype=torch.int32, device=cov_words.device)
+    return (((cov_words[:, None] >> shifts) & 1) != 0).reshape(-1)
+
+
+def _pack_covered(rows: torch.Tensor) -> torch.Tensor:
+    """(nw*32,) bool rows -> (nw,) int32 packed words."""
+    shifts = torch.arange(32, dtype=torch.int64, device=rows.device)
+    words = (rows.reshape(-1, 32).to(torch.int64) << shifts).sum(dim=1)
+    return to_int32_bits(words)
+
+
+def _newly_rows(flat, ids, valid, covered, u):
+    """Rows containing ``u`` that are not covered yet — the membership
+    pass of the fused scan."""
+    match = ((flat == u) & valid).to(torch.int32)
+    row_has = torch.zeros(covered.shape[0], dtype=torch.int32,
+                          device=flat.device).index_add_(0, ids, match) > 0
+    return row_has & ~covered
+
+
+def greedy_flat_ref(flat: torch.Tensor, ids: torch.Tensor,
+                    valid: torch.Tensor, *, n: int, num_rows: int, k: int):
+    """Greedy max-coverage of ``k`` seeds on a flat pool: the reference's
+    fused scan (``repro.core.coverage`` ``fused``), the plain version of
+    ``csrc/greedy.cu``.
+
+    ``flat``/``ids``/``valid`` are the pool's (t,) node ids, row ids (below
+    ``num_rows``, a multiple of 32) and valid flags; elements are unique
+    within a row.  Occur starts as the count of valid elements per node.
+    Each step takes the first maximum of Occur (the lowest id on ties, 0
+    when Occur is all zero), marks the rows that hold it and are not yet
+    covered in a packed Covered bitset, counts them (the SWAR popcount of
+    the new words) and takes their valid elements off Occur.  Returns
+    ``(seeds (k,) int32, gains (k,) int32)``.
+    """
+    flat = flat.to(torch.int64)
+    ids = ids.to(torch.int64)
+    dev = flat.device
+    occur = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
+        0, flat, valid.to(torch.int32))[:n]
+    cov = torch.zeros(num_rows // 32, dtype=torch.int32, device=dev)
+    seeds, gains = [], []
+    for _ in range(k):
+        u = torch.argmax(occur)
+        newly = _newly_rows(flat, ids, valid, _unpack_covered(cov), u)
+        new_words = _pack_covered(newly)
+        gains.append(popcount_words_ref(new_words.view(1, -1)).sum())
+        elem_newly = (newly[ids] & valid).to(torch.int32)
+        occur = occur - torch.zeros(n + 1, dtype=torch.int32,
+                                    device=dev).index_add_(
+            0, flat, elem_newly)[:n]
+        cov = cov | new_words
+        seeds.append(u)
+    return (torch.stack(seeds).to(torch.int32),
+            torch.stack(gains).to(torch.int32))
+
+
 def occur_from_bitset_ref(words: torch.Tensor) -> torch.Tensor:
     """Occur[w*32 + b] = number of rows with bit b of word w set.
 

@@ -457,6 +457,10 @@ PROFILER_ALSO = {
     "queue_bfs": ["void (anonymous namespace)::queue_bfs_kernel(int const*, "
                   "int const*, float const*, unsigned int, int, int, long, "
                   "long, int*, unsigned int*, int*, int*, bool*, long*)"],
+    "greedy_flat": ["void (anonymous namespace)::greedy_flat_kernel(int "
+                    "const*, int const*, int const*, int const*, int, long, "
+                    "int, unsigned long long*, int*, unsigned char*, int*, "
+                    "int*)"],
 }
 
 
@@ -589,3 +593,49 @@ def test_one_sm_bound_is_the_longest_lanes_trials_on_one_sm(h100):
                                                  / H100_MHZ / 1e3)
     assert 0.02334 < b["one_sm_bound_ms"] < 0.02335
     assert smoke.one_sm_bound(0)["one_sm_bound_ms"] == 0
+
+
+def _greedy_pool():
+    """Three rows over n = 6: {0, 1, 2}, {2, 3} and {4} with its second
+    element invalid; row capacity 32."""
+    import torch
+    flat = torch.tensor([0, 1, 2, 2, 3, 4, 5], dtype=torch.int32)
+    ids = torch.tensor([0, 0, 0, 1, 1, 2, 2], dtype=torch.int32)
+    valid = torch.tensor([1, 1, 1, 1, 1, 1, 0], dtype=torch.bool)
+    return flat, ids, valid
+
+
+def test_greedy_bound_counts_the_pool_and_the_steps(h100):
+    """Seeds 2 then 4 (k = 2): bytes are the 7 elements read once (9 bytes
+    each) and 2 x 8 bytes written; the argmax compares 6 entries a step
+    and the covered rows {0, 1, 2} decrement their 6 valid elements; the
+    working set reads Occur twice, the seeds' 2 + 1 rows, the 6 elements
+    and the indices once."""
+    import torch
+    flat, ids, valid = _greedy_pool()
+    seeds = torch.tensor([2, 4], dtype=torch.int32)
+    b = smoke.greedy_bound(flat, ids, valid, seeds, n=6, num_rows=32, k=2)
+    assert b["bound_bytes_ms"] == pytest.approx((9 * 7 + 16) / 3.35e9)
+    alu_s = H100_SMS * 64 * H100_MHZ * 1e6
+    assert b["bound_ops_ms"] == pytest.approx((2 * 6 + 6) / alu_s * 1e3)
+    assert b["seed_rows"] == 3 and b["decremented_elements"] == 6
+    assert b["working_bytes"] == 4 * 6 * 2 + 13 * 3 + 4 * 6 + 8 * 7 \
+        + 4 * 33 + 4 * 7
+    assert b["working_bytes_ms"] == pytest.approx(b["working_bytes"]
+                                                  / 3.35e9)
+
+
+def test_greedy_pool_args_and_plain_seeds_agree_with_the_bound(h100):
+    """pool_args hands the live pool and k = K to the greedy; on the tiny
+    pool the plain greedy picks 2 then 4, the seeds the bound was given."""
+    import torch
+    from repro_torch.core import coverage as cov
+    from repro_torch.kernels import ref
+    store = cov.DeviceRRStore(6, device="cpu")
+    store.append_batch((torch.tensor([[0, 1, 2], [2, 3, 6], [4, 6, 6]]),
+                        torch.tensor([3, 2, 1])))
+    args, kw = smoke.pool_args(store)
+    assert kw == {"n": 6, "num_rows": 32, "k": smoke.K}
+    assert [a.shape[0] for a in args] == [6, 6, 6]
+    seeds, gains = ref.greedy_flat_ref(*args, **dict(kw, k=2))
+    assert seeds.tolist() == [2, 4] and gains.tolist() == [2, 1]

@@ -21,6 +21,7 @@ from repro_torch.core.rrset import round_seed, sample_rrsets_queue, to_lists
 from repro_torch.graph import csr, generators, weights
 from repro_torch.kernels import bernoulli as tbern, bitset as tbitset
 from repro_torch.kernels import flashattn as tflash
+from repro_torch.kernels import greedy as tgreedy
 from repro_torch.kernels import membership as tmem
 from repro_torch.kernels import queue as tqueue
 from repro_torch.kernels import _build, ops, ref
@@ -793,9 +794,10 @@ def test_union_popcount_kernel_equals_plain(card, w, r):
 
 @pytest.mark.cuda
 def test_greedy_popcounts_run_on_the_card(card):
-    """The flat and the approximate selections on the card launch
-    popcount_words (no plain popcount on a card tensor) and give the CPU's
-    seeds, gains and frac bytes."""
+    """On the card the flat selection runs each greedy as one greedy_flat
+    launch (no popcount left in it) and the approximate selection launches
+    popcount_words (no plain popcount on a card tensor); both give the
+    CPU's seeds, gains and frac bytes."""
     g = {d: _graph(d) for d in ("cpu", card)}
     flat, approx = {}, {}
     for dev in ("cpu", card):
@@ -803,16 +805,19 @@ def test_greedy_popcounts_run_on_the_card(card):
         solver = IMMSolver(g[dev], batch=256, selection="fused", seed=9,
                            device=dev)
         flat[dev] = solver.solve(IMProblem(k=10, eps=0.4))
-        flat_pops = ops.launch_counts()["popcount_words"]
+        flat_counts = ops.launch_counts()
         ops.reset_launch_counts()
         approx[dev] = IMMSolver(g[dev], batch=256, seed=9, sketch_k=256,
                                 device=dev).solve(
             IMProblem(k=10, theta=2048, mode="approximate"))
         counts = ops.launch_counts()
         if dev == "cpu":
-            assert flat_pops == 0 and counts["popcount_words"] == 0
+            assert flat_counts["greedy_flat"] == 0
+            assert flat_counts["popcount_words"] == 0
+            assert counts["popcount_words"] == 0
         else:
-            assert flat_pops >= 10
+            assert flat_counts["greedy_flat"] >= 1
+            assert flat_counts["popcount_words"] == 0
             assert counts["popcount_words"] >= 10
             assert counts["sketch_union_popcount"] >= 10
     for res in (flat, approx):
@@ -1025,3 +1030,130 @@ def test_queue_wrapper_checks_inputs(card):
     empty = tqueue.queue_bfs(*args, 5, 0, qcap=40, ec=128)
     assert [tuple(x.shape) for x in empty] == [(0, 40), (0,), (0,), (0,),
                                                (0,)]
+
+
+# the fused greedy (csrc/greedy.cu): pools with empty rows, growth, n and
+# the row count off multiples of 32, wide ones, and rows longer than a
+# block of the kernel; k = 1, 50 and past the last positive gain
+
+
+def _greedy_batches(name):
+    """(n, [(nodes, lengths), ...]) of a named random pool."""
+    rng = np.random.default_rng(len(name))
+    n, count, max_len, batches = {"ragged": (97, None, 12, 12),
+                                  "small": (70, 45, 9, 1),
+                                  "wide": (5_003, 700, 64, 3),
+                                  "longrow": (3_001, 300, 8, 2)}[name]
+    out = []
+    for _ in range(batches):
+        c = count or int(rng.integers(1, 900))
+        lens = rng.integers(0, max_len, c)
+        if name == "longrow":
+            lens[::50] = rng.integers(513, n, lens[::50].size)
+        nodes = np.full((c, max(int(lens.max()), 1)), n, np.int64)
+        for i, ln in enumerate(lens):
+            nodes[i, :ln] = rng.choice(n, size=ln, replace=False)
+        out.append((nodes, lens))
+    return n, out
+
+
+def _greedy_store(name, device):
+    n, batches = _greedy_batches(name)
+    store = cov.DeviceRRStore(n, device=device)
+    for nodes, lens in batches:
+        store.append_batch((torch.as_tensor(nodes), torch.as_tensor(lens)))
+    return store
+
+
+def _store_args(store):
+    t = store.n_elems
+    return (store.flat[:t], store.ids[:t], store.valid[:t]), dict(
+        n=store.n_nodes, num_rows=store.row_capacity())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", ["1", "50", "past"])
+@pytest.mark.parametrize("name", ["ragged", "small", "wide", "longrow"])
+def test_greedy_flat_kernel_equals_plain(card, name, k):
+    store = _greedy_store(name, card)
+    args, kw = _store_args(store)
+    k = {"1": 1, "50": 50, "past": store.n_nodes + 3}[k]
+    want = ref.greedy_flat_ref(*args, **kw, k=k)
+    before = ops.launch_counts()["greedy_flat"]
+    got = tgreedy.greedy_flat(*args, **kw, k=k)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["greedy_flat"] == before + 1
+    for x, y in zip(got, want):
+        assert x.dtype == torch.int32 and x.shape == (k,)
+        assert torch.equal(x, y)
+    if k > store.n_nodes:
+        assert int(got[1][-1]) == 0 and int(got[0][-1]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ragged", "small", "wide", "longrow"])
+def test_flat_selection_on_card_equals_cpu(card, name):
+    """The store's flat selection on the card (one greedy_flat launch, no
+    host sync) gives the CPU store's seeds, gains and frac bytes."""
+    import warnings
+    got_store, want_store = _greedy_store(name, card), _greedy_store(name,
+                                                                     "cpu")
+    got_store.select(5, method="flat")                  # builds the kernel
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = got_store.select(50, method="flat")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    assert syncs == []
+    counts = ops.launch_counts()
+    assert counts["greedy_flat"] == 1 and counts["popcount_words"] == 0
+    want = want_store.select(50, method="flat")
+    assert torch.equal(got.seeds.cpu(), want.seeds)
+    assert torch.equal(got.gains.cpu(), want.gains)
+    assert got.frac.cpu().numpy().tobytes() == want.frac.numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_greedy_flat_on_an_empty_pool(card):
+    """No element: Occur is all zero, every seed is 0 with gain 0."""
+    empty = torch.zeros(0, dtype=torch.int32, device=card)
+    seeds, gains = tgreedy.greedy_flat(
+        empty, empty, empty.bool(), n=33, num_rows=32, k=4)
+    assert seeds.tolist() == [0] * 4 and gains.tolist() == [0] * 4
+
+
+@pytest.mark.cuda
+def test_greedy_grid_and_barriers(card):
+    """The grid is a block an SM; the barrier-only launch of that grid
+    runs and is not counted as a greedy_flat launch."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert tgreedy.grid_blocks(card) == sms
+    before = ops.launch_counts()["greedy_flat"]
+    tgreedy.grid_barriers(100, card)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["greedy_flat"] == before
+
+
+@pytest.mark.cuda
+def test_greedy_wrapper_checks_inputs(card):
+    store = _greedy_store("small", card)
+    (flat, ids, valid), kw = _store_args(store)
+    with pytest.raises(TypeError):
+        tgreedy.greedy_flat(flat.long(), ids, valid, **kw, k=2)
+    with pytest.raises(TypeError):
+        tgreedy.greedy_flat(flat, ids, valid.int(), **kw, k=2)
+    with pytest.raises(ValueError):
+        tgreedy.greedy_flat(flat, ids.cpu(), valid, **kw, k=2)
+    with pytest.raises(ValueError):
+        tgreedy.greedy_flat(flat, ids[:-1], valid, **kw, k=2)
+    for bad in (dict(kw, n=0), dict(kw, num_rows=0)):
+        with pytest.raises(ValueError):
+            tgreedy.greedy_flat(flat, ids, valid, **bad, k=2)
+    with pytest.raises(ValueError):
+        tgreedy.greedy_flat(flat, ids, valid, **kw, k=0)
