@@ -13,7 +13,7 @@ Phases, each of which raises on failure (non-zero exit):
    ``bernoulli.cu``, ``membership.cu``, ``flashattn.cu``, ``queue.cu`` and
    ``greedy.cu`` with nvcc for sm_90a, one nvcc per source, started
    together, and prints each ``-Xptxas -v`` report; the three Occur
-   kernels and the two of ``greedy.cu`` must not spill;
+   kernels and the four of ``greedy.cu`` must not spill;
 3. kernels: both Occur kernels against their plain versions on random
    int32 words of shape (131072, 2372) (bit 31 set in half the words, a
    ~50% row mask); the union popcount at (75880, 512) and (75880, 4) and
@@ -21,7 +21,8 @@ Phases, each of which raises on failure (non-zero exit):
    into (75880, 512); exact equality, then timed (:func:`timing`: CUDA
    events over back-to-back calls, the kernel's own device time from
    torch.profiler, and the host's enqueue time a call; the union popcount
-   at (75880, 4) runs the row-per-thread design).  The
+   at (75880, 4) runs the row-per-thread design), and ``greedy_sketch`` at
+   k = 50 on both random sketches against its plain version, exact.  The
    dense path's kernels on random data at its shapes (``pack_bits`` at
    (512, 75904), ``bitset_or``/``bitset_andnot``/``popcount_words`` at
    (512, 2372), ``bernoulli_edges`` at 512 seeds x 607,012 edges) and at
@@ -39,11 +40,24 @@ Phases, each of which raises on failure (non-zero exit):
    mode="approximate", max_theta=8192))`` with the auto sketch size on the
    epinions-like stand-in (``barabasi_albert(75879, 4, seed=0)`` with WC
    weights): stage times, θ, sketch size and bytes, peak memory and the
-   launch counts of the sketch kernels and ``queue_bfs``, which must be >
-   0; no pool buffer; the forward-MC spread of its seeds must lie in
-   ``[0.9 lo, 1.1 hi]`` of its ``spread_bounds``.  ``max_theta`` keeps the run finite: at this size the
-   auto sketch (128 buckets) saturates, and the Alg. 2 loop, reading the
-   saturated estimate, would otherwise sample towards λ* (PERF.md §4);
+   launch counts: ``greedy_sketch`` once a selection, ``sketch_scatter_or``
+   and ``queue_bfs`` > 0, no ``popcount_words`` and no
+   ``sketch_union_popcount``; no pool buffer; one selection must make
+   exactly one host sync (:func:`count_syncs`); the forward-MC spread of
+   its seeds must lie in ``[0.9 lo, 1.1 hi]`` of its ``spread_bounds``.
+   ``max_theta`` keeps the run finite: at this size the auto sketch (128
+   buckets) saturates, and the Alg. 2 loop, reading the saturated
+   estimate, would otherwise sample towards λ* (PERF.md §4).  Then the
+   same solve with the parent's selection loop (:func:`parent_sketch_select`:
+   a ``sketch_union_popcount`` and a ``popcount_words`` launch and a host
+   read a step) and with this one, in turns (parent, kernel, kernel,
+   parent), each with its stage times; every solve must give the same θ,
+   LB, rounds, seeds, gains, float32 bytes of frac and spread_bounds.  The
+   selections alone likewise in turns on the final sketch, and
+   ``greedy_sketch``'s record there (:func:`sketch_greedy_record`: byte for
+   byte against the plain version ``ref.greedy_sketch_ref`` on the card,
+   timed beside it, with the bound, the bytes of its k sweeps and the
+   barrier floor, the same grid running its k + 1 grid barriers alone);
 5. exact solve (the first slice's path), ``IMMSolver(g, engine="queue",
    batch=512, selection="bitset", seed=0).solve(IMProblem(k=50,
    eps=0.5))``, with wall time per stage, peak memory and the launch
@@ -66,7 +80,9 @@ Phases, each of which raises on failure (non-zero exit):
    ``SketchRRStore.from_state``, no second sampling); ``select_seeds_sketch``
    must give the ``bitset`` seeds, gains and frac exactly.  The same pool
    folded at smaller sketch sizes must keep the certified lower bound
-   ``lo_rows`` at or below the rows its seeds truly cover;
+   ``lo_rows`` at or below the rows its seeds truly cover.  At each size
+   (W = 512, 4, 32, 128 words a row) ``greedy_sketch``'s record, on a
+   ``greedy_sketch_probes:`` line;
 9. dense solve (the third slice's path): ``IMMSolver(g, engine="dense",
    batch=512, selection="bitset", seed=0).solve(IMProblem(k=50, eps=0.5))``
    with stage times, levels per round, peak memory and launch counts
@@ -129,8 +145,10 @@ membership scan at the padded store, flash attention at olmo-1b's shape,
 the queue sampler at the exact path's first round with the work it
 examined (:func:`queue_bound`) and its one-SM bound
 (:func:`one_sm_bound`), the greedy at the default solve's final pool
-with its barrier floor (:func:`greedy_record`); launches from each
-path's run; each with
+with its barrier floor (:func:`greedy_record`), the sketch greedy at the
+approximate solve's final sketch (:func:`sketch_greedy_record`); launches
+from each path's run (``sketch_union_popcount`` 0: no path launches it
+since ``greedy_sketch`` runs the approximate greedy); each with
 ``ms``, ``device_ms``,
 ``device_other_ms`` and ``enqueue_us`` from :func:`timing`;
 ``bernoulli_edges`` with its trial's instructions by class as the built
@@ -234,6 +252,7 @@ LIBRARY_NOTE = {
     "membership_rows": "eq, mask and any are three PyTorch calls",
     "queue_bfs": "no single PyTorch call runs a BFS",
     "greedy_flat": "no single PyTorch call runs a greedy",
+    "greedy_sketch": "no single PyTorch call runs a greedy",
 }
 SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "sketch_scatter_or": "sketch", "sketch_union_popcount": "sketch",
@@ -241,7 +260,7 @@ SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "bitset_andnot": "bitops", "popcount_words": "bitops",
              "bernoulli_edges": "bernoulli", "membership_rows": "membership",
              "flash_attention": "flashattn", "queue_bfs": "queue",
-             "greedy_flat": "greedy"}
+             "greedy_flat": "greedy", "greedy_sketch": "greedy"}
 # each record's kernel as the profiler names it (a regular expression that
 # matches the demangled or the mangled name)
 DEVICE_KERNEL = {
@@ -258,6 +277,7 @@ DEVICE_KERNEL = {
     "flash_attention": r"flash_(wgmma|simt_split|simt)_kernel",
     "queue_bfs": r"queue_bfs_kernel",
     "greedy_flat": r"greedy_flat_kernel",
+    "greedy_sketch": r"greedy_sketch_kernel",
 }
 KERNELS = {
     "occur_from_bitset": "src/repro/kernels/bitset.py:167",
@@ -275,6 +295,9 @@ KERNELS = {
     "queue_bfs": "src/repro/core/rrset.py:230",
     # no Pallas kernel: the reference's fused scan is a jitted lax.scan
     "greedy_flat": "src/repro/core/coverage.py:1359",
+    # no Pallas kernel of its own: the reference's greedy is a host loop
+    # of sweeps (each the Pallas sketch_union_popcount)
+    "greedy_sketch": "src/repro/core/coverage.py:2223",
 }
 # phase 3: the queue kernel at the exact path's first round, also at qcap
 # 64 (above its longest RR set, 21) and 8, where lanes overflow
@@ -1023,16 +1046,115 @@ class StageClock:
         setattr(obj, method, timed)
 
 
-def approximate_phase(g):
-    """The approximate solve with the auto sketch size: stage times, launch
-    counts, certificate and its forward-MC check; returns the sketch
-    kernels' records at this path's shapes."""
-    dev = g.device
+def parent_sketch_select(store, k: int, info_out: dict | None = None):
+    """The parent's sketch selection, kept as the before figure: a host
+    loop whose every step launches ``sketch_union_popcount`` and
+    ``popcount_words`` (``core/sketch.py::union_gains``), masks the picked
+    nodes, takes the argmax and reads ``(u, score[u])`` back; the
+    certificate is the store's own (``coverage.sketch_certificate``)."""
+    n, sk = store.n_nodes, store.words
+    dev = sk.device
+    cov_words = torch.zeros(sk.shape[1], dtype=torch.int32, device=dev)
+    picked = torch.zeros(n, dtype=torch.bool, device=dev)
+    seeds, gains = [], []
+    for _ in range(k):
+        deltas = sketch_mod.union_gains(sk, cov_words)[:n]
+        score = torch.where(picked, -1, deltas)
+        u = torch.argmax(score)
+        u_host, best = (int(x) for x in torch.stack([u, score[u]]).cpu())
+        if best < 0:
+            break
+        seeds.append(u_host)
+        gains.append(best)
+        picked[u] = True
+        cov_words = sketch_mod.union_row(cov_words, sk, u)
+    frac = cov.sketch_certificate(store, int(sum(gains)), info_out)
+    pad = k - len(seeds)
+    return cov.CoverageResult(
+        seeds=torch.tensor(seeds + [n] * pad, dtype=torch.int32, device=dev),
+        gains=torch.tensor(gains + [0] * pad, dtype=torch.int32, device=dev),
+        frac=torch.tensor(frac, dtype=torch.float32, device=dev))
+
+
+def sketch_greedy_bound(n: int, cols: int, k: int, steps: int) -> dict:
+    """The sketch greedy's least time.  Bytes: the n node rows read once
+    (4 bytes a word) and the 2k + 1 outputs written once.  Operations, for
+    the steps this run took: an OR and an add on the ALU and a popcount a
+    word of every row, and a compare a row.  Also the bytes of the sweeps
+    the design makes (``sweep_bytes_ms``: the n rows read once a step, at
+    the HBM rate, though a sketch under 50 MB stays in L2)."""
+    words = n * cols
+    bound = _bound(4 * words + 4 * (2 * k + 1),
+                   {"alu": steps * (2 * words + n), "xu": steps * words})
+    sweep = 4 * words * steps
+    return dict(bound, sweep_bytes=sweep,
+                sweep_bytes_ms=sweep / HBM_BYTES_S * 1e3,
+                sketch_fits_l2=4 * words <= 50 * 2 ** 20)
+
+
+def check_greedy_sketch(words) -> dict:
+    """greedy_sketch at k = K on random sketch words against its plain
+    version, byte for byte (its first launch, so the solves that follow
+    find it loaded)."""
+    n = words.shape[0] - 1
+    got = ops.greedy_sketch(words, n=n, k=K)
+    want = ref.greedy_sketch_ref(words, n=n, k=K)
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError(f"greedy_sketch != plain version on random "
+                             f"words {tuple(words.shape)}")
+    return {"shape": list(words.shape), "k": K, "steps": int(got[2]),
+            "gains_sum": int(got[1].sum()), "equal": True}
+
+
+def sketch_greedy_record(words, n: int, launches=None, iters=20,
+                         plain_iters=1, **extra) -> dict:
+    """greedy_sketch on ``words`` against its plain version on the card
+    (seeds, gains and steps byte for byte), then timed beside it, with the
+    bound, the grid, the shared-memory form and the barrier floor: the same
+    grid running the grid barriers of this greedy (one, then one a step
+    taken and one at the step that found no node) alone."""
+    got = ops.greedy_sketch(words, n=n, k=K)
+    want = ref.greedy_sketch_ref(words, n=n, k=K)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(x, y) for x, y in zip(got, want))
+    if err or not all(x.dtype == y.dtype and torch.equal(x, y)
+                      for x, y in zip(got, want)):
+        raise AssertionError(f"greedy_sketch != plain version at "
+                             f"{tuple(words.shape)}: max abs err {err}")
+    dev = words.device
+    steps = int(got[2])
+    barriers = 1 + min(steps + 1, K)
+    times = timing("greedy_sketch",
+                   lambda: ops.greedy_sketch(words, n=n, k=K), iters)
+    plain_ms = cuda_ms(lambda: ref.greedy_sketch_ref(words, n=n, k=K),
+                       plain_iters)
+    floor_ms = cuda_ms(lambda: greedy.grid_barriers(barriers, dev), iters)
+    blocks, shared_words = greedy.sketch_grid(dev)
+    lanes, vector = greedy.sketch_layout(words.shape[1],
+                                         words.data_ptr() % 16 == 0)
+    return record("greedy_sketch", launches, err, times, plain_ms,
+                  sketch_greedy_bound(n, words.shape[1], K, steps),
+                  barrier_floor_ms=floor_ms, grid_barriers=barriers,
+                  grid_blocks=blocks, threads=greedy.THREADS,
+                  barrier_grid_blocks=greedy.grid_blocks(dev),
+                  cov_in_shared_memory=-(-words.shape[1] // 4) * 4
+                  <= shared_words, lanes=lanes, vector_loads=vector,
+                  shape=list(words.shape), n=n, k=K, steps=steps,
+                  gains_sum=int(got[1].sum()), **extra)
+
+
+def approximate_solve(g, parent: bool = False) -> dict:
+    """One approximate solve with the auto sketch size, its stages timed,
+    launches counted from just before it to just after; ``parent`` swaps
+    the store's selection for :func:`parent_sketch_select`."""
     problem = IMProblem(k=K, eps=EPS, mode="approximate",
                         max_theta=APPROX_MAX_THETA)
-    solver = IMMSolver(g, engine="queue", batch=BATCH, seed=0, device=dev)
+    solver = IMMSolver(g, engine="queue", batch=BATCH, seed=0,
+                       device=g.device)
     solver.prepare(problem)
     store = solver.store
+    if parent:
+        store.select = functools.partial(parent_sketch_select, store)
     clock = StageClock()
     clock.wrap(solver.engine, "sample", "sampling")
     clock.wrap(store, "append_batch", "fold")
@@ -1046,9 +1168,52 @@ def approximate_phase(g):
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    return {"res": res, "solver": solver, "solve_s": solve_s,
+            "stage_s": dict(clock.seconds), "stage_calls": dict(clock.calls),
+            "launches": launches, "base_mem": base_mem,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def approx_fields(res) -> dict:
+    """What two approximate solves must share."""
+    st = res.stats
+    return {"theta": st.theta, "lb": st.lb, "lb_iters": st.lb_iters,
+            "rounds": st.rounds, "seeds": [int(x) for x in res.seeds],
+            "gains": [int(x) for x in res.gains],
+            "frac_f32": np.float32(res.frac).tobytes().hex(),
+            "spread_bounds": list(res.spread_bounds)}
+
+
+def turns_ms(calls: dict, reps: int = 3) -> dict:
+    """Host milliseconds a call (between two synchronize()), in turns: the
+    first, the second, the second, the first, each ``reps`` calls."""
+    (a, fa), (b, fb) = calls.items()
+    out = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name].append((time.perf_counter() - t0) / reps * 1e3)
+    return out
+
+
+def approximate_phase(g):
+    """The approximate solve with the auto sketch size: stage times, launch
+    counts (one greedy_sketch a selection, no popcount), one host sync a
+    selection, certificate and its forward-MC check; then the parent's
+    selection loop against this one, in turns, in the whole solve and in
+    the selection alone.  Returns the records of the sketch kernels and of
+    greedy_sketch at this path's shapes."""
+    run = approximate_solve(g)
+    res, solver, launches = run["res"], run["solver"], run["launches"]
+    store = solver.store
     st = res.stats
     info = dict(solver._sketch_info)
+    store.select(K)
+    torch.cuda.synchronize()
+    _, sync_sites = count_syncs(lambda: store.select(K, info_out={}))
     t0 = time.perf_counter()
     mc = forward.ic_spread(g, res.seeds, n_sims=MC_SIMS, seed=1)
     mc_s = time.perf_counter() - t0
@@ -1061,19 +1226,28 @@ def approximate_phase(g):
         "sketch_words_shape": list(store.words.shape),
         "sketch_bytes": store.sketch_bytes(),
         "per_device_pool_bytes": store.per_device_pool_bytes(),
-        "solve_s": solve_s, "stage_s": clock.seconds,
-        "stage_calls": clock.calls,
-        "max_memory_allocated": peak,
-        "memory_before_solve": base_mem, "launches": launches,
+        "solve_s": run["solve_s"], "stage_s": run["stage_s"],
+        "stage_calls": run["stage_calls"],
+        "max_memory_allocated": run["peak"],
+        "memory_before_solve": run["base_mem"], "launches": launches,
+        "select_host_syncs": len(sync_sites),
+        "select_host_sync_sites": sync_sites,
         "spread": res.spread, "spread_bounds": [lo, hi], "frac": res.frac,
         "certificate": info, "seeds": res.seeds.tolist()[:10],
         "n_seeds": len(res.seeds), "mc_spread": mc, "mc_sims": MC_SIMS,
         "mc_s": mc_s, "history": st.history,
     })
-    for name in ("sketch_scatter_or", "sketch_union_popcount", "queue_bfs"):
-        if launches[name] == 0:
-            raise AssertionError(f"{name} was not launched on the "
-                                 "approximate path")
+    selections = run["stage_calls"]["selection"]
+    if launches["greedy_sketch"] != selections or selections == 0 \
+            or launches["popcount_words"] \
+            or launches["sketch_union_popcount"] \
+            or launches["sketch_scatter_or"] == 0 \
+            or launches["queue_bfs"] == 0:
+        raise AssertionError(f"approximate path: {selections} selections, "
+                             f"launches {launches}")
+    if len(sync_sites) != 1:
+        raise AssertionError(f"a sketch selection made {len(sync_sites)} "
+                             f"host syncs: {sync_sites}")
     if store.per_device_pool_bytes() != 0 or hasattr(store, "flat"):
         raise AssertionError("the approximate path allocated a pool")
     if len(set(res.seeds.tolist())) != K or not math.isfinite(res.spread) \
@@ -1083,10 +1257,29 @@ def approximate_phase(g):
     if not 0.9 * lo <= mc <= 1.1 * hi:
         raise AssertionError(f"forward MC {mc} outside [0.9 lo, 1.1 hi] = "
                              f"[{0.9 * lo}, {1.1 * hi}]")
+    # the parent's selection loop and this one, whole solves in turns
+    want = approx_fields(res)
+    solves = []
+    for parent in (True, False, False, True):
+        other = approximate_solve(g, parent=parent)
+        solves.append({"selection": "parent loop" if parent
+                       else "greedy_sketch", "solve_s": other["solve_s"],
+                       "stage_s": other["stage_s"],
+                       "launches": {k: v for k, v in
+                                    other["launches"].items() if v},
+                       "equal": approx_fields(other["res"]) == want})
+        del other
+    select_ms = turns_ms({
+        "parent loop": lambda: parent_sketch_select(store, K),
+        "greedy_sketch": lambda: store.select(K)})
+    say("approximate_turns", {"solves": solves, "select_ms": select_ms})
+    if not all(t["equal"] for t in solves):
+        raise AssertionError("the parent's sketch selection and "
+                             "greedy_sketch give different solves")
     # the sketch kernels at this path's shapes: the final sketch, the
     # seeds' union, and the pairs of the solve's first round
     words = store.words
-    cov_words = torch.zeros(words.shape[1], dtype=torch.int32, device=dev)
+    cov_words = torch.zeros(words.shape[1], dtype=torch.int32, device=g.device)
     for u in res.seeds.tolist():
         cov_words = sketch_mod.union_row(cov_words, words, u)
     batch = solver.engine.sample(round_seed(0, 0))
@@ -1094,17 +1287,25 @@ def approximate_phase(g):
         batch.nodes, batch.lengths,
         sketch_mod.canonical_row_ids(batch.lengths, 0),
         n_rows=words.shape[0], k=store.sketch_k, mode=store.sketch_mode)
-    return sketch_records(words, cov_words, v, b, launches=launches)
+    records = sketch_records(words, cov_words, v, b, launches=launches)
+    for rec in records:
+        if rec["name"] == "sketch_union_popcount":
+            rec["launches_note"] = ("no path launches it: greedy_sketch runs "
+                                    "the approximate greedy")
+    return records + [sketch_greedy_record(words, store.n_nodes, launches,
+                                           plain_iters=3)]
 
 
 def exact_regime_phase(store, bit) -> None:
     """Fold the exact pool into sketches; at sketch_k = row_capacity the
     sketch greedy must equal the bitset greedy, and at every size the
-    certified lower bound must not exceed the rows the seeds cover."""
+    certified lower bound must not exceed the rows the seeds cover and
+    greedy_sketch must equal its plain version (its record at each
+    width)."""
     n, t = store.n_nodes, store.n_elems
     flat, ids, valid = store.flat[:t], store.ids[:t], store.valid[:t]
     m = store.bitset_matrix()
-    probes = {}
+    probes, greedy_recs = {}, []
     for sketch_k in dict.fromkeys((store.row_capacity(),) + PROBE_SKETCH_K):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1118,6 +1319,7 @@ def exact_regime_phase(store, bit) -> None:
         res = cov.select_seeds_sketch(sk_store, K, info_out=info)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        greedy_recs.append(sketch_greedy_record(words, n, sketch_k=sketch_k))
         seeds = res.seeds.to(torch.int64)
         hit = ((m[:, seeds >> 5] >> (seeds & 31)) & 1).any(dim=1)
         true_rows = int(hit.sum())
@@ -1139,6 +1341,7 @@ def exact_regime_phase(store, bit) -> None:
                                      "from the bitset selection")
         del words, sk_store
     say("exact_regime", probes)
+    say("greedy_sketch_probes", greedy_recs)
 
 
 def dense_solve_phase(g, queue_res, queue_store) -> None:
@@ -1709,8 +1912,8 @@ def main() -> int:
                              f"ptxas reports {occur_spills}")
     greedy_spills = ptxas_spills(_build.PTXAS_REPORT["greedy"], "greedy_cu")
     say("greedy_ptxas", greedy_spills)
-    if len(greedy_spills) != 2 or any(greedy_spills.values()):
-        raise AssertionError(f"greedy.cu: want 2 kernels without spills, "
+    if len(greedy_spills) != 4 or any(greedy_spills.values()):
+        raise AssertionError(f"greedy.cu: want 4 kernels without spills, "
                              f"ptxas reports {greedy_spills}")
 
     # 3. kernels against their plain versions
@@ -1720,7 +1923,7 @@ def main() -> int:
             < 0.5).to(torch.int32)
     say("kernels", kernel_records(words, mask))
     del words, mask
-    at_scale = []
+    at_scale, greedy_checks = [], []
     for cols in (SKETCH_WORDS, 4):
         words = random_words((SKETCH_ROWS, cols), gen)
         cov_words = random_words((64, cols), gen)[0]
@@ -1728,7 +1931,9 @@ def main() -> int:
                             SCATTER_PAIRS if cols == SKETCH_WORDS else 1 << 16,
                             gen)
         at_scale += sketch_records(words, cov_words, v, b)
+        greedy_checks.append(check_greedy_sketch(words))
     say("sketch_kernels_at_scale", at_scale)
+    say("greedy_sketch_random", greedy_checks)
     del words, cov_words, v, b
     # the dense path's kernels at its shapes (random data), and ragged
     src, dst = generators.barabasi_albert(N_NODES, BA_R, seed=0)

@@ -38,7 +38,9 @@ seeds, gains and ``frac`` identical to each other and to the reference's
 reference's ``SketchRRStore`` on one device): each batch folds straight
 into packed per-node occupancy sketches and no pool buffer exists.
 :func:`select_seeds_sketch` is its greedy on sketch estimates, with a
-certified error bound instead of exact marginals.
+certified error bound instead of exact marginals: all k steps in one
+launch of the ``greedy_sketch`` CUDA kernel (``kernels.ops.greedy_sketch``;
+the plain version on the CPU) and one host read a selection.
 """
 from __future__ import annotations
 
@@ -314,6 +316,12 @@ class SketchRRStore:
     and valid buffers of :class:`DeviceRRStore` are never allocated: memory
     is O(n · sketch_k / 8) whatever θ is.  The host keeps exact row and
     element counts (one device read per append), which drive θ.
+
+    ``fold_error`` is a (1,) int32 flag on the device that a fold sets when
+    a pair's bucket lies outside the sketch (the fold reads nothing back).
+    The next append's count read and the selection's one read also read the
+    flag, and raise ``ValueError`` when it is set, so a bad fold raises
+    before any result that follows it is returned.
     """
 
     pool_free = True
@@ -331,6 +339,8 @@ class SketchRRStore:
         self.sketch_rows = n_nodes + 1
         self.words = torch.zeros((self.sketch_rows, self.sketch_k // 32),
                                  dtype=torch.int32, device=self.device)
+        self.fold_error = torch.zeros(1, dtype=torch.int32,
+                                      device=self.device)
         self._nrr = 0      # the θ row counter (host mirror, exact)
         self._t = 0        # element count (stats only)
 
@@ -349,6 +359,13 @@ class SketchRRStore:
     def sketch_bytes(self) -> int:
         return self.sketch_rows * (self.sketch_k // 32) * 4
 
+    def check_folds(self, flag: int) -> None:
+        """Raise if ``flag``, the host's read of :attr:`fold_error`, says
+        that a fold met a bucket outside the sketch."""
+        if flag:
+            raise ValueError(f"a fold met a bucket outside [0, "
+                             f"{self.sketch_k})")
+
     def append_batch(self, batch) -> None:
         """Fold one padded batch (an ``RRBatch`` or ``(nodes, lengths)``)
         into the sketch words: the whole append."""
@@ -360,11 +377,14 @@ class SketchRRStore:
             raise ValueError("append_batch wants padded (R, W) nodes + (R,) "
                              "lengths")
         clamped = lens.to(torch.int64).clamp(0, nodes.shape[1])
-        elems, rows = (int(x) for x in torch.stack(
-            [clamped.sum(), (clamped > 0).sum()]).cpu())
+        elems, rows, bad = (int(x) for x in torch.stack(
+            [clamped.sum(), (clamped > 0).sum(),
+             self.fold_error[0].to(torch.int64)]).cpu())
+        self.check_folds(bad)
         sketch_mod.fold_frontier_packed(self.words, nodes, lens, self._nrr,
                                         k=self.sketch_k,
-                                        mode=self.sketch_mode)
+                                        mode=self.sketch_mode,
+                                        bad=self.fold_error)
         self._t += elems
         self._nrr += rows
 
@@ -404,13 +424,32 @@ def select_seeds_sketch(store, k: int, *,
                         info_out: dict | None = None) -> CoverageResult:
     """Greedy selection on sketch estimates alone (the approximate mode).
 
-    Per seed: one Δocc sweep over every node (the union-popcount kernel on
-    the card), the first maximum among nodes not yet picked (``torch.argmax``
-    returns the lowest id on ties, as the reference's host argmax does), and
-    an OR of the seed's sketch row into the union ``cov``.  The loop stops
-    when no candidate is left; seeds are padded to k with the sentinel n.
+    All k steps are one ``kernels.ops.greedy_sketch`` call (the CUDA kernel
+    on the card, the plain version on the CPU).  Per seed: Δocc(v) =
+    popcount(sketch_v | cov) − popcount(cov) for every node, the first
+    maximum among nodes not yet picked (the lowest id on ties, as the
+    reference's host argmax), and an OR of the seed's sketch row into the
+    union ``cov``.  The greedy stops when no candidate is left; seeds are
+    padded to k with the sentinel n and gain 0.  The host reads the summed
+    gains and the store's fold flag back once, and the certificate
+    (:func:`sketch_certificate`) is host arithmetic on that sum.
+    """
+    seeds, gains, _ = kops.greedy_sketch(store.words, n=store.n_nodes, k=k)
+    occ_union, bad = (int(x) for x in torch.stack(
+        [gains.sum(dtype=torch.int64),
+         store.fold_error[0].to(torch.int64)]).cpu())
+    store.check_folds(bad)
+    frac = sketch_certificate(store, occ_union, info_out)
+    return CoverageResult(seeds=seeds, gains=gains,
+                          frac=torch.full((), float(frac),
+                                          dtype=torch.float32,
+                                          device=seeds.device))
 
-    The certificate (``info_out``), as the reference's:
+
+def sketch_certificate(store, occ_union: int,
+                       info_out: dict | None = None) -> np.float32:
+    """``frac`` of a sketch selection whose gains sum to ``occ_union``, and
+    its certificate into ``info_out``, as the reference's:
 
     * ``lo_rows`` — the summed Δocc, a deterministic lower bound on the rows
       the seeds cover;
@@ -423,26 +462,8 @@ def select_seeds_sketch(store, k: int, *,
     ``np.float32(frac)``: the LB loop's Alg. 2 L7 test reads it, and a
     float64 value could flip that test at a boundary and change θ.
     """
-    n = store.n_nodes
-    sk = store.words
-    sk_k = int(sk.shape[1]) * 32
-    dev = sk.device
-    cov = torch.zeros(sk.shape[1], dtype=torch.int32, device=dev)
-    picked = torch.zeros(n, dtype=torch.bool, device=dev)
+    sk_k = store.sketch_k
     n_rr = store.n_rr
-    seeds, gains = [], []
-    for _ in range(k):
-        deltas = sketch_mod.union_gains(sk, cov)[:n]
-        score = torch.where(picked, -1, deltas)
-        u = torch.argmax(score)
-        u_host, best = (int(x) for x in torch.stack([u, score[u]]).cpu())
-        if best < 0:                     # no candidate left
-            break
-        seeds.append(u_host)
-        gains.append(best)
-        picked[u] = True
-        cov = sketch_mod.union_row(cov, sk, u)
-    occ_union = int(sum(gains))
     exact_regime = store.sketch_mode == "mod" and n_rr <= sk_k
     if exact_regime:
         est_rows, lo_rows, hi_rows = float(occ_union), occ_union, occ_union
@@ -461,9 +482,4 @@ def select_seeds_sketch(store, k: int, *,
                         lo_rows=lo_rows, hi_rows=hi_rows,
                         saturated=saturated, rel_error=rel_err,
                         exact_regime=exact_regime, sketch_k=sk_k, n_rr=n_rr)
-    pad = k - len(seeds)
-    frac = np.float32(est_rows / max(n_rr, 1))
-    return CoverageResult(
-        seeds=torch.tensor(seeds + [n] * pad, dtype=torch.int32, device=dev),
-        gains=torch.tensor(gains + [0] * pad, dtype=torch.int32, device=dev),
-        frac=torch.tensor(frac, dtype=torch.float32, device=dev))
+    return np.float32(est_rows / max(n_rr, 1))

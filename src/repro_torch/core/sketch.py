@@ -15,7 +15,9 @@ matrix.  A union is a bitwise OR and its occupancy a popcount.
   ``kernels.ops.sketch_union_popcount``: ``Δocc(v | S) = popcount(sketch_v
   | cov) − popcount(cov)``, the second term through
   ``kernels.ops.popcount_words``.  New buckets need new rows, so Δocc never
-  exceeds v's exact marginal coverage.
+  exceeds v's exact marginal coverage.  The store's greedy
+  (``core/coverage.py::select_seeds_sketch``) runs all its sweeps inside
+  one ``kernels.ops.greedy_sketch`` launch instead.
 * With ``"mod"`` bucketing and at most k rows the bucketing is injective
   and Δocc *is* the exact marginal gain.
 
@@ -77,13 +79,15 @@ def frontier_pairs(nodes: torch.Tensor, lens: torch.Tensor,
 
 def fold_frontier_rows(words: torch.Tensor, nodes: torch.Tensor,
                        lens: torch.Tensor, row_ids: torch.Tensor, *, k: int,
-                       mode: str) -> torch.Tensor:
+                       mode: str, bad: torch.Tensor | None = None
+                       ) -> torch.Tensor:
     """Fold a padded batch into ``words`` in place, row i under the global
-    RR id ``row_ids[i]``; rows of length 0 are padding.  Returns
-    ``words``."""
+    RR id ``row_ids[i]``; rows of length 0 are padding.  A bucket outside
+    the sketch raises, or sets the (1,) int32 flag ``bad`` when one is
+    given (``kernels.ops.sketch_scatter_or``).  Returns ``words``."""
     v, b = frontier_pairs(nodes, lens, row_ids, n_rows=words.shape[0], k=k,
                           mode=mode)
-    return kops.sketch_scatter_or(words, v, b)
+    return kops.sketch_scatter_or(words, v, b, bad)
 
 
 def canonical_row_ids(lens: torch.Tensor, row_base: int) -> torch.Tensor:
@@ -94,12 +98,13 @@ def canonical_row_ids(lens: torch.Tensor, row_base: int) -> torch.Tensor:
 
 def fold_frontier_packed(words: torch.Tensor, nodes: torch.Tensor,
                          lens: torch.Tensor, row_base: int, *, k: int,
-                         mode: str) -> torch.Tensor:
+                         mode: str, bad: torch.Tensor | None = None
+                         ) -> torch.Tensor:
     """:func:`fold_frontier_rows` with canonical batch-order row ids
     (``row_base`` = rows folded before this batch)."""
     return fold_frontier_rows(words, nodes, lens,
                               canonical_row_ids(lens, row_base), k=k,
-                              mode=mode)
+                              mode=mode, bad=bad)
 
 
 def sketch_packed_from_flat(flat: torch.Tensor, ids: torch.Tensor,

@@ -1,6 +1,7 @@
-"""CUDA wrapper of the fused greedy max-coverage (``csrc/greedy.cu``): one
+"""CUDA wrappers of the fused greedy max-coverage (``csrc/greedy.cu``): one
 cooperative launch runs all k seed steps of the ``flat`` selection (paper
-Alg. 7) on the exact pool.
+Alg. 7) on the exact pool (:func:`greedy_flat`), or of the approximate
+mode's greedy on the coverage sketch (:func:`greedy_sketch`).
 
 :func:`greedy_flat` computes what ``kernels/ref.py::greedy_flat_ref``
 computes, seeds and gains byte for byte (the kernel's note says how).  It
@@ -13,12 +14,20 @@ stream of the tensors' card (:func:`_build.raw_stream`), raises on a
 launch error and adds one to its entry in :data:`LAUNCHES`.  It reads
 nothing back, so a selection makes no host sync.
 
-:func:`grid_barriers` launches the same grid with nothing but the grid
-barriers in it: the floor of the kernel's time.
+:func:`greedy_sketch` computes what ``kernels/ref.py::greedy_sketch_ref``
+computes, byte for byte, likewise on CUDA tensors only: it checks the
+sketch before it builds anything, chooses the rows' lane groups
+(:func:`sketch_layout`), allocates the outputs and the scratch
+(:func:`sketch_scratch_bytes`) and launches; nothing is read back.
+
+:func:`grid_barriers` launches the same grid (a block of 512 threads on
+each SM, the grid of both kernels) with nothing but the grid barriers in
+it: the floor of either kernel's time.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -26,7 +35,7 @@ import torch
 from repro_torch.kernels import _build
 
 # launches since the last reset (see ops.reset_launch_counts)
-LAUNCHES = {"greedy_flat": 0}
+LAUNCHES = {"greedy_flat": 0, "greedy_sketch": 0}
 
 # csrc/greedy.cu: threads a block; the grid is BLOCKS_PER_SM blocks on
 # every SM (more blocks make slower grid barriers, as
@@ -43,6 +52,12 @@ _BARRIERS = _build.Kernel("greedy", "greedy_grid_barriers",
                           (_i32, _int, _int, _vp))
 _GRID = _build.Kernel("greedy", "greedy_grid_blocks",
                       (_int, _int, ctypes.POINTER(_int)))
+_SKETCH = _build.Kernel("greedy", "greedy_sketch",
+                        (_vp, _i32, _i32, _int, _int, _i32, _vp, _vp, _int,
+                         _vp))
+_SKETCH_GRID = _build.Kernel("greedy", "greedy_sketch_grid",
+                             (_int, ctypes.POINTER(_int),
+                              ctypes.POINTER(_i64)))
 
 
 class FlatIndex(NamedTuple):
@@ -147,3 +162,72 @@ def grid_barriers(count: int, device) -> None:
     _build.raise_on(_BARRIERS(int(count), BLOCKS_PER_SM, index,
                               _build.raw_stream(index)),
                     "greedy_grid_barriers")
+
+
+def sketch_layout(cols: int, aligned: bool) -> tuple[int, bool]:
+    """``(lanes, vector)`` of :func:`greedy_sketch`'s rows at ``cols`` words
+    a row: ``vector`` when the rows take 16-byte loads (``cols % 4 == 0``
+    and the words 16-byte ``aligned``); ``lanes`` = 1 (a thread a row) at
+    ``cols <= 4``, else the least power of two at or above the row's loads,
+    at most 32."""
+    vector = cols % 4 == 0 and aligned
+    loads = cols // 4 if vector else cols
+    lanes = 1
+    if cols > 4:
+        while lanes < 32 and lanes < loads:
+            lanes *= 2
+    return lanes, vector
+
+
+def sketch_scratch_bytes(n: int, cols: int, k: int, blocks: int,
+                         shared_words: int) -> int:
+    """Scratch of one :func:`greedy_sketch` launch: the k step keys (8
+    bytes each) and n picked flags, then, when a row's ``cols`` words
+    (rounded up to 4) exceed ``shared_words``, each block's copy of cov
+    from the next 16-byte boundary."""
+    stride = -(-cols // 4) * 4
+    if stride <= shared_words:
+        return 8 * k + n
+    return -(-(8 * k + n) // 16) * 16 + 4 * blocks * stride
+
+
+def sketch_grid(device) -> tuple[int, int]:
+    """``(blocks, shared_words)`` of :func:`greedy_sketch`'s grid on card
+    ``device``: a block on each SM, and the widest cov in words that its
+    shared memory holds; read from the card once."""
+    return _sketch_grid(_index(device))
+
+
+@functools.cache
+def _sketch_grid(index: int) -> tuple[int, int]:
+    blocks, words = _int(0), _i64(0)
+    _build.raise_on(_SKETCH_GRID(index, ctypes.byref(blocks),
+                                 ctypes.byref(words)), "greedy_sketch_grid")
+    return blocks.value, words.value
+
+
+def greedy_sketch(words: torch.Tensor, *, n: int, k: int):
+    """``k`` steps of the approximate mode's greedy on the card: a
+    contiguous (R, W) int32 sketch whose rows ``v < n`` are the nodes' ->
+    ``(seeds (k,), gains (k,), steps (1,))`` int32, as
+    ``ref.greedy_sketch_ref``."""
+    n, k = int(n), int(k)
+    _build.check_words(words, "sketch words")
+    r, w = words.shape
+    if not 1 <= n <= r or n >= (1 << 31) - 1 or k < 1 or w >= 1 << 26:
+        raise ValueError(f"need 1 <= n <= {r} rows, n < 2^31 - 1, k >= 1 "
+                         f"and fewer than 2^26 words a row, got n {n}, k "
+                         f"{k}, {w} words")
+    index = words.get_device()
+    blocks, shared_words = _sketch_grid(index)
+    lanes, vector = sketch_layout(w, words.data_ptr() % 16 == 0)
+    out = torch.empty(2 * k + 1, dtype=torch.int32, device=words.device)
+    scratch = torch.empty(sketch_scratch_bytes(n, w, k, blocks,
+                                               shared_words),
+                          dtype=torch.uint8, device=words.device)
+    err = _SKETCH(words.data_ptr(), n, w, lanes, int(vector), k,
+                  scratch.data_ptr(), out.data_ptr(), index,
+                  _build.raw_stream(index))
+    _build.raise_on(err, "greedy_sketch")
+    LAUNCHES["greedy_sketch"] += 1
+    return out[:k], out[k:2 * k], out[2 * k:]

@@ -59,11 +59,14 @@ def occur_from_bitset_masked(words: torch.Tensor,
 
 
 def sketch_scatter_or(words: torch.Tensor, v: torch.Tensor,
-                      bucket: torch.Tensor) -> torch.Tensor:
-    """Scatter-OR of (row, bucket) pairs into ``words``, in place."""
+                      bucket: torch.Tensor,
+                      bad: torch.Tensor | None = None) -> torch.Tensor:
+    """Scatter-OR of (row, bucket) pairs into ``words``, in place.  A bucket
+    outside ``[0, 32W)`` raises at once or, given a (1,) int32 flag ``bad``
+    on the words' device, sets the flag for the caller to read later."""
     if _route(words) == "cuda":
-        return _sketch.sketch_scatter_or(words, v, bucket)
-    return _ref.sketch_scatter_or_ref(words, v, bucket)
+        return _sketch.sketch_scatter_or(words, v, bucket, bad)
+    return _ref.sketch_scatter_or_ref(words, v, bucket, bad)
 
 
 def sketch_union_popcount(words: torch.Tensor,
@@ -134,6 +137,16 @@ def greedy_flat(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
                                    k=k)
     return _ref.greedy_flat_ref(flat, ids, valid, n=n, num_rows=num_rows,
                                 k=k)
+
+
+def greedy_sketch(words: torch.Tensor, *, n: int, k: int):
+    """``k`` steps of the approximate mode's greedy on an (R, W) int32
+    sketch whose rows ``v < n`` are the nodes' -> (seeds (k,), gains (k,),
+    steps (1,)) int32; the same bytes on either route
+    (``ref.greedy_sketch_ref`` says what they hold)."""
+    if _route(words) == "cuda":
+        return _greedy.greedy_sketch(words, n=n, k=k)
+    return _ref.greedy_sketch_ref(words, n=n, k=k)
 
 
 def membership_rows(rows: torch.Tensor, lengths: torch.Tensor,

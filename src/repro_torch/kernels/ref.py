@@ -302,12 +302,15 @@ def _check_buckets(bucket: torch.Tensor, n_words: int) -> None:
 
 
 def sketch_scatter_or_ref(words: torch.Tensor, v: torch.Tensor,
-                          bucket: torch.Tensor) -> torch.Tensor:
+                          bucket: torch.Tensor,
+                          bad: torch.Tensor | None = None) -> torch.Tensor:
     """``words[v[e], bucket[e] >> 5] |= 1 << (bucket[e] & 31)``, in place.
 
     ``words`` is a contiguous (R, W) int32 matrix, ``v``/``bucket`` are (E,)
     integer tensors.  Pairs with ``v`` outside ``[0, R)`` are dropped and
-    duplicates are harmless; a bucket outside ``[0, 32W)`` raises.  torch
+    duplicates are harmless; a bucket outside ``[0, 32W)`` raises, or, when
+    a (1,) int32 flag ``bad`` is given, sets it nonzero and its pair is
+    dropped (no host read: the caller reads the flag later).  torch
     has no scatter with an OR reduction, so, as the reference's
     ``scatter_or_bits``: the (cell, bit) keys are deduplicated, bits already
     set are masked off, and the rest (distinct bits of each word) commit
@@ -315,10 +318,15 @@ def sketch_scatter_or_ref(words: torch.Tensor, v: torch.Tensor,
     the unsigned value and wraps back to int32 bits.  Returns ``words``.
     """
     r, w = words.shape
-    _check_buckets(bucket, w)
     v = v.to(torch.int64)
     b = bucket.to(torch.int64)
     keep = (v >= 0) & (v < r)
+    if bad is None:
+        _check_buckets(bucket, w)
+    else:
+        outside = (b < 0) | (b >= 32 * w)
+        bad.bitwise_or_(outside.any().to(torch.int32))
+        keep &= ~outside
     key = torch.unique((v * (w * 32) + b)[keep])      # sorted (cell, bit)
     if key.numel() == 0:
         return words
@@ -340,6 +348,40 @@ def sketch_union_popcount_ref(words: torch.Tensor,
     int32 -> (R,) int32."""
     return popcount_words_ref(words | cov[None, :]).sum(dim=1,
                                                         dtype=torch.int32)
+
+
+def greedy_sketch_ref(words: torch.Tensor, *, n: int, k: int):
+    """The approximate mode's greedy on sketch estimates: (R, W) int32
+    sketch words whose rows ``v < n`` are the nodes' -> ``(seeds (k,),
+    gains (k,), steps (1,))`` int32.
+
+    cov starts at zero.  Step s: ``delta(v) = popcount(words[v] | cov) -
+    popcount(cov)``; the first maximum of delta over the nodes not picked
+    yet (``torch.argmax``: the lowest id on ties) is seed s with gain
+    delta, and cov takes its row.  With no node left the greedy stops: the
+    steps not taken hold seed n and gain 0, and ``steps`` counts the steps
+    taken.  One host read a step."""
+    dev = words.device
+    rows = words[:n]
+    cov = torch.zeros(words.shape[1], dtype=torch.int32, device=dev)
+    picked = torch.zeros(n, dtype=torch.bool, device=dev)
+    out = torch.zeros(2 * k + 1, dtype=torch.int32, device=dev)
+    out[:k] = n
+    base = steps = 0
+    while steps < k:
+        score = torch.where(picked, -1,
+                            sketch_union_popcount_ref(rows, cov) - base)
+        u = torch.argmax(score)
+        u, best = torch.stack([u, score[u].to(u.dtype)]).tolist()
+        if best < 0:                     # no node left
+            break
+        out[steps], out[k + steps] = u, best
+        picked[u] = True
+        cov |= words[u]
+        base += best
+        steps += 1
+    out[2 * k] = steps
+    return out[:k], out[k:2 * k], out[2 * k:]
 
 
 def membership_rows_ref(rows: torch.Tensor, lengths: torch.Tensor,

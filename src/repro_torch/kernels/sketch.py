@@ -11,8 +11,11 @@ entry in :data:`LAUNCHES`.
 
 ``sketch_scatter_or`` updates ``words`` in place (the store folds every
 batch into its own words; the plain version does the same) and returns it.
-It reads back one int32 flag after the launch, so that a bucket outside
-``[0, 32W)`` raises: one device sync per call.
+A bucket outside ``[0, 32W)`` sets an int32 flag in the kernel.  Given the
+caller's flag (``bad``, as ``SketchRRStore`` passes its own) the wrapper
+reads nothing back and the caller checks the flag in a host read it makes
+anyway; without one it reads its own flag after the launch and raises: one
+device sync per call.
 """
 from __future__ import annotations
 
@@ -46,22 +49,33 @@ def _int32_vector(x: torch.Tensor, like: torch.Tensor, name: str,
 
 
 def sketch_scatter_or(words: torch.Tensor, v: torch.Tensor,
-                      bucket: torch.Tensor) -> torch.Tensor:
+                      bucket: torch.Tensor,
+                      bad: torch.Tensor | None = None) -> torch.Tensor:
     """``words[v, bucket >> 5] |= 1 << (bucket & 31)`` in place on the
     card; (R, W) int32 words, (E,) int32/int64 ``v`` and ``bucket``.
-    Pairs with ``v`` outside ``[0, R)`` are dropped.  Returns ``words``."""
+    Pairs with ``v`` outside ``[0, R)`` are dropped.  A bucket outside
+    ``[0, 32W)`` raises, or, given a (1,) int32 flag ``bad`` on the words'
+    card, sets it nonzero with no host read.  Returns ``words``."""
     _build.check_words(words)
     r, w = words.shape
     v = _int32_vector(v, words, "v")
     bucket = _int32_vector(bucket, words, "bucket", v.shape[0])
-    bad = torch.zeros(1, dtype=torch.int32, device=words.device)
+    if bad is None:
+        flag = torch.zeros(1, dtype=torch.int32, device=words.device)
+    elif (bad.device != words.device or bad.dtype != torch.int32
+          or bad.shape != (1,)):
+        raise ValueError(f"bad must be a (1,) int32 flag on {words.device}, "
+                         f"got {tuple(bad.shape)} {bad.dtype} on "
+                         f"{bad.device}")
+    else:
+        flag = bad
     dev = words.get_device()
     err = _SCATTER(words.data_ptr(), v.data_ptr(), bucket.data_ptr(),
-                   v.shape[0], r, w, bad.data_ptr(), dev,
+                   v.shape[0], r, w, flag.data_ptr(), dev,
                    _build.raw_stream(dev))
     _build.raise_on(err, "sketch_scatter_or")
     LAUNCHES["sketch_scatter_or"] += 1
-    if int(bad) != 0:
+    if bad is None and int(flag) != 0:
         raise ValueError(f"bucket outside [0, {32 * w})")
     return words
 

@@ -441,6 +441,10 @@ PROFILER_NAMES = {
                              "union_popcount_kernel(unsigned int const*)",
     "flash_attention": "void (anonymous namespace)::flash_wgmma_kernel<"
                        "__nv_bfloat16, 128, true>(CUtensorMap_st)",
+    "greedy_sketch": "void (anonymous namespace)::greedy_sketch_kernel<true>"
+                     "(unsigned int const*, int, int, int, bool, int, "
+                     "unsigned long long*, unsigned char*, unsigned int*, "
+                     "int*)",
 }
 # further names of the same records' kernels
 PROFILER_ALSO = {
@@ -461,6 +465,10 @@ PROFILER_ALSO = {
                     "const*, int const*, int const*, int const*, int, long, "
                     "int, unsigned long long*, int*, unsigned char*, int*, "
                     "int*)"],
+    "greedy_sketch": ["void (anonymous namespace)::greedy_sketch_kernel"
+                      "<false>(unsigned int const*, int, int, int, bool, "
+                      "int, unsigned long long*, unsigned char*, unsigned "
+                      "int*, int*)"],
 }
 
 
@@ -639,3 +647,50 @@ def test_greedy_pool_args_and_plain_seeds_agree_with_the_bound(h100):
     assert [a.shape[0] for a in args] == [6, 6, 6]
     seeds, gains = ref.greedy_flat_ref(*args, **dict(kw, k=2))
     assert seeds.tolist() == [2, 4] and gains.tolist() == [2, 1]
+
+
+def test_sketch_greedy_bound_counts_the_rows_once_and_the_steps(h100):
+    """Three node rows of two words, k = 2 and both steps taken: bytes are
+    the 6 words read once and the 5 outputs written; each step does an OR
+    and an add a word and a compare a row on the ALU and a popcount a word,
+    and the popcounts (at a quarter of the ALU's rate) set the operations'
+    time; the sweeps read the rows once a step."""
+    b = smoke.sketch_greedy_bound(3, 2, 2, 2)
+    assert b["bound_bytes_ms"] == pytest.approx((4 * 6 + 4 * 5) / 3.35e9)
+    xu_s = H100_SMS * 16 * H100_MHZ * 1e6
+    assert b["bound_ops_class"] == "xu"
+    assert b["bound_ops_ms"] == pytest.approx(2 * 6 / xu_s * 1e3)
+    assert b["bound_by"] == "bytes"
+    assert b["sweep_bytes"] == 2 * 4 * 6 and b["sketch_fits_l2"]
+
+
+def test_sketch_greedy_bound_at_the_approximate_cell(h100):
+    """75,879 rows of 4 words, 50 steps: the popcounts bound it at about
+    3.6 us, above the 1.21 MB read once; the 50 sweeps move 60.7 MB."""
+    b = smoke.sketch_greedy_bound(75_879, 4, 50, 50)
+    assert b["bound_by"] == "operations" and b["bound_ops_class"] == "xu"
+    assert b["bound_ms"] == pytest.approx(0.003630, rel=1e-3)
+    assert b["sweep_bytes"] == 60_703_200
+    assert b["sweep_bytes_ms"] == pytest.approx(0.018120, rel=1e-3)
+
+
+def test_parent_sketch_select_equals_the_store_selection():
+    """The parent's loop, kept as the before figure, gives the store's
+    selection: seeds, gains, frac bytes and certificate, past the last
+    node too (k > n pads with n)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import coverage as cov
+    rng = np.random.default_rng(2)
+    store = cov.SketchRRStore(40, sketch_k=256, device="cpu")
+    store.append_batch((torch.tensor(rng.integers(0, 40, (300, 5))),
+                        torch.tensor(rng.integers(0, 6, 300))))
+    for k in (5, 45):
+        want_info, got_info = {}, {}
+        want = store.select(k, info_out=want_info)
+        got = smoke.parent_sketch_select(store, k, got_info)
+        assert torch.equal(got.seeds, want.seeds)
+        assert torch.equal(got.gains, want.gains)
+        assert got.frac.numpy().tobytes() == want.frac.numpy().tobytes()
+        assert got_info == want_info
+    assert got.seeds[-5:].tolist() == [40] * 5

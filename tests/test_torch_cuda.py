@@ -205,7 +205,7 @@ def test_approximate_exact_regime_on_card_equals_bitset(card):
                                                     mode="approximate"))
     counts = ops.launch_counts()
     assert counts["sketch_scatter_or"] > 0
-    assert counts["sketch_union_popcount"] > 0
+    assert counts["greedy_sketch"] > 0 and counts["popcount_words"] == 0
     np.testing.assert_array_equal(approx.seeds, bit.seeds)
     np.testing.assert_array_equal(approx.gains, bit.gains)
     assert approx.frac == bit.frac
@@ -795,9 +795,9 @@ def test_union_popcount_kernel_equals_plain(card, w, r):
 @pytest.mark.cuda
 def test_greedy_popcounts_run_on_the_card(card):
     """On the card the flat selection runs each greedy as one greedy_flat
-    launch (no popcount left in it) and the approximate selection launches
-    popcount_words (no plain popcount on a card tensor); both give the
-    CPU's seeds, gains and frac bytes."""
+    launch and the approximate selection as one greedy_sketch launch (no
+    popcount left in either, no plain popcount on a card tensor); both give
+    the CPU's seeds, gains and frac bytes."""
     g = {d: _graph(d) for d in ("cpu", card)}
     flat, approx = {}, {}
     for dev in ("cpu", card):
@@ -818,8 +818,9 @@ def test_greedy_popcounts_run_on_the_card(card):
         else:
             assert flat_counts["greedy_flat"] >= 1
             assert flat_counts["popcount_words"] == 0
-            assert counts["popcount_words"] >= 10
-            assert counts["sketch_union_popcount"] >= 10
+            assert counts["greedy_sketch"] >= 1
+            assert counts["popcount_words"] == 0
+            assert counts["sketch_union_popcount"] == 0
     for res in (flat, approx):
         np.testing.assert_array_equal(res[card].seeds, res["cpu"].seeds)
         np.testing.assert_array_equal(res[card].gains, res["cpu"].gains)
@@ -1157,3 +1158,138 @@ def test_greedy_wrapper_checks_inputs(card):
             tgreedy.greedy_flat(flat, ids, valid, **bad, k=2)
     with pytest.raises(ValueError):
         tgreedy.greedy_flat(flat, ids, valid, **kw, k=0)
+
+
+# the approximate mode's sketch greedy (csrc/greedy.cu, greedy_sketch):
+# every lane layout (a thread a row at W <= 4, 16-byte loads at W % 4 == 0,
+# lane groups of 2 to 32), words off the 16-byte alignment, and a cov too
+# wide for shared memory (read through each block's copy in the scratch)
+
+
+def _sketch_words(r, w, kind):
+    """(r, w) int32 sketch words: ``random`` (bit 31 in about half),
+    ``sparse`` (one bit a row among 8 buckets: ties), ``saturating`` (sparse
+    with up to three rows of all ones: every gain is 0 once one is
+    picked)."""
+    if kind == "random":
+        return _words(r, w)
+    words = np.zeros((r, w), np.uint32)
+    bucket = RNG.integers(0, min(8, 32 * w), r)
+    words[np.arange(r), bucket >> 5] = np.uint32(1) << (bucket & 31)
+    if kind == "saturating":
+        words[RNG.choice(r - 1, min(3, r - 1), replace=False)] = 0xFFFFFFFF
+    return torch.tensor(words.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "sparse", "saturating"])
+@pytest.mark.parametrize("r,w", [(301, 1), (3, 2), (257, 3), (75881, 4),
+                                 (301, 5), (301, 8), (4097, 32), (301, 128),
+                                 (2049, 512), (40, 60000)])
+def test_greedy_sketch_kernel_equals_plain(card, r, w, kind):
+    """Byte for byte at k = 1, 50 and, up to 300 nodes, past the last node
+    (the early stop and the padding), on the words as given and one word
+    off the 16-byte alignment."""
+    host = _sketch_words(r, w, kind)
+    words = host.to(card)
+    flat = torch.empty(r * w + 1, dtype=torch.int32, device=card)
+    shifted = flat[1:].view(r, w)
+    shifted.copy_(words)
+    n = r - 1
+    for k in (1, 50) + ((n + 3,) if n <= 300 else ()):
+        want = ref.greedy_sketch_ref(host, n=n, k=k)
+        for x in (words, shifted) if k == 50 else (words,):
+            before = ops.launch_counts()["greedy_sketch"]
+            got = tgreedy.greedy_sketch(x, n=n, k=k)
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["greedy_sketch"] == before + 1
+            for a, b in zip(got, want):
+                assert a.dtype == torch.int32 and a.is_cuda
+                assert torch.equal(a.cpu(), b), (k, x is shifted)
+    assert torch.equal(ref.greedy_sketch_ref(words, n=n, k=5)[0].cpu(),
+                       ref.greedy_sketch_ref(host, n=n, k=5)[0])
+
+
+@pytest.mark.cuda
+def test_greedy_sketch_grid(card):
+    """A block an SM; shared memory holds the widest sketch row the port
+    meets at 16,384 buckets and more, not the 60,000 words above."""
+    blocks, shared_words = tgreedy.sketch_grid(card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert blocks == sms == tgreedy.grid_blocks(card)
+    assert 512 <= shared_words < 60000
+
+
+@pytest.mark.cuda
+def test_sketch_selection_is_one_launch_and_one_host_sync(card):
+    """The store's selection on the card: one greedy_sketch launch, no
+    popcount, and one host read (with torch's sync debug mode); it equals
+    the CPU store's seeds, gains, frac bytes and certificate."""
+    import warnings
+    nodes = torch.tensor(RNG.integers(0, 3000, (2048, 7)))
+    lens = torch.tensor(RNG.integers(0, 8, 2048))
+    stores = {}
+    for dev in ("cpu", card):
+        stores[dev] = cov.SketchRRStore(3000, sketch_k=1024, device=dev)
+        stores[dev].append_batch((nodes, lens))
+    stores[card].select(5)                              # builds the kernel
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    info = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = stores[card].select(50, info_out=info)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    assert len(syncs) == 1, syncs
+    counts = ops.launch_counts()
+    assert counts["greedy_sketch"] == 1
+    assert counts["popcount_words"] == counts["sketch_union_popcount"] == 0
+    want_info = {}
+    want = stores["cpu"].select(50, info_out=want_info)
+    assert torch.equal(got.seeds.cpu(), want.seeds)
+    assert torch.equal(got.gains.cpu(), want.gains)
+    assert got.frac.cpu().numpy().tobytes() == want.frac.numpy().tobytes()
+    assert info == want_info
+
+
+@pytest.mark.cuda
+def test_sketch_fold_flag_raises_at_the_next_read(card):
+    """A fold given the store's flag does not raise at a bucket outside the
+    sketch (it reads nothing back); the next selection and the next append
+    do.  The in-range pairs are folded, as on the CPU."""
+    store = cov.SketchRRStore(10, sketch_k=64, device=card)
+    v = torch.tensor([1, 2, 3], dtype=torch.int32, device=card)
+    b = torch.tensor([5, 64, 63], dtype=torch.int32, device=card)
+    ops.sketch_scatter_or(store.words, v, b, bad=store.fold_error)
+    assert store.fold_error.tolist() == [1]
+    cpu = torch.zeros(11, 2, dtype=torch.int32)
+    flag = torch.zeros(1, dtype=torch.int32)
+    ref.sketch_scatter_or_ref(cpu, v.cpu(), b.cpu(), flag)
+    assert torch.equal(store.words.cpu(), cpu) and flag.tolist() == [1]
+    with pytest.raises(ValueError, match="outside"):
+        store.select(3)
+    with pytest.raises(ValueError, match="outside"):
+        store.append_batch((torch.tensor([[1, 2]]), torch.tensor([2])))
+    with pytest.raises(ValueError):
+        ops.sketch_scatter_or(store.words, v, b,
+                              bad=torch.zeros(1, dtype=torch.int64,
+                                              device=card))
+
+
+@pytest.mark.cuda
+def test_greedy_sketch_wrapper_checks_inputs(card):
+    words = _words(9, 4).to(card)
+    with pytest.raises(TypeError):
+        tgreedy.greedy_sketch(words.long(), n=8, k=2)
+    with pytest.raises(ValueError):
+        tgreedy.greedy_sketch(words.t(), n=3, k=2)
+    with pytest.raises(ValueError):
+        tgreedy.greedy_sketch(words[0], n=1, k=2)
+    for bad in (dict(n=0, k=2), dict(n=10, k=2), dict(n=8, k=0)):
+        with pytest.raises(ValueError):
+            tgreedy.greedy_sketch(words, **bad)
