@@ -13,7 +13,7 @@ Phases, each of which raises on failure (non-zero exit):
    ``bernoulli.cu``, ``membership.cu``, ``flashattn.cu``, ``queue.cu`` and
    ``greedy.cu`` with nvcc for sm_90a, one nvcc per source, started
    together, and prints each ``-Xptxas -v`` report; the three Occur
-   kernels and the four of ``greedy.cu`` must not spill;
+   kernels and the five of ``greedy.cu`` must not spill;
 3. kernels: both Occur kernels against their plain versions on random
    int32 words of shape (131072, 2372) (bit 31 set in half the words, a
    ~50% row mask); the union popcount at (75880, 512) and (75880, 4) and
@@ -133,9 +133,10 @@ Phases, each of which raises on failure (non-zero exit):
    its final pool must make no host sync (:func:`count_syncs`).  Then
    ``greedy_flat``'s record at that pool and, on a ``greedy_flat_eps_low:``
    line, at the pool of an eps = 0.25 solve (:func:`greedy_record`: byte
-   for byte against the plain version, timed beside it, with the bound,
-   the working set, the index build's time and the barrier floor, the
-   same grid running its 2k grid barriers alone).
+   for byte against the plain version, one device operation a call under
+   torch.profiler, timed beside the plain version, with the bound, the
+   working set and the barrier floor, the same grid running its k + 3
+   grid barriers alone).
 
 The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
 the exact path's final bit matrix, masked on the first seed's rows as the
@@ -961,21 +962,48 @@ def count_syncs(fn):
                  if "called a synchronizing" in str(w.message)]
 
 
+def traced_device_ops(fn, kernel: str | None,
+                      calls: int = 1) -> tuple[list, int]:
+    """The device operations of ``calls`` calls of ``fn()`` under
+    torch.profiler, and the traces taken.  A trace on this card drops the
+    first device records of a session (a call's only kernel, when the call
+    comes first), so the traced calls follow a warm-up call in the same
+    trace, and only the device operations that start inside their
+    ``record_function`` span count; a trace that holds no record of
+    ``kernel`` (a regular expression; None: any) is taken again, up to
+    three."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    for traces in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            with record_function("profiled call"):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        start = min(e.time_range.start for e in events
+                    if e.name == "profiled call")
+        # the span itself also shows on the device's timeline: not an op
+        dev_ops = [e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.start >= start
+                   and e.name != "profiled call"]
+        if kernel is None or any(re.search(kernel, e.name) for e in dev_ops):
+            break
+    return dev_ops, traces
+
+
 def profile_round(engine, seed32: int) -> dict:
     """One sampling round: its host syncs counted (:func:`count_syncs`),
     then timed bare, then the same round (same seed, same work) under
-    torch.profiler: the device's busy time over the bare round's wall time
-    gives the device's idle share while sampling.  A trace on this card
-    drops the first device records of a session (a queue round's only
-    kernel, when the round comes first), so the profiled round follows a
-    warm-up round in the same trace, and only the device operations that
-    start inside its ``record_function`` span count; a trace that still
-    holds no record of the queue kernel is taken again, up to three.  The
-    device operations are named (``device_op_names``: count by name), so a
-    fill or a copy beside the kernels shows.  A queue round also reports
-    its longest lane's edges and compactions, a dense round its figures a
-    level."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.profiler (:func:`traced_device_ops`): the device's busy time over
+    the bare round's wall time gives the device's idle share while
+    sampling.  The device operations are named (``device_op_names``: count
+    by name), so a fill or a copy beside the kernels shows.  A queue round
+    also reports its longest lane's edges and compactions, a dense round
+    its figures a level."""
     torch.cuda.synchronize()
     _, sync_sites = count_syncs(lambda: engine.sample(seed32))
     torch.cuda.synchronize()
@@ -984,24 +1012,7 @@ def profile_round(engine, seed32: int) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     kernel = DEVICE_KERNEL["queue_bfs"] if engine.name == "queue" else None
-    for traces in range(1, 4):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            engine.sample(seed32)
-            torch.cuda.synchronize()
-            with record_function("profiled round"):
-                engine.sample(seed32)
-                torch.cuda.synchronize()
-        events = prof.events()
-        start = min(e.time_range.start for e in events
-                    if e.name == "profiled round")
-        # the span itself also shows on the device's timeline: not an op
-        dev_ops = [e for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.time_range.start >= start
-                   and e.name != "profiled round"]
-        if kernel is None or any(re.search(kernel, e.name) for e in dev_ops):
-            break
+    dev_ops, traces = traced_device_ops(lambda: engine.sample(seed32), kernel)
     busy = sum(e.time_range.elapsed_us() for e in dev_ops) / 1e6
     names: dict[str, int] = {}
     for e in dev_ops:
@@ -1628,39 +1639,69 @@ def pool_args(store) -> tuple:
         n=store.n_nodes, num_rows=store.row_capacity(), k=K)
 
 
-def greedy_bound(flat, ids, valid, seeds, *, n, num_rows, k) -> dict:
+def greedy_bound(flat, ids, valid, seeds, *, n, num_rows, k, blocks,
+                 shared) -> dict:
     """The greedy's least time.  Bytes: the pool read once (flat and ids 4
     bytes an element, valid 1) and the seeds and gains written once.
     Operations: one compare an Occur entry a step (the argmax) and one
     decrement a valid element of each row the seeds cover, on the ALU.
     Also the working set, what the kernel's design moves through L2 and
-    memory (``working_bytes_ms``): Occur read k times (4 bytes a node),
-    each step's seed's rows (the node-major entry, the two row starts and
-    the flag: 13 bytes a row) and the elements of the rows it newly covers
-    (4 bytes each), and the four indices once; and the work's counts."""
+    memory (``working_bytes_ms``).  The prologue: count zeroed, its
+    atomics (one a counted element) and two reads; cursor written and its
+    atomics; row_start written and its binary searches' reads of ids;
+    flat, valid and ids read and nodes written and read (17 bytes an
+    element); the m counted elements' entries written (12 bytes) with the
+    row starts they copy (8).  The exchanges: each block writes a
+    16-byte record a step and reads every block's.  The covers: each
+    block, in each of the k - 1 covers (the last step walks no row), reads
+    each of u's entries (12 bytes) and the node of each element of the
+    rows it newly covers (4 bytes), from L2; Occur and Covered are in
+    shared memory (``shared``), else each argmax also reads a block's
+    slice of Occur.  And the work's counts."""
     t = flat.shape[0]
     f = flat.to(torch.int64)
-    hit_elems = torch.isin(f, seeds.to(torch.int64)) & valid
-    rows_hit = torch.zeros(num_rows, dtype=torch.bool, device=flat.device)
-    rows_hit[ids[hit_elems].to(torch.int64)] = True
-    covered_elems = int((rows_hit[ids.to(torch.int64)] & valid).sum())
+    counted = valid & (f < n)
+    m = int(counted.sum())
     occur0 = torch.zeros(n + 1, dtype=torch.int64,
                          device=flat.device).index_add_(
-        0, f, valid.to(torch.int64))[:n]
-    seed_rows = int(occur0[seeds.to(torch.int64)].sum())
+        0, torch.where(counted, f, n), counted.to(torch.int64))[:n]
+
+    def covered_by(some):
+        hit = torch.isin(f, some.to(torch.int64)) & counted
+        rows_hit = torch.zeros(num_rows, dtype=torch.bool, device=flat.device)
+        rows_hit[ids[hit].to(torch.int64)] = True
+        return rows_hit[ids.to(torch.int64)]
+
+    covered_elems = int((covered_by(seeds) & valid).sum())
+    walked_rows = int(occur0[seeds[:-1].to(torch.int64)].sum())
+    walked_elems = int(covered_by(seeds[:-1]).sum())
     bound = _bound(9 * t + 8 * k, {"alu": k * n + covered_elems})
-    working = 4 * n * k + 13 * seed_rows + 4 * covered_elems \
-        + 8 * t + 4 * (num_rows + 1) + 4 * (n + 1)
+    searches = (num_rows + 1) * max(1, math.ceil(math.log2(t + 1)))
+    prologue = 12 * n + 4 * m + 4 * n + 4 * m + 4 * (num_rows + 1) \
+        + 4 * searches + 17 * t + 20 * m
+    exchanges = 16 * k * blocks * (blocks + 1)
+    covers = blocks * (12 * walked_rows + 4 * walked_elems)
+    if not shared:
+        covers += 4 * n * k
+    working = prologue + exchanges + covers
     return dict(bound, working_bytes=working,
                 working_bytes_ms=working / HBM_BYTES_S * 1e3,
-                seed_rows=seed_rows, decremented_elements=covered_elems)
+                working_prologue_bytes=prologue,
+                working_exchange_bytes=exchanges,
+                working_cover_bytes=covers, seed_rows_walked=walked_rows,
+                elements_walked_a_block=walked_elems,
+                decremented_elements=covered_elems)
 
 
 def greedy_record(store, launches, iters=20, plain_iters=3) -> dict:
     """greedy_flat on the store's pool against its plain version on the
-    card (seeds and gains byte for byte), then timed beside it, with the
-    bound, the working set, the grid, the index build's time and the
-    barrier floor: the same grid running its 2k barriers alone."""
+    card (seeds and gains byte for byte), the device operations of 10 calls
+    (:func:`traced_device_ops`: the kernel alone, at most once a call; it
+    builds the pool's index itself), then timed beside the plain version,
+    with the
+    bound, the working set, the grid, where the blocks' state lives, and
+    the barrier floor: the same grid running its k + 3 grid barriers
+    alone."""
     args, kw = pool_args(store)
     got = ops.greedy_flat(*args, **kw)
     want = ref.greedy_flat_ref(*args, **kw)
@@ -1671,16 +1712,31 @@ def greedy_record(store, launches, iters=20, plain_iters=3) -> dict:
         raise AssertionError(f"greedy_flat != plain version at {store.n_rr} "
                              f"rows: max abs err {err}")
     dev = store.flat.device
+    kernel, calls = DEVICE_KERNEL["greedy_flat"], 10
+    dev_ops, traces = traced_device_ops(lambda: ops.greedy_flat(*args, **kw),
+                                        kernel, calls)
+    names = sorted({e.name[:80] for e in dev_ops})
+    # the trace may drop a record, never add one
+    if not 1 <= len(dev_ops) <= calls or len(names) != 1 \
+            or not re.search(kernel, names[0]):
+        raise AssertionError(f"{calls} greedy_flat calls made the device "
+                             f"operations {names} ({len(dev_ops)} in all, "
+                             f"{traces} traces)")
     times = timing("greedy_flat", lambda: ops.greedy_flat(*args, **kw), iters)
     plain_ms = cuda_ms(lambda: ref.greedy_flat_ref(*args, **kw), plain_iters)
-    index_ms = cuda_ms(lambda: greedy.flat_index(
-        *args, n=kw["n"], num_rows=kw["num_rows"]), iters)
-    floor_ms = cuda_ms(lambda: greedy.grid_barriers(2 * K, dev), iters)
+    floor_ms = cuda_ms(lambda: greedy.grid_barriers(K + 3, dev), iters)
+    blocks, shared_bytes = greedy.flat_grid(dev)
+    lay = greedy.flat_layout(kw["n"], kw["num_rows"], blocks, shared_bytes)
     return record("greedy_flat", launches, err, times, plain_ms,
-                  greedy_bound(*args, got[0], **kw),
-                  barrier_floor_ms=floor_ms, grid_barriers=2 * K,
-                  index_ms=index_ms, grid_blocks=greedy.grid_blocks(dev),
-                  threads=greedy.THREADS, n=kw["n"], k=K,
+                  greedy_bound(*args, got[0], **kw, blocks=blocks,
+                               shared=lay.shared),
+                  barrier_floor_ms=floor_ms, grid_barriers=K + 3,
+                  device_op_names=names, device_ops_traced=len(dev_ops),
+                  calls_traced=calls, device_op_traces=traces,
+                  grid_blocks=blocks, threads=greedy.THREADS,
+                  state="shared memory" if lay.shared else "scratch",
+                  slice_nodes=lay.slots, covered_words=lay.cov_words,
+                  shared_bytes_limit=shared_bytes, n=kw["n"], k=K,
                   n_rr=store.n_rr, pool_elements=store.n_elems,
                   num_rows=kw["num_rows"], gains_sum=int(got[1].sum()))
 
@@ -1912,8 +1968,8 @@ def main() -> int:
                              f"ptxas reports {occur_spills}")
     greedy_spills = ptxas_spills(_build.PTXAS_REPORT["greedy"], "greedy_cu")
     say("greedy_ptxas", greedy_spills)
-    if len(greedy_spills) != 4 or any(greedy_spills.values()):
-        raise AssertionError(f"greedy.cu: want 4 kernels without spills, "
+    if len(greedy_spills) != 5 or any(greedy_spills.values()):
+        raise AssertionError(f"greedy.cu: want 5 kernels without spills, "
                              f"ptxas reports {greedy_spills}")
 
     # 3. kernels against their plain versions

@@ -20,50 +20,82 @@
 // it newly covers) is Occur[u_s] at its argmax: gains[s] is read off the
 // argmax's key, and no step counts rows.
 //
-// Inputs (kernels/greedy.py::flat_index builds them with torch on the
-// card): the elements nodes[row_start[r]:row_start[r+1]] of each row r
-// (invalid ones as n, which no step touches) and the rows
-// inv_rows[inv_start[v]:inv_start[v+1]] that hold each node v.
+// Inputs: the pool as the store holds it, flat (node ids), ids (row ids,
+// non-decreasing: rows are contiguous and in row order) and valid (a byte
+// an element).  An element counts for its node when it is valid and its
+// node lies below n.  The launch builds the pool's two indices itself
+// (kernels/ref.py::flat_index states them): row r's elements are
+// [row_start[r], row_start[r + 1]), and the rows that hold node v are
+// count[v] entries of inv_rows, in no set order (no result depends on it).
 //
-// Design.  One cooperative launch (cudaLaunchCooperativeKernel): by
-// default one block of kThreads on each SM (the caller may ask for more,
-// up to what stays resident), the k steps inside it separated by grid
-// barriers (cooperative_groups' grid sync: a release add and acquire polls
-// on one counter in a workspace that the cooperative launch provides, so
-// no -rdc is needed).
-// - Phase 0: Occur[v] = inv_start[v+1] - inv_start[v], Covered and the
-//   step keys zeroed.  Barrier.
-// - Argmax of step s: each thread folds its grid-strided slice of Occur
-//   into one (occur, ~v) pair, a warp reduces with two redux.sync (the
-//   largest occur, then the largest ~v among the lanes that hold it), a
-//   block likewise over its warps, and each block makes one atomicMax of
-//   the 64-bit key (occur << 32) | (0xFFFFFFFF - v) into the step's own
-//   slot keys[s], so no slot is reset between steps.  Barrier.
-// - Cover of step s: every block reads u_s from keys[s].  Each of u_s's
-//   rows has one owner, a warp (a row appears once in u_s's list); if the
-//   row is not covered yet, lane 0 sets its flag and the lanes take one
-//   off Occur at each of its elements by atomicSub, 32 at a time.
-//   Barrier, except after the last step.
-// So a launch runs 2k grid barriers, and a step's work is u_s's rows and
-// their elements, not the pool.  Occur (n int32: 303,516 bytes at n =
-// 75,879), the keys and Covered live in global memory and stay in L2;
-// what the kernel itself writes it reads with __ldcg (from L2, never a
-// stale L1 line).  Covered is a byte a row: a row has one owner a step,
-// so its flag is a plain load and store, where bits would need an
-// atomicOr (two rows of one word have different owners).
+// Design.  One cooperative launch (cudaLaunchCooperativeKernel), one block
+// of kThreads on each SM, k + 3 grid barriers (cooperative_groups' grid
+// sync: a release add and acquire polls on one counter in a workspace that
+// the cooperative launch provides, so no -rdc is needed).  Block b owns
+// the nodes [b * slots, (b + 1) * slots), slots = ceil(n / blocks) (a
+// block past n owns none), and keeps their list starts, their Occur and
+// its own copy of Covered (a bit a row) in dynamic shared memory when they
+// fit (the limit raised once a card), else in its own part of the
+// scratch, read with __ldcg.
+// - Prologue, no sort.  (A) count zeroed; row_start[r] the lower bound of
+//   r in ids, by a binary search.  Barrier.  (B) each element's node, or
+//   -1 when it does not count, into nodes[e], and count[v] += 1 for each
+//   counted one (a warp's lanes on one node add together: a hub's word
+//   would take an atomic an element).  Barrier.  (C) each block copies its
+//   slice's counts into its Occur and their exclusive scan into its list
+//   starts and cursor, writes the slice's total to block_sum[b] and zeroes
+//   its Covered.  Barrier.  (D) each block sums block_sum into every
+//   block's base (in its shared memory), and each counted element's list
+//   entry lands at its block's base + atomicAdd(cursor[v], 1) (a warp's
+//   lanes on one node together, each at its rank): its row r in inv_rows
+//   and the row's span of elements, row_start[r] and row_start[r + 1], in
+//   inv_span.  Node v's entries are then [base + start, base + next
+//   start) of its block.
+// - Step s, the exchange: each block takes the argmax of its slice (a
+//   thread folds its strided share into one (occur, ~v) pair; a warp
+//   reduces with two redux.sync, the largest occur and then the largest
+//   ~v among the lanes that hold it; the block likewise over its warps)
+//   and writes its record: the 64-bit key (occur << 32) | (0xFFFFFFFF -
+//   v) and its node's span of entries, from its list starts.  Barrier.
+//   Every block reads all the records, a thread each, and reduces the keys
+//   the same way: u_s, its gain (the key's occur) and its entries, with no
+//   read that depends on u_s.  The records of a step are its own, so none
+//   is reset, and they are the only thing written between two barriers
+//   that another block reads.
+// - Step s, the cover (but at the last step): every block walks ALL of
+//   u_s's entries, 32 a warp, read through L1 (the lists do not change
+//   after the prologue).  A lane an entry tests and sets the row's bit in
+//   the block's own Covered (atomicOr, whose old word says whether the row
+//   is new); a warp scan of the new rows' lengths lays their elements end
+//   to end, the warp walks them kWalk x 32 at a time (a lane finds each
+//   position's row by a binary search over the scan, in shuffles, and
+//   loads the kWalk nodes together), and each element in the block's
+//   slice but u_s takes one off its Occur (a shared-memory atomicSub);
+//   u_s's own count is set to 0, since all its rows are now covered.
+//   Every block replays the same rows, so the copies of Covered stay
+//   equal; a row appears once in u_s's list, so its bit has one writer in
+//   a block.
 //
-// What bounds it.  Not bytes: Occur read once a step, u_s's rows and
-// their elements, and the indices once come to about 16 MB at k = 50,
-// 0.005 ms at 3.35 TB/s.  The 2k grid barriers and a step's chain of
-// dependent loads (inv_rows, then Covered and row_start, then nodes) set
-// its time; greedy_grid_barriers runs the same grid with the barriers
-// alone, the floor.
+// What bounds it.  Not bytes: the pool read twice and the indices written
+// once are about 1 MB at the default solve's pool, and each block reading
+// every seed row's entry and its elements (from L2) adds about 0.2 MB a
+// block.  The k + 3 grid barriers and each step's chain (the argmax, the
+// record, the barrier, the records, the entries, the elements) set its
+// time, and, at a hub's step, each block's walk of all the hub's rows;
+// greedy_grid_barriers runs the same grid with the barriers alone, the
+// floor.
 
 #include <cstdint>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "device_guard.cuh"
+
+// Clock stamps of greedy_flat_kernel's phases: examples/greedy_variants.cu
+// defines GREEDY_STAMP before it includes this file; here they are empty.
+#ifndef GREEDY_STAMP
+#define GREEDY_STAMP(i)
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -73,6 +105,7 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 constexpr int kMaxDevices = 64;
+constexpr int kWalk = 4;        // positions a lane takes a pass of the walk
 
 // The warp's first maximum as the key (occur << 32) | low, low = 0xFFFFFFFF
 // - v; a lane that holds no node passes 0, below every node's key.
@@ -97,66 +130,274 @@ __device__ __forceinline__ uint64_t block_max_key(uint32_t occ, uint32_t low,
   return key;
 }
 
-__global__ void __launch_bounds__(kThreads)
-greedy_flat_kernel(const int32_t* __restrict__ nodes,
-                   const int32_t* __restrict__ row_start,
-                   const int32_t* __restrict__ inv_start,
-                   const int32_t* __restrict__ inv_rows, int32_t n,
-                   int64_t num_rows, int32_t k, unsigned long long* keys,
-                   int32_t* occur, uint8_t* covered, int32_t* seeds,
-                   int32_t* gains) {
-  __shared__ uint64_t red[kWarps];
-  cg::grid_group grid = cg::this_grid();
+// The warp's inclusive sum of x.
+__device__ __forceinline__ int32_t warp_inclusive_sum(int32_t x) {
   const int lane = threadIdx.x & 31;
-  const int64_t gtid = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t gsize = int64_t(gridDim.x) * kThreads;
-  const int64_t gwarp = gtid >> 5, nwarps = gsize >> 5;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int32_t y = __shfl_up_sync(kFullMask, x, off);
+    if (lane >= off) x += y;
+  }
+  return x;
+}
 
-  for (int64_t v = gtid; v < n; v += gsize)
-    occur[v] = __ldg(inv_start + v + 1) - __ldg(inv_start + v);
-  for (int64_t r = gtid; r < num_rows; r += gsize) covered[r] = 0;
-  for (int64_t s = gtid; s < k; s += gsize) keys[s] = 0;
-  grid.sync();
+// The block's exclusive sum of its threads' x (.x) and the block's total
+// (.y), in every thread.  `part` is reused after a barrier.
+__device__ __forceinline__ int2 block_exclusive_sum(int32_t x,
+                                                    int32_t* part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int32_t incl = warp_inclusive_sum(x);
+  if (lane == 31) part[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int32_t w = warp_inclusive_sum(lane < kWarps ? part[lane] : 0);
+    if (lane < kWarps) part[lane] = w;
+  }
+  __syncthreads();
+  return make_int2((warp ? part[warp - 1] : 0) + incl - x,
+                   part[kWarps - 1]);
+}
 
-  for (int32_t s = 0; s < k; ++s) {
-    // argmax: v ascends in a thread's slice, so a later v wins only when
-    // its count is larger; low == 0 marks an empty slice (v < 2^31 - 1)
-    uint32_t occ = 0, low = 0;
-    for (int64_t v = gtid; v < n; v += gsize) {
-      const uint32_t o = uint32_t(__ldcg(occur + v));
-      if (low == 0 || o > occ) {
-        occ = o;
-        low = 0xFFFFFFFFu - uint32_t(v);
-      }
+// The first index of ids[0, t) (non-decreasing) whose value is >= r.
+__device__ __forceinline__ int32_t first_row_at(const int32_t* ids,
+                                                int64_t t, int64_t r) {
+  int64_t lo = 0, hi = t;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (__ldg(ids + mid) < r) lo = mid + 1;
+    else hi = mid;
+  }
+  return int32_t(lo);
+}
+
+// Element e's node when it counts (valid and below n), else -1.
+__device__ __forceinline__ int32_t counted_node(const int32_t* flat,
+                                                const uint8_t* valid,
+                                                int64_t e, int32_t n) {
+  const uint32_t v = uint32_t(__ldg(flat + e));
+  return __ldg(valid + e) && v < uint32_t(n) ? int32_t(v) : -1;
+}
+
+// A block's Occur and Covered: shared memory, or its part of the scratch,
+// which atomics change in L2 and so is read with __ldcg.
+template <bool kShared>
+__device__ __forceinline__ int32_t load_state(const int32_t* p) {
+  return kShared ? *p : __ldcg(p);
+}
+
+// The block's first maximum of its slice [lo, lo + held) of Occur, in
+// thread 0 (the key; 0 for no node): v ascends in a thread's share, so a
+// later v wins only when its count is larger; low == 0 marks a thread
+// with no node (v < 2^31 - 1).
+template <bool kShared>
+__device__ __forceinline__ uint64_t slice_argmax(const int32_t* occ,
+                                                 int64_t lo, int64_t held,
+                                                 uint64_t* red) {
+  uint32_t best = 0, low = 0;
+  for (int64_t j = threadIdx.x; j < held; j += kThreads) {
+    const uint32_t o = uint32_t(load_state<kShared>(occ + j));
+    if (low == 0 || o > best) {
+      best = o;
+      low = 0xFFFFFFFFu - uint32_t(lo + j);
     }
-    const uint64_t best = block_max_key(occ, low, red);
-    if (threadIdx.x == 0 && best != 0) atomicMax(keys + s, best);
-    grid.sync();
+  }
+  return block_max_key(best, low, red);
+}
 
-    // cover: a warp owns each of u's rows
-    const unsigned long long key = __ldcg(keys + s);
-    const int32_t u = int32_t(0xFFFFFFFFu - uint32_t(key));
+// Scratch (global memory): the step records (k x blocks x 2 uint64),
+// inv_span t int2, count n, cursor n, row_start num_rows + 1, nodes t,
+// inv_rows t and block_sum `blocks` int32, then, when the blocks' state is
+// not in shared memory, each block's list starts (slots + 1), Occur
+// (slots) and Covered words.  Dynamic shared memory: each block's base
+// (`blocks` int32), then, in the shared form, the block's list starts,
+// Occur and Covered.  One block an SM: the bound lets ptxas use the
+// registers that frees (without it the scratch form spills).
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads, 1)
+greedy_flat_kernel(const int32_t* __restrict__ flat,
+                   const int32_t* __restrict__ ids,
+                   const uint8_t* __restrict__ valid, int64_t t, int32_t n,
+                   int64_t num_rows, int32_t k, int32_t slots,
+                   int32_t cov_words, unsigned long long* records,
+                   int2* inv_span, int32_t* count, int32_t* cursor,
+                   int32_t* row_start, int32_t* nodes, int32_t* inv_rows,
+                   int32_t* block_sum, int32_t* copies, int32_t* seeds,
+                   int32_t* gains) {
+  extern __shared__ int32_t smem[];
+  __shared__ uint64_t red[kWarps];
+  __shared__ int32_t part[kWarps];
+  __shared__ int32_t step_u, step_begin, step_end;
+  cg::grid_group grid = cg::this_grid();
+  const int32_t blocks = gridDim.x, me = blockIdx.x;
+  int32_t* base = smem;
+  int32_t* starts = kShared ? smem + blocks
+                            : copies + int64_t(me) * (2 * int64_t(slots) +
+                                                      1 + cov_words);
+  int32_t* occ = starts + slots + 1;
+  uint32_t* cov = reinterpret_cast<uint32_t*>(occ + slots);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t gtid = int64_t(me) * kThreads + threadIdx.x;
+  const int64_t gsize = int64_t(blocks) * kThreads;
+  const int64_t lo = min(int64_t(me) * slots, int64_t(n));
+  const int64_t held = min(lo + slots, int64_t(n)) - lo;
+  GREEDY_STAMP(0);
+
+  // (A)
+  for (int64_t v = gtid; v < n; v += gsize) count[v] = 0;
+  for (int64_t r = gtid; r <= num_rows; r += gsize)
+    row_start[r] = first_row_at(ids, t, r);
+  grid.sync();
+  GREEDY_STAMP(1);
+
+  // (B): the lanes of a warp that hold the same node add once
+  for (int64_t e = gtid; e < t; e += gsize) {
+    const int32_t v = counted_node(flat, valid, e, n);
+    nodes[e] = v;
+    if (v >= 0) {
+      const unsigned peers = __match_any_sync(__activemask(), v);
+      if (lane == __ffs(peers) - 1) atomicAdd(count + v, __popc(peers));
+    }
+  }
+  grid.sync();
+  GREEDY_STAMP(2);
+
+  // (C): thread i takes `per` consecutive nodes of the slice; the block's
+  // list starts are the exclusive scan of their counts
+  {
+    const int64_t per = (held + kThreads - 1) / kThreads;
+    const int64_t ja = min(threadIdx.x * per, held);
+    const int64_t jb = min(ja + per, held);
+    int32_t sum = 0;
+    for (int64_t j = ja; j < jb; ++j) {
+      const int32_t c = __ldcg(count + lo + j);
+      occ[j] = c;
+      sum += c;
+    }
+    const int2 scan = block_exclusive_sum(sum, part);
+    int32_t run = scan.x;
+    for (int64_t j = ja; j < jb; ++j) {
+      cursor[lo + j] = run;
+      starts[j] = run;
+      run += occ[j];
+    }
+    if (threadIdx.x == 0) {
+      block_sum[me] = scan.y;
+      starts[held] = scan.y;
+    }
+    for (int32_t w = threadIdx.x; w < cov_words; w += kThreads) cov[w] = 0;
+  }
+  grid.sync();
+  GREEDY_STAMP(3);
+
+  // (D): the blocks' bases, then each counted element's list entry (its
+  // row and the row's span of elements) at its node's cursor
+  if (warp == 0) {
+    int32_t carry = 0;
+    for (int32_t j0 = 0; j0 < blocks; j0 += 32) {
+      const int32_t j = j0 + lane;
+      const int32_t x = j < blocks ? __ldcg(block_sum + j) : 0;
+      const int32_t incl = warp_inclusive_sum(x);
+      if (j < blocks) base[j] = carry + incl - x;
+      carry += __shfl_sync(kFullMask, incl, 31);
+    }
+  }
+  __syncthreads();
+  for (int64_t e = gtid; e < t; e += gsize) {
+    const int32_t v = __ldcg(nodes + e);
+    if (v >= 0) {
+      const unsigned peers = __match_any_sync(__activemask(), v);
+      const int leader = __ffs(peers) - 1;
+      int32_t first = 0;
+      if (lane == leader) first = atomicAdd(cursor + v, __popc(peers));
+      const int32_t pos = base[v / slots] +
+                          __shfl_sync(peers, first, leader) +
+                          __popc(peers & ((1u << lane) - 1));
+      const int32_t r = __ldg(ids + e);
+      inv_rows[pos] = r;
+      inv_span[pos] = make_int2(__ldcg(row_start + r),
+                                __ldcg(row_start + r + 1));
+    }
+  }
+
+  for (int32_t s = 0;; ++s) {
+    // this block's record for step s: its key, and the span [begin, end)
+    // of its node's list entries (end << 32 | begin), then the step's
+    // barrier, then every block reads all the records
+    const uint64_t mine = slice_argmax<kShared>(occ, lo, held, red);
+    if (threadIdx.x == 0) {
+      const int64_t j = mine ? int64_t(0xFFFFFFFFu - uint32_t(mine)) - lo : 0;
+      unsigned long long* rec = records + 2 * (int64_t(s) * blocks + me);
+      rec[0] = mine;
+      rec[1] = (uint64_t(uint32_t(base[me] +
+                                  load_state<kShared>(starts + j + 1)))
+                << 32) |
+               uint32_t(base[me] + load_state<kShared>(starts + j));
+    }
+    GREEDY_STAMP(4 + 3 * s);
+    grid.sync();
+    uint64_t theirs = 0, span = 0;
+    if (threadIdx.x < blocks) {
+      const unsigned long long* rec =
+          records + 2 * (int64_t(s) * blocks + threadIdx.x);
+      theirs = __ldcg(rec);
+      span = __ldcg(rec + 1);
+    }
+    const uint64_t best = block_max_key(uint32_t(theirs >> 32),
+                                        uint32_t(theirs), red);
+    if (threadIdx.x == 0) red[0] = best;
+    __syncthreads();
+    if (threadIdx.x < blocks && theirs == red[0]) {
+      step_u = int32_t(0xFFFFFFFFu - uint32_t(theirs));
+      step_begin = int32_t(uint32_t(span));
+      step_end = int32_t(span >> 32);
+    }
+    __syncthreads();
+    GREEDY_STAMP(5 + 3 * s);
+    const int32_t u = step_u;
+    const int64_t begin = step_begin, end = step_end;
     if (gtid == 0) {
       seeds[s] = u;
-      gains[s] = int32_t(key >> 32);
+      gains[s] = int32_t(red[0] >> 32);
     }
-    const int32_t end = __ldg(inv_start + u + 1);
-    for (int64_t i = __ldg(inv_start + u) + gwarp; i < end; i += nwarps) {
-      const int32_t r = __ldg(inv_rows + i);
-      const int32_t e0 = __ldg(row_start + r), e1 = __ldg(row_start + r + 1);
-      uint32_t fresh = 0;
-      if (lane == 0) {
-        fresh = __ldcg(covered + r) == 0;
-        if (fresh) covered[r] = 1;
-      }
-      if (__shfl_sync(kFullMask, fresh, 0)) {
-        for (int32_t e = e0 + lane; e < e1; e += 32) {
-          const uint32_t v = uint32_t(__ldg(nodes + e));
-          if (v < uint32_t(n)) atomicSub(occur + v, 1);
+    if (s + 1 == k) break;
+    for (int64_t i0 = begin + 32 * warp; i0 < end; i0 += 32 * kWarps) {
+      const int64_t i = i0 + lane;
+      int32_t e0 = 0, len = 0;
+      if (i < end) {
+        const int32_t r = __ldca(inv_rows + i);
+        const int2 rs = __ldca(inv_span + i);
+        const uint32_t bit = 1u << (r & 31);
+        if (!(atomicOr(cov + (r >> 5), bit) & bit)) {
+          e0 = rs.x;
+          len = rs.y - rs.x;
         }
       }
+      const int32_t incl = warp_inclusive_sum(len);
+      const int32_t total = __shfl_sync(kFullMask, incl, 31);
+      // lane j's elements are positions [incl - len, incl) of the warp's
+      // run; the element at position p of lane j's part is from_j + p.
+      // A lane takes kWalk positions a pass, so their loads go together.
+      const int32_t from = e0 - (incl - len);
+      for (int32_t p0 = 0; p0 < total; p0 += 32 * kWalk) {
+        int32_t v[kWalk];
+#pragma unroll
+        for (int q = 0; q < kWalk; ++q) {
+          const int32_t p = p0 + 32 * q + lane;
+          int j = 0;                         // lanes whose incl <= p
+          for (int half = 16; half > 0; half >>= 1)
+            if (__shfl_sync(kFullMask, incl, j + half - 1) <= p) j += half;
+          const int32_t e = __shfl_sync(kFullMask, from, j) + p;
+          v[q] = p < total ? __ldca(nodes + e) : -1;
+        }
+#pragma unroll
+        for (int q = 0; q < kWalk; ++q)      // u's own count is set below
+          if (v[q] >= lo && v[q] < lo + held && v[q] != u)
+            atomicSub(occ + (v[q] - lo), 1);
+      }
     }
-    if (s + 1 < k) grid.sync();
+    // every row that holds u is covered now
+    if (threadIdx.x == 0 && u >= lo && u < lo + held) occ[u - lo] = 0;
+    __syncthreads();
+    GREEDY_STAMP(6 + 3 * s);
   }
 }
 
@@ -166,32 +407,90 @@ __global__ void __launch_bounds__(kThreads) grid_barriers_kernel(int32_t count) 
   for (int32_t i = 0; i < count; ++i) grid.sync();
 }
 
-// greedy_flat_kernel's grid on card `device`: blocks_per_sm blocks on each
-// SM (0: as many as stay resident, which also caps a larger request).  The
-// SM count and the resident blocks are read once a card.
-cudaError_t grid_for(int blocks_per_sm, int device, int* blocks) {
-  static int sms[kMaxDevices], resident[kMaxDevices];
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (resident[device] == 0) {
-    int coop = 0, count = 0, per_sm = 0;
-    cudaError_t err = cudaDeviceGetAttribute(
-        &coop, cudaDevAttrCooperativeLaunch, device);
-    if (err != cudaSuccess) return err;
-    if (!coop) return cudaErrorNotSupported;
-    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, greedy_flat_kernel, kThreads, 0);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-    sms[device] = count;
-    resident[device] = per_sm;
-  }
-  const int per_sm = blocks_per_sm > 0 ? min(blocks_per_sm, resident[device])
-                                       : resident[device];
-  *blocks = per_sm * sms[device];
+// One block of kThreads on each SM of card `device` for a kernel in two
+// forms: `with_shared` gets its dynamic shared memory limit raised to all
+// that a block may have beside its static shared memory (*bytes, a
+// multiple of 16); a block of it at that size, and of `without` at 4 bytes
+// a block of the grid (greedy_flat's base table, more than greedy_sketch's
+// global form takes), must stay resident.
+cudaError_t one_block_an_sm(const void* with_shared, const void* without,
+                            int device, int* sms, int64_t* bytes) {
+  int coop = 0, count = 0, optin = 0, resident = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                               device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, with_shared);
+  if (err != cudaSuccess) return err;
+  const int limit = (optin - int(attr.sharedSizeBytes)) & ~15;
+  err = cudaFuncSetAttribute(with_shared,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             limit);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, with_shared,
+                                                      kThreads, limit);
+  if (err != cudaSuccess) return err;
+  if (resident < 1) return cudaErrorCooperativeLaunchTooLarge;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, without,
+                                                      kThreads, 4 * count);
+  if (err != cudaSuccess) return err;
+  if (resident < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *sms = count;
+  *bytes = limit;
   return cudaSuccess;
+}
+
+// greedy_flat_kernel's grid on card `device`, read once a card: one block
+// on each SM, and the dynamic shared memory a block may take.
+cudaError_t flat_grid_for(int device, int* blocks, int64_t* shared_bytes) {
+  static int sms[kMaxDevices];
+  static int64_t bytes[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms[device] == 0) {
+    cudaError_t err = one_block_an_sm(
+        reinterpret_cast<const void*>(greedy_flat_kernel<true>),
+        reinterpret_cast<const void*>(greedy_flat_kernel<false>), device,
+        &sms[device], &bytes[device]);
+    if (err == cudaSuccess && sms[device] > kThreads)
+      err = cudaErrorNotSupported;     // a thread polls each block's record
+    if (err != cudaSuccess) {
+      sms[device] = 0;
+      return err;
+    }
+  }
+  *blocks = sms[device];
+  *shared_bytes = bytes[device];
+  return cudaSuccess;
+}
+
+// Where greedy_flat's state lives on a grid of `blocks` whose dynamic
+// shared memory holds `shared_bytes`, and the scratch it takes
+// (kernels/greedy.py::flat_layout and flat_scratch_bytes say the same).
+struct FlatLayout {
+  int32_t slots, cov_words;
+  bool shared;
+  int64_t dynamic_bytes, scratch_bytes;
+};
+
+FlatLayout flat_layout(int32_t n, int64_t num_rows, int64_t t, int32_t k,
+                       int blocks, int64_t shared_bytes) {
+  FlatLayout lay;
+  lay.slots = int32_t((int64_t(n) + blocks - 1) / blocks);
+  lay.cov_words = int32_t((num_rows + 31) / 32);
+  const int64_t state = 4 * (2 * int64_t(lay.slots) + 1 + lay.cov_words);
+  lay.shared = 4 * int64_t(blocks) + state <= shared_bytes;
+  lay.dynamic_bytes = 4 * int64_t(blocks) + (lay.shared ? state : 0);
+  lay.scratch_bytes = 16 * int64_t(k) * blocks + 8 * t +
+                      4 * (2 * int64_t(n) + num_rows + 1 + 2 * t + blocks) +
+                      (lay.shared ? 0 : int64_t(blocks) * state);
+  return lay;
 }
 
 // greedy_sketch: the approximate mode's greedy on sketch estimates
@@ -340,97 +639,97 @@ greedy_sketch_kernel(const uint32_t* __restrict__ sk, int32_t n, int32_t cols,
 
 // greedy_sketch_kernel's grid on card `device`, read once a card: one
 // block on each SM, and the widest cov (in words) that its dynamic shared
-// memory holds.  The first call raises the shared-memory kernel's dynamic
-// limit to all that a block may have beside its static shared memory, and
-// checks that a block of each form stays resident at its largest shared
-// memory.
+// memory holds.
 cudaError_t sketch_grid_for(int device, int* blocks, int64_t* shared_words) {
   static int sms[kMaxDevices];
-  static int64_t words[kMaxDevices];
+  static int64_t bytes[kMaxDevices];
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (sms[device] == 0) {
-    int coop = 0, count = 0, optin = 0, resident = 0;
-    cudaError_t err = cudaDeviceGetAttribute(
-        &coop, cudaDevAttrCooperativeLaunch, device);
-    if (err != cudaSuccess) return err;
-    if (!coop) return cudaErrorNotSupported;
-    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (err != cudaSuccess) return err;
-    cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, greedy_sketch_kernel<true>);
-    if (err != cudaSuccess) return err;
-    const int bytes = (optin - int(attr.sharedSizeBytes)) & ~15;
-    err = cudaFuncSetAttribute(greedy_sketch_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &resident, greedy_sketch_kernel<true>, kThreads, bytes);
-    if (err != cudaSuccess) return err;
-    if (resident < 1) return cudaErrorCooperativeLaunchTooLarge;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &resident, greedy_sketch_kernel<false>, kThreads, 0);
-    if (err != cudaSuccess) return err;
-    if (resident < 1) return cudaErrorCooperativeLaunchTooLarge;
-    words[device] = bytes / 4;
-    sms[device] = count;
+    cudaError_t err = one_block_an_sm(
+        reinterpret_cast<const void*>(greedy_sketch_kernel<true>),
+        reinterpret_cast<const void*>(greedy_sketch_kernel<false>), device,
+        &sms[device], &bytes[device]);
+    if (err != cudaSuccess) {
+      sms[device] = 0;
+      return err;
+    }
   }
   *blocks = sms[device];
-  *shared_words = words[device];
+  *shared_words = bytes[device] / 4;
   return cudaSuccess;
 }
 
 }  // namespace
 
-// Plain C interface for ctypes.  nodes: t int32 (invalid elements as n);
-// row_start: num_rows + 1 int32; inv_start: n + 1 int32; inv_rows: t
-// int32.  scratch: 8 * k + 4 * n + num_rows bytes (the keys, Occur and
-// Covered; the kernel initialises them); out: 2 * k int32, seeds then
-// gains.  1 <= n < 2^31 - 1, 1 <= num_rows < 2^31, k >= 1.  Launches on
-// `stream` of card `device`; returns the cudaError_t of the launch.
-extern "C" int greedy_flat(const void* nodes, const void* row_start,
-                           const void* inv_start, const void* inv_rows,
-                           int32_t n, int64_t num_rows, int32_t k,
-                           void* scratch, void* out, int blocks_per_sm,
-                           int device, void* stream) {
-  if (n < 1 || n == 0x7FFFFFFF || num_rows < 1 || num_rows > 0x7FFFFFFF ||
-      k < 1)
+// Plain C interface for ctypes.  flat, ids: t int32 (ids non-decreasing,
+// below num_rows); valid: t bytes (0 or 1); 0 <= t < 2^31, 1 <= n < 2^31 -
+// 1, 1 <= num_rows < 2^31, k >= 1.  scratch: scratch_bytes bytes, at least
+// greedy_flat's layout takes (kernels/greedy.py::flat_scratch_bytes; the
+// kernel initialises what it reads); out: 2 * k int32, seeds then gains.
+// Launches on `stream` of card `device`; returns the cudaError_t of the
+// launch.
+extern "C" int greedy_flat(const void* flat, const void* ids,
+                           const void* valid, int64_t t, int32_t n,
+                           int64_t num_rows, int32_t k, void* scratch,
+                           int64_t scratch_bytes, void* out, int device,
+                           void* stream) {
+  if (t < 0 || t > 0x7FFFFFFF || n < 1 || n == 0x7FFFFFFF || num_rows < 1 ||
+      num_rows > 0x7FFFFFFF || k < 1)
     return int(cudaErrorInvalidValue);
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return int(guard.err);
   int blocks = 0;
-  cudaError_t err = grid_for(blocks_per_sm, device, &blocks);
+  int64_t shared_bytes = 0;
+  cudaError_t err = flat_grid_for(device, &blocks, &shared_bytes);
   if (err != cudaSuccess) return int(err);
-  const int32_t* p_nodes = static_cast<const int32_t*>(nodes);
-  const int32_t* p_row_start = static_cast<const int32_t*>(row_start);
-  const int32_t* p_inv_start = static_cast<const int32_t*>(inv_start);
-  const int32_t* p_inv_rows = static_cast<const int32_t*>(inv_rows);
-  uint8_t* base = static_cast<uint8_t*>(scratch);
-  unsigned long long* keys = reinterpret_cast<unsigned long long*>(base);
-  int32_t* occur = reinterpret_cast<int32_t*>(base + 8 * int64_t(k));
-  uint8_t* covered = base + 8 * int64_t(k) + 4 * int64_t(n);
+  const FlatLayout lay = flat_layout(n, num_rows, t, k, blocks, shared_bytes);
+  if (scratch_bytes < lay.scratch_bytes) return int(cudaErrorInvalidValue);
+  const int32_t* p_flat = static_cast<const int32_t*>(flat);
+  const int32_t* p_ids = static_cast<const int32_t*>(ids);
+  const uint8_t* p_valid = static_cast<const uint8_t*>(valid);
+  uint8_t* at = static_cast<uint8_t*>(scratch);
+  unsigned long long* records = reinterpret_cast<unsigned long long*>(at);
+  int2* inv_span = reinterpret_cast<int2*>(records + 2 * int64_t(k) * blocks);
+  int32_t* count = reinterpret_cast<int32_t*>(inv_span + t);
+  int32_t* cursor = count + n;
+  int32_t* row_start = cursor + n;
+  int32_t* nodes = row_start + num_rows + 1;
+  int32_t* inv_rows = nodes + t;
+  int32_t* block_sum = inv_rows + t;
+  int32_t* copies = block_sum + blocks;
   int32_t* seeds = static_cast<int32_t*>(out);
   int32_t* gains = seeds + k;
-  void* args[] = {&p_nodes, &p_row_start, &p_inv_start, &p_inv_rows, &n,
-                  &num_rows, &k, &keys, &occur, &covered, &seeds, &gains};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(greedy_flat_kernel), dim3(blocks),
-      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  int32_t slots = lay.slots, cov_words = lay.cov_words;
+  void* args[] = {&p_flat, &p_ids, &p_valid, &t, &n, &num_rows, &k,
+                  &slots, &cov_words, &records, &inv_span, &count, &cursor,
+                  &row_start, &nodes, &inv_rows, &block_sum, &copies, &seeds,
+                  &gains};
+  const void* kernel =
+      lay.shared ? reinterpret_cast<const void*>(greedy_flat_kernel<true>)
+                 : reinterpret_cast<const void*>(greedy_flat_kernel<false>);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args,
+                                    size_t(lay.dynamic_bytes),
+                                    static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
 }
 
+// greedy_flat's grid on card `device`: its blocks (one on each SM) and the
+// dynamic shared memory a block may take, in bytes.
+extern "C" int greedy_flat_grid(int device, int* blocks,
+                                int64_t* shared_bytes) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return int(guard.err);
+  return int(flat_grid_for(device, blocks, shared_bytes));
+}
+
 // greedy_flat's grid running `count` grid barriers and nothing else.
-extern "C" int greedy_grid_barriers(int32_t count, int blocks_per_sm,
-                                    int device, void* stream) {
+extern "C" int greedy_grid_barriers(int32_t count, int device, void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return int(guard.err);
   int blocks = 0;
-  cudaError_t err = grid_for(blocks_per_sm, device, &blocks);
+  int64_t shared_bytes = 0;
+  cudaError_t err = flat_grid_for(device, &blocks, &shared_bytes);
   if (err != cudaSuccess) return int(err);
   void* args[] = {&count};
   err = cudaLaunchCooperativeKernel(
@@ -438,14 +737,6 @@ extern "C" int greedy_grid_barriers(int32_t count, int blocks_per_sm,
       dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
-}
-
-// The blocks of greedy_flat's grid on card `device`, into *blocks.
-extern "C" int greedy_grid_blocks(int blocks_per_sm, int device,
-                                  int* blocks) {
-  DeviceGuard guard(device);
-  if (guard.err != cudaSuccess) return int(guard.err);
-  return int(grid_for(blocks_per_sm, device, blocks));
 }
 
 // greedy_sketch_kernel's grid on card `device`: its blocks, and the widest

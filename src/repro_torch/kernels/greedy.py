@@ -6,13 +6,13 @@ mode's greedy on the coverage sketch (:func:`greedy_sketch`).
 :func:`greedy_flat` computes what ``kernels/ref.py::greedy_flat_ref``
 computes, seeds and gains byte for byte (the kernel's note says how).  It
 takes CUDA tensors only; ``kernels/ops.py`` routes CPU tensors to the
-plain version.  It builds the pool's two indices with torch operations on
-the card (:func:`flat_index`, which also runs on the CPU), allocates the
-outputs and one scratch buffer (the kernel writes every byte it reads of
-them), launches through a :class:`_build.Kernel` on PyTorch's current
-stream of the tensors' card (:func:`_build.raw_stream`), raises on a
-launch error and adds one to its entry in :data:`LAUNCHES`.  It reads
-nothing back, so a selection makes no host sync.
+plain version.  It checks the pool, allocates the outputs and one scratch
+buffer (:func:`flat_scratch_bytes`; the kernel writes every byte it reads
+of them and builds the pool's indices inside the launch), launches through
+a :class:`_build.Kernel` on PyTorch's current stream of the tensors' card
+(:func:`_build.raw_stream`), raises on a launch error and adds one to its
+entry in :data:`LAUNCHES`.  It reads nothing back, so a selection makes
+no host sync and one device operation.
 
 :func:`greedy_sketch` computes what ``kernels/ref.py::greedy_sketch_ref``
 computes, byte for byte, likewise on CUDA tensors only: it checks the
@@ -37,21 +37,18 @@ from repro_torch.kernels import _build
 # launches since the last reset (see ops.reset_launch_counts)
 LAUNCHES = {"greedy_flat": 0, "greedy_sketch": 0}
 
-# csrc/greedy.cu: threads a block; the grid is BLOCKS_PER_SM blocks on
-# every SM (more blocks make slower grid barriers, as
-# examples/torch_greedy_variants.py measures)
+# csrc/greedy.cu: threads a block; the grid is a block on every SM
 THREADS = 512
-BLOCKS_PER_SM = 1
 
 _vp, _i32, _i64, _int = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
                          ctypes.c_int)
 _GREEDY = _build.Kernel("greedy", "greedy_flat",
-                        (_vp, _vp, _vp, _vp, _i32, _i64, _i32, _vp, _vp,
-                         _int, _int, _vp))
-_BARRIERS = _build.Kernel("greedy", "greedy_grid_barriers",
-                          (_i32, _int, _int, _vp))
-_GRID = _build.Kernel("greedy", "greedy_grid_blocks",
-                      (_int, _int, ctypes.POINTER(_int)))
+                        (_vp, _vp, _vp, _i64, _i32, _i64, _i32, _vp, _i64,
+                         _vp, _int, _vp))
+_FLAT_GRID = _build.Kernel("greedy", "greedy_flat_grid",
+                           (_int, ctypes.POINTER(_int),
+                            ctypes.POINTER(_i64)))
+_BARRIERS = _build.Kernel("greedy", "greedy_grid_barriers", (_i32, _int, _vp))
 _SKETCH = _build.Kernel("greedy", "greedy_sketch",
                         (_vp, _i32, _i32, _int, _int, _i32, _vp, _vp, _int,
                          _vp))
@@ -60,37 +57,41 @@ _SKETCH_GRID = _build.Kernel("greedy", "greedy_sketch_grid",
                               ctypes.POINTER(_i64)))
 
 
-class FlatIndex(NamedTuple):
-    """The pool's two CSR indices.  Row-major: row r's elements are
-    ``nodes[row_start[r]:row_start[r + 1]]``, with invalid elements as
-    ``n``.  Node-major: the rows that hold node v are
-    ``inv_rows[inv_start[v]:inv_start[v + 1]]``, in row order, so Occur's
-    start is ``inv_start[v + 1] - inv_start[v]``."""
-    nodes: torch.Tensor       # (t,) int32
-    row_start: torch.Tensor   # (num_rows + 1,) int32
-    inv_start: torch.Tensor   # (n + 1,) int32
-    inv_rows: torch.Tensor    # (t,) int32
+class FlatLayout(NamedTuple):
+    """Where :func:`greedy_flat`'s per-block state lives: block b owns the
+    nodes [b * slots, (b + 1) * slots) below n, and keeps their list
+    starts and Occur and a Covered of ``cov_words`` words in dynamic shared
+    memory when ``shared``, else in the scratch."""
+    slots: int
+    cov_words: int
+    shared: bool
 
 
-def flat_index(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
-               *, n: int, num_rows: int) -> FlatIndex:
-    """:class:`FlatIndex` of a pool whose rows are contiguous and in row
-    order (``ids`` non-decreasing, as ``DeviceRRStore.append_batch`` writes
-    them), by torch operations on the pool's device and no host read: a
-    stable sort of the valid elements by node (invalid ones sort last, as
-    node n) and two binary searches."""
-    dev = flat.device
-    nodes = torch.where(valid, flat.to(torch.int32), n)
-    key, perm = torch.sort(nodes, stable=True)
-    ids = ids.to(torch.int32)
-    inv_start = torch.searchsorted(
-        key, torch.arange(n + 1, dtype=torch.int32, device=dev),
-        out_int32=True)
-    row_start = torch.searchsorted(
-        ids, torch.arange(num_rows + 1, dtype=torch.int32, device=dev),
-        out_int32=True)
-    return FlatIndex(nodes=nodes, row_start=row_start, inv_start=inv_start,
-                     inv_rows=ids.index_select(0, perm))
+def flat_layout(n: int, num_rows: int, blocks: int,
+                shared_bytes: int) -> FlatLayout:
+    """:class:`FlatLayout` on a grid of ``blocks`` whose dynamic shared
+    memory holds ``shared_bytes``: shared when the blocks' base table (4
+    bytes a block), a block's list starts (slots + 1), Occur (slots) and
+    Covered words (4 bytes each) fit."""
+    slots = -(-n // blocks)
+    cov_words = -(-num_rows // 32)
+    shared = 4 * (blocks + 2 * slots + 1 + cov_words) <= shared_bytes
+    return FlatLayout(slots, cov_words, shared)
+
+
+def flat_scratch_bytes(n: int, num_rows: int, t: int, k: int, blocks: int,
+                       shared_bytes: int) -> int:
+    """Scratch of one :func:`greedy_flat` launch over ``t`` elements: the
+    blocks' step records (16 bytes a block a step), the t list entries'
+    row spans (8 bytes each), count and cursor (n int32 each), row_start
+    (num_rows + 1), nodes and inv_rows (t each) and the blocks' sums (one
+    each), then, when the blocks' state is not in shared memory, each
+    block's list starts, Occur and Covered words."""
+    lay = flat_layout(n, num_rows, blocks, shared_bytes)
+    fixed = 16 * k * blocks + 8 * t + 4 * (2 * n + num_rows + 1 + 2 * t
+                                           + blocks)
+    return fixed if lay.shared else \
+        fixed + 4 * blocks * (2 * lay.slots + 1 + lay.cov_words)
 
 
 def _check(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor, *,
@@ -108,6 +109,8 @@ def _check(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor, *,
         if t.dim() != 1 or t.shape != flat.shape:
             raise ValueError(f"{name} must be 1-D of flat's length "
                              f"{flat.shape[0]}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
     if not 1 <= n < (1 << 31) - 1 or k < 1:
         raise ValueError(f"need 1 <= n < 2^31 - 1 and k >= 1, got n {n}, "
                          f"k {k}")
@@ -124,17 +127,15 @@ def greedy_flat(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
     ``ref.greedy_flat_ref``."""
     n, num_rows, k = int(n), int(num_rows), int(k)
     _check(flat, ids, valid, n=n, num_rows=num_rows, k=k)
-    idx = flat_index(flat, ids, valid, n=n, num_rows=num_rows)
-    dev = flat.device
-    out = torch.empty(2, k, dtype=torch.int32, device=dev)
-    # keys (k uint64), Occur (n int32), Covered (num_rows bytes)
-    scratch = torch.empty(8 * k + 4 * n + num_rows, dtype=torch.uint8,
-                          device=dev)
     index = flat.get_device()
-    err = _GREEDY(idx.nodes.data_ptr(), idx.row_start.data_ptr(),
-                  idx.inv_start.data_ptr(), idx.inv_rows.data_ptr(), n,
-                  num_rows, k, scratch.data_ptr(), out.data_ptr(),
-                  BLOCKS_PER_SM, index, _build.raw_stream(index))
+    blocks, shared_bytes = _flat_grid(index)
+    t = flat.shape[0]
+    out = torch.empty(2, k, dtype=torch.int32, device=flat.device)
+    size = flat_scratch_bytes(n, num_rows, t, k, blocks, shared_bytes)
+    scratch = torch.empty(size, dtype=torch.uint8, device=flat.device)
+    err = _GREEDY(flat.data_ptr(), ids.data_ptr(), valid.data_ptr(), t, n,
+                  num_rows, k, scratch.data_ptr(), size, out.data_ptr(),
+                  index, _build.raw_stream(index))
     _build.raise_on(err, "greedy_flat")
     LAUNCHES["greedy_flat"] += 1
     return out[0], out[1]
@@ -146,12 +147,24 @@ def _index(device) -> int:
         else device.index
 
 
+def flat_grid(device) -> tuple[int, int]:
+    """``(blocks, shared_bytes)`` of :func:`greedy_flat`'s grid on card
+    ``device``: a block on each SM, and the dynamic shared memory a block
+    may take; read from the card once."""
+    return _flat_grid(_index(device))
+
+
+@functools.cache
+def _flat_grid(index: int) -> tuple[int, int]:
+    blocks, nbytes = _int(0), _i64(0)
+    _build.raise_on(_FLAT_GRID(index, ctypes.byref(blocks),
+                               ctypes.byref(nbytes)), "greedy_flat_grid")
+    return blocks.value, nbytes.value
+
+
 def grid_blocks(device) -> int:
     """The blocks of :func:`greedy_flat`'s grid on card ``device``."""
-    blocks = _int(0)
-    _build.raise_on(_GRID(BLOCKS_PER_SM, _index(device), ctypes.byref(blocks)),
-                    "greedy_grid_blocks")
-    return blocks.value
+    return flat_grid(device)[0]
 
 
 def grid_barriers(count: int, device) -> None:
@@ -159,8 +172,7 @@ def grid_barriers(count: int, device) -> None:
     ``device`` that runs ``count`` grid barriers and nothing else (not
     counted in :data:`LAUNCHES`)."""
     index = _index(device)
-    _build.raise_on(_BARRIERS(int(count), BLOCKS_PER_SM, index,
-                              _build.raw_stream(index)),
+    _build.raise_on(_BARRIERS(int(count), index, _build.raw_stream(index)),
                     "greedy_grid_barriers")
 
 

@@ -10,6 +10,7 @@ scatter-OR's commit run in int64 with ``& 0xFFFFFFFF``.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -268,6 +269,41 @@ def greedy_flat_ref(flat: torch.Tensor, ids: torch.Tensor,
         seeds.append(u)
     return (torch.stack(seeds).to(torch.int32),
             torch.stack(gains).to(torch.int32))
+
+
+class FlatIndex(NamedTuple):
+    """The pool's two CSR indices.  Row-major: row r's elements are
+    ``nodes[row_start[r]:row_start[r + 1]]``, with invalid elements as
+    ``n``.  Node-major: the rows that hold node v are
+    ``inv_rows[inv_start[v]:inv_start[v + 1]]``, in row order, so Occur's
+    start is ``inv_start[v + 1] - inv_start[v]``."""
+    nodes: torch.Tensor       # (t,) int32
+    row_start: torch.Tensor   # (num_rows + 1,) int32
+    inv_start: torch.Tensor   # (n + 1,) int32
+    inv_rows: torch.Tensor    # (t,) int32
+
+
+def flat_index(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+               *, n: int, num_rows: int) -> FlatIndex:
+    """:class:`FlatIndex` of a pool whose rows are contiguous and in row
+    order (``ids`` non-decreasing, as ``DeviceRRStore.append_batch`` writes
+    them): the plain statement of the indices that ``csrc/greedy.cu``
+    builds inside its launch (there a node's rows come in no set order),
+    by torch operations on the pool's device and no host read: a stable
+    sort of the valid elements by node (invalid ones sort last, as node n)
+    and two binary searches."""
+    dev = flat.device
+    nodes = torch.where(valid, flat.to(torch.int32), n)
+    key, perm = torch.sort(nodes, stable=True)
+    ids = ids.to(torch.int32)
+    inv_start = torch.searchsorted(
+        key, torch.arange(n + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    row_start = torch.searchsorted(
+        ids, torch.arange(num_rows + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    return FlatIndex(nodes=nodes, row_start=row_start, inv_start=inv_start,
+                     inv_rows=ids.index_select(0, perm))
 
 
 def occur_from_bitset_ref(words: torch.Tensor) -> torch.Tensor:

@@ -461,10 +461,14 @@ PROFILER_ALSO = {
     "queue_bfs": ["void (anonymous namespace)::queue_bfs_kernel(int const*, "
                   "int const*, float const*, unsigned int, int, int, long, "
                   "long, int*, unsigned int*, int*, int*, bool*, long*)"],
-    "greedy_flat": ["void (anonymous namespace)::greedy_flat_kernel(int "
-                    "const*, int const*, int const*, int const*, int, long, "
-                    "int, unsigned long long*, int*, unsigned char*, int*, "
-                    "int*)"],
+    "greedy_flat": ["void (anonymous namespace)::greedy_flat_kernel<true>"
+                    "(int const*, int const*, unsigned char const*, long, "
+                    "int, long, int, int, int, unsigned long long*, int*, "
+                    "int*, int*, int*, int*, int*, int*, int*)",
+                    "void (anonymous namespace)::greedy_flat_kernel<false>"
+                    "(int const*, int const*, unsigned char const*, long, "
+                    "int, long, int, int, int, unsigned long long*, int*, "
+                    "int*, int*, int*, int*, int*, int*, int*)"],
     "greedy_sketch": ["void (anonymous namespace)::greedy_sketch_kernel"
                       "<false>(unsigned int const*, int, int, int, bool, "
                       "int, unsigned long long*, unsigned char*, unsigned "
@@ -614,23 +618,39 @@ def _greedy_pool():
 
 
 def test_greedy_bound_counts_the_pool_and_the_steps(h100):
-    """Seeds 2 then 4 (k = 2): bytes are the 7 elements read once (9 bytes
-    each) and 2 x 8 bytes written; the argmax compares 6 entries a step
-    and the covered rows {0, 1, 2} decrement their 6 valid elements; the
-    working set reads Occur twice, the seeds' 2 + 1 rows, the 6 elements
-    and the indices once."""
+    """Seeds 2 then 4 (k = 2) on 3 blocks: bytes are the 7 elements read
+    once (9 bytes each) and 2 x 8 bytes written; the argmax compares 6
+    entries a step and the covered rows {0, 1, 2} decrement their 6 valid
+    elements.  The working set: the prologue (count zeroed, 6 atomics and
+    two reads; cursor written and 6 atomics; 33 row starts written, each
+    searched in 3 reads of ids; 17 bytes an element; the 6 entries and
+    their row starts, 20 bytes each), the exchanges (3 blocks write a
+    16-byte record a step and read all 3), then one cover (the last step
+    walks none) in which each block reads seed 2's 2 entries (12 bytes
+    each) and the nodes of their rows' 5 elements (4 bytes each); Occur
+    read from the scratch adds 4 n k."""
     import torch
     flat, ids, valid = _greedy_pool()
     seeds = torch.tensor([2, 4], dtype=torch.int32)
-    b = smoke.greedy_bound(flat, ids, valid, seeds, n=6, num_rows=32, k=2)
+    b = smoke.greedy_bound(flat, ids, valid, seeds, n=6, num_rows=32, k=2,
+                           blocks=3, shared=True)
     assert b["bound_bytes_ms"] == pytest.approx((9 * 7 + 16) / 3.35e9)
     alu_s = H100_SMS * 64 * H100_MHZ * 1e6
     assert b["bound_ops_ms"] == pytest.approx((2 * 6 + 6) / alu_s * 1e3)
-    assert b["seed_rows"] == 3 and b["decremented_elements"] == 6
-    assert b["working_bytes"] == 4 * 6 * 2 + 13 * 3 + 4 * 6 + 8 * 7 \
-        + 4 * 33 + 4 * 7
+    assert b["seed_rows_walked"] == 2 and b["decremented_elements"] == 6
+    assert b["elements_walked_a_block"] == 5
+    prologue = 12 * 6 + 4 * 6 + 4 * 6 + 4 * 6 + 4 * 33 + 4 * 33 * 3 \
+        + 17 * 7 + 20 * 6
+    assert b["working_prologue_bytes"] == prologue
+    assert b["working_exchange_bytes"] == 16 * 2 * 3 * 4
+    assert b["working_cover_bytes"] == 3 * (12 * 2 + 4 * 5)
+    assert b["working_bytes"] == prologue + 16 * 2 * 3 * 4 \
+        + 3 * (12 * 2 + 4 * 5)
     assert b["working_bytes_ms"] == pytest.approx(b["working_bytes"]
                                                   / 3.35e9)
+    scratch = smoke.greedy_bound(flat, ids, valid, seeds, n=6, num_rows=32,
+                                 k=2, blocks=3, shared=False)
+    assert scratch["working_bytes"] == b["working_bytes"] + 4 * 6 * 2
 
 
 def test_greedy_pool_args_and_plain_seeds_agree_with_the_bound(h100):

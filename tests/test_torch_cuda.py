@@ -1091,6 +1091,60 @@ def test_greedy_flat_kernel_equals_plain(card, name, k):
         assert int(got[1][-1]) == 0 and int(got[0][-1]) == 0
 
 
+def _edge_pool(case, device):
+    """(pool, keywords, k, the state's place) of a pool that one of the
+    kernel's edges needs: ``invalid`` the ragged pool with a tenth of its
+    elements invalid; ``rows`` the wide pool with num_rows 64 times its row
+    capacity; ``nodes`` 40 rows over n = 8,000,000 nodes (a block's Occur
+    slice, 242 KB, passes the shared memory: the scratch layout), k = 60
+    past the covered nodes; ``bits`` 40 rows and num_rows = 2^23 (1 MB of
+    Covered: the scratch layout)."""
+    rng = np.random.default_rng(len(case))
+    if case in ("invalid", "rows"):
+        store = _greedy_store("ragged" if case == "invalid" else "wide",
+                              device)
+        args, kw = _store_args(store)
+        if case == "invalid":
+            flat, ids, valid = args
+            drop = torch.from_numpy(rng.random(flat.shape[0]) < 0.1)
+            args = (flat, ids, valid & ~drop.to(device))
+        else:
+            kw = dict(kw, num_rows=64 * kw["num_rows"])
+        return args, kw, 50, "shared"
+    n, rows, num_rows, k = {"nodes": (8_000_000, 40, 64, 60),
+                            "bits": (5_003, 40, 1 << 23, 50)}[case]
+    lens = rng.integers(1, 30, rows)
+    lens[rng.choice(rows, rows // 3, replace=False)] = 0   # empty rows
+    flat = np.concatenate([rng.choice(min(n, 3_000), ln, replace=False)
+                           * (n // 3_000) for ln in lens])
+    ids = np.repeat(np.arange(rows), lens)
+    valid = rng.random(flat.shape[0]) < 0.95
+    args = tuple(torch.tensor(x, device=device) for x in (
+        flat.astype(np.int32), ids.astype(np.int32), valid))
+    return args, dict(n=n, num_rows=num_rows), k, "scratch"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["invalid", "rows", "nodes", "bits"])
+def test_greedy_flat_kernel_on_edge_pools(card, case):
+    """Byte for byte against the plain version on pools with invalid
+    elements, with num_rows far above the rows, and on the two that put the
+    blocks' Occur and Covered in the scratch (the kernel's global form)."""
+    args, kw, k, place = _edge_pool(case, card)
+    lay = tgreedy.flat_layout(kw["n"], kw["num_rows"],
+                              *tgreedy.flat_grid(card))
+    assert lay.shared == (place == "shared")
+    want = ref.greedy_flat_ref(*args, **kw, k=k)
+    before = ops.launch_counts()["greedy_flat"]
+    got = tgreedy.greedy_flat(*args, **kw, k=k)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["greedy_flat"] == before + 1
+    for x, y in zip(got, want):
+        assert x.dtype == torch.int32 and torch.equal(x, y)
+    if case == "nodes":                                # past the covered
+        assert int(got[1][-1]) == 0 and int(got[0][-1]) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["ragged", "small", "wide", "longrow"])
 def test_flat_selection_on_card_equals_cpu(card, name):
@@ -1153,6 +1207,10 @@ def test_greedy_wrapper_checks_inputs(card):
         tgreedy.greedy_flat(flat, ids.cpu(), valid, **kw, k=2)
     with pytest.raises(ValueError):
         tgreedy.greedy_flat(flat, ids[:-1], valid, **kw, k=2)
+    strided = torch.zeros(2 * flat.shape[0], dtype=torch.int32,
+                          device=card)[::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        tgreedy.greedy_flat(flat, strided, valid, **kw, k=2)
     for bad in (dict(kw, n=0), dict(kw, num_rows=0)):
         with pytest.raises(ValueError):
             tgreedy.greedy_flat(flat, ids, valid, **bad, k=2)
