@@ -10,10 +10,11 @@ Phases, each of which raises on failure (non-zero exit):
    class's results per clock per SM x the maximum SM clock that
    ``nvidia-smi`` reports) that the kernels' bounds use;
 2. build: compiles ``csrc/occur.cu``, ``sketch.cu``, ``bitops.cu``,
-   ``bernoulli.cu``, ``membership.cu``, ``flashattn.cu``, ``queue.cu`` and
-   ``greedy.cu`` with nvcc for sm_90a, one nvcc per source, started
-   together, and prints each ``-Xptxas -v`` report; the three Occur
-   kernels and the five of ``greedy.cu`` must not spill;
+   ``bernoulli.cu``, ``membership.cu``, ``flashattn.cu``, ``queue.cu``,
+   ``greedy.cu`` and ``celf.cu`` with nvcc for sm_90a, one nvcc per
+   source, started together, and prints each ``-Xptxas -v`` report; the
+   three Occur kernels, the five of ``greedy.cu`` and the two of
+   ``celf.cu`` must not spill;
 3. kernels: both Occur kernels against their plain versions on random
    int32 words of shape (131072, 2372) (bit 31 set in half the words, a
    ~50% row mask); the union popcount at (75880, 512) and (75880, 4) and
@@ -136,7 +137,27 @@ Phases, each of which raises on failure (non-zero exit):
    for byte against the plain version, one device operation a call under
    torch.profiler, timed beside the plain version, with the bound, the
    working set and the barrier floor, the same grid running its k + 3
-   grid barriers alone).
+   grid barriers alone);
+14. CELF (the slice of ``select_seeds_celf``): the phase-5 solve with
+   ``selection="celf"`` at ``sketch_k`` 1,024 and 16,384, and with
+   ``early_exit=True`` at 16,384 (:data:`CELF_SOLVES`), each with stage
+   times, launch counts (``celf_eval``, ``celf_apply`` (k a selection),
+   ``sketch_union_popcount``, ``popcount_words`` and the exact store's
+   fold ``sketch_scatter_or`` > 0), the early exit's skips and history,
+   and on its final pool one selection's exact evaluations, eval calls
+   and host syncs (:func:`count_syncs`; no target).  Each must equal
+   phase 5 exactly: θ, LB, rounds, RR sets, pool elements, seeds, gains,
+   the float32 bytes of frac.  On a host copy of each final pool
+   (:func:`check_celf_on_host`) the incremental sketch (the
+   ``sketch_scatter_or`` fold) must equal the plain fold word for word,
+   and the selection's seeds, gains, frac and ``stats_out`` the plain
+   versions'.  Then the records of ``celf_eval``,
+   ``celf_apply`` and ``sketch_union_popcount`` at the path's shapes
+   (:func:`celf_records`: against the plain versions exactly, timed
+   beside them, with the bound; the sweep and its ``popcount_words`` base
+   at the same cover exactly, on a ``celf_sweep_check:`` line), at 16,384
+   buckets on a
+   ``celf_kernels_16384:`` line.
 
 The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
 the exact path's final bit matrix, masked on the first seed's rows as the
@@ -147,9 +168,12 @@ the queue sampler at the exact path's first round with the work it
 examined (:func:`queue_bound`) and its one-SM bound
 (:func:`one_sm_bound`), the greedy at the default solve's final pool
 with its barrier floor (:func:`greedy_record`), the sketch greedy at the
-approximate solve's final sketch (:func:`sketch_greedy_record`); launches
-from each path's run (``sketch_union_popcount`` 0: no path launches it
-since ``greedy_sketch`` runs the approximate greedy); each with
+approximate solve's final sketch (:func:`sketch_greedy_record`), the
+CELF kernels and ``sketch_union_popcount`` at the CELF solve's pool and
+its 1,024-bucket sketch (:func:`celf_records`; the union popcount's record
+at the approximate sketch, where no path launches it, goes on a
+``sketch_union_popcount_approximate:`` line); launches from each path's
+run; each with
 ``ms``, ``device_ms``,
 ``device_other_ms`` and ``enqueue_us`` from :func:`timing`;
 ``bernoulli_edges`` with its trial's instructions by class as the built
@@ -234,7 +258,10 @@ APPROX_MAX_THETA = 8192
 SKETCH_ROWS, SKETCH_WORDS, SCATTER_PAIRS = N_NODES + 1, 512, 1 << 24
 PROBE_SKETCH_K = (128, 1024, 4096)
 SOURCES = ("occur", "sketch", "bitops", "bernoulli", "membership",
-           "flashattn", "queue", "greedy")
+           "flashattn", "queue", "greedy", "celf")
+# phase 14: the phase-5 solve with CELF, (selection, sketch_k, early_exit)
+CELF_SOLVES = (("celf", 1024, False), ("celf", 16384, False),
+               ("celf", 16384, True))
 # phase 13: the default-options exact solve's greedy also at the pool of an
 # eps = 0.25 solve, the bottom of benchmarks/fig6_eps_sweep.py:22
 EPS_LOW = 0.25
@@ -254,6 +281,10 @@ LIBRARY_NOTE = {
     "queue_bfs": "no single PyTorch call runs a BFS",
     "greedy_flat": "no single PyTorch call runs a greedy",
     "greedy_sketch": "no single PyTorch call runs a greedy",
+    "celf_eval": "no single PyTorch call counts a node's uncovered rows "
+                 "for each of a batch of nodes",
+    "celf_apply": "no single PyTorch call ORs the rows that hold a node "
+                  "into a bitset",
 }
 SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "sketch_scatter_or": "sketch", "sketch_union_popcount": "sketch",
@@ -261,7 +292,8 @@ SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "bitset_andnot": "bitops", "popcount_words": "bitops",
              "bernoulli_edges": "bernoulli", "membership_rows": "membership",
              "flash_attention": "flashattn", "queue_bfs": "queue",
-             "greedy_flat": "greedy", "greedy_sketch": "greedy"}
+             "greedy_flat": "greedy", "greedy_sketch": "greedy",
+             "celf_eval": "celf", "celf_apply": "celf"}
 # each record's kernel as the profiler names it (a regular expression that
 # matches the demangled or the mangled name)
 DEVICE_KERNEL = {
@@ -279,6 +311,8 @@ DEVICE_KERNEL = {
     "queue_bfs": r"queue_bfs_kernel",
     "greedy_flat": r"greedy_flat_kernel",
     "greedy_sketch": r"greedy_sketch_kernel",
+    "celf_eval": r"celf_eval_kernel",
+    "celf_apply": r"celf_apply_kernel",
 }
 KERNELS = {
     "occur_from_bitset": "src/repro/kernels/bitset.py:167",
@@ -299,6 +333,9 @@ KERNELS = {
     # no Pallas kernel of its own: the reference's greedy is a host loop
     # of sweeps (each the Pallas sketch_union_popcount)
     "greedy_sketch": "src/repro/core/coverage.py:2223",
+    # no Pallas kernel: the reference's CELF evaluations are jitted XLA
+    "celf_eval": "src/repro/core/coverage.py:1451",
+    "celf_apply": "src/repro/core/coverage.py:1482",
 }
 # phase 3: the queue kernel at the exact path's first round, also at qcap
 # 64 (above its longest RR set, 21) and 8, where lanes overflow
@@ -1819,6 +1856,281 @@ def default_solve_phase(g, queue_res, queue_store) -> list:
     return [rec]
 
 
+def celf_bound(flat, ids, valid, cov_words, nodes, apply: bool) -> dict:
+    """CELF's exact evaluation of the candidates ``nodes``, or the commit of
+    the one seed in ``nodes``, at least: the node id of every element of the
+    pool's live extent read once (4 bytes an element); only for the elements
+    that hold one of ``nodes``, their valid byte, the row id of each valid
+    one (4 bytes) and the distinct Covered words of those rows, read once
+    (and written once by the commit); the candidates read and their counts
+    written (the commit: its gain).  One compare an element on the ALU.
+    The scratch bitmaps that ``celf_eval`` zeroes are the kernel's own
+    choice and not counted."""
+    t, nw = flat.shape[0], cov_words.shape[0]
+    hit = torch.isin(flat, nodes.to(flat.dtype))
+    live = hit & valid
+    rows = ids[live].to(torch.int64)
+    rows = rows[(rows >= 0) & (rows < 32 * nw)]
+    words = int(torch.unique(rows >> 5).numel())
+    nbytes = (4 * t + int(hit.sum()) + 4 * int(live.sum())
+              + (8 * words + 4 if apply else 4 * words + 8 * nodes.numel()))
+    return _bound(nbytes, {"alu": t})
+
+
+def celf_records(store, seeds, launches, iters=50, plain_iters=3) -> list:
+    """The CELF kernels and the sweep at this path's shapes: the solve's
+    final pool, Covered after its first 10 seeds, the sweep's 32 candidates
+    there (the sketch's top Δocc keys, as ``select_seeds_celf`` picks them)
+    and the commit of the 11th seed.  Each against its plain version exactly,
+    then timed beside it, with its bound; the sweep at that cover
+    (``union_gains``, ``popcount_words`` on the (1, W) cover included)
+    against its plain version exactly too.  Returns the records of
+    ``celf_eval``, ``celf_apply`` and ``sketch_union_popcount`` (the store's
+    sketch)."""
+    t = store.n_elems
+    pool = (store.flat[:t], store.ids[:t], store.valid[:t])
+    dev = pool[0].device
+    n = store.n_nodes
+    words = store.sketch_words()
+    cov_words = torch.zeros(store.row_capacity() // 32, dtype=torch.int32,
+                            device=dev)
+    cov_sk = torch.zeros(words.shape[1], dtype=torch.int32, device=dev)
+    first = min(10, len(seeds) - 1)
+    for u in seeds[:first]:
+        ref.celf_apply_ref(*pool, cov_words, u)
+        cov_sk = sketch_mod.union_row(cov_sk, words, u)
+    deltas = sketch_mod.union_gains(words, cov_sk)[:n]
+    key = deltas.to(torch.int64) * (n + 1) - torch.arange(n, device=dev)
+    cands = torch.topk(key, 32).indices.to(torch.int32)
+    u = int(seeds[first])
+    got = ops.celf_eval(*pool, cov_words, cands)
+    want = ref.celf_eval_ref(*pool, cov_words, cands)
+    mine, plain = cov_words.clone(), cov_words.clone()
+    gain = ops.celf_apply(*pool, mine, u)
+    want_gain = ref.celf_apply_ref(*pool, plain, u)
+    pop = ops.sketch_union_popcount(words, cov_sk)
+    pop_want = ref.sketch_union_popcount_ref(words, cov_sk)
+    # the sweep's base term and the whole sweep, against the plain versions
+    # on a host copy (a CPU tensor takes them)
+    base = ops.popcount_words(cov_sk.reshape(1, -1))
+    base_want = ref.popcount_words_ref(cov_sk.reshape(1, -1))
+    sweep = sketch_mod.union_gains(words, cov_sk)
+    sweep_want = sketch_mod.union_gains(words.cpu(), cov_sk.cpu())
+    torch.cuda.synchronize()
+    errs = {"celf_eval": max_abs_err(got, want),
+            "celf_apply": float(max(abs(int(gain) - int(want_gain)),
+                                    max_abs_err(mine, plain))),
+            "sketch_union_popcount": max_abs_err(pop, pop_want),
+            "popcount_words": max_abs_err(base, base_want),
+            "union_gains": max_abs_err(sweep.cpu(), sweep_want)}
+    if any(errs.values()) or not (torch.equal(got, want)
+                                  and torch.equal(mine, plain)
+                                  and torch.equal(pop, pop_want)
+                                  and torch.equal(base, base_want)
+                                  and torch.equal(sweep.cpu(), sweep_want)):
+        raise AssertionError(f"CELF kernels != plain versions: {errs}")
+    say("celf_sweep_check", {"sketch_k": store.sketch_k, "cover_bits":
+                             int(base.sum()), "max_abs_err": errs})
+    scratch = cov_words.clone()       # a repeated commit does the same work
+    rows, cols = words.shape
+    shapes = dict(pool_elements=t, num_rows=store.row_capacity(),
+                  covered_words=cov_words.shape[0], n=n)
+    return [
+        record("celf_eval", launches, errs["celf_eval"],
+               timing("celf_eval",
+                      lambda: ops.celf_eval(*pool, cov_words, cands), iters),
+               cuda_ms(lambda: ref.celf_eval_ref(*pool, cov_words, cands),
+                       plain_iters),
+               celf_bound(*pool, cov_words, cands, False),
+               candidates=32, gains_sum=int(got.sum()), **shapes),
+        record("celf_apply", launches, errs["celf_apply"],
+               timing("celf_apply",
+                      lambda: ops.celf_apply(*pool, scratch, u), iters),
+               cuda_ms(lambda: ref.celf_apply_ref(*pool, plain, u),
+                       plain_iters),
+               celf_bound(*pool, cov_words,
+                          torch.tensor([u], device=dev), True),
+               seed=u, gain=int(gain), **shapes),
+        record("sketch_union_popcount", launches,
+               errs["sketch_union_popcount"],
+               timing("sketch_union_popcount",
+                      lambda: ops.sketch_union_popcount(words, cov_sk),
+                      iters),
+               cuda_ms(lambda: ref.sketch_union_popcount_ref(words, cov_sk),
+                       plain_iters), union_bound_ms(rows, cols),
+               shape=[rows, cols], sketch_k=store.sketch_k),
+    ]
+
+
+def host_profile(fn, top: int = 12) -> dict:
+    """Where one call of ``fn`` spends the host's time, by cProfile (the
+    profile's own cost included): its wall seconds, and the ``top``
+    functions by their own time, each with its calls and seconds."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.runcall(fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: kv[1][2], reverse=True)[:top]
+    return {"wall_s": wall, "own_s": [
+        {"fn": f"{Path(file).name}:{line}:{name}", "calls": nc,
+         "own_s": tt, "cum_s": ct}
+        for (file, line, name), (_, nc, tt, ct, _) in rows]}
+
+
+def host_copy(store):
+    """A CPU ``DeviceRRStore`` of the same sketch size and bucketing that
+    holds ``store``'s pool, appended as one padded batch of its rows: its
+    incremental sketch is the plain fold (``sketch_scatter_or_ref``) of the
+    same rows under the same row ids, and its selection runs the plain
+    versions of every kernel."""
+    t = store.n_elems
+    flat, ids = store.flat[:t].cpu(), store.ids[:t].cpu().to(torch.int64)
+    if not bool(store.valid[:t].all()):
+        raise AssertionError("the pool's live extent holds invalid elements")
+    lens = torch.bincount(ids, minlength=store.n_rr)
+    start = torch.cumsum(lens, 0) - lens
+    nodes = torch.full((store.n_rr, max(int(lens.max()), 1)), store.n_nodes,
+                       dtype=torch.int32)
+    nodes[ids, torch.arange(t) - start[ids]] = flat
+    copy = cov.DeviceRRStore(store.n_nodes, sketch_k=store.sketch_k,
+                             sketch_mode=store.sketch_mode, device="cpu")
+    copy.append_batch((nodes, lens))
+    if not (torch.equal(copy.flat[:t], flat)
+            and torch.equal(copy.ids[:t].to(torch.int64), ids)
+            and copy.n_rr == store.n_rr):
+        raise AssertionError("the host copy's pool differs from the card's")
+    return copy
+
+
+def check_celf_on_host(store, card: cov.CoverageResult, card_stats: dict
+                       ) -> dict:
+    """Hold the card's CELF path against the plain versions on a host copy
+    of its pool (:func:`host_copy`): the incremental sketch word for word
+    (the ``sketch_scatter_or`` fold of every append), and one selection's
+    seeds, gains, frac and ``stats_out`` (its exact evaluations and eval
+    calls depend on the sketch).  Raises on any difference; returns what was
+    compared and the seconds the host took."""
+    t0 = time.perf_counter()
+    copy = host_copy(store)
+    sketch_same = torch.equal(store.sketch_words().cpu(), copy.sketch_words())
+    stats = {}
+    res = cov.select_seeds_celf(copy, card.seeds.numel(), stats_out=stats)
+    same = {
+        "sketch_words": sketch_same,
+        "seeds": torch.equal(card.seeds.cpu(), res.seeds),
+        "gains": torch.equal(card.gains.cpu(), res.gains),
+        "frac_f32_bytes": card.frac.cpu().numpy().tobytes()
+        == res.frac.numpy().tobytes(),
+        "stats_out": card_stats == stats,
+    }
+    out = {"equal": same, "host_stats": stats,
+           "host_s": time.perf_counter() - t0}
+    if not all(same.values()):
+        raise AssertionError(f"CELF on the card != the plain versions on a "
+                             f"host copy: {out}, card stats {card_stats}")
+    return out
+
+
+def celf_phase(g, queue_res, queue_store) -> list:
+    """The phase-5 solve with ``selection="celf"`` at each of
+    :data:`CELF_SOLVES`: stage times, launches (both CELF kernels, the
+    sweep's ``sketch_union_popcount`` and ``popcount_words`` and the
+    exact store's fold ``sketch_scatter_or`` > 0), the early exit's skips,
+    and, on the final pool, one selection's exact evaluations and host
+    syncs (:func:`count_syncs`).  Each must equal phase 5 in θ, LB, rounds,
+    RR sets, pool elements, seeds, gains and the float32 bytes of frac, and
+    its sketch and that selection must equal the plain versions' on a host
+    copy of the pool (:func:`check_celf_on_host`).
+    Returns the records of :func:`celf_records` at sketch_k 1,024, and
+    prints them at 16,384 on a ``celf_kernels_16384:`` line."""
+    dev = g.device
+    qst = queue_res.stats
+    out = []
+    for selection, sketch_k, early in CELF_SOLVES:
+        problem = IMProblem(k=K, eps=EPS, early_exit=early)
+        solver = IMMSolver(g, engine="queue", batch=BATCH,
+                           selection=selection, sketch_k=sketch_k, seed=0,
+                           device=dev)
+        solver.prepare(problem)
+        clock = StageClock()
+        clock.wrap(solver.engine, "sample", "sampling")
+        clock.wrap(solver.store, "append_batch", "append")
+        clock.wrap(solver.store, "select", "selection")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = solver.solve(problem)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        st, store = res.stats, solver.store
+        same = {
+            "theta": st.theta == qst.theta, "lb": st.lb == qst.lb,
+            "rounds": st.rounds == qst.rounds,
+            "n_rr": store.n_rr == queue_store.n_rr,
+            "pool_elements": store.n_elems == queue_store.n_elems,
+            "seeds": bool(np.array_equal(res.seeds, queue_res.seeds)),
+            "gains": bool(np.array_equal(res.gains, queue_res.gains)),
+            "frac_f32_bytes": np.float32(res.frac).tobytes()
+            == np.float32(queue_res.frac).tobytes(),
+        }
+        calls, stage_s = dict(clock.calls), dict(clock.seconds)
+        stats = {}
+        final = cov.select_seeds_celf(store, K, stats_out=stats)
+        host_check = check_celf_on_host(store, final, stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, sync_sites = count_syncs(lambda: store.select(K, method="celf"))
+        torch.cuda.synchronize()
+        select_s = time.perf_counter() - t0
+        say("celf_solve", {
+            "selection": selection, "sketch_k": store.sketch_k,
+            "early_exit": early, "sketch_bytes": store.sketch_bytes(),
+            "theta": st.theta, "lb": st.lb, "lb_iters": st.lb_iters,
+            "rounds": st.rounds, "n_rr": store.n_rr,
+            "pool_elements": store.n_elems, "solve_s": solve_s,
+            "stage_s": stage_s, "stage_calls": calls,
+            "early_exit_skips": st.early_exit_skips, "history": st.history,
+            "max_memory_allocated": peak, "launches": launches,
+            "final_selection": stats, "final_selection_s": select_s,
+            "host_check": host_check,
+            "select_host_syncs": len(sync_sites),
+            "select_host_sync_sites": sorted(set(sync_sites)),
+            "equals_phase5_solve": same, "seeds": res.seeds.tolist()[:10]})
+        if not all(same.values()):
+            raise AssertionError(f"celf solve at sketch_k {sketch_k}, "
+                                 f"early_exit {early} differs from phase 5: "
+                                 f"{same}")
+        for name in ("celf_eval", "celf_apply", "sketch_union_popcount",
+                     "popcount_words", "sketch_scatter_or", "queue_bfs"):
+            if launches[name] == 0:
+                raise AssertionError(f"{name} was not launched on the CELF "
+                                     f"path: {launches}")
+        if launches["celf_apply"] != K * calls["selection"]:
+            raise AssertionError(f"{calls['selection']} selections made "
+                                 f"{launches['celf_apply']} commits")
+        if early and st.early_exit_skips == 0:
+            say("celf_early_exit_note", "no LB iteration was skipped")
+        if (sketch_k, early) == (1024, False):
+            say("celf_select_profile", host_profile(
+                lambda: store.select(K, method="celf")))
+        if (sketch_k, early) == (1024, False):
+            out = celf_records(store, res.seeds.tolist(), launches)
+        elif not early:
+            say("celf_kernels_16384",
+                celf_records(store, res.seeds.tolist(), launches))
+        del solver, store
+        torch.cuda.empty_cache()
+    return out
+
+
 def padded_phase(store, bit) -> list:
     """The phase-5 pool as a padded store; its greedy must give the bitset
     selection exactly with K membership launches.  Returns the kernel's
@@ -1971,6 +2283,11 @@ def main() -> int:
     if len(greedy_spills) != 5 or any(greedy_spills.values()):
         raise AssertionError(f"greedy.cu: want 5 kernels without spills, "
                              f"ptxas reports {greedy_spills}")
+    celf_spills = ptxas_spills(_build.PTXAS_REPORT["celf"], "celf_")
+    say("celf_ptxas", celf_spills)
+    if len(celf_spills) != 2 or any(celf_spills.values()):
+        raise AssertionError(f"celf.cu: want 2 kernels without spills, "
+                             f"ptxas reports {celf_spills}")
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2120,10 +2437,19 @@ def main() -> int:
     # 13. the default-options exact solve: its greedy is greedy_flat
     greedy_recs = default_solve_phase(g, res, store)
 
+    # 14. the same solve with CELF and with the θ early exit
+    celf_recs = celf_phase(g, res, store)
+    # sketch_union_popcount's record is the CELF path's; the approximate
+    # sketch's (no path launches it there) stays on a line of its own
+    union_approx = [r for r in approx_records
+                    if r["name"] == "sketch_union_popcount"]
+    say("sketch_union_popcount_approximate", union_approx)
+    approx_records = [r for r in approx_records if r not in union_approx]
+
     say("total", {"seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": records + approx_records + dense_recs
                       + padded_recs + flash_recs + queue_recs
-                      + greedy_recs}), flush=True)
+                      + greedy_recs + celf_recs}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,16 @@ Selection (:func:`select_seeds_device`):
   CPU).
 * ``auto`` — ``bitset`` iff the bit matrix is no larger than the pool's
   capacity, the reference's rule.
+* ``celf`` (:func:`select_seeds_celf`) — the reference's CELF lazy greedy:
+  a host priority array of upper bounds, a sweep of the store's coverage
+  sketch a seed (``sketch_union_popcount`` and ``popcount_words``), and
+  exact evaluations of ``eval_batch`` candidates, each one ``celf_eval``
+  launch and one host read; a seed's commit is one ``celf_apply`` launch.
+
+A store built with ``sketch_k`` keeps the reference's incremental
+coverage sketch: each append folds its batch (the ``sketch_scatter_or``
+kernel) under the row ids it writes.  Without one, :meth:`sketch_words`
+builds the sketch from the pool on demand.
 
 A third layout, :class:`PaddedStore` (the pool as an (R, L) matrix padded
 with n, the reference's layout for its TPU membership kernel), has its
@@ -29,10 +39,10 @@ own greedy, :func:`select_seeds_padded`: the per-seed membership scan is
 the ``membership_rows`` CUDA kernel; Occur and its decrements are
 scatter-adds.
 
-All three scans take ties to the lowest node id (``torch.argmax`` returns the
-first maximum; the bit matrix's padding ids past n have Occur 0) and give
-seeds, gains and ``frac`` identical to each other and to the reference's
-``fused`` scan on the same pool.
+All these scans take ties to the lowest node id (``torch.argmax`` and
+``np.argmax`` return the first maximum; the bit matrix's padding ids past
+n have Occur 0) and give seeds, gains and ``frac`` identical to each other
+and to the reference's ``fused`` scan on the same pool.
 
 :class:`SketchRRStore` is the pool-free store of the approximate mode (the
 reference's ``SketchRRStore`` on one device): each batch folds straight
@@ -68,13 +78,43 @@ class CoverageResult(NamedTuple):
     frac: torch.Tensor    # () float32 — F_R(S): covered fraction
 
 
-class DeviceRRStore:
-    """Growing CSR-of-RR pool on one device (see the module docstring)."""
+class _FoldedSketch:
+    """What both stores with an incremental sketch share: its (1,) int32
+    flag ``fold_error`` and the check of a requested bucket count."""
+
+    def check_folds(self, flag: int) -> None:
+        """Raise if ``flag``, the host's read of :attr:`fold_error`, says
+        that a fold met a bucket outside the sketch."""
+        if flag:
+            raise ValueError(f"a fold met a bucket outside [0, "
+                             f"{self.sketch_k})")
+
+    def _check_k(self, k: int | None) -> None:
+        if k is not None and sketch_mod.resolve_sketch_k(k) != self.sketch_k:
+            raise ValueError(
+                f"store maintains an incremental sketch of k="
+                f"{self.sketch_k}; requested k={k} cannot be honored")
+
+
+class DeviceRRStore(_FoldedSketch):
+    """Growing CSR-of-RR pool on one device (see the module docstring).
+
+    With ``sketch_k`` set, every append also folds its batch into an
+    incremental coverage sketch (:meth:`sketch_words`), the (n + 1,
+    sketch_k/32) int32 words of the reference's store under the same
+    batch-order row ids; ``fold_error`` is its (1,) int32 flag, read as
+    :class:`SketchRRStore` reads its own.
+    """
+
+    DEFAULT_SKETCH_K = 1024
 
     def __init__(self, n_nodes: int, capacity: int = 4096, *,
+                 sketch_k: int | None = None, sketch_mode: str = "mod",
                  device="cuda"):
         if n_nodes >= 2 ** 31 - 1:
             raise ValueError("item space must fit int32")
+        if sketch_mode not in ("mod", "mix"):
+            raise ValueError(f"unknown sketch hash mode {sketch_mode!r}")
         self.n_nodes = n_nodes
         self.device = resolve_device(device)
         cap = _ceil_pow2(max(capacity, 1))
@@ -85,6 +125,16 @@ class DeviceRRStore:
         self._t = 0        # host mirrors (exact)
         self._nrr = 0
         self._bitset = None
+        self.sketch_mode = sketch_mode
+        self.sketch_k = (sketch_mod.resolve_sketch_k(sketch_k)
+                         if sketch_k is not None else None)
+        self.sketch_rows = n_nodes + 1
+        self._sk_words = (torch.zeros(
+            (self.sketch_rows, self.sketch_k // 32), dtype=torch.int32,
+            device=self.device) if self.sketch_k is not None else None)
+        self.fold_error = torch.zeros(1, dtype=torch.int32,
+                                      device=self.device)
+        self._sk_cache = None   # on-demand sketch (no incremental one)
 
     @property
     def n_rr(self) -> int:
@@ -119,23 +169,59 @@ class DeviceRRStore:
         r, w = nodes.shape
         lens = lens.to(torch.int64).clamp(0, w)
         row_valid = lens > 0
-        elems, rows = (int(x) for x in torch.stack(
-            [lens.sum(), row_valid.sum()]).cpu())
+        counts = [lens.sum(), row_valid.sum()]
+        if self._sk_words is not None:       # the last fold's flag, too
+            counts.append(self.fold_error[0].to(torch.int64))
+        elems, rows, *bad = (int(x) for x in torch.stack(counts).cpu())
+        self.check_folds(sum(bad))
         wide = r * w > _PACK and elems <= _PACK
         need = self._t + (_PACK if wide else elems)
         if need > self.capacity:
             self._grow_to(need)
+        rid = self._nrr + row_valid.cumsum(0) - 1
+        if self._sk_words is not None:
+            # after the growth, before the counters move: the reference's
+            # order, so the fold sees the ids that the append writes
+            sketch_mod.fold_frontier_rows(self._sk_words, nodes, lens, rid,
+                                          k=self.sketch_k,
+                                          mode=self.sketch_mode,
+                                          bad=self.fold_error)
         if elems:
             t = self._t
             mask = torch.arange(w, device=self.device)[None, :] < lens[:, None]
             src = rank_positions(mask.reshape(-1).cumsum(0), elems, r * w)
-            rid = self._nrr + row_valid.cumsum(0) - 1
             self.flat[t:t + elems] = nodes.reshape(-1)[src].to(torch.int32)
             self.ids[t:t + elems] = rid[src // w].to(torch.int32)
             self.valid[t:t + elems] = True
         self._t += elems
         self._nrr += rows
         self._bitset = None
+        self._sk_cache = None
+
+    def sketch_bytes(self) -> int:
+        """Bytes of the incremental sketch (0 without one)."""
+        if self._sk_words is None:
+            return 0
+        return self.sketch_rows * (self.sketch_k // 32) * 4
+
+    def sketch_words(self, k: int | None = None) -> torch.Tensor:
+        """(n + 1, k/32) int32 packed per-node coverage sketch.
+
+        A store built with ``sketch_k`` returns its incremental fold (a
+        ``k`` other than its own raises ``ValueError``); any other builds
+        one from the pool on demand (``k`` default
+        :attr:`DEFAULT_SKETCH_K`), cached until the next append."""
+        if self._sk_words is not None:
+            self._check_k(k)
+            return self._sk_words
+        kk = sketch_mod.resolve_sketch_k(k if k is not None
+                                         else self.DEFAULT_SKETCH_K)
+        if self._sk_cache is None or self._sk_cache.shape[1] != kk // 32:
+            t = self._t
+            self._sk_cache = sketch_mod.sketch_packed_from_flat(
+                self.flat[:t], self.ids[:t], self.valid[:t],
+                n_rows=self.sketch_rows, k=kk, mode=self.sketch_mode)
+        return self._sk_cache
 
     def _grow_to(self, need: int) -> None:
         """Double the capacity until ``need`` elements fit."""
@@ -167,7 +253,15 @@ class DeviceRRStore:
                 self.valid[:self._t], num_rows=num_rows, n_words=n_words)
         return self._bitset
 
-    def select(self, k: int, method: str = "auto") -> CoverageResult:
+    def select(self, k: int, method: str = "auto",
+               eval_batch: int | None = None) -> CoverageResult:
+        """Greedy selection: ``method`` is ``"flat"``, ``"bitset"``,
+        ``"auto"`` (:func:`select_seeds_device`) or ``"celf"`` /
+        ``"celf-sketch"`` (:func:`select_seeds_celf`, ``eval_batch``
+        candidates an exact evaluation; its default when None)."""
+        if method in ("celf", "celf-sketch"):
+            return select_seeds_celf(
+                self, k, eval_batch=32 if eval_batch is None else eval_batch)
         return select_seeds_device(self, k, method=method)
 
 
@@ -235,6 +329,120 @@ def select_seeds_device(store: DeviceRRStore, k: int,
     if method == "bitset":
         return _select_bitset(store, k)
     raise ValueError(f"unknown selection method {method!r}")
+
+
+def _host_to(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; to a card through pinned memory by a
+    copy that does not make the host wait."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def select_seeds_celf(store: DeviceRRStore, k: int, *, eval_batch: int = 32,
+                      use_sketch: bool = True, spec=None,
+                      stats_out: dict | None = None) -> CoverageResult:
+    """CELF lazy greedy with sketch-first candidate ordering: the
+    reference's ``select_seeds_celf`` on one device, seed for seed.
+
+    A host priority array ``ub`` holds each node's last exact marginal gain
+    (at first the exact Occur, one scatter-add read once), an upper bound
+    under submodularity; per seed only the candidates that could still win
+    are evaluated exactly, ``eval_batch`` at a time, each batch one
+    ``kops.celf_eval`` launch and one host read.  With ``use_sketch`` each
+    seed starts with a sweep of the store's coverage sketch
+    (:meth:`DeviceRRStore.sketch_words`): Δocc (``sketch.union_gains``,
+    the ``sketch_union_popcount`` and ``popcount_words`` kernels) is a
+    lower bound on the gain, and its top ``eval_batch`` nodes, the
+    composite key ``Δocc·(n+1) − id`` picked on the device by ``topk``
+    (keys are unique, so the set is the reference's ``argpartition``'s),
+    are evaluated first.  Then the first maximum of ``ub`` (the lowest id
+    on ties) is accepted once it is fresh; else the ``eval_batch`` stale
+    nodes of highest ``ub·(n+1) − id`` are evaluated.  The seed's commit
+    is one ``kops.celf_apply`` launch, whose gain stays on the device.
+
+    The seeds, gains and ``frac`` equal the ``flat`` scan's for any sketch
+    size; ``stats_out`` gets ``n_exact_evals``, ``n_eval_calls``,
+    ``sketch_k`` (0 without the sketch) and ``n_rr``, as the reference's.
+    ``spec`` (the problem variants) is not ported yet.
+    """
+    if spec is not None:
+        raise NotImplementedError(
+            "select_seeds_celf(spec=...) is not ported yet: ROADMAP Queue 1 "
+            "item 7 (problem variants)")
+    n = store.n_nodes
+    t = store.n_elems
+    flat, ids, valid = store.flat[:t], store.ids[:t], store.valid[:t]
+    dev = flat.device
+    c = max(1, min(eval_batch, n))
+    occur = torch.zeros(n + 1, dtype=torch.int64, device=dev).index_add_(
+        0, flat.to(torch.int64), valid.to(torch.int64))
+    # one read: Occur and the fold flag (0 without an incremental sketch)
+    occur[n] = store.fold_error[0]
+    ub = occur.cpu().numpy()
+    store.check_folds(int(ub[n]))
+    ub = ub[:n].copy()
+    fresh = np.zeros(n, bool)
+    cov_words = torch.zeros(store.row_capacity() // 32, dtype=torch.int32,
+                            device=dev)
+    if use_sketch:
+        sk_words = store.sketch_words()
+        sk_k = sk_words.shape[1] * 32
+        cov_sk = torch.zeros(sk_words.shape[1], dtype=torch.int32,
+                             device=dev)
+        sweep_ids = torch.arange(n, dtype=torch.int64, device=dev)
+    n_evals = n_eval_calls = 0
+    node_ids = np.arange(n)
+
+    def eval_exact(cands: torch.Tensor, picked: np.ndarray | None = None):
+        """Evaluate ``cands`` exactly and read the gains back (with the
+        candidates, when they were picked on the device)."""
+        nonlocal n_evals, n_eval_calls
+        g = kops.celf_eval(flat, ids, valid, cov_words, cands)
+        if picked is None:
+            picked, g = torch.stack([cands.to(torch.int64),
+                                     g.to(torch.int64)]).cpu().numpy()
+        else:
+            g = g.cpu().numpy()
+        ub[picked] = g
+        fresh[picked] = True
+        n_evals += len(picked)
+        n_eval_calls += 1
+
+    seeds, gains = [], []
+    for _ in range(k):
+        fresh[:] = False
+        if use_sketch:
+            deltas = sketch_mod.union_gains(sk_words, cov_sk)[:n]
+            key = deltas.to(torch.int64) * (n + 1) - sweep_ids
+            eval_exact(torch.topk(key, c).indices)
+        while True:
+            u = int(np.argmax(ub))       # first max == lowest id on ties
+            if fresh[u]:
+                break
+            stale = node_ids[~fresh]
+            cc = min(c, len(stale))
+            key = ub[stale] * (n + 1) - stale
+            pick = stale[np.argpartition(-key, cc - 1)[:cc]]
+            eval_exact(_host_to(pick.astype(np.int32), dev), pick)
+        gains.append(kops.celf_apply(flat, ids, valid, cov_words, u))
+        if use_sketch:
+            cov_sk = sketch_mod.union_row(cov_sk, sk_words, u)
+        ub[u] = 0                        # exact: u's rows are now covered
+        seeds.append(u)
+
+    if stats_out is not None:
+        stats_out.update(n_exact_evals=n_evals, n_eval_calls=n_eval_calls,
+                         sketch_k=(sk_k if use_sketch else 0),
+                         n_rr=store.n_rr)
+    gains = (torch.stack(gains) if gains
+             else torch.zeros(0, dtype=torch.int32, device=dev))
+    # float64 quotient rounded to float32, as the reference's host maths
+    frac = (gains.sum(dtype=torch.int64).to(torch.float64)
+            / max(store.n_rr, 1)).to(torch.float32)
+    return CoverageResult(seeds=_host_to(np.asarray(seeds, np.int32), dev),
+                          gains=gains, frac=frac)
 
 
 class PaddedStore(NamedTuple):
@@ -305,7 +513,7 @@ def select_seeds_padded(store: PaddedStore, k: int) -> CoverageResult:
                           gains=gains, frac=_frac(gains, n_rr))
 
 
-class SketchRRStore:
+class SketchRRStore(_FoldedSketch):
     """Pool-free RR "store" of ``mode="approximate"`` on one device.
 
     ``words`` is the (n + 1, sketch_k/32) int32 occupancy matrix (row n is
@@ -359,12 +567,11 @@ class SketchRRStore:
     def sketch_bytes(self) -> int:
         return self.sketch_rows * (self.sketch_k // 32) * 4
 
-    def check_folds(self, flag: int) -> None:
-        """Raise if ``flag``, the host's read of :attr:`fold_error`, says
-        that a fold met a bucket outside the sketch."""
-        if flag:
-            raise ValueError(f"a fold met a bucket outside [0, "
-                             f"{self.sketch_k})")
+    def sketch_words(self, k: int | None = None) -> torch.Tensor:
+        """The sketch words; a ``k`` other than the store's raises
+        ``ValueError``."""
+        self._check_k(k)
+        return self.words
 
     def append_batch(self, batch) -> None:
         """Fold one padded batch (an ``RRBatch`` or ``(nodes, lengths)``)

@@ -49,12 +49,14 @@ class IMMStats:
     frac_covered: float = 0.0
     sampling_steps: int = 0
     selection: str = "auto"
+    early_exit_skips: int = 0
     history: list = field(default_factory=list)
 
 
 # user-facing selection knob -> DeviceRRStore.select method
 _SELECTION_METHODS = {"auto": "auto", "fused": "flat", "flat": "flat",
-                      "bitset": "bitset"}
+                      "bitset": "bitset", "celf-sketch": "celf",
+                      "celf": "celf"}
 
 
 class IMMSolver:
@@ -62,9 +64,13 @@ class IMMSolver:
     and repeated solves on one solver keep growing one pool.
 
     ``engine`` names a registered engine; ``batch``/``qcap``/``ec`` go to
-    its config.  ``selection`` is ``auto``, ``fused`` (= ``flat``) or
-    ``bitset`` (exact problems).  ``sketch_k`` sizes the sketch of
-    approximate problems (default ``auto_sketch_k(eps, n)``).  The graph
+    its config.  ``selection`` is ``auto``, ``fused`` (= ``flat``),
+    ``bitset`` or ``celf`` (= ``celf-sketch``, the lazy greedy with
+    ``eval_batch`` candidates an exact evaluation) for exact problems.
+    ``sketch_k`` sizes the sketch of approximate problems (default
+    ``auto_sketch_k(eps, n)``) and the exact store's incremental sketch,
+    which ``celf`` and ``early_exit`` need (default
+    ``DeviceRRStore.DEFAULT_SKETCH_K``), as the reference's.  The graph
     moves to ``device`` (default ``"cuda"``, which raises when there is no
     card).
     """
@@ -73,7 +79,8 @@ class IMMSolver:
                  batch: Optional[int] = None, qcap: Optional[int] = None,
                  ec: Optional[int] = None, model: Optional[str] = None,
                  selection: str = "auto", seed: int = 0,
-                 sketch_k: Optional[int] = None, device="cuda"):
+                 sketch_k: Optional[int] = None,
+                 eval_batch: Optional[int] = None, device="cuda"):
         if model == "lt":
             raise NotImplementedError(
                 "model='lt' is not ported yet: ROADMAP Queue 1 item 7")
@@ -82,6 +89,9 @@ class IMMSolver:
         if selection not in _SELECTION_METHODS:
             raise ValueError(f"unknown selection {selection!r}; one of "
                              f"{sorted(_SELECTION_METHODS)}")
+        if eval_batch is not None and int(eval_batch) < 1:
+            raise ValueError("eval_batch must be >= 1")
+        self.eval_batch = None if eval_batch is None else int(eval_batch)
         self.device = resolve_device(device)
         self.g = g.to(self.device)
         self.n = self.g.n_nodes
@@ -92,7 +102,8 @@ class IMMSolver:
         self._engine = make_engine(engine, reverse(self.g), batch=batch,
                                    qcap=qcap, ec=ec)
         self._sketch_info = None
-        self._build(("exact", None))
+        self._sig = None
+        self.prepare(IMProblem(k=1))
 
     # -- engine + store per problem signature ------------------------------
     def _build(self, sig) -> None:
@@ -107,6 +118,7 @@ class IMMSolver:
         else:
             self.engine = self._engine
             self.store = cov.DeviceRRStore(self._engine.item_space,
+                                           sketch_k=sketch_k,
                                            device=self.device)
         self._sig = sig
         self._stats = IMMStats(selection=self.selection)
@@ -117,11 +129,15 @@ class IMMSolver:
         """Build the engine and store ``problem`` needs, unless the current
         ones already serve its (mode, sketch_k).  ``solve`` calls it; call
         it first to reach ``self.engine``/``self.store`` before a solve."""
-        sketch_k = None
-        if problem.mode == "approximate":
-            sketch_k = sketch_mod.resolve_sketch_k(
-                self._sketch_k_arg if self._sketch_k_arg is not None
-                else sketch_mod.auto_sketch_k(problem.eps, self.n))
+        # celf and the early exit read the exact store's incremental sketch
+        sketch_k = self._sketch_k_arg
+        if sketch_k is None and (self._sel_method == "celf"
+                                 or problem.early_exit):
+            sketch_k = cov.DeviceRRStore.DEFAULT_SKETCH_K
+        if sketch_k is None and problem.mode == "approximate":
+            sketch_k = sketch_mod.auto_sketch_k(problem.eps, self.n)
+        if sketch_k is not None:
+            sketch_k = sketch_mod.resolve_sketch_k(sketch_k)
         sig = (problem.mode, sketch_k)
         if sig != self._sig:
             self._build(sig)
@@ -166,7 +182,8 @@ class IMMSolver:
                 self._sketch_info = {}
                 return self.store.select(r.k_steps,
                                          info_out=self._sketch_info)
-            return self.store.select(r.k_steps, method=self._sel_method)
+            return self.store.select(r.k_steps, method=self._sel_method,
+                                     eval_batch=self.eval_batch)
 
         if p.theta is not None:
             # fixed-θ mode: sample to θ, one selection, no LB loop
@@ -183,11 +200,16 @@ class IMMSolver:
                 if p.max_theta:
                     theta_i = min(theta_i, p.max_theta)
                 self.sample_until(theta_i)
+                threshold = (1.0 + eps_p) * x
+                if self._early_exit_skip(r, threshold):
+                    st.early_exit_skips += 1
+                    st.history.append(("lb_skip", i, theta_i))
+                    continue
                 res = select()
                 est = r.scale * float(res.frac)
                 st.lb_iters = i
                 st.history.append(("lb_iter", i, theta_i, est))
-                if est >= (1.0 + eps_p) * x:                    # Alg. 2 L7
+                if est >= threshold:                            # Alg. 2 L7
                     lb = est / (1.0 + eps_p)                    # Alg. 2 L8
                     break
             theta = int(math.ceil(lam_star / lb))
@@ -208,6 +230,35 @@ class IMMSolver:
                         frac=frac, stats=self.stats, problem=p,
                         n_nodes=self.n, spread_bounds=bounds)
 
+    def _early_exit_skip(self, r, threshold: float) -> bool:
+        """The θ early exit (Alg. 2's LB gate), as the reference's: skip an
+        LB iteration's selection when an upper bound on the coverage of any
+        k seeds cannot reach ``threshold``.  Only with ``"mod"`` bucketing
+        and ``n_rr <= sketch_k``, where a node's sketch occupancy is its
+        exact row count: the sum of the k largest linear counts of the
+        occupancies (one ``union_gains`` sweep against an empty cover, read
+        once with the fold flag; the counts are host numpy, so both
+        packages give the same floats) bounds the coverage from above, and
+        a skipped iteration would have failed its test."""
+        st = self.store
+        if (not r.problem.early_exit or st.sketch_k is None
+                or st.sketch_mode != "mod"):
+            return False
+        n_rr = st.n_rr
+        if n_rr == 0 or n_rr > st.sketch_k:
+            return False
+        words = st.sketch_words()
+        empty = torch.zeros(words.shape[1], dtype=torch.int32,
+                            device=words.device)
+        occ = sketch_mod.union_gains(words, empty)
+        occ[-1] = st.fold_error[0]       # row n, the sentinel: the flag
+        occ = occ.cpu().numpy()
+        st.check_folds(int(occ[-1]))
+        counts = sketch_mod.linear_count(occ[:self.n], st.sketch_k)
+        top = float(np.sort(counts)[::-1][:r.k_steps].sum())
+        est_ub = r.scale * min(float(n_rr), top) / max(n_rr, 1)
+        return est_ub < threshold
+
     @staticmethod
     def _approx_bounds(r, info: dict) -> tuple:
         """(lo, hi) spread from a sketch-selection certificate: lower from
@@ -218,7 +269,7 @@ class IMMSolver:
 
 
 _SOLVER_KEYS = frozenset(("engine", "batch", "qcap", "ec", "model", "seed",
-                          "selection", "sketch_k", "device"))
+                          "selection", "sketch_k", "eval_batch", "device"))
 _PROBLEM_KEYS = frozenset(("model", "ell", "max_theta", "node_weights",
                            "costs", "budget", "candidates", "t_rounds",
                            "theta", "early_exit", "mode"))

@@ -2,7 +2,8 @@
 
 :class:`IMProblem` keeps the reference's fields (``repro.core.problem``), so
 a problem reads the same in both packages.  ``mode`` is ``"exact"`` (the RR
-pool) or ``"approximate"`` (the pool-free sketch store).  The variant fields
+pool) or ``"approximate"`` (the pool-free sketch store); ``early_exit`` is
+the θ early exit of the LB loop.  The variant fields
 are not ported yet: setting one raises ``NotImplementedError`` naming the
 ROADMAP item that brings it, in either mode.  Host-side spec and validation
 only.
@@ -21,7 +22,6 @@ _NOT_PORTED = {
     "budget": (None, "Queue 1 item 7 (budgeted greedy)"),
     "candidates": (None, "Queue 1 item 7 (candidates)"),
     "t_rounds": (None, "Queue 1 item 7 (MRIM)"),
-    "early_exit": (False, "Queue 1 item 8 (CELF early exit)"),
 }
 MODES = ("exact", "approximate")
 
@@ -35,6 +35,9 @@ class IMProblem:
     be ``None`` (inherit) or ``"ic"``; ``"lt"`` waits for ROADMAP Queue 1
     item 7.  ``mode="approximate"`` samples into per-node coverage sketches
     instead of a pool and returns certified ``spread_bounds``.
+    ``early_exit=True`` lets the Alg. 2 LB loop skip the selection of an
+    iteration that the coverage sketch proves cannot pass its test
+    (``IMMSolver._early_exit_skip``), which changes neither θ nor the seeds.
     """
     k: Optional[int] = None
     eps: float = 0.5

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import bernoulli as _bernoulli
 from repro_torch.kernels import bitset as _bitset
+from repro_torch.kernels import celf as _celf
 from repro_torch.kernels import flashattn as _flash
 from repro_torch.kernels import greedy as _greedy
 from repro_torch.kernels import membership as _membership
@@ -23,7 +24,7 @@ from repro_torch.kernels import sketch as _sketch
 
 _COUNTERS = (_bitset.LAUNCHES, _sketch.LAUNCHES, _bernoulli.LAUNCHES,
              _membership.LAUNCHES, _flash.LAUNCHES, _queue.LAUNCHES,
-             _greedy.LAUNCHES)
+             _greedy.LAUNCHES, _celf.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -147,6 +148,27 @@ def greedy_sketch(words: torch.Tensor, *, n: int, k: int):
     if _route(words) == "cuda":
         return _greedy.greedy_sketch(words, n=n, k=k)
     return _ref.greedy_sketch_ref(words, n=n, k=k)
+
+
+def celf_eval(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+              cov_words: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
+    """CELF's exact evaluation: for each of the (c,) ``cands``, the rows of
+    the flat pool that hold it and are not in the packed Covered bitset
+    ``cov_words`` -> (c,) int32; the same bytes on either route
+    (``ref.celf_eval_ref`` says what they hold)."""
+    if _route(flat) == "cuda":
+        return _celf.celf_eval(flat, ids, valid, cov_words, cands)
+    return _ref.celf_eval_ref(flat, ids, valid, cov_words, cands)
+
+
+def celf_apply(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+               cov_words: torch.Tensor, u: int) -> torch.Tensor:
+    """CELF's seed commit: OR the rows that hold node ``u`` into
+    ``cov_words`` in place -> the rows that were new, a 0-d int32 tensor on
+    the pool's device (``ref.celf_apply_ref``)."""
+    if _route(flat) == "cuda":
+        return _celf.celf_apply(flat, ids, valid, cov_words, u)
+    return _ref.celf_apply_ref(flat, ids, valid, cov_words, u)
 
 
 def membership_rows(rows: torch.Tensor, lengths: torch.Tensor,

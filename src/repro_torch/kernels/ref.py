@@ -271,6 +271,49 @@ def greedy_flat_ref(flat: torch.Tensor, ids: torch.Tensor,
             torch.stack(gains).to(torch.int32))
 
 
+def _celf_pool(flat, ids, valid, cov_words):
+    """The pool as int64 ids, with the elements whose row lies outside the
+    Covered words dropped (the reference's ``segment_max`` drops them)."""
+    ids = ids.to(torch.int64)
+    keep = valid & (ids >= 0) & (ids < 32 * cov_words.shape[0])
+    return flat.to(torch.int64), torch.where(keep, ids, 0), keep
+
+
+def celf_eval_ref(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+                  cov_words: torch.Tensor, cands: torch.Tensor
+                  ) -> torch.Tensor:
+    """Exact marginal coverage of each candidate against a packed Covered
+    bitset: the reference's ``eval_batch``, the plain version of
+    ``csrc/celf.cu``'s ``celf_eval``.
+
+    ``flat``/``ids``/``valid`` are a flat pool's (t,) node ids, row ids
+    (below ``32 * len(cov_words)``) and valid flags; ``cov_words`` the
+    (num_rows/32,) int32 Covered words; ``cands`` (c,) node ids, where an
+    id that is no node (the reference pads with -1) matches nothing.
+    ``out[i]`` counts the rows that hold ``cands[i]`` and are not covered;
+    a row that repeats the node counts once.  -> (c,) int32."""
+    flat, ids, valid = _celf_pool(flat, ids, valid, cov_words)
+    covered = _unpack_covered(cov_words)
+    out = [_newly_rows(flat, ids, valid, covered, u).sum(dtype=torch.int32)
+           for u in cands.to(torch.int64)]
+    if not out:
+        return torch.zeros(0, dtype=torch.int32, device=flat.device)
+    return torch.stack(out)
+
+
+def celf_apply_ref(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+                   cov_words: torch.Tensor, u: int) -> torch.Tensor:
+    """Commit seed ``u``: OR the rows that hold it into ``cov_words`` in
+    place and return the number of them that were not covered before, as
+    a 0-d int32 tensor: the reference's ``apply_seed``, the plain version
+    of ``csrc/celf.cu``'s ``celf_apply``."""
+    flat, ids, valid = _celf_pool(flat, ids, valid, cov_words)
+    newly = _newly_rows(flat, ids, valid, _unpack_covered(cov_words), int(u))
+    new_words = _pack_covered(newly)
+    cov_words |= new_words
+    return popcount_words_ref(new_words).sum(dtype=torch.int32)
+
+
 class FlatIndex(NamedTuple):
     """The pool's two CSR indices.  Row-major: row r's elements are
     ``nodes[row_start[r]:row_start[r + 1]]``, with invalid elements as

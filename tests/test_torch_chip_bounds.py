@@ -8,6 +8,7 @@ No card is needed: the SASS below is the loop of ``bernoulli_kernel`` as
 import importlib.util
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -445,6 +446,12 @@ PROFILER_NAMES = {
                      "(unsigned int const*, int, int, int, bool, int, "
                      "unsigned long long*, unsigned char*, unsigned int*, "
                      "int*)",
+    "celf_eval": "void (anonymous namespace)::celf_eval_kernel(int const*, "
+                 "int const*, unsigned char const*, long, unsigned int "
+                 "const*, long, int const*, int, int, int*, unsigned int*)",
+    "celf_apply": "void (anonymous namespace)::celf_apply_kernel(int const*, "
+                  "int const*, unsigned char const*, long, unsigned int*, "
+                  "long, int, int*)",
 }
 # further names of the same records' kernels
 PROFILER_ALSO = {
@@ -714,3 +721,112 @@ def test_parent_sketch_select_equals_the_store_selection():
         assert got.frac.numpy().tobytes() == want.frac.numpy().tobytes()
         assert got_info == want_info
     assert got.seeds[-5:].tolist() == [40] * 5
+
+
+# ``-Xptxas -v`` of csrc/celf.cu built for sm_90a (CUDA 12.8)
+CELF_PTXAS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__bbe03bef_7_celf_cu_5772f19a17celf_apply_kernelEPKiS1_PKhlPjliPi' for 'sm_90a'
+ptxas info    : Function properties for _ZN39_GLOBAL__N__bbe03bef_7_celf_cu_5772f19a17celf_apply_kernelEPKiS1_PKhlPjliPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 15 registers, used 1 barriers, 4 bytes smem
+ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__bbe03bef_7_celf_cu_5772f19a16celf_eval_kernelEPKiS1_PKhlPKjlS1_iiPiPj' for 'sm_90a'
+ptxas info    : Function properties for _ZN39_GLOBAL__N__bbe03bef_7_celf_cu_5772f19a16celf_eval_kernelEPKiS1_PKhlPKjlS1_iiPiPj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 24 registers, used 1 barriers, 40960 bytes smem
+"""
+
+
+def test_ptxas_spills_reads_both_celf_kernels():
+    """Phase 2's check of csrc/celf.cu: two kernels, no spill."""
+    spills = smoke.ptxas_spills(CELF_PTXAS, "celf_")
+    assert len(spills) == 2 and not any(spills.values())
+    assert sorted("eval" if "celf_eval_kernel" in name else
+                  "apply" if "celf_apply_kernel" in name else name
+                  for name in spills) == ["apply", "eval"]
+    assert smoke.ptxas_spills(CELF_PTXAS, "greedy_cu") == {}
+
+
+@pytest.mark.parametrize("apply", [False, True])
+def test_celf_bound_counts_the_pool_once(h100, apply):
+    """The pool's node ids read once (4 bytes an element); only where an
+    element holds a candidate (or u), its valid byte, the row id of a valid
+    one and the distinct Covered words of those rows, read (and written by
+    the commit); the candidates and their counts (the commit: its gain); a
+    compare an element on the ALU.  At the stand-in's pool (35,538
+    elements, 512 words) the bytes set it."""
+    import torch
+    t, nw = 35_538, 512
+    rng = np.random.default_rng(3)
+    nodes = np.array([7], np.int32) if apply else np.arange(32, dtype=np.int32)
+    flat = rng.integers(0, 500, t).astype(np.int32)
+    flat[:38] = nodes[np.arange(38) % len(nodes)]
+    ids = np.sort(rng.integers(0, 8_704, t)).astype(np.int32)
+    valid = np.ones(t, bool)
+    valid[:38] = False
+    hit = np.isin(flat, nodes)
+    live = hit & valid
+    words = len(set((ids[live] >> 5).tolist()))
+    assert 0 < words < live.sum() < hit.sum()
+    nbytes = 4 * t + hit.sum() + 4 * live.sum() + (
+        8 * words + 4 if apply else 4 * words + 8 * len(nodes))
+    b = smoke.celf_bound(torch.from_numpy(flat), torch.from_numpy(ids),
+                         torch.from_numpy(valid),
+                         torch.zeros(nw, dtype=torch.int32),
+                         torch.from_numpy(nodes), apply)
+    assert b["bound_bytes_ms"] == pytest.approx(nbytes / 3.35e9)
+    alu_s = H100_SMS * 64 * H100_MHZ * 1e6
+    assert b["bound_ops_ms"] == pytest.approx(t / alu_s * 1e3)
+    assert b["bound_by"] == "bytes"
+    # the pool's node ids dominate: under 5 bytes an element, not 9
+    assert 4 * t / 3.35e9 < b["bound_ms"] < 5 * t / 3.35e9
+
+
+def _celf_cpu_store(sketch_k):
+    """A CPU exact store with an incremental sketch, filled by three
+    appends of random padded batches (an empty row among them)."""
+    import torch
+    from repro_torch.core.coverage import DeviceRRStore
+    rng = np.random.default_rng(11)
+    n = 300
+    store = DeviceRRStore(n, capacity=64, sketch_k=sketch_k, device="cpu")
+    for r, w in ((40, 6), (64, 9), (33, 4)):
+        lens = rng.integers(0, w + 1, r)
+        lens[5] = 0
+        nodes = np.stack([rng.choice(n, w, replace=False) for _ in range(r)])
+        store.append_batch((torch.from_numpy(nodes.astype(np.int32)),
+                            torch.from_numpy(lens)))
+    return store
+
+
+@pytest.mark.parametrize("sketch_k", [32, 256])
+def test_host_copy_holds_the_pool_and_its_fold(sketch_k):
+    """Phase 14's host copy: the same pool element for element, and its
+    one-batch fold gives the incremental sketch of the three appends."""
+    import torch
+    store = _celf_cpu_store(sketch_k)
+    copy = smoke.host_copy(store)
+    t = store.n_elems
+    assert copy.n_rr == store.n_rr and copy.n_elems == t
+    assert torch.equal(copy.flat[:t], store.flat[:t])
+    assert torch.equal(copy.ids[:t], store.ids[:t])
+    assert torch.equal(copy.sketch_words(), store.sketch_words())
+
+
+def test_check_celf_on_host_sees_a_wrong_fold_and_wrong_counts():
+    """The check passes on a store against itself, and fails on one flipped
+    sketch bit (the selection's seeds do not move, its eval counts may not)
+    and on stats_out that differ."""
+    import torch
+    from repro_torch.core.coverage import select_seeds_celf
+    store = _celf_cpu_store(64)
+    stats = {}
+    res = select_seeds_celf(store, 5, stats_out=stats)
+    out = smoke.check_celf_on_host(store, res, stats)
+    assert all(out["equal"].values()) and out["host_stats"] == stats
+    with pytest.raises(AssertionError, match="stats_out"):
+        smoke.check_celf_on_host(store, res, dict(
+            stats, n_exact_evals=stats["n_exact_evals"] + 1))
+    store.sketch_words()[3, 0] ^= 1
+    with pytest.raises(AssertionError, match="sketch_words"):
+        smoke.check_celf_on_host(store, res, stats)

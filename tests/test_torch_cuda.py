@@ -1351,3 +1351,120 @@ def test_greedy_sketch_wrapper_checks_inputs(card):
     for bad in (dict(n=0, k=2), dict(n=10, k=2), dict(n=8, k=0)):
         with pytest.raises(ValueError):
             tgreedy.greedy_sketch(words, **bad)
+
+
+def _celf_pool(device, n=3000, rows=5000, width=9):
+    """A pool with rows of 0 to width elements, a hub in a third of the
+    rows, and rows that repeat a node (the kernels count such a row
+    once)."""
+    rng = np.random.default_rng(11)
+    lens = rng.integers(0, width + 1, rows)
+    nodes = rng.integers(0, n, (rows, width))
+    nodes[rng.random(rows) < 0.33, 0] = 7          # the hub
+    nodes[:200, 1] = nodes[:200, 0]                # a node twice a row
+    lens[:200] = np.maximum(lens[:200], 2)
+    store = cov.DeviceRRStore(n, device=device)
+    for i in range(0, rows, 1024):
+        store.append_batch((torch.tensor(nodes[i:i + 1024]),
+                            torch.tensor(lens[i:i + 1024])))
+    t = store.n_elems
+    return store, (store.flat[:t], store.ids[:t], store.valid[:t])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 32, 2048, 2049, 5000])
+@pytest.mark.parametrize("cover", [0.0, 0.5])
+def test_celf_kernels_equal_plain(card, c, cover):
+    store, pool = _celf_pool(card)
+    nw = store.row_capacity() // 32
+    cov_words = _words(1, nw)[0].to(card) if cover else \
+        torch.zeros(nw, dtype=torch.int32, device=card)
+    cands = RNG.integers(-1, store.n_nodes + 1, c)
+    cands[:min(c, 3)] = [7, -1, 7][:min(c, 3)]     # the hub, twice
+    cands = torch.tensor(cands, dtype=torch.int32, device=card)
+    before = ops.launch_counts()
+    got = ops.celf_eval(*pool, cov_words, cands)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["celf_eval"] - before["celf_eval"] == -(-c // 2048)
+    want = ref.celf_eval_ref(*pool, cov_words, cands)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert int(got[0]) > 0 or cover
+    for u in (7, int(pool[0][0]), 0, store.n_nodes, -1):
+        mine, plain = cov_words.clone(), cov_words.clone()
+        gain = ops.celf_apply(*pool, mine, u)
+        want_gain = ref.celf_apply_ref(*pool, plain, u)
+        torch.cuda.synchronize()
+        assert gain.dtype == torch.int32 and gain.dim() == 0
+        assert int(gain) == int(want_gain)
+        assert torch.equal(mine, plain)
+    assert ops.launch_counts()["celf_apply"] - after["celf_apply"] == 5
+
+
+@pytest.mark.cuda
+def test_celf_kernels_on_an_empty_pool_and_a_short_cover(card):
+    flat = torch.tensor([3, 3, 1, 3, 2, 3], dtype=torch.int32, device=card)
+    ids = torch.tensor([0, 0, 0, 1, 1, 40], dtype=torch.int32, device=card)
+    valid = torch.ones(6, dtype=torch.bool, device=card)
+    cw = torch.zeros(1, dtype=torch.int32, device=card)   # row 40 dropped
+    cands = torch.tensor([3, 1, 9], device=card)
+    assert ops.celf_eval(flat, ids, valid, cw, cands).tolist() == [2, 1, 0]
+    assert int(ops.celf_apply(flat, ids, valid, cw, 3)) == 2
+    assert cw.tolist() == [3]
+    empty = flat[:0]
+    assert ops.celf_eval(empty, ids[:0], valid[:0], cw,
+                         cands).tolist() == [0, 0, 0]
+    assert int(ops.celf_apply(empty, ids[:0], valid[:0], cw, 3)) == 0
+    assert ops.celf_eval(flat, ids, valid, cw, cands[:0]).numel() == 0
+
+
+@pytest.mark.cuda
+def test_celf_wrappers_check_inputs(card):
+    from repro_torch.kernels import celf as tcelf
+    _, pool = _celf_pool(card, rows=64)
+    cw = torch.zeros(4, dtype=torch.int32, device=card)
+    cands = torch.tensor([1, 2], device=card)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tcelf.celf_eval(*(x.cpu() for x in pool), cw.cpu(), cands.cpu())
+    with pytest.raises(TypeError):
+        tcelf.celf_eval(pool[0].long(), *pool[1:], cw, cands)
+    with pytest.raises(ValueError):
+        tcelf.celf_eval(*pool, cw.long(), cands)
+    with pytest.raises(ValueError):
+        tcelf.celf_eval(*pool, cw[:0], cands)
+    with pytest.raises(ValueError):
+        tcelf.celf_eval(*pool, cw, cands.float())
+    with pytest.raises(ValueError):
+        tcelf.celf_apply(pool[0], pool[1][:-1], pool[2], cw, 1)
+    with pytest.raises(ValueError):
+        tcelf.celf_apply(*pool, cw, 1 << 31)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eval_batch", [1, 32])
+def test_celf_solve_on_card_equals_flat(card, eval_batch):
+    """A celf solve on the card equals the flat solve on the card and the
+    celf solve on the CPU, through both CELF kernels and the sketch's."""
+    prob = IMProblem(k=10, eps=0.4)
+    flat = IMMSolver(_graph(card), batch=256, selection="fused", seed=4,
+                     device=card).solve(prob)
+    cpu = IMMSolver(_graph("cpu"), batch=256, selection="celf", seed=4,
+                    eval_batch=eval_batch, device="cpu").solve(prob)
+    ops.reset_launch_counts()
+    gpu = IMMSolver(_graph(card), batch=256, selection="celf", seed=4,
+                    eval_batch=eval_batch, device=card).solve(prob)
+    counts = ops.launch_counts()
+    for name in ("celf_eval", "celf_apply", "sketch_union_popcount",
+                 "popcount_words", "sketch_scatter_or"):
+        assert counts[name] > 0, name
+    assert counts["celf_apply"] == 10 * gpu.stats.lb_iters + 10
+    for other in (flat, cpu):
+        np.testing.assert_array_equal(gpu.seeds, other.seeds)
+        np.testing.assert_array_equal(gpu.gains, other.gains)
+        assert gpu.frac == other.frac
+        assert gpu.stats.theta == other.stats.theta
+    early = IMMSolver(_graph(card), batch=256, selection="celf", seed=4,
+                      device=card).solve(IMProblem(k=10, eps=0.4,
+                                                   early_exit=True))
+    np.testing.assert_array_equal(early.seeds, gpu.seeds)
+    assert early.stats.theta == gpu.stats.theta

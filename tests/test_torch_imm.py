@@ -128,6 +128,11 @@ def test_variant_fields_not_ported(field, value, item):
         with pytest.raises(ValueError, match="unknown mode"):
             IMProblem(k=1, mode="bogus")
         return
+    if field == "early_exit":
+        # ported by Queue 1 item 8: accepted in either mode
+        for mode in ("exact", "approximate"):
+            assert IMProblem(k=1, early_exit=value, mode=mode).early_exit
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         IMProblem(k=1, **{field: value})
 
@@ -157,8 +162,14 @@ def test_solver_defaults_to_the_card(graphs):
     else:
         with pytest.raises(RuntimeError, match="no CUDA card"):
             IMMSolver(tg)
+    for sel in ("celf", "celf-sketch"):
+        solver = IMMSolver(tg, selection=sel, eval_batch=4, device=CPU)
+        assert solver.store.sketch_k == tcov.DeviceRRStore.DEFAULT_SKETCH_K
+        assert solver.eval_batch == 4
     with pytest.raises(ValueError, match="selection"):
-        IMMSolver(tg, selection="celf", device=CPU)
+        IMMSolver(tg, selection="celf-fast", device=CPU)
+    with pytest.raises(ValueError, match="eval_batch"):
+        IMMSolver(tg, selection="celf", eval_batch=0, device=CPU)
 
 
 # ------------------------------------------------------- approximate mode
