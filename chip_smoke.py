@@ -13,7 +13,7 @@ Phases, each of which raises on failure (non-zero exit):
    ``bernoulli.cu``, ``membership.cu``, ``flashattn.cu``, ``queue.cu``,
    ``greedy.cu`` and ``celf.cu`` with nvcc for sm_90a, one nvcc per
    source, started together, and prints each ``-Xptxas -v`` report; the
-   three Occur kernels, the five of ``greedy.cu`` and the two of
+   three Occur kernels, the five of ``greedy.cu`` and the four of
    ``celf.cu`` must not spill;
 3. kernels: both Occur kernels against their plain versions on random
    int32 words of shape (131072, 2372) (bit 31 set in half the words, a
@@ -25,10 +25,11 @@ Phases, each of which raises on failure (non-zero exit):
    at (75880, 4) runs the row-per-thread design), and ``greedy_sketch`` at
    k = 50 on both random sketches against its plain version, exact.  The
    dense path's kernels on random data at its shapes (``pack_bits`` at
-   (512, 75904), ``bitset_or``/``bitset_andnot``/``popcount_words`` at
-   (512, 2372), ``bernoulli_edges`` at 512 seeds x 607,012 edges) and at
-   ragged ones (W odd and off the 16-byte alignment, E not a multiple of
-   the block or of 4: the trials' byte stores), exact.  The queue
+   (512, 75904), ``bitset_or``/``bitset_andnot``/``frontier_update``/
+   ``popcount_words`` at (512, 2372), ``bernoulli_edges`` at 512 seeds x
+   607,012 edges) and at ragged ones (W odd and off the 16-byte
+   alignment, E not a multiple of the block or of 4: the trials' byte
+   stores), exact.  The queue
    sampler's kernel (``ops.queue_bfs``, which draws the row seeds and
    roots in the launch) against its plain version ``ref.queue_round_ref``
    (``row_seeds``, ``draw_roots``, then ``queue_bfs_ref``) on the card at
@@ -93,12 +94,16 @@ Phases, each of which raises on failure (non-zero exit):
    and the float32 bytes of frac.  Then one round under torch.profiler;
 10. packed sampler: ``sample_rrsets_dense_packed(reverse(g), batch=512,
    seed32=round_seed(0, 0), base_seed=0)`` with levels, mean RR size,
-   wall time, peak memory and launch counts (the five dense kernels and
-   ``occur_from_bitset`` > 0); its Occur and sizes must equal the plain
-   versions on its words, and its first 16 lanes must equal a CPU run of
-   ``_sample_dense_packed`` from the same 16 roots, bit for bit.  The five
-   dense kernels are then held against their plain versions and timed on
-   this run's inputs;
+   wall time, peak memory and launch counts (``pack_bits``,
+   ``popcount_words``, ``bernoulli_edges`` and ``occur_from_bitset`` > 0,
+   ``frontier_update`` once a level, ``bitset_andnot`` and ``bitset_or``
+   never); its Occur and sizes must equal the plain versions on its words,
+   and its first 16 lanes must equal a CPU run of ``_sample_dense_packed``
+   from the same 16 roots, bit for bit; where a ``bitset_or`` call's host
+   time goes (:func:`wrapper_split_us`, on the ``packed_sampler:`` line).
+   The six dense kernels are then held against their plain versions and
+   timed on this run's inputs, ``frontier_update`` beside the PyTorch calls
+   of the same function and the pair of kernels it replaced;
 11. padded selection: the phase-5 pool as RR lists, ``build_padded_store``
    and ``select_seeds_padded(store, 50)`` on the card, which must give the
    phase-6 ``bitset`` seeds, gains and float32 bytes of frac, with 50
@@ -141,22 +146,24 @@ Phases, each of which raises on failure (non-zero exit):
 14. CELF (the slice of ``select_seeds_celf``): the phase-5 solve with
    ``selection="celf"`` at ``sketch_k`` 1,024 and 16,384, and with
    ``early_exit=True`` at 16,384 (:data:`CELF_SOLVES`), each with stage
-   times, launch counts (``celf_eval``, ``celf_apply`` (k a selection),
-   ``sketch_union_popcount``, ``popcount_words`` and the exact store's
-   fold ``sketch_scatter_or`` > 0), the early exit's skips and history,
-   and on its final pool one selection's exact evaluations, eval calls
-   and host syncs (:func:`count_syncs`; no target).  Each must equal
-   phase 5 exactly: θ, LB, rounds, RR sets, pool elements, seeds, gains,
-   the float32 bytes of frac.  On a host copy of each final pool
-   (:func:`check_celf_on_host`) the incremental sketch (the
-   ``sketch_scatter_or`` fold) must equal the plain fold word for word,
-   and the selection's seeds, gains, frac and ``stats_out`` the plain
-   versions'.  Then the records of ``celf_eval``,
-   ``celf_apply`` and ``sketch_union_popcount`` at the path's shapes
-   (:func:`celf_records`: against the plain versions exactly, timed
-   beside them, with the bound; the sweep and its ``popcount_words`` base
-   at the same cover exactly, on a ``celf_sweep_check:`` line), at 16,384
-   buckets on a
+   times, launch counts (``celf_select`` once a selection, the exact
+   store's fold ``sketch_scatter_or`` > 0, ``sketch_union_popcount`` and
+   ``popcount_words`` only from the early exit's gate, ``celf_eval`` and
+   ``celf_apply`` never), the early exit's skips and history, and on its
+   final pool one selection's exact evaluations, eval calls and host syncs
+   (:func:`count_syncs`: exactly one).  Each must equal phase 5 exactly:
+   θ, LB, rounds, RR sets, pool elements, seeds, gains, the float32 bytes
+   of frac.  On a host copy of each final pool (:func:`check_celf_on_host`)
+   the incremental sketch (the ``sketch_scatter_or`` fold) must equal the
+   plain fold word for word, and the selection's seeds, gains, frac and
+   ``stats_out`` those of ``ref.celf_select_ref``.  Then the records of
+   ``celf_select`` (:func:`celf_select_record`: against its plain version
+   on the card exactly, timed beside it, with the bound of this run's
+   batches and the barrier floor), ``celf_eval``, ``celf_apply`` and
+   ``sketch_union_popcount`` at the path's shapes (:func:`celf_records`:
+   against the plain versions exactly, timed beside them, with the bound;
+   the sweep and its ``popcount_words`` base at the same cover exactly, on
+   a ``celf_sweep_check:`` line), at 16,384 buckets on a
    ``celf_kernels_16384:`` line.
 
 The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
@@ -170,21 +177,25 @@ examined (:func:`queue_bound`) and its one-SM bound
 with its barrier floor (:func:`greedy_record`), the sketch greedy at the
 approximate solve's final sketch (:func:`sketch_greedy_record`), the
 CELF kernels and ``sketch_union_popcount`` at the CELF solve's pool and
-its 1,024-bucket sketch (:func:`celf_records`; the union popcount's record
-at the approximate sketch, where no path launches it, goes on a
+its 1,024-bucket sketch (:func:`celf_select_record`, :func:`celf_records`;
+the union popcount's record at the approximate sketch goes on a
 ``sketch_union_popcount_approximate:`` line); launches from each path's
-run; each with
+run (``celf_eval``, ``celf_apply``, ``bitset_or`` and ``bitset_andnot``:
+0, no path launches them; ``sketch_union_popcount``: the early exit's
+gate); each with
 ``ms``, ``device_ms``,
 ``device_other_ms`` and ``enqueue_us`` from :func:`timing`;
 ``bernoulli_edges`` with its trial's instructions by class as the built
 loop has them and as the float-compare loop did the work, and the smaller
 of the two bounds (:func:`trial_bound`); and
 ``bitset_or``/``bitset_andnot`` with ``torch.bitwise_or``'s times on the
-same words), the ``nvidia-smi`` line and ``{"ok": true, "device":
+same words, ``frontier_update`` with its yardsticks), the ``nvidia-smi``
+line and ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import json
 import math
@@ -213,6 +224,7 @@ from repro_torch.core.problem import IMProblem  # noqa: E402
 from repro_torch.core.rrset import EC_DEFAULT, round_seed  # noqa: E402
 from repro_torch.graph import csr, generators, weights  # noqa: E402
 from repro_torch.kernels import _build, bitset, ops, ref  # noqa: E402
+from repro_torch.kernels import celf as celf_mod  # noqa: E402
 from repro_torch.kernels import flashattn as flash  # noqa: E402
 from repro_torch.kernels import greedy  # noqa: E402
 from repro_torch.kernels.queue import SEGMENT_EDGES  # noqa: E402
@@ -229,6 +241,8 @@ from repro_torch.kernels.queue import SEGMENT_EDGES  # noqa: E402
 # SMs x 4,096 x 1,830 MHz); its few warpgroup instructions are not counted
 # against the dispatch rate.
 HBM_BYTES_S = 3.35e12
+# the H100's L2 cache (50 MB): bytes a kernel reads again may come from it
+L2_BYTES = 50 * 2 ** 20
 PER_SM_CLOCK = {"alu": 64, "imad": 64, "fp32": 128, "xu": 16, "dispatch": 128,
                 "tensor16": 4096}
 NOT_DISPATCHED = ("tensor16",)
@@ -285,6 +299,9 @@ LIBRARY_NOTE = {
                  "for each of a batch of nodes",
     "celf_apply": "no single PyTorch call ORs the rows that hold a node "
                   "into a bitset",
+    "celf_select": "no single PyTorch call runs a lazy greedy",
+    "frontier_update": "a & ~v and v |= a are three PyTorch calls (timed "
+                       "beside it as the yardstick)",
 }
 SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "sketch_scatter_or": "sketch", "sketch_union_popcount": "sketch",
@@ -293,7 +310,8 @@ SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "bernoulli_edges": "bernoulli", "membership_rows": "membership",
              "flash_attention": "flashattn", "queue_bfs": "queue",
              "greedy_flat": "greedy", "greedy_sketch": "greedy",
-             "celf_eval": "celf", "celf_apply": "celf"}
+             "celf_eval": "celf", "celf_apply": "celf",
+             "celf_select": "celf", "frontier_update": "bitops"}
 # each record's kernel as the profiler names it (a regular expression that
 # matches the demangled or the mangled name)
 DEVICE_KERNEL = {
@@ -313,6 +331,8 @@ DEVICE_KERNEL = {
     "greedy_sketch": r"greedy_sketch_kernel",
     "celf_eval": r"celf_eval_kernel",
     "celf_apply": r"celf_apply_kernel",
+    "celf_select": r"celf_select_kernel",
+    "frontier_update": r"frontier_update_kernel",
 }
 KERNELS = {
     "occur_from_bitset": "src/repro/kernels/bitset.py:167",
@@ -336,6 +356,11 @@ KERNELS = {
     # no Pallas kernel: the reference's CELF evaluations are jitted XLA
     "celf_eval": "src/repro/core/coverage.py:1451",
     "celf_apply": "src/repro/core/coverage.py:1482",
+    # no Pallas kernel: the reference's CELF is a host loop of those two
+    "celf_select": "src/repro/core/coverage.py:2093",
+    # the dense level's bitset_andnot (bitset.py:82) and bitset_or (:77),
+    # as the reference's level calls them
+    "frontier_update": "src/repro/core/dense.py:156",
 }
 # phase 3: the queue kernel at the exact path's first round, also at qcap
 # 64 (above its longest RR set, 21) and 8, where lanes overflow
@@ -806,8 +831,16 @@ def sketch_records(words, cov_words, v, b, launches=None, iters=20,
     ]
 
 
+def frontier_both(fn, a, visited):
+    """``fn(a, v)`` (``frontier_update`` or its plain version) on a copy
+    ``v`` of ``visited``, stacked with ``v`` after it: both outputs."""
+    v = visited.clone()
+    return torch.stack([fn(a, v), v])
+
+
 def dense_calls(bits, a, b, w, seeds) -> dict:
-    """name -> (kernel call, plain call) of the five dense-path kernels."""
+    """name -> (kernel call, plain call) of the six dense-path kernels
+    (``frontier_update`` with ``b`` the new words and ``a`` visited)."""
     return {
         "pack_bits": (lambda: ops.pack_bits(bits),
                       lambda: ref.pack_bits_ref(bits)),
@@ -817,6 +850,9 @@ def dense_calls(bits, a, b, w, seeds) -> dict:
                           lambda: ref.bitset_andnot_ref(a, b)),
         "popcount_words": (lambda: ops.popcount_words(a),
                            lambda: ref.popcount_words_ref(a)),
+        "frontier_update": (
+            lambda: frontier_both(ops.frontier_update, b, a),
+            lambda: frontier_both(ref.frontier_update_ref, b, a)),
         "bernoulli_edges": (lambda: ops.bernoulli_edges(w, seeds),
                             lambda: ref.bernoulli_edges_ref(w, seeds)),
     }
@@ -859,20 +895,57 @@ def trial_bound(w, seeds, trial_ops: dict) -> dict:
 def dense_bounds(bits, a, w, seeds, trial_ops: dict) -> dict:
     """Least times: pack_bits reads B*n bytes and writes B*n/8 (one ALU
     operation per byte read); the pair ops read two words and write one
-    (one LOP3 each); popcount reads and writes one word (one POPC); the
-    trials as :func:`trial_bound`."""
+    (one LOP3 each); frontier_update reads two words and writes two (two
+    LOP3s); popcount reads and writes one word (one POPC); the trials as
+    :func:`trial_bound`.  The bytes are at the HBM rate, so the time with
+    a cold L2 (:func:`cold_device_ms`) stands against them: warm, words
+    that fit the L2 come from it and may beat the bound."""
     nb, nw = bits.numel(), a.numel()
     return {"pack_bits": _bound(nb + nb // 8, {"alu": nb}),
             "bitset_or": _bound(12 * nw, {"alu": nw}),
             "bitset_andnot": _bound(12 * nw, {"alu": nw}),
             "popcount_words": _bound(8 * nw, {"xu": nw}),
+            "frontier_update": _bound(16 * nw, {"alu": 2 * nw}),
             "bernoulli_edges": trial_bound(w, seeds, trial_ops)}
 
 
+def cold_device_ms(fn, iters: int, kernel: str) -> dict:
+    """:func:`device_ms` of ``kernel`` in ``fn`` as a caller with a cold L2
+    finds it: before each call a reduction reads twice the L2's bytes of a
+    spare tensor, which evicts what the last call left there.  Beside a
+    bound at the HBM rate this is the time that it holds; warm, the inputs
+    come from L2 and may beat it."""
+    spare = torch.ones(2 * L2_BYTES // 4, dtype=torch.int32, device="cuda")
+
+    def call():
+        spare.sum()
+        return fn()
+
+    got = device_ms(call, iters, kernel)
+    return {"cold_device_ms": got["device_ms"],
+            "cold_device_ms_source": got["device_ms_source"]}
+
+
+def timed_calls(fn, iters, ops_a_call: int) -> dict:
+    """A yardstick's times: ``ms`` by events a call, the profiler's mean
+    device time of each of its ``ops_a_call`` device operations, and the
+    host's ``enqueue_us`` a call."""
+    dm = device_ms(fn, iters)
+    return {"ms": cuda_ms(fn, iters), "device_ms_per_op": dm["device_ms"],
+            "device_ops_a_call": ops_a_call,
+            "enqueue_us": enqueue_us(fn, iters)}
+
+
 def dense_records(bits, a, b, w, seeds, launches, iters=20, plain_iters=3):
-    """Check the five dense-path kernels exactly, then time kernel, plain
+    """Check the six dense-path kernels exactly, then time kernel (warm,
+    and its device time with a cold L2: :func:`cold_device_ms`), plain
     version and, for bitset_or, the one PyTorch call (torch.bitwise_or),
-    whose times also stand beside bitset_andnot as a yardstick."""
+    whose times also stand beside bitset_andnot as a yardstick; beside
+    frontier_update (``b`` the new words, ``a`` visited, on a scratch copy
+    of ``a``: a repeated update moves the same bytes) the PyTorch calls of
+    the same function (``b & ~v`` and ``v |= b``) and the pair of kernels
+    it replaces (``bitset_andnot``, then ``bitset_or`` into a new
+    tensor)."""
     errs = check_dense_kernels(bits, a, b, w, seeds)
     trial_ops = sass_ops_per_store(
         cuobjdump_sass(_build.build("bernoulli")), BERNOULLI_LOOP)
@@ -881,7 +954,15 @@ def dense_records(bits, a, b, w, seeds, launches, iters=20, plain_iters=3):
     bounds = dense_bounds(bits, a, w, seeds, trial_ops)
     shapes = {"pack_bits": list(bits.shape), "bitset_or": list(a.shape),
               "bitset_andnot": list(a.shape), "popcount_words": list(a.shape),
+              "frontier_update": list(a.shape),
               "bernoulli_edges": [seeds.numel(), w.numel()]}
+    visited = a.clone()
+
+    def torch_frontier():
+        new = torch.bitwise_and(b, torch.bitwise_not(visited))
+        visited.bitwise_or_(b)
+        return new
+
     def torch_or():
         return torch.bitwise_or(a, b)
 
@@ -904,7 +985,17 @@ def dense_records(bits, a, b, w, seeds, launches, iters=20, plain_iters=3):
                 "entry_point": enqueue_us(lambda: bitset._BINARY[name](
                     a.data_ptr(), b.data_ptr(), a.numel(), spare.data_ptr(),
                     dev, _build.raw_stream(dev)), iters)}
+        if name == "frontier_update":
+            plain_visited = a.clone()
+            kern = lambda: ops.frontier_update(b, visited)  # noqa: E731
+            plain = lambda: ref.frontier_update_ref(  # noqa: E731
+                b, plain_visited)
+            extra = {"yardstick_torch": timed_calls(torch_frontier, iters, 3),
+                     "pair_andnot_or": timed_calls(lambda: ops.bitset_or(
+                         a, ops.bitset_andnot(b, a)), iters, 2),
+                     "replaces_also": "src/repro/kernels/bitset.py:82, :77"}
         times = timing(name, kern, iters)
+        extra.update(cold_device_ms(kern, iters, DEVICE_KERNEL[name]))
         out.append(record(name, launches, errs[name], times,
                           cuda_ms(plain, plain_iters), bounds[name],
                           library_ms=extra.pop("library_ms", None),
@@ -1137,7 +1228,7 @@ def sketch_greedy_bound(n: int, cols: int, k: int, steps: int) -> dict:
     sweep = 4 * words * steps
     return dict(bound, sweep_bytes=sweep,
                 sweep_bytes_ms=sweep / HBM_BYTES_S * 1e3,
-                sketch_fits_l2=4 * words <= 50 * 2 ** 20)
+                sketch_fits_l2=4 * words <= L2_BYTES)
 
 
 def check_greedy_sketch(words) -> dict:
@@ -1458,10 +1549,47 @@ def dense_solve_phase(g, queue_res, queue_store) -> None:
         make_engine("dense", csr.reverse(g), batch=BATCH), round_seed(0, 0)))
 
 
+def wrapper_split_us(a, b, iters: int = 200) -> dict:
+    """Where the host's time of a ``bitset_or`` call goes, by enqueue
+    microseconds a call of each part alone: the whole wrapper, its input
+    check (``bitset._card``), the output's ``empty_like``, the raw stream
+    handle, the ctypes call of the entry point with no words (it returns
+    before the guard), the ctypes call of a probe with the same arguments
+    that runs the guard alone (``bitops_guard``), the entry point with the
+    words (ctypes, guard and launch); ``guard`` and ``launch`` are the
+    differences; and ``torch.bitwise_or`` beside it."""
+    dev = a.get_device()
+    spare = torch.empty_like(a)
+    entry = bitset._BINARY["bitset_or"]
+    probe = _build.Kernel("bitops", "bitops_guard", entry.argtypes)
+    stream = _build.raw_stream(dev)
+    args = (a.data_ptr(), b.data_ptr())
+    out = {
+        "wrapper": enqueue_us(lambda: ops.bitset_or(a, b), iters),
+        "card_checks": enqueue_us(lambda: bitset._card(a, b, "bitset_or"),
+                                  iters),
+        "empty_like": enqueue_us(lambda: torch.empty_like(a), iters),
+        "raw_stream": enqueue_us(lambda: _build.raw_stream(dev), iters),
+        "ctypes_call": enqueue_us(lambda: entry(*args, 0, spare.data_ptr(),
+                                                dev, stream), iters),
+        "ctypes_guard": enqueue_us(lambda: probe(*args, a.numel(),
+                                                spare.data_ptr(), dev,
+                                                stream), iters),
+        "entry_point": enqueue_us(lambda: entry(*args, a.numel(),
+                                                spare.data_ptr(), dev,
+                                                stream), iters),
+        "torch_bitwise_or": enqueue_us(lambda: torch.bitwise_or(a, b), iters),
+    }
+    out["guard"] = out["ctypes_guard"] - out["ctypes_call"]
+    out["launch"] = out["entry_point"] - out["ctypes_guard"]
+    return out
+
+
 def packed_phase(g) -> list:
     """The packed sampler at full width: launches, Occur and sizes against
     the plain versions, the first lanes against a CPU run from the same
-    roots; returns the five dense kernels' records on this run's inputs."""
+    roots, a ``bitset_or`` call's host time by part; returns the six dense
+    kernels' records on this run's inputs."""
     dev = g.device
     g_rev = csr.reverse(g)                  # uncoalesced, as the reference
     seed32 = round_seed(0, 0)
@@ -1494,12 +1622,19 @@ def packed_phase(g) -> list:
         "occur_equals_plain": occur_ok, "sizes_equal_plain": sizes_ok,
         "cpu_lanes": CPU_LANES, "cpu_levels": cpu.levels, "cpu_s": cpu_s,
         "cpu_lanes_equal": lanes_ok,
+        "bitset_or_host_us": wrapper_split_us(ps.words, ps.words.clone()),
     })
-    for name in ("pack_bits", "bitset_or", "bitset_andnot", "popcount_words",
+    for name in ("pack_bits", "frontier_update", "popcount_words",
                  "bernoulli_edges", "occur_from_bitset"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched by the packed "
                                  "sampler")
+    if launches["frontier_update"] != ps.levels or \
+            launches["bitset_or"] or launches["bitset_andnot"]:
+        raise AssertionError(f"{ps.levels} levels launched frontier_update "
+                             f"{launches['frontier_update']} times, the "
+                             f"pair {launches['bitset_andnot']} and "
+                             f"{launches['bitset_or']}")
     if not (occur_ok and sizes_ok and lanes_ok):
         raise AssertionError("packed sampler disagrees with its plain "
                              "versions or with the CPU run")
@@ -1856,25 +1991,121 @@ def default_solve_phase(g, queue_res, queue_store) -> list:
     return [rec]
 
 
-def celf_bound(flat, ids, valid, cov_words, nodes, apply: bool) -> dict:
-    """CELF's exact evaluation of the candidates ``nodes``, or the commit of
-    the one seed in ``nodes``, at least: the node id of every element of the
-    pool's live extent read once (4 bytes an element); only for the elements
-    that hold one of ``nodes``, their valid byte, the row id of each valid
-    one (4 bytes) and the distinct Covered words of those rows, read once
-    (and written once by the commit); the candidates read and their counts
-    written (the commit: its gain).  One compare an element on the ALU.
-    The scratch bitmaps that ``celf_eval`` zeroes are the kernel's own
-    choice and not counted."""
-    t, nw = flat.shape[0], cov_words.shape[0]
+def celf_bytes(flat, ids, valid, num_rows: int, nodes, apply: bool) -> int:
+    """Bytes of CELF's exact evaluation of the candidates ``nodes``, or of
+    the commit of the one seed in ``nodes``, at least: the node id of every
+    element of the pool's live extent read once (4 bytes an element); only
+    for the elements that hold one of ``nodes``, their valid byte, the row
+    id of each valid one (4 bytes) and the distinct Covered words of those
+    rows below ``num_rows``, read once (and written once by the commit);
+    the candidates read and their counts written (the commit: its gain).
+    Scratch bitmaps are a kernel's own choice and not counted."""
+    t = flat.shape[0]
     hit = torch.isin(flat, nodes.to(flat.dtype))
     live = hit & valid
     rows = ids[live].to(torch.int64)
-    rows = rows[(rows >= 0) & (rows < 32 * nw)]
+    rows = rows[(rows >= 0) & (rows < num_rows)]
     words = int(torch.unique(rows >> 5).numel())
-    nbytes = (4 * t + int(hit.sum()) + 4 * int(live.sum())
-              + (8 * words + 4 if apply else 4 * words + 8 * nodes.numel()))
-    return _bound(nbytes, {"alu": t})
+    return (4 * t + int(hit.sum()) + 4 * int(live.sum())
+            + (8 * words + 4 if apply else 4 * words + 8 * nodes.numel()))
+
+
+def celf_bound(flat, ids, valid, cov_words, nodes, apply: bool) -> dict:
+    """:func:`celf_bytes` over the HBM rate, or one compare an element on
+    the ALU."""
+    return _bound(celf_bytes(flat, ids, valid, 32 * cov_words.shape[0],
+                             nodes, apply), {"alu": flat.shape[0]})
+
+
+def from_memory(nbytes: int, reads: int) -> int:
+    """The bytes of ``reads`` (>= 1) reads of the same ``nbytes`` that
+    must come from memory at least: all of the first read, and of each
+    later one what the L2 (:data:`L2_BYTES`) cannot have kept."""
+    return nbytes + (reads - 1) * max(0, nbytes - L2_BYTES)
+
+
+def celf_select_bound(flat, ids, valid, num_rows: int, batches, seeds,
+                      sketch, n: int) -> dict:
+    """The least time of one CELF selection for this run's work.  Bytes:
+    each input read once, and read again only as far as it exceeds the L2
+    (:func:`from_memory`): the node ids (4 an element) read by Occur, each
+    eval call (``batches``, as the plain version evaluated them) and each
+    commit; the valid bytes; the row ids of the valid elements that hold a
+    candidate or a seed; the n sketch rows, read by each seed's sweep; the
+    seeds and gains written.  Operations: a compare an element for Occur,
+    an eval call and a commit on the ALU, and an OR, an add and a popcount
+    a sketch word a seed.  Also what the design moves, from L2 or memory:
+    ``working_bytes``, each eval call's and commit's bytes as
+    :func:`celf_bytes` counts them, and ``sweep_bytes``, the sketch rows
+    once a seed."""
+    t, dev, k = flat.shape[0], flat.device, len(seeds)
+    nodes = torch.cat([torch.from_numpy(c).to(dev, torch.int64)
+                       for c in batches]
+                      + [torch.tensor(seeds, dtype=torch.int64, device=dev)])
+    live = int((torch.isin(flat.to(torch.int64), nodes) & valid).sum())
+    nbytes = from_memory(4 * t, 1 + len(batches) + k) + t + 4 * live + 8 * k
+    alu, xu = (1 + len(batches) + k) * t, 0
+    working = sum(celf_bytes(flat, ids, valid, num_rows,
+                             torch.from_numpy(c).to(dev), False)
+                  for c in batches) + sum(
+        celf_bytes(flat, ids, valid, num_rows,
+                   torch.tensor([u], device=dev), True) for u in seeds)
+    sweep = sketch_bytes = 0
+    if sketch is not None:
+        w = sketch.shape[1]
+        sketch_bytes = 4 * n * w
+        nbytes += from_memory(sketch_bytes, k)
+        sweep = k * sketch_bytes
+        alu += k * 2 * n * w
+        xu += k * n * w
+    return {**_bound(nbytes, {"alu": alu, "xu": xu}), "bound_bytes": nbytes,
+            "bound_batches": len(batches), "working_bytes": working,
+            "working_bytes_ms": working / HBM_BYTES_S * 1e3,
+            "sweep_bytes": sweep, "sweep_bytes_ms": sweep / HBM_BYTES_S * 1e3,
+            "sketch_fits_l2": sketch_bytes <= L2_BYTES}
+
+
+def celf_select_record(store, launches, iters=50) -> dict:
+    """celf_select on the store's final pool and sketch at the default
+    batch (32 candidates): against its plain version on the card (seeds,
+    gains and stats byte for byte; the plain version also gives each eval
+    call's candidates, which the bound counts), timed beside it, with
+    :func:`celf_select_bound` and the barrier floor: the same grid
+    (``greedy_flat``'s, a block of 512 on each SM) running as many grid
+    barriers as the launch ran, alone."""
+    t, n = store.n_elems, store.n_nodes
+    pool = (store.flat[:t], store.ids[:t], store.valid[:t])
+    sketch, dev = store.sketch_words(), pool[0].device
+    kw = dict(n=n, num_rows=store.row_capacity(), k=K, c=32)
+    got = celf_mod.celf_select(*pool, sketch=sketch, **kw)
+    batches = []
+    want = ref.celf_select_ref(*pool, sketch=sketch, calls_out=batches, **kw)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(x, y) for x, y in zip(got[:3], want))
+    if err or not all(x.dtype == y.dtype and torch.equal(x, y)
+                      for x, y in zip(got[:3], want)):
+        raise AssertionError(f"celf_select != plain version at sketch_k "
+                             f"{store.sketch_k}: max abs err {err}")
+    barriers = int(got[3])
+    times = timing("celf_select",
+                   lambda: ops.celf_select(*pool, sketch=sketch, **kw), iters)
+    plain_ms = cuda_ms(lambda: ref.celf_select_ref(*pool, sketch=sketch,
+                                                   **kw), 1)
+    floor_ms = cuda_ms(lambda: greedy.grid_barriers(barriers, dev), iters)
+    blocks, shared_words = celf_mod.select_grid(dev)
+    if blocks != greedy.grid_blocks(dev):
+        raise AssertionError(f"celf_select's grid of {blocks} blocks is not "
+                             f"greedy_flat's: no barrier floor")
+    evals, calls = want[2].tolist()
+    return record("celf_select", launches, err, times, plain_ms,
+                  celf_select_bound(*pool, kw["num_rows"], batches,
+                                    want[0].tolist(), sketch, n),
+                  barrier_floor_ms=floor_ms, grid_barriers=barriers,
+                  exact_evals=evals, eval_calls=calls, candidates=kw["c"],
+                  grid_blocks=blocks, shared_words_limit=shared_words,
+                  sketch_k=store.sketch_k, sketch_words=sketch.shape[1], n=n,
+                  k=K, pool_elements=t, num_rows=kw["num_rows"],
+                  gains_sum=int(got[1].sum()))
 
 
 def celf_records(store, seeds, launches, iters=50, plain_iters=3) -> list:
@@ -1962,26 +2193,6 @@ def celf_records(store, seeds, launches, iters=50, plain_iters=3) -> list:
     ]
 
 
-def host_profile(fn, top: int = 12) -> dict:
-    """Where one call of ``fn`` spends the host's time, by cProfile (the
-    profile's own cost included): its wall seconds, and the ``top``
-    functions by their own time, each with its calls and seconds."""
-    import cProfile
-    import pstats
-    prof = cProfile.Profile()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    prof.runcall(fn)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rows = sorted(pstats.Stats(prof).stats.items(),
-                  key=lambda kv: kv[1][2], reverse=True)[:top]
-    return {"wall_s": wall, "own_s": [
-        {"fn": f"{Path(file).name}:{line}:{name}", "calls": nc,
-         "own_s": tt, "cum_s": ct}
-        for (file, line, name), (_, nc, tt, ct, _) in rows]}
-
-
 def host_copy(store):
     """A CPU ``DeviceRRStore`` of the same sketch size and bucketing that
     holds ``store``'s pool, appended as one padded batch of its rows: its
@@ -2013,8 +2224,10 @@ def check_celf_on_host(store, card: cov.CoverageResult, card_stats: dict
     of its pool (:func:`host_copy`): the incremental sketch word for word
     (the ``sketch_scatter_or`` fold of every append), and one selection's
     seeds, gains, frac and ``stats_out`` (its exact evaluations and eval
-    calls depend on the sketch).  Raises on any difference; returns what was
-    compared and the seconds the host took."""
+    calls depend on the sketch) against ``select_seeds_celf`` on the copy,
+    whose CPU tensors take ``ref.celf_select_ref``.  Raises on any
+    difference; returns what was compared and the seconds the host
+    took."""
     t0 = time.perf_counter()
     copy = host_copy(store)
     sketch_same = torch.equal(store.sketch_words().cpu(), copy.sketch_words())
@@ -2038,19 +2251,22 @@ def check_celf_on_host(store, card: cov.CoverageResult, card_stats: dict
 
 def celf_phase(g, queue_res, queue_store) -> list:
     """The phase-5 solve with ``selection="celf"`` at each of
-    :data:`CELF_SOLVES`: stage times, launches (both CELF kernels, the
-    sweep's ``sketch_union_popcount`` and ``popcount_words`` and the
-    exact store's fold ``sketch_scatter_or`` > 0), the early exit's skips,
-    and, on the final pool, one selection's exact evaluations and host
-    syncs (:func:`count_syncs`).  Each must equal phase 5 in θ, LB, rounds,
-    RR sets, pool elements, seeds, gains and the float32 bytes of frac, and
-    its sketch and that selection must equal the plain versions' on a host
-    copy of the pool (:func:`check_celf_on_host`).
-    Returns the records of :func:`celf_records` at sketch_k 1,024, and
-    prints them at 16,384 on a ``celf_kernels_16384:`` line."""
+    :data:`CELF_SOLVES`: stage times, launches (``celf_select`` once a
+    selection, the exact store's fold ``sketch_scatter_or`` > 0, and
+    ``sketch_union_popcount`` and ``popcount_words`` only from the early
+    exit's gate; ``celf_eval`` and ``celf_apply`` never), the early exit's
+    skips, and, on the final pool, one selection's exact evaluations and
+    host syncs (:func:`count_syncs`: exactly one).  Each must equal phase 5
+    in θ, LB, rounds, RR sets, pool elements, seeds, gains and the float32
+    bytes of frac, and its sketch and that selection must equal the plain
+    versions' on a host copy of the pool (:func:`check_celf_on_host`).
+    Returns the records of :func:`celf_select_record` and
+    :func:`celf_records` at sketch_k 1,024 (``sketch_union_popcount``'s
+    launches those of the early exit's gate), and prints them at 16,384 on
+    a ``celf_kernels_16384:`` line."""
     dev = g.device
     qst = queue_res.stats
-    out = []
+    out, gate_launches = [], None
     for selection, sketch_k, early in CELF_SOLVES:
         problem = IMProblem(k=K, eps=EPS, early_exit=early)
         solver = IMMSolver(g, engine="queue", batch=BATCH,
@@ -2108,26 +2324,37 @@ def celf_phase(g, queue_res, queue_store) -> list:
             raise AssertionError(f"celf solve at sketch_k {sketch_k}, "
                                  f"early_exit {early} differs from phase 5: "
                                  f"{same}")
-        for name in ("celf_eval", "celf_apply", "sketch_union_popcount",
-                     "popcount_words", "sketch_scatter_or", "queue_bfs"):
+        gate = ("sketch_union_popcount", "popcount_words")
+        for name in ("celf_select", "sketch_scatter_or", "queue_bfs") + (
+                gate if early else ()):
             if launches[name] == 0:
                 raise AssertionError(f"{name} was not launched on the CELF "
                                      f"path: {launches}")
-        if launches["celf_apply"] != K * calls["selection"]:
+        off_path = [name for name in ("celf_eval", "celf_apply") + (
+            () if early else gate) if launches[name]]
+        if off_path or launches["celf_select"] != calls["selection"]:
             raise AssertionError(f"{calls['selection']} selections made "
-                                 f"{launches['celf_apply']} commits")
-        if early and st.early_exit_skips == 0:
-            say("celf_early_exit_note", "no LB iteration was skipped")
-        if (sketch_k, early) == (1024, False):
-            say("celf_select_profile", host_profile(
-                lambda: store.select(K, method="celf")))
-        if (sketch_k, early) == (1024, False):
-            out = celf_records(store, res.seeds.tolist(), launches)
-        elif not early:
-            say("celf_kernels_16384",
-                celf_records(store, res.seeds.tolist(), launches))
+                                 f"{launches['celf_select']} celf_select "
+                                 f"launches; off the path: {off_path}")
+        if len(sync_sites) != 1:
+            raise AssertionError(f"a celf selection made {len(sync_sites)} "
+                                 f"host syncs: {sync_sites}")
+        if early:
+            gate_launches = launches
+            if st.early_exit_skips == 0:
+                say("celf_early_exit_note", "no LB iteration was skipped")
+        elif sketch_k == 1024:
+            out = [celf_select_record(store, launches)] + celf_records(
+                store, res.seeds.tolist(), launches)
+        else:
+            say("celf_kernels_16384", [celf_select_record(store, launches)]
+                + celf_records(store, res.seeds.tolist(), launches))
         del solver, store
         torch.cuda.empty_cache()
+    for rec in out:
+        if rec["name"] == "sketch_union_popcount":
+            rec["launches"] = gate_launches["sketch_union_popcount"]
+            rec["launches_from"] = "the early exit's gate (16,384 buckets)"
     return out
 
 
@@ -2285,8 +2512,8 @@ def main() -> int:
                              f"ptxas reports {greedy_spills}")
     celf_spills = ptxas_spills(_build.PTXAS_REPORT["celf"], "celf_")
     say("celf_ptxas", celf_spills)
-    if len(celf_spills) != 2 or any(celf_spills.values()):
-        raise AssertionError(f"celf.cu: want 2 kernels without spills, "
+    if len(celf_spills) != 4 or any(celf_spills.values()):
+        raise AssertionError(f"celf.cu: want 4 kernels without spills, "
                              f"ptxas reports {celf_spills}")
 
     # 3. kernels against their plain versions

@@ -22,11 +22,11 @@ Selection (:func:`select_seeds_device`):
   CPU).
 * ``auto`` — ``bitset`` iff the bit matrix is no larger than the pool's
   capacity, the reference's rule.
-* ``celf`` (:func:`select_seeds_celf`) — the reference's CELF lazy greedy:
-  a host priority array of upper bounds, a sweep of the store's coverage
-  sketch a seed (``sketch_union_popcount`` and ``popcount_words``), and
-  exact evaluations of ``eval_batch`` candidates, each one ``celf_eval``
-  launch and one host read; a seed's commit is one ``celf_apply`` launch.
+* ``celf`` (:func:`select_seeds_celf`) — the reference's CELF lazy greedy
+  (upper bounds, a sweep of the store's coverage sketch a seed, exact
+  evaluations of ``eval_batch`` candidates, a commit a seed), the whole
+  selection one launch of the ``celf_select`` CUDA kernel and one host
+  read (``kernels.ops.celf_select``; the plain version on the CPU).
 
 A store built with ``sketch_k`` keeps the reference's incremental
 coverage sketch: each append folds its batch (the ``sketch_scatter_or``
@@ -331,36 +331,20 @@ def select_seeds_device(store: DeviceRRStore, k: int,
     raise ValueError(f"unknown selection method {method!r}")
 
 
-def _host_to(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``; to a card through pinned memory by a
-    copy that does not make the host wait."""
-    t = torch.from_numpy(a)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
 def select_seeds_celf(store: DeviceRRStore, k: int, *, eval_batch: int = 32,
                       use_sketch: bool = True, spec=None,
                       stats_out: dict | None = None) -> CoverageResult:
     """CELF lazy greedy with sketch-first candidate ordering: the
     reference's ``select_seeds_celf`` on one device, seed for seed.
 
-    A host priority array ``ub`` holds each node's last exact marginal gain
-    (at first the exact Occur, one scatter-add read once), an upper bound
-    under submodularity; per seed only the candidates that could still win
-    are evaluated exactly, ``eval_batch`` at a time, each batch one
-    ``kops.celf_eval`` launch and one host read.  With ``use_sketch`` each
-    seed starts with a sweep of the store's coverage sketch
-    (:meth:`DeviceRRStore.sketch_words`): Δocc (``sketch.union_gains``,
-    the ``sketch_union_popcount`` and ``popcount_words`` kernels) is a
-    lower bound on the gain, and its top ``eval_batch`` nodes, the
-    composite key ``Δocc·(n+1) − id`` picked on the device by ``topk``
-    (keys are unique, so the set is the reference's ``argpartition``'s),
-    are evaluated first.  Then the first maximum of ``ub`` (the lowest id
-    on ties) is accepted once it is fresh; else the ``eval_batch`` stale
-    nodes of highest ``ub·(n+1) − id`` are evaluated.  The seed's commit
-    is one ``kops.celf_apply`` launch, whose gain stays on the device.
+    The whole selection is one ``kops.celf_select`` call (on a card one
+    cooperative launch of the ``celf_select`` CUDA kernel; on the CPU the
+    plain version, ``ref.celf_select_ref``, which says what it computes):
+    ``eval_batch`` candidates an exact evaluation and, with
+    ``use_sketch``, a sweep a seed of the store's coverage sketch
+    (:meth:`DeviceRRStore.sketch_words`).  The host reads the counts of
+    exact evaluations and eval calls, the gains' sum and the store's fold
+    flag back once, at the end; a bad fold raises there.
 
     The seeds, gains and ``frac`` equal the ``flat`` scan's for any sketch
     size; ``stats_out`` gets ``n_exact_evals``, ``n_eval_calls``,
@@ -373,76 +357,27 @@ def select_seeds_celf(store: DeviceRRStore, k: int, *, eval_batch: int = 32,
             "item 7 (problem variants)")
     n = store.n_nodes
     t = store.n_elems
-    flat, ids, valid = store.flat[:t], store.ids[:t], store.valid[:t]
-    dev = flat.device
-    c = max(1, min(eval_batch, n))
-    occur = torch.zeros(n + 1, dtype=torch.int64, device=dev).index_add_(
-        0, flat.to(torch.int64), valid.to(torch.int64))
-    # one read: Occur and the fold flag (0 without an incremental sketch)
-    occur[n] = store.fold_error[0]
-    ub = occur.cpu().numpy()
-    store.check_folds(int(ub[n]))
-    ub = ub[:n].copy()
-    fresh = np.zeros(n, bool)
-    cov_words = torch.zeros(store.row_capacity() // 32, dtype=torch.int32,
-                            device=dev)
-    if use_sketch:
-        sk_words = store.sketch_words()
-        sk_k = sk_words.shape[1] * 32
-        cov_sk = torch.zeros(sk_words.shape[1], dtype=torch.int32,
-                             device=dev)
-        sweep_ids = torch.arange(n, dtype=torch.int64, device=dev)
-    n_evals = n_eval_calls = 0
-    node_ids = np.arange(n)
-
-    def eval_exact(cands: torch.Tensor, picked: np.ndarray | None = None):
-        """Evaluate ``cands`` exactly and read the gains back (with the
-        candidates, when they were picked on the device)."""
-        nonlocal n_evals, n_eval_calls
-        g = kops.celf_eval(flat, ids, valid, cov_words, cands)
-        if picked is None:
-            picked, g = torch.stack([cands.to(torch.int64),
-                                     g.to(torch.int64)]).cpu().numpy()
-        else:
-            g = g.cpu().numpy()
-        ub[picked] = g
-        fresh[picked] = True
-        n_evals += len(picked)
-        n_eval_calls += 1
-
-    seeds, gains = [], []
-    for _ in range(k):
-        fresh[:] = False
-        if use_sketch:
-            deltas = sketch_mod.union_gains(sk_words, cov_sk)[:n]
-            key = deltas.to(torch.int64) * (n + 1) - sweep_ids
-            eval_exact(torch.topk(key, c).indices)
-        while True:
-            u = int(np.argmax(ub))       # first max == lowest id on ties
-            if fresh[u]:
-                break
-            stale = node_ids[~fresh]
-            cc = min(c, len(stale))
-            key = ub[stale] * (n + 1) - stale
-            pick = stale[np.argpartition(-key, cc - 1)[:cc]]
-            eval_exact(_host_to(pick.astype(np.int32), dev), pick)
-        gains.append(kops.celf_apply(flat, ids, valid, cov_words, u))
-        if use_sketch:
-            cov_sk = sketch_mod.union_row(cov_sk, sk_words, u)
-        ub[u] = 0                        # exact: u's rows are now covered
-        seeds.append(u)
-
+    sk_words = store.sketch_words() if use_sketch else None
+    seeds, gains, stats = kops.celf_select(
+        store.flat[:t], store.ids[:t], store.valid[:t], n=n,
+        num_rows=store.row_capacity(), k=k, c=max(1, min(eval_batch, n)),
+        sketch=sk_words)
+    # the one read: the counts, the gains' sum and the fold flag
+    n_evals, n_eval_calls, total, bad = (int(x) for x in torch.cat(
+        [stats, gains.sum(dtype=torch.int64).view(1),
+         store.fold_error.to(torch.int64)]).cpu())
+    store.check_folds(bad)
     if stats_out is not None:
         stats_out.update(n_exact_evals=n_evals, n_eval_calls=n_eval_calls,
-                         sketch_k=(sk_k if use_sketch else 0),
+                         sketch_k=(sk_words.shape[1] * 32 if use_sketch
+                                   else 0),
                          n_rr=store.n_rr)
-    gains = (torch.stack(gains) if gains
-             else torch.zeros(0, dtype=torch.int32, device=dev))
     # float64 quotient rounded to float32, as the reference's host maths
-    frac = (gains.sum(dtype=torch.int64).to(torch.float64)
-            / max(store.n_rr, 1)).to(torch.float32)
-    return CoverageResult(seeds=_host_to(np.asarray(seeds, np.int32), dev),
-                          gains=gains, frac=frac)
+    frac = np.float32(total / max(store.n_rr, 1))
+    return CoverageResult(seeds=seeds, gains=gains,
+                          frac=torch.full((), float(frac),
+                                          dtype=torch.float32,
+                                          device=seeds.device))
 
 
 class PaddedStore(NamedTuple):

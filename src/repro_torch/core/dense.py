@@ -22,7 +22,8 @@ Two samplers, each with the random-number rule of its reference function:
   (dense rows are ascending).
 * :func:`sample_rrsets_dense_packed` keeps the reference's bit-packed
   sampler bit for bit: visited and frontier sets are (B, ceil(n/32)) int32
-  words kept by the ``pack_bits``/``bitset_andnot``/``bitset_or`` kernels,
+  words kept by the ``pack_bits`` and ``frontier_update`` kernels (the
+  reference's ``bitset_andnot`` and ``bitset_or`` in one launch),
   and lane b at level l draws its trials with the seed
   ``(base_seed * 2654435761 + b * 40503 + l) mod 2^32`` over the edge index
   of the (uncoalesced) reverse CSR.  Only the roots differ: the reference
@@ -200,9 +201,9 @@ def _sample_dense_packed(g_rev: CSRGraph, roots: torch.Tensor,
         del keep
         new_bool = _scatter_live(live, dst, n_pad)
         del live
-        new_words = kops.bitset_andnot(kops.pack_bits(new_bool), visited)
-        visited = kops.bitset_or(visited, new_words)
-        frontier = new_words
+        # visited is updated in place; on the first level frontier *is*
+        # visited, which _unpack_bits above has already read
+        frontier = kops.frontier_update(kops.pack_bits(new_bool), visited)
         level += 1
     occur = kops.occur_from_bitset(visited)
     sizes = kops.popcount_words(visited).sum(dim=1, dtype=torch.int32)

@@ -4,7 +4,9 @@
 
 ``occur_from_bitset``, ``occur_from_bitset_masked``, ``pack_bits``,
 ``bitset_or``, ``bitset_andnot`` and ``popcount_words`` replace the Pallas
-kernels of the same names in ``repro.kernels.bitset``.  The wrappers take
+kernels of the same names in ``repro.kernels.bitset``;
+``frontier_update`` is the dense level's ``bitset_andnot`` and
+``bitset_or`` in one launch.  The wrappers take
 CUDA tensors only; ``kernels/ops.py`` routes CPU tensors to ``ref.py``.
 
 A wrapper checks all its inputs in one pass over the common case (the
@@ -32,7 +34,7 @@ from repro_torch.kernels import _build
 # launches per kernel since the last reset (see ops.reset_launch_counts)
 LAUNCHES = {"occur_from_bitset": 0, "occur_from_bitset_masked": 0,
             "pack_bits": 0, "bitset_or": 0, "bitset_andnot": 0,
-            "popcount_words": 0}
+            "popcount_words": 0, "frontier_update": 0}
 
 _THREADS = 128          # word columns a block (kThreads in occur.cu)
 _GROUP = 16             # rows a carry-save tree adds (kGroup)
@@ -55,6 +57,8 @@ _PACK = _build.Kernel("bitops", "pack_bits", (_vp, _i64, _i64, _vp, _int, _vp))
 _BINARY = {name: _build.Kernel("bitops", name,
                                (_vp, _vp, _i64, _vp, _int, _vp))
            for name in ("bitset_or", "bitset_andnot")}
+_FRONTIER = _build.Kernel("bitops", "frontier_update",
+                          (_vp, _vp, _i64, _vp, _int, _vp))
 _POPCOUNT = _build.Kernel("bitops", "popcount_words",
                           (_vp, _i64, _vp, _int, _vp))
 
@@ -189,6 +193,19 @@ def bitset_or(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def bitset_andnot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a & ~b`` on (B, W) int32 words on the card."""
     return _binary("bitset_andnot", a, b)
+
+
+def frontier_update(a: torch.Tensor, visited: torch.Tensor) -> torch.Tensor:
+    """``a & ~visited``, and ``visited |= a`` in place, on (B, W) int32
+    words on the card: one launch for ``bitset_andnot`` and ``bitset_or``
+    (``visited`` ends as ``visited | (a & ~visited)``)."""
+    dev = _card(a, visited, "frontier_update")
+    out = torch.empty_like(a)
+    err = _FRONTIER(a.data_ptr(), visited.data_ptr(), a.numel(),
+                    out.data_ptr(), dev, _build.raw_stream(dev))
+    _build.raise_on(err, "frontier_update")
+    LAUNCHES["frontier_update"] += 1
+    return out
 
 
 def popcount_words(words: torch.Tensor) -> torch.Tensor:

@@ -1,21 +1,27 @@
-"""CUDA wrappers of the CELF lazy greedy's exact evaluations
-(``csrc/celf.cu``): :func:`celf_eval` scores a batch of candidates
-against a packed Covered bitset, :func:`celf_apply` commits a seed into
-it.  Neither replaces a Pallas kernel: the reference computes both in XLA
-(``eval_batch`` and ``apply_seed`` of ``repro.core.coverage``).
+"""CUDA wrappers of the CELF lazy greedy (``csrc/celf.cu``):
+:func:`celf_select` runs one whole selection, all k seeds, in one
+cooperative launch; :func:`celf_eval` scores a batch of candidates against
+a packed Covered bitset and :func:`celf_apply` commits a seed into it, one
+launch each (no longer on the selection's path).  None replaces a Pallas
+kernel: the reference runs CELF as a host loop whose evaluations are XLA
+(``select_seeds_celf``, ``eval_batch`` and ``apply_seed`` of
+``repro.core.coverage``).
 
 Each computes what its plain version in ``kernels/ref.py`` computes
-(``celf_eval_ref``, ``celf_apply_ref``), byte for byte.  The wrappers take
-CUDA tensors only; ``kernels/ops.py`` routes CPU tensors to the plain
-versions.  Each checks its inputs, allocates its output (and
-:func:`celf_eval` the candidates' scratch bitmaps beside it, which the
-entry point zeroes), launches through a :class:`_build.Kernel` on
+(``celf_select_ref``, ``celf_eval_ref``, ``celf_apply_ref``), byte for
+byte.  The wrappers take CUDA tensors only; ``kernels/ops.py`` routes CPU
+tensors to the plain versions.  Each checks its inputs, allocates its
+outputs and scratch, launches through a :class:`_build.Kernel` on
 PyTorch's current stream of the tensors' card (:func:`_build.raw_stream`),
-raises on a launch error and adds one to its entry in :data:`LAUNCHES`.
-Nothing is read back, so a call makes no host sync.
+raises on a launch error (a grid that cannot be launched cooperatively
+among them: there is no fallback) and adds one to its entry in
+:data:`LAUNCHES`.  Nothing is read back, so a call makes no host sync.
 
 :func:`celf_eval` launches once for every :data:`MAX_CANDS` candidates
-(once at any ``eval_batch`` up to 2,048).
+(once at any ``eval_batch`` up to 2,048); :func:`celf_select` evaluates
+larger batches in chunks of that many inside its launch.  Its grid, a
+block of 512 threads on each SM, is ``greedy_flat``'s, so
+``greedy.grid_barriers`` gives the floor of its time.
 """
 from __future__ import annotations
 
@@ -24,9 +30,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.greedy import device_index, sketch_layout
 
 # launches since the last reset (see ops.reset_launch_counts)
-LAUNCHES = {"celf_eval": 0, "celf_apply": 0}
+LAUNCHES = {"celf_eval": 0, "celf_apply": 0, "celf_select": 0}
 
 # csrc/celf.cu: kMaxCands, the candidates of one celf_eval launch
 MAX_CANDS = 2048
@@ -38,6 +45,14 @@ _EVAL = _build.Kernel("celf", "celf_eval",
                        _vp))
 _APPLY = _build.Kernel("celf", "celf_apply",
                        (_vp, _vp, _vp, _i64, _vp, _i64, _i32, _vp, _int, _vp))
+_SELECT = _build.Kernel("celf", "celf_select",
+                        (_vp, _vp, _vp, _i64, _i32, _i64, _i32, _i32, _vp,
+                         _i32, _int, _int, _vp, _i64, _vp, _int, _vp))
+_SELECT_GRID = _build.Kernel("celf", "celf_select_grid",
+                             (_int, ctypes.POINTER(_int),
+                              ctypes.POINTER(_i64)))
+# csrc/celf.cu: kBins, the bins of one histogram of the select
+HIST_BINS = 2048
 
 
 def _check_pool(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
@@ -111,3 +126,93 @@ def celf_apply(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
     _build.raise_on(err, "celf_apply")
     LAUNCHES["celf_apply"] += 1
     return gain[0]
+
+
+def select_scratch_bytes(n: int, num_rows: int, c: int, cols: int,
+                         blocks: int, shared_words: int, t: int) -> int:
+    """Scratch of one :func:`celf_select` launch (``csrc/celf.cu``'s
+    ``select_layout``): the blocks' records (two sweeps x 16 bytes a
+    block), the ring of three pairs of :data:`HIST_BINS`-bin histograms,
+    cand (8 bytes a node), the list of the bitmap words a call set first (8
+    bytes an element), ub, stamp and sel (4 bytes a node each), the counts
+    of a batch (c), the blocks' tie counts, the slot and list counters,
+    Covered (num_rows / 32 words) and the scratch bitmaps (min(c,
+    :data:`MAX_CANDS`) x num_rows / 32 words); then, when a sketch row of
+    ``cols`` words (rounded up to 4) exceeds ``shared_words``, each block's
+    copy of the sketch union from the next 16-byte boundary."""
+    nw = num_rows // 32
+    end = (32 * blocks + 4 * 6 * HIST_BINS + 8 * n + 8 * t + 12 * n + 4 * c
+           + 4 * blocks + 8 + 4 * nw + 4 * min(c, MAX_CANDS) * nw)
+    stride = -(-cols // 4) * 4
+    if stride <= shared_words:
+        return end
+    return -(-end // 16) * 16 + 4 * blocks * stride
+
+
+def select_grid(device) -> tuple[int, int]:
+    """``(blocks, shared_words)`` of :func:`celf_select`'s grid on card
+    ``device``: a block of 512 threads on each SM, and the widest sketch
+    row in words that its shared memory holds (the entry point reads them
+    from the card once)."""
+    blocks, words = _int(0), _i64(0)
+    index = device_index(device)
+    _build.raise_on(_SELECT_GRID(index, ctypes.byref(blocks),
+                                 ctypes.byref(words)), "celf_select_grid")
+    return blocks.value, words.value
+
+
+def celf_select(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+                *, n: int, num_rows: int, k: int, c: int,
+                sketch: torch.Tensor | None = None):
+    """One CELF selection on the card: (t,) int32 ``flat`` and ``ids`` (row
+    ids below ``num_rows``, a multiple of 32) and bool ``valid``, ``c`` (1
+    <= c <= n) candidates an exact evaluation, the (R >= n, W) int32
+    ``sketch`` or None -> ``(seeds (k,) int32, gains (k,) int32, stats (2,)
+    int64, barriers (1,) int64)``: the first three as
+    ``ref.celf_select_ref``, then the grid barriers the launch ran."""
+    n, num_rows, k, c = int(n), int(num_rows), int(k), int(c)
+    dev = flat.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel given a tensor on {dev}")
+    for t, name, dtype in ((flat, "flat", torch.int32),
+                           (ids, "ids", torch.int32),
+                           (valid, "valid", torch.bool)):
+        if t.device != dev:
+            raise ValueError(f"{name} must lie on {dev}, got {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.dim() != 1 or t.shape != flat.shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous and 1-D of flat's "
+                             f"length {flat.shape[0]}, got {tuple(t.shape)}")
+    if not (1 <= n < (1 << 31) - 1 and k >= 1 and 1 <= c <= n
+            and 32 <= num_rows < 1 << 31 and num_rows % 32 == 0
+            and flat.shape[0] < 1 << 31):
+        raise ValueError(f"need 1 <= n < 2^31 - 1, k >= 1, 1 <= c <= n, "
+                         f"num_rows a multiple of 32 in [32, 2^31) and "
+                         f"fewer than 2^31 elements, got n {n}, k {k}, c "
+                         f"{c}, num_rows {num_rows}, {flat.shape[0]}")
+    cols, lanes, vector, sk_ptr = 0, 1, False, None
+    if sketch is not None:
+        _build.check_words(sketch, "sketch")
+        if sketch.device != dev or sketch.shape[0] < n or \
+                sketch.shape[1] >= 1 << 26:
+            raise ValueError(f"sketch must lie on {dev} with at least n = "
+                             f"{n} rows and fewer than 2^26 words a row, "
+                             f"got {tuple(sketch.shape)} on {sketch.device}")
+        cols = sketch.shape[1]
+        lanes, vector = sketch_layout(cols, sketch.data_ptr() % 16 == 0)
+        sk_ptr = sketch.data_ptr()
+    index = flat.get_device()
+    blocks, shared_words = select_grid(index)
+    size = select_scratch_bytes(n, num_rows, c, cols, blocks, shared_words,
+                                flat.shape[0])
+    scratch = torch.empty(size, dtype=torch.uint8, device=dev)
+    out = torch.empty(2 * k + 6, dtype=torch.int32, device=dev)
+    err = _SELECT(flat.data_ptr(), ids.data_ptr(), valid.data_ptr(),
+                  flat.shape[0], n, num_rows, k, c, sk_ptr, cols, lanes,
+                  int(vector), scratch.data_ptr(), size, out.data_ptr(),
+                  index, _build.raw_stream(index))
+    _build.raise_on(err, "celf_select")
+    LAUNCHES["celf_select"] += 1
+    counts = out[2 * k:].view(torch.int64)
+    return out[:k], out[k:2 * k], counts[:2], counts[2:]

@@ -27,6 +27,15 @@
 //   are 16-byte aligned, then a scalar loop over the tail (and over all
 //   words when a pointer is not aligned).
 //
+// frontier_update: new = a & ~visited, and visited |= a in place: the
+//   dense level's bitset_andnot and bitset_or in one launch (visited |
+//   (a & ~visited) == visited | a, so visited ends as the two calls leave
+//   it).  Replaces no Pallas kernel of its own: the pair above, as the
+//   reference's dense level calls them (src/repro/core/dense.py:156).
+//   What bounds it: bytes (16 per word: a and visited read, new and
+//   visited written; two logic operations).
+//   Design.  bitset_binary's loop, with the second output.
+//
 // popcount_words: out = __popc(words), elementwise -> int32.  Equal to the
 //   reference's SWAR popcount on every word, bit 31 included.
 //   What bounds it: bytes (8 per word, one instruction).
@@ -116,6 +125,33 @@ __global__ void bitset_binary_kernel(const uint32_t* __restrict__ a,
   for (int64_t j = done + i; j < n; j += stride) out[j] = op(a[j], b[j]);
 }
 
+// a may be visited itself (each word is read before it is written)
+__global__ void frontier_update_kernel(const uint32_t* a, uint32_t* visited,
+                                       int64_t n, bool vector,
+                                       uint32_t* __restrict__ out) {
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  int64_t done = 0;
+  if (vector) {
+    const int64_t n4 = n / 4;
+    const uint4* a4 = reinterpret_cast<const uint4*>(a);
+    uint4* v4 = reinterpret_cast<uint4*>(visited);
+    uint4* o4 = reinterpret_cast<uint4*>(out);
+    for (int64_t j = i; j < n4; j += stride) {
+      const uint4 x = a4[j];
+      const uint4 y = v4[j];
+      o4[j] = make_uint4(x.x & ~y.x, x.y & ~y.y, x.z & ~y.z, x.w & ~y.w);
+      v4[j] = make_uint4(x.x | y.x, x.y | y.y, x.z | y.z, x.w | y.w);
+    }
+    done = n4 * 4;
+  }
+  for (int64_t j = done + i; j < n; j += stride) {
+    const uint32_t x = a[j], y = visited[j];
+    out[j] = x & ~y;
+    visited[j] = x | y;
+  }
+}
+
 __global__ void popcount_kernel(const uint32_t* __restrict__ words, int64_t n,
                                 bool vector, int32_t* __restrict__ out) {
   const int64_t stride = int64_t(gridDim.x) * blockDim.x;
@@ -184,6 +220,29 @@ extern "C" int bitset_or(const void* a, const void* b, int64_t n, void* out,
 extern "C" int bitset_andnot(const void* a, const void* b, int64_t n,
                              void* out, int device, void* stream) {
   return launch_binary<AndNotOp>(a, b, n, out, device, stream);
+}
+
+// a, visited, out: n uint32 words each (visited updated in place; out
+// another buffer than both).
+extern "C" int frontier_update(const void* a, void* visited, int64_t n,
+                               void* out, int device, void* stream) {
+  if (n <= 0) return int(cudaGetLastError());
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return int(guard.err);
+  const bool vector = aligned16(a) && aligned16(visited) && aligned16(out);
+  frontier_update_kernel<<<blocks_for(vector ? (n + 3) / 4 : n), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<uint32_t*>(visited), n,
+      vector, static_cast<uint32_t*>(out));
+  return int(cudaGetLastError());
+}
+
+// The device guard alone, with bitset_or's arguments: a probe for timing
+// the wrappers' host parts (ctypes converts as many arguments).
+extern "C" int bitops_guard(const void*, const void*, int64_t, void*,
+                            int device, void*) {
+  DeviceGuard guard(device);
+  return int(guard.err);
 }
 
 // words: n uint32; out: n int32.

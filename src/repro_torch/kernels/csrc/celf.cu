@@ -1,13 +1,15 @@
-// The exact evaluations of the CELF lazy greedy, one launch each, for
-// Hopper (sm_90a): celf_eval scores a batch of candidates against the
-// Covered bitset, celf_apply commits a seed into it.
+// The CELF lazy greedy for Hopper (sm_90a): celf_select runs a whole
+// selection, all k seeds, in one cooperative launch (further down);
+// celf_eval scores a batch of candidates against the Covered bitset and
+// celf_apply commits a seed into it, one launch each.
 //
-// Replaces no Pallas kernel.  The JAX reference computes both in XLA
-// (src/repro/core/coverage.py:1451-1497, eval_batch and apply_seed over
-// _newly_rows, :1329): the paper's Alg. 7 membership pass in its lazy
-// form.  Every exact evaluation of CELF sits on its critical path (the host
-// reads its gains before it picks the next batch), so each is one kernel.
-// The plain versions are kernels/ref.py::celf_eval_ref and celf_apply_ref.
+// Replaces no Pallas kernel.  The JAX reference runs CELF as a host loop
+// (src/repro/core/coverage.py:2093, select_seeds_celf) whose exact
+// evaluations and commits are XLA (:1451-1497, eval_batch and apply_seed
+// over _newly_rows, :1329): the paper's Alg. 7 membership pass in its lazy
+// form.  The plain versions are kernels/ref.py::celf_select_ref,
+// celf_eval_ref and celf_apply_ref.  celf_eval and celf_apply are no
+// longer on the selection's path: celf_select holds both in its launch.
 //
 // Inputs: the pool's live extent as the store holds it, flat (node ids),
 // ids (row ids) and valid (a byte an element); cov, the Covered bitset of
@@ -53,9 +55,13 @@
 //   written) of the elements that hold u.
 
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "coop_grid.cuh"
 #include "device_guard.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -162,6 +168,702 @@ unsigned grid_of(int64_t t) {
   return unsigned(blocks < 1 ? 1 : blocks);
 }
 
+// celf_select: one selection of the CELF lazy greedy, all k seeds in one
+// cooperative launch.
+//
+// What it computes, seed for seed, gain for gain and count for count as
+// kernels/ref.py::celf_select_ref (the reference's select_seeds_celf).
+// ub[v] starts as the number of valid elements of node v < n (a row that
+// repeats v counts each time).  Seed s: every node turns stale; with the
+// sketch, D(v) = popcount(sk[v] | cov_sk) - popcount(cov_sk) for every node
+// and the c nodes of largest key D*(n+1) - v are evaluated (one eval call).
+// Then u = the first maximum of ub (the lowest id on ties); a fresh u is
+// seed s, else the cc = min(c, stale nodes) stale nodes of largest key
+// ub*(n+1) - v are evaluated (one eval call) and u is taken again.  An
+// evaluation sets ub[v] to the rows that hold v and are not in Covered
+// (a row counts when its bit flips, as in celf_eval) and makes v fresh.
+// The commit ORs u's rows into Covered (gains[s] = the bits it flips), sets
+// ub[u] = 0 and ORs sk[u] into cov_sk.  The keys are unique, so a batch is
+// a set: the order of its candidates changes nothing.  stats: the
+// candidates evaluated, the eval calls and the grid barriers run.
+//
+// Design.  One block of kSelThreads on each SM, cooperative (cg grid sync),
+// as greedy.cu's kernels.  Block b owns the nodes [b*slots, (b+1)*slots),
+// thread j of it the nodes j, j + kSelThreads, ... of that slice, and only
+// the owner reads or writes a node's ub, its fresh stamp (fresh at step
+// s + 1 <=> stamp == s + 1, so no clearing) and its selection value sel.
+// - A sweep applies the last eval call's counts to its candidates, sets
+//   each node's sel (D + 1 in the sketch's sweep, where a lane group takes
+//   a row and issues a column's loads of kSweepRows rows together; in the
+//   lazy loop's, ub + 1 for a stale node and 0 for a fresh one), folds the
+//   slice's argmax key (ub << 32 | ~v) with its node's fresh flag and the
+//   slice's largest sel into the block's record, and counts the slice's
+//   sel in two shared histograms, bits [10:0] of sel < 2^11 and bits
+//   [21:11] of sel < 2^22, each then added to its global copy (a ring of
+//   three pairs: a phase fills one and zeroes the next).  A barrier.
+// - Every block then reads all the records: u, its fresh flag and M, the
+//   largest sel.  The batch is a radix threshold select on sel: the cc-th
+//   largest sel T comes from the histogram of the digit that holds M's top
+//   bit (the sweep's own when M < 2^22) and of each lower digit (a pass and
+//   a barrier each), by a block scan of 2,048 bins from the top.  The batch
+//   is every node of sel > T and the `need` lowest ids of sel == T: all of
+//   them when need is the count at T, else each block publishes its count
+//   at T and, after a barrier, takes its own in id order from the rank the
+//   blocks below leave.  A taken node gets (call, slot) in cand[v]; its
+//   slot comes from a warp-aggregated atomic counter.  A barrier.
+// - The evaluation: each element whose node holds the call's stamp in cand
+//   (an 8-byte read from L2) and whose valid row is not in Covered sets the
+//   row's bit in its slot's scratch bitmap (atomicOr); a flipped bit counts
+//   in the block's shared count of the slot, added to cnt[slot] once a
+//   block.  kMaxCands slots have a bitmap at a time: a larger batch runs in
+//   chunks, with a barrier after each chunk and after its clearing.  The
+//   bitmaps are zeroed once; an element whose atomicOr finds its word at
+//   0 lists the word (an atomic counter), and after the counts the listed
+//   words are zeroed (in the next sweep for the last chunk), so a call
+//   writes only the words it touched and reads the pool once.  A barrier.
+// - The commit runs in the phase after the pick, beside the next seed's
+//   first sweep (it changes nothing that sweep reads): a thread an element,
+//   warp votes of flipped Covered bits, each block's count added to
+//   gains[s] once; u's owner sets ub[u] = 0; each block ORs sk[u] into its
+//   own copy of cov_sk (shared memory when its W words fit, else its slice
+//   of the scratch) and counts it.
+// Every value that steers the control flow (u, its flag, M, T, need) is
+// read by every block from the same records and histograms, so all blocks
+// take the same branches and barriers.
+//
+// What bounds it.  Bytes: each eval call reads the pool's node ids (4 an
+// element) and, for the elements of the candidates, their valid byte, row
+// id and Covered word; each seed's sketch sweep reads the n sketch rows
+// (9.7 MB at 1,024 buckets, L2-resident; 155 MB at 16,384).  Its time is
+// the chain of grid barriers (about four an eval call and one a seed,
+// about 1.2 us each on the H100) and each phase's latency; greedy.cu's
+// greedy_grid_barriers runs the same grid (a block of 512 on each SM)
+// with the barriers alone.
+
+constexpr int kSelThreads = 512;
+constexpr int kSelWarps = kSelThreads / 32;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kDigit = 11;               // bits a histogram bin takes
+constexpr int kBins = 1 << kDigit;       // 4 bins a thread in find_digit
+constexpr int kSweepRows = 4;            // rows a lane group loads at once
+static_assert(kBins == 4 * kSelThreads, "find_digit takes 4 bins a thread");
+
+struct SelectArgs {
+  const int32_t* flat;
+  const int32_t* ids;
+  const uint8_t* valid;
+  int64_t t;
+  int32_t n, k, c, slots;
+  int64_t cov_words;             // Covered words (num_rows / 32)
+  const uint32_t* sk;            // the sketch (rows v < n), or null
+  int32_t cols, lanes;           // its words a row; lanes a row (a power of 2)
+  bool vector;                   // 16-byte loads of its rows
+  int64_t cov_stride;            // words of a block's cov_sk in the scratch
+  unsigned long long* records;   // 2 x blocks x 2
+  int32_t* hist;                 // 3 pairs x 2 x kBins
+  int2* cand;                    // n: (call, slot)
+  int64_t* touched;              // t: bitmap words a call set first
+  int32_t* touched_n;            // 1: their count
+  int32_t* ub;                   // n
+  int32_t* stamp;                // n
+  uint32_t* sel;                 // n
+  int32_t* cnt;                  // c
+  int32_t* ties;                 // blocks
+  int32_t* slot_next;            // 1
+  uint32_t* cov;                 // cov_words
+  uint32_t* bitmaps;             // min(c, kMaxCands) x cov_words
+  uint32_t* cov_copies;          // blocks x cov_stride, or unused
+  int32_t* seeds;                // k
+  int32_t* gains;                // k
+  long long* stats;              // 3
+};
+
+__device__ __forceinline__ uint64_t warp_max64(uint64_t x) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const uint64_t y = __shfl_xor_sync(kFull, x, off);
+    x = y > x ? y : x;
+  }
+  return x;
+}
+
+__device__ __forceinline__ uint64_t warp_sum64(uint64_t x) {
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
+  return x;
+}
+
+// The block's largest x, in every thread; `red` is free again on return.
+__device__ __forceinline__ uint64_t block_max64(uint64_t x, uint64_t* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  x = warp_max64(x);
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  x = warp_max64(lane < kSelWarps ? red[lane] : 0);
+  __syncthreads();
+  return x;
+}
+
+// The block's sum of x, in every thread; `red` is free again on return.
+__device__ __forceinline__ uint64_t block_sum64(uint64_t x, uint64_t* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  x = warp_sum64(x);
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  x = warp_sum64(lane < kSelWarps ? red[lane] : 0);
+  __syncthreads();
+  return x;
+}
+
+// The warp's inclusive sum of x.
+__device__ __forceinline__ int32_t warp_scan(int32_t x) {
+  const int lane = threadIdx.x & 31;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int32_t y = __shfl_up_sync(kFull, x, off);
+    if (lane >= off) x += y;
+  }
+  return x;
+}
+
+// The block's exclusive sum of x in thread order (.x) and its total (.y),
+// in every thread; `part` is free again on return.
+__device__ __forceinline__ int2 block_scan(int32_t x, int32_t* part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int32_t incl = warp_scan(x);
+  if (lane == 31) part[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int32_t w = warp_scan(lane < kSelWarps ? part[lane] : 0);
+    if (lane < kSelWarps) part[lane] = w;
+  }
+  __syncthreads();
+  const int2 out = make_int2((warp ? part[warp - 1] : 0) + incl - x,
+                             part[kSelWarps - 1]);
+  __syncthreads();
+  return out;
+}
+
+// One bin add for each lane with `on`, a shared atomic for each distinct
+// bin of the warp; every lane of the warp calls it.
+__device__ __forceinline__ void warp_bin_add(int32_t* hist, bool on,
+                                             uint32_t bin) {
+  const unsigned voters = __ballot_sync(kFull, on);
+  if (on) {
+    const unsigned peers = __match_any_sync(voters, bin);
+    if ((threadIdx.x & 31) == __ffs(peers) - 1)
+      atomicAdd(hist + bin, int32_t(__popc(peers)));
+  }
+}
+
+// A slot for each lane with `take` from the shared counter: the warp's
+// lanes in lane order at one atomicAdd; every lane of the warp calls it.
+__device__ __forceinline__ int32_t warp_slot(bool take, int32_t* next) {
+  const unsigned m = __ballot_sync(kFull, take);
+  if (!m) return -1;
+  const int lane = threadIdx.x & 31, leader = __ffs(m) - 1;
+  int32_t first = 0;
+  if (lane == leader) first = atomicAdd(next, __popc(m));
+  first = __shfl_sync(kFull, first, leader);
+  return take ? first + __popc(m & ((1u << lane) - 1)) : -1;
+}
+
+template <bool kSharedCov>
+__global__ void __launch_bounds__(kSelThreads, 1)
+celf_select_kernel(SelectArgs a) {
+  extern __shared__ uint4 s_cov4[];
+  __shared__ int32_t s_cnt[kMaxCands];
+  __shared__ int32_t s_hist[2 * kBins];
+  __shared__ uint64_t red[kSelWarps];
+  __shared__ int32_t part[kSelWarps];
+  __shared__ int32_t s_pick[3];
+  __shared__ int32_t s_flag, s_gain;
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x;
+  const int32_t blocks = gridDim.x, me = blockIdx.x;
+  const int64_t gtid = int64_t(me) * kSelThreads + tid;
+  const int64_t gsize = int64_t(blocks) * kSelThreads;
+  const int32_t n = a.n;
+  const int64_t lo = min(int64_t(me) * a.slots, int64_t(n));
+  const int64_t held = min(lo + a.slots, int64_t(n)) - lo;
+  const int64_t rows = a.cov_words * 32;
+  uint32_t* cov_sk = kSharedCov ? reinterpret_cast<uint32_t*>(s_cov4)
+                                : a.cov_copies + int64_t(me) * a.cov_stride;
+  long long barriers = 0;
+  auto sync = [&]() {
+    grid.sync();
+    ++barriers;
+  };
+
+  // prologue: the state zeroed, then ub = Occur
+  for (int64_t v = gtid; v < n; v += gsize) {
+    a.ub[v] = 0;
+    a.stamp[v] = 0;
+    a.cand[v] = make_int2(-1, 0);
+  }
+  for (int64_t i = gtid; i < a.c; i += gsize) a.cnt[i] = 0;
+  const int64_t bitmap_words = int64_t(min(a.c, kMaxCands)) * a.cov_words;
+  for (int64_t i = gtid; i < bitmap_words; i += gsize) a.bitmaps[i] = 0;
+  for (int64_t w = gtid; w < a.cov_words; w += gsize) a.cov[w] = 0;
+  for (int64_t i = gtid; i < 6 * kBins; i += gsize) a.hist[i] = 0;
+  for (int64_t s = gtid; s < a.k; s += gsize) a.gains[s] = 0;
+  if (gtid == 0) {
+    *a.slot_next = 0;
+    *a.touched_n = 0;
+  }
+  if (a.sk)
+    for (int w = tid; w < a.cols; w += kSelThreads) cov_sk[w] = 0;
+  sync();
+  for (int64_t e = gtid; e < a.t; e += gsize) {
+    const uint32_t v = uint32_t(__ldg(a.flat + e));
+    if (__ldg(a.valid + e) && v < uint32_t(n)) {
+      const unsigned peers = __match_any_sync(__activemask(), v);
+      if ((tid & 31) == __ffs(peers) - 1)
+        atomicAdd(a.ub + v, int32_t(__popc(peers)));
+    }
+  }
+  sync();
+
+  int32_t call = 0;           // the next eval call (its stamp in cand)
+  int32_t pending = -1;       // the call whose counts (and bitmap words) the
+                              // next sweep applies (and clears)
+  int32_t hp = 0;             // histogram phases so far (the ring's position)
+  int32_t sweeps = 0;         // sweeps so far (the records' parity)
+  uint32_t base = 0;          // popcount(cov_sk)
+  long long n_evals = 0, n_calls = 0;
+
+  auto zero_hist = [&]() {
+    for (int i = tid; i < 2 * kBins; i += kSelThreads) s_hist[i] = 0;
+    __syncthreads();
+  };
+  // add the shared histograms to the ring's pair of this phase and zero the
+  // next pair (its last readers passed a barrier since)
+  auto flush_hist = [&](int used) {
+    __syncthreads();
+    int32_t* pair = a.hist + (hp % 3) * 2 * kBins;
+    for (int i = tid; i < used * kBins; i += kSelThreads)
+      if (s_hist[i]) atomicAdd(pair + i, s_hist[i]);
+    int32_t* next = a.hist + ((hp + 1) % 3) * 2 * kBins;
+    for (int64_t i = gtid; i < 2 * kBins; i += gsize) next[i] = 0;
+    ++hp;
+  };
+  auto last_hist = [&]() -> const int32_t* {
+    return a.hist + ((hp + 2) % 3) * 2 * kBins;
+  };
+  // the block's record: its slice's largest key (0 for none) with that
+  // node's fresh flag, and its largest sel
+  auto put_record = [&](uint64_t best, bool best_fresh, uint32_t maxsel) {
+    const uint64_t top = block_max64(best, red);
+    if (top != 0 && best == top) s_flag = best_fresh;
+    if (top == 0 && tid == 0) s_flag = 0;
+    const uint64_t msel = block_max64(maxsel, red);
+    if (tid == 0) {
+      unsigned long long* rec =
+          a.records + 2 * (int64_t(sweeps % 2) * blocks + me);
+      rec[0] = top;
+      rec[1] = (uint64_t(s_flag) << 32) | msel;
+    }
+    ++sweeps;
+  };
+  // every block, after the sweep's barrier: the grid's largest key, its
+  // node's fresh flag, and the largest sel
+  auto get_records = [&](uint64_t* key, bool* fresh, uint32_t* msel) {
+    uint64_t mine = 0, aux = 0;
+    if (tid < blocks) {
+      const unsigned long long* rec =
+          a.records + 2 * (int64_t((sweeps + 1) % 2) * blocks + tid);
+      mine = __ldcg(rec);
+      aux = __ldcg(rec + 1);
+    }
+    const uint64_t top = block_max64(mine, red);
+    if (tid < blocks && mine == top && top != 0) s_flag = int32_t(aux >> 32);
+    if (top == 0 && tid == 0) s_flag = 0;
+    *msel = uint32_t(block_max64(aux & 0xFFFFFFFFull, red));
+    *key = top;
+    *fresh = s_flag != 0;
+    __syncthreads();
+  };
+  // the digit of the rem-th largest value of a global histogram (1 <= rem
+  // <= its total): the bin d, the count above it and the count at it
+  auto find_digit = [&](const int32_t* hist, int64_t rem, uint32_t* d,
+                        int64_t* above, int64_t* at) {
+    const int top = kBins - 1 - 4 * tid;
+    int32_t c4[4], sum = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      c4[q] = __ldcg(hist + top - q);
+      sum += c4[q];
+    }
+    const int2 scan = block_scan(sum, part);
+    if (tid == 0) s_pick[0] = -1;
+    __syncthreads();
+    int64_t run = scan.x;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (run < rem && run + c4[q] >= rem) {
+        s_pick[0] = top - q;
+        s_pick[1] = int32_t(run);
+        s_pick[2] = c4[q];
+      }
+      run += c4[q];
+    }
+    __syncthreads();
+    *d = uint32_t(s_pick[0]);
+    *above = s_pick[1];
+    *at = s_pick[2];
+    __syncthreads();
+  };
+  // a histogram pass over the slice's sel: bits [shift + 10 : shift] of
+  // every sel >= 1 whose bits above them equal `prefix`; then the barrier
+  auto pass = [&](int shift, uint64_t prefix) {
+    zero_hist();
+    for (int64_t i0 = 0; i0 < held; i0 += kSelThreads) {
+      const int64_t j = i0 + tid;
+      const uint32_t x = j < held ? a.sel[lo + j] : 0u;
+      const bool on = x != 0 && (uint64_t(x) >> (shift + kDigit)) == prefix;
+      warp_bin_add(s_hist, on, (x >> shift) & (kBins - 1));
+    }
+    flush_hist(1);
+    sync();
+  };
+  // zero the bitmap words that the current call's chunks have set
+  auto clear = [&]() {
+    const int32_t m = __ldcg(a.touched_n);
+    for (int64_t i = gtid; i < m; i += gsize)
+      a.bitmaps[__ldcg(a.touched + i)] = 0;
+  };
+  // stamp the cc nodes of largest (sel, -v) with the next call; the last
+  // sweep's histograms are the ring's last pair
+  auto select = [&](int64_t cc, uint32_t m) {
+    int64_t rem = cc, above = 0, at = 0;
+    uint32_t d = 0;
+    uint64_t prefix = 0;
+    int shift = 3 * kDigit;            // no digit read yet
+    if (m < (1u << kDigit)) {
+      find_digit(last_hist(), rem, &d, &above, &at);
+      shift = 0;
+    } else if (m < (1u << (2 * kDigit))) {
+      find_digit(last_hist() + kBins, rem, &d, &above, &at);
+      shift = kDigit;
+    }
+    if (shift < 3 * kDigit) {
+      prefix = d;
+      rem -= above;
+    }
+    while (shift > 0) {
+      shift = shift == 3 * kDigit ? 2 * kDigit : shift - kDigit;
+      pass(shift, prefix);
+      find_digit(last_hist(), rem, &d, &above, &at);
+      prefix = (prefix << kDigit) | d;
+      rem -= above;
+    }
+    const uint64_t thr = prefix;
+    const bool all = rem == at;        // every node of sel == T is taken
+    if (gtid == 0) *a.touched_n = 0;   // the last call's list is cleared
+    int32_t my_ties = 0;
+    for (int64_t i0 = 0; i0 < held; i0 += kSelThreads) {
+      const int64_t j = i0 + tid;
+      const uint32_t x = j < held ? a.sel[lo + j] : 0u;
+      const bool take = x > thr || (all && x == thr);
+      my_ties += !all && x == thr;
+      const int32_t slot = warp_slot(take, a.slot_next);
+      if (take) a.cand[lo + j] = make_int2(call, slot);
+    }
+    if (!all) {
+      const int64_t mine = int64_t(block_sum64(uint64_t(my_ties), red));
+      if (tid == 0) a.ties[me] = int32_t(mine);
+      sync();
+      const int64_t below = int64_t(block_sum64(
+          tid < me ? uint64_t(__ldcg(a.ties + tid)) : 0, red));
+      const int64_t quota = rem - below;   // ties this block takes, in order
+      if (quota > 0) {
+        int64_t run = 0;
+        for (int64_t i0 = 0; i0 < held; i0 += kSelThreads) {
+          const int64_t j = i0 + tid;
+          const bool tie = j < held && a.sel[lo + j] == thr;
+          bool take = tie;
+          if (quota < mine) {
+            const int2 scan = block_scan(tie, part);
+            take = tie && run + scan.x < quota;
+            run += scan.y;
+          }
+          const int32_t slot = warp_slot(take, a.slot_next);
+          if (take) a.cand[lo + j] = make_int2(call, slot);
+        }
+      }
+    }
+    sync();
+  };
+  // the exact evaluation of the call's cc candidates, in chunks of kMaxCands
+  auto evaluate = [&](int64_t cc) {
+    const int32_t chunks = int32_t((cc + kMaxCands - 1) / kMaxCands);
+    for (int32_t j = 0; j < chunks; ++j) {
+      const int32_t first = j * kMaxCands;
+      const int32_t width = int32_t(min(int64_t(kMaxCands), cc - first));
+      for (int i = tid; i < width; i += kSelThreads) s_cnt[i] = 0;
+      __syncthreads();
+      for (int64_t e = gtid; e < a.t; e += gsize) {
+        const uint32_t v = uint32_t(__ldg(a.flat + e));
+        if (v >= uint32_t(n)) continue;
+        const int2 cv = __ldcg(a.cand + v);
+        const uint32_t i = uint32_t(cv.y - first);
+        int32_t r;
+        if (cv.x != call || i >= uint32_t(width) ||
+            !row_in(a.valid, a.ids, e, rows, &r))
+          continue;
+        const uint32_t bit = 1u << (r & 31);
+        if (__ldcg(a.cov + (r >> 5)) & bit) continue;
+        const int64_t word = int64_t(i) * a.cov_words + (r >> 5);
+        const uint32_t old = atomicOr(a.bitmaps + word, bit);
+        if (!(old & bit)) atomicAdd(&s_cnt[i], 1);
+        if (!old) a.touched[atomicAdd(a.touched_n, 1)] = word;
+      }
+      __syncthreads();
+      for (int i = tid; i < width; i += kSelThreads)
+        if (s_cnt[i]) atomicAdd(a.cnt + first + i, s_cnt[i]);
+      if (j == 0 && gtid == 0) *a.slot_next = 0;   // the call's slots are out
+      sync();
+      if (j + 1 < chunks) {
+        clear();
+        sync();
+      }
+    }
+    pending = call;
+    ++call;
+    n_evals += cc;
+    ++n_calls;
+  };
+  // the lazy loop's sweep at step `step`
+  auto lazy_sweep = [&](int32_t step) {
+    zero_hist();
+    uint64_t best = 0;
+    bool best_fresh = false;
+    uint32_t maxsel = 0;
+    for (int64_t i0 = 0; i0 < held; i0 += kSelThreads) {
+      const int64_t j = i0 + tid;
+      uint32_t x = 0;
+      if (j < held) {
+        const int64_t v = lo + j;
+        int32_t o = __ldcg(a.ub + v);
+        bool fresh = __ldcg(a.stamp + v) == step;
+        if (pending >= 0) {
+          const int2 cv = __ldcg(a.cand + v);
+          if (cv.x == pending) {
+            o = __ldcg(a.cnt + cv.y);
+            a.cnt[cv.y] = 0;
+            a.ub[v] = o;
+            a.stamp[v] = step;
+            fresh = true;
+          }
+        }
+        const uint64_t key = (uint64_t(uint32_t(o)) << 32) |
+                             (0xFFFFFFFFu - uint32_t(v));
+        if (key > best) {
+          best = key;
+          best_fresh = fresh;
+        }
+        x = fresh ? 0u : uint32_t(o) + 1u;
+        a.sel[v] = x;
+        maxsel = max(maxsel, x);
+      }
+      warp_bin_add(s_hist, x != 0 && x < (1u << kDigit), x & (kBins - 1));
+      warp_bin_add(s_hist + kBins, x != 0 && x < (1u << (2 * kDigit)),
+                   (x >> kDigit) & (kBins - 1));
+    }
+    if (pending >= 0) clear();
+    pending = -1;
+    flush_hist(2);
+    put_record(best, best_fresh, maxsel);
+    sync();
+  };
+  // the sketch's sweep: sel = D + 1 for every node of the slice
+  auto delta_sweep = [&]() {
+    zero_hist();
+    uint32_t maxsel = 0;
+    const int lanes = a.lanes, sub = tid & (lanes - 1);
+    const int64_t groups = kSelThreads / lanes, g = tid / lanes;
+    const uint4* cov4 = reinterpret_cast<const uint4*>(cov_sk);
+    for (int64_t r0 = 0; r0 < held; r0 += groups * kSweepRows) {
+      // the group's rows r0 + g + i * groups: a column's loads of all of
+      // them go out together (a row past the slice reads its last row)
+      const uint32_t* row[kSweepRows];
+      uint32_t cnt[kSweepRows];
+#pragma unroll
+      for (int i = 0; i < kSweepRows; ++i) {
+        row[i] = a.sk + (lo + min(r0 + g + i * groups, held - 1)) * a.cols;
+        cnt[i] = 0;
+      }
+      if (a.vector) {
+        for (int q = sub; q < a.cols / 4; q += lanes) {
+          const uint4 y = cov4[q];
+          uint4 x[kSweepRows];
+#pragma unroll
+          for (int i = 0; i < kSweepRows; ++i)
+            x[i] = __ldg(reinterpret_cast<const uint4*>(row[i]) + q);
+#pragma unroll
+          for (int i = 0; i < kSweepRows; ++i)
+            cnt[i] += __popc(x[i].x | y.x) + __popc(x[i].y | y.y) +
+                      __popc(x[i].z | y.z) + __popc(x[i].w | y.w);
+        }
+      } else {
+        for (int w = sub; w < a.cols; w += lanes) {
+          const uint32_t y = cov_sk[w];
+          uint32_t x[kSweepRows];
+#pragma unroll
+          for (int i = 0; i < kSweepRows; ++i) x[i] = __ldg(row[i] + w);
+#pragma unroll
+          for (int i = 0; i < kSweepRows; ++i) cnt[i] += __popc(x[i] | y);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kSweepRows; ++i) {
+        const int64_t j = r0 + g + i * groups;
+        uint32_t c = cnt[i];
+        for (int off = lanes >> 1; off > 0; off >>= 1)
+          c += __shfl_down_sync(kFull, c, off, lanes);
+        const bool on = sub == 0 && j < held;
+        const uint32_t x = c - base + 1u;
+        if (on) {
+          a.sel[lo + j] = x;
+          maxsel = max(maxsel, x);
+        }
+        warp_bin_add(s_hist, on && x < (1u << kDigit), x & (kBins - 1));
+        warp_bin_add(s_hist + kBins, on && x < (1u << (2 * kDigit)),
+                     (x >> kDigit) & (kBins - 1));
+      }
+    }
+    flush_hist(2);
+    put_record(0, false, maxsel);
+    sync();
+  };
+  // seed s = u: its rows into Covered, ub[u] = 0, sk[u] into cov_sk
+  auto commit = [&](int32_t u, int32_t s) {
+    if (u >= lo && u < lo + held && (u - lo) % kSelThreads == tid)
+      a.ub[u] = 0;
+    if (tid == 0) s_gain = 0;
+    __syncthreads();
+    for (int64_t b0 = int64_t(me) * kSelThreads; b0 < a.t; b0 += gsize) {
+      const int64_t e = b0 + tid;
+      bool flipped = false;
+      int32_t r;
+      if (e < a.t && __ldg(a.flat + e) == u &&
+          row_in(a.valid, a.ids, e, rows, &r)) {
+        const uint32_t bit = 1u << (r & 31);
+        flipped = !(atomicOr(a.cov + (r >> 5), bit) & bit);
+      }
+      const unsigned votes = __ballot_sync(kFull, flipped);
+      if ((tid & 31) == 0 && votes) atomicAdd(&s_gain, int32_t(__popc(votes)));
+    }
+    if (a.sk) {
+      const uint32_t* row = a.sk + int64_t(u) * a.cols;
+      uint64_t pop = 0;
+      for (int w = tid; w < a.cols; w += kSelThreads) {
+        const uint32_t x = cov_sk[w] | __ldg(row + w);
+        cov_sk[w] = x;
+        pop += __popc(x);
+      }
+      base = uint32_t(block_sum64(pop, red));
+    }
+    __syncthreads();
+    if (tid == 0 && s_gain) atomicAdd(a.gains + s, s_gain);
+  };
+
+  int32_t u = 0;
+  for (int32_t s = 0; s < a.k; ++s) {
+    const int32_t step = s + 1;
+    int64_t fresh_n = 0;
+    if (s > 0) commit(u, s - 1);
+    uint64_t key;
+    bool fresh;
+    uint32_t m;
+    if (a.sk) {
+      delta_sweep();
+      get_records(&key, &fresh, &m);
+      select(a.c, m);
+      evaluate(a.c);
+      fresh_n += a.c;
+    }
+    while (true) {
+      lazy_sweep(step);
+      get_records(&key, &fresh, &m);
+      u = int32_t(0xFFFFFFFFu - uint32_t(key));
+      if (fresh) break;
+      const int64_t cc = min(int64_t(a.c), int64_t(n) - fresh_n);
+      select(cc, m);
+      evaluate(cc);
+      fresh_n += cc;
+    }
+    if (gtid == 0) a.seeds[s] = u;
+  }
+  commit(u, a.k - 1);
+  if (gtid == 0) {
+    a.stats[0] = n_evals;
+    a.stats[1] = n_calls;
+    a.stats[2] = barriers;
+  }
+}
+
+// celf_select_kernel's grid on card `device`, read once a card: one block
+// on each SM, and the widest cov_sk (in words) that its dynamic shared
+// memory holds beside the static (the limit is raised here).
+cudaError_t select_grid_for(int device, int* blocks, int64_t* shared_words) {
+  static int sms[kMaxDevices];
+  static int64_t bytes[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms[device] == 0) {
+    cudaError_t err = one_block_an_sm(
+        reinterpret_cast<const void*>(celf_select_kernel<true>),
+        reinterpret_cast<const void*>(celf_select_kernel<false>),
+        kSelThreads, 0, device, &sms[device], &bytes[device]);
+    // a thread reads each block's record and tie count
+    if (err == cudaSuccess && sms[device] > kSelThreads)
+      err = cudaErrorNotSupported;
+    if (err != cudaSuccess) {
+      sms[device] = 0;
+      return err;
+    }
+  }
+  *blocks = sms[device];
+  *shared_words = bytes[device] / 4;
+  return cudaSuccess;
+}
+
+// Byte offsets of celf_select's scratch (kernels/celf.py::
+// select_scratch_bytes says the same): the records (2 x blocks x 16), the
+// histogram ring (6 x kBins int32), cand (n int2), the touched words (t
+// int64), ub, stamp and sel (n each), cnt (c), ties (blocks), the slot
+// and touched counters (2), Covered (cov_words)
+// and the bitmaps (min(c, kMaxCands) x cov_words), then, when a sketch row
+// does not fit shared memory, each block's cov_sk from the next 16-byte
+// boundary (round_up(cols, 4) words each).
+struct SelectLayout {
+  int64_t hist, cand, touched, ub, stamp, sel, cnt, ties, next, cov, bitmaps,
+      copies;
+  int64_t stride, total;
+  bool shared;
+};
+
+SelectLayout select_layout(int32_t n, int64_t cov_words, int32_t c,
+                           int32_t cols, int blocks, int64_t shared_words,
+                           int64_t t) {
+  SelectLayout l;
+  l.hist = 32 * int64_t(blocks);
+  l.cand = l.hist + 4 * 6 * int64_t(kBins);
+  l.touched = l.cand + 8 * int64_t(n);
+  l.ub = l.touched + 8 * t;
+  l.stamp = l.ub + 4 * int64_t(n);
+  l.sel = l.stamp + 4 * int64_t(n);
+  l.cnt = l.sel + 4 * int64_t(n);
+  l.ties = l.cnt + 4 * int64_t(c);
+  l.next = l.ties + 4 * int64_t(blocks);
+  l.cov = l.next + 8;
+  l.bitmaps = l.cov + 4 * cov_words;
+  const int64_t end =
+      l.bitmaps + 4 * int64_t(c < kMaxCands ? c : kMaxCands) * cov_words;
+  l.stride = (int64_t(cols) + 3) & ~int64_t(3);
+  l.shared = l.stride <= shared_words;
+  l.copies = (end + 15) & ~int64_t(15);
+  l.total = l.shared ? end : l.copies + 4 * int64_t(blocks) * l.stride;
+  return l;
+}
+
 }  // namespace
 
 // Plain C interface for ctypes.  Each launches on `stream` of card
@@ -208,5 +910,98 @@ extern "C" int celf_apply(const void* flat, const void* ids, const void* valid,
       static_cast<const int32_t*>(flat), static_cast<const int32_t*>(ids),
       static_cast<const uint8_t*>(valid), t, static_cast<uint32_t*>(cov),
       cov_words, u, static_cast<int32_t*>(gain));
+  return int(cudaGetLastError());
+}
+
+// celf_select's grid on card `device`: its blocks (one on each SM) and the
+// widest cov_sk in words that stays in shared memory (a wider one takes
+// the scratch copies).
+extern "C" int celf_select_grid(int device, int* blocks,
+                                int64_t* shared_words) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return int(guard.err);
+  return int(select_grid_for(device, blocks, shared_words));
+}
+
+// flat, ids: t int32; valid: t bytes (0 or 1); 0 <= t < 2^31, 1 <= n <
+// 2^31 - 1, num_rows a positive multiple of 32 below 2^31, k >= 1, 1 <= c
+// <= n.  sketch: null (cols 0) or rows of `cols` uint32 words, rows v < n
+// read (1 <= cols < 2^26; lanes a power of two in [1, 32]; vector: cols %
+// 4 == 0 and the words 16-byte aligned).  scratch: at least the layout's
+// bytes (kernels/celf.py::select_scratch_bytes; the kernel initialises what
+// it reads); out: 2k int32 (seeds, gains) then 3 int64 (the candidates
+// evaluated, the eval calls, the grid barriers), 8-byte aligned.  Launches
+// on `stream` of card `device`; returns the cudaError_t of the launch.
+extern "C" int celf_select(const void* flat, const void* ids,
+                           const void* valid, int64_t t, int32_t n,
+                           int64_t num_rows, int32_t k, int32_t c,
+                           const void* sketch, int32_t cols, int lanes,
+                           int vector, void* scratch, int64_t scratch_bytes,
+                           void* out, int device, void* stream) {
+  if (t < 0 || t > 0x7FFFFFFF || n < 1 || n == 0x7FFFFFFF || num_rows < 32 ||
+      num_rows % 32 != 0 || num_rows > 0x7FFFFFFF || k < 1 || c < 1 ||
+      c > n)
+    return int(cudaErrorInvalidValue);
+  if (sketch ? (cols < 1 || cols >= (1 << 26) || lanes < 1 || lanes > 32 ||
+                (lanes & (lanes - 1)) != 0 ||
+                (vector && (cols % 4 != 0 ||
+                            (reinterpret_cast<uintptr_t>(sketch) & 15u))))
+             : cols != 0)
+    return int(cudaErrorInvalidValue);
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return int(guard.err);
+  int blocks = 0;
+  int64_t shared_words = 0;
+  cudaError_t err = select_grid_for(device, &blocks, &shared_words);
+  if (err != cudaSuccess) return int(err);
+  const SelectLayout l =
+      select_layout(n, num_rows / 32, c, cols, blocks, shared_words, t);
+  if (scratch_bytes < l.total) return int(cudaErrorInvalidValue);
+  uint8_t* at = static_cast<uint8_t*>(scratch);
+  SelectArgs a;
+  a.flat = static_cast<const int32_t*>(flat);
+  a.ids = static_cast<const int32_t*>(ids);
+  a.valid = static_cast<const uint8_t*>(valid);
+  a.t = t;
+  a.n = n;
+  a.k = k;
+  a.c = c;
+  a.slots = int32_t((int64_t(n) + blocks - 1) / blocks);
+  a.cov_words = num_rows / 32;
+  a.sk = static_cast<const uint32_t*>(sketch);
+  a.cols = cols;
+  a.lanes = sketch ? lanes : 1;
+  a.vector = sketch && vector;
+  a.cov_stride = l.stride;
+  a.records = reinterpret_cast<unsigned long long*>(at);
+  a.hist = reinterpret_cast<int32_t*>(at + l.hist);
+  a.cand = reinterpret_cast<int2*>(at + l.cand);
+  a.touched = reinterpret_cast<int64_t*>(at + l.touched);
+  a.ub = reinterpret_cast<int32_t*>(at + l.ub);
+  a.stamp = reinterpret_cast<int32_t*>(at + l.stamp);
+  a.sel = reinterpret_cast<uint32_t*>(at + l.sel);
+  a.cnt = reinterpret_cast<int32_t*>(at + l.cnt);
+  a.ties = reinterpret_cast<int32_t*>(at + l.ties);
+  a.slot_next = reinterpret_cast<int32_t*>(at + l.next);
+  a.touched_n = a.slot_next + 1;
+  a.cov = reinterpret_cast<uint32_t*>(at + l.cov);
+  a.bitmaps = reinterpret_cast<uint32_t*>(at + l.bitmaps);
+  a.cov_copies = reinterpret_cast<uint32_t*>(at + l.copies);
+  a.seeds = static_cast<int32_t*>(out);
+  a.gains = a.seeds + k;
+  a.stats = reinterpret_cast<long long*>(a.seeds + 2 * int64_t(k));
+  void* args[] = {&a};
+  if (l.shared) {
+    err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(celf_select_kernel<true>), dim3(blocks),
+        dim3(kSelThreads), args, size_t(sketch ? 4 * l.stride : 0),
+        static_cast<cudaStream_t>(stream));
+  } else {
+    err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(celf_select_kernel<false>),
+        dim3(blocks), dim3(kSelThreads), args, 0,
+        static_cast<cudaStream_t>(stream));
+  }
+  if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
 }

@@ -89,6 +89,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "coop_grid.cuh"
 #include "device_guard.cuh"
 
 // Clock stamps of greedy_flat_kernel's phases: examples/greedy_variants.cu
@@ -104,7 +105,6 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
-constexpr int kMaxDevices = 64;
 constexpr int kWalk = 4;        // positions a lane takes a pass of the walk
 
 // The warp's first maximum as the key (occur << 32) | low, low = 0xFFFFFFFF
@@ -407,46 +407,6 @@ __global__ void __launch_bounds__(kThreads) grid_barriers_kernel(int32_t count) 
   for (int32_t i = 0; i < count; ++i) grid.sync();
 }
 
-// One block of kThreads on each SM of card `device` for a kernel in two
-// forms: `with_shared` gets its dynamic shared memory limit raised to all
-// that a block may have beside its static shared memory (*bytes, a
-// multiple of 16); a block of it at that size, and of `without` at 4 bytes
-// a block of the grid (greedy_flat's base table, more than greedy_sketch's
-// global form takes), must stay resident.
-cudaError_t one_block_an_sm(const void* with_shared, const void* without,
-                            int device, int* sms, int64_t* bytes) {
-  int coop = 0, count = 0, optin = 0, resident = 0;
-  cudaError_t err = cudaDeviceGetAttribute(
-      &coop, cudaDevAttrCooperativeLaunch, device);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                               device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(
-      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, with_shared);
-  if (err != cudaSuccess) return err;
-  const int limit = (optin - int(attr.sharedSizeBytes)) & ~15;
-  err = cudaFuncSetAttribute(with_shared,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             limit);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, with_shared,
-                                                      kThreads, limit);
-  if (err != cudaSuccess) return err;
-  if (resident < 1) return cudaErrorCooperativeLaunchTooLarge;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, without,
-                                                      kThreads, 4 * count);
-  if (err != cudaSuccess) return err;
-  if (resident < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *sms = count;
-  *bytes = limit;
-  return cudaSuccess;
-}
-
 // greedy_flat_kernel's grid on card `device`, read once a card: one block
 // on each SM, and the dynamic shared memory a block may take.
 cudaError_t flat_grid_for(int device, int* blocks, int64_t* shared_bytes) {
@@ -454,10 +414,12 @@ cudaError_t flat_grid_for(int device, int* blocks, int64_t* shared_bytes) {
   static int64_t bytes[kMaxDevices];
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (sms[device] == 0) {
+    // the scratch form at 4 bytes a block of the grid: greedy_flat's base
+    // table, more than greedy_sketch's global form takes
     cudaError_t err = one_block_an_sm(
         reinterpret_cast<const void*>(greedy_flat_kernel<true>),
-        reinterpret_cast<const void*>(greedy_flat_kernel<false>), device,
-        &sms[device], &bytes[device]);
+        reinterpret_cast<const void*>(greedy_flat_kernel<false>), kThreads,
+        4, device, &sms[device], &bytes[device]);
     if (err == cudaSuccess && sms[device] > kThreads)
       err = cudaErrorNotSupported;     // a thread polls each block's record
     if (err != cudaSuccess) {
@@ -647,8 +609,8 @@ cudaError_t sketch_grid_for(int device, int* blocks, int64_t* shared_words) {
   if (sms[device] == 0) {
     cudaError_t err = one_block_an_sm(
         reinterpret_cast<const void*>(greedy_sketch_kernel<true>),
-        reinterpret_cast<const void*>(greedy_sketch_kernel<false>), device,
-        &sms[device], &bytes[device]);
+        reinterpret_cast<const void*>(greedy_sketch_kernel<false>), kThreads,
+        4, device, &sms[device], &bytes[device]);
     if (err != cudaSuccess) {
       sms[device] = 0;
       return err;

@@ -141,7 +141,8 @@ def greedy_flat(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
     return out[0], out[1]
 
 
-def _index(device) -> int:
+def device_index(device) -> int:
+    """The index of card ``device`` (the current card when it has none)."""
     device = torch.device(device)
     return torch.cuda.current_device() if device.index is None \
         else device.index
@@ -151,7 +152,7 @@ def flat_grid(device) -> tuple[int, int]:
     """``(blocks, shared_bytes)`` of :func:`greedy_flat`'s grid on card
     ``device``: a block on each SM, and the dynamic shared memory a block
     may take; read from the card once."""
-    return _flat_grid(_index(device))
+    return _flat_grid(device_index(device))
 
 
 @functools.cache
@@ -171,7 +172,7 @@ def grid_barriers(count: int, device) -> None:
     """One cooperative launch of :func:`greedy_flat`'s grid on card
     ``device`` that runs ``count`` grid barriers and nothing else (not
     counted in :data:`LAUNCHES`)."""
-    index = _index(device)
+    index = device_index(device)
     _build.raise_on(_BARRIERS(int(count), index, _build.raw_stream(index)),
                     "greedy_grid_barriers")
 
@@ -207,7 +208,7 @@ def sketch_grid(device) -> tuple[int, int]:
     """``(blocks, shared_words)`` of :func:`greedy_sketch`'s grid on card
     ``device``: a block on each SM, and the widest cov in words that its
     shared memory holds; read from the card once."""
-    return _sketch_grid(_index(device))
+    return _sketch_grid(device_index(device))
 
 
 @functools.cache

@@ -97,6 +97,14 @@ def bitset_andnot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _ref.bitset_andnot_ref(a, b)
 
 
+def frontier_update(a: torch.Tensor, visited: torch.Tensor) -> torch.Tensor:
+    """The dense level's frontier: ``a & ~visited``, with ``visited |= a``
+    in place (one launch on a card)."""
+    if _route(a) == "cuda":
+        return _bitset.frontier_update(a, visited)
+    return _ref.frontier_update_ref(a, visited)
+
+
 def popcount_words(words: torch.Tensor) -> torch.Tensor:
     if _route(words) == "cuda":
         return _bitset.popcount_words(words)
@@ -148,6 +156,22 @@ def greedy_sketch(words: torch.Tensor, *, n: int, k: int):
     if _route(words) == "cuda":
         return _greedy.greedy_sketch(words, n=n, k=k)
     return _ref.greedy_sketch_ref(words, n=n, k=k)
+
+
+def celf_select(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+                *, n: int, num_rows: int, k: int, c: int,
+                sketch: torch.Tensor | None = None):
+    """One selection of the CELF lazy greedy on a flat pool, ``c`` (1 <= c
+    <= n) candidates an exact evaluation, with the (R >= n, W) int32
+    coverage ``sketch``'s sweep a seed or without one -> ``(seeds (k,)
+    int32, gains (k,) int32, stats (2,) int64)``, stats the candidates
+    evaluated and the eval calls; the same bytes on either route
+    (``ref.celf_select_ref`` says what they hold)."""
+    if _route(flat) == "cuda":
+        return _celf.celf_select(flat, ids, valid, n=n, num_rows=num_rows,
+                                 k=k, c=c, sketch=sketch)[:3]
+    return _ref.celf_select_ref(flat, ids, valid, n=n, num_rows=num_rows,
+                                k=k, c=c, sketch=sketch)
 
 
 def celf_eval(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,

@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.packing import bit_values, to_int32_bits
@@ -203,6 +204,16 @@ def bitset_andnot_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a & ~b
 
 
+def frontier_update_ref(a: torch.Tensor,
+                        visited: torch.Tensor) -> torch.Tensor:
+    """``a & ~visited``, and ``visited |= a`` in place, on (B, W) int32
+    words: :func:`bitset_andnot_ref` then :func:`bitset_or_ref` of the
+    result into ``visited``."""
+    new = a & ~visited
+    visited |= new
+    return new
+
+
 def popcount_words_ref(words: torch.Tensor) -> torch.Tensor:
     """SWAR popcount per int32 word -> int32."""
     v = words.to(torch.int64) & 0xFFFFFFFF
@@ -312,6 +323,91 @@ def celf_apply_ref(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
     new_words = _pack_covered(newly)
     cov_words |= new_words
     return popcount_words_ref(new_words).sum(dtype=torch.int32)
+
+
+def celf_select_ref(flat: torch.Tensor, ids: torch.Tensor,
+                    valid: torch.Tensor, *, n: int, num_rows: int, k: int,
+                    c: int, sketch: torch.Tensor | None = None,
+                    calls_out: list | None = None):
+    """One selection of the CELF lazy greedy with sketch-first candidate
+    ordering: the reference's ``select_seeds_celf`` on one device, seed for
+    seed, the plain version of ``csrc/celf.cu``'s ``celf_select``.
+
+    ``flat``/``ids``/``valid`` are a flat pool (row ids below
+    ``num_rows``, a multiple of 32); ``c`` (1 <= c <= n) candidates an
+    exact evaluation; ``sketch`` the (R >= n, W) int32 coverage sketch, or
+    None for no sweep.  A host priority array ``ub`` holds each node's last
+    exact marginal gain (at first its valid elements), an upper bound under
+    submodularity.  Each seed: every node turns stale; with the sketch, the
+    c nodes of largest key ``Δocc·(n+1) − id`` (Δocc(v) =
+    popcount(sketch[v] | cov_sk) − popcount(cov_sk), a lower bound on the
+    gain; both popcounts are kept as cov_sk grows, each seed adding only
+    the words its row brings) are evaluated exactly (``celf_eval_ref``,
+    one eval call).  Then
+    the first maximum of ``ub`` (the lowest id on ties) is accepted once it
+    is fresh; else the ``min(c, stale)`` stale nodes of largest key
+    ``ub·(n+1) − id`` are evaluated.  The keys are unique, so each batch is
+    the reference's ``argpartition`` set.  The commit is ``celf_apply_ref``
+    (its gain is the seed's); ``ub[u]`` = 0 and ``cov_sk`` takes
+    ``sketch[u]``.  -> ``(seeds (k,) int32, gains (k,) int32, stats (2,)
+    int64)``, stats the candidates evaluated and the eval calls.  Each eval
+    call's candidates (a numpy array) are appended to ``calls_out``, when
+    given, for a caller that counts the work."""
+    dev = flat.device
+    keep = valid & (flat >= 0) & (flat < n)
+    ub = torch.zeros(n + 1, dtype=torch.int64, device=dev).index_add_(
+        0, torch.where(keep, flat, n).to(torch.int64),
+        keep.to(torch.int64))[:n].cpu().numpy()
+    fresh = np.zeros(n, bool)
+    cov_words = torch.zeros(num_rows // 32, dtype=torch.int32, device=dev)
+    if sketch is not None:
+        # union[v] = popcount(sketch[v] | cov_sk), kept as cov_sk grows:
+        # new bits b add popcount(b & ~sketch[v]), on the words b touches
+        rows = sketch[:n]
+        cov_sk = torch.zeros(sketch.shape[1], dtype=torch.int32, device=dev)
+        union = popcount_words_ref(rows).sum(dim=1, dtype=torch.int64)
+        base = 0                         # popcount(cov_sk)
+    node_ids = np.arange(n)
+    n_evals = n_calls = 0
+
+    def eval_exact(cands: np.ndarray) -> None:
+        nonlocal n_evals, n_calls
+        g = celf_eval_ref(flat, ids, valid, cov_words,
+                          torch.from_numpy(cands).to(dev))
+        ub[cands] = g.cpu().numpy()
+        fresh[cands] = True
+        if calls_out is not None:
+            calls_out.append(cands)
+        n_evals += len(cands)
+        n_calls += 1
+
+    seeds, gains = [], []
+    for _ in range(k):
+        fresh[:] = False
+        if sketch is not None:
+            key = (union - base).cpu().numpy() * (n + 1) - node_ids
+            eval_exact(np.argpartition(-key, c - 1)[:c])
+        while True:
+            u = int(np.argmax(ub))       # first max == lowest id on ties
+            if fresh[u]:
+                break
+            stale = node_ids[~fresh]
+            cc = min(c, len(stale))
+            key = ub[stale] * (n + 1) - stale
+            eval_exact(stale[np.argpartition(-key, cc - 1)[:cc]])
+        gains.append(int(celf_apply_ref(flat, ids, valid, cov_words, u)))
+        if sketch is not None:
+            new = sketch[u] & ~cov_sk
+            w = torch.nonzero(new).view(-1)
+            union += popcount_words_ref(new[w] & ~rows[:, w]).sum(
+                dim=1, dtype=torch.int64)
+            base += int(popcount_words_ref(new[w]).sum())
+            cov_sk |= new
+        ub[u] = 0                        # exact: u's rows are now covered
+        seeds.append(u)
+    return (torch.tensor(seeds, dtype=torch.int32, device=dev),
+            torch.tensor(gains, dtype=torch.int32, device=dev),
+            torch.tensor([n_evals, n_calls], dtype=torch.int64, device=dev))
 
 
 class FlatIndex(NamedTuple):

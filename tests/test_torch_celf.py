@@ -141,6 +141,174 @@ def test_celf_at_n_and_past_the_last_gain():
     assert got.gains.tolist() == [3, 0, 0, 0, 0]
 
 
+def _tie_batches(n=40):
+    """Every node in exactly two rows of two: Occur ties everywhere, and
+    the exact gains tie after each commit."""
+    rng = np.random.default_rng(5)
+    order = np.concatenate([rng.permutation(n), rng.permutation(n)])
+    nodes = order.reshape(-1, 2)
+    nodes[nodes[:, 0] == nodes[:, 1], 1] = (nodes[nodes[:, 0] == nodes[:, 1],
+                                                  1] + 1) % n
+    return [(nodes, np.full(len(nodes), 2))]
+
+
+# (n, batches, k, eval_batch, sketch_k) of each edge case
+_CELF_CASES = {
+    "ties": lambda: (40, _tie_batches(), 6, 4, 64),
+    "batch_at_n": lambda: (45, _batches(np.random.default_rng(8), 45), 5,
+                           45, 64),
+    "batch_past_n": lambda: (45, _batches(np.random.default_rng(8), 45), 5,
+                             100, 256),
+    "k_past_n": lambda: (20, _batches(np.random.default_rng(6), 20, 2, 30,
+                                      5), 24, 3, 32),
+    "repeats": lambda: (40, _pool_with_repeats(), 6, 4, 64),
+    "chunked": lambda: (2500, _batches(np.random.default_rng(12), 2500, 2,
+                                       400, 12), 3, 2100, 1024),
+}
+
+
+@pytest.mark.parametrize("use_sketch", [True, False])
+@pytest.mark.parametrize("case", sorted(_CELF_CASES))
+def test_select_seeds_celf_edge_cases_equal_reference(case, use_sketch):
+    """Ties in ub, a batch of n and past n, k past n (seeds repeat: node 0
+    at gain 0), rows that repeat a node, and a batch past one 2,048-slot
+    chunk of the kernel on 2,500 nodes: the reference's seeds, gains, frac
+    bytes and stats."""
+    n, batches, k, eval_batch, sketch_k = _CELF_CASES[case]()
+    ref, port = _both_stores(n, batches, sketch_k)
+    st_ref, st_port = {}, {}
+    want = jcov.select_seeds_celf(ref, k, eval_batch=eval_batch,
+                                  use_sketch=use_sketch, stats_out=st_ref)
+    got = tcov.select_seeds_celf(port, k, eval_batch=eval_batch,
+                                 use_sketch=use_sketch, stats_out=st_port)
+    _same_result(got, want)
+    assert st_port == st_ref
+    if case == "k_past_n":
+        assert got.gains[-3:].tolist() == [0, 0, 0]
+
+
+def test_celf_select_ref_is_the_routed_selection():
+    """``ops.celf_select`` on CPU tensors is ``ref.celf_select_ref`` (no
+    launch), and ``select_seeds_celf`` is a thin caller of it: the same
+    seeds, gains and counts; the trace holds each eval call's batch."""
+    n = 45
+    _, port = _both_stores(n, _batches(np.random.default_rng(7), n), 64)
+    t = port.n_elems
+    pool = (port.flat[:t], port.ids[:t], port.valid[:t])
+    kw = dict(n=n, num_rows=port.row_capacity(), k=5, c=4,
+              sketch=port.sketch_words())
+    tops.reset_launch_counts()
+    routed = tops.celf_select(*pool, **kw)
+    calls = []
+    plain = tref.celf_select_ref(*pool, **kw, calls_out=calls)
+    assert not any(tops.launch_counts().values())
+    for a, b in zip(routed, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert routed[2].dtype == torch.int64 and routed[2].shape == (2,)
+    assert len(calls) == int(plain[2][1])
+    assert sum(len(c) for c in calls) == int(plain[2][0])
+    assert all(len(c) == 4 and len(set(c.tolist())) == 4 for c in calls)
+    stats = {}
+    res = tcov.select_seeds_celf(port, 5, eval_batch=4, stats_out=stats)
+    assert torch.equal(res.seeds, plain[0])
+    assert (stats["n_exact_evals"], stats["n_eval_calls"]) == \
+        tuple(plain[2].tolist())
+
+
+# ------------------------------------- a replay of celf_select's batch pick
+
+_DIGIT, _BINS = 11, 2048
+
+
+def _kernel_pick(sel: np.ndarray, cc: int, blocks: int) -> np.ndarray:
+    """csrc/celf.cu's batch pick, replayed: the cc nodes of largest (sel,
+    -id) among sel >= 1.  The cc-th largest sel T digit by digit (11 bits
+    a digit, from the digit that holds the largest sel's top bit, the two
+    lowest from the sweep's own histograms), then every node of sel > T
+    and, of sel == T, all of them when the count at T is what is needed,
+    else each block's own ties in id order from the rank that the blocks
+    below it leave (block b owns the nodes [b*slots, (b+1)*slots))."""
+    x = sel.astype(np.uint64)
+    inc = x >= 1
+    m = int(x.max())
+
+    def hist(shift, prefix):
+        keep = inc & ((x >> np.uint64(shift + _DIGIT)) == prefix)
+        return np.bincount(((x[keep] >> np.uint64(shift)) & (_BINS - 1))
+                           .astype(np.int64), minlength=_BINS)
+
+    def find(h, rem):
+        # the largest bin d with (count of bins >= d) >= rem
+        from_top = np.cumsum(h[::-1])
+        i = int(np.searchsorted(from_top, rem))
+        d = _BINS - 1 - i
+        return d, int(from_top[i] - h[d]), int(h[d])
+
+    rem, prefix = cc, 0
+    if m < 1 << _DIGIT:
+        shift = 0
+    elif m < 1 << (2 * _DIGIT):
+        shift = _DIGIT
+    else:
+        shift = None
+    if shift is not None:
+        d, above, at = find(hist(shift, 0), rem)
+        prefix, rem = d, rem - above
+        shifts = [0] if shift else []
+    else:
+        shifts = [2 * _DIGIT, _DIGIT, 0]
+    for sh in shifts:
+        d, above, at = find(hist(sh, prefix), rem)
+        prefix, rem = (prefix << _DIGIT) | d, rem - above
+    thr = np.uint64(prefix)
+    if rem == at:
+        return np.flatnonzero(x >= thr)
+    taken = list(np.flatnonzero(x > thr))
+    n = len(sel)
+    slots = -(-n // blocks)
+    tie = x == thr
+    counts = [int(tie[b * slots:(b + 1) * slots].sum()) for b in range(blocks)]
+    for b in range(blocks):
+        quota = rem - sum(counts[:b])
+        ids = b * slots + np.flatnonzero(tie[b * slots:(b + 1) * slots])
+        taken += list(ids[:max(quota, 0)])
+    return np.sort(np.asarray(taken, np.int64))
+
+
+def _sel_values(kind: str, n: int, rng) -> np.ndarray:
+    if kind == "small":                       # M < 2^11, many ties
+        return rng.integers(0, 40, n)
+    if kind == "mid":                         # 2^11 <= M < 2^22
+        return rng.integers(0, 1 << 21, n) >> rng.integers(0, 12, n)
+    if kind == "top":                         # up to 2^31, ub = t - 1
+        out = rng.integers(0, 1 << 31, n) >> rng.integers(0, 25, n)
+        out[rng.integers(n)] = 1 << 31
+        return out
+    if kind == "equal":                       # every included sel equal
+        return np.where(rng.random(n) < 0.8, 7, 0)
+    return np.where(rng.random(n) < 0.3, 0, 1)   # "fresh": sel 0 or ub 0
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 132])
+@pytest.mark.parametrize("kind", ["small", "mid", "top", "equal", "fresh"])
+def test_kernel_batch_pick_replay_equals_argpartition(kind, blocks):
+    """The replayed pick gives the reference's batch (``argpartition`` of
+    the unique keys sel*(n+1) - id over the included nodes) at batches of
+    1, 32, 2,100 and all the included nodes, with fewer nodes than blocks
+    too."""
+    rng = np.random.default_rng(
+        ["small", "mid", "top", "equal", "fresh"].index(kind) * 1000 + blocks)
+    for n in (5, 3000):
+        sel = _sel_values(kind, n, rng).astype(np.int64)
+        sel[0] = max(sel[0], 1)                 # at least one included
+        inc = np.flatnonzero(sel >= 1)
+        key = sel[inc] * (n + 1) - inc
+        for cc in {1, min(32, len(inc)), min(2100, len(inc)), len(inc)}:
+            want = np.sort(inc[np.argpartition(-key, cc - 1)[:cc]])
+            got = _kernel_pick(sel, cc, blocks)
+            np.testing.assert_array_equal(got, want)
+
+
 def test_select_seeds_celf_variants_not_ported():
     port = tcov.DeviceRRStore(4, device=CPU)
     port.append_batch((np.array([[0, 1]]), np.array([2])))

@@ -452,6 +452,11 @@ PROFILER_NAMES = {
     "celf_apply": "void (anonymous namespace)::celf_apply_kernel(int const*, "
                   "int const*, unsigned char const*, long, unsigned int*, "
                   "long, int, int*)",
+    "celf_select": "void (anonymous namespace)::celf_select_kernel<true>("
+                   "(anonymous namespace)::SelectArgs)",
+    "frontier_update": "void (anonymous namespace)::frontier_update_kernel("
+                       "unsigned int const*, unsigned int*, long, bool, "
+                       "unsigned int*)",
 }
 # further names of the same records' kernels
 PROFILER_ALSO = {
@@ -480,6 +485,8 @@ PROFILER_ALSO = {
                       "<false>(unsigned int const*, int, int, int, bool, "
                       "int, unsigned long long*, unsigned char*, unsigned "
                       "int*, int*)"],
+    "celf_select": ["void (anonymous namespace)::celf_select_kernel<false>("
+                    "(anonymous namespace)::SelectArgs)"],
 }
 
 
@@ -830,3 +837,80 @@ def test_check_celf_on_host_sees_a_wrong_fold_and_wrong_counts():
     store.sketch_words()[3, 0] ^= 1
     with pytest.raises(AssertionError, match="sketch_words"):
         smoke.check_celf_on_host(store, res, stats)
+
+
+# ``-Xptxas -v`` of csrc/celf.cu with celf_select built for sm_90a (CUDA
+# 12.8; the select kernel's two forms)
+CELF_SELECT_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__bbe03bef_7_celf_cu_5772f19a18celf_select_kernelILb0EEEvNS_10SelectArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN39_GLOBAL__N__bbe03bef_7_celf_cu_5772f19a18celf_select_kernelILb0EEEvNS_10SelectArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 121 registers, used 1 barriers, 24800 bytes smem
+ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__bbe03bef_7_celf_cu_5772f19a18celf_select_kernelILb1EEEvNS_10SelectArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN39_GLOBAL__N__bbe03bef_7_celf_cu_5772f19a18celf_select_kernelILb1EEEvNS_10SelectArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 119 registers, used 1 barriers, 24800 bytes smem
+""" + CELF_PTXAS
+
+
+def test_ptxas_spills_reads_the_four_celf_kernels():
+    """Phase 2's check of csrc/celf.cu: four kernels (both forms of
+    celf_select, celf_eval and celf_apply), no spill."""
+    spills = smoke.ptxas_spills(CELF_SELECT_PTXAS, "celf_")
+    assert len(spills) == 4 and not any(spills.values())
+    assert sum("celf_select_kernel" in name for name in spills) == 2
+    assert smoke.ptxas_spills(CELF_SELECT_PTXAS.replace(
+        "0 bytes spill stores", "8 bytes spill stores", 1), "celf_") != spills
+
+
+def test_celf_select_bound_counts_this_runs_batches(h100):
+    """The selection's bytes, each input once (a sketch and pool far under
+    the L2): the node ids and valid bytes (5 an element), the row ids of
+    the valid elements of every candidate and seed, the n sketch rows, and
+    the seeds and gains; a compare an element for Occur, a call and a
+    commit, an OR and an add (ALU) and a popcount a sketch word a seed.
+    The calls' and commits' bytes as celf_bytes counts them are the
+    working set, and the sweeps the sketch rows once a seed."""
+    import torch
+    from repro_torch.kernels import ref
+    store = _celf_cpu_store(64)
+    t, n, k = store.n_elems, store.n_nodes, 5
+    pool = (store.flat[:t], store.ids[:t], store.valid[:t])
+    sketch, rows = store.sketch_words(), store.row_capacity()
+    batches = []
+    seeds = ref.celf_select_ref(*pool, n=n, num_rows=rows, k=k, c=8,
+                                sketch=sketch, calls_out=batches)[0].tolist()
+    b = smoke.celf_select_bound(*pool, rows, batches, seeds, sketch, n)
+    nodes = set(np.concatenate(batches).tolist()) | set(seeds)
+    flat, valid = pool[0].numpy(), pool[2].numpy()
+    live = int((np.isin(flat, sorted(nodes)) & valid).sum())
+    want = 5 * t + 4 * live + 8 * k + 4 * n * 2
+    assert b["bound_bytes"] == want and b["bound_batches"] == len(batches)
+    assert b["bound_bytes_ms"] == pytest.approx(want / 3.35e9)
+    ops = (1 + len(batches) + k) * t + 2 * k * n * 2
+    alu_s = H100_SMS * 64 * H100_MHZ * 1e6
+    assert b["bound_ops_ms"] >= ops / alu_s * 1e3
+    assert b["working_bytes"] == sum(
+        smoke.celf_bytes(*pool, rows, torch.from_numpy(c), False)
+        for c in batches) + sum(
+        smoke.celf_bytes(*pool, rows, torch.tensor([u]), True)
+        for u in seeds)
+    assert b["sweep_bytes"] == k * 4 * n * 2 and b["sketch_fits_l2"]
+    nosk = smoke.celf_select_bound(*pool, rows, batches, seeds, None, n)
+    assert nosk["bound_bytes"] == want - 4 * n * 2
+    assert nosk["sweep_bytes"] == 0
+
+
+@pytest.mark.parametrize("nbytes,reads,want", [
+    (1000, 1, 1000), (1000, 50, 1000),
+    (4 * 75_879 * 32, 50, 4 * 75_879 * 32),
+    (50 * 2 ** 20, 7, 50 * 2 ** 20),
+    (50 * 2 ** 20 + 10, 3, 50 * 2 ** 20 + 30),
+    (4 * 75_879 * 512, 50, 4 * 75_879 * 512
+     + 49 * (4 * 75_879 * 512 - 50 * 2 ** 20))])
+def test_from_memory_counts_only_what_the_l2_cannot_keep(nbytes, reads,
+                                                        want):
+    """A read again comes from memory only past the L2's 50 MB: the
+    1,024-bucket sketch (9.7 MB) once whatever the seeds, the 16,384-bucket
+    one (155 MB) once and then all but 50 MB of each later sweep."""
+    assert smoke.from_memory(nbytes, reads) == want

@@ -296,14 +296,15 @@ def test_packed_sampler_on_card_equals_cpu(card):
     ops.reset_launch_counts()
     got = dense.sample_rrsets_dense_packed(g_rev[card], 128, 21, base_seed=5)
     counts = ops.launch_counts()
-    for name in ("pack_bits", "bitset_or", "bitset_andnot", "popcount_words",
+    for name in ("pack_bits", "frontier_update", "popcount_words",
                  "bernoulli_edges", "occur_from_bitset"):
         assert counts[name] > 0, name
+    assert counts["bitset_or"] == counts["bitset_andnot"] == 0
     want = dense.sample_rrsets_dense_packed(g_rev["cpu"], 128, 21,
                                             base_seed=5)
     for a, b in zip(got[:4], want[:4]):
         assert torch.equal(a.cpu(), b)
-    assert got.levels == want.levels
+    assert got.levels == want.levels == counts["frontier_update"]
 
 
 @pytest.mark.cuda
@@ -1444,7 +1445,8 @@ def test_celf_wrappers_check_inputs(card):
 @pytest.mark.parametrize("eval_batch", [1, 32])
 def test_celf_solve_on_card_equals_flat(card, eval_batch):
     """A celf solve on the card equals the flat solve on the card and the
-    celf solve on the CPU, through both CELF kernels and the sketch's."""
+    celf solve on the CPU, through one celf_select launch a selection and
+    the exact store's fold (no celf_eval, celf_apply or sweep kernel)."""
     prob = IMProblem(k=10, eps=0.4)
     flat = IMMSolver(_graph(card), batch=256, selection="fused", seed=4,
                      device=card).solve(prob)
@@ -1454,10 +1456,11 @@ def test_celf_solve_on_card_equals_flat(card, eval_batch):
     gpu = IMMSolver(_graph(card), batch=256, selection="celf", seed=4,
                     eval_batch=eval_batch, device=card).solve(prob)
     counts = ops.launch_counts()
+    assert counts["sketch_scatter_or"] > 0
     for name in ("celf_eval", "celf_apply", "sketch_union_popcount",
-                 "popcount_words", "sketch_scatter_or"):
-        assert counts[name] > 0, name
-    assert counts["celf_apply"] == 10 * gpu.stats.lb_iters + 10
+                 "popcount_words"):
+        assert counts[name] == 0, name
+    assert counts["celf_select"] == gpu.stats.lb_iters + 1
     for other in (flat, cpu):
         np.testing.assert_array_equal(gpu.seeds, other.seeds)
         np.testing.assert_array_equal(gpu.gains, other.gains)
@@ -1468,3 +1471,191 @@ def test_celf_solve_on_card_equals_flat(card, eval_batch):
                                                    early_exit=True))
     np.testing.assert_array_equal(early.seeds, gpu.seeds)
     assert early.stats.theta == gpu.stats.theta
+
+
+# celf_select (csrc/celf.cu): a whole CELF selection in one cooperative
+# launch, against its plain version on a host copy, in every field
+
+
+def _host_pool(store):
+    t = store.n_elems
+    return tuple(x[:t].cpu() for x in (store.flat, store.ids, store.valid))
+
+
+def _select_both(store, k, c, sketch):
+    """celf_select on the card and celf_select_ref on a host copy."""
+    from repro_torch.kernels import celf as tcelf
+    t = store.n_elems
+    pool = (store.flat[:t], store.ids[:t], store.valid[:t])
+    kw = dict(n=store.n_nodes, num_rows=store.row_capacity(), k=k, c=c)
+    got = tcelf.celf_select(*pool, sketch=sketch, **kw)
+    want = ref.celf_select_ref(*_host_pool(store), sketch=None
+                               if sketch is None else sketch.cpu(), **kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sketch_k", [None, 64, 1024])
+@pytest.mark.parametrize("c", [1, 32, 2500])
+def test_celf_select_kernel_equals_plain(card, c, sketch_k):
+    """Seeds, gains and both counts at one candidate a call, the default
+    32 and a batch past a chunk of 2,048 (two chunks), with and without
+    the sketch's sweep; a row may repeat a node and a hub is in a third of
+    the rows."""
+    store, _ = _celf_pool(card)
+    sketch = None if sketch_k is None else store.sketch_words(sketch_k)
+    before = ops.launch_counts()["celf_select"]
+    got, want = _select_both(store, 30, c, sketch)
+    assert ops.launch_counts()["celf_select"] == before + 1
+    for a, b in zip(got[:3], want):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    assert int(got[3]) > 0                        # grid barriers run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty", "past_n", "chunks3", "tiny",
+                                  "wide_sketch"])
+def test_celf_select_kernel_on_edge_pools(card, case):
+    """An empty pool (every gain 0, node 0 again and again), k past n, a
+    batch of three chunks (5,000 of 6,000 nodes), fewer nodes than blocks,
+    and a sketch row wider than shared memory holds (each block's union in
+    the scratch)."""
+    from repro_torch.kernels import celf as tcelf
+    k, c, sketch = 5, 32, None
+    if case == "empty":
+        store = cov.DeviceRRStore(50, device=card)
+    elif case == "chunks3":
+        store, _ = _celf_pool(card, n=6000, rows=3000)
+        c = 5000
+    elif case == "tiny":
+        store, _ = _celf_pool(card, n=20, rows=200, width=4)
+        k, c = 25, 3
+    else:
+        store, _ = _celf_pool(card, n=40, rows=300, width=5)
+        k = 45 if case == "past_n" else 8
+        if case == "wide_sketch":
+            _, shared_words = tcelf.select_grid(card)
+            sketch = _words(41, shared_words + 5).to(card)
+    got, want = _select_both(store, k, c, sketch)
+    for a, b in zip(got[:3], want):
+        assert torch.equal(a.cpu(), b), case
+    if case == "empty":
+        assert want[0].tolist() == [0] * k and not want[1].any()
+
+
+@pytest.mark.cuda
+def test_celf_selection_is_one_launch_and_one_host_sync(card):
+    """The store's celf selection on the card: one celf_select launch, no
+    other kernel, and one host read (torch's sync debug mode); it equals
+    the CPU store's seeds, gains, frac bytes and stats_out."""
+    import warnings
+    nodes = torch.tensor(RNG.integers(0, 3000, (2048, 7)))
+    lens = torch.tensor(RNG.integers(0, 8, 2048))
+    stores = {}
+    for dev in ("cpu", card):
+        stores[dev] = cov.DeviceRRStore(3000, sketch_k=1024, device=dev)
+        stores[dev].append_batch((nodes, lens))
+    stores[card].select(5, method="celf")               # builds the kernel
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    stats = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = cov.select_seeds_celf(stores[card], 50, stats_out=stats)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    assert len(syncs) == 1, syncs
+    counts = ops.launch_counts()
+    assert counts["celf_select"] == 1
+    assert sum(counts.values()) == 1, counts
+    want_stats = {}
+    want = cov.select_seeds_celf(stores["cpu"], 50, stats_out=want_stats)
+    assert torch.equal(got.seeds.cpu(), want.seeds)
+    assert torch.equal(got.gains.cpu(), want.gains)
+    assert got.frac.cpu().numpy().tobytes() == want.frac.numpy().tobytes()
+    assert stats == want_stats
+    stores[card].fold_error[0] = 1
+    with pytest.raises(ValueError, match="outside"):   # at the one read
+        cov.select_seeds_celf(stores[card], 3)
+
+
+@pytest.mark.cuda
+def test_celf_select_wrapper_checks_inputs(card):
+    """Every bad input raises before a launch; a CPU tensor is refused (no
+    plain fallback on the wrapper)."""
+    from repro_torch.kernels import celf as tcelf
+    store, pool = _celf_pool(card, rows=64)
+    kw = dict(n=store.n_nodes, num_rows=store.row_capacity(), k=3, c=4)
+    sk = store.sketch_words(64)
+    before = ops.launch_counts()["celf_select"]
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tcelf.celf_select(*(x.cpu() for x in pool), **kw)
+    with pytest.raises(TypeError):
+        tcelf.celf_select(pool[0].long(), *pool[1:], **kw)
+    with pytest.raises(ValueError):
+        tcelf.celf_select(pool[0], pool[1][:-1], pool[2], **kw)
+    for bad in (dict(kw, c=0), dict(kw, c=kw["n"] + 1), dict(kw, k=0),
+                dict(kw, num_rows=48), dict(kw, num_rows=0)):
+        with pytest.raises(ValueError):
+            tcelf.celf_select(*pool, **bad)
+    with pytest.raises(ValueError):
+        tcelf.celf_select(*pool, sketch=sk[:10], **kw)
+    with pytest.raises(TypeError):
+        tcelf.celf_select(*pool, sketch=sk.long(), **kw)
+    with pytest.raises(ValueError):
+        tcelf.celf_select(*pool, sketch=sk.cpu(), **kw)
+    assert ops.launch_counts()["celf_select"] == before
+
+
+@pytest.mark.cuda
+def test_celf_select_barrier_floor_runs(card):
+    """celf_select's grid (a block an SM) is greedy_flat's, whose
+    barrier-only launch runs and is not counted as a celf_select launch."""
+    from repro_torch.kernels import celf as tcelf
+    from repro_torch.kernels import greedy as tgreedy
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert tcelf.select_grid(card)[0] == tgreedy.grid_blocks(card) == sms
+    before = ops.launch_counts()["celf_select"]
+    tgreedy.grid_barriers(100, card)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["celf_select"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,w", [(1, 1), (33, 5), (7, 2373), (512, 2372)])
+def test_frontier_update_kernel_equals_plain(card, b, w):
+    """new = a & ~visited and visited |= a in place, exact, on the words as
+    given and one word off the 16-byte alignment; a may be visited."""
+    a, v = _words(b, w), _words(b, w)
+    for shift in (0, 1):
+        buf = torch.zeros(2, b * w + shift, dtype=torch.int32, device=card)
+        x, y = (buf[i, shift:].view(b, w) for i in (0, 1))
+        x.copy_(a)
+        y.copy_(v)
+        plain = v.clone()
+        new = ops.frontier_update(x, y)
+        want = ref.frontier_update_ref(a, plain)
+        torch.cuda.synchronize()
+        assert torch.equal(new.cpu(), want) and torch.equal(y.cpu(), plain)
+        assert torch.equal(y.cpu(), v | a)
+    same = v.to(card)
+    assert not ops.frontier_update(same, same).any()
+    assert torch.equal(same.cpu(), v)
+
+
+@pytest.mark.cuda
+def test_frontier_update_wrapper_checks_inputs(card):
+    x = _words(4, 3).to(card)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tbitset.frontier_update(x.cpu(), x.cpu())
+    with pytest.raises(TypeError):
+        tbitset.frontier_update(x, x.long())
+    with pytest.raises(ValueError):
+        tbitset.frontier_update(x, x[:2])
+    with pytest.raises(ValueError):
+        tbitset.frontier_update(x, x.t())

@@ -112,6 +112,29 @@ def test_bitset_or_andnot_popcount_plain_equal_reference(b, w):
     assert got[0, 0] == 1
 
 
+@pytest.mark.parametrize("b,w", [(1, 1), (8, 5), (37, 7), (64, 75)])
+def test_frontier_update_plain_equals_reference_pair(b, w):
+    """``ref.frontier_update_ref(a, visited)`` (and ``ops`` on CPU tensors)
+    is the reference's level: ``new = bitset_andnot(a, visited)`` and
+    ``visited = bitset_or(visited, new)`` (Pallas, interpret mode), with
+    visited updated in place; bit 31 alone in a word on purpose, and a
+    aliasing visited."""
+    x, y = _u32_words((b, w)), _u32_words((b, w))
+    x[0, 0], y[-1, -1] = 0x80000000, 0x80000000
+    ja, jv = jnp.asarray(x), jnp.asarray(y)
+    jnew = jops.bitset_andnot(ja, jv)
+    jvis = np.asarray(jops.bitset_or(jv, jnew))
+    for fn in (tref.frontier_update_ref, tops.frontier_update):
+        visited = _as_i32(y)
+        new = fn(_as_i32(x), visited)
+        assert new.dtype == visited.dtype == torch.int32
+        np.testing.assert_array_equal(_u32(new), np.asarray(jnew))
+        np.testing.assert_array_equal(_u32(visited), jvis)
+    same = _as_i32(y)
+    assert not tref.frontier_update_ref(same, same).any()
+    np.testing.assert_array_equal(_u32(same), y)
+
+
 def _weights(e, rng=RNG):
     """Float32 weights in [0, 1] with exact 0s and 1s."""
     w = rng.uniform(size=e).astype(np.float32)
