@@ -13,8 +13,8 @@ Phases, each of which raises on failure (non-zero exit):
    ``bernoulli.cu``, ``membership.cu``, ``flashattn.cu``, ``queue.cu``,
    ``greedy.cu`` and ``celf.cu`` with nvcc for sm_90a, one nvcc per
    source, started together, and prints each ``-Xptxas -v`` report; the
-   three Occur kernels, the five of ``greedy.cu`` and the four of
-   ``celf.cu`` must not spill;
+   three Occur kernels, the five of ``greedy.cu``, the four of
+   ``celf.cu`` and the two of ``membership.cu`` must not spill;
 3. kernels: both Occur kernels against their plain versions on random
    int32 words of shape (131072, 2372) (bit 31 set in half the words, a
    ~50% row mask); the union popcount at (75880, 512) and (75880, 4) and
@@ -42,24 +42,32 @@ Phases, each of which raises on failure (non-zero exit):
    mode="approximate", max_theta=8192))`` with the auto sketch size on the
    epinions-like stand-in (``barabasi_albert(75879, 4, seed=0)`` with WC
    weights): stage times, θ, sketch size and bytes, peak memory and the
-   launch counts: ``greedy_sketch`` once a selection, ``sketch_scatter_or``
-   and ``queue_bfs`` > 0, no ``popcount_words`` and no
-   ``sketch_union_popcount``; no pool buffer; one selection must make
-   exactly one host sync (:func:`count_syncs`); the forward-MC spread of
+   launch counts: ``greedy_sketch`` once a selection, ``sketch_fold_rows``
+   once a fold (each append), ``queue_bfs`` > 0, no ``sketch_scatter_or``,
+   no ``popcount_words`` and no ``sketch_union_popcount``; no pool buffer;
+   one selection must make exactly one host sync (:func:`count_syncs`),
+   and one append of the first round's batch to a scratch store one
+   ``sketch_fold_rows`` launch and one host sync; the forward-MC spread of
    its seeds must lie in ``[0.9 lo, 1.1 hi]`` of its ``spread_bounds``.
    ``max_theta`` keeps the run finite: at this size the auto sketch (128
    buckets) saturates, and the Alg. 2 loop, reading the saturated
    estimate, would otherwise sample towards λ* (PERF.md §4).  Then the
-   same solve with the parent's selection loop (:func:`parent_sketch_select`:
-   a ``sketch_union_popcount`` and a ``popcount_words`` launch and a host
-   read a step) and with this one, in turns (parent, kernel, kernel,
-   parent), each with its stage times; every solve must give the same θ,
-   LB, rounds, seeds, gains, float32 bytes of frac and spread_bounds.  The
-   selections alone likewise in turns on the final sketch, and
-   ``greedy_sketch``'s record there (:func:`sketch_greedy_record`: byte for
-   byte against the plain version ``ref.greedy_sketch_ref`` on the card,
-   timed beside it, with the bound, the bytes of its k sweeps and the
-   barrier floor, the same grid running its k + 1 grid barriers alone);
+   same solve with the parent's fold (:func:`parent_sketch_append`: a host
+   read of three reductions, the batch's flat pairs built by PyTorch and
+   one ``sketch_scatter_or`` launch) and with this one, in turns (parent,
+   kernel, kernel, parent), each with its stage times and launches; every
+   solve must give the same θ, LB, rounds, RR sets, elements, seeds,
+   gains, float32 bytes of frac, spread_bounds, certificate and sketch
+   words.  The selections alone in turns on the final sketch against the
+   selection loop before ``greedy_sketch`` (:func:`parent_sketch_select`),
+   and ``greedy_sketch``'s record there (:func:`sketch_greedy_record`: byte
+   for byte against the plain version ``ref.greedy_sketch_ref`` on the
+   card, timed beside it, with the bound, the bytes of its k sweeps and
+   the barrier floor, the same grid running its k + 1 grid barriers
+   alone), and the fold's at the first round's batch (:func:`fold_record`:
+   words and counts against ``ref.sketch_fold_rows_ref``, with the bound
+   and, on a ``fold_hub_probe:`` line, its device time on that batch and on
+   one of uniform node ids);
 5. exact solve (the first slice's path), ``IMMSolver(g, engine="queue",
    batch=512, selection="bitset", seed=0).solve(IMProblem(k=50,
    eps=0.5))``, with wall time per stage, peak memory and the launch
@@ -105,12 +113,18 @@ Phases, each of which raises on failure (non-zero exit):
    timed on this run's inputs, ``frontier_update`` beside the PyTorch calls
    of the same function and the pair of kernels it replaced;
 11. padded selection: the phase-5 pool as RR lists, ``build_padded_store``
-   and ``select_seeds_padded(store, 50)`` on the card, which must give the
-   phase-6 ``bitset`` seeds, gains and float32 bytes of frac, with 50
-   ``membership_rows`` launches.  The kernel is then held against its
-   plain version (exactly) and timed at the path's shape and at (131,072 x
-   512), rows drawn from the pool (its size law, u a seed), and at ragged
-   shapes (lengths 0 and L, L off 128, u = n);
+   and ``select_seeds_padded(store, 50)`` on the card, three times (the
+   first loads the kernel), which must give the phase-6 ``bitset`` seeds,
+   gains and float32 bytes of frac, with one ``padded_greedy`` launch and
+   no ``membership_rows`` launch each, and the parent's loop
+   (:func:`parent_padded_select`, a ``membership_rows`` launch a step) in
+   every field; the two in turns.  ``padded_greedy`` is then held
+   against its plain loop (exactly), must make no host sync and one
+   device operation a call, and is timed with its bound and its barrier
+   floor (:func:`padded_greedy_record`); the standalone membership scan is
+   held against its plain version (exactly) and timed at the path's shape
+   and at (131,072 x 512), rows drawn from the pool (its size law, u a
+   seed), and at ragged shapes (lengths 0 and L, L off 128, u = n);
 12. flash attention: first the SASS of the built ``flashattn`` library
    (``cuobjdump -sass``) and its ``-Xptxas -v`` report: exactly the
    kernels that ``kernels/flashattn.py::design`` routes to, HGMMA and
@@ -146,15 +160,17 @@ Phases, each of which raises on failure (non-zero exit):
 14. CELF (the slice of ``select_seeds_celf``): the phase-5 solve with
    ``selection="celf"`` at ``sketch_k`` 1,024 and 16,384, and with
    ``early_exit=True`` at 16,384 (:data:`CELF_SOLVES`), each with stage
-   times, launch counts (``celf_select`` once a selection, the exact
-   store's fold ``sketch_scatter_or`` > 0, ``sketch_union_popcount`` and
-   ``popcount_words`` only from the early exit's gate, ``celf_eval`` and
-   ``celf_apply`` never), the early exit's skips and history, and on its
+   times (the fold within the append as ``stage_s.fold``), launch counts
+   (``celf_select`` once a selection, the exact store's fold
+   ``sketch_fold_rows`` once an append, ``sketch_union_popcount`` and
+   ``popcount_words`` only from the early exit's gate, ``celf_eval``,
+   ``celf_apply`` and ``sketch_scatter_or`` never), the early exit's skips
+   and history, and on its
    final pool one selection's exact evaluations, eval calls and host syncs
    (:func:`count_syncs`: exactly one).  Each must equal phase 5 exactly:
    θ, LB, rounds, RR sets, pool elements, seeds, gains, the float32 bytes
    of frac.  On a host copy of each final pool (:func:`check_celf_on_host`)
-   the incremental sketch (the ``sketch_scatter_or`` fold) must equal the
+   the incremental sketch (the ``sketch_fold_rows`` fold) must equal the
    plain fold word for word, and the selection's seeds, gains, frac and
    ``stats_out`` those of ``ref.celf_select_ref``.  Then the records of
    ``celf_select`` (:func:`celf_select_record`: against its plain version
@@ -169,8 +185,10 @@ Phases, each of which raises on failure (non-zero exit):
 The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
 the exact path's final bit matrix, masked on the first seed's rows as the
 greedy passes them, a bool mask; the sketch kernels at the approximate
-path's sketch, the dense kernels at the packed sampler's inputs, the
-membership scan at the padded store, flash attention at olmo-1b's shape,
+path's sketch, the fold at its first round's batch, the dense kernels at
+the packed sampler's inputs, the padded greedy (with its barrier floor)
+and the membership scan at the padded store, flash attention at
+olmo-1b's shape,
 the queue sampler at the exact path's first round with the work it
 examined (:func:`queue_bound`) and its one-SM bound
 (:func:`one_sm_bound`), the greedy at the default solve's final pool
@@ -180,9 +198,9 @@ CELF kernels and ``sketch_union_popcount`` at the CELF solve's pool and
 its 1,024-bucket sketch (:func:`celf_select_record`, :func:`celf_records`;
 the union popcount's record at the approximate sketch goes on a
 ``sketch_union_popcount_approximate:`` line); launches from each path's
-run (``celf_eval``, ``celf_apply``, ``bitset_or`` and ``bitset_andnot``:
-0, no path launches them; ``sketch_union_popcount``: the early exit's
-gate); each with
+run (``celf_eval``, ``celf_apply``, ``bitset_or``, ``bitset_andnot``,
+``sketch_scatter_or`` and ``membership_rows``: 0, no path launches them;
+``sketch_union_popcount``: the early exit's gate); each with
 ``ms``, ``device_ms``,
 ``device_other_ms`` and ``enqueue_us`` from :func:`timing`;
 ``bernoulli_edges`` with its trial's instructions by class as the built
@@ -197,6 +215,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
 import json
 import math
 import re
@@ -227,6 +246,9 @@ from repro_torch.kernels import _build, bitset, ops, ref  # noqa: E402
 from repro_torch.kernels import celf as celf_mod  # noqa: E402
 from repro_torch.kernels import flashattn as flash  # noqa: E402
 from repro_torch.kernels import greedy  # noqa: E402
+from repro_torch.kernels import membership  # noqa: E402
+from repro_torch.kernels.sketch import (canonical_row_ids,  # noqa: E402
+                                        frontier_pairs)
 from repro_torch.kernels.queue import SEGMENT_EDGES  # noqa: E402
 
 # H100 SXM HBM rate (NVIDIA's data sheet), and the results per clock per
@@ -302,6 +324,8 @@ LIBRARY_NOTE = {
     "celf_select": "no single PyTorch call runs a lazy greedy",
     "frontier_update": "a & ~v and v |= a are three PyTorch calls (timed "
                        "beside it as the yardstick)",
+    "sketch_fold_rows": "torch has no scatter with an OR reduction",
+    "padded_greedy": "no single PyTorch call runs a greedy",
 }
 SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "sketch_scatter_or": "sketch", "sketch_union_popcount": "sketch",
@@ -311,7 +335,8 @@ SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "flash_attention": "flashattn", "queue_bfs": "queue",
              "greedy_flat": "greedy", "greedy_sketch": "greedy",
              "celf_eval": "celf", "celf_apply": "celf",
-             "celf_select": "celf", "frontier_update": "bitops"}
+             "celf_select": "celf", "frontier_update": "bitops",
+             "sketch_fold_rows": "sketch", "padded_greedy": "membership"}
 # each record's kernel as the profiler names it (a regular expression that
 # matches the demangled or the mangled name)
 DEVICE_KERNEL = {
@@ -333,6 +358,8 @@ DEVICE_KERNEL = {
     "celf_apply": r"celf_apply_kernel",
     "celf_select": r"celf_select_kernel",
     "frontier_update": r"frontier_update_kernel",
+    "sketch_fold_rows": r"fold_rows_kernel",
+    "padded_greedy": r"padded_greedy_kernel",
 }
 KERNELS = {
     "occur_from_bitset": "src/repro/kernels/bitset.py:167",
@@ -361,6 +388,12 @@ KERNELS = {
     # the dense level's bitset_andnot (bitset.py:82) and bitset_or (:77),
     # as the reference's level calls them
     "frontier_update": "src/repro/core/dense.py:156",
+    # the scatter-OR on its path: the reference's fold of a batch builds
+    # the pairs in XLA, then scatters them with that Pallas kernel
+    "sketch_fold_rows": "src/repro/kernels/sketch.py:101",
+    # the membership scan on its path: the reference's padded greedy
+    # (coverage.py:2510) scans with that Pallas kernel once a seed
+    "padded_greedy": "src/repro/kernels/membership.py:36",
 }
 # phase 3: the queue kernel at the exact path's first round, also at qcap
 # 64 (above its longest RR set, 21) and 8, where lanes overflow
@@ -698,17 +731,53 @@ def scatter_bound_ms(words, v, b):
     return _bound(8 * v.numel() + 2 * 32 * sectors, {"alu": v.numel()})
 
 
-def membership_bound_ms(lengths, row_len: int):
-    """Read the 32-byte sectors that hold each row's valid prefix (row r
-    starts at byte 4*r*L), the lengths and u, write R bools; one compare
-    per valid element."""
+def prefix_sectors(lengths, row_len: int) -> tuple[int, int]:
+    """The 32-byte sectors that hold the rows' valid prefixes of an (R, L)
+    int32 matrix (row r starts at byte 4*r*L), and the valid lanes."""
     lens = lengths.to(torch.int64).clamp(0, row_len)
     start = torch.arange(lens.numel(), dtype=torch.int64,
                          device=lens.device) * (4 * row_len)
     first, last = start // 32, (start + 4 * lens - 1) // 32
-    sectors = int(torch.where(lens > 0, last - first + 1, 0).sum())
-    return _bound(32 * sectors + 4 * lens.numel() + 4 + lens.numel(),
-                  {"alu": int(lens.sum())})
+    return (int(torch.where(lens > 0, last - first + 1, 0).sum()),
+            int(lens.sum()))
+
+
+def membership_bound_ms(lengths, row_len: int):
+    """Read the 32-byte sectors that hold each row's valid prefix, the
+    lengths and u, write R bools; one compare per valid element."""
+    sectors, lanes = prefix_sectors(lengths, row_len)
+    return _bound(32 * sectors + 4 * lengths.numel() + 4 + lengths.numel(),
+                  {"alu": lanes})
+
+
+def padded_greedy_bound(lengths, row_len: int, k: int) -> dict:
+    """The padded greedy's least time: the valid prefixes' sectors and the
+    lengths read once, the 2k + 1 outputs written once; each step's
+    membership scan a compare a valid lane (k of them a lane)."""
+    sectors, lanes = prefix_sectors(lengths, row_len)
+    return dict(_bound(32 * sectors + 4 * lengths.numel() + 4 * (2 * k + 1),
+                       {"alu": k * lanes}),
+                prefix_sectors=sectors, valid_lanes=lanes)
+
+
+def fold_bound_ms(words, nodes, lens, row_base: int, *, k: int,
+                  mode: str) -> dict:
+    """The batch fold's least time: the lengths (4 bytes a row) and the
+    valid lanes (4 bytes each) read once, one 32-byte sector read and
+    written per distinct sector of words that this batch's in-range lanes
+    touch (as :func:`scatter_bound_ms` counts), the two counts written; one
+    OR a valid lane."""
+    r, w = words.shape
+    clamped = lens.to(torch.int64).clamp(0, nodes.shape[1])
+    v, b = frontier_pairs(nodes, clamped, canonical_row_ids(lens, row_base),
+                          n_rows=r, k=k, mode=mode)
+    keep = (v >= 0) & (v < r)
+    word = v[keep].to(torch.int64) * w + (b[keep].to(torch.int64) >> 5)
+    sectors = int(torch.unique(word >> 3).numel())
+    lanes = int(clamped.sum())
+    return dict(_bound(4 * lens.numel() + 4 * lanes + 2 * 32 * sectors + 16,
+                       {"alu": lanes}),
+                valid_lanes=lanes, word_sectors=sectors)
 
 
 def flash_work(b: int, s: int, h: int, d: int, causal: bool) -> dict:
@@ -829,6 +898,67 @@ def sketch_records(words, cov_words, v, b, launches=None, iters=20,
                        plain_iters), union_bound_ms(rows, cols),
                shape=[rows, cols]),
     ]
+
+
+def fold_record(words, nodes, lens, *, k: int, mode: str, launches=None,
+                iters=50, plain_iters=10) -> dict:
+    """The batch fold against its plain version on the card on copies of
+    ``words`` (words and counts exactly), timed beside it on a scratch copy
+    (OR is idempotent: repeated folds time alike), with the bound.  Then
+    the hub probe: the kernel's device time on this batch and on one of the
+    same shape and row stride whose valid lanes hold uniform node ids, on
+    a ``fold_hub_probe:`` line."""
+    dev = words.device
+    base = 0
+    want, got = words.clone(), words.clone()
+    want_counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    counts = torch.full((2,), -1, dtype=torch.int64, device=dev)
+    ref.sketch_fold_rows_ref(want, nodes, lens, base, k=k, mode=mode,
+                             counts=want_counts)
+    ops.sketch_fold_rows(got, nodes, lens, base, k=k, mode=mode,
+                         counts=counts)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(got, want), max_abs_err(counts, want_counts))
+    if err or not (torch.equal(got, want)
+                   and torch.equal(counts, want_counts)):
+        raise AssertionError(f"sketch_fold_rows != plain version at "
+                             f"{tuple(nodes.shape)}: max abs err {err}")
+    scratch, plain_scratch = words.clone(), words.clone()
+
+    def kern(b_nodes=nodes):
+        return ops.sketch_fold_rows(scratch, b_nodes, lens, base, k=k,
+                                    mode=mode, counts=counts)
+
+    rec = record(
+        "sketch_fold_rows", launches, err,
+        timing("sketch_fold_rows", kern, iters),
+        cuda_ms(lambda: ref.sketch_fold_rows_ref(
+            plain_scratch, nodes, lens, base, k=k, mode=mode, counts=counts),
+            plain_iters),
+        fold_bound_ms(words, nodes, lens, base, k=k, mode=mode),
+        shape=list(words.shape), batch=list(nodes.shape),
+        row_stride=nodes.stride(0), sketch_k=k, sketch_mode=mode,
+        counts=want_counts.tolist())
+    gen = torch.Generator(device=dev).manual_seed(5)
+    uniform = torch.randint(0, words.shape[0] - 1,
+                            (nodes.shape[0], nodes.stride(0)), device=dev,
+                            generator=gen, dtype=torch.int32)[:, :nodes.shape[1]]
+    lane = torch.arange(nodes.shape[1], device=dev)[None, :]
+    valid = lane < lens.to(torch.int64)[:, None]
+    hub_lanes = torch.bincount(nodes[valid].to(torch.int64),
+                               minlength=words.shape[0])
+    kernel = DEVICE_KERNEL["sketch_fold_rows"]
+    say("fold_hub_probe", {
+        "batch": list(nodes.shape), "valid_lanes": int(valid.sum()),
+        "busiest_node_lanes": int(hub_lanes.max()),
+        "busiest_node": int(hub_lanes.argmax()),
+        "device_ms": device_ms(kern, iters, kernel)["device_ms"],
+        "uniform_device_ms": device_ms(lambda: kern(uniform), iters,
+                                       kernel)["device_ms"],
+        "uniform_word_sectors": fold_bound_ms(
+            words, uniform, lens, base, k=k, mode=mode)["word_sectors"],
+        "word_sectors": rec["word_sectors"]})
+    return rec
 
 
 def frontier_both(fn, a, visited):
@@ -1215,6 +1345,27 @@ def parent_sketch_select(store, k: int, info_out: dict | None = None):
         frac=torch.tensor(frac, dtype=torch.float32, device=dev))
 
 
+def parent_sketch_append(store, batch) -> None:
+    """The parent's fold of a batch, kept as the before figure: a host read
+    of three torch reductions (the batch's lanes and rows and the store's
+    flag), then the batch's flat (node, bucket) pairs
+    (``kernels.sketch.frontier_pairs`` under ``canonical_row_ids``, about a
+    dozen PyTorch operations with a copy of the strided batch) through the
+    ``sketch_scatter_or`` kernel with the store's flag."""
+    nodes, lens = batch.nodes, batch.lengths
+    clamped = lens.to(torch.int64).clamp(0, nodes.shape[1])
+    elems, rows, bad = (int(x) for x in torch.stack(
+        [clamped.sum(), (clamped > 0).sum(),
+         store.fold_error[0].to(torch.int64)]).cpu())
+    store.check_folds(bad)
+    v, b = frontier_pairs(nodes, lens, canonical_row_ids(lens, store.n_rr),
+                          n_rows=store.words.shape[0], k=store.sketch_k,
+                          mode=store.sketch_mode)
+    ops.sketch_scatter_or(store.words, v, b, store.fold_error)
+    store._t += elems
+    store._nrr += rows
+
+
 def sketch_greedy_bound(n: int, cols: int, k: int, steps: int) -> dict:
     """The sketch greedy's least time.  Bytes: the n node rows read once
     (4 bytes a word) and the 2k + 1 outputs written once.  Operations, for
@@ -1285,7 +1436,7 @@ def sketch_greedy_record(words, n: int, launches=None, iters=20,
 def approximate_solve(g, parent: bool = False) -> dict:
     """One approximate solve with the auto sketch size, its stages timed,
     launches counted from just before it to just after; ``parent`` swaps
-    the store's selection for :func:`parent_sketch_select`."""
+    the store's fold for :func:`parent_sketch_append`."""
     problem = IMProblem(k=K, eps=EPS, mode="approximate",
                         max_theta=APPROX_MAX_THETA)
     solver = IMMSolver(g, engine="queue", batch=BATCH, seed=0,
@@ -1293,7 +1444,7 @@ def approximate_solve(g, parent: bool = False) -> dict:
     solver.prepare(problem)
     store = solver.store
     if parent:
-        store.select = functools.partial(parent_sketch_select, store)
+        store.append_batch = functools.partial(parent_sketch_append, store)
     clock = StageClock()
     clock.wrap(solver.engine, "sample", "sampling")
     clock.wrap(store, "append_batch", "fold")
@@ -1308,19 +1459,26 @@ def approximate_solve(g, parent: bool = False) -> dict:
     solve_s = time.perf_counter() - t0
     launches = ops.launch_counts()
     return {"res": res, "solver": solver, "solve_s": solve_s,
+            "certificate": dict(solver._sketch_info),
             "stage_s": dict(clock.seconds), "stage_calls": dict(clock.calls),
             "launches": launches, "base_mem": base_mem,
             "peak": torch.cuda.max_memory_allocated()}
 
 
-def approx_fields(res) -> dict:
-    """What two approximate solves must share."""
+def approx_fields(run: dict) -> dict:
+    """What two approximate solves (:func:`approximate_solve`'s) must
+    share."""
+    res, store = run["res"], run["solver"].store
     st = res.stats
     return {"theta": st.theta, "lb": st.lb, "lb_iters": st.lb_iters,
-            "rounds": st.rounds, "seeds": [int(x) for x in res.seeds],
+            "rounds": st.rounds, "n_rr": store.n_rr,
+            "elements": store.n_elems, "seeds": [int(x) for x in res.seeds],
             "gains": [int(x) for x in res.gains],
             "frac_f32": np.float32(res.frac).tobytes().hex(),
-            "spread_bounds": list(res.spread_bounds)}
+            "spread_bounds": list(res.spread_bounds),
+            "certificate": run["certificate"],
+            "sketch_sha": hashlib.sha256(
+                store.words.cpu().numpy().tobytes()).hexdigest()[:16]}
 
 
 def turns_ms(calls: dict, reps: int = 3) -> dict:
@@ -1340,23 +1498,38 @@ def turns_ms(calls: dict, reps: int = 3) -> dict:
 
 def approximate_phase(g):
     """The approximate solve with the auto sketch size: stage times, launch
-    counts (one greedy_sketch a selection, no popcount), one host sync a
-    selection, certificate and its forward-MC check; then the parent's
-    selection loop against this one, in turns, in the whole solve and in
-    the selection alone.  Returns the records of the sketch kernels and of
-    greedy_sketch at this path's shapes."""
+    counts (one sketch_fold_rows a fold and no sketch_scatter_or, one
+    greedy_sketch a selection, no popcount), one host sync a selection and
+    one launch and one host sync an append, certificate and its forward-MC
+    check; then the parent's fold (:func:`parent_sketch_append`) against
+    this one, whole solves in turns, every field equal, and the parent's
+    selection loop against this one on the final sketch, in turns.
+    Returns the records of the sketch kernels, of the fold at the path's
+    first batch and of greedy_sketch at this path's shapes."""
     run = approximate_solve(g)
     res, solver, launches = run["res"], run["solver"], run["launches"]
     store = solver.store
     st = res.stats
-    info = dict(solver._sketch_info)
+    info = run["certificate"]
     store.select(K)
     torch.cuda.synchronize()
     _, sync_sites = count_syncs(lambda: store.select(K, info_out={}))
+    # one append on a scratch store: one launch and one host read
+    batch = solver.engine.sample(round_seed(0, 0))
+    scratch = cov.SketchRRStore(store.n_nodes, sketch_k=store.sketch_k,
+                                sketch_mode=store.sketch_mode,
+                                device=g.device)
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    _, append_syncs = count_syncs(lambda: scratch.append_batch(batch))
+    append_launches = {name: n - before[name]
+                       for name, n in ops.launch_counts().items()
+                       if n != before[name]}
     t0 = time.perf_counter()
     mc = forward.ic_spread(g, res.seeds, n_sims=MC_SIMS, seed=1)
     mc_s = time.perf_counter() - t0
     lo, hi = res.spread_bounds
+    calls = run["stage_calls"]
     say("approximate_solve", {
         "n": g.n_nodes, "k": K, "eps": EPS, "batch": BATCH,
         "max_theta": APPROX_MAX_THETA, "theta": st.theta, "lb": st.lb,
@@ -1366,27 +1539,36 @@ def approximate_phase(g):
         "sketch_bytes": store.sketch_bytes(),
         "per_device_pool_bytes": store.per_device_pool_bytes(),
         "solve_s": run["solve_s"], "stage_s": run["stage_s"],
-        "stage_calls": run["stage_calls"],
+        "stage_calls": calls,
+        "fold_s_a_call": run["stage_s"]["fold"] / max(calls["fold"], 1),
         "max_memory_allocated": run["peak"],
         "memory_before_solve": run["base_mem"], "launches": launches,
         "select_host_syncs": len(sync_sites),
         "select_host_sync_sites": sync_sites,
+        "append_host_syncs": len(append_syncs),
+        "append_host_sync_sites": append_syncs,
+        "append_launches": append_launches,
         "spread": res.spread, "spread_bounds": [lo, hi], "frac": res.frac,
         "certificate": info, "seeds": res.seeds.tolist()[:10],
         "n_seeds": len(res.seeds), "mc_spread": mc, "mc_sims": MC_SIMS,
         "mc_s": mc_s, "history": st.history,
     })
-    selections = run["stage_calls"]["selection"]
+    selections = calls["selection"]
     if launches["greedy_sketch"] != selections or selections == 0 \
             or launches["popcount_words"] \
             or launches["sketch_union_popcount"] \
-            or launches["sketch_scatter_or"] == 0 \
+            or launches["sketch_fold_rows"] != calls["fold"] \
+            or calls["fold"] == 0 or launches["sketch_scatter_or"] \
             or launches["queue_bfs"] == 0:
         raise AssertionError(f"approximate path: {selections} selections, "
-                             f"launches {launches}")
+                             f"{calls['fold']} folds, launches {launches}")
     if len(sync_sites) != 1:
         raise AssertionError(f"a sketch selection made {len(sync_sites)} "
                              f"host syncs: {sync_sites}")
+    if len(append_syncs) != 1 or append_launches != {"sketch_fold_rows": 1}:
+        raise AssertionError(f"an append made {len(append_syncs)} host syncs "
+                             f"({append_syncs}) and the launches "
+                             f"{append_launches}")
     if store.per_device_pool_bytes() != 0 or hasattr(store, "flat"):
         raise AssertionError("the approximate path allocated a pool")
     if len(set(res.seeds.tolist())) != K or not math.isfinite(res.spread) \
@@ -1396,43 +1578,52 @@ def approximate_phase(g):
     if not 0.9 * lo <= mc <= 1.1 * hi:
         raise AssertionError(f"forward MC {mc} outside [0.9 lo, 1.1 hi] = "
                              f"[{0.9 * lo}, {1.1 * hi}]")
-    # the parent's selection loop and this one, whole solves in turns
-    want = approx_fields(res)
+    # the parent's fold and this one, whole solves in turns
+    want = approx_fields(run)
     solves = []
     for parent in (True, False, False, True):
         other = approximate_solve(g, parent=parent)
-        solves.append({"selection": "parent loop" if parent
-                       else "greedy_sketch", "solve_s": other["solve_s"],
+        got = other["launches"]
+        folds = other["stage_calls"]["fold"]
+        launched = (got["sketch_scatter_or"], got["sketch_fold_rows"])
+        solves.append({"fold": "parent pairs" if parent
+                       else "sketch_fold_rows", "solve_s": other["solve_s"],
                        "stage_s": other["stage_s"],
-                       "launches": {k: v for k, v in
-                                    other["launches"].items() if v},
-                       "equal": approx_fields(other["res"]) == want})
+                       "stage_calls": other["stage_calls"],
+                       "launches": {k: v for k, v in got.items() if v},
+                       "launches_as_expected": launched == (
+                           (folds, 0) if parent else (0, folds)),
+                       "equal": approx_fields(other) == want})
         del other
     select_ms = turns_ms({
         "parent loop": lambda: parent_sketch_select(store, K),
         "greedy_sketch": lambda: store.select(K)})
     say("approximate_turns", {"solves": solves, "select_ms": select_ms})
-    if not all(t["equal"] for t in solves):
-        raise AssertionError("the parent's sketch selection and "
-                             "greedy_sketch give different solves")
+    if not all(t["equal"] and t["launches_as_expected"] for t in solves):
+        raise AssertionError("the parent's fold and sketch_fold_rows give "
+                             "different solves or launches")
     # the sketch kernels at this path's shapes: the final sketch, the
     # seeds' union, and the pairs of the solve's first round
     words = store.words
     cov_words = torch.zeros(words.shape[1], dtype=torch.int32, device=g.device)
     for u in res.seeds.tolist():
         cov_words = sketch_mod.union_row(cov_words, words, u)
-    batch = solver.engine.sample(round_seed(0, 0))
-    v, b = sketch_mod.frontier_pairs(
-        batch.nodes, batch.lengths,
-        sketch_mod.canonical_row_ids(batch.lengths, 0),
-        n_rows=words.shape[0], k=store.sketch_k, mode=store.sketch_mode)
+    v, b = frontier_pairs(batch.nodes, batch.lengths,
+                          canonical_row_ids(batch.lengths, 0),
+                          n_rows=words.shape[0], k=store.sketch_k,
+                          mode=store.sketch_mode)
     records = sketch_records(words, cov_words, v, b, launches=launches)
     for rec in records:
         if rec["name"] == "sketch_union_popcount":
             rec["launches_note"] = ("no path launches it: greedy_sketch runs "
                                     "the approximate greedy")
-    return records + [sketch_greedy_record(words, store.n_nodes, launches,
-                                           plain_iters=3)]
+        else:
+            rec["launches_note"] = ("no path launches it: sketch_fold_rows "
+                                    "folds the batches")
+    fold = fold_record(words, batch.nodes, batch.lengths, k=store.sketch_k,
+                       mode=store.sketch_mode, launches=launches)
+    return records + [fold, sketch_greedy_record(words, store.n_nodes,
+                                                 launches, plain_iters=3)]
 
 
 def exact_regime_phase(store, bit) -> None:
@@ -1768,6 +1959,7 @@ def membership_record(rows, lengths, u, launches=None, iters=50,
                                  f"{tuple(rows.shape)}, u={int(u)}: max abs "
                                  f"err {err}")
     r, l = rows.shape
+    u_int = int(u)
     return record(
         "membership_rows", launches, err,
         timing("membership_rows",
@@ -1776,7 +1968,9 @@ def membership_record(rows, lengths, u, launches=None, iters=50,
                 plain_iters),
         membership_bound_ms(lengths, l), shape=[r, l],
         valid_elements=int(lengths.to(torch.int64).clamp(0, l).sum()),
-        padded_bytes=r * l * 4, hits=int(want.sum()))
+        padded_bytes=r * l * 4, hits=int(want.sum()),
+        enqueue_us_int_u=enqueue_us(
+            lambda: ops.membership_rows(rows, lengths, u_int), iters))
 
 
 def ragged_membership_checks(gen, n: int) -> dict:
@@ -2196,7 +2390,7 @@ def celf_records(store, seeds, launches, iters=50, plain_iters=3) -> list:
 def host_copy(store):
     """A CPU ``DeviceRRStore`` of the same sketch size and bucketing that
     holds ``store``'s pool, appended as one padded batch of its rows: its
-    incremental sketch is the plain fold (``sketch_scatter_or_ref``) of the
+    incremental sketch is the plain fold (``sketch_fold_rows_ref``) of the
     same rows under the same row ids, and its selection runs the plain
     versions of every kernel."""
     t = store.n_elems
@@ -2222,7 +2416,7 @@ def check_celf_on_host(store, card: cov.CoverageResult, card_stats: dict
                        ) -> dict:
     """Hold the card's CELF path against the plain versions on a host copy
     of its pool (:func:`host_copy`): the incremental sketch word for word
-    (the ``sketch_scatter_or`` fold of every append), and one selection's
+    (the ``sketch_fold_rows`` fold of every append), and one selection's
     seeds, gains, frac and ``stats_out`` (its exact evaluations and eval
     calls depend on the sketch) against ``select_seeds_celf`` on the copy,
     whose CPU tensors take ``ref.celf_select_ref``.  Raises on any
@@ -2251,10 +2445,12 @@ def check_celf_on_host(store, card: cov.CoverageResult, card_stats: dict
 
 def celf_phase(g, queue_res, queue_store) -> list:
     """The phase-5 solve with ``selection="celf"`` at each of
-    :data:`CELF_SOLVES`: stage times, launches (``celf_select`` once a
-    selection, the exact store's fold ``sketch_scatter_or`` > 0, and
+    :data:`CELF_SOLVES`: stage times (the fold inside each append on its
+    own, ``stage_s.fold``), launches (``celf_select`` once a selection, the
+    exact store's fold ``sketch_fold_rows`` once an append, and
     ``sketch_union_popcount`` and ``popcount_words`` only from the early
-    exit's gate; ``celf_eval`` and ``celf_apply`` never), the early exit's
+    exit's gate; ``celf_eval``, ``celf_apply`` and ``sketch_scatter_or``
+    never), the early exit's
     skips, and, on the final pool, one selection's exact evaluations and
     host syncs (:func:`count_syncs`: exactly one).  Each must equal phase 5
     in θ, LB, rounds, RR sets, pool elements, seeds, gains and the float32
@@ -2276,6 +2472,7 @@ def celf_phase(g, queue_res, queue_store) -> list:
         clock = StageClock()
         clock.wrap(solver.engine, "sample", "sampling")
         clock.wrap(solver.store, "append_batch", "append")
+        clock.wrap(solver.store, "fold_batch", "fold")
         clock.wrap(solver.store, "select", "selection")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2325,12 +2522,19 @@ def celf_phase(g, queue_res, queue_store) -> list:
                                  f"early_exit {early} differs from phase 5: "
                                  f"{same}")
         gate = ("sketch_union_popcount", "popcount_words")
-        for name in ("celf_select", "sketch_scatter_or", "queue_bfs") + (
+        for name in ("celf_select", "sketch_fold_rows", "queue_bfs") + (
                 gate if early else ()):
             if launches[name] == 0:
                 raise AssertionError(f"{name} was not launched on the CELF "
                                      f"path: {launches}")
-        off_path = [name for name in ("celf_eval", "celf_apply") + (
+        if launches["sketch_fold_rows"] != calls["fold"] or \
+                calls["fold"] != calls["append"]:
+            raise AssertionError(f"{calls['append']} appends made "
+                                 f"{calls['fold']} folds and "
+                                 f"{launches['sketch_fold_rows']} "
+                                 f"sketch_fold_rows launches")
+        off_path = [name for name in ("celf_eval", "celf_apply",
+                                      "sketch_scatter_or") + (
             () if early else gate) if launches[name]]
         if off_path or launches["celf_select"] != calls["selection"]:
             raise AssertionError(f"{calls['selection']} selections made "
@@ -2358,10 +2562,94 @@ def celf_phase(g, queue_res, queue_store) -> list:
     return out
 
 
+def parent_padded_select(store, k: int) -> cov.CoverageResult:
+    """The parent's padded selection, kept as the before figure: a host
+    loop whose every step takes an argmax, launches ``membership_rows``
+    with the seed left on the card, and updates Occur and Covered with
+    PyTorch's scatter-adds over the valid lanes."""
+    rows, lengths, n = store.rows, store.lengths, store.n_nodes
+    r, l = rows.shape
+    dev = rows.device
+    valid = (torch.arange(l, device=dev)[None, :] < lengths[:, None])
+    elem_row, lane = torch.nonzero(valid, as_tuple=True)
+    elem_node = rows[elem_row, lane].to(torch.int64)
+    occur = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
+        0, elem_node, torch.ones_like(elem_node, dtype=torch.int32))[:n]
+    covered = torch.zeros(r, dtype=torch.bool, device=dev)
+    seeds, gains = [], []
+    for _ in range(k):
+        u = torch.argmax(occur)
+        hit = ops.membership_rows(rows, lengths, u)
+        newly = hit & ~covered
+        dec = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
+            0, elem_node, newly[elem_row].to(torch.int32))
+        occur = occur - dec[:n]
+        covered = covered | hit
+        seeds.append(u)
+        gains.append(newly.sum(dtype=torch.int32))
+    gains = torch.stack(gains).to(torch.int32)
+    n_rr = int((lengths > 0).sum())
+    return cov.CoverageResult(
+        seeds=torch.stack(seeds).to(torch.int32), gains=gains,
+        frac=gains.sum().to(torch.float32) / torch.full(
+            (), max(n_rr, 1), dtype=torch.float32, device=dev))
+
+
+def padded_greedy_record(rows, lengths, n: int, launches=None, iters=20,
+                         plain_iters=1) -> dict:
+    """padded_greedy on the padded store against its plain loop on the card
+    (seeds, gains and flag exactly), its host syncs (none) and device
+    operations (:func:`traced_device_ops`: the kernel alone, at most once a
+    call), then timed beside the plain loop, with the bound and the
+    barrier floor: ``greedy_flat``'s grid, the same as this kernel's,
+    running its 2k + 1 grid barriers alone."""
+    got = ops.padded_greedy(rows, lengths, n=n, k=K)
+    want = ref.padded_greedy_ref(rows, lengths, n=n, k=K)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(x, y) for x, y in zip(got, want))
+    if err or not all(x.dtype == y.dtype and torch.equal(x, y)
+                      for x, y in zip(got, want)):
+        raise AssertionError(f"padded_greedy != plain version at "
+                             f"{tuple(rows.shape)}: max abs err {err}")
+
+    def kern():
+        return ops.padded_greedy(rows, lengths, n=n, k=K)
+
+    _, syncs = count_syncs(kern)
+    kernel, calls = DEVICE_KERNEL["padded_greedy"], 10
+    dev_ops, traces = traced_device_ops(kern, kernel, calls)
+    names = sorted({e.name[:80] for e in dev_ops})
+    if syncs or not 1 <= len(dev_ops) <= calls or len(names) != 1 \
+            or not re.search(kernel, names[0]):
+        raise AssertionError(f"a padded_greedy call made the host syncs "
+                             f"{syncs} and {calls} calls the device "
+                             f"operations {names} ({len(dev_ops)} in all)")
+    dev = rows.device
+    blocks = membership.greedy_grid(dev)
+    if blocks != greedy.grid_blocks(dev):
+        raise AssertionError(f"padded_greedy's grid of {blocks} blocks is "
+                             f"not greedy_flat's")
+    barriers = membership.grid_barriers(K)
+    times = timing("padded_greedy", kern, iters)
+    plain_ms = cuda_ms(lambda: ref.padded_greedy_ref(rows, lengths, n=n,
+                                                     k=K), plain_iters)
+    floor_ms = cuda_ms(lambda: greedy.grid_barriers(barriers, dev), iters)
+    r, l = rows.shape
+    return record("padded_greedy", launches, err, times, plain_ms,
+                  padded_greedy_bound(lengths, l, K),
+                  barrier_floor_ms=floor_ms, grid_barriers=barriers,
+                  grid_blocks=blocks, threads=greedy.THREADS,
+                  host_syncs=len(syncs), device_op_names=names,
+                  device_ops_traced=len(dev_ops), calls_traced=calls,
+                  device_op_traces=traces, shape=[r, l], n=n, k=K,
+                  gains_sum=int(got[1].sum()))
+
+
 def padded_phase(store, bit) -> list:
     """The phase-5 pool as a padded store; its greedy must give the bitset
-    selection exactly with K membership launches.  Returns the kernel's
-    record at the path's shape."""
+    selection exactly in one padded_greedy launch, with no membership_rows
+    launch.  Returns the records of padded_greedy and of the standalone
+    membership scan at the path's shape."""
     dev = store.flat.device
     n, t = store.n_nodes, store.n_elems
     flat = store.flat[:t].cpu().numpy()
@@ -2374,32 +2662,48 @@ def padded_phase(store, bit) -> list:
     padded = cov.build_padded_store(lists, n, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = cov.select_seeds_padded(padded, K)
-    torch.cuda.synchronize()
-    select_s = time.perf_counter() - t0
-    launches = ops.launch_counts()
+    select_s = []
+    for _ in range(3):      # the first call loads the kernel
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = cov.select_seeds_padded(padded, K)
+        torch.cuda.synchronize()
+        select_s.append(time.perf_counter() - t0)
+        launches = ops.launch_counts()
+        if launches["padded_greedy"] != 1 or launches["membership_rows"]:
+            raise AssertionError(f"a padded selection launched "
+                                 f"{launches['padded_greedy']} padded_greedy"
+                                 f" and {launches['membership_rows']} "
+                                 f"membership_rows")
     rows, lengths = padded.rows, padded.lengths
     r, l = rows.shape
+    parent = parent_padded_select(padded, K)
     same = {"seeds": torch.equal(res.seeds, bit.seeds),
             "gains": torch.equal(res.gains, bit.gains),
             "frac_f32_bytes": res.frac.cpu().numpy().tobytes()
-            == bit.frac.cpu().numpy().tobytes()}
+            == bit.frac.cpu().numpy().tobytes(),
+            "parent_loop": all(torch.equal(x, y)
+                               for x, y in zip(parent, res))}
+    select_ms = turns_ms({
+        "parent loop": lambda: parent_padded_select(padded, K),
+        "padded_greedy": lambda: cov.select_seeds_padded(padded, K)})
     say("padded_selection", {
         "rows": r, "row_len": l, "n_rr": store.n_rr,
         "padded_bytes": r * l * 4, "valid_elements": int(lengths.sum()),
         "max_rr_size": int(counts.max()), "build_s": build_s,
-        "select_s": select_s, "launches": launches,
-        "equals_bitset": same, "seeds": res.seeds.tolist()[:10]})
-    if launches["membership_rows"] != K:
-        raise AssertionError(f"membership_rows launched "
-                             f"{launches['membership_rows']} times, not {K}")
+        "select_s": select_s[-1], "first_select_s": select_s[0],
+        "select_s_each": select_s, "launches": launches,
+        "select_ms_turns": select_ms, "equals_bitset": same,
+        "seeds": res.seeds.tolist()[:10]})
     if not all(same.values()):
         raise AssertionError(f"padded selection differs from the bitset "
-                             f"selection: {same}")
+                             f"selection or the parent's loop: {same}")
+    greedy_rec = padded_greedy_record(rows, lengths, n, launches)
     u = bit.seeds[:1]
     path = membership_record(rows, lengths, u, launches)
+    path["launches_note"] = ("no path launches it: padded_greedy runs the "
+                             "padded greedy")
     # a larger store: rows drawn from this pool (its size law), u a seed
     gen = torch.Generator(device=dev).manual_seed(3)
     big_r, big_l = BIG_MEMBERSHIP
@@ -2411,7 +2715,7 @@ def padded_phase(store, bit) -> list:
     big[:, :w] = rows[pick, :w]
     say("membership_at_scale", membership_record(big, lengths[pick], u))
     say("membership_ragged", ragged_membership_checks(gen, n))
-    return [path]
+    return [greedy_rec, path]
 
 
 def flash_phase(dev) -> list:
@@ -2515,6 +2819,12 @@ def main() -> int:
     if len(celf_spills) != 4 or any(celf_spills.values()):
         raise AssertionError(f"celf.cu: want 4 kernels without spills, "
                              f"ptxas reports {celf_spills}")
+    membership_spills = ptxas_spills(_build.PTXAS_REPORT["membership"],
+                                     "membership_cu")
+    say("membership_ptxas", membership_spills)
+    if len(membership_spills) != 2 or any(membership_spills.values()):
+        raise AssertionError(f"membership.cu: want 2 kernels without "
+                             f"spills, ptxas reports {membership_spills}")
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)

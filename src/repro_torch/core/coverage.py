@@ -29,15 +29,15 @@ Selection (:func:`select_seeds_device`):
   read (``kernels.ops.celf_select``; the plain version on the CPU).
 
 A store built with ``sketch_k`` keeps the reference's incremental
-coverage sketch: each append folds its batch (the ``sketch_scatter_or``
-kernel) under the row ids it writes.  Without one, :meth:`sketch_words`
+coverage sketch: each append folds its batch (one ``sketch_fold_rows``
+launch) under the row ids it writes.  Without one, :meth:`sketch_words`
 builds the sketch from the pool on demand.
 
 A third layout, :class:`PaddedStore` (the pool as an (R, L) matrix padded
 with n, the reference's layout for its TPU membership kernel), has its
-own greedy, :func:`select_seeds_padded`: the per-seed membership scan is
-the ``membership_rows`` CUDA kernel; Occur and its decrements are
-scatter-adds.
+own greedy, :func:`select_seeds_padded`: all k steps, the membership scans
+and the Occur updates, are one launch of the ``padded_greedy`` CUDA
+kernel (``kernels.ops.padded_greedy``; the plain loop on the CPU).
 
 All these scans take ties to the lowest node id (``torch.argmax`` and
 ``np.argmax`` return the first maximum; the bit matrix's padding ids past
@@ -181,11 +181,8 @@ class DeviceRRStore(_FoldedSketch):
         rid = self._nrr + row_valid.cumsum(0) - 1
         if self._sk_words is not None:
             # after the growth, before the counters move: the reference's
-            # order, so the fold sees the ids that the append writes
-            sketch_mod.fold_frontier_rows(self._sk_words, nodes, lens, rid,
-                                          k=self.sketch_k,
-                                          mode=self.sketch_mode,
-                                          bad=self.fold_error)
+            # order, so the fold numbers the rows as the append does
+            self.fold_batch(nodes, lens)
         if elems:
             t = self._t
             mask = torch.arange(w, device=self.device)[None, :] < lens[:, None]
@@ -197,6 +194,15 @@ class DeviceRRStore(_FoldedSketch):
         self._nrr += rows
         self._bitset = None
         self._sk_cache = None
+
+    def fold_batch(self, nodes: torch.Tensor, lens: torch.Tensor) -> None:
+        """Fold a padded batch into the incremental sketch, its non-empty
+        rows under the ids ``n_rr``, ``n_rr + 1``, ... that the append
+        gives them (``sketch.fold_frontier_packed``: one
+        ``sketch_fold_rows`` launch on the card)."""
+        sketch_mod.fold_frontier_packed(self._sk_words, nodes, lens,
+                                        self._nrr, k=self.sketch_k,
+                                        mode=self.sketch_mode)
 
     def sketch_bytes(self) -> int:
         """Bytes of the incremental sketch (0 without one)."""
@@ -410,42 +416,20 @@ def build_padded_store(rr_lists, n: int, row_len: int | None = None,
 
 
 def select_seeds_padded(store: PaddedStore, k: int) -> CoverageResult:
-    """Greedy selection on a :class:`PaddedStore`, the membership scan by
-    ``kops.membership_rows`` (the CUDA kernel on the card).
-
-    Occur starts as a scatter-add of the valid lanes into n + 1 slots (slot
-    n, the padding value, is dropped).  Each step takes the first maximum
-    of Occur, finds the rows that hold it, and takes the newly covered
-    rows' valid lanes off Occur by the same scatter-add.  The valid lanes
-    are gathered once, before the steps: the reference adds zeros for
-    every padding lane, and on the card those adds all land on slot n,
-    one atomic after another.  The seed stays on the device between
-    steps, so the k steps make no host sync.
-    """
+    """Greedy selection on a :class:`PaddedStore`: all k steps in one
+    ``kops.padded_greedy`` call (the CUDA kernel on the card, the plain
+    loop ``ref.padded_greedy_ref`` on the CPU), with the reference's
+    semantics: Occur counts valid lanes, each step takes the first maximum
+    over all n nodes, and its gain is the rows it newly covers.  The host
+    then reads the row count and the kernel's flag once; a valid lane
+    outside [0, n] raises ``ValueError``."""
     rows, lengths, n = store.rows, store.lengths, store.n_nodes
-    r, l = rows.shape
-    dev = rows.device
-    valid = (torch.arange(l, device=dev)[None, :] < lengths[:, None])
-    elem_row, lane = torch.nonzero(valid, as_tuple=True)
-    elem_node = rows[elem_row, lane].to(torch.int64)
-    occur = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
-        0, elem_node, torch.ones_like(elem_node, dtype=torch.int32))[:n]
-    covered = torch.zeros(r, dtype=torch.bool, device=dev)
-    seeds, gains = [], []
-    for _ in range(k):
-        u = torch.argmax(occur)
-        hit = kops.membership_rows(rows, lengths, u)
-        newly = hit & ~covered
-        dec = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
-            0, elem_node, newly[elem_row].to(torch.int32))
-        occur = occur - dec[:n]
-        covered = covered | hit
-        seeds.append(u)
-        gains.append(newly.sum(dtype=torch.int32))
-    gains = torch.stack(gains).to(torch.int32)
-    n_rr = int((lengths > 0).sum())
-    return CoverageResult(seeds=torch.stack(seeds).to(torch.int32),
-                          gains=gains, frac=_frac(gains, n_rr))
+    seeds, gains, bad = kops.padded_greedy(rows, lengths, n=n, k=k)
+    n_rr, bad = (int(x) for x in torch.stack(
+        [(lengths > 0).sum(), bad[0].to(torch.int64)]).cpu())
+    if bad:
+        raise ValueError(f"a padded row holds a node id outside [0, {n}]")
+    return CoverageResult(seeds=seeds, gains=gains, frac=_frac(gains, n_rr))
 
 
 class SketchRRStore(_FoldedSketch):
@@ -453,18 +437,21 @@ class SketchRRStore(_FoldedSketch):
 
     ``words`` is the (n + 1, sketch_k/32) int32 occupancy matrix (row n is
     the sentinel that padding entries point at).  Each batch folds into it
-    in place (:func:`~repro_torch.core.sketch.fold_frontier_packed`, the
-    scatter-OR kernel on the card) under canonical batch-order row ids, as
-    the reference's fold at mesh size 1 numbers them.  The flat pool, ids
-    and valid buffers of :class:`DeviceRRStore` are never allocated: memory
-    is O(n · sketch_k / 8) whatever θ is.  The host keeps exact row and
-    element counts (one device read per append), which drive θ.
+    in place (:func:`~repro_torch.core.sketch.fold_frontier_packed`, one
+    ``sketch_fold_rows`` launch on the card) under canonical batch-order
+    row ids, as the reference's fold at mesh size 1 numbers them.  The flat
+    pool, ids and valid buffers of :class:`DeviceRRStore` are never
+    allocated: memory is O(n · sketch_k / 8) whatever θ is.  The host keeps
+    exact row and element counts, which drive θ: the fold writes the
+    batch's counts on the device and the append reads them in its one host
+    read.
 
-    ``fold_error`` is a (1,) int32 flag on the device that a fold sets when
-    a pair's bucket lies outside the sketch (the fold reads nothing back).
-    The next append's count read and the selection's one read also read the
-    flag, and raise ``ValueError`` when it is set, so a bad fold raises
-    before any result that follows it is returned.
+    ``fold_error`` is a (1,) int32 flag on the device that a scatter-OR
+    given it sets when a pair's bucket lies outside the sketch (the batch
+    fold's buckets are always inside).  Each append's read and the
+    selection's one read also read the flag, and raise ``ValueError`` when
+    it is set, so a bad fold raises before any result that follows it is
+    returned.
     """
 
     pool_free = True
@@ -482,8 +469,11 @@ class SketchRRStore(_FoldedSketch):
         self.sketch_rows = n_nodes + 1
         self.words = torch.zeros((self.sketch_rows, self.sketch_k // 32),
                                  dtype=torch.int32, device=self.device)
-        self.fold_error = torch.zeros(1, dtype=torch.int32,
-                                      device=self.device)
+        # what an append reads back, in one copy: the fold's counts of the
+        # batch (valid lanes, non-empty rows), then the flag (its low half)
+        self._readback = torch.zeros(3, dtype=torch.int64,
+                                     device=self.device)
+        self.fold_error = self._readback[2:].view(torch.int32)[:1]
         self._nrr = 0      # the θ row counter (host mirror, exact)
         self._t = 0        # element count (stats only)
 
@@ -510,7 +500,10 @@ class SketchRRStore(_FoldedSketch):
 
     def append_batch(self, batch) -> None:
         """Fold one padded batch (an ``RRBatch`` or ``(nodes, lengths)``)
-        into the sketch words: the whole append."""
+        into the sketch words: the whole append.  On the card it is one
+        ``sketch_fold_rows`` launch, which also writes the batch's counts,
+        and one host read of those counts and the flag; a set flag raises
+        before the counters move."""
         nodes, lens = ((batch.nodes, batch.lengths)
                        if hasattr(batch, "nodes") else batch)
         nodes = torch.as_tensor(nodes, device=self.device)
@@ -518,15 +511,12 @@ class SketchRRStore(_FoldedSketch):
         if nodes.dim() != 2 or lens.shape != (nodes.shape[0],):
             raise ValueError("append_batch wants padded (R, W) nodes + (R,) "
                              "lengths")
-        clamped = lens.to(torch.int64).clamp(0, nodes.shape[1])
-        elems, rows, bad = (int(x) for x in torch.stack(
-            [clamped.sum(), (clamped > 0).sum(),
-             self.fold_error[0].to(torch.int64)]).cpu())
-        self.check_folds(bad)
         sketch_mod.fold_frontier_packed(self.words, nodes, lens, self._nrr,
                                         k=self.sketch_k,
                                         mode=self.sketch_mode,
-                                        bad=self.fold_error)
+                                        counts=self._readback[:2])
+        elems, rows, bad = self._readback.tolist()
+        self.check_folds(bad)
         self._t += elems
         self._nrr += rows
 

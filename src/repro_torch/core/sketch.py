@@ -7,10 +7,13 @@ into an (R, k/32) int32 matrix (bit b of word w is bucket w*32 + b; bit 31
 makes a word negative), the layout of the Covered bitset and the bit
 matrix.  A union is a bitwise OR and its occupancy a popcount.
 
-* The fold (:func:`fold_frontier_rows`) commits a batch's raw (node,
-  bucket) pairs through ``kernels.ops.sketch_scatter_or``, in place on the
-  store's words: the CUDA kernel's ``atomicOr`` on the card, the plain
-  dedup-and-add version on the CPU.
+* The fold of a batch (:func:`fold_frontier_packed`, the stores' append)
+  is ``kernels.ops.sketch_fold_rows``, in place on the store's words: on
+  the card one launch that numbers the rows, buckets them and commits each
+  lane with ``atomicOr``; on the CPU the batch's (node, bucket) pairs
+  through the plain dedup-and-add scatter-OR.  A batch under arbitrary row
+  ids (:func:`fold_frontier_rows`) commits its pairs through
+  ``kernels.ops.sketch_scatter_or``.
 * The sweep (:func:`union_gains`) scores every node at once through
   ``kernels.ops.sketch_union_popcount``: ``Δocc(v | S) = popcount(sketch_v
   | cov) − popcount(cov)``, the second term through
@@ -33,9 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.bernoulli import MASK32, mul_u32
-
-_KNUTH = 2654435761    # multiplicative hash of the "mix" bucketing
+# the bucket arithmetic lives beside the fold kernel that computes it
+from repro_torch.kernels.sketch import bucket_of, frontier_pairs
 
 
 def resolve_sketch_k(k: int) -> int:
@@ -45,36 +47,12 @@ def resolve_sketch_k(k: int) -> int:
     return ((k + 31) // 32) * 32
 
 
-def bucket_of(row_ids: torch.Tensor, k: int, mode: str = "mod") -> torch.Tensor:
-    """Bucket of each RR row id as int32.  Row ids are taken mod 2^32 as
-    the reference's uint32 cast does; ``"mix"`` multiplies by 2654435761
-    mod 2^32 before the modulo."""
-    rid = row_ids.to(torch.int64) & MASK32
-    if mode == "mix":
-        rid = mul_u32(rid, _KNUTH)
-    elif mode != "mod":
-        raise ValueError(f"unknown sketch hash mode {mode!r}")
-    return (rid % k).to(torch.int32)
-
-
 def scatter_or_bits(words: torch.Tensor, v: torch.Tensor,
                     b: torch.Tensor) -> torch.Tensor:
     """``words[v] |= 1 << b`` on a copy of ``words``; pairs with ``v``
     outside ``[0, R)`` are dropped.  The reference returns a new array, and
     so does this."""
     return kops.sketch_scatter_or(words.clone(), v, b)
-
-
-def frontier_pairs(nodes: torch.Tensor, lens: torch.Tensor,
-                   row_ids: torch.Tensor, *, n_rows: int, k: int, mode: str):
-    """Flat (v, bucket) int32 pairs of a padded batch: entries past a row's
-    length get ``v = n_rows`` (dropped by the scatter)."""
-    r, w = nodes.shape
-    lens = lens.to(torch.int64).clamp(0, w)
-    mask = torch.arange(w, device=nodes.device)[None, :] < lens[:, None]
-    b = bucket_of(row_ids, k, mode)[:, None].expand(r, w).reshape(-1)
-    v = torch.where(mask, nodes.to(torch.int32), n_rows).reshape(-1)
-    return v, b
 
 
 def fold_frontier_rows(words: torch.Tensor, nodes: torch.Tensor,
@@ -90,21 +68,19 @@ def fold_frontier_rows(words: torch.Tensor, nodes: torch.Tensor,
     return kops.sketch_scatter_or(words, v, b, bad)
 
 
-def canonical_row_ids(lens: torch.Tensor, row_base: int) -> torch.Tensor:
-    """Batch-order RR ids: non-empty rows are numbered from ``row_base``;
-    an empty row shares its predecessor's id and adds no pair."""
-    return row_base + (lens.to(torch.int64) > 0).cumsum(0) - 1
-
-
 def fold_frontier_packed(words: torch.Tensor, nodes: torch.Tensor,
                          lens: torch.Tensor, row_base: int, *, k: int,
-                         mode: str, bad: torch.Tensor | None = None
+                         mode: str, counts: torch.Tensor | None = None
                          ) -> torch.Tensor:
-    """:func:`fold_frontier_rows` with canonical batch-order row ids
-    (``row_base`` = rows folded before this batch)."""
-    return fold_frontier_rows(words, nodes, lens,
-                              canonical_row_ids(lens, row_base), k=k,
-                              mode=mode, bad=bad)
+    """Fold a padded batch into ``words`` in place under canonical
+    batch-order row ids (``row_base`` = rows folded before this batch), as
+    :func:`fold_frontier_rows` would with those ids, through
+    ``kernels.ops.sketch_fold_rows``: one launch on the card, which reads
+    the batch as it lies and numbers its rows itself.  A (2,) int64
+    ``counts`` gets the batch's valid lanes and non-empty rows.  Returns
+    ``words``."""
+    return kops.sketch_fold_rows(words, nodes, lens, row_base, k=k,
+                                 mode=mode, counts=counts)
 
 
 def sketch_packed_from_flat(flat: torch.Tensor, ids: torch.Tensor,

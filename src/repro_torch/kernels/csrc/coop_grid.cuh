@@ -1,6 +1,6 @@
 // The grid of a cooperative kernel that runs one block on each SM, shared
-// by greedy.cu and celf.cu: the checks that such a grid can be launched,
-// read once a card by the caller.
+// by greedy.cu, celf.cu and membership.cu: the checks that such a grid can
+// be launched, read once a card by the caller.
 #pragma once
 
 #include <cstdint>
@@ -46,5 +46,26 @@ inline cudaError_t one_block_an_sm(const void* with_shared,
   if (resident < 1) return cudaErrorCooperativeLaunchTooLarge;
   *sms = count;
   *bytes = limit;
+  return cudaSuccess;
+}
+
+// One block of `threads` on each SM of card `device` for `kernel`, which
+// takes no dynamic shared memory: the SM count in *sms when a block of it
+// stays resident and the card launches cooperatively.
+inline cudaError_t cooperative_sms(const void* kernel, int threads,
+                                   int device, int* sms) {
+  int coop = 0, count = 0, resident = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                               device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                      threads, 0);
+  if (err != cudaSuccess) return err;
+  if (resident < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *sms = count;
   return cudaSuccess;
 }

@@ -4,6 +4,11 @@
 // Replace the TPU kernels of the JAX reference:
 //   src/repro/kernels/sketch.py: sketch_scatter_or     (_scatter_or_kernel)
 //   src/repro/kernels/sketch.py: sketch_union_popcount (_union_popcount_kernel)
+// sketch_fold_rows is sketch_scatter_or's counterpart on its path: the
+// reference's fold of a padded batch (src/repro/core/sketch.py:107
+// fold_batch_packed, :163 fold_frontier_packed) builds the (node, bucket)
+// pairs in XLA and scatters them with that kernel; here one launch does
+// both, on the sampler's batch as it lies.
 //
 // Packed words arrive as int32 tensors and are read and written here as
 // uint32: bit b of word w of row r is bucket w*32 + b of node r's sketch.
@@ -20,6 +25,44 @@
 //   commutative, so the result is exact in any order and duplicates need
 //   no dedup (the plain version dedups only because torch has no
 //   OR-scatter).  The update is in place on the caller's words.
+//
+// sketch_fold_rows: for every row i with lens[i] > 0 and every lane j <
+//   min(lens[i], W) of the (B, W) batch `nodes`, words[nodes[i, j],
+//   b_i >> 5] |= 1 << (b_i & 31), b_i = bucket_of(row_base + rank_i), where
+//   rank_i is the number of non-empty rows before row i; row ids wrap at
+//   2^32, and "mix" multiplies by 2654435761 mod 2^32 before the modulo by
+//   k (1 <= k <= 32 x cols, so a bucket is always in range).  Nodes
+//   outside [0, R) are dropped.  Given `counts`, the batch's valid lanes
+//   and non-empty rows go to counts[0] and counts[1] (int64).
+//   What bounds it: bytes.  It reads the lengths and the valid lanes once
+//   and read-modify-writes one 32-byte sector per distinct word sector
+//   that the in-range lanes touch; one OR per lane.  At the approximate
+//   cell a batch is 512 rows and ~2,000 lanes: the kernel's bytes take
+//   well under a microsecond, and the launch, with what surrounded it
+//   before, is the time.
+//   Design.  The pair form (frontier_pairs + sketch_scatter_or) took about
+//   a dozen PyTorch operations a fold to build and copy the flat pairs, a
+//   copy of the sampler's strided queue view among them, and a torch
+//   cumsum for the ranks.  Here a block of kFoldThreads owns as many
+//   consecutive rows, one thread a row for its length and bucket:
+//   - the ranks: each block counts the non-empty rows (and valid lanes)
+//     before its own by reading the lengths ahead of it (B int32, from
+//     L2), then scans its rows' flags and lengths, so no second launch
+//     and no torch cumsum;
+//   - the lanes: the block's valid lanes are laid end to end by that scan
+//     and its threads walk them together (a position's row by a binary
+//     search over the block's offsets in shared memory), so neighbouring
+//     threads load neighbouring lanes of a row, with the row's word index
+//     and bit from shared memory; a warp a row would leave 28 of 32 lanes
+//     idle at the mean RR size of ~4 and serialise a block's rows;
+//   - nodes are read through the row stride the caller gives, so the
+//     sampler's (B, qcap) queue is read in place, not copied to (B, W);
+//   - the last block has read every length before its own, so it writes
+//     the batch's totals, with no atomics and no memset.
+//   Hub nodes (ids 0-4 of the stand-in) sit in most rows, so a hub's few
+//   words take one atomicOr from each of those rows; chip_smoke.py
+//   measures that against the same batch with uniform node ids
+//   (fold_hub_probe) before any aggregation is added.
 //
 // sketch_union_popcount: out[r] = sum_w popcount(words[r, w] | cov[w]).
 //   What bounds it: bytes.  It reads the (R, W) matrix once, cov once and
@@ -46,6 +89,9 @@
 namespace {
 
 constexpr int kScatterThreads = 256;
+constexpr int kFoldThreads = 128;      // threads and rows of a fold block
+constexpr int kFoldWarps = kFoldThreads / 32;
+constexpr uint32_t kMixMultiplier = 2654435761u;
 constexpr int kUnionThreads = 256;
 constexpr int kMaxSharedCov = 12288;   // 48 KB of uint32, the static limit
 constexpr int64_t kMaxUnionBlocks = 132 * 8;
@@ -65,6 +111,80 @@ __global__ void scatter_or_kernel(uint32_t* __restrict__ words,
   const int64_t r = v[e];
   if (r < 0 || r >= rows) return;
   atomicOr(words + r * cols + (b >> 5), 1u << (b & 31));
+}
+
+// The block's exclusive sum of its threads' x (.x) and the block's total
+// (.y), in every thread.
+__device__ __forceinline__ longlong2 fold_block_scan(int64_t x,
+                                                     int64_t* part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int64_t incl = x;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int64_t y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) part[warp] = incl;
+  __syncthreads();
+  int64_t before = 0, total = 0;
+  for (int w = 0; w < kFoldWarps; ++w) {
+    before += w < warp ? part[w] : 0;
+    total += part[w];
+  }
+  __syncthreads();
+  return make_longlong2(before + incl - x, total);
+}
+
+__global__ void __launch_bounds__(kFoldThreads)
+fold_rows_kernel(uint32_t* __restrict__ words,
+                 const int32_t* __restrict__ nodes, int64_t row_stride,
+                 const int32_t* __restrict__ lens, int64_t batch,
+                 int64_t width, int64_t rows, int64_t cols,
+                 uint32_t row_base, uint32_t k, bool mix,
+                 int64_t* __restrict__ counts) {
+  __shared__ int64_t part[kFoldWarps];
+  __shared__ int64_t s_off[kFoldThreads + 1];
+  __shared__ uint32_t s_word[kFoldThreads], s_bit[kFoldThreads];
+  const int t = threadIdx.x;
+  const int64_t r0 = int64_t(blockIdx.x) * kFoldThreads;
+  // the non-empty rows and valid lanes before this block's rows
+  int64_t rows_before = 0, lanes_before = 0;
+  for (int64_t i = t; i < r0; i += kFoldThreads) {
+    int64_t l = __ldg(lens + i);
+    l = l < 0 ? 0 : (l > width ? width : l);
+    rows_before += l > 0;
+    lanes_before += l;
+  }
+  // this thread's row: its length, then both scans (a row's flag in the
+  // low 8 bits: at most kFoldThreads of them)
+  const int64_t i = r0 + t;
+  int64_t len = i < batch ? int64_t(__ldg(lens + i)) : 0;
+  len = len < 0 ? 0 : (len > width ? width : len);
+  const longlong2 sum_rows = fold_block_scan(rows_before, part);
+  const longlong2 sum_lanes = fold_block_scan(lanes_before, part);
+  const longlong2 mine = fold_block_scan((len << 8) | (len > 0), part);
+  const int64_t rows_ahead = sum_rows.y, lanes_ahead = sum_lanes.y;
+  uint32_t h = row_base + uint32_t(rows_ahead) + uint32_t(mine.x & 0xFF);
+  if (mix) h *= kMixMultiplier;
+  const uint32_t b = h % k;
+  s_word[t] = b >> 5;
+  s_bit[t] = 1u << (b & 31);
+  s_off[t] = mine.x >> 8;
+  if (t == kFoldThreads - 1) s_off[kFoldThreads] = mine.y >> 8;
+  __syncthreads();
+  const int64_t total = s_off[kFoldThreads];
+  if (counts != nullptr && t == 0 && blockIdx.x == gridDim.x - 1) {
+    counts[0] = lanes_ahead + total;
+    counts[1] = rows_ahead + (mine.y & 0xFF);
+  }
+  for (int64_t p = t; p < total; p += kFoldThreads) {
+    int row = 0;                       // the last row whose offset <= p
+    for (int half = kFoldThreads / 2; half > 0; half >>= 1)
+      if (s_off[row + half] <= p) row += half;
+    const int64_t j = p - s_off[row];
+    const uint32_t v = uint32_t(__ldg(nodes + (r0 + row) * row_stride + j));
+    if (v < uint64_t(rows))
+      atomicOr(words + int64_t(v) * cols + s_word[row], s_bit[row]);
+  }
 }
 
 // one thread a row, W <= 4 words (kVector: W == 4, one 16-byte load)
@@ -185,6 +305,30 @@ extern "C" int sketch_scatter_or(void* words, const void* v,
       static_cast<uint32_t*>(words), static_cast<const int32_t*>(v),
       static_cast<const int32_t*>(bucket), pairs, rows, cols,
       static_cast<int32_t*>(bad));
+  return int(cudaGetLastError());
+}
+
+// nodes: (batch, width) int32 at `row_stride` elements a row, lanes
+// contiguous; lens: batch int32 (clamped to [0, width] here); words: rows
+// x cols uint32, changed in place; row_base: the first row id mod 2^32;
+// 1 <= k <= 32 x cols; mix: 0 ("mod") or 1 ("mix"); counts: 2 int64 or
+// null.
+extern "C" int sketch_fold_rows(void* words, const void* nodes,
+                                int64_t row_stride, const void* lens,
+                                int64_t batch, int64_t width, int64_t rows,
+                                int64_t cols, uint32_t row_base, uint32_t k,
+                                int mix, void* counts, int device,
+                                void* stream) {
+  if (batch <= 0 || k < 1 || int64_t(k) > 32 * cols)
+    return int(batch == 0 ? cudaGetLastError() : cudaErrorInvalidValue);
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return int(guard.err);
+  const int64_t blocks = (batch + kFoldThreads - 1) / kFoldThreads;
+  fold_rows_kernel<<<unsigned(blocks), kFoldThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(words), static_cast<const int32_t*>(nodes),
+      row_stride, static_cast<const int32_t*>(lens), batch, width, rows,
+      cols, row_base, k, mix != 0, static_cast<int64_t*>(counts));
   return int(cudaGetLastError());
 }
 

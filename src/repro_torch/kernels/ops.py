@@ -70,6 +70,21 @@ def sketch_scatter_or(words: torch.Tensor, v: torch.Tensor,
     return _ref.sketch_scatter_or_ref(words, v, bucket, bad)
 
 
+def sketch_fold_rows(words: torch.Tensor, nodes: torch.Tensor,
+                     lens: torch.Tensor, row_base: int, *, k: int, mode: str,
+                     counts: torch.Tensor | None = None) -> torch.Tensor:
+    """Fold a padded (B, W) batch into ``words`` in place, its non-empty
+    rows numbered from ``row_base`` in batch order and bucketed by
+    ``mode``; ``counts``, a (2,) int64 tensor on the words' device, gets
+    the batch's valid lanes and non-empty rows.  The same bytes on either
+    route (``ref.sketch_fold_rows_ref`` says what they hold)."""
+    if _route(words) == "cuda":
+        return _sketch.sketch_fold_rows(words, nodes, lens, row_base, k=k,
+                                        mode=mode, counts=counts)
+    return _ref.sketch_fold_rows_ref(words, nodes, lens, row_base, k=k,
+                                     mode=mode, counts=counts)
+
+
 def sketch_union_popcount(words: torch.Tensor,
                           cov: torch.Tensor) -> torch.Tensor:
     if _route(words) == "cuda":
@@ -202,6 +217,18 @@ def membership_rows(rows: torch.Tensor, lengths: torch.Tensor,
     if _route(rows) == "cuda":
         return _membership.membership_rows(rows, lengths, u)
     return _ref.membership_rows_ref(rows, lengths, u)
+
+
+def padded_greedy(rows: torch.Tensor, lengths: torch.Tensor, *, n: int,
+                  k: int):
+    """``k`` steps of the padded store's greedy: (R, L) int32 rows padded
+    past each length, (R,) lengths -> ``(seeds (k,), gains (k,), bad (1,))``
+    int32, ``bad`` nonzero when a valid lane lies outside [0, n]; the same
+    bytes on either route (``ref.padded_greedy_ref`` says what they
+    hold)."""
+    if _route(rows) == "cuda":
+        return _membership.padded_greedy(rows, lengths, n=n, k=k)
+    return _ref.padded_greedy_ref(rows, lengths, n=n, k=k)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

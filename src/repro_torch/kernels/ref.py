@@ -18,6 +18,8 @@ import torch
 from repro_torch.core.packing import bit_values, to_int32_bits
 from repro_torch.core.roots import draw_roots, row_seeds
 from repro_torch.kernels.bernoulli import MASK32, counter_uniform_u32, mul_u32
+from repro_torch.kernels.sketch import (canonical_row_ids, check_fold,
+                                        frontier_pairs)
 
 # rows per block of the Occur histograms: a (block, W, 32) bit tensor stays
 # near 2^28 elements whatever the matrix size
@@ -517,6 +519,29 @@ def sketch_scatter_or_ref(words: torch.Tensor, v: torch.Tensor,
     return words
 
 
+def sketch_fold_rows_ref(words: torch.Tensor, nodes: torch.Tensor,
+                         lens: torch.Tensor, row_base: int, *, k: int,
+                         mode: str, counts: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """Fold a padded batch into ``words`` in place: for every row i with
+    ``lens[i] > 0`` and every lane j < min(lens[i], W), ``words[nodes[i,
+    j], b_i >> 5] |= 1 << (b_i & 31)`` with ``b_i`` the bucket of row id
+    ``row_base`` + (non-empty rows before i) (``kernels.sketch.bucket_of``:
+    ids mod 2^32, ``"mix"`` hashed); nodes outside ``[0, R)`` are dropped.
+    As pairs: the batch's (v, bucket) pairs (``frontier_pairs``) through
+    :func:`sketch_scatter_or_ref`.  Given a (2,) int64 ``counts``, the
+    batch's valid lanes and non-empty rows go there.  Returns ``words``."""
+    k = int(k)
+    check_fold(words, nodes, lens, k=k, mode=mode)
+    clamped = lens.to(torch.int64).clamp(0, nodes.shape[1])
+    v, b = frontier_pairs(nodes, clamped, canonical_row_ids(lens, row_base),
+                          n_rows=words.shape[0], k=k, mode=mode)
+    sketch_scatter_or_ref(words, v, b)
+    if counts is not None:
+        counts.copy_(torch.stack([clamped.sum(), (clamped > 0).sum()]))
+    return words
+
+
 def sketch_union_popcount_ref(words: torch.Tensor,
                               cov: torch.Tensor) -> torch.Tensor:
     """``out[r] = sum_w popcount(words[r, w] | cov[w])``: (R, W) and (W,)
@@ -569,6 +594,50 @@ def membership_rows_ref(rows: torch.Tensor, lengths: torch.Tensor,
     lane = torch.arange(rows.shape[1], device=rows.device)[None, :]
     valid = lane < lengths[:, None]
     return ((rows == u) & valid).any(dim=1)
+
+
+def padded_greedy_ref(rows: torch.Tensor, lengths: torch.Tensor, *, n: int,
+                      k: int):
+    """The padded store's greedy, k steps: (R, L) int32 ``rows`` padded
+    past each length, (R,) ``lengths`` -> ``(seeds (k,), gains (k,), bad
+    (1,))`` int32.
+
+    Occur starts as a scatter-add of the valid lanes into n + 1 slots (slot
+    n, the padding value, is dropped): a node twice in a row counts twice.
+    Each step takes u, the first maximum of Occur over all n nodes (picked
+    nodes are not left out), finds the rows that hold it
+    (:func:`membership_rows_ref`), and takes the newly covered rows' valid
+    lanes off Occur by the same scatter-add; its gain is the newly covered
+    rows.  The valid lanes are gathered once, before the steps (the
+    reference adds zeros for every padding lane).  A valid lane outside [0,
+    n] counts for no node and sets ``bad`` (where the scatter-add would
+    fault); the caller raises on it.  The seed stays on the device between
+    steps, so on a card the k steps make no host sync beyond the gather.
+    """
+    r, l = rows.shape
+    dev = rows.device
+    valid = (torch.arange(l, device=dev)[None, :] < lengths[:, None])
+    elem_row, lane = torch.nonzero(valid, as_tuple=True)
+    elem_node = rows[elem_row, lane].to(torch.int64)
+    inside = (elem_node >= 0) & (elem_node <= n)
+    bad = (~inside).any().to(torch.int32).reshape(1)
+    elem_row, elem_node = elem_row[inside], elem_node[inside]
+    occur = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
+        0, elem_node, torch.ones_like(elem_node, dtype=torch.int32))[:n]
+    covered = torch.zeros(r, dtype=torch.bool, device=dev)
+    seeds, gains = [], []
+    for _ in range(k):
+        u = torch.argmax(occur)
+        hit = membership_rows_ref(rows, lengths, u)
+        newly = hit & ~covered
+        dec = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
+            0, elem_node, newly[elem_row].to(torch.int32))
+        occur = occur - dec[:n]
+        covered = covered | hit
+        seeds.append(u)
+        gains.append(newly.sum(dtype=torch.int32))
+    return (torch.stack(seeds).to(torch.int32),
+            torch.stack(gains).to(torch.int32), bad)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

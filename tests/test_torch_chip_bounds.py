@@ -253,6 +253,79 @@ def test_membership_bound_counts_the_sectors_of_valid_prefixes(h100):
     assert b["bound_bytes_ms"] == pytest.approx((32 * 4 + 12 + 4 + 3) / 3.35e9)
 
 
+def test_padded_greedy_bound_counts_the_prefixes_once_and_k_scans(h100):
+    """The valid prefixes' sectors and the lengths read once, 2k + 1
+    outputs written; k compares a valid lane: at k = 50 on rows of 128
+    lanes the compares (on the ALU) outweigh the bytes."""
+    import torch
+    lens = torch.tensor([0, 1, 8, 9, 128, 300, -4])
+    b = smoke.padded_greedy_bound(lens, 128, 50)
+    sectors, lanes = 0 + 1 + 1 + 2 + 16 + 16 + 0, 1 + 8 + 9 + 128 + 128
+    assert (b["prefix_sectors"], b["valid_lanes"]) == (sectors, lanes)
+    assert b["bound_bytes_ms"] == pytest.approx(
+        (32 * sectors + 4 * 7 + 4 * 101) / 3.35e9)
+    alu_s = H100_SMS * 64 * H100_MHZ * 1e6
+    assert b["bound_ops_class"] == "alu"
+    assert b["bound_ops_ms"] == pytest.approx(50 * lanes / alu_s * 1e3)
+    one = smoke.padded_greedy_bound(lens, 128, 1)
+    assert one["bound_by"] == "bytes" and b["bound_by"] == "operations"
+
+
+def test_padded_greedy_bound_at_the_exact_cell(h100):
+    """8,704 rows of 128 lanes, 35,538 valid, k = 50: the 1.78 million
+    compares bound it at about 0.1 us, far below its barrier floor."""
+    import torch
+    rng = np.random.default_rng(0)
+    lens = torch.tensor(rng.multinomial(35_538 - 8_704, np.ones(8_704)
+                                        / 8_704) + 1)
+    b = smoke.padded_greedy_bound(lens, 128, 50)
+    assert b["valid_lanes"] == 35_538
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(50 * 35_538 / (
+        H100_SMS * 64 * H100_MHZ * 1e6) * 1e3)
+
+
+def test_fold_bound_counts_valid_lanes_and_distinct_sectors(h100):
+    """Rows 0 and 2 hold lanes (row 1 is empty, row 3 past W counts W);
+    row ids 7, 8, 9 (row 1 takes none) bucket mod 64 into words 0 and 1;
+    node 9 lies past R = 6 and adds no sector.  Sectors of 8 words: node
+    v's word w is word 2v + w of the matrix."""
+    import torch
+    words = torch.zeros(6, 2, dtype=torch.int32)
+    nodes = torch.tensor([[1, 2, 9], [0, 0, 0], [5, 5, 0], [3, 4, 1]])
+    lens = torch.tensor([2, 0, 1, 8])
+    b = smoke.fold_bound_ms(words, nodes, lens, 7, k=64, mode="mod")
+    assert b["valid_lanes"] == 2 + 0 + 1 + 3
+    # buckets: row 0 -> 7 (word 0), row 2 -> 8 (word 0), row 3 -> 9;
+    # words 2, 4, 10, 6, 8, 2 -> sectors 0 and 1
+    assert b["word_sectors"] == 2
+    assert b["bound_bytes_ms"] == pytest.approx(
+        (4 * 4 + 4 * 6 + 64 * 2 + 16) / 3.35e9)
+    assert b["bound_by"] == "bytes"
+
+
+def test_fold_bound_reads_the_batch_as_the_kernel_does(h100):
+    """A strided view of a wider queue gives the bound of its contiguous
+    copy, and the sectors are the scatter's over the same pairs."""
+    import torch
+    from repro_torch.kernels import sketch as tks
+    rng = np.random.default_rng(3)
+    queue = torch.tensor(rng.integers(0, 90, (64, 20)).astype(np.int32))
+    nodes, lens = queue[:, :9], torch.tensor(rng.integers(-1, 12, 64))
+    words = torch.zeros(80, 4, dtype=torch.int32)
+    for mode in ("mod", "mix"):
+        got = smoke.fold_bound_ms(words, nodes, lens, 2 ** 32 - 3, k=128,
+                                  mode=mode)
+        assert got == smoke.fold_bound_ms(words, nodes.contiguous(), lens,
+                                          2 ** 32 - 3, k=128, mode=mode)
+        v, b = tks.frontier_pairs(nodes, lens, tks.canonical_row_ids(
+            lens, 2 ** 32 - 3), n_rows=80, k=128, mode=mode)
+        pairs = smoke.scatter_bound_ms(words, v, b)
+        sectors = (pairs["bound_bytes_ms"] * 3.35e9 - 8 * v.numel()) / 64
+        assert got["word_sectors"] == pytest.approx(sectors)
+        assert got["valid_lanes"] == int(lens.clamp(0, 9).sum())
+
+
 @pytest.mark.parametrize("shape,causal,pairs", [
     ((2, 2048, 16, 128), True, 2048 * 2049 // 2),
     ((1, 4096, 14, 64), False, 4096 * 4096),
@@ -457,6 +530,19 @@ PROFILER_NAMES = {
     "frontier_update": "void (anonymous namespace)::frontier_update_kernel("
                        "unsigned int const*, unsigned int*, long, bool, "
                        "unsigned int*)",
+    "sketch_fold_rows": "void (anonymous namespace)::fold_rows_kernel("
+                        "unsigned int*, int const*, long, int const*, long, "
+                        "long, long, long, unsigned int, unsigned int, "
+                        "bool, long*)",
+    "sketch_scatter_or": "void (anonymous namespace)::scatter_or_kernel("
+                         "unsigned int*, int const*, int const*, long, "
+                         "long, long, int*)",
+    "membership_rows": "void (anonymous namespace)::membership_kernel(int "
+                       "const*, int const*, int const*, int, long, long, "
+                       "unsigned char*)",
+    "padded_greedy": "void (anonymous namespace)::padded_greedy_kernel(int "
+                     "const*, int const*, long, long, int, int, int, long, "
+                     "unsigned long long*, int*, unsigned char*, int*)",
 }
 # further names of the same records' kernels
 PROFILER_ALSO = {
@@ -728,6 +814,65 @@ def test_parent_sketch_select_equals_the_store_selection():
         assert got.frac.numpy().tobytes() == want.frac.numpy().tobytes()
         assert got_info == want_info
     assert got.seeds[-5:].tolist() == [40] * 5
+
+
+def test_parent_sketch_append_equals_the_store_append():
+    """The parent's fold, kept as the before figure, gives the store's own
+    append: words, rows and elements, over batches with empty rows,
+    lengths past W and a strided view."""
+    import torch
+    from types import SimpleNamespace
+    from repro_torch.core import coverage as cov
+    rng = np.random.default_rng(4)
+    stores = [cov.SketchRRStore(50, sketch_k=96, sketch_mode=mode,
+                                device="cpu") for mode in ("mix", "mix")]
+    for _ in range(3):
+        queue = torch.tensor(rng.integers(0, 52, (40, 11)).astype(np.int32))
+        batch = SimpleNamespace(nodes=queue[:, :6], lengths=torch.tensor(
+            rng.integers(-1, 9, 40).astype(np.int32)))
+        smoke.parent_sketch_append(stores[0], batch)
+        stores[1].append_batch(batch)
+    assert torch.equal(stores[0].words, stores[1].words)
+    assert (stores[0].n_rr, stores[0].n_elems) == \
+        (stores[1].n_rr, stores[1].n_elems)
+
+
+def test_parent_padded_select_equals_the_padded_selection():
+    """The parent's loop, kept as the before figure, gives the padded
+    greedy's seeds, gains and frac bytes (repeated nodes, k past n)."""
+    import torch
+    from repro_torch.core import coverage as cov
+    rng = np.random.default_rng(6)
+    lists = [rng.integers(0, 15, int(rng.integers(0, 7))).tolist()
+             for _ in range(200)]
+    store = cov.build_padded_store(lists, 15, device="cpu")
+    for k in (4, 20):
+        want = cov.select_seeds_padded(store, k)
+        got = smoke.parent_padded_select(store, k)
+        assert torch.equal(got.seeds, want.seeds)
+        assert torch.equal(got.gains, want.gains)
+        assert got.frac.numpy().tobytes() == want.frac.numpy().tobytes()
+
+
+# ``-Xptxas -v`` of csrc/membership.cu built for sm_90a (CUDA 12.8)
+MEMBERSHIP_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__6506d55f_13_membership_cu_71b4c16a20padded_greedy_kernelEPKiS1_lliiilPyPiPhS3_' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__6506d55f_13_membership_cu_71b4c16a20padded_greedy_kernelEPKiS1_lliiilPyPiPhS3_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers, 140 bytes smem
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__6506d55f_13_membership_cu_71b4c16a17membership_kernelEPKiS1_S1_illPh' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__6506d55f_13_membership_cu_71b4c16a17membership_kernelEPKiS1_S1_illPh
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 23 registers, used 0 barriers
+"""
+
+
+def test_ptxas_spills_reads_both_membership_kernels():
+    """Phase 2's check of csrc/membership.cu: two kernels, no spill."""
+    spills = smoke.ptxas_spills(MEMBERSHIP_PTXAS, "membership_cu")
+    assert len(spills) == 2 and not any(spills.values())
+    assert sorted("greedy" if "padded_greedy_kernel" in name else "scan"
+                  for name in spills) == ["greedy", "scan"]
 
 
 # ``-Xptxas -v`` of csrc/celf.cu built for sm_90a (CUDA 12.8)

@@ -204,7 +204,7 @@ def test_approximate_exact_regime_on_card_equals_bitset(card):
                        device=card).solve(IMProblem(k=10, theta=2048,
                                                     mode="approximate"))
     counts = ops.launch_counts()
-    assert counts["sketch_scatter_or"] > 0
+    assert counts["sketch_fold_rows"] > 0 and counts["sketch_scatter_or"] == 0
     assert counts["greedy_sketch"] > 0 and counts["popcount_words"] == 0
     np.testing.assert_array_equal(approx.seeds, bit.seeds)
     np.testing.assert_array_equal(approx.gains, bit.gains)
@@ -375,6 +375,248 @@ def test_membership_wrapper_checks_inputs(card):
         tmem.membership_rows(rows, lens, torch.tensor([1, 2], device=card))
     with pytest.raises(TypeError):
         tmem.membership_rows(rows, lens, torch.tensor(1.0, device=card))
+    with pytest.raises(ValueError, match="fit int32"):
+        tmem.membership_rows(rows, lens, 1 << 31)
+
+
+def _sync_count(fn):
+    """``fn()`` under torch's sync debug mode -> (its result, the host
+    syncs it made)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, [w for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+@pytest.mark.cuda
+def test_membership_int_u_goes_by_value(card):
+    """An int u needs no tensor of its own: the call makes no host sync and
+    gives what a u on the card gives."""
+    rows = torch.tensor(RNG.integers(0, 9, (300, 5)).astype(np.int32),
+                        device=card)
+    lens = torch.tensor(RNG.integers(0, 6, 300).astype(np.int32),
+                        device=card)
+    ops.membership_rows(rows, lens, 1)                    # builds the kernel
+    torch.cuda.synchronize()
+    for u in (0, 4, 8, 9, -(1 << 31)):
+        got, syncs = _sync_count(lambda: ops.membership_rows(rows, lens, u))
+        assert not syncs
+        assert torch.equal(got, ops.membership_rows(
+            rows, lens, torch.tensor([u], dtype=torch.int32, device=card)))
+        assert torch.equal(got.cpu(), ref.membership_rows_ref(
+            rows.cpu(), lens.cpu(), u))
+
+
+def _padded_cases():
+    """(rows, lengths, n, k) of test_torch_padded's generators: random
+    lists, lists with a node repeated in a row, k above the distinct nodes,
+    empty rows, a row length off 128 and a lane holding n."""
+    out = []
+    for seed, n, count, k, hi in ((0, 60, 400, 5, 12), (4, 60, 400, 30, 12),
+                                  (5, 500, 300, 12, 12), (6, 300, 1000, 20,
+                                                          15),
+                                  (7, 40, 2000, 50, 40)):
+        rng = np.random.default_rng(seed)
+        lists = [rng.choice(n, size=int(rng.integers(0, hi)),
+                            replace=False).tolist() for _ in range(count)]
+        out.append((lists, n, k))
+    rng = np.random.default_rng(8)
+    lists = [rng.integers(0, 12, int(rng.integers(0, 9))).tolist()
+             for _ in range(500)]                 # repeats in a row
+    lists[3] = [5, 5, 5, 2]
+    out.append((lists, 12, 20))                   # k above the 12 nodes
+    out.append(([[0, 1], [], [1, 2, 12], [3]] * 40, 12, 6))   # 12 = n
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(7))
+def test_padded_greedy_kernel_equals_plain(card, case):
+    """One padded_greedy launch, no host sync, and the plain loop's seeds,
+    gains and flag exactly."""
+    lists, n, k = _padded_cases()[case]
+    store = cov.build_padded_store(lists, n, device="cpu")
+    want = ref.padded_greedy_ref(store.rows, store.lengths, n=n, k=k)
+    rows, lens = store.rows.to(card), store.lengths.to(card)
+    ops.padded_greedy(rows, lens, n=n, k=k)               # builds the kernel
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got, syncs = _sync_count(lambda: ops.padded_greedy(rows, lens, n=n, k=k))
+    assert not syncs
+    assert ops.launch_counts()["padded_greedy"] == 1
+    assert ops.launch_counts()["membership_rows"] == 0
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype == torch.int32
+        assert torch.equal(x.cpu(), y)
+    # int64 lengths past L and below 0 clamp as the plain version's do
+    wide = store.lengths.to(torch.int64)
+    wide[:3] = torch.tensor([-4, 1 << 40, store.rows.shape[1] + 1])
+    got = ops.padded_greedy(rows, wide.to(card), n=n, k=k)
+    want = ref.padded_greedy_ref(store.rows, wide, n=n, k=k)
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_padded_greedy_flags_lanes_outside_the_nodes(card):
+    """A valid lane below 0 or past n sets the flag on both routes, and the
+    selection raises; lanes past a row's length are never read."""
+    rows = torch.tensor([[0, 1, 9], [2, -1, 9], [4, 1, 9]],
+                        dtype=torch.int32)
+    for lens, bad in (([2, 1, 1], 0), ([2, 2, 1], 1), ([2, 1, 1 << 20], 1)):
+        lens = torch.tensor(lens, dtype=torch.int32)
+        want = ref.padded_greedy_ref(rows, lens, n=5, k=3)
+        got = ops.padded_greedy(rows.to(card), lens.to(card), n=5, k=3)
+        assert want[2].tolist() == [bad]
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
+        store = cov.PaddedStore(rows=rows.to(card), lengths=lens.to(card),
+                                n_nodes=5)
+        if bad:
+            with pytest.raises(ValueError, match="outside"):
+                cov.select_seeds_padded(store, 3)
+        else:
+            assert cov.select_seeds_padded(store, 3).seeds.tolist() == \
+                want[0].tolist()
+
+
+@pytest.mark.cuda
+def test_padded_greedy_wrapper_checks_inputs(card):
+    rows = torch.zeros(8, 128, dtype=torch.int32, device=card)
+    lens = torch.zeros(8, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        tmem.padded_greedy(rows.to(torch.int64), lens, n=4, k=2)
+    with pytest.raises(ValueError):
+        tmem.padded_greedy(rows[:, ::2], lens, n=4, k=2)
+    with pytest.raises(ValueError):
+        tmem.padded_greedy(rows, lens[:7], n=4, k=2)
+    with pytest.raises(ValueError):
+        tmem.padded_greedy(rows, lens, n=0, k=2)
+    with pytest.raises(ValueError):
+        tmem.padded_greedy(rows, lens, n=4, k=0)
+    assert tmem.greedy_grid(card) == torch.cuda.get_device_properties(
+        card).multi_processor_count
+
+
+def _fold_case(case):
+    """(words, nodes, lens, row_base, k, mode) of one fold case: k off a
+    power of two, empty rows in the middle, lengths below 0 and past W,
+    nodes at and past R in valid lanes, a strided view of a wider queue,
+    row ids across 2^32, a batch past one block of the kernel."""
+    rng = np.random.default_rng(100 + case)
+    b, w, n, k, base, mode = ((61, 9, 70, 96, 0, "mod"),
+                              (61, 9, 70, 96, 37, "mix"),
+                              (300, 12, 500, 256, 2 ** 32 - 90, "mix"),
+                              (300, 12, 500, 128, 2 ** 32 - 90, "mod"),
+                              (1000, 30, 2000, 4096, 2 ** 31 - 5, "mix"),
+                              (129, 1, 40, 32, 5, "mod"),
+                              (512, 21, 75880, 128, 8190, "mod"))[case]
+    queue = rng.integers(0, n + 3, (b, w + 7)).astype(np.int32)
+    nodes = torch.tensor(queue)[:, :w]                # row stride w + 7
+    lens = torch.tensor(rng.integers(-2, w + 3, b).astype(np.int32))
+    lens[b // 2: b // 2 + 5] = 0
+    words = torch.tensor(rng.integers(0, 1 << 32, (n + 1, k // 32),
+                                      dtype=np.int64).astype(np.uint32)
+                         .view(np.int32))
+    return words, nodes, lens, base, k, mode
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(7))
+def test_sketch_fold_kernel_equals_plain(card, case):
+    """One sketch_fold_rows launch a fold, on the strided view as it lies:
+    the plain fold's words exactly, and its counts."""
+    words, nodes, lens, base, k, mode = _fold_case(case)
+    assert not nodes.is_contiguous()
+    want = words.clone()
+    want_counts = torch.zeros(2, dtype=torch.int64)
+    ref.sketch_fold_rows_ref(want, nodes, lens, base, k=k, mode=mode,
+                             counts=want_counts)
+    got = words.to(card)
+    counts = torch.full((2,), -1, dtype=torch.int64, device=card)
+    before = ops.launch_counts()
+    out = ops.sketch_fold_rows(got, nodes.to(card), lens.to(card), base, k=k,
+                               mode=mode, counts=counts)
+    after = ops.launch_counts()
+    assert out is got
+    assert after["sketch_fold_rows"] == before["sketch_fold_rows"] + 1
+    assert after["sketch_scatter_or"] == before["sketch_scatter_or"]
+    assert torch.equal(got.cpu(), want)
+    assert counts.tolist() == want_counts.tolist()
+    clamped = lens.to(torch.int64).clamp(0, nodes.shape[1])
+    assert counts.tolist() == [int(clamped.sum()), int((clamped > 0).sum())]
+    # int64 inputs and no counts give the same words
+    again = words.to(card)
+    ops.sketch_fold_rows(again, nodes.to(card).to(torch.int64),
+                         lens.to(card).to(torch.int64), base, k=k, mode=mode)
+    assert torch.equal(again.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_sketch_fold_wrapper_checks_inputs(card):
+    words = torch.zeros(8, 2, dtype=torch.int32, device=card)
+    nodes = torch.zeros(4, 3, dtype=torch.int32, device=card)
+    lens = torch.ones(4, dtype=torch.int32, device=card)
+    fold = tsketch.sketch_fold_rows
+    with pytest.raises(ValueError, match="k must"):
+        fold(words, nodes, lens, 0, k=65, mode="mod")
+    with pytest.raises(ValueError, match="mode"):
+        fold(words, nodes, lens, 0, k=64, mode="bogus")
+    with pytest.raises(ValueError):
+        fold(words, nodes, lens[:3], 0, k=64, mode="mod")
+    with pytest.raises(ValueError):
+        fold(words, nodes.cpu(), lens, 0, k=64, mode="mod")
+    with pytest.raises(TypeError):
+        fold(words, nodes.float(), lens, 0, k=64, mode="mod")
+    with pytest.raises(ValueError, match="counts"):
+        fold(words, nodes, lens, 0, k=64, mode="mod",
+             counts=torch.zeros(2, dtype=torch.int32, device=card))
+    counts = torch.full((2,), 7, dtype=torch.int64, device=card)
+    fold(words, nodes[:0], lens[:0], 0, k=64, mode="mod", counts=counts)
+    assert counts.tolist() == [0, 0] and not words.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mod", "mix"])
+def test_sketch_store_append_is_one_launch_and_one_host_read(card, mode):
+    """SketchRRStore.append_batch on the card: one sketch_fold_rows launch,
+    no sketch_scatter_or and one host sync, and the CPU store's words and
+    counts; the exact store's fold the same."""
+    rng = np.random.default_rng(11)
+    queue = torch.tensor(rng.integers(0, 3000, (2048, 19)).astype(np.int32))
+    batches = [(queue[i:i + 512, :7], torch.tensor(
+        rng.integers(-1, 9, 512).astype(np.int32))) for i in (0, 512, 1024)]
+    stores = {dev: cov.SketchRRStore(3000, sketch_k=96, sketch_mode=mode,
+                                     device=dev) for dev in ("cpu", card)}
+    exact = {dev: cov.DeviceRRStore(3000, sketch_k=96, sketch_mode=mode,
+                                    device=dev) for dev in ("cpu", card)}
+    stores[card].append_batch((batches[0][0].to(card),
+                               batches[0][1].to(card)))   # builds it
+    stores["cpu"].append_batch(batches[0])
+    torch.cuda.synchronize()
+    for nodes, lens in batches[1:]:
+        stores["cpu"].append_batch((nodes, lens))
+        on_card = (nodes.to(card), lens.to(card))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        _, syncs = _sync_count(lambda: stores[card].append_batch(on_card))
+        counts = ops.launch_counts()
+        assert len(syncs) == 1, syncs
+        assert counts["sketch_fold_rows"] == 1
+        assert sum(counts.values()) == 1, counts
+    for nodes, lens in batches:
+        for dev, store in exact.items():
+            store.append_batch((nodes.to(dev), lens.to(dev)))
+    for pair in (stores, exact):
+        a, b = pair["cpu"], pair[card]
+        assert (a.n_rr, a.n_elems) == (b.n_rr, b.n_elems)
+        assert torch.equal(a.sketch_words().cpu(), b.sketch_words().cpu())
+    assert torch.equal(stores[card].words.cpu(),
+                       exact[card].sketch_words().cpu())
 
 
 @pytest.mark.cuda
@@ -387,7 +629,8 @@ def test_padded_selection_on_card_equals_cpu(card):
     ops.reset_launch_counts()
     gpu = cov.select_seeds_padded(cov.build_padded_store(lists, n,
                                                          device=card), k)
-    assert ops.launch_counts()["membership_rows"] == k
+    counts = ops.launch_counts()
+    assert counts["padded_greedy"] == 1 and counts["membership_rows"] == 0
     assert torch.equal(gpu.seeds.cpu(), cpu.seeds)
     assert torch.equal(gpu.gains.cpu(), cpu.gains)
     assert gpu.frac.cpu().numpy().tobytes() == cpu.frac.numpy().tobytes()
@@ -1456,9 +1699,9 @@ def test_celf_solve_on_card_equals_flat(card, eval_batch):
     gpu = IMMSolver(_graph(card), batch=256, selection="celf", seed=4,
                     eval_batch=eval_batch, device=card).solve(prob)
     counts = ops.launch_counts()
-    assert counts["sketch_scatter_or"] > 0
+    assert counts["sketch_fold_rows"] > 0
     for name in ("celf_eval", "celf_apply", "sketch_union_popcount",
-                 "popcount_words"):
+                 "popcount_words", "sketch_scatter_or"):
         assert counts[name] == 0, name
     assert counts["celf_select"] == gpu.stats.lb_iters + 1
     for other in (flat, cpu):

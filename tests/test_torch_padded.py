@@ -6,6 +6,14 @@ membership scan (the plain version on the CPU) must equal the reference's
 Pallas kernel in interpret mode and its jnp oracle on every sweep case.
 On a JAX-sampled queue pool the padded greedy must also equal the port's
 ``flat`` and ``bitset`` selections.
+
+The greedy's plain loop (``ref.padded_greedy_ref``, ``ops.padded_greedy``
+on CPU tensors) must equal the reference's ``select_seeds_padded`` exactly,
+with repeated nodes in a row and k past the distinct nodes; a valid lane
+outside [0, n] must raise.  The CUDA kernel (``csrc/membership.cu``)
+cannot run here, so a numpy replay of its design (a shared Occur, rows and
+nodes split over 1, 3 or 132 blocks, u's lanes skipped and its count set
+to 0) is held against the plain loop exactly.
 """
 import numpy as np
 import jax
@@ -164,3 +172,128 @@ def test_padded_selection_on_jax_pool_equals_reference_and_port_scans():
 def test_padded_store_from_arrays_rejects_bad_arrays(rows, lengths, match):
     with pytest.raises(ValueError, match=match):
         convert.padded_store_from_arrays(rows, lengths, 10, device=CPU)
+
+
+# ------------------------------------------- the padded greedy as one call
+
+def _repeat_lists(seed, n, count, hi=9):
+    """Lists that may hold a node more than once (Occur counts lanes, a
+    step's gain counts rows)."""
+    rng = np.random.default_rng(seed)
+    lists = [rng.integers(0, n, int(rng.integers(0, hi))).tolist()
+             for _ in range(count)]
+    lists[1] = [3, 3, 3, 1]
+    return lists
+
+
+PADDED_CASES = [
+    (_random_lists(0, 60, 400), 60, 5),
+    (_random_lists(4, 60, 400), 60, 30),
+    (_random_lists(5, 500, 300), 500, 12),
+    (_repeat_lists(6, 12, 500), 12, 20),         # k above the 12 nodes
+    (_repeat_lists(7, 40, 300, hi=30), 40, 45),
+    ([[0, 1], [], [1, 2, 5], [3], []] * 30, 6, 8),
+]
+
+
+@pytest.mark.parametrize("case", range(len(PADDED_CASES)))
+def test_padded_greedy_plain_equals_reference(case):
+    """``ref.padded_greedy_ref`` and ``ops.padded_greedy`` on CPU tensors
+    against the reference's ``select_seeds_padded`` (seeds and gains
+    exactly, no flag); the port's selection also in the float32 bytes of
+    frac."""
+    lists, n, k = PADDED_CASES[case]
+    jstore = jcov.build_padded_store(lists, n)
+    want = jcov.select_seeds_padded(jstore, k)
+    store = tcov.build_padded_store(lists, n, device=CPU)
+    tops.reset_launch_counts()
+    for seeds, gains, bad in (
+            tref.padded_greedy_ref(store.rows, store.lengths, n=n, k=k),
+            tops.padded_greedy(store.rows, store.lengths, n=n, k=k)):
+        np.testing.assert_array_equal(seeds.numpy(), np.asarray(want.seeds))
+        np.testing.assert_array_equal(gains.numpy(), np.asarray(want.gains))
+        assert seeds.dtype == gains.dtype == bad.dtype == torch.int32
+        assert bad.tolist() == [0]
+    _assert_result_equal(tcov.select_seeds_padded(store, k), want)
+    assert not any(tops.launch_counts().values())
+
+
+@pytest.mark.parametrize("lane", [-1, 7, 1 << 20])
+def test_padded_selection_raises_on_a_lane_outside_the_nodes(lane):
+    """A valid lane outside [0, n] (n = 6 is the padding value and counts
+    for no node) sets the flag and the selection raises; past a row's
+    length the same value is never read."""
+    rows = torch.tensor([[0, 1, lane], [2, 6, 6], [1, 2, 6]],
+                        dtype=torch.int32)
+    for lens, bad in (([2, 2, 2], 0), ([3, 2, 2], 1)):
+        store = tcov.PaddedStore(rows=rows, lengths=torch.tensor(
+            lens, dtype=torch.int32), n_nodes=6)
+        got = tref.padded_greedy_ref(store.rows, store.lengths, n=6, k=3)
+        assert got[2].tolist() == [bad]
+        if bad:
+            with pytest.raises(ValueError, match="outside"):
+                tcov.select_seeds_padded(store, 3)
+        else:
+            assert tcov.select_seeds_padded(store, 3).seeds.tolist() == \
+                [1, 2, 0]
+
+
+def _greedy_replay(rows, lengths, n, k, blocks):
+    """csrc/membership.cu's padded_greedy_kernel in numpy: Occur shared,
+    block b owning the rows [b * rpb, (b + 1) * rpb) and the nodes [b *
+    slots, (b + 1) * slots).  A step: each block's first maximum of its
+    slice as the key (occur << 32) | (0xFFFFFFFF - v), the maximum of the
+    keys; each block scans its uncovered rows for u, covers the rows that
+    hold it, counts them into the gain, and takes their lanes but u's off
+    Occur; Occur[u] is set to 0.  Lanes outside [0, n] set the flag, lanes
+    at n count for no node."""
+    r, l = rows.shape
+    lens = np.clip(lengths.astype(np.int64), 0, l)
+    slots, rpb = -(-n // blocks), -(-r // blocks)
+    occur = np.zeros(n, np.int64)
+    bad = 0
+    for i in range(r):
+        for x in rows[i, :lens[i]]:
+            bad |= int(x < 0 or x > n)
+            if 0 <= x < n:
+                occur[x] += 1
+    covered = np.zeros(r, bool)
+    seeds, gains = [], []
+    for _ in range(k):
+        keys = []
+        for blk in range(blocks):
+            lo, hi = min(blk * slots, n), min((blk + 1) * slots, n)
+            key = 0
+            for v in range(lo, hi):
+                key = max(key, (int(occur[v]) << 32) | (0xFFFFFFFF - v))
+            keys.append(key)
+        u = 0xFFFFFFFF - (max(keys) & 0xFFFFFFFF)
+        gain = 0
+        occur[u] = 0
+        for blk in range(blocks):
+            for i in range(min(blk * rpb, r), min((blk + 1) * rpb, r)):
+                row = rows[i, :lens[i]]
+                if covered[i] or not (row == u).any():
+                    continue
+                covered[i] = True
+                gain += 1
+                for x in row:
+                    if 0 <= x < n and x != u:
+                        occur[x] -= 1
+        seeds.append(u)
+        gains.append(gain)
+    return seeds, gains, bad
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 132])
+@pytest.mark.parametrize("case", [0, 3, 5])
+def test_padded_greedy_replay_equals_plain(case, blocks):
+    """The kernel's design (a shared Occur, a block's rows and node slice,
+    u's lanes skipped and its count set to 0) gives the plain loop's
+    seeds, gains and flag, with repeated nodes and once Occur is zero."""
+    lists, n, k = PADDED_CASES[case]
+    store = tcov.build_padded_store(lists, n, device=CPU)
+    want = tref.padded_greedy_ref(store.rows, store.lengths, n=n, k=k)
+    got = _greedy_replay(store.rows.numpy(), store.lengths.numpy(), n, k,
+                         blocks)
+    assert got == (want[0].tolist(), want[1].tolist(), int(want[2][0]))
