@@ -13,8 +13,11 @@ Phases, each of which raises on failure (non-zero exit):
    ``bernoulli.cu``, ``membership.cu``, ``flashattn.cu``, ``queue.cu``,
    ``greedy.cu`` and ``celf.cu`` with nvcc for sm_90a, one nvcc per
    source, started together, and prints each ``-Xptxas -v`` report; the
-   three Occur kernels, the five of ``greedy.cu``, the four of
-   ``celf.cu`` and the two of ``membership.cu`` must not spill;
+   three Occur kernels, the seven of ``greedy.cu`` (:data:`GREEDY_KERNELS`),
+   the six of ``celf.cu`` and the two of ``membership.cu`` must not
+   spill; beside them the stamped copies of ``greedy_sketch`` and
+   ``celf_select`` (``examples/sketch_stamps.cu``, ``celf_stamps.cu``),
+   whose phase splits phases 4, 8 and 14 print;
 3. kernels: both Occur kernels against their plain versions on random
    int32 words of shape (131072, 2372) (bit 31 set in half the words, a
    ~50% row mask); the union popcount at (75880, 512) and (75880, 4) and
@@ -62,9 +65,11 @@ Phases, each of which raises on failure (non-zero exit):
    selection loop before ``greedy_sketch`` (:func:`parent_sketch_select`),
    and ``greedy_sketch``'s record there (:func:`sketch_greedy_record`: byte
    for byte against the plain version ``ref.greedy_sketch_ref`` on the
-   card, timed beside it, with the bound, the bytes of its k sweeps and
-   the barrier floor, the same grid running its k + 1 grid barriers
-   alone), and the fold's at the first round's batch (:func:`fold_record`:
+   card, timed beside it, with the bound, the bytes of its k sweeps, the
+   form of its rows and the barrier floor, the same grid running its k + 1
+   grid barriers alone) and its phase split in SM clocks
+   (``greedy_sketch_stamps:``), and the fold's at the first round's batch
+   (:func:`fold_record`:
    words and counts against ``ref.sketch_fold_rows_ref``, with the bound
    and, on a ``fold_hub_probe:`` line, its device time on that batch and on
    one of uniform node ids);
@@ -92,7 +97,8 @@ Phases, each of which raises on failure (non-zero exit):
    folded at smaller sketch sizes must keep the certified lower bound
    ``lo_rows`` at or below the rows its seeds truly cover.  At each size
    (W = 512, 4, 32, 128 words a row) ``greedy_sketch``'s record, on a
-   ``greedy_sketch_probes:`` line;
+   ``greedy_sketch_probes:`` line, and its phase split on a
+   ``greedy_sketch_probe_stamps:`` line;
 9. dense solve (the third slice's path): ``IMMSolver(g, engine="dense",
    batch=512, selection="bitset", seed=0).solve(IMProblem(k=50, eps=0.5))``
    with stage times, levels per round, peak memory and launch counts
@@ -175,7 +181,10 @@ Phases, each of which raises on failure (non-zero exit):
    ``stats_out`` those of ``ref.celf_select_ref``.  Then the records of
    ``celf_select`` (:func:`celf_select_record`: against its plain version
    on the card exactly, timed beside it, with the bound of this run's
-   batches and the barrier floor), ``celf_eval``, ``celf_apply`` and
+   batches, its form (:func:`celf.select_layout`; on the top-list path its
+   grid barriers must be :func:`celf.list_barriers`) and the barrier
+   floor) and, at both sizes, its phase split in SM clocks on a
+   ``celf_select_stamps:`` line; ``celf_eval``, ``celf_apply`` and
    ``sketch_union_popcount`` at the path's shapes (:func:`celf_records`:
    against the plain versions exactly, timed beside them, with the bound;
    the sweep and its ``popcount_words`` base at the same cover exactly, on
@@ -228,6 +237,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+
+
+def _examples_module(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+STAMPS = _examples_module("torch_selection_stamps")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -293,6 +315,14 @@ MC_SIMS, MC_TOL = 256, 0.10
 APPROX_MAX_THETA = 8192
 SKETCH_ROWS, SKETCH_WORDS, SCATTER_PAIRS = N_NODES + 1, 512, 1 << 24
 PROBE_SKETCH_K = (128, 1024, 4096)
+# kernels that -Xptxas -v reports in csrc/greedy.cu (greedy_flat's two
+# forms, the barrier floor, greedy_sketch's four forms) and csrc/celf.cu
+# (celf_eval, celf_apply, celf_select's four forms)
+GREEDY_KERNELS, CELF_KERNELS = 7, 6
+# the stamped copies of greedy_sketch and celf_select (examples/), built
+# beside the port's sources; their libraries once built
+STAMPED_SOURCES = {"sketch": "sketch_stamps", "celf": "celf_stamps"}
+STAMPED: dict = {}
 SOURCES = ("occur", "sketch", "bitops", "bernoulli", "membership",
            "flashattn", "queue", "greedy", "celf")
 # phase 14: the phase-5 solve with CELF, (selection, sketch_k, early_exit)
@@ -1400,9 +1430,9 @@ def sketch_greedy_record(words, n: int, launches=None, iters=20,
                          plain_iters=1, **extra) -> dict:
     """greedy_sketch on ``words`` against its plain version on the card
     (seeds, gains and steps byte for byte), then timed beside it, with the
-    bound, the grid, the shared-memory form and the barrier floor: the same
-    grid running the grid barriers of this greedy (one, then one a step
-    taken and one at the step that found no node) alone."""
+    bound, the grid, the form of its rows (``greedy.sketch_layout``) and
+    the barrier floor: the same grid running the launch's grid barriers
+    (:func:`greedy.sketch_barriers`: one, then one a step run) alone."""
     got = ops.greedy_sketch(words, n=n, k=K)
     want = ref.greedy_sketch_ref(words, n=n, k=K)
     torch.cuda.synchronize()
@@ -1413,24 +1443,32 @@ def sketch_greedy_record(words, n: int, launches=None, iters=20,
                              f"{tuple(words.shape)}: max abs err {err}")
     dev = words.device
     steps = int(got[2])
-    barriers = 1 + min(steps + 1, K)
+    barriers = greedy.sketch_barriers(steps, K)
     times = timing("greedy_sketch",
                    lambda: ops.greedy_sketch(words, n=n, k=K), iters)
     plain_ms = cuda_ms(lambda: ref.greedy_sketch_ref(words, n=n, k=K),
                        plain_iters)
     floor_ms = cuda_ms(lambda: greedy.grid_barriers(barriers, dev), iters)
     blocks, shared_words = greedy.sketch_grid(dev)
-    lanes, vector = greedy.sketch_layout(words.shape[1],
-                                         words.data_ptr() % 16 == 0)
+    lay = greedy.sketch_layout(words.shape[1], words.data_ptr() % 16 == 0,
+                               n=n, blocks=blocks, shared_words=shared_words)
     return record("greedy_sketch", launches, err, times, plain_ms,
                   sketch_greedy_bound(n, words.shape[1], K, steps),
                   barrier_floor_ms=floor_ms, grid_barriers=barriers,
                   grid_blocks=blocks, threads=greedy.THREADS,
                   barrier_grid_blocks=greedy.grid_blocks(dev),
-                  cov_in_shared_memory=-(-words.shape[1] // 4) * 4
-                  <= shared_words, lanes=lanes, vector_loads=vector,
-                  shape=list(words.shape), n=n, k=K, steps=steps,
-                  gains_sum=int(got[1].sum()), **extra)
+                  form=lay.form, rows_a_thread=lay.rows, lanes=lay.lanes,
+                  vector_loads=lay.vector, shape=list(words.shape), n=n, k=K,
+                  steps=steps, gains_sum=int(got[1].sum()), **extra)
+
+
+def stamped_split(kind: str, *args) -> dict:
+    """The phase split in SM clocks of the stamped copy of greedy_sketch
+    (``kind`` "sketch": words, n) or celf_select ("celf": store) at this
+    path's shapes (``examples/torch_selection_stamps.py``)."""
+    if kind == "sketch":
+        return STAMPS.sketch_split(STAMPED["sketch"], *args)
+    return STAMPS.celf_split(STAMPED["celf"], *args)
 
 
 def approximate_solve(g, parent: bool = False) -> dict:
@@ -1622,6 +1660,7 @@ def approximate_phase(g):
                                     "folds the batches")
     fold = fold_record(words, batch.nodes, batch.lengths, k=store.sketch_k,
                        mode=store.sketch_mode, launches=launches)
+    say("greedy_sketch_stamps", stamped_split("sketch", words, store.n_nodes))
     return records + [fold, sketch_greedy_record(words, store.n_nodes,
                                                  launches, plain_iters=3)]
 
@@ -1650,6 +1689,8 @@ def exact_regime_phase(store, bit) -> None:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         greedy_recs.append(sketch_greedy_record(words, n, sketch_k=sketch_k))
+        say("greedy_sketch_probe_stamps", dict(
+            stamped_split("sketch", words, n), sketch_k=sketch_k))
         seeds = res.seeds.to(torch.int64)
         hit = ((m[:, seeds >> 5] >> (seeds & 31)) & 1).any(dim=1)
         true_rows = int(hit.sum())
@@ -2291,10 +2332,17 @@ def celf_select_record(store, launches, iters=50) -> dict:
         raise AssertionError(f"celf_select's grid of {blocks} blocks is not "
                              f"greedy_flat's: no barrier floor")
     evals, calls = want[2].tolist()
+    lay = celf_mod.select_layout(n, kw["num_rows"], kw["c"], sketch.shape[1],
+                                 blocks, shared_words, t)
+    if lay.list and barriers != celf_mod.list_barriers(K, calls):
+        raise AssertionError(f"celf_select ran {barriers} grid barriers, the "
+                             f"top-list path "
+                             f"{celf_mod.list_barriers(K, calls)}")
     return record("celf_select", launches, err, times, plain_ms,
                   celf_select_bound(*pool, kw["num_rows"], batches,
                                     want[0].tolist(), sketch, n),
                   barrier_floor_ms=floor_ms, grid_barriers=barriers,
+                  layout=lay._asdict(),
                   exact_evals=evals, eval_calls=calls, candidates=kw["c"],
                   grid_blocks=blocks, shared_words_limit=shared_words,
                   sketch_k=store.sketch_k, sketch_words=sketch.shape[1], n=n,
@@ -2553,6 +2601,8 @@ def celf_phase(g, queue_res, queue_store) -> list:
         else:
             say("celf_kernels_16384", [celf_select_record(store, launches)]
                 + celf_records(store, res.seeds.tolist(), launches))
+        if not early:
+            say("celf_select_stamps", stamped_split("celf", store))
         del solver, store
         torch.cuda.empty_cache()
     for rec in out:
@@ -2598,7 +2648,7 @@ def parent_padded_select(store, k: int) -> cov.CoverageResult:
 def padded_greedy_record(rows, lengths, n: int, launches=None, iters=20,
                          plain_iters=1) -> dict:
     """padded_greedy on the padded store against its plain loop on the card
-    (seeds, gains and flag exactly), its host syncs (none) and device
+    (seeds and gains exactly), its host syncs (none) and device
     operations (:func:`traced_device_ops`: the kernel alone, at most once a
     call), then timed beside the plain loop, with the bound and the
     barrier floor: ``greedy_flat``'s grid, the same as this kernel's,
@@ -2794,10 +2844,14 @@ def main() -> int:
                   "count": torch.cuda.device_count()})
     say("card_rates", card_rates())
 
-    # 2. build: one nvcc per source, all started together
+    # 2. build: one nvcc per source, all started together, with the
+    # stamped copies of the two selection kernels
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + len(STAMPED_SOURCES)) as pool:
+        stamped = pool.map(STAMPS.build_one, STAMPED_SOURCES.values())
         libs = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+        STAMPED.update((key, ctypes.CDLL(str(lib)))
+                       for key, lib in zip(STAMPED_SOURCES, stamped))
     say("build", {"libraries": {k: str(v.relative_to(ROOT))
                                 for k, v in libs.items()},
                   "seconds": time.perf_counter() - t0})
@@ -2811,14 +2865,14 @@ def main() -> int:
                              f"ptxas reports {occur_spills}")
     greedy_spills = ptxas_spills(_build.PTXAS_REPORT["greedy"], "greedy_cu")
     say("greedy_ptxas", greedy_spills)
-    if len(greedy_spills) != 5 or any(greedy_spills.values()):
-        raise AssertionError(f"greedy.cu: want 5 kernels without spills, "
-                             f"ptxas reports {greedy_spills}")
+    if len(greedy_spills) != GREEDY_KERNELS or any(greedy_spills.values()):
+        raise AssertionError(f"greedy.cu: want {GREEDY_KERNELS} kernels "
+                             f"without spills, ptxas reports {greedy_spills}")
     celf_spills = ptxas_spills(_build.PTXAS_REPORT["celf"], "celf_")
     say("celf_ptxas", celf_spills)
-    if len(celf_spills) != 4 or any(celf_spills.values()):
-        raise AssertionError(f"celf.cu: want 4 kernels without spills, "
-                             f"ptxas reports {celf_spills}")
+    if len(celf_spills) != CELF_KERNELS or any(celf_spills.values()):
+        raise AssertionError(f"celf.cu: want {CELF_KERNELS} kernels without "
+                             f"spills, ptxas reports {celf_spills}")
     membership_spills = ptxas_spills(_build.PTXAS_REPORT["membership"],
                                      "membership_cu")
     say("membership_ptxas", membership_spills)

@@ -26,11 +26,12 @@ block of 512 threads on each SM, is ``greedy_flat``'s, so
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.greedy import device_index, sketch_layout
+from repro_torch.kernels.greedy import device_index, row_lanes
 
 # launches since the last reset (see ops.reset_launch_counts)
 LAUNCHES = {"celf_eval": 0, "celf_apply": 0, "celf_select": 0}
@@ -51,8 +52,11 @@ _SELECT = _build.Kernel("celf", "celf_select",
 _SELECT_GRID = _build.Kernel("celf", "celf_select_grid",
                              (_int, ctypes.POINTER(_int),
                               ctypes.POINTER(_i64)))
-# csrc/celf.cu: kBins, the bins of one histogram of the select
+# csrc/celf.cu: kBins, the bins of one histogram of the radix pick, and
+# kList, the keys of a block's top list (batches of c <= LIST are merged
+# from the blocks' top lists)
 HIST_BINS = 2048
+LIST = 32
 
 
 def _check_pool(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
@@ -128,25 +132,83 @@ def celf_apply(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
     return gain[0]
 
 
+class SelectLayout(NamedTuple):
+    """The form of one :func:`celf_select` launch (``csrc/celf.cu``'s
+    ``select_layout``): ``list`` keys in each block's top list
+    (:data:`LIST` at c <= LIST, 0 for the radix pick of larger batches or
+    where the merge buffers do not fit the shared memory); ``shared``, the
+    sketch union in shared memory; ``pool_on_chip``, the block's (node,
+    row) pairs in shared memory; ``rows_on_chip``, the sketch rows of the
+    block's nodes in shared memory (read once, not once a seed); the
+    launch's dynamic shared memory and scratch in bytes."""
+    list: int
+    shared: bool
+    pool_on_chip: bool
+    rows_on_chip: bool
+    dynamic_bytes: int
+    scratch_bytes: int
+
+
+def select_layout(n: int, num_rows: int, c: int, cols: int, blocks: int,
+                  shared_words: int, t: int) -> SelectLayout:
+    """:class:`SelectLayout` of a launch over ``t`` elements on a grid of
+    ``blocks`` whose dynamic shared memory holds ``shared_words`` words.
+    Shared memory: the sketch union (``cols`` rounded up to 4 words), the
+    merge buffers (the blocks' lists and half as many again, at least 24
+    lists of 8-byte keys), the slice's sel (4 bytes a node, to 16 bytes),
+    the block's ceil(t / blocks) pairs (8 bytes each, to 16 bytes) and
+    the slice's sketch rows (``cols`` words a node), the last three each
+    while it fits.  Scratch: the blocks' records
+    (two sweeps x 16 bytes a block), their lists (two sweeps x ``list``
+    keys a block), the pairs (8 bytes an element, when not on chip), the
+    ring of three pairs of :data:`HIST_BINS`-bin histograms, cand (8 bytes
+    a node), two lists of the bitmap words a call set first (8 bytes an
+    element each), ub, stamp and sel (4 bytes a node each), the counts of a
+    batch (c), the blocks' tie counts, four counters, Covered (num_rows /
+    32 words) and the scratch bitmaps (min(c, :data:`MAX_CANDS`) x
+    num_rows / 32 words); then, when the sketch union is not in shared
+    memory, each block's copy of it from the next 16-byte boundary."""
+    limit = 4 * shared_words
+    stride = -(-cols // 4) * 4
+    lst = LIST if c <= LIST else 0
+    merge = 8 * lst * max(blocks + -(-blocks // 2), 24) if lst else 0
+    if merge > limit:
+        lst, merge = 0, 0
+    cov_bytes = 4 * stride if cols else 0
+    shared = cov_bytes + merge <= limit
+    end = (cov_bytes if shared else 0) + merge
+    sel_bytes = -(-4 * -(-n // blocks) // 16) * 16
+    if lst and end + sel_bytes <= limit:
+        end += sel_bytes
+    epb = -(-t // blocks)
+    pool_on_chip = bool(lst) and end + 8 * epb <= limit
+    end += -(-8 * epb // 16) * 16 if pool_on_chip else 0
+    rows_bytes = 4 * -(-n // blocks) * cols
+    rows_on_chip = bool(lst) and cols > 0 and end + rows_bytes <= limit
+    dynamic = end + (rows_bytes if rows_on_chip else 0)
+    nw = num_rows // 32
+    end = (32 * blocks + 16 * blocks * lst
+           + (8 * t if lst and not pool_on_chip else 0)
+           + 4 * 6 * HIST_BINS + 8 * n + 16 * t + 12 * n + 4 * c
+           + 4 * blocks + 16 + 4 * nw + 4 * min(c, MAX_CANDS) * nw)
+    scratch = end if shared else -(-end // 16) * 16 + 4 * blocks * stride
+    return SelectLayout(lst, shared, pool_on_chip, rows_on_chip, dynamic,
+                        scratch)
+
+
+def list_barriers(k: int, calls: int) -> int:
+    """Grid barriers of one :func:`celf_select` launch on the top-list path
+    that ran ``calls`` eval calls for ``k`` seeds: two in the prologue, two
+    an eval call (its sweep's and its evaluation's) and one for each
+    seed's last sweep, the one that finds the seed fresh."""
+    return 2 + k + 2 * calls
+
+
 def select_scratch_bytes(n: int, num_rows: int, c: int, cols: int,
                          blocks: int, shared_words: int, t: int) -> int:
-    """Scratch of one :func:`celf_select` launch (``csrc/celf.cu``'s
-    ``select_layout``): the blocks' records (two sweeps x 16 bytes a
-    block), the ring of three pairs of :data:`HIST_BINS`-bin histograms,
-    cand (8 bytes a node), the list of the bitmap words a call set first (8
-    bytes an element), ub, stamp and sel (4 bytes a node each), the counts
-    of a batch (c), the blocks' tie counts, the slot and list counters,
-    Covered (num_rows / 32 words) and the scratch bitmaps (min(c,
-    :data:`MAX_CANDS`) x num_rows / 32 words); then, when a sketch row of
-    ``cols`` words (rounded up to 4) exceeds ``shared_words``, each block's
-    copy of the sketch union from the next 16-byte boundary."""
-    nw = num_rows // 32
-    end = (32 * blocks + 4 * 6 * HIST_BINS + 8 * n + 8 * t + 12 * n + 4 * c
-           + 4 * blocks + 8 + 4 * nw + 4 * min(c, MAX_CANDS) * nw)
-    stride = -(-cols // 4) * 4
-    if stride <= shared_words:
-        return end
-    return -(-end // 16) * 16 + 4 * blocks * stride
+    """Scratch of one :func:`celf_select` launch (:func:`select_layout`)."""
+    return select_layout(n, num_rows, c, cols, blocks, shared_words,
+                         t).scratch_bytes
 
 
 def select_grid(device) -> tuple[int, int]:
@@ -200,7 +262,7 @@ def celf_select(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
                              f"{n} rows and fewer than 2^26 words a row, "
                              f"got {tuple(sketch.shape)} on {sketch.device}")
         cols = sketch.shape[1]
-        lanes, vector = sketch_layout(cols, sketch.data_ptr() % 16 == 0)
+        lanes, vector = row_lanes(cols, sketch.data_ptr() % 16 == 0)
         sk_ptr = sketch.data_ptr()
     index = flat.get_device()
     blocks, shared_words = select_grid(index)

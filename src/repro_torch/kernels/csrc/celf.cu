@@ -61,6 +61,15 @@
 #include "coop_grid.cuh"
 #include "device_guard.cuh"
 
+// SM clocks of celf_select_kernel's phases, summed over a selection:
+// examples/celf_stamps.cu defines these (examples/phase_clock.cuh) before
+// it includes this file; here they are empty.
+#ifndef PHASE_CLOCK_START
+#define PHASE_CLOCK_START(phases)
+#define PHASE_CLOCK(p)
+#define PHASE_CLOCK_END()
+#endif
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -192,53 +201,85 @@ unsigned grid_of(int64_t t) {
 // thread j of it the nodes j, j + kSelThreads, ... of that slice, and only
 // the owner reads or writes a node's ub, its fresh stamp (fresh at step
 // s + 1 <=> stamp == s + 1, so no clearing) and its selection value sel.
-// - A sweep applies the last eval call's counts to its candidates, sets
-//   each node's sel (D + 1 in the sketch's sweep, where a lane group takes
-//   a row and issues a column's loads of kSweepRows rows together; in the
-//   lazy loop's, ub + 1 for a stale node and 0 for a fresh one), folds the
-//   slice's argmax key (ub << 32 | ~v) with its node's fresh flag and the
-//   slice's largest sel into the block's record, and counts the slice's
-//   sel in two shared histograms, bits [10:0] of sel < 2^11 and bits
-//   [21:11] of sel < 2^22, each then added to its global copy (a ring of
-//   three pairs: a phase fills one and zeroes the next).  A barrier.
-// - Every block then reads all the records: u, its fresh flag and M, the
-//   largest sel.  The batch is a radix threshold select on sel: the cc-th
-//   largest sel T comes from the histogram of the digit that holds M's top
-//   bit (the sweep's own when M < 2^22) and of each lower digit (a pass and
-//   a barrier each), by a block scan of 2,048 bins from the top.  The batch
-//   is every node of sel > T and the `need` lowest ids of sel == T: all of
-//   them when need is the count at T, else each block publishes its count
-//   at T and, after a barrier, takes its own in id order from the rank the
-//   blocks below leave.  A taken node gets (call, slot) in cand[v]; its
-//   slot comes from a warp-aggregated atomic counter.  A barrier.
-// - The evaluation: each element whose node holds the call's stamp in cand
-//   (an 8-byte read from L2) and whose valid row is not in Covered sets the
-//   row's bit in its slot's scratch bitmap (atomicOr); a flipped bit counts
-//   in the block's shared count of the slot, added to cnt[slot] once a
-//   block.  kMaxCands slots have a bitmap at a time: a larger batch runs in
-//   chunks, with a barrier after each chunk and after its clearing.  The
-//   bitmaps are zeroed once; an element whose atomicOr finds its word at
-//   0 lists the word (an atomic counter), and after the counts the listed
-//   words are zeroed (in the next sweep for the last chunk), so a call
-//   writes only the words it touched and reads the pool once.  A barrier.
-// - The commit runs in the phase after the pick, beside the next seed's
-//   first sweep (it changes nothing that sweep reads): a thread an element,
-//   warp votes of flipped Covered bits, each block's count added to
-//   gains[s] once; u's owner sets ub[u] = 0; each block ORs sk[u] into its
-//   own copy of cov_sk (shared memory when its W words fit, else its slice
-//   of the scratch) and counts it.
-// Every value that steers the control flow (u, its flag, M, T, need) is
-// read by every block from the same records and histograms, so all blocks
-// take the same branches and barriers.
+// A sweep sets each node's sel (D + 1 in the sketch's sweep, where a lane
+// group takes a row and issues a column's loads of kSweepRows rows
+// together; in the lazy loop's, ub + 1 for a stale node and 0 for a fresh
+// one) and folds the slice's argmax key (ub << 32 | ~v) with its node's
+// fresh flag and the slice's largest sel into the block's record; a
+// barrier; every block then reads all the records: u, its fresh flag and
+// M, the largest sel.  A batch is the cc nodes of largest key (sel << 32)
+// | ~v among sel > 0, picked one of two ways.
+// - The top lists (c <= kList = 32), two grid barriers an eval call.
+//   Each sweep ends with the block's own kList largest keys, sorted, in
+//   its list of the sweep's parity: every warp sorts 32 keys of the slice
+//   at a time (a bitonic network in shuffles, a key a lane) and merges
+//   them into its running list (the top half of max(a[i], b[N-1-i]) is bitonic
+//   and a half-cleaner sorts it), and the 16 warps' lists merge pairwise
+//   in shared memory.  After the sweep's barrier every block merges all
+//   the blocks' lists: it loads them all into shared memory, keeps the
+//   lists whose head is among the cc largest heads (no other list can hold
+//   a key of the batch), merges those pairwise in rounds into the same
+//   batch, the first cc keys of the last list, and builds a hash of it in
+//   shared memory;
+//   each block then evaluates its own contiguous share of the pool,
+//   whose (node, row) pairs it copied on chip in the prologue (into
+//   shared memory when they fit, else to the scratch): an element costs a
+//   probe of the hash, and only a candidate's reads Covered.  Its counts
+//   go to cnt[slot]; a barrier; the next sweep's owners of the batch's
+//   nodes take them as their ub.  The bitmap words a call set first are
+//   listed in the list of its parity and zeroed by the next sweep.
+// - The radix pick (c > kList), four or five barriers an eval call.
+//   The sweep also counts the slice's sel in two shared histograms, bits
+//   [10:0] of sel < 2^11 and bits [21:11] of sel < 2^22, each then added
+//   to its global copy (a ring of three pairs: a phase fills one and
+//   zeroes the next).  The batch is a radix threshold select on sel: the
+//   cc-th largest sel T comes from the histogram of the digit that holds
+//   M's top bit (the sweep's own when M < 2^22) and of each lower digit (a
+//   pass and a barrier each), by a block scan of 2,048 bins from the top.
+//   The batch is every node of sel > T and the `need` lowest ids of sel ==
+//   T: all of them when need is the count at T, else each block publishes
+//   its count at T and, after a barrier, takes its own in id order from
+//   the rank the blocks below leave.  A taken node gets (call, slot) in
+//   cand[v]; its slot comes from a warp-aggregated atomic counter.  A
+//   barrier.  The evaluation: each element whose node holds the call's
+//   stamp in cand (an 8-byte read from L2) and whose valid row is not in
+//   Covered sets the row's bit in its slot's scratch bitmap; kMaxCands
+//   slots have a bitmap at a time: a larger batch runs in chunks, with a
+//   barrier after each chunk and after its clearing.  A barrier.
+// In both, a flipped bitmap bit counts in the block's shared count of the
+// slot, added to cnt[slot] once a block, and the bitmaps are zeroed once:
+// an element whose atomicOr finds its word at 0 lists the word, so a call
+// writes only the words it touched.  The commit runs in the phase after
+// the pick, beside the next seed's first sweep (it changes nothing that
+// sweep reads): a thread an element (the block's pairs on the list path),
+// warp votes of flipped Covered bits, each block's count added to gains[s]
+// once; u's owner sets ub[u] = 0; each block ORs sk[u] into its own copy
+// of cov_sk (shared memory when its W words fit, else its slice of the
+// scratch) and counts it.  Every value that steers the control flow (u,
+// its flag, M, T, need, the batch) is computed by every block from the
+// same records, lists and histograms, so all blocks take the same branches
+// and barriers.
 //
 // What bounds it.  Bytes: each eval call reads the pool's node ids (4 an
 // element) and, for the elements of the candidates, their valid byte, row
 // id and Covered word; each seed's sketch sweep reads the n sketch rows
 // (9.7 MB at 1,024 buckets, L2-resident; 155 MB at 16,384).  Its time is
-// the chain of grid barriers (about four an eval call and one a seed,
-// about 1.2 us each on the H100) and each phase's latency; greedy.cu's
-// greedy_grid_barriers runs the same grid (a block of 512 on each SM)
-// with the barriers alone.
+// the chain of grid barriers (two an eval call and one a seed on the list
+// path, about 1.2 us each on the H100) and each phase's latency: the
+// sorting networks and the merge rounds' block barriers, a few
+// microseconds an eval call; greedy.cu's greedy_grid_barriers runs the
+// same grid (a block of 512 on each SM) with the barriers alone.
+
+// celf_select_kernel's phases in its clock stamps: the prologue; the
+// sketch's and the lazy loop's sweeps; a block's top list (its warps'
+// chunks, then their merge); reading the records; the lists' load, the
+// choice of the lists to merge, and their merge into a batch; the radix
+// digit passes, the tie pass and the stamping of a batch; the
+// evaluation; the commit; and the grid barriers (the wait in each).
+enum SelectPhase { kClProlog, kClDeltaSweep, kClLazySweep, kClTopChunks,
+                   kClTopC, kClRecords, kClListLoad, kClListKeep, kClMerge,
+                   kClDigits, kClTies, kClPick, kClEval, kClCommit,
+                   kClBarrier, kClPhases };
 
 constexpr int kSelThreads = 512;
 constexpr int kSelWarps = kSelThreads / 32;
@@ -247,6 +288,10 @@ constexpr int kDigit = 11;               // bits a histogram bin takes
 constexpr int kBins = 1 << kDigit;       // 4 bins a thread in find_digit
 constexpr int kSweepRows = 4;            // rows a lane group loads at once
 static_assert(kBins == 4 * kSelThreads, "find_digit takes 4 bins a thread");
+constexpr int kList = 32;                // a top list's keys (c <= 32)
+constexpr int kListHashBits = 7;
+constexpr int kListHash = 1 << kListHashBits;   // the batch's hash entries
+static_assert(kListHash >= 2 * kList, "the hash is at most half full");
 
 struct SelectArgs {
   const int32_t* flat;
@@ -262,8 +307,8 @@ struct SelectArgs {
   unsigned long long* records;   // 2 x blocks x 2
   int32_t* hist;                 // 3 pairs x 2 x kBins
   int2* cand;                    // n: (call, slot)
-  int64_t* touched;              // t: bitmap words a call set first
-  int32_t* touched_n;            // 1: their count
+  int64_t* touched;              // 2 x t: bitmap words a call set first
+  int32_t* touched_n;            // 2: their counts (a list a call's parity)
   int32_t* ub;                   // n
   int32_t* stamp;                // n
   uint32_t* sel;                 // n
@@ -276,6 +321,13 @@ struct SelectArgs {
   int32_t* seeds;                // k
   int32_t* gains;                // k
   long long* stats;              // 3
+  // the top-list path (kLists)
+  unsigned long long* lists;     // 2 x blocks x kList: each block's top list
+  int2* pairs;                   // t (node, row or -1), when not on chip
+  int64_t epb;                   // pool elements a block
+  int64_t merge_off, pool_off;   // dynamic shared memory offsets (bytes);
+  int64_t sel_off;               // < 0: the pairs, sel stay in memory
+  int64_t rows_off;              // < 0: the sketch's slice stays in memory
 };
 
 __device__ __forceinline__ uint64_t warp_max64(uint64_t x) {
@@ -289,6 +341,44 @@ __device__ __forceinline__ uint64_t warp_max64(uint64_t x) {
 __device__ __forceinline__ uint64_t warp_sum64(uint64_t x) {
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
   return x;
+}
+
+__device__ __forceinline__ uint64_t kmax(uint64_t a, uint64_t b) {
+  return a > b ? a : b;
+}
+
+__device__ __forceinline__ uint64_t kmin(uint64_t a, uint64_t b) {
+  return a < b ? a : b;
+}
+
+// One compare-exchange step (distance j, blocks of k) of a bitonic network
+// over the warp's 32 keys, key i in lane i: keys i and i ^ j swap unless
+// the lower lane holds the larger where (i & k) == 0 and the smaller
+// elsewhere.
+__device__ __forceinline__ uint64_t bitonic_step(uint64_t x, int k, int j) {
+  const int lane = threadIdx.x & 31;
+  const uint64_t y = __shfl_xor_sync(kFull, x, j);
+  const bool keep_max = ((lane & j) == 0) == ((lane & k) == 0);
+  return keep_max ? kmax(x, y) : kmin(x, y);
+}
+
+// The warp's 32 keys sorted in descending order.
+__device__ __forceinline__ uint64_t warp_sort(uint64_t x) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1)
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) x = bitonic_step(x, k, j);
+  return x;
+}
+
+// The 32 largest keys of a and b (each sorted in descending order), in
+// descending order: max(a[i], b[31 - i]) is bitonic, and the half-cleaner
+// steps sort it.
+__device__ __forceinline__ uint64_t warp_merge(uint64_t a, uint64_t b) {
+  a = kmax(a, __shfl_sync(kFull, b, 31 - (threadIdx.x & 31)));
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) a = bitonic_step(a, 32, j);
+  return a;
 }
 
 // The block's largest x, in every thread; `red` is free again on return.
@@ -365,11 +455,15 @@ __device__ __forceinline__ int32_t warp_slot(bool take, int32_t* next) {
   return take ? first + __popc(m & ((1u << lane) - 1)) : -1;
 }
 
-template <bool kSharedCov>
+template <bool kSharedCov, bool kLists>
 __global__ void __launch_bounds__(kSelThreads, 1)
 celf_select_kernel(SelectArgs a) {
   extern __shared__ uint4 s_cov4[];
   __shared__ int32_t s_cnt[kMaxCands];
+  __shared__ int32_t s_cand[kList];
+  __shared__ int32_t s_hkey[kListHash], s_hslot[kListHash];
+  __shared__ int32_t s_keep[kSelThreads], s_nkeep;
+  __shared__ __align__(16) uint64_t s_heads[kSelThreads + 2];
   __shared__ int32_t s_hist[2 * kBins];
   __shared__ uint64_t red[kSelWarps];
   __shared__ int32_t part[kSelWarps];
@@ -387,9 +481,11 @@ celf_select_kernel(SelectArgs a) {
   uint32_t* cov_sk = kSharedCov ? reinterpret_cast<uint32_t*>(s_cov4)
                                 : a.cov_copies + int64_t(me) * a.cov_stride;
   long long barriers = 0;
+  PHASE_CLOCK_START(kClPhases);
   auto sync = [&]() {
     grid.sync();
     ++barriers;
+    PHASE_CLOCK(kClBarrier);
   };
 
   // prologue: the state zeroed, then ub = Occur
@@ -406,10 +502,37 @@ celf_select_kernel(SelectArgs a) {
   for (int64_t s = gtid; s < a.k; s += gsize) a.gains[s] = 0;
   if (gtid == 0) {
     *a.slot_next = 0;
-    *a.touched_n = 0;
+    a.touched_n[0] = a.touched_n[1] = 0;
   }
   if (a.sk)
     for (int w = tid; w < a.cols; w += kSelThreads) cov_sk[w] = 0;
+  // the list path: the block's elements [e0, e0 + e_count) as (node, row)
+  // pairs, the row -1 where the element is invalid or its row outside
+  // Covered, in shared memory when they fit
+  unsigned char* s_dyn = reinterpret_cast<unsigned char*>(s_cov4);
+  const int64_t e0 = kLists ? min(int64_t(me) * a.epb, a.t) : 0;
+  const int64_t e_count = kLists ? min(e0 + a.epb, a.t) - e0 : 0;
+  int2* pool = a.pool_off >= 0 ? reinterpret_cast<int2*>(s_dyn + a.pool_off)
+                               : a.pairs + e0;
+  // the slice's sel: in shared memory on the list path where it fits
+  uint32_t* selbuf = kLists && a.sel_off >= 0
+                         ? reinterpret_cast<uint32_t*>(s_dyn + a.sel_off)
+                         : a.sel + lo;
+  for (int64_t i = tid; i < e_count; i += kSelThreads) {
+    int32_t r;
+    const bool in = row_in(a.valid, a.ids, e0 + i, rows, &r);
+    pool[i] = make_int2(__ldg(a.flat + e0 + i), in ? r : -1);
+  }
+  // the sketch's rows of the slice, read once, where they fit on chip
+  const bool rows_on_chip = kLists && a.sk && a.rows_off >= 0;
+  const uint32_t* sk_slice =
+      rows_on_chip ? reinterpret_cast<const uint32_t*>(s_dyn + a.rows_off)
+                   : a.sk + lo * a.cols;
+  if (rows_on_chip) {
+    uint32_t* dst = reinterpret_cast<uint32_t*>(s_dyn + a.rows_off);
+    for (int64_t i = tid; i < held * a.cols; i += kSelThreads)
+      dst[i] = __ldg(a.sk + lo * a.cols + i);
+  }
   sync();
   for (int64_t e = gtid; e < a.t; e += gsize) {
     const uint32_t v = uint32_t(__ldg(a.flat + e));
@@ -419,6 +542,7 @@ celf_select_kernel(SelectArgs a) {
         atomicAdd(a.ub + v, int32_t(__popc(peers)));
     }
   }
+  PHASE_CLOCK(kClProlog);
   sync();
 
   int32_t call = 0;           // the next eval call (its stamp in cand)
@@ -521,6 +645,7 @@ celf_select_kernel(SelectArgs a) {
       warp_bin_add(s_hist, on, (x >> shift) & (kBins - 1));
     }
     flush_hist(1);
+    PHASE_CLOCK(kClDigits);
     sync();
   };
   // zero the bitmap words that the current call's chunks have set
@@ -554,6 +679,7 @@ celf_select_kernel(SelectArgs a) {
       prefix = (prefix << kDigit) | d;
       rem -= above;
     }
+    PHASE_CLOCK(kClDigits);
     const uint64_t thr = prefix;
     const bool all = rem == at;        // every node of sel == T is taken
     if (gtid == 0) *a.touched_n = 0;   // the last call's list is cleared
@@ -566,9 +692,11 @@ celf_select_kernel(SelectArgs a) {
       const int32_t slot = warp_slot(take, a.slot_next);
       if (take) a.cand[lo + j] = make_int2(call, slot);
     }
+    PHASE_CLOCK(kClPick);
     if (!all) {
       const int64_t mine = int64_t(block_sum64(uint64_t(my_ties), red));
       if (tid == 0) a.ties[me] = int32_t(mine);
+      PHASE_CLOCK(kClTies);
       sync();
       const int64_t below = int64_t(block_sum64(
           tid < me ? uint64_t(__ldcg(a.ties + tid)) : 0, red));
@@ -588,6 +716,7 @@ celf_select_kernel(SelectArgs a) {
           if (take) a.cand[lo + j] = make_int2(call, slot);
         }
       }
+      PHASE_CLOCK(kClTies);
     }
     sync();
   };
@@ -619,9 +748,11 @@ celf_select_kernel(SelectArgs a) {
       for (int i = tid; i < width; i += kSelThreads)
         if (s_cnt[i]) atomicAdd(a.cnt + first + i, s_cnt[i]);
       if (j == 0 && gtid == 0) *a.slot_next = 0;   // the call's slots are out
+      PHASE_CLOCK(kClEval);
       sync();
       if (j + 1 < chunks) {
         clear();
+        PHASE_CLOCK(kClEval);
         sync();
       }
     }
@@ -630,9 +761,180 @@ celf_select_kernel(SelectArgs a) {
     n_evals += cc;
     ++n_calls;
   };
+  // The top-list path (kLists: c <= kList).  A sweep leaves in the
+  // block's list of its parity the block's kList largest keys (sel << 32) |
+  // ~v of sel > 0 (0 pads); after the sweep's barrier every block merges
+  // all the lists into the same batch (s_cand, in descending key order,
+  // slot = place) and its hash, and evaluates its own elements against it.
+  int32_t last_cc = 0;        // the batch size of the last eval call
+  // zero the bitmap words that call q set first (its parity's list)
+  auto clear_list = [&](int32_t q) {
+    const int32_t m = __ldcg(a.touched_n + (q & 1));
+    const int64_t* list = a.touched + int64_t(q & 1) * a.t;
+    for (int64_t i = gtid; i < m; i += gsize)
+      a.bitmaps[__ldcg(list + i)] = 0;
+  };
+  // the block's top list of the slice's sel into the lists of this
+  // sweep's parity: each warp sorts 32 keys at a time and merges them into
+  // its running list; then the warps' lists merge pairwise in the dynamic
+  // shared memory (16 -> 8 -> 4 -> 2 -> 1)
+  auto block_list = [&]() {
+    __syncthreads();                        // the sweep's sel is written
+    const int lane = tid & 31, warp = tid >> 5;
+    uint64_t run = 0;
+    const int64_t chunks = (held + 31) / 32;
+    for (int64_t q = warp; q < chunks; q += kSelWarps) {
+      const int64_t j = q * 32 + lane;
+      const uint32_t x_sel = j < held ? selbuf[j] : 0u;
+      uint64_t x = x_sel ? (uint64_t(x_sel) << 32) |
+                               (0xFFFFFFFFu - uint32_t(lo + j))
+                         : 0;
+      // a key above the running list's least, or it changes nothing
+      if (!__any_sync(kFull, x > __shfl_sync(kFull, run, 31))) continue;
+      x = warp_sort(x);
+      run = q == warp ? x : warp_merge(run, x);   // the warp's first or not
+    }
+    PHASE_CLOCK(kClTopChunks);
+    uint64_t* src = reinterpret_cast<uint64_t*>(s_dyn + a.merge_off);
+    uint64_t* dst = src + kSelWarps * kList;
+    src[warp * kList + lane] = run;
+    unsigned long long* mine =
+        a.lists + (int64_t(sweeps % 2) * blocks + me) * kList;
+    for (int count = kSelWarps; count > 1; count >>= 1) {
+      __syncthreads();
+      if (warp < count / 2) {
+        const uint64_t x = warp_merge(src[(2 * warp) * kList + lane],
+                                      src[(2 * warp + 1) * kList + lane]);
+        if (count == 2) __stcg(mine + lane, (unsigned long long)x);
+        else dst[warp * kList + lane] = x;
+      }
+      uint64_t* t = src;
+      src = dst;
+      dst = t;
+    }
+  };
+  // every block, after a sweep's barrier: the cc largest keys of all the
+  // blocks' lists -> the batch s_cand[0, cc) and its hash, s_cnt zeroed.
+  // The lists are loaded into shared memory; pairs of the kept ones merge
+  // in rounds between two parts of the dynamic shared memory.
+  auto merge_lists = [&](int64_t cc) {
+    const int lane = tid & 31, warp = tid >> 5;
+    for (int i = tid; i < kListHash; i += kSelThreads) s_hkey[i] = kEmpty;
+    for (int i = tid; i < cc; i += kSelThreads) s_cnt[i] = 0;
+    const unsigned long long* lists =
+        a.lists + int64_t((sweeps + 1) % 2) * blocks * kList;
+    uint64_t* src = reinterpret_cast<uint64_t*>(s_dyn + a.merge_off);
+    uint64_t* dst = src + int64_t(blocks) * kList;
+    // every list into shared memory, all loads in flight together, and the
+    // heads side by side (a 0 past an odd count)
+    for (int64_t i = tid; i < int64_t(blocks) * kList; i += kSelThreads)
+      src[i] = __ldcg(lists + i);
+    if (tid <= blocks) s_heads[tid] = tid < blocks ? __ldcg(lists + int64_t(
+                                                         tid) * kList)
+                                                   : 0;
+    if (tid == 0) s_nkeep = 0;
+    __syncthreads();
+    PHASE_CLOCK(kClListLoad);
+    // only the lists whose head is among the cc largest heads can hold a
+    // key of the batch (a key of another list is below its head, below
+    // cc heads; heads are unique keys or 0): the merge takes those alone
+    if (tid < blocks) {
+      const uint64_t head = s_heads[tid];
+      const ulonglong2* pairs2 = reinterpret_cast<const ulonglong2*>(s_heads);
+      int above = 0;
+#pragma unroll 8
+      for (int b = 0; b < (blocks + 1) / 2; ++b) {
+        const ulonglong2 h = pairs2[b];
+        above += (h.x > head) + (h.y > head);
+      }
+      if (head != 0 && above < cc) s_keep[atomicAdd(&s_nkeep, 1)] = tid;
+    }
+    __syncthreads();
+    PHASE_CLOCK(kClListKeep);
+    const int kept = s_nkeep;      // 0 only when every list is empty
+    // rounds of pairwise merges, src -> dst, an odd last list with zeros;
+    // the first round's lists are the kept ones (list 0 when none is)
+    for (int count = kept > 0 ? kept : 1, first = 1, half; count > 1 || first;
+         count = half, first = 0) {
+      if (!first) __syncthreads();
+      half = (count + 1) / 2;
+      for (int m = warp; m < half; m += kSelWarps) {
+        const int64_t xa = first ? (kept > 0 ? s_keep[2 * m] : 0) : 2 * m;
+        const int64_t ya = 2 * m + 1 >= count ? -1
+                           : first            ? s_keep[2 * m + 1]
+                                              : 2 * m + 1;
+        dst[m * kList + lane] = warp_merge(
+            src[xa * kList + lane], ya >= 0 ? src[ya * kList + lane] : 0);
+      }
+      uint64_t* t = src;
+      src = dst;
+      dst = t;
+    }
+    __syncthreads();
+    if (tid < cc) {
+      const int32_t v = int32_t(0xFFFFFFFFu - uint32_t(src[tid]));
+      s_cand[tid] = v;
+      int h = table_slot(v, 32 - kListHashBits);
+      while (atomicCAS(&s_hkey[h], kEmpty, v) != kEmpty)
+        h = (h + 1) & (kListHash - 1);
+      s_hslot[h] = tid;
+    }
+    __syncthreads();
+  };
+  // the exact evaluation of the batch: the block's elements probe its
+  // hash in shared memory
+  auto evaluate_list = [&](int64_t cc) {
+    const int q = call & 1;
+    int64_t* list = a.touched + int64_t(q) * a.t;
+    int32_t* list_n = a.touched_n + q;
+    if (gtid == 0) a.touched_n[q ^ 1] = 0;   // the last call's, cleared
+    for (int64_t i = tid; i < e_count; i += kSelThreads) {
+      const int2 pr = pool[i];
+      if (pr.y < 0 || uint32_t(pr.x) >= uint32_t(n)) continue;
+      int h = table_slot(pr.x, 32 - kListHashBits);
+      int32_t key = s_hkey[h];
+      while (key != kEmpty && key != pr.x) {
+        h = (h + 1) & (kListHash - 1);
+        key = s_hkey[h];
+      }
+      if (key == kEmpty) continue;           // the common case
+      const int slot = s_hslot[h];
+      const uint32_t bit = 1u << (pr.y & 31);
+      if (__ldcg(a.cov + (pr.y >> 5)) & bit) continue;
+      const int64_t word = int64_t(slot) * a.cov_words + (pr.y >> 5);
+      const uint32_t old = atomicOr(a.bitmaps + word, bit);
+      if (!(old & bit)) atomicAdd(&s_cnt[slot], 1);
+      if (!old) list[atomicAdd(list_n, 1)] = word;
+    }
+    __syncthreads();
+    for (int i = tid; i < cc; i += kSelThreads)
+      if (s_cnt[i]) atomicAdd(a.cnt + i, s_cnt[i]);
+    last_cc = int32_t(cc);
+    PHASE_CLOCK(kClEval);
+    sync();
+    pending = call;
+    ++call;
+    n_evals += cc;
+    ++n_calls;
+  };
   // the lazy loop's sweep at step `step`
   auto lazy_sweep = [&](int32_t step) {
-    zero_hist();
+    if (kLists) {
+      // the last call's counts to its candidates in this slice
+      if (pending >= 0) {
+        for (int i = tid; i < last_cc; i += kSelThreads) {
+          const int32_t v = s_cand[i];
+          if (v >= lo && v < lo + held) {
+            a.ub[v] = __ldcg(a.cnt + i);
+            a.stamp[v] = step;
+            a.cnt[i] = 0;
+          }
+        }
+        __syncthreads();
+      }
+    } else {
+      zero_hist();
+    }
     uint64_t best = 0;
     bool best_fresh = false;
     uint32_t maxsel = 0;
@@ -643,7 +945,7 @@ celf_select_kernel(SelectArgs a) {
         const int64_t v = lo + j;
         int32_t o = __ldcg(a.ub + v);
         bool fresh = __ldcg(a.stamp + v) == step;
-        if (pending >= 0) {
+        if (!kLists && pending >= 0) {
           const int2 cv = __ldcg(a.cand + v);
           if (cv.x == pending) {
             o = __ldcg(a.cnt + cv.y);
@@ -660,22 +962,35 @@ celf_select_kernel(SelectArgs a) {
           best_fresh = fresh;
         }
         x = fresh ? 0u : uint32_t(o) + 1u;
-        a.sel[v] = x;
+        selbuf[j] = x;
         maxsel = max(maxsel, x);
       }
-      warp_bin_add(s_hist, x != 0 && x < (1u << kDigit), x & (kBins - 1));
-      warp_bin_add(s_hist + kBins, x != 0 && x < (1u << (2 * kDigit)),
-                   (x >> kDigit) & (kBins - 1));
+      if (!kLists) {
+        warp_bin_add(s_hist, x != 0 && x < (1u << kDigit), x & (kBins - 1));
+        warp_bin_add(s_hist + kBins, x != 0 && x < (1u << (2 * kDigit)),
+                     (x >> kDigit) & (kBins - 1));
+      }
     }
-    if (pending >= 0) clear();
+    if (pending >= 0) {
+      if (kLists) clear_list(pending);
+      else clear();
+    }
     pending = -1;
-    flush_hist(2);
-    put_record(best, best_fresh, maxsel);
+    if (kLists) {
+      PHASE_CLOCK(kClLazySweep);
+      block_list();
+      put_record(best, best_fresh, maxsel);
+      PHASE_CLOCK(kClTopC);
+    } else {
+      flush_hist(2);
+      put_record(best, best_fresh, maxsel);
+      PHASE_CLOCK(kClLazySweep);
+    }
     sync();
   };
   // the sketch's sweep: sel = D + 1 for every node of the slice
   auto delta_sweep = [&]() {
-    zero_hist();
+    if (!kLists) zero_hist();
     uint32_t maxsel = 0;
     const int lanes = a.lanes, sub = tid & (lanes - 1);
     const int64_t groups = kSelThreads / lanes, g = tid / lanes;
@@ -687,7 +1002,7 @@ celf_select_kernel(SelectArgs a) {
       uint32_t cnt[kSweepRows];
 #pragma unroll
       for (int i = 0; i < kSweepRows; ++i) {
-        row[i] = a.sk + (lo + min(r0 + g + i * groups, held - 1)) * a.cols;
+        row[i] = sk_slice + min(r0 + g + i * groups, held - 1) * a.cols;
         cnt[i] = 0;
       }
       if (a.vector) {
@@ -695,8 +1010,10 @@ celf_select_kernel(SelectArgs a) {
           const uint4 y = cov4[q];
           uint4 x[kSweepRows];
 #pragma unroll
-          for (int i = 0; i < kSweepRows; ++i)
-            x[i] = __ldg(reinterpret_cast<const uint4*>(row[i]) + q);
+          for (int i = 0; i < kSweepRows; ++i) {
+            const uint4* row4 = reinterpret_cast<const uint4*>(row[i]);
+            x[i] = rows_on_chip ? row4[q] : __ldg(row4 + q);
+          }
 #pragma unroll
           for (int i = 0; i < kSweepRows; ++i)
             cnt[i] += __popc(x[i].x | y.x) + __popc(x[i].y | y.y) +
@@ -707,7 +1024,8 @@ celf_select_kernel(SelectArgs a) {
           const uint32_t y = cov_sk[w];
           uint32_t x[kSweepRows];
 #pragma unroll
-          for (int i = 0; i < kSweepRows; ++i) x[i] = __ldg(row[i] + w);
+          for (int i = 0; i < kSweepRows; ++i)
+            x[i] = rows_on_chip ? row[i][w] : __ldg(row[i] + w);
 #pragma unroll
           for (int i = 0; i < kSweepRows; ++i) cnt[i] += __popc(x[i] | y);
         }
@@ -721,16 +1039,26 @@ celf_select_kernel(SelectArgs a) {
         const bool on = sub == 0 && j < held;
         const uint32_t x = c - base + 1u;
         if (on) {
-          a.sel[lo + j] = x;
+          selbuf[j] = x;
           maxsel = max(maxsel, x);
         }
-        warp_bin_add(s_hist, on && x < (1u << kDigit), x & (kBins - 1));
-        warp_bin_add(s_hist + kBins, on && x < (1u << (2 * kDigit)),
-                     (x >> kDigit) & (kBins - 1));
+        if (!kLists) {
+          warp_bin_add(s_hist, on && x < (1u << kDigit), x & (kBins - 1));
+          warp_bin_add(s_hist + kBins, on && x < (1u << (2 * kDigit)),
+                       (x >> kDigit) & (kBins - 1));
+        }
       }
     }
-    flush_hist(2);
-    put_record(0, false, maxsel);
+    if (kLists) {
+      PHASE_CLOCK(kClDeltaSweep);
+      block_list();
+      put_record(0, false, maxsel);
+      PHASE_CLOCK(kClTopC);
+    } else {
+      flush_hist(2);
+      put_record(0, false, maxsel);
+      PHASE_CLOCK(kClDeltaSweep);
+    }
     sync();
   };
   // seed s = u: its rows into Covered, ub[u] = 0, sk[u] into cov_sk
@@ -739,17 +1067,36 @@ celf_select_kernel(SelectArgs a) {
       a.ub[u] = 0;
     if (tid == 0) s_gain = 0;
     __syncthreads();
-    for (int64_t b0 = int64_t(me) * kSelThreads; b0 < a.t; b0 += gsize) {
-      const int64_t e = b0 + tid;
-      bool flipped = false;
-      int32_t r;
-      if (e < a.t && __ldg(a.flat + e) == u &&
-          row_in(a.valid, a.ids, e, rows, &r)) {
-        const uint32_t bit = 1u << (r & 31);
-        flipped = !(atomicOr(a.cov + (r >> 5), bit) & bit);
+    if (kLists) {
+      // the block's own elements, on chip
+      for (int64_t b0 = 0; b0 < e_count; b0 += kSelThreads) {
+        const int64_t i = b0 + tid;
+        bool flipped = false;
+        if (i < e_count) {
+          const int2 pr = pool[i];
+          if (pr.x == u && pr.y >= 0) {
+            const uint32_t bit = 1u << (pr.y & 31);
+            flipped = !(atomicOr(a.cov + (pr.y >> 5), bit) & bit);
+          }
+        }
+        const unsigned votes = __ballot_sync(kFull, flipped);
+        if ((tid & 31) == 0 && votes)
+          atomicAdd(&s_gain, int32_t(__popc(votes)));
       }
-      const unsigned votes = __ballot_sync(kFull, flipped);
-      if ((tid & 31) == 0 && votes) atomicAdd(&s_gain, int32_t(__popc(votes)));
+    } else {
+      for (int64_t b0 = int64_t(me) * kSelThreads; b0 < a.t; b0 += gsize) {
+        const int64_t e = b0 + tid;
+        bool flipped = false;
+        int32_t r;
+        if (e < a.t && __ldg(a.flat + e) == u &&
+            row_in(a.valid, a.ids, e, rows, &r)) {
+          const uint32_t bit = 1u << (r & 31);
+          flipped = !(atomicOr(a.cov + (r >> 5), bit) & bit);
+        }
+        const unsigned votes = __ballot_sync(kFull, flipped);
+        if ((tid & 31) == 0 && votes)
+          atomicAdd(&s_gain, int32_t(__popc(votes)));
+      }
     }
     if (a.sk) {
       const uint32_t* row = a.sk + int64_t(u) * a.cols;
@@ -763,6 +1110,7 @@ celf_select_kernel(SelectArgs a) {
     }
     __syncthreads();
     if (tid == 0 && s_gain) atomicAdd(a.gains + s, s_gain);
+    PHASE_CLOCK(kClCommit);
   };
 
   int32_t u = 0;
@@ -776,23 +1124,38 @@ celf_select_kernel(SelectArgs a) {
     if (a.sk) {
       delta_sweep();
       get_records(&key, &fresh, &m);
-      select(a.c, m);
-      evaluate(a.c);
+      PHASE_CLOCK(kClRecords);
+      if (kLists) {
+        merge_lists(a.c);
+        PHASE_CLOCK(kClMerge);
+        evaluate_list(a.c);
+      } else {
+        select(a.c, m);
+        evaluate(a.c);
+      }
       fresh_n += a.c;
     }
     while (true) {
       lazy_sweep(step);
       get_records(&key, &fresh, &m);
+      PHASE_CLOCK(kClRecords);
       u = int32_t(0xFFFFFFFFu - uint32_t(key));
       if (fresh) break;
       const int64_t cc = min(int64_t(a.c), int64_t(n) - fresh_n);
-      select(cc, m);
-      evaluate(cc);
+      if (kLists) {
+        merge_lists(cc);
+        PHASE_CLOCK(kClMerge);
+        evaluate_list(cc);
+      } else {
+        select(cc, m);
+        evaluate(cc);
+      }
       fresh_n += cc;
     }
     if (gtid == 0) a.seeds[s] = u;
   }
   commit(u, a.k - 1);
+  PHASE_CLOCK_END();
   if (gtid == 0) {
     a.stats[0] = n_evals;
     a.stats[1] = n_calls;
@@ -800,18 +1163,45 @@ celf_select_kernel(SelectArgs a) {
   }
 }
 
+// celf_select_kernel in the form that a launch takes: cov_sk in shared
+// memory or not, and the top lists or the radix pick.
+const void* select_kernel(bool shared, bool lists) {
+  if (lists)
+    return shared ? reinterpret_cast<const void*>(
+                        celf_select_kernel<true, true>)
+                  : reinterpret_cast<const void*>(
+                        celf_select_kernel<false, true>);
+  return shared ? reinterpret_cast<const void*>(
+                      celf_select_kernel<true, false>)
+                : reinterpret_cast<const void*>(
+                      celf_select_kernel<false, false>);
+}
+
 // celf_select_kernel's grid on card `device`, read once a card: one block
-// on each SM, and the widest cov_sk (in words) that its dynamic shared
-// memory holds beside the static (the limit is raised here).
+// on each SM, and the dynamic shared memory (in words) that a block may
+// take beside the static, the limit raised for every form.
 cudaError_t select_grid_for(int device, int* blocks, int64_t* shared_words) {
   static int sms[kMaxDevices];
   static int64_t bytes[kMaxDevices];
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (sms[device] == 0) {
-    cudaError_t err = one_block_an_sm(
-        reinterpret_cast<const void*>(celf_select_kernel<true>),
-        reinterpret_cast<const void*>(celf_select_kernel<false>),
-        kSelThreads, 0, device, &sms[device], &bytes[device]);
+    cudaError_t err = one_block_an_sm(select_kernel(true, false),
+                                      select_kernel(false, false), kSelThreads,
+                                      0, device, &sms[device],
+                                      &bytes[device]);
+    // the list forms have the same static shared memory
+    for (int shared = 0; shared < 2 && err == cudaSuccess; ++shared) {
+      const void* kernel = select_kernel(shared != 0, true);
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          int(bytes[device]));
+      int resident = 0;
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &resident, kernel, kSelThreads, size_t(bytes[device]));
+      if (err == cudaSuccess && resident < 1)
+        err = cudaErrorCooperativeLaunchTooLarge;
+    }
     // a thread reads each block's record and tie count
     if (err == cudaSuccess && sms[device] > kSelThreads)
       err = cudaErrorNotSupported;
@@ -825,40 +1215,78 @@ cudaError_t select_grid_for(int device, int* blocks, int64_t* shared_words) {
   return cudaSuccess;
 }
 
-// Byte offsets of celf_select's scratch (kernels/celf.py::
-// select_scratch_bytes says the same): the records (2 x blocks x 16), the
-// histogram ring (6 x kBins int32), cand (n int2), the touched words (t
-// int64), ub, stamp and sel (n each), cnt (c), ties (blocks), the slot
-// and touched counters (2), Covered (cov_words)
-// and the bitmaps (min(c, kMaxCands) x cov_words), then, when a sketch row
-// does not fit shared memory, each block's cov_sk from the next 16-byte
-// boundary (round_up(cols, 4) words each).
+// celf_select's form and the byte offsets of its scratch and dynamic
+// shared memory (kernels/celf.py::select_layout says the same).
+// The form: the top-list path with lists of kList keys at c <= kList
+// while its merge buffers fit the shared memory
+// (else the radix pick, list 0); cov_sk in shared memory (`shared`) while
+// it fits beside them; the pool's (node, row) pairs on chip while they fit
+// after both (pool_off >= 0), the slice's sel before them (sel_off >= 0)
+// and the slice's sketch rows after them (rows_off >= 0).  The dynamic
+// shared memory: cov_sk (stride words, when shared and there is a
+// sketch), the merge buffers (the blocks' lists and half as many, at least
+// 24 lists), the slice's sel (slots uint32, to 16 bytes), the block's
+// pairs (epb int2, to 16 bytes), the slice's rows (slots x cols
+// uint32).  The scratch: the records (2 x blocks x 16), the lists (2 x
+// blocks x list uint64), the pairs (t int2, when not on chip), the
+// histogram ring (6 x kBins int32), cand (n int2), the touched words (2 x
+// t int64), ub, stamp and sel (n each), cnt (c), ties (blocks), the slot
+// and touched counters (4 int32), Covered (cov_words) and the bitmaps
+// (min(c, kMaxCands) x cov_words), then, when cov_sk is not in shared
+// memory, each block's cov_sk from the next 16-byte boundary (round_up(
+// cols, 4) words each).
 struct SelectLayout {
-  int64_t hist, cand, touched, ub, stamp, sel, cnt, ties, next, cov, bitmaps,
-      copies;
-  int64_t stride, total;
+  int list;
   bool shared;
+  int64_t epb, merge_off, sel_off, pool_off, rows_off, dynamic;
+  int64_t lists, pairs, hist, cand, touched, ub, stamp, sel, cnt, ties, next,
+      cov, bitmaps, copies;
+  int64_t stride, total;
 };
 
 SelectLayout select_layout(int32_t n, int64_t cov_words, int32_t c,
                            int32_t cols, int blocks, int64_t shared_words,
                            int64_t t) {
   SelectLayout l;
-  l.hist = 32 * int64_t(blocks);
+  const int64_t limit = 4 * shared_words;
+  l.stride = (int64_t(cols) + 3) & ~int64_t(3);
+  l.list = c <= kList ? kList : 0;
+  int64_t merge_lists = int64_t(blocks) + (int64_t(blocks) + 1) / 2;
+  if (merge_lists < kSelWarps + kSelWarps / 2)
+    merge_lists = kSelWarps + kSelWarps / 2;
+  int64_t merge = l.list ? 8 * int64_t(l.list) * merge_lists : 0;
+  if (merge > limit) {
+    l.list = 0;
+    merge = 0;
+  }
+  const int64_t cov_bytes = cols ? 4 * l.stride : 0;
+  l.shared = cov_bytes + merge <= limit;
+  l.merge_off = l.shared ? cov_bytes : 0;
+  l.epb = (t + blocks - 1) / blocks;
+  const int64_t slots = (int64_t(n) + blocks - 1) / blocks;
+  const int64_t sel_bytes = (4 * slots + 15) & ~int64_t(15);
+  int64_t end = l.merge_off + merge;
+  l.sel_off = l.list && end + sel_bytes <= limit ? end : -1;
+  if (l.sel_off >= 0) end += sel_bytes;
+  l.pool_off = l.list && end + 8 * l.epb <= limit ? end : -1;
+  if (l.pool_off >= 0) end = (end + 8 * l.epb + 15) & ~int64_t(15);
+  const int64_t rows_bytes = 4 * slots * int64_t(cols);
+  l.rows_off = l.list && cols && end + rows_bytes <= limit ? end : -1;
+  l.dynamic = l.rows_off >= 0 ? end + rows_bytes : end;
+  l.lists = 32 * int64_t(blocks);
+  l.pairs = l.lists + 16 * int64_t(blocks) * l.list;
+  l.hist = l.pairs + (l.list && l.pool_off < 0 ? 8 * t : 0);
   l.cand = l.hist + 4 * 6 * int64_t(kBins);
   l.touched = l.cand + 8 * int64_t(n);
-  l.ub = l.touched + 8 * t;
+  l.ub = l.touched + 16 * t;
   l.stamp = l.ub + 4 * int64_t(n);
   l.sel = l.stamp + 4 * int64_t(n);
   l.cnt = l.sel + 4 * int64_t(n);
   l.ties = l.cnt + 4 * int64_t(c);
   l.next = l.ties + 4 * int64_t(blocks);
-  l.cov = l.next + 8;
+  l.cov = l.next + 16;
   l.bitmaps = l.cov + 4 * cov_words;
-  const int64_t end =
-      l.bitmaps + 4 * int64_t(c < kMaxCands ? c : kMaxCands) * cov_words;
-  l.stride = (int64_t(cols) + 3) & ~int64_t(3);
-  l.shared = l.stride <= shared_words;
+  end = l.bitmaps + 4 * int64_t(c < kMaxCands ? c : kMaxCands) * cov_words;
   l.copies = (end + 15) & ~int64_t(15);
   l.total = l.shared ? end : l.copies + 4 * int64_t(blocks) * l.stride;
   return l;
@@ -974,6 +1402,13 @@ extern "C" int celf_select(const void* flat, const void* ids,
   a.vector = sketch && vector;
   a.cov_stride = l.stride;
   a.records = reinterpret_cast<unsigned long long*>(at);
+  a.lists = reinterpret_cast<unsigned long long*>(at + l.lists);
+  a.pairs = reinterpret_cast<int2*>(at + l.pairs);
+  a.epb = l.epb;
+  a.merge_off = l.merge_off;
+  a.sel_off = l.sel_off;
+  a.pool_off = l.pool_off;
+  a.rows_off = l.rows_off;
   a.hist = reinterpret_cast<int32_t*>(at + l.hist);
   a.cand = reinterpret_cast<int2*>(at + l.cand);
   a.touched = reinterpret_cast<int64_t*>(at + l.touched);
@@ -991,17 +1426,10 @@ extern "C" int celf_select(const void* flat, const void* ids,
   a.gains = a.seeds + k;
   a.stats = reinterpret_cast<long long*>(a.seeds + 2 * int64_t(k));
   void* args[] = {&a};
-  if (l.shared) {
-    err = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(celf_select_kernel<true>), dim3(blocks),
-        dim3(kSelThreads), args, size_t(sketch ? 4 * l.stride : 0),
-        static_cast<cudaStream_t>(stream));
-  } else {
-    err = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(celf_select_kernel<false>),
-        dim3(blocks), dim3(kSelThreads), args, 0,
-        static_cast<cudaStream_t>(stream));
-  }
+  err = cudaLaunchCooperativeKernel(select_kernel(l.shared, l.list),
+                                    dim3(blocks), dim3(kSelThreads), args,
+                                    size_t(l.dynamic),
+                                    static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
 }

@@ -97,6 +97,14 @@
 #ifndef GREEDY_STAMP
 #define GREEDY_STAMP(i)
 #endif
+// SM clocks of greedy_sketch_kernel's phases, summed over its steps:
+// examples/sketch_stamps.cu defines these (examples/phase_clock.cuh)
+// before it includes this file; here they are empty.
+#ifndef PHASE_CLOCK_START
+#define PHASE_CLOCK_START(phases)
+#define PHASE_CLOCK(p)
+#define PHASE_CLOCK_END()
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -475,110 +483,297 @@ FlatLayout flat_layout(int32_t n, int64_t num_rows, int64_t t, int32_t k,
 // gains[s] = delta(u_s), u_s is picked and cov |= sk[u_s].  The steps not
 // taken get seed n and gain 0, and out[2k] is the number of steps taken.
 //
-// Design.  One block of kThreads on each SM, cooperative, as greedy_flat.
+// Design.  One block of kThreads on each SM, cooperative, as greedy_flat;
+// block b owns the rows [b * slots, (b + 1) * slots) below n; k + 1 grid
+// barriers at most, one after the prologue and one a step run.
 // - popcount(cov) is the sum of the gains taken so far (cov starts at 0 and
 //   each gain is the bits it adds), so each thread keeps it as a running
 //   sum `base` and no step counts cov.
-// - Each block keeps its own copy of cov: in dynamic shared memory when W
-//   words fit (the attribute is raised once a card), else in its own slice
-//   of the scratch, read through L1/L2.  After the argmax barrier of step
-//   s every block reads u_s off the step's key and ORs sk[u_s] into its own
-//   copy, so nothing that another block reads is written between two
-//   barriers except the step's key slot, by atomicMax before the barrier:
-//   one grid barrier a step, k + 1 in all.
-// - Rows: a group of `lanes` lanes owns rows group, group + G, ... (G the
-//   grid's groups): a thread a row at W <= 4 (one 16-byte load at W = 4),
-//   else the least power of two >= the row's loads, at most 32, striding
-//   over the row (16 bytes a load when W % 4 == 0 and the words are
-//   16-byte aligned) and summing with shuffles; the wrapper chooses
-//   (kernels/greedy.py::sketch_layout).  The sketch is read with __ldg: the
-//   launch never writes it, and a block's rows stay in its SM's L1 from one
-//   step to the next where they fit.
-// - The argmax key is greedy_flat's with the score shifted by one:
-//   ((delta + 1) << 32) | (0xFFFFFFFF - v), atomicMax'ed into the step's own
-//   slot (zeroed in phase 0).  A picked node takes no part, so a step whose
-//   key has a high word of 0 found no node: every block reads the same key
-//   and leaves at the same step, and the barrier counts agree.
-// - picked[v] is written and read by one thread only, the first lane of
-//   v's group, so it needs no barrier.
+// - The rows stay on chip where they fit, read from memory once, in the
+//   prologue (kernels/greedy.py::sketch_layout chooses the form).
+//   kSketchRegisters (W <= 4): thread j holds the rows j, j + kThreads, ...
+//   of its block's slice (at most kMaxRegRows: n up to 2 x 512 x the SMs,
+//   the approximate cell's 575 rows a block; a larger slice takes the
+//   shared form) and cov in registers, a uint4 each (words past W are 0).
+//   One kernel for both counts (a kMaxRegRows = 8 kernel ran 13% slower
+//   at the approximate cell, PERF.md §6).  kSketchShared: the slice is
+//   copied into dynamic shared memory after cov.  kSketchGlobal: the slice is
+//   read from global memory every step (__ldg; from L2 where the sketch
+//   fits it), cov in shared memory or, when W words do not fit, in the
+//   block's slice of the scratch.  In these two a group of `lanes` lanes
+//   takes a row (16-byte loads when `vector`) and sums with shuffles.
+// - The exchange, greedy_flat's: each block writes its record of step s
+//   (its key, (delta + 1) << 32 | (0xFFFFFFFF - v), or 0 with no
+//   candidate, and in the register form the winner's row) into the slot
+//   of the step's parity; a grid barrier; every block reads all the
+//   records, a thread each, and reduces the keys to u_s and its gain (ties
+//   to the lowest id, across blocks as within); the register form takes
+//   u_s's row from the same record, the others read sk[u_s] after the
+//   reduce.  So a step is the sweep, one barrier and one round of
+//   independent record reads, where the parent's was the sweep, an
+//   atomicMax, the barrier, the key's read and the dependent read of
+//   sk[u_s].  Every block reduces the same records, so all take the same
+//   u_s and leave at the same step (a key whose high word is 0: no node
+//   left).  A slot is written again two steps later, after a barrier that
+//   every reader of it passed after its reads.  (Records as the barrier,
+//   tagged words polled with relaxed loads and no grid barrier, measured
+//   slower on the H100: PERF.md.)
+// - A picked node's delta is 0 (its row is in cov), so a row's picked bit
+//   is read only when the row would win at a delta of 0, before its thread
+//   holds a candidate: in registers in the register form (a bit a row of
+//   the thread), else a bit a slice row in shared memory (in the block's
+//   part of the scratch where it does not fit), set by the block after the
+//   step's reduce.
 //
 // What bounds it.  Each step reads the n sketch rows (1.21 MB at the
-// approximate cell, 75,880 x 4 words; it stays in L2) and does an OR, a
-// popcount and an add a word: a few microseconds of the whole card.  The
-// k + 1 grid barriers (about 1.2 us each on the H100) and each step's
-// chain (the argmax, the barrier, the key, then sk[u_s]) set its time;
-// greedy_grid_barriers runs the same grid with the barriers alone.
+// approximate cell, 75,880 x 4 words), from registers or shared memory
+// where they stay, and does an OR, a popcount and an add a word: a few
+// microseconds of the whole card.  A step's chain sets its time: the
+// sweep, the block's reduce, the grid barrier and the records' read; past
+// the shared memory (W >= 128 at the stand-in) the sweep's pass over L2 or
+// memory.  greedy_grid_barriers runs the same grid with the barriers
+// alone, the floor.
+
+enum SketchForm { kSketchRegisters = 0, kSketchShared = 1, kSketchGlobal = 2 };
+// greedy_sketch_kernel's phases in its clock stamps: the prologue; a
+// step's sweep of the rows, the block's argmax and its record, the grid
+// barrier, the records' read and reduce to the step's key, and the seed's
+// row ORed into cov.
+enum SketchPhase { kSkProlog, kSkSweep, kSkArgmax, kSkBarrier, kSkKey,
+                   kSkSeedRow, kSkPhases };
+constexpr int kMaxRegRows = 2;              // rows a thread holds in registers
+constexpr int kSketchRows = 4;              // rows a lane group loads at once
+
+// One block's record of one step: the winner's row (register form), then
+// its key.
+struct alignas(32) SketchRecord {
+  uint4 row;
+  unsigned long long key;
+  unsigned long long pad;
+};
 
 __device__ __forceinline__ uint32_t popc_or4(uint4 x, uint4 c) {
   return __popc(x.x | c.x) + __popc(x.y | c.y) + __popc(x.z | c.z) +
          __popc(x.w | c.w);
 }
 
-template <bool kSharedCov>
-__global__ void __launch_bounds__(kThreads)
-greedy_sketch_kernel(const uint32_t* __restrict__ sk, int32_t n, int32_t cols,
-                     int32_t lanes, bool vector, int32_t k,
-                     unsigned long long* keys, uint8_t* picked,
-                     uint32_t* cov_copies, int32_t* out) {
-  extern __shared__ uint4 s_cov4[];
-  __shared__ uint64_t red[kWarps];
-  cg::grid_group grid = cg::this_grid();
-  const int64_t stride = (int64_t(cols) + 3) & ~int64_t(3);
-  uint32_t* cov = kSharedCov ? reinterpret_cast<uint32_t*>(s_cov4)
-                             : cov_copies + int64_t(blockIdx.x) * stride;
-  const uint4* cov4 = reinterpret_cast<const uint4*>(cov);
-  const int lane = threadIdx.x & 31;
-  const int sub = lane & (lanes - 1);          // lane within the row group
-  const int rows_per_warp = 32 / lanes;
-  const int64_t gtid = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t gsize = int64_t(gridDim.x) * kThreads;
-  const int64_t gwarp = gtid >> 5, nwarps = gsize >> 5;
-  const int64_t group = gtid / lanes, groups = gsize / lanes;
+__device__ __forceinline__ uint4 or4(uint4 x, uint4 c) {
+  return make_uint4(x.x | c.x, x.y | c.y, x.z | c.z, x.w | c.w);
+}
 
-  for (int w = threadIdx.x; w < cols; w += kThreads) cov[w] = 0;
-  for (int64_t s = gtid; s < k; s += gsize) keys[s] = 0;
-  if (sub == 0)
-    for (int64_t v = group; v < n; v += groups) picked[v] = 0;
+// A row of cols <= 4 words as a uint4, the words past cols 0.
+__device__ __forceinline__ uint4 load_row4(const uint32_t* row, int cols,
+                                           bool vector) {
+  if (vector) return __ldg(reinterpret_cast<const uint4*>(row));
+  uint4 x = make_uint4(0u, 0u, 0u, 0u);
+  x.x = __ldg(row);
+  if (cols > 1) x.y = __ldg(row + 1);
+  if (cols > 2) x.z = __ldg(row + 2);
+  if (cols > 3) x.w = __ldg(row + 3);
+  return x;
+}
+
+// The warp's largest 64-bit key (keys are unique or 0).
+__device__ __forceinline__ uint64_t warp_max_u64(uint64_t key) {
+  return warp_max_key(uint32_t(key >> 32), uint32_t(key));
+}
+
+// The words of a block's picked bits (a bit a slice row) and of its
+// dynamic shared memory in a lane-group form: cov (stride words when in
+// shared memory), the slice's rows (kSketchShared), then the picked bits
+// when they fit (else they are the block's part of the scratch).
+__host__ __device__ __forceinline__ int64_t picked_words(int64_t slots) {
+  return (slots + 31) / 32;
+}
+
+template <int kForm, bool kSharedCov>
+__global__ void __launch_bounds__(kThreads, 1)
+greedy_sketch_kernel(const uint32_t* __restrict__ sk, int32_t n, int32_t cols,
+                     int32_t lanes, bool vector, int32_t k, int32_t slots,
+                     bool picked_shared, SketchRecord* records,
+                     uint32_t* picked_copies, uint32_t* cov_copies,
+                     int32_t* out) {
+  extern __shared__ uint4 s_dyn4[];
+  __shared__ uint64_t s_wkey[kWarps], s_xkey[kWarps];
+  __shared__ uint4 s_wrow[kWarps], s_xrow[kWarps];
+  cg::grid_group grid = cg::this_grid();
+  const int32_t blocks = gridDim.x, me = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t gtid = int64_t(me) * kThreads + tid;
+  const int64_t gsize = int64_t(blocks) * kThreads;
+  const int64_t lo = min(int64_t(me) * slots, int64_t(n));
+  const int64_t held = min(lo + slots, int64_t(n)) - lo;
+  const int64_t stride = (int64_t(cols) + 3) & ~int64_t(3);
+  constexpr bool kRegs = kForm == kSketchRegisters;
+  // the lane-group forms: cov, then (kSketchShared) the slice's rows, then
+  // the picked bits
+  uint32_t* s_words = reinterpret_cast<uint32_t*>(s_dyn4);
+  uint32_t* cov = kSharedCov ? s_words : cov_copies + int64_t(me) * stride;
+  const uint4* cov4 = reinterpret_cast<const uint4*>(cov);
+  const int64_t rows_at = kSharedCov ? stride : 0;
+  const uint32_t* slice =
+      kForm == kSketchShared ? s_words + rows_at : sk + lo * cols;
+  uint32_t* picked =
+      picked_shared
+          ? s_words + rows_at + (kForm == kSketchShared ? slots * cols : 0)
+          : picked_copies + int64_t(me) * picked_words(slots);
+  const int sub = lane & (lanes - 1);           // lane within the row group
+  const int rows_per_warp = 32 / lanes;
+  // the lane-group forms: warp w's passes start at the slice rows (w + m *
+  // kWarps) * span, and the group of lane l takes the rows l / lanes + i *
+  // rows_per_warp past that, i < kSketchRows
+  const int64_t span = int64_t(rows_per_warp) * kSketchRows;
+  PHASE_CLOCK_START(kSkPhases);
+
+  // prologue: the rows on chip, cov and the picked bits; a grid barrier
+  uint4 rows[kRegs ? kMaxRegRows : 1];
+  uint4 c4 = make_uint4(0u, 0u, 0u, 0u);        // kSketchRegisters: cov
+  uint32_t mine_picked = 0;                     // kSketchRegisters: bit i
+  if (kRegs) {
+#pragma unroll
+    for (int i = 0; i < kMaxRegRows; ++i) {
+      const int64_t j = tid + int64_t(i) * kThreads;
+      rows[i] = j < held ? load_row4(sk + (lo + j) * cols, cols, vector)
+                         : make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    for (int w = tid; w < cols; w += kThreads) cov[w] = 0;
+    if (kForm == kSketchShared) {
+      uint32_t* s_rows = s_words + rows_at;
+      const uint32_t* src = sk + lo * cols;
+      for (int64_t i = tid; i < held * cols; i += kThreads)
+        s_rows[i] = __ldg(src + i);
+    }
+    for (int64_t i = tid; i < picked_words(slots); i += kThreads)
+      picked[i] = 0;
+  }
   grid.sync();
+  PHASE_CLOCK(kSkProlog);
 
   uint32_t base = 0;                           // popcount(cov)
   int32_t s = 0;
   for (; s < k; ++s) {
-    // argmax: the rows of a group ascend, so a later row wins only when its
-    // score is larger; low == 0 marks a slice with no candidate.  Every
-    // lane of a warp runs the same iterations, so the full-mask shuffles
-    // see the whole warp.
+    // the sweep: each thread's first maximum of its rows' (delta + 1, ~v)
+    // (its rows ascend, so a later row wins only with a larger score;
+    // low == 0 marks no candidate) and, in the register form, its row.  A
+    // picked row's delta is 0, so a row's picked bit is read only when it
+    // would win at a delta of 0: before the thread has a candidate.
     uint32_t best = 0, low = 0;
-    for (int64_t r0 = gwarp * rows_per_warp; r0 < n;
-         r0 += nwarps * rows_per_warp) {
-      const int64_t v = r0 + lane / lanes;
-      uint32_t cnt = 0;
-      if (v < n) {
-        const uint32_t* row = sk + v * cols;
-        if (vector) {
-          const uint4* row4 = reinterpret_cast<const uint4*>(row);
-          for (int q = sub; q < cols / 4; q += lanes)
-            cnt += popc_or4(__ldg(row4 + q), cov4[q]);
-        } else {
-          for (int w = sub; w < cols; w += lanes)
-            cnt += __popc(__ldg(row + w) | cov[w]);
+    uint4 best_row = make_uint4(0u, 0u, 0u, 0u);
+    if (kRegs) {
+#pragma unroll
+      for (int i = 0; i < kMaxRegRows; ++i) {
+        const int64_t j = tid + int64_t(i) * kThreads;
+        if (j < held) {
+          const uint32_t d = popc_or4(rows[i], c4) - base;
+          if ((low == 0 || d + 1 > best) &&
+              (d != 0 || !((mine_picked >> i) & 1u))) {
+            best = d + 1;
+            low = 0xFFFFFFFFu - uint32_t(lo + j);
+            best_row = rows[i];
+          }
         }
       }
-      for (int off = lanes >> 1; off > 0; off >>= 1)
-        cnt += __shfl_down_sync(kFullMask, cnt, off, lanes);
-      if (sub == 0 && v < n && !picked[v]) {
-        const uint32_t score = cnt - base + 1;
-        if (low == 0 || score > best) {
-          best = score;
-          low = 0xFFFFFFFFu - uint32_t(v);
+    } else {
+      // every lane of a warp runs the same iterations, so the full-mask
+      // shuffles see the whole warp; a column's loads of the group's
+      // kSketchRows rows go out together (a row past the slice reads the
+      // slice's last row)
+      for (int64_t r0 = warp * span; r0 < held; r0 += kWarps * span) {
+        const uint32_t* row[kSketchRows];
+        uint32_t cnt[kSketchRows];
+#pragma unroll
+        for (int i = 0; i < kSketchRows; ++i) {
+          const int64_t j = r0 + lane / lanes + i * rows_per_warp;
+          row[i] = slice + min(j, held - 1) * cols;
+          cnt[i] = 0;
+        }
+        if (vector) {
+          for (int q = sub; q < cols / 4; q += lanes) {
+            const uint4 y = cov4[q];
+            uint4 x[kSketchRows];
+#pragma unroll
+            for (int i = 0; i < kSketchRows; ++i) {
+              const uint4* row4 = reinterpret_cast<const uint4*>(row[i]);
+              x[i] = kForm == kSketchShared ? row4[q] : __ldg(row4 + q);
+            }
+#pragma unroll
+            for (int i = 0; i < kSketchRows; ++i) cnt[i] += popc_or4(x[i], y);
+          }
+        } else {
+          for (int w = sub; w < cols; w += lanes) {
+            const uint32_t y = cov[w];
+            uint32_t x[kSketchRows];
+#pragma unroll
+            for (int i = 0; i < kSketchRows; ++i)
+              x[i] = kForm == kSketchShared ? row[i][w] : __ldg(row[i] + w);
+#pragma unroll
+            for (int i = 0; i < kSketchRows; ++i) cnt[i] += __popc(x[i] | y);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kSketchRows; ++i) {
+          const int64_t j = r0 + lane / lanes + i * rows_per_warp;
+          uint32_t c = cnt[i];
+          for (int off = lanes >> 1; off > 0; off >>= 1)
+            c += __shfl_down_sync(kFullMask, c, off, lanes);
+          if (sub == 0 && j < held) {
+            const uint32_t d = c - base;
+            if ((low == 0 || d + 1 > best) &&
+                (d != 0 || !((picked[j >> 5] >> (j & 31)) & 1u))) {
+              best = d + 1;
+              low = 0xFFFFFFFFu - uint32_t(lo + j);
+            }
+          }
         }
       }
     }
-    const uint64_t top = block_max_key(best, low, red);
-    if (threadIdx.x == 0 && top != 0) atomicMax(keys + s, top);
-    grid.sync();
+    PHASE_CLOCK(kSkSweep);
 
-    const unsigned long long key = __ldcg(keys + s);
+    // the block's first maximum, its record of step s, the barrier
+    SketchRecord* rec = records + int64_t(s & 1) * blocks;
+    {
+      const uint64_t key = (uint64_t(best) << 32) | low;
+      const uint64_t top = warp_max_u64(key);
+      if (kRegs && key == top && top != 0) s_wrow[warp] = best_row;
+      if (lane == 0) s_wkey[warp] = top;
+      __syncthreads();
+      if (warp == 0) {
+        const uint64_t mine = lane < kWarps ? s_wkey[lane] : 0;
+        const uint64_t block_top = warp_max_u64(mine);
+        if (block_top != 0 ? mine == block_top : lane == 0) {
+          if (kRegs) rec[me].row = s_wrow[lane];
+          rec[me].key = block_top;
+        }
+      }
+    }
+    PHASE_CLOCK(kSkArgmax);
+    grid.sync();
+    PHASE_CLOCK(kSkBarrier);
+
+    // every block's record of step s, a thread each
+    uint64_t theirs = 0;
+    uint4 their_row = make_uint4(0u, 0u, 0u, 0u);
+    if (tid < blocks) {
+      theirs = __ldcg(&rec[tid].key);
+      if (kRegs) their_row = __ldcg(&rec[tid].row);
+    }
+    {
+      const uint64_t top = warp_max_u64(theirs);
+      if (kRegs && theirs == top && top != 0) s_xrow[warp] = their_row;
+      if (lane == 0) s_xkey[warp] = top;
+    }
+    __syncthreads();
+    uint64_t key = 0;
+    int at = 0;
+    for (int w = 0; w * 32 < blocks; ++w) {
+      const uint64_t x = s_xkey[w];
+      if (x > key) {
+        key = x;
+        at = w;
+      }
+    }
+    PHASE_CLOCK(kSkKey);
     if ((key >> 32) == 0) break;               // no node left
     const uint32_t u = 0xFFFFFFFFu - uint32_t(key);
     const uint32_t gain = uint32_t(key >> 32) - 1;
@@ -586,12 +781,22 @@ greedy_sketch_kernel(const uint32_t* __restrict__ sk, int32_t n, int32_t cols,
       out[s] = int32_t(u);
       out[k + s] = int32_t(gain);
     }
-    if (gtid == (int64_t(u) % groups) * lanes) picked[u] = 1;
+    const int64_t ju = int64_t(u) - lo;
     base += gain;
-    const uint32_t* row = sk + int64_t(u) * cols;
-    for (int w = threadIdx.x; w < cols; w += kThreads) cov[w] |= __ldg(row + w);
-    __syncthreads();
+    if (kRegs) {
+      if (ju >= 0 && ju < held && ju % kThreads == tid)
+        mine_picked |= 1u << (ju / kThreads);
+      c4 = or4(c4, s_xrow[at]);
+    } else {
+      if (tid == 0 && ju >= 0 && ju < held)
+        atomicOr(picked + (ju >> 5), 1u << (ju & 31));
+      const uint32_t* row = sk + int64_t(u) * cols;
+      for (int w = tid; w < cols; w += kThreads) cov[w] |= __ldg(row + w);
+      __syncthreads();
+    }
+    PHASE_CLOCK(kSkSeedRow);
   }
+  PHASE_CLOCK_END();
   if (gtid == 0) out[2 * k] = s;
   for (int64_t j = s + gtid; j < k; j += gsize) {
     out[j] = n;
@@ -599,18 +804,39 @@ greedy_sketch_kernel(const uint32_t* __restrict__ sk, int32_t n, int32_t cols,
   }
 }
 
-// greedy_sketch_kernel's grid on card `device`, read once a card: one
-// block on each SM, and the widest cov (in words) that its dynamic shared
-// memory holds.
+// The kernel of a form, with cov in shared memory or not.
+template <int kForm, bool kSharedCov>
+const void* sketch_kernel_at() {
+  return reinterpret_cast<const void*>(
+      greedy_sketch_kernel<kForm, kSharedCov>);
+}
+
+// greedy_sketch's grid on card `device`, read once a card: one block on
+// each SM of every form, and the dynamic shared memory (in words) that a
+// block may take, the limit raised for the forms that take it.
 cudaError_t sketch_grid_for(int device, int* blocks, int64_t* shared_words) {
   static int sms[kMaxDevices];
   static int64_t bytes[kMaxDevices];
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (sms[device] == 0) {
     cudaError_t err = one_block_an_sm(
-        reinterpret_cast<const void*>(greedy_sketch_kernel<true>),
-        reinterpret_cast<const void*>(greedy_sketch_kernel<false>), kThreads,
-        4, device, &sms[device], &bytes[device]);
+        sketch_kernel_at<kSketchShared, true>(),
+        sketch_kernel_at<kSketchGlobal, false>(), kThreads, 4, device,
+        &sms[device], &bytes[device]);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(sketch_kernel_at<kSketchGlobal, true>(),
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 int(bytes[device]));
+    if (err == cudaSuccess) {
+      int resident = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &resident, sketch_kernel_at<kSketchRegisters, false>(), kThreads,
+          0);
+      if (err == cudaSuccess && resident < 1)
+        err = cudaErrorCooperativeLaunchTooLarge;
+    }
+    if (err == cudaSuccess && sms[device] > kThreads)
+      err = cudaErrorNotSupported;     // a thread polls each block's record
     if (err != cudaSuccess) {
       sms[device] = 0;
       return err;
@@ -701,9 +927,9 @@ extern "C" int greedy_grid_barriers(int32_t count, int device, void* stream) {
   return int(cudaGetLastError());
 }
 
-// greedy_sketch_kernel's grid on card `device`: its blocks, and the widest
-// cov in words that stays in shared memory (a wider one takes the scratch
-// copies below).
+// greedy_sketch's grid on card `device`: its blocks, and the dynamic shared
+// memory in words that a block may take (kernels/greedy.py::sketch_layout
+// chooses the form from them).
 extern "C" int greedy_sketch_grid(int device, int* blocks,
                                   int64_t* shared_words) {
   DeviceGuard guard(device);
@@ -714,19 +940,26 @@ extern "C" int greedy_sketch_grid(int device, int* blocks,
 // Plain C interface for ctypes.  words: the sketch, rows of `cols` uint32
 // (rows v < n are read; 1 <= n < 2^31 - 1, 1 <= cols < 2^26); lanes: a
 // power of two in [1, 32]; vector: 16-byte loads (cols % 4 == 0, words
-// 16-byte aligned); k >= 1.  scratch: the keys (8k bytes), picked (n
-// bytes) and, when cols exceeds greedy_sketch_grid's shared_words, a copy
-// of cov for each block (blocks x round_up(cols, 4) uint32 from the next
-// 16-byte boundary); the kernel initialises what it reads.  out: 2k + 1
-// int32, seeds, gains, then the steps taken.  Launches on `stream` of card
-// `device`; returns the cudaError_t of the launch.
+// 16-byte aligned); k >= 1.  form and rows: kernels/greedy.py::
+// sketch_layout's (form 0, registers: cols <= 4, lanes 1 and rows, a power
+// of two, at least the slice's rows over kThreads and at most kMaxRegRows;
+// form 1, shared: cov, the slice's rows and its picked bits fit the shared
+// memory; form 2, global).  scratch: the step records (2 x blocks x 32
+// bytes), each block's picked bits (blocks x ceil(slots / 32) uint32) and,
+// in the global form when cov does not fit the shared memory, a copy of cov
+// for each block (blocks x round_up(cols, 4) uint32 from the next 16-byte
+// boundary); the kernel initialises what it reads.  out:
+// 2k + 1 int32, seeds, gains, then the steps taken.  Launches on `stream`
+// of card `device`; returns the cudaError_t of the launch.
 extern "C" int greedy_sketch(const void* words, int32_t n, int32_t cols,
-                             int lanes, int vector, int32_t k, void* scratch,
-                             void* out, int device, void* stream) {
+                             int lanes, int vector, int form, int rows,
+                             int32_t k, void* scratch, void* out, int device,
+                             void* stream) {
   if (n < 1 || n == 0x7FFFFFFF || cols < 1 || cols >= (1 << 26) || k < 1 ||
       lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 ||
       (vector && (cols % 4 != 0 ||
-                  (reinterpret_cast<uintptr_t>(words) & 15u) != 0)))
+                  (reinterpret_cast<uintptr_t>(words) & 15u) != 0)) ||
+      form < kSketchRegisters || form > kSketchGlobal)
     return int(cudaErrorInvalidValue);
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return int(guard.err);
@@ -734,28 +967,47 @@ extern "C" int greedy_sketch(const void* words, int32_t n, int32_t cols,
   int64_t shared_words = 0;
   cudaError_t err = sketch_grid_for(device, &blocks, &shared_words);
   if (err != cudaSuccess) return int(err);
+  int32_t slots = int32_t((int64_t(n) + blocks - 1) / blocks);
+  const int64_t stride = (int64_t(cols) + 3) & ~int64_t(3);
+  const int64_t pwords = picked_words(slots);
+  const bool shared_cov = stride <= shared_words;
+  int64_t dynamic_words = 0;
+  bool picked_shared = false;
+  const void* kernel = nullptr;
+  if (form == kSketchRegisters) {
+    if (cols > 4 || lanes != 1 || rows < 1 || rows > kMaxRegRows ||
+        (rows & (rows - 1)) != 0 || int64_t(rows) * kThreads < slots)
+      return int(cudaErrorInvalidValue);
+    kernel = sketch_kernel_at<kSketchRegisters, false>();
+  } else if (form == kSketchShared) {
+    dynamic_words = stride + int64_t(slots) * cols + pwords;
+    if (dynamic_words > shared_words) return int(cudaErrorInvalidValue);
+    picked_shared = true;
+    kernel = sketch_kernel_at<kSketchShared, true>();
+  } else {
+    dynamic_words = shared_cov ? stride : 0;
+    picked_shared = dynamic_words + pwords <= shared_words;
+    if (picked_shared) dynamic_words += pwords;
+    kernel = shared_cov ? sketch_kernel_at<kSketchGlobal, true>()
+                        : sketch_kernel_at<kSketchGlobal, false>();
+  }
   const uint32_t* p_words = static_cast<const uint32_t*>(words);
   uint8_t* base = static_cast<uint8_t*>(scratch);
-  unsigned long long* keys = reinterpret_cast<unsigned long long*>(base);
-  uint8_t* picked = base + 8 * int64_t(k);
-  const int64_t copies = (8 * int64_t(k) + n + 15) & ~int64_t(15);
-  uint32_t* cov_copies = reinterpret_cast<uint32_t*>(base + copies);
+  SketchRecord* records = reinterpret_cast<SketchRecord*>(base);
+  uint32_t* picked_copies =
+      reinterpret_cast<uint32_t*>(base + 64 * int64_t(blocks));
+  const int64_t copies_at =
+      (64 * int64_t(blocks) + 4 * int64_t(blocks) * pwords + 15) &
+      ~int64_t(15);
+  uint32_t* cov_copies = reinterpret_cast<uint32_t*>(base + copies_at);
   int32_t* p_out = static_cast<int32_t*>(out);
   bool vec = vector != 0;
-  void* args[] = {&p_words, &n, &cols, &lanes, &vec, &k, &keys, &picked,
-                  &cov_copies, &p_out};
-  const int64_t stride = (int64_t(cols) + 3) & ~int64_t(3);
-  if (stride <= shared_words) {
-    err = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(greedy_sketch_kernel<true>),
-        dim3(blocks), dim3(kThreads), args, size_t(stride) * 4,
-        static_cast<cudaStream_t>(stream));
-  } else {
-    err = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(greedy_sketch_kernel<false>),
-        dim3(blocks), dim3(kThreads), args, 0,
-        static_cast<cudaStream_t>(stream));
-  }
+  void* args[] = {&p_words, &n, &cols, &lanes, &vec, &k, &slots,
+                  &picked_shared, &records, &picked_copies, &cov_copies,
+                  &p_out};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads),
+                                    args, size_t(dynamic_words) * 4,
+                                    static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
 }

@@ -30,10 +30,11 @@
 //   over all n nodes (picked nodes are not left out: once Occur is all
 //   zero it is node 0, gain 0, again); the rows that hold u_s and are not
 //   covered yet are newly covered, gains[s] is their number, and each of
-//   their valid lanes takes one off its node's Occur.  A valid lane outside
-//   [0, n] sets out[2k] (the plain version's scatter-add would fault on
-//   it; the caller raises) and counts for no node; lanes holding n (the
-//   padding value) count for none either.
+//   their valid lanes takes one off its node's Occur.  A lane holding x
+//   counts for the node the reference's dropping scatter-add gives it
+//   (lane_node: x + n + 1 for a negative x, as NumPy wraps an index; none
+//   outside [0, n) after that, so n, the padding value, and -1 count for
+//   none), while the scan compares x itself with u_s.
 //   Design.  One cooperative launch, one block of kGreedyThreads on each SM
 //   (the grid of greedy_flat and celf_select, coop_grid.cuh), 2k + 1 grid
 //   barriers.  Occur lives once, in global memory, changed by atomics and
@@ -59,10 +60,10 @@
 //     block's uncovered rows only): a row that holds u_s is marked covered
 //     and counted; then the warp walks the newly covered rows' valid lanes
 //     together and takes one off each lane's node (a warp's lanes on one
-//     node subtract once).  u_s's own lanes are skipped and block 0 sets
-//     Occur[u_s] = 0: every row that holds u_s is covered now, and the
-//     skip spares its counter an atomic from each of them.  The block adds
-//     its count into gains[s]; barrier (not after the last step).
+//     node subtract once), u_s's own lanes too: a wrapped negative lane
+//     may count for u_s in a row that stays uncovered, so Occur[u_s] is
+//     not simply set to 0.  The block adds its count into gains[s];
+//     barrier (not after the last step).
 //   A block's record is written after the step's scan barrier and read
 //   between the next argmax barrier and the next scan barrier, so one
 //   record a block serves every step.  The covered flag of a row is read
@@ -168,6 +169,14 @@ __device__ __forceinline__ int32_t clamped_len(const int32_t* lengths,
   return int32_t(len < 0 ? 0 : (len > row_len ? row_len : len));
 }
 
+// The node a valid lane holding x counts for, -1 for none (kernels/ref.py::
+// padded_lane_node): a negative x wraps to x + n + 1, then only [0, n)
+// counts.
+__device__ __forceinline__ int32_t lane_node(int32_t x, int32_t n) {
+  const int64_t v = x < 0 ? int64_t(x) + n + 1 : int64_t(x);
+  return v >= 0 && v < n ? int32_t(v) : -1;
+}
+
 __global__ void __launch_bounds__(kGreedyThreads, 1)
 padded_greedy_kernel(const int32_t* __restrict__ rows,
                      const int32_t* __restrict__ lengths, int64_t n_rows,
@@ -189,9 +198,9 @@ padded_greedy_kernel(const int32_t* __restrict__ rows,
   int32_t* seeds = out;
   int32_t* gains = out + k;
 
-  // prologue (A): Occur, the gains and the flag zeroed
+  // prologue (A): Occur and the gains zeroed
   for (int64_t v = gtid; v < n; v += gsize) occur[v] = 0;
-  for (int64_t i = gtid; i <= k; i += gsize) gains[i] = 0;
+  for (int64_t i = gtid; i < k; i += gsize) gains[i] = 0;
   grid.sync();
 
   // prologue (B): the block's rows' valid lanes into Occur, whole warps
@@ -203,18 +212,10 @@ padded_greedy_kernel(const int32_t* __restrict__ rows,
     if (sub == 0 && r < r_hi) covered[r] = 0;
     const int32_t most = __reduce_max_sync(kFullMask, len);
     const int32_t* row = rows + r * row_len;
-    bool bad = false;
     for (int32_t j0 = 0; j0 < most; j0 += kGroup) {
       const int32_t j = j0 + sub;
-      int32_t v = -1;
-      if (j < len) {
-        const int32_t x = __ldg(row + j);
-        bad |= x < 0 || x > n;
-        v = x >= 0 && x < n ? x : -1;
-      }
-      warp_add(occur, v, 1);
+      warp_add(occur, j < len ? lane_node(__ldg(row + j), n) : -1, 1);
     }
-    if (bad) atomicOr(out + 2 * k, 1);
   }
   grid.sync();
 
@@ -240,10 +241,7 @@ padded_greedy_kernel(const int32_t* __restrict__ rows,
                                        uint32_t(theirs), red);
     const int32_t u = int32_t(0xFFFFFFFFu - uint32_t(key));
     if (threadIdx.x == 0) block_new = 0;
-    if (gtid == 0) {
-      seeds[s] = u;
-      occur[u] = 0;      // every row that holds u is covered below
-    }
+    if (gtid == 0) seeds[s] = u;
     __syncthreads();
 
     // the scan of the block's uncovered rows, then the new rows' lanes off
@@ -270,12 +268,7 @@ padded_greedy_kernel(const int32_t* __restrict__ rows,
       const int32_t most = __reduce_max_sync(kFullMask, len);
       for (int32_t j0 = 0; j0 < most; j0 += kGroup) {
         const int32_t j = j0 + sub;
-        int32_t v = -1;
-        if (j < len) {
-          const int32_t x = __ldg(row + j);
-          v = x >= 0 && x < n && x != u ? x : -1;
-        }
-        warp_add(occur, v, -1);
+        warp_add(occur, j < len ? lane_node(__ldg(row + j), n) : -1, -1);
       }
     }
     __syncthreads();
@@ -340,8 +333,7 @@ extern "C" int padded_greedy_grid(int device, int* blocks) {
 // row_len] here); 1 <= n < 2^31 - 1, k >= 1.  scratch: the blocks'
 // records (8 bytes a block), Occur (4n bytes) and the covered flags
 // (n_rows bytes), in that order; the kernel writes all it reads of them.
-// out: 2k + 1 int32, the seeds, the gains, then the flag of a valid lane
-// outside [0, n].
+// out: 2k int32, the seeds, then the gains.
 extern "C" int padded_greedy(const void* rows, const void* lengths,
                              int64_t n_rows, int64_t row_len, int32_t n,
                              int32_t k, void* scratch, void* out, int device,

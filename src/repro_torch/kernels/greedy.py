@@ -16,13 +16,14 @@ no host sync and one device operation.
 
 :func:`greedy_sketch` computes what ``kernels/ref.py::greedy_sketch_ref``
 computes, byte for byte, likewise on CUDA tensors only: it checks the
-sketch before it builds anything, chooses the rows' lane groups
-(:func:`sketch_layout`), allocates the outputs and the scratch
+sketch before it builds anything, chooses where the rows live and their
+lane groups (:func:`sketch_layout`), allocates the outputs and the scratch
 (:func:`sketch_scratch_bytes`) and launches; nothing is read back.
 
 :func:`grid_barriers` launches the same grid (a block of 512 threads on
 each SM, the grid of both kernels) with nothing but the grid barriers in
-it: the floor of either kernel's time.
+it: the floor of either kernel's time (:func:`sketch_barriers` counts
+``greedy_sketch``'s).
 """
 from __future__ import annotations
 
@@ -50,8 +51,8 @@ _FLAT_GRID = _build.Kernel("greedy", "greedy_flat_grid",
                             ctypes.POINTER(_i64)))
 _BARRIERS = _build.Kernel("greedy", "greedy_grid_barriers", (_i32, _int, _vp))
 _SKETCH = _build.Kernel("greedy", "greedy_sketch",
-                        (_vp, _i32, _i32, _int, _int, _i32, _vp, _vp, _int,
-                         _vp))
+                        (_vp, _i32, _i32, _int, _int, _int, _int, _i32, _vp,
+                         _vp, _int, _vp))
 _SKETCH_GRID = _build.Kernel("greedy", "greedy_sketch_grid",
                              (_int, ctypes.POINTER(_int),
                               ctypes.POINTER(_i64)))
@@ -177,12 +178,33 @@ def grid_barriers(count: int, device) -> None:
                     "greedy_grid_barriers")
 
 
-def sketch_layout(cols: int, aligned: bool) -> tuple[int, bool]:
-    """``(lanes, vector)`` of :func:`greedy_sketch`'s rows at ``cols`` words
-    a row: ``vector`` when the rows take 16-byte loads (``cols % 4 == 0``
-    and the words 16-byte ``aligned``); ``lanes`` = 1 (a thread a row) at
-    ``cols <= 4``, else the least power of two at or above the row's loads,
-    at most 32."""
+# csrc/greedy.cu: kMaxRegRows, the rows a thread of greedy_sketch holds in
+# registers; the forms of its rows (SketchForm)
+REG_ROWS = 2
+SKETCH_FORMS = ("registers", "shared", "global")
+# bytes of one block's record of one greedy_sketch step (SketchRecord); a
+# launch keeps two steps' records
+SKETCH_RECORD_BYTES = 32
+
+
+class SketchLayout(NamedTuple):
+    """How :func:`greedy_sketch` reads the rows: ``lanes`` lanes a row
+    (16-byte loads when ``vector``), and where a block's slice of rows
+    lives for the launch (``form``): in registers, ``rows`` a thread (W <=
+    4: a thread a row), in shared memory after cov, or read from global
+    memory every step."""
+    lanes: int
+    vector: bool
+    form: str
+    rows: int
+
+
+def row_lanes(cols: int, aligned: bool) -> tuple[int, bool]:
+    """``(lanes, vector)`` of a sketch row of ``cols`` words: ``vector``
+    when the rows take 16-byte loads (``cols % 4 == 0`` and the words
+    16-byte ``aligned``); ``lanes`` = 1 (a thread a row) at ``cols <=
+    4``, else the least power of two at or above the row's loads, at most
+    32.  ``celf_select``'s sweep takes the same."""
     vector = cols % 4 == 0 and aligned
     loads = cols // 4 if vector else cols
     lanes = 1
@@ -192,22 +214,55 @@ def sketch_layout(cols: int, aligned: bool) -> tuple[int, bool]:
     return lanes, vector
 
 
-def sketch_scratch_bytes(n: int, cols: int, k: int, blocks: int,
-                         shared_words: int) -> int:
-    """Scratch of one :func:`greedy_sketch` launch: the k step keys (8
-    bytes each) and n picked flags, then, when a row's ``cols`` words
-    (rounded up to 4) exceed ``shared_words``, each block's copy of cov
-    from the next 16-byte boundary."""
+def sketch_layout(cols: int, aligned: bool, *, n: int, blocks: int,
+                  shared_words: int) -> SketchLayout:
+    """:class:`SketchLayout` of :func:`greedy_sketch` at ``cols`` words a
+    row and ``n`` nodes on a grid of ``blocks`` whose dynamic shared memory
+    holds ``shared_words`` words: block b owns ceil(n / blocks) rows;
+    ``"registers"`` at ``cols <= 4`` while a thread holds at most
+    :data:`REG_ROWS` of them (``rows``, a power of two), else
+    ``"shared"`` while cov (rounded up to 4 words), the slice and its
+    picked bits (a word for 32 rows) fit, else ``"global"``."""
+    lanes, vector = row_lanes(cols, aligned)
+    slots = -(-n // blocks)
+    need = -(-slots // THREADS)
+    if cols <= 4 and need <= REG_ROWS:
+        rows = 1
+        while rows < need:
+            rows *= 2
+        return SketchLayout(lanes, vector, "registers", rows)
+    if -(-cols // 4) * 4 + slots * cols + -(-slots // 32) <= shared_words:
+        return SketchLayout(lanes, vector, "shared", 1)
+    return SketchLayout(lanes, vector, "global", 1)
+
+
+def sketch_scratch_bytes(n: int, cols: int, blocks: int, shared_words: int,
+                         form: str) -> int:
+    """Scratch of one :func:`greedy_sketch` launch: the blocks' records of
+    two steps (:data:`SKETCH_RECORD_BYTES` each) and each block's picked
+    bits (a word for 32 of its ceil(n / blocks) rows), then, in the
+    ``"global"`` form when a row's ``cols`` words (rounded up to 4) exceed
+    ``shared_words``, each block's copy of cov from the next 16-byte
+    boundary."""
+    slots = -(-n // blocks)
+    fixed = 2 * SKETCH_RECORD_BYTES * blocks + 4 * blocks * -(-slots // 32)
     stride = -(-cols // 4) * 4
-    if stride <= shared_words:
-        return 8 * k + n
-    return -(-(8 * k + n) // 16) * 16 + 4 * blocks * stride
+    if form != "global" or stride <= shared_words:
+        return fixed
+    return -(-fixed // 16) * 16 + 4 * blocks * stride
+
+
+def sketch_barriers(steps: int, k: int) -> int:
+    """Grid barriers of one :func:`greedy_sketch` launch that took
+    ``steps`` of ``k`` steps: the prologue's, and one a step run (the steps
+    taken and, below k, the one that found no node)."""
+    return 1 + min(steps + 1, k)
 
 
 def sketch_grid(device) -> tuple[int, int]:
     """``(blocks, shared_words)`` of :func:`greedy_sketch`'s grid on card
-    ``device``: a block on each SM, and the widest cov in words that its
-    shared memory holds; read from the card once."""
+    ``device``: a block on each SM, and the dynamic shared memory in words
+    that a block may take; read from the card once."""
     return _sketch_grid(device_index(device))
 
 
@@ -233,12 +288,14 @@ def greedy_sketch(words: torch.Tensor, *, n: int, k: int):
                          f"{k}, {w} words")
     index = words.get_device()
     blocks, shared_words = _sketch_grid(index)
-    lanes, vector = sketch_layout(w, words.data_ptr() % 16 == 0)
+    lay = sketch_layout(w, words.data_ptr() % 16 == 0, n=n, blocks=blocks,
+                        shared_words=shared_words)
     out = torch.empty(2 * k + 1, dtype=torch.int32, device=words.device)
-    scratch = torch.empty(sketch_scratch_bytes(n, w, k, blocks,
-                                               shared_words),
+    scratch = torch.empty(sketch_scratch_bytes(n, w, blocks, shared_words,
+                                               lay.form),
                           dtype=torch.uint8, device=words.device)
-    err = _SKETCH(words.data_ptr(), n, w, lanes, int(vector), k,
+    err = _SKETCH(words.data_ptr(), n, w, lay.lanes, int(lay.vector),
+                  SKETCH_FORMS.index(lay.form), lay.rows, k,
                   scratch.data_ptr(), out.data_ptr(), index,
                   _build.raw_stream(index))
     _build.raise_on(err, "greedy_sketch")

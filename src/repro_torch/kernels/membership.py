@@ -126,7 +126,7 @@ def padded_greedy(rows: torch.Tensor, lengths: torch.Tensor, *, n: int,
                   k: int):
     """``k`` steps of the padded store's greedy on the card: (R, L)
     contiguous int32 ``rows``, (R,) integer ``lengths`` -> ``(seeds (k,),
-    gains (k,), bad (1,))`` int32, as ``ref.padded_greedy_ref``."""
+    gains (k,))`` int32, as ``ref.padded_greedy_ref``."""
     n, k = int(n), int(k)
     lengths = _check_rows(rows, lengths)
     if not 1 <= n < (1 << 31) - 1 or k < 1:
@@ -137,10 +137,10 @@ def padded_greedy(rows: torch.Tensor, lengths: torch.Tensor, *, n: int,
     blocks = _greedy_grid(index)
     scratch = torch.empty(greedy_scratch_bytes(n, r, blocks),
                           dtype=torch.uint8, device=rows.device)
-    out = torch.empty(2 * k + 1, dtype=torch.int32, device=rows.device)
+    out = torch.empty(2 * k, dtype=torch.int32, device=rows.device)
     err = _GREEDY(rows.data_ptr(), lengths.data_ptr(), r, l, n, k,
                   scratch.data_ptr(), out.data_ptr(), index,
                   _build.raw_stream(index))
     _build.raise_on(err, "padded_greedy")
     LAUNCHES["padded_greedy"] += 1
-    return out[:k], out[k:2 * k], out[2 * k:]
+    return out[:k], out[k:]

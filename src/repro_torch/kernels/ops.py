@@ -222,10 +222,9 @@ def membership_rows(rows: torch.Tensor, lengths: torch.Tensor,
 def padded_greedy(rows: torch.Tensor, lengths: torch.Tensor, *, n: int,
                   k: int):
     """``k`` steps of the padded store's greedy: (R, L) int32 rows padded
-    past each length, (R,) lengths -> ``(seeds (k,), gains (k,), bad (1,))``
-    int32, ``bad`` nonzero when a valid lane lies outside [0, n]; the same
-    bytes on either route (``ref.padded_greedy_ref`` says what they
-    hold)."""
+    past each length, (R,) lengths -> ``(seeds (k,), gains (k,))`` int32;
+    the same bytes on either route (``ref.padded_greedy_ref`` says what
+    they hold, lanes outside the nodes included)."""
     if _route(rows) == "cuda":
         return _membership.padded_greedy(rows, lengths, n=n, k=k)
     return _ref.padded_greedy_ref(rows, lengths, n=n, k=k)

@@ -596,48 +596,57 @@ def membership_rows_ref(rows: torch.Tensor, lengths: torch.Tensor,
     return ((rows == u) & valid).any(dim=1)
 
 
+def padded_lane_node(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The node that a valid lane holding ``x`` counts for, -1 for none:
+    the reference's ``.at[rows].add(..., mode="drop")[:n]``, which wraps a
+    negative index as NumPy does (``x + n + 1``, so -1 is slot n) and drops
+    what lands outside [0, n] and then slot n (the padding value)."""
+    x = x.to(torch.int64)
+    node = torch.where(x < 0, x + n + 1, x)
+    return torch.where((node >= 0) & (node < n), node, -1)
+
+
 def padded_greedy_ref(rows: torch.Tensor, lengths: torch.Tensor, *, n: int,
                       k: int):
     """The padded store's greedy, k steps: (R, L) int32 ``rows`` padded
-    past each length, (R,) ``lengths`` -> ``(seeds (k,), gains (k,), bad
-    (1,))`` int32.
+    past each length, (R,) ``lengths`` -> ``(seeds (k,), gains (k,))``
+    int32, as the reference's ``select_seeds_padded``.
 
-    Occur starts as a scatter-add of the valid lanes into n + 1 slots (slot
-    n, the padding value, is dropped): a node twice in a row counts twice.
-    Each step takes u, the first maximum of Occur over all n nodes (picked
-    nodes are not left out), finds the rows that hold it
-    (:func:`membership_rows_ref`), and takes the newly covered rows' valid
-    lanes off Occur by the same scatter-add; its gain is the newly covered
-    rows.  The valid lanes are gathered once, before the steps (the
-    reference adds zeros for every padding lane).  A valid lane outside [0,
-    n] counts for no node and sets ``bad`` (where the scatter-add would
-    fault); the caller raises on it.  The seed stays on the device between
-    steps, so on a card the k steps make no host sync beyond the gather.
+    Occur starts as a scatter-add of the valid lanes: a lane holding x
+    counts for :func:`padded_lane_node` (x, n), so a node twice in a row
+    counts twice and a lane at n, past n or below -(n + 1) counts for
+    none.  Each step takes u, the first maximum of Occur over all n nodes
+    (picked nodes are not left out), finds the rows that hold it
+    (:func:`membership_rows_ref`, which compares the lanes as they are),
+    and takes the newly covered rows' valid lanes off Occur by the same
+    scatter-add; its gain is the newly covered rows.  The valid lanes are
+    gathered once, before the steps (the reference adds zeros for every
+    padding lane).  The seed stays on the device between steps, so on a
+    card the k steps make no host sync beyond the gather.
     """
     r, l = rows.shape
     dev = rows.device
     valid = (torch.arange(l, device=dev)[None, :] < lengths[:, None])
     elem_row, lane = torch.nonzero(valid, as_tuple=True)
-    elem_node = rows[elem_row, lane].to(torch.int64)
-    inside = (elem_node >= 0) & (elem_node <= n)
-    bad = (~inside).any().to(torch.int32).reshape(1)
-    elem_row, elem_node = elem_row[inside], elem_node[inside]
-    occur = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
-        0, elem_node, torch.ones_like(elem_node, dtype=torch.int32))[:n]
+    elem_node = padded_lane_node(rows[elem_row, lane], n)
+    counted = elem_node >= 0
+    elem_row, elem_node = elem_row[counted], elem_node[counted]
+    occur = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
+        0, elem_node, torch.ones_like(elem_node, dtype=torch.int32))
     covered = torch.zeros(r, dtype=torch.bool, device=dev)
     seeds, gains = [], []
     for _ in range(k):
         u = torch.argmax(occur)
         hit = membership_rows_ref(rows, lengths, u)
         newly = hit & ~covered
-        dec = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
+        dec = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
             0, elem_node, newly[elem_row].to(torch.int32))
-        occur = occur - dec[:n]
+        occur = occur - dec
         covered = covered | hit
         seeds.append(u)
         gains.append(newly.sum(dtype=torch.int32))
     return (torch.stack(seeds).to(torch.int32),
-            torch.stack(gains).to(torch.int32), bad)
+            torch.stack(gains).to(torch.int32))
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

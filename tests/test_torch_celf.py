@@ -289,13 +289,103 @@ def _sel_values(kind: str, n: int, rng) -> np.ndarray:
     return np.where(rng.random(n) < 0.3, 0, 1)   # "fresh": sel 0 or ub 0
 
 
+_MASK32 = 0xFFFFFFFF
+_WARPS = 16                 # csrc/celf.cu: kSelWarps
+
+
+def _bitonic_step(x, k, j):
+    """One compare-exchange step of csrc/celf.cu's warp networks over the
+    32 keys x (key i in lane i): keys i and i ^ j swap unless the lower
+    index holds the larger where i & k == 0."""
+    i = np.arange(len(x))
+    y = x[i ^ j]
+    keep_max = ((i & j) == 0) == ((i & k) == 0)
+    return np.where(keep_max, np.maximum(x, y), np.minimum(x, y))
+
+
+def _warp_sort(x):
+    for k in (2 ** e for e in range(1, len(x).bit_length())):
+        j = k // 2
+        while j:
+            x = _bitonic_step(x, k, j)
+            j //= 2
+    return x
+
+
+def _warp_merge(a, b):
+    """The len(a) largest keys of a and b, both sorted descending."""
+    x = np.maximum(a, b[::-1])
+    j = len(x) // 2
+    while j:
+        x = _bitonic_step(x, len(x), j)
+        j //= 2
+    return x
+
+
+def _list_pick(sel: np.ndarray, cc: int, blocks: int):
+    """csrc/celf.cu's top-list pick, replayed: keys (sel << 32) | ~id of sel
+    >= 1 (0 for none); in each block (the nodes [b*slots, (b+1)*slots)),
+    warp w sorts the chunks of 32 keys at q = w, w + 16, ... and merges
+    each into its running list, then the 16 warps'
+    lists merge pairwise; every block then keeps the lists whose head is
+    among the cc largest heads and merges those pairwise in rounds (an odd
+    last list with zeros), and the batch is the first cc keys of the last
+    list.  Also checks that every list is sorted
+    and holds its keys' largest."""
+    n = len(sel)
+    x = sel.astype(np.uint64)
+    ids = np.arange(n, dtype=np.uint64)
+    keys = np.where(x >= 1, (x << np.uint64(32)) | (np.uint64(_MASK32) - ids),
+                    np.uint64(0))
+    slots, lst = -(-n // blocks), 32
+    zero = np.zeros(lst, np.uint64)
+    lists = []
+    for b in range(blocks):
+        mine = keys[b * slots:(b + 1) * slots]
+        chunks = -(-len(mine) // 32)
+        runs = []
+        for w in range(_WARPS):
+            run = zero
+            for q in range(w, chunks, _WARPS):
+                chunk = np.zeros(lst, np.uint64)
+                part = mine[q * 32:(q + 1) * 32]
+                chunk[:len(part)] = part
+                run = _warp_merge(run, _warp_sort(chunk))
+            runs.append(run)
+        while len(runs) > 1:
+            runs = [_warp_merge(runs[2 * i], runs[2 * i + 1])
+                    for i in range(len(runs) // 2)]
+        want = np.sort(mine)[::-1][:lst]
+        np.testing.assert_array_equal(runs[0][:len(want)], want)
+        lists.append(runs[0])
+    heads = np.array([lst_b[0] for lst_b in lists])
+    kept = [lists[b] for b in range(blocks)
+            if heads[b] and int((heads > heads[b]).sum()) < cc] or [zero]
+    assert len(kept) <= cc
+    lists = kept
+    while True:
+        half = -(-len(lists) // 2)
+        lists = [_warp_merge(lists[2 * m], lists[2 * m + 1]
+                             if 2 * m + 1 < len(lists) else zero)
+                 for m in range(half)]
+        if len(lists) == 1:
+            break
+    top = lists[0][:cc]
+    assert (top > 0).all() and (np.diff(top.astype(np.float64)) < 0).all()
+    return np.sort((np.uint64(_MASK32) - (top & np.uint64(_MASK32)))
+                   .astype(np.int64))
+
+
 @pytest.mark.parametrize("blocks", [1, 3, 132])
 @pytest.mark.parametrize("kind", ["small", "mid", "top", "equal", "fresh"])
 def test_kernel_batch_pick_replay_equals_argpartition(kind, blocks):
     """The replayed pick gives the reference's batch (``argpartition`` of
-    the unique keys sel*(n+1) - id over the included nodes) at batches of
-    1, 32, 2,100 and all the included nodes, with fewer nodes than blocks
-    too."""
+    the unique keys sel*(n+1) - id over the included nodes): the merge of
+    the blocks' top lists of 32 keys at c = 1 and 32, the radix pick at c =
+    64, 65 and 2,048 (and 2,100, past one chunk), each
+    at a batch of min(c, included) and of the included nodes that are
+    left, with fewer nodes than blocks too and equal sel across the
+    blocks' boundaries."""
     rng = np.random.default_rng(
         ["small", "mid", "top", "equal", "fresh"].index(kind) * 1000 + blocks)
     for n in (5, 3000):
@@ -303,10 +393,34 @@ def test_kernel_batch_pick_replay_equals_argpartition(kind, blocks):
         sel[0] = max(sel[0], 1)                 # at least one included
         inc = np.flatnonzero(sel >= 1)
         key = sel[inc] * (n + 1) - inc
-        for cc in {1, min(32, len(inc)), min(2100, len(inc)), len(inc)}:
-            want = np.sort(inc[np.argpartition(-key, cc - 1)[:cc]])
-            got = _kernel_pick(sel, cc, blocks)
-            np.testing.assert_array_equal(got, want)
+        for c in (1, 32, 64, 65, 2048, 2100):
+            for cc in {min(c, len(inc)), max(1, min(c, len(inc)) // 3)}:
+                want = np.sort(inc[np.argpartition(-key, cc - 1)[:cc]])
+                got = _list_pick(sel, cc, blocks) if c <= 32 \
+                    else _kernel_pick(sel, cc, blocks)
+                np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("c,t,lst,shared,on_chip", [
+    (32, 35_538, 32, True, True), (1, 35_538, 32, True, True),
+    (33, 35_538, 0, True, False), (64, 35_538, 0, True, False),
+    (65, 35_538, 0, True, False),
+    (2048, 35_538, 0, True, False), (32, 40_000_000, 32, True, False)])
+def test_select_layout_takes_the_list_path_at_small_batches(c, t, lst, shared,
+                                                            on_chip):
+    """celf_select's form on the H100's grid (132 blocks, 58,080 words of
+    dynamic shared memory) at the CELF cell's sketch of 32 words: top
+    lists of 32 keys up to c = 32, the radix pick past it; the pool's pairs
+    on chip while a block's share fits."""
+    from repro_torch.kernels import celf as tcelf
+    lay = tcelf.select_layout(75_879, 16_384, c, 32, 132, 58_080, t)
+    assert (lay.list, lay.shared, lay.pool_on_chip) == (lst, shared, on_chip)
+    merge = 8 * lst * (132 + 66)
+    sel = 4 * 576 if lst else 0                 # 575 nodes a block, to 16
+    pool = 8 * -(-t // 132) if on_chip else 0
+    rows = 4 * 575 * 32 if lst else 0            # the slice's sketch rows
+    assert lay.rows_on_chip == bool(lst)
+    assert lay.dynamic_bytes == 4 * 32 + merge + sel + pool + rows
 
 
 def test_select_seeds_celf_variants_not_ported():

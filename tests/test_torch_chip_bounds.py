@@ -515,18 +515,18 @@ PROFILER_NAMES = {
                              "union_popcount_kernel(unsigned int const*)",
     "flash_attention": "void (anonymous namespace)::flash_wgmma_kernel<"
                        "__nv_bfloat16, 128, true>(CUtensorMap_st)",
-    "greedy_sketch": "void (anonymous namespace)::greedy_sketch_kernel<true>"
-                     "(unsigned int const*, int, int, int, bool, int, "
-                     "unsigned long long*, unsigned char*, unsigned int*, "
-                     "int*)",
+    "greedy_sketch": "void (anonymous namespace)::greedy_sketch_kernel<0, "
+                     "false, 2>(unsigned int const*, int, int, int, bool, "
+                     "int, int, (anonymous namespace)::SketchRecord*, "
+                     "unsigned char*, unsigned int*, int*)",
     "celf_eval": "void (anonymous namespace)::celf_eval_kernel(int const*, "
                  "int const*, unsigned char const*, long, unsigned int "
                  "const*, long, int const*, int, int, int*, unsigned int*)",
     "celf_apply": "void (anonymous namespace)::celf_apply_kernel(int const*, "
                   "int const*, unsigned char const*, long, unsigned int*, "
                   "long, int, int*)",
-    "celf_select": "void (anonymous namespace)::celf_select_kernel<true>("
-                   "(anonymous namespace)::SelectArgs)",
+    "celf_select": "void (anonymous namespace)::celf_select_kernel<true, "
+                   "32>((anonymous namespace)::SelectArgs)",
     "frontier_update": "void (anonymous namespace)::frontier_update_kernel("
                        "unsigned int const*, unsigned int*, long, bool, "
                        "unsigned int*)",
@@ -568,11 +568,17 @@ PROFILER_ALSO = {
                     "int, long, int, int, int, unsigned long long*, int*, "
                     "int*, int*, int*, int*, int*, int*, int*)"],
     "greedy_sketch": ["void (anonymous namespace)::greedy_sketch_kernel"
-                      "<false>(unsigned int const*, int, int, int, bool, "
-                      "int, unsigned long long*, unsigned char*, unsigned "
-                      "int*, int*)"],
-    "celf_select": ["void (anonymous namespace)::celf_select_kernel<false>("
-                    "(anonymous namespace)::SelectArgs)"],
+                      "<2, false, 1>(unsigned int const*, int, int, int, "
+                      "bool, int, int, (anonymous namespace)::SketchRecord*, "
+                      "unsigned char*, unsigned int*, int*)",
+                      "void (anonymous namespace)::greedy_sketch_kernel"
+                      "<1, true, 1>(unsigned int const*, int, int, int, "
+                      "bool, int, int, (anonymous namespace)::SketchRecord*, "
+                      "unsigned char*, unsigned int*, int*)"],
+    "celf_select": ["void (anonymous namespace)::celf_select_kernel<false, "
+                    "0>((anonymous namespace)::SelectArgs)",
+                    "void (anonymous namespace)::celf_select_kernel<true, "
+                    "64>((anonymous namespace)::SelectArgs)"],
 }
 
 
@@ -792,6 +798,61 @@ def test_sketch_greedy_bound_at_the_approximate_cell(h100):
     assert b["bound_ms"] == pytest.approx(0.003630, rel=1e-3)
     assert b["sweep_bytes"] == 60_703_200
     assert b["sweep_bytes_ms"] == pytest.approx(0.018120, rel=1e-3)
+
+
+def test_greedy_sketch_barrier_floor_counts_one_barrier_a_step():
+    """The barrier floor that chip_smoke times for greedy_sketch: the
+    prologue's grid barrier and one for each step run (the steps taken,
+    and below k the one that finds no node); two steps' records of 32
+    bytes a block."""
+    from repro_torch.kernels import greedy as tgreedy
+    assert tgreedy.sketch_barriers(50, 50) == 51
+    assert tgreedy.sketch_barriers(40, 50) == 42
+    assert tgreedy.SKETCH_RECORD_BYTES == 32
+
+
+def test_selection_kernel_counts_match_the_sources():
+    """Phase 2's ptxas counts: greedy.cu's two greedy_flat forms, its
+    barrier floor and greedy_sketch's forms (registers, one kernel for
+    1 or REG_ROWS = 2 rows a thread, shared, global with cov in shared
+    memory or not); celf.cu's celf_eval, celf_apply and
+    celf_select's four forms (cov_sk shared or not, top lists of LIST
+    keys or the radix pick)."""
+    from repro_torch.kernels import celf as tcelf
+    from repro_torch.kernels import greedy as tgreedy
+    assert tgreedy.REG_ROWS == 2
+    assert smoke.GREEDY_KERNELS == 2 + 1 + 1 + 1 + 2
+    assert tcelf.LIST == 32
+    assert smoke.CELF_KERNELS == 2 + 2 * 2
+
+
+@pytest.mark.parametrize("k,calls,barriers", [(50, 127, 306),
+                                              (50, 123, 298), (5, 0, 7)])
+def test_celf_list_path_barriers(k, calls, barriers):
+    """celf_select's grid barriers on the top-list path: 2 in the
+    prologue, 2 an eval call and 1 a seed (its last sweep); at the CELF
+    cell's 127 [123] eval calls, 306 [298] against the radix pick's 560
+    [544] (PERF.md)."""
+    from repro_torch.kernels import celf as tcelf
+    assert tcelf.list_barriers(k, calls) == barriers
+
+
+def test_celf_select_layout_at_the_cell():
+    """At the CELF cell (75,879 nodes, 16,384 rows, 35,538 elements, c =
+    32) on the H100's grid: lists of 32 keys, the sketch union, the
+    slice's sel, the pool's 270 pairs a block and, at 1,024 buckets, the
+    slice's 575 sketch rows in shared memory beside the merge buffers (132
+    + 66 lists); at 16,384 buckets the 512-word union still fits, the
+    rows (1.2 MB a block) do not."""
+    from repro_torch.kernels import celf as tcelf
+    for cols, rows in ((32, True), (512, False)):
+        lay = tcelf.select_layout(75_879, 16_384, 32, cols, 132, 58_080,
+                                  35_538)
+        assert (lay.list, lay.shared, lay.pool_on_chip) == (32, True, True)
+        assert lay.rows_on_chip == rows
+        assert lay.dynamic_bytes == (4 * cols + 8 * 32 * 198 + 4 * 576
+                                     + 8 * 270 + (4 * 575 * 32 if rows
+                                                  else 0))
 
 
 def test_parent_sketch_select_equals_the_store_selection():

@@ -438,8 +438,8 @@ def _padded_cases():
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", range(7))
 def test_padded_greedy_kernel_equals_plain(card, case):
-    """One padded_greedy launch, no host sync, and the plain loop's seeds,
-    gains and flag exactly."""
+    """One padded_greedy launch, no host sync, and the plain loop's seeds
+    and gains exactly."""
     lists, n, k = _padded_cases()[case]
     store = cov.build_padded_store(lists, n, device="cpu")
     want = ref.padded_greedy_ref(store.rows, store.lengths, n=n, k=k)
@@ -464,24 +464,36 @@ def test_padded_greedy_kernel_equals_plain(card, case):
 
 @pytest.mark.cuda
 def test_padded_greedy_flags_lanes_outside_the_nodes(card):
-    """A valid lane below 0 or past n sets the flag on both routes, and the
-    selection raises; lanes past a row's length are never read."""
-    rows = torch.tensor([[0, 1, 9], [2, -1, 9], [4, 1, 9]],
-                        dtype=torch.int32)
-    for lens, bad in (([2, 1, 1], 0), ([2, 2, 1], 1), ([2, 1, 1 << 20], 1)):
-        lens = torch.tensor(lens, dtype=torch.int32)
-        want = ref.padded_greedy_ref(rows, lens, n=5, k=3)
-        got = ops.padded_greedy(rows.to(card), lens.to(card), n=5, k=3)
-        assert want[2].tolist() == [bad]
-        assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
-        store = cov.PaddedStore(rows=rows.to(card), lengths=lens.to(card),
-                                n_nodes=5)
-        if bad:
-            with pytest.raises(ValueError, match="outside"):
-                cov.select_seeds_padded(store, 3)
-        else:
-            assert cov.select_seeds_padded(store, 3).seeds.tolist() == \
-                want[0].tolist()
+    """A valid lane outside [0, n) no longer flags or raises: on the card
+    the kernel and the selection give what the reference's
+    ``select_seeds_padded`` gives on the same rows (pinned below; the CPU
+    suite holds the plain loop to the reference itself) and the plain
+    loop's bytes, the lane inside and past a row's length."""
+    n, k = 6, 4
+    # lane -> (seeds, gains) with the lane inside the rows' lengths and past
+    # them: -7 wraps to node 0 and changes the first seed
+    want_by_lane = {
+        -1: ([5, 1, 0, 0], [3, 2, 0, 0]), n + 1: ([5, 1, 0, 0], [3, 2, 0, 0]),
+        1 << 20: ([5, 1, 0, 0], [3, 2, 0, 0]),
+        -2: ([5, 1, 0, 0], [3, 2, 0, 0]),
+        -(n + 1): ([0, 5, 1, 0], [1, 3, 1, 0]),
+        -(n + 2): ([5, 1, 0, 0], [3, 2, 0, 0])}
+    for lane, inside in want_by_lane.items():
+        rows = torch.tensor([[0, 1, lane, 2], [2, 5, lane, 6], [1, 2, 6, 6],
+                             [5, lane, 3, 6], [4, 5, 6, 6]],
+                            dtype=torch.int32)
+        for lens, want in (([3, 3, 2, 3, 2], inside),
+                           ([2, 2, 2, 1, 2], want_by_lane[-1])):
+            lens = torch.tensor(lens, dtype=torch.int32)
+            plain = ref.padded_greedy_ref(rows, lens, n=n, k=k)
+            got = ops.padded_greedy(rows.to(card), lens.to(card), n=n, k=k)
+            assert [x.tolist() for x in plain] == list(want)
+            assert all(torch.equal(x.cpu(), y) for x, y in zip(got, plain))
+            store = cov.PaddedStore(rows=rows.to(card), lengths=lens.to(card),
+                                    n_nodes=n)
+            res = cov.select_seeds_padded(store, k)
+            assert res.seeds.tolist() == want[0]
+            assert res.gains.tolist() == want[1]
 
 
 @pytest.mark.cuda
@@ -1902,3 +1914,173 @@ def test_frontier_update_wrapper_checks_inputs(card):
         tbitset.frontier_update(x, x[:2])
     with pytest.raises(ValueError):
         tbitset.frontier_update(x, x.t())
+
+
+# greedy_sketch's forms (csrc/greedy.cu: rows in registers, shared memory or
+# global memory; the blocks' records read after each step's barrier) and
+# celf_select's top-list path (c <= 32), against their plain versions
+
+
+def _boundary_words(n, w, blocks):
+    """Sparse rows with equal best rows on both sides of the first block
+    boundaries of a grid of ``blocks`` (the last row of a block and the
+    first of the next), and an all-zero row at each other boundary."""
+    words = _sketch_words(n + 1, w, "sparse").numpy().view(np.uint32).copy()
+    slots = -(-n // blocks)
+    for b, v in enumerate(range(slots, n, slots)):
+        if b < 4:
+            pattern = RNG.integers(0, 1 << 32, size=w, dtype=np.int64)
+            words[v - 1] = words[v] = (pattern | 0xFFFF).astype(np.uint32)
+        else:
+            words[v] = 0
+    return torch.tensor(words.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,form", [
+    (40_000, 1, "registers"), (75_879, 3, "registers"),
+    (75_879, 4, "registers"), (135_000, 4, "registers"),
+    (600_000, 4, "shared"), (75_879, 5, "shared"), (75_879, 32, "shared"),
+    (75_879, 128, "global"), (75_879, 512, "global")])
+def test_greedy_sketch_forms_equal_plain(card, n, w, form):
+    """Each form of the rows at the shapes that take it: random, sparse
+    (ties), boundary (equal best rows on both sides of block boundaries)
+    and all-zero words, k = 50, byte for byte."""
+    from repro_torch.kernels import greedy as tgreedy
+    blocks, shared_words = tgreedy.sketch_grid(card)
+    lay = tgreedy.sketch_layout(w, w % 4 == 0, n=n, blocks=blocks,
+                                shared_words=shared_words)
+    assert lay.form == form
+    kinds = {"random": _sketch_words(n + 1, w, "random"),
+             "sparse": _sketch_words(n + 1, w, "sparse"),
+             "boundary": _boundary_words(n, w, blocks),
+             "zero": torch.zeros(n + 1, w, dtype=torch.int32)}
+    for kind, host in kinds.items():
+        got = tgreedy.greedy_sketch(host.to(card), n=n, k=50)
+        want = ref.greedy_sketch_ref(host, n=n, k=50)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b), (kind, form)
+        if kind == "zero":
+            assert want[0].tolist() == list(range(50))
+        if kind == "boundary":                     # the lower of a pair
+            slots = -(-n // blocks)
+            assert int(want[0][0]) % slots == slots - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 4, 32, 512])
+def test_greedy_sketch_past_the_last_node(card, w):
+    """k past n: the steps stop when no node is left, on every form."""
+    host = _sketch_words(41, w, "random")
+    got = tgreedy.greedy_sketch(host.to(card), n=40, k=60)
+    want = ref.greedy_sketch_ref(host, n=40, k=60)
+    assert int(want[2]) == 40
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [4, 32])
+def test_greedy_sketch_back_to_back_launches(card, w):
+    """200 launches back to back, no sync between them, on random sketches
+    from 200 seeds: each equals its plain version.  The scratch of a
+    launch is the allocator's reuse of the last one's, so a record slot
+    read before its step's store would show."""
+    n, k = 20_000, 20
+    hosts, outs = [], []
+    for seed in range(200):
+        rng = np.random.default_rng(seed)
+        u = rng.integers(0, 1 << 32, size=(n + 1, w), dtype=np.int64)
+        u &= rng.integers(0, 1 << 32, size=(n + 1, w), dtype=np.int64)
+        hosts.append(torch.tensor(u.astype(np.uint32).view(np.int32)))
+    cards = [h.to(card) for h in hosts]
+    torch.cuda.synchronize()
+    for x in cards:
+        outs.append(tgreedy.greedy_sketch(x, n=n, k=k))
+    torch.cuda.synchronize()
+    for host, got in zip(hosts, outs):
+        want = ref.greedy_sketch_ref(host, n=n, k=k)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sketch_k", [1024, 16384])
+@pytest.mark.parametrize("c", [1, 32, 64, 65, 2048, 2049])
+def test_celf_select_list_and_radix_paths_equal_plain(card, c, sketch_k):
+    """The top-list path (c <= 32: lists of 32 keys) and the radix pick
+    (c > 32, two chunks past 2,048) at the CELF cell's sketch widths:
+    seeds, gains and both counts, and the layout the launch takes."""
+    from repro_torch.kernels import celf as tcelf
+    store, _ = _celf_pool(card, n=6000, rows=6000)
+    sketch = store.sketch_words(sketch_k)
+    blocks, shared_words = tcelf.select_grid(card)
+    lay = tcelf.select_layout(store.n_nodes, store.row_capacity(), c,
+                              sketch.shape[1], blocks, shared_words,
+                              store.n_elems)
+    assert lay.list == (tcelf.LIST if c <= tcelf.LIST else 0)
+    got, want = _select_both(store, 30, c, sketch)
+    for a, b in zip(got[:3], want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), (c, sketch_k)
+    assert int(got[3]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 16, 32])
+def test_celf_select_list_path_pool_in_memory(card, c):
+    """The list path with the pool's pairs left in memory (a pool whose
+    block share does not fit beside the merge buffers) equals the plain
+    version."""
+    from repro_torch.kernels import celf as tcelf
+    store, _ = _celf_pool(card, n=3000, rows=700_000, width=9)
+    blocks, shared_words = tcelf.select_grid(card)
+    lay = tcelf.select_layout(store.n_nodes, store.row_capacity(), c, 32,
+                              blocks, shared_words, store.n_elems)
+    assert lay.list and not lay.pool_on_chip
+    got, want = _select_both(store, 10, c, store.sketch_words(1024))
+    for a, b in zip(got[:3], want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sketch_k,eval_batch", [(1024, 64), (16384, 32)])
+def test_celf_early_exit_solve_on_card_equals_cpu(card, sketch_k, eval_batch):
+    """A celf solve with the early exit on the card (top lists of 64 and of
+    32 keys) equals the same solve on the CPU (the plain version) in every
+    field that a caller reads."""
+    prob = IMProblem(k=10, eps=0.4, early_exit=True)
+    kw = dict(batch=256, selection="celf", seed=4, sketch_k=sketch_k,
+              eval_batch=eval_batch)
+    cpu = IMMSolver(_graph("cpu"), device="cpu", **kw).solve(prob)
+    gpu = IMMSolver(_graph(card), device=card, **kw).solve(prob)
+    np.testing.assert_array_equal(gpu.seeds, cpu.seeds)
+    np.testing.assert_array_equal(gpu.gains, cpu.gains)
+    assert gpu.frac == cpu.frac
+    assert gpu.stats.theta == cpu.stats.theta
+    assert gpu.stats.early_exit_skips == cpu.stats.early_exit_skips
+
+
+@pytest.mark.cuda
+def test_celf_select_back_to_back_launches(card):
+    """200 celf_select launches back to back on pools from 200 seeds, no
+    sync between them: each equals its plain version."""
+    from repro_torch.kernels import celf as tcelf
+    outs, hosts = [], []
+    for seed in range(200):
+        rng = np.random.default_rng(seed)
+        n, rows, width = 300, 400, 6
+        lens = rng.integers(0, width + 1, rows)
+        nodes = rng.integers(0, n, (rows, width))
+        store = cov.DeviceRRStore(n, sketch_k=64, device=card)
+        store.append_batch((torch.tensor(nodes), torch.tensor(lens)))
+        t = store.n_elems
+        pool = (store.flat[:t], store.ids[:t], store.valid[:t])
+        kw = dict(n=n, num_rows=store.row_capacity(), k=8, c=16)
+        outs.append(tcelf.celf_select(*pool, sketch=store.sketch_words(),
+                                      **kw))
+        hosts.append((_host_pool(store), store.sketch_words().cpu(), kw))
+    torch.cuda.synchronize()
+    for got, (pool, sketch, kw) in zip(outs, hosts):
+        want = ref.celf_select_ref(*pool, sketch=sketch, **kw)
+        for a, b in zip(got[:3], want):
+            assert torch.equal(a.cpu(), b)

@@ -10,11 +10,14 @@ sketch sizes from a saturated 32 buckets to the exact regime's 16,384,
 under ``"mod"`` and ``"mix"`` bucketing.  Every comparison is exact.
 
 The kernel cannot run here, so a torch replay of its steps is held against
-``torch.argmax`` at each step and against the plain version: the rows'
-lane groups (``sketch_layout``), each group's first maximum over its rows,
-the warp and block maxima of the 64-bit keys with the score shifted by one,
-the atomicMax over the blocks, picked nodes left out, the running popcount
-of cov, and the stop when no node is left.
+``torch.argmax`` at each step and against the plain version: each block's
+slice of rows and each thread's rows in that slice (``sketch_layout``'s
+form and lane groups), each thread's first maximum over its rows, the warp
+and block maxima of the 64-bit keys with the score shifted by one, the
+blocks' records (0 for a block without a candidate) reduced a warp of
+records at a time, picked nodes left out (read only at a delta of 0),
+the running popcount of cov, and the stop when no node is left; with equal
+best rows on both sides of block boundaries.
 """
 import numpy as np
 import jax
@@ -117,23 +120,68 @@ def test_sketch_greedy_past_the_last_node_equals_reference(mode):
 
 # ------------------------------------------------------- the kernel's pieces
 
+# an H100 block's dynamic shared memory beside greedy_sketch's static, in
+# words, as sketch_grid reports it on the card
+SHARED_WORDS = 58_080
+
+
 @pytest.mark.parametrize("cols,aligned,lanes,vector", [
     (1, True, 1, False), (3, True, 1, False), (4, True, 1, True),
     (4, False, 1, False), (5, True, 8, False), (8, True, 2, True),
     (8, False, 8, False), (32, True, 8, True), (128, True, 32, True),
     (512, True, 32, True), (60_000, True, 32, True), (97, True, 32, False)])
 def test_sketch_layout(cols, aligned, lanes, vector):
-    assert tgreedy.sketch_layout(cols, aligned) == (lanes, vector)
+    """The rows' lane groups: the same in ``sketch_layout`` as in
+    ``row_lanes`` (``celf_select``'s sweep), whatever the form."""
+    assert tgreedy.row_lanes(cols, aligned) == (lanes, vector)
+    lay = tgreedy.sketch_layout(cols, aligned, n=75_879, blocks=132,
+                                shared_words=SHARED_WORDS)
+    assert (lay.lanes, lay.vector) == (lanes, vector)
+
+
+@pytest.mark.parametrize("n,cols,blocks,form,rows", [
+    (75_879, 4, 132, "registers", 2),        # the approximate cell
+    (75_879, 1, 132, "registers", 2),
+    (67_584, 3, 132, "registers", 1),        # 512 rows a block
+    (67_585, 3, 132, "registers", 2),
+    (135_168, 4, 132, "registers", 2),       # REG_ROWS rows a thread
+    (135_169, 4, 132, "shared", 1),
+    (75_879, 32, 132, "shared", 1),          # phase 8's W = 32
+    (75_879, 128, 132, "global", 1),         # W = 128: 294 KB a block
+    (75_879, 512, 132, "global", 1),
+    (3_001, 512, 132, "shared", 1),
+    (5, 60_000, 1, "global", 1)])
+def test_sketch_layout_form(n, cols, blocks, form, rows):
+    """Where a block's slice of rows lives: registers at W <= 4 while a
+    thread holds at most REG_ROWS rows, else shared memory while cov and
+    the slice fit, else global memory."""
+    lay = tgreedy.sketch_layout(cols, True, n=n, blocks=blocks,
+                                shared_words=SHARED_WORDS)
+    assert (lay.form, lay.rows) == (form, rows)
 
 
 def test_sketch_scratch_bytes():
-    """Keys and flags alone while cov fits in shared memory; past it, each
-    block's copy of cov (rounded to 4 words) from a 16-byte boundary."""
-    assert tgreedy.sketch_scratch_bytes(75_879, 4, 50, 132, 58_080) == \
-        8 * 50 + 75_879
-    assert tgreedy.sketch_scratch_bytes(7, 58_080, 3, 132, 58_080) == 31
-    wide = tgreedy.sketch_scratch_bytes(7, 58_081, 3, 132, 58_080)
-    assert wide == 32 + 4 * 132 * 58_084
+    """Two steps' records (32 bytes a block each) and each block's picked
+    bits (a word for 32 of its rows); in the global form past the shared
+    memory, each block's copy of cov (rounded to 4 words) from a 16-byte
+    boundary."""
+    assert tgreedy.sketch_scratch_bytes(75_879, 4, 132, SHARED_WORDS,
+                                        "registers") == \
+        64 * 132 + 4 * 132 * 18                     # 575 rows a block
+    fixed = 64 * 132 + 4 * 132 * 1
+    assert tgreedy.sketch_scratch_bytes(7, 58_080, 132, 58_080,
+                                        "global") == fixed
+    wide = tgreedy.sketch_scratch_bytes(7, 58_081, 132, 58_080, "global")
+    assert wide == -(-fixed // 16) * 16 + 4 * 132 * 58_084
+    assert tgreedy.sketch_scratch_bytes(7, 58_081, 132, 58_080,
+                                        "shared") == fixed
+
+
+def test_sketch_barriers():
+    """A grid barrier after the prologue and one a step run: the steps
+    taken and, below k, the one that found no node."""
+    assert tgreedy.sketch_barriers(50, 50) == 51
+    assert tgreedy.sketch_barriers(7, 10) == 9
 
 
 def _popcounts(words, cov):
@@ -149,37 +197,57 @@ def _redux_max_key(occ, low):
     return (best << 32) | first
 
 
-def kernel_step_key(score, picked, blocks, lanes):
-    """One step's argmax as the kernel makes it on ``blocks`` blocks of
-    THREADS: group g of ``lanes`` lanes folds rows v = g, g + G, ... (G the
-    grid's groups) in order, a picked row taking no part and a later row
-    winning only on a larger score; the group's first lane holds its
-    (score, low = 0xFFFFFFFF - v) pair, the others (0, 0); warps and then
-    blocks reduce by two maxima, and an atomicMax over the blocks' keys.
-    ``score`` is already shifted by one.  Returns the key."""
+def row_owner(held, lay):
+    """For each row j < held of a block's slice: the thread that folds it
+    and its place in that thread's order.  Registers: thread j % THREADS,
+    the (j // THREADS)-th.  Lane groups: warp w's passes start at rows (w
+    + m * warps) * span, span = (32 // lanes) * SKETCH_ROWS, and the group
+    of lane l takes rows l // lanes + i * (32 // lanes) past that."""
+    j = torch.arange(held, dtype=torch.int64)
+    if lay.form == "registers":
+        return j % THREADS, j // THREADS
+    warps, rpw = THREADS // 32, 32 // lay.lanes
+    span = rpw * SKETCH_ROWS
+    owner = ((j // span) % warps) * 32 + (j % rpw) * lay.lanes
+    order = (j // (span * warps)) * SKETCH_ROWS + (j % span) // rpw
+    return owner, order
+
+
+SKETCH_ROWS = 4        # csrc/greedy.cu: kSketchRows
+
+
+def kernel_step_key(score, picked, blocks, lay):
+    """One step's key as the kernel makes it on ``blocks`` blocks of
+    THREADS: block b owns the rows [b * slots, (b + 1) * slots); each
+    thread folds its rows (:func:`row_owner`) in order, a later row
+    winning only on a larger score and a picked row (whose delta must be 0:
+    the kernel reads the flag only then) taking no part; warps and then the
+    block reduce by two maxima into the block's record (0 with no
+    candidate).  After the step's barrier every block reduces the records:
+    a warp each 32 of them, then the largest of the warps' keys.  ``score`` is shifted by
+    one.  Returns the key."""
     n = score.shape[0]
-    gsize = blocks * THREADS
-    groups = gsize // lanes
-    slots = -(-n // groups) * groups
-    occ = torch.zeros(slots, dtype=torch.int64)
-    low = torch.zeros(slots, dtype=torch.int64)
+    assert bool((score[picked] == 1).all())       # picked: delta 0
+    slots = -(-n // blocks)
+    v = torch.arange(n, dtype=torch.int64)
+    owner, order = row_owner(slots, lay)
+    b, j = v // slots, v % slots
+    thread = b * THREADS + owner[j]
+    t_occ = torch.zeros(blocks * THREADS, dtype=torch.int64)
+    t_low = torch.zeros(blocks * THREADS, dtype=torch.int64)
     live = ~picked
-    occ[:n] = torch.where(live, score, 0)
-    low[:n] = torch.where(live, MASK32 - torch.arange(n, dtype=torch.int64),
-                          0)
-    occ, low = occ.view(-1, groups), low.view(-1, groups)   # (pass, group)
-    g_occ, g_low = occ[0].clone(), low[0].clone()
-    for p in range(1, occ.shape[0]):
-        take = (low[p] != 0) & ((g_low == 0) | (occ[p] > g_occ))
-        g_occ = torch.where(take, occ[p], g_occ)
-        g_low = torch.where(take, low[p], g_low)
-    t_occ = torch.zeros(gsize, dtype=torch.int64)
-    t_low = torch.zeros(gsize, dtype=torch.int64)
-    t_occ[::lanes], t_low[::lanes] = g_occ, g_low
+    for m in range(int(order.max()) + 1):
+        at = (order[j] == m) & live                # each thread's m-th row
+        th, sc, lw = thread[at], score[at], MASK32 - v[at]
+        take = (t_low[th] == 0) | (sc > t_occ[th])
+        t_occ[th[take]] = sc[take]
+        t_low[th[take]] = lw[take]
     warp = _redux_max_key(t_occ.view(blocks, THREADS // 32, 32),
                           t_low.view(blocks, THREADS // 32, 32))
     block = _redux_max_key(warp >> 32, warp & MASK32)
-    return int(block.max())
+    rec = torch.cat([block, block.new_zeros(-blocks % 32)]).view(-1, 32)
+    per_warp = _redux_max_key(rec >> 32, rec & MASK32)
+    return int(per_warp.max())
 
 
 def kernel_replay(words, *, n, k, blocks):
@@ -187,11 +255,11 @@ def kernel_replay(words, *, n, k, blocks):
     over the scores popcount(words[v] | cov) - base + 1, base the running
     sum of the gains; a step whose key has a high word of 0 stops the
     greedy; else u and its gain come off the key (checked against
-    ``torch.argmax`` of the plain score), u's owner group is the one whose
-    rows hold it, and cov takes u's row.  The steps not taken hold n and
+    ``torch.argmax`` of the plain score) and cov takes u's row (the
+    register form's record carries it).  The steps not taken hold n and
     0."""
-    lanes, _ = tgreedy.sketch_layout(words.shape[1], True)
-    groups = blocks * THREADS // lanes
+    lay = tgreedy.sketch_layout(words.shape[1], True, n=n, blocks=blocks,
+                                shared_words=SHARED_WORDS)
     cov = torch.zeros(words.shape[1], dtype=torch.int32)
     picked = torch.zeros(n, dtype=torch.bool)
     seeds = torch.full((k,), n, dtype=torch.int32)
@@ -200,7 +268,7 @@ def kernel_replay(words, *, n, k, blocks):
     for s in range(k):
         cnt = _popcounts(words[:n], cov)
         assert int(cnt.min()) >= base                # base = popcount(cov)
-        key = kernel_step_key(cnt - base + 1, picked, blocks, lanes)
+        key = kernel_step_key(cnt - base + 1, picked, blocks, lay)
         plain = torch.where(picked, -1, cnt - base)
         want = int(torch.argmax(plain))
         if key >> 32 == 0:
@@ -208,7 +276,6 @@ def kernel_replay(words, *, n, k, blocks):
             break
         u, gain = MASK32 - (key & MASK32), (key >> 32) - 1
         assert (u, gain) == (want, int(plain[want]))
-        assert u in range(u % groups, n, groups)     # its owner's rows
         seeds[s], gains[s] = u, gain
         picked[u] = True
         cov |= words[u]
@@ -217,11 +284,13 @@ def kernel_replay(words, *, n, k, blocks):
     return seeds, gains, torch.tensor([steps], dtype=torch.int32)
 
 
-def _case_words(case, n, cols, rng):
+def _case_words(case, n, cols, rng, blocks=1):
     """(n + 1, cols) int32 sketch words: ``bit31`` random words (bit 31 in
     about half), ``ties`` one bit a row among few buckets (many equal
     scores), ``saturated`` a few rows of all ones among sparse ones (every
-    delta is 0 once one of them is picked)."""
+    delta is 0 once one of them is picked), ``boundary`` sparse rows with
+    the best rows in equal pairs on each side of the blocks' boundaries
+    (the last row of a block and the first of the next)."""
     if case == "bit31":
         u = rng.integers(0, 1 << 32, size=(n + 1, cols), dtype=np.int64)
         return torch.from_numpy(u.astype(np.uint32).view(np.int32))
@@ -230,21 +299,31 @@ def _case_words(case, n, cols, rng):
     words[np.arange(n + 1), bucket >> 5] = np.uint32(1) << (bucket & 31)
     if case == "saturated":
         words[rng.choice(n, 3, replace=False)] = MASK32
+    if case == "boundary":
+        slots = -(-n // blocks)
+        for b, v in enumerate(range(slots, n, slots)):
+            pattern = rng.integers(0, 1 << 32, size=cols, dtype=np.int64)
+            pattern |= 0xFFFF                      # above every sparse row
+            words[v - 1] = words[v] = pattern.astype(np.uint32)
+            if b >= 3:
+                break
     return torch.from_numpy(words.view(np.int32))
 
 
 @pytest.mark.parametrize("blocks", [1, 3, 132])
-@pytest.mark.parametrize("cols", [1, 4, 5, 512])
-@pytest.mark.parametrize("case", ["ties", "saturated", "bit31", "past_n"])
+@pytest.mark.parametrize("cols", [1, 3, 4, 5, 32, 128, 512])
+@pytest.mark.parametrize("case", ["ties", "saturated", "bit31", "past_n",
+                                  "boundary"])
 def test_kernel_replay_equals_plain_and_argmax(case, cols, blocks):
     rng = np.random.default_rng(len(case) * 31 + cols + blocks)
     if case == "past_n":
         n, k = 7, 10
         words = _case_words("bit31", n, cols, rng)
     else:
-        n = 3_001 if cols == 512 else (70_001 if blocks == 132 else 5_003)
+        n = 3_001 if cols >= 128 else (70_001 if blocks == 132 and cols < 32
+                                       else 5_003)
         k = 8
-        words = _case_words(case, n, cols, rng)
+        words = _case_words(case, n, cols, rng, blocks)
     got = kernel_replay(words, n=n, k=k, blocks=blocks)
     want = ref.greedy_sketch_ref(words, n=n, k=k)
     for x, y in zip(got, want):

@@ -9,11 +9,12 @@ On a JAX-sampled queue pool the padded greedy must also equal the port's
 
 The greedy's plain loop (``ref.padded_greedy_ref``, ``ops.padded_greedy``
 on CPU tensors) must equal the reference's ``select_seeds_padded`` exactly,
-with repeated nodes in a row and k past the distinct nodes; a valid lane
-outside [0, n] must raise.  The CUDA kernel (``csrc/membership.cu``)
-cannot run here, so a numpy replay of its design (a shared Occur, rows and
-nodes split over 1, 3 or 132 blocks, u's lanes skipped and its count set
-to 0) is held against the plain loop exactly.
+with repeated nodes in a row, k past the distinct nodes, and valid lanes
+outside [0, n) (dropped, or wrapped when negative, as the reference's
+scatter-add does).  The CUDA kernel (``csrc/membership.cu``) cannot run
+here, so a numpy replay of its design (a shared Occur, rows and nodes
+split over 1, 3 or 132 blocks, every lane of a new row taken off at its
+node) is held against the plain loop exactly.
 """
 import numpy as np
 import jax
@@ -200,42 +201,65 @@ PADDED_CASES = [
 def test_padded_greedy_plain_equals_reference(case):
     """``ref.padded_greedy_ref`` and ``ops.padded_greedy`` on CPU tensors
     against the reference's ``select_seeds_padded`` (seeds and gains
-    exactly, no flag); the port's selection also in the float32 bytes of
-    frac."""
+    exactly); the port's selection also in the float32 bytes of frac."""
     lists, n, k = PADDED_CASES[case]
     jstore = jcov.build_padded_store(lists, n)
     want = jcov.select_seeds_padded(jstore, k)
     store = tcov.build_padded_store(lists, n, device=CPU)
     tops.reset_launch_counts()
-    for seeds, gains, bad in (
+    for seeds, gains in (
             tref.padded_greedy_ref(store.rows, store.lengths, n=n, k=k),
             tops.padded_greedy(store.rows, store.lengths, n=n, k=k)):
         np.testing.assert_array_equal(seeds.numpy(), np.asarray(want.seeds))
         np.testing.assert_array_equal(gains.numpy(), np.asarray(want.gains))
-        assert seeds.dtype == gains.dtype == bad.dtype == torch.int32
-        assert bad.tolist() == [0]
+        assert seeds.dtype == gains.dtype == torch.int32
     _assert_result_equal(tcov.select_seeds_padded(store, k), want)
     assert not any(tops.launch_counts().values())
 
 
-@pytest.mark.parametrize("lane", [-1, 7, 1 << 20])
+# a lane outside the nodes at n = 6: -1 wraps to slot n (the padding) and
+# is dropped, n + 1 and 1 << 20 are dropped, -2 and -(n + 1) wrap to nodes
+# n - 1 and 0, and -(n + 2) is dropped
+OUTSIDE_N = 6
+OUTSIDE_LANES = [-1, OUTSIDE_N + 1, 1 << 20, -2, -(OUTSIDE_N + 1),
+                 -(OUTSIDE_N + 2)]
+
+
+def outside_rows(lane):
+    """Rows of :data:`OUTSIDE_N` nodes with ``lane`` in three of them, and
+    two sets of lengths: the lane inside each of those rows' length, and
+    past it."""
+    rows = [[0, 1, lane, 2], [2, 5, lane, 6], [1, 2, 6, 6], [5, lane, 3, 6],
+            [4, 5, 6, 6]]
+    return rows, ([3, 3, 2, 3, 2], [2, 2, 2, 1, 2])
+
+
+@pytest.mark.parametrize("lane", OUTSIDE_LANES)
 def test_padded_selection_raises_on_a_lane_outside_the_nodes(lane):
-    """A valid lane outside [0, n] (n = 6 is the padding value and counts
-    for no node) sets the flag and the selection raises; past a row's
-    length the same value is never read."""
-    rows = torch.tensor([[0, 1, lane], [2, 6, 6], [1, 2, 6]],
-                        dtype=torch.int32)
-    for lens, bad in (([2, 2, 2], 0), ([3, 2, 2], 1)):
-        store = tcov.PaddedStore(rows=rows, lengths=torch.tensor(
-            lens, dtype=torch.int32), n_nodes=6)
-        got = tref.padded_greedy_ref(store.rows, store.lengths, n=6, k=3)
-        assert got[2].tolist() == [bad]
-        if bad:
-            with pytest.raises(ValueError, match="outside"):
-                tcov.select_seeds_padded(store, 3)
-        else:
-            assert tcov.select_seeds_padded(store, 3).seeds.tolist() == \
-                [1, 2, 0]
+    """The selection no longer raises on a valid lane outside [0, n): the
+    lane counts as the reference's dropping scatter-add counts it (wrapped
+    when negative, else for no node) and never matches a seed.  The plain
+    loop, ``ops.padded_greedy`` and the selection equal the reference's
+    ``select_seeds_padded`` on the same rows (seeds, gains, ``frac``
+    bytes), the lane inside and past a row's length."""
+    rows, lengths = outside_rows(lane)
+    n, k = OUTSIDE_N, 4
+    for lens in lengths:
+        jstore = jcov.PaddedStore(rows=jnp.asarray(rows, jnp.int32),
+                                  lengths=jnp.asarray(lens, jnp.int32),
+                                  n_nodes=n)
+        want = jcov.select_seeds_padded(jstore, k)
+        store = tcov.PaddedStore(
+            rows=torch.tensor(rows, dtype=torch.int32),
+            lengths=torch.tensor(lens, dtype=torch.int32), n_nodes=n)
+        for seeds, gains in (
+                tref.padded_greedy_ref(store.rows, store.lengths, n=n, k=k),
+                tops.padded_greedy(store.rows, store.lengths, n=n, k=k)):
+            np.testing.assert_array_equal(seeds.numpy(),
+                                          np.asarray(want.seeds))
+            np.testing.assert_array_equal(gains.numpy(),
+                                          np.asarray(want.gains))
+        _assert_result_equal(tcov.select_seeds_padded(store, k), want)
 
 
 def _greedy_replay(rows, lengths, n, k, blocks):
@@ -243,20 +267,22 @@ def _greedy_replay(rows, lengths, n, k, blocks):
     block b owning the rows [b * rpb, (b + 1) * rpb) and the nodes [b *
     slots, (b + 1) * slots).  A step: each block's first maximum of its
     slice as the key (occur << 32) | (0xFFFFFFFF - v), the maximum of the
-    keys; each block scans its uncovered rows for u, covers the rows that
-    hold it, counts them into the gain, and takes their lanes but u's off
-    Occur; Occur[u] is set to 0.  Lanes outside [0, n] set the flag, lanes
-    at n count for no node."""
+    keys; each block scans its uncovered rows for u (the lanes as they
+    are), covers the rows that hold it, counts them into the gain, and
+    takes all their lanes off Occur, each at its ``lane_node``."""
     r, l = rows.shape
     lens = np.clip(lengths.astype(np.int64), 0, l)
     slots, rpb = -(-n // blocks), -(-r // blocks)
+
+    def lane_node(x):
+        v = int(x) + n + 1 if x < 0 else int(x)
+        return v if 0 <= v < n else -1
+
     occur = np.zeros(n, np.int64)
-    bad = 0
     for i in range(r):
         for x in rows[i, :lens[i]]:
-            bad |= int(x < 0 or x > n)
-            if 0 <= x < n:
-                occur[x] += 1
+            if lane_node(x) >= 0:
+                occur[lane_node(x)] += 1
     covered = np.zeros(r, bool)
     seeds, gains = [], []
     for _ in range(k):
@@ -269,7 +295,6 @@ def _greedy_replay(rows, lengths, n, k, blocks):
             keys.append(key)
         u = 0xFFFFFFFF - (max(keys) & 0xFFFFFFFF)
         gain = 0
-        occur[u] = 0
         for blk in range(blocks):
             for i in range(min(blk * rpb, r), min((blk + 1) * rpb, r)):
                 row = rows[i, :lens[i]]
@@ -278,22 +303,39 @@ def _greedy_replay(rows, lengths, n, k, blocks):
                 covered[i] = True
                 gain += 1
                 for x in row:
-                    if 0 <= x < n and x != u:
-                        occur[x] -= 1
+                    if lane_node(x) >= 0:
+                        occur[lane_node(x)] -= 1
         seeds.append(u)
         gains.append(gain)
-    return seeds, gains, bad
+    return seeds, gains
 
 
 @pytest.mark.parametrize("blocks", [1, 3, 132])
 @pytest.mark.parametrize("case", [0, 3, 5])
 def test_padded_greedy_replay_equals_plain(case, blocks):
     """The kernel's design (a shared Occur, a block's rows and node slice,
-    u's lanes skipped and its count set to 0) gives the plain loop's
-    seeds, gains and flag, with repeated nodes and once Occur is zero."""
+    every lane of a new row taken off at its node) gives the plain loop's
+    seeds and gains, with repeated nodes and once Occur is zero."""
     lists, n, k = PADDED_CASES[case]
     store = tcov.build_padded_store(lists, n, device=CPU)
     want = tref.padded_greedy_ref(store.rows, store.lengths, n=n, k=k)
     got = _greedy_replay(store.rows.numpy(), store.lengths.numpy(), n, k,
                          blocks)
-    assert got == (want[0].tolist(), want[1].tolist(), int(want[2][0]))
+    assert got == (want[0].tolist(), want[1].tolist())
+
+
+@pytest.mark.parametrize("lane", OUTSIDE_LANES)
+def test_padded_greedy_replay_with_lanes_outside_the_nodes(lane):
+    """The kernel's replay at 1 and 3 blocks gives the plain loop's seeds
+    and gains on rows with a lane outside the nodes, inside and past the
+    rows' lengths."""
+    rows, lengths = outside_rows(lane)
+    rows = np.asarray(rows, np.int32)
+    for lens in lengths:
+        lens = np.asarray(lens, np.int32)
+        want = tref.padded_greedy_ref(torch.from_numpy(rows),
+                                      torch.from_numpy(lens), n=OUTSIDE_N,
+                                      k=4)
+        for blocks in (1, 3):
+            assert _greedy_replay(rows, lens, OUTSIDE_N, 4, blocks) == (
+                want[0].tolist(), want[1].tolist())
