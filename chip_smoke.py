@@ -13,7 +13,7 @@ Phases, each of which raises on failure (non-zero exit):
    ``bernoulli.cu``, ``membership.cu``, ``flashattn.cu``, ``queue.cu``,
    ``greedy.cu`` and ``celf.cu`` with nvcc for sm_90a, one nvcc per
    source, started together, and prints each ``-Xptxas -v`` report; the
-   three Occur kernels, the seven of ``greedy.cu`` (:data:`GREEDY_KERNELS`),
+   three Occur kernels, the nine of ``greedy.cu`` (:data:`GREEDY_KERNELS`),
    the six of ``celf.cu`` and the two of ``membership.cu`` must not
    spill; beside them the stamped copies of ``greedy_sketch`` and
    ``celf_select`` (``examples/sketch_stamps.cu``, ``celf_stamps.cu``),
@@ -185,11 +185,34 @@ Phases, each of which raises on failure (non-zero exit):
    grid barriers must be :func:`celf.list_barriers`) and the barrier
    floor) and, at both sizes, its phase split in SM clocks on a
    ``celf_select_stamps:`` line; ``celf_eval``, ``celf_apply`` and
-   ``sketch_union_popcount`` at the path's shapes (:func:`celf_records`:
-   against the plain versions exactly, timed beside them, with the bound;
-   the sweep and its ``popcount_words`` base at the same cover exactly, on
-   a ``celf_sweep_check:`` line), at 16,384 buckets on a
-   ``celf_kernels_16384:`` line.
+   ``sketch_union_popcount`` at this pool (:func:`celf_records`: against
+   the plain versions exactly, timed beside them, with the bound; the sweep
+   and its ``popcount_words`` base at the same cover exactly, on a
+   ``celf_sweep_check:`` line), on ``celf_kernels_1024:`` and
+   ``celf_kernels_16384:`` lines, since no selection here launches them;
+15. variants (:func:`variants_phase`), on the stand-in with weights v mod
+   7, candidates v mod 3 == 0 and costs 1 + (v mod 5): the weighted solve
+   (k = 50) on the queue engine, whose pool holds no root of weight 0,
+   whose roots' classes pass a χ² test against the weights (p > 1e-3), and
+   whose RIS spread lies within 10% of a 256-run weighted forward
+   Monte-Carlo spread, and on the dense engine, equal in every field
+   (``variant_weighted:``); the candidate solve (k = 50) and the budgeted
+   solve (budget 100) with ``flat`` (one ``greedy_flat_variant`` a
+   selection), ``bitset`` (the Occur kernels) and ``celf`` (``celf_eval``,
+   ``celf_apply`` and the sweep), equal in every field, inside the
+   candidates and the budget (``variant_candidates:``,
+   ``variant_budgeted:``); the approximate solve with the candidates (as
+   phase 4), one masked ``greedy_sketch`` a selection
+   (``variant_approximate_candidates:``).  Then the records of
+   ``queue_bfs`` with the weighted solve's alias table at its first round,
+   ``greedy_flat_variant`` at the final pools of the budgeted and
+   candidate ``flat`` solves and the masked ``greedy_sketch`` at the
+   approximate solve's final sketch, each against its plain version on the
+   card exactly; and the records of ``celf_eval``, ``celf_apply`` and
+   ``sketch_union_popcount`` (:func:`celf_records`) at the budgeted
+   ``celf`` solve's pool and 1,024-bucket sketch, Covered after its first
+   10 seeds and the padded batch of 32 its next eval call passes
+   (:func:`celf_variant_batch`).
 
 The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
 the exact path's final bit matrix, masked on the first seed's rows as the
@@ -202,14 +225,21 @@ the queue sampler at the exact path's first round with the work it
 examined (:func:`queue_bound`) and its one-SM bound
 (:func:`one_sm_bound`), the greedy at the default solve's final pool
 with its barrier floor (:func:`greedy_record`), the sketch greedy at the
-approximate solve's final sketch (:func:`sketch_greedy_record`), the
-CELF kernels and ``sketch_union_popcount`` at the CELF solve's pool and
-its 1,024-bucket sketch (:func:`celf_select_record`, :func:`celf_records`;
+approximate solve's final sketch (:func:`sketch_greedy_record`),
+``celf_select`` at the CELF solve's pool and its 1,024-bucket sketch
+(:func:`celf_select_record`), ``celf_eval``, ``celf_apply`` and
+``sketch_union_popcount`` at the budgeted CELF variant's (phase 15); the
+phase-15 records (named ``queue_bfs[weighted]``,
+``greedy_flat_variant[costs]``, ``greedy_flat_variant[candidates]`` and
+``greedy_sketch[candidates]``: a kernel on the operands of a path of its
+own);
 the union popcount's record at the approximate sketch goes on a
 ``sketch_union_popcount_approximate:`` line); launches from each path's
-run (``celf_eval``, ``celf_apply``, ``bitset_or``, ``bitset_andnot``,
-``sketch_scatter_or`` and ``membership_rows``: 0, no path launches them;
-``sketch_union_popcount``: the early exit's gate); each with
+run (``bitset_or``, ``bitset_andnot``, ``sketch_scatter_or`` and
+``membership_rows``: 0, no path launches them; the kernels of
+:data:`SHARED_PATH_KERNELS` the sum over phase 5's solve, the packed
+sampler, the early exit's gate and phase 15's two CELF variant solves,
+each path's count under ``launches_from``); each with
 ``ms``, ``device_ms``,
 ``device_other_ms`` and ``enqueue_us`` from :func:`timing`;
 ``bernoulli_edges`` with its trial's instructions by class as the built
@@ -316,9 +346,10 @@ APPROX_MAX_THETA = 8192
 SKETCH_ROWS, SKETCH_WORDS, SCATTER_PAIRS = N_NODES + 1, 512, 1 << 24
 PROBE_SKETCH_K = (128, 1024, 4096)
 # kernels that -Xptxas -v reports in csrc/greedy.cu (greedy_flat's two
-# forms, the barrier floor, greedy_sketch's four forms) and csrc/celf.cu
-# (celf_eval, celf_apply, celf_select's four forms)
-GREEDY_KERNELS, CELF_KERNELS = 7, 6
+# forms and greedy_flat_variant's two, the barrier floor, greedy_sketch's
+# four forms) and csrc/celf.cu (celf_eval, celf_apply, celf_select's four
+# forms)
+GREEDY_KERNELS, CELF_KERNELS = 9, 6
 # the stamped copies of greedy_sketch and celf_select (examples/), built
 # beside the port's sources; their libraries once built
 STAMPED_SOURCES = {"sketch": "sketch_stamps", "celf": "celf_stamps"}
@@ -346,6 +377,7 @@ LIBRARY_NOTE = {
     "membership_rows": "eq, mask and any are three PyTorch calls",
     "queue_bfs": "no single PyTorch call runs a BFS",
     "greedy_flat": "no single PyTorch call runs a greedy",
+    "greedy_flat_variant": "no single PyTorch call runs a greedy",
     "greedy_sketch": "no single PyTorch call runs a greedy",
     "celf_eval": "no single PyTorch call counts a node's uncovered rows "
                  "for each of a batch of nodes",
@@ -363,7 +395,8 @@ SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "bitset_andnot": "bitops", "popcount_words": "bitops",
              "bernoulli_edges": "bernoulli", "membership_rows": "membership",
              "flash_attention": "flashattn", "queue_bfs": "queue",
-             "greedy_flat": "greedy", "greedy_sketch": "greedy",
+             "greedy_flat": "greedy", "greedy_flat_variant": "greedy",
+             "greedy_sketch": "greedy",
              "celf_eval": "celf", "celf_apply": "celf",
              "celf_select": "celf", "frontier_update": "bitops",
              "sketch_fold_rows": "sketch", "padded_greedy": "membership"}
@@ -382,7 +415,9 @@ DEVICE_KERNEL = {
     "membership_rows": r"membership_kernel",
     "flash_attention": r"flash_(wgmma|simt_split|simt)_kernel",
     "queue_bfs": r"queue_bfs_kernel",
-    "greedy_flat": r"greedy_flat_kernel",
+    "greedy_flat": r"greedy_flat_kernel(<(true|false), false>|ILb[01]ELb0E)",
+    "greedy_flat_variant": r"greedy_flat_kernel(<(true|false), true>|"
+                           r"ILb[01]ELb1E)",
     "greedy_sketch": r"greedy_sketch_kernel",
     "celf_eval": r"celf_eval_kernel",
     "celf_apply": r"celf_apply_kernel",
@@ -407,6 +442,8 @@ KERNELS = {
     "queue_bfs": "src/repro/core/rrset.py:230",
     # no Pallas kernel: the reference's fused scan is a jitted lax.scan
     "greedy_flat": "src/repro/core/coverage.py:1359",
+    # no Pallas kernel: the reference's variant scan is a jitted lax.scan
+    "greedy_flat_variant": "src/repro/core/coverage.py:1552",
     # no Pallas kernel of its own: the reference's greedy is a host loop
     # of sweeps (each the Pallas sketch_union_popcount)
     "greedy_sketch": "src/repro/core/coverage.py:2223",
@@ -706,7 +743,7 @@ def timing(name: str, fn, iters: int) -> dict:
     """A kernel call's times: event-timed ``ms`` over back-to-back calls,
     the profiler's ``device_ms`` of its own kernel, and ``enqueue_us``."""
     return {"ms": cuda_ms(fn, iters),
-            **device_ms(fn, iters, DEVICE_KERNEL[name]),
+            **device_ms(fn, iters, DEVICE_KERNEL[base_name(name)]),
             "enqueue_us": enqueue_us(fn, iters)}
 
 
@@ -874,17 +911,24 @@ def kernel_records(words, mask, launches=None, iters=20, plain_iters=3):
     return out
 
 
+def base_name(name: str) -> str:
+    """The kernel of a record: ``queue_bfs[weighted]`` is ``queue_bfs``'s
+    kernel on the operands of a path of its own."""
+    return name.split("[")[0]
+
+
 def record(name, launches, err, times, plain_ms, bound, library_ms=None,
            **extra):
     """One kernel's record; ``times`` is :func:`timing`'s."""
+    base = base_name(name)
     rec = {"name": name, "route": "cuda",
-           "source": f"src/repro_torch/kernels/csrc/{SOURCE_OF[name]}.cu",
-           "replaces": KERNELS[name],
+           "source": f"src/repro_torch/kernels/csrc/{SOURCE_OF[base]}.cu",
+           "replaces": KERNELS[base],
            "launches": None if launches is None else launches[name],
            "max_abs_err": err, **times, "plain_ms": plain_ms, **bound,
            "library_ms": library_ms}
     if library_ms is None:
-        rec["library_null_because"] = LIBRARY_NOTE[name]
+        rec["library_null_because"] = LIBRARY_NOTE[base]
     return dict(rec, **extra)
 
 
@@ -2350,16 +2394,47 @@ def celf_select_record(store, launches, iters=50) -> dict:
                   gains_sum=int(got[1].sum()))
 
 
-def celf_records(store, seeds, launches, iters=50, plain_iters=3) -> list:
+def celf_variant_batch(store, spec, step: int):
+    """The CELF variant (``select_seeds_celf(spec=...)``) on the store's
+    pool once more, its ``celf_eval`` calls watched: the first call of step
+    ``step`` (after ``step`` commits), the padded batch of ``c`` = 32 ids
+    (-1 past the batch's nodes) it passes and the Covered words it sees."""
+    seen, commits = [], [0]
+    eval_fn, apply_fn = ops.celf_eval, ops.celf_apply
+
+    def celf_eval(flat, ids, valid, cov_words, cands):
+        if commits[0] == step and not seen:
+            seen.append((cov_words.clone(), cands.clone()))
+        return eval_fn(flat, ids, valid, cov_words, cands)
+
+    def celf_apply(*args):
+        commits[0] += 1
+        return apply_fn(*args)
+
+    ops.celf_eval, ops.celf_apply = celf_eval, celf_apply
+    try:
+        cov.select_seeds_celf(store, 0, spec=spec)
+    finally:
+        ops.celf_eval, ops.celf_apply = eval_fn, apply_fn
+    if not seen:
+        raise AssertionError(f"the CELF variant made no eval call at step "
+                             f"{step}")
+    return seen[0]
+
+
+def celf_records(store, seeds, launches, iters=50, plain_iters=3,
+                 spec=None) -> list:
     """The CELF kernels and the sweep at this path's shapes: the solve's
     final pool, Covered after its first 10 seeds, the sweep's 32 candidates
-    there (the sketch's top Δocc keys, as ``select_seeds_celf`` picks them)
-    and the commit of the 11th seed.  Each against its plain version exactly,
-    then timed beside it, with its bound; the sweep at that cover
-    (``union_gains``, ``popcount_words`` on the (1, W) cover included)
-    against its plain version exactly too.  Returns the records of
-    ``celf_eval``, ``celf_apply`` and ``sketch_union_popcount`` (the store's
-    sketch)."""
+    there (the sketch's top Δocc keys, as ``select_seeds_celf`` picks them;
+    with a variant ``spec`` the padded batch its first eval call of that
+    step passes, :func:`celf_variant_batch`, whose Covered words must be
+    the same) and the commit of the 11th seed.  Each against its plain
+    version exactly, then timed beside it, with its bound; the sweep at
+    that cover (``union_gains``, ``popcount_words`` on the (1, W) cover
+    included) against its plain version exactly too.  Returns the records
+    of ``celf_eval``, ``celf_apply`` and ``sketch_union_popcount`` (the
+    store's sketch)."""
     t = store.n_elems
     pool = (store.flat[:t], store.ids[:t], store.valid[:t])
     dev = pool[0].device
@@ -2372,9 +2447,15 @@ def celf_records(store, seeds, launches, iters=50, plain_iters=3) -> list:
     for u in seeds[:first]:
         ref.celf_apply_ref(*pool, cov_words, u)
         cov_sk = sketch_mod.union_row(cov_sk, words, u)
-    deltas = sketch_mod.union_gains(words, cov_sk)[:n]
-    key = deltas.to(torch.int64) * (n + 1) - torch.arange(n, device=dev)
-    cands = torch.topk(key, 32).indices.to(torch.int32)
+    if spec is None:
+        deltas = sketch_mod.union_gains(words, cov_sk)[:n]
+        key = deltas.to(torch.int64) * (n + 1) - torch.arange(n, device=dev)
+        cands = torch.topk(key, 32).indices.to(torch.int32)
+    else:
+        seen_cov, cands = celf_variant_batch(store, spec, first)
+        if not torch.equal(seen_cov, cov_words):
+            raise AssertionError("the CELF variant's Covered words after "
+                                 f"{first} seeds differ from the commits'")
     u = int(seeds[first])
     got = ops.celf_eval(*pool, cov_words, cands)
     want = ref.celf_eval_ref(*pool, cov_words, cands)
@@ -2415,7 +2496,8 @@ def celf_records(store, seeds, launches, iters=50, plain_iters=3) -> list:
                cuda_ms(lambda: ref.celf_eval_ref(*pool, cov_words, cands),
                        plain_iters),
                celf_bound(*pool, cov_words, cands, False),
-               candidates=32, gains_sum=int(got.sum()), **shapes),
+               candidates=int((cands >= 0).sum()), batch=cands.numel(),
+               gains_sum=int(got.sum()), **shapes),
         record("celf_apply", launches, errs["celf_apply"],
                timing("celf_apply",
                       lambda: ops.celf_apply(*pool, scratch, u), iters),
@@ -2491,7 +2573,7 @@ def check_celf_on_host(store, card: cov.CoverageResult, card_stats: dict
     return out
 
 
-def celf_phase(g, queue_res, queue_store) -> list:
+def celf_phase(g, queue_res, queue_store) -> tuple:
     """The phase-5 solve with ``selection="celf"`` at each of
     :data:`CELF_SOLVES`: stage times (the fold inside each append on its
     own, ``stage_s.fold``), launches (``celf_select`` once a selection, the
@@ -2504,10 +2586,11 @@ def celf_phase(g, queue_res, queue_store) -> list:
     in θ, LB, rounds, RR sets, pool elements, seeds, gains and the float32
     bytes of frac, and its sketch and that selection must equal the plain
     versions' on a host copy of the pool (:func:`check_celf_on_host`).
-    Returns the records of :func:`celf_select_record` and
-    :func:`celf_records` at sketch_k 1,024 (``sketch_union_popcount``'s
-    launches those of the early exit's gate), and prints them at 16,384 on
-    a ``celf_kernels_16384:`` line."""
+    Returns the record of :func:`celf_select_record` at sketch_k 1,024 and
+    the early exit's launches, and prints the :func:`celf_records` (the
+    kernels no selection here launches, held to their plain versions at
+    this pool) on ``celf_kernels_1024:`` and ``celf_kernels_16384:``
+    lines."""
     dev = g.device
     qst = queue_res.stats
     out, gate_launches = [], None
@@ -2596,20 +2679,17 @@ def celf_phase(g, queue_res, queue_store) -> list:
             if st.early_exit_skips == 0:
                 say("celf_early_exit_note", "no LB iteration was skipped")
         elif sketch_k == 1024:
-            out = [celf_select_record(store, launches)] + celf_records(
-                store, res.seeds.tolist(), launches)
+            out = [celf_select_record(store, launches)]
+            say("celf_kernels_1024", celf_records(store, res.seeds.tolist(),
+                                                  None))
         else:
             say("celf_kernels_16384", [celf_select_record(store, launches)]
-                + celf_records(store, res.seeds.tolist(), launches))
+                + celf_records(store, res.seeds.tolist(), None))
         if not early:
             say("celf_select_stamps", stamped_split("celf", store))
         del solver, store
         torch.cuda.empty_cache()
-    for rec in out:
-        if rec["name"] == "sketch_union_popcount":
-            rec["launches"] = gate_launches["sketch_union_popcount"]
-            rec["launches_from"] = "the early exit's gate (16,384 buckets)"
-    return out
+    return out, gate_launches
 
 
 def parent_padded_select(store, k: int) -> cov.CoverageResult:
@@ -2829,6 +2909,402 @@ def flash_phase(dev) -> list:
     return recs[:1]
 
 
+# phase 15: the problem variants on the stand-in
+VARIANT_BUDGET = 100.0
+VARIANT_SELECTIONS = ("flat", "bitset", "celf")
+# kernels that more than one path launches: their records count each
+# path's launches (``launches_from``)
+SHARED_PATH_KERNELS = ("celf_eval", "celf_apply", "sketch_union_popcount",
+                       "popcount_words")
+VARIANT_CELF_SKETCH_K = 1024
+CHI2_P_MIN = 1e-3
+
+
+def variant_inputs(n: int) -> dict:
+    """Phase 15's operands over the stand-in's n nodes: weights v mod 7
+    (a seventh of the nodes never draws a root), the candidates v with v
+    mod 3 == 0, and costs 1 + (v mod 5)."""
+    v = np.arange(n)
+    return {"weights": (v % 7).astype(np.float32),
+            "candidates": v[v % 3 == 0],
+            "costs": (1 + v % 5).astype(np.float32)}
+
+
+def variant_solve(g, problem, *, engine="queue", selection="auto",
+                  keep_roots=False) -> dict:
+    """One solve of ``problem`` on the stand-in: its stages timed, launches
+    counted from just before it to just after; with ``keep_roots`` every
+    batch's roots kept on the card."""
+    solver = IMMSolver(g, engine=engine, batch=BATCH, selection=selection,
+                       sketch_k=VARIANT_CELF_SKETCH_K if selection == "celf"
+                       else None, seed=0, device=g.device)
+    solver.prepare(problem)
+    kept = []
+    if keep_roots:
+        inner = solver.engine.sample
+
+        def sample(seed32):
+            batch = inner(seed32)
+            kept.append(batch.roots)
+            return batch
+
+        solver.engine.sample = sample
+    clock = StageClock()
+    clock.wrap(solver.engine, "sample", "sampling")
+    clock.wrap(solver.store, "append_batch", "append")
+    clock.wrap(solver.store, "select", "selection")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solver.solve(problem)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    return {"res": res, "solver": solver, "solve_s": solve_s,
+            "stage_s": dict(clock.seconds), "stage_calls": dict(clock.calls),
+            "launches": launches,
+            "peak": torch.cuda.max_memory_allocated(),
+            "roots": torch.cat(kept) if kept else None}
+
+
+def solve_fields(run: dict) -> dict:
+    """What two solves of one problem (:func:`variant_solve`'s) must
+    share."""
+    res, store = run["res"], run["solver"].store
+    st = res.stats
+    return {"theta": st.theta, "lb": st.lb, "lb_iters": st.lb_iters,
+            "rounds": st.rounds, "n_rr": store.n_rr,
+            "elements": store.n_elems, "seeds": [int(x) for x in res.seeds],
+            "gains": [int(x) for x in res.gains],
+            "frac_f32": np.float32(res.frac).tobytes().hex(),
+            "spread": res.spread, "cost": res.cost,
+            "variant": st.variant, "budget_spent": st.budget_spent}
+
+
+def run_line(run: dict) -> dict:
+    """A solve's line: its fields (the first ten seeds), stage times and
+    the kernels it launched."""
+    f = solve_fields(run)
+    return dict(f, seeds=f["seeds"][:10], gains=f["gains"][:10],
+                n_seeds=len(f["seeds"]), solve_s=run["solve_s"],
+                stage_s=run["stage_s"], stage_calls=run["stage_calls"],
+                max_memory_allocated=run["peak"],
+                launches={k: v for k, v in run["launches"].items() if v})
+
+
+def variant_kwargs(store, spec) -> dict:
+    """greedy_flat_variant's keywords for the store's pool and ``spec``:
+    the operands ``select_variant`` passes."""
+    cand, costs, budget = cov._spec_operands(store, spec)
+    return dict(n=store.n_nodes, num_rows=store.row_capacity(),
+                k=spec.k_steps, cand=cand, costs=costs, budget=float(budget),
+                n_group=spec.n_group, n_groups=spec.n_groups,
+                group_quota=spec.group_quota)
+
+
+def greedy_variant_bound(flat, ids, valid, seeds, *, n, num_rows, k,
+                         use_costs, blocks, shared) -> dict:
+    """The variant greedy's least time, as :func:`greedy_bound` counts the
+    plain one, over the ``steps`` it runs (the picks, and below k the step
+    that found none): bytes also read each node's candidate byte (and its
+    cost, 4 bytes) once and write spent.  Operations, per step and node:
+    one test of its blocked bit (the candidate mask, the picks and the
+    spent groups folded into one bit) and one compare of its key on the
+    ALU, and with costs one float32 compare of its cost with the budget
+    left; plus a decrement a valid element of each covered row.  With
+    costs a score changes only where Occur does, so its conversion (XU)
+    and divide (float32) are counted for the n first scores and the
+    decremented elements.  The working set is :func:`greedy_bound`'s over
+    the picks, with 24-byte records a block a step run."""
+    live = seeds[seeds < n]
+    steps = min(k, live.numel() + 1)
+    base = greedy_bound(flat, ids, valid, live, n=n, num_rows=num_rows,
+                        k=max(live.numel(), 1), blocks=blocks, shared=shared)
+    exchanges = 24 * steps * blocks * (blocks + 1)
+    working = base["working_bytes"] - base["working_exchange_bytes"] \
+        + exchanges
+    base.update(working_bytes=working,
+                working_bytes_ms=working / HBM_BYTES_S * 1e3,
+                working_exchange_bytes=exchanges)
+    t = flat.shape[0]
+    nbytes = 9 * t + 8 * k + 4 + n * (5 if use_costs else 1)
+    dec = base["decremented_elements"]
+    ops_ = {"alu": 2 * steps * n + dec}
+    if use_costs:
+        ops_.update(fp32=steps * n + n + dec, xu=n + dec)
+    return dict(base, **_bound(nbytes, ops_), steps_run=steps,
+                picks=int(live.numel()))
+
+
+def greedy_variant_record(name, store, spec, launches, iters=20,
+                          plain_iters=2) -> dict:
+    """greedy_flat_variant on the store's pool and ``spec`` against its
+    plain version on the card (seeds, gains and the float32 bytes of
+    spent), then timed beside it, with the bound and the barrier floor:
+    the same grid running the launch's grid barriers (three in the
+    prologue and one a step run) alone."""
+    args, _ = pool_args(store)
+    kw = variant_kwargs(store, spec)
+    got = ops.greedy_flat_variant(*args, **kw)
+    want = ref.greedy_flat_variant_ref(*args, **kw)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(x.view(torch.int32) if x.dtype == torch.float32
+                          else x, y.view(torch.int32)
+                          if y.dtype == torch.float32 else y)
+              for x, y in zip(got, want))
+    if err or not all(x.dtype == y.dtype and torch.equal(x, y)
+                      for x, y in zip(got, want)):
+        raise AssertionError(f"greedy_flat_variant != plain version at "
+                             f"{store.n_rr} rows ({name}): max abs err {err}")
+    dev = store.flat.device
+    times = timing("greedy_flat_variant",
+                   lambda: ops.greedy_flat_variant(*args, **kw), iters)
+    plain_ms = cuda_ms(lambda: ref.greedy_flat_variant_ref(*args, **kw),
+                       plain_iters)
+    blocks, shared_bytes = greedy.flat_grid(dev)
+    lay = greedy.flat_layout(kw["n"], kw["num_rows"], blocks, shared_bytes,
+                             kw["n_group"], kw["n_groups"])
+    bound = greedy_variant_bound(*args, got[0], n=kw["n"],
+                                 num_rows=kw["num_rows"], k=kw["k"],
+                                 use_costs=kw["costs"] is not None,
+                                 blocks=blocks, shared=lay.shared)
+    barriers = 3 + bound["steps_run"]
+    floor_ms = cuda_ms(lambda: greedy.grid_barriers(barriers, dev), iters)
+    return record(name, launches, err, times, plain_ms, bound,
+                  barrier_floor_ms=floor_ms, grid_barriers=barriers,
+                  grid_blocks=blocks, threads=greedy.THREADS,
+                  state="shared memory" if lay.shared else "scratch",
+                  slice_nodes=lay.slots, covered_words=lay.cov_words,
+                  n=kw["n"], k=kw["k"], n_rr=store.n_rr,
+                  pool_elements=store.n_elems, num_rows=kw["num_rows"],
+                  gains_sum=int(got[1].sum()), spent=float(got[2]),
+                  budget=kw["budget"] if kw["costs"] is not None else None)
+
+
+def weighted_queue_record(g_rev, table, launches, iters=20,
+                          plain_iters=1) -> dict:
+    """The queue kernel with the weighted solve's alias table at its first
+    round (B = 512, qcap = n): byte for byte against the plain version
+    with the table, then timed beside it, with :func:`queue_bound`'s bound
+    plus the table's reads (8 bytes a lane) and the one-SM bound."""
+    seed32, qcap = round_seed(0, 0), g_rev.n_nodes
+    args = (g_rev.offsets, g_rev.indices, g_rev.weights, seed32, BATCH)
+
+    def kern():
+        return ops.queue_bfs(*args, qcap=qcap, ec=EC_DEFAULT, table=table)
+
+    got = kern()
+    want = ref.queue_round_ref(*args, qcap=qcap, ec=EC_DEFAULT, table=table)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(x, y) for x, y in zip(got, want))
+    if err or not all(x.dtype == y.dtype and torch.equal(x, y)
+                      for x, y in zip(got, want)):
+        raise AssertionError(f"queue_bfs with a table != plain version: max "
+                             f"abs err {err}")
+    times = timing("queue_bfs", kern, iters)
+    plain_ms = cuda_ms(lambda: ref.queue_round_ref(
+        *args, qcap=qcap, ec=EC_DEFAULT, table=table), plain_iters)
+    bound, work = queue_bound(g_rev, got[0], got[1])
+    bound = dict(bound, **_bound(
+        bound["bound_bytes_ms"] * HBM_BYTES_S / 1e3 + 8 * BATCH,
+        {k: v * work["examined_edges"] for k, v in TRIAL_WORK_OPS.items()}))
+    return record("queue_bfs[weighted]", launches, err, times, plain_ms,
+                  bound, **one_sm_bound(work["longest_lane_edges"]),
+                  shape=[BATCH, qcap], ec=EC_DEFAULT, **work)
+
+
+def masked_sketch_bound(n: int, cols: int, k: int, steps: int,
+                        candidates: int) -> dict:
+    """The masked sketch greedy's least time: only a candidate can be
+    picked, and the cover is the OR of picked rows, so the work is
+    :func:`sketch_greedy_bound`'s over the ``candidates`` rows alone (read
+    once; an OR, an add and a popcount a word and a compare a row a step),
+    plus the mask's n bytes read once.  The sweeps are the design's, over
+    all n rows."""
+    words = candidates * cols
+    return dict(sketch_greedy_bound(n, cols, k, steps), **_bound(
+        4 * words + 4 * (2 * k + 1) + n,
+        {"alu": steps * (2 * words + candidates), "xu": steps * words}),
+        bound_rows=candidates)
+
+
+def masked_sketch_record(words, n: int, cand, launches, iters=20,
+                         plain_iters=1) -> dict:
+    """greedy_sketch with the candidate mask on ``words`` against its plain
+    version on the card (seeds, gains, steps), then timed beside it, with
+    :func:`masked_sketch_bound` and the barrier floor."""
+    got = ops.greedy_sketch(words, n=n, k=K, cand=cand)
+    want = ref.greedy_sketch_ref(words, n=n, k=K, cand=cand)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(x, y) for x, y in zip(got, want))
+    if err or not all(x.dtype == y.dtype and torch.equal(x, y)
+                      for x, y in zip(got, want)):
+        raise AssertionError(f"masked greedy_sketch != plain version at "
+                             f"{tuple(words.shape)}: max abs err {err}")
+    dev = words.device
+    steps = int(got[2])
+    barriers = greedy.sketch_barriers(steps, K)
+    times = timing("greedy_sketch",
+                   lambda: ops.greedy_sketch(words, n=n, k=K, cand=cand),
+                   iters)
+    plain_ms = cuda_ms(lambda: ref.greedy_sketch_ref(words, n=n, k=K,
+                                                     cand=cand), plain_iters)
+    floor_ms = cuda_ms(lambda: greedy.grid_barriers(barriers, dev), iters)
+    cols = words.shape[1]
+    bound = masked_sketch_bound(n, cols, K, steps, int(cand.sum()))
+    blocks, shared_words = greedy.sketch_grid(dev)
+    lay = greedy.sketch_layout(cols, words.data_ptr() % 16 == 0, n=n,
+                               blocks=blocks, shared_words=shared_words)
+    return record("greedy_sketch[candidates]", launches, err, times,
+                  plain_ms, bound, barrier_floor_ms=floor_ms,
+                  grid_barriers=barriers, grid_blocks=blocks,
+                  form=lay.form, rows_a_thread=lay.rows, lanes=lay.lanes,
+                  shape=list(words.shape), n=n, k=K, steps=steps,
+                  candidates=int(cand.sum()), gains_sum=int(got[1].sum()))
+
+
+def variants_phase(g) -> tuple:
+    """The problem variants on the stand-in (:func:`variant_inputs`), each
+    solve at batch 512 and eps 0.5 with its launches counted from just
+    before it to just after:
+
+    * weighted, k = 50, on the queue and the dense engine: no root of the
+      pool has weight 0, the roots' classes v mod 7 follow the weights (a
+      χ² test, p > :data:`CHI2_P_MIN`), the RIS spread lies within
+      :data:`MC_TOL` of a weighted forward Monte-Carlo spread, and the two
+      engines' solves are equal in every field;
+    * candidates, k = 50, and budgeted (budget :data:`VARIANT_BUDGET`),
+      each with ``flat``, ``bitset`` and ``celf``: equal in every field,
+      the seeds inside the candidates, the cost within the budget; ``flat``
+      one ``greedy_flat_variant`` a selection, ``celf`` the CELF kernels;
+    * approximate with the candidates (``max_theta`` as phase 4): one
+      masked ``greedy_sketch`` a selection, the seeds inside the set.
+
+    Returns the records of ``queue_bfs`` with the table,
+    ``greedy_flat_variant`` with and without costs, the masked
+    ``greedy_sketch`` and (:func:`celf_records`, ``spec`` given) the CELF
+    kernels and the sweep at the budgeted CELF solve's pool, cover and
+    padded batch, and the CELF variant solves' launches by path."""
+    from scipy import stats
+    dev = g.device
+    n = g.n_nodes
+    inp = variant_inputs(n)
+    w, cand = inp["weights"], inp["candidates"]
+    # weighted roots
+    prob = IMProblem(k=K, eps=EPS, node_weights=w)
+    runs = {"queue": variant_solve(g, prob, keep_roots=True),
+            "dense": variant_solve(g, prob, engine="dense")}
+    q = runs["queue"]
+    roots = q["roots"].to(torch.int64)
+    w_dev = torch.from_numpy(w).to(dev)
+    zero_roots = int((w_dev[roots] == 0).sum())
+    counts = torch.bincount(roots % 7, minlength=7).cpu().numpy()
+    class_w = np.array([w[np.arange(n) % 7 == c].sum(dtype=np.float64)
+                        for c in range(7)])
+    expect = class_w[1:] / class_w.sum() * counts.sum()
+    p_value = float(stats.chisquare(counts[1:], expect).pvalue)
+    t0 = time.perf_counter()
+    mc = forward.ic_spread(g, q["res"].seeds, n_sims=MC_SIMS, seed=0,
+                           node_weights=w)
+    mc_s = time.perf_counter() - t0
+    rel = abs(q["res"].spread - mc) / mc
+    same = solve_fields(runs["queue"]) == solve_fields(runs["dense"])
+    say("variant_weighted", {
+        "queue": run_line(runs["queue"]), "dense": run_line(runs["dense"]),
+        "weight_sum": float(w.sum(dtype=np.float64)),
+        "pool_roots": int(roots.numel()), "zero_weight_roots": zero_roots,
+        "class_counts": counts.tolist(),
+        "class_expected": [0.0] + expect.tolist(), "chi2_p": p_value,
+        "mc_spread": mc, "mc_sims": MC_SIMS, "mc_s": mc_s, "rel_err": rel,
+        "tol": MC_TOL, "dense_equals_queue": same})
+    if zero_roots or counts[0] or p_value <= CHI2_P_MIN:
+        raise AssertionError(f"weighted roots: {zero_roots} of weight 0, "
+                             f"class counts {counts}, chi2 p {p_value}")
+    if not rel < MC_TOL:
+        raise AssertionError(f"weighted RIS {q['res'].spread} vs MC {mc}: "
+                             f"{rel:.3f} >= {MC_TOL}")
+    if not same:
+        raise AssertionError(f"weighted dense solve != queue solve: "
+                             f"{solve_fields(runs['dense'])} vs "
+                             f"{solve_fields(runs['queue'])}")
+    for run in runs.values():
+        if run["res"].spread > float(w.sum(dtype=np.float64)):
+            raise AssertionError("weighted spread above the weights' sum")
+    if q["launches"]["queue_bfs"] != q["res"].stats.rounds:
+        raise AssertionError(f"{q['res'].stats.rounds} weighted rounds made "
+                             f"{q['launches']['queue_bfs']} queue launches")
+    records = [weighted_queue_record(
+        q["solver"].engine.g_rev, q["solver"].engine.table,
+        {"queue_bfs[weighted]": q["launches"]["queue_bfs"]})]
+    # candidates and the budget, on each selection
+    celf_launches, celf_recs = {}, []
+    problems = {"candidates": IMProblem(k=K, eps=EPS, candidates=cand),
+                "budgeted": IMProblem(eps=EPS, costs=inp["costs"],
+                                      budget=VARIANT_BUDGET)}
+    for label, problem in problems.items():
+        runs = {sel: variant_solve(g, problem, selection=sel)
+                for sel in VARIANT_SELECTIONS}
+        fields = {sel: solve_fields(run) for sel, run in runs.items()}
+        first = fields["flat"]
+        seeds = np.asarray(first["seeds"])
+        say(f"variant_{label}", {sel: run_line(run)
+                                 for sel, run in runs.items()})
+        if any(f != first for f in fields.values()):
+            raise AssertionError(f"{label} solves differ: {fields}")
+        if label == "candidates" and not (np.isin(seeds, cand).all()
+                                          and len(seeds) == K):
+            raise AssertionError(f"candidate solve picked {seeds}")
+        if label == "budgeted" and not (
+                0 < first["cost"] <= VARIANT_BUDGET
+                and first["cost"] == float(np.float32(
+                    inp["costs"][seeds].sum()))):
+            raise AssertionError(f"budgeted solve: cost {first['cost']}")
+        flat, bit, celf = (runs[s]["launches"] for s in VARIANT_SELECTIONS)
+        sel_calls = runs["flat"]["stage_calls"]["selection"]
+        if flat["greedy_flat_variant"] != sel_calls or flat["greedy_flat"] \
+                or not (bit["occur_from_bitset"]
+                        and bit["occur_from_bitset_masked"]) \
+                or bit["greedy_flat_variant"] or celf["celf_select"] \
+                or not all(celf[k] for k in ("celf_eval", "celf_apply",
+                                             "sketch_union_popcount")):
+            raise AssertionError(f"{label} launches: flat {flat}, bitset "
+                                 f"{bit}, celf {celf}")
+        celf_launches[f"phase 15's {label} CELF solve"] = celf
+        spec = IMMSolver._selection_spec(problem.resolve(n))
+        if label == "budgeted":
+            celf_recs = celf_records(runs["celf"]["solver"].store,
+                                     [int(x) for x in runs["celf"]["res"]
+                                      .seeds], None, spec=spec)
+        store = runs["flat"]["solver"].store
+        name = ("greedy_flat_variant[costs]" if label == "budgeted"
+                else "greedy_flat_variant[candidates]")
+        records.append(greedy_variant_record(
+            name, store, spec, {name: flat["greedy_flat_variant"]}))
+        del runs, store
+        torch.cuda.empty_cache()
+    # approximate with the candidates
+    aprob = IMProblem(k=K, eps=EPS, mode="approximate",
+                      max_theta=APPROX_MAX_THETA, candidates=cand)
+    a = variant_solve(g, aprob)
+    a_seeds = np.asarray(a["res"].seeds)
+    say("variant_approximate_candidates", dict(
+        run_line(a), spread_bounds=list(a["res"].spread_bounds),
+        sketch_k=a["solver"].store.sketch_k))
+    calls = a["stage_calls"]["selection"]
+    if a["launches"]["greedy_sketch"] != calls or calls == 0 \
+            or not np.isin(a_seeds, cand).all() or len(a_seeds) != K:
+        raise AssertionError(f"approximate candidate solve: {calls} "
+                             f"selections, launches {a['launches']}, seeds "
+                             f"{a_seeds}")
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    mask[torch.from_numpy(cand).to(dev)] = True
+    records.append(masked_sketch_record(
+        a["solver"].store.words, n, mask,
+        {"greedy_sketch[candidates]": a["launches"]["greedy_sketch"]}))
+    return records + celf_recs, celf_launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -3029,7 +3505,7 @@ def main() -> int:
     greedy_recs = default_solve_phase(g, res, store)
 
     # 14. the same solve with CELF and with the θ early exit
-    celf_recs = celf_phase(g, res, store)
+    celf_recs, gate_launches = celf_phase(g, res, store)
     # sketch_union_popcount's record is the CELF path's; the approximate
     # sketch's (no path launches it there) stays on a line of its own
     union_approx = [r for r in approx_records
@@ -3037,10 +3513,25 @@ def main() -> int:
     say("sketch_union_popcount_approximate", union_approx)
     approx_records = [r for r in approx_records if r not in union_approx]
 
+    # 15. the problem variants: weighted roots, candidates, the budget
+    variant_recs, celf_variant_launches = variants_phase(g)
+    # the kernels that several paths launch: their launches by path
+    paths = {"phase 5's exact solve": launches,
+             "phase 10's packed sampler": {r["name"]: r["launches"] or 0
+                                           for r in dense_recs},
+             "phase 14's early exit gate (16,384 buckets)": gate_launches,
+             **celf_variant_launches}
+    kernels = records + approx_records + dense_recs + padded_recs \
+        + flash_recs + queue_recs + greedy_recs + celf_recs + variant_recs
+    for rec in kernels:
+        if rec["name"] in SHARED_PATH_KERNELS:
+            rec["launches_from"] = {path: counts.get(rec["name"], 0)
+                                    for path, counts in paths.items()
+                                    if counts.get(rec["name"], 0)}
+            rec["launches"] = sum(rec["launches_from"].values())
+
     say("total", {"seconds": time.perf_counter() - t_start})
-    print(json.dumps({"kernels": records + approx_records + dense_recs
-                      + padded_recs + flash_recs + queue_recs
-                      + greedy_recs + celf_recs}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

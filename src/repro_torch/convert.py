@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.core.coverage import PaddedStore
 from repro_torch.core.engine import RRBatch
+from repro_torch.core.roots import AliasTable
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import CSRGraph, _from_numpy
 
@@ -37,6 +38,24 @@ def batch_from_arrays(nodes, lengths, overflowed, steps, roots=None,
     return RRBatch(nodes=put(nodes, np.int32), lengths=put(lengths, np.int32),
                    overflowed=put(overflowed, np.bool_), steps=int(steps),
                    roots=None if roots is None else put(roots, np.int32))
+
+
+def alias_table_from_arrays(prob, alias, device="cuda") -> AliasTable:
+    """A port alias table with the reference's ``AliasTable`` arrays: (n,)
+    float32 ``prob`` in [0, 1] and (n,) int32 ``alias`` in [0, n)."""
+    prob = np.asarray(prob)
+    alias = np.asarray(alias)
+    n = prob.shape[0] if prob.ndim == 1 else -1
+    if prob.ndim != 1 or alias.shape != prob.shape or n < 1:
+        raise ValueError(f"an alias table wants (n,) prob and alias, got "
+                         f"{prob.shape} and {alias.shape}")
+    if not ((prob >= 0) & (prob <= 1)).all() or \
+            alias.min() < 0 or alias.max() >= n:
+        raise ValueError(f"prob must lie in [0, 1] and alias in [0, {n})")
+    dev = resolve_device(device)
+    return AliasTable(
+        prob=torch.from_numpy(prob.astype(np.float32)).to(dev),
+        alias=torch.from_numpy(alias.astype(np.int32)).to(dev))
 
 
 def sketch_words_from_arrays(words, device="cuda") -> torch.Tensor:

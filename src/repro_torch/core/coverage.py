@@ -39,6 +39,14 @@ own greedy, :func:`select_seeds_padded`: all k steps, the membership scans
 and the Occur updates, are one launch of the ``padded_greedy`` CUDA
 kernel (``kernels.ops.padded_greedy``; the plain loop on the CPU).
 
+The problem variants (candidates, costs and a budget, group quotas: a
+:class:`SelectionSpec`) run :func:`select_variant`, the reference's
+generalised scan: ``flat`` is one launch of the ``greedy_flat_variant``
+CUDA kernel (``kernels.ops.greedy_flat_variant``), ``bitset`` the same
+device loop as the plain one with the feasibility and score on the card,
+and ``celf`` (:func:`select_seeds_celf` with ``spec``) the reference's
+host loop of sweeps, exact evaluations and commits.
+
 All these scans take ties to the lowest node id (``torch.argmax`` and
 ``np.argmax`` return the first maximum; the bit matrix's padding ids past
 n have Occur 0) and give seeds, gains and ``frac`` identical to each other
@@ -62,6 +70,7 @@ import numpy as np
 
 from repro_torch.core import sketch as sketch_mod
 from repro_torch.core.packing import bit_values, rank_positions
+from repro_torch.core.variant import VariantScan
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 
@@ -260,14 +269,20 @@ class DeviceRRStore(_FoldedSketch):
         return self._bitset
 
     def select(self, k: int, method: str = "auto",
-               eval_batch: int | None = None) -> CoverageResult:
+               spec: "SelectionSpec | None" = None,
+               eval_batch: int | None = None):
         """Greedy selection: ``method`` is ``"flat"``, ``"bitset"``,
         ``"auto"`` (:func:`select_seeds_device`) or ``"celf"`` /
         ``"celf-sketch"`` (:func:`select_seeds_celf`, ``eval_batch``
-        candidates an exact evaluation; its default when None)."""
+        candidates an exact evaluation; its default when None).  A
+        ``spec`` runs the variant greedy (:func:`select_variant`, or the
+        CELF variant) and returns a :class:`VariantResult`."""
         if method in ("celf", "celf-sketch"):
             return select_seeds_celf(
-                self, k, eval_batch=32 if eval_batch is None else eval_batch)
+                self, k, spec=spec,
+                eval_batch=32 if eval_batch is None else eval_batch)
+        if spec is not None:
+            return select_variant(self, spec, method=method)
         return select_seeds_device(self, k, method=method)
 
 
@@ -337,9 +352,137 @@ def select_seeds_device(store: DeviceRRStore, k: int,
     raise ValueError(f"unknown selection method {method!r}")
 
 
+class SelectionSpec(NamedTuple):
+    """The knobs of the problem variants' greedy (host side, numpy).
+
+    ``n_group``/``n_groups``/``group_quota`` split the item space into
+    groups of ``n_group`` ids, each of which gives at most
+    ``group_quota`` seeds (one group of quota ``k_steps`` for the plain
+    variants).  ``cand`` masks the argmax to a candidate set;
+    ``costs`` + ``budget`` make it the cost-ratio greedy among affordable
+    nodes.  ``weighted`` (the row-weighted store's estimator) is not ported:
+    ROADMAP Queue 1 item 7.
+    """
+    k_steps: int                       # scan length / most seeds
+    n_group: int                       # group width over the item space
+    n_groups: int = 1
+    group_quota: int = 1
+    cand: object = None                # (n_items,) bool or None
+    costs: object = None               # (n_items,) float32 or None
+    budget: object = None              # float or None
+    weighted: bool = False
+
+
+class VariantResult(NamedTuple):
+    """:class:`CoverageResult` and the budget spent.  The ``flat`` and
+    ``bitset`` scans give ``k_steps`` seeds, the sentinel ``n`` (gain 0) at
+    the steps with no feasible node; the CELF variant stops there.  Callers
+    trim the sentinels."""
+    seeds: torch.Tensor   # int32
+    gains: torch.Tensor   # int32 — newly covered RR sets per seed
+    frac: torch.Tensor    # () float32 — covered fraction
+    spent: torch.Tensor   # () float32 — the picked seeds' total cost
+
+
+def _check_spec(store: DeviceRRStore, spec: SelectionSpec) -> None:
+    if spec.weighted:
+        raise NotImplementedError(
+            "weighted selection (the row-weighted store) is not ported yet: "
+            "ROADMAP Queue 1 item 7 (row-weighted store)")
+    n = store.n_nodes
+    if spec.n_group < 1 or spec.n_groups < 1 or \
+            spec.n_group * spec.n_groups < n:
+        raise ValueError(f"groups of {spec.n_group} ids x {spec.n_groups} "
+                         f"must cover the {n} items")
+    if spec.k_steps < 1:
+        raise ValueError("k_steps must be >= 1")
+    for name in ("cand", "costs"):
+        a = getattr(spec, name)
+        if a is not None and np.shape(a) != (n,):
+            raise ValueError(f"spec.{name} must have shape ({n},), got "
+                             f"{np.shape(a)}")
+
+
+def _spec_operands(store: DeviceRRStore, spec: SelectionSpec):
+    """(cand (n,) bool, costs (n,) float32 or None without a budget,
+    budget float32) of a spec; the arrays on the store's device."""
+    n = store.n_nodes
+    cand = torch.from_numpy(
+        np.ones(n, bool) if spec.cand is None
+        else np.asarray(spec.cand, bool).copy()).to(store.device)
+    if spec.budget is None:
+        return cand, None, np.float32(np.inf)
+    costs = torch.from_numpy(
+        np.ones(n, np.float32) if spec.costs is None
+        else np.asarray(spec.costs, np.float32).copy()).to(store.device)
+    return cand, costs, np.float32(spec.budget)
+
+
+def _select_flat_variant(store: DeviceRRStore,
+                         spec: SelectionSpec) -> VariantResult:
+    t = store.n_elems
+    cand, costs, budget = _spec_operands(store, spec)
+    seeds, gains, spent = kops.greedy_flat_variant(
+        store.flat[:t], store.ids[:t], store.valid[:t], n=store.n_nodes,
+        num_rows=store.row_capacity(), k=spec.k_steps, cand=cand,
+        costs=costs, budget=float(budget), n_group=spec.n_group,
+        n_groups=spec.n_groups, group_quota=spec.group_quota)
+    return VariantResult(seeds=seeds, gains=gains,
+                         frac=_frac(gains, store.n_rr), spent=spent)
+
+
+def _select_bitset_variant(store: DeviceRRStore,
+                           spec: SelectionSpec) -> VariantResult:
+    """The reference's ``bitset_variant``: :func:`_select_bitset`'s device
+    loop with the plain scan's step (:class:`VariantScan`: the feasibility
+    and score on the card, the first maximum by ``torch.argmax`` and the
+    sentinel n at a step with no feasible node); no host read a step."""
+    m = store.bitset_matrix()
+    n = store.n_nodes
+    cand, costs, budget = _spec_operands(store, spec)
+    scan = VariantScan(n, cand, costs, float(budget), spec.n_group,
+                       spec.n_groups, spec.group_quota)
+    occur = kops.occur_from_bitset(m)[:n]
+    covered = torch.zeros(m.shape[0], dtype=torch.bool, device=m.device)
+    last_word = m.shape[1] - 1
+    seeds, gains = [], []
+    for _ in range(spec.k_steps):
+        u, ok = scan.pick(occur)
+        col = m.index_select(1, (u >> 5).clamp(max=last_word).view(1))[:, 0]
+        hit = ((col >> (u & 31)) & 1) != 0
+        newly = hit & ~covered & (u < n)
+        occur = occur - kops.occur_from_bitset_masked(m, newly)[:n]
+        gains.append(newly.sum())
+        covered = covered | newly
+        scan.commit(u, ok)
+        seeds.append(u)
+    gains = torch.stack(gains).to(torch.int32)
+    return VariantResult(seeds=torch.stack(seeds).to(torch.int32),
+                         gains=gains, frac=_frac(gains, store.n_rr),
+                         spent=scan.spent)
+
+
+def select_variant(store: DeviceRRStore, spec: SelectionSpec,
+                   method: str = "flat") -> VariantResult:
+    """The problem variants' greedy (candidates, a budget, group quotas;
+    the reference's ``select_variant``): ``"flat"`` (and ``"auto"``, as in
+    the reference) is one ``kops.greedy_flat_variant`` call, ``"bitset"``
+    :func:`_select_bitset_variant`.  Both give the reference's seeds,
+    gains, ``frac`` and ``spent`` bytes on the same pool."""
+    _check_spec(store, spec)
+    if method == "auto":
+        method = "flat"
+    if method == "flat":
+        return _select_flat_variant(store, spec)
+    if method == "bitset":
+        return _select_bitset_variant(store, spec)
+    raise ValueError(f"unknown selection method {method!r}")
+
+
 def select_seeds_celf(store: DeviceRRStore, k: int, *, eval_batch: int = 32,
-                      use_sketch: bool = True, spec=None,
-                      stats_out: dict | None = None) -> CoverageResult:
+                      use_sketch: bool = True,
+                      spec: SelectionSpec | None = None,
+                      stats_out: dict | None = None):
     """CELF lazy greedy with sketch-first candidate ordering: the
     reference's ``select_seeds_celf`` on one device, seed for seed.
 
@@ -355,12 +498,12 @@ def select_seeds_celf(store: DeviceRRStore, k: int, *, eval_batch: int = 32,
     The seeds, gains and ``frac`` equal the ``flat`` scan's for any sketch
     size; ``stats_out`` gets ``n_exact_evals``, ``n_eval_calls``,
     ``sketch_k`` (0 without the sketch) and ``n_rr``, as the reference's.
-    ``spec`` (the problem variants) is not ported yet.
+    A ``spec`` runs the variant loop instead (:func:`_celf_variant`) and
+    returns a :class:`VariantResult`.
     """
     if spec is not None:
-        raise NotImplementedError(
-            "select_seeds_celf(spec=...) is not ported yet: ROADMAP Queue 1 "
-            "item 7 (problem variants)")
+        return _celf_variant(store, spec, eval_batch=eval_batch,
+                             use_sketch=use_sketch, stats_out=stats_out)
     n = store.n_nodes
     t = store.n_elems
     sk_words = store.sketch_words() if use_sketch else None
@@ -384,6 +527,137 @@ def select_seeds_celf(store: DeviceRRStore, k: int, *, eval_batch: int = 32,
                           frac=torch.full((), float(frac),
                                           dtype=torch.float32,
                                           device=seeds.device))
+
+
+def _celf_variant(store: DeviceRRStore, spec: SelectionSpec, *,
+                  eval_batch: int = 32, use_sketch: bool = True,
+                  stats_out: dict | None = None) -> VariantResult:
+    """CELF lazy greedy on a variant spec: the reference's ``_celf_variant``
+    (unweighted), a host loop that launches the port's kernels.
+
+    The host holds each node's upper bound (its exact Occur at first, then
+    its last exact gain), the candidate mask, the group quotas and, in
+    float32 as the reference keeps them, the costs, the budget and the
+    spent total.  A step with no feasible node ends the loop.  Otherwise
+    one sweep of the store's coverage sketch (``sketch_union_popcount``)
+    orders the first ``eval_batch`` exact evaluations (``celf_eval``, one
+    call a batch, read back), the lazy loop evaluates the highest stale
+    scores until the argmax of the scores (the bound, or bound / cost with
+    a budget, over the feasible nodes) is fresh, and that node's commit is
+    one ``celf_apply``.  The seeds are the ``flat`` variant's seeds with
+    its sentinels trimmed, and so are the gains and ``spent``."""
+    _check_spec(store, spec)
+    n = store.n_nodes
+    t = store.n_elems
+    flat, ids, valid = store.flat[:t], store.ids[:t], store.valid[:t]
+    dev = store.device
+    c = max(1, min(eval_batch, n))
+    use_costs = spec.budget is not None
+    costs = (np.asarray(spec.costs, np.float32) if spec.costs is not None
+             else np.ones(n, np.float32))
+    cand = (np.asarray(spec.cand, bool) if spec.cand is not None
+            else np.ones(n, bool))
+    group_of = np.arange(n) // spec.n_group
+    gbud = np.full(spec.n_groups, spec.group_quota, np.int64)
+    budget32 = np.float32(spec.budget) if use_costs else np.float32(np.inf)
+    spent32 = np.float32(0.0)
+    occur = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
+        0, flat.to(torch.int64), valid.to(torch.int32))[:n]
+    ub = occur.cpu().numpy().astype(np.float64)
+    denom = float(max(store.n_rr, 1))
+    fresh = np.zeros(n, bool)
+    cov_words = torch.zeros(store.row_capacity() // 32, dtype=torch.int32,
+                            device=dev)
+    if use_sketch:
+        sk_words = store.sketch_words()
+        sk_k = sk_words.shape[1] * 32
+        cov_sk = torch.zeros(sk_words.shape[1], dtype=torch.int32,
+                             device=dev)
+    n_evals = 0
+    n_eval_calls = 0
+    node_ids = np.arange(n)
+
+    def eval_exact(cands):
+        nonlocal n_evals, n_eval_calls
+        cands = np.asarray(cands, np.int32)
+        pad = np.full(c, -1, np.int32)
+        pad[:len(cands)] = cands
+        g = kops.celf_eval(flat, ids, valid, cov_words,
+                           torch.from_numpy(pad).to(dev)).cpu().numpy()
+        ub[cands] = g[:len(cands)]
+        fresh[cands] = True
+        n_evals += len(cands)
+        n_eval_calls += 1
+
+    def scores(feas):
+        if use_costs:
+            # the scan's float32 division: ub holds exact counts
+            return np.where(feas & (ub > 0),
+                            ub.astype(np.float32) / costs, -np.inf)
+        return np.where(feas, ub, -np.inf)
+
+    def top_stale(feas, sc, k_top):
+        """The highest-scoring stale feasible nodes, the lowest id first on
+        ties."""
+        idx = node_ids[~fresh & feas & (sc > -np.inf)]
+        order = np.lexsort((idx, -sc[idx]))
+        return idx[order[:k_top]]
+
+    seeds, gains = [], []
+    picked = np.zeros(n, bool)
+    for _ in range(spec.k_steps):
+        feas = cand & (gbud[group_of] > 0) & ~picked
+        if use_costs:
+            feas = feas & (costs <= budget32 - spent32)
+        if not feas.any():
+            break
+        fresh[:] = False
+        if use_sketch:
+            deltas = sketch_mod.union_gains(sk_words, cov_sk)[:n].cpu().numpy()
+            est = np.where(feas, deltas / costs if use_costs
+                           else deltas.astype(np.float64), -np.inf)
+            order = np.lexsort((node_ids, -est))
+            eval_exact(order[:c])
+        accepted = None
+        while True:
+            sc = scores(feas)
+            u = int(np.argmax(sc))       # the first maximum
+            if sc[u] == -np.inf:
+                # budgeted only: every affordable node left has gain 0,
+                # where the scan starts its sentinels
+                break
+            if fresh[u]:
+                accepted = u
+                break
+            eval_exact(top_stale(feas, sc, c))
+        if accepted is None:
+            break
+        u = accepted
+        gain = int(kops.celf_apply(flat, ids, valid, cov_words, u))
+        if use_sketch:
+            cov_sk = sketch_mod.union_row(cov_sk, sk_words, u)
+        ub[u] = 0.0
+        picked[u] = True
+        gbud[group_of[u]] -= 1
+        if use_costs:
+            spent32 = np.float32(spent32 + costs[u])
+        seeds.append(u)
+        gains.append(gain)
+
+    if stats_out is not None:
+        stats_out.update(n_exact_evals=n_evals, n_eval_calls=n_eval_calls,
+                         sketch_k=(sk_k if use_sketch else 0),
+                         n_rr=store.n_rr)
+    # float64 quotient rounded to float32, as the reference's host maths
+    frac = np.float32(float(np.asarray(gains, np.float64).sum()) / denom)
+
+    def put(a, dtype):
+        return torch.from_numpy(np.asarray(a, dtype)).to(dev)
+
+    return VariantResult(seeds=put(seeds, np.int32),
+                         gains=put(gains, np.int32),
+                         frac=put(frac, np.float32),
+                         spent=put(spent32, np.float32))
 
 
 class PaddedStore(NamedTuple):
@@ -544,26 +818,33 @@ class SketchRRStore(_FoldedSketch):
         store._nrr = int(np.sum(state["nrr_loc"]))
         return store
 
-    def select(self, k: int, info_out: dict | None = None) -> CoverageResult:
-        """Greedy on sketch estimates (:func:`select_seeds_sketch`)."""
-        return select_seeds_sketch(self, k, info_out=info_out)
+    def select(self, k: int, cand=None,
+               info_out: dict | None = None) -> CoverageResult:
+        """Greedy on sketch estimates (:func:`select_seeds_sketch`),
+        inside the candidate mask ``cand`` when one is given."""
+        return select_seeds_sketch(self, k, cand=cand, info_out=info_out)
 
 
-def select_seeds_sketch(store, k: int, *,
+def select_seeds_sketch(store, k: int, *, cand=None,
                         info_out: dict | None = None) -> CoverageResult:
     """Greedy selection on sketch estimates alone (the approximate mode).
 
     All k steps are one ``kernels.ops.greedy_sketch`` call (the CUDA kernel
     on the card, the plain version on the CPU).  Per seed: Δocc(v) =
     popcount(sketch_v | cov) − popcount(cov) for every node, the first
-    maximum among nodes not yet picked (the lowest id on ties, as the
+    maximum among nodes not yet picked and, given a candidate mask
+    ``cand`` (n,) bool, inside it (the lowest id on ties, as the
     reference's host argmax), and an OR of the seed's sketch row into the
     union ``cov``.  The greedy stops when no candidate is left; seeds are
     padded to k with the sentinel n and gain 0.  The host reads the summed
     gains and the store's fold flag back once, and the certificate
     (:func:`sketch_certificate`) is host arithmetic on that sum.
     """
-    seeds, gains, _ = kops.greedy_sketch(store.words, n=store.n_nodes, k=k)
+    n = store.n_nodes
+    if cand is not None:
+        cand = torch.from_numpy(
+            np.asarray(cand, bool)[:n].copy()).to(store.device)
+    seeds, gains, _ = kops.greedy_sketch(store.words, n=n, k=k, cand=cand)
     occ_union, bad = (int(x) for x in torch.stack(
         [gains.sum(dtype=torch.int64),
          store.fold_error[0].to(torch.int64)]).cpu())

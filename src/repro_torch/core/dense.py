@@ -14,8 +14,8 @@ Two samplers, each with the random-number rule of its reference function:
 * :func:`sample_rrsets_dense` / :func:`_dense_round` (the ``dense`` engine)
   keep the queue sampler's per-row contract (:mod:`.rrset`): row r's seed
   is ``counter_uniform_u32(seed32, r)``, its root comes from
-  ``draw_roots``, and edge e is live iff ``bernoulli_edges(w,
-  row_seeds)[r, e]``.  Each node enters the frontier once, so each edge is
+  ``draw_roots`` (∝ the node weights with an alias table), and edge e is
+  live iff ``bernoulli_edges(w, row_seeds)[r, e]``.  Each node enters the frontier once, so each edge is
   tried once and the trial need not depend on the level: one (B, m) trial
   launch per round serves every level.  On a coalesced graph the rows
   therefore hold, set for set, what ``QueueEngine.sample(seed32)`` gives
@@ -46,7 +46,7 @@ import torch
 
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.core.packing import pack_rows, pack_rows_device
-from repro_torch.core.roots import ROOT_COUNTER, draw_roots, row_seeds
+from repro_torch.core.roots import MAX_EDGES, draw_roots, row_seeds
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.bernoulli import MASK32
 
@@ -68,8 +68,8 @@ def _edge_src(g: CSRGraph) -> torch.Tensor:
 
 
 def _check_edges(g: CSRGraph) -> None:
-    if g.n_edges >= ROOT_COUNTER:
-        raise ValueError("the counter hash needs m < 2^32 - 1 edges")
+    if g.n_edges >= MAX_EDGES:
+        raise ValueError("the counter hash needs m < 2^32 - 2 edges")
 
 
 def _scatter_live(live: torch.Tensor, edge_dst: torch.Tensor,
@@ -105,26 +105,29 @@ def _sample_dense(edge_src, edge_dst, keep, roots, *, n: int):
 
 
 def sample_rrsets_dense(g_rev: CSRGraph, batch: int, seed32: int, *,
-                        edge_src=None) -> DenseSample:
+                        edge_src=None, table=None) -> DenseSample:
     """Sample one round of ``batch`` RR sets on the reverse CSR with round
-    seed ``seed32``, on ``g_rev``'s device.  Returns bool membership."""
+    seed ``seed32``, on ``g_rev``'s device, roots ∝ the weights of the
+    alias ``table`` when one is given.  Returns bool membership."""
     _check_edges(g_rev)
     n = g_rev.n_nodes
     if edge_src is None:
         edge_src = _edge_src(g_rev)
     seeds = row_seeds(seed32, batch, g_rev.device)
-    roots = draw_roots(seeds, n)
+    roots = draw_roots(seeds, n, table)
     keep = kops.bernoulli_edges(g_rev.weights, seeds)  # (B, m), every level
     membership, levels = _sample_dense(edge_src, g_rev.indices, keep, roots,
                                        n=n)
     return DenseSample(membership=membership, roots=roots, levels=levels)
 
 
-def _dense_round(g_rev: CSRGraph, edge_src, seed32: int, batch: int):
+def _dense_round(g_rev: CSRGraph, edge_src, seed32: int, batch: int,
+                 table=None):
     """One round of the ``dense`` engine: trials, BFS and the padded rows.
     Rows hold ascending node ids and are trimmed to the longest set.
     Returns (nodes, lengths, roots, overflowed, levels)."""
-    s = sample_rrsets_dense(g_rev, batch, seed32, edge_src=edge_src)
+    s = sample_rrsets_dense(g_rev, batch, seed32, edge_src=edge_src,
+                            table=table)
     width = max(int(s.membership.sum(dim=1).max()), 1)
     cols = torch.arange(g_rev.n_nodes, dtype=torch.int32, device=g_rev.device)
     nodes, lens = pack_rows_device(cols, s.membership, width)
@@ -212,10 +215,11 @@ def _sample_dense_packed(g_rev: CSRGraph, roots: torch.Tensor,
 
 
 def sample_rrsets_dense_packed(g_rev: CSRGraph, batch: int, seed32: int,
-                               base_seed: int = 0) -> PackedSample:
+                               base_seed: int = 0,
+                               table=None) -> PackedSample:
     """Sample ``batch`` RR sets with the packed sampler on ``g_rev``'s
-    device: roots from ``draw_roots(row_seeds(seed32, batch), n)``, edge
-    trials from ``base_seed`` as the reference draws them."""
+    device: roots from ``draw_roots(row_seeds(seed32, batch), n, table)``,
+    edge trials from ``base_seed`` as the reference draws them."""
     seeds = row_seeds(seed32, batch, g_rev.device)
-    return _sample_dense_packed(g_rev, draw_roots(seeds, g_rev.n_nodes),
-                                base_seed)
+    return _sample_dense_packed(
+        g_rev, draw_roots(seeds, g_rev.n_nodes, table), base_seed)

@@ -6,8 +6,10 @@ name and returns one :class:`RRBatch` from ``sample(seed32)``, where
 ``seed32`` is the 32-bit seed of the sampling round (the port draws from
 the counter hash, not from a key).  Both engines keep the per-row contract
 of :mod:`.rrset`, so for one ``seed32`` they give the same RR sets, row for
-row.  The other engines of the reference (refill, lt, mrim) wait for
-ROADMAP Queue 1 item 7.
+row.  With ``root_weights`` (weighted IM) both draw their roots ∝ the
+weights through one alias table (:func:`repro_torch.core.roots.draw_roots`)
+and still agree row for row.  The other engines of the reference (refill,
+lt, mrim) wait for ROADMAP Queue 1 item 7.
 :class:`FusedSketchEngine` marks an engine as feeding the pool-free store of
 the approximate mode.
 """
@@ -17,11 +19,13 @@ import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.graph.csr import CSRGraph, coalesce_ic
 from repro_torch.core import dense as rr_dense
 from repro_torch.core import rrset as rr_queue
+from repro_torch.core.roots import build_alias_table
 
 
 class RRBatch(NamedTuple):
@@ -92,15 +96,25 @@ def list_engines() -> list[str]:
     return sorted(_ENGINES)
 
 
-def make_engine(name: str, g_rev: CSRGraph, **opts):
+def make_engine(name: str, g_rev: CSRGraph, root_weights=None, **opts):
     """Instantiate a registered engine on the reverse graph (on its device).
     ``opts`` may hold keys the engine's ``Config`` lacks and ``None``
-    values; both are dropped."""
+    values; both are dropped.  ``root_weights`` (weighted IM) makes the
+    engine draw its roots ∝ the weights; ``None`` keeps the uniform draw."""
     cls = get_engine(name)
     fields = {f.name for f in dataclasses.fields(cls.Config)}
     cfg = cls.Config(**{k: v for k, v in opts.items()
                         if k in fields and v is not None})
-    return cls(g_rev, cfg)
+    return cls(g_rev, cfg, root_weights=root_weights)
+
+
+def _resolve_root_table(root_weights, device):
+    """(weights or None) -> (float32 weights or None, the alias table on
+    ``device`` or None)."""
+    if root_weights is None:
+        return None, None
+    w = np.asarray(root_weights, np.float32)
+    return w, build_alias_table(w, device=device)
 
 
 @register_engine("queue")
@@ -116,13 +130,16 @@ class QueueEngine:
         qcap: Optional[int] = None   # default: n_nodes
         ec: int = rr_queue.EC_DEFAULT
 
-    def __init__(self, g_rev: CSRGraph, config: Optional[Config] = None):
+    def __init__(self, g_rev: CSRGraph, config: Optional[Config] = None,
+                 root_weights=None):
         # IC equivalence: parallel edges merge to p' = 1-∏(1-p), so rows
         # are simple and the sampler needs no in-chunk dedup
         self.g_rev = coalesce_ic(g_rev)
         self.config = config if config is not None else self.Config()
         self.qcap = (self.config.qcap if self.config.qcap is not None
                      else self.g_rev.n_nodes)
+        self.root_weights, self.table = _resolve_root_table(
+            root_weights, self.g_rev.device)
 
     @property
     def item_space(self) -> int:
@@ -131,7 +148,8 @@ class QueueEngine:
     def sample(self, seed32: int) -> RRBatch:
         s = rr_queue.sample_rrsets_queue(self.g_rev, self.config.batch,
                                          seed32, qcap=self.qcap,
-                                         ec=self.config.ec, dedup="none")
+                                         ec=self.config.ec, dedup="none",
+                                         table=self.table)
         return RRBatch(s.nodes, s.lengths, s.overflowed, s.steps,
                        roots=s.roots)
 
@@ -147,10 +165,13 @@ class DenseEngine:
     class Config:
         batch: int = 256
 
-    def __init__(self, g_rev: CSRGraph, config: Optional[Config] = None):
+    def __init__(self, g_rev: CSRGraph, config: Optional[Config] = None,
+                 root_weights=None):
         self.g_rev = coalesce_ic(g_rev)      # exact for IC, fewer edges
         self.config = config if config is not None else self.Config()
         self._edge_src = rr_dense._edge_src(self.g_rev)
+        self.root_weights, self.table = _resolve_root_table(
+            root_weights, self.g_rev.device)
 
     @property
     def item_space(self) -> int:
@@ -158,7 +179,8 @@ class DenseEngine:
 
     def sample(self, seed32: int) -> RRBatch:
         nodes, lens, roots, overflow, levels = rr_dense._dense_round(
-            self.g_rev, self._edge_src, seed32, self.config.batch)
+            self.g_rev, self._edge_src, seed32, self.config.batch,
+            table=self.table)
         return RRBatch(nodes, lens, overflow, levels, roots=roots)
 
 

@@ -7,15 +7,18 @@ state is read or changed.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.graph.csr import CSRGraph
 
 
-def ic_sizes(g: CSRGraph, seeds, n_sims: int = 256,
-             seed: int = 0) -> torch.Tensor:
+def ic_sizes(g: CSRGraph, seeds, n_sims: int = 256, seed: int = 0,
+             node_weights=None) -> torch.Tensor:
     """(n_sims,) int64 activated-set sizes of forward IC runs from
-    ``seeds`` on the forward CSR ``g`` (on ``g``'s device)."""
+    ``seeds`` on the forward CSR ``g`` (on ``g``'s device); with
+    ``node_weights`` (n,) the float32 weight of each run's active set,
+    ``active.float() @ w``, the objective of weighted IM."""
     dev = g.device
     n, m = g.n_nodes, g.n_edges
     gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -32,9 +35,15 @@ def ic_sizes(g: CSRGraph, seeds, n_sims: int = 256,
                           device=dev).index_add_(1, edge_dst, live)
         frontier = (hit > 0) & ~active
         active |= frontier
-    return active.sum(dim=1)
+    if node_weights is None:
+        return active.sum(dim=1)
+    w = torch.as_tensor(np.asarray(node_weights, np.float32), device=dev)
+    return active.to(torch.float32) @ w
 
 
-def ic_spread(g: CSRGraph, seeds, n_sims: int = 256, seed: int = 0) -> float:
-    """Forward IC E[I(S)] estimate on the forward CSR."""
-    return float(ic_sizes(g, seeds, n_sims, seed).to(torch.float64).mean())
+def ic_spread(g: CSRGraph, seeds, n_sims: int = 256, seed: int = 0,
+              node_weights=None) -> float:
+    """Forward IC E[I(S)] estimate on the forward CSR (E[Σ_{v ∈ I(S)} w_v]
+    with ``node_weights``)."""
+    return float(ic_sizes(g, seeds, n_sims, seed, node_weights).to(
+        torch.float64).mean())

@@ -1,8 +1,11 @@
-"""IMM solver (paper Alg. 2 + θ sampling + seed selection) for plain IC
+"""IMM solver (paper Alg. 2 + θ sampling + seed selection) for IC
 problems, on one device.
 
     IMMSolver(g, device="cuda").solve(IMProblem(k=10, eps=0.3))
     IMMSolver(g).solve(IMProblem(k=10, eps=0.3, mode="approximate"))
+    IMMSolver(g).solve(IMProblem(k=10, eps=0.3, node_weights=w))  # weighted
+    IMMSolver(g).solve(IMProblem(eps=0.3, costs=c, budget=B))     # budgeted
+    IMMSolver(g).solve(IMProblem(k=10, eps=0.3, candidates=ids))  # targeted
 
 The host runs rounds of RR batches against the engine (gIM's kernel
 relaunches, Alg. 6): round t samples with the 32-bit seed
@@ -18,6 +21,15 @@ problem samples into a :class:`~repro_torch.core.coverage.DeviceRRStore`, an
 approximate one into a :class:`~repro_torch.core.coverage.SketchRRStore`
 through a :class:`~repro_torch.core.engine.FusedSketchEngine`, selects with
 ``select_seeds_sketch`` and returns certified ``spread_bounds``.
+
+The variants follow the reference: a weighted problem draws its roots ∝
+``node_weights`` (the engine's alias table) and spreads on the scale ``Σ
+w``; candidates and a budget turn the selection into the variant greedy
+(:func:`~repro_torch.core.coverage.select_variant`, the CELF variant, or
+the sketch greedy's candidate mask), and a budgeted problem walks the θ
+schedule of its ``k_steps``.  The engine and store are keyed on the
+problem's ``pool_digest``, so problems that differ only in selection
+share a pool.
 """
 from __future__ import annotations
 
@@ -33,7 +45,7 @@ from repro_torch.core import coverage as cov
 from repro_torch.core import sketch as sketch_mod
 from repro_torch.core.engine import FusedSketchEngine, make_engine
 from repro_torch.core.oracle import imm_theta_params
-from repro_torch.core.problem import IMProblem, IMResult
+from repro_torch.core.problem import IMProblem, IMResult, ResolvedProblem
 from repro_torch.core.rrset import round_seed
 from repro_torch.device import resolve_device
 
@@ -49,7 +61,9 @@ class IMMStats:
     frac_covered: float = 0.0
     sampling_steps: int = 0
     selection: str = "auto"
+    variant: str = "plain"
     early_exit_skips: int = 0
+    budget_spent: float = 0.0
     history: list = field(default_factory=list)
 
 
@@ -99,36 +113,46 @@ class IMMSolver:
         self._sel_method = _SELECTION_METHODS[selection]
         self.seed = int(seed)
         self._sketch_k_arg = sketch_k
-        self._engine = make_engine(engine, reverse(self.g), batch=batch,
-                                   qcap=qcap, ec=ec)
+        self._engine_name = engine
+        self._engine_opts = dict(batch=batch, qcap=qcap, ec=ec)
+        self.g_rev = reverse(self.g)
+        self._engine = make_engine(engine, self.g_rev, **self._engine_opts)
         self._sketch_info = None
         self._sig = None
         self.prepare(IMProblem(k=1))
 
     # -- engine + store per problem signature ------------------------------
-    def _build(self, sig) -> None:
-        """Fresh engine, store and stats for the signature (mode,
-        sketch_k): the round-seed stream restarts at round 0."""
-        mode, sketch_k = sig
-        if mode == "approximate":
-            self.engine = FusedSketchEngine(self._engine)
-            self.store = cov.SketchRRStore(self._engine.item_space,
+    def _build(self, r: ResolvedProblem, sig) -> None:
+        """Fresh engine, store and stats for the signature (pool digest,
+        sketch_k): the round-seed stream restarts at round 0.  A weighted
+        problem gets an engine with the alias table of its weights."""
+        problem, sketch_k, w = r.problem, sig[1], r.node_weights
+        engine = (self._engine if w is None else
+                  make_engine(self._engine_name, self.g_rev,
+                              root_weights=w, **self._engine_opts))
+        if problem.mode == "approximate":
+            self.engine = FusedSketchEngine(engine)
+            self.store = cov.SketchRRStore(engine.item_space,
                                            sketch_k=sketch_k,
                                            device=self.device)
         else:
-            self.engine = self._engine
-            self.store = cov.DeviceRRStore(self._engine.item_space,
+            self.engine = engine
+            self.store = cov.DeviceRRStore(engine.item_space,
                                            sketch_k=sketch_k,
                                            device=self.device)
         self._sig = sig
-        self._stats = IMMStats(selection=self.selection)
+        self._stats = IMMStats(selection=self.selection,
+                               variant=problem.variant)
         self._ovf = torch.zeros((), dtype=torch.int64, device=self.device)
         self._ovf_lanes = 0
 
-    def prepare(self, problem: IMProblem) -> None:
+    def prepare(self, problem: IMProblem) -> ResolvedProblem:
         """Build the engine and store ``problem`` needs, unless the current
-        ones already serve its (mode, sketch_k).  ``solve`` calls it; call
-        it first to reach ``self.engine``/``self.store`` before a solve."""
+        ones already serve its pool signature (``problem.pool_digest``:
+        model, weights, mode) and sketch size.  ``solve`` calls it; call it
+        first to reach ``self.engine``/``self.store`` before a solve.
+        Returns the problem resolved against the graph."""
+        r = problem.resolve(self.n)
         # celf and the early exit read the exact store's incremental sketch
         sketch_k = self._sketch_k_arg
         if sketch_k is None and (self._sel_method == "celf"
@@ -138,9 +162,10 @@ class IMMSolver:
             sketch_k = sketch_mod.auto_sketch_k(problem.eps, self.n)
         if sketch_k is not None:
             sketch_k = sketch_mod.resolve_sketch_k(sketch_k)
-        sig = (problem.mode, sketch_k)
+        sig = (problem.pool_digest(model="ic"), sketch_k)
         if sig != self._sig:
-            self._build(sig)
+            self._build(r, sig)
+        return r
 
     # -- sampling ----------------------------------------------------------
     def _round(self):
@@ -163,16 +188,44 @@ class IMMSolver:
                                 if self._ovf_lanes else 0.0)
         return st
 
+    # -- variants ----------------------------------------------------------
+    @staticmethod
+    def _selection_spec(r: ResolvedProblem):
+        """None for plain problems and for weights alone (the roots carry
+        the weights, so rows stay equal); else the variant greedy's
+        :class:`~repro_torch.core.coverage.SelectionSpec`: one group of
+        quota ``k_steps`` over the items, the candidate mask, the costs."""
+        p = r.problem
+        if p.budget is None and p.candidates is None:
+            return None
+        return cov.SelectionSpec(
+            k_steps=r.k_steps, n_group=r.n_items, n_groups=1,
+            group_quota=r.k_steps, cand=r.cand_mask_items, costs=r.costs,
+            budget=p.budget)
+
     # -- full IMM ----------------------------------------------------------
     def solve(self, problem: IMProblem) -> IMResult:
-        """Solve a plain :class:`IMProblem` -> :class:`IMResult`."""
+        """Solve an :class:`IMProblem` -> :class:`IMResult`
+        (:meth:`solve_problem`)."""
         if not isinstance(problem, IMProblem):
             raise TypeError("IMMSolver.solve() takes one IMProblem")
-        self.prepare(problem)
-        r = problem.resolve(self.n)
+        return self.solve_problem(problem)
+
+    def solve_problem(self, problem: IMProblem, *,
+                      deadline_s: Optional[float] = None) -> IMResult:
+        """Solve ``problem``: the LB loop of Alg. 2 (or a fixed θ), then
+        the final selection.  ``deadline_s`` (the reference's degraded
+        sketch answer) is not ported yet: ROADMAP Queue 1 item 10."""
+        if deadline_s is not None:
+            raise NotImplementedError(
+                "solve_problem(deadline_s=...) is not ported yet: ROADMAP "
+                "Queue 1 item 10 (durability and streaming)")
+        r = self.prepare(problem)
+        spec = self._selection_spec(r)
         p = problem
         st = self._stats
         approx = p.mode == "approximate"
+        k_theta = p.k if p.k is not None else r.k_steps
         self._sketch_info = None
 
         def select():
@@ -180,10 +233,10 @@ class IMMSolver:
                 # no pool to verify against: the sketch greedy leaves its
                 # error certificate for the final spread_bounds
                 self._sketch_info = {}
-                return self.store.select(r.k_steps,
+                return self.store.select(r.k_steps, cand=r.cand_mask_items,
                                          info_out=self._sketch_info)
             return self.store.select(r.k_steps, method=self._sel_method,
-                                     eval_batch=self.eval_batch)
+                                     spec=spec, eval_batch=self.eval_batch)
 
         if p.theta is not None:
             # fixed-θ mode: sample to θ, one selection, no LB loop
@@ -192,7 +245,7 @@ class IMMSolver:
             res = select()
         else:
             lam_p, lam_star, eps_p, _ = imm_theta_params(
-                self.n, p.k, p.eps, p.ell)
+                self.n, k_theta, p.eps, p.ell)
             lb = 1.0
             for i in range(1, max(int(math.log2(self.n)), 2)):  # Alg. 2
                 x = r.scale / (2.0 ** i)
@@ -220,15 +273,18 @@ class IMMSolver:
             res = select()
         seeds = res.seeds.cpu().numpy()
         gains = res.gains.cpu().numpy()
-        live = seeds < self.n             # the sketch greedy pads with n
+        live = seeds < r.n_items          # the sentinels of the scans
         seeds, gains = seeds[live], gains[live]
         frac = float(res.frac)
+        spent = float(res.spent) if hasattr(res, "spent") else 0.0
         st.frac_covered = frac
+        st.variant = p.variant
+        st.budget_spent = spent
         bounds = (self._approx_bounds(r, self._sketch_info) if approx
                   else None)
         return IMResult(seeds=seeds, spread=r.scale * frac, gains=gains,
                         frac=frac, stats=self.stats, problem=p,
-                        n_nodes=self.n, spread_bounds=bounds)
+                        n_nodes=self.n, cost=spent, spread_bounds=bounds)
 
     def _early_exit_skip(self, r, threshold: float) -> bool:
         """The θ early exit (Alg. 2's LB gate), as the reference's: skip an
@@ -239,10 +295,14 @@ class IMMSolver:
         occupancies (one ``union_gains`` sweep against an empty cover, read
         once with the fold flag; the counts are host numpy, so both
         packages give the same floats) bounds the coverage from above, and
-        a skipped iteration would have failed its test."""
+        a skipped iteration would have failed its test.  Candidates mask
+        the counts; weighted and budgeted problems never skip (their
+        objective is not a row count)."""
+        p = r.problem
         st = self.store
-        if (not r.problem.early_exit or st.sketch_k is None
-                or st.sketch_mode != "mod"):
+        if (not p.early_exit or st.sketch_k is None
+                or st.sketch_mode != "mod" or r.node_weights is not None
+                or p.budget is not None):
             return False
         n_rr = st.n_rr
         if n_rr == 0 or n_rr > st.sketch_k:
@@ -254,7 +314,10 @@ class IMMSolver:
         occ[-1] = st.fold_error[0]       # row n, the sentinel: the flag
         occ = occ.cpu().numpy()
         st.check_folds(int(occ[-1]))
-        counts = sketch_mod.linear_count(occ[:self.n], st.sketch_k)
+        counts = sketch_mod.linear_count(occ[:r.n_items], st.sketch_k)
+        mask = r.cand_mask_items
+        if mask is not None:
+            counts = counts[mask]
         top = float(np.sort(counts)[::-1][:r.k_steps].sum())
         est_ub = r.scale * min(float(n_rr), top) / max(n_rr, 1)
         return est_ub < threshold
@@ -280,8 +343,9 @@ def imm(g: CSRGraph, k: Optional[int] = None, eps: Optional[float] = None,
     """One-shot wrapper; returns (seeds, spread_estimate, stats).
 
     Keywords split between the solver (engine/batch/selection/seed/
-    sketch_k/device/...) and the problem (ell/max_theta/theta/mode/...);
-    anything else raises ``TypeError``.
+    sketch_k/device/...) and the problem (node_weights/costs/budget/
+    candidates/ell/max_theta/theta/mode/...); anything else raises
+    ``TypeError``.
     """
     unknown = set(kw) - _SOLVER_KEYS - _PROBLEM_KEYS
     if unknown:
@@ -294,5 +358,15 @@ def imm(g: CSRGraph, k: Optional[int] = None, eps: Optional[float] = None,
         pkw["k"] = k
     if eps is not None:
         pkw["eps"] = eps
-    res = IMMSolver(g, **solver_kw).solve(IMProblem(**pkw))
+    res = IMMSolver(g, **solver_kw).solve_problem(IMProblem(**pkw))
     return res.seeds, res.spread, res.stats
+
+
+def imm_result(g: CSRGraph, problem: IMProblem, **solver_kw) -> IMResult:
+    """Typed one-shot: ``IMMSolver(g, **solver_kw).solve_problem(problem)``;
+    an unknown solver keyword raises ``TypeError``."""
+    unknown = set(solver_kw) - _SOLVER_KEYS
+    if unknown:
+        raise TypeError("imm_result() got unexpected keyword argument(s): "
+                        + ", ".join(sorted(unknown)))
+    return IMMSolver(g, **solver_kw).solve_problem(problem)

@@ -13,7 +13,8 @@ Random numbers come from the counter hash of
 * row r of a round with seed ``round_seed`` has the 32-bit row seed
   ``counter_uniform_u32(round_seed, r)``
   (:func:`repro_torch.core.roots.row_seeds`);
-* its root is ``(counter_uniform_u32(row_seed, 0xFFFFFFFF) * n) >> 32``
+* its root is ``(counter_uniform_u32(row_seed, 0xFFFFFFFF) * n) >> 32``,
+  or with an alias table that bucket or its alias
   (:func:`repro_torch.core.roots.draw_roots`);
 * edge e of the coalesced reverse CSR is live for that row iff
   ``float32(counter_uniform_u32(row_seed, e)) * 2^-32 < w[e]``, the trial
@@ -50,7 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.graph.csr import CSRGraph, rows_dst_sorted
-from repro_torch.core.roots import ROOT_COUNTER
+from repro_torch.core.roots import MAX_EDGES
 from repro_torch.kernels import ops
 from repro_torch.kernels.bernoulli import counter_uniform_u32
 
@@ -101,16 +102,18 @@ def detect_dedup_mode(g_rev: CSRGraph) -> str:
 
 def sample_rrsets_queue(g_rev: CSRGraph, batch: int, seed32: int, *,
                         qcap: int | None = None, ec: int = EC_DEFAULT,
-                        dedup: str | None = None) -> QueueSample:
+                        dedup: str | None = None,
+                        table=None) -> QueueSample:
     """Sample one round of ``batch`` RR sets on the reverse CSR ``g_rev``
-    with round seed ``seed32``, on ``g_rev``'s device.
+    with round seed ``seed32``, on ``g_rev``'s device; roots ∝ the weights
+    of the alias ``table`` (``core/roots.py``) when one is given.
 
     ``dedup=None`` runs :func:`detect_dedup_mode` on the host (engines
     coalesce once and pass ``"none"``); any other mode raises, since only
     simple rows are served yet (ROADMAP Queue 1 item 3)."""
     n, m = g_rev.n_nodes, g_rev.n_edges
-    if m >= ROOT_COUNTER:
-        raise ValueError("the counter hash needs m < 2^32 - 1 edges")
+    if m >= MAX_EDGES:
+        raise ValueError("the counter hash needs m < 2^32 - 2 edges")
     if dedup is None:
         dedup = detect_dedup_mode(g_rev)
     if dedup != "none":
@@ -120,7 +123,7 @@ def sample_rrsets_queue(g_rev: CSRGraph, batch: int, seed32: int, *,
     qcap = n if qcap is None else int(qcap)
     queue, lengths, overflowed, lane_steps, roots = ops.queue_bfs(
         g_rev.offsets, g_rev.indices, g_rev.weights, seed32, batch,
-        qcap=qcap, ec=ec)
+        qcap=qcap, ec=ec, table=table)
     # the round's one host read
     width, steps = torch.stack((lengths.max().to(torch.int64),
                                 lane_steps.max())).tolist()

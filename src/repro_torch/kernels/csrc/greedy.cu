@@ -1,7 +1,9 @@
 // Greedy max-coverage in one cooperative launch each, for Hopper (sm_90a):
 // greedy_flat on the flat RR pool (paper Alg. 7, the reference's fused
-// scan) and, further down, greedy_sketch on the approximate mode's
-// coverage sketch.  Both run all k seed steps inside the launch.
+// scan), greedy_flat_variant (the same kernel with the problem variants'
+// feasibility and score) and, further down, greedy_sketch on the
+// approximate mode's coverage sketch.  All run all k seed steps inside the
+// launch.
 //
 // greedy_flat.
 // Replaces the torch selection's host loop (kernels/ref.py::greedy_flat_ref,
@@ -76,6 +78,31 @@
 //   equal; a row appears once in u_s's list, so its bit has one writer in
 //   a block.
 //
+// greedy_flat_variant (kVariant).  The reference's fused_variant scan
+// (src/repro/core/coverage.py:1552, unweighted; the plain version is
+// kernels/ref.py::greedy_flat_variant_ref): the same launch, prologue and
+// steps, with these changes.
+// - Feasibility: a node is a candidate, not picked yet, and its group (of
+//   n_group ids) has quota left; with costs also cost <= budget - spent
+//   (__fsub_rn, XLA's float32 subtraction) and Occur > 0.  A block keeps a
+//   "blocked" bit a slice node and the quotas of the groups its slice
+//   meets, beside its Occur.  The bits are set from ~cand in (C) (all of
+//   them when the quota is 0), at the node's pick, and over the group's
+//   part of the slice when a pick spends the group's quota, so the scan
+//   tests one bit a node and never the quotas.  Every block sees every
+//   pick, so each keeps its own copies and no block reads another's.
+// - Keys: (occur + 1) << 32 | (0xFFFFFFFF - v) without costs, so a
+//   feasible node with Occur 0 still beats "none"; with costs
+//   bits(__fdiv_rn(float(occur), cost)) << 32 | (0xFFFFFFFF - v): the bits
+//   of a positive float32 order as the float, so the first maximum is the
+//   reference's argmax.  Key 0: no feasible node.
+// - The record carries the node's Occur too (the key no longer does with
+//   costs), and the step's gain is read from the winner's record.
+// - A step with no feasible node changes nothing, so the launch stops
+//   there and fills the steps left with the sentinel n and gain 0.
+//   spent, kept by every thread, takes each pick's cost in step order
+//   (__fadd_rn), and is written out at the end.
+//
 // What bounds it.  Not bytes: the pool read twice and the indices written
 // once are about 1 MB at the default solve's pool, and each block reading
 // every seed row's entry and its elements (from L2) adds about 0.2 MB a
@@ -85,6 +112,7 @@
 // greedy_grid_barriers runs the same grid with the barriers alone, the
 // floor.
 
+#include <algorithm>
 #include <cstdint>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -211,15 +239,55 @@ __device__ __forceinline__ uint64_t slice_argmax(const int32_t* occ,
   return block_max_key(best, low, red);
 }
 
-// Scratch (global memory): the step records (k x blocks x 2 uint64),
+// greedy_flat_variant's operands (a zeroed struct for greedy_flat): the
+// candidate byte and float32 cost a node (costs null: no budget), the
+// budget, the groups' width and quota, the words of a block's blocked bits
+// and group quotas, and where spent goes.
+struct VariantArgs {
+  const uint8_t* cand;
+  const float* costs;
+  float budget;
+  int32_t n_group, group_quota, blocked_words, group_words;
+  float* spent;
+};
+
+// The variant's first maximum of the block's slice, in thread 0 (the key;
+// 0 for no feasible node): as slice_argmax, over the feasible nodes and
+// their variant scores (`room` = budget - spent).
+template <bool kShared>
+__device__ __forceinline__ uint64_t slice_argmax_variant(
+    const int32_t* occ, const int32_t* blocked, int64_t lo, int64_t held,
+    const VariantArgs& va, float room, uint64_t* red) {
+  uint32_t best = 0, low = 0;
+  for (int64_t j = threadIdx.x; j < held; j += kThreads) {
+    if ((load_state<kShared>(blocked + (j >> 5)) >> (j & 31)) & 1) continue;
+    const uint32_t v = uint32_t(lo + j);
+    const int32_t o = load_state<kShared>(occ + j);
+    uint32_t hi = uint32_t(o) + 1u;
+    if (va.costs != nullptr) {
+      const float c = __ldg(va.costs + v);
+      if (!(c <= room) || o <= 0) continue;
+      hi = __float_as_uint(__fdiv_rn(__int2float_rn(o), c));
+    }
+    if (hi > best) {
+      best = hi;
+      low = 0xFFFFFFFFu - v;
+    }
+  }
+  return block_max_key(best, low, red);
+}
+
+// Scratch (global memory): the step records (k x blocks x kRec uint64),
 // inv_span t int2, count n, cursor n, row_start num_rows + 1, nodes t,
 // inv_rows t and block_sum `blocks` int32, then, when the blocks' state is
 // not in shared memory, each block's list starts (slots + 1), Occur
-// (slots) and Covered words.  Dynamic shared memory: each block's base
-// (`blocks` int32), then, in the shared form, the block's list starts,
-// Occur and Covered.  One block an SM: the bound lets ptxas use the
-// registers that frees (without it the scratch form spills).
-template <bool kShared>
+// (slots) and Covered words (and, kVariant, its blocked bits and group
+// quotas).  Dynamic shared memory: each block's base (`blocks` int32),
+// then, in the shared form, the block's list starts, Occur and Covered
+// (and the variant's words).  A record is kRec words: the key, the span
+// and (kVariant) the node's Occur.  One block an SM: the bound lets ptxas
+// use the registers that frees (without it the scratch form spills).
+template <bool kShared, bool kVariant>
 __global__ void __launch_bounds__(kThreads, 1)
 greedy_flat_kernel(const int32_t* __restrict__ flat,
                    const int32_t* __restrict__ ids,
@@ -229,19 +297,24 @@ greedy_flat_kernel(const int32_t* __restrict__ flat,
                    int2* inv_span, int32_t* count, int32_t* cursor,
                    int32_t* row_start, int32_t* nodes, int32_t* inv_rows,
                    int32_t* block_sum, int32_t* copies, int32_t* seeds,
-                   int32_t* gains) {
+                   int32_t* gains, VariantArgs va) {
+  constexpr int kRec = kVariant ? 3 : 2;
   extern __shared__ int32_t smem[];
   __shared__ uint64_t red[kWarps];
   __shared__ int32_t part[kWarps];
-  __shared__ int32_t step_u, step_begin, step_end;
+  __shared__ int32_t step_u, step_begin, step_end, step_gain;
+  __shared__ int32_t full_lo, full_hi;   // kVariant: a spent group's part
   cg::grid_group grid = cg::this_grid();
   const int32_t blocks = gridDim.x, me = blockIdx.x;
+  const int64_t state_words =
+      2 * int64_t(slots) + 1 + cov_words +
+      (kVariant ? int64_t(va.blocked_words) + va.group_words : 0);
   int32_t* base = smem;
-  int32_t* starts = kShared ? smem + blocks
-                            : copies + int64_t(me) * (2 * int64_t(slots) +
-                                                      1 + cov_words);
+  int32_t* starts = kShared ? smem + blocks : copies + int64_t(me) * state_words;
   int32_t* occ = starts + slots + 1;
   uint32_t* cov = reinterpret_cast<uint32_t*>(occ + slots);
+  int32_t* blocked = occ + slots + cov_words;       // kVariant
+  int32_t* gbud = blocked + va.blocked_words;       // kVariant
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t gtid = int64_t(me) * kThreads + threadIdx.x;
   const int64_t gsize = int64_t(blocks) * kThreads;
@@ -292,6 +365,21 @@ greedy_flat_kernel(const int32_t* __restrict__ flat,
       starts[held] = scan.y;
     }
     for (int32_t w = threadIdx.x; w < cov_words; w += kThreads) cov[w] = 0;
+    if (kVariant) {
+      // a slice node outside the candidates (every node, at quota 0), and
+      // each bit past the slice, is blocked from the start
+      for (int32_t w = threadIdx.x; w < va.blocked_words; w += kThreads) {
+        uint32_t bits = 0;
+        for (int b = 0; b < 32; ++b) {
+          const int64_t j = 32 * int64_t(w) + b;
+          if (j >= held || va.group_quota <= 0 || !__ldg(va.cand + lo + j))
+            bits |= 1u << b;
+        }
+        blocked[w] = int32_t(bits);
+      }
+      for (int32_t g = threadIdx.x; g < va.group_words; g += kThreads)
+        gbud[g] = va.group_quota;
+    }
   }
   grid.sync();
   GREEDY_STAMP(3);
@@ -326,46 +414,65 @@ greedy_flat_kernel(const int32_t* __restrict__ flat,
     }
   }
 
+  float spent = 0.0f;                          // kVariant, every thread
   for (int32_t s = 0;; ++s) {
-    // this block's record for step s: its key, and the span [begin, end)
-    // of its node's list entries (end << 32 | begin), then the step's
-    // barrier, then every block reads all the records
-    const uint64_t mine = slice_argmax<kShared>(occ, lo, held, red);
+    // this block's record for step s: its key, the span [begin, end) of
+    // its node's list entries (end << 32 | begin) and (kVariant) its
+    // Occur, then the step's barrier, then every block reads all the
+    // records
+    const uint64_t mine =
+        kVariant ? slice_argmax_variant<kShared>(
+                       occ, blocked, lo, held, va,
+                       __fsub_rn(va.budget, spent), red)
+                 : slice_argmax<kShared>(occ, lo, held, red);
     if (threadIdx.x == 0) {
       const int64_t j = mine ? int64_t(0xFFFFFFFFu - uint32_t(mine)) - lo : 0;
-      unsigned long long* rec = records + 2 * (int64_t(s) * blocks + me);
+      unsigned long long* rec = records + kRec * (int64_t(s) * blocks + me);
       rec[0] = mine;
       rec[1] = (uint64_t(uint32_t(base[me] +
                                   load_state<kShared>(starts + j + 1)))
                 << 32) |
                uint32_t(base[me] + load_state<kShared>(starts + j));
+      if (kVariant) rec[2] = uint32_t(load_state<kShared>(occ + j));
     }
     GREEDY_STAMP(4 + 3 * s);
     grid.sync();
-    uint64_t theirs = 0, span = 0;
+    uint64_t theirs = 0, span = 0, their_occ = 0;
     if (threadIdx.x < blocks) {
       const unsigned long long* rec =
-          records + 2 * (int64_t(s) * blocks + threadIdx.x);
+          records + kRec * (int64_t(s) * blocks + threadIdx.x);
       theirs = __ldcg(rec);
       span = __ldcg(rec + 1);
+      if (kVariant) their_occ = __ldcg(rec + 2);
     }
     const uint64_t best = block_max_key(uint32_t(theirs >> 32),
                                         uint32_t(theirs), red);
     if (threadIdx.x == 0) red[0] = best;
     __syncthreads();
-    if (threadIdx.x < blocks && theirs == red[0]) {
+    if (threadIdx.x < blocks && theirs == red[0] && (!kVariant || theirs)) {
       step_u = int32_t(0xFFFFFFFFu - uint32_t(theirs));
       step_begin = int32_t(uint32_t(span));
       step_end = int32_t(span >> 32);
+      if (kVariant) step_gain = int32_t(their_occ);
     }
     __syncthreads();
     GREEDY_STAMP(5 + 3 * s);
+    if (kVariant && red[0] == 0) {
+      // no feasible node: nothing changes from here on
+      for (int64_t j = s + gtid; j < k; j += gsize) {
+        seeds[j] = n;
+        gains[j] = 0;
+      }
+      break;
+    }
     const int32_t u = step_u;
     const int64_t begin = step_begin, end = step_end;
     if (gtid == 0) {
       seeds[s] = u;
-      gains[s] = int32_t(red[0] >> 32);
+      gains[s] = kVariant ? step_gain : int32_t(red[0] >> 32);
     }
+    if (kVariant && va.costs != nullptr)
+      spent = __fadd_rn(spent, __ldg(va.costs + u));
     if (s + 1 == k) break;
     for (int64_t i0 = begin + 32 * warp; i0 < end; i0 += 32 * kWarps) {
       const int64_t i = i0 + lane;
@@ -402,11 +509,37 @@ greedy_flat_kernel(const int32_t* __restrict__ flat,
             atomicSub(occ + (v[q] - lo), 1);
       }
     }
-    // every row that holds u is covered now
-    if (threadIdx.x == 0 && u >= lo && u < lo + held) occ[u - lo] = 0;
+    // every row that holds u is covered now; the variant blocks u, and
+    // u's group's part of the slice once the pick spends its quota
+    if (threadIdx.x == 0 && u >= lo && u < lo + held) {
+      occ[u - lo] = 0;
+      if (kVariant) blocked[(u - lo) >> 5] |= int32_t(1u << ((u - lo) & 31));
+    }
+    if (kVariant && threadIdx.x == 0) {
+      const int64_t gu = uint32_t(u) / uint32_t(va.n_group);
+      const int64_t g = gu - uint32_t(lo) / uint32_t(va.n_group);
+      full_lo = full_hi = 0;
+      if (g >= 0 && g < va.group_words && --gbud[g] == 0) {
+        full_lo = int32_t(max(gu * va.n_group, lo) - lo);
+        full_hi = int32_t(min((gu + 1) * va.n_group, lo + held) - lo);
+      }
+    }
     __syncthreads();
+    if (kVariant && full_hi > full_lo) {
+      // one thread a word of [full_lo, full_hi)
+      const int32_t a = full_lo, b = full_hi;
+      for (int32_t w = (a >> 5) + threadIdx.x; w <= (b - 1) >> 5;
+           w += kThreads) {
+        const int32_t from = max(a - 32 * w, 0), to = min(b - 32 * w, 32);
+        const uint32_t bits = (to == 32 ? 0xFFFFFFFFu : (1u << to) - 1u) &
+                              ~((1u << from) - 1u);
+        blocked[w] = load_state<kShared>(blocked + w) | int32_t(bits);
+      }
+      __syncthreads();
+    }
     GREEDY_STAMP(6 + 3 * s);
   }
+  if (kVariant && gtid == 0) *va.spent = spent;
 }
 
 // The same grid with its barriers alone: the floor of greedy_flat_kernel.
@@ -425,9 +558,20 @@ cudaError_t flat_grid_for(int device, int* blocks, int64_t* shared_bytes) {
     // the scratch form at 4 bytes a block of the grid: greedy_flat's base
     // table, more than greedy_sketch's global form takes
     cudaError_t err = one_block_an_sm(
-        reinterpret_cast<const void*>(greedy_flat_kernel<true>),
-        reinterpret_cast<const void*>(greedy_flat_kernel<false>), kThreads,
-        4, device, &sms[device], &bytes[device]);
+        reinterpret_cast<const void*>(greedy_flat_kernel<true, false>),
+        reinterpret_cast<const void*>(greedy_flat_kernel<false, false>),
+        kThreads, 4, device, &sms[device], &bytes[device]);
+    if (err == cudaSuccess) {
+      // the variant's forms: the same limit, and one block an SM
+      int variant_sms = 0;
+      int64_t variant_bytes = 0;
+      err = one_block_an_sm(
+          reinterpret_cast<const void*>(greedy_flat_kernel<true, true>),
+          reinterpret_cast<const void*>(greedy_flat_kernel<false, true>),
+          kThreads, 4, device, &variant_sms, &variant_bytes);
+      if (err == cudaSuccess && variant_bytes < bytes[device])
+        bytes[device] = variant_bytes;
+    }
     if (err == cudaSuccess && sms[device] > kThreads)
       err = cudaErrorNotSupported;     // a thread polls each block's record
     if (err != cudaSuccess) {
@@ -443,21 +587,31 @@ cudaError_t flat_grid_for(int device, int* blocks, int64_t* shared_bytes) {
 // Where greedy_flat's state lives on a grid of `blocks` whose dynamic
 // shared memory holds `shared_bytes`, and the scratch it takes
 // (kernels/greedy.py::flat_layout and flat_scratch_bytes say the same).
+// n_group 0: greedy_flat; else greedy_flat_variant with its groups, whose
+// blocks also keep their blocked bits (a word for 32 slice nodes) and the
+// quotas of the groups their slice meets, and whose records are 24 bytes.
 struct FlatLayout {
-  int32_t slots, cov_words;
+  int32_t slots, cov_words, blocked_words, group_words;
   bool shared;
   int64_t dynamic_bytes, scratch_bytes;
 };
 
 FlatLayout flat_layout(int32_t n, int64_t num_rows, int64_t t, int32_t k,
-                       int blocks, int64_t shared_bytes) {
+                       int blocks, int64_t shared_bytes, int32_t n_group = 0,
+                       int32_t n_groups = 0) {
   FlatLayout lay;
   lay.slots = int32_t((int64_t(n) + blocks - 1) / blocks);
   lay.cov_words = int32_t((num_rows + 31) / 32);
-  const int64_t state = 4 * (2 * int64_t(lay.slots) + 1 + lay.cov_words);
+  lay.blocked_words = n_group ? (lay.slots + 31) / 32 : 0;
+  lay.group_words =
+      n_group ? int32_t(std::min<int64_t>(n_groups,
+                                          (lay.slots - 1) / n_group + 2))
+              : 0;
+  const int64_t state = 4 * (2 * int64_t(lay.slots) + 1 + lay.cov_words +
+                             lay.blocked_words + lay.group_words);
   lay.shared = 4 * int64_t(blocks) + state <= shared_bytes;
   lay.dynamic_bytes = 4 * int64_t(blocks) + (lay.shared ? state : 0);
-  lay.scratch_bytes = 16 * int64_t(k) * blocks + 8 * t +
+  lay.scratch_bytes = 8 * (n_group ? 3 : 2) * int64_t(k) * blocks + 8 * t +
                       4 * (2 * int64_t(n) + num_rows + 1 + 2 * t + blocks) +
                       (lay.shared ? 0 : int64_t(blocks) * state);
   return lay;
@@ -482,6 +636,9 @@ FlatLayout flat_layout(int32_t n, int64_t num_rows, int64_t t, int32_t k,
 // ties); with no node left the greedy stops.  Otherwise seeds[s] = u_s,
 // gains[s] = delta(u_s), u_s is picked and cov |= sk[u_s].  The steps not
 // taken get seed n and gain 0, and out[2k] is the number of steps taken.
+// Given a candidate byte a node (cand), the picked set starts at the nodes
+// outside the candidates, so the argmax stays inside them
+// (core/coverage.py::select_seeds_sketch's cand).
 //
 // Design.  One block of kThreads on each SM, cooperative, as greedy_flat;
 // block b owns the rows [b * slots, (b + 1) * slots) below n; k + 1 grid
@@ -518,12 +675,14 @@ FlatLayout flat_layout(int32_t n, int64_t num_rows, int64_t t, int32_t k,
 //   every reader of it passed after its reads.  (Records as the barrier,
 //   tagged words polled with relaxed loads and no grid barrier, measured
 //   slower on the H100: PERF.md.)
-// - A picked node's delta is 0 (its row is in cov), so a row's picked bit
-//   is read only when the row would win at a delta of 0, before its thread
-//   holds a candidate: in registers in the register form (a bit a row of
-//   the thread), else a bit a slice row in shared memory (in the block's
-//   part of the scratch where it does not fit), set by the block after the
-//   step's reduce.
+// - A picked node's delta is 0 (its row is in cov), so without candidates
+//   a row's picked bit is read only when the row would win at a delta of
+//   0, before its thread holds a candidate; with them (a node outside the
+//   candidates may have any delta) it is read for every row that would
+//   win.  The bits: in registers in the register form (a bit a row of the
+//   thread), else a bit a slice row in shared memory (in the block's part
+//   of the scratch where it does not fit), set from cand in the prologue
+//   and by the block after each step's reduce.
 //
 // What bounds it.  Each step reads the n sketch rows (1.21 MB at the
 // approximate cell, 75,880 x 4 words), from registers or shared memory
@@ -590,9 +749,9 @@ template <int kForm, bool kSharedCov>
 __global__ void __launch_bounds__(kThreads, 1)
 greedy_sketch_kernel(const uint32_t* __restrict__ sk, int32_t n, int32_t cols,
                      int32_t lanes, bool vector, int32_t k, int32_t slots,
-                     bool picked_shared, SketchRecord* records,
-                     uint32_t* picked_copies, uint32_t* cov_copies,
-                     int32_t* out) {
+                     bool picked_shared, const uint8_t* __restrict__ cand,
+                     SketchRecord* records, uint32_t* picked_copies,
+                     uint32_t* cov_copies, int32_t* out) {
   extern __shared__ uint4 s_dyn4[];
   __shared__ uint64_t s_wkey[kWarps], s_xkey[kWarps];
   __shared__ uint4 s_wrow[kWarps], s_xrow[kWarps];
@@ -623,6 +782,9 @@ greedy_sketch_kernel(const uint32_t* __restrict__ sk, int32_t n, int32_t cols,
   // kWarps) * span, and the group of lane l takes the rows l / lanes + i *
   // rows_per_warp past that, i < kSketchRows
   const int64_t span = int64_t(rows_per_warp) * kSketchRows;
+  // a row's picked bit is read at a delta of 0 only, unless candidates
+  // block rows of any delta
+  const bool masked = cand != nullptr;
   PHASE_CLOCK_START(kSkPhases);
 
   // prologue: the rows on chip, cov and the picked bits; a grid barrier
@@ -635,6 +797,8 @@ greedy_sketch_kernel(const uint32_t* __restrict__ sk, int32_t n, int32_t cols,
       const int64_t j = tid + int64_t(i) * kThreads;
       rows[i] = j < held ? load_row4(sk + (lo + j) * cols, cols, vector)
                          : make_uint4(0u, 0u, 0u, 0u);
+      if (masked && j < held && !__ldg(cand + lo + j))
+        mine_picked |= 1u << i;
     }
   } else {
     for (int w = tid; w < cols; w += kThreads) cov[w] = 0;
@@ -644,8 +808,15 @@ greedy_sketch_kernel(const uint32_t* __restrict__ sk, int32_t n, int32_t cols,
       for (int64_t i = tid; i < held * cols; i += kThreads)
         s_rows[i] = __ldg(src + i);
     }
-    for (int64_t i = tid; i < picked_words(slots); i += kThreads)
-      picked[i] = 0;
+    for (int64_t i = tid; i < picked_words(slots); i += kThreads) {
+      uint32_t bits = 0;
+      if (masked)
+        for (int b = 0; b < 32; ++b) {
+          const int64_t j = 32 * i + b;
+          if (j < held && !__ldg(cand + lo + j)) bits |= 1u << b;
+        }
+      picked[i] = bits;
+    }
   }
   grid.sync();
   PHASE_CLOCK(kSkProlog);
@@ -667,7 +838,7 @@ greedy_sketch_kernel(const uint32_t* __restrict__ sk, int32_t n, int32_t cols,
         if (j < held) {
           const uint32_t d = popc_or4(rows[i], c4) - base;
           if ((low == 0 || d + 1 > best) &&
-              (d != 0 || !((mine_picked >> i) & 1u))) {
+              ((d != 0 && !masked) || !((mine_picked >> i) & 1u))) {
             best = d + 1;
             low = 0xFFFFFFFFu - uint32_t(lo + j);
             best_row = rows[i];
@@ -720,7 +891,8 @@ greedy_sketch_kernel(const uint32_t* __restrict__ sk, int32_t n, int32_t cols,
           if (sub == 0 && j < held) {
             const uint32_t d = c - base;
             if ((low == 0 || d + 1 > best) &&
-                (d != 0 || !((picked[j >> 5] >> (j & 31)) & 1u))) {
+                ((d != 0 && !masked) ||
+                 !((picked[j >> 5] >> (j & 31)) & 1u))) {
               best = d + 1;
               low = 0xFFFFFFFFu - uint32_t(lo + j);
             }
@@ -847,6 +1019,63 @@ cudaError_t sketch_grid_for(int device, int* blocks, int64_t* shared_words) {
   return cudaSuccess;
 }
 
+// One launch of greedy_flat_kernel, plain (va zeroed) or the variant.
+template <bool kVariant>
+int launch_flat(const void* flat, const void* ids, const void* valid,
+                int64_t t, int32_t n, int64_t num_rows, int32_t k,
+                int32_t n_groups, VariantArgs va, void* scratch,
+                int64_t scratch_bytes, void* out, int device, void* stream) {
+  if (t < 0 || t > 0x7FFFFFFF || n < 1 || n == 0x7FFFFFFF || num_rows < 1 ||
+      num_rows > 0x7FFFFFFF || k < 1)
+    return int(cudaErrorInvalidValue);
+  if (kVariant && (va.cand == nullptr || va.spent == nullptr ||
+                   va.n_group < 1 || n_groups < 1 || va.group_quota < 0 ||
+                   int64_t(va.n_group) * n_groups < n))
+    return int(cudaErrorInvalidValue);
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return int(guard.err);
+  int blocks = 0;
+  int64_t shared_bytes = 0;
+  cudaError_t err = flat_grid_for(device, &blocks, &shared_bytes);
+  if (err != cudaSuccess) return int(err);
+  const FlatLayout lay =
+      flat_layout(n, num_rows, t, k, blocks, shared_bytes,
+                  kVariant ? va.n_group : 0, kVariant ? n_groups : 0);
+  if (scratch_bytes < lay.scratch_bytes) return int(cudaErrorInvalidValue);
+  va.blocked_words = lay.blocked_words;
+  va.group_words = lay.group_words;
+  const int32_t* p_flat = static_cast<const int32_t*>(flat);
+  const int32_t* p_ids = static_cast<const int32_t*>(ids);
+  const uint8_t* p_valid = static_cast<const uint8_t*>(valid);
+  uint8_t* at = static_cast<uint8_t*>(scratch);
+  unsigned long long* records = reinterpret_cast<unsigned long long*>(at);
+  int2* inv_span = reinterpret_cast<int2*>(
+      records + (kVariant ? 3 : 2) * int64_t(k) * blocks);
+  int32_t* count = reinterpret_cast<int32_t*>(inv_span + t);
+  int32_t* cursor = count + n;
+  int32_t* row_start = cursor + n;
+  int32_t* nodes = row_start + num_rows + 1;
+  int32_t* inv_rows = nodes + t;
+  int32_t* block_sum = inv_rows + t;
+  int32_t* copies = block_sum + blocks;
+  int32_t* seeds = static_cast<int32_t*>(out);
+  int32_t* gains = seeds + k;
+  int32_t slots = lay.slots, cov_words = lay.cov_words;
+  void* args[] = {&p_flat, &p_ids, &p_valid, &t, &n, &num_rows, &k,
+                  &slots, &cov_words, &records, &inv_span, &count, &cursor,
+                  &row_start, &nodes, &inv_rows, &block_sum, &copies, &seeds,
+                  &gains, &va};
+  const void* kernel =
+      lay.shared
+          ? reinterpret_cast<const void*>(greedy_flat_kernel<true, kVariant>)
+          : reinterpret_cast<const void*>(greedy_flat_kernel<false, kVariant>);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args,
+                                    size_t(lay.dynamic_bytes),
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface for ctypes.  flat, ids: t int32 (ids non-decreasing,
@@ -861,45 +1090,34 @@ extern "C" int greedy_flat(const void* flat, const void* ids,
                            int64_t num_rows, int32_t k, void* scratch,
                            int64_t scratch_bytes, void* out, int device,
                            void* stream) {
-  if (t < 0 || t > 0x7FFFFFFF || n < 1 || n == 0x7FFFFFFF || num_rows < 1 ||
-      num_rows > 0x7FFFFFFF || k < 1)
-    return int(cudaErrorInvalidValue);
-  DeviceGuard guard(device);
-  if (guard.err != cudaSuccess) return int(guard.err);
-  int blocks = 0;
-  int64_t shared_bytes = 0;
-  cudaError_t err = flat_grid_for(device, &blocks, &shared_bytes);
-  if (err != cudaSuccess) return int(err);
-  const FlatLayout lay = flat_layout(n, num_rows, t, k, blocks, shared_bytes);
-  if (scratch_bytes < lay.scratch_bytes) return int(cudaErrorInvalidValue);
-  const int32_t* p_flat = static_cast<const int32_t*>(flat);
-  const int32_t* p_ids = static_cast<const int32_t*>(ids);
-  const uint8_t* p_valid = static_cast<const uint8_t*>(valid);
-  uint8_t* at = static_cast<uint8_t*>(scratch);
-  unsigned long long* records = reinterpret_cast<unsigned long long*>(at);
-  int2* inv_span = reinterpret_cast<int2*>(records + 2 * int64_t(k) * blocks);
-  int32_t* count = reinterpret_cast<int32_t*>(inv_span + t);
-  int32_t* cursor = count + n;
-  int32_t* row_start = cursor + n;
-  int32_t* nodes = row_start + num_rows + 1;
-  int32_t* inv_rows = nodes + t;
-  int32_t* block_sum = inv_rows + t;
-  int32_t* copies = block_sum + blocks;
-  int32_t* seeds = static_cast<int32_t*>(out);
-  int32_t* gains = seeds + k;
-  int32_t slots = lay.slots, cov_words = lay.cov_words;
-  void* args[] = {&p_flat, &p_ids, &p_valid, &t, &n, &num_rows, &k,
-                  &slots, &cov_words, &records, &inv_span, &count, &cursor,
-                  &row_start, &nodes, &inv_rows, &block_sum, &copies, &seeds,
-                  &gains};
-  const void* kernel =
-      lay.shared ? reinterpret_cast<const void*>(greedy_flat_kernel<true>)
-                 : reinterpret_cast<const void*>(greedy_flat_kernel<false>);
-  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args,
-                                    size_t(lay.dynamic_bytes),
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return int(err);
-  return int(cudaGetLastError());
+  return launch_flat<false>(flat, ids, valid, t, n, num_rows, k, 0,
+                            VariantArgs{}, scratch, scratch_bytes, out, device,
+                            stream);
+}
+
+// greedy_flat_variant: greedy_flat's pool, k and out, and cand (n bytes, 0
+// or 1), costs (n float32, positive; null: no budget), budget, the groups
+// (n_group ids each, n_group * n_groups >= n, group_quota seeds each);
+// scratch: kernels/greedy.py::flat_scratch_bytes with the groups; spent:
+// one float32.  The steps with no feasible node get seed n and gain 0.
+extern "C" int greedy_flat_variant(const void* flat, const void* ids,
+                                   const void* valid, int64_t t, int32_t n,
+                                   int64_t num_rows, int32_t k,
+                                   const void* cand, const void* costs,
+                                   float budget, int32_t n_group,
+                                   int32_t n_groups, int32_t group_quota,
+                                   void* scratch, int64_t scratch_bytes,
+                                   void* out, void* spent, int device,
+                                   void* stream) {
+  VariantArgs va{};
+  va.cand = static_cast<const uint8_t*>(cand);
+  va.costs = static_cast<const float*>(costs);
+  va.budget = budget;
+  va.n_group = n_group;
+  va.group_quota = group_quota;
+  va.spent = static_cast<float*>(spent);
+  return launch_flat<true>(flat, ids, valid, t, n, num_rows, k, n_groups, va,
+                           scratch, scratch_bytes, out, device, stream);
 }
 
 // greedy_flat's grid on card `device`: its blocks (one on each SM) and the
@@ -948,13 +1166,14 @@ extern "C" int greedy_sketch_grid(int device, int* blocks,
 // bytes), each block's picked bits (blocks x ceil(slots / 32) uint32) and,
 // in the global form when cov does not fit the shared memory, a copy of cov
 // for each block (blocks x round_up(cols, 4) uint32 from the next 16-byte
-// boundary); the kernel initialises what it reads.  out:
-// 2k + 1 int32, seeds, gains, then the steps taken.  Launches on `stream`
-// of card `device`; returns the cudaError_t of the launch.
+// boundary); the kernel initialises what it reads.  cand: null, or n
+// bytes (0 or 1), the candidates.  out: 2k + 1 int32, seeds, gains, then
+// the steps taken.  Launches on `stream` of card `device`; returns the
+// cudaError_t of the launch.
 extern "C" int greedy_sketch(const void* words, int32_t n, int32_t cols,
                              int lanes, int vector, int form, int rows,
-                             int32_t k, void* scratch, void* out, int device,
-                             void* stream) {
+                             int32_t k, const void* cand, void* scratch,
+                             void* out, int device, void* stream) {
   if (n < 1 || n == 0x7FFFFFFF || cols < 1 || cols >= (1 << 26) || k < 1 ||
       lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 ||
       (vector && (cols % 4 != 0 ||
@@ -1002,9 +1221,10 @@ extern "C" int greedy_sketch(const void* words, int32_t n, int32_t cols,
   uint32_t* cov_copies = reinterpret_cast<uint32_t*>(base + copies_at);
   int32_t* p_out = static_cast<int32_t*>(out);
   bool vec = vector != 0;
+  const uint8_t* p_cand = static_cast<const uint8_t*>(cand);
   void* args[] = {&p_words, &n, &cols, &lanes, &vec, &k, &slots,
-                  &picked_shared, &records, &picked_copies, &cov_copies,
-                  &p_out};
+                  &picked_shared, &p_cand, &records, &picked_copies,
+                  &cov_copies, &p_out};
   err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads),
                                     args, size_t(dynamic_words) * 4,
                                     static_cast<cudaStream_t>(stream));

@@ -9,8 +9,11 @@
 //
 // What it computes, lane for lane and byte for byte as the plain version.
 // Lane b draws its row seed s = counter_uniform_u32(round_seed, b) and its
-// root (uint64(counter_uniform_u32(s, 0xFFFFFFFF)) * n) >> 32, as
-// core/roots.py::row_seeds and draw_roots do, and writes the root out.  It
+// bucket i = (uint64(counter_uniform_u32(s, 0xFFFFFFFF)) * n) >> 32, as
+// core/roots.py::row_seeds and draw_roots do.  Without an alias table the
+// bucket is the root; with one (prob, alias: weighted roots) the root is i
+// when float32(counter_uniform_u32(s, 0xFFFFFFFE)) * 2^-32 < prob[i], else
+// alias[i].  It writes the root out.  It
 // samples the RR set of s from that root on the reverse CSR (offsets,
 // indices, weights), whose rows are simple (no destination repeats in a
 // row).  Its queue row (qcap int32) starts with the root; the queue is
@@ -94,6 +97,7 @@ constexpr int kBatch = 8;                        // tiles loaded before ranked
 constexpr int kMirror = 256;                     // queue head in shared
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 constexpr uint32_t kRootCounter = 0xFFFFFFFFu;   // core/roots.py ROOT_COUNTER
+constexpr uint32_t kAliasCounter = 0xFFFFFFFEu;  // core/roots.py ALIAS_COUNTER
 // the 227 KB of shared memory a block can opt in to on sm_90, less room
 // for the static arrays below (kernels/queue.py MAX_SHARED_VISITED_BYTES)
 constexpr int kStaticShared = 2048;
@@ -148,7 +152,9 @@ queue_bfs_kernel(const int32_t* __restrict__ offsets,
                  int32_t* __restrict__ queue, uint32_t* visited,
                  int32_t* __restrict__ roots, int32_t* __restrict__ lengths,
                  bool* __restrict__ overflowed,
-                 int64_t* __restrict__ steps) {
+                 int64_t* __restrict__ steps,
+                 const float* __restrict__ alias_prob,
+                 const int32_t* __restrict__ alias_node) {
   extern __shared__ uint32_t vis_shared[];
   __shared__ int32_t warp_count[2][kWarps];
   __shared__ int32_t mirror[kMirror];
@@ -159,10 +165,15 @@ queue_bfs_kernel(const int32_t* __restrict__ offsets,
                     visited ? visited + int64_t(b) * n_words : nullptr};
   int32_t* q = queue + int64_t(b) * qcap;
 
-  // the row seed and root, in every thread
+  // the row seed and root, in every thread: the bucket, then with an alias
+  // table its accept draw (the edge trial's conversion and scale)
   const uint32_t seed = counter_uniform_u32(round_seed, b);
-  const int32_t root = int32_t(
+  int32_t root = int32_t(
       (uint64_t(counter_uniform_u32(seed, kRootCounter)) * uint32_t(n)) >> 32);
+  if (alias_prob != nullptr &&
+      !(__uint2float_rn(counter_uniform_u32(seed, kAliasCounter)) * 0x1p-32f <
+        __ldg(alias_prob + root)))
+    root = __ldg(alias_node + root);
   uint32_t* words = vis.global ? vis.global : vis.shared;
   for (int64_t i = tid; i < n_words; i += kThreads) words[i] = 0u;
   __syncthreads();
@@ -310,17 +321,21 @@ queue_bfs_kernel(const int32_t* __restrict__ offsets,
 // seed; queue: batch x qcap int32 (written in full); visited: null, for
 // the bits in shared memory (4 * ceil(n / 32) <= kMaxSharedVisitedBytes),
 // or batch x ceil(n / 32) uint32 scratch (zeroed by the kernel); roots,
-// lengths (int32), overflowed (bool), steps (int64): batch each.  n >= 1,
-// qcap >= 1, ec >= 1, batch < 2^31.  Launches on `stream` of card
-// `device`; returns the cudaError_t of the launch.
+// lengths (int32), overflowed (bool), steps (int64): batch each; prob,
+// alias: null for uniform roots, or an alias table of n float32 / int32
+// (alias values in [0, n)), both or neither.  n >= 1, qcap >= 1, ec >= 1,
+// batch < 2^31.  Launches on `stream` of card `device`; returns the
+// cudaError_t of the launch.
 extern "C" int queue_bfs(const void* offsets, const void* indices,
                          const void* weights, uint32_t round_seed,
                          int64_t batch, int32_t n, int32_t qcap, int64_t ec,
                          void* queue, void* visited, void* roots,
                          void* lengths, void* overflowed, void* steps,
-                         int device, void* stream) {
+                         const void* prob, const void* alias, int device,
+                         void* stream) {
   if (batch <= 0) return int(cudaGetLastError());
-  if (n < 1 || qcap < 1 || ec < 1 || batch > 0x7FFFFFFF)
+  if (n < 1 || qcap < 1 || ec < 1 || batch > 0x7FFFFFFF ||
+      (prob == nullptr) != (alias == nullptr))
     return int(cudaErrorInvalidValue);
   const int64_t n_words = (int64_t(n) + 31) / 32;
   const int64_t shared = visited ? 0 : 4 * n_words;
@@ -340,6 +355,7 @@ extern "C" int queue_bfs(const void* offsets, const void* indices,
       static_cast<const float*>(weights), round_seed, n, qcap, ec, n_words,
       static_cast<int32_t*>(queue), static_cast<uint32_t*>(visited),
       static_cast<int32_t*>(roots), static_cast<int32_t*>(lengths),
-      static_cast<bool*>(overflowed), static_cast<int64_t*>(steps));
+      static_cast<bool*>(overflowed), static_cast<int64_t*>(steps),
+      static_cast<const float*>(prob), static_cast<const int32_t*>(alias));
   return int(cudaGetLastError());
 }

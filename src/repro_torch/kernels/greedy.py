@@ -1,7 +1,8 @@
 """CUDA wrappers of the fused greedy max-coverage (``csrc/greedy.cu``): one
 cooperative launch runs all k seed steps of the ``flat`` selection (paper
-Alg. 7) on the exact pool (:func:`greedy_flat`), or of the approximate
-mode's greedy on the coverage sketch (:func:`greedy_sketch`).
+Alg. 7) on the exact pool (:func:`greedy_flat`), of the problem variants'
+greedy on the same pool (:func:`greedy_flat_variant`), or of the
+approximate mode's greedy on the coverage sketch (:func:`greedy_sketch`).
 
 :func:`greedy_flat` computes what ``kernels/ref.py::greedy_flat_ref``
 computes, seeds and gains byte for byte (the kernel's note says how).  It
@@ -12,7 +13,9 @@ of them and builds the pool's indices inside the launch), launches through
 a :class:`_build.Kernel` on PyTorch's current stream of the tensors' card
 (:func:`_build.raw_stream`), raises on a launch error and adds one to its
 entry in :data:`LAUNCHES`.  It reads nothing back, so a selection makes
-no host sync and one device operation.
+no host sync and one device operation.  :func:`greedy_flat_variant` does
+the same for ``kernels/ref.py::greedy_flat_variant_ref``, with the
+candidate bytes, costs and budget, and the groups' quotas.
 
 :func:`greedy_sketch` computes what ``kernels/ref.py::greedy_sketch_ref``
 computes, byte for byte, likewise on CUDA tensors only: it checks the
@@ -36,7 +39,7 @@ import torch
 from repro_torch.kernels import _build
 
 # launches since the last reset (see ops.reset_launch_counts)
-LAUNCHES = {"greedy_flat": 0, "greedy_sketch": 0}
+LAUNCHES = {"greedy_flat": 0, "greedy_flat_variant": 0, "greedy_sketch": 0}
 
 # csrc/greedy.cu: threads a block; the grid is a block on every SM
 THREADS = 512
@@ -46,13 +49,17 @@ _vp, _i32, _i64, _int = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
 _GREEDY = _build.Kernel("greedy", "greedy_flat",
                         (_vp, _vp, _vp, _i64, _i32, _i64, _i32, _vp, _i64,
                          _vp, _int, _vp))
+_VARIANT = _build.Kernel("greedy", "greedy_flat_variant",
+                         (_vp, _vp, _vp, _i64, _i32, _i64, _i32, _vp, _vp,
+                          ctypes.c_float, _i32, _i32, _i32, _vp, _i64, _vp,
+                          _vp, _int, _vp))
 _FLAT_GRID = _build.Kernel("greedy", "greedy_flat_grid",
                            (_int, ctypes.POINTER(_int),
                             ctypes.POINTER(_i64)))
 _BARRIERS = _build.Kernel("greedy", "greedy_grid_barriers", (_i32, _int, _vp))
 _SKETCH = _build.Kernel("greedy", "greedy_sketch",
                         (_vp, _i32, _i32, _int, _int, _int, _int, _i32, _vp,
-                         _vp, _int, _vp))
+                         _vp, _vp, _int, _vp))
 _SKETCH_GRID = _build.Kernel("greedy", "greedy_sketch_grid",
                              (_int, ctypes.POINTER(_int),
                               ctypes.POINTER(_i64)))
@@ -61,38 +68,58 @@ _SKETCH_GRID = _build.Kernel("greedy", "greedy_sketch_grid",
 class FlatLayout(NamedTuple):
     """Where :func:`greedy_flat`'s per-block state lives: block b owns the
     nodes [b * slots, (b + 1) * slots) below n, and keeps their list
-    starts and Occur and a Covered of ``cov_words`` words in dynamic shared
-    memory when ``shared``, else in the scratch."""
+    starts and Occur and a Covered of ``cov_words`` words (and, in
+    :func:`greedy_flat_variant`, its :func:`variant_words`) in dynamic
+    shared memory when ``shared``, else in the scratch."""
     slots: int
     cov_words: int
     shared: bool
 
 
-def flat_layout(n: int, num_rows: int, blocks: int,
-                shared_bytes: int) -> FlatLayout:
+def variant_words(slots: int, n_group: int | None,
+                  n_groups: int) -> tuple[int, int]:
+    """A block's extra words in :func:`greedy_flat_variant` (none without
+    groups): a blocked bit a slice node, and the quotas of the groups a
+    slice of ``slots`` nodes meets (at most ``(slots - 1) // n_group +
+    2``)."""
+    if n_group is None:
+        return 0, 0
+    return -(-slots // 32), min(n_groups, (slots - 1) // n_group + 2)
+
+
+def flat_layout(n: int, num_rows: int, blocks: int, shared_bytes: int,
+                n_group: int | None = None, n_groups: int = 1) -> FlatLayout:
     """:class:`FlatLayout` on a grid of ``blocks`` whose dynamic shared
     memory holds ``shared_bytes``: shared when the blocks' base table (4
     bytes a block), a block's list starts (slots + 1), Occur (slots) and
-    Covered words (4 bytes each) fit."""
+    Covered words (4 bytes each) fit, with, given the variant's groups of
+    ``n_group`` ids, its :func:`variant_words`."""
     slots = -(-n // blocks)
     cov_words = -(-num_rows // 32)
-    shared = 4 * (blocks + 2 * slots + 1 + cov_words) <= shared_bytes
+    extra = sum(variant_words(slots, n_group, n_groups))
+    shared = 4 * (blocks + 2 * slots + 1 + cov_words + extra) <= shared_bytes
     return FlatLayout(slots, cov_words, shared)
 
 
 def flat_scratch_bytes(n: int, num_rows: int, t: int, k: int, blocks: int,
-                       shared_bytes: int) -> int:
-    """Scratch of one :func:`greedy_flat` launch over ``t`` elements: the
-    blocks' step records (16 bytes a block a step), the t list entries'
-    row spans (8 bytes each), count and cursor (n int32 each), row_start
-    (num_rows + 1), nodes and inv_rows (t each) and the blocks' sums (one
-    each), then, when the blocks' state is not in shared memory, each
-    block's list starts, Occur and Covered words."""
-    lay = flat_layout(n, num_rows, blocks, shared_bytes)
-    fixed = 16 * k * blocks + 8 * t + 4 * (2 * n + num_rows + 1 + 2 * t
-                                           + blocks)
+                       shared_bytes: int, n_group: int | None = None,
+                       n_groups: int = 1) -> int:
+    """Scratch of one :func:`greedy_flat` launch over ``t`` elements (or
+    :func:`greedy_flat_variant`'s, given its groups): the blocks' step
+    records (16 bytes a block a step, 24 in the variant), the t list
+    entries' row spans (8 bytes each), count and cursor (n int32 each),
+    row_start (num_rows + 1), nodes and inv_rows (t each) and the blocks'
+    sums (one each), then, when the blocks' state is not in shared memory,
+    each block's list starts, Occur and Covered words (and the variant's
+    words)."""
+    lay = flat_layout(n, num_rows, blocks, shared_bytes, n_group, n_groups)
+    record = 16 if n_group is None else 24
+    fixed = record * k * blocks + 8 * t + 4 * (2 * n + num_rows + 1 + 2 * t
+                                               + blocks)
     return fixed if lay.shared else \
-        fixed + 4 * blocks * (2 * lay.slots + 1 + lay.cov_words)
+        fixed + 4 * blocks * (2 * lay.slots + 1 + lay.cov_words
+                              + sum(variant_words(lay.slots, n_group,
+                                                  n_groups)))
 
 
 def _check(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor, *,
@@ -140,6 +167,54 @@ def greedy_flat(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
     _build.raise_on(err, "greedy_flat")
     LAUNCHES["greedy_flat"] += 1
     return out[0], out[1]
+
+
+def greedy_flat_variant(flat: torch.Tensor, ids: torch.Tensor,
+                        valid: torch.Tensor, *, n: int, num_rows: int, k: int,
+                        cand: torch.Tensor, costs: torch.Tensor | None,
+                        budget: float, n_group: int, n_groups: int,
+                        group_quota: int):
+    """``k`` steps of the problem variants' greedy on the card:
+    :func:`greedy_flat`'s pool, an (n,) bool candidate mask ``cand``, (n,)
+    float32 ``costs`` or None (no budget), the float32 ``budget`` and
+    groups of ``n_group`` ids (``n_group * n_groups >= n``) of
+    ``group_quota`` seeds each -> ``(seeds (k,) int32, gains (k,) int32,
+    spent () float32)``, as ``ref.greedy_flat_variant_ref``."""
+    n, num_rows, k = int(n), int(num_rows), int(k)
+    n_group, n_groups, quota = int(n_group), int(n_groups), int(group_quota)
+    _check(flat, ids, valid, n=n, num_rows=num_rows, k=k)
+    dev = flat.device
+    if cand.device != dev or cand.dtype != torch.bool or \
+            cand.shape != (n,) or not cand.is_contiguous():
+        raise ValueError(f"cand must be a contiguous ({n},) bool tensor on "
+                         f"{dev}")
+    if costs is not None and (costs.device != dev or
+                              costs.dtype != torch.float32 or
+                              costs.shape != (n,) or
+                              not costs.is_contiguous()):
+        raise ValueError(f"costs must be a contiguous ({n},) float32 tensor "
+                         f"on {dev}")
+    if not 1 <= n_group < 1 << 31 or not 1 <= n_groups < 1 << 31 or \
+            n_group * n_groups < n or not 0 <= quota < 1 << 31:
+        raise ValueError(f"groups of {n_group} ids x {n_groups} must cover "
+                         f"{n} nodes, quota {quota} >= 0")
+    index = flat.get_device()
+    blocks, shared_bytes = _flat_grid(index)
+    t = flat.shape[0]
+    out = torch.empty(2 * k + 1, dtype=torch.int32, device=dev)
+    spent = out[2 * k:].view(torch.float32)
+    size = flat_scratch_bytes(n, num_rows, t, k, blocks, shared_bytes,
+                              n_group, n_groups)
+    scratch = torch.empty(size, dtype=torch.uint8, device=dev)
+    err = _VARIANT(flat.data_ptr(), ids.data_ptr(), valid.data_ptr(), t, n,
+                   num_rows, k, cand.data_ptr(),
+                   None if costs is None else costs.data_ptr(),
+                   float(budget), n_group, n_groups, quota,
+                   scratch.data_ptr(), size, out.data_ptr(), spent.data_ptr(),
+                   index, _build.raw_stream(index))
+    _build.raise_on(err, "greedy_flat_variant")
+    LAUNCHES["greedy_flat_variant"] += 1
+    return out[:k], out[k:2 * k], spent[0]
 
 
 def device_index(device) -> int:
@@ -274,11 +349,12 @@ def _sketch_grid(index: int) -> tuple[int, int]:
     return blocks.value, words.value
 
 
-def greedy_sketch(words: torch.Tensor, *, n: int, k: int):
+def greedy_sketch(words: torch.Tensor, *, n: int, k: int,
+                  cand: torch.Tensor | None = None):
     """``k`` steps of the approximate mode's greedy on the card: a
-    contiguous (R, W) int32 sketch whose rows ``v < n`` are the nodes' ->
-    ``(seeds (k,), gains (k,), steps (1,))`` int32, as
-    ``ref.greedy_sketch_ref``."""
+    contiguous (R, W) int32 sketch whose rows ``v < n`` are the nodes',
+    and an (n,) bool candidate mask ``cand`` or None -> ``(seeds (k,),
+    gains (k,), steps (1,))`` int32, as ``ref.greedy_sketch_ref``."""
     n, k = int(n), int(k)
     _build.check_words(words, "sketch words")
     r, w = words.shape
@@ -286,6 +362,12 @@ def greedy_sketch(words: torch.Tensor, *, n: int, k: int):
         raise ValueError(f"need 1 <= n <= {r} rows, n < 2^31 - 1, k >= 1 "
                          f"and fewer than 2^26 words a row, got n {n}, k "
                          f"{k}, {w} words")
+    if cand is not None and (cand.device != words.device or
+                             cand.dtype != torch.bool or
+                             cand.shape != (n,) or
+                             not cand.is_contiguous()):
+        raise ValueError(f"cand must be a contiguous ({n},) bool tensor on "
+                         f"{words.device}")
     index = words.get_device()
     blocks, shared_words = _sketch_grid(index)
     lay = sketch_layout(w, words.data_ptr() % 16 == 0, n=n, blocks=blocks,
@@ -296,6 +378,7 @@ def greedy_sketch(words: torch.Tensor, *, n: int, k: int):
                           dtype=torch.uint8, device=words.device)
     err = _SKETCH(words.data_ptr(), n, w, lay.lanes, int(lay.vector),
                   SKETCH_FORMS.index(lay.form), lay.rows, k,
+                  None if cand is None else cand.data_ptr(),
                   scratch.data_ptr(), out.data_ptr(), index,
                   _build.raw_stream(index))
     _build.raise_on(err, "greedy_sketch")

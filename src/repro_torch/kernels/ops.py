@@ -136,17 +136,19 @@ def bernoulli_edges(weights: torch.Tensor, seeds) -> torch.Tensor:
 
 def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
               weights: torch.Tensor, seed32: int, batch: int, *, qcap: int,
-              ec: int):
+              ec: int, table=None):
     """One sampling round of the queue sampler with round seed ``seed32``
-    and ``batch`` lanes: every lane's row seed and root, and its BFS on the
-    reverse CSR to its end -> (queue (B, qcap) int32, lengths (B,) int32,
-    overflowed (B,) bool, steps (B,) int64, roots (B,) int32); the same
-    bytes on either route (``ref.queue_round_ref`` says what they hold)."""
+    and ``batch`` lanes: every lane's row seed and root (∝ the weights of
+    the alias ``table``, a ``(prob, alias)`` pair, when one is given), and
+    its BFS on the reverse CSR to its end -> (queue (B, qcap) int32,
+    lengths (B,) int32, overflowed (B,) bool, steps (B,) int64, roots (B,)
+    int32); the same bytes on either route (``ref.queue_round_ref`` says
+    what they hold)."""
     if _route(offsets) == "cuda":
         return _queue.queue_bfs(offsets, indices, weights, seed32, batch,
-                                qcap=qcap, ec=ec)
+                                qcap=qcap, ec=ec, table=table)
     return _ref.queue_round_ref(offsets, indices, weights, seed32, batch,
-                                qcap=qcap, ec=ec)
+                                qcap=qcap, ec=ec, table=table)
 
 
 def greedy_flat(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
@@ -163,14 +165,38 @@ def greedy_flat(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
                                 k=k)
 
 
-def greedy_sketch(words: torch.Tensor, *, n: int, k: int):
+def greedy_flat_variant(flat: torch.Tensor, ids: torch.Tensor,
+                        valid: torch.Tensor, *, n: int, num_rows: int,
+                        k: int, cand: torch.Tensor,
+                        costs: torch.Tensor | None, budget: float,
+                        n_group: int, n_groups: int, group_quota: int):
+    """``k`` steps of the problem variants' greedy on a flat pool (the
+    pool of :func:`greedy_flat`): candidates ``cand`` (n,) bool, float32
+    ``costs`` (n,) and ``budget`` (``costs`` None: no budget), group
+    quotas -> ``(seeds (k,) int32, gains (k,) int32, spent () float32)``;
+    the same bytes on either route (``ref.greedy_flat_variant_ref`` says
+    what they hold)."""
+    if _route(flat) == "cuda":
+        return _greedy.greedy_flat_variant(
+            flat, ids, valid, n=n, num_rows=num_rows, k=k, cand=cand,
+            costs=costs, budget=budget, n_group=n_group, n_groups=n_groups,
+            group_quota=group_quota)
+    return _ref.greedy_flat_variant_ref(
+        flat, ids, valid, n=n, num_rows=num_rows, k=k, cand=cand,
+        costs=costs, budget=budget, n_group=n_group, n_groups=n_groups,
+        group_quota=group_quota)
+
+
+def greedy_sketch(words: torch.Tensor, *, n: int, k: int,
+                  cand: torch.Tensor | None = None):
     """``k`` steps of the approximate mode's greedy on an (R, W) int32
-    sketch whose rows ``v < n`` are the nodes' -> (seeds (k,), gains (k,),
+    sketch whose rows ``v < n`` are the nodes', restricted to the (n,) bool
+    candidate mask ``cand`` when one is given -> (seeds (k,), gains (k,),
     steps (1,)) int32; the same bytes on either route
     (``ref.greedy_sketch_ref`` says what they hold)."""
     if _route(words) == "cuda":
-        return _greedy.greedy_sketch(words, n=n, k=k)
-    return _ref.greedy_sketch_ref(words, n=n, k=k)
+        return _greedy.greedy_sketch(words, n=n, k=k, cand=cand)
+    return _ref.greedy_sketch_ref(words, n=n, k=k, cand=cand)
 
 
 def celf_select(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,

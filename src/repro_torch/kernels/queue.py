@@ -5,7 +5,8 @@ lane's BFS to its end.
 :func:`queue_bfs` computes what ``kernels/ref.py::queue_round_ref``
 computes, byte for byte (the kernel's note says how).  It takes CUDA
 tensors only; ``kernels/ops.py`` routes CPU tensors to the plain version.
-It checks its inputs, allocates the outputs (the kernel writes every byte
+It checks its inputs (an alias table's ``prob`` and ``alias`` too, when
+the roots are weighted), allocates the outputs (the kernel writes every byte
 of them, the zeros of the queue rows included), puts the visited bits in
 shared memory when they fit (:func:`visited_in_shared`) and else allocates
 a global scratch, launches through a :class:`_build.Kernel` on PyTorch's
@@ -36,7 +37,7 @@ _vp, _i64 = ctypes.c_void_p, ctypes.c_int64
 _BFS = _build.Kernel("queue", "queue_bfs",
                      (_vp, _vp, _vp, ctypes.c_uint32, _i64, ctypes.c_int32,
                       ctypes.c_int32, _i64, _vp, _vp, _vp, _vp, _vp, _vp,
-                      ctypes.c_int, _vp))
+                      _vp, _vp, ctypes.c_int, _vp))
 
 
 def visited_in_shared(n: int) -> bool:
@@ -57,12 +58,15 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, dev) -> None:
 
 def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
               weights: torch.Tensor, seed32: int, batch: int, *, qcap: int,
-              ec: int):
+              ec: int, table=None):
     """One round of the queue sampler on the card.
 
     ``offsets`` (n+1,) int32, ``indices`` (m,) int32 and ``weights`` (m,)
     float32 are a reverse CSR with simple rows, n >= 1; ``seed32`` the
-    round's seed (taken mod 2^32), ``batch`` the lanes.  Returns ``(queue
+    round's seed (taken mod 2^32), ``batch`` the lanes; ``table`` None
+    (uniform roots) or an alias table ``(prob (n,) float32, alias (n,)
+    int32)`` (``core/roots.py``) whose weights the roots follow.  Returns
+    ``(queue
     (B, qcap) int32, lengths (B,) int32, overflowed (B,) bool, steps (B,)
     int64, roots (B,) int32)``: lane b's RR set is ``queue[b,
     :lengths[b]]`` in visit order, zeros after it, from root ``roots[b]``;
@@ -87,6 +91,15 @@ def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
     if not 1 <= qcap < 1 << 31 or ec < 1:
         raise ValueError(f"need 1 <= qcap < 2^31 and ec >= 1, got qcap "
                          f"{qcap}, ec {ec}")
+    prob = alias = None
+    if table is not None:
+        prob, alias = table
+        _check(prob, "prob", torch.float32, dev)
+        _check(alias, "alias", torch.int32, dev)
+        if prob.shape[0] != n or alias.shape[0] != n:
+            raise ValueError(f"an alias table over {n} nodes wants (n,) "
+                             f"prob and alias, got {tuple(prob.shape)} and "
+                             f"{tuple(alias.shape)}")
     queue = torch.empty(batch, qcap, dtype=torch.int32, device=dev)
     visited = None if visited_in_shared(n) else torch.empty(
         batch, (n + 31) // 32, dtype=torch.int32, device=dev)
@@ -101,7 +114,9 @@ def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
                    queue.data_ptr(),
                    None if visited is None else visited.data_ptr(),
                    roots.data_ptr(), lengths.data_ptr(),
-                   overflowed.data_ptr(), steps.data_ptr(), index,
+                   overflowed.data_ptr(), steps.data_ptr(),
+                   None if prob is None else prob.data_ptr(),
+                   None if alias is None else alias.data_ptr(), index,
                    _build.raw_stream(index))
         _build.raise_on(err, "queue_bfs")
         LAUNCHES["queue_bfs"] += 1

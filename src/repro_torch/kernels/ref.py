@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.packing import bit_values, to_int32_bits
 from repro_torch.core.roots import draw_roots, row_seeds
+from repro_torch.core.variant import VariantScan
 from repro_torch.kernels.bernoulli import MASK32, counter_uniform_u32, mul_u32
 from repro_torch.kernels.sketch import (canonical_row_ids, check_fold,
                                         frontier_pairs)
@@ -172,14 +173,15 @@ def queue_bfs_ref(offsets: torch.Tensor, indices: torch.Tensor,
 
 def queue_round_ref(offsets: torch.Tensor, indices: torch.Tensor,
                     weights: torch.Tensor, seed32: int, batch: int, *,
-                    qcap: int, ec: int):
+                    qcap: int, ec: int, table=None):
     """One round of the queue sampler with round seed ``seed32``: the plain
     version of ``csrc/queue.cu``.  The ``batch`` row seeds
-    (``core/roots.py::row_seeds``) and roots (``draw_roots``), then
-    :func:`queue_bfs_ref` on them.  Returns ``queue_bfs_ref``'s four
-    tensors and the (B,) int32 roots."""
+    (``core/roots.py::row_seeds``) and roots (``draw_roots``, ∝ the
+    weights of the alias ``table``, a ``(prob, alias)`` pair, when one is
+    given), then :func:`queue_bfs_ref` on them.  Returns
+    ``queue_bfs_ref``'s four tensors and the (B,) int32 roots."""
     seeds = row_seeds(seed32, batch, offsets.device)
-    roots = draw_roots(seeds, offsets.shape[0] - 1)
+    roots = draw_roots(seeds, offsets.shape[0] - 1, table)
     return (*queue_bfs_ref(offsets, indices, weights, seeds, roots,
                            qcap=qcap, ec=ec), roots)
 
@@ -282,6 +284,54 @@ def greedy_flat_ref(flat: torch.Tensor, ids: torch.Tensor,
         seeds.append(u)
     return (torch.stack(seeds).to(torch.int32),
             torch.stack(gains).to(torch.int32))
+
+
+def greedy_flat_variant_ref(flat: torch.Tensor, ids: torch.Tensor,
+                            valid: torch.Tensor, *, n: int, num_rows: int,
+                            k: int, cand: torch.Tensor,
+                            costs: torch.Tensor | None, budget: float,
+                            n_group: int, n_groups: int, group_quota: int):
+    """The generalised greedy of the problem variants on a flat pool: the
+    reference's ``fused_variant`` scan (``repro.core.coverage``, unweighted)
+    step for step, the plain version of ``csrc/greedy.cu``'s
+    ``greedy_flat_variant``.
+
+    The pool is :func:`greedy_flat_ref`'s.  ``cand`` is an (n,) bool mask,
+    ``costs`` (n,) float32 or None (no budget), ``budget`` the float32
+    budget, and nodes fall into groups of ``n_group`` (``n_group *
+    n_groups >= n``), each of which may give ``group_quota`` seeds.  Step
+    s: a node is feasible when it is a candidate, its group has quota left
+    and it is not picked yet, and with costs also when ``costs[v] <=
+    budget - spent`` and its Occur is positive.  Without costs the step
+    takes the first maximum of Occur over the feasible nodes (Occur 0
+    included); with costs the first maximum of ``float32(Occur) / cost``.
+    A step with no feasible node takes the sentinel n, gains 0 and changes
+    nothing.  Otherwise its gain is the rows it newly covers, its group
+    loses one of its quota, and ``spent`` gains its cost (float32, in step
+    order).  Returns ``(seeds (k,) int32, gains (k,) int32, spent ()
+    float32)``."""
+    flat = flat.to(torch.int64)
+    ids = ids.to(torch.int64)
+    dev = flat.device
+    occur = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
+        0, flat, valid.to(torch.int32))[:n]
+    cov = torch.zeros(num_rows // 32, dtype=torch.int32, device=dev)
+    scan = VariantScan(n, cand, costs, budget, n_group, n_groups, group_quota)
+    seeds, gains = [], []
+    for _ in range(k):
+        u, ok = scan.pick(occur)
+        newly = _newly_rows(flat, ids, valid, _unpack_covered(cov), u)
+        new_words = _pack_covered(newly)
+        gains.append(popcount_words_ref(new_words.view(1, -1)).sum())
+        elem_newly = (newly[ids] & valid).to(torch.int32)
+        occur = occur - torch.zeros(n + 1, dtype=torch.int32,
+                                    device=dev).index_add_(
+            0, flat, elem_newly)[:n]
+        scan.commit(u, ok)
+        cov = cov | new_words
+        seeds.append(u)
+    return (torch.stack(seeds).to(torch.int32),
+            torch.stack(gains).to(torch.int32), scan.spent)
 
 
 def _celf_pool(flat, ids, valid, cov_words):
@@ -550,21 +600,24 @@ def sketch_union_popcount_ref(words: torch.Tensor,
                                                         dtype=torch.int32)
 
 
-def greedy_sketch_ref(words: torch.Tensor, *, n: int, k: int):
+def greedy_sketch_ref(words: torch.Tensor, *, n: int, k: int,
+                      cand: torch.Tensor | None = None):
     """The approximate mode's greedy on sketch estimates: (R, W) int32
     sketch words whose rows ``v < n`` are the nodes' -> ``(seeds (k,),
     gains (k,), steps (1,))`` int32.
 
-    cov starts at zero.  Step s: ``delta(v) = popcount(words[v] | cov) -
-    popcount(cov)``; the first maximum of delta over the nodes not picked
-    yet (``torch.argmax``: the lowest id on ties) is seed s with gain
-    delta, and cov takes its row.  With no node left the greedy stops: the
-    steps not taken hold seed n and gain 0, and ``steps`` counts the steps
-    taken.  One host read a step."""
+    cov starts at zero, and the picked set at the nodes outside the (n,)
+    bool candidate mask ``cand`` (empty without one).  Step s: ``delta(v)
+    = popcount(words[v] | cov) - popcount(cov)``; the first maximum of
+    delta over the nodes not picked yet (``torch.argmax``: the lowest id on
+    ties) is seed s with gain delta, it is picked, and cov takes its row.
+    With no node left the greedy stops: the steps not taken hold seed n and
+    gain 0, and ``steps`` counts the steps taken.  One host read a step."""
     dev = words.device
     rows = words[:n]
     cov = torch.zeros(words.shape[1], dtype=torch.int32, device=dev)
-    picked = torch.zeros(n, dtype=torch.bool, device=dev)
+    picked = (torch.zeros(n, dtype=torch.bool, device=dev) if cand is None
+              else ~cand.to(device=dev, dtype=torch.bool))
     out = torch.zeros(2 * k + 1, dtype=torch.int32, device=dev)
     out[:k] = n
     base = steps = 0

@@ -424,10 +424,16 @@ def test_select_layout_takes_the_list_path_at_small_batches(c, t, lst, shared,
 
 
 def test_select_seeds_celf_variants_not_ported():
+    """The CELF variant is ported (tests/test_torch_variants.py) but for
+    the row-weighted store's spec, which raises naming its item."""
     port = tcov.DeviceRRStore(4, device=CPU)
     port.append_batch((np.array([[0, 1]]), np.array([2])))
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tcov.select_seeds_celf(port, 1, spec=object())
+        tcov.select_seeds_celf(port, 1, spec=tcov.SelectionSpec(
+            k_steps=1, n_group=4, weighted=True))
+    res = tcov.select_seeds_celf(port, 1, spec=tcov.SelectionSpec(
+        k_steps=1, n_group=4, cand=np.array([0, 1, 0, 0], bool)))
+    assert res.seeds.tolist() == [1] and res.gains.tolist() == [1]
 
 
 # ------------------------------------------------ the exact store's sketch

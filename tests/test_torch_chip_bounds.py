@@ -558,15 +558,34 @@ PROFILER_ALSO = {
                         "char*)"],
     "queue_bfs": ["void (anonymous namespace)::queue_bfs_kernel(int const*, "
                   "int const*, float const*, unsigned int, int, int, long, "
-                  "long, int*, unsigned int*, int*, int*, bool*, long*)"],
-    "greedy_flat": ["void (anonymous namespace)::greedy_flat_kernel<true>"
-                    "(int const*, int const*, unsigned char const*, long, "
-                    "int, long, int, int, int, unsigned long long*, int*, "
-                    "int*, int*, int*, int*, int*, int*, int*)",
-                    "void (anonymous namespace)::greedy_flat_kernel<false>"
-                    "(int const*, int const*, unsigned char const*, long, "
-                    "int, long, int, int, int, unsigned long long*, int*, "
-                    "int*, int*, int*, int*, int*, int*, int*)"],
+                  "long, int*, unsigned int*, int*, int*, bool*, long*, "
+                  "float const*, int const*)"],
+    "greedy_flat": ["void (anonymous namespace)::greedy_flat_kernel<true, "
+                    "false>(int const*, int const*, unsigned char const*, "
+                    "long, int, long, int, int, int, unsigned long long*, "
+                    "int*, int*, int*, int*, int*, int*, int*, int*, "
+                    "(anonymous namespace)::VariantArgs)",
+                    "void (anonymous namespace)::greedy_flat_kernel<false, "
+                    "false>(int const*, int const*, unsigned char const*, "
+                    "long, int, long, int, int, int, unsigned long long*, "
+                    "int*, int*, int*, int*, int*, int*, int*, int*, "
+                    "(anonymous namespace)::VariantArgs)",
+                    "_ZN40_GLOBAL__N__greedy_cu18greedy_flat_kernelILb1ELb0E"
+                    "EEvPKiS2_PKhlilii"],
+    "greedy_flat_variant": ["void (anonymous namespace)::greedy_flat_kernel"
+                            "<true, true>(int const*, int const*, unsigned "
+                            "char const*, long, int, long, int, int, int, "
+                            "unsigned long long*, int*, int*, int*, int*, "
+                            "int*, int*, int*, int*, (anonymous namespace)::"
+                            "VariantArgs)",
+                            "void (anonymous namespace)::greedy_flat_kernel"
+                            "<false, true>(int const*, int const*, unsigned "
+                            "char const*, long, int, long, int, int, int, "
+                            "unsigned long long*, int*, int*, int*, int*, "
+                            "int*, int*, int*, int*, (anonymous namespace)::"
+                            "VariantArgs)",
+                            "_ZN40_GLOBAL__N__greedy_cu18greedy_flat_kernel"
+                            "ILb0ELb1EEEvPKiS2_PKhlilii"],
     "greedy_sketch": ["void (anonymous namespace)::greedy_sketch_kernel"
                       "<2, false, 1>(unsigned int const*, int, int, int, "
                       "bool, int, int, (anonymous namespace)::SketchRecord*, "
@@ -759,6 +778,99 @@ def test_greedy_bound_counts_the_pool_and_the_steps(h100):
     assert scratch["working_bytes"] == b["working_bytes"] + 4 * 6 * 2
 
 
+@pytest.mark.parametrize("use_costs", [False, True])
+def test_greedy_variant_bound_counts_a_bit_and_a_key_a_node(h100, use_costs):
+    """Seeds 2, 4 and then the sentinel 6 (k = 3, three steps run) on the
+    tiny pool: bytes add the 6 candidate bytes (and the 6 costs, 4 bytes
+    each) and spent to greedy_bound's; operations are a blocked-bit test
+    and a key compare a node a step and the 6 decrements on the ALU, and
+    with costs a float32 compare a node a step plus a conversion (XU) and
+    a divide (float32) for the 6 first scores and the 6 decremented
+    elements, so the conversions then bound it."""
+    import torch
+    flat, ids, valid = _greedy_pool()
+    seeds = torch.tensor([2, 4, 6], dtype=torch.int32)
+    b = smoke.greedy_variant_bound(flat, ids, valid, seeds, n=6, num_rows=32,
+                                   k=3, use_costs=use_costs, blocks=3,
+                                   shared=True)
+    assert b["steps_run"] == 3 and b["picks"] == 2
+    assert b["decremented_elements"] == 6
+    per_node = 5 if use_costs else 1
+    assert b["bound_bytes_ms"] == pytest.approx(
+        (9 * 7 + 8 * 3 + 4 + 6 * per_node) / 3.35e9)
+    rate = H100_SMS * H100_MHZ * 1e6
+    alu = 2 * 3 * 6 + 6
+    if use_costs:
+        assert b["bound_ops_class"] == "xu"
+        assert b["bound_ops_ms"] == pytest.approx((6 + 6) / (16 * rate) * 1e3)
+        assert b["bound_ops_ms"] > (alu + 3 * 6 + 6 + 6 + 6 + 6) \
+            / (128 * rate) * 1e3
+    else:
+        assert b["bound_ops_class"] == "alu"
+        assert b["bound_ops_ms"] == pytest.approx(alu / (64 * rate) * 1e3)
+    assert b["working_exchange_bytes"] == 24 * 3 * 3 * 4
+
+
+def test_masked_sketch_bound_counts_the_candidate_rows(h100):
+    """Three node rows of two words, one candidate, k = 2 and both steps
+    counted: bytes are the candidate's 2 words, the 5 outputs and the 3
+    mask bytes; each step an OR and an add a candidate word and a compare
+    a candidate row on the ALU and a popcount a candidate word (which set
+    the time); the sweeps stay the design's, over all 3 rows."""
+    b = smoke.masked_sketch_bound(3, 2, 2, 2, 1)
+    assert b["bound_bytes_ms"] == pytest.approx((4 * 2 + 4 * 5 + 3) / 3.35e9)
+    assert b["bound_ops_class"] == "xu"
+    assert b["bound_ops_ms"] == pytest.approx(
+        2 * 2 / (H100_SMS * 16 * H100_MHZ * 1e6) * 1e3)
+    assert b["sweep_bytes"] == 2 * 4 * 6 and b["bound_rows"] == 1
+
+
+def test_masked_sketch_bound_at_the_variant_cell(h100):
+    """75,879 rows of 4 words with every third node a candidate (25,293),
+    50 steps: the candidates' popcounts bound it at about 1.21 us, a third
+    of the unmasked greedy's 3.63 us."""
+    b = smoke.masked_sketch_bound(75_879, 4, 50, 50, 25_293)
+    assert b["bound_by"] == "operations" and b["bound_ops_class"] == "xu"
+    assert b["bound_ms"] == pytest.approx(0.0012097, rel=1e-3)
+    assert b["sweep_bytes"] == 60_703_200
+
+
+def test_celf_variant_batch_is_the_eval_call_after_the_commits():
+    """The batch that chip_smoke times celf_eval on: the CELF variant's
+    first eval call after 3 commits, padded to 32 ids, on the Covered
+    words of the first 3 seeds' commits; the ops are restored after."""
+    import torch
+    from repro_torch.core import coverage as cov
+    from repro_torch.kernels import ops, ref
+    n, rows = 200, 300
+    rng = np.random.default_rng(5)
+    lens = rng.integers(1, 12, rows)
+    nodes = np.full((rows, 12), n, np.int64)
+    for i, ln in enumerate(lens):
+        nodes[i, :ln] = rng.choice(n, size=ln, replace=False)
+    store = cov.DeviceRRStore(n, sketch_k=256, device="cpu")
+    store.append_batch((torch.tensor(nodes), torch.tensor(lens)))
+    costs = (1 + np.arange(n) % 5).astype(np.float32)
+    spec = cov.SelectionSpec(k_steps=20, n_group=n, group_quota=20,
+                             cand=np.arange(n) % 2 == 0, costs=costs,
+                             budget=20.0)
+    seeds = cov.select_seeds_celf(store, 0, spec=spec).seeds.tolist()
+    assert len(seeds) > 3
+    eval_fn, apply_fn = ops.celf_eval, ops.celf_apply
+    seen, cands = smoke.celf_variant_batch(store, spec, 3)
+    assert ops.celf_eval is eval_fn and ops.celf_apply is apply_fn
+    t = store.n_elems
+    pool = (store.flat[:t], store.ids[:t], store.valid[:t])
+    want = torch.zeros(store.row_capacity() // 32, dtype=torch.int32)
+    for u in seeds[:3]:
+        ref.celf_apply_ref(*pool, want, u)
+    assert torch.equal(seen, want)
+    assert cands.dtype == torch.int32 and cands.numel() == 32
+    live = cands[cands >= 0].numpy()
+    assert len(set(live.tolist())) == len(live) and spec.cand[live].all()
+    assert not np.isin(live, seeds[:3]).any()
+
+
 def test_greedy_pool_args_and_plain_seeds_agree_with_the_bound(h100):
     """pool_args hands the live pool and k = K to the greedy; on the tiny
     pool the plain greedy picks 2 then 4, the seeds the bound was given."""
@@ -812,7 +924,8 @@ def test_greedy_sketch_barrier_floor_counts_one_barrier_a_step():
 
 
 def test_selection_kernel_counts_match_the_sources():
-    """Phase 2's ptxas counts: greedy.cu's two greedy_flat forms, its
+    """Phase 2's ptxas counts: greedy.cu's two greedy_flat forms and
+    greedy_flat_variant's two (state in shared memory or the scratch), its
     barrier floor and greedy_sketch's forms (registers, one kernel for
     1 or REG_ROWS = 2 rows a thread, shared, global with cov in shared
     memory or not); celf.cu's celf_eval, celf_apply and
@@ -821,7 +934,7 @@ def test_selection_kernel_counts_match_the_sources():
     from repro_torch.kernels import celf as tcelf
     from repro_torch.kernels import greedy as tgreedy
     assert tgreedy.REG_ROWS == 2
-    assert smoke.GREEDY_KERNELS == 2 + 1 + 1 + 1 + 2
+    assert smoke.GREEDY_KERNELS == 2 + 2 + 1 + 1 + 1 + 2
     assert tcelf.LIST == 32
     assert smoke.CELF_KERNELS == 2 + 2 * 2
 

@@ -2084,3 +2084,211 @@ def test_celf_select_back_to_back_launches(card):
         want = ref.celf_select_ref(*pool, sketch=sketch, **kw)
         for a, b in zip(got[:3], want):
             assert torch.equal(a.cpu(), b)
+
+
+# ------------------------------------------------------- problem variants
+
+def _alias_table(n, device, kind):
+    """(weights, their alias table on ``device``)."""
+    from repro_torch.core import roots
+    w = {"mod7": np.arange(n) % 7,
+         "sparse": np.isin(np.arange(n), [3, n // 2, n - 1]) * 2.0,
+         "random": np.random.default_rng(n).random(n) ** 3}[kind]
+    w = w.astype(np.float32)
+    return w, roots.build_alias_table(w, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mod7", "sparse", "random"])
+@pytest.mark.parametrize("name,qcap", [("ba200", None), ("ba1500", 5),
+                                       ("hub", None), ("standin", None)])
+def test_queue_kernel_with_a_table_equals_plain(card, name, qcap, kind):
+    """Weighted roots drawn in the launch: the kernel against the plain
+    version with the same alias table, on the card and on the CPU, byte for
+    byte, roots included; every root has a positive weight."""
+    g = _queue_graph(name, card)
+    w, table = _alias_table(g.n_nodes, card, kind)
+    batch = 512 if name == "standin" else 128
+    q = g.n_nodes if qcap is None else qcap
+    args = (g.offsets, g.indices, g.weights, round_seed(7, 2), batch)
+    ops.reset_launch_counts()
+    got = ops.queue_bfs(*args, qcap=q, ec=128, table=table)
+    assert ops.launch_counts()["queue_bfs"] == 1
+    _assert_same_round(got, ref.queue_round_ref(*args, qcap=q, ec=128,
+                                                table=table))
+    if name != "standin":
+        cpu = ref.queue_round_ref(
+            *(x.cpu() for x in args[:3]), *args[3:], qcap=q, ec=128,
+            table=tuple(x.cpu() for x in table))
+        _assert_same_round(tuple(x.cpu() for x in got), cpu)
+    assert (w[got[4].cpu().numpy()] > 0).all()
+
+
+@pytest.mark.cuda
+def test_queue_wrapper_checks_the_table(card):
+    g = _queue_graph("ba200", card)
+    _, table = _alias_table(g.n_nodes, card, "mod7")
+    args = (g.offsets, g.indices, g.weights, 1, 8)
+    with pytest.raises(TypeError):
+        tqueue.queue_bfs(*args, qcap=8, ec=8,
+                         table=(table.prob.double(), table.alias))
+    with pytest.raises(ValueError):
+        tqueue.queue_bfs(*args, qcap=8, ec=8,
+                         table=(table.prob[:-1], table.alias[:-1]))
+    with pytest.raises(ValueError):
+        tqueue.queue_bfs(*args, qcap=8, ec=8,
+                         table=(table.prob.cpu(), table.alias))
+
+
+def _variant_kw(n, case, device):
+    v = torch.arange(n, device=device)
+    costs = (1 + v % 5).to(torch.float32)
+    every = torch.ones(n, dtype=torch.bool, device=device)
+    kw = dict(cand=every, costs=None, budget=float("inf"), n_group=n,
+              n_groups=1)
+    if case == "candidates":
+        kw.update(k=20, cand=v % 3 == 0)
+    elif case == "budget":
+        kw.update(k=40, costs=costs, budget=40.0)
+    elif case == "cand_budget":
+        kw.update(k=30, cand=v % 3 == 0, costs=costs, budget=31.0)
+    elif case == "unit_budget":
+        kw.update(k=12, costs=torch.ones(n, device=device), budget=12.0)
+    elif case == "exhausted":
+        kw.update(k=5, cand=(v == 7) | (v == 9))
+    elif case == "groups":
+        kw.update(k=9, n_group=-(-n // 3), n_groups=3, group_quota=2)
+    elif case == "narrow_groups":
+        kw.update(k=30, n_group=7, n_groups=-(-n // 7), group_quota=1)
+    elif case == "zero_quota":
+        kw.update(k=4, group_quota=0)
+    kw.setdefault("group_quota", kw["k"])
+    return kw
+
+
+_VARIANT_CASES = ["candidates", "budget", "cand_budget", "unit_budget",
+                  "exhausted", "groups", "narrow_groups", "zero_quota"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _VARIANT_CASES)
+@pytest.mark.parametrize("name", ["ragged", "small", "wide", "longrow"])
+def test_greedy_flat_variant_kernel_equals_plain(card, name, case):
+    """The variant scan in one launch against its plain version, seeds,
+    gains and the float32 bytes of spent; no seed repeats, the candidates
+    and group quotas hold."""
+    store = _greedy_store(name, card)
+    args, kw = _store_args(store)
+    vkw = _variant_kw(store.n_nodes, case, card)
+    want = ref.greedy_flat_variant_ref(*args, **kw, **vkw)
+    before = ops.launch_counts()["greedy_flat_variant"]
+    got = tgreedy.greedy_flat_variant(*args, **kw, **vkw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["greedy_flat_variant"] == before + 1
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(x, y), (case, x, y)
+    s = got[0].cpu().numpy()
+    live = s[s < store.n_nodes]
+    assert len(live) == len(set(live.tolist()))
+    assert bool(vkw["cand"][torch.as_tensor(live, device=card)].all())
+    if case in ("groups", "narrow_groups"):
+        quota = np.bincount(live // vkw["n_group"], minlength=vkw["n_groups"])
+        assert quota.max() <= vkw["group_quota"]
+    if case == "zero_quota":
+        assert len(live) == 0
+    if vkw["costs"] is not None:
+        assert float(got[2]) <= vkw["budget"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["candidates", "cand_budget", "groups",
+                                  "narrow_groups"])
+def test_greedy_flat_variant_past_the_shared_layout(card, case):
+    """n = 4,000,000: a block's state no longer fits in shared memory, so
+    it lives in the scratch; the kernel still equals its plain version."""
+    n = 4_000_000
+    rng = np.random.default_rng(4)
+    lens = rng.integers(1, 50, 2000)
+    nodes = np.full((2000, 50), n, np.int64)
+    for i, ln in enumerate(lens):
+        nodes[i, :ln] = rng.choice(n, size=ln, replace=False)
+    store = cov.DeviceRRStore(n, device=card)
+    store.append_batch((torch.tensor(nodes), torch.tensor(lens)))
+    args, kw = _store_args(store)
+    blocks, shared_bytes = tgreedy.flat_grid(card)
+    vkw = _variant_kw(n, case, card)
+    lay = tgreedy.flat_layout(n, kw["num_rows"], blocks, shared_bytes,
+                              vkw["n_group"], vkw["n_groups"])
+    assert not lay.shared
+    got = tgreedy.greedy_flat_variant(*args, **kw, **vkw)
+    want = ref.greedy_flat_variant_ref(*args, **kw, **vkw)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y), case
+
+
+@pytest.mark.cuda
+def test_greedy_flat_variant_wrapper_checks_inputs(card):
+    store = _greedy_store("small", card)
+    args, kw = _store_args(store)
+    n = store.n_nodes
+    vkw = _variant_kw(n, "budget", card)
+    for bad in (dict(cand=vkw["cand"][:-1]), dict(cand=vkw["cand"].int()),
+                dict(costs=vkw["costs"].double()),
+                dict(costs=vkw["costs"].cpu()),
+                dict(n_group=1, n_groups=2)):
+        with pytest.raises(ValueError):
+            tgreedy.greedy_flat_variant(*args, **kw, **{**vkw, **bad})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,form", [
+    (40_000, 1, "registers"), (75_879, 4, "registers"),
+    (135_000, 4, "registers"), (75_879, 5, "shared"),
+    (75_879, 32, "shared"), (75_879, 128, "global"),
+    (75_879, 512, "global")])
+def test_greedy_sketch_masked_forms_equal_plain(card, n, w, form):
+    """The candidate mask on each form of the rows: every third node, two
+    nodes (the greedy runs out, k = 5), and one candidate per block
+    boundary pair, against the plain version byte for byte."""
+    blocks, shared_words = tgreedy.sketch_grid(card)
+    lay = tgreedy.sketch_layout(w, w % 4 == 0, n=n, blocks=blocks,
+                                shared_words=shared_words)
+    assert lay.form == form
+    v = torch.arange(n)
+    masks = {"third": v % 3 == 0, "two": (v == 7) | (v == n - 2),
+             "boundary": v % -(-n // blocks) == 0}
+    for kind in ("random", "sparse"):
+        host = _sketch_words(n + 1, w, kind)
+        for mname, mask in masks.items():
+            k = 5 if mname == "two" else 50
+            got = tgreedy.greedy_sketch(host.to(card), n=n, k=k,
+                                        cand=mask.to(card))
+            want = ref.greedy_sketch_ref(host, n=n, k=k, cand=mask)
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b), (kind, mname, form)
+            s = want[0]
+            assert bool(mask[s[s < n]].all())
+            if mname == "two":
+                assert int(want[2]) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["flat", "bitset", "celf"])
+def test_variant_selections_on_card_equal_cpu(card, method):
+    """The store's variant selections on the card against the same store on
+    the CPU: candidates with a budget, seeds, gains, frac and spent bytes."""
+    outs = {}
+    for dev in (card, torch.device("cpu")):
+        n, batches = _greedy_batches("wide")
+        store = cov.DeviceRRStore(n, sketch_k=256, device=dev)
+        for nodes, lens in batches:
+            store.append_batch((torch.as_tensor(nodes), torch.as_tensor(lens)))
+        costs = (1 + np.arange(n) % 5).astype(np.float32)
+        spec = cov.SelectionSpec(k_steps=25, n_group=n, group_quota=25,
+                                 cand=np.arange(n) % 2 == 0, costs=costs,
+                                 budget=25.0)
+        res = store.select(0, method=method, spec=spec, eval_batch=16)
+        outs[dev.type] = [x.cpu() for x in res]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -112,8 +112,9 @@ def test_imm_wrapper_and_determinism(graphs):
     assert sp1 == sp2 and st1.selection == "auto"
     with pytest.raises(TypeError, match="sketchk"):
         imm(tg, k=4, sketchk=64, device=CPU)
+    # the variants are ported (tests/test_torch_variants.py); MRIM is not
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        imm(tg, k=4, node_weights=np.ones(600), device=CPU)
+        imm(tg, k=4, t_rounds=2, device=CPU)
 
 
 @pytest.mark.parametrize("field,value,item", [
@@ -133,15 +134,28 @@ def test_variant_fields_not_ported(field, value, item):
         for mode in ("exact", "approximate"):
             assert IMProblem(k=1, early_exit=value, mode=mode).early_exit
         return
+    if field in ("node_weights", "candidates"):
+        # ported by Queue 1 item 7: accepted
+        assert getattr(IMProblem(k=1, **{field: value}), field) is value
+        return
+    if field == "budget":
+        # ported by Queue 1 item 7: it replaces k, as in the reference
+        assert IMProblem(budget=value).budget == value
+        with pytest.raises(ValueError, match="exactly one"):
+            IMProblem(k=1, budget=value)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         IMProblem(k=1, **{field: value})
 
 
 def test_candidates_with_approximate_mode_not_ported():
-    """The reference's approximate mode accepts candidates; the port's
-    waits for the candidate mask (Queue 1 item 7)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        IMProblem(k=2, mode="approximate", candidates=[0, 1])
+    """The reference's approximate mode accepts candidates, and so does the
+    port's now (Queue 1 item 7); weights and a budget it refuses, as the
+    reference does."""
+    p = IMProblem(k=2, mode="approximate", candidates=[0, 1])
+    assert p.variant == "candidates"
+    with pytest.raises(ValueError, match="approximate"):
+        IMProblem(k=2, mode="approximate", node_weights=[1.0, 1.0])
 
 
 def test_problem_validation():

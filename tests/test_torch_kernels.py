@@ -130,7 +130,9 @@ def test_ops_dispatch_cpu_and_unknown_device():
                                     "bernoulli_edges": 0,
                                     "membership_rows": 0,
                                     "flash_attention": 0, "queue_bfs": 0,
-                                    "greedy_flat": 0, "greedy_sketch": 0,
+                                    "greedy_flat": 0,
+                                    "greedy_flat_variant": 0,
+                                    "greedy_sketch": 0,
                                     "celf_eval": 0, "celf_apply": 0,
                                     "celf_select": 0, "frontier_update": 0,
                                     "sketch_fold_rows": 0,
