@@ -11,13 +11,14 @@ Phases, each of which raises on failure (non-zero exit):
    ``nvidia-smi`` reports) that the kernels' bounds use;
 2. build: compiles ``csrc/occur.cu``, ``sketch.cu``, ``bitops.cu``,
    ``bernoulli.cu``, ``membership.cu``, ``flashattn.cu``, ``queue.cu``,
-   ``greedy.cu`` and ``celf.cu`` with nvcc for sm_90a, one nvcc per
-   source, started together, and prints each ``-Xptxas -v`` report; the
-   three Occur kernels, the nine of ``greedy.cu`` (:data:`GREEDY_KERNELS`),
-   the six of ``celf.cu`` and the two of ``membership.cu`` must not
-   spill; beside them the stamped copies of ``greedy_sketch`` and
-   ``celf_select`` (``examples/sketch_stamps.cu``, ``celf_stamps.cu``),
-   whose phase splits phases 4, 8 and 14 print;
+   ``greedy.cu``, ``celf.cu`` and ``lt.cu`` with nvcc for sm_90a, one
+   nvcc per source, started together, and prints each ``-Xptxas -v``
+   report; the three Occur kernels, the eleven of ``greedy.cu``
+   (:data:`GREEDY_KERNELS`), the six of ``celf.cu``, the two of
+   ``membership.cu`` and ``lt_walk`` must not spill; beside them the
+   stamped copies of ``greedy_sketch`` and ``celf_select``
+   (``examples/sketch_stamps.cu``, ``celf_stamps.cu``), whose phase
+   splits phases 4, 8 and 14 print;
 3. kernels: both Occur kernels against their plain versions on random
    int32 words of shape (131072, 2372) (bit 31 set in half the words, a
    ~50% row mask); the union popcount at (75880, 512) and (75880, 4) and
@@ -212,7 +213,26 @@ Phases, each of which raises on failure (non-zero exit):
    ``sketch_union_popcount`` (:func:`celf_records`) at the budgeted
    ``celf`` solve's pool and 1,024-bucket sketch, Covered after its first
    10 seeds and the padded batch of 32 its next eval call passes
-   (:func:`celf_variant_batch`).
+   (:func:`celf_variant_batch`);
+16. LT and row-weighted (:func:`lt_phase`): ``lt_walk`` byte for byte
+   against its plain version at the LT path's first round (B = 512, qcap
+   = n), uniform and with phase 15's alias table (``lt_walk_check:``);
+   the LT solve (k = 50) with ``flat``, ``bitset`` and ``celf``, equal in
+   every field, one ``lt_walk`` a round and no ``queue_bfs``, its RIS
+   spread within 10% of a 256-run forward LT Monte Carlo (``lt_solve:``);
+   the LT approximate solve, its forward LT spread inside ``[0.9 lo, 1.1
+   hi]`` (``lt_approximate:``); the row-weighted solve (weights v mod 7)
+   on a queue-engine instance with uniform roots, with ``flat`` (one
+   weighted ``greedy_flat_variant`` a selection), ``bitset`` (a torch
+   loop) and ``celf`` (the weighted ``celf_eval``/``celf_apply``), equal
+   in every field, its spread within 10% of a 256-run weighted forward IC
+   Monte Carlo and of phase 15's alias-root estimate
+   (``row_weighted_solve:``).  Then the records of ``lt_walk`` (its bytes
+   bound, the longest lane's chain of dependent loads from a replay of
+   every draw, :func:`lt_bound`, and the same walks at qcap = 64) and of
+   the weighted ``greedy_flat_variant``, ``celf_eval`` and ``celf_apply``
+   at the row-weighted solves' final pools, each exact against its plain
+   version on the card.
 
 The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
 the exact path's final bit matrix, masked on the first seed's rows as the
@@ -287,6 +307,8 @@ import torch  # noqa: E402
 from repro_torch.core import coverage as cov  # noqa: E402
 from repro_torch.core import dense  # noqa: E402
 from repro_torch.core import forward  # noqa: E402
+from repro_torch.core import lt as lt_mod  # noqa: E402
+from repro_torch.core import roots  # noqa: E402
 from repro_torch.core import sketch as sketch_mod  # noqa: E402
 from repro_torch.core.engine import make_engine  # noqa: E402
 from repro_torch.core.imm import IMMSolver  # noqa: E402
@@ -299,6 +321,7 @@ from repro_torch.kernels import celf as celf_mod  # noqa: E402
 from repro_torch.kernels import flashattn as flash  # noqa: E402
 from repro_torch.kernels import greedy  # noqa: E402
 from repro_torch.kernels import membership  # noqa: E402
+from repro_torch.kernels.bernoulli import counter_uniform_u32  # noqa: E402
 from repro_torch.kernels.sketch import (canonical_row_ids,  # noqa: E402
                                         frontier_pairs)
 from repro_torch.kernels.queue import SEGMENT_EDGES  # noqa: E402
@@ -346,16 +369,16 @@ APPROX_MAX_THETA = 8192
 SKETCH_ROWS, SKETCH_WORDS, SCATTER_PAIRS = N_NODES + 1, 512, 1 << 24
 PROBE_SKETCH_K = (128, 1024, 4096)
 # kernels that -Xptxas -v reports in csrc/greedy.cu (greedy_flat's two
-# forms and greedy_flat_variant's two, the barrier floor, greedy_sketch's
-# four forms) and csrc/celf.cu (celf_eval, celf_apply, celf_select's four
+# forms, greedy_flat_variant's two and its weighted form's two, the barrier
+# floor, greedy_sketch's four forms) and csrc/celf.cu (celf_eval, celf_apply, celf_select's four
 # forms)
-GREEDY_KERNELS, CELF_KERNELS = 9, 6
+GREEDY_KERNELS, CELF_KERNELS = 11, 6
 # the stamped copies of greedy_sketch and celf_select (examples/), built
 # beside the port's sources; their libraries once built
 STAMPED_SOURCES = {"sketch": "sketch_stamps", "celf": "celf_stamps"}
 STAMPED: dict = {}
 SOURCES = ("occur", "sketch", "bitops", "bernoulli", "membership",
-           "flashattn", "queue", "greedy", "celf")
+           "flashattn", "queue", "greedy", "celf", "lt")
 # phase 14: the phase-5 solve with CELF, (selection, sketch_k, early_exit)
 CELF_SOLVES = (("celf", 1024, False), ("celf", 16384, False),
                ("celf", 16384, True))
@@ -388,6 +411,7 @@ LIBRARY_NOTE = {
                        "beside it as the yardstick)",
     "sketch_fold_rows": "torch has no scatter with an OR reduction",
     "padded_greedy": "no single PyTorch call runs a greedy",
+    "lt_walk": "no single PyTorch call runs a walk",
 }
 SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "sketch_scatter_or": "sketch", "sketch_union_popcount": "sketch",
@@ -399,7 +423,8 @@ SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "greedy_sketch": "greedy",
              "celf_eval": "celf", "celf_apply": "celf",
              "celf_select": "celf", "frontier_update": "bitops",
-             "sketch_fold_rows": "sketch", "padded_greedy": "membership"}
+             "sketch_fold_rows": "sketch", "padded_greedy": "membership",
+             "lt_walk": "lt"}
 # each record's kernel as the profiler names it (a regular expression that
 # matches the demangled or the mangled name)
 DEVICE_KERNEL = {
@@ -425,6 +450,8 @@ DEVICE_KERNEL = {
     "frontier_update": r"frontier_update_kernel",
     "sketch_fold_rows": r"fold_rows_kernel",
     "padded_greedy": r"padded_greedy_kernel",
+    "greedy_flat_variant[weighted]": r"greedy_flat_weighted_kernel",
+    "lt_walk": r"lt_walk_kernel",
 }
 KERNELS = {
     "occur_from_bitset": "src/repro/kernels/bitset.py:167",
@@ -461,6 +488,13 @@ KERNELS = {
     # the membership scan on its path: the reference's padded greedy
     # (coverage.py:2510) scans with that Pallas kernel once a seed
     "padded_greedy": "src/repro/kernels/membership.py:36",
+    # no Pallas kernel: the reference's LT walk is a jitted lax.while_loop
+    "lt_walk": "src/repro/core/lt.py:54",
+    # no Pallas kernel: the weighted variant scan and the weighted CELF
+    # programs are jitted XLA
+    "greedy_flat_variant[weighted]": "src/repro/core/coverage.py:1500",
+    "celf_eval[weighted]": "src/repro/core/coverage.py:1783",
+    "celf_apply[weighted]": "src/repro/core/coverage.py:1810",
 }
 # phase 3: the queue kernel at the exact path's first round, also at qcap
 # 64 (above its longest RR set, 21) and 8, where lanes overflow
@@ -743,7 +777,8 @@ def timing(name: str, fn, iters: int) -> dict:
     """A kernel call's times: event-timed ``ms`` over back-to-back calls,
     the profiler's ``device_ms`` of its own kernel, and ``enqueue_us``."""
     return {"ms": cuda_ms(fn, iters),
-            **device_ms(fn, iters, DEVICE_KERNEL[base_name(name)]),
+            **device_ms(fn, iters, DEVICE_KERNEL.get(
+                name, DEVICE_KERNEL[base_name(name)])),
             "enqueue_us": enqueue_us(fn, iters)}
 
 
@@ -913,7 +948,9 @@ def kernel_records(words, mask, launches=None, iters=20, plain_iters=3):
 
 def base_name(name: str) -> str:
     """The kernel of a record: ``queue_bfs[weighted]`` is ``queue_bfs``'s
-    kernel on the operands of a path of its own."""
+    kernel on the operands of a path of its own (a form with a kernel or
+    a reference of its own has its own entry in :data:`DEVICE_KERNEL` or
+    :data:`KERNELS`)."""
     return name.split("[")[0]
 
 
@@ -923,7 +960,7 @@ def record(name, launches, err, times, plain_ms, bound, library_ms=None,
     base = base_name(name)
     rec = {"name": name, "route": "cuda",
            "source": f"src/repro_torch/kernels/csrc/{SOURCE_OF[base]}.cu",
-           "replaces": KERNELS[base],
+           "replaces": KERNELS.get(name, KERNELS[base]),
            "launches": None if launches is None else launches[name],
            "max_abs_err": err, **times, "plain_ms": plain_ms, **bound,
            "library_ms": library_ms}
@@ -2402,14 +2439,14 @@ def celf_variant_batch(store, spec, step: int):
     seen, commits = [], [0]
     eval_fn, apply_fn = ops.celf_eval, ops.celf_apply
 
-    def celf_eval(flat, ids, valid, cov_words, cands):
+    def celf_eval(flat, ids, valid, cov_words, cands, **kw):
         if commits[0] == step and not seen:
             seen.append((cov_words.clone(), cands.clone()))
-        return eval_fn(flat, ids, valid, cov_words, cands)
+        return eval_fn(flat, ids, valid, cov_words, cands, **kw)
 
-    def celf_apply(*args):
+    def celf_apply(*args, **kw):
         commits[0] += 1
-        return apply_fn(*args)
+        return apply_fn(*args, **kw)
 
     ops.celf_eval, ops.celf_apply = celf_eval, celf_apply
     try:
@@ -2931,13 +2968,16 @@ def variant_inputs(n: int) -> dict:
 
 
 def variant_solve(g, problem, *, engine="queue", selection="auto",
-                  keep_roots=False) -> dict:
+                  keep_roots=False, model=None) -> dict:
     """One solve of ``problem`` on the stand-in: its stages timed, launches
     counted from just before it to just after; with ``keep_roots`` every
-    batch's roots kept on the card."""
-    solver = IMMSolver(g, engine=engine, batch=BATCH, selection=selection,
+    batch's roots kept on the card.  ``engine`` is a name (batch 512, and
+    ``model``) or an instance."""
+    opts = {"batch": BATCH, "model": model} if isinstance(engine, str) \
+        else {}
+    solver = IMMSolver(g, engine=engine, selection=selection,
                        sketch_k=VARIANT_CELF_SKETCH_K if selection == "celf"
-                       else None, seed=0, device=g.device)
+                       else None, seed=0, device=g.device, **opts)
     solver.prepare(problem)
     kept = []
     if keep_roots:
@@ -2970,13 +3010,13 @@ def variant_solve(g, problem, *, engine="queue", selection="auto",
 
 def solve_fields(run: dict) -> dict:
     """What two solves of one problem (:func:`variant_solve`'s) must
-    share."""
+    share (a weighted solve's gains are floats)."""
     res, store = run["res"], run["solver"].store
     st = res.stats
     return {"theta": st.theta, "lb": st.lb, "lb_iters": st.lb_iters,
             "rounds": st.rounds, "n_rr": store.n_rr,
             "elements": store.n_elems, "seeds": [int(x) for x in res.seeds],
-            "gains": [int(x) for x in res.gains],
+            "gains": [x.item() for x in res.gains],
             "frac_f32": np.float32(res.frac).tobytes().hex(),
             "spread": res.spread, "cost": res.cost,
             "variant": st.variant, "budget_spent": st.budget_spent}
@@ -3271,7 +3311,7 @@ def variants_phase(g) -> tuple:
             raise AssertionError(f"{label} launches: flat {flat}, bitset "
                                  f"{bit}, celf {celf}")
         celf_launches[f"phase 15's {label} CELF solve"] = celf
-        spec = IMMSolver._selection_spec(problem.resolve(n))
+        spec = runs["flat"]["solver"]._selection_spec(problem.resolve(n))
         if label == "budgeted":
             celf_recs = celf_records(runs["celf"]["solver"].store,
                                      [int(x) for x in runs["celf"]["res"]
@@ -3302,7 +3342,377 @@ def variants_phase(g) -> tuple:
     records.append(masked_sketch_record(
         a["solver"].store.words, n, mask,
         {"greedy_sketch[candidates]": a["launches"]["greedy_sketch"]}))
-    return records + celf_recs, celf_launches
+    return records + celf_recs, celf_launches, q["res"].spread
+
+
+# phase 16: the LT model and the row-weighted estimator on the stand-in
+LT_SELECTIONS = ("flat", "bitset", "celf")
+# the LT walk's probe: above the stand-in's longest walk, so the same walks
+# without the rows' zeros
+LT_PROBE_QCAP = 64
+
+
+def search_rounds(rowcum: np.ndarray, s: int, e: int, u: np.float32):
+    """``csrc/lt.cu``'s 32-way search of the row ``[s, e)`` for draw
+    ``u``, replayed: (its load rounds, the edge it takes or -1 to stop)."""
+    lo, hi, rounds = s, e, 0
+    lane = np.arange(1, 33, dtype=np.int64)
+    while hi > lo:
+        length = hi - lo
+        rounds += 1
+        probes = (np.arange(lo, hi) if length <= 32
+                  else lo + ((lane * length) >> 5) - 1)
+        above = np.flatnonzero(rowcum[probes] > u)
+        if above.size == 0:
+            return rounds, -1
+        f = int(above[0])
+        if length <= 32:
+            return rounds, int(probes[f])
+        lo, hi = (int(probes[f - 1]) + 1 if f else lo), int(probes[f]) + 1
+    return rounds, -1
+
+
+def lt_work(g_rev, rowcum, walk, lengths, steps, seed32: int) -> dict:
+    """The LT round's work, lane by lane from its output: each draw t of
+    lane b at node ``walk[b, t]`` (its draw ``float32(hash(row seed, t))
+    * 2^-32``) loads the row's two offsets, makes the search's load rounds
+    (:func:`search_rounds`, which must end at the walk's next node) and,
+    where it takes an edge, loads its index.  A lane's chain of dependent
+    global loads is the sum of those a draw; the round's is its longest
+    lane's."""
+    offs = g_rev.offsets.cpu().numpy().astype(np.int64)
+    idx = g_rev.indices.cpu().numpy()
+    rc = rowcum.cpu().numpy()
+    walk, lengths = walk.cpu().numpy(), lengths.cpu().numpy()
+    steps = steps.cpu().numpy()
+    seeds = counter_uniform_u32(seed32, torch.arange(len(lengths))).numpy()
+    chains, rounds_total, taken = [], 0, 0
+    for b, (ln, d) in enumerate(zip(lengths.tolist(), steps.tolist())):
+        u = (counter_uniform_u32(int(seeds[b]), torch.arange(d)).numpy()
+             .astype(np.float32) * np.float32(2.0 ** -32))
+        chain = 0
+        for t in range(d):
+            cur = int(walk[b, t])
+            rounds, j = search_rounds(rc, int(offs[cur]), int(offs[cur + 1]),
+                                      u[t])
+            if t + 1 < ln and (j < 0 or idx[j] != walk[b, t + 1]):
+                raise AssertionError(f"lane {b} draw {t}: the search took "
+                                     f"edge {j}, the walk {walk[b, t + 1]}")
+            chain += 1 + rounds + (j >= 0)
+            rounds_total += rounds
+            taken += j >= 0
+        chains.append(chain)
+    chains = np.asarray(chains)
+    return {"chain_loads": int(chains.max()),
+            "chain_lane": int(chains.argmax()),
+            "mean_chain_loads": float(chains.mean()),
+            "draws": int(steps.sum()), "search_rounds": rounds_total,
+            "edges_taken": taken, "longest_walk": int(lengths.max()),
+            "mean_walk": float(lengths.mean())}
+
+
+def lt_bound(g_rev, rowcum, walk, lengths, steps, seed32: int) -> tuple:
+    """The LT round's least time.  Bytes: the walk rows written in full,
+    their zeros included (4 bytes a cell), and each lane's root, length,
+    flag and draws (17 bytes); read, at least, a draw's two offsets (8
+    bytes) and one cumulative weight (4), and an index (4) an edge taken.
+    Operations: a draw's hash and conversion, counted as
+    :data:`TRIAL_WORK_OPS`.  The walk is a chain of dependent loads, so
+    :func:`lt_work`'s longest chain is the other side of its time."""
+    work = lt_work(g_rev, rowcum, walk, lengths, steps, seed32)
+    nbytes = 4 * walk.numel() + 17 * walk.shape[0] + 12 * work["draws"] \
+        + 4 * work["edges_taken"]
+    return _bound(nbytes, {k: v * work["draws"]
+                           for k, v in TRIAL_WORK_OPS.items()}), work
+
+
+def lt_walk_checks(g_rev, rowcum, table) -> dict:
+    """``lt_walk`` at the LT path's first round (B = 512, qcap = n) byte
+    for byte against its plain version, with uniform roots and with phase
+    15's alias table (weights v mod 7)."""
+    args = (g_rev.offsets, g_rev.indices, rowcum, round_seed(0, 0), BATCH)
+    out = {}
+    for label, tab in (("uniform", None), ("alias", table)):
+        got = ops.lt_walk(*args, qcap=g_rev.n_nodes, table=tab)
+        want = ref.lt_round_ref(*args, qcap=g_rev.n_nodes, table=tab)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(x, y) for x, y in zip(got, want))
+        if err or not all(x.dtype == y.dtype and torch.equal(x, y)
+                          for x, y in zip(got, want)):
+            raise AssertionError(f"lt_walk ({label} roots) != plain "
+                                 f"version: max abs err {err}")
+        out[label] = {"max_abs_err": err, "longest_walk": int(got[1].max()),
+                      "mean_walk": float(got[1].float().mean()),
+                      "overflowed": int(got[2].sum())}
+    return out
+
+
+def lt_record(g_rev, rowcum, launches, iters=20, plain_iters=1) -> dict:
+    """``lt_walk`` at the LT path's first round, timed beside its plain
+    version, with :func:`lt_bound` and the longest chain's time a load;
+    and the same round at qcap = :data:`LT_PROBE_QCAP` (the same walks,
+    the rows' zeros gone), where the chain alone sets the time."""
+    seed32, qcap = round_seed(0, 0), g_rev.n_nodes
+    args = (g_rev.offsets, g_rev.indices, rowcum, seed32, BATCH)
+
+    def kern():
+        return ops.lt_walk(*args, qcap=qcap)
+
+    walk, lengths, _, steps, _ = kern()
+    short = ops.lt_walk(*args, qcap=LT_PROBE_QCAP)
+    if not torch.equal(short[1], lengths) or short[2].any():
+        raise AssertionError(f"lt_walk at qcap {LT_PROBE_QCAP} walked "
+                             "otherwise")
+    probe = timing("lt_walk", lambda: ops.lt_walk(*args, qcap=LT_PROBE_QCAP),
+                   iters)
+    times = timing("lt_walk", kern, iters)
+    plain_ms = cuda_ms(lambda: ref.lt_round_ref(*args, qcap=qcap),
+                       plain_iters)
+    bound, work = lt_bound(g_rev, rowcum, walk, lengths, steps, seed32)
+    return record("lt_walk", launches, 0.0, times, plain_ms, bound,
+                  shape=[BATCH, qcap], ns_per_chain_load=times["device_ms"]
+                  * 1e6 / work["chain_loads"],
+                  qcap_probe={"qcap": LT_PROBE_QCAP, **probe,
+                              "ns_per_chain_load": probe["device_ms"] * 1e6
+                              / work["chain_loads"]}, **work)
+
+
+def weighted_variant_record(store, spec, launches, iters=20,
+                            plain_iters=2) -> dict:
+    """The weighted ``greedy_flat_variant`` on the row-weighted solve's
+    final pool against its plain version on the card (seeds, the float32
+    bytes of gains and spent), timed beside it, with
+    :func:`greedy_variant_bound`'s count plus the element weights (4
+    bytes an element) read once and a float add an element and a float
+    decrement a decremented element, and the barrier floor."""
+    args, _ = pool_args(store)
+    kw = dict(variant_kwargs(store, spec), ew=store.ew[:store.n_elems])
+    got = ops.greedy_flat_variant(*args, **kw)
+    want = ref.greedy_flat_variant_ref(*args, **kw)
+    torch.cuda.synchronize()
+    as_int = [x.view(torch.int32) if x.dtype == torch.float32 else x
+              for x in (*got, *want)]
+    err = max(max_abs_err(x, y) for x, y in zip(as_int[:3], as_int[3:]))
+    if err or not all(x.dtype == y.dtype and torch.equal(x, y)
+                      for x, y in zip(got, want)):
+        raise AssertionError(f"weighted greedy_flat_variant != plain version "
+                             f"at {store.n_rr} rows: max abs err {err}")
+    dev = store.flat.device
+    name = "greedy_flat_variant[weighted]"
+    times = timing(name, lambda: ops.greedy_flat_variant(*args, **kw), iters)
+    plain_ms = cuda_ms(lambda: ref.greedy_flat_variant_ref(*args, **kw),
+                       plain_iters)
+    blocks, shared_bytes = greedy.flat_grid(dev)
+    lay = greedy.flat_layout(kw["n"], kw["num_rows"], blocks, shared_bytes,
+                             kw["n_group"], kw["n_groups"])
+    bound = greedy_variant_bound(*args, got[0], n=kw["n"],
+                                 num_rows=kw["num_rows"], k=kw["k"],
+                                 use_costs=False, blocks=blocks,
+                                 shared=lay.shared)
+    t, dec = store.n_elems, bound["decremented_elements"]
+    bound.update(_bound(
+        bound["bound_bytes_ms"] * HBM_BYTES_S / 1e3 + 4 * t,
+        {"alu": 2 * bound["steps_run"] * kw["n"] + dec, "fp32": t + dec}))
+    barriers = 3 + bound["steps_run"]
+    floor_ms = cuda_ms(lambda: greedy.grid_barriers(barriers, dev), iters)
+    return record(name, launches, err, times, plain_ms, bound,
+                  barrier_floor_ms=floor_ms, grid_barriers=barriers,
+                  grid_blocks=blocks, threads=greedy.THREADS,
+                  state="shared memory" if lay.shared else "scratch",
+                  n=kw["n"], k=kw["k"], n_rr=store.n_rr, pool_elements=t,
+                  num_rows=kw["num_rows"],
+                  gains_sum=float(got[1].sum(dtype=torch.float64)),
+                  wsum=float(store.wsum))
+
+
+def weighted_celf_records(store, seeds, spec, launches, iters=50,
+                          plain_iters=3) -> list:
+    """The weighted ``celf_eval`` and ``celf_apply`` at the row-weighted
+    CELF solve's pool: Covered after its first 10 seeds, the padded batch
+    of the variant's first eval call of that step
+    (:func:`celf_variant_batch`) and the commit of the 11th seed, each
+    against its plain version bit for bit (the float32 sums as int32
+    bits), then timed beside it, with :func:`celf_bytes` plus the weight
+    (4 bytes) of each row read."""
+    t = store.n_elems
+    pool = (store.flat[:t], store.ids[:t], store.valid[:t])
+    dev = pool[0].device
+    num_rows = store.row_capacity()
+    roww = cov.row_weights(store.ids[:t], store.valid[:t], store.ew[:t],
+                           num_rows)
+    cov_words = torch.zeros(num_rows // 32, dtype=torch.int32, device=dev)
+    first = min(10, len(seeds) - 1)
+    for u in seeds[:first]:
+        ref.celf_apply_ref(*pool, cov_words, u, roww)
+    seen_cov, cands = celf_variant_batch(store, spec, first)
+    if not torch.equal(seen_cov, cov_words):
+        raise AssertionError("the weighted CELF variant's Covered words "
+                             f"after {first} seeds differ from the commits'")
+    u = int(seeds[first])
+    got = ops.celf_eval(*pool, cov_words, cands, roww=roww)
+    want = ref.celf_eval_ref(*pool, cov_words, cands, roww)
+    mine, plain = cov_words.clone(), cov_words.clone()
+    gain = ops.celf_apply(*pool, mine, u, roww=roww)
+    want_gain = ref.celf_apply_ref(*pool, plain, u, roww)
+    torch.cuda.synchronize()
+    errs = {"celf_eval[weighted]": max_abs_err(got.view(torch.int32),
+                                               want.view(torch.int32)),
+            "celf_apply[weighted]": float(max(
+                abs(int(gain.view(torch.int32)) -
+                    int(want_gain.view(torch.int32))),
+                max_abs_err(mine, plain)))}
+    if any(errs.values()) or got.dtype != torch.float32 \
+            or not torch.equal(mine, plain):
+        raise AssertionError(f"weighted CELF kernels != plain versions: "
+                             f"{errs}")
+    scratch = cov_words.clone()
+
+    def bound(nodes, apply):
+        live = torch.isin(pool[0], nodes.to(torch.int32)) & pool[2]
+        return _bound(celf_bytes(*pool, num_rows, nodes, apply)
+                      + 4 * int(live.sum()), {"alu": t})
+
+    shapes = dict(pool_elements=t, num_rows=num_rows,
+                  covered_words=cov_words.shape[0], n=store.n_nodes)
+    return [
+        record("celf_eval[weighted]", launches, errs["celf_eval[weighted]"],
+               timing("celf_eval[weighted]", lambda: ops.celf_eval(
+                   *pool, cov_words, cands, roww=roww), iters),
+               cuda_ms(lambda: ref.celf_eval_ref(*pool, cov_words, cands,
+                                                 roww), plain_iters),
+               bound(cands, False), candidates=int((cands >= 0).sum()),
+               batch=cands.numel(), gains_sum=float(got.sum()), **shapes),
+        record("celf_apply[weighted]", launches,
+               errs["celf_apply[weighted]"],
+               timing("celf_apply[weighted]", lambda: ops.celf_apply(
+                   *pool, scratch, u, roww=roww), iters),
+               cuda_ms(lambda: ref.celf_apply_ref(*pool, plain, u, roww),
+                       plain_iters),
+               bound(torch.tensor([u], device=dev), True), seed=u,
+               gain=float(gain), **shapes),
+    ]
+
+
+def lt_phase(g, weighted_spread: float) -> list:
+    """The LT model and the row-weighted estimator on the stand-in, each
+    solve at batch 512, k = 50 and eps 0.5 with its launches counted from
+    just before it to just after:
+
+    * ``lt_walk`` at the LT path's first round byte for byte against its
+      plain version, uniform and with phase 15's alias table;
+    * LT solves with ``flat``, ``bitset`` and ``celf``, equal in every
+      field, one ``lt_walk`` a round and no ``queue_bfs``, whose RIS
+      spread lies within :data:`MC_TOL` of forward LT Monte Carlo
+      (``forward.lt_spread``, :data:`MC_SIMS` runs);
+    * the LT approximate solve (``max_theta`` as phase 4), whose forward
+      LT spread lies in ``[0.9 lo, 1.1 hi]`` of its ``spread_bounds``;
+    * a row-weighted solve (weights v mod 7) on a ``make_engine("queue",
+      reverse(g), batch=512)`` instance with ``flat``, ``bitset`` and
+      ``celf``, equal in every field, through the weighted kernels, whose
+      spread lies within :data:`MC_TOL` of weighted forward IC Monte
+      Carlo and of phase 15's alias-root weighted estimate
+      ``weighted_spread``.
+
+    Returns the records of ``lt_walk`` and of the weighted forms of
+    ``greedy_flat_variant``, ``celf_eval`` and ``celf_apply``."""
+    n = g.n_nodes
+    w = variant_inputs(n)["weights"]
+    g_rev = csr.reverse(g)                  # the LT engine's graph
+    rowcum = lt_mod.row_cumweights(g_rev)
+    table = roots.build_alias_table(w, device=g.device)
+    say("lt_walk_check", lt_walk_checks(g_rev, rowcum, table))
+    # LT solves
+    prob = IMProblem(k=K, eps=EPS)
+    runs = {sel: variant_solve(g, prob, selection=sel, model="lt")
+            for sel in LT_SELECTIONS}
+    fields = {sel: solve_fields(run) for sel, run in runs.items()}
+    res = runs["flat"]["res"]
+    t0 = time.perf_counter()
+    mc = forward.lt_spread(g, res.seeds, n_sims=MC_SIMS, seed=0)
+    mc_s = time.perf_counter() - t0
+    rel = abs(res.spread - mc) / mc
+    say("lt_solve", {**{sel: run_line(run) for sel, run in runs.items()},
+                     "mc_spread": mc, "mc_sims": MC_SIMS, "mc_s": mc_s,
+                     "rel_err": rel, "tol": MC_TOL})
+    if any(f != fields["flat"] for f in fields.values()):
+        raise AssertionError(f"LT solves differ: {fields}")
+    if not rel < MC_TOL:
+        raise AssertionError(f"LT RIS {res.spread} vs forward LT MC {mc}: "
+                             f"{rel:.3f} >= {MC_TOL}")
+    for sel, run in runs.items():
+        got, rounds = run["launches"], run["res"].stats.rounds
+        calls = run["stage_calls"]["selection"]
+        own = {"flat": got["greedy_flat"] == calls,
+               "bitset": got["occur_from_bitset"] > 0
+               and got["occur_from_bitset_masked"] > 0,
+               "celf": got["celf_select"] == calls
+               and got["sketch_fold_rows"] > 0}[sel]
+        if got["lt_walk"] != rounds or got["queue_bfs"] or not own:
+            raise AssertionError(f"LT {sel} solve: {rounds} rounds, "
+                                 f"launches {got}")
+    lt_launches = {"lt_walk": runs["flat"]["launches"]["lt_walk"]}
+    records = [lt_record(g_rev, rowcum, lt_launches)]
+    del runs
+    # the LT approximate solve
+    a = variant_solve(g, IMProblem(k=K, eps=EPS, mode="approximate",
+                                   max_theta=APPROX_MAX_THETA), model="lt")
+    lo, hi = a["res"].spread_bounds
+    mc_a = forward.lt_spread(g, a["res"].seeds, n_sims=MC_SIMS, seed=0)
+    say("lt_approximate", dict(run_line(a), spread_bounds=[lo, hi],
+                               mc_spread=mc_a,
+                               sketch_k=a["solver"].store.sketch_k))
+    got, calls = a["launches"], a["stage_calls"]
+    if not 0.9 * lo <= mc_a <= 1.1 * hi or got["lt_walk"] != \
+            a["res"].stats.rounds or got["greedy_sketch"] != \
+            calls["selection"] or got["sketch_fold_rows"] != calls["append"]:
+        raise AssertionError(f"LT approximate solve: MC {mc_a}, bounds "
+                             f"{(lo, hi)}, launches {got}, calls {calls}")
+    del a
+    torch.cuda.empty_cache()
+    # the row-weighted estimator on an engine instance
+    wprob = IMProblem(k=K, eps=EPS, node_weights=w)
+    runs = {sel: variant_solve(g, wprob, selection=sel, engine=make_engine(
+        "queue", g_rev, batch=BATCH)) for sel in LT_SELECTIONS}
+    fields = {sel: solve_fields(run) for sel, run in runs.items()}
+    res = runs["flat"]["res"]
+    t0 = time.perf_counter()
+    mc = forward.ic_spread(g, res.seeds, n_sims=MC_SIMS, seed=0,
+                           node_weights=w)
+    mc_s = time.perf_counter() - t0
+    rel, rel_alias = (abs(res.spread - x) / x for x in (mc, weighted_spread))
+    say("row_weighted_solve", {
+        **{sel: run_line(run) for sel, run in runs.items()},
+        "wsum": float(runs["flat"]["solver"].store.wsum),
+        "weight_sum": float(w.sum(dtype=np.float64)), "mc_spread": mc,
+        "mc_s": mc_s, "rel_err": rel, "alias_root_spread": weighted_spread,
+        "rel_err_alias": rel_alias, "tol": MC_TOL})
+    if any(f != fields["flat"] for f in fields.values()):
+        raise AssertionError(f"row-weighted solves differ: {fields}")
+    if not (rel < MC_TOL and rel_alias < MC_TOL):
+        raise AssertionError(f"row-weighted RIS {res.spread}: MC {mc}, "
+                             f"alias roots {weighted_spread}")
+    flat, bit, celf = (runs[s]["launches"] for s in LT_SELECTIONS)
+    weighted = ("greedy_flat_variant[weighted]", "celf_eval[weighted]",
+                "celf_apply[weighted]")
+    if not all(r["solver"]._row_weight_mode for r in runs.values()) \
+            or flat["greedy_flat_variant[weighted]"] != \
+            runs["flat"]["stage_calls"]["selection"] \
+            or flat["greedy_flat_variant"] or any(bit[k] for k in weighted) \
+            or not (celf["celf_eval[weighted]"]
+                    and celf["celf_apply[weighted]"]) \
+            or celf["celf_eval"] or celf["celf_apply"]:
+        raise AssertionError(f"row-weighted launches: flat {flat}, bitset "
+                             f"{bit}, celf {celf}")
+    spec = runs["flat"]["solver"]._selection_spec(wprob.resolve(n))
+    records.append(weighted_variant_record(
+        runs["flat"]["solver"].store, spec,
+        {"greedy_flat_variant[weighted]":
+         flat["greedy_flat_variant[weighted]"]}))
+    records += weighted_celf_records(
+        runs["celf"]["solver"].store,
+        [int(x) for x in runs["celf"]["res"].seeds], spec,
+        {k: celf[k] for k in weighted[1:]})
+    return records
 
 
 def main() -> int:
@@ -3355,6 +3765,11 @@ def main() -> int:
     if len(membership_spills) != 2 or any(membership_spills.values()):
         raise AssertionError(f"membership.cu: want 2 kernels without "
                              f"spills, ptxas reports {membership_spills}")
+    lt_spills = ptxas_spills(_build.PTXAS_REPORT["lt"], "lt_walk_kernel")
+    say("lt_ptxas", lt_spills)
+    if len(lt_spills) != 1 or any(lt_spills.values()):
+        raise AssertionError(f"lt.cu: want lt_walk_kernel without spills, "
+                             f"ptxas reports {lt_spills}")
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3514,7 +3929,10 @@ def main() -> int:
     approx_records = [r for r in approx_records if r not in union_approx]
 
     # 15. the problem variants: weighted roots, candidates, the budget
-    variant_recs, celf_variant_launches = variants_phase(g)
+    variant_recs, celf_variant_launches, weighted_spread = variants_phase(g)
+
+    # 16. the LT model and the row-weighted estimator
+    lt_recs = lt_phase(g, weighted_spread)
     # the kernels that several paths launch: their launches by path
     paths = {"phase 5's exact solve": launches,
              "phase 10's packed sampler": {r["name"]: r["launches"] or 0
@@ -3522,7 +3940,8 @@ def main() -> int:
              "phase 14's early exit gate (16,384 buckets)": gate_launches,
              **celf_variant_launches}
     kernels = records + approx_records + dense_recs + padded_recs \
-        + flash_recs + queue_recs + greedy_recs + celf_recs + variant_recs
+        + flash_recs + queue_recs + greedy_recs + celf_recs + variant_recs \
+        + lt_recs
     for rec in kernels:
         if rec["name"] in SHARED_PATH_KERNELS:
             rec["launches_from"] = {path: counts.get(rec["name"], 0)

@@ -45,7 +45,12 @@ generalised scan: ``flat`` is one launch of the ``greedy_flat_variant``
 CUDA kernel (``kernels.ops.greedy_flat_variant``), ``bitset`` the same
 device loop as the plain one with the feasibility and score on the card,
 and ``celf`` (:func:`select_seeds_celf` with ``spec``) the reference's
-host loop of sweeps, exact evaluations and commits.
+host loop of sweeps, exact evaluations and commits.  A store built with
+``row_weighted=True`` (the importance-weighted estimator of weighted IM on
+an engine that draws uniform roots) keeps each element's row weight, and a
+``weighted`` spec scores every one of these scans by covered weight: the
+weighted form of ``greedy_flat_variant``, a torch loop for ``bitset``, and
+the weighted forms of ``celf_eval`` and ``celf_apply``.
 
 All these scans take ties to the lowest node id (``torch.argmax`` and
 ``np.argmax`` return the first maximum; the bit matrix's padding ids past
@@ -70,7 +75,7 @@ import numpy as np
 
 from repro_torch.core import sketch as sketch_mod
 from repro_torch.core.packing import bit_values, rank_positions
-from repro_torch.core.variant import VariantScan
+from repro_torch.core.variant import VariantScan, row_weights, weighted_occur
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 
@@ -119,7 +124,7 @@ class DeviceRRStore(_FoldedSketch):
 
     def __init__(self, n_nodes: int, capacity: int = 4096, *,
                  sketch_k: int | None = None, sketch_mode: str = "mod",
-                 device="cuda"):
+                 row_weighted: bool = False, device="cuda"):
         if n_nodes >= 2 ** 31 - 1:
             raise ValueError("item space must fit int32")
         if sketch_mode not in ("mod", "mix"):
@@ -131,6 +136,15 @@ class DeviceRRStore(_FoldedSketch):
                                device=self.device)
         self.ids = torch.zeros(cap, dtype=torch.int32, device=self.device)
         self.valid = torch.zeros(cap, dtype=torch.bool, device=self.device)
+        # the row-weighted store (the importance-weighted estimator): ew is
+        # each element's row weight, so weighted Occur is one scatter-add of
+        # it, and wsum the float32 total weight of the non-empty rows (the
+        # weighted F_R denominator)
+        self.row_weighted = bool(row_weighted)
+        self.ew = (torch.zeros(cap, dtype=torch.float32, device=self.device)
+                   if self.row_weighted else None)
+        self.wsum = (torch.zeros((), dtype=torch.float32, device=self.device)
+                     if self.row_weighted else None)
         self._t = 0        # host mirrors (exact)
         self._nrr = 0
         self._bitset = None
@@ -157,7 +171,20 @@ class DeviceRRStore(_FoldedSketch):
     def capacity(self) -> int:
         return int(self.flat.shape[0])
 
-    def append_batch(self, batch) -> None:
+    def per_device_pool_bytes(self) -> int:
+        """Pool bytes on the device: flat, ids and valid (9 bytes a slot),
+        and the element weights on a row-weighted store (13)."""
+        return self.capacity * (4 + 4 + 1 + (4 if self.row_weighted else 0))
+
+    def config(self) -> dict:
+        """The store's construction parameters, as the reference's
+        ``ShardedDeviceRRStore.config`` on one shard."""
+        return {"n_nodes": int(self.n_nodes),
+                "per_shard_capacity": self.capacity, "n_shards": 1,
+                "sketch_k": self.sketch_k, "sketch_mode": self.sketch_mode,
+                "row_weighted": self.row_weighted}
+
+    def append_batch(self, batch, row_w=None) -> None:
         """Append one batch (an ``RRBatch`` or ``(nodes, lengths)``).
 
         Rows of length 0 are padding and get no row id.  Elements land in
@@ -167,6 +194,11 @@ class DeviceRRStore(_FoldedSketch):
         batch (``R*W > 2^15`` holding at most 2^15 elements) reserves 2^15
         elements of headroom before it grows the buffers, as the
         reference's packed append does.
+
+        ``row_w``, the (R,) row weights, is required on a row-weighted
+        store and refused on any other: a row's weight, rounded to float32,
+        lands on each of its elements, and the non-empty rows' weights are
+        summed in float32 into ``wsum``, once an append.
         """
         nodes, lens = ((batch.nodes, batch.lengths)
                        if hasattr(batch, "nodes") else batch)
@@ -175,6 +207,16 @@ class DeviceRRStore(_FoldedSketch):
         if nodes.dim() != 2 or lens.shape != (nodes.shape[0],):
             raise ValueError("append_batch wants padded (R, W) nodes + (R,) "
                              "lengths")
+        if self.row_weighted:
+            if row_w is None:
+                raise ValueError("row_weighted store needs row_w= per append")
+            roww = torch.as_tensor(row_w, device=self.device).to(
+                torch.float32)
+            if roww.shape != (nodes.shape[0],):
+                raise ValueError("row_w must be (R,) aligned with the batch")
+        elif row_w is not None:
+            raise ValueError("row_w given but the store was built without "
+                             "row_weighted=True")
         r, w = nodes.shape
         lens = lens.to(torch.int64).clamp(0, w)
         row_valid = lens > 0
@@ -199,6 +241,11 @@ class DeviceRRStore(_FoldedSketch):
             self.flat[t:t + elems] = nodes.reshape(-1)[src].to(torch.int32)
             self.ids[t:t + elems] = rid[src // w].to(torch.int32)
             self.valid[t:t + elems] = True
+            if self.row_weighted:
+                self.ew[t:t + elems] = roww[src // w]
+        if self.row_weighted:
+            self.wsum = self.wsum + torch.where(row_valid, roww, 0.0).sum(
+                dtype=torch.float32)
         self._t += elems
         self._nrr += rows
         self._bitset = None
@@ -250,6 +297,9 @@ class DeviceRRStore(_FoldedSketch):
             pad, dtype=torch.int32, device=self.device)])
         self.valid = torch.cat([self.valid, torch.zeros(
             pad, dtype=torch.bool, device=self.device)])
+        if self.row_weighted:
+            self.ew = torch.cat([self.ew, torch.zeros(
+                pad, dtype=torch.float32, device=self.device)])
 
     def row_capacity(self) -> int:
         """Row bound of the selection: the next power of two ≥ n_rr, and at
@@ -360,8 +410,9 @@ class SelectionSpec(NamedTuple):
     ``group_quota`` seeds (one group of quota ``k_steps`` for the plain
     variants).  ``cand`` masks the argmax to a candidate set;
     ``costs`` + ``budget`` make it the cost-ratio greedy among affordable
-    nodes.  ``weighted`` (the row-weighted store's estimator) is not ported:
-    ROADMAP Queue 1 item 7.
+    nodes.  ``weighted`` scores by the row weights of a row-weighted store
+    (the importance-weighted estimator): Occur, gains and ``frac`` are
+    float32 covered weight.
     """
     k_steps: int                       # scan length / most seeds
     n_group: int                       # group width over the item space
@@ -379,16 +430,14 @@ class VariantResult(NamedTuple):
     the steps with no feasible node; the CELF variant stops there.  Callers
     trim the sentinels."""
     seeds: torch.Tensor   # int32
-    gains: torch.Tensor   # int32 — newly covered RR sets per seed
+    gains: torch.Tensor   # int32 newly covered RR sets (float32 weight)
     frac: torch.Tensor    # () float32 — covered fraction
     spent: torch.Tensor   # () float32 — the picked seeds' total cost
 
 
 def _check_spec(store: DeviceRRStore, spec: SelectionSpec) -> None:
-    if spec.weighted:
-        raise NotImplementedError(
-            "weighted selection (the row-weighted store) is not ported yet: "
-            "ROADMAP Queue 1 item 7 (row-weighted store)")
+    if spec.weighted and store.ew is None:
+        raise ValueError("weighted selection needs a row_weighted store")
     n = store.n_nodes
     if spec.n_group < 1 or spec.n_groups < 1 or \
             spec.n_group * spec.n_groups < n:
@@ -418,6 +467,12 @@ def _spec_operands(store: DeviceRRStore, spec: SelectionSpec):
     return cand, costs, np.float32(spec.budget)
 
 
+def _wfrac(gains: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
+    """float32(sum of weighted gains) / max(wsum, 1e-30), the weighted F_R,
+    on the device."""
+    return gains.sum(dtype=torch.float32) / torch.clamp_min(wsum, 1e-30)
+
+
 def _select_flat_variant(store: DeviceRRStore,
                          spec: SelectionSpec) -> VariantResult:
     t = store.n_elems
@@ -426,9 +481,11 @@ def _select_flat_variant(store: DeviceRRStore,
         store.flat[:t], store.ids[:t], store.valid[:t], n=store.n_nodes,
         num_rows=store.row_capacity(), k=spec.k_steps, cand=cand,
         costs=costs, budget=float(budget), n_group=spec.n_group,
-        n_groups=spec.n_groups, group_quota=spec.group_quota)
-    return VariantResult(seeds=seeds, gains=gains,
-                         frac=_frac(gains, store.n_rr), spent=spent)
+        n_groups=spec.n_groups, group_quota=spec.group_quota,
+        ew=store.ew[:t] if spec.weighted else None)
+    frac = (_wfrac(gains, store.wsum) if spec.weighted
+            else _frac(gains, store.n_rr))
+    return VariantResult(seeds=seeds, gains=gains, frac=frac, spent=spent)
 
 
 def _select_bitset_variant(store: DeviceRRStore,
@@ -436,14 +493,30 @@ def _select_bitset_variant(store: DeviceRRStore,
     """The reference's ``bitset_variant``: :func:`_select_bitset`'s device
     loop with the plain scan's step (:class:`VariantScan`: the feasibility
     and score on the card, the first maximum by ``torch.argmax`` and the
-    sentinel n at a step with no feasible node); no host read a step."""
+    sentinel n at a step with no feasible node); no host read a step.
+
+    Weighted (the reference's ``bitset_variant_w``): the seed's newly
+    covered rows still come from the bit matrix, but Occur is the float32
+    scatter-add of the pool's element weights (:func:`weighted_occur`), a
+    step's gain the float32 sum of its new rows' weights, and each step's
+    decrement the weights of their elements, scattered from the flat pool,
+    with Occur clamped at 0 after it: torch operations, as the reference
+    runs this form without its Pallas Occur kernels."""
     m = store.bitset_matrix()
     n = store.n_nodes
     cand, costs, budget = _spec_operands(store, spec)
     scan = VariantScan(n, cand, costs, float(budget), spec.n_group,
                        spec.n_groups, spec.group_quota)
-    occur = kops.occur_from_bitset(m)[:n]
     covered = torch.zeros(m.shape[0], dtype=torch.bool, device=m.device)
+    if spec.weighted:
+        t = store.n_elems
+        flat, ids, valid = store.flat[:t], store.ids[:t], store.valid[:t]
+        ew = store.ew[:t]
+        row_of = ids.to(torch.int64).clamp(0, m.shape[0] - 1)
+        occur = weighted_occur(flat, valid, ew, n)
+        roww = row_weights(ids, valid, ew, m.shape[0])
+    else:
+        occur = kops.occur_from_bitset(m)[:n]
     last_word = m.shape[1] - 1
     seeds, gains = [], []
     for _ in range(spec.k_steps):
@@ -451,15 +524,25 @@ def _select_bitset_variant(store: DeviceRRStore,
         col = m.index_select(1, (u >> 5).clamp(max=last_word).view(1))[:, 0]
         hit = ((col >> (u & 31)) & 1) != 0
         newly = hit & ~covered & (u < n)
-        occur = occur - kops.occur_from_bitset_masked(m, newly)[:n]
-        gains.append(newly.sum())
+        if spec.weighted:
+            gains.append(torch.where(newly, roww, 0.0).sum(
+                dtype=torch.float32))
+            dec = weighted_occur(flat, newly[row_of] & valid, ew, n)
+            occur = torch.clamp_min(occur - dec, 0.0)
+        else:
+            occur = occur - kops.occur_from_bitset_masked(m, newly)[:n]
+            gains.append(newly.sum())
         covered = covered | newly
         scan.commit(u, ok)
         seeds.append(u)
+    seeds = torch.stack(seeds).to(torch.int32)
+    if spec.weighted:
+        gains = torch.stack(gains)
+        return VariantResult(seeds=seeds, gains=gains,
+                             frac=_wfrac(gains, store.wsum), spent=scan.spent)
     gains = torch.stack(gains).to(torch.int32)
-    return VariantResult(seeds=torch.stack(seeds).to(torch.int32),
-                         gains=gains, frac=_frac(gains, store.n_rr),
-                         spent=scan.spent)
+    return VariantResult(seeds=seeds, gains=gains,
+                         frac=_frac(gains, store.n_rr), spent=scan.spent)
 
 
 def select_variant(store: DeviceRRStore, spec: SelectionSpec,
@@ -532,8 +615,8 @@ def select_seeds_celf(store: DeviceRRStore, k: int, *, eval_batch: int = 32,
 def _celf_variant(store: DeviceRRStore, spec: SelectionSpec, *,
                   eval_batch: int = 32, use_sketch: bool = True,
                   stats_out: dict | None = None) -> VariantResult:
-    """CELF lazy greedy on a variant spec: the reference's ``_celf_variant``
-    (unweighted), a host loop that launches the port's kernels.
+    """CELF lazy greedy on a variant spec: the reference's ``_celf_variant``,
+    a host loop that launches the port's kernels.
 
     The host holds each node's upper bound (its exact Occur at first, then
     its last exact gain), the candidate mask, the group quotas and, in
@@ -545,7 +628,16 @@ def _celf_variant(store: DeviceRRStore, spec: SelectionSpec, *,
     scores until the argmax of the scores (the bound, or bound / cost with
     a budget, over the feasible nodes) is fresh, and that node's commit is
     one ``celf_apply``.  The seeds are the ``flat`` variant's seeds with
-    its sentinels trimmed, and so are the gains and ``spent``."""
+    its sentinels trimmed, and so are the gains and ``spent``.
+
+    Weighted (a row-weighted store): the bounds start as the weighted
+    Occur (:func:`weighted_occur`), the row weights
+    (:func:`row_weights`) are computed once and passed to the weighted
+    forms of ``celf_eval`` and ``celf_apply``, which sum the float32
+    weights of the rows a candidate newly covers, and ``frac`` divides by
+    the store's ``wsum``.  Where row weights are integers (or multiples of
+    a power of two) and their sums stay below 2^24, every float32 sum is
+    exact in any order, and the seeds equal the ``flat`` variant's."""
     _check_spec(store, spec)
     n = store.n_nodes
     t = store.n_elems
@@ -561,10 +653,17 @@ def _celf_variant(store: DeviceRRStore, spec: SelectionSpec, *,
     gbud = np.full(spec.n_groups, spec.group_quota, np.int64)
     budget32 = np.float32(spec.budget) if use_costs else np.float32(np.inf)
     spent32 = np.float32(0.0)
-    occur = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
-        0, flat.to(torch.int64), valid.to(torch.int32))[:n]
+    weighted = spec.weighted
+    roww = None
+    if weighted:
+        occur = weighted_occur(flat, valid, store.ew[:t], n)
+        denom = float(store.wsum)
+        roww = row_weights(ids, valid, store.ew[:t], store.row_capacity())
+    else:
+        occur = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
+            0, flat.to(torch.int64), valid.to(torch.int32))[:n]
+        denom = float(max(store.n_rr, 1))
     ub = occur.cpu().numpy().astype(np.float64)
-    denom = float(max(store.n_rr, 1))
     fresh = np.zeros(n, bool)
     cov_words = torch.zeros(store.row_capacity() // 32, dtype=torch.int32,
                             device=dev)
@@ -583,7 +682,8 @@ def _celf_variant(store: DeviceRRStore, spec: SelectionSpec, *,
         pad = np.full(c, -1, np.int32)
         pad[:len(cands)] = cands
         g = kops.celf_eval(flat, ids, valid, cov_words,
-                           torch.from_numpy(pad).to(dev)).cpu().numpy()
+                           torch.from_numpy(pad).to(dev),
+                           roww=roww).cpu().numpy()
         ub[cands] = g[:len(cands)]
         fresh[cands] = True
         n_evals += len(cands)
@@ -591,7 +691,8 @@ def _celf_variant(store: DeviceRRStore, spec: SelectionSpec, *,
 
     def scores(feas):
         if use_costs:
-            # the scan's float32 division: ub holds exact counts
+            # the scan's float32 division: ub holds exact counts (or
+            # float32 weight sums), so the cast is exact
             return np.where(feas & (ub > 0),
                             ub.astype(np.float32) / costs, -np.inf)
         return np.where(feas, ub, -np.inf)
@@ -633,7 +734,8 @@ def _celf_variant(store: DeviceRRStore, spec: SelectionSpec, *,
         if accepted is None:
             break
         u = accepted
-        gain = int(kops.celf_apply(flat, ids, valid, cov_words, u))
+        gain = kops.celf_apply(flat, ids, valid, cov_words, u,
+                               roww=roww).item()
         if use_sketch:
             cov_sk = sketch_mod.union_row(cov_sk, sk_words, u)
         ub[u] = 0.0
@@ -649,13 +751,15 @@ def _celf_variant(store: DeviceRRStore, spec: SelectionSpec, *,
                          sketch_k=(sk_k if use_sketch else 0),
                          n_rr=store.n_rr)
     # float64 quotient rounded to float32, as the reference's host maths
-    frac = np.float32(float(np.asarray(gains, np.float64).sum()) / denom)
+    frac = np.float32(float(np.asarray(gains, np.float64).sum())
+                      / max(denom, 1e-30))
 
     def put(a, dtype):
         return torch.from_numpy(np.asarray(a, dtype)).to(dev)
 
     return VariantResult(seeds=put(seeds, np.int32),
-                         gains=put(gains, np.int32),
+                         gains=put(gains, np.float32 if weighted
+                                   else np.int32),
                          frac=put(frac, np.float32),
                          spent=put(spent32, np.float32))
 

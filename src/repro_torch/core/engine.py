@@ -1,17 +1,20 @@
 """Sampler-engine protocol and registry: the canonical :class:`RRBatch` and
-the ``queue`` and ``dense`` engines (the reference's ``repro.core.engine``).
+the ``queue``, ``dense`` and ``lt`` engines (the reference's
+``repro.core.engine``).
 
 An engine is configured by a ``Config`` dataclass, registered under a short
 name and returns one :class:`RRBatch` from ``sample(seed32)``, where
 ``seed32`` is the 32-bit seed of the sampling round (the port draws from
-the counter hash, not from a key).  Both engines keep the per-row contract
-of :mod:`.rrset`, so for one ``seed32`` they give the same RR sets, row for
-row.  With ``root_weights`` (weighted IM) both draw their roots ∝ the
-weights through one alias table (:func:`repro_torch.core.roots.draw_roots`)
-and still agree row for row.  The other engines of the reference (refill,
-lt, mrim) wait for ROADMAP Queue 1 item 7.
-:class:`FusedSketchEngine` marks an engine as feeding the pool-free store of
-the approximate mode.
+the counter hash, not from a key).  The two IC engines keep the per-row
+contract of :mod:`.rrset`, so for one ``seed32`` they give the same RR
+sets, row for row.  With ``root_weights`` (weighted IM) every engine draws
+its roots ∝ the weights through one alias table
+(:func:`repro_torch.core.roots.draw_roots`), and the IC engines still agree
+row for row.  The ``lt`` engine samples the linear-threshold model's RR
+walks (:mod:`.lt`); :func:`resolve_engine_name` picks it for
+``model="lt"``.  The reference's ``refill`` and ``mrim`` engines wait for
+ROADMAP Queue 1 item 7.  :class:`FusedSketchEngine` marks an engine as
+feeding the pool-free store of the approximate mode.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 
 from repro_torch.graph.csr import CSRGraph, coalesce_ic
 from repro_torch.core import dense as rr_dense
+from repro_torch.core import lt as rr_lt
 from repro_torch.core import rrset as rr_queue
 from repro_torch.core.roots import build_alias_table
 
@@ -108,6 +112,12 @@ def make_engine(name: str, g_rev: CSRGraph, root_weights=None, **opts):
     return cls(g_rev, cfg, root_weights=root_weights)
 
 
+def resolve_engine_name(engine: str, model: str = "ic") -> str:
+    """The engine a solve runs: ``model="lt"`` takes the LT walk sampler
+    (the only LT engine) whatever ``engine`` names."""
+    return "lt" if model == "lt" else engine
+
+
 def _resolve_root_table(root_weights, device):
     """(weights or None) -> (float32 weights or None, the alias table on
     ``device`` or None)."""
@@ -182,6 +192,42 @@ class DenseEngine:
             self.g_rev, self._edge_src, seed32, self.config.batch,
             table=self.table)
         return RRBatch(nodes, lens, overflow, levels, roots=roots)
+
+
+@register_engine("lt")
+class LTEngine:
+    """Linear-threshold walk sampler (paper §3.7; :mod:`.lt`).  The rows'
+    cumulative weights are built once here; on a card a round is one
+    launch of the CUDA kernel ``csrc/lt.cu`` (``kernels/lt.py::lt_walk``,
+    through ``kernels.ops.lt_walk``) and one host read.  The graph is
+    taken as it is: parallel edges are two in-edges, each with its own
+    weight, as in the reference."""
+
+    @dataclass(frozen=True)
+    class Config:
+        batch: int = 256
+        qcap: Optional[int] = None   # default: n_nodes
+
+    def __init__(self, g_rev: CSRGraph, config: Optional[Config] = None,
+                 root_weights=None):
+        self.g_rev = g_rev
+        self.config = config if config is not None else self.Config()
+        self.qcap = (self.config.qcap if self.config.qcap is not None
+                     else g_rev.n_nodes)
+        self.rowcum = rr_lt.row_cumweights(g_rev)
+        self.root_weights, self.table = _resolve_root_table(
+            root_weights, g_rev.device)
+
+    @property
+    def item_space(self) -> int:
+        return self.g_rev.n_nodes
+
+    def sample(self, seed32: int) -> RRBatch:
+        s = rr_lt.sample_rrsets_lt(self.g_rev, self.config.batch, seed32,
+                                   qcap=self.qcap, table=self.table,
+                                   rowcum=self.rowcum)
+        return RRBatch(s.nodes, s.lengths, s.overflowed, s.steps,
+                       roots=s.roots)
 
 
 class FusedSketchEngine:

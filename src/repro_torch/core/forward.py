@@ -1,9 +1,11 @@
-"""Forward Monte-Carlo influence spread under IC (Kempe et al.'s method):
-the check on RIS estimates, E[I(S)] = n · Pr[S ∩ RR ≠ ∅] (Eq. 3).
+"""Forward Monte-Carlo influence spread under IC and LT (Kempe et al.'s
+method): the check on RIS estimates, E[I(S)] = n · Pr[S ∩ RR ≠ ∅]
+(Eq. 3).
 
-One row per simulation; each step draws one uniform per (simulation,
-edge) from a ``torch.Generator`` seeded by the caller, so no global RNG
-state is read or changed.
+One row per simulation; the random numbers come from a
+``torch.Generator`` seeded by the caller, so no global RNG state is read
+or changed: under IC one uniform per (simulation, edge) a step, under LT
+one threshold per (simulation, node).
 """
 from __future__ import annotations
 
@@ -47,3 +49,35 @@ def ic_spread(g: CSRGraph, seeds, n_sims: int = 256, seed: int = 0,
     with ``node_weights``)."""
     return float(ic_sizes(g, seeds, n_sims, seed, node_weights).to(
         torch.float64).mean())
+
+
+def lt_sizes(g: CSRGraph, seeds, n_sims: int = 256,
+             seed: int = 0) -> torch.Tensor:
+    """(n_sims,) int64 activated-set sizes of forward LT runs from ``seeds``
+    on the forward CSR ``g`` (on ``g``'s device), the reference's threshold
+    dynamics (Eq. 1): each (simulation, node) draws a threshold τ uniform in
+    [0, 1), and a node turns active once the float32 sum of the weights of
+    its active in-neighbours' edges reaches τ; the runs go on until no node
+    turns."""
+    dev = g.device
+    n = g.n_nodes
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    deg = (g.offsets[1:] - g.offsets[:-1]).to(torch.int64)
+    edge_src = torch.repeat_interleave(torch.arange(n, device=dev), deg)
+    edge_dst = g.indices.to(torch.int64)
+    tau = torch.rand((n_sims, n), generator=gen, device=dev)
+    active = torch.zeros(n_sims, n, dtype=torch.bool, device=dev)
+    active[:, torch.as_tensor(seeds, device=dev).to(torch.int64)] = True
+    while True:
+        contrib = torch.where(active[:, edge_src], g.weights, 0.0)
+        mass = torch.zeros(n_sims, n, dtype=torch.float32,
+                           device=dev).index_add_(1, edge_dst, contrib)
+        new = active | (mass >= tau)
+        if torch.equal(new, active):
+            return active.sum(dim=1)
+        active = new
+
+
+def lt_spread(g: CSRGraph, seeds, n_sims: int = 256, seed: int = 0) -> float:
+    """Forward LT E[I(S)] estimate on the forward CSR."""
+    return float(lt_sizes(g, seeds, n_sims, seed).to(torch.float64).mean())

@@ -1,4 +1,4 @@
-"""IMM solver (paper Alg. 2 + θ sampling + seed selection) for IC
+"""IMM solver (paper Alg. 2 + θ sampling + seed selection) for IC and LT
 problems, on one device.
 
     IMMSolver(g, device="cuda").solve(IMProblem(k=10, eps=0.3))
@@ -6,6 +6,9 @@ problems, on one device.
     IMMSolver(g).solve(IMProblem(k=10, eps=0.3, node_weights=w))  # weighted
     IMMSolver(g).solve(IMProblem(eps=0.3, costs=c, budget=B))     # budgeted
     IMMSolver(g).solve(IMProblem(k=10, eps=0.3, candidates=ids))  # targeted
+    IMMSolver(g, model="lt").solve(IMProblem(k=10, eps=0.3))      # LT model
+    IMMSolver(g, engine=make_engine("queue", reverse(g))).solve(
+        IMProblem(k=10, eps=0.3, node_weights=w))     # row-weighted estimator
 
 The host runs rounds of RR batches against the engine (gIM's kernel
 relaunches, Alg. 6): round t samples with the 32-bit seed
@@ -30,6 +33,15 @@ the sketch greedy's candidate mask), and a budgeted problem walks the θ
 schedule of its ``k_steps``.  The engine and store are keyed on the
 problem's ``pool_digest``, so problems that differ only in selection
 share a pool.
+
+``engine`` may also be a ready engine instance, as the reference allows.
+A weighted problem on an instance that does not draw its roots ∝ the
+problem's weights runs the importance-weighted estimator instead (row-weight
+mode): uniform roots, each row weighted by its root's weight in a
+row-weighted store, and the weighted selection (``SelectionSpec(weighted=
+True)``), so the spread is ``Σ w`` times the covered share of the rows'
+total weight.  ``model="lt"`` (on the solver or the problem) samples the
+linear-threshold model's RR walks with the ``lt`` engine.
 """
 from __future__ import annotations
 
@@ -43,7 +55,8 @@ import torch
 from repro_torch.graph.csr import CSRGraph, reverse
 from repro_torch.core import coverage as cov
 from repro_torch.core import sketch as sketch_mod
-from repro_torch.core.engine import FusedSketchEngine, make_engine
+from repro_torch.core.engine import (FusedSketchEngine, make_engine,
+                                     resolve_engine_name)
 from repro_torch.core.oracle import imm_theta_params
 from repro_torch.core.problem import IMProblem, IMResult, ResolvedProblem
 from repro_torch.core.rrset import round_seed
@@ -77,10 +90,14 @@ class IMMSolver:
     """Stateful solver: owns the RR pool, so Alg. 2 reuses earlier samples
     and repeated solves on one solver keep growing one pool.
 
-    ``engine`` names a registered engine; ``batch``/``qcap``/``ec`` go to
-    its config.  ``selection`` is ``auto``, ``fused`` (= ``flat``),
-    ``bitset`` or ``celf`` (= ``celf-sketch``, the lazy greedy with
-    ``eval_batch`` candidates an exact evaluation) for exact problems.
+    ``engine`` names a registered engine (``batch``/``qcap``/``ec`` go to
+    its config) or is a ready engine instance, which owns its graph and
+    configuration, so ``batch``/``qcap``/``ec``/``model`` given with one
+    raise ``ValueError``.  ``model="lt"`` takes the ``lt`` engine for
+    problems that leave ``model`` None.  ``selection`` is ``auto``,
+    ``fused`` (= ``flat``), ``bitset`` or ``celf`` (= ``celf-sketch``, the
+    lazy greedy with ``eval_batch`` candidates an exact evaluation) for
+    exact problems.
     ``sketch_k`` sizes the sketch of approximate problems (default
     ``auto_sketch_k(eps, n)``) and the exact store's incremental sketch,
     which ``celf`` and ``early_exit`` need (default
@@ -89,17 +106,19 @@ class IMMSolver:
     card).
     """
 
-    def __init__(self, g: CSRGraph, *, engine: str = "queue",
+    def __init__(self, g: CSRGraph, *, engine="queue",
                  batch: Optional[int] = None, qcap: Optional[int] = None,
                  ec: Optional[int] = None, model: Optional[str] = None,
                  selection: str = "auto", seed: int = 0,
                  sketch_k: Optional[int] = None,
                  eval_batch: Optional[int] = None, device="cuda"):
-        if model == "lt":
-            raise NotImplementedError(
-                "model='lt' is not ported yet: ROADMAP Queue 1 item 7")
-        if model not in (None, "ic"):
+        if model not in (None, "ic", "lt"):
             raise ValueError(f"unknown diffusion model {model!r}")
+        named = isinstance(engine, str)
+        if not named and any(v is not None for v in (batch, qcap, ec, model)):
+            raise ValueError(
+                "batch/qcap/ec/model have no effect when an engine instance "
+                "is passed; configure the engine instead")
         if selection not in _SELECTION_METHODS:
             raise ValueError(f"unknown selection {selection!r}; one of "
                              f"{sorted(_SELECTION_METHODS)}")
@@ -113,23 +132,71 @@ class IMMSolver:
         self._sel_method = _SELECTION_METHODS[selection]
         self.seed = int(seed)
         self._sketch_k_arg = sketch_k
-        self._engine_name = engine
+        self._engine_arg = engine
+        self._model_arg = model
         self._engine_opts = dict(batch=batch, qcap=qcap, ec=ec)
-        self.g_rev = reverse(self.g)
-        self._engine = make_engine(engine, self.g_rev, **self._engine_opts)
+        # an instance owns its reverse graph
+        self.g_rev = (reverse(self.g) if named
+                      else getattr(engine, "g_rev", None))
+        self._plain_engines = {}      # unweighted named engines, by name
         self._sketch_info = None
         self._sig = None
-        self.prepare(IMProblem(k=1))
+        self._row_weight_mode = False
+        self._node_w = None
+        self.engine = self.store = None
+        self.engine_name = None
+        if named or (engine.item_space == self.n
+                     and getattr(engine, "root_weights", None) is None):
+            # a weighted-root instance waits for its first (weighted)
+            # problem, as the reference's
+            self.prepare(IMProblem(k=1))
+
+    def _default_model(self) -> str:
+        return "lt" if self._model_arg == "lt" else "ic"
 
     # -- engine + store per problem signature ------------------------------
-    def _build(self, r: ResolvedProblem, sig) -> None:
+    def _engine_for(self, r: ResolvedProblem, model: str):
+        """(engine, row-weight mode) for a problem: a named engine (the
+        ``lt`` one for the LT model) with the alias table of the problem's
+        weights, or the instance, in row-weight mode when the problem's
+        weights are not the ones its roots are drawn by."""
+        w = r.node_weights
+        if isinstance(self._engine_arg, str):
+            name = resolve_engine_name(self._engine_arg, model)
+            if w is not None:
+                return make_engine(name, self.g_rev, root_weights=w,
+                                   **self._engine_opts), False
+            if name not in self._plain_engines:
+                self._plain_engines[name] = make_engine(
+                    name, self.g_rev, **self._engine_opts)
+            return self._plain_engines[name], False
+        engine = self._engine_arg
+        eng_w = getattr(engine, "root_weights", None)
+        if w is None and eng_w is not None:
+            # a plain solve on roots drawn ∝ the engine's weights would
+            # return the weighted objective on the uniform scale
+            raise ValueError(
+                "engine instance draws weighted roots (root_weights set) but "
+                "the problem has no node_weights; set node_weights on the "
+                "IMProblem (or use an unweighted engine)")
+        row_weight_mode = w is not None and not (
+            eng_w is not None
+            and np.array_equal(np.asarray(eng_w, np.float32), w))
+        return engine, row_weight_mode
+
+    def _build(self, r: ResolvedProblem, sig, model: str) -> None:
         """Fresh engine, store and stats for the signature (pool digest,
         sketch_k): the round-seed stream restarts at round 0.  A weighted
-        problem gets an engine with the alias table of its weights."""
-        problem, sketch_k, w = r.problem, sig[1], r.node_weights
-        engine = (self._engine if w is None else
-                  make_engine(self._engine_name, self.g_rev,
-                              root_weights=w, **self._engine_opts))
+        problem gets an engine with the alias table of its weights, or on
+        an instance that does not draw by them a row-weighted store."""
+        problem, sketch_k = r.problem, sig[-1]
+        engine, row_weight_mode = self._engine_for(r, model)
+        if engine.item_space != r.n_items:
+            raise ValueError(
+                f"engine {getattr(engine, 'name', '?')!r} samples an item "
+                f"space of {engine.item_space}, not the problem's "
+                f"{r.n_items} items")
+        self.engine_name = getattr(engine, "name", type(engine).__name__)
         if problem.mode == "approximate":
             self.engine = FusedSketchEngine(engine)
             self.store = cov.SketchRRStore(engine.item_space,
@@ -139,7 +206,11 @@ class IMMSolver:
             self.engine = engine
             self.store = cov.DeviceRRStore(engine.item_space,
                                            sketch_k=sketch_k,
+                                           row_weighted=row_weight_mode,
                                            device=self.device)
+        self._row_weight_mode = row_weight_mode
+        self._node_w = (torch.from_numpy(r.node_weights).to(self.device)
+                        if row_weight_mode else None)
         self._sig = sig
         self._stats = IMMStats(selection=self.selection,
                                variant=problem.variant)
@@ -153,6 +224,8 @@ class IMMSolver:
         first to reach ``self.engine``/``self.store`` before a solve.
         Returns the problem resolved against the graph."""
         r = problem.resolve(self.n)
+        # the problem's model, or the solver's for model=None
+        model = problem.model or self._default_model()
         # celf and the early exit read the exact store's incremental sketch
         sketch_k = self._sketch_k_arg
         if sketch_k is None and (self._sel_method == "celf"
@@ -162,15 +235,32 @@ class IMMSolver:
             sketch_k = sketch_mod.auto_sketch_k(problem.eps, self.n)
         if sketch_k is not None:
             sketch_k = sketch_mod.resolve_sketch_k(sketch_k)
-        sig = (problem.pool_digest(model="ic"), sketch_k)
+        if isinstance(self._engine_arg, str):
+            sig = ("name", resolve_engine_name(self._engine_arg, model),
+                   problem.pool_digest(model=model), sketch_k)
+        else:
+            sig = ("inst", id(self._engine_arg), problem.pool_digest(),
+                   sketch_k)
         if sig != self._sig:
-            self._build(r, sig)
+            self._build(r, sig, model)
         return r
 
     # -- sampling ----------------------------------------------------------
     def _round(self):
         batch = self.engine.sample(round_seed(self.seed, self._stats.rounds))
-        self.store.append_batch(batch)
+        if self._row_weight_mode:
+            # the importance-weighted estimator: each row weighs its root's
+            # node weight
+            if batch.roots is None:
+                raise ValueError(
+                    "weighted problem on an engine that neither draws roots "
+                    "by the weights nor reports batch roots: no "
+                    "importance-weighted estimator")
+            w = self._node_w
+            self.store.append_batch(batch, row_w=w[batch.roots.to(
+                torch.int64).clamp(0, w.shape[0] - 1)])
+        else:
+            self.store.append_batch(batch)
         self._ovf += batch.overflowed.sum()
         self._ovf_lanes += int(batch.overflowed.numel())
         self._stats.sampling_steps += batch.steps
@@ -189,19 +279,20 @@ class IMMSolver:
         return st
 
     # -- variants ----------------------------------------------------------
-    @staticmethod
-    def _selection_spec(r: ResolvedProblem):
-        """None for plain problems and for weights alone (the roots carry
-        the weights, so rows stay equal); else the variant greedy's
+    def _selection_spec(self, r: ResolvedProblem):
+        """None for plain problems and for weights alone when the roots
+        carry them (rows stay equal); else the variant greedy's
         :class:`~repro_torch.core.coverage.SelectionSpec`: one group of
-        quota ``k_steps`` over the items, the candidate mask, the costs."""
+        quota ``k_steps`` over the items, the candidate mask, the costs,
+        and in row-weight mode the weighted score."""
         p = r.problem
-        if p.budget is None and p.candidates is None:
+        if p.budget is None and p.candidates is None \
+                and not self._row_weight_mode:
             return None
         return cov.SelectionSpec(
             k_steps=r.k_steps, n_group=r.n_items, n_groups=1,
             group_quota=r.k_steps, cand=r.cand_mask_items, costs=r.costs,
-            budget=p.budget)
+            budget=p.budget, weighted=self._row_weight_mode)
 
     # -- full IMM ----------------------------------------------------------
     def solve(self, problem: IMProblem) -> IMResult:
@@ -301,8 +392,8 @@ class IMMSolver:
         p = r.problem
         st = self.store
         if (not p.early_exit or st.sketch_k is None
-                or st.sketch_mode != "mod" or r.node_weights is not None
-                or p.budget is not None):
+                or st.sketch_mode != "mod" or self._row_weight_mode
+                or r.node_weights is not None or p.budget is not None):
             return False
         n_rr = st.n_rr
         if n_rr == 0 or n_rr > st.sketch_k:

@@ -1,16 +1,14 @@
 """Pure-numpy serial oracles of the RIS/IMM pipeline, the port's own copy
-of ``repro.core.oracle`` (IC only):
+of ``repro.core.oracle``:
 
 * :func:`rr_set_ic` — one RR set under IC, a randomised reverse BFS;
+* :func:`rr_set_lt` — one RR set under LT, a reverse random walk;
 * :func:`greedy_max_coverage` and its weighted and budgeted forms — the
   exact greedy, ties to the lowest node id as the port's argmax;
 * :func:`log_cnk` / :func:`imm_theta_params` — IMM's θ maths (Tang et al.
   2015), the same floats as the reference;
 * :func:`imm_oracle` — serial IMM (Alg. 2, θ sampling, selection);
 * :func:`forward_ic_spread` — forward Monte-Carlo spread, weighted or not.
-
-The LT walk (``rr_set_lt``) waits for the ``lt`` engine (ROADMAP Queue 1
-item 7).
 """
 from __future__ import annotations
 
@@ -37,6 +35,29 @@ def rr_set_ic(offsets, indices, weights, root: int, rng: np.random.Generator):
                     queue.append(v)
     return queue  # visit order; queue == RR set
 
+
+
+def rr_set_lt(offsets, indices, weights, root: int, rng: np.random.Generator):
+    """LT RR set: reverse walk picking at most one in-edge per node."""
+    visited = {int(root)}
+    walk = [int(root)]
+    u = int(root)
+    while True:
+        s, e = offsets[u], offsets[u + 1]
+        if e == s:
+            return walk
+        w = weights[s:e]
+        r = rng.random()
+        cum = np.cumsum(w)
+        if r >= cum[-1]:
+            return walk  # stopped: total prob <= 1
+        j = int(np.searchsorted(cum, r, side="right"))
+        v = int(indices[s + j])
+        if v in visited:
+            return walk
+        visited.add(v)
+        walk.append(v)
+        u = v
 
 
 def greedy_max_coverage(rr_sets: list[list[int]], n: int, k: int):
@@ -155,18 +176,14 @@ def imm_theta_params(n: int, k: int, eps: float, ell: float = 1.0):
 def imm_oracle(offsets_rev, indices_rev, weights_rev, n: int, k: int,
                eps: float, seed: int = 0, model: str = "ic",
                max_theta: int | None = None):
-    """Serial IMM under IC.  Returns (seeds, rr_sets, theta).  ``model``
-    must be ``"ic"``: the LT walk waits for the ``lt`` engine (ROADMAP Queue
-    1 item 7)."""
-    if model != "ic":
-        raise NotImplementedError(
-            f"imm_oracle(model={model!r}) is not ported yet: ROADMAP Queue 1 "
-            "item 7 (lt engine)")
+    """Serial IMM under IC (``model="ic"``) or LT (any other model).
+    Returns (seeds, rr_sets, theta)."""
     rng = np.random.default_rng(seed)
     lam_p, lam_star, eps_p, _ = imm_theta_params(n, k, eps)
+    sample = rr_set_ic if model == "ic" else rr_set_lt
 
     def draw(count):
-        return [rr_set_ic(offsets_rev, indices_rev, weights_rev,
+        return [sample(offsets_rev, indices_rev, weights_rev,
                        int(rng.integers(n)), rng) for _ in range(count)]
 
     rr_sets: list[list[int]] = []

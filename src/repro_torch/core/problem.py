@@ -16,8 +16,9 @@ hashes the same in both packages:
 
 ``mode`` is ``"exact"`` (the RR pool) or ``"approximate"`` (the pool-free
 sketch store, which takes candidates but neither weights nor a budget);
-``early_exit`` is the θ early exit of the LB loop.  MRIM (``t_rounds``)
-and the ``lt`` model are not ported yet: setting either raises
+``early_exit`` is the θ early exit of the LB loop; ``model`` is ``"ic"``
+or ``"lt"`` (the linear-threshold model, paper §3.7), or None to take the
+solver's.  MRIM (``t_rounds``) is not ported yet: setting it raises
 ``NotImplementedError`` naming its ROADMAP item.  Host-side spec and
 validation only.
 """
@@ -97,7 +98,7 @@ class IMProblem:
     Exactly one of ``k`` and ``budget`` is set; ``costs`` needs ``budget``
     (unit costs without it).  ``theta=`` pins the RR-pool size (no Alg. 2
     LB loop); ``max_theta`` caps it; ``ell`` is IMM's failure-probability
-    exponent.  ``model`` may be ``None`` (inherit) or ``"ic"``.
+    exponent.  ``model`` may be ``None`` (inherit), ``"ic"`` or ``"lt"``.
     ``early_exit=True`` lets the LB loop skip the selection of an
     iteration that the coverage sketch proves cannot pass its test
     (``IMMSolver._early_exit_skip``), which changes neither θ nor the
@@ -126,10 +127,6 @@ class IMProblem:
             if getattr(self, name) is not plain:
                 raise NotImplementedError(
                     f"IMProblem({name}=...) is not ported yet: ROADMAP {item}")
-        if self.model == "lt":
-            raise NotImplementedError(
-                "IMProblem(model='lt') is not ported yet: ROADMAP Queue 1 "
-                "item 7 (lt engine)")
         if self.mode == "approximate":
             # the sketch store scores seeds on row counts alone; candidates
             # only mask its sweep
@@ -151,7 +148,7 @@ class IMProblem:
             raise ValueError("budget must be positive")
         if self.costs is not None and self.budget is None:
             raise ValueError("costs= requires budget= (budgeted IM)")
-        if self.model not in (None, "ic"):
+        if self.model not in (None, "ic", "lt"):
             raise ValueError(f"unknown diffusion model {self.model!r}")
         if not (0.0 < self.eps < 1.0):
             raise ValueError("eps must lie in (0, 1)")

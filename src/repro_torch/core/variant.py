@@ -1,7 +1,8 @@
 """The step of the problem variants' greedy (candidates, a budget, group
 quotas): which node a step picks and what the pick spends.  The port's
 own copy of the step of the reference's ``fused_variant`` scan
-(``repro.core.coverage``, unweighted)."""
+(``repro.core.coverage``), and the row-weighted store's weighted Occur and
+row weights (its ``occur_weighted`` and ``row_weights``)."""
 from __future__ import annotations
 
 import torch
@@ -59,3 +60,24 @@ class VariantScan:
                 ok, self.costs[u.clamp(max=self.n - 1)], 0.0)
         self.gbud[torch.where(ok, u // self.n_group, self.n_groups)] -= 1
         self.picked[u] = True
+
+
+def row_weights(ids: torch.Tensor, valid: torch.Tensor, ew: torch.Tensor,
+                num_rows: int) -> torch.Tensor:
+    """(num_rows,) float32 row weights from the element weights: each
+    row's largest valid element weight, floored at 0 (the reference's
+    ``segment_max``; a row with no element gets 0)."""
+    ew_l = torch.where(valid, ew, 0.0)
+    return torch.zeros(num_rows, dtype=torch.float32,
+                       device=ew.device).scatter_reduce_(
+        0, ids.to(torch.int64).clamp(0, num_rows - 1), ew_l, "amax")
+
+
+def weighted_occur(flat: torch.Tensor, valid: torch.Tensor,
+                   ew: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) float32 weighted Occur: the float32 scatter-add of the valid
+    elements' weights onto their nodes (the reference's
+    ``occur_weighted``)."""
+    return torch.zeros(n + 1, dtype=torch.float32, device=ew.device
+                       ).index_add_(0, flat.to(torch.int64),
+                                    torch.where(valid, ew, 0.0))[:n]

@@ -2,10 +2,11 @@
 :func:`celf_select` runs one whole selection, all k seeds, in one
 cooperative launch; :func:`celf_eval` scores a batch of candidates against
 a packed Covered bitset and :func:`celf_apply` commits a seed into it, one
-launch each (no longer on the selection's path).  None replaces a Pallas
-kernel: the reference runs CELF as a host loop whose evaluations are XLA
-(``select_seeds_celf``, ``eval_batch`` and ``apply_seed`` of
-``repro.core.coverage``).
+launch each (the CELF variant's host loop launches them; given row
+weights, their weighted forms sum the newly covered rows' weights).  None
+replaces a Pallas kernel: the reference runs CELF as a host loop whose
+evaluations are XLA (``select_seeds_celf``, ``eval_batch`` and
+``apply_seed`` of ``repro.core.coverage``).
 
 Each computes what its plain version in ``kernels/ref.py`` computes
 (``celf_select_ref``, ``celf_eval_ref``, ``celf_apply_ref``), byte for
@@ -34,7 +35,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.greedy import device_index, row_lanes
 
 # launches since the last reset (see ops.reset_launch_counts)
-LAUNCHES = {"celf_eval": 0, "celf_apply": 0, "celf_select": 0}
+LAUNCHES = {"celf_eval": 0, "celf_apply": 0, "celf_eval[weighted]": 0,
+            "celf_apply[weighted]": 0, "celf_select": 0}
 
 # csrc/celf.cu: kMaxCands, the candidates of one celf_eval launch
 MAX_CANDS = 2048
@@ -42,10 +44,11 @@ MAX_CANDS = 2048
 _vp, _i32, _i64, _int = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
                          ctypes.c_int)
 _EVAL = _build.Kernel("celf", "celf_eval",
-                      (_vp, _vp, _vp, _i64, _vp, _i64, _vp, _int, _vp, _int,
-                       _vp))
+                      (_vp, _vp, _vp, _i64, _vp, _i64, _vp, _int, _vp, _vp,
+                       _int, _vp))
 _APPLY = _build.Kernel("celf", "celf_apply",
-                       (_vp, _vp, _vp, _i64, _vp, _i64, _i32, _vp, _int, _vp))
+                       (_vp, _vp, _vp, _i64, _vp, _i64, _i32, _vp, _vp, _int,
+                        _vp))
 _SELECT = _build.Kernel("celf", "celf_select",
                         (_vp, _vp, _vp, _i64, _i32, _i64, _i32, _i32, _vp,
                          _i32, _int, _int, _vp, _i64, _vp, _int, _vp))
@@ -82,12 +85,28 @@ def _check_pool(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
                          f"{cov_words.dtype} on {cov_words.device}")
 
 
+def _check_roww(roww, cov_words: torch.Tensor) -> None:
+    """Raise unless ``roww`` is None or the (32 * len(cov_words),) float32
+    row weights on the pool's card."""
+    rows = 32 * cov_words.shape[0]
+    if roww is not None and (roww.device != cov_words.device or
+                             roww.dtype != torch.float32 or
+                             roww.shape != (rows,) or
+                             not roww.is_contiguous()):
+        raise ValueError(f"roww must be a contiguous ({rows},) float32 "
+                         f"tensor on {cov_words.device}")
+
+
 def celf_eval(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
-              cov_words: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
+              cov_words: torch.Tensor, cands: torch.Tensor,
+              roww: torch.Tensor | None = None) -> torch.Tensor:
     """Rows not in Covered that hold each candidate, on the card: (t,)
     int32 ``flat`` and ``ids`` and bool ``valid``, (num_rows/32,) int32
-    ``cov_words``, (c,) int32/int64 ``cands`` -> (c,) int32."""
+    ``cov_words``, (c,) int32/int64 ``cands`` -> (c,) int32; with the
+    (num_rows,) float32 row weights ``roww``, the weighted form: the
+    float32 sums of their weights, counted under ``celf_eval[weighted]``."""
     _check_pool(flat, ids, valid, cov_words)
+    _check_roww(roww, cov_words)
     if cands.device != flat.device or cands.dim() != 1 or \
             cands.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"cands must be a 1-D integer tensor on "
@@ -105,20 +124,28 @@ def celf_eval(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
                           device=flat.device)
         err = _EVAL(flat.data_ptr(), ids.data_ptr(), valid.data_ptr(),
                     flat.shape[0], cov_words.data_ptr(), nw, part.data_ptr(),
-                    cc, buf.data_ptr(), dev, stream)
+                    cc, None if roww is None else roww.data_ptr(),
+                    buf.data_ptr(), dev, stream)
         _build.raise_on(err, "celf_eval")
-        LAUNCHES["celf_eval"] += 1
-        outs.append(buf[:cc])
+        LAUNCHES["celf_eval" if roww is None else "celf_eval[weighted]"] += 1
+        outs.append(buf[:cc] if roww is None
+                    else buf[:cc].view(torch.float32))
     if len(outs) == 1:
         return outs[0]
-    return torch.cat(outs) if outs else cands.new_zeros(0)
+    if outs:
+        return torch.cat(outs)
+    return torch.zeros(0, dtype=torch.int32 if roww is None
+                       else torch.float32, device=flat.device)
 
 
 def celf_apply(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
-               cov_words: torch.Tensor, u: int) -> torch.Tensor:
+               cov_words: torch.Tensor, u: int,
+               roww: torch.Tensor | None = None) -> torch.Tensor:
     """OR the rows that hold node ``u`` (a host int) into ``cov_words`` in
-    place on the card -> the rows that were new, a 0-d int32 tensor."""
+    place on the card -> the rows that were new, a 0-d int32 tensor; with
+    ``roww``, the float32 sum of their weights (``celf_apply[weighted]``)."""
     _check_pool(flat, ids, valid, cov_words)
+    _check_roww(roww, cov_words)
     u = int(u)
     if not -(1 << 31) <= u < 1 << 31:
         raise ValueError(f"u must fit int32, got {u}")
@@ -126,10 +153,14 @@ def celf_apply(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
     dev = flat.get_device()
     err = _APPLY(flat.data_ptr(), ids.data_ptr(), valid.data_ptr(),
                  flat.shape[0], cov_words.data_ptr(), cov_words.shape[0], u,
+                 None if roww is None else roww.data_ptr(),
                  gain.data_ptr(), dev, _build.raw_stream(dev))
     _build.raise_on(err, "celf_apply")
-    LAUNCHES["celf_apply"] += 1
-    return gain[0]
+    if roww is None:
+        LAUNCHES["celf_apply"] += 1
+        return gain[0]
+    LAUNCHES["celf_apply[weighted]"] += 1
+    return gain.view(torch.float32)[0]
 
 
 class SelectLayout(NamedTuple):

@@ -53,6 +53,22 @@
 //   block adds its count to *gain once.  Bound: bytes, the node ids of the
 //   pool read once, and the valid byte, row id and Covered word (read and
 //   written) of the elements that hold u.
+//
+// Weighted forms (roww non-null: the row-weighted store's (32 *
+// cov_words) float32 row weights).  Replace no Pallas kernel either: the
+// reference's eval_batch_w and apply_seed_w (src/repro/core/coverage.py:
+// 1783-1821) are XLA over _newly_rows.  Where a row's bit flips, they add
+// the row's weight instead of one: celf_eval into its candidate's float
+// count in shared memory and then out (float32), celf_apply into the
+// warp's shuffle sum, the block's shared sum and *gain (float32).  With
+// roww null the kernels count as before, bit for bit.  The plain versions
+// are celf_eval_ref and celf_apply_ref with roww.  Bound: the same bytes,
+// and the weight (4 bytes) of each newly covered row.  Float order: the
+// atomics add in no fixed order, so the sums are those of the plain
+// version bit for bit where every partial sum is exact in float32
+// (integer or dyadic weights whose sums stay below 2^24 units of the
+// finest step); otherwise they may differ in the last bits (a relative
+// 2^-24 an add, for positive weights).
 
 #include <cstdint>
 #include <cooperative_groups.h>
@@ -100,7 +116,8 @@ celf_eval_kernel(const int32_t* __restrict__ flat,
                  const uint8_t* __restrict__ valid, int64_t t,
                  const uint32_t* __restrict__ cov, int64_t cov_words,
                  const int32_t* __restrict__ cands, int c, int table_bits,
-                 int32_t* __restrict__ out, uint32_t* __restrict__ scratch) {
+                 const float* __restrict__ roww, int32_t* __restrict__ out,
+                 uint32_t* __restrict__ scratch) {
   __shared__ int32_t s_key[kMaxTable];
   __shared__ int32_t s_cand[kMaxTable];
   __shared__ int32_t s_cnt[kMaxCands];
@@ -135,12 +152,21 @@ celf_eval_kernel(const int32_t* __restrict__ flat,
       const int i = s_cand[h];
       const uint32_t old = atomicOr(scratch + int64_t(i) * cov_words + (r >> 5),
                                     bit);
-      if (!(old & bit)) atomicAdd(&s_cnt[i], 1);
+      if (old & bit) continue;
+      if (roww)          // the weighted form: a float count (its bits)
+        atomicAdd(reinterpret_cast<float*>(s_cnt) + i, __ldg(roww + r));
+      else
+        atomicAdd(&s_cnt[i], 1);
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < c; i += blockDim.x)
-    if (s_cnt[i]) atomicAdd(out + i, s_cnt[i]);
+  for (int i = threadIdx.x; i < c; i += blockDim.x) {
+    if (!s_cnt[i]) continue;
+    if (roww)
+      atomicAdd(reinterpret_cast<float*>(out) + i, __int_as_float(s_cnt[i]));
+    else
+      atomicAdd(out + i, s_cnt[i]);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -148,9 +174,14 @@ celf_apply_kernel(const int32_t* __restrict__ flat,
                   const int32_t* __restrict__ ids,
                   const uint8_t* __restrict__ valid, int64_t t,
                   uint32_t* __restrict__ cov, int64_t cov_words, int32_t u,
+                  const float* __restrict__ roww,
                   int32_t* __restrict__ gain) {
   __shared__ int32_t s_gain;
-  if (threadIdx.x == 0) s_gain = 0;
+  __shared__ float s_wgain;            // the weighted form's sum
+  if (threadIdx.x == 0) {
+    s_gain = 0;
+    s_wgain = 0.f;
+  }
   __syncthreads();
   const int64_t rows = cov_words * 32;
   const int64_t stride = int64_t(gridDim.x) * blockDim.x;
@@ -165,10 +196,20 @@ celf_apply_kernel(const int32_t* __restrict__ flat,
       flipped = !(atomicOr(cov + (r >> 5), bit) & bit);
     }
     const unsigned votes = __ballot_sync(0xffffffffu, flipped);
-    if ((threadIdx.x & 31) == 0 && votes) atomicAdd(&s_gain, __popc(votes));
+    if (roww && votes) {
+      float w = flipped ? __ldg(roww + r) : 0.f;
+      for (int off = 16; off > 0; off >>= 1)
+        w += __shfl_xor_sync(0xffffffffu, w, off);
+      if ((threadIdx.x & 31) == 0) atomicAdd(&s_wgain, w);
+    } else if ((threadIdx.x & 31) == 0 && votes) {
+      atomicAdd(&s_gain, __popc(votes));
+    }
   }
   __syncthreads();
-  if (threadIdx.x == 0 && s_gain) atomicAdd(gain, s_gain);
+  if (threadIdx.x == 0 && roww && s_wgain != 0.f)
+    atomicAdd(reinterpret_cast<float*>(gain), s_wgain);
+  else if (threadIdx.x == 0 && s_gain)
+    atomicAdd(gain, s_gain);
 }
 
 unsigned grid_of(int64_t t) {
@@ -1298,11 +1339,12 @@ SelectLayout select_layout(int32_t n, int64_t cov_words, int32_t c,
 // `device` and returns the cudaError_t of its memset or its launch.
 
 // buf: c + c * cov_words int32, zeroed here; out = buf[0:c].  1 <= c <=
-// kMaxCands (kernels/celf.py::MAX_CANDS).
+// kMaxCands (kernels/celf.py::MAX_CANDS).  roww: null, or 32 * cov_words
+// float32 row weights (the weighted form: out holds float32 sums).
 extern "C" int celf_eval(const void* flat, const void* ids, const void* valid,
                          int64_t t, const void* cov, int64_t cov_words,
-                         const void* cands, int c, void* buf, int device,
-                         void* stream) {
+                         const void* cands, int c, const void* roww,
+                         void* buf, int device, void* stream) {
   if (c < 1 || c > kMaxCands || cov_words < 1) return int(cudaErrorInvalidValue);
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return int(guard.err);
@@ -1318,15 +1360,19 @@ extern "C" int celf_eval(const void* flat, const void* ids, const void* valid,
       static_cast<const int32_t*>(flat), static_cast<const int32_t*>(ids),
       static_cast<const uint8_t*>(valid), t,
       static_cast<const uint32_t*>(cov), cov_words,
-      static_cast<const int32_t*>(cands), c, bits, out,
+      static_cast<const int32_t*>(cands), c, bits,
+      static_cast<const float*>(roww), out,
       reinterpret_cast<uint32_t*>(out + c));
   return int(cudaGetLastError());
 }
 
-// gain: one int32, zeroed here; cov: cov_words uint32, updated in place.
+// gain: one int32 (float32 in the weighted form, roww non-null: 32 *
+// cov_words float32 row weights), zeroed here; cov: cov_words uint32,
+// updated in place.
 extern "C" int celf_apply(const void* flat, const void* ids, const void* valid,
                           int64_t t, void* cov, int64_t cov_words, int32_t u,
-                          void* gain, int device, void* stream) {
+                          const void* roww, void* gain, int device,
+                          void* stream) {
   if (cov_words < 1) return int(cudaErrorInvalidValue);
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return int(guard.err);
@@ -1337,7 +1383,8 @@ extern "C" int celf_apply(const void* flat, const void* ids, const void* valid,
   celf_apply_kernel<<<grid_of(t), kThreads, 0, s>>>(
       static_cast<const int32_t*>(flat), static_cast<const int32_t*>(ids),
       static_cast<const uint8_t*>(valid), t, static_cast<uint32_t*>(cov),
-      cov_words, u, static_cast<int32_t*>(gain));
+      cov_words, u, static_cast<const float*>(roww),
+      static_cast<int32_t*>(gain));
   return int(cudaGetLastError());
 }
 

@@ -103,6 +103,39 @@
 //   spent, kept by every thread, takes each pick's cost in step order
 //   (__fadd_rn), and is written out at the end.
 //
+// greedy_flat_variant, weighted form (kWeighted, given ew: each element's
+// float32 row weight, the row-weighted store's).  Replaces no Pallas
+// kernel: the reference runs its fused_variant_w scan as plain XLA
+// (src/repro/core/coverage.py:1500-1632, _variant_locals(weighted=True));
+// the plain version is greedy_flat_variant_ref with ew.  Changes to the
+// variant:
+// - Occur is float32, kept as its bits in the same words: (A) zeroes a
+//   float wocc a node, (B) adds each counted element's weight to its
+//   node's (atomicAdd) and sets each row's weight, the largest valid
+//   element weight of its span, floored at 0 (a thread a row), and (C)
+//   copies the slice's wocc into Occur; the list starts still come from
+//   the element counts.
+// - Keys: an Occur x is first made canonical (x > 0 ? x : +0.0): -0.0,
+//   which fmaxf and a decrement to zero can leave, has its sign bit set
+//   and would order above every positive float.  Then (bits(x) + 1) << 32
+//   | (0xFFFFFFFF - v) without costs, bits(__fdiv_rn(x, cost)) with costs
+//   (over x > 0): non-negative floats order as their bits, so ties still
+//   go to the lowest id.
+// - The cover walk runs at the last step too: block 0 sums the weights of
+//   the rows whose bit it flips (a warp's shuffle sum, then a shared
+//   atomicAdd) into the step's gain, written as float32 bits.  Each
+//   element in the slice takes its own weight off its node's Occur (a
+//   shared or L2 float atomicAdd), and after the walk every slice Occur is
+//   clamped at 0 (canonical), the reference's max(occur - dec, 0).
+// - Float order.  The atomics add in no fixed order, and the decrements
+//   go one element at a time where the reference subtracts a step's sum.
+//   Where every partial sum is a float32 exactly (integer weights, or
+//   multiples of 2^-j, whose sums stay below 2^24 units of the finest
+//   step) the order changes nothing and every byte equals the plain
+//   version's; otherwise Occur, the gains and frac may differ in their
+//   last bits (relative 2^-24 a sum of positive terms per add), and so a
+//   near tie may pick another seed.
+//
 // What bounds it.  Not bytes: the pool read twice and the indices written
 // once are about 1 MB at the default solve's pool, and each block reading
 // every seed row's entry and its elements (from L2) adds about 0.2 MB a
@@ -249,12 +282,23 @@ struct VariantArgs {
   float budget;
   int32_t n_group, group_quota, blocked_words, group_words;
   float* spent;
+  // the weighted form: the elements' weights, and the scratch of the
+  // nodes' float Occur and the rows' weights
+  const float* ew;
+  float* wocc;
+  float* roww;
 };
+
+// A weighted Occur's canonical value: x > 0 stays, anything else (+0.0,
+// -0.0, and a negative that a decrement left) is +0.0, whose bits are 0.
+__device__ __forceinline__ float canonical_occur(float x) {
+  return x > 0.f ? x : 0.f;
+}
 
 // The variant's first maximum of the block's slice, in thread 0 (the key;
 // 0 for no feasible node): as slice_argmax, over the feasible nodes and
 // their variant scores (`room` = budget - spent).
-template <bool kShared>
+template <bool kShared, bool kWeighted>
 __device__ __forceinline__ uint64_t slice_argmax_variant(
     const int32_t* occ, const int32_t* blocked, int64_t lo, int64_t held,
     const VariantArgs& va, float room, uint64_t* red) {
@@ -263,11 +307,15 @@ __device__ __forceinline__ uint64_t slice_argmax_variant(
     if ((load_state<kShared>(blocked + (j >> 5)) >> (j & 31)) & 1) continue;
     const uint32_t v = uint32_t(lo + j);
     const int32_t o = load_state<kShared>(occ + j);
-    uint32_t hi = uint32_t(o) + 1u;
+    // the weighted Occur as a canonical float (its bits order as it does)
+    const float of = kWeighted ? canonical_occur(__int_as_float(o))
+                               : __int2float_rn(o);
+    uint32_t hi = (kWeighted ? __float_as_uint(of) : uint32_t(o)) + 1u;
     if (va.costs != nullptr) {
       const float c = __ldg(va.costs + v);
-      if (!(c <= room) || o <= 0) continue;
-      hi = __float_as_uint(__fdiv_rn(__int2float_rn(o), c));
+      if (!(c <= room) || !(of > 0.f)) continue;
+      hi = __float_as_uint(kWeighted ? __fdiv_rn(of, c)
+                                     : __fdiv_rn(__int2float_rn(o), c));
     }
     if (hi > best) {
       best = hi;
@@ -285,25 +333,30 @@ __device__ __forceinline__ uint64_t slice_argmax_variant(
 // quotas).  Dynamic shared memory: each block's base (`blocks` int32),
 // then, in the shared form, the block's list starts, Occur and Covered
 // (and the variant's words).  A record is kRec words: the key, the span
-// and (kVariant) the node's Occur.  One block an SM: the bound lets ptxas
-// use the registers that frees (without it the scratch form spills).
-template <bool kShared, bool kVariant>
-__global__ void __launch_bounds__(kThreads, 1)
-greedy_flat_kernel(const int32_t* __restrict__ flat,
-                   const int32_t* __restrict__ ids,
-                   const uint8_t* __restrict__ valid, int64_t t, int32_t n,
-                   int64_t num_rows, int32_t k, int32_t slots,
-                   int32_t cov_words, unsigned long long* records,
-                   int2* inv_span, int32_t* count, int32_t* cursor,
-                   int32_t* row_start, int32_t* nodes, int32_t* inv_rows,
-                   int32_t* block_sum, int32_t* copies, int32_t* seeds,
-                   int32_t* gains, VariantArgs va) {
+// and (kVariant) the node's Occur; with kWeighted, the scratch also holds
+// the nodes' float Occur (n) and the rows' weights (num_rows) after
+// block_sum.
+// The launch's body, in the kernels below: greedy_flat_kernel<kShared,
+// kVariant> (greedy_flat and greedy_flat_variant) and
+// greedy_flat_weighted_kernel<kShared> (the weighted form, a name of its
+// own in a profile).
+template <bool kShared, bool kVariant, bool kWeighted>
+__device__ __forceinline__ void greedy_flat_body(
+    const int32_t* __restrict__ flat, const int32_t* __restrict__ ids,
+    const uint8_t* __restrict__ valid, int64_t t, int32_t n,
+    int64_t num_rows, int32_t k, int32_t slots, int32_t cov_words,
+    unsigned long long* records, int2* inv_span, int32_t* count,
+    int32_t* cursor, int32_t* row_start, int32_t* nodes, int32_t* inv_rows,
+    int32_t* block_sum, int32_t* copies, int32_t* seeds, int32_t* gains,
+    const VariantArgs& va) {
   constexpr int kRec = kVariant ? 3 : 2;
   extern __shared__ int32_t smem[];
   __shared__ uint64_t red[kWarps];
   __shared__ int32_t part[kWarps];
   __shared__ int32_t step_u, step_begin, step_end, step_gain;
   __shared__ int32_t full_lo, full_hi;   // kVariant: a spent group's part
+  __shared__ float step_wgain;           // kWeighted: block 0's step gain
+  static_assert(kVariant || !kWeighted, "the weighted form is a variant");
   cg::grid_group grid = cg::this_grid();
   const int32_t blocks = gridDim.x, me = blockIdx.x;
   const int64_t state_words =
@@ -323,19 +376,34 @@ greedy_flat_kernel(const int32_t* __restrict__ flat,
   GREEDY_STAMP(0);
 
   // (A)
-  for (int64_t v = gtid; v < n; v += gsize) count[v] = 0;
+  for (int64_t v = gtid; v < n; v += gsize) {
+    count[v] = 0;
+    if (kWeighted) va.wocc[v] = 0.f;
+  }
   for (int64_t r = gtid; r <= num_rows; r += gsize)
     row_start[r] = first_row_at(ids, t, r);
   grid.sync();
   GREEDY_STAMP(1);
 
-  // (B): the lanes of a warp that hold the same node add once
+  // (B): the lanes of a warp that hold the same node add once; the
+  // weighted form adds each element's weight to its node's float Occur
+  // and sets each row's weight from its span
   for (int64_t e = gtid; e < t; e += gsize) {
     const int32_t v = counted_node(flat, valid, e, n);
     nodes[e] = v;
     if (v >= 0) {
+      if (kWeighted) atomicAdd(va.wocc + v, __ldg(va.ew + e));
       const unsigned peers = __match_any_sync(__activemask(), v);
       if (lane == __ffs(peers) - 1) atomicAdd(count + v, __popc(peers));
+    }
+  }
+  if (kWeighted) {
+    for (int64_t r = gtid; r < num_rows; r += gsize) {
+      float w = 0.f;
+      for (int32_t e = __ldcg(row_start + r); e < __ldcg(row_start + r + 1);
+           ++e)
+        if (__ldg(valid + e)) w = fmaxf(w, __ldg(va.ew + e));
+      va.roww[r] = canonical_occur(w);
     }
   }
   grid.sync();
@@ -350,7 +418,7 @@ greedy_flat_kernel(const int32_t* __restrict__ flat,
     int32_t sum = 0;
     for (int64_t j = ja; j < jb; ++j) {
       const int32_t c = __ldcg(count + lo + j);
-      occ[j] = c;
+      occ[j] = kWeighted ? __float_as_int(__ldcg(va.wocc + lo + j)) : c;
       sum += c;
     }
     const int2 scan = block_exclusive_sum(sum, part);
@@ -358,7 +426,7 @@ greedy_flat_kernel(const int32_t* __restrict__ flat,
     for (int64_t j = ja; j < jb; ++j) {
       cursor[lo + j] = run;
       starts[j] = run;
-      run += occ[j];
+      run += __ldcg(count + lo + j);
     }
     if (threadIdx.x == 0) {
       block_sum[me] = scan.y;
@@ -421,7 +489,7 @@ greedy_flat_kernel(const int32_t* __restrict__ flat,
     // Occur, then the step's barrier, then every block reads all the
     // records
     const uint64_t mine =
-        kVariant ? slice_argmax_variant<kShared>(
+        kVariant ? slice_argmax_variant<kShared, kWeighted>(
                        occ, blocked, lo, held, va,
                        __fsub_rn(va.budget, spent), red)
                  : slice_argmax<kShared>(occ, lo, held, red);
@@ -469,14 +537,19 @@ greedy_flat_kernel(const int32_t* __restrict__ flat,
     const int64_t begin = step_begin, end = step_end;
     if (gtid == 0) {
       seeds[s] = u;
-      gains[s] = kVariant ? step_gain : int32_t(red[0] >> 32);
+      if (!kWeighted) gains[s] = kVariant ? step_gain : int32_t(red[0] >> 32);
     }
     if (kVariant && va.costs != nullptr)
       spent = __fadd_rn(spent, __ldg(va.costs + u));
-    if (s + 1 == k) break;
+    // the weighted gain is the walk's sum, so its walk runs at the last
+    // step too
+    if (s + 1 == k && !kWeighted) break;
+    if (kWeighted && threadIdx.x == 0) step_wgain = 0.f;
+    if (kWeighted) __syncthreads();
     for (int64_t i0 = begin + 32 * warp; i0 < end; i0 += 32 * kWarps) {
       const int64_t i = i0 + lane;
       int32_t e0 = 0, len = 0;
+      float row_w = 0.f;
       if (i < end) {
         const int32_t r = __ldca(inv_rows + i);
         const int2 rs = __ldca(inv_span + i);
@@ -484,7 +557,13 @@ greedy_flat_kernel(const int32_t* __restrict__ flat,
         if (!(atomicOr(cov + (r >> 5), bit) & bit)) {
           e0 = rs.x;
           len = rs.y - rs.x;
+          if (kWeighted && me == 0) row_w = __ldcg(va.roww + r);
         }
+      }
+      if (kWeighted && me == 0) {
+        for (int off = 16; off > 0; off >>= 1)
+          row_w += __shfl_xor_sync(kFullMask, row_w, off);
+        if (lane == 0 && row_w != 0.f) atomicAdd(&step_wgain, row_w);
       }
       const int32_t incl = warp_inclusive_sum(len);
       const int32_t total = __shfl_sync(kFullMask, incl, 31);
@@ -494,6 +573,7 @@ greedy_flat_kernel(const int32_t* __restrict__ flat,
       const int32_t from = e0 - (incl - len);
       for (int32_t p0 = 0; p0 < total; p0 += 32 * kWalk) {
         int32_t v[kWalk];
+        float wq[kWalk];                     // kWeighted: the weights
 #pragma unroll
         for (int q = 0; q < kWalk; ++q) {
           const int32_t p = p0 + 32 * q + lane;
@@ -502,11 +582,17 @@ greedy_flat_kernel(const int32_t* __restrict__ flat,
             if (__shfl_sync(kFullMask, incl, j + half - 1) <= p) j += half;
           const int32_t e = __shfl_sync(kFullMask, from, j) + p;
           v[q] = p < total ? __ldca(nodes + e) : -1;
+          wq[q] = kWeighted && p < total ? __ldg(va.ew + e) : 0.f;
         }
 #pragma unroll
-        for (int q = 0; q < kWalk; ++q)      // u's own count is set below
-          if (v[q] >= lo && v[q] < lo + held && v[q] != u)
-            atomicSub(occ + (v[q] - lo), 1);
+        for (int q = 0; q < kWalk; ++q) {    // u's own count is set below
+          if (v[q] >= lo && v[q] < lo + held && v[q] != u) {
+            if (kWeighted)
+              atomicAdd(reinterpret_cast<float*>(occ) + (v[q] - lo), -wq[q]);
+            else
+              atomicSub(occ + (v[q] - lo), 1);
+          }
+        }
       }
     }
     // every row that holds u is covered now; the variant blocks u, and
@@ -537,10 +623,50 @@ greedy_flat_kernel(const int32_t* __restrict__ flat,
       }
       __syncthreads();
     }
+    if (kWeighted) {
+      // the reference's max(occur - dec, 0), canonical; block 0's sum of
+      // the new rows' weights is the step's gain
+      for (int64_t j = threadIdx.x; j < held; j += kThreads)
+        occ[j] = __float_as_int(
+            canonical_occur(__int_as_float(load_state<kShared>(occ + j))));
+      if (gtid == 0) gains[s] = __float_as_int(step_wgain);
+      __syncthreads();
+      if (s + 1 == k) break;
+    }
     GREEDY_STAMP(6 + 3 * s);
   }
   if (kVariant && gtid == 0) *va.spent = spent;
 }
+
+#define GREEDY_FLAT_PARAMS                                                  \
+  const int32_t *__restrict__ flat, const int32_t *__restrict__ ids,        \
+      const uint8_t *__restrict__ valid, int64_t t, int32_t n,              \
+      int64_t num_rows, int32_t k, int32_t slots, int32_t cov_words,        \
+      unsigned long long *records, int2 *inv_span, int32_t *count,          \
+      int32_t *cursor, int32_t *row_start, int32_t *nodes,                  \
+      int32_t *inv_rows, int32_t *block_sum, int32_t *copies,               \
+      int32_t *seeds, int32_t *gains, VariantArgs va
+#define GREEDY_FLAT_ARGS                                                    \
+  flat, ids, valid, t, n, num_rows, k, slots, cov_words, records, inv_span, \
+      count, cursor, row_start, nodes, inv_rows, block_sum, copies, seeds,  \
+      gains, va
+
+// One block an SM: the bound lets ptxas use the registers that frees
+// (without it the scratch form spills).
+template <bool kShared, bool kVariant>
+__global__ void __launch_bounds__(kThreads, 1)
+greedy_flat_kernel(GREEDY_FLAT_PARAMS) {
+  greedy_flat_body<kShared, kVariant, false>(GREEDY_FLAT_ARGS);
+}
+
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads, 1)
+greedy_flat_weighted_kernel(GREEDY_FLAT_PARAMS) {
+  greedy_flat_body<kShared, true, true>(GREEDY_FLAT_ARGS);
+}
+
+#undef GREEDY_FLAT_PARAMS
+#undef GREEDY_FLAT_ARGS
 
 // The same grid with its barriers alone: the floor of greedy_flat_kernel.
 __global__ void __launch_bounds__(kThreads) grid_barriers_kernel(int32_t count) {
@@ -571,6 +697,15 @@ cudaError_t flat_grid_for(int device, int* blocks, int64_t* shared_bytes) {
           kThreads, 4, device, &variant_sms, &variant_bytes);
       if (err == cudaSuccess && variant_bytes < bytes[device])
         bytes[device] = variant_bytes;
+      if (err == cudaSuccess)
+        err = one_block_an_sm(
+            reinterpret_cast<const void*>(
+                greedy_flat_weighted_kernel<true>),
+            reinterpret_cast<const void*>(
+                greedy_flat_weighted_kernel<false>),
+            kThreads, 4, device, &variant_sms, &variant_bytes);
+      if (err == cudaSuccess && variant_bytes < bytes[device])
+        bytes[device] = variant_bytes;
     }
     if (err == cudaSuccess && sms[device] > kThreads)
       err = cudaErrorNotSupported;     // a thread polls each block's record
@@ -589,7 +724,8 @@ cudaError_t flat_grid_for(int device, int* blocks, int64_t* shared_bytes) {
 // (kernels/greedy.py::flat_layout and flat_scratch_bytes say the same).
 // n_group 0: greedy_flat; else greedy_flat_variant with its groups, whose
 // blocks also keep their blocked bits (a word for 32 slice nodes) and the
-// quotas of the groups their slice meets, and whose records are 24 bytes.
+// quotas of the groups their slice meets, and whose records are 24 bytes;
+// weighted, its float Occur a node and weight a row too.
 struct FlatLayout {
   int32_t slots, cov_words, blocked_words, group_words;
   bool shared;
@@ -598,7 +734,7 @@ struct FlatLayout {
 
 FlatLayout flat_layout(int32_t n, int64_t num_rows, int64_t t, int32_t k,
                        int blocks, int64_t shared_bytes, int32_t n_group = 0,
-                       int32_t n_groups = 0) {
+                       int32_t n_groups = 0, bool weighted = false) {
   FlatLayout lay;
   lay.slots = int32_t((int64_t(n) + blocks - 1) / blocks);
   lay.cov_words = int32_t((num_rows + 31) / 32);
@@ -613,6 +749,7 @@ FlatLayout flat_layout(int32_t n, int64_t num_rows, int64_t t, int32_t k,
   lay.dynamic_bytes = 4 * int64_t(blocks) + (lay.shared ? state : 0);
   lay.scratch_bytes = 8 * (n_group ? 3 : 2) * int64_t(k) * blocks + 8 * t +
                       4 * (2 * int64_t(n) + num_rows + 1 + 2 * t + blocks) +
+                      (weighted ? 4 * (int64_t(n) + num_rows) : 0) +
                       (lay.shared ? 0 : int64_t(blocks) * state);
   return lay;
 }
@@ -1038,9 +1175,11 @@ int launch_flat(const void* flat, const void* ids, const void* valid,
   int64_t shared_bytes = 0;
   cudaError_t err = flat_grid_for(device, &blocks, &shared_bytes);
   if (err != cudaSuccess) return int(err);
+  const bool weighted = kVariant && va.ew != nullptr;
   const FlatLayout lay =
       flat_layout(n, num_rows, t, k, blocks, shared_bytes,
-                  kVariant ? va.n_group : 0, kVariant ? n_groups : 0);
+                  kVariant ? va.n_group : 0, kVariant ? n_groups : 0,
+                  weighted);
   if (scratch_bytes < lay.scratch_bytes) return int(cudaErrorInvalidValue);
   va.blocked_words = lay.blocked_words;
   va.group_words = lay.group_words;
@@ -1058,6 +1197,11 @@ int launch_flat(const void* flat, const void* ids, const void* valid,
   int32_t* inv_rows = nodes + t;
   int32_t* block_sum = inv_rows + t;
   int32_t* copies = block_sum + blocks;
+  if (weighted) {
+    va.wocc = reinterpret_cast<float*>(copies);
+    va.roww = va.wocc + n;
+    copies = reinterpret_cast<int32_t*>(va.roww + num_rows);
+  }
   int32_t* seeds = static_cast<int32_t*>(out);
   int32_t* gains = seeds + k;
   int32_t slots = lay.slots, cov_words = lay.cov_words;
@@ -1066,7 +1210,12 @@ int launch_flat(const void* flat, const void* ids, const void* valid,
                   &row_start, &nodes, &inv_rows, &block_sum, &copies, &seeds,
                   &gains, &va};
   const void* kernel =
-      lay.shared
+      weighted
+          ? (lay.shared ? reinterpret_cast<const void*>(
+                              greedy_flat_weighted_kernel<true>)
+                        : reinterpret_cast<const void*>(
+                              greedy_flat_weighted_kernel<false>))
+      : lay.shared
           ? reinterpret_cast<const void*>(greedy_flat_kernel<true, kVariant>)
           : reinterpret_cast<const void*>(greedy_flat_kernel<false, kVariant>);
   err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args,
@@ -1098,20 +1247,23 @@ extern "C" int greedy_flat(const void* flat, const void* ids,
 // greedy_flat_variant: greedy_flat's pool, k and out, and cand (n bytes, 0
 // or 1), costs (n float32, positive; null: no budget), budget, the groups
 // (n_group ids each, n_group * n_groups >= n, group_quota seeds each);
-// scratch: kernels/greedy.py::flat_scratch_bytes with the groups; spent:
-// one float32.  The steps with no feasible node get seed n and gain 0.
+// ew: null, or the t elements' float32 weights (the weighted form, whose
+// gains in out are float32); scratch: kernels/greedy.py::
+// flat_scratch_bytes with the groups (and the weighted form's); spent: one
+// float32.  The steps with no feasible node get seed n and gain 0.
 extern "C" int greedy_flat_variant(const void* flat, const void* ids,
                                    const void* valid, int64_t t, int32_t n,
                                    int64_t num_rows, int32_t k,
                                    const void* cand, const void* costs,
                                    float budget, int32_t n_group,
                                    int32_t n_groups, int32_t group_quota,
-                                   void* scratch, int64_t scratch_bytes,
-                                   void* out, void* spent, int device,
-                                   void* stream) {
+                                   const void* ew, void* scratch,
+                                   int64_t scratch_bytes, void* out,
+                                   void* spent, int device, void* stream) {
   VariantArgs va{};
   va.cand = static_cast<const uint8_t*>(cand);
   va.costs = static_cast<const float*>(costs);
+  va.ew = static_cast<const float*>(ew);
   va.budget = budget;
   va.n_group = n_group;
   va.group_quota = group_quota;

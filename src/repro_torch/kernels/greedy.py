@@ -39,7 +39,8 @@ import torch
 from repro_torch.kernels import _build
 
 # launches since the last reset (see ops.reset_launch_counts)
-LAUNCHES = {"greedy_flat": 0, "greedy_flat_variant": 0, "greedy_sketch": 0}
+LAUNCHES = {"greedy_flat": 0, "greedy_flat_variant": 0,
+            "greedy_flat_variant[weighted]": 0, "greedy_sketch": 0}
 
 # csrc/greedy.cu: threads a block; the grid is a block on every SM
 THREADS = 512
@@ -51,8 +52,8 @@ _GREEDY = _build.Kernel("greedy", "greedy_flat",
                          _vp, _int, _vp))
 _VARIANT = _build.Kernel("greedy", "greedy_flat_variant",
                          (_vp, _vp, _vp, _i64, _i32, _i64, _i32, _vp, _vp,
-                          ctypes.c_float, _i32, _i32, _i32, _vp, _i64, _vp,
-                          _vp, _int, _vp))
+                          ctypes.c_float, _i32, _i32, _i32, _vp, _vp, _i64,
+                          _vp, _vp, _int, _vp))
 _FLAT_GRID = _build.Kernel("greedy", "greedy_flat_grid",
                            (_int, ctypes.POINTER(_int),
                             ctypes.POINTER(_i64)))
@@ -103,19 +104,22 @@ def flat_layout(n: int, num_rows: int, blocks: int, shared_bytes: int,
 
 def flat_scratch_bytes(n: int, num_rows: int, t: int, k: int, blocks: int,
                        shared_bytes: int, n_group: int | None = None,
-                       n_groups: int = 1) -> int:
+                       n_groups: int = 1, weighted: bool = False) -> int:
     """Scratch of one :func:`greedy_flat` launch over ``t`` elements (or
     :func:`greedy_flat_variant`'s, given its groups): the blocks' step
     records (16 bytes a block a step, 24 in the variant), the t list
     entries' row spans (8 bytes each), count and cursor (n int32 each),
     row_start (num_rows + 1), nodes and inv_rows (t each) and the blocks'
-    sums (one each), then, when the blocks' state is not in shared memory,
+    sums (one each), in the ``weighted`` form a float Occur a node and a
+    weight a row, then, when the blocks' state is not in shared memory,
     each block's list starts, Occur and Covered words (and the variant's
     words)."""
     lay = flat_layout(n, num_rows, blocks, shared_bytes, n_group, n_groups)
     record = 16 if n_group is None else 24
     fixed = record * k * blocks + 8 * t + 4 * (2 * n + num_rows + 1 + 2 * t
                                                + blocks)
+    if weighted:
+        fixed += 4 * (n + num_rows)
     return fixed if lay.shared else \
         fixed + 4 * blocks * (2 * lay.slots + 1 + lay.cov_words
                               + sum(variant_words(lay.slots, n_group,
@@ -173,13 +177,15 @@ def greedy_flat_variant(flat: torch.Tensor, ids: torch.Tensor,
                         valid: torch.Tensor, *, n: int, num_rows: int, k: int,
                         cand: torch.Tensor, costs: torch.Tensor | None,
                         budget: float, n_group: int, n_groups: int,
-                        group_quota: int):
+                        group_quota: int, ew: torch.Tensor | None = None):
     """``k`` steps of the problem variants' greedy on the card:
     :func:`greedy_flat`'s pool, an (n,) bool candidate mask ``cand``, (n,)
     float32 ``costs`` or None (no budget), the float32 ``budget`` and
     groups of ``n_group`` ids (``n_group * n_groups >= n``) of
     ``group_quota`` seeds each -> ``(seeds (k,) int32, gains (k,) int32,
-    spent () float32)``, as ``ref.greedy_flat_variant_ref``."""
+    spent () float32)``, as ``ref.greedy_flat_variant_ref``.  With ``ew``,
+    the (t,) float32 element weights, the weighted form (gains float32),
+    counted under ``greedy_flat_variant[weighted]``."""
     n, num_rows, k = int(n), int(num_rows), int(k)
     n_group, n_groups, quota = int(n_group), int(n_groups), int(group_quota)
     _check(flat, ids, valid, n=n, num_rows=num_rows, k=k)
@@ -198,23 +204,32 @@ def greedy_flat_variant(flat: torch.Tensor, ids: torch.Tensor,
             n_group * n_groups < n or not 0 <= quota < 1 << 31:
         raise ValueError(f"groups of {n_group} ids x {n_groups} must cover "
                          f"{n} nodes, quota {quota} >= 0")
+    if ew is not None and (ew.device != dev or ew.dtype != torch.float32 or
+                           ew.shape != flat.shape or
+                           not ew.is_contiguous()):
+        raise ValueError(f"ew must be a contiguous {tuple(flat.shape)} "
+                         f"float32 tensor on {dev}")
     index = flat.get_device()
     blocks, shared_bytes = _flat_grid(index)
     t = flat.shape[0]
     out = torch.empty(2 * k + 1, dtype=torch.int32, device=dev)
     spent = out[2 * k:].view(torch.float32)
     size = flat_scratch_bytes(n, num_rows, t, k, blocks, shared_bytes,
-                              n_group, n_groups)
+                              n_group, n_groups, weighted=ew is not None)
     scratch = torch.empty(size, dtype=torch.uint8, device=dev)
     err = _VARIANT(flat.data_ptr(), ids.data_ptr(), valid.data_ptr(), t, n,
                    num_rows, k, cand.data_ptr(),
                    None if costs is None else costs.data_ptr(),
                    float(budget), n_group, n_groups, quota,
+                   None if ew is None else ew.data_ptr(),
                    scratch.data_ptr(), size, out.data_ptr(), spent.data_ptr(),
                    index, _build.raw_stream(index))
     _build.raise_on(err, "greedy_flat_variant")
-    LAUNCHES["greedy_flat_variant"] += 1
-    return out[:k], out[k:2 * k], spent[0]
+    if ew is None:
+        LAUNCHES["greedy_flat_variant"] += 1
+        return out[:k], out[k:2 * k], spent[0]
+    LAUNCHES["greedy_flat_variant[weighted]"] += 1
+    return out[:k], out[k:2 * k].view(torch.float32), spent[0]
 
 
 def device_index(device) -> int:

@@ -17,6 +17,7 @@ from repro_torch.kernels import bitset as _bitset
 from repro_torch.kernels import celf as _celf
 from repro_torch.kernels import flashattn as _flash
 from repro_torch.kernels import greedy as _greedy
+from repro_torch.kernels import lt as _lt
 from repro_torch.kernels import membership as _membership
 from repro_torch.kernels import queue as _queue
 from repro_torch.kernels import ref as _ref
@@ -24,7 +25,7 @@ from repro_torch.kernels import sketch as _sketch
 
 _COUNTERS = (_bitset.LAUNCHES, _sketch.LAUNCHES, _bernoulli.LAUNCHES,
              _membership.LAUNCHES, _flash.LAUNCHES, _queue.LAUNCHES,
-             _greedy.LAUNCHES, _celf.LAUNCHES)
+             _greedy.LAUNCHES, _celf.LAUNCHES, _lt.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -151,6 +152,24 @@ def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
                                 qcap=qcap, ec=ec, table=table)
 
 
+def lt_walk(offsets: torch.Tensor, indices: torch.Tensor,
+            rowcum: torch.Tensor, seed32: int, batch: int, *, qcap: int,
+            table=None):
+    """One sampling round of the LT walk sampler with round seed
+    ``seed32`` and ``batch`` lanes: every lane's row seed and root (∝ the
+    weights of the alias ``table`` when one is given) and its reverse walk
+    on the CSR with row-cumulative weights ``rowcum`` to its end ->
+    (queue (B, qcap) int32, lengths (B,) int32, overflowed (B,) bool,
+    steps (B,) int64, roots (B,) int32), :func:`queue_bfs`'s layout; the
+    same bytes on either route (``ref.lt_round_ref`` says what they
+    hold)."""
+    if _route(offsets) == "cuda":
+        return _lt.lt_walk(offsets, indices, rowcum, seed32, batch,
+                           qcap=qcap, table=table)
+    return _ref.lt_round_ref(offsets, indices, rowcum, seed32, batch,
+                             qcap=qcap, table=table)
+
+
 def greedy_flat(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
                 *, n: int, num_rows: int, k: int):
     """``k`` steps of greedy max-coverage on a flat pool: (t,) int32 node ids
@@ -169,22 +188,26 @@ def greedy_flat_variant(flat: torch.Tensor, ids: torch.Tensor,
                         valid: torch.Tensor, *, n: int, num_rows: int,
                         k: int, cand: torch.Tensor,
                         costs: torch.Tensor | None, budget: float,
-                        n_group: int, n_groups: int, group_quota: int):
+                        n_group: int, n_groups: int, group_quota: int,
+                        ew: torch.Tensor | None = None):
     """``k`` steps of the problem variants' greedy on a flat pool (the
     pool of :func:`greedy_flat`): candidates ``cand`` (n,) bool, float32
     ``costs`` (n,) and ``budget`` (``costs`` None: no budget), group
     quotas -> ``(seeds (k,) int32, gains (k,) int32, spent () float32)``;
     the same bytes on either route (``ref.greedy_flat_variant_ref`` says
-    what they hold)."""
+    what they hold).  With ``ew``, the (t,) float32 element weights of a
+    row-weighted store, the weighted form: gains (k,) float32, the same
+    bytes on either route wherever the weights' float32 sums are exact
+    (integer or dyadic weights whose sums stay below 2^24)."""
     if _route(flat) == "cuda":
         return _greedy.greedy_flat_variant(
             flat, ids, valid, n=n, num_rows=num_rows, k=k, cand=cand,
             costs=costs, budget=budget, n_group=n_group, n_groups=n_groups,
-            group_quota=group_quota)
+            group_quota=group_quota, ew=ew)
     return _ref.greedy_flat_variant_ref(
         flat, ids, valid, n=n, num_rows=num_rows, k=k, cand=cand,
         costs=costs, budget=budget, n_group=n_group, n_groups=n_groups,
-        group_quota=group_quota)
+        group_quota=group_quota, ew=ew)
 
 
 def greedy_sketch(words: torch.Tensor, *, n: int, k: int,
@@ -216,24 +239,30 @@ def celf_select(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
 
 
 def celf_eval(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
-              cov_words: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
+              cov_words: torch.Tensor, cands: torch.Tensor,
+              roww: torch.Tensor | None = None) -> torch.Tensor:
     """CELF's exact evaluation: for each of the (c,) ``cands``, the rows of
     the flat pool that hold it and are not in the packed Covered bitset
     ``cov_words`` -> (c,) int32; the same bytes on either route
-    (``ref.celf_eval_ref`` says what they hold)."""
+    (``ref.celf_eval_ref`` says what they hold).  With ``roww``, the
+    (num_rows,) float32 row weights, the float32 sum of those rows'
+    weights (the same bytes where the sums are exact, as
+    :func:`greedy_flat_variant`'s weighted form)."""
     if _route(flat) == "cuda":
-        return _celf.celf_eval(flat, ids, valid, cov_words, cands)
-    return _ref.celf_eval_ref(flat, ids, valid, cov_words, cands)
+        return _celf.celf_eval(flat, ids, valid, cov_words, cands, roww)
+    return _ref.celf_eval_ref(flat, ids, valid, cov_words, cands, roww)
 
 
 def celf_apply(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
-               cov_words: torch.Tensor, u: int) -> torch.Tensor:
+               cov_words: torch.Tensor, u: int,
+               roww: torch.Tensor | None = None) -> torch.Tensor:
     """CELF's seed commit: OR the rows that hold node ``u`` into
     ``cov_words`` in place -> the rows that were new, a 0-d int32 tensor on
-    the pool's device (``ref.celf_apply_ref``)."""
+    the pool's device (``ref.celf_apply_ref``); with ``roww`` the float32
+    sum of their weights."""
     if _route(flat) == "cuda":
-        return _celf.celf_apply(flat, ids, valid, cov_words, u)
-    return _ref.celf_apply_ref(flat, ids, valid, cov_words, u)
+        return _celf.celf_apply(flat, ids, valid, cov_words, u, roww)
+    return _ref.celf_apply_ref(flat, ids, valid, cov_words, u, roww)
 
 
 def membership_rows(rows: torch.Tensor, lengths: torch.Tensor,

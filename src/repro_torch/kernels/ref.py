@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.core.packing import bit_values, to_int32_bits
 from repro_torch.core.roots import draw_roots, row_seeds
-from repro_torch.core.variant import VariantScan
+from repro_torch.core.variant import VariantScan, row_weights, weighted_occur
 from repro_torch.kernels.bernoulli import MASK32, counter_uniform_u32, mul_u32
 from repro_torch.kernels.sketch import (canonical_row_ids, check_fold,
                                         frontier_pairs)
@@ -186,6 +186,99 @@ def queue_round_ref(offsets: torch.Tensor, indices: torch.Tensor,
                            qcap=qcap, ec=ec), roots)
 
 
+def lt_walk_ref(offsets: torch.Tensor, indices: torch.Tensor,
+                rowcum: torch.Tensor, seeds: torch.Tensor,
+                roots: torch.Tensor, *, qcap: int):
+    """One round of the LT walk sampler (paper §3.7), every lane's reverse
+    walk to its end, in lock-step, from given row seeds and roots
+    (:func:`lt_round_ref` draws them, as ``csrc/lt.cu`` does): the plain
+    version of ``csrc/lt.cu``, the oracle's ``rr_set_lt`` on counter draws.
+
+    Lane b stands on its last node ``cur`` with in-row ``[s, e)``.  Its
+    draw number t (t = 0, 1, ... its draws so far) is ``u =
+    float32(counter_uniform_u32(seeds[b], t)) * 2^-32``.  The walk stops
+    when the row is empty or ``u >= rowcum[e - 1]``; else it takes edge j,
+    the smallest in ``[s, e)`` with ``rowcum[j] > u`` (the reference's
+    bisection; ``rowcum`` rises within a row), and stops when ``indices[j]``
+    is on the walk already, or, with ``overflowed`` set, when the walk
+    holds ``qcap`` nodes.  Else the node joins the walk.  The host reads
+    whether any lane is walking once a draw.
+
+    ``offsets`` (n+1,), ``indices`` (m,) and ``rowcum`` (m,) float32 (the
+    row-cumulative weights, ``core/lt.py::row_cumweights``) are a reverse
+    CSR; ``seeds`` (B,) int64 row seeds, ``roots`` (B,) int32.  Returns
+    ``(walk (B, qcap) int32, lengths (B,) int32, overflowed (B,) bool,
+    steps (B,) int64)``: ``walk[b, :lengths[b]]`` in visit order, zeros
+    after it; ``steps[b]`` lane b's draws (its length, or qcap on
+    overflow), the reference's loop count of the lane."""
+    dev = roots.device
+    batch = roots.shape[0]
+    n = offsets.shape[0] - 1
+    m = indices.shape[0]
+    n_words = (n + 31) // 32
+    bitval = bit_values(dev)
+    offsets = offsets.to(torch.int64)
+    if m == 0:         # every row is empty: give the reads one slot
+        indices = torch.zeros(1, dtype=torch.int32, device=dev)
+        rowcum = torch.zeros(1, dtype=torch.float32, device=dev)
+    last = max(m - 1, 0)
+    lane = torch.arange(batch, device=dev)
+    walk = torch.zeros(batch, qcap + 1, dtype=torch.int32, device=dev)
+    walk[:, 0] = roots
+    cur = roots.to(torch.int64)
+    visited = torch.zeros(batch, n_words + 1, dtype=torch.int32, device=dev)
+    visited[lane, cur >> 5] = bitval[cur & 31]
+    length = torch.ones(batch, dtype=torch.int64, device=dev)
+    done = torch.zeros(batch, dtype=torch.bool, device=dev)
+    overflow = torch.zeros(batch, dtype=torch.bool, device=dev)
+    steps = torch.zeros(batch, dtype=torch.int64, device=dev)
+    bisect_iters = max(math.ceil(math.log2(max(m, 2))) + 1, 1)
+    while bool((~done).any()):
+        active = ~done
+        s, e = offsets[cur], offsets[cur + 1]
+        u = counter_uniform_u32(seeds, steps).to(torch.float32) * _U01
+        empty = e == s
+        total = torch.where(empty, 0.0, rowcum[(e - 1).clamp(0, last)])
+        stop = empty | (u >= total)
+        lo, hi = s, torch.maximum(e - 1, s)
+        for _ in range(bisect_iters):
+            mid = (lo + hi) // 2
+            go_right = rowcum[mid.clamp(0, last)] <= u
+            lo = torch.where(go_right, torch.minimum(mid + 1, hi), lo)
+            hi = torch.where(go_right, hi, mid)
+        v = indices[lo.clamp(0, last)].to(torch.int64)
+        seen = ((visited.gather(1, (v >> 5)[:, None])[:, 0]
+                 >> (v & 31)) & 1) != 0
+        take = active & ~(stop | seen)
+        fits = length < qcap
+        overflow |= take & ~fits
+        take &= fits
+        walk.scatter_(1, torch.where(take, length, qcap)[:, None],
+                      v.to(torch.int32)[:, None])
+        visited.scatter_add_(1, torch.where(take, v >> 5, n_words)[:, None],
+                             torch.where(take, bitval[v & 31], 0)[:, None])
+        length += take
+        cur = torch.where(take, v, cur)
+        steps += active
+        done |= ~take
+    return walk[:, :qcap], length.to(torch.int32), overflow, steps
+
+
+def lt_round_ref(offsets: torch.Tensor, indices: torch.Tensor,
+                 rowcum: torch.Tensor, seed32: int, batch: int, *, qcap: int,
+                 table=None):
+    """One round of the LT walk sampler with round seed ``seed32``: the
+    plain version of ``csrc/lt.cu``.  The ``batch`` row seeds and roots
+    (``core/roots.py``, ∝ the weights of the alias ``table`` when one is
+    given, as :func:`queue_round_ref` draws them), then
+    :func:`lt_walk_ref` on them.  Returns its four tensors and the (B,)
+    int32 roots."""
+    seeds = row_seeds(seed32, batch, offsets.device)
+    roots = draw_roots(seeds, offsets.shape[0] - 1, table)
+    return (*lt_walk_ref(offsets, indices, rowcum, seeds, roots, qcap=qcap),
+            roots)
+
+
 def pack_bits_ref(bits: torch.Tensor) -> torch.Tensor:
     """(B, n) bool -> (B, n/32) int32 words, LSB first: bit j of word w is
     ``bits[:, w*32 + j]``; bit 31 makes a word negative.  ``n`` must be a
@@ -290,7 +383,8 @@ def greedy_flat_variant_ref(flat: torch.Tensor, ids: torch.Tensor,
                             valid: torch.Tensor, *, n: int, num_rows: int,
                             k: int, cand: torch.Tensor,
                             costs: torch.Tensor | None, budget: float,
-                            n_group: int, n_groups: int, group_quota: int):
+                            n_group: int, n_groups: int, group_quota: int,
+                            ew: torch.Tensor | None = None):
     """The generalised greedy of the problem variants on a flat pool: the
     reference's ``fused_variant`` scan (``repro.core.coverage``, unweighted)
     step for step, the plain version of ``csrc/greedy.cu``'s
@@ -309,12 +403,27 @@ def greedy_flat_variant_ref(flat: torch.Tensor, ids: torch.Tensor,
     nothing.  Otherwise its gain is the rows it newly covers, its group
     loses one of its quota, and ``spent`` gains its cost (float32, in step
     order).  Returns ``(seeds (k,) int32, gains (k,) int32, spent ()
-    float32)``."""
+    float32)``.
+
+    Weighted (``ew``, the (t,) float32 element weights of a row-weighted
+    store; the reference's ``fused_variant_w``): Occur starts as the
+    float32 scatter-add of the valid elements' weights, the score is that
+    float Occur (its first maximum over the feasible nodes, Occur 0
+    included; with costs over those of positive Occur), a step's gain is
+    the float32 sum of the weights of the rows it newly covers (a row's
+    weight: its largest valid element weight, floored at 0), each step
+    takes its new rows' element weights off Occur, and Occur is clamped
+    at 0 after it.  The gains are then (k,) float32."""
+    weighted = ew is not None
     flat = flat.to(torch.int64)
     ids = ids.to(torch.int64)
     dev = flat.device
-    occur = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
-        0, flat, valid.to(torch.int32))[:n]
+    if weighted:
+        occur = weighted_occur(flat, valid, ew, n)
+        roww = row_weights(ids, valid, ew, num_rows)
+    else:
+        occur = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
+            0, flat, valid.to(torch.int32))[:n]
     cov = torch.zeros(num_rows // 32, dtype=torch.int32, device=dev)
     scan = VariantScan(n, cand, costs, budget, n_group, n_groups, group_quota)
     seeds, gains = [], []
@@ -322,16 +431,23 @@ def greedy_flat_variant_ref(flat: torch.Tensor, ids: torch.Tensor,
         u, ok = scan.pick(occur)
         newly = _newly_rows(flat, ids, valid, _unpack_covered(cov), u)
         new_words = _pack_covered(newly)
-        gains.append(popcount_words_ref(new_words.view(1, -1)).sum())
-        elem_newly = (newly[ids] & valid).to(torch.int32)
-        occur = occur - torch.zeros(n + 1, dtype=torch.int32,
-                                    device=dev).index_add_(
-            0, flat, elem_newly)[:n]
+        elem_newly = newly[ids] & valid
+        if weighted:
+            gains.append(torch.where(newly, roww, 0.0).sum(
+                dtype=torch.float32))
+            occur = torch.clamp_min(
+                occur - weighted_occur(flat, elem_newly, ew, n), 0.0)
+        else:
+            gains.append(popcount_words_ref(new_words.view(1, -1)).sum())
+            occur = occur - torch.zeros(n + 1, dtype=torch.int32,
+                                        device=dev).index_add_(
+                0, flat, elem_newly.to(torch.int32))[:n]
         scan.commit(u, ok)
         cov = cov | new_words
         seeds.append(u)
+    gains = torch.stack(gains)
     return (torch.stack(seeds).to(torch.int32),
-            torch.stack(gains).to(torch.int32), scan.spent)
+            gains if weighted else gains.to(torch.int32), scan.spent)
 
 
 def _celf_pool(flat, ids, valid, cov_words):
@@ -343,8 +459,8 @@ def _celf_pool(flat, ids, valid, cov_words):
 
 
 def celf_eval_ref(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
-                  cov_words: torch.Tensor, cands: torch.Tensor
-                  ) -> torch.Tensor:
+                  cov_words: torch.Tensor, cands: torch.Tensor,
+                  roww: torch.Tensor | None = None) -> torch.Tensor:
     """Exact marginal coverage of each candidate against a packed Covered
     bitset: the reference's ``eval_batch``, the plain version of
     ``csrc/celf.cu``'s ``celf_eval``.
@@ -354,27 +470,43 @@ def celf_eval_ref(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
     (num_rows/32,) int32 Covered words; ``cands`` (c,) node ids, where an
     id that is no node (the reference pads with -1) matches nothing.
     ``out[i]`` counts the rows that hold ``cands[i]`` and are not covered;
-    a row that repeats the node counts once.  -> (c,) int32."""
+    a row that repeats the node counts once.  -> (c,) int32.
+
+    Weighted (``roww``, (num_rows,) float32 row weights, the reference's
+    ``eval_batch_w``): ``out[i]`` is the float32 sum of those rows'
+    weights -> (c,) float32."""
     flat, ids, valid = _celf_pool(flat, ids, valid, cov_words)
     covered = _unpack_covered(cov_words)
-    out = [_newly_rows(flat, ids, valid, covered, u).sum(dtype=torch.int32)
+    out = [_row_gain(_newly_rows(flat, ids, valid, covered, u), roww)
            for u in cands.to(torch.int64)]
     if not out:
-        return torch.zeros(0, dtype=torch.int32, device=flat.device)
+        return torch.zeros(0, dtype=torch.int32 if roww is None
+                           else torch.float32, device=flat.device)
     return torch.stack(out)
 
 
+def _row_gain(newly: torch.Tensor, roww: torch.Tensor | None):
+    """The rows in ``newly``: their count (int32), or the float32 sum of
+    their ``roww`` weights."""
+    if roww is None:
+        return newly.sum(dtype=torch.int32)
+    return torch.where(newly, roww[:newly.shape[0]], 0.0).sum(
+        dtype=torch.float32)
+
+
 def celf_apply_ref(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
-                   cov_words: torch.Tensor, u: int) -> torch.Tensor:
+                   cov_words: torch.Tensor, u: int,
+                   roww: torch.Tensor | None = None) -> torch.Tensor:
     """Commit seed ``u``: OR the rows that hold it into ``cov_words`` in
     place and return the number of them that were not covered before, as
     a 0-d int32 tensor: the reference's ``apply_seed``, the plain version
-    of ``csrc/celf.cu``'s ``celf_apply``."""
+    of ``csrc/celf.cu``'s ``celf_apply``.  With ``roww`` (the reference's
+    ``apply_seed_w``) the float32 sum of those rows' weights, 0-d
+    float32."""
     flat, ids, valid = _celf_pool(flat, ids, valid, cov_words)
     newly = _newly_rows(flat, ids, valid, _unpack_covered(cov_words), int(u))
-    new_words = _pack_covered(newly)
-    cov_words |= new_words
-    return popcount_words_ref(new_words).sum(dtype=torch.int32)
+    cov_words |= _pack_covered(newly)
+    return _row_gain(newly, roww)
 
 
 def celf_select_ref(flat: torch.Tensor, ids: torch.Tensor,

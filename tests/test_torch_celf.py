@@ -424,11 +424,12 @@ def test_select_layout_takes_the_list_path_at_small_batches(c, t, lst, shared,
 
 
 def test_select_seeds_celf_variants_not_ported():
-    """The CELF variant is ported (tests/test_torch_variants.py) but for
-    the row-weighted store's spec, which raises naming its item."""
+    """The CELF variant is ported (tests/test_torch_variants.py), the
+    weighted spec too (tests/test_torch_row_weighted.py), which a store
+    without row weights refuses, as the reference's."""
     port = tcov.DeviceRRStore(4, device=CPU)
     port.append_batch((np.array([[0, 1]]), np.array([2])))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(ValueError, match="row_weighted store"):
         tcov.select_seeds_celf(port, 1, spec=tcov.SelectionSpec(
             k_steps=1, n_group=4, weighted=True))
     res = tcov.select_seeds_celf(port, 1, spec=tcov.SelectionSpec(

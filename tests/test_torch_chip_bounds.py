@@ -924,9 +924,9 @@ def test_greedy_sketch_barrier_floor_counts_one_barrier_a_step():
 
 
 def test_selection_kernel_counts_match_the_sources():
-    """Phase 2's ptxas counts: greedy.cu's two greedy_flat forms and
-    greedy_flat_variant's two (state in shared memory or the scratch), its
-    barrier floor and greedy_sketch's forms (registers, one kernel for
+    """Phase 2's ptxas counts: greedy.cu's two greedy_flat forms,
+    greedy_flat_variant's two and its weighted form's two (state in shared
+    memory or the scratch), its barrier floor and greedy_sketch's forms (registers, one kernel for
     1 or REG_ROWS = 2 rows a thread, shared, global with cov in shared
     memory or not); celf.cu's celf_eval, celf_apply and
     celf_select's four forms (cov_sk shared or not, top lists of LIST
@@ -934,7 +934,7 @@ def test_selection_kernel_counts_match_the_sources():
     from repro_torch.kernels import celf as tcelf
     from repro_torch.kernels import greedy as tgreedy
     assert tgreedy.REG_ROWS == 2
-    assert smoke.GREEDY_KERNELS == 2 + 2 + 1 + 1 + 1 + 2
+    assert smoke.GREEDY_KERNELS == 2 + 2 + 2 + 1 + 1 + 1 + 2
     assert tcelf.LIST == 32
     assert smoke.CELF_KERNELS == 2 + 2 * 2
 
@@ -1233,3 +1233,55 @@ def test_from_memory_counts_only_what_the_l2_cannot_keep(nbytes, reads,
     1,024-bucket sketch (9.7 MB) once whatever the seeds, the 16,384-bucket
     one (155 MB) once and then all but 50 MB of each later sweep."""
     assert smoke.from_memory(nbytes, reads) == want
+
+
+def _lt_round(qcap=None):
+    """An LT round of 64 lanes on a reverse BA(300, 3) graph with WC
+    weights on the CPU: (g_rev, rowcum, the round's outputs, seed)."""
+    from repro_torch.core import lt
+    from repro_torch.graph import csr, generators, weights
+    from repro_torch.kernels import ops
+    src, dst = generators.barabasi_albert(300, 3, seed=5)
+    g_rev = csr.reverse(weights.wc_weights(
+        csr.from_edges(src, dst, 300, device="cpu")))
+    rowcum = lt.row_cumweights(g_rev)
+    out = ops.lt_walk(g_rev.offsets, g_rev.indices, rowcum, 0xC0FFEE, 64,
+                      qcap=300 if qcap is None else qcap)
+    return g_rev, rowcum, out, 0xC0FFEE
+
+
+def test_search_rounds_is_the_32_way_search():
+    """csrc/lt.cu's search, replayed: one round for a row of at most 32
+    edges (its last probe the row's total), four for 42,000; the edge is
+    the first whose cumulative weight passes the draw, -1 past the total."""
+    rc = np.cumsum(np.full(42_000, 1 / 42_000)).astype(np.float32)
+    for u in (0.0, 0.3, 0.99999):
+        rounds, j = smoke.search_rounds(rc, 0, 42_000, np.float32(u))
+        assert rounds == 4 and j == int(np.searchsorted(rc, np.float32(u),
+                                                        side="right"))
+    short = np.float32([0.25, 0.5, 0.5, 0.75])
+    assert smoke.search_rounds(short, 0, 4, np.float32(0.5)) == (1, 3)
+    assert smoke.search_rounds(short, 0, 4, np.float32(0.75)) == (1, -1)
+    assert smoke.search_rounds(short, 2, 2, np.float32(0.1)) == (0, -1)
+
+
+@pytest.mark.parametrize("qcap", [None, 3])
+def test_lt_bound_counts_the_walks_and_their_chains(h100, qcap):
+    """lt_work replays every draw of the round (each search must end at
+    the walk's next node) and counts the longest lane's dependent loads:
+    its offsets, search rounds and indices; the bytes are the walk rows in
+    full, 17 bytes a lane, 12 a draw and 4 an edge taken."""
+    g_rev, rowcum, (walk, lengths, ovf, steps, _), seed = _lt_round(qcap)
+    bound, work = smoke.lt_bound(g_rev, rowcum, walk, lengths, steps, seed)
+    assert work["draws"] == int(steps.sum())
+    assert work["longest_walk"] == int(lengths.max())
+    # a draw loads its offsets and makes at least one search round; the
+    # draws that take an edge load one index
+    assert work["chain_loads"] >= 2 * int(steps.max())
+    assert work["edges_taken"] >= int((lengths - 1).sum())
+    nbytes = 4 * walk.numel() + 17 * 64 + 12 * work["draws"] \
+        + 4 * work["edges_taken"]
+    assert bound["bound_bytes_ms"] == pytest.approx(
+        nbytes / smoke.HBM_BYTES_S * 1e3)
+    if qcap is not None:
+        assert bool(ovf.any())

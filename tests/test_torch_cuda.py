@@ -2162,6 +2162,8 @@ def _variant_kw(n, case, device):
         kw.update(k=30, n_group=7, n_groups=-(-n // 7), group_quota=1)
     elif case == "zero_quota":
         kw.update(k=4, group_quota=0)
+    elif case == "plain":
+        kw.update(k=30)
     kw.setdefault("group_quota", kw["k"])
     return kw
 
@@ -2292,3 +2294,202 @@ def test_variant_selections_on_card_equal_cpu(card, method):
         outs[dev.type] = [x.cpu() for x in res]
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _row_weights_of(ids, kind):
+    """Element weights from the row ids: integer (r mod 7 + 1), dyadic
+    ((r mod 7) / 8), with zeros, or non-dyadic (1 / (r mod 7 + 1)); every
+    element of a row carries the row's weight, as the store writes it."""
+    r = ids.to(torch.int64) % 7
+    return {"integer": r + 1.0, "dyadic": r / 8.0,
+            "fraction": 1.0 / (r + 1.0)}[kind].to(torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plain", "candidates", "budget",
+                                  "exhausted", "groups", "zero_quota"])
+@pytest.mark.parametrize("name", ["ragged", "wide", "longrow"])
+@pytest.mark.parametrize("kind", ["integer", "dyadic"])
+def test_weighted_greedy_flat_variant_kernel_equals_plain(card, name, case,
+                                                          kind):
+    """The weighted form in one launch against its plain version: seeds
+    and the float32 bytes of gains and spent, at weights whose float32
+    sums are exact in any order; counted under its own name."""
+    store = _greedy_store(name, card)
+    args, kw = _store_args(store)
+    vkw = _variant_kw(store.n_nodes, case, card)
+    ew = _row_weights_of(args[1], kind)
+    want = ref.greedy_flat_variant_ref(*args, **kw, **vkw, ew=ew)
+    before = ops.launch_counts()
+    got = tgreedy.greedy_flat_variant(*args, **kw, **vkw, ew=ew)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["greedy_flat_variant[weighted]"] == \
+        before["greedy_flat_variant[weighted]"] + 1
+    assert after["greedy_flat_variant"] == before["greedy_flat_variant"]
+    assert got[1].dtype == torch.float32
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(x.view(torch.int32) if x.is_floating_point()
+                           else x, y.view(torch.int32)
+                           if y.is_floating_point() else y), (case, x, y)
+
+
+@pytest.mark.cuda
+def test_weighted_greedy_flat_variant_non_dyadic_within_tolerance(card):
+    """Non-dyadic weights: the atomics add in another order than the plain
+    version, so each gain may differ in its last bits (relative 1e-5 for
+    these few-hundred-term sums); the seeds agree here."""
+    store = _greedy_store("wide", card)
+    args, kw = _store_args(store)
+    vkw = dict(_variant_kw(store.n_nodes, "candidates", card), k=30,
+               group_quota=30)
+    ew = _row_weights_of(args[1], "fraction")
+    got = tgreedy.greedy_flat_variant(*args, **kw, **vkw, ew=ew)
+    want = ref.greedy_flat_variant_ref(*args, **kw, **vkw, ew=ew)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_weighted_greedy_flat_variant_past_the_shared_layout(card):
+    """n = 4,000,000: the weighted form with its state in the scratch."""
+    n = 4_000_000
+    rng = np.random.default_rng(4)
+    lens = rng.integers(1, 50, 2000)
+    nodes = np.full((2000, 50), n, np.int64)
+    for i, ln in enumerate(lens):
+        nodes[i, :ln] = rng.choice(n, size=ln, replace=False)
+    store = cov.DeviceRRStore(n, row_weighted=True, device=card)
+    store.append_batch((torch.tensor(nodes), torch.tensor(lens)),
+                       row_w=np.arange(2000) % 7 + 1)
+    spec = cov.SelectionSpec(k_steps=40, n_group=n, group_quota=40,
+                             cand=np.arange(n) % 2 == 0, weighted=True)
+    got = cov.select_variant(store, spec)
+    host = cov.DeviceRRStore(n, row_weighted=True, device="cpu")
+    host.append_batch((torch.tensor(nodes), torch.tensor(lens)),
+                      row_w=np.arange(2000) % 7 + 1)
+    want = cov.select_variant(host, spec)
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ragged", "wide", "longrow"])
+def test_weighted_celf_kernels_equal_plain(card, name):
+    """celf_eval and celf_apply with row weights against their plain
+    versions: the float32 bytes of each candidate's covered weight and of
+    the commit's gain, and the Covered words; a null weight pointer keeps
+    the counts."""
+    store = _greedy_store(name, card)
+    args, kw = _store_args(store)
+    rows = kw["num_rows"]
+    roww = cov.row_weights(args[1], args[2], _row_weights_of(args[1],
+                                                            "integer"), rows)
+    cov_words = torch.zeros(rows // 32, dtype=torch.int32, device=card)
+    ref.celf_apply_ref(*args, cov_words, 3, roww)
+    cands = torch.tensor([0, 1, 2, 3, -1, 5, 5, store.n_nodes - 1],
+                         dtype=torch.int32, device=card)
+    before = ops.launch_counts()
+    got = ops.celf_eval(*args, cov_words, cands, roww=roww)
+    mine, plain = cov_words.clone(), cov_words.clone()
+    gain = ops.celf_apply(*args, mine, 2, roww=roww)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["celf_eval[weighted]"] == before["celf_eval[weighted]"] + 1
+    assert after["celf_apply[weighted]"] == before["celf_apply[weighted]"] + 1
+    assert after["celf_eval"] == before["celf_eval"]
+    want = ref.celf_eval_ref(*args, cov_words, cands, roww)
+    want_gain = ref.celf_apply_ref(*args, plain, 2, roww)
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert gain.dtype == torch.float32
+    assert int(gain.view(torch.int32)) == int(want_gain.view(torch.int32))
+    assert torch.equal(mine, plain)
+    assert torch.equal(ops.celf_eval(*args, cov_words, cands),
+                       ref.celf_eval_ref(*args, cov_words, cands))
+
+
+def _lt_graph(name, device):
+    """A reverse graph for the LT walks and its cumulative weights: BA
+    graphs under WC weights (walks end on revisits) or at 0.8 of them, and
+    a star whose hub row (5,000 in-edges) takes several search rounds."""
+    from repro_torch.core import lt
+    if name == "star":
+        n = 5_001
+        src = np.concatenate([np.arange(1, n), np.zeros(n - 1, np.int64)])
+        dst = np.concatenate([np.zeros(n - 1, np.int64), np.arange(1, n)])
+        g = weights.wc_weights(csr.from_edges(src, dst, n, device=device))
+    else:
+        n, scale = {"ba200": (200, 1.0), "ba1500": (1500, 0.8)}[name]
+        src, dst = generators.barabasi_albert(n, 4, seed=3)
+        indeg = np.bincount(dst, minlength=n).astype(np.float64)
+        g = csr.from_edges(src, dst, n, weights=(scale / indeg[dst]).astype(
+            np.float32), device=device)
+    g_rev = csr.reverse(g)
+    return g_rev, lt.row_cumweights(g_rev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("name,qcap", [("ba200", None), ("ba1500", None),
+                                       ("ba1500", 3), ("star", None)])
+def test_lt_walk_kernel_equals_plain(card, name, qcap, weighted):
+    """One LT round in one launch against its plain version byte for
+    byte: walks and their zeros, lengths, overflow, draws and roots."""
+    from repro_torch.core.roots import build_alias_table
+    from repro_torch.kernels import lt as tlt
+    g_rev, rowcum = _lt_graph(name, card)
+    n = g_rev.n_nodes
+    qcap = n if qcap is None else qcap
+    table = build_alias_table(np.arange(n) % 7, device=card) \
+        if weighted else None
+    args = (g_rev.offsets, g_rev.indices, rowcum, round_seed(5, 1), 300)
+    before = ops.launch_counts()["lt_walk"]
+    got = tlt.lt_walk(*args, qcap=qcap, table=table)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lt_walk"] == before + 1
+    want = ref.lt_round_ref(*args, qcap=qcap, table=table)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y), name
+    if qcap < n:
+        assert bool(got[2].any())
+
+
+@pytest.mark.cuda
+def test_lt_walk_wrapper_checks_inputs(card):
+    from repro_torch.kernels import lt as tlt
+    g_rev, rowcum = _lt_graph("ba200", card)
+    args = (g_rev.offsets, g_rev.indices)
+    with pytest.raises(ValueError):
+        tlt.lt_walk(*args, rowcum[:-1], 0, 8, qcap=8)
+    with pytest.raises(TypeError):
+        tlt.lt_walk(*args, rowcum.double(), 0, 8, qcap=8)
+    with pytest.raises(ValueError):
+        tlt.lt_walk(*args, rowcum.cpu(), 0, 8, qcap=8)
+    with pytest.raises(ValueError):
+        tlt.lt_walk(*args, rowcum, 0, 8, qcap=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("selection", ["flat", "bitset", "celf"])
+def test_lt_and_row_weighted_solves_on_card_equal_cpu(card, selection):
+    """An LT solve and a row-weighted solve on an engine instance, each on
+    the card and on the CPU: every field equal (integer weights)."""
+    from repro_torch.core.engine import make_engine
+    w = (np.arange(1500) % 7).astype(np.float32)
+    outs = {}
+    for dev in (card, torch.device("cpu")):
+        g = _graph(dev)
+        lt_res = IMMSolver(g, model="lt", batch=256, selection=selection,
+                           seed=2, device=dev).solve(IMProblem(k=8, eps=0.5))
+        eng = make_engine("queue", csr.reverse(g), batch=256)
+        rw = IMMSolver(g, engine=eng, selection=selection, seed=2,
+                       device=dev)
+        rw_res = rw.solve(IMProblem(k=8, eps=0.5, node_weights=w))
+        assert rw._row_weight_mode
+        outs[dev.type] = [(r.seeds.tolist(), np.asarray(r.gains).tobytes(),
+                           np.float32(r.frac).tobytes(), r.spread,
+                           r.stats.theta, r.stats.rounds)
+                          for r in (lt_res, rw_res)]
+    assert outs["cuda"] == outs["cpu"]

@@ -134,8 +134,8 @@ def test_variant_fields_not_ported(field, value, item):
         for mode in ("exact", "approximate"):
             assert IMProblem(k=1, early_exit=value, mode=mode).early_exit
         return
-    if field in ("node_weights", "candidates"):
-        # ported by Queue 1 item 7: accepted
+    if field in ("node_weights", "candidates", "model"):
+        # ported by Queue 1 item 7 (the lt engine too): accepted
         assert getattr(IMProblem(k=1, **{field: value}), field) is value
         return
     if field == "budget":

@@ -132,11 +132,14 @@ def test_ops_dispatch_cpu_and_unknown_device():
                                     "flash_attention": 0, "queue_bfs": 0,
                                     "greedy_flat": 0,
                                     "greedy_flat_variant": 0,
+                                    "greedy_flat_variant[weighted]": 0,
                                     "greedy_sketch": 0,
                                     "celf_eval": 0, "celf_apply": 0,
+                                    "celf_eval[weighted]": 0,
+                                    "celf_apply[weighted]": 0,
                                     "celf_select": 0, "frontier_update": 0,
                                     "sketch_fold_rows": 0,
-                                    "padded_greedy": 0}
+                                    "padded_greedy": 0, "lt_walk": 0}
     with pytest.raises(ValueError, match="no kernel"):
         tops.occur_from_bitset(torch.zeros(4, 1, dtype=torch.int32,
                                            device="meta"))

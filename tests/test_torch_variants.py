@@ -110,8 +110,11 @@ def test_problem_validation_equals_reference(kw, err):
 
 @pytest.mark.parametrize("kw,msg", [
     (dict(k=2, t_rounds=2), "Queue 1 item 7 \\(MRIM\\)"),
-    (dict(k=2, model="lt"), "Queue 1 item 7 \\(lt engine\\)")])
+    (dict(k=2, model="lt", t_rounds=2), "Queue 1 item 7 \\(MRIM\\)")])
 def test_mrim_and_lt_still_raise(kw, msg):
+    """MRIM still raises, on the LT model too; ``model="lt"`` alone is
+    ported (tests/test_torch_lt.py)."""
+    assert IMProblem(k=2, model="lt").model == "lt"
     with pytest.raises(NotImplementedError, match=msg):
         IMProblem(**kw)
 
@@ -365,7 +368,7 @@ def test_celf_variant_equals_flat_variant_and_reference(batches, case,
 def test_spec_checks():
     ps = tcov.DeviceRRStore(4, device=CPU)
     ps.append_batch((np.array([[0, 1]]), np.array([2])))
-    with pytest.raises(NotImplementedError, match="row-weighted store"):
+    with pytest.raises(ValueError, match="row_weighted store"):
         tcov.select_variant(ps, tcov.SelectionSpec(k_steps=1, n_group=4,
                                                    weighted=True))
     with pytest.raises(ValueError, match="cover"):
@@ -620,8 +623,10 @@ def test_oracles_equal_reference():
     got = oracle.imm_oracle(offs, idx, w, N, 3, 0.5, seed=2, max_theta=200)
     assert got == joracle.imm_oracle(offs, idx, w, N, 3, 0.5, seed=2,
                                      max_theta=200)
-    with pytest.raises(NotImplementedError, match="lt engine"):
-        oracle.imm_oracle(offs, idx, w, N, 3, 0.5, model="lt")
+    assert oracle.imm_oracle(offs, idx, w, N, 3, 0.5, seed=2, model="lt",
+                             max_theta=200) == \
+        joracle.imm_oracle(offs, idx, w, N, 3, 0.5, seed=2, model="lt",
+                           max_theta=200)
     fwd = tg.numpy()
     for nw in (None, (np.arange(N) % 7).astype(np.float32)):
         assert oracle.forward_ic_spread(*fwd, [0, 5], np.random.default_rng(
