@@ -11,11 +11,13 @@ Phases, each of which raises on failure (non-zero exit):
    ``nvidia-smi`` reports) that the kernels' bounds use;
 2. build: compiles ``csrc/occur.cu``, ``sketch.cu``, ``bitops.cu``,
    ``bernoulli.cu``, ``membership.cu``, ``flashattn.cu``, ``queue.cu``,
-   ``greedy.cu``, ``celf.cu`` and ``lt.cu`` with nvcc for sm_90a, one
-   nvcc per source, started together, and prints each ``-Xptxas -v``
-   report; the three Occur kernels, the eleven of ``greedy.cu``
-   (:data:`GREEDY_KERNELS`), the six of ``celf.cu``, the two of
-   ``membership.cu`` and ``lt_walk`` must not spill; beside them the
+   ``greedy.cu``, ``celf.cu``, ``lt.cu`` and ``refill.cu`` with nvcc for
+   sm_90a, one nvcc per source, started together, and prints each
+   ``-Xptxas -v`` report; the three Occur kernels, the eleven of
+   ``greedy.cu`` (:data:`GREEDY_KERNELS`), the six of ``celf.cu``, the two
+   of ``membership.cu``, ``lt_walk``, ``queue_bfs``'s six forms and
+   ``refill_bfs``'s three must not spill (the last two with their
+   registers on ``queue_ptxas:``/``refill_ptxas:``); beside them the
    stamped copies of ``greedy_sketch`` and ``celf_select``
    (``examples/sketch_stamps.cu``, ``celf_stamps.cu``), whose phase
    splits phases 4, 8 and 14 print;
@@ -233,6 +235,26 @@ Phases, each of which raises on failure (non-zero exit):
    the weighted ``greedy_flat_variant``, ``celf_eval`` and ``celf_apply``
    at the row-weighted solves' final pools, each exact against its plain
    version on the card.
+17. the multigraph dedup, the refill engine and MRIM (:func:`dedup_phase`,
+   :func:`refill_phase`, :func:`mrim_phase`): the stand-in's edge list
+   with every third edge repeated at its own weight, reversed
+   (destination-sorted rows, ``segmented``) and with each row shuffled
+   (``sort``): one sampler round of each through ``sample_rrsets_queue``,
+   ``queue_bfs[dedup]`` byte for byte against its plain version in both
+   modes, ``sort`` on the sorted rows equal to ``segmented``
+   (``dedup_check:``); ``refill_bfs`` at the first round (256 lanes,
+   out_cap 1,024) equal to its plain version and to ``queue_bfs``'s lanes
+   0-511 row for row, steps included, the plain loop's lock-step count
+   equal to ``refill_schedule_steps`` (``refill_check:``), the engine's
+   round one launch and one host read, and ``IMMSolver(g,
+   engine="refill", batch=512)`` on phase 5's problem equal to phase 5 in
+   every field (``refill_solve:``); MRIM, ``IMProblem(k=10, t_rounds=5,
+   eps=0.5)`` with ``flat``, ``bitset`` and ``celf`` equal in every field,
+   one ``queue_bfs`` a round, its RIS spread within 10% of a 256-run
+   T-round forward Monte Carlo (``mrim_solve:``), and ``queue_bfs[tiled]``
+   at 2,560 lanes byte for byte, the T lanes of a sample on one root
+   (``tiled_check:``); the records of ``queue_bfs[dedup]``,
+   ``refill_bfs`` and ``queue_bfs[tiled]``.
 
 The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
 the exact path's final bit matrix, masked on the first seed's rows as the
@@ -309,6 +331,7 @@ from repro_torch.core import dense  # noqa: E402
 from repro_torch.core import forward  # noqa: E402
 from repro_torch.core import lt as lt_mod  # noqa: E402
 from repro_torch.core import roots  # noqa: E402
+from repro_torch.core import rrset  # noqa: E402
 from repro_torch.core import sketch as sketch_mod  # noqa: E402
 from repro_torch.core.engine import make_engine  # noqa: E402
 from repro_torch.core.imm import IMMSolver  # noqa: E402
@@ -378,7 +401,7 @@ GREEDY_KERNELS, CELF_KERNELS = 11, 6
 STAMPED_SOURCES = {"sketch": "sketch_stamps", "celf": "celf_stamps"}
 STAMPED: dict = {}
 SOURCES = ("occur", "sketch", "bitops", "bernoulli", "membership",
-           "flashattn", "queue", "greedy", "celf", "lt")
+           "flashattn", "queue", "greedy", "celf", "lt", "refill")
 # phase 14: the phase-5 solve with CELF, (selection, sketch_k, early_exit)
 CELF_SOLVES = (("celf", 1024, False), ("celf", 16384, False),
                ("celf", 16384, True))
@@ -412,6 +435,7 @@ LIBRARY_NOTE = {
     "sketch_fold_rows": "torch has no scatter with an OR reduction",
     "padded_greedy": "no single PyTorch call runs a greedy",
     "lt_walk": "no single PyTorch call runs a walk",
+    "refill_bfs": "no single PyTorch call runs a BFS",
 }
 SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "sketch_scatter_or": "sketch", "sketch_union_popcount": "sketch",
@@ -424,7 +448,7 @@ SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "celf_eval": "celf", "celf_apply": "celf",
              "celf_select": "celf", "frontier_update": "bitops",
              "sketch_fold_rows": "sketch", "padded_greedy": "membership",
-             "lt_walk": "lt"}
+             "lt_walk": "lt", "refill_bfs": "refill"}
 # each record's kernel as the profiler names it (a regular expression that
 # matches the demangled or the mangled name)
 DEVICE_KERNEL = {
@@ -452,6 +476,7 @@ DEVICE_KERNEL = {
     "padded_greedy": r"padded_greedy_kernel",
     "greedy_flat_variant[weighted]": r"greedy_flat_weighted_kernel",
     "lt_walk": r"lt_walk_kernel",
+    "refill_bfs": r"refill_bfs_kernel",
 }
 KERNELS = {
     "occur_from_bitset": "src/repro/kernels/bitset.py:167",
@@ -495,6 +520,13 @@ KERNELS = {
     "greedy_flat_variant[weighted]": "src/repro/core/coverage.py:1500",
     "celf_eval[weighted]": "src/repro/core/coverage.py:1783",
     "celf_apply[weighted]": "src/repro/core/coverage.py:1810",
+    # no Pallas kernel: the reference's persistent lanes are a jitted
+    # lax.while_loop
+    "refill_bfs": "src/repro/core/rrset.py:356",
+    # the queue round's chunk dedup (the reference's _first_occurrence,
+    # inside the same while_loop) and MRIM's tiled roots (_mrim_round)
+    "queue_bfs[dedup]": "src/repro/core/rrset.py:104",
+    "queue_bfs[tiled]": "src/repro/core/engine.py:429",
 }
 # phase 3: the queue kernel at the exact path's first round, also at qcap
 # 64 (above its longest RR set, 21) and 8, where lanes overflow
@@ -788,6 +820,14 @@ def ptxas_spills(ptxas: str, kernel: str) -> dict:
     return {name: int(stores) for name, stores in re.findall(
         r"Function properties for (\S+)\s+\d+ bytes stack frame, "
         r"(\d+) bytes spill stores", ptxas) if kernel in name}
+
+
+def ptxas_registers(ptxas: str, kernel: str) -> dict:
+    """Registers by function, from an ``-Xptxas -v`` report, for the
+    functions whose mangled name holds ``kernel``."""
+    return {name: int(regs) for name, regs in re.findall(
+        r"Function properties for (\S+)\s+.*?Used (\d+) registers", ptxas,
+        re.S) if kernel in name}
 
 
 def _bound(nbytes: float, ops: dict) -> dict:
@@ -3715,6 +3755,343 @@ def lt_phase(g, weighted_spread: float) -> list:
     return records
 
 
+# phase 17: the multigraph dedup, the refill engine and MRIM on the stand-in
+# MRIM's rounds and seeds a round, as benchmarks/table3_mrim.py:12 sets them
+MRIM_T, MRIM_K = 5, 10
+MRIM_SELECTIONS = ("flat", "bitset", "celf")
+DEDUP_SHUFFLE_SEED = 17
+
+
+def same_round(got, want) -> bool:
+    """Two kernels' outputs equal tensor for tensor, dtype and shape too."""
+    return len(got) == len(want) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(got, want))
+
+
+def dedup_graphs(g) -> tuple:
+    """The stand-in's edge list with every third edge repeated at its own
+    weight, reversed: (rows sorted by destination, the ``segmented`` form;
+    the same rows with each row's edges in a seeded random order, the
+    ``sort`` form)."""
+    src, dst, w = csr.to_edges(g)
+    rep = np.arange(src.size) % 3 == 0
+    src, dst, w = (np.concatenate([x, x[rep]]) for x in (src, dst, w))
+    sorted_rev = csr.reverse(csr.from_edges(src, dst, g.n_nodes, weights=w,
+                                            device=g.device))
+    offs, idx, wr = sorted_rev.numpy()
+    row_of = np.repeat(np.arange(g.n_nodes), np.diff(offs.astype(np.int64)))
+    rng = np.random.default_rng(DEDUP_SHUFFLE_SEED)
+    order = np.lexsort((rng.random(idx.size), row_of))
+    shuffled = csr.CSRGraph(sorted_rev.offsets,
+                            torch.from_numpy(idx[order]).to(g.device),
+                            torch.from_numpy(wr[order]).to(g.device))
+    return sorted_rev, shuffled
+
+
+def plain_call(fn):
+    """``fn()`` once, on the host clock between two synchronizations: (its
+    result, milliseconds).  A plain version takes seconds, so it is timed
+    once, with no warm-up."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def dedup_phase(g) -> list:
+    """Phase 17.1: the queue sampler on the stand-in's multigraph (every
+    third edge twice).  The sampler detects ``segmented`` on the sorted rows
+    and ``sort`` on the shuffled ones; one round of each, and of ``sort``
+    on the sorted rows, through ``sample_rrsets_queue`` with the launches
+    counted; then ``queue_bfs[dedup]`` byte for byte against its plain
+    version at the first round in both modes, ``sort`` on the sorted rows
+    equal to ``segmented`` there, and the record (``segmented``; the
+    ``sort`` form's times beside it)."""
+    sorted_rev, shuffled_rev = dedup_graphs(g)
+    modes = (rrset.detect_dedup_mode(sorted_rev),
+             rrset.detect_dedup_mode(shuffled_rev))
+    if modes != ("segmented", "sort"):
+        raise AssertionError(f"dedup modes {modes}, not segmented and sort")
+    seed32, n = round_seed(0, 0), g.n_nodes
+    cases = {"segmented": (sorted_rev, "segmented"),
+             "sort": (shuffled_rev, "sort"),
+             "sort_on_sorted": (sorted_rev, "sort")}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    samples = {name: rrset.sample_rrsets_queue(
+        gr, BATCH, seed32, dedup=None if name != "sort_on_sorted" else mode)
+        for name, (gr, mode) in cases.items()}
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["queue_bfs"]
+
+    def call(gr, mode):
+        return lambda: ops.queue_bfs(gr.offsets, gr.indices, gr.weights,
+                                     seed32, BATCH, qcap=n, ec=EC_DEFAULT,
+                                     dedup=mode)
+
+    checks, rounds, errs = {}, {}, []
+    for name, (gr, mode) in cases.items():
+        got = call(gr, mode)()
+        if name == "sort_on_sorted":
+            # held to the segmented round, which its plain version holds
+            want, plain_ms = rounds["segmented"], None
+        else:
+            want, plain_ms = plain_call(lambda: ref.queue_round_ref(
+                gr.offsets, gr.indices, gr.weights, seed32, BATCH, qcap=n,
+                ec=EC_DEFAULT, dedup=mode))
+        err = max(max_abs_err(x, y) for x, y in zip(got, want))
+        errs.append(err)
+        checks[name] = {"equal": same_round(got, want), "max_abs_err": err,
+                        "plain_ms": plain_ms, "longest": int(got[1].max()),
+                        "elements": int(got[1].sum()),
+                        "steps": int(got[3].max()),
+                        "sampler_equal": torch.equal(
+                            samples[name].lengths, got[1])}
+        if err or not checks[name]["equal"] or \
+                not checks[name]["sampler_equal"]:
+            raise AssertionError(f"queue_bfs[dedup] {name} != plain "
+                                 f"version: {checks[name]}")
+        rounds[name] = got
+    seg_is_sort = checks["sort_on_sorted"]["equal"]
+    say("dedup_check", {"edges": sorted_rev.n_edges, "modes": modes,
+                        "segmented_equals_sort": seg_is_sort,
+                        "launches": launches, **checks})
+    if not seg_is_sort:
+        raise AssertionError("segmented and sort differ on the sorted rows")
+    times = timing("queue_bfs[dedup]", call(sorted_rev, "segmented"), 20)
+    sort_times = timing("queue_bfs[dedup]", call(shuffled_rev, "sort"), 20)
+    queue, lengths = rounds["segmented"][:2]
+    bound, work = queue_bound(sorted_rev, queue, lengths)
+    return [record("queue_bfs[dedup]", {"queue_bfs[dedup]": launches},
+                   max(errs), times, checks["segmented"]["plain_ms"], bound,
+                   **one_sm_bound(work["longest_lane_edges"]),
+                   shape=[BATCH, n], ec=EC_DEFAULT, mode="segmented",
+                   edges=sorted_rev.n_edges,
+                   sort_ms=sort_times["ms"],
+                   sort_device_ms=sort_times.get("device_ms"),
+                   sort_plain_ms=checks["sort"]["plain_ms"],
+                   plain_timing="host clock, one call", **work)]
+
+
+def refill_rows_on_host(out) -> dict:
+    """A refill round's emitted rows by row id: {row: (nodes, steps)}."""
+    flat, lengths, n_done, _, rows, row_steps = (x.cpu().numpy()
+                                                 for x in out[:6])
+    got = {}
+    for lane in range(flat.shape[0]):
+        off = 0
+        for j in range(int(n_done[lane])):
+            ln = int(lengths[lane, j])
+            got[int(rows[lane, j])] = (flat[lane, off:off + ln].tolist(),
+                                       int(row_steps[lane, j]))
+            off += ln
+    return got
+
+
+def refill_bound(g_rev, queue, lengths, lanes: int, out_cap: int,
+                 sets: int) -> tuple:
+    """The refill round's least time: the queue round's work at batch =
+    quota (the same rows: :func:`queue_bound`'s distinct CSR rows and
+    trials), with the flat rows (4 bytes a cell, written in full) and the
+    slots (16 bytes: length, row id, steps) in place of the queue rows,
+    and each lane's count and flag."""
+    bound, work = queue_bound(g_rev, queue, lengths)
+    nbytes = 8 * work["distinct_row_edges"] + 8 * work["distinct_rows"] \
+        + 4 * lanes * out_cap + 16 * lanes * sets + 5 * lanes + 4
+    return _bound(nbytes, {k: v * work["examined_edges"]
+                           for k, v in TRIAL_WORK_OPS.items()}), work
+
+
+def refill_phase(g, queue_res, queue_store) -> list:
+    """Phase 17.2: the refill engine at batch 512 (256 lanes, out_cap
+    1,024).  ``refill_bfs`` at the first round against its plain version
+    and against ``queue_bfs``'s lanes 0-511, row for row, steps too; the
+    engine's round (one launch, one host read); then ``IMMSolver(g,
+    engine="refill", batch=512)`` on phase 5's problem, equal to phase 5
+    in θ, LB, rounds, RR sets, pool elements, seeds, gains and frac."""
+    n = g.n_nodes
+    eng = make_engine("refill", csr.reverse(g), batch=BATCH)
+    gr, seed32 = eng.g_rev, round_seed(0, 0)
+    sets = rrset.default_sets_per_lane(BATCH, eng.lanes)
+    kw = dict(quota=BATCH, out_cap=eng.out_cap, max_sets=sets, ec=EC_DEFAULT)
+    args = (gr.offsets, gr.indices, gr.weights, seed32, eng.lanes)
+    got = ops.refill_bfs(*args, **kw)
+    want, plain_ms = plain_call(lambda: ref.refill_round_ref(*args, **kw))
+    queue, lengths, _, steps, _ = ops.queue_bfs(
+        gr.offsets, gr.indices, gr.weights, seed32, BATCH, qcap=n,
+        ec=EC_DEFAULT)
+    got_rows, want_rows = refill_rows_on_host(got), refill_rows_on_host(want)
+    q_len, q_steps = lengths.cpu().tolist(), steps.cpu().tolist()
+    queue_rows = {r: (queue[r, :q_len[r]].cpu().tolist(), q_steps[r])
+                  for r in range(BATCH)}
+    sched = rrset.refill_schedule_steps(
+        [got_rows[r][1] for r in sorted(got_rows)], eng.lanes, sets)
+    check = {"rows": len(got_rows), "equal_plain": got_rows == want_rows,
+             "equal_queue_lanes": got_rows == queue_rows,
+             "overflowed": int(got[3].sum()),
+             "plain_overflowed": int(want[3].sum()),
+             "plain_loop_steps": want[6], "schedule_steps": sched,
+             "queue_round_steps": max(q_steps), "plain_ms": plain_ms,
+             "lanes": eng.lanes, "out_cap": eng.out_cap, "slots": sets,
+             "sets_per_lane": np.bincount(got[2].cpu().numpy()).tolist()}
+    say("refill_check", check)
+    if not (check["equal_plain"] and check["equal_queue_lanes"]
+            and sched == want[6] and not check["overflowed"]):
+        raise AssertionError(f"refill_bfs != plain version or queue lanes: "
+                             f"{check}")
+    eng.sample(seed32)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    _, syncs = count_syncs(lambda: eng.sample(seed32))
+    round_launches = ops.launch_counts()
+    run = variant_solve(g, IMProblem(k=K, eps=EPS), engine="refill",
+                        selection="bitset")
+    st, qst = run["res"].stats, queue_res.stats
+    fields = {"theta": st.theta, "lb": st.lb, "lb_iters": st.lb_iters,
+              "rounds": st.rounds, "n_rr": run["solver"].store.n_rr,
+              "elements": run["solver"].store.n_elems,
+              "seeds": run["res"].seeds.tolist(),
+              "gains": run["res"].gains.tolist(),
+              "frac": np.float32(run["res"].frac).tobytes().hex()}
+    phase5 = {"theta": qst.theta, "lb": qst.lb, "lb_iters": qst.lb_iters,
+              "rounds": qst.rounds, "n_rr": queue_store.n_rr,
+              "elements": queue_store.n_elems,
+              "seeds": queue_res.seeds.tolist(),
+              "gains": queue_res.gains.tolist(),
+              "frac": np.float32(queue_res.frac).tobytes().hex()}
+    same = fields == phase5
+    say("refill_solve", dict(
+        run_line(run), equals_phase5_solve=same,
+        overflow_fraction=st.overflow_fraction,
+        sampling_steps=st.sampling_steps,
+        queue_sampling_steps=qst.sampling_steps,
+        round_host_syncs=len(syncs), round_sync_sites=syncs,
+        round_launches={k: v for k, v in round_launches.items() if v}))
+    if not same or len(syncs) != 1 or round_launches["refill_bfs"] != 1:
+        raise AssertionError(f"refill solve differs from phase 5 or its "
+                             f"round is not one launch and one host read: "
+                             f"{fields} vs {phase5}, syncs {syncs}")
+    if run["launches"]["refill_bfs"] != st.rounds or \
+            run["launches"]["queue_bfs"]:
+        raise AssertionError(f"refill solve launches {run['launches']}")
+    times = timing("refill_bfs", lambda: ops.refill_bfs(*args, **kw), 20)
+    bound, work = refill_bound(gr, queue, lengths, eng.lanes, eng.out_cap,
+                               sets)
+    return [record("refill_bfs", run["launches"], 0.0, times, plain_ms,
+                   bound, **one_sm_bound(work["longest_lane_edges"]),
+                   shape=[eng.lanes, eng.out_cap], quota=BATCH, slots=sets,
+                   ec=EC_DEFAULT, plain_timing="host clock, one call",
+                   overflow_fraction=st.overflow_fraction, **work)]
+
+
+def ic_active(g, seeds, n_sims: int, gen) -> torch.Tensor:
+    """(n_sims, n) bool active sets of forward IC runs from ``seeds`` on
+    the forward CSR ``g``, drawing from ``gen`` (``forward.ic_sizes``'s
+    loop)."""
+    dev, n = g.device, g.n_nodes
+    deg = (g.offsets[1:] - g.offsets[:-1]).to(torch.int64)
+    edge_src = torch.repeat_interleave(torch.arange(n, device=dev), deg)
+    edge_dst = g.indices.to(torch.int64)
+    active = torch.zeros(n_sims, n, dtype=torch.bool, device=dev)
+    active[:, torch.as_tensor(seeds, device=dev).to(torch.int64)] = True
+    frontier = active.clone()
+    while bool(frontier.any()):
+        u = torch.rand((n_sims, g.n_edges), generator=gen, device=dev)
+        live = (frontier[:, edge_src] & (u < g.weights)).to(torch.int32)
+        hit = torch.zeros(n_sims, n, dtype=torch.int32,
+                          device=dev).index_add_(1, edge_dst, live)
+        frontier = (hit > 0) & ~active
+        active |= frontier
+    return active
+
+
+def mrim_forward_spread(g, seeds_per_round, n_sims: int, seed: int) -> float:
+    """MRIM's objective by forward Monte Carlo: per simulation, the nodes
+    that T independent IC cascades reach, one from each round's seeds."""
+    gen = torch.Generator(device=g.device).manual_seed(int(seed))
+    union = torch.zeros(n_sims, g.n_nodes, dtype=torch.bool, device=g.device)
+    for seeds in seeds_per_round:
+        union |= ic_active(g, seeds, n_sims, gen)
+    return float(union.sum(dim=1).to(torch.float64).mean())
+
+
+def mrim_phase(g) -> tuple:
+    """Phase 17.3: ``IMProblem(k=10, t_rounds=5, eps=0.5)`` solved with
+    ``flat``, ``bitset`` and ``celf``, equal in every field, one
+    ``queue_bfs[tiled]`` a round; its RIS estimate within :data:`MC_TOL`
+    of a 256-simulation T-round forward Monte Carlo; then
+    ``queue_bfs[tiled]`` at B·T = 2,560 lanes byte for byte against its
+    plain version at the first round, the T lanes of a sample on one
+    root, and its record.  Returns the records and the CELF solve's
+    launches (a path of the shared CELF kernels)."""
+    problem = IMProblem(k=MRIM_K, t_rounds=MRIM_T, eps=EPS)
+    runs = {sel: variant_solve(g, problem, selection=sel)
+            for sel in MRIM_SELECTIONS}
+    fields = {sel: solve_fields(run) for sel, run in runs.items()}
+    same = all(f == fields["flat"] for f in fields.values())
+    res = runs["flat"]["res"]
+    per_round = res.seeds_per_round()
+    t0 = time.perf_counter()
+    mc = mrim_forward_spread(g, per_round, MC_SIMS, seed=0)
+    mc_s = time.perf_counter() - t0
+    rel = abs(res.spread - mc) / mc
+    store = runs["bitset"]["solver"].store
+    m = store.bitset_matrix()
+    say("mrim_solve", {
+        "k": MRIM_K, "t_rounds": MRIM_T, "eps": EPS, "batch": BATCH,
+        "lanes_a_round": BATCH * MRIM_T, "item_space": store.n_nodes,
+        "selections_equal": same, "seeds_per_round": per_round,
+        "ris_spread": res.spread, "mc_spread": mc, "mc_sims": MC_SIMS,
+        "mc_s": mc_s, "rel_err": rel, "tol": MC_TOL,
+        "pool_bytes": store.per_device_pool_bytes(),
+        "bit_matrix_shape": list(m.shape),
+        "bit_matrix_bytes": m.numel() * m.element_size(),
+        **{sel: run_line(run) for sel, run in runs.items()}})
+    del m
+    if not same:
+        raise AssertionError(f"MRIM selections differ: {fields}")
+    if len(per_round) != MRIM_T or any(len(s) != MRIM_K for s in per_round):
+        raise AssertionError(f"MRIM seeds a round {per_round}")
+    for sel, run in runs.items():
+        if run["launches"]["queue_bfs"] != run["res"].stats.rounds:
+            raise AssertionError(f"MRIM {sel}: {run['launches']}")
+    if not rel < MC_TOL:
+        raise AssertionError(f"MRIM RIS {res.spread} vs MC {mc}: "
+                             f"{rel:.3f} >= {MC_TOL}")
+    gr, seed32, n = csr.coalesce_ic(csr.reverse(g)), round_seed(0, 0), \
+        g.n_nodes
+    lanes = BATCH * MRIM_T
+
+    def kern():
+        return ops.queue_bfs(gr.offsets, gr.indices, gr.weights, seed32,
+                             lanes, qcap=n, ec=EC_DEFAULT, root_tile=MRIM_T)
+
+    got = kern()
+    want, plain_ms = plain_call(lambda: ref.queue_round_ref(
+        gr.offsets, gr.indices, gr.weights, seed32, lanes, qcap=n,
+        ec=EC_DEFAULT, root_tile=MRIM_T))
+    err = max(max_abs_err(x, y) for x, y in zip(got, want))
+    roots_shared = bool((got[4].reshape(BATCH, MRIM_T)
+                         == got[4][::MRIM_T, None]).all())
+    say("tiled_check", {"equal": same_round(got, want), "max_abs_err": err,
+                        "roots_shared": roots_shared, "plain_ms": plain_ms,
+                        "longest": int(got[1].max()),
+                        "elements": int(got[1].sum())})
+    if err or not same_round(got, want) or not roots_shared:
+        raise AssertionError("queue_bfs[tiled] != plain version")
+    times = timing("queue_bfs[tiled]", kern, 20)
+    bound, work = queue_bound(gr, got[0], got[1])
+    rec = record("queue_bfs[tiled]",
+                 {"queue_bfs[tiled]": runs["flat"]["launches"]["queue_bfs"]},
+                 err, times, plain_ms, bound,
+                 **one_sm_bound(work["longest_lane_edges"]),
+                 shape=[lanes, n], root_tile=MRIM_T, ec=EC_DEFAULT,
+                 plain_timing="host clock, one call", **work)
+    return [rec], {"phase 17's MRIM celf solve": runs["celf"]["launches"]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -3770,6 +4147,16 @@ def main() -> int:
     if len(lt_spills) != 1 or any(lt_spills.values()):
         raise AssertionError(f"lt.cu: want lt_walk_kernel without spills, "
                              f"ptxas reports {lt_spills}")
+    # queue_bfs's six forms (dedup x tiled) and refill_bfs's three
+    for src, kernel, count in (("queue", "queue_bfs_kernel", 6),
+                               ("refill", "refill_bfs_kernel", 3)):
+        report = _build.PTXAS_REPORT[src]
+        spills = ptxas_spills(report, kernel)
+        say(f"{src}_ptxas", {"spills": spills,
+                             "registers": ptxas_registers(report, kernel)})
+        if len(spills) != count or any(spills.values()):
+            raise AssertionError(f"{src}.cu: want {count} kernels without "
+                                 f"spills, ptxas reports {spills}")
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3933,15 +4320,22 @@ def main() -> int:
 
     # 16. the LT model and the row-weighted estimator
     lt_recs = lt_phase(g, weighted_spread)
+
+    # 17. the multigraph dedup, the refill engine and MRIM
+    t17 = time.perf_counter()
+    dedup_recs = dedup_phase(g)
+    refill_recs = refill_phase(g, res, store)
+    mrim_recs, mrim_launches = mrim_phase(g)
+    say("phase17", {"seconds": time.perf_counter() - t17})
     # the kernels that several paths launch: their launches by path
     paths = {"phase 5's exact solve": launches,
              "phase 10's packed sampler": {r["name"]: r["launches"] or 0
                                            for r in dense_recs},
              "phase 14's early exit gate (16,384 buckets)": gate_launches,
-             **celf_variant_launches}
+             **celf_variant_launches, **mrim_launches}
     kernels = records + approx_records + dense_recs + padded_recs \
         + flash_recs + queue_recs + greedy_recs + celf_recs + variant_recs \
-        + lt_recs
+        + lt_recs + dedup_recs + refill_recs + mrim_recs
     for rec in kernels:
         if rec["name"] in SHARED_PATH_KERNELS:
             rec["launches_from"] = {path: counts.get(rec["name"], 0)

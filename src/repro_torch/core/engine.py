@@ -1,6 +1,6 @@
 """Sampler-engine protocol and registry: the canonical :class:`RRBatch` and
-the ``queue``, ``dense`` and ``lt`` engines (the reference's
-``repro.core.engine``).
+the ``queue``, ``dense``, ``refill``, ``lt`` and ``mrim`` engines (the
+reference's ``repro.core.engine``).
 
 An engine is configured by a ``Config`` dataclass, registered under a short
 name and returns one :class:`RRBatch` from ``sample(seed32)``, where
@@ -12,8 +12,10 @@ its roots ∝ the weights through one alias table
 (:func:`repro_torch.core.roots.draw_roots`), and the IC engines still agree
 row for row.  The ``lt`` engine samples the linear-threshold model's RR
 walks (:mod:`.lt`); :func:`resolve_engine_name` picks it for
-``model="lt"``.  The reference's ``refill`` and ``mrim`` engines wait for
-ROADMAP Queue 1 item 7.  :class:`FusedSketchEngine` marks an engine as
+``model="lt"``.  The ``refill`` engine (paper Alg. 6's persistent lanes)
+returns the queue engine's rows of a round at ``batch = quota`` where no
+lane overflows, and the ``mrim`` engine (paper §4.8) samples T tagged BFS
+from a shared root a row.  :class:`FusedSketchEngine` marks an engine as
 feeding the pool-free store of the approximate mode.
 """
 from __future__ import annotations
@@ -29,7 +31,14 @@ from repro_torch.graph.csr import CSRGraph, coalesce_ic
 from repro_torch.core import dense as rr_dense
 from repro_torch.core import lt as rr_lt
 from repro_torch.core import rrset as rr_queue
+from repro_torch.core.packing import pack_rows_device
 from repro_torch.core.roots import build_alias_table
+from repro_torch.kernels import ops
+
+# the reference's bound on weighted refill roots (repro.core.roots), whose
+# one-uniform alias draw is exact only up to it; the refill engine keeps its
+# refusal, though the port's two-hash draw would not need it
+ONE_UNIFORM_MAX_N = 1 << 22
 
 
 class RRBatch(NamedTuple):
@@ -194,6 +203,76 @@ class DenseEngine:
         return RRBatch(nodes, lens, overflow, levels, roots=roots)
 
 
+@register_engine("refill")
+class RefillEngine:
+    """Persistent-lane worker (paper Alg. 6; :func:`.rrset.
+    sample_rrsets_refill`): ``lanes`` lanes sample the round's ``batch``
+    rows, each lane starting its next row as soon as its last ends.  On a
+    card a round is one launch of the CUDA kernel ``csrc/refill.cu``
+    (``kernels.ops.refill_bfs``) and one host read.  ``sample`` returns the
+    rows in row-id order: where no lane overflows, exactly ``batch`` rows,
+    the queue engine's round at the same batch row for row (the reference
+    returns ``batch`` to ``batch + lanes - 1``, with the same law)."""
+
+    @dataclass(frozen=True)
+    class Config:
+        batch: int = 256             # quota: RR sets a sample()
+        lanes: Optional[int] = None  # default: batch//2 clamped to [8, 512]
+        out_cap: Optional[int] = None
+        ec: int = rr_queue.EC_DEFAULT
+
+    def __init__(self, g_rev: CSRGraph, config: Optional[Config] = None,
+                 root_weights=None):
+        self.g_rev = coalesce_ic(g_rev)
+        cfg = config if config is not None else self.Config()
+        self.config = cfg
+        self.lanes = (cfg.lanes if cfg.lanes is not None
+                      else max(min(cfg.batch // 2, 512), 8))
+        self.out_cap = (cfg.out_cap if cfg.out_cap is not None
+                        else min(8 * cfg.batch // self.lanes, 64) * 64)
+        if root_weights is not None and self.g_rev.n_nodes > ONE_UNIFORM_MAX_N:
+            raise ValueError(
+                "weighted refill roots use the one-uniform alias draw, "
+                f"which is only exact for n <= {ONE_UNIFORM_MAX_N}; use the "
+                "queue or dense engine for weighted IM on larger graphs")
+        self.root_weights, self.table = _resolve_root_table(
+            root_weights, self.g_rev.device)
+
+    @property
+    def item_space(self) -> int:
+        return self.g_rev.n_nodes
+
+    def _round(self, seed32: int):
+        return rr_queue._refill_round(
+            self.g_rev, self.lanes, seed32, quota=self.config.batch,
+            out_cap=self.out_cap, max_sets_per_lane=None, ec=self.config.ec,
+            dedup="none", table=self.table)
+
+    def sample(self, seed32: int) -> RRBatch:
+        s, width, by_row = self._round(seed32)
+        nodes, lens = rr_queue.refill_rows_by_id(s.flat, by_row,
+                                                 max(width, 1))
+        # rows are root-first, so a row's root is its column 0
+        return RRBatch(nodes, lens, s.overflowed, s.steps,
+                       roots=nodes[:, 0])
+
+    def sample_device(self, seed32: int) -> RRBatch:
+        """The same rows with no host read: ``batch`` rows in row-id order,
+        ``out_cap`` wide, a row that was not emitted of length 0 (padding,
+        which the store drops).  Without the host read there is no
+        lock-step count: ``steps`` is 0."""
+        g, cfg = self.g_rev, self.config
+        flat, lengths, _, overflowed, rows, row_steps = ops.refill_bfs(
+            g.offsets, g.indices, g.weights, seed32, self.lanes,
+            quota=cfg.batch, out_cap=self.out_cap,
+            max_sets=rr_queue.default_sets_per_lane(cfg.batch, self.lanes),
+            ec=cfg.ec, table=self.table)
+        nodes, lens = rr_queue.refill_rows_by_id(
+            flat, rr_queue.refill_by_row(lengths, rows, row_steps,
+                                         cfg.batch)[:3], self.out_cap)
+        return RRBatch(nodes, lens, overflowed, 0, roots=nodes[:, 0])
+
+
 @register_engine("lt")
 class LTEngine:
     """Linear-threshold walk sampler (paper §3.7; :mod:`.lt`).  The rows'
@@ -228,6 +307,65 @@ class LTEngine:
                                    rowcum=self.rowcum)
         return RRBatch(s.nodes, s.lengths, s.overflowed, s.steps,
                        roots=s.roots)
+
+
+@register_engine("mrim")
+class MRIMEngine:
+    """Multi-round IM sampler (paper §4.8): each RR sample is T tagged BFS
+    from a shared root, run as T adjacent lanes of one queue round
+    (``root_tile`` T: lane ``bT + t`` has lane ``bT``'s root and its own
+    trials); elements are encoded ``round * n + node``, so the coverage
+    machinery runs unchanged on an item space of n·T.  The T segments of a
+    sample are packed into one row by ``pack_rows_device``, at the round's
+    width (T times its longest BFS), which the round's one host read
+    gives."""
+
+    @dataclass(frozen=True)
+    class Config:
+        batch: int = 64
+        t_rounds: int = 2
+        qcap: Optional[int] = None   # default: n_nodes
+        ec: int = rr_queue.EC_DEFAULT
+
+    def __init__(self, g_rev: CSRGraph, config: Optional[Config] = None,
+                 root_weights=None):
+        self.g_rev = coalesce_ic(g_rev)
+        self.config = config if config is not None else self.Config()
+        self.qcap = (self.config.qcap if self.config.qcap is not None
+                     else self.g_rev.n_nodes)
+        self.root_weights, self.table = _resolve_root_table(
+            root_weights, self.g_rev.device)
+        if self.item_space >= np.iinfo(np.int32).max:
+            raise ValueError("n_nodes * t_rounds must fit int32")
+
+    @property
+    def item_space(self) -> int:
+        return self.g_rev.n_nodes * self.config.t_rounds
+
+    def sample(self, seed32: int) -> RRBatch:
+        cfg, n, t = self.config, self.g_rev.n_nodes, self.config.t_rounds
+        s = rr_queue.sample_rrsets_queue(
+            self.g_rev, cfg.batch * t, seed32, qcap=self.qcap, ec=cfg.ec,
+            dedup="none", table=self.table, root_tile=t)
+        nodes, lens = merge_rounds(s.nodes, s.lengths, cfg.batch, t, n)
+        overflow = s.overflowed.reshape(cfg.batch, t).any(dim=1)
+        return RRBatch(nodes, lens, overflow, s.steps,
+                       roots=s.roots[::t].contiguous())
+
+
+def merge_rounds(nodes: torch.Tensor, lengths: torch.Tensor, batch: int,
+                 t: int, n: int):
+    """MRIM's segment merge: (B·T, W) BFS rows, lane ``bT + r`` round r of
+    sample b -> (B, T·W) rows of ``r * n + node`` in round order, packed
+    left, and their (B,) int32 lengths."""
+    w = nodes.shape[1]
+    dev = nodes.device
+    tag = (torch.arange(batch * t, device=dev) % t) * n
+    enc = (nodes.to(torch.int64) + tag[:, None]).to(torch.int32)
+    enc = enc.reshape(batch, t * w)
+    col = torch.arange(t * w, device=dev)
+    mask = (col % w)[None, :] < lengths.reshape(batch, t)[:, col // w]
+    return pack_rows_device(enc, mask)
 
 
 class FusedSketchEngine:

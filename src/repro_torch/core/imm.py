@@ -7,6 +7,8 @@ problems, on one device.
     IMMSolver(g).solve(IMProblem(eps=0.3, costs=c, budget=B))     # budgeted
     IMMSolver(g).solve(IMProblem(k=10, eps=0.3, candidates=ids))  # targeted
     IMMSolver(g, model="lt").solve(IMProblem(k=10, eps=0.3))      # LT model
+    IMMSolver(g).solve(IMProblem(k=3, t_rounds=4, theta=4096))    # MRIM
+    IMMSolver(g, engine="refill").solve(IMProblem(k=10, eps=0.3)) # Alg. 6
     IMMSolver(g, engine=make_engine("queue", reverse(g))).solve(
         IMProblem(k=10, eps=0.3, node_weights=w))     # row-weighted estimator
 
@@ -41,7 +43,12 @@ mode): uniform roots, each row weighted by its root's weight in a
 row-weighted store, and the weighted selection (``SelectionSpec(weighted=
 True)``), so the spread is ``Σ w`` times the covered share of the rows'
 total weight.  ``model="lt"`` (on the solver or the problem) samples the
-linear-threshold model's RR walks with the ``lt`` engine.
+linear-threshold model's RR walks with the ``lt`` engine.  A problem with
+``t_rounds`` T (MRIM) samples with the ``mrim`` engine (T tagged BFS a row)
+and selects k seeds a round: the group quotas of the variant greedy
+(``SelectionSpec(n_group=n, n_groups=T, group_quota=k)``).  A tagged
+engine *instance* waits for its first problem, which must carry the
+matching ``t_rounds``.
 """
 from __future__ import annotations
 
@@ -122,6 +129,14 @@ class IMMSolver:
         if selection not in _SELECTION_METHODS:
             raise ValueError(f"unknown selection {selection!r}; one of "
                              f"{sorted(_SELECTION_METHODS)}")
+        if named and engine == "mrim":
+            # the tagged engine's item space is n*t_rounds, not the graph's
+            # n nodes: MRIM goes through IMProblem(t_rounds=...), which
+            # picks the engine itself
+            raise ValueError(
+                "engine 'mrim' samples a tagged item space, not the "
+                "graph's nodes; set t_rounds= on the IMProblem instead "
+                "(the solver resolves the mrim engine per problem)")
         if eval_batch is not None and int(eval_batch) < 1:
             raise ValueError("eval_batch must be >= 1")
         self.eval_batch = None if eval_batch is None else int(eval_batch)
@@ -155,6 +170,13 @@ class IMMSolver:
         return "lt" if self._model_arg == "lt" else "ic"
 
     # -- engine + store per problem signature ------------------------------
+    def _engine_name(self, problem: IMProblem, model: str) -> str:
+        """The named engine a problem samples with: ``mrim`` for MRIM, the
+        ``lt`` engine for the LT model, else the solver's."""
+        if problem.t_rounds is not None:
+            return "mrim"
+        return resolve_engine_name(self._engine_arg, model)
+
     def _engine_for(self, r: ResolvedProblem, model: str):
         """(engine, row-weight mode) for a problem: a named engine (the
         ``lt`` one for the LT model) with the alias table of the problem's
@@ -162,7 +184,11 @@ class IMMSolver:
         weights are not the ones its roots are drawn by."""
         w = r.node_weights
         if isinstance(self._engine_arg, str):
-            name = resolve_engine_name(self._engine_arg, model)
+            name = self._engine_name(r.problem, model)
+            if r.problem.t_rounds is not None:
+                return make_engine(name, self.g_rev, root_weights=w,
+                                   t_rounds=r.problem.t_rounds,
+                                   **self._engine_opts), False
             if w is not None:
                 return make_engine(name, self.g_rev, root_weights=w,
                                    **self._engine_opts), False
@@ -195,7 +221,8 @@ class IMMSolver:
             raise ValueError(
                 f"engine {getattr(engine, 'name', '?')!r} samples an item "
                 f"space of {engine.item_space}, not the problem's "
-                f"{r.n_items} items")
+                f"{r.n_items} items; tagged engines need a matching "
+                f"t_rounds= on the IMProblem")
         self.engine_name = getattr(engine, "name", type(engine).__name__)
         if problem.mode == "approximate":
             self.engine = FusedSketchEngine(engine)
@@ -226,6 +253,9 @@ class IMMSolver:
         r = problem.resolve(self.n)
         # the problem's model, or the solver's for model=None
         model = problem.model or self._default_model()
+        if problem.t_rounds is not None and model == "lt":
+            raise ValueError("MRIM sampling is IC-only (paper §4.8); the "
+                             "solver's default model is 'lt'")
         # celf and the early exit read the exact store's incremental sketch
         sketch_k = self._sketch_k_arg
         if sketch_k is None and (self._sel_method == "celf"
@@ -236,7 +266,7 @@ class IMMSolver:
         if sketch_k is not None:
             sketch_k = sketch_mod.resolve_sketch_k(sketch_k)
         if isinstance(self._engine_arg, str):
-            sig = ("name", resolve_engine_name(self._engine_arg, model),
+            sig = ("name", self._engine_name(problem, model),
                    problem.pool_digest(model=model), sketch_k)
         else:
             sig = ("inst", id(self._engine_arg), problem.pool_digest(),
@@ -283,15 +313,21 @@ class IMMSolver:
         """None for plain problems and for weights alone when the roots
         carry them (rows stay equal); else the variant greedy's
         :class:`~repro_torch.core.coverage.SelectionSpec`: one group of
-        quota ``k_steps`` over the items, the candidate mask, the costs,
-        and in row-weight mode the weighted score."""
+        quota ``k_steps`` over the items (MRIM: T groups of n ids, k seeds
+        each), the candidate mask, the costs, and in row-weight mode the
+        weighted score."""
         p = r.problem
         if p.budget is None and p.candidates is None \
-                and not self._row_weight_mode:
+                and p.t_rounds is None and not self._row_weight_mode:
             return None
+        if p.t_rounds is not None:
+            n_group, n_groups, quota = r.n_nodes, r.t_rounds, p.k
+        else:
+            n_group, n_groups, quota = r.n_items, 1, r.k_steps
+        costs = None if r.costs is None else np.tile(r.costs, r.t_rounds)
         return cov.SelectionSpec(
-            k_steps=r.k_steps, n_group=r.n_items, n_groups=1,
-            group_quota=r.k_steps, cand=r.cand_mask_items, costs=r.costs,
+            k_steps=r.k_steps, n_group=n_group, n_groups=n_groups,
+            group_quota=quota, cand=r.cand_mask_items, costs=costs,
             budget=p.budget, weighted=self._row_weight_mode)
 
     # -- full IMM ----------------------------------------------------------

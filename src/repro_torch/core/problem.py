@@ -18,9 +18,10 @@ hashes the same in both packages:
 sketch store, which takes candidates but neither weights nor a budget);
 ``early_exit`` is the θ early exit of the LB loop; ``model`` is ``"ic"``
 or ``"lt"`` (the linear-threshold model, paper §3.7), or None to take the
-solver's.  MRIM (``t_rounds``) is not ported yet: setting it raises
-``NotImplementedError`` naming its ROADMAP item.  Host-side spec and
-validation only.
+solver's.  ``t_rounds`` T makes it multi-round IM (MRIM, paper §4.8): k
+seeds a round over T independent IC rounds, on the tagged item space of
+n·T ids (exact mode, cardinality only).  Host-side spec and validation
+only.
 """
 from __future__ import annotations
 
@@ -30,10 +31,6 @@ from typing import Any, Optional
 
 import numpy as np
 
-# field -> (value that keeps the problem plain, ROADMAP item that ports it)
-_NOT_PORTED = {
-    "t_rounds": (None, "Queue 1 item 7 (MRIM)"),
-}
 MODES = ("exact", "approximate")
 
 
@@ -123,10 +120,6 @@ class IMProblem:
         if self.mode not in MODES:
             raise ValueError(f"unknown mode {self.mode!r}; expected 'exact' "
                              "or 'approximate'")
-        for name, (plain, item) in _NOT_PORTED.items():
-            if getattr(self, name) is not plain:
-                raise NotImplementedError(
-                    f"IMProblem({name}=...) is not ported yet: ROADMAP {item}")
         if self.mode == "approximate":
             # the sketch store scores seeds on row counts alone; candidates
             # only mask its sweep
@@ -138,18 +131,29 @@ class IMProblem:
                 raise ValueError("mode='approximate' does not support "
                                  "budget= (cost-ratio greedy needs exact "
                                  "marginals)")
+            if self.t_rounds is not None:
+                raise ValueError("mode='approximate' does not support "
+                                 "t_rounds= (MRIM needs the tagged pool)")
         if (self.k is None) == (self.budget is None):
             raise ValueError("exactly one of k= (cardinality) or budget= "
                              "(budgeted IM) must be set")
         if self.k is not None and (not isinstance(self.k, (int, np.integer))
                                    or self.k < 1):
             raise ValueError(f"k must be a positive int, got {self.k!r}")
-        if self.budget is not None and self.budget <= 0:
-            raise ValueError("budget must be positive")
+        if self.budget is not None:
+            if self.budget <= 0:
+                raise ValueError("budget must be positive")
+            if self.t_rounds is not None:
+                raise ValueError("budgeted MRIM (budget= with t_rounds=) is "
+                                 "not supported; give a per-round k instead")
         if self.costs is not None and self.budget is None:
             raise ValueError("costs= requires budget= (budgeted IM)")
+        if self.t_rounds is not None and self.t_rounds < 1:
+            raise ValueError("t_rounds must be >= 1")
         if self.model not in (None, "ic", "lt"):
             raise ValueError(f"unknown diffusion model {self.model!r}")
+        if self.model == "lt" and self.t_rounds is not None:
+            raise ValueError("MRIM sampling is IC-only (paper §4.8)")
         if not (0.0 < self.eps < 1.0):
             raise ValueError("eps must lie in (0, 1)")
         if self.theta is not None and self.theta < 1:

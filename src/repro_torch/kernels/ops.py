@@ -21,11 +21,13 @@ from repro_torch.kernels import lt as _lt
 from repro_torch.kernels import membership as _membership
 from repro_torch.kernels import queue as _queue
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import refill as _refill
 from repro_torch.kernels import sketch as _sketch
 
 _COUNTERS = (_bitset.LAUNCHES, _sketch.LAUNCHES, _bernoulli.LAUNCHES,
              _membership.LAUNCHES, _flash.LAUNCHES, _queue.LAUNCHES,
-             _greedy.LAUNCHES, _celf.LAUNCHES, _lt.LAUNCHES)
+             _greedy.LAUNCHES, _celf.LAUNCHES, _lt.LAUNCHES,
+             _refill.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -137,19 +139,46 @@ def bernoulli_edges(weights: torch.Tensor, seeds) -> torch.Tensor:
 
 def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
               weights: torch.Tensor, seed32: int, batch: int, *, qcap: int,
-              ec: int, table=None):
+              ec: int, table=None, dedup: str = "none", root_tile: int = 1):
     """One sampling round of the queue sampler with round seed ``seed32``
     and ``batch`` lanes: every lane's row seed and root (∝ the weights of
-    the alias ``table``, a ``(prob, alias)`` pair, when one is given), and
-    its BFS on the reverse CSR to its end -> (queue (B, qcap) int32,
-    lengths (B,) int32, overflowed (B,) bool, steps (B,) int64, roots (B,)
-    int32); the same bytes on either route (``ref.queue_round_ref`` says
-    what they hold)."""
+    the alias ``table``, a ``(prob, alias)`` pair, when one is given; lanes
+    ``[tT, tT + T)`` share lane tT's root for ``root_tile`` T), and its BFS
+    on the reverse CSR to its end, with the chunk ``dedup`` of rows that
+    repeat destinations -> (queue (B, qcap) int32, lengths (B,) int32,
+    overflowed (B,) bool, steps (B,) int64, roots (B,) int32); the same
+    bytes on either route (``ref.queue_round_ref`` says what they
+    hold)."""
     if _route(offsets) == "cuda":
         return _queue.queue_bfs(offsets, indices, weights, seed32, batch,
-                                qcap=qcap, ec=ec, table=table)
+                                qcap=qcap, ec=ec, table=table, dedup=dedup,
+                                root_tile=root_tile)
     return _ref.queue_round_ref(offsets, indices, weights, seed32, batch,
-                                qcap=qcap, ec=ec, table=table)
+                                qcap=qcap, ec=ec, table=table, dedup=dedup,
+                                root_tile=root_tile)
+
+
+def refill_bfs(offsets: torch.Tensor, indices: torch.Tensor,
+               weights: torch.Tensor, seed32: int, lanes: int, *,
+               quota: int, out_cap: int, max_sets: int, ec: int,
+               table=None, dedup: str = "none"):
+    """One round of the persistent-lane sampler (paper Alg. 6): rows ``0
+    .. quota - 1`` of round seed ``seed32``, each :func:`queue_bfs`'s lane
+    of that index, on ``lanes`` lanes that claim row ids as they finish ->
+    (flat (L, out_cap) int32, lengths (L, S) int32, n_done (L,) int32,
+    overflowed (L,) bool, rows (L, S) int32, row_steps (L, S) int64)
+    (``kernels/refill.py::refill_bfs`` says what they hold).  Each emitted
+    row has the same bytes on either route; which lane holds it depends on
+    the route (``ref.refill_round_ref`` claims in lane order)."""
+    if _route(offsets) == "cuda":
+        return _refill.refill_bfs(offsets, indices, weights, seed32, lanes,
+                                  quota=quota, out_cap=out_cap,
+                                  max_sets=max_sets, ec=ec, table=table,
+                                  dedup=dedup)
+    return _ref.refill_round_ref(offsets, indices, weights, seed32, lanes,
+                                 quota=quota, out_cap=out_cap,
+                                 max_sets=max_sets, ec=ec, table=table,
+                                 dedup=dedup)[:6]
 
 
 def lt_walk(offsets: torch.Tensor, indices: torch.Tensor,

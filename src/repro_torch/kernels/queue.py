@@ -33,17 +33,57 @@ SEGMENT_EDGES = WARPS * 32 * 32
 # a block can opt in to on sm_90, less 2,048 for the kernel's static arrays
 MAX_SHARED_VISITED_BYTES = 232_448 - 2_048
 
+# csrc/bfs_lane.cuh Dedup: the chunk dedup of core/rrset.py::detect_dedup_mode
+DEDUP_MODES = {"none": 0, "segmented": 1, "sort": 2}
+
 _vp, _i64 = ctypes.c_void_p, ctypes.c_int64
 _BFS = _build.Kernel("queue", "queue_bfs",
                      (_vp, _vp, _vp, ctypes.c_uint32, _i64, ctypes.c_int32,
                       ctypes.c_int32, _i64, _vp, _vp, _vp, _vp, _vp, _vp,
-                      _vp, _vp, ctypes.c_int, _vp))
+                      _vp, _vp, ctypes.c_int, ctypes.c_int32, ctypes.c_int,
+                      _vp))
 
 
 def visited_in_shared(n: int) -> bool:
     """Whether a lane's ceil(n / 32) visited words fit in a block's shared
     memory (n up to 1,843,200); else they go to a global scratch."""
     return 4 * ((n + 31) // 32) <= MAX_SHARED_VISITED_BYTES
+
+
+def dedup_code(dedup: str) -> int:
+    """The kernel's code of a dedup mode; an unknown mode raises."""
+    try:
+        return DEDUP_MODES[dedup]
+    except KeyError:
+        raise ValueError(f"unknown dedup mode {dedup!r}") from None
+
+
+def check_csr(offsets: torch.Tensor, indices: torch.Tensor,
+              weights: torch.Tensor, table):
+    """Check a reverse CSR on a card (and an alias table over its nodes
+    when one is given) -> (device, n, m, prob or None, alias or None)."""
+    dev = offsets.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel given a tensor on {dev}")
+    for t, name, dtype in ((offsets, "offsets", torch.int32),
+                           (indices, "indices", torch.int32),
+                           (weights, "weights", torch.float32)):
+        _check(t, name, dtype, dev)
+    n, m = offsets.shape[0] - 1, indices.shape[0]
+    if weights.shape[0] != m:
+        raise ValueError("weights must match indices in length")
+    if m >= 1 << 31:
+        raise ValueError("int32 offsets hold at most 2^31 - 1 edges")
+    prob = alias = None
+    if table is not None:
+        prob, alias = table
+        _check(prob, "prob", torch.float32, dev)
+        _check(alias, "alias", torch.int32, dev)
+        if prob.shape[0] != n or alias.shape[0] != n:
+            raise ValueError(f"an alias table over {n} nodes wants (n,) "
+                             f"prob and alias, got {tuple(prob.shape)} and "
+                             f"{tuple(alias.shape)}")
+    return dev, n, m, prob, alias
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, dev) -> None:
@@ -58,48 +98,33 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, dev) -> None:
 
 def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
               weights: torch.Tensor, seed32: int, batch: int, *, qcap: int,
-              ec: int, table=None):
+              ec: int, table=None, dedup: str = "none", root_tile: int = 1):
     """One round of the queue sampler on the card.
 
     ``offsets`` (n+1,) int32, ``indices`` (m,) int32 and ``weights`` (m,)
-    float32 are a reverse CSR with simple rows, n >= 1; ``seed32`` the
-    round's seed (taken mod 2^32), ``batch`` the lanes; ``table`` None
-    (uniform roots) or an alias table ``(prob (n,) float32, alias (n,)
-    int32)`` (``core/roots.py``) whose weights the roots follow.  Returns
-    ``(queue
-    (B, qcap) int32, lengths (B,) int32, overflowed (B,) bool, steps (B,)
-    int64, roots (B,) int32)``: lane b's RR set is ``queue[b,
-    :lengths[b]]`` in visit order, zeros after it, from root ``roots[b]``;
-    ``steps[b]`` is its lock-step count at chunk width ``ec``.
+    float32 are a reverse CSR, n >= 1, whose rows repeat no destination
+    unless ``dedup`` is ``"segmented"`` (rows sorted by destination) or
+    ``"sort"``; ``seed32`` the round's seed (taken mod 2^32), ``batch`` the
+    lanes; ``table`` None (uniform roots) or an alias table ``(prob (n,)
+    float32, alias (n,) int32)`` (``core/roots.py``) whose weights the roots
+    follow; ``root_tile`` T >= 1 gives lanes ``[tT, tT + T)`` the root that
+    lane tT draws (MRIM).  Returns ``(queue (B, qcap) int32, lengths (B,)
+    int32, overflowed (B,) bool, steps (B,) int64, roots (B,) int32)``:
+    lane b's RR set is ``queue[b, :lengths[b]]`` in visit order, zeros
+    after it, from root ``roots[b]``; ``steps[b]`` is its lock-step count
+    at chunk width ``ec``.
     """
-    dev = offsets.device
-    if dev.type != "cuda":
-        raise ValueError(f"CUDA kernel given a tensor on {dev}")
-    for t, name, dtype in ((offsets, "offsets", torch.int32),
-                           (indices, "indices", torch.int32),
-                           (weights, "weights", torch.float32)):
-        _check(t, name, dtype, dev)
-    n, m = offsets.shape[0] - 1, indices.shape[0]
-    if weights.shape[0] != m:
-        raise ValueError("weights must match indices in length")
-    if m >= 1 << 31:
-        raise ValueError("int32 offsets hold at most 2^31 - 1 edges")
+    dev, n, m, prob, alias = check_csr(offsets, indices, weights, table)
     batch, qcap, ec = int(batch), int(qcap), int(ec)
+    code, root_tile = dedup_code(dedup), int(root_tile)
     if not 1 <= n < 1 << 31 or not 0 <= batch < 1 << 31:
         raise ValueError(f"need 1 <= n < 2^31 and 0 <= batch < 2^31, got "
                          f"n {n}, batch {batch}")
     if not 1 <= qcap < 1 << 31 or ec < 1:
         raise ValueError(f"need 1 <= qcap < 2^31 and ec >= 1, got qcap "
                          f"{qcap}, ec {ec}")
-    prob = alias = None
-    if table is not None:
-        prob, alias = table
-        _check(prob, "prob", torch.float32, dev)
-        _check(alias, "alias", torch.int32, dev)
-        if prob.shape[0] != n or alias.shape[0] != n:
-            raise ValueError(f"an alias table over {n} nodes wants (n,) "
-                             f"prob and alias, got {tuple(prob.shape)} and "
-                             f"{tuple(alias.shape)}")
+    if not 1 <= root_tile < 1 << 31:
+        raise ValueError(f"need 1 <= root_tile < 2^31, got {root_tile}")
     queue = torch.empty(batch, qcap, dtype=torch.int32, device=dev)
     visited = None if visited_in_shared(n) else torch.empty(
         batch, (n + 31) // 32, dtype=torch.int32, device=dev)
@@ -116,8 +141,8 @@ def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
                    roots.data_ptr(), lengths.data_ptr(),
                    overflowed.data_ptr(), steps.data_ptr(),
                    None if prob is None else prob.data_ptr(),
-                   None if alias is None else alias.data_ptr(), index,
-                   _build.raw_stream(index))
+                   None if alias is None else alias.data_ptr(), code,
+                   root_tile, index, _build.raw_stream(index))
         _build.raise_on(err, "queue_bfs")
         LAUNCHES["queue_bfs"] += 1
     return queue, lengths, overflowed, steps, roots

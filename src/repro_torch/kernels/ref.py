@@ -90,9 +90,96 @@ def trial_threshold_ref(weights: torch.Tensor) -> torch.Tensor:
     return torch.where(w > 0, t, 0)
 
 
+def first_occurrence_ref(nbr: torch.Tensor, cand: torch.Tensor,
+                         mode: str) -> torch.Tensor:
+    """The reference's ``_first_occurrence`` (paper §3.1's duplicate
+    hazard), bit for bit: ``accept[b, j]`` iff chunk position j is the
+    first of lane b's candidates ``cand`` with destination ``nbr[b, j]``.
+
+    ``"none"`` returns ``cand`` (simple rows).  ``"segmented"`` counts only
+    adjacent duplicates (destination-sorted rows): a candidate is kept when
+    it starts its run of equal destinations or no earlier position of its
+    run is a candidate, by a segmented inclusive prefix-OR in log-step
+    (Hillis-Steele) shifts.  ``"sort"`` takes any order: a stable sort of
+    the candidates' destinations (others sort last under the int32 maximum)
+    and a neighbour difference.  ``nbr`` (B, EC) integers, ``cand`` (B, EC)
+    bool -> (B, EC) bool."""
+    if mode == "none":
+        return cand
+    b, ec = cand.shape
+    dev = cand.device
+    if mode == "segmented":
+        runhead = torch.ones_like(cand)
+        runhead[:, 1:] = nbr[:, 1:] != nbr[:, :-1]
+        val, seg = cand, runhead
+        d = 1
+        while d < ec:
+            val_in = torch.zeros_like(val)
+            val_in[:, d:] = val[:, :-d]
+            seg_in = torch.ones_like(seg)
+            seg_in[:, d:] = seg[:, :-d]
+            val = val | (val_in & ~seg)
+            seg = seg | seg_in
+            d *= 2
+        prev = torch.zeros_like(val)          # the OR up to j - 1
+        prev[:, 1:] = val[:, :-1]
+        return cand & (runhead | ~prev)
+    if mode != "sort":
+        raise ValueError(f"unknown dedup mode {mode!r}")
+    sentinel = (1 << 31) - 1
+    key = torch.where(cand, nbr.to(torch.int64), sentinel)
+    skey, spos = torch.sort(key, dim=1, stable=True)
+    first = torch.ones(b, ec, dtype=torch.bool, device=dev)
+    first[:, 1:] = skey[:, 1:] != skey[:, :-1]
+    out = torch.zeros_like(cand)
+    return out.scatter_(1, spos, first & (skey != sentinel))
+
+
+def _bfs_step(offsets, indices, weights, seeds, out, visited, head, tail,
+              ecur, active, cap, arange_ec, bitval, dedup):
+    """One lock-step micro-step of the queue BFS over the lanes' rows of
+    ``out`` ((B, C + 1) int32, the last column a spare): each ``active``
+    lane dequeues from ``out[b, head[b]]`` and handles ``ec`` edges of that
+    node from ``ecur[b]``; accepted destinations go to ``out[b, tail[b]
+    + rank]`` while below ``cap`` and get their visited bit.  Returns
+    ``(head, tail, ecur, over)``, ``over`` the lanes that accepted a node
+    they had no room for."""
+    m = indices.shape[0]
+    c = out.shape[1] - 1
+    u = out.gather(1, head.clamp(max=c - 1)[:, None])[:, 0].long()
+    s = offsets[u]
+    deg = offsets[u + 1] - s
+    pos = ecur[:, None] + arange_ec[None, :]                     # (B, EC)
+    valid = (pos < deg[:, None]) & active[:, None]
+    eidx = (s[:, None] + pos).clamp(0, max(m - 1, 0))
+    nbr = indices[eidx]                                          # (B, EC)
+    u01 = counter_uniform_u32(seeds, eidx).to(torch.float32) * _U01
+    keep = (u01 < weights[eidx]) & valid                         # live edge
+    nbr64 = nbr.to(torch.int64)
+    word = nbr64 >> 5
+    seen = (visited.gather(1, word) >> (nbr & 31)) & 1
+    # the first live edge a destination in the chunk (paper §3.1)
+    accept = first_occurrence_ref(nbr, keep & (seen == 0), dedup)
+    # atomic_enqueue (Alg. 3 L21): rank-ordered append at the tail
+    rank = accept.cumsum(dim=1) - 1
+    cnt = rank[:, -1] + 1
+    take = torch.minimum(cnt, (cap - tail).clamp(min=0))
+    sel = accept & (rank < take[:, None])
+    out.scatter_(1, torch.where(sel, tail[:, None] + rank, c), nbr)
+    visited.scatter_add_(1, torch.where(sel, word, 0),
+                         torch.where(sel, bitval[nbr64 & 31], 0))
+    # advance the edge cursor / pop the node (Alg. 3 L12)
+    ecur2 = ecur + arange_ec.shape[0]
+    row_done = ecur2 >= deg
+    head = torch.where(active & row_done, head + 1, head)
+    ecur = torch.where(active & ~row_done, ecur2, 0)
+    return head, tail + take, ecur, cnt > take
+
+
 def queue_bfs_ref(offsets: torch.Tensor, indices: torch.Tensor,
                   weights: torch.Tensor, seeds: torch.Tensor,
-                  roots: torch.Tensor, *, qcap: int, ec: int):
+                  roots: torch.Tensor, *, qcap: int, ec: int,
+                  dedup: str = "none"):
     """One round of gIM's queue sampler (paper Alg. 3/6), every lane's BFS
     to its end, in lock-step micro-steps, from given row seeds and roots
     (:func:`queue_round_ref` draws them, as ``csrc/queue.cu`` does).
@@ -102,12 +189,16 @@ def queue_bfs_ref(offsets: torch.Tensor, indices: torch.Tensor,
     paper's ``for i = tx; i < deg; i += N_th`` loop): lane b's edge e is
     live iff ``float32(counter_uniform_u32(seeds[b], e)) * 2^-32 <
     weights[e]``, and a live edge whose destination's visited bit is clear
-    is accepted.  The accepted destinations are appended in edge order
-    (Alg. 3 L21's rank-ordered ``atomic_enqueue``); of them only the first
-    ``qcap - tail`` are taken and get their visited bit, and the lane's
-    ``overflowed`` flag is set when any is not.  The rows must be simple,
-    so the destinations inside one chunk are distinct.  The host reads
-    ``(qhead < qtail).any()`` once a micro-step.
+    is a candidate.  ``dedup`` (``core/rrset.py::detect_dedup_mode``) keeps
+    the first candidate of each destination in the chunk
+    (:func:`first_occurrence_ref`), so the accepted destinations of a chunk
+    are distinct: ``"none"`` for simple rows, ``"segmented"`` for rows
+    sorted by destination, ``"sort"`` for any.  The accepted destinations
+    are appended in edge order (Alg. 3 L21's rank-ordered
+    ``atomic_enqueue``); of them only the first ``qcap - tail`` are taken
+    and get their visited bit, and the lane's ``overflowed`` flag is set
+    when any is not.  The host reads ``(qhead < qtail).any()`` once a
+    micro-step.
 
     ``offsets`` (n+1,), ``indices`` (m,) and ``weights`` (m,) are a reverse
     CSR; ``seeds`` (B,) int64 row seeds, ``roots`` (B,) int32.  Returns
@@ -119,7 +210,6 @@ def queue_bfs_ref(offsets: torch.Tensor, indices: torch.Tensor,
     dev = roots.device
     batch = roots.shape[0]
     n = offsets.shape[0] - 1
-    m = indices.shape[0]
     n_words = (n + 31) // 32
     bitval = bit_values(dev)
     offsets = offsets.to(torch.int64)
@@ -139,51 +229,129 @@ def queue_bfs_ref(offsets: torch.Tensor, indices: torch.Tensor,
     seeds = seeds[:, None]
     while bool((qhead < qtail).any()):
         active = qhead < qtail
-        u = queue.gather(1, qhead.clamp(max=qcap - 1)[:, None])[:, 0].long()
-        s = offsets[u]
-        deg = offsets[u + 1] - s
-        pos = ecur[:, None] + arange_ec[None, :]                 # (B, EC)
-        valid = (pos < deg[:, None]) & active[:, None]
-        eidx = (s[:, None] + pos).clamp(0, max(m - 1, 0))
-        nbr = indices[eidx]                                      # (B, EC)
-        u01 = counter_uniform_u32(seeds, eidx).to(torch.float32) * _U01
-        keep = (u01 < weights[eidx]) & valid                     # live edge
-        nbr64 = nbr.to(torch.int64)
-        word = nbr64 >> 5
-        seen = (visited.gather(1, word) >> (nbr & 31)) & 1
-        accept = keep & (seen == 0)
-        # atomic_enqueue (Alg. 3 L21): rank-ordered append at the tail
-        rank = accept.cumsum(dim=1) - 1
-        cnt = rank[:, -1] + 1
-        take = torch.minimum(cnt, (qcap - qtail).clamp(min=0))
-        sel = accept & (rank < take[:, None])
-        queue.scatter_(1, torch.where(sel, qtail[:, None] + rank, qcap), nbr)
-        visited.scatter_add_(1, torch.where(sel, word, 0),
-                             torch.where(sel, bitval[nbr64 & 31], 0))
-        overflow |= cnt > take
-        qtail = qtail + take
-        # advance the edge cursor / pop the node (Alg. 3 L12)
-        ecur2 = ecur + ec
-        row_done = ecur2 >= deg
-        qhead = torch.where(active & row_done, qhead + 1, qhead)
-        ecur = torch.where(active & ~row_done, ecur2, 0)
+        qhead, qtail, ecur, over = _bfs_step(
+            offsets, indices, weights, seeds, queue, visited, qhead, qtail,
+            ecur, active, qcap, arange_ec, bitval, dedup)
+        overflow |= over
         steps += active
     return queue[:, :qcap], qtail.to(torch.int32), overflow, steps
 
 
 def queue_round_ref(offsets: torch.Tensor, indices: torch.Tensor,
                     weights: torch.Tensor, seed32: int, batch: int, *,
-                    qcap: int, ec: int, table=None):
+                    qcap: int, ec: int, table=None, dedup: str = "none",
+                    root_tile: int = 1):
     """One round of the queue sampler with round seed ``seed32``: the plain
     version of ``csrc/queue.cu``.  The ``batch`` row seeds
     (``core/roots.py::row_seeds``) and roots (``draw_roots``, ∝ the
     weights of the alias ``table``, a ``(prob, alias)`` pair, when one is
-    given), then :func:`queue_bfs_ref` on them.  Returns
-    ``queue_bfs_ref``'s four tensors and the (B,) int32 roots."""
+    given; lane b's root drawn from the row seed of lane ``b - b mod
+    root_tile``), then :func:`queue_bfs_ref` on them with ``dedup``.
+    Returns ``queue_bfs_ref``'s four tensors and the (B,) int32 roots."""
     seeds = row_seeds(seed32, batch, offsets.device)
-    roots = draw_roots(seeds, offsets.shape[0] - 1, table)
+    lane = torch.arange(batch, device=offsets.device)
+    roots = draw_roots(seeds[lane - lane % int(root_tile)],
+                       offsets.shape[0] - 1, table)
     return (*queue_bfs_ref(offsets, indices, weights, seeds, roots,
-                           qcap=qcap, ec=ec), roots)
+                           qcap=qcap, ec=ec, dedup=dedup), roots)
+
+
+def refill_round_ref(offsets: torch.Tensor, indices: torch.Tensor,
+                     weights: torch.Tensor, seed32: int, lanes: int, *,
+                     quota: int, out_cap: int, max_sets: int, ec: int,
+                     table=None, dedup: str = "none"):
+    """The plain version of ``csrc/refill.cu``: the persistent-lane loop
+    (paper Alg. 6) in lock-step micro-steps, the reference's
+    ``_sample_refill`` with rows claimed by id.
+
+    At the start lanes 0, 1, ... claim rows 0, 1, ...; at the end of each
+    micro-step the lanes that finished a set and have a free slot claim the
+    next row ids in lane order.  A claim at or past ``quota`` ends the lane.
+    Row r starts from the root of row seed ``counter_uniform_u32(seed32,
+    r)`` (:func:`queue_round_ref`'s lane r, through ``table`` when one is
+    given) at the lane's tail in its ``out_cap`` row, or, with no room
+    left, sets ``overflowed`` and ends the lane; then one micro-step of
+    :func:`queue_bfs_ref` a step with cap ``out_cap`` and ``dedup``.  A set
+    that accepts a node it has no room for sets ``overflowed`` and ends the
+    lane without being emitted.  A finished set goes to the lane's next
+    slot: its length, its row id and its lock-step count.  The host reads
+    whether any lane is in a set once a micro-step.
+
+    Returns :func:`kernels.refill.refill_bfs`'s six tensors (``flat`` zero
+    past each lane's emitted sets) and the loop's micro-steps, which equal
+    ``core/rrset.py::refill_schedule_steps`` of the rows' counts where no
+    lane overflows."""
+    dev = offsets.device
+    n = offsets.shape[0] - 1
+    n_words = (n + 31) // 32
+    bitval = bit_values(dev)
+    offsets = offsets.to(torch.int64)
+    lanes, quota, out_cap = int(lanes), int(quota), int(out_cap)
+    flat = torch.zeros(lanes, out_cap + 1, dtype=torch.int32, device=dev)
+    # a lane's current set, from its root at column 0 (a spare column last)
+    qbuf = torch.zeros(lanes, out_cap + 1, dtype=torch.int32, device=dev)
+    lengths = torch.zeros(lanes, max_sets, dtype=torch.int32, device=dev)
+    rows = torch.full((lanes, max_sets), -1, dtype=torch.int32, device=dev)
+    row_steps = torch.zeros(lanes, max_sets, dtype=torch.int64, device=dev)
+    visited = torch.zeros(lanes, n_words, dtype=torch.int32, device=dev)
+    zeros = torch.zeros(lanes, dtype=torch.int64, device=dev)
+    # set_start: the set's offset in the lane's row; head, qtail: the set's
+    # queue cursors; ecur: the edge cursor of the node at head
+    set_start, head, qtail, ecur = (zeros.clone() for _ in range(4))
+    n_done, cur_row, cur_steps, seeds = (zeros.clone() for _ in range(4))
+    overflow = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    in_set = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    arange_ec = torch.arange(ec, dtype=torch.int64, device=dev)
+    cols = torch.arange(out_cap + 1, device=dev)[None, :]
+    next_id = 0
+
+    def claim(want: torch.Tensor) -> None:
+        # the lanes of `want`, in lane order, claim the next row ids
+        nonlocal next_id
+        who = want.nonzero()[:, 0]
+        ids = next_id + torch.arange(who.shape[0], device=dev)
+        next_id += who.shape[0]
+        who, ids = who[ids < quota], ids[ids < quota]
+        room = set_start[who] < out_cap
+        overflow[who[~room]] = True
+        who, ids = who[room], ids[room]
+        s = counter_uniform_u32(seed32, ids)
+        r = draw_roots(s, n, table).to(torch.int64)
+        seeds[who], cur_row[who], cur_steps[who] = s, ids, 0
+        visited[who] = 0
+        visited[who, r >> 5] = bitval[r & 31]
+        qbuf[who] = 0
+        qbuf[who, 0] = r.to(torch.int32)
+        head[who], qtail[who], ecur[who] = 0, 1, 0
+        in_set[who] = True
+
+    claim(torch.ones(lanes, dtype=torch.bool, device=dev))
+    loop_steps = 0
+    while bool(in_set.any()):
+        head, qtail, ecur, over = _bfs_step(
+            offsets, indices, weights, seeds[:, None], qbuf, visited, head,
+            qtail, ecur, in_set, out_cap - set_start, arange_ec, bitval,
+            dedup)
+        cur_steps += in_set
+        loop_steps += 1
+        overflow |= over
+        finished = in_set & ~over & (head >= qtail)
+        in_set &= ~(finished | over)
+        f = finished.nonzero()[:, 0]
+        # the finished sets into their lanes' rows, at the lanes' tails
+        put = torch.where(cols < qtail[f, None], set_start[f, None] + cols,
+                          out_cap)
+        flat[f] = flat[f].scatter(1, put, qbuf[f])
+        slot = n_done[f]
+        lengths[f, slot] = qtail[f].to(torch.int32)
+        rows[f, slot] = cur_row[f].to(torch.int32)
+        row_steps[f, slot] = cur_steps[f]
+        n_done[f] += 1
+        set_start[f] += qtail[f]
+        claim(finished & (n_done < max_sets))
+    flat = flat[:, :out_cap]
+    return (flat.contiguous(), lengths, n_done.to(torch.int32), overflow, rows,
+            row_steps, loop_steps)
 
 
 def lt_walk_ref(offsets: torch.Tensor, indices: torch.Tensor,

@@ -500,6 +500,15 @@ def test_ptxas_spills_reads_each_kernel():
     assert smoke.ptxas_spills(OCCUR_PTXAS, "flash_") == {}
 
 
+def test_ptxas_registers_reads_the_line_after_each_kernel():
+    """The registers of each function are those of the first "Used" line
+    after its properties; a function without one takes the next one's, so
+    the check reads reports where every function has its line."""
+    regs = smoke.ptxas_registers(OCCUR_PTXAS, "occur_masked_kernelIi")
+    assert list(regs.values()) == [48]
+    assert smoke.ptxas_registers(OCCUR_PTXAS, "flash_") == {}
+
+
 # device kernels as torch.profiler names them on the card
 PROFILER_NAMES = {
     "occur_from_bitset": "void (anonymous namespace)::occur_kernel(unsigned "
@@ -543,6 +552,10 @@ PROFILER_NAMES = {
     "padded_greedy": "void (anonymous namespace)::padded_greedy_kernel(int "
                      "const*, int const*, long, long, int, int, int, long, "
                      "unsigned long long*, int*, unsigned char*, int*)",
+    "refill_bfs": "void (anonymous namespace)::refill_bfs_kernel<0>(int "
+                  "const*, int const*, float const*, unsigned int, int, int, "
+                  "long, long, int, int, int*, unsigned int*, int*, int*, "
+                  "int*, bool*, int*, long*, float const*, int const*)",
 }
 # further names of the same records' kernels
 PROFILER_ALSO = {
@@ -559,7 +572,11 @@ PROFILER_ALSO = {
     "queue_bfs": ["void (anonymous namespace)::queue_bfs_kernel(int const*, "
                   "int const*, float const*, unsigned int, int, int, long, "
                   "long, int*, unsigned int*, int*, int*, bool*, long*, "
-                  "float const*, int const*)"],
+                  "float const*, int const*)",
+                  "void (anonymous namespace)::queue_bfs_kernel<2, true>(int "
+                  "const*, int const*, float const*, unsigned int, int, int, "
+                  "long, long, int, int*, unsigned int*, int*, int*, bool*, "
+                  "long*, float const*, int const*)"],
     "greedy_flat": ["void (anonymous namespace)::greedy_flat_kernel<true, "
                     "false>(int const*, int const*, unsigned char const*, "
                     "long, int, long, int, int, int, unsigned long long*, "

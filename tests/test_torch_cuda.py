@@ -2493,3 +2493,257 @@ def test_lt_and_row_weighted_solves_on_card_equal_cpu(card, selection):
                            r.stats.theta, r.stats.rounds)
                           for r in (lt_res, rw_res)]
     assert outs["cuda"] == outs["cpu"]
+
+
+# the chunk dedup and the tiled roots of csrc/queue.cu, and the persistent
+# lanes of csrc/refill.cu
+
+
+def _multigraph(name, device, shuffle=False):
+    """The reverse CSR of a multigraph as it is (no coalescing): ``"multi"``
+    BA(300, 3) with WC weights and every third edge repeated at its own
+    weight, twice; ``"multihub"`` 2,000 nodes whose node 7 is reached from
+    every other node by one to five parallel edges of weight 0.02 (a row of
+    about 6,000 edges, tiles full of duplicates) and 20,000 in-edges of
+    weight 0.0005 from node 11 (past the kernel's 16,384-edge segment),
+    plus a ring.  Rows are destination-sorted, or with ``shuffle`` each
+    row's edges in a seeded random order (the ``sort`` mode's input)."""
+    rng = np.random.default_rng(7)
+    if name == "multi":
+        src, dst = generators.barabasi_albert(300, 3, seed=4)
+        s, d, w = csr.to_edges(weights.wc_weights(csr.from_edges(
+            src, dst, 300, device="cpu")))
+        rep = np.arange(s.size) % 3 == 0
+        s, d = np.concatenate([s, s[rep], s[rep]]), np.concatenate(
+            [d, d[rep], d[rep]])
+        w = np.concatenate([w, w[rep], w[rep]])
+        n = 300
+    else:
+        n = 2000
+        others = np.setdiff1d(np.arange(n), [7])
+        reps = rng.integers(1, 6, size=others.size)
+        s = np.concatenate([np.repeat(others, reps), np.full(20000, 11),
+                            np.arange(n)])
+        d = np.concatenate([np.full(reps.sum(), 7), np.full(20000, 7),
+                            (np.arange(n) + 1) % n])
+        w = np.concatenate([np.full(reps.sum(), 0.02), np.full(20000, 5e-4),
+                            np.full(n, 0.3)])
+    g_rev = csr.reverse(csr.from_edges(s, d, n, weights=w.astype(np.float32),
+                                       device="cpu"))
+    if shuffle:
+        offs, idx, wr = g_rev.numpy()
+        row_of = np.repeat(np.arange(n), np.diff(offs.astype(np.int64)))
+        order = np.lexsort((rng.random(idx.size), row_of))
+        g_rev = csr.CSRGraph(torch.from_numpy(offs),
+                             torch.from_numpy(idx[order]),
+                             torch.from_numpy(wr[order]))
+    return g_rev.to(device)
+
+
+def _round_args(g):
+    return g.offsets, g.indices, g.weights
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ec", [8, 128])
+@pytest.mark.parametrize("qcap", [5, None], ids=["qcap5", "qcapn"])
+@pytest.mark.parametrize("name", ["multi", "multihub"])
+def test_queue_kernel_dedup_equals_plain(card, name, qcap, ec):
+    """queue_bfs[dedup] against the plain version on the card and on the
+    CPU, byte for byte, on destination-sorted rows (segmented and sort,
+    which must agree) and on shuffled rows (sort)."""
+    from repro_torch.core.rrset import detect_dedup_mode
+    sorted_g = _multigraph(name, card)
+    assert detect_dedup_mode(sorted_g) == "segmented"
+    q = sorted_g.n_nodes if qcap is None else qcap
+    rounds = {}
+    for mode, g in (("segmented", sorted_g), ("sort", sorted_g),
+                    ("shuffled", _multigraph(name, card, shuffle=True))):
+        dedup = "segmented" if mode == "segmented" else "sort"
+        ops.reset_launch_counts()
+        got = ops.queue_bfs(*_round_args(g), 0xC0FFEE, 128, qcap=q, ec=ec,
+                            dedup=dedup)
+        assert ops.launch_counts()["queue_bfs"] == 1
+        _assert_same_round(got, ref.queue_round_ref(
+            *_round_args(g), 0xC0FFEE, 128, qcap=q, ec=ec, dedup=dedup))
+        _assert_same_round(tuple(x.cpu() for x in got), ops.queue_bfs(
+            *_round_args(g.to("cpu")), 0xC0FFEE, 128, qcap=q, ec=ec,
+            dedup=dedup))
+        rounds[mode] = got
+    _assert_same_round(rounds["segmented"], rounds["sort"])
+    for queue, length in zip(rounds["segmented"][0].cpu().numpy(),
+                             rounds["segmented"][1].cpu().numpy()):
+        assert len(set(queue[:length].tolist())) == length
+    if qcap is None:
+        assert int(rounds["segmented"][1].max()) > 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [1, 3, 5])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_queue_kernel_tiled_equals_plain(card, tile, weighted):
+    """queue_bfs[tiled]: lanes bT .. bT + T - 1 share lane bT's root (its
+    bucket and, with an alias table, its accept draw), each with its own
+    trials; against the plain version on the card and the CPU; T = 1 is
+    the untiled round."""
+    from repro_torch.core.roots import build_alias_table
+    g = _queue_graph("ba1500", card)
+    table = (build_alias_table((np.arange(g.n_nodes) % 7).astype(np.float32),
+                               device=card) if weighted else None)
+    got = ops.queue_bfs(*_round_args(g), 99, 120, qcap=g.n_nodes, ec=128,
+                        table=table, root_tile=tile)
+    _assert_same_round(got, ref.queue_round_ref(
+        *_round_args(g), 99, 120, qcap=g.n_nodes, ec=128, table=table,
+        root_tile=tile))
+    plain = ops.queue_bfs(*_round_args(g), 99, 120, qcap=g.n_nodes, ec=128,
+                          table=table)
+    roots = got[4].reshape(-1, tile)
+    assert torch.equal(roots, plain[4][::tile, None].expand(-1, tile))
+    if tile == 1:
+        _assert_same_round(got, plain)
+
+
+def _refill_rows(out, quota):
+    """The emitted rows of a refill round by row id, as host lists."""
+    flat, lengths, n_done, _, rows, row_steps = (x.cpu().numpy()
+                                                 for x in out)
+    got = {}
+    for lane in range(flat.shape[0]):
+        off = 0
+        for j in range(int(n_done[lane])):
+            ln = int(lengths[lane, j])
+            got[int(rows[lane, j])] = (flat[lane, off:off + ln].tolist(),
+                                       int(row_steps[lane, j]))
+            off += ln
+        assert not flat[lane, off:].any()
+        assert (rows[lane, int(n_done[lane]):] == -1).all()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 7, 64, 300])
+@pytest.mark.parametrize("name", ["ba1500", "hub", "multi"])
+def test_refill_kernel_equals_plain_and_queue(card, name, lanes):
+    """refill_bfs: every row below the quota emitted once, each equal to
+    the plain version's row and to queue_bfs's lane of its id (its
+    lock-step count too), at 1, 7, 64 and 300 lanes (more lanes than rows
+    at 300); segmented dedup on the multigraph."""
+    g = _multigraph("multi", card) if name == "multi" else \
+        _queue_graph(name, card)
+    dedup = "segmented" if name == "multi" else "none"
+    quota, n = 256, g.n_nodes
+    # room for four times a lane's share of the rows, each at most n long
+    kw = dict(quota=quota, out_cap=n * min(quota, 4 * -(-quota // lanes) + 8),
+              max_sets=quota, ec=128, dedup=dedup)
+    ops.reset_launch_counts()
+    out = ops.refill_bfs(*_round_args(g), 41, lanes, **kw)
+    assert ops.launch_counts()["refill_bfs"] == 1
+    assert not bool(out[3].any())
+    got = _refill_rows(out, quota)
+    want = _refill_rows(ref.refill_round_ref(*_round_args(g), 41, lanes,
+                                             **kw)[:6], quota)
+    assert got == want and sorted(got) == list(range(quota))
+    queue, lengths, _, steps, _ = ops.queue_bfs(
+        *_round_args(g), 41, quota, qcap=n, ec=128, dedup=dedup)
+    for r, (row, row_steps) in got.items():
+        assert row == queue[r, :lengths[r]].tolist()
+        assert row_steps == int(steps[r])
+
+
+@pytest.mark.cuda
+def test_refill_kernel_overflow_and_global_visited(card):
+    """A small out_cap: a lane that runs out of room sets its flag, emits
+    no partial set, and every emitted row still equals its queue lane; and
+    the global visited scratch (n past what shared memory holds)."""
+    g = _queue_graph("ba1500", card)
+    out = ops.refill_bfs(*_round_args(g), 5, 16, quota=200, out_cap=40,
+                         max_sets=64, ec=128)
+    assert bool(out[3].any())
+    got = _refill_rows(out, 200)
+    queue, lengths = ops.queue_bfs(*_round_args(g), 5, 200, qcap=1500,
+                                   ec=128)[:2]
+    for r, (row, _) in got.items():
+        assert row == queue[r, :lengths[r]].tolist()
+    wide = _queue_graph(f"wide{SHARED_VISITED_NODES + 1}", card)
+    out = ops.refill_bfs(*_round_args(wide), 3, 32, quota=64, out_cap=4096,
+                         max_sets=64, ec=128)
+    got = _refill_rows(out, 64)
+    queue, lengths = ops.queue_bfs(*_round_args(wide), 3, 64,
+                                   qcap=wide.n_nodes, ec=128)[:2]
+    assert sorted(got) == list(range(64))
+    for r, (row, _) in got.items():
+        assert row == queue[r, :lengths[r]].tolist()
+
+
+@pytest.mark.cuda
+def test_refill_and_mrim_engines_on_card_equal_cpu(card):
+    """RefillEngine.sample: one refill_bfs launch and one host read, the
+    queue engine's batch row for row and the CPU's steps; MRIMEngine: one
+    queue_bfs launch, equal to the CPU; and a refill solve equal to the
+    queue solve in every field but the steps."""
+    import warnings
+    from repro_torch.core.engine import make_engine
+    eng = make_engine("refill", csr.reverse(_graph(card)), batch=256)
+    eng.sample(1)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            batch = eng.sample(2)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+    assert ops.launch_counts()["refill_bfs"] == 1
+    cpu = make_engine("refill", csr.reverse(_graph("cpu")),
+                      batch=256).sample(2)
+    queue = make_engine("queue", csr.reverse(_graph(card)),
+                        batch=256).sample(2)
+    assert torch.equal(batch.nodes.cpu(), cpu.nodes) and \
+        batch.steps == cpu.steps
+    assert torch.equal(batch.nodes, queue.nodes[:, :batch.nodes.shape[1]])
+    assert torch.equal(batch.lengths, queue.lengths)
+    dev_batch = eng.sample_device(2)
+    width = batch.nodes.shape[1]
+    assert torch.equal(dev_batch.nodes[:, :width], batch.nodes)
+    assert torch.equal(dev_batch.lengths, batch.lengths)
+    ops.reset_launch_counts()
+    mrim = make_engine("mrim", csr.reverse(_graph(card)), batch=64,
+                       t_rounds=3).sample(4)
+    assert ops.launch_counts()["queue_bfs"] == 1
+    mcpu = make_engine("mrim", csr.reverse(_graph("cpu")), batch=64,
+                       t_rounds=3).sample(4)
+    assert torch.equal(mrim.nodes.cpu(), mcpu.nodes)
+    assert torch.equal(mrim.roots.cpu(), mcpu.roots)
+    fields = []
+    for name in ("queue", "refill"):
+        res = IMMSolver(_graph(card), engine=name, batch=256, seed=4,
+                        device=card).solve(IMProblem(k=8, eps=0.5))
+        fields.append((res.seeds.tolist(), res.gains.tolist(),
+                       res.stats.theta, res.stats.rounds,
+                       res.stats.n_rr_sampled))
+    assert fields[0] == fields[1]
+
+
+@pytest.mark.cuda
+def test_refill_wrapper_checks_inputs(card):
+    from repro_torch.kernels import refill as trefill
+    g = _queue_graph("ba40", card)
+    kw = dict(quota=8, out_cap=64, max_sets=4, ec=128)
+    with pytest.raises(TypeError):
+        trefill.refill_bfs(g.offsets.long(), g.indices, g.weights, 0, 4, **kw)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        trefill.refill_bfs(*_round_args(g.to("cpu")), 0, 4, **kw)
+    for bad in (dict(out_cap=0), dict(max_sets=0), dict(ec=0),
+                dict(quota=-1)):
+        with pytest.raises(ValueError):
+            trefill.refill_bfs(*_round_args(g), 0, 4, **{**kw, **bad})
+    with pytest.raises(ValueError, match="dedup"):
+        trefill.refill_bfs(*_round_args(g), 0, 4, **kw, dedup="bogus")
+    empty = trefill.refill_bfs(*_round_args(g), 0, 0, **kw)
+    assert [tuple(x.shape) for x in empty] == [(0, 64), (0, 4), (0,), (0,),
+                                               (0, 4), (0, 4)]
+    zero = trefill.refill_bfs(*_round_args(g), 0, 4, **{**kw, "quota": 0})
+    assert not bool(zero[2].any()) and not bool(zero[0].any())

@@ -112,9 +112,13 @@ def test_imm_wrapper_and_determinism(graphs):
     assert sp1 == sp2 and st1.selection == "auto"
     with pytest.raises(TypeError, match="sketchk"):
         imm(tg, k=4, sketchk=64, device=CPU)
-    # the variants are ported (tests/test_torch_variants.py); MRIM is not
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        imm(tg, k=4, t_rounds=2, device=CPU)
+    # the variants are ported (tests/test_torch_variants.py), MRIM too
+    # (tests/test_torch_mrim.py): k seeds a round on the tagged items
+    seeds, spread, st = imm(tg, k=4, t_rounds=2, theta=256, batch=128,
+                            device=CPU)
+    assert st.variant == "mrim" and len(seeds) == 8
+    assert sorted((np.asarray(seeds) // tg.n_nodes).tolist()) == [0] * 4 + \
+        [1] * 4
 
 
 @pytest.mark.parametrize("field,value,item", [
@@ -134,8 +138,8 @@ def test_variant_fields_not_ported(field, value, item):
         for mode in ("exact", "approximate"):
             assert IMProblem(k=1, early_exit=value, mode=mode).early_exit
         return
-    if field in ("node_weights", "candidates", "model"):
-        # ported by Queue 1 item 7 (the lt engine too): accepted
+    if field in ("node_weights", "candidates", "model", "t_rounds"):
+        # ported by Queue 1 item 7 (the lt and mrim engines too): accepted
         assert getattr(IMProblem(k=1, **{field: value}), field) is value
         return
     if field == "budget":

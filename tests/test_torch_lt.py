@@ -258,7 +258,7 @@ def test_lt_ris_estimate_matches_forward_lt():
 def test_problem_model_overrides_solver_default():
     """test_problem_api's regression: an explicit model="ic" on the problem
     overrides a solver built with model="lt" (None inherits).  (Its
-    t_rounds line waits for MRIM, which IMProblem still refuses.)"""
+    t_rounds line: MRIM with the LT model raises, as the reference's.)"""
     g = _solve_graph()
     solver = IMMSolver(g, model="lt", batch=64, seed=0, device=CPU)
     solver.solve(IMProblem(k=2, eps=0.5, theta=128, model="ic"))
@@ -268,8 +268,12 @@ def test_problem_model_overrides_solver_default():
     solver = IMMSolver(g, batch=64, seed=0, device=CPU)
     solver.solve(IMProblem(k=2, eps=0.5, theta=128, model="lt"))
     assert solver.engine_name == "lt"
-    with pytest.raises(NotImplementedError, match="MRIM"):
+    with pytest.raises(ValueError, match="IC-only"):
         IMProblem(k=2, t_rounds=2, theta=128, model="lt")
+    # a problem with t_rounds on a solver whose default model is LT
+    with pytest.raises(ValueError, match="IC-only"):
+        IMMSolver(g, model="lt", batch=64, seed=0, device=CPU).solve(
+            IMProblem(k=2, t_rounds=2, theta=128))
 
 
 def _fields(res, store):

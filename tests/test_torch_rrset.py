@@ -160,13 +160,20 @@ def test_overflow_is_flagged_and_truncates():
 
 
 def test_parallel_edges_need_coalescing():
-    """The sampler serves simple rows only; the engine coalesces."""
+    """The sampler serves parallel edges through the chunk dedup, as the
+    reference's does (tests/test_torch_dedup.py holds it to the reference);
+    the engine coalesces instead."""
     g = tcsr.from_edges([0, 0, 1], [1, 1, 0], 2, weights=[0.5, 0.5, 1.0],
                         device=CPU)
     g_rev = tcsr.reverse(g)
     assert rrset.detect_dedup_mode(g_rev) == "segmented"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        rrset.sample_rrsets_queue(g_rev, 4, 0)
+    s = rrset.sample_rrsets_queue(g_rev, 64, 0)
+    for row in rrset.to_lists(s):
+        assert len(set(row)) == len(row) and set(row) <= {0, 1}
+    # both parallel edges keep their own trial: 1 - 0.5^2 of the rows
+    # rooted at 1 reach 0
+    hits = [len(r) == 2 for r in rrset.to_lists(s) if r[0] == 1]
+    assert 0 < sum(hits) < len(hits)
     eng = QueueEngine(g_rev)
     assert rrset.detect_dedup_mode(eng.g_rev) == "none"
     assert eng.g_rev.n_edges == 2

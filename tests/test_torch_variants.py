@@ -109,14 +109,19 @@ def test_problem_validation_equals_reference(kw, err):
 
 
 @pytest.mark.parametrize("kw,msg", [
-    (dict(k=2, t_rounds=2), "Queue 1 item 7 \\(MRIM\\)"),
-    (dict(k=2, model="lt", t_rounds=2), "Queue 1 item 7 \\(MRIM\\)")])
+    (dict(k=2, t_rounds=2, budget=3.0), "budgeted MRIM"),
+    (dict(k=2, model="lt", t_rounds=2), "IC-only")])
 def test_mrim_and_lt_still_raise(kw, msg):
-    """MRIM still raises, on the LT model too; ``model="lt"`` alone is
-    ported (tests/test_torch_lt.py)."""
+    """MRIM is ported, with the reference's refusals: no budget with
+    ``t_rounds`` and no LT model (``k`` with a budget fails first in both
+    packages); ``model="lt"`` alone is ported (tests/test_torch_lt.py)."""
     assert IMProblem(k=2, model="lt").model == "lt"
-    with pytest.raises(NotImplementedError, match=msg):
+    assert IMProblem(k=2, t_rounds=2).variant == "mrim"
+    kw = {k: v for k, v in kw.items() if not (k == "k" and "budget" in kw)}
+    with pytest.raises(ValueError, match=msg):
         IMProblem(**kw)
+    with pytest.raises(ValueError, match=msg):
+        JProblem(**kw)
 
 
 @pytest.mark.parametrize("kw", [
@@ -536,8 +541,10 @@ def test_imm_and_imm_result_take_the_variant_keywords():
     with pytest.raises(NotImplementedError, match="item 10"):
         IMMSolver(tg, batch=64, device=CPU).solve_problem(
             IMProblem(k=1), deadline_s=1.0)
-    with pytest.raises(NotImplementedError, match="MRIM"):
-        imm(tg, k=2, t_rounds=2, device=CPU)
+    # MRIM is ported: imm takes t_rounds (tests/test_torch_mrim.py)
+    seeds, _, st = imm(tg, k=2, t_rounds=2, theta=256, batch=64, seed=1,
+                       device=CPU)
+    assert st.variant == "mrim" and len(seeds) == 4
 
 
 def test_approximate_solve_with_candidates():
@@ -567,9 +574,13 @@ def test_the_kernels_round_as_the_reference():
     for op in ("__fsub_rn(va.budget, spent)", "__fadd_rn(spent",
                "__fdiv_rn(__int2float_rn(o), c)"):
         assert op in greedy, op
-    queue = (_build.CSRC / "queue.cu").read_text()
+    # the queue and refill kernels draw their roots in the lane loop's
+    # shared header
+    queue = (_build.CSRC / "bfs_lane.cuh").read_text()
     assert "__uint2float_rn(counter_uniform_u32(seed, kAliasCounter)) * " \
            "0x1p-32f" in queue
+    for src in ("queue.cu", "refill.cu"):
+        assert '#include "bfs_lane.cuh"' in (_build.CSRC / src).read_text()
 
 
 def test_variant_layout_words_and_scratch():
