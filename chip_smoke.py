@@ -13,7 +13,7 @@ Phases, each of which raises on failure (non-zero exit):
    ``bernoulli.cu``, ``membership.cu``, ``flashattn.cu``, ``queue.cu``,
    ``greedy.cu``, ``celf.cu``, ``lt.cu`` and ``refill.cu`` with nvcc for
    sm_90a, one nvcc per source, started together, and prints each
-   ``-Xptxas -v`` report; the three Occur kernels, the eleven of
+   ``-Xptxas -v`` report; the three Occur kernels, the twelve of
    ``greedy.cu`` (:data:`GREEDY_KERNELS`), the six of ``celf.cu``, the two
    of ``membership.cu``, ``lt_walk``, ``queue_bfs``'s six forms and
    ``refill_bfs``'s three must not spill (the last two with their
@@ -254,7 +254,24 @@ Phases, each of which raises on failure (non-zero exit):
    T-round forward Monte Carlo (``mrim_solve:``), and ``queue_bfs[tiled]``
    at 2,560 lanes byte for byte, the T lanes of a sample on one root
    (``tiled_check:``); the records of ``queue_bfs[dedup]``,
-   ``refill_bfs`` and ``queue_bfs[tiled]``.
+   ``refill_bfs`` and ``queue_bfs[tiled]``;
+18. the stacked selection and serving's batch executor
+   (:func:`stacked_phase`): ``greedy_stacked`` on phase 5's pool at R = 1,
+   3 (one padding row) and 8 requests that mix plain k = 50 and 10, phase
+   15's candidates, its costs with budget 100 and a group quota of 2 (three
+   groups), and at R = 16 plain requests, byte for byte against its plain
+   version ``ref.greedy_stacked_ref`` and every row against its solo
+   ``greedy_flat``/``greedy_flat_variant`` launch, each batch timed beside
+   its rows as solo launches (``stacked_checks:``); then at phase 5's θ
+   (7,101) a batch of nine problems (plain k = 50, 10, 25, 5, the
+   candidates at k = 50 and 10, the costs at budget 100 and 50, and a
+   top-1 rider): ``solve_stacked`` of the eight stackable ones equal to
+   their solo ``solve_problem`` in every field, one ``greedy_stacked``
+   launch; ``execute_batch`` (the rider on the Occur fast path, the eight
+   stacked: one ``greedy_stacked``, no solo greedy) equal to
+   ``execute_batch(stacked=False)`` in every field, ``stats_out`` one
+   batch of eight; the eight selections stacked and solo in turns
+   (``stacked_solve:``); ``greedy_stacked``'s record at that batch.
 
 The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
 the exact path's final bit matrix, masked on the first seed's rows as the
@@ -274,7 +291,8 @@ approximate solve's final sketch (:func:`sketch_greedy_record`),
 phase-15 records (named ``queue_bfs[weighted]``,
 ``greedy_flat_variant[costs]``, ``greedy_flat_variant[candidates]`` and
 ``greedy_sketch[candidates]``: a kernel on the operands of a path of its
-own);
+own); ``greedy_stacked`` at phase 18's batch, with the same rows' time as
+solo launches (``solo_launches_ms``) and its barrier floor;
 the union popcount's record at the approximate sketch goes on a
 ``sketch_union_popcount_approximate:`` line); launches from each path's
 run (``bitset_or``, ``bitset_andnot``, ``sketch_scatter_or`` and
@@ -348,6 +366,7 @@ from repro_torch.kernels.bernoulli import counter_uniform_u32  # noqa: E402
 from repro_torch.kernels.sketch import (canonical_row_ids,  # noqa: E402
                                         frontier_pairs)
 from repro_torch.kernels.queue import SEGMENT_EDGES  # noqa: E402
+from repro_torch.serve import execute_batch  # noqa: E402
 
 # H100 SXM HBM rate (NVIDIA's data sheet), and the results per clock per
 # SM of each class of instruction on Hopper (compute capability 9.0), from
@@ -393,9 +412,9 @@ SKETCH_ROWS, SKETCH_WORDS, SCATTER_PAIRS = N_NODES + 1, 512, 1 << 24
 PROBE_SKETCH_K = (128, 1024, 4096)
 # kernels that -Xptxas -v reports in csrc/greedy.cu (greedy_flat's two
 # forms, greedy_flat_variant's two and its weighted form's two, the barrier
-# floor, greedy_sketch's four forms) and csrc/celf.cu (celf_eval, celf_apply, celf_select's four
-# forms)
-GREEDY_KERNELS, CELF_KERNELS = 11, 6
+# floor, greedy_stacked, greedy_sketch's four forms) and csrc/celf.cu
+# (celf_eval, celf_apply, celf_select's four forms)
+GREEDY_KERNELS, CELF_KERNELS = 12, 6
 # the stamped copies of greedy_sketch and celf_select (examples/), built
 # beside the port's sources; their libraries once built
 STAMPED_SOURCES = {"sketch": "sketch_stamps", "celf": "celf_stamps"}
@@ -436,6 +455,7 @@ LIBRARY_NOTE = {
     "padded_greedy": "no single PyTorch call runs a greedy",
     "lt_walk": "no single PyTorch call runs a walk",
     "refill_bfs": "no single PyTorch call runs a BFS",
+    "greedy_stacked": "no single PyTorch call runs a greedy",
 }
 SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "sketch_scatter_or": "sketch", "sketch_union_popcount": "sketch",
@@ -448,7 +468,8 @@ SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "celf_eval": "celf", "celf_apply": "celf",
              "celf_select": "celf", "frontier_update": "bitops",
              "sketch_fold_rows": "sketch", "padded_greedy": "membership",
-             "lt_walk": "lt", "refill_bfs": "refill"}
+             "lt_walk": "lt", "refill_bfs": "refill",
+             "greedy_stacked": "greedy"}
 # each record's kernel as the profiler names it (a regular expression that
 # matches the demangled or the mangled name)
 DEVICE_KERNEL = {
@@ -477,6 +498,7 @@ DEVICE_KERNEL = {
     "greedy_flat_variant[weighted]": r"greedy_flat_weighted_kernel",
     "lt_walk": r"lt_walk_kernel",
     "refill_bfs": r"refill_bfs_kernel",
+    "greedy_stacked": r"greedy_stacked_kernel",
 }
 KERNELS = {
     "occur_from_bitset": "src/repro/kernels/bitset.py:167",
@@ -527,6 +549,9 @@ KERNELS = {
     # inside the same while_loop) and MRIM's tiled roots (_mrim_round)
     "queue_bfs[dedup]": "src/repro/core/rrset.py:104",
     "queue_bfs[tiled]": "src/repro/core/engine.py:429",
+    # no Pallas kernel: serving's stacked selection is a jitted lax.scan
+    # (vmapped over the requests) inside shard_map
+    "greedy_stacked": "src/repro/core/coverage.py:1643",
 }
 # phase 3: the queue kernel at the exact path's first round, also at qcap
 # 64 (above its longest RR set, 21) and 8, where lanes overflow
@@ -4092,6 +4117,325 @@ def mrim_phase(g) -> tuple:
     return [rec], {"phase 17's MRIM celf solve": runs["celf"]["launches"]}
 
 
+# phase 18: the stacked kernel's batches on phase 5's pool, (rows, mix)
+STACKED_BATCHES = ((1, "mixed"), (3, "mixed"), (8, "mixed"), (16, "plain"))
+
+
+def stacked_geometry(n: int) -> dict:
+    """Phase 18's group geometry, the batch's: three groups of ceil(n / 3)
+    ids (a plain row ignores it; a variant row's quota binds only when it
+    is below its k_steps)."""
+    return {"n_group": -(-n // 3), "n_groups": 3}
+
+
+def stacked_requests(n: int, rows: int, mix: str) -> list:
+    """``rows`` requests over the stand-in's n nodes: ``"plain"`` rows take
+    k = 50 and 10 in turn; ``"mixed"`` rows cycle through plain k = 50,
+    plain k = 10, phase 15's candidates (k = 50), its costs with budget
+    100 (k_steps 100) and a group quota of 2 (k = 10)."""
+    vi = variant_inputs(n)
+    cand = np.zeros(n, bool)
+    cand[vi["candidates"]] = True
+    kinds = [cov.StackedRequest(k_steps=K), cov.StackedRequest(k_steps=10)]
+    if mix == "mixed":
+        kinds += [cov.StackedRequest(k_steps=K, plain=False, cand=cand),
+                  cov.StackedRequest(k_steps=int(VARIANT_BUDGET), plain=False,
+                                     costs=vi["costs"],
+                                     budget=VARIANT_BUDGET),
+                  cov.StackedRequest(k_steps=10, plain=False, quota=2)]
+    return [kinds[i % len(kinds)] for i in range(rows)]
+
+
+def solo_row_calls(args, kw) -> list:
+    """One call a request row (padding rows none): the row's solo kernel,
+    ``ops.greedy_flat`` for a plain row, ``ops.greedy_flat_variant`` for a
+    variant row, on the row's operands; each returns (seeds, gains,
+    spent)."""
+    calls = []
+    base = dict(n=kw["n"], num_rows=kw["num_rows"])
+    for r in range(kw["ks"].shape[0]):
+        k = int(kw["ks"][r])
+        if not k:
+            continue
+        if bool(kw["plain"][r]):
+            calls.append((r, k, functools.partial(
+                lambda k: (*ops.greedy_flat(*args, **base, k=k), None), k)))
+            continue
+        vkw = dict(base, k=k, cand=kw["cand"][r].contiguous(),
+                   costs=kw["costs"][r].contiguous()
+                   if bool(kw["use_costs"][r]) else None,
+                   budget=float(kw["budget"][r]), n_group=kw["n_group"],
+                   n_groups=kw["n_groups"], group_quota=int(kw["quota"][r]))
+        calls.append((r, k, functools.partial(
+            lambda vkw: ops.greedy_flat_variant(*args, **vkw), vkw)))
+    return calls
+
+
+def solo_launches_ms(args, kw, iters: int) -> tuple:
+    """The rows of a greedy_stacked call as solo launches
+    (:func:`solo_row_calls`), timed as one call: (ms, launches)."""
+    calls = [c for _, _, c in solo_row_calls(args, kw)]
+
+    def solo():
+        for c in calls:
+            c()
+
+    return cuda_ms(solo, iters), len(calls)
+
+
+def check_stacked(args, kw, got) -> dict:
+    """``got`` (greedy_stacked's outputs) against the plain version on the
+    card and every row against its solo kernel: seeds, gains and the
+    float32 bytes of spent, exactly.  Raises on any difference."""
+    want = ref.greedy_stacked_ref(*args, **kw)
+    as_int = [x.view(torch.int32) if x.dtype == torch.float32 else x
+              for x in got]
+    err = max(max_abs_err(x, y.view(torch.int32)
+                          if y.dtype == torch.float32 else y)
+              for x, y in zip(as_int, want))
+    if err or not all(x.dtype == y.dtype and torch.equal(x, y)
+                      for x, y in zip(got, want)):
+        raise AssertionError(f"greedy_stacked != plain version at "
+                             f"{kw['ks'].shape[0]} rows: max abs err {err}")
+    n = kw["n"]
+    for r, k, call in solo_row_calls(args, kw):
+        s, g, sp = call()
+        same = torch.equal(got[0][r, :k], s) and \
+            torch.equal(got[1][r, :k], g) and \
+            bool((got[0][r, k:] == n).all()) and \
+            not bool(got[1][r, k:].any()) and \
+            (sp is None and float(got[2][r]) == 0.0 or sp is not None and
+             got[2][r].view(torch.int32).item()
+             == sp.view(torch.int32).item())
+        if not same:
+            raise AssertionError(f"greedy_stacked's row {r} != its solo "
+                                 f"kernel")
+    return {"max_abs_err": err, "rows": int(kw["ks"].shape[0]),
+            "k_max": kw["k_max"], "solo_rows_equal": True}
+
+
+def stacked_steps(seeds, kw) -> list:
+    """The steps each row of a greedy_stacked launch runs: a plain row its
+    k, a variant row its picks and, below its k, the step that found no
+    node."""
+    n, out = kw["n"], []
+    for r in range(kw["ks"].shape[0]):
+        k = int(kw["ks"][r])
+        picks = int((seeds[r, :k] < n).sum())
+        out.append(k if bool(kw["plain"][r]) else min(k, picks + 1))
+    return out
+
+
+def stacked_bound(flat, ids, valid, seeds, kw, *, blocks) -> dict:
+    """greedy_stacked's least time, the sum of its rows' work: bytes are
+    the pool read once (9 bytes an element), each variant row's candidate
+    bytes (and its costs, 4 bytes a node, with a budget), the 17 bytes of
+    each row's scalars, and the seeds, gains and spent written once;
+    operations, row by row, :func:`greedy_bound`'s (a compare a node a
+    step and a decrement a valid element of the rows its seeds cover) for
+    a plain row, :func:`greedy_variant_bound`'s (a blocked bit and a key a
+    node a step; with costs a float compare a node a step and a conversion
+    and a divide for the n first scores and the decremented elements) for
+    a variant row, over the steps each row runs (:func:`stacked_steps`).
+    The grid barriers: three in the prologue and two a step run."""
+    n, rows, k_max = kw["n"], kw["ks"].shape[0], kw["k_max"]
+    steps = stacked_steps(seeds, kw)
+    ops_ = {"alu": 0, "fp32": 0, "xu": 0}
+    nbytes = 9 * flat.shape[0] + 17 * rows + 8 * rows * k_max + 4 * rows
+    dec_all = 0
+    for r in range(rows):
+        k = int(kw["ks"][r])
+        if not k:
+            continue
+        live = seeds[r, :k][seeds[r, :k] < n]
+        dec = greedy_bound(flat, ids, valid, live, n=n,
+                           num_rows=kw["num_rows"], k=max(live.numel(), 1),
+                           blocks=blocks, shared=False)["decremented_elements"]
+        dec_all += dec
+        if bool(kw["plain"][r]):
+            ops_["alu"] += steps[r] * n + dec
+            continue
+        use_costs = bool(kw["use_costs"][r])
+        nbytes += n * (5 if use_costs else 1)
+        ops_["alu"] += 2 * steps[r] * n + dec
+        if use_costs:
+            ops_["fp32"] += steps[r] * n + n + dec
+            ops_["xu"] += n + dec
+    return dict(_bound(nbytes, {k: v for k, v in ops_.items() if v}),
+                steps_run=steps, steps_taken=max(steps),
+                grid_barriers=2 + 2 * max(steps),
+                decremented_elements=dec_all)
+
+
+def stacked_record(store, reqs, geometry, launches, iters=20,
+                   plain_iters=2) -> dict:
+    """greedy_stacked on the store's pool, ``reqs`` and the batch's
+    ``geometry`` against its plain version and each row's solo kernel on
+    the card, then timed beside the plain version and beside the same rows
+    as R solo launches (``solo_launches_ms``: a ``greedy_flat`` or
+    ``greedy_flat_variant`` a row), with the bound and the barrier floor
+    (the same grid running the launch's barriers alone)."""
+    args, _ = pool_args(store)
+    kw = cov.stacked_operands(store, reqs, **geometry)
+    got = ops.greedy_stacked(*args, **kw)
+    check = check_stacked(args, kw, got)
+    dev = store.flat.device
+    times = timing("greedy_stacked", lambda: ops.greedy_stacked(*args, **kw),
+                   iters)
+    plain_ms = cuda_ms(lambda: ref.greedy_stacked_ref(*args, **kw),
+                       plain_iters)
+    solo_ms, solo_launches = solo_launches_ms(args, kw, iters)
+    blocks, _ = greedy.stacked_grid(dev)
+    bound = stacked_bound(*args, got[0], kw, blocks=blocks)
+    floor_ms = cuda_ms(lambda: greedy.grid_barriers(bound["grid_barriers"],
+                                                    dev), iters)
+    return record("greedy_stacked", launches, check["max_abs_err"], times,
+                  plain_ms, bound, barrier_floor_ms=floor_ms,
+                  solo_launches_ms=solo_ms, solo_launches=solo_launches,
+                  rows=check["rows"], requests=len(reqs),
+                  k_max=kw["k_max"], grid_blocks=blocks,
+                  threads=greedy.THREADS,
+                  scratch_bytes=greedy.stacked_scratch_bytes(
+                      kw["n"], kw["num_rows"], args[0].shape[0],
+                      check["rows"], blocks, kw["n_group"], kw["n_groups"]),
+                  shared_bytes=greedy.stacked_shared_bytes(check["rows"],
+                                                           blocks),
+                  n=kw["n"], n_rr=store.n_rr, pool_elements=store.n_elems,
+                  num_rows=kw["num_rows"],
+                  gains_sum=int(got[1].sum()))
+
+
+def stacked_problems(n: int, theta: int) -> list:
+    """Phase 18's batch at the fixed θ: plain k = 50, 10, 25 and 5, phase
+    15's candidates at k = 50 and 10, its costs at budget 100 and 50, and
+    a top-1 request that the Occur fast path answers."""
+    vi = variant_inputs(n)
+    return [IMProblem(k=K, theta=theta), IMProblem(k=10, theta=theta),
+            IMProblem(k=25, theta=theta), IMProblem(k=5, theta=theta),
+            IMProblem(k=K, theta=theta, candidates=vi["candidates"]),
+            IMProblem(k=10, theta=theta, candidates=vi["candidates"]),
+            IMProblem(budget=VARIANT_BUDGET, costs=vi["costs"],
+                      theta=theta),
+            IMProblem(budget=VARIANT_BUDGET / 2, costs=vi["costs"],
+                      theta=theta),
+            IMProblem(k=1, theta=theta)]
+
+
+def result_fields(res) -> dict:
+    """What a stacked result must share with its solo solve."""
+    return {"seeds": [int(x) for x in res.seeds],
+            "gains": [int(x) for x in res.gains],
+            "frac_f32": np.float32(res.frac).tobytes().hex(),
+            "spread": res.spread, "cost": res.cost,
+            "n_nodes": res.n_nodes, "bounds": res.spread_bounds}
+
+
+def stacked_phase(g, queue_store) -> list:
+    """Phase 18: ``greedy_stacked`` byte for byte against its plain version
+    and each row's solo kernel on phase 5's pool (:data:`STACKED_BATCHES`,
+    with each batch's time beside its rows as solo launches); then the
+    serving path on the stand-in at phase 5's θ: ``solve_stacked`` of the
+    eight stackable problems of :func:`stacked_problems` equal to their
+    solo ``solve_problem`` in every field, one ``greedy_stacked`` launch
+    and no solo greedy; ``execute_batch`` with ``stacked=True`` (counts
+    reset just before it and read just after: one ``greedy_stacked``, no
+    ``greedy_flat``/``greedy_flat_variant``) equal to ``stacked=False`` in
+    every field, its ``stats_out`` one batch of eight; the stacked and the
+    solo selections of the batch in turns on the sampled pool.  Returns
+    ``greedy_stacked``'s record at that batch."""
+    dev = g.device
+    t18 = time.perf_counter()
+    args, _ = pool_args(queue_store)
+    n = queue_store.n_nodes
+    checks = []
+    for rows, mix in STACKED_BATCHES:
+        reqs = stacked_requests(n, rows, mix)
+        kw = cov.stacked_operands(queue_store, reqs, **stacked_geometry(n))
+        got = ops.greedy_stacked(*args, **kw)
+        solo_ms, solo_launches = solo_launches_ms(args, kw, 10)
+        line = dict(check_stacked(args, kw, got), mix=mix,
+                    requests=len(reqs),
+                    ms=cuda_ms(lambda: ops.greedy_stacked(*args, **kw), 10),
+                    solo_launches_ms=solo_ms, solo_launches=solo_launches,
+                    steps_run=stacked_steps(got[0], kw))
+        checks.append(line)
+    say("stacked_checks", checks)
+
+    theta = EXACT_POOL["theta"]
+    probs = stacked_problems(n, theta)
+    stackable = probs[:-1]
+    solo_solver = IMMSolver(g, engine="queue", batch=BATCH, seed=0,
+                            device=dev)
+    want = [result_fields(solo_solver.solve_problem(p)) for p in stackable]
+    stk = IMMSolver(g, engine="queue", batch=BATCH, seed=0, device=dev)
+    stk.sample_until(theta)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = [result_fields(r) for r in stk.solve_stacked(stackable)]
+    solve_launches = ops.launch_counts()
+    mismatch = [i for i, (a, b) in enumerate(zip(want, got)) if a != b]
+    if mismatch or solve_launches["greedy_stacked"] != 1 \
+            or solve_launches["greedy_flat"] \
+            or solve_launches["greedy_flat_variant"]:
+        raise AssertionError(f"solve_stacked: rows {mismatch} differ from "
+                             f"their solo solves, launches "
+                             f"{ {k: v for k, v in solve_launches.items() if v} }")
+    # the fixed θ samples whole rounds up to θ (phase 5's LB loop sampled
+    # on to 8,704 rows)
+    pool = {"theta": stk.stats.theta, "n_rr": stk.store.n_rr,
+            "pool_elements": stk.store.n_elems}
+    if pool["n_rr"] != -(-theta // BATCH) * BATCH:
+        raise AssertionError(f"stacked pool {pool}: not θ's whole rounds")
+
+    solo_batch = IMMSolver(g, engine="queue", batch=BATCH, seed=0, device=dev)
+    res_solo = execute_batch(solo_batch, probs, stacked=False)
+    batch_solver = IMMSolver(g, engine="queue", batch=BATCH, seed=0,
+                             device=dev)
+    stats: dict = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res_stacked = execute_batch(batch_solver, probs, stats_out=stats)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    same = [result_fields(a) == result_fields(b)
+            for a, b in zip(res_solo, res_stacked)]
+    if not all(same) or stats != {"stacked_batches": 1,
+                                  "stacked_requests": len(stackable)}:
+        raise AssertionError(f"execute_batch: stacked equals solo {same}, "
+                             f"stats_out {stats}")
+    if launches["greedy_stacked"] != 1 or launches["greedy_flat"] \
+            or launches["greedy_flat_variant"]:
+        raise AssertionError(f"execute_batch launched "
+                             f"{ {k: v for k, v in launches.items() if v} }")
+
+    # the batch's selections on the sampled pool: stacked against solo
+    def stacked_sel():
+        stk.solve_stacked(stackable)
+
+    def solo_sel():
+        for p in stackable:
+            solo_solver.solve_problem(p)
+
+    sel_ms = turns_ms({"solo": solo_sel, "stacked": stacked_sel}, reps=2)
+    say("stacked_solve", {
+        "theta": theta, **pool, "problems": len(probs),
+        "stacked_requests": len(stackable),
+        "solve_stacked_equals_solo": True, "execute_batch_equals_solo": True,
+        "stats_out": stats, "solve_stacked_launches":
+            {k: v for k, v in solve_launches.items() if v},
+        "execute_batch_launches": {k: v for k, v in launches.items() if v},
+        "execute_batch_s": batch_s, "selection_ms_in_turns": sel_ms,
+        "seeds": [r.seeds.tolist()[:5] for r in res_stacked],
+        "costs": [r.cost for r in res_stacked]})
+    reqs, geometry = stk.stacked_requests([stk.prepare(p)
+                                           for p in stackable])
+    rec = stacked_record(stk.store, reqs, geometry, launches)
+    say("phase18", {"seconds": time.perf_counter() - t18})
+    return [rec]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -4327,6 +4671,9 @@ def main() -> int:
     refill_recs = refill_phase(g, res, store)
     mrim_recs, mrim_launches = mrim_phase(g)
     say("phase17", {"seconds": time.perf_counter() - t17})
+
+    # 18. the stacked selection and the serving batch executor
+    stacked_recs = stacked_phase(g, store)
     # the kernels that several paths launch: their launches by path
     paths = {"phase 5's exact solve": launches,
              "phase 10's packed sampler": {r["name"]: r["launches"] or 0
@@ -4335,7 +4682,7 @@ def main() -> int:
              **celf_variant_launches, **mrim_launches}
     kernels = records + approx_records + dense_recs + padded_recs \
         + flash_recs + queue_recs + greedy_recs + celf_recs + variant_recs \
-        + lt_recs + dedup_recs + refill_recs + mrim_recs
+        + lt_recs + dedup_recs + refill_recs + mrim_recs + stacked_recs
     for rec in kernels:
         if rec["name"] in SHARED_PATH_KERNELS:
             rec["launches_from"] = {path: counts.get(rec["name"], 0)

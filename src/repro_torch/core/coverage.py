@@ -52,6 +52,12 @@ an engine that draws uniform roots) keeps each element's row weight, and a
 weighted form of ``greedy_flat_variant``, a torch loop for ``bitset``, and
 the weighted forms of ``celf_eval`` and ``celf_apply``.
 
+:func:`select_seeds_stacked` is serving's batched selection (the
+reference's ``select_seeds_stacked`` on one device): R requests, plain or
+variant, in one scan over the shared pool, one launch of the
+``greedy_stacked`` CUDA kernel (``kernels.ops.greedy_stacked``; the plain
+loop on the CPU), each row the solo ``flat`` scan's bytes.
+
 All these scans take ties to the lowest node id (``torch.argmax`` and
 ``np.argmax`` return the first maximum; the bit matrix's padding ids past
 n have Occur 0) and give seeds, gains and ``frac`` identical to each other
@@ -560,6 +566,103 @@ def select_variant(store: DeviceRRStore, spec: SelectionSpec,
     if method == "bitset":
         return _select_bitset_variant(store, spec)
     raise ValueError(f"unknown selection method {method!r}")
+
+
+class StackedRequest(NamedTuple):
+    """One request's selection knobs inside a stacked batch (host side,
+    numpy): a ``plain`` row is :func:`select_seeds_device`'s scan
+    (duplicates tolerated); a variant row carries a
+    :class:`SelectionSpec`'s candidates, costs, budget and group quota.
+    The group geometry is the batch's (:func:`select_seeds_stacked`)."""
+    k_steps: int
+    plain: bool = True
+    cand: object = None                # (n_items,) bool or None
+    costs: object = None               # (n_items,) float32 or None
+    budget: object = None              # float or None
+    quota: int = 0                     # group quota; 0 -> k_steps
+
+
+class StackedResult(NamedTuple):
+    """:func:`select_seeds_stacked`'s outputs: row r of each tensor is the
+    solo selection's output for request r.  Rows are padded past
+    ``n_requests`` and columns to a power of two ``k_max``; callers slice
+    ``[r, :k_steps_r]`` and trim the ``n_items`` sentinel as for
+    :class:`VariantResult`."""
+    seeds: torch.Tensor   # (R_pad, k_max) int32
+    gains: torch.Tensor   # (R_pad, k_max) int32
+    frac: torch.Tensor    # (R_pad,) float32
+    spent: torch.Tensor   # (R_pad,) float32
+    n_requests: int
+
+
+def stacked_operands(store: DeviceRRStore, reqs: "list[StackedRequest]",
+                     *, n_group: int | None = None,
+                     n_groups: int = 1) -> dict:
+    """``kops.greedy_stacked``'s keywords for ``reqs`` on the store's pool
+    (the reference's padding: R and the scan length to powers of two,
+    padding rows of no step; a quota of 0 is the request's k_steps), the
+    row operands on the store's device."""
+    n = store.n_nodes
+    r_pad = _ceil_pow2(len(reqs))
+    cand = np.ones((r_pad, n), bool)
+    costs = np.ones((r_pad, n), np.float32)
+    budget = np.full(r_pad, np.inf, np.float32)
+    ks = np.zeros(r_pad, np.int32)
+    quota = np.zeros(r_pad, np.int32)
+    plain = np.ones(r_pad, bool)
+    use_costs = np.zeros(r_pad, bool)
+    for i, r in enumerate(reqs):
+        ks[i] = r.k_steps
+        quota[i] = r.quota if r.quota else r.k_steps
+        plain[i] = r.plain
+        use_costs[i] = r.budget is not None
+        if r.cand is not None:
+            cand[i] = np.asarray(r.cand, bool)
+        if r.costs is not None:
+            costs[i] = np.asarray(r.costs, np.float32)
+        if r.budget is not None:
+            budget[i] = np.float32(r.budget)
+    rows = {k: torch.from_numpy(v).to(store.device) for k, v in (
+        ("cand", cand), ("costs", costs), ("budget", budget), ("ks", ks),
+        ("quota", quota), ("plain", plain), ("use_costs", use_costs))}
+    return dict(rows, n=n, num_rows=store.row_capacity(),
+                k_max=_ceil_pow2(max(max(r.k_steps for r in reqs), 1)),
+                n_group=n if n_group is None else n_group, n_groups=n_groups)
+
+
+def select_seeds_stacked(store: DeviceRRStore, reqs: "list[StackedRequest]",
+                         *, n_group: int | None = None,
+                         n_groups: int = 1) -> StackedResult:
+    """R mixed requests (k, candidates, budget, group quota) in one scan
+    over the shared pool: the reference's ``select_seeds_stacked`` on one
+    device, one ``kops.greedy_stacked`` call (one launch on the card) on
+    :func:`stacked_operands`.
+
+    A plain row's seeds, gains and ``frac`` are ``select_seeds_device``'s
+    ``flat`` bytes (``frac`` int over int), a variant row's
+    ``select_variant``'s ``flat`` bytes with ``spent`` (``frac`` int over
+    float32).  Row-weighted stores are not stackable (the weighted
+    estimator changes Occur's dtype a request): callers route those to the
+    solo path."""
+    if store.row_weighted:
+        raise ValueError("stacked selection does not support row-weighted "
+                         "stores — route weighted requests to the solo path")
+    if not reqs:
+        raise ValueError("select_seeds_stacked needs at least one request")
+    kw = stacked_operands(store, reqs, n_group=n_group, n_groups=n_groups)
+    t = store.n_elems
+    seeds, gains, spent = kops.greedy_stacked(
+        store.flat[:t], store.ids[:t], store.valid[:t], **kw)
+    # a plain row divides as the solo flat scan (int over int), a variant
+    # row as the solo variant scan (int over a float32 n_rr of at least
+    # 1e-30): the same float32 bytes for any sampled pool, kept apart as
+    # the reference keeps them
+    gsum = gains.sum(dim=1, dtype=torch.int32).to(torch.float32)
+    nrr = torch.full((), store.n_rr, dtype=torch.float32, device=store.device)
+    frac = torch.where(kw["plain"], gsum / torch.clamp_min(nrr, 1.0),
+                       gsum / torch.clamp_min(nrr, 1e-30))
+    return StackedResult(seeds=seeds, gains=gains, frac=frac, spent=spent,
+                         n_requests=len(reqs))
 
 
 def select_seeds_celf(store: DeviceRRStore, k: int, *, eval_batch: int = 32,

@@ -9,6 +9,8 @@ problems, on one device.
     IMMSolver(g, model="lt").solve(IMProblem(k=10, eps=0.3))      # LT model
     IMMSolver(g).solve(IMProblem(k=3, t_rounds=4, theta=4096))    # MRIM
     IMMSolver(g, engine="refill").solve(IMProblem(k=10, eps=0.3)) # Alg. 6
+    IMMSolver(g).solve_stacked([IMProblem(k=5, theta=4096),       # batched
+                                IMProblem(k=3, theta=4096, candidates=ids)])
     IMMSolver(g, engine=make_engine("queue", reverse(g))).solve(
         IMProblem(k=10, eps=0.3, node_weights=w))     # row-weighted estimator
 
@@ -412,6 +414,90 @@ class IMMSolver:
         return IMResult(seeds=seeds, spread=r.scale * frac, gains=gains,
                         frac=frac, stats=self.stats, problem=p,
                         n_nodes=self.n, cost=spent, spread_bounds=bounds)
+
+    def solve_stacked(self, problems: "list[IMProblem]") -> "list[IMResult]":
+        """Fixed-θ micro-batch solve: one
+        :func:`~repro_torch.core.coverage.select_seeds_stacked` scan over
+        the shared pool instead of a selection a request (serving's
+        batched selection, ``repro_torch.serve.batching``).
+
+        Every problem must pin the same ``theta`` and share this solver's
+        pool signature; each returned :class:`IMResult` equals
+        ``solve_problem`` on the same solver in every field.
+        ``mode="approximate"`` and the row-weighted estimator are not
+        stackable: callers route those a request at a time.  The
+        reference's fault-policy boundary around the scan waits for its
+        fault-tolerance layer (ROADMAP Queue 1 item 10): this solver has
+        no ``fault_policy``."""
+        if not problems:
+            return []
+        theta = problems[0].theta
+        for p in problems:
+            if p.theta is None or p.theta != theta:
+                raise ValueError(
+                    "solve_stacked needs one common fixed theta= on every "
+                    "problem (LB-loop solves cannot share a scan)")
+            if p.mode == "approximate":
+                raise ValueError("solve_stacked needs the exact pool; "
+                                 "approximate-mode problems go solo")
+        rs, sig0 = [], None
+        for p in problems:
+            rs.append(self.prepare(p))
+            if sig0 is None:
+                sig0 = self._sig
+            elif self._sig != sig0:
+                raise ValueError("all stacked problems must share one pool "
+                                 "signature (solver_key batches do)")
+        if self._row_weight_mode:
+            raise ValueError("solve_stacked does not support the "
+                             "row-weighted fallback estimator")
+        reqs, geometry = self.stacked_requests(rs)
+        st = self._stats
+        st.theta, st.lb = theta, 1.0
+        self.sample_until(theta)
+        out = cov.select_seeds_stacked(self.store, reqs, **geometry)
+        seeds_all, gains_all = out.seeds.cpu().numpy(), out.gains.cpu().numpy()
+        frac_all, spent_all = out.frac.cpu().numpy(), out.spent.cpu().numpy()
+        results = []
+        for i, (p, r) in enumerate(zip(problems, rs)):
+            seeds = seeds_all[i, :r.k_steps]
+            gains = gains_all[i, :r.k_steps]
+            live = seeds < r.n_items      # the sentinels, as solve_problem
+            seeds, gains = seeds[live], gains[live]
+            frac, spent = float(frac_all[i]), float(spent_all[i])
+            st.frac_covered = frac
+            st.variant = p.variant
+            st.budget_spent = spent
+            results.append(IMResult(
+                seeds=seeds, spread=r.scale * frac, gains=gains, frac=frac,
+                stats=self.stats, problem=p, n_nodes=self.n, cost=spent))
+        return results
+
+    def stacked_requests(self, rs: "list[ResolvedProblem]"):
+        """``(requests, geometry)`` of a stacked batch of resolved problems:
+        a plain :class:`~repro_torch.core.coverage.StackedRequest` for a
+        problem without a selection spec, else one from its spec, and the
+        batch's ``n_group``/``n_groups`` keywords (one group of n ids
+        without a variant row)."""
+        n_group = n_groups = None
+        reqs = []
+        for r in rs:
+            spec = self._selection_spec(r)
+            if spec is None:
+                reqs.append(cov.StackedRequest(k_steps=r.k_steps))
+                continue
+            reqs.append(cov.StackedRequest(
+                k_steps=spec.k_steps, plain=False, cand=spec.cand,
+                costs=spec.costs, budget=spec.budget,
+                quota=spec.group_quota))
+            if n_group is None:
+                n_group, n_groups = spec.n_group, spec.n_groups
+            elif (n_group, n_groups) != (spec.n_group, spec.n_groups):
+                # unreachable when batched by registry key: the geometry
+                # derives from t_rounds, which is part of the pool signature
+                raise ValueError("mixed group geometry in a stacked batch")
+        return reqs, {"n_group": self.n if n_group is None else n_group,
+                      "n_groups": 1 if n_groups is None else n_groups}
 
     def _early_exit_skip(self, r, threshold: float) -> bool:
         """The θ early exit (Alg. 2's LB gate), as the reference's: skip an

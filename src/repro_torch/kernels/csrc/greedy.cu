@@ -1,9 +1,9 @@
 // Greedy max-coverage in one cooperative launch each, for Hopper (sm_90a):
 // greedy_flat on the flat RR pool (paper Alg. 7, the reference's fused
 // scan), greedy_flat_variant (the same kernel with the problem variants'
-// feasibility and score) and, further down, greedy_sketch on the
-// approximate mode's coverage sketch.  All run all k seed steps inside the
-// launch.
+// feasibility and score), greedy_stacked (R of those selections on one
+// pool) and, further down, greedy_sketch on the approximate mode's
+// coverage sketch.  All run all k seed steps inside the launch.
 //
 // greedy_flat.
 // Replaces the torch selection's host loop (kernels/ref.py::greedy_flat_ref,
@@ -136,6 +136,40 @@
 //   last bits (relative 2^-24 a sum of positive terms per add), and so a
 //   near tie may pick another seed.
 //
+// greedy_stacked.  Replaces no Pallas kernel: the reference's stacked scan
+// (src/repro/core/coverage.py:1643, serving's batched selection, a jitted
+// lax.scan whose vmapped body picks and covers for R requests a step); the
+// plain version is kernels/ref.py::greedy_stacked_ref.  R selections on one
+// pool in one cooperative launch, row r byte for byte the solo scan of
+// request r: greedy_flat's (a plain row) or greedy_flat_variant's without
+// weights (a variant row: its candidates, costs and budget, and group
+// quotas).  Row r runs ks[r] steps; past them, and from a variant row's
+// first step with no feasible node, it emits the sentinel n and gain 0
+// and changes nothing.
+// - The prologue is greedy_flat's index build, three grid barriers, with
+//   a node's list start inside its block kept in global memory (lstart),
+//   so any block finds any node's entries: base[block] + lstart[v], count
+//   [v] of them.
+// - The rows' state lives in global memory: Occur R x n int32 and Covered
+//   R x ceil(num_rows / 32) words, shared by the blocks; each block keeps a
+//   row's blocked bits (~cand, the picks, the spent groups) and group
+//   quotas for its slice of nodes, as greedy_flat_variant does.
+// - Step s: each block folds its slice of each live row's Occur into that
+//   row's key (greedy_flat's (occur << 32) | ~v, or the variant's (occur +
+//   1) << 32 | ~v and bits(__fdiv_rn(occur, cost)) << 32 | ~v over room =
+//   __fsub_rn(budget, spent)) and writes a record a row: the key and its
+//   node's Occur.  Barrier.  Every block reduces every live row's records
+//   (a warp a row): u_r and its gain, the winner's Occur (the elements of
+//   a row are unique, so Occur[u] counts u's uncovered rows).  Each block
+//   updates its copies (spent by __fadd_rn, its blocked bits and quotas);
+//   then the grid's warps share the covers of all rows' picks, 32 list
+//   entries a warp: a new row's bit is set by atomicOr in row r's Covered
+//   and every counted element of it takes one off row r's Occur (a global
+//   atomicSub; u_r's own count reaches 0).  A row's last step walks no
+//   entry.  Barrier, before the next step's keys read Occur.  Two grid
+//   barriers a step whatever R is, as the reference's collectives a step
+//   do not grow with R.
+//
 // What bounds it.  Not bytes: the pool read twice and the indices written
 // once are about 1 MB at the default solve's pool, and each block reading
 // every seed row's entry and its elements (from L2) adds about 0.2 MB a
@@ -258,10 +292,11 @@ __device__ __forceinline__ int32_t load_state(const int32_t* p) {
 // later v wins only when its count is larger; low == 0 marks a thread
 // with no node (v < 2^31 - 1).
 template <bool kShared>
-__device__ __forceinline__ uint64_t slice_argmax(const int32_t* occ,
-                                                 int64_t lo, int64_t held,
-                                                 uint64_t* red) {
-  uint32_t best = 0, low = 0;
+__device__ __forceinline__ void fold_slice(const int32_t* occ, int64_t lo,
+                                           int64_t held, uint32_t& best,
+                                           uint32_t& low) {
+  best = 0;
+  low = 0;
   for (int64_t j = threadIdx.x; j < held; j += kThreads) {
     const uint32_t o = uint32_t(load_state<kShared>(occ + j));
     if (low == 0 || o > best) {
@@ -269,6 +304,14 @@ __device__ __forceinline__ uint64_t slice_argmax(const int32_t* occ,
       low = 0xFFFFFFFFu - uint32_t(lo + j);
     }
   }
+}
+
+template <bool kShared>
+__device__ __forceinline__ uint64_t slice_argmax(const int32_t* occ,
+                                                 int64_t lo, int64_t held,
+                                                 uint64_t* red) {
+  uint32_t best, low;
+  fold_slice<kShared>(occ, lo, held, best, low);
   return block_max_key(best, low, red);
 }
 
@@ -297,12 +340,14 @@ __device__ __forceinline__ float canonical_occur(float x) {
 
 // The variant's first maximum of the block's slice, in thread 0 (the key;
 // 0 for no feasible node): as slice_argmax, over the feasible nodes and
-// their variant scores (`room` = budget - spent).
+// their variant scores (`room` = budget - spent).  fold_slice_variant is
+// a thread's share of it.
 template <bool kShared, bool kWeighted>
-__device__ __forceinline__ uint64_t slice_argmax_variant(
+__device__ __forceinline__ void fold_slice_variant(
     const int32_t* occ, const int32_t* blocked, int64_t lo, int64_t held,
-    const VariantArgs& va, float room, uint64_t* red) {
-  uint32_t best = 0, low = 0;
+    const float* costs, float room, uint32_t& best, uint32_t& low) {
+  best = 0;
+  low = 0;
   for (int64_t j = threadIdx.x; j < held; j += kThreads) {
     if ((load_state<kShared>(blocked + (j >> 5)) >> (j & 31)) & 1) continue;
     const uint32_t v = uint32_t(lo + j);
@@ -311,8 +356,8 @@ __device__ __forceinline__ uint64_t slice_argmax_variant(
     const float of = kWeighted ? canonical_occur(__int_as_float(o))
                                : __int2float_rn(o);
     uint32_t hi = (kWeighted ? __float_as_uint(of) : uint32_t(o)) + 1u;
-    if (va.costs != nullptr) {
-      const float c = __ldg(va.costs + v);
+    if (costs != nullptr) {
+      const float c = __ldg(costs + v);
       if (!(c <= room) || !(of > 0.f)) continue;
       hi = __float_as_uint(kWeighted ? __fdiv_rn(of, c)
                                      : __fdiv_rn(__int2float_rn(o), c));
@@ -322,6 +367,15 @@ __device__ __forceinline__ uint64_t slice_argmax_variant(
       low = 0xFFFFFFFFu - v;
     }
   }
+}
+
+template <bool kShared, bool kWeighted>
+__device__ __forceinline__ uint64_t slice_argmax_variant(
+    const int32_t* occ, const int32_t* blocked, int64_t lo, int64_t held,
+    const VariantArgs& va, float room, uint64_t* red) {
+  uint32_t best, low;
+  fold_slice_variant<kShared, kWeighted>(occ, blocked, lo, held, va.costs,
+                                         room, best, low);
   return block_max_key(best, low, red);
 }
 
@@ -1225,6 +1279,460 @@ int launch_flat(const void* flat, const void* ids, const void* valid,
   return int(cudaGetLastError());
 }
 
+
+// greedy_stacked: R selections on one pool in one cooperative launch (the
+// header's note says what it computes and how).  Its rows' operands: R x n
+// candidate bytes and costs, and R budgets, step counts, group quotas,
+// plain flags and budget flags; the batch's group geometry; a block's
+// blocked words and group quotas for each row.
+struct StackedArgs {
+  const uint8_t* cand;
+  const float* costs;
+  const float* budget;
+  const int32_t* ks;
+  const int32_t* quota;
+  const uint8_t* plain;
+  const uint8_t* use_costs;
+  int32_t rows, k_max, n_group, blocked_words, group_words;
+};
+
+constexpr int kStackChunk = 32;   // rows a pass of a block's argmaxes
+
+// The rows of u_r's list entries [i0, i0 + 32) (below end) that row r's
+// Covered does not hold yet: set each one's bit, and take one off row r's
+// Occur at every counted element of it (u_r's own count reaches 0).  A
+// warp's lanes take an entry each, then walk the new rows' elements as
+// greedy_flat's cover does, kWalk x 32 at a time.
+__device__ __forceinline__ void cover_chunk(
+    int64_t i0, int64_t end, const int32_t* inv_rows, const int2* inv_span,
+    const int32_t* nodes, uint32_t* cov_r, int32_t* occ_r) {
+  const int lane = threadIdx.x & 31;
+  const int64_t i = i0 + lane;
+  int32_t e0 = 0, len = 0;
+  if (i < end) {
+    const int32_t r = __ldca(inv_rows + i);
+    const int2 rs = __ldca(inv_span + i);
+    const uint32_t bit = 1u << (r & 31);
+    if (!(atomicOr(cov_r + (r >> 5), bit) & bit)) {
+      e0 = rs.x;
+      len = rs.y - rs.x;
+    }
+  }
+  const int32_t incl = warp_inclusive_sum(len);
+  const int32_t total = __shfl_sync(kFullMask, incl, 31);
+  const int32_t from = e0 - (incl - len);
+  for (int32_t p0 = 0; p0 < total; p0 += 32 * kWalk) {
+    int32_t v[kWalk];
+#pragma unroll
+    for (int q = 0; q < kWalk; ++q) {
+      const int32_t p = p0 + 32 * q + lane;
+      int j = 0;                           // lanes whose incl <= p
+      for (int half = 16; half > 0; half >>= 1)
+        if (__shfl_sync(kFullMask, incl, j + half - 1) <= p) j += half;
+      const int32_t e = __shfl_sync(kFullMask, from, j) + p;
+      v[q] = p < total ? __ldca(nodes + e) : -1;
+    }
+#pragma unroll
+    for (int q = 0; q < kWalk; ++q)
+      if (v[q] >= 0) atomicSub(occ_r + v[q], 1);
+  }
+}
+
+// Scratch (global memory): the step records (R x blocks x 2 uint64: a
+// block's key of row r and its node's Occur), inv_span t int2, count n,
+// cursor n, lstart n (a node's list start inside its block), row_start
+// num_rows + 1, nodes t, inv_rows t and block_sum `blocks` int32, then
+// the rows' state: Occur R x n int32, Covered R x cov_words uint32, and
+// each (row, block)'s blocked words and group quotas.  Dynamic shared
+// memory: the blocks' bases, then a row's step node, gain, list span,
+// first walk chunk (R + 1), spent and done flag.
+__global__ void __launch_bounds__(kThreads, 1) greedy_stacked_kernel(
+    const int32_t* __restrict__ flat, const int32_t* __restrict__ ids,
+    const uint8_t* __restrict__ valid, int64_t t, int32_t n,
+    int64_t num_rows, int32_t slots, int32_t cov_words, StackedArgs sa,
+    unsigned long long* records, int2* inv_span, int32_t* count,
+    int32_t* cursor, int32_t* lstart, int32_t* row_start, int32_t* nodes,
+    int32_t* inv_rows, int32_t* block_sum, int32_t* occur,
+    uint32_t* covered, int32_t* blocked_all,
+    int32_t* seeds, int32_t* gains, float* spent_out) {
+  extern __shared__ int32_t smem[];
+  __shared__ uint64_t red[kStackChunk][kWarps];
+  __shared__ int32_t part[kWarps];
+  cg::grid_group grid = cg::this_grid();
+  const int32_t blocks = gridDim.x, me = blockIdx.x, R = sa.rows;
+  const int64_t k_max = sa.k_max;
+  int32_t* base = smem;
+  int32_t* s_u = base + blocks;
+  int32_t* s_gain = s_u + R;
+  int32_t* s_begin = s_gain + R;
+  int32_t* s_end = s_begin + R;
+  int32_t* s_first = s_end + R;
+  float* s_spent = reinterpret_cast<float*>(s_first + R + 1);
+  int32_t* s_done = reinterpret_cast<int32_t*>(s_spent + R);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t gtid = int64_t(me) * kThreads + threadIdx.x;
+  const int64_t gsize = int64_t(blocks) * kThreads;
+  const int64_t lo = min(int64_t(me) * slots, int64_t(n));
+  const int64_t held = min(lo + slots, int64_t(n)) - lo;
+  const int64_t state_words = int64_t(sa.blocked_words) + sa.group_words;
+  // row r takes step s while s < ks[r] and, a variant row, no step before
+  // found no feasible node (the same in every block)
+  auto live = [&](int32_t r, int32_t s) {
+    return s < __ldg(sa.ks + r) && !s_done[r];
+  };
+  auto blocked_of = [&](int32_t r) {
+    return blocked_all + (int64_t(r) * blocks + me) * state_words;
+  };
+
+  // (A): as greedy_flat's, and the outputs' sentinels, the rows' Covered
+  for (int64_t v = gtid; v < n; v += gsize) count[v] = 0;
+  for (int64_t r = gtid; r <= num_rows; r += gsize)
+    row_start[r] = first_row_at(ids, t, r);
+  for (int64_t i = gtid; i < int64_t(R) * k_max; i += gsize) {
+    seeds[i] = n;
+    gains[i] = 0;
+  }
+  for (int64_t w = gtid; w < int64_t(R) * cov_words; w += gsize)
+    covered[w] = 0;
+  for (int32_t r = threadIdx.x; r < R; r += kThreads) {
+    s_spent[r] = 0.f;
+    s_done[r] = 0;
+  }
+  grid.sync();
+
+  // (B)
+  for (int64_t e = gtid; e < t; e += gsize) {
+    const int32_t v = counted_node(flat, valid, e, n);
+    nodes[e] = v;
+    if (v >= 0) {
+      const unsigned peers = __match_any_sync(__activemask(), v);
+      if (lane == __ffs(peers) - 1) atomicAdd(count + v, __popc(peers));
+    }
+  }
+  grid.sync();
+
+  // (C): the slice's list starts, as greedy_flat's, and each row's Occur,
+  // blocked bits (~cand, all at quota 0) and group quotas of the slice
+  {
+    const int64_t per = (held + kThreads - 1) / kThreads;
+    const int64_t ja = min(threadIdx.x * per, held);
+    const int64_t jb = min(ja + per, held);
+    int32_t sum = 0;
+    for (int64_t j = ja; j < jb; ++j) sum += __ldcg(count + lo + j);
+    const int2 scan = block_exclusive_sum(sum, part);
+    int32_t run = scan.x;
+    for (int64_t j = ja; j < jb; ++j) {
+      cursor[lo + j] = run;
+      lstart[lo + j] = run;
+      run += __ldcg(count + lo + j);
+    }
+    if (threadIdx.x == 0) block_sum[me] = scan.y;
+    for (int32_t r = 0; r < R; ++r) {
+      int32_t* occ_r = occur + int64_t(r) * n + lo;
+      for (int64_t j = threadIdx.x; j < held; j += kThreads)
+        occ_r[j] = __ldcg(count + lo + j);
+      if (__ldg(sa.plain + r)) continue;
+      const uint8_t* cand_r = sa.cand + int64_t(r) * n + lo;
+      const int32_t quota = __ldg(sa.quota + r);
+      int32_t* blocked = blocked_of(r);
+      for (int32_t w = threadIdx.x; w < sa.blocked_words; w += kThreads) {
+        uint32_t bits = 0;
+        for (int b = 0; b < 32; ++b) {
+          const int64_t j = 32 * int64_t(w) + b;
+          if (j >= held || quota <= 0 || !__ldg(cand_r + j)) bits |= 1u << b;
+        }
+        blocked[w] = int32_t(bits);
+      }
+      for (int32_t g = threadIdx.x; g < sa.group_words; g += kThreads)
+        blocked[sa.blocked_words + g] = quota;
+    }
+  }
+  grid.sync();
+
+  // (D): as greedy_flat's
+  if (warp == 0) {
+    int32_t carry = 0;
+    for (int32_t j0 = 0; j0 < blocks; j0 += 32) {
+      const int32_t j = j0 + lane;
+      const int32_t x = j < blocks ? __ldcg(block_sum + j) : 0;
+      const int32_t incl = warp_inclusive_sum(x);
+      if (j < blocks) base[j] = carry + incl - x;
+      carry += __shfl_sync(kFullMask, incl, 31);
+    }
+  }
+  __syncthreads();
+  for (int64_t e = gtid; e < t; e += gsize) {
+    const int32_t v = __ldcg(nodes + e);
+    if (v >= 0) {
+      const unsigned peers = __match_any_sync(__activemask(), v);
+      const int leader = __ffs(peers) - 1;
+      int32_t first = 0;
+      if (lane == leader) first = atomicAdd(cursor + v, __popc(peers));
+      const int32_t pos = base[v / slots] +
+                          __shfl_sync(peers, first, leader) +
+                          __popc(peers & ((1u << lane) - 1));
+      const int32_t r = __ldg(ids + e);
+      inv_rows[pos] = r;
+      inv_span[pos] = make_int2(__ldcg(row_start + r),
+                                __ldcg(row_start + r + 1));
+    }
+  }
+
+  for (int32_t s = 0;; ++s) {
+    bool mine_live = false;
+    for (int32_t r = threadIdx.x; r < R; r += kThreads)
+      mine_live |= live(r, s);
+    if (!__syncthreads_or(mine_live)) break;
+    if (s > 0) grid.sync();                  // step s - 1's covers are done
+
+    // each live row's key in this block's slice (greedy_flat's, or
+    // greedy_flat_variant's without weights) and its node's Occur
+    for (int32_t r0 = 0; r0 < R; r0 += kStackChunk) {
+      const int32_t rn = min(kStackChunk, R - r0);
+      for (int32_t i = 0; i < rn; ++i) {
+        const int32_t r = r0 + i;
+        if (!live(r, s)) continue;
+        const int32_t* occ_r = occur + int64_t(r) * n + lo;
+        uint32_t best, low;
+        if (__ldg(sa.plain + r))
+          fold_slice<false>(occ_r, lo, held, best, low);
+        else
+          fold_slice_variant<false, false>(
+              occ_r, blocked_of(r), lo, held,
+              __ldg(sa.use_costs + r) ? sa.costs + int64_t(r) * n : nullptr,
+              __fsub_rn(__ldg(sa.budget + r), s_spent[r]), best, low);
+        const uint64_t key = warp_max_key(best, low);
+        if (lane == 0) red[i][warp] = key;
+      }
+      __syncthreads();
+      for (int32_t i = warp; i < rn; i += kWarps) {
+        const int32_t r = r0 + i;
+        if (!live(r, s)) continue;
+        const uint64_t w = lane < kWarps ? red[i][lane] : 0;
+        const uint64_t key = warp_max_key(uint32_t(w >> 32), uint32_t(w));
+        if (lane == 0) {
+          uint32_t o = 0;
+          if (key)
+            o = uint32_t(__ldcg(occur + int64_t(r) * n +
+                                (0xFFFFFFFFu - uint32_t(key))));
+          unsigned long long* rec = records + 2 * (int64_t(r) * blocks + me);
+          rec[0] = key;
+          rec[1] = o;
+        }
+      }
+      __syncthreads();
+    }
+    grid.sync();
+
+    // every block reduces every live row's records: u_r and its gain
+    for (int32_t r = warp; r < R; r += kWarps) {
+      if (!live(r, s)) continue;
+      uint64_t best = 0, occ_best = 0;
+      for (int32_t b = lane; b < blocks; b += 32) {
+        const unsigned long long* rec = records + 2 * (int64_t(r) * blocks + b);
+        const uint64_t key = __ldcg(rec);
+        if (key > best) {
+          best = key;
+          occ_best = __ldcg(rec + 1);
+        }
+      }
+      const uint64_t key = warp_max_key(uint32_t(best >> 32), uint32_t(best));
+      const unsigned who = __ballot_sync(kFullMask, key != 0 && best == key);
+      const int32_t gain = int32_t(
+          __shfl_sync(kFullMask, uint32_t(occ_best), who ? __ffs(who) - 1 : 0));
+      if (lane == 0) {
+        s_u[r] = key ? int32_t(0xFFFFFFFFu - uint32_t(key)) : n;
+        s_gain[r] = key ? gain : 0;
+      }
+    }
+    __syncthreads();
+
+    // a thread a row: the outputs (block 0), the variant's spent, blocked
+    // bits and group quotas (each block its slice's), and the span of
+    // list entries the cover walks (none at the row's last step)
+    for (int32_t r = threadIdx.x; r < R; r += kThreads) {
+      int32_t chunks = 0;
+      if (live(r, s)) {
+        const int32_t u = s_u[r];
+        if (u == n) {
+          s_done[r] = 1;                     // a variant row with no node
+        } else {
+          if (me == 0) {
+            seeds[r * k_max + s] = u;
+            gains[r * k_max + s] = s_gain[r];
+          }
+          if (!__ldg(sa.plain + r)) {
+            if (__ldg(sa.use_costs + r))
+              s_spent[r] = __fadd_rn(s_spent[r],
+                                     __ldg(sa.costs + int64_t(r) * n + u));
+            int32_t* blocked = blocked_of(r);
+            int32_t* gbud = blocked + sa.blocked_words;
+            if (u >= lo && u < lo + held)
+              blocked[(u - lo) >> 5] =
+                  __ldcg(blocked + ((u - lo) >> 5)) |
+                  int32_t(1u << ((u - lo) & 31));
+            const int64_t gu = uint32_t(u) / uint32_t(sa.n_group);
+            const int64_t g = gu - uint32_t(lo) / uint32_t(sa.n_group);
+            if (g >= 0 && g < sa.group_words) {
+              const int32_t left = __ldcg(gbud + g) - 1;
+              gbud[g] = left;
+              const int64_t a = max(gu * sa.n_group, lo) - lo;
+              const int64_t b = min((gu + 1) * sa.n_group, lo + held) - lo;
+              for (int64_t w = a >> 5; left == 0 && b > a && w <= (b - 1) >> 5;
+                   ++w) {
+                const int64_t from = max(a - 32 * w, int64_t(0));
+                const int64_t to = min(b - 32 * w, int64_t(32));
+                const uint32_t bits =
+                    (to == 32 ? 0xFFFFFFFFu : (1u << to) - 1u) &
+                    ~((1u << from) - 1u);
+                blocked[w] = __ldcg(blocked + w) | int32_t(bits);
+              }
+            }
+          }
+          if (s + 1 < __ldg(sa.ks + r)) {
+            s_begin[r] = base[u / slots] + __ldcg(lstart + u);
+            s_end[r] = s_begin[r] + __ldcg(count + u);
+            chunks = (s_end[r] - s_begin[r] + 31) / 32;
+          }
+        }
+      }
+      s_first[r] = chunks;
+    }
+    __syncthreads();
+    {
+      int32_t carry = 0;
+      for (int32_t r0 = 0; r0 < R; r0 += kThreads) {
+        const int32_t r = r0 + threadIdx.x;
+        const int2 scan = block_exclusive_sum(r < R ? s_first[r] : 0, part);
+        if (r < R) s_first[r] = carry + scan.x;
+        carry += scan.y;
+        __syncthreads();
+      }
+      if (threadIdx.x == 0) s_first[R] = carry;
+      __syncthreads();
+    }
+
+    // the covers: 32 list entries a warp, over the grid's warps, each
+    // chunk inside one row's span
+    const int32_t total = s_first[R];
+    for (int32_t c = me * kWarps + warp; c < total; c += blocks * kWarps) {
+      int32_t a = 0, b = R;                  // the row whose chunks hold c
+      while (b - a > 1) {
+        const int32_t mid = (a + b) >> 1;
+        if (s_first[mid] <= c) a = mid;
+        else b = mid;
+      }
+      cover_chunk(s_begin[a] + int64_t(c - s_first[a]) * 32, s_end[a],
+                  inv_rows, inv_span, nodes, covered + int64_t(a) * cov_words,
+                  occur + int64_t(a) * n);
+    }
+  }
+  if (me == 0)
+    for (int32_t r = threadIdx.x; r < R; r += kThreads)
+      spent_out[r] = s_spent[r];
+}
+
+// greedy_stacked_kernel's grid on card `device`, read once a card: one
+// block on each SM, and the dynamic shared memory a block may take.
+cudaError_t stacked_grid_for(int device, int* blocks, int64_t* shared_bytes) {
+  static int sms[kMaxDevices];
+  static int64_t bytes[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms[device] == 0) {
+    const void* kernel = reinterpret_cast<const void*>(greedy_stacked_kernel);
+    cudaError_t err = one_block_an_sm(kernel, kernel, kThreads, 4, device,
+                                      &sms[device], &bytes[device]);
+    if (err != cudaSuccess) {
+      sms[device] = 0;
+      return err;
+    }
+  }
+  *blocks = sms[device];
+  *shared_bytes = bytes[device];
+  return cudaSuccess;
+}
+
+// greedy_stacked's layout on a grid of `blocks` (kernels/greedy.py::
+// stacked_layout and stacked_scratch_bytes say the same).
+struct StackedLayout {
+  int32_t slots, cov_words, blocked_words, group_words;
+  int64_t dynamic_bytes, scratch_bytes;
+};
+
+StackedLayout stacked_layout(int32_t n, int64_t num_rows, int64_t t,
+                             int32_t rows, int blocks, int32_t n_group,
+                             int32_t n_groups) {
+  StackedLayout lay;
+  lay.slots = int32_t((int64_t(n) + blocks - 1) / blocks);
+  lay.cov_words = int32_t((num_rows + 31) / 32);
+  lay.blocked_words = (lay.slots + 31) / 32;
+  lay.group_words = int32_t(
+      std::min<int64_t>(n_groups, (lay.slots - 1) / n_group + 2));
+  lay.dynamic_bytes = 4 * (int64_t(blocks) + 7 * int64_t(rows) + 1);
+  lay.scratch_bytes =
+      16 * int64_t(rows) * blocks + 8 * t +
+      4 * (3 * int64_t(n) + num_rows + 1 + 2 * t + blocks) +
+      4 * int64_t(rows) * (int64_t(n) + lay.cov_words) +
+      4 * int64_t(rows) * blocks * (lay.blocked_words + lay.group_words);
+  return lay;
+}
+
+// One launch of greedy_stacked_kernel (see the C entry point).
+int launch_stacked(const void* flat, const void* ids, const void* valid,
+                   int64_t t, int32_t n, int64_t num_rows, StackedArgs sa,
+                   int32_t n_groups, void* scratch, int64_t scratch_bytes,
+                   void* out, void* spent, int device, void* stream) {
+  if (t < 0 || t > 0x7FFFFFFF || n < 1 || n == 0x7FFFFFFF || num_rows < 1 ||
+      num_rows > 0x7FFFFFFF || sa.rows < 1 || sa.k_max < 1 ||
+      sa.n_group < 1 || n_groups < 1 ||
+      int64_t(sa.n_group) * n_groups < n || int64_t(sa.rows) * n >= (1LL << 40))
+    return int(cudaErrorInvalidValue);
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return int(guard.err);
+  int blocks = 0;
+  int64_t shared_bytes = 0;
+  cudaError_t err = stacked_grid_for(device, &blocks, &shared_bytes);
+  if (err != cudaSuccess) return int(err);
+  const StackedLayout lay = stacked_layout(n, num_rows, t, sa.rows, blocks,
+                                           sa.n_group, n_groups);
+  if (scratch_bytes < lay.scratch_bytes || lay.dynamic_bytes > shared_bytes)
+    return int(cudaErrorInvalidValue);
+  sa.blocked_words = lay.blocked_words;
+  sa.group_words = lay.group_words;
+  const int32_t* p_flat = static_cast<const int32_t*>(flat);
+  const int32_t* p_ids = static_cast<const int32_t*>(ids);
+  const uint8_t* p_valid = static_cast<const uint8_t*>(valid);
+  unsigned long long* records = static_cast<unsigned long long*>(scratch);
+  int2* inv_span =
+      reinterpret_cast<int2*>(records + 2 * int64_t(sa.rows) * blocks);
+  int32_t* count = reinterpret_cast<int32_t*>(inv_span + t);
+  int32_t* cursor = count + n;
+  int32_t* lstart = cursor + n;
+  int32_t* row_start = lstart + n;
+  int32_t* nodes = row_start + num_rows + 1;
+  int32_t* inv_rows = nodes + t;
+  int32_t* block_sum = inv_rows + t;
+  int32_t* occur = block_sum + blocks;
+  uint32_t* covered =
+      reinterpret_cast<uint32_t*>(occur + int64_t(sa.rows) * n);
+  int32_t* blocked_all = reinterpret_cast<int32_t*>(
+      covered + int64_t(sa.rows) * lay.cov_words);
+  int32_t* seeds = static_cast<int32_t*>(out);
+  int32_t* gains = seeds + int64_t(sa.rows) * sa.k_max;
+  float* spent_out = static_cast<float*>(spent);
+  int32_t slots = lay.slots, cov_words = lay.cov_words;
+  void* args[] = {&p_flat, &p_ids, &p_valid, &t, &n, &num_rows, &slots,
+                  &cov_words, &sa, &records, &inv_span, &count, &cursor,
+                  &lstart, &row_start, &nodes, &inv_rows, &block_sum, &occur,
+                  &covered, &blocked_all, &seeds, &gains, &spent_out};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(greedy_stacked_kernel), dim3(blocks),
+      dim3(kThreads), args, size_t(lay.dynamic_bytes),
+      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface for ctypes.  flat, ids: t int32 (ids non-decreasing,
@@ -1382,4 +1890,53 @@ extern "C" int greedy_sketch(const void* words, int32_t n, int32_t cols,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
+}
+
+// greedy_stacked: R = rows selections on greedy_flat's pool (its flat, ids,
+// valid, t, n and num_rows) in one launch.  cand: rows x n bytes (0 or 1);
+// costs: rows x n float32; budget: rows float32; ks: rows int32, each
+// row's steps (0 <= ks <= k_max; a row past its steps emits the sentinel
+// n, gain 0); quota: rows int32, a group's seeds; plain, use_costs: rows
+// bytes (0 or 1).  A plain row is greedy_flat's scan, a variant row
+// greedy_flat_variant's (the candidates, the costs and budget when
+// use_costs, the groups of n_group ids, n_group * n_groups >= n, and the
+// row's quota).  scratch: kernels/greedy.py::stacked_scratch_bytes (the
+// kernel initialises what it reads); out: 2 x rows x k_max int32, seeds
+// then gains, row-major; spent: rows float32.  Launches on `stream` of
+// card `device`; returns the cudaError_t of the launch.
+extern "C" int greedy_stacked(const void* flat, const void* ids,
+                              const void* valid, int64_t t, int32_t n,
+                              int64_t num_rows, int32_t rows, int32_t k_max,
+                              const void* cand, const void* costs,
+                              const void* budget, const void* ks,
+                              const void* quota, const void* plain,
+                              const void* use_costs, int32_t n_group,
+                              int32_t n_groups, void* scratch,
+                              int64_t scratch_bytes, void* out, void* spent,
+                              int device, void* stream) {
+  StackedArgs sa{};
+  sa.cand = static_cast<const uint8_t*>(cand);
+  sa.costs = static_cast<const float*>(costs);
+  sa.budget = static_cast<const float*>(budget);
+  sa.ks = static_cast<const int32_t*>(ks);
+  sa.quota = static_cast<const int32_t*>(quota);
+  sa.plain = static_cast<const uint8_t*>(plain);
+  sa.use_costs = static_cast<const uint8_t*>(use_costs);
+  sa.rows = rows;
+  sa.k_max = k_max;
+  sa.n_group = n_group;
+  if (!sa.cand || !sa.costs || !sa.budget || !sa.ks || !sa.quota ||
+      !sa.plain || !sa.use_costs || !spent)
+    return int(cudaErrorInvalidValue);
+  return launch_stacked(flat, ids, valid, t, n, num_rows, sa, n_groups,
+                        scratch, scratch_bytes, out, spent, device, stream);
+}
+
+// greedy_stacked's grid on card `device`: its blocks (one on each SM) and
+// the dynamic shared memory a block may take, in bytes.
+extern "C" int greedy_stacked_grid(int device, int* blocks,
+                                   int64_t* shared_bytes) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return int(guard.err);
+  return int(stacked_grid_for(device, blocks, shared_bytes));
 }

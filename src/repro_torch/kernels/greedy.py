@@ -15,7 +15,10 @@ a :class:`_build.Kernel` on PyTorch's current stream of the tensors' card
 entry in :data:`LAUNCHES`.  It reads nothing back, so a selection makes
 no host sync and one device operation.  :func:`greedy_flat_variant` does
 the same for ``kernels/ref.py::greedy_flat_variant_ref``, with the
-candidate bytes, costs and budget, and the groups' quotas.
+candidate bytes, costs and budget, and the groups' quotas, and
+:func:`greedy_stacked` for ``kernels/ref.py::greedy_stacked_ref``: R of
+those selections on one pool in one launch, each request's operands a row
+(:func:`stacked_scratch_bytes` sizes its scratch).
 
 :func:`greedy_sketch` computes what ``kernels/ref.py::greedy_sketch_ref``
 computes, byte for byte, likewise on CUDA tensors only: it checks the
@@ -40,7 +43,8 @@ from repro_torch.kernels import _build
 
 # launches since the last reset (see ops.reset_launch_counts)
 LAUNCHES = {"greedy_flat": 0, "greedy_flat_variant": 0,
-            "greedy_flat_variant[weighted]": 0, "greedy_sketch": 0}
+            "greedy_flat_variant[weighted]": 0, "greedy_stacked": 0,
+            "greedy_sketch": 0}
 
 # csrc/greedy.cu: threads a block; the grid is a block on every SM
 THREADS = 512
@@ -54,6 +58,13 @@ _VARIANT = _build.Kernel("greedy", "greedy_flat_variant",
                          (_vp, _vp, _vp, _i64, _i32, _i64, _i32, _vp, _vp,
                           ctypes.c_float, _i32, _i32, _i32, _vp, _vp, _i64,
                           _vp, _vp, _int, _vp))
+_STACKED = _build.Kernel("greedy", "greedy_stacked",
+                         (_vp, _vp, _vp, _i64, _i32, _i64, _i32, _i32, _vp,
+                          _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp,
+                          _i64, _vp, _vp, _int, _vp))
+_STACKED_GRID = _build.Kernel("greedy", "greedy_stacked_grid",
+                              (_int, ctypes.POINTER(_int),
+                               ctypes.POINTER(_i64)))
 _FLAT_GRID = _build.Kernel("greedy", "greedy_flat_grid",
                            (_int, ctypes.POINTER(_int),
                             ctypes.POINTER(_i64)))
@@ -230,6 +241,111 @@ def greedy_flat_variant(flat: torch.Tensor, ids: torch.Tensor,
         return out[:k], out[k:2 * k], spent[0]
     LAUNCHES["greedy_flat_variant[weighted]"] += 1
     return out[:k], out[k:2 * k].view(torch.float32), spent[0]
+
+
+def stacked_layout(n: int, num_rows: int, blocks: int, n_group: int,
+                   n_groups: int) -> tuple[int, int, int]:
+    """``(slots, blocked_words, group_words)`` of :func:`greedy_stacked` on
+    a grid of ``blocks``: a block's slice of nodes, and its blocked bits and
+    group quotas for each row (:func:`variant_words`)."""
+    slots = -(-n // blocks)
+    return (slots, *variant_words(slots, n_group, n_groups))
+
+
+def stacked_scratch_bytes(n: int, num_rows: int, t: int, rows: int,
+                          blocks: int, n_group: int, n_groups: int) -> int:
+    """Scratch of one :func:`greedy_stacked` launch of ``rows`` requests
+    over ``t`` elements: the step records (16 bytes a row a block), the t
+    list entries' row spans (8 bytes each), count, cursor and list start
+    (n int32 each), row_start (num_rows + 1), nodes and inv_rows (t each)
+    and the blocks' sums, then the rows' Occur (n int32 each) and Covered
+    (a word for 32 of ``num_rows``), and each row's blocked bits and group
+    quotas in each block."""
+    _, blocked, groups = stacked_layout(n, num_rows, blocks, n_group,
+                                        n_groups)
+    return 16 * rows * blocks + 8 * t + 4 * (
+        3 * n + num_rows + 1 + 2 * t + blocks
+        + rows * (n + -(-num_rows // 32))
+        + rows * blocks * (blocked + groups))
+
+
+def stacked_shared_bytes(rows: int, blocks: int) -> int:
+    """Dynamic shared memory of one :func:`greedy_stacked` launch: the
+    blocks' bases and seven words a row (the row's node, gain, list span,
+    first cover chunk, spent and done flag), and one more."""
+    return 4 * (blocks + 7 * rows + 1)
+
+
+def greedy_stacked(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+                   *, n: int, num_rows: int, k_max: int, cand: torch.Tensor,
+                   costs: torch.Tensor, budget: torch.Tensor,
+                   ks: torch.Tensor, quota: torch.Tensor, plain: torch.Tensor,
+                   use_costs: torch.Tensor, n_group: int, n_groups: int):
+    """R selections on :func:`greedy_flat`'s pool in one launch: row r of
+    the (R, n) bool ``cand`` and float32 ``costs`` and of the (R,) float32
+    ``budget``, int32 ``ks`` (its steps, at most ``k_max``) and ``quota``
+    and bool ``plain`` and ``use_costs`` is request r's; the groups of
+    ``n_group`` ids (``n_group * n_groups >= n``) are the batch's ->
+    ``(seeds (R, k_max) int32, gains (R, k_max) int32, spent (R,)
+    float32)``, as ``ref.greedy_stacked_ref``."""
+    n, num_rows, k_max = int(n), int(num_rows), int(k_max)
+    n_group, n_groups = int(n_group), int(n_groups)
+    _check(flat, ids, valid, n=n, num_rows=num_rows, k=k_max)
+    dev = flat.device
+    rows = ks.shape[0] if ks.dim() == 1 else -1
+    for name, x, dtype, shape in (
+            ("cand", cand, torch.bool, (rows, n)),
+            ("costs", costs, torch.float32, (rows, n)),
+            ("budget", budget, torch.float32, (rows,)),
+            ("ks", ks, torch.int32, (rows,)),
+            ("quota", quota, torch.int32, (rows,)),
+            ("plain", plain, torch.bool, (rows,)),
+            ("use_costs", use_costs, torch.bool, (rows,))):
+        if x.device != dev or x.dtype != dtype or x.shape != shape or \
+                not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {shape} {dtype} "
+                             f"tensor on {dev}, got {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}")
+    if rows < 1 or not 1 <= n_group < 1 << 31 or \
+            not 1 <= n_groups < 1 << 31 or n_group * n_groups < n:
+        raise ValueError(f"need at least one row and groups of {n_group} "
+                         f"ids x {n_groups} covering {n} nodes")
+    index = flat.get_device()
+    blocks, shared_bytes = stacked_grid(dev)
+    if stacked_shared_bytes(rows, blocks) > shared_bytes:
+        raise ValueError(f"{rows} rows need more shared memory than a block "
+                         f"of the card has ({shared_bytes} bytes)")
+    t = flat.shape[0]
+    out = torch.empty(2, rows, k_max, dtype=torch.int32, device=dev)
+    spent = torch.empty(rows, dtype=torch.float32, device=dev)
+    size = stacked_scratch_bytes(n, num_rows, t, rows, blocks, n_group,
+                                 n_groups)
+    scratch = torch.empty(size, dtype=torch.uint8, device=dev)
+    err = _STACKED(flat.data_ptr(), ids.data_ptr(), valid.data_ptr(), t, n,
+                   num_rows, rows, k_max, cand.data_ptr(), costs.data_ptr(),
+                   budget.data_ptr(), ks.data_ptr(), quota.data_ptr(),
+                   plain.data_ptr(), use_costs.data_ptr(), n_group, n_groups,
+                   scratch.data_ptr(), size, out.data_ptr(), spent.data_ptr(),
+                   index, _build.raw_stream(index))
+    _build.raise_on(err, "greedy_stacked")
+    LAUNCHES["greedy_stacked"] += 1
+    return out[0], out[1], spent
+
+
+def stacked_grid(device) -> tuple[int, int]:
+    """``(blocks, shared_bytes)`` of :func:`greedy_stacked`'s grid on card
+    ``device``: a block on each SM, and the dynamic shared memory a block
+    may take; read from the card once."""
+    return _stacked_grid(device_index(device))
+
+
+@functools.cache
+def _stacked_grid(index: int) -> tuple[int, int]:
+    blocks, nbytes = _int(0), _i64(0)
+    _build.raise_on(_STACKED_GRID(index, ctypes.byref(blocks),
+                                  ctypes.byref(nbytes)),
+                    "greedy_stacked_grid")
+    return blocks.value, nbytes.value
 
 
 def device_index(device) -> int:

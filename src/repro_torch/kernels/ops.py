@@ -239,6 +239,26 @@ def greedy_flat_variant(flat: torch.Tensor, ids: torch.Tensor,
         group_quota=group_quota, ew=ew)
 
 
+def greedy_stacked(flat: torch.Tensor, ids: torch.Tensor,
+                   valid: torch.Tensor, *, n: int, num_rows: int, k_max: int,
+                   cand: torch.Tensor, costs: torch.Tensor,
+                   budget: torch.Tensor, ks: torch.Tensor,
+                   quota: torch.Tensor, plain: torch.Tensor,
+                   use_costs: torch.Tensor, n_group: int, n_groups: int):
+    """R selections on one flat pool (the pool of :func:`greedy_flat`), a
+    request a row of the (R, n) ``cand``/``costs`` and the (R,)
+    ``budget``/``ks``/``quota``/``plain``/``use_costs`` -> (seeds (R,
+    k_max) int32, gains (R, k_max) int32, spent (R,) float32); the same
+    bytes on either route (``ref.greedy_stacked_ref`` says what they
+    hold)."""
+    kw = dict(n=n, num_rows=num_rows, k_max=k_max, cand=cand, costs=costs,
+              budget=budget, ks=ks, quota=quota, plain=plain,
+              use_costs=use_costs, n_group=n_group, n_groups=n_groups)
+    if _route(flat) == "cuda":
+        return _greedy.greedy_stacked(flat, ids, valid, **kw)
+    return _ref.greedy_stacked_ref(flat, ids, valid, **kw)
+
+
 def greedy_sketch(words: torch.Tensor, *, n: int, k: int,
                   cand: torch.Tensor | None = None):
     """``k`` steps of the approximate mode's greedy on an (R, W) int32

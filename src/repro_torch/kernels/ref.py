@@ -618,6 +618,72 @@ def greedy_flat_variant_ref(flat: torch.Tensor, ids: torch.Tensor,
             gains if weighted else gains.to(torch.int32), scan.spent)
 
 
+def greedy_stacked_ref(flat: torch.Tensor, ids: torch.Tensor,
+                       valid: torch.Tensor, *, n: int, num_rows: int,
+                       k_max: int, cand: torch.Tensor, costs: torch.Tensor,
+                       budget: torch.Tensor, ks: torch.Tensor,
+                       quota: torch.Tensor, plain: torch.Tensor,
+                       use_costs: torch.Tensor, n_group: int, n_groups: int):
+    """R greedy selections on one flat pool in one scan of ``k_max`` steps:
+    the reference's ``stacked`` scan (``repro.core.coverage``, serving's
+    batched selection), the plain version of ``csrc/greedy.cu``'s
+    ``greedy_stacked``.
+
+    The pool is :func:`greedy_flat_ref`'s.  Row r of the (R, n) ``cand``
+    and ``costs`` and of the (R,) ``budget``, ``ks``, ``quota``, ``plain``
+    and ``use_costs`` is request r.  Step t, for each row r with ``t <
+    ks[r]`` (the reference's vmapped ``pick_one``/``cover_one`` as a loop
+    over the rows): a plain row takes the first maximum of its Occur
+    (:func:`greedy_flat_ref`'s step, duplicates tolerated); a variant row
+    takes :class:`VariantScan`'s pick over its candidates, its groups of
+    ``n_group`` ids with ``quota[r]`` seeds each and, when
+    ``use_costs[r]``, its costs and ``budget[r]``
+    (:func:`greedy_flat_variant_ref`'s step).  The pick's newly covered
+    rows (:func:`_newly_rows` against the row's own Covered) give the gain
+    and come off the row's Occur.  Steps at or past ``ks[r]`` leave the
+    sentinel n, gain 0, and change nothing.  Returns ``(seeds (R, k_max)
+    int32, gains (R, k_max) int32, spent (R,) float32)``: row r is the
+    solo scan's output for request r."""
+    flat = flat.to(torch.int64)
+    ids = ids.to(torch.int64)
+    dev = flat.device
+    rows = ks.shape[0]
+    ks_h, plain_h = ks.tolist(), plain.tolist()
+    occur0 = torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(
+        0, flat, valid.to(torch.int32))[:n]
+    occur = [occur0.clone() for _ in range(rows)]
+    cov = [torch.zeros(num_rows // 32, dtype=torch.int32, device=dev)
+           for _ in range(rows)]
+    scans = [None if plain_h[r] else VariantScan(
+        n, cand[r], costs[r] if bool(use_costs[r]) else None,
+        float(budget[r]), n_group, n_groups, int(quota[r]))
+        for r in range(rows)]
+    seeds = torch.full((rows, k_max), n, dtype=torch.int32, device=dev)
+    gains = torch.zeros((rows, k_max), dtype=torch.int32, device=dev)
+    for t in range(k_max):
+        for r in range(rows):
+            if t >= ks_h[r]:
+                continue
+            scan = scans[r]
+            if scan is None:
+                u, ok = torch.argmax(occur[r]), None
+            else:
+                u, ok = scan.pick(occur[r])
+            newly = _newly_rows(flat, ids, valid, _unpack_covered(cov[r]), u)
+            new_words = _pack_covered(newly)
+            gains[r, t] = popcount_words_ref(new_words.view(1, -1)).sum()
+            occur[r] = occur[r] - torch.zeros(
+                n + 1, dtype=torch.int32, device=dev).index_add_(
+                0, flat, (newly[ids] & valid).to(torch.int32))[:n]
+            cov[r] = cov[r] | new_words
+            if scan is not None:
+                scan.commit(u, ok)
+            seeds[r, t] = u
+    spent = torch.stack([torch.zeros((), dtype=torch.float32, device=dev)
+                         if scan is None else scan.spent for scan in scans])
+    return seeds, gains, spent
+
+
 def _celf_pool(flat, ids, valid, cov_words):
     """The pool as int64 ids, with the elements whose row lies outside the
     Covered words dropped (the reference's ``segment_max`` drops them)."""

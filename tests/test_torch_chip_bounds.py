@@ -10,6 +10,11 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
+
+# one intra-op thread: the tier-1 run's six pytest-xdist workers would
+# otherwise start a thread a core each and oversubscribe the CPU
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -556,6 +561,12 @@ PROFILER_NAMES = {
                   "const*, int const*, float const*, unsigned int, int, int, "
                   "long, long, int, int, int*, unsigned int*, int*, int*, "
                   "int*, bool*, int*, long*, float const*, int const*)",
+    "greedy_stacked": "(anonymous namespace)::greedy_stacked_kernel(int "
+                      "const*, int const*, unsigned char const*, long, int, "
+                      "long, int, int, (anonymous namespace)::StackedArgs, "
+                      "unsigned long long*, int2*, int*, int*, int*, int*, "
+                      "int*, int*, int*, int*, unsigned int*, int*, int*, "
+                      "int*, float*)",
 }
 # further names of the same records' kernels
 PROFILER_ALSO = {
@@ -943,7 +954,8 @@ def test_greedy_sketch_barrier_floor_counts_one_barrier_a_step():
 def test_selection_kernel_counts_match_the_sources():
     """Phase 2's ptxas counts: greedy.cu's two greedy_flat forms,
     greedy_flat_variant's two and its weighted form's two (state in shared
-    memory or the scratch), its barrier floor and greedy_sketch's forms (registers, one kernel for
+    memory or the scratch), its barrier floor, greedy_stacked and
+    greedy_sketch's forms (registers, one kernel for
     1 or REG_ROWS = 2 rows a thread, shared, global with cov in shared
     memory or not); celf.cu's celf_eval, celf_apply and
     celf_select's four forms (cov_sk shared or not, top lists of LIST
@@ -951,7 +963,7 @@ def test_selection_kernel_counts_match_the_sources():
     from repro_torch.kernels import celf as tcelf
     from repro_torch.kernels import greedy as tgreedy
     assert tgreedy.REG_ROWS == 2
-    assert smoke.GREEDY_KERNELS == 2 + 2 + 2 + 1 + 1 + 1 + 2
+    assert smoke.GREEDY_KERNELS == 2 + 2 + 2 + 1 + 1 + 1 + 1 + 2
     assert tcelf.LIST == 32
     assert smoke.CELF_KERNELS == 2 + 2 * 2
 
@@ -1302,3 +1314,89 @@ def test_lt_bound_counts_the_walks_and_their_chains(h100, qcap):
         nbytes / smoke.HBM_BYTES_S * 1e3)
     if qcap is not None:
         assert bool(ovf.any())
+
+
+def _stacked_store():
+    """The tiny pool of :func:`test_greedy_pool_args_and_plain_seeds_agree_
+    with_the_bound` in a store."""
+    import torch
+    from repro_torch.core import coverage as cov
+    store = cov.DeviceRRStore(6, device="cpu")
+    store.append_batch((torch.tensor([[0, 1, 2], [2, 3, 6], [4, 6, 6]]),
+                        torch.tensor([3, 2, 1])))
+    return store
+
+
+def test_stacked_bound_sums_its_rows(h100):
+    """A plain row of k = 2 (seeds 2, 4; every step runs), a candidate row
+    of k = 3 over {0, 3} (picks 0 and 3, then the step that finds none)
+    and a padding row: bytes are the 6 elements once, 17 bytes of scalars
+    and 8 k_max + 4 of outputs a row, and the candidate row's 6 bytes;
+    operations a compare a node a step (2 x 6) and the plain row's 6
+    decrements, and a bit and a key a node a step (2 x 3 x 6) and the
+    candidate row's 5 decrements (rows {0, 1} hold 0 or 3), on the ALU.
+    The launch runs 3 steps: 2 + 2 x 3 grid barriers."""
+    import torch
+    from repro_torch.core import coverage as cov
+    from repro_torch.kernels import ops
+    store = _stacked_store()
+    cand = np.isin(np.arange(6), [0, 3])
+    reqs = [cov.StackedRequest(k_steps=2),
+            cov.StackedRequest(k_steps=3, plain=False, cand=cand)]
+    kw = cov.stacked_operands(store, reqs)
+    assert kw["k_max"] == 4 and kw["ks"].tolist() == [2, 3]
+    args, _ = smoke.pool_args(store)
+    seeds, gains, spent = ops.greedy_stacked(*args, **kw)
+    assert seeds.tolist() == [[2, 4, 6, 6], [0, 3, 6, 6]]
+    assert smoke.stacked_steps(seeds, kw) == [2, 3]
+    b = smoke.stacked_bound(*args, seeds, kw, blocks=3)
+    assert b["steps_taken"] == 3 and b["grid_barriers"] == 8
+    assert b["bound_bytes_ms"] == pytest.approx(
+        (9 * 6 + 17 * 2 + 2 * (8 * 4 + 4) + 6) / 3.35e9)
+    alu_s = H100_SMS * 64 * H100_MHZ * 1e6
+    assert b["bound_ops_class"] == "alu"
+    assert b["bound_ops_ms"] == pytest.approx(
+        (2 * 6 + 6 + 2 * 3 * 6 + 5) / alu_s * 1e3)
+    assert b["decremented_elements"] == 11
+
+
+def test_check_stacked_holds_rows_to_their_solo_selections():
+    """On the CPU (the plain versions on either side) phase 18's check
+    passes the stand-in's mixes on the tiny pool, and raises on a row that
+    differs from its solo selection."""
+    import torch
+    from repro_torch.core import coverage as cov
+    from repro_torch.kernels import ops
+    store = _stacked_store()
+    args, _ = smoke.pool_args(store)
+    for rows, mix in smoke.STACKED_BATCHES:
+        reqs = smoke.stacked_requests(6, rows, mix)
+        assert len(reqs) == rows
+        kw = cov.stacked_operands(store, reqs, **smoke.stacked_geometry(6))
+        got = ops.greedy_stacked(*args, **kw)
+        check = smoke.check_stacked(args, kw, got)
+        assert check["max_abs_err"] == 0 and check["solo_rows_equal"]
+        assert len(smoke.solo_row_calls(args, kw)) == rows
+    bad = (got[0].clone(), got[1], got[2])
+    bad[0][0, 0] = 5
+    with pytest.raises(AssertionError):
+        smoke.check_stacked(args, kw, bad)
+
+
+def test_stacked_problems_are_stackable_but_the_rider():
+    from repro_torch.core.imm import IMMSolver
+    from repro_torch.graph import csr, generators, weights
+    from repro_torch.serve import occur_fastpath_eligible, stacked_eligible
+    src, dst = generators.barabasi_albert(30, 2, seed=0)
+    g = weights.wc_weights(csr.from_edges(src, dst, 30, device="cpu"))
+    solver = IMMSolver(g, batch=16, seed=0, device="cpu")
+    probs = smoke.stacked_problems(30, 64)
+    assert [occur_fastpath_eligible(solver, p) for p in probs] == \
+        [False] * 8 + [True]
+    assert all(stacked_eligible(solver, p) for p in probs)
+    reqs, geometry = solver.stacked_requests(
+        [solver.prepare(p) for p in probs[:-1]])
+    assert [r.plain for r in reqs] == [True] * 4 + [False] * 4
+    assert [r.k_steps for r in reqs][:6] == [50, 10, 25, 5, 50, 10]
+    assert geometry == {"n_group": 30, "n_groups": 1}
+

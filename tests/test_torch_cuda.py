@@ -2747,3 +2747,182 @@ def test_refill_wrapper_checks_inputs(card):
                                                (0, 4), (0, 4)]
     zero = trefill.refill_bfs(*_round_args(g), 0, 4, **{**kw, "quota": 0})
     assert not bool(zero[2].any()) and not bool(zero[0].any())
+
+
+# the stacked selection (csrc/greedy.cu greedy_stacked): R requests in one
+# launch, each row byte for byte its solo scan
+
+_STACKED_MIXES = {
+    "mixed": ("plain50", "plain10", "cand", "budget", "exhausted", "quota",
+              "cand_budget", "pad"),
+    "plain": ("plain50", "plain10"),
+}
+
+
+def _stacked_kw(n, rows, mix, device):
+    """greedy_stacked's row operands for ``rows`` requests that cycle
+    through ``mix``: plain k = 50 / 10, candidates (every third node),
+    costs 1 + v mod 5 with a budget, two candidates (the row runs out),
+    three groups of quota 2, candidates with a budget, and a padding row
+    (no step)."""
+    v = np.arange(n)
+    cols = dict(cand=np.ones((rows, n), bool),
+                costs=np.ones((rows, n), np.float32),
+                budget=np.full(rows, np.inf, np.float32),
+                ks=np.zeros(rows, np.int32), quota=np.zeros(rows, np.int32),
+                plain=np.ones(rows, bool), use_costs=np.zeros(rows, bool))
+    for r in range(rows):
+        kind = mix[r % len(mix)]
+        k = {"plain50": 50, "plain10": 10, "cand": 20, "budget": 40,
+             "exhausted": 5, "quota": 9, "cand_budget": 30, "pad": 0}[kind]
+        cols["ks"][r] = cols["quota"][r] = k
+        cols["plain"][r] = kind.startswith("plain") or kind == "pad"
+        if kind in ("cand", "cand_budget"):
+            cols["cand"][r] = v % 3 == 0
+        if kind == "exhausted":
+            cols["cand"][r] = np.isin(v, [7, 9])
+        if kind in ("budget", "cand_budget"):
+            cols["costs"][r] = 1 + v % 5
+            cols["budget"][r] = float(k) + 1
+            cols["use_costs"][r] = True
+        if kind == "quota":
+            cols["quota"][r] = 2
+    kw = {name: torch.from_numpy(x).to(device) for name, x in cols.items()}
+    return dict(kw, n=n, k_max=1 << max(int(cols["ks"].max()) - 1,
+                                        0).bit_length(),
+                n_group=-(-n // 3), n_groups=3)
+
+
+def _solo_rows(args, kw, skw):
+    """Each row's solo kernel: greedy_flat for a plain row,
+    greedy_flat_variant for a variant row, padded to k_max."""
+    n, k_max = skw["n"], skw["k_max"]
+    rows = []
+    for r in range(skw["ks"].shape[0]):
+        k = int(skw["ks"][r])
+        seeds = torch.full((k_max,), n, dtype=torch.int32)
+        gains = torch.zeros(k_max, dtype=torch.int32)
+        spent = torch.zeros((), dtype=torch.float32)
+        if k and bool(skw["plain"][r]):
+            s, g = tgreedy.greedy_flat(*args, **kw, k=k)
+        elif k:
+            s, g, spent = tgreedy.greedy_flat_variant(
+                *args, **kw, k=k, cand=skw["cand"][r].contiguous(),
+                costs=skw["costs"][r].contiguous()
+                if bool(skw["use_costs"][r]) else None,
+                budget=float(skw["budget"][r]), n_group=skw["n_group"],
+                n_groups=skw["n_groups"], group_quota=int(skw["quota"][r]))
+        if k:
+            seeds[:k], gains[:k] = s.cpu(), g.cpu()
+        rows.append((seeds, gains, spent.cpu()))
+    return [torch.stack(x) for x in zip(*rows)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,mix", [(1, "mixed"), (3, "mixed"),
+                                      (8, "mixed"), (16, "plain"),
+                                      (16, "mixed")])
+@pytest.mark.parametrize("name", ["ragged", "small", "wide", "longrow"])
+def test_greedy_stacked_kernel_equals_plain(card, name, rows, mix):
+    """R requests in one launch against the plain stacked scan, and every
+    row against its solo kernel (greedy_flat or greedy_flat_variant):
+    seeds, gains and the float32 bytes of spent."""
+    store = _greedy_store(name, card)
+    args, kw = _store_args(store)
+    skw = _stacked_kw(store.n_nodes, rows, _STACKED_MIXES[mix], card)
+    skw.pop("n")
+    want = ref.greedy_stacked_ref(*args, **kw, **skw)
+    before = ops.launch_counts()["greedy_stacked"]
+    got = tgreedy.greedy_stacked(*args, **kw, **skw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["greedy_stacked"] == before + 1
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(x, y), (name, rows, mix, x, y)
+    solo = _solo_rows(args, kw, dict(skw, n=store.n_nodes))
+    for x, y in zip(got, solo):
+        assert torch.equal(x.cpu(), y), (name, rows, mix)
+
+
+@pytest.mark.cuda
+def test_greedy_stacked_past_the_shared_layout(card):
+    """n = 4,000,000 and 2,000 rows of up to 50 nodes: Occur of 8 rows is
+    128 MB of scratch; the kernel still equals its plain version."""
+    n = 4_000_000
+    rng = np.random.default_rng(4)
+    lens = rng.integers(1, 50, 2000)
+    nodes = np.full((2000, 50), n, np.int64)
+    for i, ln in enumerate(lens):
+        nodes[i, :ln] = rng.choice(n, size=ln, replace=False)
+    store = cov.DeviceRRStore(n, device=card)
+    store.append_batch((torch.tensor(nodes), torch.tensor(lens)))
+    args, kw = _store_args(store)
+    skw = _stacked_kw(n, 8, _STACKED_MIXES["mixed"], card)
+    skw.pop("n")
+    got = tgreedy.greedy_stacked(*args, **kw, **skw)
+    want = ref.greedy_stacked_ref(*args, **kw, **skw)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_greedy_stacked_wrapper_checks_inputs(card):
+    store = _greedy_store("small", card)
+    args, kw = _store_args(store)
+    skw = _stacked_kw(store.n_nodes, 3, _STACKED_MIXES["mixed"], card)
+    skw.pop("n")
+    for bad in (dict(cand=skw["cand"][:, :-1]),
+                dict(cand=skw["cand"].int()),
+                dict(costs=skw["costs"].double()),
+                dict(budget=skw["budget"].cpu()),
+                dict(ks=skw["ks"][:-1]), dict(plain=skw["plain"].int()),
+                dict(n_group=1, n_groups=2)):
+        with pytest.raises(ValueError):
+            tgreedy.greedy_stacked(*args, **kw, **{**skw, **bad})
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tgreedy.greedy_stacked(*(a.cpu() for a in args), **kw, **skw)
+
+
+def _stacked_problems(n, theta):
+    """The reference's serving mix: plain, candidates, a budget, plain."""
+    cand = np.arange(n) % 3 == 0
+    costs = (1 + np.arange(n) % 5).astype(np.float32)
+    return [IMProblem(k=5, theta=theta),
+            IMProblem(k=3, theta=theta, candidates=np.flatnonzero(cand)),
+            IMProblem(k=None, budget=2.5, costs=costs, theta=theta),
+            IMProblem(k=4, theta=theta)]
+
+
+@pytest.mark.cuda
+def test_solve_stacked_and_execute_batch_on_card_equal_solo(card):
+    """solve_stacked on the card equals the solo solves (one greedy_stacked
+    launch for the batch), and equals the same batch on the CPU;
+    execute_batch stacks all but the top-1 rider."""
+    from repro_torch.serve import execute_batch
+    probs = _stacked_problems(1500, 1024)
+    solo = IMMSolver(_graph(card), batch=256, seed=0, device=card)
+    want = [solo.solve_problem(p) for p in probs]
+    stk = IMMSolver(_graph(card), batch=256, seed=0, device=card)
+    stk.sample_until(1024)
+    ops.reset_launch_counts()
+    got = stk.solve_stacked(probs)
+    counts = ops.launch_counts()
+    assert counts["greedy_stacked"] == 1
+    assert counts["greedy_flat"] == counts["greedy_flat_variant"] == 0
+    cpu = IMMSolver(_graph("cpu"), batch=256, seed=0,
+                    device="cpu").solve_stacked(probs)
+    for a, b, c in zip(want, got, cpu):
+        for x in (b, c):
+            assert np.array_equal(a.seeds, x.seeds)
+            assert np.array_equal(a.gains, x.gains)
+            assert (a.frac, a.spread, a.cost) == (x.frac, x.spread, x.cost)
+    stats = {}
+    batch = probs + [IMProblem(k=1, theta=1024)]
+    res = execute_batch(IMMSolver(_graph(card), batch=256, seed=0,
+                                  device=card), batch, stats_out=stats)
+    ref_res = execute_batch(IMMSolver(_graph(card), batch=256, seed=0,
+                                      device=card), batch, stacked=False)
+    for a, b in zip(ref_res, res):
+        assert np.array_equal(a.seeds, b.seeds)
+        assert (a.frac, a.spread, a.cost) == (b.frac, b.spread, b.cost)
+    assert stats == {"stacked_batches": 1, "stacked_requests": 4}

@@ -29,6 +29,10 @@ from repro_torch.core.engine import make_engine
 from repro_torch.graph import csr, generators, weights
 from repro_torch.kernels import ref
 
+# one intra-op thread: the tier-1 run's six pytest-xdist workers would
+# otherwise start a thread a core each and oversubscribe the CPU
+torch.set_num_threads(1)
+
 CPU = "cpu"
 P_MIN = 0.01
 SIGMA = 5.0

@@ -37,6 +37,10 @@ from repro_torch.core.rrset import round_seed
 from repro_torch.graph import csr as tcsr, weights as tw
 from repro_torch.kernels import ops as tops, ref as tref
 
+# one intra-op thread: the tier-1 run's six pytest-xdist workers would
+# otherwise start a thread a core each and oversubscribe the CPU
+torch.set_num_threads(1)
+
 CPU = "cpu"
 P_MIN = 0.01        # KS acceptance, as test_conformance.py
 SIGMA = 5.0         # two-sample bound, as test_conformance.py

@@ -19,6 +19,10 @@ from repro.kernels import ops as jops, ref as jref
 from repro_torch.kernels import flashattn as tflash
 from repro_torch.kernels import ops as tops, ref as tref
 
+# one intra-op thread: the tier-1 run's six pytest-xdist workers would
+# otherwise start a thread a core each and oversubscribe the CPU
+torch.set_num_threads(1)
+
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 

@@ -27,6 +27,10 @@ from repro_torch.core import sketch as tsketch
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 
+# one intra-op thread: the tier-1 run's six pytest-xdist workers would
+# otherwise start a thread a core each and oversubscribe the CPU
+torch.set_num_threads(1)
+
 CPU = "cpu"
 FOLD_THREADS = 128          # csrc/sketch.cu: kFoldThreads, rows of a block
 

@@ -14,6 +14,10 @@ from repro.graph import csr as jcsr, generators as jgen, weights as jw
 from repro_torch import convert
 from repro_torch.graph import csr as tcsr, generators as tgen, weights as tw
 
+# one intra-op thread: the tier-1 run's six pytest-xdist workers would
+# otherwise start a thread a core each and oversubscribe the CPU
+torch.set_num_threads(1)
+
 CPU = "cpu"
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -32,6 +32,10 @@ from repro_torch.core import coverage as tcov
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import greedy as tgreedy
 
+# one intra-op thread: the tier-1 run's six pytest-xdist workers would
+# otherwise start a thread a core each and oversubscribe the CPU
+torch.set_num_threads(1)
+
 CPU = "cpu"
 THREADS = tgreedy.THREADS
 MASK32 = 0xFFFFFFFF

@@ -15,6 +15,10 @@ from repro.kernels import bernoulli as jbern, ops as jops, ref as jref
 from repro_torch.kernels import bernoulli as tbern, bitset as tbitset
 from repro_torch.kernels import ops as tops, ref as tref
 
+# one intra-op thread: the tier-1 run's six pytest-xdist workers would
+# otherwise start a thread a core each and oversubscribe the CPU
+torch.set_num_threads(1)
+
 RNG = np.random.default_rng(0)
 
 
@@ -140,7 +144,7 @@ def test_ops_dispatch_cpu_and_unknown_device():
                                     "celf_select": 0, "frontier_update": 0,
                                     "sketch_fold_rows": 0,
                                     "padded_greedy": 0, "lt_walk": 0,
-                                    "refill_bfs": 0}
+                                    "refill_bfs": 0, "greedy_stacked": 0}
     with pytest.raises(ValueError, match="no kernel"):
         tops.occur_from_bitset(torch.zeros(4, 1, dtype=torch.int32,
                                            device="meta"))

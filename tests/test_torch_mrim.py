@@ -33,6 +33,10 @@ from repro_torch.core.problem import IMProblem
 from repro_torch.graph import csr, weights
 from repro_torch.kernels import ref
 
+# one intra-op thread: the tier-1 run's six pytest-xdist workers would
+# otherwise start a thread a core each and oversubscribe the CPU
+torch.set_num_threads(1)
+
 CPU = "cpu"
 N = 60
 

@@ -29,6 +29,10 @@ from repro_torch.kernels import bitset as tbitset
 from repro_torch.kernels import flashattn as tflash
 from repro_torch.kernels import ref as tref
 
+# one intra-op thread: the tier-1 run's six pytest-xdist workers would
+# otherwise start a thread a core each and oversubscribe the CPU
+torch.set_num_threads(1)
+
 RNG = np.random.default_rng(16)
 OCCUR_CU = (Path(tbitset.__file__).resolve().parent / "csrc" / "occur.cu")
 GROUP = 16          # kGroup

@@ -31,6 +31,10 @@ from repro_torch.core import coverage as tcov
 from repro_torch.kernels import membership as tmem
 from repro_torch.kernels import ops as tops, ref as tref
 
+# one intra-op thread: the tier-1 run's six pytest-xdist workers would
+# otherwise start a thread a core each and oversubscribe the CPU
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 

@@ -46,6 +46,10 @@ from repro_torch.graph import csr, generators, weights
 from repro_torch.kernels import ops
 from repro_torch.kernels import queue as tqueue
 
+# one intra-op thread: the tier-1 run's six pytest-xdist workers would
+# otherwise start a thread a core each and oversubscribe the CPU
+torch.set_num_threads(1)
+
 CPU = "cpu"
 WARP = 32
 GOLDEN = np.uint32(0x9E3779B9)

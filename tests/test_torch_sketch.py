@@ -28,6 +28,10 @@ from repro_torch import convert
 from repro_torch.core import coverage as tcov, sketch as tsketch
 from repro_torch.kernels import ops as tops, ref as tref, sketch as tks
 
+# one intra-op thread: the tier-1 run's six pytest-xdist workers would
+# otherwise start a thread a core each and oversubscribe the CPU
+torch.set_num_threads(1)
+
 CPU = "cpu"
 RNG = np.random.default_rng(12)
 
@@ -158,7 +162,7 @@ def test_ops_dispatch_counts_no_cpu_launch_and_wrappers_need_card():
         "celf_apply": 0, "celf_eval[weighted]": 0,
         "celf_apply[weighted]": 0, "celf_select": 0, "frontier_update": 0,
         "sketch_fold_rows": 0, "padded_greedy": 0, "lt_walk": 0,
-        "refill_bfs": 0}
+        "refill_bfs": 0, "greedy_stacked": 0}
     with pytest.raises(ValueError, match="CUDA kernel"):
         tks.sketch_scatter_or(words, torch.tensor([1]), torch.tensor([3]))
     with pytest.raises(ValueError, match="CUDA kernel"):

@@ -25,6 +25,10 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops as tops, ref as tref
 
+# one intra-op thread: the tier-1 run's six pytest-xdist workers would
+# otherwise start a thread a core each and oversubscribe the CPU
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 TWO32 = 1 << 32
 

@@ -37,6 +37,10 @@ from repro_torch.graph import csr as tcsr, weights as tw
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bernoulli import counter_uniform_u32
 
+# one intra-op thread: the tier-1 run's six pytest-xdist workers would
+# otherwise start a thread a core each and oversubscribe the CPU
+torch.set_num_threads(1)
+
 CPU = "cpu"
 N = 300
 
