@@ -271,7 +271,30 @@ Phases, each of which raises on failure (non-zero exit):
    stacked: one ``greedy_stacked``, no solo greedy) equal to
    ``execute_batch(stacked=False)`` in every field, ``stats_out`` one
    batch of eight; the eight selections stacked and solo in turns
-   (``stacked_solve:``); ``greedy_stacked``'s record at that batch.
+   (``stacked_solve:``); ``greedy_stacked``'s record at that batch;
+19. durability and streaming (:func:`durability_phase`), on the stand-in
+   with ``sketch_k=1024`` on the exact store: the plain solve (equal to
+   phase 5); a ``checkpoint_every=5`` solve that crashes at its twelfth
+   sample, restored into a fresh solver and finished, and restored in a
+   new Python process (``subprocess``, the cached kernel build), each
+   equal to the plain solve in every field (``ckpt:`` with the
+   ``save_pool``/``restore_pool`` seconds and the checkpoint's bytes);
+   ``FaultInjector(rate=0.1, seed=0)`` at every site, equal in every
+   field but the pool bytes a ``grow`` fallback may change (``faults:``);
+   ``evict_earliest_rounds(5)``, ``evict_to_bytes`` (half the pool's
+   bytes) and ``evict_rows_containing`` (the delta's affected nodes) on
+   the card, each equal to the same eviction on the CPU from the same
+   ``state()``, the first rebuild's ``sketch_scatter_or`` byte for byte
+   against its plain version, and the compaction that drops nothing
+   equal to the incremental fold's words (``eviction:``); ``deadline_s=0``
+   on the sketch pool (K ``sketch_union_popcount`` and ``popcount_words``
+   sweeps, equal to the CPU run of the same checkpoint) and on phase 5's
+   pool without a sketch, each with K seeds and its forward Monte Carlo
+   inside ``[0.9 lo, 1.1 hi]`` (``degraded:``); and a delta of 1,000
+   removals and 1,000 additions (p = 0.1) from ``default_rng(0)``:
+   ``resolve_incremental`` against a cold solve on the post-delta graph,
+   both RIS estimates within 10% of a 256-simulation forward Monte Carlo,
+   the round cursor never rewound (``streaming:``).
 
 The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
 the exact path's final bit matrix, masked on the first seed's rows as the
@@ -293,13 +316,17 @@ phase-15 records (named ``queue_bfs[weighted]``,
 ``greedy_sketch[candidates]``: a kernel on the operands of a path of its
 own); ``greedy_stacked`` at phase 18's batch, with the same rows' time as
 solo launches (``solo_launches_ms``) and its barrier floor;
+``sketch_scatter_or`` at phase 19's first eviction rebuild (its record at
+the approximate path's first round goes on a
+``sketch_scatter_or_approximate:`` line);
 the union popcount's record at the approximate sketch goes on a
 ``sketch_union_popcount_approximate:`` line); launches from each path's
-run (``bitset_or``, ``bitset_andnot``, ``sketch_scatter_or`` and
-``membership_rows``: 0, no path launches them; the kernels of
-:data:`SHARED_PATH_KERNELS` the sum over phase 5's solve, the packed
-sampler, the early exit's gate and phase 15's two CELF variant solves,
-each path's count under ``launches_from``); each with
+run (``bitset_or``, ``bitset_andnot`` and ``membership_rows``: 0, no
+path launches them; the kernels of :data:`SHARED_PATH_KERNELS` the sum
+over phase 5's solve, the packed sampler, the early exit's gate, phase
+15's two CELF variant solves, MRIM's and phase 19's evictions, degraded
+answer and incremental solve, each path's count under
+``launches_from``); each with
 ``ms``, ``device_ms``,
 ``device_other_ms`` and ``enqueue_us`` from :func:`timing`;
 ``bernoulli_edges`` with its trial's instructions by class as the built
@@ -320,9 +347,11 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import asdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -351,11 +380,15 @@ from repro_torch.core import lt as lt_mod  # noqa: E402
 from repro_torch.core import roots  # noqa: E402
 from repro_torch.core import rrset  # noqa: E402
 from repro_torch.core import sketch as sketch_mod  # noqa: E402
+from repro_torch.core import stream  # noqa: E402
+from repro_torch.ckpt import checkpoint as ckpt_mod  # noqa: E402
 from repro_torch.core.engine import make_engine  # noqa: E402
 from repro_torch.core.imm import IMMSolver  # noqa: E402
 from repro_torch.core.packing import to_int32_bits  # noqa: E402
 from repro_torch.core.problem import IMProblem  # noqa: E402
 from repro_torch.core.rrset import EC_DEFAULT, round_seed  # noqa: E402
+from repro_torch.ft.failures import (FaultInjector, FaultPolicy,  # noqa: E402
+                                     InjectedFailure)
 from repro_torch.graph import csr, generators, weights  # noqa: E402
 from repro_torch.kernels import _build, bitset, ops, ref  # noqa: E402
 from repro_torch.kernels import celf as celf_mod  # noqa: E402
@@ -3017,7 +3050,7 @@ VARIANT_SELECTIONS = ("flat", "bitset", "celf")
 # kernels that more than one path launches: their records count each
 # path's launches (``launches_from``)
 SHARED_PATH_KERNELS = ("celf_eval", "celf_apply", "sketch_union_popcount",
-                       "popcount_words")
+                       "popcount_words", "sketch_scatter_or")
 VARIANT_CELF_SKETCH_K = 1024
 CHI2_P_MIN = 1e-3
 
@@ -4436,6 +4469,443 @@ def stacked_phase(g, queue_store) -> list:
     return [rec]
 
 
+# phase 19: durability and streaming on the stand-in
+DURABLE_SKETCH_K = 1024
+CKPT_EVERY = 5
+CRASH_AT_SAMPLE = 12       # past the checkpoint at round 10
+CHAOS_RATE = 0.1
+EVICT_ROUNDS = 5
+DELTA_EDGES, DELTA_P = 1000, 0.1
+STREAM_MC_SIMS = 256
+RESTORE_CODE = """
+import json, sys
+sys.path.insert(0, {root!r})
+import torch
+import chip_smoke as cs
+dev = torch.device({dev!r})
+solver = cs.IMMSolver(cs.stand_in_graph(dev), **cs.durable_options(dev))
+step = solver.restore_pool({ckpt!r})
+res = solver.solve(cs.IMProblem(k=cs.K, eps=cs.EPS))
+print(json.dumps({{"step": step, "fields": cs.full_fields(res),
+                   "launches": {{k: v for k, v in
+                                 cs.ops.launch_counts().items() if v}}}}))
+"""
+
+
+def stand_in_graph(dev):
+    """The epinions-like stand-in: BA(75,879, 4) with WC weights."""
+    src, dst = generators.barabasi_albert(N_NODES, BA_R, seed=0)
+    return weights.wc_weights(csr.from_edges(src, dst, N_NODES, device=dev))
+
+
+def durable_options(dev) -> dict:
+    """Phase 19's solver options: phase 5's, with the exact store's
+    sketch."""
+    return dict(engine="queue", batch=BATCH, seed=0,
+                sketch_k=DURABLE_SKETCH_K, device=dev)
+
+
+def full_fields(res) -> dict:
+    """Every field of a result, its stats included, as JSON values."""
+    return json.loads(json.dumps({**result_fields(res),
+                                  "degraded": res.degraded,
+                                  "stats": asdict(res.stats)}))
+
+
+def states_equal(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and a[k].tobytes() == b[k].tobytes() for k in a)
+
+
+def stream_deltas(g):
+    """The streaming delta from ``default_rng(0)``: DELTA_EDGES removals
+    drawn uniformly from the graph's edges, and DELTA_EDGES additions at
+    uniform pairs u != v with p = DELTA_P."""
+    rng = np.random.default_rng(0)
+    src, dst, _ = csr.to_edges(g)
+    n = g.n_nodes
+    rm = rng.choice(src.shape[0], DELTA_EDGES, replace=False)
+    a_s = rng.integers(0, n, DELTA_EDGES)
+    a_d = (a_s + rng.integers(1, n, DELTA_EDGES)) % n
+    return ((a_s, a_d, np.full(DELTA_EDGES, DELTA_P, np.float32)),
+            (src[rm], dst[rm]))
+
+
+def live_launches() -> dict:
+    return {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def checkpoint_phase(g, want: dict, tmp: Path) -> Path:
+    """19.2: a ``checkpoint_every=5`` solve that crashes at its twelfth
+    sample, restored into a fresh solver and finished, and restored in a
+    new process: each equal to the plain solve in every field.  Returns
+    the directory of a checkpoint of the plain solve's final pool, which
+    the timing of ``save_pool`` wrote."""
+    dev = g.device
+    mid = tmp / "mid"
+    pol = FaultPolicy(injector=FaultInjector(
+        fail_at={"sample": {CRASH_AT_SAMPLE}}), max_retries=0,
+        sleep=lambda s: None)
+    crashed = IMMSolver(g, fault_policy=pol, checkpoint_dir=str(mid),
+                        checkpoint_every=CKPT_EVERY, **durable_options(dev))
+    try:
+        crashed.solve(IMProblem(k=K, eps=EPS))
+    except InjectedFailure:
+        pass
+    else:
+        raise AssertionError("the injected crash did not fire")
+    crash_round = crashed.stats.rounds
+    del crashed
+    step = ckpt_mod.latest_step(str(mid))
+    resumed = IMMSolver(g, **durable_options(dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed.restore_pool(str(mid))
+    torch.cuda.synchronize()
+    restore_mid_s = time.perf_counter() - t0
+    got = full_fields(resumed.solve(IMProblem(k=K, eps=EPS)))
+    if got != want:
+        raise AssertionError(f"the restored solve differs from the plain "
+                             f"one: {got} vs {want}")
+    # save and restore the whole final pool, timed
+    final = tmp / "final"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = Path(resumed.save_pool(str(final)))
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in path.iterdir())
+    again = IMMSolver(g, **durable_options(dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again.restore_pool(str(final))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if not states_equal(again.store.state(), resumed.store.state()) \
+            or again.store.flat.device.type != dev.type:
+        raise AssertionError("save/restore changed the pool or its device")
+    # the same mid-stream checkpoint in a new Python process
+    t0 = time.perf_counter()
+    sub = subprocess.run(
+        [sys.executable, "-c", RESTORE_CODE.format(
+            root=str(ROOT), ckpt=str(mid), dev=dev.type)],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    sub_s = time.perf_counter() - t0
+    if sub.returncode:
+        raise AssertionError(f"the restore in a new process failed: "
+                             f"{sub.stderr[-3000:]}")
+    out = json.loads(sub.stdout.strip().splitlines()[-1])
+    if out["fields"] != want or out["step"] != step:
+        raise AssertionError(f"the restore in a new process differs: {out}")
+    say("ckpt", {"checkpoint_every": CKPT_EVERY,
+                 "crash_at_sample": CRASH_AT_SAMPLE,
+                 "crash_round": crash_round, "restored_step": step,
+                 "restore_mid_s": restore_mid_s,
+                 "resumed_equals_plain": True,
+                 "new_process_equals_plain": True,
+                 "new_process_s": sub_s,
+                 "new_process_launches": out["launches"],
+                 "final_step": int(path.name[5:]), "save_pool_s": save_s,
+                 "restore_pool_s": restore_s, "checkpoint_bytes": nbytes,
+                 "pool_bytes": again.pool_bytes()})
+    return final
+
+
+def fault_phase(g, want: dict) -> None:
+    """19.3: chaos at every site, rate 0.1, no sleeps: equal to the plain
+    solve in every field but the pool bytes, which a ``grow`` fault's
+    fallback to the exact footprint may change."""
+    pol = FaultPolicy(injector=FaultInjector(rate=CHAOS_RATE, seed=0),
+                      sleep=lambda s: None)
+    t0 = time.perf_counter()
+    res = IMMSolver(g, fault_policy=pol,
+                    **durable_options(g.device)).solve(IMProblem(k=K, eps=EPS))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = full_fields(res)
+    bytes_ = (got["stats"].pop("per_device_pool_bytes"),
+              dict(want["stats"]).pop("per_device_pool_bytes"))
+    if got != dict(want, stats={k: v for k, v in want["stats"].items()
+                                if k != "per_device_pool_bytes"}):
+        raise AssertionError(f"a solve with injected faults differs: {got}")
+    by_site: dict = {}
+    for site, _ in pol.injector.fired_log:
+        by_site[site] = by_site.get(site, 0) + 1
+    say("faults", {"rate": CHAOS_RATE, "fires": pol.injector.fires,
+                   "fires_by_site": by_site,
+                   "crossings": pol.injector.counts,
+                   "retries": pol.retries, "gave_up": pol.gave_up,
+                   "oom_recoveries": pol.oom_recoveries,
+                   "pool_bytes_faulty_vs_plain": list(bytes_),
+                   "equals_plain": True, "solve_s": secs})
+    if pol.retries != pol.injector.fires or pol.gave_up:
+        raise AssertionError(f"chaos: {pol.retries} retries for "
+                             f"{pol.injector.fires} fires")
+
+
+def scatter_record(words, v, b, launches=None, iters=20, plain_iters=3):
+    """``sketch_scatter_or`` at a rebuild's pairs into zeroed words, byte
+    for byte against its plain version; its record."""
+    got = ops.sketch_scatter_or(torch.zeros_like(words), v, b)
+    want = ref.sketch_scatter_or_ref(torch.zeros_like(words), v, b)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err or not torch.equal(got, want) or not torch.equal(got, words):
+        raise AssertionError(f"the rebuild's sketch_scatter_or != its plain "
+                             f"version or the rebuilt words: {err}")
+    scratch = torch.zeros_like(words)
+    rows, cols = words.shape
+    return record("sketch_scatter_or", launches, err,
+                  timing("sketch_scatter_or",
+                         lambda: ops.sketch_scatter_or(scratch, v, b), iters),
+                  cuda_ms(lambda: ref.sketch_scatter_or_ref(scratch, v, b),
+                          plain_iters), scatter_bound_ms(words, v, b),
+                  shape=[rows, cols], pairs=v.numel(),
+                  path="phase 19's first eviction rebuild")
+
+
+def eviction_phase(store, aff) -> tuple:
+    """19.4: the three evictions on a card copy of the plain solve's pool,
+    each equal (stats and ``state()``) to the same eviction on a CPU copy;
+    the first rebuild's ``sketch_scatter_or`` against its plain version;
+    the compaction that drops nothing equal to the incremental fold.
+    Returns the scatter's record and the launches of the evictions."""
+    state, cfg = store.state(), store.config()
+    card = cov.DeviceRRStore.from_state(state, cfg, device=store.device)
+    host = cov.DeviceRRStore.from_state(state, cfg, device="cpu")
+    evictions = (
+        ("evict_earliest_rounds",
+         lambda st, _: st.evict_earliest_rounds(EVICT_ROUNDS)),
+        ("evict_to_bytes", lambda st, half: st.evict_to_bytes(half)),
+        ("evict_rows_containing",
+         lambda st, _: st.evict_rows_containing(aff)))
+    steps, states, first = [], [], None
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for name, fn in evictions:
+        half = card.per_device_pool_bytes() // 2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = fn(card, half)
+        torch.cuda.synchronize()
+        steps.append({"eviction": name, **stats, "bound": half,
+                      "seconds": time.perf_counter() - t0,
+                      "n_rounds": card.n_rounds})
+        states.append(card.state())
+        if first is None:
+            t = card.n_elems
+            first = (card.sketch_words().clone(), card.flat[:t].clone(),
+                     card.ids[:t].clone())
+    evict_launches = ops.launch_counts()
+    # the same evictions on the CPU, from the same state
+    for (name, fn), step, want in zip(evictions, steps, states):
+        got = fn(host, step["bound"])
+        if any(step[k] != v for k, v in got.items()) \
+                or not states_equal(host.state(), want):
+            raise AssertionError(f"{name} on the card != on the CPU: "
+                                 f"{step} vs {got}")
+    # the compaction that drops nothing: evict_to_bytes's rewrite when
+    # the pool has append headroom, else the same rewrite called alone
+    comp = cov.DeviceRRStore.from_state(state, cfg, device=store.device)
+    tight = comp.capacity == cov._ceil_pow2(max(comp.n_elems, 1))
+    ops.reset_launch_counts()
+    if tight:
+        st = comp._rewrite(*comp._live(), comp.n_rr)
+    else:
+        st = comp.evict_to_bytes(comp.per_device_pool_bytes() - 1)
+    comp_launches = live_launches()
+    if st["rows_dropped"] or not torch.equal(comp.sketch_words(),
+                                             store.sketch_words()):
+        raise AssertionError(f"the compaction changed the fold: {st}")
+    words, v, ids = first
+    rec = scatter_record(words, v, sketch_mod.bucket_of(
+        ids, store.sketch_k, store.sketch_mode))
+    say("eviction", {"pool_rows": store.n_rr, "pool_elements": store.n_elems,
+                     "pool_capacity": store.capacity, "steps": steps,
+                     "equals_cpu": True, "launches": {
+                         k: v for k, v in evict_launches.items() if v},
+                     "compaction": {**st, "via": "_rewrite" if tight
+                                    else "evict_to_bytes",
+                                    "equals_fold": True,
+                                    "launches": comp_launches}})
+    if evict_launches["sketch_scatter_or"] != 3:
+        raise AssertionError(f"three rebuilds launched "
+                             f"{evict_launches['sketch_scatter_or']} "
+                             "sketch_scatter_or")
+    return rec, {k: v + comp_launches.get(k, 0)
+                 for k, v in evict_launches.items()}
+
+
+def degraded_phase(g, solver, plain_solver, final: Path) -> dict:
+    """19.5: ``deadline_s=0`` on the sketch pool (K sweeps, equal to the CPU
+    run of the same checkpoint) and on phase 5's pool without a sketch;
+    K distinct seeds each, the spread inside its bounds and the forward
+    Monte Carlo inside [0.9 lo, 1.1 hi].  Returns the sketch run's
+    launches."""
+    out, launches = {}, None
+    host = IMMSolver(g.to("cpu"), **durable_options("cpu"))
+    host.restore_pool(str(final))
+    for name, s in (("sketch", solver), ("no_sketch", plain_solver)):
+        p = IMProblem(k=K, theta=s.stats.theta)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = s.solve_problem(p, deadline_s=0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = live_launches()
+        lo, hi = res.spread_bounds
+        t0 = time.perf_counter()
+        mc = forward.ic_spread(g, res.seeds, n_sims=MC_SIMS, seed=4)
+        out[name] = {"seeds": res.seeds.tolist()[:10], "n_seeds":
+                     len(res.seeds), "spread": res.spread, "bounds": [lo, hi],
+                     "frac": res.frac, "mc_spread": mc, "mc_sims": MC_SIMS,
+                     "mc_s": time.perf_counter() - t0, "seconds": secs,
+                     "launches": got}
+        if not res.degraded or len(set(res.seeds.tolist())) != K \
+                or not lo <= res.spread <= hi \
+                or not 0.9 * lo <= mc <= 1.1 * hi:
+            raise AssertionError(f"degraded {name}: {out[name]}")
+        if name == "sketch":
+            launches = got
+            want = host.solve_problem(p, deadline_s=0)
+            if full_fields(res) != full_fields(want):
+                raise AssertionError("the degraded sweeps on the card != the "
+                                     "CPU run of the same checkpoint")
+            out[name]["equals_cpu"] = True
+            if got.get("sketch_union_popcount") != K \
+                    or got.get("popcount_words") != K:
+                raise AssertionError(f"degraded sketch launches {got}")
+        elif got.get("sketch_union_popcount") or got.get("popcount_words"):
+            raise AssertionError(f"degraded without a sketch launched {got}")
+    say("degraded", out)
+    return launches
+
+
+def covered_spread(store, seeds) -> float:
+    """n times the share of the store's rows that hold one of ``seeds``:
+    the RIS estimate of ``seeds`` on that pool."""
+    t = store.n_elems
+    hit = torch.isin(store.flat[:t], torch.as_tensor(
+        np.asarray(seeds), dtype=torch.int32, device=store.flat.device))
+    rows = torch.unique(store.ids[:t][hit]).numel()
+    return store.n_nodes * rows / store.n_rr
+
+
+def streaming_phase(g, solver) -> dict:
+    """19.6: ``resolve_incremental`` of the stand-in's delta on the plain
+    solve's pool against a cold solve on the post-delta graph, with a
+    256-simulation forward Monte Carlo of both seed sets on the new graph.
+
+    The cold estimate must lie within MC_TOL of its Monte Carlo.  The
+    incremental pool is the reference's mixture (DESIGN.md §9.5): the kept
+    rows are exact samples conditioned on avoiding the affected nodes, so
+    its estimate may sit below the true spread by up to n·β·P(touch) (β
+    the kept rows' share of the final pool, P(touch) the share of the
+    old pool that the delta dropped), the total-variation allowance the
+    reference documents; it must lie inside that allowance plus MC_TOL,
+    and its seeds, scored on the unbiased cold pool as the reference's
+    streaming check scores them, within MC_TOL of their Monte Carlo.  The
+    round cursor must move on by the top-up's rounds.  Returns the
+    incremental solve's launches."""
+    deltas = stream_deltas(g)
+    cursor0 = solver._cursor
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    inc = solver.resolve_incremental(IMProblem(k=K, eps=EPS), deltas)
+    torch.cuda.synchronize()
+    inc_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    info = dict(solver.last_incremental)
+    new_g = solver.g
+    t0 = time.perf_counter()
+    cold_solver = IMMSolver(new_g, **durable_options(g.device))
+    torch.cuda.synchronize()
+    cold_setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold = cold_solver.solve(IMProblem(k=K, eps=EPS))
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    mc = {name: forward.ic_spread(new_g, r.seeds, n_sims=STREAM_MC_SIMS,
+                                  seed=5)
+          for name, r in (("incremental", inc), ("cold", cold))}
+    rel = {name: abs(r.spread - mc[name]) / mc[name]
+           for name, r in (("incremental", inc), ("cold", cold))}
+    rescored = covered_spread(cold_solver.store, inc.seeds)
+    rescored_rel = abs(rescored - mc["incremental"]) / mc["incremental"]
+    beta = info["rows_kept"] / solver.store.n_rr
+    touch = info["rows_dropped"] / max(info["n_rr_before"], 1)
+    allowance = g.n_nodes * beta * touch
+    inc_ok = abs(inc.spread - mc["incremental"]) <= \
+        allowance + MC_TOL * mc["incremental"]
+    top_up = solver._cursor - cursor0
+    say("streaming", {
+        **info, "edges_before": g.n_edges, "edges_after": new_g.n_edges,
+        "resolve_incremental_s": inc_s, "cold_setup_s": cold_setup_s,
+        "cold_solve_s": cold_s, "incremental_rounds": inc.stats.rounds,
+        "cold_rounds": cold.stats.rounds, "cursor_before": cursor0,
+        "cursor_after": solver._cursor, "incremental_theta":
+            inc.stats.theta, "cold_theta": cold.stats.theta,
+        "incremental_n_rr": solver.store.n_rr,
+        "incremental_spread": inc.spread, "cold_spread": cold.spread,
+        "mc_spread": mc, "mc_sims": STREAM_MC_SIMS, "rel_err": rel,
+        "within_mc_tol": {k: v < MC_TOL for k, v in rel.items()},
+        "kept_share_beta": beta, "touch_share": touch,
+        "tv_allowance_spread": allowance,
+        "incremental_inside_allowance": inc_ok,
+        "incremental_seeds_on_cold_pool": rescored,
+        "incremental_seeds_on_cold_pool_rel_err": rescored_rel,
+        "launches": {k: v for k, v in launches.items() if v},
+        "seeds_incremental": inc.seeds.tolist()[:10],
+        "seeds_cold": cold.seeds.tolist()[:10]})
+    if not info["reused"] or top_up != inc.stats.rounds or not inc_ok \
+            or rel["cold"] >= MC_TOL or rescored_rel >= MC_TOL \
+            or len(set(inc.seeds.tolist())) != K:
+        raise AssertionError(f"streaming: {info}, top-up {top_up} rounds of "
+                             f"{inc.stats.rounds}, rel err {rel}, on the "
+                             f"cold pool {rescored_rel}, allowance "
+                             f"{allowance}")
+    return launches
+
+
+def durability_phase(g, queue_res, plain_solver) -> tuple:
+    """Phase 19 (see the module docstring).  Returns the record of
+    ``sketch_scatter_or`` at the first eviction's rebuild and the launches
+    of the eviction, degraded and incremental paths."""
+    dev = g.device
+    t19 = time.perf_counter()
+    solver = IMMSolver(g, **durable_options(dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solver.solve(IMProblem(k=K, eps=EPS))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    want = full_fields(res)
+    if want["seeds"] != [int(x) for x in queue_res.seeds] \
+            or want["frac_f32"] != np.float32(queue_res.frac).tobytes().hex():
+        raise AssertionError("the sketch_k=1024 solve differs from phase 5")
+    say("durable_plain", {"solve_s": plain_s, "rounds": res.stats.rounds,
+                          "n_rr": solver.store.n_rr,
+                          "pool_capacity": solver.store.capacity,
+                          "sketch_k": DURABLE_SKETCH_K})
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        final = checkpoint_phase(g, want, Path(tmp))
+        fault_phase(g, want)
+        aff = stream.affected_nodes(stream.make_deltas(*stream_deltas(g)))
+        rec, evict_launches = eviction_phase(solver.store, aff)
+        degraded_launches = degraded_phase(g, solver, plain_solver, final)
+    inc_launches = streaming_phase(g, solver)
+    say("phase19", {"seconds": time.perf_counter() - t19})
+    return [rec], {"phase 19's evictions (3) and compaction":
+                   evict_launches,
+                   "phase 19's degraded answer (sketch pool)":
+                   degraded_launches,
+                   "phase 19's incremental solve": inc_launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -4522,8 +4992,7 @@ def main() -> int:
     say("greedy_sketch_random", greedy_checks)
     del words, cov_words, v, b
     # the dense path's kernels at its shapes (random data), and ragged
-    src, dst = generators.barabasi_albert(N_NODES, BA_R, seed=0)
-    g = weights.wc_weights(csr.from_edges(src, dst, N_NODES, device=dev))
+    g = stand_in_graph(dev)
     n_pad = ((N_NODES + 31) // 32) * 32
     say("dense_kernels_at_path_shapes", check_dense_kernels(
         torch.rand(BATCH, n_pad, device=dev, generator=gen) < 0.5,
@@ -4674,15 +5143,26 @@ def main() -> int:
 
     # 18. the stacked selection and the serving batch executor
     stacked_recs = stacked_phase(g, store)
+
+    # 19. durability and streaming
+    durable_recs, durable_launches = durability_phase(g, res, solver)
+    # sketch_scatter_or's record is the eviction rebuild's; the
+    # approximate path's (no path launches it there) stays on a line of
+    # its own
+    scatter_approx = [r for r in approx_records
+                      if r["name"] == "sketch_scatter_or"]
+    say("sketch_scatter_or_approximate", scatter_approx)
+    approx_records = [r for r in approx_records if r not in scatter_approx]
     # the kernels that several paths launch: their launches by path
     paths = {"phase 5's exact solve": launches,
              "phase 10's packed sampler": {r["name"]: r["launches"] or 0
                                            for r in dense_recs},
              "phase 14's early exit gate (16,384 buckets)": gate_launches,
-             **celf_variant_launches, **mrim_launches}
+             **celf_variant_launches, **mrim_launches, **durable_launches}
     kernels = records + approx_records + dense_recs + padded_recs \
         + flash_recs + queue_recs + greedy_recs + celf_recs + variant_recs \
-        + lt_recs + dedup_recs + refill_recs + mrim_recs + stacked_recs
+        + lt_recs + dedup_recs + refill_recs + mrim_recs + stacked_recs \
+        + durable_recs
     for rec in kernels:
         if rec["name"] in SHARED_PATH_KERNELS:
             rec["launches_from"] = {path: counts.get(rec["name"], 0)

@@ -83,6 +83,7 @@ from repro_torch.core import sketch as sketch_mod
 from repro_torch.core.packing import bit_values, rank_positions
 from repro_torch.core.variant import VariantScan, row_weights, weighted_occur
 from repro_torch.device import resolve_device
+from repro_torch.ft.failures import PoolAllocError
 from repro_torch.kernels import ops as kops
 
 _PACK = 1 << 15   # growth headroom of a wide append (the reference's _PACK)
@@ -90,6 +91,43 @@ _PACK = 1 << 15   # growth headroom of a wide append (the reference's _PACK)
 
 def _ceil_pow2(x: int) -> int:
     return 1 << max(x - 1, 0).bit_length()
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _shard0(a, dtype, shape: tuple, device) -> torch.Tensor:
+    """Shard 0 of a (1, ...) state array, checked against ``shape`` and
+    ``dtype``, as a tensor on ``device``."""
+    a = _host(a)
+    if a.shape != (1,) + shape or a.dtype != dtype:
+        raise ValueError(f"state array must be {(1,) + shape} "
+                         f"{np.dtype(dtype)}, got {a.shape} {a.dtype}")
+    return torch.from_numpy(np.array(a[0])).to(device)
+
+
+def _uint32_words(words: torch.Tensor) -> np.ndarray:
+    """(1, R, W) uint32 host copy of int32 sketch words (the reference's
+    state layout, the same bits)."""
+    return words.cpu().numpy().view(np.uint32)[None]
+
+
+def _int32_words(words, shape, device) -> torch.Tensor:
+    """int32 sketch words of ``shape`` on ``device`` from the reference's
+    (1, R, W) uint32 state words or from (R, W) int32 words (a tensor stays
+    on its device until it moves to ``device``)."""
+    if not isinstance(words, torch.Tensor):
+        a = np.asarray(words)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        words = torch.from_numpy(np.array(a))
+    if words.dim() == 3 and words.shape[0] == 1:
+        words = words[0]
+    if words.dtype != torch.int32 or tuple(words.shape) != tuple(shape):
+        raise ValueError(f"sk_words must be {tuple(shape)} int32, got "
+                         f"{tuple(words.shape)} {words.dtype}")
+    return words.to(device).contiguous()
 
 
 class CoverageResult(NamedTuple):
@@ -164,6 +202,15 @@ class DeviceRRStore(_FoldedSketch):
         self.fold_error = torch.zeros(1, dtype=torch.int32,
                                       device=self.device)
         self._sk_cache = None   # on-demand sketch (no incremental one)
+        # the growth gate, called (store, newcap) before any growth
+        # allocation; it may raise PoolAllocError (the fault policy's
+        # "grow" site), and the append has mutated nothing by then, so a
+        # refused growth is retryable
+        self.alloc_check = None
+        # rows and elements of each append that added rows (a sampling
+        # round): the granularity of windowed eviction, oldest first
+        self._round_rows: list[int] = []
+        self._round_elems: list[int] = []
 
     @property
     def n_rr(self) -> int:
@@ -176,6 +223,11 @@ class DeviceRRStore(_FoldedSketch):
     @property
     def capacity(self) -> int:
         return int(self.flat.shape[0])
+
+    @property
+    def n_rounds(self) -> int:
+        """Sampling rounds (appends that added rows) still in the pool."""
+        return len(self._round_rows)
 
     def per_device_pool_bytes(self) -> int:
         """Pool bytes on the device: flat, ids and valid (9 bytes a slot),
@@ -199,7 +251,9 @@ class DeviceRRStore(_FoldedSketch):
         their row ids from the prefix sum of the non-empty rows.  A wide
         batch (``R*W > 2^15`` holding at most 2^15 elements) reserves 2^15
         elements of headroom before it grows the buffers, as the
-        reference's packed append does.
+        reference's packed append does; when that growth fails with
+        :class:`PoolAllocError` (the ``alloc_check`` gate), it grows to the
+        exact footprint instead before the failure goes up.
 
         ``row_w``, the (R,) row weights, is required on a row-weighted
         store and refused on any other: a row's weight, rounded to float32,
@@ -234,7 +288,16 @@ class DeviceRRStore(_FoldedSketch):
         wide = r * w > _PACK and elems <= _PACK
         need = self._t + (_PACK if wide else elems)
         if need > self.capacity:
-            self._grow_to(need)
+            try:
+                self._grow_to(need)
+            except PoolAllocError:
+                # the reference's fallback: retry at the exact footprint
+                # before the failure goes up to the fault policy
+                exact = self._t + elems
+                if not wide or exact >= need:
+                    raise
+                if exact > self.capacity:
+                    self._grow_to(exact)
         rid = self._nrr + row_valid.cumsum(0) - 1
         if self._sk_words is not None:
             # after the growth, before the counters move: the reference's
@@ -254,6 +317,9 @@ class DeviceRRStore(_FoldedSketch):
                 dtype=torch.float32)
         self._t += elems
         self._nrr += rows
+        if rows:
+            self._round_rows.append(rows)
+            self._round_elems.append(elems)
         self._bitset = None
         self._sk_cache = None
 
@@ -292,10 +358,14 @@ class DeviceRRStore(_FoldedSketch):
         return self._sk_cache
 
     def _grow_to(self, need: int) -> None:
-        """Double the capacity until ``need`` elements fit."""
+        """Double the capacity until ``need`` elements fit, gated by
+        ``alloc_check`` (which may raise :class:`PoolAllocError` before
+        anything is allocated)."""
         newcap = self.capacity
         while newcap < need:
             newcap *= 2
+        if self.alloc_check is not None:
+            self.alloc_check(self, newcap)
         pad = newcap - self.capacity
         self.flat = torch.cat([self.flat, torch.full(
             (pad,), self.n_nodes, dtype=torch.int32, device=self.device)])
@@ -306,6 +376,211 @@ class DeviceRRStore(_FoldedSketch):
         if self.row_weighted:
             self.ew = torch.cat([self.ew, torch.zeros(
                 pad, dtype=torch.float32, device=self.device)])
+
+    # -- checkpoint state ----------------------------------------------
+    def state(self) -> dict:
+        """The store as host numpy arrays in the layout of the reference's
+        ``ShardedDeviceRRStore.state()`` on one shard: ``flat``, ``ids``,
+        ``valid`` (and ``ew``) as (1, capacity), the counters ``t_dev``/
+        ``nrr_dev`` (1,) int32 and ``t_loc``/``nrr_loc`` (1,) int64, the
+        float32 ``w_dev`` (1,) of a row-weighted store, the sketch
+        ``sk_words`` (1, n + 1, sketch_k/32) uint32 (the bits of the int32
+        words), and the round history ``round_rows``/``round_elems``
+        (rounds, 1) int64 when there is one.  :meth:`from_state` rebuilds
+        the store from it, and so does the reference's ``from_state``."""
+        t, nrr = self._t, self._nrr
+        out = {"flat": self.flat, "ids": self.ids, "valid": self.valid}
+        if self.row_weighted:
+            out["ew"] = self.ew
+        out = {k: v.cpu().numpy()[None] for k, v in out.items()}
+        out["t_dev"] = np.array([t], np.int32)
+        out["nrr_dev"] = np.array([nrr], np.int32)
+        if self.row_weighted:
+            out["w_dev"] = self.wsum.cpu().numpy().reshape(1)
+        if self._sk_words is not None:
+            out["sk_words"] = _uint32_words(self._sk_words)
+        out["t_loc"] = np.array([t], np.int64)
+        out["nrr_loc"] = np.array([nrr], np.int64)
+        if self._round_rows:
+            out["round_rows"] = np.array(self._round_rows,
+                                         np.int64).reshape(-1, 1)
+            out["round_elems"] = np.array(self._round_elems,
+                                          np.int64).reshape(-1, 1)
+        return out
+
+    @classmethod
+    def from_state(cls, state: dict, config: dict, *, device="cuda"):
+        """A store holding ``state`` (:meth:`state`'s layout, numpy arrays
+        or tensors, the reference's one-shard state too) with the
+        construction parameters ``config`` (:meth:`config`'s), on the
+        named ``device``.  A state without a round history (saved before
+        the pool kept one) counts as one round; one whose row holds a node
+        twice raises ``ValueError`` (the samplers never write one)."""
+        if int(config.get("n_shards", 1)) != 1:
+            raise ValueError(
+                f"pool checkpoint was saved on {config['n_shards']} shard(s) "
+                "but the port's store has one; restore onto one shard")
+        cap = int(config["per_shard_capacity"])
+        store = cls(config["n_nodes"], capacity=cap,
+                    sketch_k=config["sketch_k"],
+                    sketch_mode=config["sketch_mode"],
+                    row_weighted=config["row_weighted"], device=device)
+        if store.capacity != cap:
+            raise ValueError("per-shard capacity drifted across restore")
+        dev = store.device
+        store.flat = _shard0(state["flat"], np.int32, (cap,), dev)
+        store.ids = _shard0(state["ids"], np.int32, (cap,), dev)
+        store.valid = _shard0(state["valid"], np.bool_, (cap,), dev)
+        if store.row_weighted:
+            store.ew = _shard0(state["ew"], np.float32, (cap,), dev)
+            store.wsum = _shard0(state["w_dev"], np.float32, (), dev)
+        if store._sk_words is not None:
+            store._sk_words = _int32_words(state["sk_words"],
+                                           store._sk_words.shape, dev)
+        store._t = int(np.sum(_host(state["t_loc"])))
+        store._nrr = int(np.sum(_host(state["nrr_loc"])))
+        t = store._t
+        key = store.ids[:t].to(torch.int64) * (store.n_nodes + 1) \
+            + store.flat[:t].to(torch.int64)
+        key = key.sort().values
+        if bool((key[1:] == key[:-1]).any()):
+            # the greedy scans read a step's gain off Occur, which counts
+            # newly covered rows only when a row holds each node once
+            raise ValueError("the restored pool holds a node twice in one "
+                             "row; the selections need row-unique rows")
+        rr = state.get("round_rows")
+        if rr is not None:
+            store._round_rows = [int(x) for x in _host(rr).reshape(-1)]
+            store._round_elems = [int(x) for x in
+                                  _host(state["round_elems"]).reshape(-1)]
+        elif store._nrr:
+            store._round_rows, store._round_elems = [store._nrr], [store._t]
+        return store
+
+    # -- windowed eviction ----------------------------------------------
+    def _rewrite(self, flat, ids, ew, rows: int) -> dict:
+        """Rebuild the pool from the survivors: elements ``flat`` with dense
+        renumbered row ids ``ids`` in ``[0, rows)`` (non-decreasing, in
+        pool order) and, on a row-weighted store, their weights ``ew``; all
+        on the device.  The buffers take the smallest power-of-two
+        capacity that holds them (no append headroom), the bitset and
+        sketch caches go, and the incremental sketch rebuilds from the
+        survivors (``sketch_packed_from_flat``: one ``sketch_scatter_or``
+        launch on the card), which a later append's fold continues
+        (``base = n_rr``).  The row-weighted total is the float32 sum of
+        one element's weight a row, summed in numpy as the reference sums
+        it.  Returns the reference's stats dict."""
+        old_rows, old_elems = self._nrr, self._t
+        t = int(flat.shape[0])
+        cap = _ceil_pow2(max(t, 1))
+        dev = self.device
+        self.flat = torch.full((cap,), self.n_nodes, dtype=torch.int32,
+                               device=dev)
+        self.ids = torch.zeros(cap, dtype=torch.int32, device=dev)
+        self.valid = torch.zeros(cap, dtype=torch.bool, device=dev)
+        self.flat[:t] = flat
+        self.ids[:t] = ids
+        self.valid[:t] = True
+        if self.row_weighted:
+            self.ew = torch.zeros(cap, dtype=torch.float32, device=dev)
+            self.ew[:t] = ew
+            first = torch.ones(t, dtype=torch.bool, device=dev)
+            first[1:] = ids[1:] != ids[:-1]
+            total = ew[first].cpu().numpy().sum(dtype=np.float32)
+            self.wsum = torch.tensor(np.float32(total), device=dev)
+        self._t, self._nrr = t, int(rows)
+        if self._sk_words is not None:
+            self._sk_words = sketch_mod.sketch_packed_from_flat(
+                self.flat[:t], self.ids[:t], self.valid[:t],
+                n_rows=self.sketch_rows, k=self.sketch_k,
+                mode=self.sketch_mode)
+        self._bitset = None
+        self._sk_cache = None
+        return {"rows_dropped": old_rows - self._nrr,
+                "rows_kept": self._nrr,
+                "elems_dropped": old_elems - self._t,
+                "per_shard_capacity": self.capacity}
+
+    def _live(self):
+        t = self._t
+        return (self.flat[:t], self.ids[:t],
+                self.ew[:t] if self.row_weighted else None)
+
+    def evict_earliest_rounds(self, n_rounds: int) -> dict:
+        """Drop the ``n_rounds`` earliest sampling rounds (a windowed pool).
+
+        Row ids and elements are in append order, so the earliest rounds
+        are the id prefix ``[0, thr)`` and an element prefix: the
+        survivors keep their order and renumber by one subtraction, on the
+        device.  Returns the :meth:`_rewrite` stats and
+        ``rounds_dropped``."""
+        n_rounds = max(0, min(int(n_rounds), self.n_rounds))
+        if n_rounds == 0:
+            return {"rows_dropped": 0, "rows_kept": self.n_rr,
+                    "elems_dropped": 0, "per_shard_capacity": self.capacity}
+        thr = sum(self._round_rows[:n_rounds])
+        cut = sum(self._round_elems[:n_rounds])
+        flat, ids, ew = self._live()
+        stats = self._rewrite(flat[cut:], ids[cut:] - thr,
+                              None if ew is None else ew[cut:],
+                              self._nrr - thr)
+        self._round_rows = self._round_rows[n_rounds:]
+        self._round_elems = self._round_elems[n_rounds:]
+        stats["rounds_dropped"] = n_rounds
+        return stats
+
+    def evict_to_bytes(self, max_bytes_per_device: int) -> dict:
+        """Drop the earliest rounds until :meth:`per_device_pool_bytes`
+        fits ``max_bytes_per_device``.  The latest round always stays (the
+        returned ``met`` says whether the bound holds).  When no round need
+        go but the capacity alone exceeds the bound (the append's
+        headroom), the pool compacts to the smallest power-of-two capacity
+        and keeps every row."""
+        bpe = 4 + 4 + 1 + (4 if self.row_weighted else 0)
+        elems = self._round_elems
+
+        def bytes_after(j):
+            return _ceil_pow2(max(sum(elems[j:]), 1)) * bpe
+
+        drop = 0
+        while drop < max(len(elems) - 1, 0) and \
+                bytes_after(drop) > max_bytes_per_device:
+            drop += 1
+        if drop == 0 and \
+                self.per_device_pool_bytes() > max_bytes_per_device:
+            stats = self._rewrite(*self._live(), self._nrr)
+            stats["rounds_dropped"] = 0
+        else:
+            stats = self.evict_earliest_rounds(drop)
+        stats["met"] = self.per_device_pool_bytes() <= max_bytes_per_device
+        return stats
+
+    def evict_rows_containing(self, nodes) -> dict:
+        """Drop every RR row that contains one of ``nodes`` (the
+        invalidation of ``IMMSolver.resolve_incremental``: the nodes whose
+        reverse-adjacency rows an edge delta changes,
+        :func:`repro_torch.core.stream.affected_nodes`).  The rows hit, the
+        survivors' dense renumbering and the compaction run on the device;
+        the round history becomes one round (this eviction cuts across
+        rounds).  Returns the :meth:`_rewrite` stats and
+        ``affected_nodes``."""
+        aff = np.unique(np.asarray(nodes, np.int64).reshape(-1))
+        flat, ids, ew = self._live()
+        ids = ids.to(torch.int64)
+        hit = torch.isin(flat.to(torch.int64),
+                         torch.from_numpy(aff).to(self.device))
+        bad = torch.zeros(self._nrr, dtype=torch.bool, device=self.device)
+        bad[ids[hit]] = True
+        good = ~bad
+        rank = good.cumsum(0) - 1
+        keep = good[ids]
+        stats = self._rewrite(flat[keep], rank[ids[keep]].to(torch.int32),
+                              None if ew is None else ew[keep],
+                              int(good.sum()))
+        self._round_rows = [self._nrr] if self._nrr else []
+        self._round_elems = [self._t] if self._nrr else []
+        stats["affected_nodes"] = int(aff.shape[0])
+        return stats
 
     def row_capacity(self) -> int:
         """Row bound of the selection: the next power of two ≥ n_rr, and at
@@ -933,6 +1208,7 @@ class SketchRRStore(_FoldedSketch):
     """
 
     pool_free = True
+    row_weighted = False
 
     def __init__(self, n_nodes: int, sketch_k: int, sketch_mode: str = "mod",
                  *, device="cuda"):
@@ -1003,26 +1279,32 @@ class SketchRRStore(_FoldedSketch):
                 "n_shards": 1, "sketch_k": self.sketch_k,
                 "sketch_mode": self.sketch_mode, "row_weighted": False}
 
+    def state(self) -> dict:
+        """The reference's ``SketchRRStore.state()`` layout on one shard:
+        ``sk_words`` (1, n + 1, sketch_k/32) uint32 (the bits of the int32
+        words) and the element and row counts ``t_loc``/``nrr_loc`` (1,)
+        int64, as host numpy arrays."""
+        return {"sk_words": _uint32_words(self.words),
+                "t_loc": np.array([self._t], np.int64),
+                "nrr_loc": np.array([self._nrr], np.int64)}
+
     @classmethod
     def from_state(cls, state: dict, config: dict, *, device="cuda"):
-        """A store holding ``state``, as the reference's classmethod reads
-        it: ``sk_words`` an (n + 1, sketch_k/32) int32 tensor
-        (``convert.sketch_words_from_arrays`` carries the reference's
-        uint32 words over), ``t_loc``/``nrr_loc`` the element and row counts
-        of its one shard; ``config`` as :meth:`config` gives it."""
+        """A store holding ``state`` on the named ``device``: ``sk_words``
+        the reference's (1, n + 1, sketch_k/32) uint32 state words or an
+        (n + 1, sketch_k/32) int32 tensor, ``t_loc``/``nrr_loc`` the element
+        and row counts of its one shard; ``config`` as :meth:`config`
+        gives it."""
         if int(config.get("n_shards", 1)) != 1:
             raise ValueError(
                 f"sketch state was saved on {config['n_shards']} shards; the "
                 "port's store has one")
         store = cls(config["n_nodes"], sketch_k=config["sketch_k"],
                     sketch_mode=config["sketch_mode"], device=device)
-        words = torch.as_tensor(state["sk_words"])
-        if words.dtype != torch.int32 or words.shape != store.words.shape:
-            raise ValueError(f"sk_words must be {tuple(store.words.shape)} "
-                             f"int32, got {tuple(words.shape)} {words.dtype}")
-        store.words = words.to(store.device).contiguous()
-        store._t = int(np.sum(state["t_loc"]))
-        store._nrr = int(np.sum(state["nrr_loc"]))
+        store.words = _int32_words(state["sk_words"], store.words.shape,
+                                   store.device)
+        store._t = int(np.sum(_host(state["t_loc"])))
+        store._nrr = int(np.sum(_host(state["nrr_loc"])))
         return store
 
     def select(self, k: int, cand=None,

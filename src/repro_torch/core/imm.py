@@ -13,11 +13,19 @@ problems, on one device.
                                 IMProblem(k=3, theta=4096, candidates=ids)])
     IMMSolver(g, engine=make_engine("queue", reverse(g))).solve(
         IMProblem(k=10, eps=0.3, node_weights=w))     # row-weighted estimator
+    IMMSolver(g, fault_policy=FaultPolicy(), checkpoint_dir=d,
+              checkpoint_every=5).solve(IMProblem(k=10))    # durable
+    IMMSolver(g).solve_problem(IMProblem(k=10), deadline_s=0.5)  # degraded
+    solver.resolve_incremental(IMProblem(k=10), deltas)  # streaming graph
 
 The host runs rounds of RR batches against the engine (gIM's kernel
-relaunches, Alg. 6): round t samples with the 32-bit seed
+relaunches, Alg. 6): round t of a pool samples with the 32-bit seed
 ``round_seed(seed, t)``, so a solve is a pure function of (graph, options,
-seed) and holds no global RNG state.  Every round is
+seed) and holds no global RNG state.  The solver's round cursor t starts
+at 0 with each fresh pool and moves on only after a round's batch has
+landed in the store; a pool that is adopted, restored or reused across a
+graph delta keeps its cursor, so no round seed repeats within a pool's
+life.  Every round is
 ``engine.sample`` → ``store.append_batch``; the loop condition reads the
 store's exact host row count.  θ comes from the reference's maths
 (:func:`repro_torch.core.oracle.imm_theta_params`), so both packages walk
@@ -38,6 +46,12 @@ schedule of its ``k_steps``.  The engine and store are keyed on the
 problem's ``pool_digest``, so problems that differ only in selection
 share a pool.
 
+Durability and streaming follow the reference (its ``im-pool``
+checkpoints, read and written by both packages; the fault policy at the
+``sample``, ``append``, ``grow`` and ``select`` boundaries; the deadline's
+degraded answer; ``resolve_incremental``): see :meth:`IMMSolver.save_pool`,
+:meth:`IMMSolver.solve_problem` and :meth:`IMMSolver.resolve_incremental`.
+
 ``engine`` may also be a ready engine instance, as the reference allows.
 A weighted problem on an instance that does not draw its roots ∝ the
 problem's weights runs the importance-weighted estimator instead (row-weight
@@ -55,21 +69,26 @@ matching ``t_rounds``.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+import time
+from dataclasses import asdict, dataclass, field
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.ckpt import checkpoint as ckpt_mod
 from repro_torch.graph.csr import CSRGraph, reverse
 from repro_torch.core import coverage as cov
 from repro_torch.core import sketch as sketch_mod
+from repro_torch.core import stream as stream_mod
 from repro_torch.core.engine import (FusedSketchEngine, make_engine,
                                      resolve_engine_name)
 from repro_torch.core.oracle import imm_theta_params
-from repro_torch.core.problem import IMProblem, IMResult, ResolvedProblem
+from repro_torch.core.problem import (IMProblem, IMResult, ResolvedProblem,
+                                      problem_from_state, problem_state)
 from repro_torch.core.rrset import round_seed
 from repro_torch.device import resolve_device
+from repro_torch.ft.failures import DeadlineExceeded, FaultPolicy
 
 
 @dataclass
@@ -86,7 +105,44 @@ class IMMStats:
     variant: str = "plain"
     early_exit_skips: int = 0
     budget_spent: float = 0.0
+    # the reference's mesh fields, for one device: its checkpoints carry
+    # them, and a restore builds IMMStats(**saved stats)
+    mesh_shape: tuple = (1,)
+    pool_sharding: str = "samples:1"
+    per_device_pool_bytes: int = 0
+    # the LB loop's resume mark: the last LB iteration that finished
+    # without breaking (or was skipped); a restored solve goes on after it
+    lb_completed: int = 0
     history: list = field(default_factory=list)
+
+
+@dataclass
+class PoolLease:
+    """A prepared solver's sampled state, detached (the reference's
+    ``PoolLease``): the store, the problem that defines its signature, the
+    round seed stream (``seed`` and the next round ``cursor``), the stats
+    and overflow counters, and the digest of a solve interrupted in its LB
+    loop (``active_solve``, None when no solve is in progress).
+    ``IMMSolver.adopt_pool`` installs it in a solver of the same graph and
+    options, which then goes on as the exporter would have."""
+    problem: IMProblem
+    store: object
+    seed: int
+    cursor: int
+    stats: IMMStats
+    ovf: torch.Tensor
+    ovf_lanes: int
+    active_solve: Optional[str] = None
+
+    def pool_bytes(self) -> int:
+        return _pool_bytes(self.store)
+
+
+def _pool_bytes(store) -> int:
+    """Device bytes of a store's pool and sketch (0 without a store)."""
+    if store is None:
+        return 0
+    return store.per_device_pool_bytes() + store.sketch_bytes()
 
 
 # user-facing selection knob -> DeviceRRStore.select method
@@ -113,6 +169,15 @@ class IMMSolver:
     ``DeviceRRStore.DEFAULT_SKETCH_K``), as the reference's.  The graph
     moves to ``device`` (default ``"cuda"``, which raises when there is no
     card).
+
+    ``fault_policy`` (:class:`~repro_torch.ft.failures.FaultPolicy`) wraps
+    the hot loop's boundaries: a round's ``sample`` and ``append``, the
+    pool's ``grow`` gate and each ``select``, each checked before any
+    device mutation, so a retried step replays against unchanged buffers
+    and the result stays bit-identical.  ``checkpoint_dir`` with
+    ``checkpoint_every`` > 0 saves the pool (:meth:`save_pool`) every that
+    many rounds, keeping ``checkpoint_keep`` checkpoints; a restart calls
+    :meth:`restore_pool` (``repro_torch.ft.runner.resilient_solve`` does).
     """
 
     def __init__(self, g: CSRGraph, *, engine="queue",
@@ -120,7 +185,10 @@ class IMMSolver:
                  ec: Optional[int] = None, model: Optional[str] = None,
                  selection: str = "auto", seed: int = 0,
                  sketch_k: Optional[int] = None,
-                 eval_batch: Optional[int] = None, device="cuda"):
+                 eval_batch: Optional[int] = None, device="cuda",
+                 fault_policy: Optional[FaultPolicy] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 0, checkpoint_keep: int = 3):
         if model not in (None, "ic", "lt"):
             raise ValueError(f"unknown diffusion model {model!r}")
         named = isinstance(engine, str)
@@ -158,18 +226,33 @@ class IMMSolver:
         self._plain_engines = {}      # unweighted named engines, by name
         self._sketch_info = None
         self._sig = None
+        self._sig_problem = None      # the problem the pool was built for
         self._row_weight_mode = False
         self._node_w = None
         self.engine = self.store = None
         self.engine_name = None
+        self._cursor = 0              # the pool's next round index
+        self.fault_policy = fault_policy
+        self._ckpt_dir = checkpoint_dir
+        self._ckpt_every = int(checkpoint_every)
+        self._ckpt_keep = int(checkpoint_keep)
+        self._last_ckpt_round = 0
+        # signature_digest of an eps-driven solve in progress: a restored
+        # pool carrying it resumes that solve's LB loop
+        self._active_solve: Optional[str] = None
+        self.last_incremental = None
         if named or (engine.item_space == self.n
                      and getattr(engine, "root_weights", None) is None):
             # a weighted-root instance waits for its first (weighted)
             # problem, as the reference's
-            self.prepare(IMProblem(k=1))
+            self._ensure_prepared()
 
     def _default_model(self) -> str:
         return "lt" if self._model_arg == "lt" else "ic"
+
+    def _ensure_prepared(self) -> None:
+        if self._sig is None:
+            self.prepare(IMProblem(k=1, eps=0.5, model=self._default_model()))
 
     # -- engine + store per problem signature ------------------------------
     def _engine_name(self, problem: IMProblem, model: str) -> str:
@@ -212,11 +295,15 @@ class IMMSolver:
             and np.array_equal(np.asarray(eng_w, np.float32), w))
         return engine, row_weight_mode
 
-    def _build(self, r: ResolvedProblem, sig, model: str) -> None:
-        """Fresh engine, store and stats for the signature (pool digest,
-        sketch_k): the round-seed stream restarts at round 0.  A weighted
-        problem gets an engine with the alias table of its weights, or on
-        an instance that does not draw by them a row-weighted store."""
+    def _build(self, r: ResolvedProblem, sig, model: str,
+               store=None) -> None:
+        """Engine, store and fresh stats for the signature (pool digest,
+        sketch_k).  A fresh store restarts the round-seed stream at round
+        0; an adopted ``store`` (:meth:`adopt_pool`, the reused pool of
+        :meth:`resolve_incremental`) must match the signature, and keeps
+        the cursor.  A weighted problem gets an engine with the alias table
+        of its weights, or on an instance that does not draw by them a
+        row-weighted store."""
         problem, sketch_k = r.problem, sig[-1]
         engine, row_weight_mode = self._engine_for(r, model)
         if engine.item_space != r.n_items:
@@ -225,39 +312,76 @@ class IMMSolver:
                 f"space of {engine.item_space}, not the problem's "
                 f"{r.n_items} items; tagged engines need a matching "
                 f"t_rounds= on the IMProblem")
-        self.engine_name = getattr(engine, "name", type(engine).__name__)
-        if problem.mode == "approximate":
-            self.engine = FusedSketchEngine(engine)
-            self.store = cov.SketchRRStore(engine.item_space,
-                                           sketch_k=sketch_k,
-                                           device=self.device)
+        approx = problem.mode == "approximate"
+        fresh = store is None
+        if not fresh:
+            if getattr(store, "pool_free", False) != approx:
+                raise ValueError(
+                    "adopted pool kind does not match the problem mode: a "
+                    "pool-free sketch store can only back mode='approximate'"
+                    " solves, and an exact pool only exact ones")
+            if (store.n_nodes != engine.item_space
+                    or store.row_weighted != row_weight_mode
+                    or store.sketch_k != sketch_k):
+                raise ValueError(
+                    "adopted pool does not match the problem signature: "
+                    f"store (n={store.n_nodes}, row_weighted="
+                    f"{store.row_weighted}, sketch_k={store.sketch_k}) "
+                    f"vs engine (n={engine.item_space}, row_weighted="
+                    f"{row_weight_mode}, sketch_k={sketch_k})")
+            if store.device.type != self.device.type:
+                raise ValueError(f"adopted pool lives on {store.device}, the "
+                                 f"solver on {self.device}")
+        elif approx:
+            store = cov.SketchRRStore(engine.item_space, sketch_k=sketch_k,
+                                      device=self.device)
         else:
-            self.engine = engine
-            self.store = cov.DeviceRRStore(engine.item_space,
-                                           sketch_k=sketch_k,
-                                           row_weighted=row_weight_mode,
-                                           device=self.device)
+            store = cov.DeviceRRStore(engine.item_space, sketch_k=sketch_k,
+                                      row_weighted=row_weight_mode,
+                                      device=self.device)
+        if fresh:
+            self._cursor = 0
+        self.engine_name = getattr(engine, "name", type(engine).__name__)
+        self.engine = FusedSketchEngine(engine) if approx else engine
+        self.store = store
+        if self.fault_policy is not None:
+            # the "grow" site gates the pool's growth before anything is
+            # allocated, so the append stays retryable
+            pol = self.fault_policy
+            store.alloc_check = (lambda st, newcap: pol.check(
+                "grow", {"newcap": newcap, "bytes": newcap * 9}))
         self._row_weight_mode = row_weight_mode
         self._node_w = (torch.from_numpy(r.node_weights).to(self.device)
                         if row_weight_mode else None)
         self._sig = sig
+        self._sig_problem = problem
         self._stats = IMMStats(selection=self.selection,
                                variant=problem.variant)
         self._ovf = torch.zeros((), dtype=torch.int64, device=self.device)
         self._ovf_lanes = 0
 
-    def prepare(self, problem: IMProblem) -> ResolvedProblem:
+    def prepare(self, problem: IMProblem, _store=None) -> ResolvedProblem:
         """Build the engine and store ``problem`` needs, unless the current
         ones already serve its pool signature (``problem.pool_digest``:
         model, weights, mode) and sketch size.  ``solve`` calls it; call it
         first to reach ``self.engine``/``self.store`` before a solve.
-        Returns the problem resolved against the graph."""
+        ``_store`` adopts a store instead of building one
+        (:meth:`adopt_pool`).  Returns the problem resolved against the
+        graph."""
         r = problem.resolve(self.n)
         # the problem's model, or the solver's for model=None
         model = problem.model or self._default_model()
         if problem.t_rounds is not None and model == "lt":
             raise ValueError("MRIM sampling is IC-only (paper §4.8); the "
                              "solver's default model is 'lt'")
+        sig = self._signature(problem, model)
+        if _store is not None or sig != self._sig:
+            self._build(r, sig, model, store=_store)
+        return r
+
+    def _signature(self, problem: IMProblem, model: str) -> tuple:
+        """The engine and pool a problem needs: the engine (name, or the
+        instance's id), the pool digest and the sketch size."""
         # celf and the early exit read the exact store's incremental sketch
         sketch_k = self._sketch_k_arg
         if sketch_k is None and (self._sel_method == "celf"
@@ -268,47 +392,210 @@ class IMMSolver:
         if sketch_k is not None:
             sketch_k = sketch_mod.resolve_sketch_k(sketch_k)
         if isinstance(self._engine_arg, str):
-            sig = ("name", self._engine_name(problem, model),
-                   problem.pool_digest(model=model), sketch_k)
-        else:
-            sig = ("inst", id(self._engine_arg), problem.pool_digest(),
-                   sketch_k)
-        if sig != self._sig:
-            self._build(r, sig, model)
-        return r
+            return ("name", self._engine_name(problem, model),
+                    problem.pool_digest(model=model), sketch_k)
+        return ("inst", id(self._engine_arg), problem.pool_digest(),
+                sketch_k)
 
     # -- sampling ----------------------------------------------------------
     def _round(self):
-        batch = self.engine.sample(round_seed(self.seed, self._stats.rounds))
-        if self._row_weight_mode:
-            # the importance-weighted estimator: each row weighs its root's
-            # node weight
-            if batch.roots is None:
-                raise ValueError(
-                    "weighted problem on an engine that neither draws roots "
-                    "by the weights nor reports batch roots: no "
-                    "importance-weighted estimator")
-            w = self._node_w
-            self.store.append_batch(batch, row_w=w[batch.roots.to(
-                torch.int64).clamp(0, w.shape[0] - 1)])
+        """One sampling round, transactional in the round cursor: the
+        cursor moves on only after the batch has landed in the store, so a
+        round that fails (and the fault policy retries) samples again with
+        the same round seed against unchanged buffers."""
+        pol = self.fault_policy
+        timer = pol.round_timer if pol is not None else None
+        if timer is not None:
+            timer.start()
+        seed32 = round_seed(self.seed, self._cursor)
+        batch = (pol.run(lambda: self.engine.sample(seed32), "sample")
+                 if pol is not None else self.engine.sample(seed32))
+
+        def append():
+            if self._row_weight_mode:
+                # the importance-weighted estimator: each row weighs its
+                # root's node weight
+                if batch.roots is None:
+                    raise ValueError(
+                        "weighted problem on an engine that neither draws "
+                        "roots by the weights nor reports batch roots: no "
+                        "importance-weighted estimator")
+                w = self._node_w
+                self.store.append_batch(batch, row_w=w[batch.roots.to(
+                    torch.int64).clamp(0, w.shape[0] - 1)])
+            else:
+                self.store.append_batch(batch)
+
+        if pol is not None:
+            pol.run(append, "append")
         else:
-            self.store.append_batch(batch)
+            append()
+        self._cursor += 1          # commit: the round is durable
         self._ovf += batch.overflowed.sum()
         self._ovf_lanes += int(batch.overflowed.numel())
         self._stats.sampling_steps += batch.steps
         self._stats.rounds += 1
+        if timer is not None and timer.is_straggler(timer.stop()):
+            pol.straggler_rounds += 1
 
     def sample_until(self, theta: int):
+        """Sample rounds until the pool holds ``theta`` rows, saving the
+        pool every ``checkpoint_every`` rounds when a ``checkpoint_dir`` is
+        set.  A restored solver starts at the saved row count."""
+        self._ensure_prepared()
         while self.store.n_rr < theta:
             self._round()
+            if (self._ckpt_dir and self._ckpt_every > 0
+                    and self._stats.rounds - self._last_ckpt_round
+                    >= self._ckpt_every):
+                self.save_pool(self._ckpt_dir)
+                self._last_ckpt_round = self._stats.rounds
 
     @property
     def stats(self) -> IMMStats:
+        self._ensure_prepared()
         st = self._stats
         st.n_rr_sampled = self.store.n_rr
         st.overflow_fraction = (int(self._ovf) / self._ovf_lanes
                                 if self._ovf_lanes else 0.0)
+        st.per_device_pool_bytes = self.store.per_device_pool_bytes()
         return st
+
+    # -- pool ownership ----------------------------------------------------
+    def pool_bytes(self) -> int:
+        """Device bytes of the pool and its sketch (0 when unprepared)."""
+        return _pool_bytes(self.store)
+
+    def export_pool(self) -> PoolLease:
+        """Detach the prepared pool with its round cursor, stats and
+        in-progress solve as a :class:`PoolLease`; the solver reverts to
+        the unprepared state (its next solve builds a fresh pool)."""
+        if self._sig is None:
+            raise RuntimeError("export_pool() needs a prepared solver — "
+                               "nothing to export")
+        lease = PoolLease(
+            problem=self._sig_problem, store=self.store, seed=self.seed,
+            cursor=self._cursor, stats=self.stats, ovf=self._ovf,
+            ovf_lanes=self._ovf_lanes, active_solve=self._active_solve)
+        self.drop_pool()
+        return lease
+
+    def drop_pool(self) -> int:
+        """Discard the prepared pool without exporting it (after a failure
+        in the middle of an append, the buffers may be ahead of the host
+        mirrors: the pool must neither serve nor be saved); returns the
+        bytes dropped."""
+        freed = self.pool_bytes()
+        self.store = self.engine = None
+        self._sig = self._sig_problem = self._active_solve = None
+        return freed
+
+    def adopt_pool(self, lease: PoolLease) -> None:
+        """Install an exported or restored pool (same graph, matching
+        signature and options) and go on from its round cursor and
+        stats."""
+        self.prepare(lease.problem, _store=lease.store)
+        self.seed, self._cursor = int(lease.seed), int(lease.cursor)
+        self._stats = lease.stats
+        self._ovf = lease.ovf.to(self.device)
+        self._ovf_lanes = int(lease.ovf_lanes)
+        self._active_solve = lease.active_solve
+
+    # -- durable pool checkpoints -----------------------------------------
+    POOL_CKPT_FORMAT = "im-pool"
+    POOL_CKPT_VERSION = 1
+    # pool-free (mode="approximate") checkpoints: the sketch words and the
+    # counters; the store config's "kind" picks the class on restore
+    POOL_CKPT_VERSION_SKETCH = 2
+
+    def save_pool(self, ckpt_dir: str, *, keep: Optional[int] = None) -> str:
+        """Write the pool as a durable checkpoint in the reference's
+        ``im-pool`` format (``repro_torch.ckpt.checkpoint``: atomic, rotated
+        to ``keep``, step = the rounds sampled): the store's
+        :meth:`~repro_torch.core.coverage.DeviceRRStore.state`, the stats
+        and counters, the signature problem and the in-progress solve.
+        The reference's ``rng_key`` is a uint32[2] array here too, (cursor,
+        seed), so the reference reads the file; the port's seed stream is
+        ``meta["rng"] = {"kind": "counter", "seed", "cursor"}``, which the
+        reference ignores."""
+        self._ensure_prepared()
+        stats = self.stats
+        state = dict(self.store.state())
+        mask = 0xFFFFFFFF
+        state["rng_key"] = np.array([self._cursor & mask, self.seed & mask],
+                                    np.uint32)
+        state["steps_acc"] = np.array(stats.sampling_steps, np.int32)
+        state["ovf_acc"] = np.array(int(self._ovf), np.int32)
+        st = asdict(stats)
+        st["mesh_shape"] = list(st["mesh_shape"])
+        st["history"] = [list(h) for h in st["history"]]
+        meta = {
+            "format": self.POOL_CKPT_FORMAT,
+            "version": (self.POOL_CKPT_VERSION_SKETCH
+                        if getattr(self.store, "pool_free", False)
+                        else self.POOL_CKPT_VERSION),
+            "store": self.store.config(),
+            "problem": problem_state(self._sig_problem),
+            "stats": st,
+            "ovf_lanes": int(self._ovf_lanes),
+            "active_solve": self._active_solve,
+            "rng": {"kind": "counter", "seed": self.seed,
+                    "cursor": self._cursor},
+        }
+        return ckpt_mod.save(ckpt_dir, stats.rounds, state,
+                             keep=self._ckpt_keep if keep is None else keep,
+                             meta=meta)
+
+    def restore_pool(self, ckpt_dir: str, *, step: Optional[int] = None
+                     ) -> int:
+        """Rebuild the pool of a :meth:`save_pool` checkpoint (the latest
+        step unless ``step=``), the reference's too, on this solver's
+        device, and adopt it; returns the step.  Sampling goes on from the
+        saved round cursor against the saved buffers, as the process that
+        wrote the checkpoint would have.  A checkpoint without the port's
+        ``meta["rng"]`` (one the reference wrote) gives the reference's
+        pool, stats and selection; any further rounds come from the port's
+        own stream, the solver's seed at cursor ``stats.rounds``.  The
+        solver must have the options of the one that saved."""
+        if step is None:
+            step = ckpt_mod.latest_step(ckpt_dir)
+            if step is None:
+                raise FileNotFoundError(
+                    f"no pool checkpoint under {ckpt_dir!r}")
+        meta = ckpt_mod.load_manifest(ckpt_dir, step)["meta"]
+        if meta.get("format") != self.POOL_CKPT_FORMAT:
+            raise ValueError(f"{ckpt_dir!r} step {step} is not an im-pool "
+                             f"checkpoint (format={meta.get('format')!r})")
+        if meta.get("version") not in (self.POOL_CKPT_VERSION,
+                                       self.POOL_CKPT_VERSION_SKETCH):
+            raise ValueError(
+                f"pool checkpoint version {meta.get('version')} not "
+                f"supported (want {self.POOL_CKPT_VERSION} or "
+                f"{self.POOL_CKPT_VERSION_SKETCH})")
+        items = {k.strip("[]'\""): v
+                 for k, v in ckpt_mod.restore_items(ckpt_dir, step).items()}
+        kind = meta["store"].get("kind", "sharded")
+        store_cls = (cov.SketchRRStore if kind == "sketch"
+                     else cov.DeviceRRStore)
+        store = store_cls.from_state(items, meta["store"], device=self.device)
+        st = dict(meta["stats"])
+        st["mesh_shape"] = tuple(st["mesh_shape"])
+        st["history"] = [tuple(h) for h in st["history"]]
+        stats = IMMStats(**st)
+        stats.sampling_steps = int(items["steps_acc"])
+        rng = meta.get("rng") or {}
+        if rng.get("kind") == "counter":
+            seed, cursor = int(rng["seed"]), int(rng["cursor"])
+        else:
+            seed, cursor = self.seed, stats.rounds
+        self.adopt_pool(PoolLease(
+            problem=problem_from_state(meta["problem"]), store=store,
+            seed=seed, cursor=cursor, stats=stats,
+            ovf=torch.tensor(int(items["ovf_acc"]), dtype=torch.int64),
+            ovf_lanes=int(meta["ovf_lanes"]),
+            active_solve=meta.get("active_solve")))
+        self._last_ckpt_round = self._stats.rounds
+        return int(step)
 
     # -- variants ----------------------------------------------------------
     def _selection_spec(self, r: ResolvedProblem):
@@ -343,40 +630,75 @@ class IMMSolver:
     def solve_problem(self, problem: IMProblem, *,
                       deadline_s: Optional[float] = None) -> IMResult:
         """Solve ``problem``: the LB loop of Alg. 2 (or a fixed θ), then
-        the final selection.  ``deadline_s`` (the reference's degraded
-        sketch answer) is not ported yet: ROADMAP Queue 1 item 10."""
-        if deadline_s is not None:
-            raise NotImplementedError(
-                "solve_problem(deadline_s=...) is not ported yet: ROADMAP "
-                "Queue 1 item 10 (durability and streaming)")
+        the final selection.
+
+        ``deadline_s`` (seconds left) turns on the reference's deadline
+        checks: after a fixed θ's sampling, before each LB iteration and
+        before the final top-up.  Once it has expired the solve returns a
+        ``degraded=True`` answer over the pool sampled so far
+        (:meth:`_degraded_result`), or raises
+        :class:`~repro_torch.ft.failures.DeadlineExceeded` when the
+        objective has no certified sketch estimate.
+
+        A restored pool that carries this very problem's
+        ``signature_digest`` (an eps-driven solve interrupted in its LB
+        loop) resumes after ``stats.lb_completed`` instead of running the
+        finished iterations again over the larger pool."""
         r = self.prepare(problem)
         spec = self._selection_spec(r)
         p = problem
-        st = self._stats
         approx = p.mode == "approximate"
         k_theta = p.k if p.k is not None else r.k_steps
+        deadline = (time.monotonic() + deadline_s
+                    if deadline_s is not None else None)
+        sig = p.signature_digest()
+        resume = self._active_solve == sig
+        self._active_solve = sig
         self._sketch_info = None
+
+        def expired() -> bool:
+            return deadline is not None and time.monotonic() >= deadline
 
         def select():
             if approx:
                 # no pool to verify against: the sketch greedy leaves its
                 # error certificate for the final spread_bounds
-                self._sketch_info = {}
-                return self.store.select(r.k_steps, cand=r.cand_mask_items,
-                                         info_out=self._sketch_info)
-            return self.store.select(r.k_steps, method=self._sel_method,
-                                     spec=spec, eval_batch=self.eval_batch)
+                info = self._sketch_info = {}
+                fn = (lambda: self.store.select(
+                    r.k_steps, cand=r.cand_mask_items, info_out=info))
+            else:
+                fn = (lambda: self.store.select(
+                    r.k_steps, method=self._sel_method, spec=spec,
+                    eval_batch=self.eval_batch))
+            if self.fault_policy is not None:
+                # the ctx names the request, so a matching injector can
+                # fail one problem of a batch
+                return self.fault_policy.run(fn, "select",
+                                             {"problem": p, "k": r.k_steps})
+            return fn()
 
+        st = self._stats
         if p.theta is not None:
-            # fixed-θ mode: sample to θ, one selection, no LB loop
+            # fixed-θ mode: sample to θ, one selection, no LB loop; a
+            # restored pool tops up from its row count
             st.theta, st.lb = p.theta, 1.0
             self.sample_until(p.theta)
+            if expired():
+                return self._degraded_result(r)
+            res = select()
+        elif resume and st.theta:
+            # the LB loop had concluded when the checkpoint was written:
+            # only the final top-up remains
+            self.sample_until(st.theta)
             res = select()
         else:
             lam_p, lam_star, eps_p, _ = imm_theta_params(
                 self.n, k_theta, p.eps, p.ell)
-            lb = 1.0
-            for i in range(1, max(int(math.log2(self.n)), 2)):  # Alg. 2
+            lb = st.lb if resume else 1.0
+            start_i = st.lb_completed + 1 if resume else 1
+            for i in range(start_i, max(int(math.log2(self.n)), 2)):  # Alg. 2
+                if expired():
+                    return self._degraded_result(r)
                 x = r.scale / (2.0 ** i)
                 theta_i = int(math.ceil(lam_p / x))
                 if p.max_theta:
@@ -386,6 +708,7 @@ class IMMSolver:
                 if self._early_exit_skip(r, threshold):
                     st.early_exit_skips += 1
                     st.history.append(("lb_skip", i, theta_i))
+                    st.lb_completed = i
                     continue
                 res = select()
                 est = r.scale * float(res.frac)
@@ -394,12 +717,17 @@ class IMMSolver:
                 if est >= threshold:                            # Alg. 2 L7
                     lb = est / (1.0 + eps_p)                    # Alg. 2 L8
                     break
+                st.lb_completed = i
+                st.lb = lb
             theta = int(math.ceil(lam_star / lb))
             if p.max_theta:
                 theta = min(theta, p.max_theta)
             st.theta, st.lb = theta, lb
+            if expired():
+                return self._degraded_result(r)
             self.sample_until(theta)
             res = select()
+        self._active_solve = None
         seeds = res.seeds.cpu().numpy()
         gains = res.gains.cpu().numpy()
         live = seeds < r.n_items          # the sentinels of the scans
@@ -415,6 +743,99 @@ class IMMSolver:
                         frac=frac, stats=self.stats, problem=p,
                         n_nodes=self.n, cost=spent, spread_bounds=bounds)
 
+    def _degraded_result(self, r: ResolvedProblem) -> IMResult:
+        """The deadline's answer from the pool sampled so far, as the
+        reference's: ``degraded=True`` with certified ``spread_bounds``.
+
+        * pool-free store: its sketch greedy (``select_seeds_sketch``) and
+          certificate;
+        * exact store with a sketch: k sweeps of ``union_gains`` (Δocc of
+          every node against the union of the picks: one
+          ``sketch_union_popcount`` and one ``popcount_words`` launch on
+          the card), the first maximum on the host, the pick folded into
+          the union with ``union_row``; the lower bound is the summed Δocc
+          and the estimate its linear count, clamped into the bounds;
+        * exact store without one: the nodes ranked by their exact row
+          counts (``np.argsort(...)[::-1]``, the reference's unstable
+          order, so ties break alike), the best count the lower bound.
+
+        The upper bound is the seeds' summed exact counts, at most n_rr.
+        Budgeted, weighted, row-weighted and MRIM objectives, and a pool
+        with no row yet, raise
+        :class:`~repro_torch.ft.failures.DeadlineExceeded`."""
+        p = r.problem
+        st = self.store
+        if (p.budget is not None or r.node_weights is not None
+                or self._row_weight_mode or p.t_rounds is not None):
+            raise DeadlineExceeded(
+                f"deadline expired mid-solve and the {p.variant!r} "
+                "objective has no certified sketch estimate")
+        n_rr = st.n_rr
+        if n_rr == 0:
+            raise DeadlineExceeded("deadline expired before any sampling "
+                                   "round completed")
+        if getattr(st, "pool_free", False):
+            info = {}
+            res = st.select(r.k_steps, cand=r.cand_mask_items, info_out=info)
+            seeds, gains = res.seeds.cpu().numpy(), res.gains.cpu().numpy()
+            live = seeds < r.n_items
+            seeds, gains = seeds[live], gains[live]
+            frac = float(res.frac)
+            self._stats.frac_covered = frac
+            self._stats.variant = p.variant
+            return IMResult(
+                seeds=seeds.astype(np.int64), spread=r.scale * frac,
+                gains=gains.astype(np.int64), frac=frac, stats=self.stats,
+                problem=p, n_nodes=self.n, degraded=True,
+                spread_bounds=self._approx_bounds(r, info))
+        t, n = st.n_elems, st.n_nodes
+        occ_exact = torch.zeros(n + 1, dtype=torch.int64,
+                                device=self.device).index_add_(
+            0, st.flat[:t].to(torch.int64).clamp(max=n),
+            st.valid[:t].to(torch.int64))[:r.n_items].cpu().numpy()
+        mask = (np.ones(r.n_items, bool) if r.cand_mask_items is None
+                else r.cand_mask_items.copy())
+        seeds, lb_gains = [], []
+        if st.sketch_k is not None:
+            sk = st.sketch_words()
+            cov_words = torch.zeros(sk.shape[1], dtype=torch.int32,
+                                    device=sk.device)
+            for _ in range(r.k_steps):
+                docc = sketch_mod.union_gains(sk, cov_words)
+                docc[-1] = st.fold_error[0]     # row n, the sentinel: the flag
+                docc = docc.cpu().numpy()
+                st.check_folds(int(docc[-1]))
+                docc = np.where(mask, docc[:r.n_items], -1)
+                u = int(docc.argmax())
+                if docc[u] < 0:
+                    break
+                seeds.append(u)
+                lb_gains.append(int(docc[u]))
+                mask[u] = False
+                cov_words = sketch_mod.union_row(cov_words, sk, u)
+            covered_lb = float(sum(lb_gains))
+        else:
+            order = np.argsort(np.where(mask, occ_exact, -1))[::-1]
+            seeds = [int(u) for u in order[:r.k_steps] if mask[u]]
+            lb_gains = [int(occ_exact[u]) for u in seeds]
+            covered_lb = float(max(lb_gains, default=0))
+        covered_ub = float(min(n_rr, sum(int(occ_exact[u]) for u in seeds)))
+        if st.sketch_k is not None and seeds:
+            est = float(sketch_mod.linear_count(
+                np.asarray([int(sum(lb_gains))]), st.sketch_k)[0])
+        else:
+            est = covered_lb
+        est = min(max(est, covered_lb), covered_ub)
+        frac = est / n_rr
+        self._stats.frac_covered = frac
+        self._stats.variant = p.variant
+        lo, hi = (r.scale * covered_lb / n_rr, r.scale * covered_ub / n_rr)
+        return IMResult(
+            seeds=np.asarray(seeds, np.int64), spread=r.scale * frac,
+            gains=np.asarray(lb_gains, np.int64), frac=frac,
+            stats=self.stats, problem=p, n_nodes=self.n, degraded=True,
+            spread_bounds=(lo, hi))
+
     def solve_stacked(self, problems: "list[IMProblem]") -> "list[IMResult]":
         """Fixed-θ micro-batch solve: one
         :func:`~repro_torch.core.coverage.select_seeds_stacked` scan over
@@ -425,10 +846,10 @@ class IMMSolver:
         pool signature; each returned :class:`IMResult` equals
         ``solve_problem`` on the same solver in every field.
         ``mode="approximate"`` and the row-weighted estimator are not
-        stackable: callers route those a request at a time.  The
-        reference's fault-policy boundary around the scan waits for its
-        fault-tolerance layer (ROADMAP Queue 1 item 10): this solver has
-        no ``fault_policy``."""
+        stackable: callers route those a request at a time.  With a
+        ``fault_policy``, the ``select`` boundary fires once a request with
+        the solo ctx (so a matching injector can fail one request), then
+        once around the batch's scan."""
         if not problems:
             return []
         theta = problems[0].theta
@@ -455,7 +876,17 @@ class IMMSolver:
         st = self._stats
         st.theta, st.lb = theta, 1.0
         self.sample_until(theta)
-        out = cov.select_seeds_stacked(self.store, reqs, **geometry)
+        pol = self.fault_policy
+        if pol is not None:
+            for p, r in zip(problems, rs):
+                pol.run(lambda: None, "select",
+                        {"problem": p, "k": r.k_steps, "stacked": True})
+            out = pol.run(
+                lambda: cov.select_seeds_stacked(self.store, reqs,
+                                                 **geometry),
+                "select", {"stacked_batch": len(problems)})
+        else:
+            out = cov.select_seeds_stacked(self.store, reqs, **geometry)
         seeds_all, gains_all = out.seeds.cpu().numpy(), out.gains.cpu().numpy()
         frac_all, spent_all = out.frac.cpu().numpy(), out.spent.cpu().numpy()
         results = []
@@ -535,6 +966,86 @@ class IMMSolver:
         est_ub = r.scale * min(float(n_rr), top) / max(n_rr, 1)
         return est_ub < threshold
 
+    # -- streaming graphs ---------------------------------------------------
+    def resolve_incremental(self, problem: IMProblem, deltas, *,
+                            min_surviving_fraction: float = 0.0,
+                            deadline_s: Optional[float] = None) -> IMResult:
+        """Apply the edge ``deltas`` (:mod:`repro_torch.core.stream`) to the
+        solver's graph and solve ``problem`` again, keeping every RR set
+        the deltas leave untouched.
+
+        A forward edge u→v lives in reverse-adjacency row v, and an RR-BFS
+        examines only the rows of the nodes it visits, so a pre-delta row
+        that contains no destination of a changed edge
+        (:func:`~repro_torch.core.stream.affected_nodes`) is an exact
+        post-delta sample conditioned on avoiding the changed rows.  The
+        rows hit are evicted (``evict_rows_containing``), the engine is
+        built again on the new reverse graph (the cached plain engines of
+        the old one go), and θ tops up through ``sample_until``, fault
+        policy and checkpoints included.  The reused pool keeps its round
+        cursor, so the top-up draws round seeds the pool has not seen.
+
+        The pool is reused only when its signature matches ``problem``'s;
+        otherwise, and when fewer than ``min_surviving_fraction`` of the
+        rows survive, the solve starts a fresh pool on the new graph.  An
+        engine instance, MRIM problems (``t_rounds``) and approximate ones
+        are refused, as in the reference.  The bookkeeping lands in
+        :attr:`last_incremental` and in the stats history (a ``"delta"``
+        entry)."""
+        if not isinstance(self._engine_arg, str):
+            raise ValueError(
+                "resolve_incremental needs a string engine= (the solver "
+                "rebuilds its engine on the mutated graph); an engine "
+                "instance owns its own graph and cannot be re-pointed")
+        if problem.t_rounds is not None:
+            raise ValueError(
+                "resolve_incremental does not support MRIM (t_rounds=): "
+                "the round-tagged item space has no per-node invalidation "
+                "frontier")
+        if problem.mode == "approximate":
+            raise ValueError(
+                "resolve_incremental needs the exact pool (mode="
+                "'approximate' keeps no RR rows to invalidate); re-solve "
+                "from a cold sketch instead")
+        d = stream_mod.as_deltas(deltas)
+        new_g = stream_mod.apply_edge_deltas(self.g, d)
+        aff = stream_mod.affected_nodes(d)
+        model = problem.model or self._default_model()
+        store = (self.store if self._sig == self._signature(problem, model)
+                 else None)
+        info = {"affected_nodes": int(aff.shape[0]),
+                "n_rr_before": store.n_rr if store is not None else 0,
+                "rows_dropped": 0, "rows_kept": 0,
+                "surviving_fraction": 0.0, "reused": False}
+        if store is not None:
+            ev = store.evict_rows_containing(aff)
+            info["rows_dropped"] = int(ev["rows_dropped"])
+            info["rows_kept"] = int(ev["rows_kept"])
+            if info["n_rr_before"]:
+                info["surviving_fraction"] = (info["rows_kept"]
+                                              / info["n_rr_before"])
+            if info["surviving_fraction"] < min_surviving_fraction:
+                store = None                   # too few left: a fresh pool
+        self.g = new_g
+        self.n = new_g.n_nodes
+        self.g_rev = reverse(new_g)
+        self._plain_engines = {}
+        self._sig = None
+        self.engine = None
+        self._active_solve = None
+        self._last_ckpt_round = 0
+        if store is not None:
+            # the adoption path: fresh stats, the surviving pool and its
+            # round cursor kept
+            self.prepare(problem, _store=store)
+            info["reused"] = True
+            self._stats.history.append(
+                ("delta", info["rows_dropped"], info["rows_kept"]))
+        else:
+            self.store = None
+        self.last_incremental = info
+        return self.solve_problem(problem, deadline_s=deadline_s)
+
     @staticmethod
     def _approx_bounds(r, info: dict) -> tuple:
         """(lo, hi) spread from a sketch-selection certificate: lower from
@@ -545,7 +1056,9 @@ class IMMSolver:
 
 
 _SOLVER_KEYS = frozenset(("engine", "batch", "qcap", "ec", "model", "seed",
-                          "selection", "sketch_k", "eval_batch", "device"))
+                          "selection", "sketch_k", "eval_batch", "device",
+                          "fault_policy", "checkpoint_dir",
+                          "checkpoint_every", "checkpoint_keep"))
 _PROBLEM_KEYS = frozenset(("model", "ell", "max_theta", "node_weights",
                            "costs", "budget", "candidates", "t_rounds",
                            "theta", "early_exit", "mode"))

@@ -275,8 +275,9 @@ class IMResult:
     solve stops when nothing affordable is left: ``len(seeds)`` is the
     seeds it bought and ``cost`` their total price.  An approximate solve
     also returns ``spread_bounds = (lo, hi)``, the certified bracket of
-    the spread (``None`` for exact solves); ``degraded`` stays False (the
-    deadline's sketch answer is not ported)."""
+    the spread (``None`` for exact solves).  A solve whose deadline
+    expired returns ``degraded=True`` and its certified ``spread_bounds``
+    (``IMMSolver.solve_problem(deadline_s=...)``)."""
     seeds: np.ndarray
     spread: float
     gains: np.ndarray

@@ -101,9 +101,9 @@ def execute_batch(solver: IMMSolver, problems: List[IMProblem],
 
     ``deadlines`` (aligned with ``problems``): each request's remaining
     seconds, passed to ``solve_problem(deadline_s=...)``; a request with
-    one goes solo (the stacked scan has no point to degrade at).  The
-    port's ``solve_problem`` does not take a deadline yet and raises (ROADMAP
-    Queue 1 item 10); the fast path ignores it.  ``stats_out`` gains the
+    one goes solo (the stacked scan has no point to degrade at), and its
+    solve may return the degraded answer or raise ``DeadlineExceeded``;
+    the fast path ignores it, as the reference's does.  ``stats_out`` gains the
     ``stacked_batches``/``stacked_requests`` counters when the stacked
     path runs."""
     if not problems:

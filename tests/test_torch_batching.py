@@ -6,8 +6,9 @@ and ``execute_batch`` give the solo solves' results in every ``IMResult``
 field, MRIM problems stack through their group quotas, and the refusals
 (mixed or missing θ, approximate mode, a second pool signature, the
 row-weighted estimator) carry the reference's messages.  A deadline is
-passed to ``solve_problem``, which does not take one yet.
+passed to ``solve_problem``, whose degraded answer equals the reference's.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -17,6 +18,7 @@ from repro.graph import csr as jcsr, generators as jgen, weights as jw
 from repro_torch.core.engine import make_engine
 from repro_torch.core.imm import IMMSolver
 from repro_torch.core.problem import IMProblem
+from repro_torch.ft.failures import DeadlineExceeded
 from repro_torch.graph import csr, generators, weights
 from repro_torch.kernels import ops
 from repro_torch.serve import (execute_batch, occur_fastpath_eligible,
@@ -127,18 +129,36 @@ def test_execute_batch_stacked_parity_and_counters(solo):
     assert execute_batch(IMMSolver(g, batch=64, seed=0, device=CPU), []) == []
 
 
-def test_execute_batch_routes(solo):
+def test_execute_batch_routes(solo, tmp_path):
     """A lone stackable request runs solo; two θs stack a θ at a time; a
-    deadline goes to solve_problem, which raises naming ROADMAP item 10;
-    the eligibility predicates follow the reference's."""
+    request's deadline goes to solve_problem: one that does not expire
+    gives the solo result, an expired one the degraded answer, equal to
+    the reference's on the same pool (saved by the port, restored by the
+    reference), and a budgeted one raises as the reference's; the
+    eligibility predicates follow the reference's."""
     g = solo["g"]
     s = IMMSolver(g, batch=64, seed=0, device=CPU)
     stats: dict = {}
     one = execute_batch(s, [solo["probs"][1]], stats_out=stats)
     _assert_result_equal(one[0], solo["mixed"][1])
     assert stats == {}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        execute_batch(s, [IMProblem(k=2, theta=THETA)], deadlines=[0.5])
+    late = execute_batch(s, [solo["probs"][1], IMProblem(k=2, theta=THETA)],
+                         deadlines=[3600.0, 0.0], stats_out=stats)
+    _assert_result_equal(late[0], solo["mixed"][1])
+    assert not late[0].degraded and late[1].degraded and stats == {}
+    s.save_pool(str(tmp_path))
+    js = JSolver(jcsr.CSRGraph(*(jnp.asarray(a) for a in g.numpy())),
+                 batch=64, seed=0, selection="fused")
+    js.restore_pool(str(tmp_path))
+    want = js.solve_problem(JProblem(k=2, theta=THETA), deadline_s=0.0)
+    np.testing.assert_array_equal(late[1].seeds, want.seeds)
+    np.testing.assert_array_equal(late[1].gains, want.gains)
+    assert (late[1].frac, late[1].spread, late[1].spread_bounds) == \
+        (want.frac, want.spread, want.spread_bounds)
+    costs = np.ones(g.n_nodes, np.float32)
+    with pytest.raises(DeadlineExceeded, match="budgeted"):
+        execute_batch(s, [IMProblem(theta=THETA, budget=2.0, costs=costs)],
+                      deadlines=[0.0])
     for p in (IMProblem(k=1, theta=8), IMProblem(k=2, theta=8),
               IMProblem(k=1), IMProblem(theta=8, budget=2.0),
               IMProblem(k=1, theta=8, t_rounds=2),

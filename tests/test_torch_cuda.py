@@ -18,6 +18,7 @@ from repro_torch.core.imm import IMMSolver
 from repro_torch.core.problem import IMProblem
 from repro_torch.core.engine import QueueEngine
 from repro_torch.core.rrset import round_seed, sample_rrsets_queue, to_lists
+from repro_torch.core.sketch import bucket_of
 from repro_torch.graph import csr, generators, weights
 from repro_torch.kernels import bernoulli as tbern, bitset as tbitset
 from repro_torch.kernels import flashattn as tflash
@@ -2926,3 +2927,97 @@ def test_solve_stacked_and_execute_batch_on_card_equal_solo(card):
         assert np.array_equal(a.seeds, b.seeds)
         assert (a.frac, a.spread, a.cost) == (b.frac, b.spread, b.cost)
     assert stats == {"stacked_batches": 1, "stacked_requests": 4}
+
+
+# ------------------------------------------------ durability and streaming
+
+def _durable_graph(dev, n=3000):
+    src, dst = generators.barabasi_albert(n, 4, seed=0)
+    return weights.wc_weights(csr.from_edges(src, dst, n, device=dev))
+
+
+@pytest.mark.cuda
+def test_save_and_restore_pool_on_card(card, tmp_path):
+    """A checkpoint taken in the middle of a solve on the card restores
+    onto the card (never quietly onto the CPU) and finishes equal to the
+    uninterrupted solve; the same checkpoint restored on the CPU holds the
+    same state."""
+    g = _durable_graph(card)
+    opts = dict(batch=256, seed=0, sketch_k=256)
+    p = IMProblem(k=10, eps=0.5)
+    clean = IMMSolver(g, device=card, **opts).solve(p)
+    d = str(tmp_path / "ck")
+    s1 = IMMSolver(g, device=card, checkpoint_dir=d, checkpoint_every=2,
+                   **opts)
+    s1.prepare(p)
+    s1.sample_until(clean.stats.n_rr_sampled // 2)
+    s2 = IMMSolver(g, device=card, **opts)
+    s2.restore_pool(d)
+    assert s2.store.flat.is_cuda and s2.store.sketch_words().is_cuda
+    got = s2.solve(p)
+    np.testing.assert_array_equal(got.seeds, clean.seeds)
+    np.testing.assert_array_equal(got.gains, clean.gains)
+    assert got.frac == clean.frac and got.stats == clean.stats
+    host = IMMSolver(g.to("cpu"), device="cpu", **opts)
+    host.restore_pool(d)
+    s3 = IMMSolver(g, device=card, **opts)
+    s3.restore_pool(d)
+    for k, v in s3.store.state().items():
+        assert v.tobytes() == host.store.state()[k].tobytes(), k
+
+
+@pytest.mark.cuda
+def test_eviction_rebuild_scatter_or_equals_plain(card):
+    """The eviction's sketch rebuild (one ``sketch_scatter_or`` launch) on
+    the card equals the plain scatter and the CPU eviction of the same
+    state, for each of the three evictions."""
+    g = _durable_graph(card)
+    s = IMMSolver(g, batch=256, seed=0, sketch_k=512, device=card)
+    s.solve(IMProblem(k=5, theta=4096))
+    state, cfg = s.store.state(), s.store.config()
+    dev_store = cov.DeviceRRStore.from_state(state, cfg, device=card)
+    cpu_store = cov.DeviceRRStore.from_state(state, cfg, device="cpu")
+    aff = np.arange(0, 3000, 97)
+    for evict in (lambda st: st.evict_earliest_rounds(3),
+                  lambda st: st.evict_to_bytes(
+                      st.per_device_pool_bytes() // 2),
+                  lambda st: st.evict_rows_containing(aff)):
+        before = ops.launch_counts()["sketch_scatter_or"]
+        assert evict(dev_store) == evict(cpu_store)
+        assert ops.launch_counts()["sketch_scatter_or"] == before + 1
+        a, b = dev_store.state(), cpu_store.state()
+        for k in b:
+            assert a[k].tobytes() == b[k].tobytes(), k
+        t = dev_store.n_elems
+        words = torch.zeros_like(dev_store.sketch_words())
+        v = dev_store.flat[:t]
+        bkt = bucket_of(dev_store.ids[:t], dev_store.sketch_k,
+                        dev_store.sketch_mode)
+        want = ref.sketch_scatter_or_ref(words, v, bkt)
+        assert torch.equal(dev_store.sketch_words(), want)
+
+
+@pytest.mark.cuda
+def test_degraded_sweeps_on_card_equal_the_cpu(card, tmp_path):
+    """``deadline_s=0`` on a sketch pool: k sweeps (one
+    ``sketch_union_popcount`` and one ``popcount_words`` launch each) on
+    the card give the CPU run's answer on the same state."""
+    g = _durable_graph(card)
+    opts = dict(batch=256, seed=0, sketch_k=1024)
+    s = IMMSolver(g, device=card, **opts)
+    s.solve(IMProblem(k=10, theta=4096))
+    d = str(tmp_path / "ck")
+    s.save_pool(d)
+    host = IMMSolver(g.to("cpu"), device="cpu", **opts)
+    host.restore_pool(d)
+    before = ops.launch_counts()
+    got = s.solve_problem(IMProblem(k=10, theta=4096), deadline_s=0)
+    after = ops.launch_counts()
+    want = host.solve_problem(IMProblem(k=10, theta=4096), deadline_s=0)
+    assert got.degraded and want.degraded
+    assert after["sketch_union_popcount"] - \
+        before["sketch_union_popcount"] == 10
+    assert after["popcount_words"] - before["popcount_words"] == 10
+    np.testing.assert_array_equal(got.seeds, want.seeds)
+    np.testing.assert_array_equal(got.gains, want.gains)
+    assert got.frac == want.frac and got.spread_bounds == want.spread_bounds

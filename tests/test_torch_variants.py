@@ -24,15 +24,18 @@ from scipy import stats
 
 from repro.core import coverage as jcov, roots as jroots
 from repro.core.engine import make_engine as jmake_engine
+from repro.core.imm import IMMSolver as JSolver
 from repro.core.problem import (IMProblem as JProblem,
                                 problem_from_state as jfrom_state,
                                 problem_state as jstate)
+from repro.ft.failures import DeadlineExceeded as JDeadline
 from repro.graph import csr as jcsr, generators as jgen, weights as jw
 from repro_torch import convert
 from repro_torch.core import coverage as tcov, forward, oracle, roots
 from repro_torch.core.imm import IMMSolver, imm, imm_result
 from repro_torch.core.problem import (IMProblem, IMResult, problem_from_state,
                                       problem_state)
+from repro_torch.ft.failures import DeadlineExceeded
 from repro_torch.graph import csr as tcsr, weights as tw
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bernoulli import counter_uniform_u32
@@ -533,7 +536,7 @@ def test_prepare_reuses_the_pool_for_an_equal_signature():
 
 
 def test_imm_and_imm_result_take_the_variant_keywords():
-    tg, _ = _graphs()
+    tg, jg = _graphs()
     seeds, spread, st = imm(tg, k=3, theta=256, candidates=[5, 6, 7, 8],
                             batch=64, seed=1, device=CPU)
     assert set(seeds.tolist()) <= {5, 6, 7, 8} and st.variant == "candidates"
@@ -542,9 +545,15 @@ def test_imm_and_imm_result_take_the_variant_keywords():
     assert res.cost <= 5.0 and res.stats.variant == "budgeted"
     with pytest.raises(TypeError, match="bogus"):
         imm_result(tg, IMProblem(k=1), bogus=1, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a deadline that expires before the first round: the reference's
+    # DeadlineExceeded, word for word
+    with pytest.raises(DeadlineExceeded) as mine:
         IMMSolver(tg, batch=64, device=CPU).solve_problem(
-            IMProblem(k=1), deadline_s=1.0)
+            IMProblem(k=1), deadline_s=0.0)
+    with pytest.raises(JDeadline) as theirs:
+        JSolver(jg, batch=64, selection="fused").solve_problem(
+            JProblem(k=1), deadline_s=0.0)
+    assert str(mine.value) == str(theirs.value)
     # MRIM is ported: imm takes t_rounds (tests/test_torch_mrim.py)
     seeds, _, st = imm(tg, k=2, t_rounds=2, theta=256, batch=64, seed=1,
                        device=CPU)
