@@ -295,6 +295,35 @@ Phases, each of which raises on failure (non-zero exit):
    ``resolve_incremental`` against a cold solve on the post-delta graph,
    both RIS estimates within 10% of a 256-simulation forward Monte Carlo,
    the round cursor never rewound (``streaming:``).
+20. the serving front (:func:`serving_phase`) on the stand-in, through
+   ``repro_torch.serve``: ``build_service`` with ``max_batch=16``,
+   ``batch_window_s=0.002`` and phase 5's solver options on the card, the
+   port's ``IMNetServer`` on ``127.0.0.1:0`` and its ``IMClient``.  Phase
+   18's nine problems at θ = 7,101 and one ε-driven ``IMProblem(k=50,
+   eps=0.5)``, sent at once, each equal to ``result_state`` of a cold
+   solve on the card in every field but ``stats.variant`` (a result's
+   stats are its solver's live stats, shared by a batch's results in both
+   packages); launch counts reset just before and read just after:
+   ``queue_bfs``, ``greedy_stacked`` and ``greedy_flat`` launched;
+   ``/statsz``: two or three micro-batches, at least one stacked, the
+   top-1 fast path counted; the resend cached with the same bits; 404,
+   400 and a zero deadline's 504 (or a degraded 200); a drain (``/readyz``
+   503, a solve refused typed, ``shutdown()`` spilling every entry)
+   (``serving_gate:``).  A burst of 16 past ``queue_cap=4`` shed with 429
+   (``serving_shed:``); a budget of 1.5x the first entry's pool bytes that
+   spills it when a second key arrives, the next request on it rehydrated
+   with no ``queue_bfs`` launch and equal to the cold solve
+   (``serving_spill:``, the checkpoint bytes, spill and rehydrate
+   seconds); the nine under ``FaultInjector(rate=0.1, seed=0)`` with the
+   first ``executor`` crossing failing: only served or typed outcomes, the
+   served ones equal to the gate's (``serving_chaos:``); an ``IMCluster``
+   of two workers on the card: twelve θ-pinned keys at once, each pool on
+   one worker, the answers the cold solves', then ``add_worker``: the
+   moved keys adopted warm (``handoffs_in``, no entry built anew) and
+   answering with the same bits (``serving_cluster:``); the ``serving:``
+   line with the phase's seconds, the gate's latency p50/p99 (submit to
+   response), occupancy, cache hits, sheds, spill and rehydrate, chaos
+   retries, handoffs and the card's ``nvidia-smi`` name and power limit.
 
 The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
 the exact path's final bit matrix, masked on the first seed's rows as the
@@ -339,6 +368,7 @@ line and ``{"ok": true, "device":
 """
 from __future__ import annotations
 
+import asyncio
 import ctypes
 import functools
 import hashlib
@@ -399,7 +429,10 @@ from repro_torch.kernels.bernoulli import counter_uniform_u32  # noqa: E402
 from repro_torch.kernels.sketch import (canonical_row_ids,  # noqa: E402
                                         frontier_pairs)
 from repro_torch.kernels.queue import SEGMENT_EDGES  # noqa: E402
-from repro_torch.serve import execute_batch  # noqa: E402
+from repro_torch.serve import (ERROR_STATUS, IMClient,  # noqa: E402
+                               IMCluster, IMNetServer, ServeConfig,
+                               build_service, execute_batch)
+from repro_torch.serve.net import result_state  # noqa: E402
 
 # H100 SXM HBM rate (NVIDIA's data sheet), and the results per clock per
 # SM of each class of instruction on Hopper (compute capability 9.0), from
@@ -4906,6 +4939,337 @@ def durability_phase(g, queue_res, plain_solver) -> tuple:
                    "phase 19's incremental solve": inc_launches}
 
 
+# phase 20: the serving front on the stand-in
+SERVE_WINDOW_S = 0.002
+SERVE_MAX_BATCH = 16
+SERVE_QUEUE_CAP = 4
+SERVE_BURST = 16
+SERVE_BURST_THETA = 4         # the burst's θ, in phase 5's θ: a new pool
+SERVE_SPILL_BUDGET = 1.5      # the budget, in the first entry's pool bytes
+SERVE_CLUSTER_KEYS = 12
+SERVE_CHAOS_RATE = 0.1
+
+
+def serve_options() -> dict:
+    """The service's solver options: phase 5's, on the card."""
+    return {"batch": BATCH, "seed": 0, "device": "cuda"}
+
+
+def wire_state(res_state: dict) -> dict:
+    """A ``result_state`` without ``stats.variant``: a result's stats are
+    its solver's live stats, so the results of one batch share the
+    variant of the batch's last request (in both packages)."""
+    out = dict(res_state, stats=dict(res_state["stats"]))
+    out["stats"].pop("variant")
+    return out
+
+
+async def serve_gate(g, probs, want, spill: Path) -> dict:
+    """20.1-20.3 and 20.6: the gate's concurrent requests over HTTP, the
+    resend from the cache, the typed errors, the shed burst and the
+    drain."""
+    svc = build_service({"graph": g}, ServeConfig(
+        max_batch=SERVE_MAX_BATCH, batch_window_s=SERVE_WINDOW_S,
+        solver_opts=serve_options(), spill_dir=str(spill)))
+    server = IMNetServer(svc, port=0)
+    await server.start()
+    c = IMClient("127.0.0.1", server.port)
+    lat: list = []
+
+    async def timed(p):
+        t0 = time.perf_counter()
+        doc = await c.solve("graph", p)
+        lat.append(time.perf_counter() - t0)
+        return doc
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    docs = await asyncio.gather(*(timed(p) for p in probs))
+    gate_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = live_launches()
+    bad = [i for i, (d, w) in enumerate(zip(docs, want))
+           if wire_state(d["result"]) != wire_state(w)]
+    if bad or any(d["degraded"] for d in docs):
+        raise AssertionError(f"serving: answers {bad} differ from the cold "
+                             f"solves on the card")
+    for name in ("queue_bfs", "greedy_stacked", "greedy_flat"):
+        if not launches.get(name):
+            raise AssertionError(f"serving: {name} was not launched under "
+                                 f"the service: {launches}")
+    st = (await c.stats())["serve"]
+    # the fixed-θ requests share one key: one or two micro-batches, and
+    # the ε-driven request a batch of its own
+    if not (st["served"] == len(probs) and 2 <= st["batches"] <= 3
+            and st["stacked_batches"] >= 1 and st["occur_fastpath"] >= 1
+            and st["stacked_requests"] >= 2):
+        raise AssertionError(f"serving: statsz {st}")
+    again = await asyncio.gather(*(c.solve("graph", p) for p in probs))
+    if not all(d["cached"] for d in again) or \
+            [d["result"] for d in again] != [d["result"] for d in docs]:
+        raise AssertionError("serving: the resend did not come back cached "
+                             "with the same bits")
+
+    # 20.2 the typed errors
+    errors = {}
+    status, doc = await c.solve_raw("nope", probs[0])
+    errors["unknown_graph"] = [status, doc["error"]["code"]]
+    bad_p = IMProblem(k=K, theta=probs[0].theta,
+                      candidates=np.array([g.n_nodes + 5]))
+    status, doc = await c.solve_raw("graph", bad_p)
+    errors["out_of_range"] = [status, doc["error"]["code"]]
+    status, doc = await c.solve_raw("graph", IMProblem(
+        k=7, theta=probs[0].theta), deadline_s=0.0)
+    errors["zero_deadline"] = [status, doc["error"]["code"] if status != 200
+                               else "degraded" if doc["degraded"] else
+                               "served"]
+    if errors["unknown_graph"] != [404, "unknown_graph"] or \
+            errors["out_of_range"] != [400, "invalid_problem"] or \
+            errors["zero_deadline"] not in ([504, "deadline_expired"],
+                                            [200, "degraded"]):
+        raise AssertionError(f"serving: errors {errors}")
+
+    # 20.6 the drain: readyz turns 503, solves are refused typed, then
+    # shutdown() flushes and spills
+    server.draining = True
+    ready = (await c.readyz())[0]
+    status, doc = await c.solve_raw("graph", probs[0])
+    server.draining = False
+    if ready != 503 or (status, doc["error"]["code"]) != (503, "draining"):
+        raise AssertionError(f"serving: drain gave readyz {ready}, solve "
+                             f"{status}")
+    entries = len(svc.registry.entries)
+    await server.shutdown()
+    reg = svc.registry.snapshot()
+    if reg.spills != entries or svc.registry.entries:
+        raise AssertionError(f"serving: shutdown spilled {reg.spills} of "
+                             f"{entries} entries")
+    return {"gate_s": gate_s, "latency_p50_s": float(np.percentile(lat, 50)),
+            "latency_p99_s": float(np.percentile(lat, 99)), "latency_s": lat,
+            "launches": launches, "batches": st["batches"],
+            "occupancy_mean": st["batch_occupancy_mean"],
+            "occupancy_max": st["batch_occupancy_max"],
+            "stacked_batches": st["stacked_batches"],
+            "stacked_requests": st["stacked_requests"],
+            "occur_fastpath": st["occur_fastpath"],
+            "cache_hits_on_resend": svc.cache.snapshot().hits,
+            "errors": errors, "drain_spills": reg.spills}
+
+
+async def serve_shed(g, theta: int) -> dict:
+    """20.2: a burst of distinct requests past ``queue_cap`` is shed with
+    429, every other answer served.  The burst's θ needs a new pool, so the
+    first batch samples while the rest arrive."""
+    svc = build_service({"graph": g}, ServeConfig(
+        max_batch=SERVE_MAX_BATCH, batch_window_s=SERVE_WINDOW_S,
+        queue_cap=SERVE_QUEUE_CAP, solver_opts=serve_options()))
+    server = IMNetServer(svc, port=0)
+    await server.start()
+    try:
+        c = IMClient("127.0.0.1", server.port)
+        got = await asyncio.gather(*(
+            c.solve_raw("graph", IMProblem(k=k + 1,
+                                          theta=SERVE_BURST_THETA * theta))
+            for k in range(SERVE_BURST)))
+    finally:
+        await server.shutdown(spill=False)
+    codes = sorted({s for s, _ in got})
+    shed = sum(s == 429 for s, _ in got)
+    if not shed or set(codes) - {200, 429} or svc.shed != shed:
+        raise AssertionError(f"serving: burst statuses {codes}, shed {shed}")
+    return {"burst": SERVE_BURST, "queue_cap": SERVE_QUEUE_CAP,
+            "shed": shed, "served": sum(s == 200 for s, _ in got)}
+
+
+async def serve_spill(g, probs, want, spill: Path) -> dict:
+    """20.4: a budget of 1.5x the first entry's pool bytes evicts it into
+    ``spill_dir`` when a second key arrives; the next request on the first
+    key (another k, so no cache hit) rehydrates with no sampling and
+    answers bit-identically."""
+    svc = build_service({"graph": g}, ServeConfig(
+        max_batch=SERVE_MAX_BATCH, solver_opts=serve_options(),
+        spill_dir=str(spill)))
+    reg = svc.registry
+    clock = StageClock()
+    clock.wrap(reg, "evict", "spill")
+    clock.wrap(reg, "get", "get")
+    async with svc:
+        first = await svc.submit("graph", probs[0])
+        pool_bytes = reg.bytes_in_use()
+        reg.memory_budget_bytes = int(SERVE_SPILL_BUDGET * pool_bytes)
+        await svc.submit("graph", IMProblem(k=K, theta=2 * probs[0].theta))
+        spilled = reg.snapshot()
+        spill_s = clock.seconds["spill"]
+        ckpt_bytes = sum(f.stat().st_size for f in spill.rglob("*")
+                         if f.is_file())
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        get_s = clock.seconds["get"]
+        again = await svc.submit("graph", probs[3])
+        torch.cuda.synchronize()
+        launches = live_launches()
+        after = reg.snapshot()
+        # the rehydrating get, and the eviction of the second key it forced
+        rehydrate_s = clock.seconds["get"] - get_s
+    if spilled.spills != 1 or after.rehydrations != 1 \
+            or launches.get("queue_bfs") or launches.get("bernoulli_edges"):
+        raise AssertionError(f"serving: spill {spilled}, rehydrate {after}, "
+                             f"launches {launches}")
+    if wire_state(result_state(again.result)) != wire_state(want[3]) or \
+            wire_state(result_state(first.result)) != wire_state(want[0]):
+        raise AssertionError("serving: the rehydrated entry's answer "
+                             "differs from the cold solve")
+    return {"pool_bytes": pool_bytes, "budget": reg.memory_budget_bytes,
+            "checkpoint_bytes": ckpt_bytes, "spill_s": spill_s,
+            "rehydrate_get_s": rehydrate_s,
+            "rehydrate_launches": launches,
+            "spills": after.spills, "rehydrations": after.rehydrations}
+
+
+async def serve_chaos(g, probs, want) -> dict:
+    """20.5: the gate's fixed-θ requests under ``FaultInjector(rate=0.1)``
+    at all five sites, the first ``executor`` crossing failing for sure
+    (the batch dies, its entry is quarantined and each request reruns
+    alone): every request resolves to a served, degraded or typed outcome,
+    and every served exact answer is the gate's."""
+    pol = FaultPolicy(injector=FaultInjector(
+        rate=SERVE_CHAOS_RATE, seed=0, fail_at={"executor": {1}}))
+    svc = build_service({"graph": g}, ServeConfig(
+        max_batch=SERVE_MAX_BATCH, batch_window_s=SERVE_WINDOW_S,
+        solver_opts={**serve_options(), "fault_policy": pol}))
+    server = IMNetServer(svc, port=0)
+    await server.start()
+    try:
+        c = IMClient("127.0.0.1", server.port)
+        got = await asyncio.gather(*(c.solve_raw("graph", p)
+                                     for p in probs))
+    finally:
+        await server.shutdown(spill=False)
+    codes = {cls.code: status for cls, status in ERROR_STATUS.items()}
+    outcomes = []
+    for (status, doc), w in zip(got, want):
+        if status == 200:
+            if doc["degraded"]:
+                outcomes.append("degraded")
+                continue
+            if wire_state(doc["result"]) != wire_state(w):
+                raise AssertionError("serving: a chaos answer differs from "
+                                     "the gate's")
+            outcomes.append("served")
+        elif codes.get(doc["error"]["code"]) == status:
+            outcomes.append(doc["error"]["code"])
+        else:
+            raise AssertionError(f"serving: untyped chaos outcome {status} "
+                                 f"{doc}")
+    st = svc.stats()
+    return {"rate": SERVE_CHAOS_RATE, "fires": pol.injector.fires,
+            "fired_sites": sorted({s for s, _ in pol.injector.fired_log}),
+            "solver_retries": pol.retries, "quarantines": st.quarantines,
+            "isolated_retries": st.isolated_retries, "outcomes": outcomes}
+
+
+async def serve_cluster(g, theta: int) -> dict:
+    """20.7: two workers on the one card.  Twelve θ-pinned keys, sent at
+    once (both workers' requests in flight together), each pool on exactly
+    one worker and every answer the cold solve's; after ``add_worker`` the
+    moved keys are adopted warm and answer bit-identically."""
+    dev = g.device
+    thetas = [theta + i for i in range(SERVE_CLUSTER_KEYS)]
+    probs = [IMProblem(k=10, theta=t) for t in thetas]
+    want = [result_state(IMMSolver(g, engine="queue", batch=BATCH, seed=0,
+                                   device=dev).solve_problem(p))
+            for p in probs]
+    cl = IMCluster({"graph": g}, ServeConfig(
+        max_batch=8, solver_opts=serve_options()), workers=2)
+    await cl.start()
+    spans = []
+
+    async def timed(p):
+        t0 = time.perf_counter()
+        r = await cl.submit("graph", p)
+        spans.append((cl.ring.owner(cl.route_key("graph", p)), t0,
+                      time.perf_counter()))
+        return r
+    try:
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*(timed(p) for p in probs))
+        first_s = time.perf_counter() - t0
+        regs = [w.service.registry for w in cl._workers.values()]
+        keys = [set(r.entries) for r in regs]
+        if sum(map(len, keys)) != len(set().union(*keys)) \
+                or len(set().union(*keys)) != len(thetas) \
+                or not all(keys):
+            raise AssertionError(f"cluster: pools per worker "
+                                 f"{[len(k) for k in keys]}")
+        overlap = any(a[0] != b[0] and a[1] < b[2] and b[1] < a[2]
+                      for a in spans for b in spans)
+        if not overlap:
+            raise AssertionError("cluster: the two workers' requests never "
+                                 "overlapped")
+        wid = cl.add_worker()
+        moved = cl.handoffs
+        new_reg = cl._workers[wid].service.registry
+        again = await asyncio.gather(*(
+            cl.submit("graph", IMProblem(k=10, theta=t)) for t in thetas))
+        snap = new_reg.snapshot()
+    finally:
+        await cl.stop()
+    states = [wire_state(result_state(r.result)) for r in got]
+    states2 = [wire_state(result_state(r.result)) for r in again]
+    if states != [wire_state(w) for w in want] or states2 != states:
+        raise AssertionError("cluster: answers differ from the cold solves")
+    if not moved or snap.handoffs_in != moved or snap.created != moved:
+        raise AssertionError(f"cluster: handoffs {moved}, new worker {snap}")
+    return {"keys": len(thetas), "workers": 2, "first_round_s": first_s,
+            "pools_per_worker": [len(k) for k in keys],
+            "in_flight_together": overlap, "handoffs": moved,
+            "adopted_warm": snap.handoffs_in}
+
+
+def serving_phase(g) -> dict:
+    """Phase 20 (see the module docstring).  Returns the gate's launches."""
+    dev = g.device
+    t20 = time.perf_counter()
+    theta = EXACT_POOL["theta"]
+    probs = stacked_problems(g.n_nodes, theta) + [IMProblem(k=K, eps=EPS)]
+    t0 = time.perf_counter()
+    want = [result_state(IMMSolver(g, engine="queue", batch=BATCH, seed=0,
+                                   device=dev).solve_problem(p))
+            for p in probs]
+    cold_s = time.perf_counter() - t0
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        gate = asyncio.run(serve_gate(g, probs, want, Path(tmp) / "gate"))
+        spill = asyncio.run(serve_spill(g, probs[:-1], want,
+                                        Path(tmp) / "spill"))
+    shed = asyncio.run(serve_shed(g, theta))
+    chaos = asyncio.run(serve_chaos(g, probs[:-1], want[:-1]))
+    cluster = asyncio.run(serve_cluster(g, theta))
+    seconds = time.perf_counter() - t20
+    smi = nvidia_smi()
+    say("serving", {
+        "seconds": seconds, "cold_solves_s": cold_s,
+        "latency_p50_s": gate["latency_p50_s"],
+        "latency_p99_s": gate["latency_p99_s"],
+        "occupancy_mean": gate["occupancy_mean"],
+        "occupancy_max": gate["occupancy_max"],
+        "cache_hits": gate["cache_hits_on_resend"], "sheds": shed["shed"],
+        "spill_s": spill["spill_s"],
+        "rehydrate_s": spill["rehydrate_get_s"],
+        "checkpoint_bytes": spill["checkpoint_bytes"],
+        "chaos_retries": chaos["solver_retries"],
+        "handoffs": cluster["handoffs"], "card": smi})
+    say("serving_gate", gate)
+    say("serving_shed", shed)
+    say("serving_spill", spill)
+    say("serving_chaos", chaos)
+    say("serving_cluster", cluster)
+    say("phase20", {"seconds": seconds})
+    return gate["launches"]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -5153,6 +5517,9 @@ def main() -> int:
                       if r["name"] == "sketch_scatter_or"]
     say("sketch_scatter_or_approximate", scatter_approx)
     approx_records = [r for r in approx_records if r not in scatter_approx]
+
+    # 20. the serving front: registry, cache, service, HTTP and cluster
+    serving_phase(g)
     # the kernels that several paths launch: their launches by path
     paths = {"phase 5's exact solve": launches,
              "phase 10's packed sampler": {r["name"]: r["launches"] or 0

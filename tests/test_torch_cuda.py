@@ -3021,3 +3021,100 @@ def test_degraded_sweeps_on_card_equal_the_cpu(card, tmp_path):
     np.testing.assert_array_equal(got.seeds, want.seeds)
     np.testing.assert_array_equal(got.gains, want.gains)
     assert got.frac == want.frac and got.spread_bounds == want.spread_bounds
+
+
+# ------------------------------------------------------------- serving
+
+def _serve(coro):
+    import asyncio
+    return asyncio.run(asyncio.wait_for(coro, 300))
+
+
+def _fields(res):
+    return (np.asarray(res.seeds).tolist(), np.asarray(res.gains).tolist(),
+            np.float32(res.frac).tobytes(), np.float32(res.spread).tobytes(),
+            res.cost, res.degraded)
+
+
+@pytest.mark.cuda
+def test_service_batch_on_card_equals_cold_solves(card):
+    """A θ-pinned micro-batch through ``IMService`` on the card (one
+    stacked scan, the top-1 rider on the Occur fast path) equals cold
+    solves on the card, field for field."""
+    import asyncio
+    from repro_torch.serve import ServeConfig, build_service
+    g = _durable_graph(card)
+    probs = _stacked_problems(3000, 1024) + [IMProblem(k=1, theta=1024)]
+    opts = {"batch": 256, "seed": 0, "device": "cuda"}
+
+    async def go():
+        svc = build_service({"g": g}, ServeConfig(
+            max_batch=16, batch_window_s=0.05, solver_opts=opts))
+        async with svc:
+            got = await asyncio.gather(*(svc.submit("g", p) for p in probs))
+        return got, svc.stats()
+    ops.reset_launch_counts()
+    got, st = _serve(go())
+    counts = ops.launch_counts()
+    assert counts["greedy_stacked"] >= 1 and counts["queue_bfs"] >= 1
+    assert st.stacked_batches >= 1 and st.occur_fastpath >= 1
+    for p, r in zip(probs, got):
+        cold = IMMSolver(g, batch=256, seed=0, device=card).solve_problem(p)
+        assert _fields(r.result) == _fields(cold)
+        assert isinstance(r.result.seeds, np.ndarray)
+
+
+@pytest.mark.cuda
+def test_two_cluster_workers_on_card_equal_one_worker(card):
+    """Two cluster workers solving at once on the one card (their solvers
+    share the device and its default stream) give the answers of a
+    single worker."""
+    import asyncio
+    from repro_torch.serve import IMCluster, ServeConfig
+    g = _durable_graph(card)
+    thetas = list(range(1024, 1036))
+    cfg = ServeConfig(max_batch=8,
+                      solver_opts={"batch": 256, "seed": 0, "device": "cuda"})
+
+    async def go(workers):
+        cl = IMCluster({"g": g}, cfg, workers=workers)
+        await cl.start()
+        try:
+            got = await asyncio.gather(*(
+                cl.submit("g", IMProblem(k=5, theta=t)) for t in thetas))
+            owners = {cl.ring.owner(cl.route_key("g", IMProblem(
+                k=5, theta=t))) for t in thetas}
+        finally:
+            await cl.stop()
+        return [_fields(r.result) for r in got], owners
+    two, owners = _serve(go(2))
+    one, _ = _serve(go(1))
+    assert owners == {0, 1}
+    assert two == one
+
+
+@pytest.mark.cuda
+def test_card_registry_rehydrates_a_cpu_spill(card, tmp_path):
+    """A registry on the card rehydrates the spill that a CPU registry
+    wrote, onto the card, with no sampling, and answers bit for bit."""
+    from repro_torch.serve import WarmSolverRegistry
+    p = IMProblem(k=5, theta=2048)
+    host = WarmSolverRegistry(solver_opts={"batch": 256, "seed": 0,
+                                           "device": "cpu"},
+                              spill_dir=str(tmp_path))
+    host.add_graph("g", _durable_graph("cpu"))
+    e = host.get("g", p)
+    want = e.solver.solve(p)
+    host.account(e)
+    host.evict(host.solver_key("g", p))
+    reg = WarmSolverRegistry(solver_opts={"batch": 256, "seed": 0,
+                                          "device": "cuda"},
+                             spill_dir=str(tmp_path))
+    reg.add_graph("g", _durable_graph(card))
+    entry = reg.get("g", p)
+    assert reg.snapshot().rehydrations == 1
+    assert entry.solver.store.flat.is_cuda
+    before = ops.launch_counts()["queue_bfs"]
+    got = entry.solver.solve(p)
+    assert ops.launch_counts()["queue_bfs"] == before
+    assert _fields(got) == _fields(want)
