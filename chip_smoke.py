@@ -324,6 +324,22 @@ Phases, each of which raises on failure (non-zero exit):
    line with the phase's seconds, the gate's latency p50/p99 (submit to
    response), occupancy, cache hits, sheds, spill and rehydrate, chaos
    retries, handoffs and the card's ``nvidia-smi`` name and power limit.
+21. the sharded pool and its selection protocol (:func:`sharded_phase`),
+   on the stand-in with phase 5's options: (a) a one-rank NCCL group in
+   this process, ``IMMSolver(mesh=...)`` with ``fused``, ``bitset`` and
+   ``celf``, each equal to phase 5 in seeds, gains, ``frac``, θ and
+   spread; launch counts reset just before the ``fused`` solve and read
+   just after: ``occur_flat`` and ``shard_flat_step`` launched,
+   ``greedy_flat`` not; the ``occur_flat`` and ``shard_flat_step`` records
+   at its pool (each against its plain version, max abs err 0; the step
+   over the selection's K steps); (b) two gloo ranks on the one card
+   (:func:`sharded_rank`, spawned by ``torch.multiprocessing``), the same
+   three solves on CUDA tensors (a gloo build that refuses CUDA tensors
+   fails the phase with its message), each equal to phase 5;
+   (c) the two ranks with ``engine="queue_sharded"`` at 256 lanes each,
+   equal to phase 5 (a batch of 512).  Each solve's stage seconds,
+   per-rank pool bytes, launches and collectives (the solve's and one
+   selection's) go on the ``sharded:`` line.
 
 The last lines are the ``{"kernels": [...]}`` record (the Occur kernels at
 the exact path's final bit matrix, masked on the first seed's rows as the
@@ -347,7 +363,9 @@ own); ``greedy_stacked`` at phase 18's batch, with the same rows' time as
 solo launches (``solo_launches_ms``) and its barrier floor;
 ``sketch_scatter_or`` at phase 19's first eviction rebuild (its record at
 the approximate path's first round goes on a
-``sketch_scatter_or_approximate:`` line);
+``sketch_scatter_or_approximate:`` line); ``occur_flat`` (beside
+``torch.bincount``) and ``shard_flat_step`` (the mean of a selection's
+steps) at phase 21's one-rank pool;
 the union popcount's record at the approximate sketch goes on a
 ``sketch_union_popcount_approximate:`` line); launches from each path's
 run (``bitset_or``, ``bitset_andnot`` and ``membership_rows``: 0, no
@@ -402,6 +420,8 @@ STAMPS = _examples_module("torch_selection_stamps")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+import torch.multiprocessing as mp  # noqa: E402
 
 from repro_torch.core import coverage as cov  # noqa: E402
 from repro_torch.core import dense  # noqa: E402
@@ -429,6 +449,8 @@ from repro_torch.kernels.bernoulli import counter_uniform_u32  # noqa: E402
 from repro_torch.kernels.sketch import (canonical_row_ids,  # noqa: E402
                                         frontier_pairs)
 from repro_torch.kernels.queue import SEGMENT_EDGES  # noqa: E402
+from repro_torch.launch.im_solve import free_port  # noqa: E402
+from repro_torch.launch.mesh import make_sample_mesh  # noqa: E402
 from repro_torch.serve import (ERROR_STATUS, IMClient,  # noqa: E402
                                IMCluster, IMNetServer, ServeConfig,
                                build_service, execute_batch)
@@ -486,7 +508,7 @@ GREEDY_KERNELS, CELF_KERNELS = 12, 6
 STAMPED_SOURCES = {"sketch": "sketch_stamps", "celf": "celf_stamps"}
 STAMPED: dict = {}
 SOURCES = ("occur", "sketch", "bitops", "bernoulli", "membership",
-           "flashattn", "queue", "greedy", "celf", "lt", "refill")
+           "flashattn", "queue", "greedy", "celf", "lt", "refill", "shard")
 # phase 14: the phase-5 solve with CELF, (selection, sketch_k, early_exit)
 CELF_SOLVES = (("celf", 1024, False), ("celf", 16384, False),
                ("celf", 16384, True))
@@ -522,6 +544,8 @@ LIBRARY_NOTE = {
     "lt_walk": "no single PyTorch call runs a walk",
     "refill_bfs": "no single PyTorch call runs a BFS",
     "greedy_stacked": "no single PyTorch call runs a greedy",
+    "shard_flat_step": "no single PyTorch call marks a node's uncovered "
+                       "rows and counts their elements by node",
 }
 SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "sketch_scatter_or": "sketch", "sketch_union_popcount": "sketch",
@@ -535,7 +559,8 @@ SOURCE_OF = {"occur_from_bitset": "occur", "occur_from_bitset_masked": "occur",
              "celf_select": "celf", "frontier_update": "bitops",
              "sketch_fold_rows": "sketch", "padded_greedy": "membership",
              "lt_walk": "lt", "refill_bfs": "refill",
-             "greedy_stacked": "greedy"}
+             "greedy_stacked": "greedy", "occur_flat": "shard",
+             "shard_flat_step": "shard"}
 # each record's kernel as the profiler names it (a regular expression that
 # matches the demangled or the mangled name)
 DEVICE_KERNEL = {
@@ -565,6 +590,8 @@ DEVICE_KERNEL = {
     "lt_walk": r"lt_walk_kernel",
     "refill_bfs": r"refill_bfs_kernel",
     "greedy_stacked": r"greedy_stacked_kernel",
+    "occur_flat": r"occur_flat_kernel",
+    "shard_flat_step": r"shard_flat_step_kernel",
 }
 KERNELS = {
     "occur_from_bitset": "src/repro/kernels/bitset.py:167",
@@ -618,6 +645,10 @@ KERNELS = {
     # no Pallas kernel: serving's stacked selection is a jitted lax.scan
     # (vmapped over the requests) inside shard_map
     "greedy_stacked": "src/repro/core/coverage.py:1643",
+    # no Pallas kernel: the sharded fused scan's Occur scatter-add and its
+    # step are XLA inside shard_map
+    "occur_flat": "src/repro/core/coverage.py:1374",
+    "shard_flat_step": "src/repro/core/coverage.py:1379",
 }
 # phase 3: the queue kernel at the exact path's first round, also at qcap
 # 64 (above its longest RR set, 21) and 8, where lanes overflow
@@ -5270,6 +5301,223 @@ def serving_phase(g) -> dict:
     return gate["launches"]
 
 
+# phase 21: the selections of the sharded solves, the ranks of (b) and (c)
+# and their lanes a rank (phase 5's batch split between them)
+SHARDED_SELECTIONS = ("fused", "bitset", "celf")
+SHARDED_RANKS = 2
+SHARDED_BATCH = BATCH // SHARDED_RANKS
+SHARDED_TIMEOUT_S = 300
+SHARDED_METHOD = {"fused": "flat", "bitset": "bitset", "celf": "celf"}
+
+
+def sharded_fields(res) -> dict:
+    """What a sharded solve must share with phase 5's."""
+    st = res.stats
+    return {"seeds": [int(x) for x in res.seeds],
+            "gains": [int(x) for x in res.gains],
+            "frac_f32": np.float32(res.frac).tobytes().hex(),
+            "theta": st.theta, "spread": res.spread,
+            "n_rr": st.n_rr_sampled, "rounds": st.rounds}
+
+
+def sharded_solves(g, mesh, engine: str, batch: int) -> tuple:
+    """Phase 5's problem on ``mesh`` with each of
+    :data:`SHARDED_SELECTIONS`: each solve's fields, stage seconds,
+    launches (reset just before the solve, read just after), per-rank pool
+    bytes and collectives, then one more selection on its pool for the
+    collectives of one selection.  -> (the runs by selection, the stores
+    by selection)."""
+    runs, stores = {}, {}
+    for sel in SHARDED_SELECTIONS:
+        solver = IMMSolver(g, engine=engine, batch=batch, seed=0,
+                           selection=sel, mesh=mesh)
+        clock = StageClock()
+        clock.wrap(solver.engine, "sample_sharded"
+                   if engine == "queue_sharded" else "sample", "sampling")
+        clock.wrap(solver.store, "append_batch", "append")
+        clock.wrap(solver.store, "select", "selection")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        before = mesh.collectives
+        t0 = time.perf_counter()
+        res = solver.solve(IMProblem(k=K, eps=EPS))
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        launches = live_launches()
+        solve_coll = mesh.collectives - before
+        before = mesh.collectives
+        solver.store.select(K, method=SHARDED_METHOD[sel])
+        runs[sel] = {"fields": sharded_fields(res), "solve_s": solve_s,
+                     "stage_s": dict(clock.seconds),
+                     "stage_calls": dict(clock.calls),
+                     "launches": launches, "collectives_solve": solve_coll,
+                     "collectives_a_selection": mesh.collectives - before,
+                     "per_rank_pool_bytes": res.stats.per_device_pool_bytes,
+                     "pool_sharding": res.stats.pool_sharding,
+                     "rank_rows": int(solver.store._nrr),
+                     "rank_elements": int(solver.store._t)}
+        stores[sel] = solver.store
+    return runs, stores
+
+
+def sharded_rank(rank: int, size: int, init: str, out_dir: str) -> None:
+    """One of phase 21's gloo ranks on the one card: the two-rank solves
+    with the ``queue`` engine (b) and with ``queue_sharded`` at
+    :data:`SHARDED_BATCH` lanes a rank (c), written to
+    ``out_dir/rank<rank>.json``.  A first ``all_reduce`` of a CUDA tensor
+    checks that this gloo build takes CUDA tensors; where it refuses them,
+    the rank fails the phase with gloo's message."""
+    from datetime import timedelta
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=size,
+                            timeout=timedelta(seconds=SHARDED_TIMEOUT_S))
+    try:
+        try:
+            dist.all_reduce(torch.ones(1, device=dev))
+        except RuntimeError as err:
+            raise RuntimeError("gloo refuses an all_reduce of a CUDA "
+                               f"tensor on this build: {err}") from err
+        mesh = make_sample_mesh(device=dev)
+        g = stand_in_graph(dev)
+        two, _ = sharded_solves(g, mesh, "queue", BATCH)
+        blocks, _ = sharded_solves(g, mesh, "queue_sharded", SHARDED_BATCH)
+        out = {"gloo_takes_cuda_tensors": True,
+               "two_ranks": two, "queue_sharded": blocks}
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_step_bound(t: int, n: int, steps: int, new_elems: int) -> dict:
+    """The least time of a ``shard_flat_step`` on average over a
+    selection's ``steps`` steps: the shard's node ids read once a step, the
+    row id, valid byte and node id of each element of the new rows once,
+    and the (n + 1) decrement written once a step."""
+    return _bound((steps * (4 * t + 4 * (n + 1)) + 9 * new_elems) / steps,
+                  {})
+
+
+def shard_records(store, launches, iters=20, plain_iters=3) -> list:
+    """``occur_flat`` and ``shard_flat_step`` at the one-rank solve's pool
+    against their plain versions on the card (max abs err 0: the Occur;
+    every step's decrement and Covered words over the selection's K steps,
+    each seed the argmax of the plain Occur), then timed: ``occur_flat``
+    beside ``torch.bincount`` (the same function on the live extent, where
+    every element is valid and below n); the step as the mean of the K
+    steps from empty Covered words."""
+    t, n = store._t, store.n_nodes
+    flat, ids, valid = store.flat[:t], store.ids[:t], store.valid[:t]
+    got = ops.occur_flat(flat, valid, n=n)
+    want = ref.occur_flat_ref(flat, valid, n=n)
+    lib = torch.bincount(flat, minlength=n)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err or not torch.equal(got, want) or not bool(valid.all()) \
+            or not torch.equal(lib.to(torch.int32), want):
+        raise AssertionError(f"occur_flat != plain version (err {err}) or "
+                             "bincount")
+    occur_rec = record(
+        "occur_flat", launches, err,
+        timing("occur_flat", lambda: ops.occur_flat(flat, valid, n=n),
+               iters),
+        cuda_ms(lambda: ref.occur_flat_ref(flat, valid, n=n), plain_iters),
+        _bound(5 * t + 4 * n, {}),
+        library_ms=cuda_ms(lambda: torch.bincount(flat, minlength=n), iters),
+        library_call="torch.bincount(flat, minlength=n)", n=n,
+        pool_elements=t)
+    rows = store.row_capacity()
+    cov_k = torch.zeros(rows // 32, dtype=torch.int32, device=flat.device)
+    cov_p = cov_k.clone()
+    occur, us, err, new_elems = want.clone(), [], 0.0, 0
+    for _ in range(K):
+        u = torch.argmax(occur).view(1)
+        dk = ops.shard_flat_step(flat, ids, valid, cov_k, u, n=n)
+        dp = ref.shard_flat_step_ref(flat, ids, valid, cov_p, u, n=n)
+        err = max(err, max_abs_err(dk, dp), max_abs_err(cov_k, cov_p))
+        occur -= dp[:n]
+        new_elems += int(dp[:n].sum())
+        us.append(u)
+    if err:
+        raise AssertionError(f"shard_flat_step != plain version: max abs "
+                             f"err {err}")
+
+    def steps(fn):
+        cov_k.zero_()
+        for u in us:
+            fn(flat, ids, valid, cov_k, u, n=n)
+
+    times = {"ms": cuda_ms(lambda: steps(ops.shard_flat_step), iters) / K,
+             **device_ms(lambda: steps(ops.shard_flat_step), iters,
+                         DEVICE_KERNEL["shard_flat_step"]),
+             "enqueue_us": enqueue_us(lambda: steps(ops.shard_flat_step),
+                                      iters) / K}
+    plain_ms = cuda_ms(lambda: steps(ref.shard_flat_step_ref),
+                       plain_iters) / K
+    step_rec = record("shard_flat_step", launches, err, times, plain_ms,
+                      shard_step_bound(t, n, K, new_elems), steps=K,
+                      new_row_elements=new_elems, n=n, pool_elements=t,
+                      num_rows=rows)
+    return [occur_rec, step_rec]
+
+
+def sharded_phase(g, queue_res) -> tuple:
+    """Phase 21 (see the module docstring): -> (the two kernels' records,
+    the one-rank CELF solve's launches)."""
+    t21 = time.perf_counter()
+    dev = g.offsets.device
+    want = sharded_fields(queue_res)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_sample_mesh(device=dev)
+        one, stores = sharded_solves(g, mesh, "queue", BATCH)
+    finally:
+        dist.destroy_process_group()
+    flat_launches = one["fused"]["launches"]
+    for name in ("occur_flat", "shard_flat_step"):
+        if not flat_launches.get(name):
+            raise AssertionError(f"{name} was not launched on the sharded "
+                                 f"flat path: {flat_launches}")
+    if flat_launches.get("greedy_flat"):
+        raise AssertionError("the sharded flat path launched greedy_flat")
+    recs = shard_records(stores["fused"], flat_launches)
+    del stores
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(sharded_rank, nprocs=SHARDED_RANKS,
+                 args=(SHARDED_RANKS, f"file://{tmp}/rdzv", tmp))
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(SHARDED_RANKS)]
+    spawn_s = time.perf_counter() - t0
+    solves = {"one_rank_nccl": one}
+    for kind in ("two_ranks", "queue_sharded"):
+        for r in range(SHARDED_RANKS):
+            solves[f"{kind}_rank{r}"] = ranks[r][kind]
+    checks = {f"{label}:{sel}": run["fields"] == want
+              for label, runs in solves.items() for sel, run in runs.items()}
+
+    def lean(runs):
+        return {sel: {k: v for k, v in run.items() if k != "fields"}
+                for sel, run in runs.items()}
+
+    say("sharded", {
+        "seconds": time.perf_counter() - t21, "spawn_s": spawn_s,
+        "equal_to_phase5": checks, "card": nvidia_smi(),
+        "gloo_takes_cuda_tensors": ranks[0]["gloo_takes_cuda_tensors"],
+        "phase5": dict(want, seeds=want["seeds"][:10],
+                       gains=want["gains"][:10]),
+        "one_rank_nccl": lean(one),
+        "two_ranks": [lean(r["two_ranks"]) for r in ranks],
+        "queue_sharded": [lean(r["queue_sharded"]) for r in ranks]})
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"sharded solves differ from phase 5: {bad}")
+    return recs, one["celf"]["launches"]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -5320,6 +5568,14 @@ def main() -> int:
     if len(membership_spills) != 2 or any(membership_spills.values()):
         raise AssertionError(f"membership.cu: want 2 kernels without "
                              f"spills, ptxas reports {membership_spills}")
+    shard_spills = {**ptxas_spills(_build.PTXAS_REPORT["shard"],
+                                   "occur_flat_kernel"),
+                    **ptxas_spills(_build.PTXAS_REPORT["shard"],
+                                   "shard_flat_step_kernel")}
+    say("shard_ptxas", shard_spills)
+    if len(shard_spills) != 2 or any(shard_spills.values()):
+        raise AssertionError(f"shard.cu: want 2 kernels without spills, "
+                             f"ptxas reports {shard_spills}")
     lt_spills = ptxas_spills(_build.PTXAS_REPORT["lt"], "lt_walk_kernel")
     say("lt_ptxas", lt_spills)
     if len(lt_spills) != 1 or any(lt_spills.values()):
@@ -5520,16 +5776,20 @@ def main() -> int:
 
     # 20. the serving front: registry, cache, service, HTTP and cluster
     serving_phase(g)
+
+    # 21. the sharded pool and its selection protocol
+    sharded_recs, sharded_celf_launches = sharded_phase(g, res)
     # the kernels that several paths launch: their launches by path
     paths = {"phase 5's exact solve": launches,
              "phase 10's packed sampler": {r["name"]: r["launches"] or 0
                                            for r in dense_recs},
              "phase 14's early exit gate (16,384 buckets)": gate_launches,
-             **celf_variant_launches, **mrim_launches, **durable_launches}
+             **celf_variant_launches, **mrim_launches, **durable_launches,
+             "phase 21's one-rank CELF solve": sharded_celf_launches}
     kernels = records + approx_records + dense_recs + padded_recs \
         + flash_recs + queue_recs + greedy_recs + celf_recs + variant_recs \
         + lt_recs + dedup_recs + refill_recs + mrim_recs + stacked_recs \
-        + durable_recs
+        + durable_recs + sharded_recs
     for rec in kernels:
         if rec["name"] in SHARED_PATH_KERNELS:
             rec["launches_from"] = {path: counts.get(rec["name"], 0)

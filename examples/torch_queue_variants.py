@@ -186,7 +186,7 @@ def launcher(lib: Path, g, seed32: int, batch: int, qcap: int):
         err = fn(g.offsets.data_ptr(), g.indices.data_ptr(),
                  g.weights.data_ptr(), seed32, batch, g.n_nodes, qcap, 128,
                  q, None, roots, lengths, over, steps, None, None,
-                 dev.index or 0, stream)
+                 0, 1, 0, dev.index or 0, stream)
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
     return call, outs

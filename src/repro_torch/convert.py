@@ -89,3 +89,24 @@ def padded_store_from_arrays(rows, lengths, n: int,
                        lengths=torch.tensor(lengths.astype(np.int32),
                                             device=dev),
                        n_nodes=int(n))
+
+
+def shard_from_arrays(flat, ids, valid, rank: int,
+                      device="cuda") -> tuple:
+    """Rank ``rank``'s ``(flat, ids, valid)`` tensors from the buffers of
+    the reference's sharded store (``ShardedDeviceRRStore._flat``,
+    ``_ids``, ``_valid``: (D, cap) int32, int32 and bool numpy arrays, one
+    row a shard), as a ``ShardedDeviceRRStore`` of the port holds them on
+    that rank."""
+    flat, ids, valid = (np.asarray(a) for a in (flat, ids, valid))
+    if flat.ndim != 2 or ids.shape != flat.shape or \
+            valid.shape != flat.shape:
+        raise ValueError(f"sharded store buffers must be three (D, cap) "
+                         f"arrays, got {flat.shape}, {ids.shape} and "
+                         f"{valid.shape}")
+    if not 0 <= rank < flat.shape[0]:
+        raise ValueError(f"rank {rank} outside the {flat.shape[0]} shards")
+    dev = resolve_device(device)
+    return (torch.from_numpy(flat[rank].astype(np.int32)).to(dev),
+            torch.from_numpy(ids[rank].astype(np.int32)).to(dev),
+            torch.from_numpy(valid[rank].astype(np.bool_)).to(dev))

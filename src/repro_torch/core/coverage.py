@@ -70,6 +70,18 @@ into packed per-node occupancy sketches and no pool buffer exists.
 certified error bound instead of exact marginals: all k steps in one
 launch of the ``greedy_sketch`` CUDA kernel (``kernels.ops.greedy_sketch``;
 the plain version on the CPU) and one host read a selection.
+
+:class:`ShardedDeviceRRStore` deals the pool over the ranks of a sampling
+mesh (``repro_torch.launch.mesh``), rank d holding the reference's shard
+d, and the plain selections on it run the reference's sharded protocol
+(DESIGN.md §5) with ``all_reduce`` as its ``psum``: ``flat`` is
+``occur_flat`` and a ``shard_flat_step`` a seed on each shard (CUDA
+kernels of ``csrc/shard.cu``), ``bitset`` the Occur kernels on each
+shard's block, CELF the reference's lazy loop with a striped sweep.  The
+host-list API (:class:`RRStore`, :func:`build_store`,
+:class:`IncrementalRRStore`, :func:`merge_stores`, :func:`select_seeds`,
+:func:`shard_stores`, :func:`select_seeds_sharded`) is the reference's on
+host-compacted pools.
 """
 from __future__ import annotations
 
@@ -260,6 +272,27 @@ class DeviceRRStore(_FoldedSketch):
         lands on each of its elements, and the non-empty rows' weights are
         summed in float32 into ``wsum``, once an append.
         """
+        nodes, lens, roww = self._batch_arrays(batch, row_w)
+        r, w = nodes.shape
+        lens = lens.to(torch.int64).clamp(0, w)
+        row_valid = lens > 0
+        counts = [lens.sum(), row_valid.sum()]
+        if self._sk_words is not None:       # the last fold's flag, too
+            counts.append(self.fold_error[0].to(torch.int64))
+        elems, rows, *bad = (int(x) for x in torch.stack(counts).cpu())
+        self.check_folds(sum(bad))
+        wide = r * w > _PACK and elems <= _PACK
+        self._reserve(self._t + (_PACK if wide else elems),
+                      self._t + elems, wide)
+        if self._sk_words is not None:
+            # after the growth, before the counters move: the reference's
+            # order, so the fold numbers the rows as the append does
+            self.fold_batch(nodes, lens)
+        self._write(nodes, lens, row_valid, elems, rows, roww)
+
+    def _batch_arrays(self, batch, row_w):
+        """(nodes (R, W), lengths (R,), row weights or None) of a batch on
+        the store's device, checked."""
         nodes, lens = ((batch.nodes, batch.lengths)
                        if hasattr(batch, "nodes") else batch)
         nodes = torch.as_tensor(nodes, device=self.device)
@@ -267,6 +300,7 @@ class DeviceRRStore(_FoldedSketch):
         if nodes.dim() != 2 or lens.shape != (nodes.shape[0],):
             raise ValueError("append_batch wants padded (R, W) nodes + (R,) "
                              "lengths")
+        roww = None
         if self.row_weighted:
             if row_w is None:
                 raise ValueError("row_weighted store needs row_w= per append")
@@ -277,32 +311,30 @@ class DeviceRRStore(_FoldedSketch):
         elif row_w is not None:
             raise ValueError("row_w given but the store was built without "
                              "row_weighted=True")
+        return nodes, lens, roww
+
+    def _reserve(self, need: int, exact: int, wide: bool) -> None:
+        """Grow to ``need`` elements before an append (``exact``: the
+        append's own footprint, ``wide``: whether ``need`` holds the wide
+        append's headroom).  When that growth fails with
+        :class:`PoolAllocError`, a wide append grows to ``exact`` instead
+        before the failure goes up, as the reference's does."""
+        if need <= self.capacity:
+            return
+        try:
+            self._grow_to(need)
+        except PoolAllocError:
+            if not wide or exact >= need:
+                raise
+            if exact > self.capacity:
+                self._grow_to(exact)
+
+    def _write(self, nodes, lens, row_valid, elems: int, rows: int,
+               roww=None) -> None:
+        """Write a batch's ``elems`` elements and ``rows`` non-empty rows
+        (``lens`` clamped to the width) at the end of the pool."""
         r, w = nodes.shape
-        lens = lens.to(torch.int64).clamp(0, w)
-        row_valid = lens > 0
-        counts = [lens.sum(), row_valid.sum()]
-        if self._sk_words is not None:       # the last fold's flag, too
-            counts.append(self.fold_error[0].to(torch.int64))
-        elems, rows, *bad = (int(x) for x in torch.stack(counts).cpu())
-        self.check_folds(sum(bad))
-        wide = r * w > _PACK and elems <= _PACK
-        need = self._t + (_PACK if wide else elems)
-        if need > self.capacity:
-            try:
-                self._grow_to(need)
-            except PoolAllocError:
-                # the reference's fallback: retry at the exact footprint
-                # before the failure goes up to the fault policy
-                exact = self._t + elems
-                if not wide or exact >= need:
-                    raise
-                if exact > self.capacity:
-                    self._grow_to(exact)
         rid = self._nrr + row_valid.cumsum(0) - 1
-        if self._sk_words is not None:
-            # after the growth, before the counters move: the reference's
-            # order, so the fold numbers the rows as the append does
-            self.fold_batch(nodes, lens)
         if elems:
             t = self._t
             mask = torch.arange(w, device=self.device)[None, :] < lens[:, None]
@@ -329,7 +361,7 @@ class DeviceRRStore(_FoldedSketch):
         gives them (``sketch.fold_frontier_packed``: one
         ``sketch_fold_rows`` launch on the card)."""
         sketch_mod.fold_frontier_packed(self._sk_words, nodes, lens,
-                                        self._nrr, k=self.sketch_k,
+                                        self.n_rr, k=self.sketch_k,
                                         mode=self.sketch_mode)
 
     def sketch_bytes(self) -> int:
@@ -617,6 +649,178 @@ class DeviceRRStore(_FoldedSketch):
         return select_seeds_device(self, k, method=method)
 
 
+def not_sharded(what: str) -> NotImplementedError:
+    """The error of a path that the sharded pool does not run yet."""
+    return NotImplementedError(f"{what}: not ported to the sharded pool "
+                               "yet (ROADMAP [9b])")
+
+
+class ShardedDeviceRRStore(DeviceRRStore):
+    """The pool dealt over the ranks of a sampling mesh (the reference's
+    ``ShardedDeviceRRStore``; DESIGN.md §4–5).
+
+    Each rank holds one shard, rank d the reference's shard d element for
+    element: ``flat``/``ids``/``valid`` are the rank's buffers, row ids are
+    local, and an append deals the batch's rows in contiguous blocks of
+    ``ceil(R / D)`` (the tail rank takes the padding).  Every rank keeps
+    the exact element and row counts of every shard (``_t_loc``,
+    ``_nrr_loc``): they cost one ``all_reduce`` of a (D, 2) int32 tensor an
+    append and one host read.  All shards grow together: each rank doubles
+    its capacity to the largest shard's need, with the reference's ``_PACK``
+    headroom for a wide batch, so the capacities stay equal.  ``n_rr`` and
+    ``n_elems`` are the pool's totals.
+
+    The incremental sketch is replicated: every rank folds the whole batch
+    under global batch-order row ids, so its words are the same at any
+    world size; its rows are padded to a multiple of D for the striped
+    CELF sweep (:meth:`sketch_words_mesh`), and :meth:`sketch_words` is the
+    (n + 1)-row view.  A batch a rank sampled as its block
+    (:class:`~repro_torch.core.engine.ShardedBatch` of the same mesh) is
+    appended as the rank's shard; the rows are gathered only for the
+    sketch's fold.
+
+    With one rank the buffers are :class:`DeviceRRStore`'s and every path
+    of it works; with more, the variant and stacked selections, the state
+    of a checkpoint and the evictions raise ``NotImplementedError``.
+    """
+
+    def __init__(self, n_nodes: int, capacity: int = 4096, *,
+                 sketch_k: int | None = None, sketch_mode: str = "mod",
+                 mesh, row_weighted: bool = False):
+        d = mesh.size
+        if row_weighted and d > 1:
+            raise not_sharded("the row-weighted store on more than one "
+                              "rank")
+        super().__init__(n_nodes, capacity=-(-capacity // d),
+                         sketch_mode=sketch_mode, row_weighted=row_weighted,
+                         device=mesh.device)
+        self.mesh = mesh
+        self.n_shards = d
+        self.rank = mesh.rank
+        self._t_loc = np.zeros(d, np.int64)      # every shard's counts
+        self._nrr_loc = np.zeros(d, np.int64)
+        self.sketch_k = (sketch_mod.resolve_sketch_k(sketch_k)
+                         if sketch_k is not None else None)
+        self.sketch_rows = -(-(n_nodes + 1) // d) * d
+        self._sk_words = (torch.zeros(
+            (self.sketch_rows, self.sketch_k // 32), dtype=torch.int32,
+            device=self.device) if self.sketch_k is not None else None)
+
+    @property
+    def n_rr(self) -> int:
+        return int(self._nrr_loc.sum())
+
+    @property
+    def n_elems(self) -> int:
+        return int(self._t_loc.sum())
+
+    def config(self) -> dict:
+        return dict(super().config(), n_shards=self.n_shards)
+
+    def append_batch(self, batch, row_w=None) -> None:
+        """Deal one batch over the shards and append this rank's block.
+
+        A replicated batch (an ``RRBatch`` or ``(nodes, lengths)``, the same
+        on every rank) is cut into D blocks of ``ceil(R / D)`` rows; a
+        :class:`~repro_torch.core.engine.ShardedBatch` of this mesh already
+        is this rank's block.  One ``all_reduce`` of the (D, 2) counts and
+        one host read (with the sketch's fold flag) give every shard's
+        elements and non-empty rows; the growth follows the reference's
+        rule over all shards, then the fold of the whole batch, then the
+        block's write (:meth:`DeviceRRStore._write`)."""
+        from repro_torch.core.engine import ShardedBatch
+        mesh, d = self.mesh, self.n_shards
+        nodes, lens, roww = self._batch_arrays(batch, row_w)
+        if isinstance(batch, ShardedBatch):
+            if batch.mesh is not mesh:
+                raise ValueError("sharded batch of another mesh")
+            rloc, w = nodes.shape
+            whole = None
+        else:
+            r, w = nodes.shape
+            rloc = -(-r // d)
+            lo = min(self.rank * rloc, r)
+            hi = min(lo + rloc, r)
+            whole = (nodes, lens)
+            nodes, lens = nodes[lo:hi], lens[lo:hi]
+            roww = None if roww is None else roww[lo:hi]
+        lens = lens.to(torch.int64).clamp(0, w)
+        row_valid = lens > 0
+        cnt = torch.zeros(d, 2, dtype=torch.int32, device=self.device)
+        cnt[self.rank, 0] = lens.sum()
+        cnt[self.rank, 1] = row_valid.sum()
+        mesh.all_reduce(cnt)
+        host = [cnt.reshape(-1).to(torch.int64)]
+        if self._sk_words is not None:       # the last fold's flag, too
+            host.append(self.fold_error.to(torch.int64))
+        host = torch.cat(host).cpu().numpy()
+        self.check_folds(int(host[2 * d:].sum()))
+        elems_l, rows_l = host[:2 * d:2], host[1:2 * d:2]
+        wide = rloc * w > _PACK and int(elems_l.max()) <= _PACK
+        self._reserve(
+            int(((self._t_loc + _PACK) if wide
+                 else (self._t_loc + elems_l)).max()),
+            int((self._t_loc + elems_l).max()), wide)
+        if self._sk_words is not None:
+            if whole is None:
+                whole = (mesh.gather_rows(nodes, rloc),
+                         mesh.gather_rows(lens, rloc))
+            self.fold_batch(whole[0], whole[1].to(torch.int64).clamp(0, w))
+        self._write(nodes, lens, row_valid, int(elems_l[self.rank]),
+                    int(rows_l[self.rank]), roww)
+        self._t_loc += elems_l
+        self._nrr_loc += rows_l
+
+    def row_capacity(self) -> int:
+        """The selection's row bound: the next power of two at or above the
+        largest shard's rows, at least 32 (the same on every rank)."""
+        return max(32, _ceil_pow2(max(int(self._nrr_loc.max()), 1)))
+
+    def sketch_words_mesh(self, k: int | None = None) -> torch.Tensor:
+        """(sketch_rows, k/32) int32 sketch, rows padded to a multiple of
+        D.  With ``sketch_k``, the incremental fold; else built on demand
+        as the reference builds it: each rank folds its shard under its
+        local row ids, and the partial words are ORed over the ranks (a
+        zero-filled (D, rows, k/32) buffer summed, then ORed on the
+        rank)."""
+        if self._sk_words is not None:
+            self._check_k(k)
+            return self._sk_words
+        kk = sketch_mod.resolve_sketch_k(k if k is not None
+                                         else self.DEFAULT_SKETCH_K)
+        if self._sk_cache is None or self._sk_cache.shape[1] != kk // 32:
+            t = self._t
+            part = sketch_mod.sketch_packed_from_flat(
+                self.flat[:t], self.ids[:t], self.valid[:t],
+                n_rows=self.sketch_rows, k=kk, mode=self.sketch_mode)
+            parts = self.mesh.gather_rows(part[None], 1)
+            words = parts[0].clone()
+            for i in range(1, self.n_shards):
+                words |= parts[i]
+            self._sk_cache = words
+        return self._sk_cache
+
+    def sketch_words(self, k: int | None = None) -> torch.Tensor:
+        """The (n + 1, k/32) view of :meth:`sketch_words_mesh`, the same
+        words at any world size for an incremental sketch."""
+        return self.sketch_words_mesh(k)[:self.n_nodes + 1]
+
+    def _one_rank(self, what: str) -> None:
+        if self.n_shards > 1:
+            raise not_sharded(f"{what} on more than one rank")
+
+    def state(self) -> dict:
+        self._one_rank("a pool checkpoint")
+        return super().state()
+
+    def _rewrite(self, flat, ids, ew, rows: int) -> dict:
+        self._one_rank("eviction")
+        stats = super()._rewrite(flat, ids, ew, rows)
+        self._t_loc[:] = self._t
+        self._nrr_loc[:] = self._nrr
+        return stats
+
+
 def bitset_from_flat(flat, ids, valid, *, num_rows: int,
                      n_words: int) -> torch.Tensor:
     """Pack a flat pool into a (num_rows, n_words) int32 bit matrix.
@@ -649,9 +853,17 @@ def _select_flat(store: DeviceRRStore, k: int) -> CoverageResult:
                           frac=_frac(gains, store.n_rr))
 
 
-def _select_bitset(store: DeviceRRStore, k: int) -> CoverageResult:
+def _select_bitset(store: DeviceRRStore, k: int,
+                   reduce=None) -> CoverageResult:
+    """The bitset scan on the store's bit matrix: the Occur kernel, then
+    each step the masked Occur kernel on the newly covered rows.  With
+    ``reduce`` (a sharded store's ``mesh.all_reduce``) ``m`` is this rank's
+    block: the Occur is reduced once, and each step's decrement is reduced
+    with the new rows' count in its last slot (one collective a step)."""
     m = store.bitset_matrix()
     occur = kops.occur_from_bitset(m)
+    if reduce is not None:
+        occur = reduce(occur)
     covered = torch.zeros(m.shape[0], dtype=torch.bool, device=m.device)
     seeds, gains = [], []
     for _ in range(k):
@@ -659,8 +871,15 @@ def _select_bitset(store: DeviceRRStore, k: int) -> CoverageResult:
         col = m.index_select(1, (u >> 5).view(1))[:, 0]
         hit = ((col >> (u & 31)) & 1) != 0
         newly = hit & ~covered
-        occur = occur - kops.occur_from_bitset_masked(m, newly)
-        gains.append(newly.sum())
+        if reduce is None:
+            occur = occur - kops.occur_from_bitset_masked(m, newly)
+            gains.append(newly.sum())
+        else:
+            dec = reduce(torch.cat([
+                kops.occur_from_bitset_masked(m, newly),
+                newly.sum(dtype=torch.int32).view(1)]))
+            occur = occur - dec[:-1]
+            gains.append(dec[-1])
         covered = covered | hit
         seeds.append(u)
     gains = torch.stack(gains).to(torch.int32)
@@ -668,18 +887,57 @@ def _select_bitset(store: DeviceRRStore, k: int) -> CoverageResult:
                           gains=gains, frac=_frac(gains, store.n_rr))
 
 
+def _flat_protocol(mesh, flat, ids, valid, *, n: int, num_rows: int,
+                   k: int):
+    """The sharded fused scan (DESIGN.md §5) on this rank's shard: the
+    Occur of every shard summed by one ``all_reduce``, then k steps, each
+    the argmax of Occur (the first maximum: the lowest id on ties), one
+    ``shard_flat_step`` on the shard (its new rows ORed into the shard's
+    Covered words, the decrement and the new rows' count in one (n + 1,)
+    vector), one ``all_reduce`` of that vector and ``occur -= dec[:n]``.
+    The seeds and gains stay on the device: no host read.  -> (seeds (k,)
+    int32, gains (k,) int32)."""
+    occur = mesh.all_reduce(kops.occur_flat(flat, valid, n=n))
+    cov = torch.zeros(num_rows // 32, dtype=torch.int32, device=flat.device)
+    seeds = torch.empty(k, dtype=torch.int64, device=flat.device)
+    gains = torch.empty(k, dtype=torch.int32, device=flat.device)
+    for s in range(k):
+        u = torch.argmax(occur)
+        seeds[s] = u
+        dec = mesh.all_reduce(kops.shard_flat_step(flat, ids, valid, cov,
+                                                   u.view(1), n=n))
+        occur -= dec[:n]
+        gains[s] = dec[n]
+    return seeds.to(torch.int32), gains
+
+
+def _sharded_flat(store: ShardedDeviceRRStore, k: int) -> CoverageResult:
+    t = store._t
+    seeds, gains = _flat_protocol(
+        store.mesh, store.flat[:t], store.ids[:t], store.valid[:t],
+        n=store.n_nodes, num_rows=store.row_capacity(), k=k)
+    return CoverageResult(seeds=seeds, gains=gains,
+                          frac=_frac(gains, store.n_rr))
+
+
 def select_seeds_device(store: DeviceRRStore, k: int,
                         method: str = "auto") -> CoverageResult:
     """Greedy selection of ``k`` seeds on the store's pool.  ``method`` is
-    ``"flat"``, ``"bitset"`` or ``"auto"`` (see the module docstring)."""
+    ``"flat"``, ``"bitset"`` or ``"auto"`` (see the module docstring).  On a
+    :class:`ShardedDeviceRRStore` (a mesh of any size) each runs the
+    sharded protocol, ``auto`` by the reference's rule on a shard's bit
+    matrix and capacity; the seeds, gains and ``frac`` are the
+    single-device scan's on the same pool."""
     if method == "auto":
         n_words = (store.n_nodes + 31) // 32
         method = ("bitset" if store.row_capacity() * n_words <= store.capacity
                   else "flat")
+    sharded = isinstance(store, ShardedDeviceRRStore)
     if method == "flat":
-        return _select_flat(store, k)
+        return _sharded_flat(store, k) if sharded else _select_flat(store, k)
     if method == "bitset":
-        return _select_bitset(store, k)
+        return _select_bitset(
+            store, k, reduce=store.mesh.all_reduce if sharded else None)
     raise ValueError(f"unknown selection method {method!r}")
 
 
@@ -833,6 +1091,8 @@ def select_variant(store: DeviceRRStore, spec: SelectionSpec,
     the reference) is one ``kops.greedy_flat_variant`` call, ``"bitset"``
     :func:`_select_bitset_variant`.  Both give the reference's seeds,
     gains, ``frac`` and ``spent`` bytes on the same pool."""
+    if isinstance(store, ShardedDeviceRRStore):
+        store._one_rank("the variant selection")
     _check_spec(store, spec)
     if method == "auto":
         method = "flat"
@@ -919,6 +1179,8 @@ def select_seeds_stacked(store: DeviceRRStore, reqs: "list[StackedRequest]",
     float32).  Row-weighted stores are not stackable (the weighted
     estimator changes Occur's dtype a request): callers route those to the
     solo path."""
+    if isinstance(store, ShardedDeviceRRStore):
+        store._one_rank("the stacked selection")
     if store.row_weighted:
         raise ValueError("stacked selection does not support row-weighted "
                          "stores — route weighted requests to the solo path")
@@ -963,7 +1225,12 @@ def select_seeds_celf(store: DeviceRRStore, k: int, *, eval_batch: int = 32,
     returns a :class:`VariantResult`.
     """
     if spec is not None:
+        if isinstance(store, ShardedDeviceRRStore):
+            store._one_rank("the CELF variant")
         return _celf_variant(store, spec, eval_batch=eval_batch,
+                             use_sketch=use_sketch, stats_out=stats_out)
+    if isinstance(store, ShardedDeviceRRStore):
+        return _sharded_celf(store, k, eval_batch=eval_batch,
                              use_sketch=use_sketch, stats_out=stats_out)
     n = store.n_nodes
     t = store.n_elems
@@ -990,11 +1257,166 @@ def select_seeds_celf(store: DeviceRRStore, k: int, *, eval_batch: int = 32,
                                           device=seeds.device))
 
 
+def _top(idx: np.ndarray, sc: np.ndarray, k_top: int) -> np.ndarray:
+    """The ``k_top`` nodes of ``idx`` with the highest ``sc``, the lowest
+    id first on ties (as a set).  Integer scores take one ``argpartition``
+    of the unique keys ``sc * (n + 1) - id``; float scores a ``lexsort``."""
+    if sc.dtype.kind in "iu":
+        if k_top >= len(idx):
+            return idx
+        key = sc[idx].astype(np.int64) * (len(sc) + 1) - idx
+        return idx[np.argpartition(-key, k_top - 1)[:k_top]]
+    return idx[np.lexsort((idx, -sc[idx]))[:k_top]]
+
+
+def _padded_cands(cands: np.ndarray, c: int, dev) -> torch.Tensor:
+    """``cands`` padded with -1 to ``celf_eval``'s ``c`` slots."""
+    pad = np.full(c, -1, np.int32)
+    pad[:len(cands)] = cands
+    return torch.from_numpy(pad).to(dev)
+
+
+def _lazy_celf(ub: np.ndarray, steps: int, c: int, *, evaluate, commit,
+               sweep=None, feasible=None, costs=None):
+    """The reference's CELF lazy loop on the host, shared by the sharded
+    pool's selection and the variant selection; the hooks hold what the
+    callers do differently (their kernels and their reductions).
+
+    ``ub`` (n,) holds each node's upper bound (its exact Occur) and is
+    updated in place.  Each of ``steps`` steps: ``feasible()`` (None: every
+    node, every step) gives the step's mask, and a step with no feasible
+    node ends the loop; ``sweep()`` (with the sketch) gives each node's
+    sketch union gain, whose top ``c`` (over every node, the infeasible
+    ones last) make the first exact evaluation; then the highest-scoring
+    stale feasible nodes are evaluated ``c`` at a time until the argmax of
+    the scores (the bound, or bound / cost with ``costs``, over the
+    feasible nodes) is fresh.  ``evaluate(cands)`` returns the candidates'
+    exact gains; ``commit(u)`` commits the pick and returns its gain.
+    -> (seeds, gains, exact evaluations, eval calls)."""
+    n = len(ub)
+    node_ids = np.arange(n)
+    fresh = np.zeros(n, bool)
+    counts = [0, 0]
+
+    def eval_exact(cands):
+        cands = np.asarray(cands, np.int32)
+        ub[cands] = evaluate(cands)
+        fresh[cands] = True
+        counts[0] += len(cands)
+        counts[1] += 1
+
+    def scores(feas):
+        if costs is not None:
+            # the scan's float32 division: ub holds exact counts (or
+            # float32 weight sums), so the cast is exact
+            return np.where(feas & (ub > 0),
+                            ub.astype(np.float32) / costs, -np.inf)
+        return ub if feas is None else np.where(feas, ub, -np.inf)
+
+    seeds, gains = [], []
+    for _ in range(steps):
+        feas = feasible() if feasible is not None else None
+        if feas is not None and not feas.any():
+            break
+        fresh[:] = False
+        if sweep is not None:
+            deltas = sweep()
+            est = deltas / costs if costs is not None else deltas
+            if feas is not None:
+                est = np.where(feas, est.astype(np.float64), -np.inf)
+            eval_exact(_top(node_ids, est, c))
+        while True:
+            sc = scores(feas)
+            u = int(np.argmax(sc))       # the first maximum
+            if sc[u] == -np.inf:
+                # budgeted only: every affordable node left has gain 0,
+                # where the scan starts its sentinels
+                u = None
+                break
+            if fresh[u]:
+                break
+            stale = ~fresh if feas is None else \
+                ~fresh & feas & (sc > -np.inf)
+            eval_exact(_top(node_ids[stale], sc, c))
+        if u is None:
+            break
+        gains.append(commit(u))
+        ub[u] = 0                        # exact: u's rows are now covered
+        seeds.append(u)
+    return seeds, gains, counts[0], counts[1]
+
+
+def _sharded_celf(store: ShardedDeviceRRStore, k: int, *,
+                  eval_batch: int = 32, use_sketch: bool = True,
+                  stats_out: dict | None = None) -> CoverageResult:
+    """CELF on the sharded pool: the reference's lazy loop
+    (``select_seeds_celf``, :func:`_lazy_celf`), node for node, with the
+    host holding the upper bounds.  The exact Occur is ``occur_flat`` on
+    each shard and one ``all_reduce``; a seed's sweep is striped, rank d
+    scoring its ``sketch_rows / D`` rows of the replicated sketch with
+    ``sketch_union_popcount`` into a zero-filled vector that one
+    ``all_reduce`` completes; an exact evaluation is ``celf_eval`` on each
+    shard against its Covered words and one ``all_reduce`` of the counts;
+    a commit is ``celf_apply`` on each shard and one ``all_reduce`` of the
+    new rows; the union of the picks' sketch rows is folded on every rank
+    alike.  The seeds, gains and ``frac`` are the ``flat`` scan's."""
+    mesh, d = store.mesh, store.n_shards
+    n = store.n_nodes
+    t = store._t
+    flat, ids, valid = store.flat[:t], store.ids[:t], store.valid[:t]
+    dev = store.device
+    c = max(1, min(eval_batch, n))
+    ub = mesh.all_reduce(kops.occur_flat(flat, valid, n=n)
+                         ).cpu().numpy().astype(np.int64)
+    cov_words = torch.zeros(store.row_capacity() // 32, dtype=torch.int32,
+                            device=dev)
+    sweep = None
+    if use_sketch:
+        sk_words = store.sketch_words_mesh()
+        sk_k = sk_words.shape[1] * 32
+        stripe = store.sketch_rows // d
+        mine = sk_words[mesh.rank * stripe:(mesh.rank + 1) * stripe]
+        cov_sk = torch.zeros(sk_words.shape[1], dtype=torch.int32,
+                             device=dev)
+
+        def sweep():
+            full = torch.zeros(store.sketch_rows, dtype=torch.int32,
+                               device=dev)
+            full[mesh.rank * stripe:(mesh.rank + 1) * stripe] = \
+                sketch_mod.union_gains(mine, cov_sk)
+            return mesh.all_reduce(full)[:n].cpu().numpy()
+
+    def evaluate(cands):
+        return mesh.all_reduce(kops.celf_eval(
+            flat, ids, valid, cov_words, _padded_cands(cands, c, dev))
+        ).cpu().numpy()[:len(cands)]
+
+    def commit(u):
+        nonlocal cov_sk
+        gain = int(mesh.all_reduce(kops.celf_apply(
+            flat, ids, valid, cov_words, u).view(1)))
+        if use_sketch:
+            cov_sk = sketch_mod.union_row(cov_sk, sk_words, u)
+        return gain
+
+    seeds, gains, n_evals, n_eval_calls = _lazy_celf(
+        ub, k, c, evaluate=evaluate, commit=commit, sweep=sweep)
+    if stats_out is not None:
+        stats_out.update(n_exact_evals=n_evals, n_eval_calls=n_eval_calls,
+                         sketch_k=(sk_k if use_sketch else 0),
+                         n_rr=store.n_rr)
+    frac = np.float32(sum(gains) / max(store.n_rr, 1))
+    return CoverageResult(
+        seeds=torch.tensor(seeds, dtype=torch.int32, device=dev),
+        gains=torch.tensor(gains, dtype=torch.int32, device=dev),
+        frac=torch.tensor(frac, dtype=torch.float32, device=dev))
+
+
 def _celf_variant(store: DeviceRRStore, spec: SelectionSpec, *,
                   eval_batch: int = 32, use_sketch: bool = True,
                   stats_out: dict | None = None) -> VariantResult:
     """CELF lazy greedy on a variant spec: the reference's ``_celf_variant``,
-    a host loop that launches the port's kernels.
+    a host loop (:func:`_lazy_celf`) that launches the port's kernels.
 
     The host holds each node's upper bound (its exact Occur at first, then
     its last exact gain), the candidate mask, the group quotas and, in
@@ -1042,88 +1464,46 @@ def _celf_variant(store: DeviceRRStore, spec: SelectionSpec, *,
             0, flat.to(torch.int64), valid.to(torch.int32))[:n]
         denom = float(max(store.n_rr, 1))
     ub = occur.cpu().numpy().astype(np.float64)
-    fresh = np.zeros(n, bool)
     cov_words = torch.zeros(store.row_capacity() // 32, dtype=torch.int32,
                             device=dev)
+    sweep = None
     if use_sketch:
         sk_words = store.sketch_words()
         sk_k = sk_words.shape[1] * 32
         cov_sk = torch.zeros(sk_words.shape[1], dtype=torch.int32,
                              device=dev)
-    n_evals = 0
-    n_eval_calls = 0
-    node_ids = np.arange(n)
 
-    def eval_exact(cands):
-        nonlocal n_evals, n_eval_calls
-        cands = np.asarray(cands, np.int32)
-        pad = np.full(c, -1, np.int32)
-        pad[:len(cands)] = cands
-        g = kops.celf_eval(flat, ids, valid, cov_words,
-                           torch.from_numpy(pad).to(dev),
-                           roww=roww).cpu().numpy()
-        ub[cands] = g[:len(cands)]
-        fresh[cands] = True
-        n_evals += len(cands)
-        n_eval_calls += 1
+        def sweep():
+            return sketch_mod.union_gains(sk_words, cov_sk)[:n].cpu().numpy()
 
-    def scores(feas):
-        if use_costs:
-            # the scan's float32 division: ub holds exact counts (or
-            # float32 weight sums), so the cast is exact
-            return np.where(feas & (ub > 0),
-                            ub.astype(np.float32) / costs, -np.inf)
-        return np.where(feas, ub, -np.inf)
+    def evaluate(cands):
+        return kops.celf_eval(flat, ids, valid, cov_words,
+                              _padded_cands(cands, c, dev),
+                              roww=roww).cpu().numpy()[:len(cands)]
 
-    def top_stale(feas, sc, k_top):
-        """The highest-scoring stale feasible nodes, the lowest id first on
-        ties."""
-        idx = node_ids[~fresh & feas & (sc > -np.inf)]
-        order = np.lexsort((idx, -sc[idx]))
-        return idx[order[:k_top]]
-
-    seeds, gains = [], []
     picked = np.zeros(n, bool)
-    for _ in range(spec.k_steps):
+
+    def feasible():
         feas = cand & (gbud[group_of] > 0) & ~picked
         if use_costs:
             feas = feas & (costs <= budget32 - spent32)
-        if not feas.any():
-            break
-        fresh[:] = False
-        if use_sketch:
-            deltas = sketch_mod.union_gains(sk_words, cov_sk)[:n].cpu().numpy()
-            est = np.where(feas, deltas / costs if use_costs
-                           else deltas.astype(np.float64), -np.inf)
-            order = np.lexsort((node_ids, -est))
-            eval_exact(order[:c])
-        accepted = None
-        while True:
-            sc = scores(feas)
-            u = int(np.argmax(sc))       # the first maximum
-            if sc[u] == -np.inf:
-                # budgeted only: every affordable node left has gain 0,
-                # where the scan starts its sentinels
-                break
-            if fresh[u]:
-                accepted = u
-                break
-            eval_exact(top_stale(feas, sc, c))
-        if accepted is None:
-            break
-        u = accepted
+        return feas
+
+    def commit(u):
+        nonlocal cov_sk, spent32
         gain = kops.celf_apply(flat, ids, valid, cov_words, u,
                                roww=roww).item()
         if use_sketch:
             cov_sk = sketch_mod.union_row(cov_sk, sk_words, u)
-        ub[u] = 0.0
         picked[u] = True
         gbud[group_of[u]] -= 1
         if use_costs:
             spent32 = np.float32(spent32 + costs[u])
-        seeds.append(u)
-        gains.append(gain)
+        return gain
 
+    seeds, gains, n_evals, n_eval_calls = _lazy_celf(
+        ub, spec.k_steps, c, evaluate=evaluate, commit=commit, sweep=sweep,
+        feasible=feasible, costs=costs if use_costs else None)
     if stats_out is not None:
         stats_out.update(n_exact_evals=n_evals, n_eval_calls=n_eval_calls,
                          sketch_k=(sk_k if use_sketch else 0),
@@ -1382,3 +1762,196 @@ def sketch_certificate(store, occ_union: int,
                         saturated=saturated, rel_error=rel_err,
                         exact_regime=exact_regime, sketch_k=sk_k, n_rr=n_rr)
     return np.float32(est_rows / max(n_rr, 1))
+
+
+# ---------------------------------------------------------------------------
+# The host-list API: CSR-of-RR pools compacted on the host (the reference's
+# RRStore family), and the legacy sharded selection over host-built shards.
+# ---------------------------------------------------------------------------
+
+class RRStore(NamedTuple):
+    """CSR-of-RR: ``rr_flat[i]`` is a node of RR set ``rr_ids[i]``; rows
+    are contiguous and in row order, and the padded tail (``valid`` false)
+    holds the node ``n`` under the row id ``n_rr``."""
+    rr_flat: torch.Tensor   # (T,) int32
+    rr_ids: torch.Tensor    # (T,) int32
+    valid: torch.Tensor     # (T,) bool
+    n_rr: int
+    n_nodes: int
+
+
+def _compact_padded(nodes, lens, base: int = 0):
+    """(B, W) padded rows and lengths -> (elements, row ids + ``base``,
+    lengths clamped to ``[0, W]``) on the host, the reference's
+    ``_compact_padded`` (an overflowed lane may report its length before
+    truncation; the clamp keeps elements and row ids in step)."""
+    nodes = _host(nodes)
+    lens = np.clip(_host(lens).astype(np.int64), 0, nodes.shape[1])
+    mask = np.arange(nodes.shape[1])[None, :] < lens[:, None]
+    flat = nodes[mask].astype(np.int64)
+    ids = np.repeat(np.arange(len(lens), dtype=np.int64) + base, lens)
+    return flat, ids, lens
+
+
+def _rr_store(flat, ids, valid, n_rr: int, n: int, device) -> RRStore:
+    dev = resolve_device(device)
+    return RRStore(rr_flat=torch.from_numpy(flat.astype(np.int32)).to(dev),
+                   rr_ids=torch.from_numpy(ids.astype(np.int32)).to(dev),
+                   valid=torch.from_numpy(valid).to(dev),
+                   n_rr=int(n_rr), n_nodes=int(n))
+
+
+def build_store(rr_lists_or_arrays, n: int, pad_to: int | None = None,
+                device="cuda") -> RRStore:
+    """Host compaction of RR sets (paper Alg. 6 lines 4-11), the
+    reference's ``build_store``: a list of node lists, or ``(nodes (B, W),
+    lengths (B,))`` padded arrays from a sampler; ``pad_to`` pads the
+    elements with ``valid`` false.  The tensors go to ``device``."""
+    if isinstance(rr_lists_or_arrays, list):
+        lens = np.asarray([len(r) for r in rr_lists_or_arrays], np.int64)
+        flat = (np.concatenate([np.asarray(r, np.int64)
+                                for r in rr_lists_or_arrays])
+                if lens.sum() else np.zeros(0, np.int64))
+        ids = np.repeat(np.arange(len(lens), dtype=np.int64), lens)
+    else:
+        flat, ids, lens = _compact_padded(*rr_lists_or_arrays)
+    t = flat.shape[0]
+    t_pad = pad_to if pad_to is not None else t
+    if t_pad < t:
+        raise ValueError("pad_to smaller than payload")
+    valid = np.zeros(t_pad, bool)
+    valid[:t] = True
+    flat = np.concatenate([flat, np.full(t_pad - t, n, np.int64)])
+    ids = np.concatenate([ids, np.full(t_pad - t, len(lens), np.int64)])
+    return _rr_store(flat, ids, valid, len(lens), n, device)
+
+
+class IncrementalRRStore:
+    """Growing host CSR-of-RR with amortised O(1) appends, the reference's
+    ``IncrementalRRStore``: each batch is compacted once into doubling
+    host buffers, and :meth:`snapshot` returns a cached :class:`RRStore` on
+    ``device`` (dropped by the next append)."""
+
+    def __init__(self, n_nodes: int, capacity: int = 1024, device="cuda"):
+        self.n_nodes = n_nodes
+        self.device = resolve_device(device)
+        self._flat = np.empty(max(capacity, 1), np.int64)
+        self._ids = np.empty(max(capacity, 1), np.int64)
+        self._t = 0
+        self._n_rr = 0
+        self._cache: RRStore | None = None
+
+    @property
+    def n_rr(self) -> int:
+        return self._n_rr
+
+    def _reserve(self, extra: int) -> None:
+        need = self._t + extra
+        cap = self._flat.shape[0]
+        if need <= cap:
+            return
+        while cap < need:
+            cap *= 2
+        for name in ("_flat", "_ids"):
+            buf = np.empty(cap, np.int64)
+            buf[:self._t] = getattr(self, name)[:self._t]
+            setattr(self, name, buf)
+
+    def append_batch(self, batch) -> None:
+        """Append one batch (an ``RRBatch`` or ``(nodes, lengths)``); rows
+        of length 0 are padding and get no row id."""
+        nodes, lens = ((batch.nodes, batch.lengths)
+                       if hasattr(batch, "nodes") else batch)
+        flat, ids, lens = _compact_padded(nodes, lens)
+        row_rank = np.cumsum(lens > 0) - 1           # empty rows drop out
+        t = flat.shape[0]
+        self._reserve(t)
+        self._flat[self._t:self._t + t] = flat
+        self._ids[self._t:self._t + t] = self._n_rr + row_rank[ids]
+        self._t += t
+        self._n_rr += int((lens > 0).sum())
+        self._cache = None
+
+    def snapshot(self) -> RRStore:
+        if self._cache is None:
+            t = self._t
+            self._cache = _rr_store(self._flat[:t], self._ids[:t],
+                                    np.ones(t, bool), self._n_rr,
+                                    self.n_nodes, self.device)
+        return self._cache
+
+
+def merge_stores(stores: list[RRStore]) -> RRStore:
+    """One :class:`RRStore` of the stores' valid elements, their rows
+    renumbered in store order (the reference's ``merge_stores``), on the
+    first store's device."""
+    n = stores[0].n_nodes
+    flats, ids, base = [], [], 0
+    for s in stores:
+        v = _host(s.valid)
+        flats.append(_host(s.rr_flat)[v].astype(np.int64))
+        ids.append(_host(s.rr_ids)[v].astype(np.int64) + base)
+        base += s.n_rr
+    flat = np.concatenate(flats)
+    return _rr_store(flat, np.concatenate(ids), np.ones(flat.shape[0], bool),
+                     base, n, stores[0].rr_flat.device)
+
+
+def occur_histogram(store: RRStore) -> torch.Tensor:
+    """Occur: the RR sets that hold each node, (n,) int32 (elements are
+    row-unique), through ``kops.occur_flat``."""
+    return kops.occur_flat(store.rr_flat, store.valid, n=store.n_nodes)
+
+
+def _list_rows(n_rr: int) -> int:
+    """Covered rows of a host-built store: its rows and the padding row id
+    ``n_rr``, rounded to a power of two of at least 32."""
+    return max(32, _ceil_pow2(n_rr + 1))
+
+
+def select_seeds(store: RRStore, k: int) -> CoverageResult:
+    """Greedy max-coverage on a host-built store, the reference's
+    ``select_seeds``: one ``kops.greedy_flat`` call on the stacked pool (a
+    ``greedy_flat`` launch on a card)."""
+    seeds, gains = kops.greedy_flat(
+        store.rr_flat, store.rr_ids, store.valid, n=store.n_nodes,
+        num_rows=_list_rows(store.n_rr), k=k)
+    return CoverageResult(seeds=seeds, gains=gains,
+                          frac=_frac(gains, store.n_rr))
+
+
+def shard_stores(per_shard_rr: list[list[list[int]]], n: int,
+                 device="cuda") -> RRStore:
+    """Stack per-rank RR lists into one :class:`RRStore` whose tensors
+    carry a leading shard dimension, the reference's ``shard_stores``:
+    every shard is padded to the most rows (with empty rows, never covered
+    and never matched) and to the longest flat extent, so ``n_rr`` is the
+    rows of each shard."""
+    rows = max(len(p) for p in per_shard_rr)
+    per_shard_rr = [p + [[]] * (rows - len(p)) for p in per_shard_rr]
+    t_max = max(sum(len(r) for r in p) for p in per_shard_rr)
+    stores = [build_store(p, n, pad_to=t_max, device=device)
+              for p in per_shard_rr]
+    return RRStore(rr_flat=torch.stack([s.rr_flat for s in stores]),
+                   rr_ids=torch.stack([s.rr_ids for s in stores]),
+                   valid=torch.stack([s.valid for s in stores]),
+                   n_rr=rows, n_nodes=n)
+
+
+def select_seeds_sharded(mesh, store_shards: RRStore, k: int, n: int):
+    """The legacy sharded selection on host-built shards (the reference's
+    ``select_seeds_sharded``): this rank runs the step protocol of the
+    sharded fused scan (:func:`_flat_protocol`: one ``all_reduce`` of the
+    Occur, then one of the (n + 1,) decrement a seed) on shard
+    ``mesh.rank`` of :func:`shard_stores`' stack, whose leading dimension
+    must be the mesh's size.  Returns ``(seeds (k,), gains (k,))`` int32,
+    the same on every rank."""
+    if store_shards.rr_flat.shape[0] != mesh.size:
+        raise ValueError(f"{store_shards.rr_flat.shape[0]} shards for a mesh "
+                         f"of {mesh.size} ranks")
+    d = mesh.rank
+    return _flat_protocol(
+        mesh, store_shards.rr_flat[d].contiguous(),
+        store_shards.rr_ids[d].contiguous(),
+        store_shards.valid[d].contiguous(), n=n,
+        num_rows=_list_rows(store_shards.n_rr), k=k)

@@ -113,7 +113,7 @@ def sample_rrsets_dense(g_rev: CSRGraph, batch: int, seed32: int, *,
     n = g_rev.n_nodes
     if edge_src is None:
         edge_src = _edge_src(g_rev)
-    seeds = row_seeds(seed32, batch, g_rev.device)
+    seeds = row_seeds(seed32, batch, g_rev.device, row0=0)
     roots = draw_roots(seeds, n, table)
     keep = kops.bernoulli_edges(g_rev.weights, seeds)  # (B, m), every level
     membership, levels = _sample_dense(edge_src, g_rev.indices, keep, roots,
@@ -220,6 +220,6 @@ def sample_rrsets_dense_packed(g_rev: CSRGraph, batch: int, seed32: int,
     """Sample ``batch`` RR sets with the packed sampler on ``g_rev``'s
     device: roots from ``draw_roots(row_seeds(seed32, batch), n, table)``,
     edge trials from ``base_seed`` as the reference draws them."""
-    seeds = row_seeds(seed32, batch, g_rev.device)
+    seeds = row_seeds(seed32, batch, g_rev.device, row0=0)
     return _sample_dense_packed(
         g_rev, draw_roots(seeds, g_rev.n_nodes, table), base_seed)

@@ -85,7 +85,28 @@ class RRBatch(NamedTuple):
                 raise ValueError(f"RRBatch row {i} does not hold its root")
 
 
+class ShardedBatch(NamedTuple):
+    """This rank's block of a batch that the ranks of ``mesh`` sampled
+    together (``queue_sharded``'s ``sample_sharded``): rank d holds rows
+    ``[d·b, (d+1)·b)`` of the ``mesh.size · b`` rows, padded to the width
+    that all the blocks share; ``overflowed`` (every lane's flag) and
+    ``steps`` (the most over the lanes) are the whole batch's.  A
+    ``ShardedDeviceRRStore`` on the same mesh appends the block as its
+    shard of the batch, with no gather of the rows."""
+    nodes: torch.Tensor       # (b, W) int32, this rank's rows
+    lengths: torch.Tensor     # (b,) int32
+    overflowed: torch.Tensor  # (size · b,) bool
+    steps: int
+    roots: Optional[torch.Tensor]   # (b,) int32
+    mesh: object
+
+
 _ENGINES: dict[str, type] = {}
+
+# engines that live outside core (core does not import launch) are
+# imported from their home module at their first lookup
+_LAZY_ENGINES: dict[str, str] = {
+    "queue_sharded": "repro_torch.launch.im_solve"}
 
 
 def register_engine(name: str):
@@ -98,26 +119,37 @@ def register_engine(name: str):
 
 
 def get_engine(name: str) -> type:
+    if name not in _ENGINES and name in _LAZY_ENGINES:
+        import importlib
+        importlib.import_module(_LAZY_ENGINES[name])
     try:
         return _ENGINES[name]
     except KeyError:
         raise KeyError(f"unknown engine {name!r}; registered: "
-                       f"{sorted(_ENGINES)}") from None
+                       f"{list_engines()}") from None
 
 
 def list_engines() -> list[str]:
-    return sorted(_ENGINES)
+    """Every engine: core's and the lazily registered ones
+    (``queue_sharded``), whether their modules were imported or not."""
+    return sorted(set(_ENGINES) | set(_LAZY_ENGINES))
 
 
-def make_engine(name: str, g_rev: CSRGraph, root_weights=None, **opts):
+def make_engine(name: str, g_rev: CSRGraph, root_weights=None, mesh=None,
+                **opts):
     """Instantiate a registered engine on the reverse graph (on its device).
     ``opts`` may hold keys the engine's ``Config`` lacks and ``None``
     values; both are dropped.  ``root_weights`` (weighted IM) makes the
-    engine draw its roots ∝ the weights; ``None`` keeps the uniform draw."""
+    engine draw its roots ∝ the weights; ``None`` keeps the uniform draw.
+    ``mesh`` (a ``launch.mesh.SampleMesh``) goes to an engine that samples
+    over one (``sharded = True``: ``queue_sharded``); the others draw the
+    whole batch on every rank and ignore it."""
     cls = get_engine(name)
     fields = {f.name for f in dataclasses.fields(cls.Config)}
     cfg = cls.Config(**{k: v for k, v in opts.items()
                         if k in fields and v is not None})
+    if getattr(cls, "sharded", False):
+        return cls(g_rev, cfg, mesh=mesh, root_weights=root_weights)
     return cls(g_rev, cfg, root_weights=root_weights)
 
 

@@ -17,6 +17,7 @@ problems, on one device.
               checkpoint_every=5).solve(IMProblem(k=10))    # durable
     IMMSolver(g).solve_problem(IMProblem(k=10), deadline_s=0.5)  # degraded
     solver.resolve_incremental(IMProblem(k=10), deltas)  # streaming graph
+    IMMSolver(g, mesh=make_sample_mesh()).solve(IMProblem(k=10))  # sharded
 
 The host runs rounds of RR batches against the engine (gIM's kernel
 relaunches, Alg. 6): round t of a pool samples with the 32-bit seed
@@ -42,7 +43,21 @@ The variants follow the reference: a weighted problem draws its roots ∝
 w``; candidates and a budget turn the selection into the variant greedy
 (:func:`~repro_torch.core.coverage.select_variant`, the CELF variant, or
 the sketch greedy's candidate mask), and a budgeted problem walks the θ
-schedule of its ``k_steps``.  The engine and store are keyed on the
+schedule of its ``k_steps``.
+
+With ``mesh`` (a ``repro_torch.launch.mesh.SampleMesh``, any size, 1
+included) the pool is a
+:class:`~repro_torch.core.coverage.ShardedDeviceRRStore` dealt over the
+mesh's ranks and every plain selection runs the sharded protocol of
+DESIGN.md §5 (each rank runs the same solve; the ranks agree in every
+result field, and the results equal a solve without a mesh on the same
+rounds).  The mesh is decided once, at construction.  An engine that
+samples over the same mesh (``queue_sharded``) hands each rank its own
+block of a round; any other engine draws the whole round on every rank and
+the store deals it.  On more than one rank the variants, the
+approximate mode, ``solve_stacked``, checkpoints, the fault policy, the
+deadline and streaming raise ``NotImplementedError`` (ROADMAP [9b]), and
+so does a restore onto any mesh.  The engine and store are keyed on the
 problem's ``pool_digest``, so problems that differ only in selection
 share a pool.
 
@@ -105,8 +120,9 @@ class IMMStats:
     variant: str = "plain"
     early_exit_skips: int = 0
     budget_spent: float = 0.0
-    # the reference's mesh fields, for one device: its checkpoints carry
-    # them, and a restore builds IMMStats(**saved stats)
+    # the reference's mesh fields ((1,) and "samples:1" without a mesh):
+    # its checkpoints carry them, and a restore builds IMMStats(**saved
+    # stats)
     mesh_shape: tuple = (1,)
     pool_sharding: str = "samples:1"
     per_device_pool_bytes: int = 0
@@ -185,10 +201,11 @@ class IMMSolver:
                  ec: Optional[int] = None, model: Optional[str] = None,
                  selection: str = "auto", seed: int = 0,
                  sketch_k: Optional[int] = None,
-                 eval_batch: Optional[int] = None, device="cuda",
+                 eval_batch: Optional[int] = None, device=None,
                  fault_policy: Optional[FaultPolicy] = None,
                  checkpoint_dir: Optional[str] = None,
-                 checkpoint_every: int = 0, checkpoint_keep: int = 3):
+                 checkpoint_every: int = 0, checkpoint_keep: int = 3,
+                 mesh=None):
         if model not in (None, "ic", "lt"):
             raise ValueError(f"unknown diffusion model {model!r}")
         named = isinstance(engine, str)
@@ -210,7 +227,18 @@ class IMMSolver:
         if eval_batch is not None and int(eval_batch) < 1:
             raise ValueError("eval_batch must be >= 1")
         self.eval_batch = None if eval_batch is None else int(eval_batch)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device("cuda" if device is None else device)
+        else:
+            self.device = mesh.device
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device!r} is not the mesh's "
+                                 f"{mesh.device}")
+            if mesh.size > 1 and (fault_policy is not None
+                                  or checkpoint_dir is not None):
+                raise cov.not_sharded("the fault policy and checkpoints on "
+                                      "more than one rank")
         self.g = g.to(self.device)
         self.n = self.g.n_nodes
         self.selection = selection
@@ -250,6 +278,12 @@ class IMMSolver:
     def _default_model(self) -> str:
         return "lt" if self._model_arg == "lt" else "ic"
 
+    def _one_rank(self, what: str) -> None:
+        """Raise unless the solver runs on one rank (no mesh, or one of
+        size 1)."""
+        if self.mesh is not None and self.mesh.size > 1:
+            raise cov.not_sharded(f"{what} on more than one rank")
+
     def _ensure_prepared(self) -> None:
         if self._sig is None:
             self.prepare(IMProblem(k=1, eps=0.5, model=self._default_model()))
@@ -273,13 +307,15 @@ class IMMSolver:
             if r.problem.t_rounds is not None:
                 return make_engine(name, self.g_rev, root_weights=w,
                                    t_rounds=r.problem.t_rounds,
+                                   mesh=self.mesh,
                                    **self._engine_opts), False
             if w is not None:
                 return make_engine(name, self.g_rev, root_weights=w,
+                                   mesh=self.mesh,
                                    **self._engine_opts), False
             if name not in self._plain_engines:
                 self._plain_engines[name] = make_engine(
-                    name, self.g_rev, **self._engine_opts)
+                    name, self.g_rev, mesh=self.mesh, **self._engine_opts)
             return self._plain_engines[name], False
         engine = self._engine_arg
         eng_w = getattr(engine, "root_weights", None)
@@ -332,9 +368,16 @@ class IMMSolver:
             if store.device.type != self.device.type:
                 raise ValueError(f"adopted pool lives on {store.device}, the "
                                  f"solver on {self.device}")
+            if getattr(store, "mesh", None) is not self.mesh and not approx:
+                raise ValueError("adopted pool lives on another mesh than "
+                                 "the solver's mesh= argument")
         elif approx:
             store = cov.SketchRRStore(engine.item_space, sketch_k=sketch_k,
                                       device=self.device)
+        elif self.mesh is not None:
+            store = cov.ShardedDeviceRRStore(
+                engine.item_space, sketch_k=sketch_k, mesh=self.mesh,
+                row_weighted=row_weight_mode)
         else:
             store = cov.DeviceRRStore(engine.item_space, sketch_k=sketch_k,
                                       row_weighted=row_weight_mode,
@@ -344,6 +387,11 @@ class IMMSolver:
         self.engine_name = getattr(engine, "name", type(engine).__name__)
         self.engine = FusedSketchEngine(engine) if approx else engine
         self.store = store
+        # an engine that samples over the store's mesh hands each rank its
+        # own block of a round, which the store appends as its shard
+        self._block_rounds = (isinstance(store, cov.ShardedDeviceRRStore)
+                              and getattr(engine, "mesh", None) is store.mesh
+                              and hasattr(engine, "sample_sharded"))
         if self.fault_policy is not None:
             # the "grow" site gates the pool's growth before anything is
             # allocated, so the append stays retryable
@@ -357,6 +405,9 @@ class IMMSolver:
         self._sig_problem = problem
         self._stats = IMMStats(selection=self.selection,
                                variant=problem.variant)
+        if self.mesh is not None:
+            self._stats.mesh_shape = self.mesh.shape
+            self._stats.pool_sharding = f"{self.mesh.axis}:{self.mesh.size}"
         self._ovf = torch.zeros((), dtype=torch.int64, device=self.device)
         self._ovf_lanes = 0
 
@@ -369,6 +420,10 @@ class IMMSolver:
         (:meth:`adopt_pool`).  Returns the problem resolved against the
         graph."""
         r = problem.resolve(self.n)
+        if problem.variant != "plain":
+            self._one_rank(f"the {problem.variant} problem")
+        if problem.mode == "approximate":
+            self._one_rank("the approximate (pool-free) mode")
         # the problem's model, or the solver's for model=None
         model = problem.model or self._default_model()
         if problem.t_rounds is not None and model == "lt":
@@ -408,8 +463,10 @@ class IMMSolver:
         if timer is not None:
             timer.start()
         seed32 = round_seed(self.seed, self._cursor)
-        batch = (pol.run(lambda: self.engine.sample(seed32), "sample")
-                 if pol is not None else self.engine.sample(seed32))
+        sample = (self.engine.sample_sharded if self._block_rounds
+                  else self.engine.sample)
+        batch = (pol.run(lambda: sample(seed32), "sample")
+                 if pol is not None else sample(seed32))
 
         def append():
             if self._row_weight_mode:
@@ -518,6 +575,7 @@ class IMMSolver:
         seed), so the reference reads the file; the port's seed stream is
         ``meta["rng"] = {"kind": "counter", "seed", "cursor"}``, which the
         reference ignores."""
+        self._one_rank("a pool checkpoint")
         self._ensure_prepared()
         stats = self.stats
         state = dict(self.store.state())
@@ -557,6 +615,8 @@ class IMMSolver:
         pool, stats and selection; any further rounds come from the port's
         own stream, the solver's seed at cursor ``stats.rounds``.  The
         solver must have the options of the one that saved."""
+        if self.mesh is not None:
+            raise cov.not_sharded("a pool restore onto a mesh")
         if step is None:
             step = ckpt_mod.latest_step(ckpt_dir)
             if step is None:
@@ -644,6 +704,8 @@ class IMMSolver:
         ``signature_digest`` (an eps-driven solve interrupted in its LB
         loop) resumes after ``stats.lb_completed`` instead of running the
         finished iterations again over the larger pool."""
+        if deadline_s is not None:
+            self._one_rank("the deadline's degraded answer")
         r = self.prepare(problem)
         spec = self._selection_spec(r)
         p = problem
@@ -850,6 +912,7 @@ class IMMSolver:
         ``fault_policy``, the ``select`` boundary fires once a request with
         the solo ctx (so a matching injector can fail one request), then
         once around the batch's scan."""
+        self._one_rank("solve_stacked")
         if not problems:
             return []
         theta = problems[0].theta
@@ -992,6 +1055,7 @@ class IMMSolver:
         are refused, as in the reference.  The bookkeeping lands in
         :attr:`last_incremental` and in the stats history (a ``"delta"``
         entry)."""
+        self._one_rank("resolve_incremental")
         if not isinstance(self._engine_arg, str):
             raise ValueError(
                 "resolve_incremental needs a string engine= (the solver "
@@ -1058,7 +1122,7 @@ class IMMSolver:
 _SOLVER_KEYS = frozenset(("engine", "batch", "qcap", "ec", "model", "seed",
                           "selection", "sketch_k", "eval_batch", "device",
                           "fault_policy", "checkpoint_dir",
-                          "checkpoint_every", "checkpoint_keep"))
+                          "checkpoint_every", "checkpoint_keep", "mesh"))
 _PROBLEM_KEYS = frozenset(("model", "ell", "max_theta", "node_weights",
                            "costs", "budget", "candidates", "t_rounds",
                            "theta", "early_exit", "mode"))

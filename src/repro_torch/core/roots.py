@@ -2,7 +2,9 @@
 to node weights through a Walker alias table.
 
 Row r of a round with seed ``round_seed`` has the 32-bit row seed
-``counter_uniform_u32(round_seed, r)`` (:func:`row_seeds`).  A row's
+``counter_uniform_u32(round_seed, r)`` (:func:`row_seeds`); a block of
+lanes that starts at row ``row0`` of a larger round (a rank's share of a
+sharded round) draws rows ``row0``, ``row0 + 1``, ...  A row's
 bucket is ``(counter_uniform_u32(row_seed, 0xFFFFFFFF) * n) >> 32`` in
 int64: the top 32 bits of a 32x32-bit product, an integer map of the hash
 onto ``[0, n)`` (bias below n / 2^32).  Without a table the bucket is the
@@ -79,9 +81,12 @@ def build_alias_table(weights, device="cuda") -> AliasTable:
                       alias=torch.from_numpy(alias).to(dev))
 
 
-def row_seeds(seed32: int, batch: int, device) -> torch.Tensor:
-    """(batch,) int64 row seeds of one round."""
-    rows = torch.arange(batch, dtype=torch.int64, device=device)
+def row_seeds(seed32: int, batch: int, device, row0: int = 0) -> torch.Tensor:
+    """(batch,) int64 row seeds of rows ``row0 .. row0 + batch - 1`` of a
+    round: lane i draws ``counter_uniform_u32(seed32, row0 + i)`` (row
+    numbers taken mod 2^32).  ``row0 = 0`` is a whole round; rank d of D
+    ranks that share a round of D·b rows samples ``row0 = d·b``."""
+    rows = torch.arange(batch, dtype=torch.int64, device=device) + int(row0)
     return counter_uniform_u32(seed32, rows)
 
 

@@ -122,11 +122,13 @@ def detect_dedup_mode(g_rev: CSRGraph) -> str:
 def sample_rrsets_queue(g_rev: CSRGraph, batch: int, seed32: int, *,
                         qcap: int | None = None, ec: int = EC_DEFAULT,
                         dedup: str | None = None, table=None,
-                        root_tile: int = 1) -> QueueSample:
+                        root_tile: int = 1, row0: int = 0) -> QueueSample:
     """Sample one round of ``batch`` RR sets on the reverse CSR ``g_rev``
     with round seed ``seed32``, on ``g_rev``'s device; roots ∝ the weights
     of the alias ``table`` (``core/roots.py``) when one is given, and lanes
-    ``[tT, tT + T)`` on lane tT's root for ``root_tile`` T.
+    ``[tT, tT + T)`` on lane tT's root for ``root_tile`` T.  Lane i samples
+    row ``row0 + i`` of the round: rank d of a round that D ranks share
+    samples rows ``[d·b, (d+1)·b)`` with ``row0 = d·b``.
 
     ``dedup=None`` runs :func:`detect_dedup_mode` on the host (engines
     coalesce once and pass ``"none"``).  ``"segmented"`` needs rows sorted
@@ -138,7 +140,8 @@ def sample_rrsets_queue(g_rev: CSRGraph, batch: int, seed32: int, *,
     qcap = n if qcap is None else int(qcap)
     queue, lengths, overflowed, lane_steps, roots = ops.queue_bfs(
         g_rev.offsets, g_rev.indices, g_rev.weights, seed32, batch,
-        qcap=qcap, ec=ec, table=table, dedup=dedup, root_tile=root_tile)
+        qcap=qcap, ec=ec, table=table, dedup=dedup, root_tile=root_tile,
+        row0=row0)
     # the round's one host read
     width, steps = torch.stack((lengths.max().to(torch.int64),
                                 lane_steps.max())).tolist()

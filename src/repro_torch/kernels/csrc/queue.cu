@@ -8,7 +8,9 @@
 // no Pallas kernel.
 //
 // What it computes, lane for lane and byte for byte as the plain version.
-// Lane b draws its row seed s = counter_uniform_u32(round_seed, b) and its
+// Lane b draws its row seed s = counter_uniform_u32(round_seed, row0 + b)
+// (row0 = 0 for a whole round; rank d's b lanes of a round that D ranks
+// share start at row0 = d b; uint32 arithmetic) and its
 // bucket i = (uint64(counter_uniform_u32(s, 0xFFFFFFFF)) * n) >> 32, as
 // core/roots.py::row_seeds and draw_roots do.  Without an alias table the
 // bucket is the root; with one (prob, alias: weighted roots) the root is i
@@ -126,7 +128,8 @@ queue_bfs_kernel(const int32_t* __restrict__ offsets,
                  const int32_t* __restrict__ indices,
                  const float* __restrict__ weights, uint32_t round_seed,
                  int32_t n, int32_t qcap, int64_t ec, int64_t n_words,
-                 int32_t root_tile, int32_t* __restrict__ queue,
+                 int32_t root_tile, uint32_t row0,
+                 int32_t* __restrict__ queue,
                  uint32_t* visited, int32_t* __restrict__ roots,
                  int32_t* __restrict__ lengths,
                  bool* __restrict__ overflowed,
@@ -143,9 +146,10 @@ queue_bfs_kernel(const int32_t* __restrict__ offsets,
 
   // the row seed and root, in every thread; tiled, the root is the one
   // that the first lane of the tile draws
-  const uint32_t seed = counter_uniform_u32(round_seed, b);
+  const uint32_t seed = counter_uniform_u32(round_seed, row0 + b);
   const uint32_t root_seed =
-      kTiled ? counter_uniform_u32(round_seed, b - b % uint32_t(root_tile))
+      kTiled ? counter_uniform_u32(round_seed,
+                                   row0 + b - b % uint32_t(root_tile))
              : seed;
   const int32_t root = draw_root(root_seed, n, alias_prob, alias_node);
   uint32_t* words = vis.words();
@@ -178,7 +182,8 @@ cudaError_t launch(unsigned grid, size_t shared, cudaStream_t stream,
                    const void* offsets, const void* indices,
                    const void* weights, uint32_t round_seed, int32_t n,
                    int32_t qcap, int64_t ec, int64_t n_words,
-                   int32_t root_tile, void* queue, void* visited, void* roots,
+                   int32_t root_tile, uint32_t row0, void* queue,
+                   void* visited, void* roots,
                    void* lengths, void* overflowed, void* steps,
                    const void* prob, const void* alias) {
   auto kernel = queue_bfs_kernel<kDedup, kTiled>;
@@ -191,7 +196,7 @@ cudaError_t launch(unsigned grid, size_t shared, cudaStream_t stream,
       static_cast<const int32_t*>(offsets),
       static_cast<const int32_t*>(indices),
       static_cast<const float*>(weights), round_seed, n, qcap, ec, n_words,
-      root_tile, static_cast<int32_t*>(queue),
+      root_tile, row0, static_cast<int32_t*>(queue),
       static_cast<uint32_t*>(visited), static_cast<int32_t*>(roots),
       static_cast<int32_t*>(lengths), static_cast<bool*>(overflowed),
       static_cast<int64_t*>(steps), static_cast<const float*>(prob),
@@ -209,7 +214,8 @@ cudaError_t launch(unsigned grid, size_t shared, cudaStream_t stream,
 // lengths (int32), overflowed (bool), steps (int64): batch each; prob,
 // alias: null for uniform roots, or an alias table of n float32 / int32
 // (alias values in [0, n)), both or neither; dedup: 0 none, 1 segmented,
-// 2 sort; root_tile >= 1 (1: every lane its own root).  n >= 1, qcap >= 1,
+// 2 sort; root_tile >= 1 (1: every lane its own root); row0: the round's
+// row of lane 0 (0 for a whole round).  n >= 1, qcap >= 1,
 // ec >= 1, batch < 2^31.  Launches on `stream` of card `device`; returns
 // the cudaError_t of the launch.
 extern "C" int queue_bfs(const void* offsets, const void* indices,
@@ -218,7 +224,8 @@ extern "C" int queue_bfs(const void* offsets, const void* indices,
                          void* queue, void* visited, void* roots,
                          void* lengths, void* overflowed, void* steps,
                          const void* prob, const void* alias, int dedup,
-                         int32_t root_tile, int device, void* stream) {
+                         int32_t root_tile, uint32_t row0, int device,
+                         void* stream) {
   if (batch <= 0) return int(cudaGetLastError());
   if (n < 1 || qcap < 1 || ec < 1 || batch > 0x7FFFFFFF || root_tile < 1 ||
       dedup < kNone || dedup > kSort ||
@@ -236,6 +243,6 @@ extern "C" int queue_bfs(const void* offsets, const void* indices,
                              : (tiled ? launch<kNone, true> : launch<kNone, false>);
   return int(go(unsigned(batch), size_t(shared),
                 static_cast<cudaStream_t>(stream), offsets, indices, weights,
-                round_seed, n, qcap, ec, n_words, root_tile, queue, visited,
-                roots, lengths, overflowed, steps, prob, alias));
+                round_seed, n, qcap, ec, n_words, root_tile, row0, queue,
+                visited, roots, lengths, overflowed, steps, prob, alias));
 }

@@ -22,12 +22,13 @@ from repro_torch.kernels import membership as _membership
 from repro_torch.kernels import queue as _queue
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import refill as _refill
+from repro_torch.kernels import shard as _shard
 from repro_torch.kernels import sketch as _sketch
 
 _COUNTERS = (_bitset.LAUNCHES, _sketch.LAUNCHES, _bernoulli.LAUNCHES,
              _membership.LAUNCHES, _flash.LAUNCHES, _queue.LAUNCHES,
              _greedy.LAUNCHES, _celf.LAUNCHES, _lt.LAUNCHES,
-             _refill.LAUNCHES)
+             _refill.LAUNCHES, _shard.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -139,9 +140,12 @@ def bernoulli_edges(weights: torch.Tensor, seeds) -> torch.Tensor:
 
 def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
               weights: torch.Tensor, seed32: int, batch: int, *, qcap: int,
-              ec: int, table=None, dedup: str = "none", root_tile: int = 1):
+              ec: int, table=None, dedup: str = "none", root_tile: int = 1,
+              row0: int = 0):
     """One sampling round of the queue sampler with round seed ``seed32``
-    and ``batch`` lanes: every lane's row seed and root (∝ the weights of
+    and ``batch`` lanes, lane i row ``row0 + i`` of the round (``row0 = 0``
+    for a whole round, ``d·b`` for rank d's b lanes of a sharded one):
+    every lane's row seed and root (∝ the weights of
     the alias ``table``, a ``(prob, alias)`` pair, when one is given; lanes
     ``[tT, tT + T)`` share lane tT's root for ``root_tile`` T), and its BFS
     on the reverse CSR to its end, with the chunk ``dedup`` of rows that
@@ -152,10 +156,10 @@ def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
     if _route(offsets) == "cuda":
         return _queue.queue_bfs(offsets, indices, weights, seed32, batch,
                                 qcap=qcap, ec=ec, table=table, dedup=dedup,
-                                root_tile=root_tile)
+                                root_tile=root_tile, row0=row0)
     return _ref.queue_round_ref(offsets, indices, weights, seed32, batch,
                                 qcap=qcap, ec=ec, table=table, dedup=dedup,
-                                root_tile=root_tile)
+                                root_tile=root_tile, row0=row0)
 
 
 def refill_bfs(offsets: torch.Tensor, indices: torch.Tensor,
@@ -211,6 +215,29 @@ def greedy_flat(flat: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
                                    k=k)
     return _ref.greedy_flat_ref(flat, ids, valid, n=n, num_rows=num_rows,
                                 k=k)
+
+
+def occur_flat(flat: torch.Tensor, valid: torch.Tensor, *,
+               n: int) -> torch.Tensor:
+    """The valid elements of each node of a flat pool (a rank's shard):
+    (t,) int32 ``flat``, bool ``valid`` -> (n,) int32; the same bytes on
+    either route (``ref.occur_flat_ref``)."""
+    if _route(flat) == "cuda":
+        return _shard.occur_flat(flat, valid, n=n)
+    return _ref.occur_flat_ref(flat, valid, n=n)
+
+
+def shard_flat_step(flat: torch.Tensor, ids: torch.Tensor,
+                    valid: torch.Tensor, cov_words: torch.Tensor,
+                    u: torch.Tensor, *, n: int) -> torch.Tensor:
+    """One seed step of the sharded fused scan on a rank's shard: the rows
+    that hold the seed ``u`` (a one-element int64 tensor, never read on the
+    host) and are not in ``cov_words`` are ORed into it in place -> the
+    (n + 1,) int32 decrement, the new rows' count in slot n; the same bytes
+    on either route (``ref.shard_flat_step_ref`` says what they hold)."""
+    if _route(flat) == "cuda":
+        return _shard.shard_flat_step(flat, ids, valid, cov_words, u, n=n)
+    return _ref.shard_flat_step_ref(flat, ids, valid, cov_words, u, n=n)
 
 
 def greedy_flat_variant(flat: torch.Tensor, ids: torch.Tensor,

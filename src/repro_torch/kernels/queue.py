@@ -40,8 +40,8 @@ _vp, _i64 = ctypes.c_void_p, ctypes.c_int64
 _BFS = _build.Kernel("queue", "queue_bfs",
                      (_vp, _vp, _vp, ctypes.c_uint32, _i64, ctypes.c_int32,
                       ctypes.c_int32, _i64, _vp, _vp, _vp, _vp, _vp, _vp,
-                      _vp, _vp, ctypes.c_int, ctypes.c_int32, ctypes.c_int,
-                      _vp))
+                      _vp, _vp, ctypes.c_int, ctypes.c_int32, ctypes.c_uint32,
+                      ctypes.c_int, _vp))
 
 
 def visited_in_shared(n: int) -> bool:
@@ -98,7 +98,8 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, dev) -> None:
 
 def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
               weights: torch.Tensor, seed32: int, batch: int, *, qcap: int,
-              ec: int, table=None, dedup: str = "none", root_tile: int = 1):
+              ec: int, table=None, dedup: str = "none", root_tile: int = 1,
+              row0: int = 0):
     """One round of the queue sampler on the card.
 
     ``offsets`` (n+1,) int32, ``indices`` (m,) int32 and ``weights`` (m,)
@@ -108,7 +109,10 @@ def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
     lanes; ``table`` None (uniform roots) or an alias table ``(prob (n,)
     float32, alias (n,) int32)`` (``core/roots.py``) whose weights the roots
     follow; ``root_tile`` T >= 1 gives lanes ``[tT, tT + T)`` the root that
-    lane tT draws (MRIM).  Returns ``(queue (B, qcap) int32, lengths (B,)
+    lane tT draws (MRIM); lane i samples row ``row0 + i`` of the round (its
+    row seed ``counter_uniform_u32(seed32, row0 + i)``, row numbers mod
+    2^32): 0 for a whole round, ``d·b`` for rank d's b lanes of a round
+    that D ranks share.  Returns ``(queue (B, qcap) int32, lengths (B,)
     int32, overflowed (B,) bool, steps (B,) int64, roots (B,) int32)``:
     lane b's RR set is ``queue[b, :lengths[b]]`` in visit order, zeros
     after it, from root ``roots[b]``; ``steps[b]`` is its lock-step count
@@ -142,7 +146,8 @@ def queue_bfs(offsets: torch.Tensor, indices: torch.Tensor,
                    overflowed.data_ptr(), steps.data_ptr(),
                    None if prob is None else prob.data_ptr(),
                    None if alias is None else alias.data_ptr(), code,
-                   root_tile, index, _build.raw_stream(index))
+                   root_tile, int(row0) & 0xFFFFFFFF, index,
+                   _build.raw_stream(index))
         _build.raise_on(err, "queue_bfs")
         LAUNCHES["queue_bfs"] += 1
     return queue, lengths, overflowed, steps, roots

@@ -240,15 +240,15 @@ def queue_bfs_ref(offsets: torch.Tensor, indices: torch.Tensor,
 def queue_round_ref(offsets: torch.Tensor, indices: torch.Tensor,
                     weights: torch.Tensor, seed32: int, batch: int, *,
                     qcap: int, ec: int, table=None, dedup: str = "none",
-                    root_tile: int = 1):
+                    root_tile: int = 1, row0: int = 0):
     """One round of the queue sampler with round seed ``seed32``: the plain
-    version of ``csrc/queue.cu``.  The ``batch`` row seeds
-    (``core/roots.py::row_seeds``) and roots (``draw_roots``, ∝ the
+    version of ``csrc/queue.cu``.  The ``batch`` row seeds of rows ``row0
+    ..`` (``core/roots.py::row_seeds``) and roots (``draw_roots``, ∝ the
     weights of the alias ``table``, a ``(prob, alias)`` pair, when one is
     given; lane b's root drawn from the row seed of lane ``b - b mod
     root_tile``), then :func:`queue_bfs_ref` on them with ``dedup``.
     Returns ``queue_bfs_ref``'s four tensors and the (B,) int32 roots."""
-    seeds = row_seeds(seed32, batch, offsets.device)
+    seeds = row_seeds(seed32, batch, offsets.device, row0)
     lane = torch.arange(batch, device=offsets.device)
     roots = draw_roots(seeds[lane - lane % int(root_tile)],
                        offsets.shape[0] - 1, table)
@@ -441,7 +441,7 @@ def lt_round_ref(offsets: torch.Tensor, indices: torch.Tensor,
     given, as :func:`queue_round_ref` draws them), then
     :func:`lt_walk_ref` on them.  Returns its four tensors and the (B,)
     int32 roots."""
-    seeds = row_seeds(seed32, batch, offsets.device)
+    seeds = row_seeds(seed32, batch, offsets.device, row0=0)
     roots = draw_roots(seeds, offsets.shape[0] - 1, table)
     return (*lt_walk_ref(offsets, indices, rowcum, seeds, roots, qcap=qcap),
             roots)
@@ -545,6 +545,47 @@ def greedy_flat_ref(flat: torch.Tensor, ids: torch.Tensor,
         seeds.append(u)
     return (torch.stack(seeds).to(torch.int32),
             torch.stack(gains).to(torch.int32))
+
+
+def occur_flat_ref(flat: torch.Tensor, valid: torch.Tensor, *,
+                   n: int) -> torch.Tensor:
+    """The valid elements of each node v in [0, n) of a flat pool (a
+    rank's shard): the reference's Occur scatter-add of the sharded fused
+    scan, the plain version of ``csrc/shard.cu``'s ``occur_flat``.  ->
+    (n,) int32."""
+    f = flat.to(torch.int64)
+    keep = valid & (f >= 0) & (f < n)
+    return torch.zeros(n + 1, dtype=torch.int32, device=flat.device
+                       ).index_add_(0, torch.where(keep, f, n),
+                                    keep.to(torch.int32))[:n]
+
+
+def shard_flat_step_ref(flat: torch.Tensor, ids: torch.Tensor,
+                        valid: torch.Tensor, cov_words: torch.Tensor,
+                        u: torch.Tensor, *, n: int) -> torch.Tensor:
+    """One seed step of the sharded fused scan on a rank's shard: the
+    body of the reference's ``fused`` scan step, the plain version of
+    ``csrc/shard.cu``'s ``shard_flat_step``.
+
+    ``flat``/``ids``/``valid`` are the shard's (t,) node ids, row ids and
+    valid flags, ``cov_words`` its (rows/32,) int32 Covered words, ``u`` the
+    seed as a one-element tensor (read on its device, never on the host).
+    The rows that hold ``u`` in a valid element and are not covered are the
+    new rows (a row counts once, whatever it repeats; an element whose row
+    lies outside ``[0, rows)`` counts for none).  They are ORed into
+    ``cov_words`` in place.  Returns the (n + 1,) int32 decrement: slot v <
+    n the valid elements of node v in the new rows, slot n the new rows'
+    count."""
+    flat, ids, keep = _celf_pool(flat, ids, valid, cov_words)
+    newly = _newly_rows(flat, ids, keep, _unpack_covered(cov_words),
+                        u.reshape(()))
+    cov_words |= _pack_covered(newly)
+    elem = keep & newly[ids] & (flat >= 0) & (flat < n)
+    dec = torch.zeros(n + 1, dtype=torch.int32, device=flat.device
+                      ).index_add_(0, torch.where(elem, flat, n),
+                                   elem.to(torch.int32))
+    dec[n] = newly.sum(dtype=torch.int32)
+    return dec
 
 
 def greedy_flat_variant_ref(flat: torch.Tensor, ids: torch.Tensor,

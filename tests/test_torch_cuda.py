@@ -3118,3 +3118,104 @@ def test_card_registry_rehydrates_a_cpu_spill(card, tmp_path):
     got = entry.solver.solve(p)
     assert ops.launch_counts()["queue_bfs"] == before
     assert _fields(got) == _fields(want)
+
+
+def _shard_pool(rows, n, seed):
+    """A flat pool of ``rows`` RR sets of up to 40 distinct nodes, rows
+    contiguous (``build_store``'s layout), on the CPU."""
+    rng = np.random.default_rng(seed)
+    lists = [rng.choice(n, size=int(rng.integers(0, min(n, 40) + 1)),
+                        replace=False).tolist() for _ in range(rows)]
+    st = cov.build_store(lists, n, device="cpu")
+    return st.rr_flat, st.rr_ids, st.valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(1, 1), (97, 64), (5000, 3000),
+                                    (20000, 75879)])
+def test_occur_flat_kernel_equals_plain(card, rows, n):
+    flat, _, valid = _shard_pool(rows, n, rows)
+    valid = valid & torch.from_numpy(RNG.random(valid.shape[0]) < 0.9)
+    got = ops.occur_flat(flat.to(card), valid.to(card), n=n)
+    assert torch.equal(got.cpu(), ref.occur_flat_ref(flat, valid, n=n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(1, 1), (97, 64), (5000, 3000),
+                                    (20000, 75879)])
+def test_shard_flat_step_kernel_equals_plain_over_a_selection(card, rows, n):
+    """Eight seed steps of the sharded scan on one shard: the decrement,
+    the gain slot and the Covered words of every step equal the plain
+    version's, with no host read of the seed."""
+    flat, ids, valid = _shard_pool(rows, n, rows + 1)
+    num_rows = max(32, 1 << max(rows - 1, 0).bit_length())
+    occur = ref.occur_flat_ref(flat, valid, n=n)
+    cov_cpu = torch.zeros(num_rows // 32, dtype=torch.int32)
+    cov_gpu = cov_cpu.to(card)
+    args = tuple(t.to(card) for t in (flat, ids, valid))
+    for _ in range(8):
+        u = torch.argmax(occur)
+        want = ref.shard_flat_step_ref(flat, ids, valid, cov_cpu, u.view(1),
+                                       n=n)
+        got = ops.shard_flat_step(*args, cov_gpu, u.view(1).to(card), n=n)
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(cov_gpu.cpu(), cov_cpu)
+        occur -= want[:n]
+
+
+@pytest.mark.cuda
+def test_shard_wrappers_check_inputs(card):
+    flat, ids, valid = (t.to(card) for t in _shard_pool(10, 20, 3))
+    cov_words = torch.zeros(1, dtype=torch.int32, device=card)
+    u = torch.zeros(1, dtype=torch.int64, device=card)
+    with pytest.raises(TypeError):
+        ops.occur_flat(flat.to(torch.int64), valid, n=20)
+    with pytest.raises(ValueError):
+        ops.shard_flat_step(flat, ids, valid, cov_words, u.cpu(), n=20)
+    with pytest.raises(ValueError):
+        ops.shard_flat_step(flat, ids, valid, cov_words,
+                            u.to(torch.int32), n=20)
+    with pytest.raises(ValueError):
+        ops.shard_flat_step(flat, ids[:-1], valid, cov_words, u, n=20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks,b", [(2, 256), (8, 64)])
+def test_queue_bfs_row0_block_is_the_rounds_rows(card, ranks, b):
+    g = csr.coalesce_ic(csr.reverse(_graph(card)))
+    seed32 = round_seed(0, 1)
+    whole = ops.queue_bfs(g.offsets, g.indices, g.weights, seed32,
+                          ranks * b, qcap=g.n_nodes, ec=128)
+    for d in range(ranks):
+        block = ops.queue_bfs(g.offsets, g.indices, g.weights, seed32, b,
+                              qcap=g.n_nodes, ec=128, row0=d * b)
+        for got, want in zip(block, whole):
+            assert torch.equal(got, want[d * b:(d + 1) * b])
+
+
+@pytest.mark.cuda
+def test_one_rank_mesh_solve_on_card_equals_no_mesh(card, tmp_path):
+    """A one-rank gloo mesh on the card: the sharded protocol's flat,
+    bitset and CELF solves equal the solve without a mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_sample_mesh
+    g = _graph(card)
+    p = IMProblem(k=8, eps=0.5)
+    want = IMMSolver(g, batch=256, seed=0, device=card).solve(p)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdzv",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_sample_mesh(device=card)
+        for sel in ("fused", "bitset", "celf"):
+            ops.reset_launch_counts()
+            got = IMMSolver(g, batch=256, seed=0, selection=sel,
+                            mesh=mesh).solve(p)
+            assert got.seeds.tolist() == want.seeds.tolist(), sel
+            assert got.gains.tolist() == want.gains.tolist(), sel
+            assert got.frac == want.frac and got.spread == want.spread
+            if sel == "fused":
+                counts = ops.launch_counts()
+                assert counts["occur_flat"] and counts["shard_flat_step"]
+                assert counts["greedy_flat"] == 0
+    finally:
+        dist.destroy_process_group()

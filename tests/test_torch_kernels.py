@@ -144,7 +144,8 @@ def test_ops_dispatch_cpu_and_unknown_device():
                                     "celf_select": 0, "frontier_update": 0,
                                     "sketch_fold_rows": 0,
                                     "padded_greedy": 0, "lt_walk": 0,
-                                    "refill_bfs": 0, "greedy_stacked": 0}
+                                    "refill_bfs": 0, "greedy_stacked": 0,
+                                    "occur_flat": 0, "shard_flat_step": 0}
     with pytest.raises(ValueError, match="no kernel"):
         tops.occur_from_bitset(torch.zeros(4, 1, dtype=torch.int32,
                                            device="meta"))

@@ -59,7 +59,9 @@ def _reverse_reachable(g_rev, root):
 
 
 def test_engines_registry_and_refill_defaults():
-    assert list_engines() == ["dense", "lt", "mrim", "queue", "refill"]
+    assert list_engines() == ["dense", "lt", "mrim", "queue",
+                              "queue_sharded", "refill"]
+    assert list_engines() == jengine.list_engines()
     g_rev = csr.reverse(_wc(40, 160, 1))
     jg_rev = jcsr.reverse(jw.wc_weights(jcsr.from_edges(
         *jgen.erdos_renyi(40, 160, seed=1), 40)))

@@ -162,7 +162,8 @@ def test_ops_dispatch_counts_no_cpu_launch_and_wrappers_need_card():
         "celf_apply": 0, "celf_eval[weighted]": 0,
         "celf_apply[weighted]": 0, "celf_select": 0, "frontier_update": 0,
         "sketch_fold_rows": 0, "padded_greedy": 0, "lt_walk": 0,
-        "refill_bfs": 0, "greedy_stacked": 0}
+        "refill_bfs": 0, "greedy_stacked": 0, "occur_flat": 0,
+        "shard_flat_step": 0}
     with pytest.raises(ValueError, match="CUDA kernel"):
         tks.sketch_scatter_or(words, torch.tensor([1]), torch.tensor([3]))
     with pytest.raises(ValueError, match="CUDA kernel"):
